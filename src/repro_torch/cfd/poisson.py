@@ -31,9 +31,18 @@ from repro_torch._warn import warn_once_cache
 
 BACKENDS = ("reference", "packed", "full", "pallas", "fused")
 
+# pairs at the end of a solve swept with omega = 1 (the polish tail)
+POLISH = 10
+
 # grid shapes already warned about for the pallas -> reference odd-width
 # fallback (once per shape; reset by repro_torch._warn.reset_warning_caches)
 _ODD_NX_WARNED = warn_once_cache()
+
+
+def n_polish(iters: int, polish: int = POLISH) -> int:
+    """How many of a solve's ``iters`` pairs are polish pairs; shared by
+    every backend and by the fused-interval kernel."""
+    return min(polish, iters // 2)
 
 
 def resolve_backend(backend: Optional[str] = None) -> str:
@@ -169,18 +178,25 @@ def _full_sweeps(rhs, p, dx, dy, iters, n_sor, omega):
 
 
 def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
-          backend: Optional[str] = None, polish: int = 10):
-    """Red-black SOR on ``(..., ny, nx)``; the last ``polish`` sweeps run
-    with omega = 1 (``n_polish = min(polish, iters // 2)``).
+          backend: Optional[str] = None, polish: int = POLISH):
+    """Red-black SOR on ``(..., ny, nx)``; the last :func:`n_polish` pairs
+    run with omega = 1.
 
     ``backend="pallas"`` runs ``ceil(n_sor / inner_iters)`` rounds of the
     slab kernel (so 52 SOR pairs where "packed" does 50 at iters=60), then
-    the polish pairs on the packed planes, as ``repro`` does."""
+    the polish pairs on the packed planes, as ``repro`` does.  On an odd
+    grid width it has no checkerboard parity: a CPU tensor falls back to
+    the reference path (warning once per shape), a CUDA tensor raises."""
     backend = resolve_backend(backend)
     ny, nx = rhs.shape[-2:]
     if backend == "fused":
         backend = "reference"
     if backend == "pallas" and nx % 2:
+        if rhs.device.type == "cuda":
+            raise ValueError(
+                f"backend='pallas' needs an even grid width for checkerboard "
+                f"slab parity, got grid (ny={ny}, nx={nx}); the slab kernel "
+                f"cannot serve it, use backend='reference'")
         if (ny, nx) not in _ODD_NX_WARNED:
             _ODD_NX_WARNED.add((ny, nx))
             warnings.warn(
@@ -198,8 +214,8 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
         backend = "full" if nx % 2 else "packed"
     omega = float(omega)
     p = torch.zeros_like(rhs) if p0 is None else p0
-    n_polish = min(polish, iters // 2)
-    n_sor = iters - n_polish
+    n_pol = n_polish(iters, polish)
+    n_sor = iters - n_pol
 
     if backend == "full":
         return _full_sweeps(rhs, p, dx, dy, iters, n_sor, omega)
@@ -212,7 +228,7 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
         red, black = poisson_ops.rb_sor_planes(red, black, rhs_r, rhs_b,
                                                dx, dy, iters=n_sor,
                                                omega=omega)
-        schedule = [1.0] * n_polish
+        schedule = [1.0] * n_pol
     else:
         schedule = [omega if i < n_sor else 1.0 for i in range(iters)]
     for om in schedule:

@@ -18,6 +18,7 @@ import torch
 from repro_torch.cfd import probes as probes_mod
 from repro_torch.cfd.grid import (GEOMETRIES, GridConfig, geometry_index,
                                   points_to_ij)
+from repro_torch.device import resolve_device
 
 ACTUATIONS = ("jets", "rotary")
 
@@ -142,10 +143,11 @@ def scenario_params(scn: Scenario, grid: GridConfig, *,
                     obs_dim: Optional[int] = None,
                     act_dim: Optional[int] = None,
                     cd0: Optional[float] = None,
-                    device="cpu") -> ScenarioParams:
+                    device="cuda") -> ScenarioParams:
     """The per-env tensors of one scenario, padded to ``obs_dim`` probes
     and ``act_dim`` action slots; ``cd0`` supplies the calibrated warmup
     drag when the scenario pins none."""
+    device = resolve_device(device)
     pts = probes_mod.layout_positions(scn.probes)
     ij = points_to_ij(grid, pts).astype(np.float32)
     n = len(ij)
@@ -203,7 +205,7 @@ def batch_params(scenarios: Sequence, grid: GridConfig, *,
                  obs_dim: Optional[int] = None,
                  act_dim: Optional[int] = None,
                  cd0s: Optional[Sequence[float]] = None,
-                 device="cpu") -> ScenarioParams:
+                 device="cuda") -> ScenarioParams:
     """Stack scenarios into a batched ScenarioParams (leading dim = env),
     probe layouts and action vectors padded to a common width."""
     scns = resolve(scenarios)

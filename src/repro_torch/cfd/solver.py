@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.cfd import poisson
 from repro_torch.cfd.grid import Geometry, GridConfig
+from repro_torch.device import resolve_device
 
 
 class FlowState(NamedTuple):
@@ -53,8 +54,9 @@ def _per_env(x):
     return x[..., None, None] if torch.is_tensor(x) else x
 
 
-def init_state(cfg: GridConfig, geom: Geometry, device="cpu") -> FlowState:
+def init_state(cfg: GridConfig, geom: Geometry, device="cuda") -> FlowState:
     """Start from the inlet profile everywhere (impulsive start)."""
+    device = resolve_device(device)
     f32 = torch.float32
     inlet = torch.as_tensor(geom.inlet_u, dtype=f32, device=device)
     u = inlet[:, None].expand(cfg.ny, cfg.nx + 1)
@@ -248,10 +250,10 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
 
     ``backend="fused"`` runs the interval through
     ``repro_torch.kernels.actuation``: on a CUDA tensor one launch of the
-    hand-written fused-interval kernel, on a CPU tensor its plain twin;
-    grids it cannot serve (odd width, over the shared-memory budget) fall
-    back to the reference loop with a once-per-shape warning.  Every other
-    backend loops :func:`step`."""
+    hand-written fused-interval kernel, on a CPU tensor its plain twin.  A
+    grid the kernel cannot serve raises on a CUDA tensor; on a CPU tensor
+    an odd width falls back to the reference loop with a once-per-shape
+    warning.  Every other backend loops :func:`step`."""
     backend = poisson.resolve_backend(backend)
     if backend == "fused":
         from repro_torch.kernels.actuation import ops as actuation_ops
@@ -267,8 +269,9 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
                               cl=torch.stack(cls, dim=-1))
 
 
-def geom_to_arrays(geom: Geometry, device="cpu") -> GeomArrays:
+def geom_to_arrays(geom: Geometry, device="cuda") -> GeomArrays:
     """Static geometry as float32 tensors on ``device``."""
+    device = resolve_device(device)
     def as32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device
                                ).contiguous()

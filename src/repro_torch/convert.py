@@ -16,14 +16,17 @@ import numpy as np
 import torch
 
 from repro_torch.cfd import solver
+from repro_torch.device import resolve_device
 from repro_torch.drl import networks
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+    return torch.tensor(np.asarray(a, dtype=np.float32),
+                        device=resolve_device(device))
 
 
-def params_from_jax(tree: Mapping, device="cpu") -> networks.ActorCritic:
+def params_from_jax(tree: Mapping, device="cuda") -> networks.ActorCritic:
+    device = resolve_device(device)
     actor, critic = tree["actor"], tree["critic"]
     obs_dim, hidden = np.shape(actor[0]["w"])
     cfg = networks.PolicyConfig(obs_dim=int(obs_dim),
@@ -47,11 +50,11 @@ def params_from_jax(tree: Mapping, device="cpu") -> networks.ActorCritic:
     return model.to(device)
 
 
-def flow_state_from_numpy(u, v, p, device="cpu") -> solver.FlowState:
+def flow_state_from_numpy(u, v, p, device="cuda") -> solver.FlowState:
     return solver.FlowState(_t(u, device), _t(v, device), _t(p, device))
 
 
-def geom_arrays_from_numpy(fields: Sequence, device="cpu"
+def geom_arrays_from_numpy(fields: Sequence, device="cuda"
                            ) -> solver.GeomArrays:
     """``fields``: the eleven geometry arrays in ``GeomArrays`` order (e.g.
     the reference's ``GeomArrays`` as numpy; trailing per-body fields are

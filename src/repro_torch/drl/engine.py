@@ -108,7 +108,7 @@ class RolloutEngine:
         return model, opt_state, np.asarray(returns)
 
     def init(self, pcfg: networks.PolicyConfig, ppo_cfg: PPOConfig,
-             seed: int, device="cpu"):
+             seed: int, device="cuda"):
         """(model, optimizer, opt_state, generator) for a fresh run."""
         generator = torch.Generator().manual_seed(seed)
         model = networks.init_actor_critic(pcfg, generator, device=device)

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 POLICIES = ("mlp",)
 
 
@@ -73,8 +75,8 @@ class ActorCritic(nn.Module):
 
 
 def init_actor_critic(cfg: PolicyConfig, generator: torch.Generator,
-                      device="cpu") -> ActorCritic:
-    return ActorCritic(cfg, generator=generator).to(device)
+                      device="cuda") -> ActorCritic:
+    return ActorCritic(cfg, generator=generator).to(resolve_device(device))
 
 
 def _features(obs, aux):

@@ -11,10 +11,12 @@ pressure parity planes carried across every dt:
   which chains the solver's own ``_momentum`` -> packed SOR projection
   -> velocity correction, so the twin cannot drift from the solver.
 
-Tier selection (:func:`select_tier`) falls back to the reference loop,
-warning once per grid shape, when the grid width is odd (no checkerboard
-parity) or the packed planes exceed the shared memory of one block (the
-analogue of the reference's VMEM budget).
+Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
+(no checkerboard parity) falls back to the reference loop, warning once
+per grid shape.  A CUDA state the kernel cannot serve (odd width, or
+packed planes over the shared memory of one block, the analogue of the
+reference's VMEM budget) raises: the card never runs the plain loop in
+the kernel's place.
 """
 from __future__ import annotations
 
@@ -40,18 +42,37 @@ def smem_bytes(cfg: GridConfig) -> int:
     return 4 * (4 * cfg.ny * (cfg.nx // 2) + _SCRATCH_FLOATS)
 
 
-def n_polish(cfg: GridConfig) -> int:
-    return min(10, cfg.poisson_iters // 2)
+def check_kernel_grid(cfg: GridConfig) -> None:
+    """Raise ``ValueError`` unless the CUDA kernel can serve the grid: an
+    even width, and one env's packed planes within one block's shared
+    memory (res <= 17 at the default aspect)."""
+    ny, nx = cfg.ny, cfg.nx
+    if nx % 2:
+        raise ValueError(
+            f"backend='fused' needs an even grid width for packed "
+            f"checkerboard parity, got grid (ny={ny}, nx={nx}); use "
+            f"backend='reference' for this grid")
+    need = smem_bytes(cfg)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"backend='fused' keeps one env's four packed pressure planes in "
+            f"one block's shared memory: grid (ny={ny}, nx={nx}) needs {need} "
+            f"bytes, over the {SMEM_PER_BLOCK} a block may have.  Spreading "
+            f"an env over a thread-block cluster is not written yet; run "
+            f"this grid with backend='reference'")
 
 
 def select_tier(cfg: GridConfig, device) -> str:
     """Which realization serves ``backend="fused"`` for tensors on ``device``.
 
-    "cuda"       CUDA tensors: the hand-written kernel
+    "cuda"       CUDA tensors: the hand-written kernel; a grid it cannot
+                 serve raises (:func:`check_kernel_grid`)
     "plain"      CPU tensors: its plain PyTorch twin
-    "reference"  fallback (warns once per grid shape): odd grid width, or
-                 (on CUDA) planes over the shared memory of one block
+    "reference"  CPU tensors on a grid of odd width (warns once per shape)
     """
+    if torch.device(device).type == "cuda":
+        check_kernel_grid(cfg)
+        return "cuda"
     ny, nx = cfg.ny, cfg.nx
     if nx % 2:
         if ("odd_nx", ny, nx) not in _FALLBACK_WARNED:
@@ -62,20 +83,7 @@ def select_tier(cfg: GridConfig, device) -> str:
                 f"to the reference loop (this warning fires once per shape)",
                 RuntimeWarning, stacklevel=3)
         return "reference"
-    if torch.device(device).type != "cuda":
-        return "plain"
-    need = smem_bytes(cfg)
-    if need > SMEM_PER_BLOCK:
-        if ("smem", ny, nx) not in _FALLBACK_WARNED:
-            _FALLBACK_WARNED.add(("smem", ny, nx))
-            warnings.warn(
-                f"backend='fused' grid (ny={ny}, nx={nx}) needs {need} bytes "
-                f"of shared memory per block, over the {SMEM_PER_BLOCK} one "
-                f"block may have; falling back to the reference loop (this "
-                f"warning fires once per shape)",
-                RuntimeWarning, stacklevel=3)
-        return "reference"
-    return "cuda"
+    return "plain"
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +94,7 @@ def packed_projection_planes(cfg: GridConfig, red, black, rhs_r, rhs_b):
     """The pressure solve of one dt on packed planes: ``poisson_iters``
     pairs, the last ``n_polish`` unrelaxed."""
     iters = cfg.poisson_iters
-    n_sor = iters - n_polish(cfg)
+    n_sor = iters - poisson.n_polish(iters)
     omega = float(cfg.poisson_omega)
     row_odd = (torch.arange(cfg.ny, device=red.device) % 2 == 1)[:, None]
     for i in range(iters):
@@ -158,7 +166,7 @@ def _load():
     if lib.fused_interval_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_interval_launch.argtypes = (
-            [p] * 14 + [i] * 6 + [p, p])
+            [p] * 14 + [i] * 7 + [p, p])
         lib.fused_interval_launch.restype = ctypes.c_int
     return lib
 
@@ -173,10 +181,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     if dev.type != "cuda":
         raise ValueError(f"fused_interval_cuda needs CUDA tensors, got "
                          f"{dev}; CPU tensors take fused_interval_plain")
+    check_kernel_grid(cfg)
     ny, nx = cfg.ny, cfg.nx
-    if nx % 2 or smem_bytes(cfg) > SMEM_PER_BLOCK:
-        raise ValueError(f"grid (ny={ny}, nx={nx}) is not served by the "
-                         f"fused kernel (see select_tier)")
     batched = u.dim() == 3
     if not batched:
         u, v, p = u[None], v[None], p[None]
@@ -210,8 +216,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
             re_t.data_ptr(), mode.data_ptr(), u_out.data_ptr(),
             v_out.data_ptr(), p_out.data_ptr(), u_scr.data_ptr(),
             v_scr.data_ptr(), cd.data_ptr(), cl.data_ptr(), n, ny, nx,
-            n_steps, cfg.poisson_iters, n_polish(cfg),
-            ctypes.cast(consts, ctypes.c_void_p), stream)
+            n_steps, cfg.poisson_iters, poisson.n_polish(cfg.poisson_iters),
+            smem_bytes(cfg), ctypes.cast(consts, ctypes.c_void_p), stream)
     from repro_torch.kernels.build import check_launch
     check_launch(lib, err, "fused_interval")
     fused_interval_cuda.launches += 1
@@ -234,7 +240,8 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
     """One actuation interval with fields resident across every dt; the
     ``backend="fused"`` arm of ``solver.step_interval``.  The realization
     follows :func:`select_tier` for the state's device: a CUDA state
-    launches the kernel or raises, it never falls back to the twin."""
+    launches the kernel or raises, it never falls back to the twin or the
+    reference loop."""
     tier = select_tier(cfg, state.u.device)
     if re is None:
         re = cfg.re

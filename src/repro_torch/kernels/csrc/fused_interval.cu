@@ -285,19 +285,17 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   }
 }
 
-// Shared-memory bytes one block needs: four packed planes + reduction slots.
-extern "C" int fused_interval_smem_bytes(int ny, int nx) {
-  return static_cast<int>(sizeof(float)) * (4 * ny * (nx / 2) + 128);
-}
-
 // geom: 11 device pointers in GeomArrays order; consts: kNumConsts floats.
-// Launch on `stream`; returns the CUDA error code (0 = launched).
+// smem: the block's dynamic shared memory in bytes, the four packed planes
+// and the reduction slots (computed by the wrapper, kernels/actuation/ops.py
+// smem_bytes).  Launch on `stream`; returns the CUDA error code (0 =
+// launched).
 extern "C" int fused_interval_launch(
     const float* u_in, const float* v_in, const float* p_in,
     const void* const* geom, const float* jet_vel, const float* re,
     const float* act_mode, float* u_out, float* v_out, float* p_out,
     float* u_scratch, float* v_scratch, float* cd, float* cl, int n_env,
-    int ny, int nx, int n_steps, int iters, int n_polish,
+    int ny, int nx, int n_steps, int iters, int n_polish, int smem,
     const float* consts, void* stream) {
   Geom g;
   const float* const* gp = reinterpret_cast<const float* const*>(geom);
@@ -315,7 +313,6 @@ extern "C" int fused_interval_launch(
   Consts c;
   float* cp = reinterpret_cast<float*>(&c);
   for (int k = 0; k < kNumConsts; ++k) cp[k] = consts[k];
-  const int smem = fused_interval_smem_bytes(ny, nx);
   cudaError_t err = cudaFuncSetAttribute(
       fused_interval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

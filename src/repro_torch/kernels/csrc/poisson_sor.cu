@@ -87,18 +87,15 @@ __global__ void __launch_bounds__(1024) rb_sor_slab_packed_kernel(
   }
 }
 
-// Shared-memory bytes one block needs: four slab planes + four ghost columns.
-extern "C" int rb_sor_slabs_packed_smem_bytes(int ny, int w, int nslabs) {
-  return static_cast<int>(sizeof(float)) * (4 * ny * (w / nslabs) + 4 * ny);
-}
-
-// Launch on `stream`; returns the CUDA error code (0 = launched).
+// smem: the block's dynamic shared memory in bytes, four slab planes and
+// four ghost columns (computed by the wrapper, kernels/poisson/ops.py
+// smem_bytes).  Launch on `stream`; returns the CUDA error code (0 =
+// launched).
 extern "C" int rb_sor_slabs_packed_launch(
     const float* red, const float* black, const float* rhs_r,
     const float* rhs_b, float* red_out, float* black_out, int n_env, int ny,
-    int w, int nslabs, int inner_iters, float dx2, float dy2, float inv_diag,
-    float om, float one_m_om, void* stream) {
-  const int smem = rb_sor_slabs_packed_smem_bytes(ny, w, nslabs);
+    int w, int nslabs, int inner_iters, int smem, float dx2, float dy2,
+    float inv_diag, float om, float one_m_om, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       rb_sor_slab_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -35,6 +35,12 @@ def _check_slabs(w: int, nslabs: int) -> int:
     return w // nslabs
 
 
+def smem_bytes(ny: int, bxp: int) -> int:
+    """Shared-memory bytes one block of the kernel claims for a ``(ny,
+    bxp)`` slab: its four packed planes and four ghost columns."""
+    return 4 * (4 * ny * bxp + 4 * ny)
+
+
 def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
                               dy: float, omega: float, nslabs: int,
                               inner_iters: int):
@@ -71,7 +77,7 @@ def _load():
     if lib.rb_sor_slabs_packed_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rb_sor_slabs_packed_launch.argtypes = (
-            [p] * 6 + [i] * 5 + [f] * 5 + [p])
+            [p] * 6 + [i] * 6 + [f] * 5 + [p])
         lib.rb_sor_slabs_packed_launch.restype = ctypes.c_int
     return lib
 
@@ -86,7 +92,7 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
                          f"{dev}; CPU tensors take the plain twin")
     ny, w = red.shape[-2:]
     bxp = _check_slabs(w, nslabs)
-    smem = 4 * (4 * ny * bxp + 4 * ny)
+    smem = smem_bytes(ny, bxp)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"a ({ny}, {bxp}) slab needs {smem} bytes of shared "
                          f"memory, over the {SMEM_PER_BLOCK}-byte limit of "
@@ -109,8 +115,8 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rb_sor_slabs_packed_launch(
             *(t.data_ptr() for t in planes), out_r.data_ptr(),
-            out_b.data_ptr(), n, ny, w, nslabs, inner_iters, dx2, dy2,
-            inv_diag, omega, 1.0 - omega, stream)
+            out_b.data_ptr(), n, ny, w, nslabs, inner_iters, smem, dx2,
+            dy2, inv_diag, omega, 1.0 - omega, stream)
     from repro_torch.kernels.build import check_launch
     check_launch(lib, err, "rb_sor_slabs_packed")
     rb_sor_slabs_packed_cuda.launches += 1

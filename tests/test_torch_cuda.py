@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.cfd import grid as tgrid
+from repro_torch.cfd import poisson as tpoisson
 from repro_torch.cfd import solver as tsolver
 from repro_torch.kernels.actuation import ops as aops
 from repro_torch.kernels.poisson import ops as tops
@@ -82,3 +83,21 @@ def test_fused_kernel_matches_twin_on_card(cuda):
     for x, y, tol in zip(a, b, (1e-4, 1e-4, 1e-3)):
         assert max_diff(y, x) <= tol
     assert max_diff(ob.cd, oa.cd) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
+    """On the card there is no fallback: an odd width for the slab kernel
+    and a res-18 grid for the fused kernel (its packed planes over one
+    block's shared memory) raise instead of running the plain loop."""
+    rhs = torch.zeros((8, 11), device=cuda)
+    with pytest.raises(ValueError, match="even grid width"):
+        tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    cfg = tgrid.GridConfig(res=18)
+    geom = tgrid.build_geometry(cfg)
+    n0 = aops.fused_interval_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tsolver.step_interval(cfg, tsolver.geom_to_arrays(geom, cuda),
+                              tsolver.init_state(cfg, geom, cuda), 0.0, 1,
+                              backend="fused")
+    assert aops.fused_interval_cuda.launches == n0

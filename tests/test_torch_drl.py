@@ -48,7 +48,7 @@ ATOL_NET = 5e-6
 @pytest.mark.parametrize("with_aux", [False, True])
 def test_mlp_heads_match_with_converted_params(with_aux):
     params = _jax_params()
-    model = params_from_jax(_np_tree(params))
+    model = params_from_jax(_np_tree(params), device="cpu")
     obs = _obs(16)
     mask = _aux(16)
     aux_j = {"xy": jnp.zeros((16, PCFG["obs_dim"], 2)),
@@ -74,7 +74,7 @@ def test_mlp_heads_match_with_converted_params(with_aux):
 def test_sample_action_with_injected_noise():
     """The reference's normal draw, injected as eps, gives its action."""
     params = _jax_params()
-    model = params_from_jax(_np_tree(params))
+    model = params_from_jax(_np_tree(params), device="cpu")
     obs = _obs(1)[0]
     key = jax.random.PRNGKey(7)
     act_j, logp_j = jnet.sample_action(params, jnp.asarray(obs), key)
@@ -87,7 +87,7 @@ def test_sample_action_with_injected_noise():
 
 def test_params_roundtrip_and_shapes():
     tree = _np_tree(_jax_params())
-    model = params_from_jax(tree)
+    model = params_from_jax(tree, device="cpu")
     back = params_to_numpy(model)
     for side in ("actor", "critic"):
         for a, b in zip(tree[side], back[side]):
@@ -95,7 +95,8 @@ def test_params_roundtrip_and_shapes():
             assert np.array_equal(a["b"], b["b"])
     assert model.actor[0].weight.shape == (PCFG["hidden"], PCFG["obs_dim"])
     fresh = tnet.init_actor_critic(tnet.PolicyConfig(**PCFG),
-                                   torch.Generator().manual_seed(0))
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
     w = fresh.actor[0].weight.detach()
     # truncated at 2 std of the fan-in scale, zero biases
     assert float(w.abs().max()) <= 2.0 / np.sqrt(PCFG["obs_dim"]) + 1e-6
@@ -159,7 +160,7 @@ def _batch(n, seed=6, valid=None):
 @pytest.mark.parametrize("with_valid", [False, True])
 def test_ppo_loss_matches(with_valid):
     params = _jax_params()
-    model = params_from_jax(_np_tree(params))
+    model = params_from_jax(_np_tree(params), device="cpu")
     valid = None
     if with_valid:
         valid = np.ones(32, np.float32)
@@ -184,7 +185,7 @@ def test_one_ppo_update_with_reference_permutations():
     params move by ~1e-2; float32 gradient differences (~1e-6 relative)
     keep the two runs within 1e-4 of each other."""
     params = _jax_params()
-    model = params_from_jax(_np_tree(params))
+    model = params_from_jax(_np_tree(params), device="cpu")
     b = _batch(64, seed=8)
     cfg_j, cfg_t = jppo.PPOConfig(), tppo.PPOConfig()
     opt_j = jppo.make_optimizer(cfg_j)
@@ -223,7 +224,8 @@ def test_ppo_update_guard_off_equals_guard_on_when_finite():
                       for e in range(2)])
     out = []
     for skip in (True, False):
-        model = params_from_jax(_np_tree(_jax_params()))
+        model = params_from_jax(_np_tree(_jax_params()),
+                                device="cpu")
         cfg = tppo.PPOConfig(epochs=2, skip_nonfinite_grads=skip)
         opt = tppo.make_optimizer(cfg)
         _, step, m = tppo.ppo_update(
@@ -237,7 +239,8 @@ def test_ppo_update_guard_off_equals_guard_on_when_finite():
 
 
 def test_ppo_update_skips_nonfinite_gradients():
-    model = params_from_jax(_np_tree(_jax_params()))
+    model = params_from_jax(_np_tree(_jax_params()),
+                                device="cpu")
     before = [p.detach().clone() for p in model.parameters()]
     b = _batch(32, seed=9)
     b["adv"][0] = np.nan

@@ -67,7 +67,8 @@ def test_scenario_registry_and_params_match():
     grid_j, grid_t = jgrid.GridConfig(res=6), tgrid.GridConfig(res=6)
     names = ["cyl_re100", "cyl_re200_rotary", "cyl_re100_sparse8"]
     ref = jscn.batch_params(names, grid_j, cd0s=[3.0, 3.5, 4.0])
-    out = tscn.batch_params(names, grid_t, cd0s=[3.0, 3.5, 4.0])
+    out = tscn.batch_params(names, grid_t, cd0s=[3.0, 3.5, 4.0],
+                           device="cpu")
     for f in jscn.ScenarioParams._fields:
         assert np.array_equal(np.asarray(getattr(ref, f)),
                               to_np(getattr(out, f))), f
@@ -77,7 +78,8 @@ def test_scenario_registry_and_params_match():
     with pytest.raises(ValueError, match="n_envs"):
         tscn.assign_envs(names, 2)
     with pytest.raises(ValueError, match="no cd0"):
-        tscn.scenario_params(tscn.get_scenario("cyl_re100"), grid_t)
+        tscn.scenario_params(tscn.get_scenario("cyl_re100"), grid_t,
+                             device="cpu")
 
 
 ENV_KW = dict(steps_per_action=4, actions_per_episode=2, warmup_time=0.2)

@@ -21,7 +21,8 @@ def remeasured():
     ref = np.load(GOLDEN)
     cfg = GridConfig(res=int(ref["res"]), dt=float(ref["dt"]),
                      poisson_iters=int(ref["poisson_iters"]))
-    state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"])
+    state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"],
+                                  device="cpu")
     # backend="fused" on a CPU state runs the fused kernel's plain twin
     _, cds, cls = run_uncontrolled(cfg, state, int(ref["meas_steps"]),
                                    backend="fused")

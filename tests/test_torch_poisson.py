@@ -144,3 +144,21 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tops.rb_sor_slabs_packed_cuda(*planes, dx=0.1, dy=0.1, omega=1.7,
                                       nslabs=1, inner_iters=1)
+
+
+@pytest.mark.parametrize("iters,expect", [(60, 10), (16, 8), (1, 0)])
+def test_n_polish_is_the_references(iters, expect):
+    """One polish count for every backend and the fused kernel: the
+    reference's ``min(polish, iters // 2)`` with polish 10."""
+    assert tp.n_polish(iters) == expect == min(10, iters // 2)
+
+
+def test_slab_kernel_smem_budget():
+    """The slab kernel's shared memory, owned by the wrapper: four planes
+    and four ghost columns.  A res-16 plane (66, 176) fits one block; a
+    res-18 plane (74, 198) does not, and the CUDA wrapper would refuse it
+    (it checks the budget before it looks for a card)."""
+    from repro_torch.kernels import SMEM_PER_BLOCK
+    assert tops.smem_bytes(66, 176) == 4 * (4 * 66 * 176 + 4 * 66)
+    assert tops.smem_bytes(66, 176) <= SMEM_PER_BLOCK
+    assert tops.smem_bytes(74, 198) > SMEM_PER_BLOCK

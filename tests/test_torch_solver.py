@@ -43,7 +43,11 @@ def developed():
 
 @pytest.fixture(scope="module")
 def ga_t():
-    return tsolver.geom_to_arrays(tgrid.build_geometry(CFG_T))
+    return tsolver.geom_to_arrays(tgrid.build_geometry(CFG_T), "cpu")
+
+
+def _flow(st):
+    return flow_state_from_numpy(*st, device="cpu")
 
 
 def _check_flow(ref_flow, out_flow, what):
@@ -61,9 +65,9 @@ def test_geometry_identical_to_reference(res):
         assert np.array_equal(getattr(gj, f), getattr(gt, f)), f
     assert gj.cell_volume == gt.cell_volume
     ga_j = jsolver.geom_to_arrays(gj)
-    ga_t = tsolver.geom_to_arrays(gt)
+    ga_t = tsolver.geom_to_arrays(gt, "cpu")
     carried = geom_arrays_from_numpy([np.asarray(a) for a in ga_j
-                                      if a is not None])
+                                      if a is not None], device="cpu")
     for f in tsolver.GeomArrays._fields:     # same order, same float32
         assert np.array_equal(np.asarray(getattr(ga_j, f)),
                               getattr(ga_t, f).numpy()), f
@@ -88,7 +92,7 @@ def test_non_cylinder_geometry_not_ported():
 def test_init_state_matches(developed):
     geom_j, geom_t = jgrid.build_geometry(CFG_J), tgrid.build_geometry(CFG_T)
     for r, o in zip(jsolver.init_state(CFG_J, geom_j),
-                    tsolver.init_state(CFG_T, geom_t)):
+                    tsolver.init_state(CFG_T, geom_t, "cpu")):
         assert np.array_equal(np.asarray(r), o.numpy())
 
 
@@ -98,7 +102,7 @@ def test_step_matches_reference(developed, ga_t, act_mode):
     mode_j = None if act_mode is None else jnp.float32(act_mode)
     ref, out_j = jsolver.step(CFG_J, ga, jsolver.FlowState(*st),
                               jnp.float32(0.4), act_mode=mode_j)
-    out, out_t = tsolver.step(CFG_T, ga_t, flow_state_from_numpy(*st), 0.4,
+    out, out_t = tsolver.step(CFG_T, ga_t, _flow(st), 0.4,
                               act_mode=act_mode)
     _check_flow(ref, out, "step")
     assert_close(out_j.cd, out_t.cd, ATOL_CD, "cd")
@@ -126,7 +130,7 @@ def test_step_interval_matches_reference(developed, ga_t, backend):
                                         jnp.float32(-0.3), 3,
                                         backend=backend)
     out, outs_t = tsolver.step_interval(CFG_T, ga_t,
-                                        flow_state_from_numpy(*st), -0.3, 3,
+                                        _flow(st), -0.3, 3,
                                         backend=backend)
     _check_flow(ref, out, backend)
     assert outs_t.cd.shape == (3,)
@@ -141,7 +145,7 @@ def test_fused_twin_matches_reference_jnp_tier(developed, ga_t, act_mode):
     ref, outs_j = jops.fused_interval(CFG_J, ga, jsolver.FlowState(*st),
                                       jnp.float32(0.5), 4, act_mode=mode_j,
                                       tier="jnp")
-    out, outs_t = tops.fused_interval(CFG_T, ga_t, flow_state_from_numpy(*st),
+    out, outs_t = tops.fused_interval(CFG_T, ga_t, _flow(st),
                                       0.5, 4, act_mode=act_mode)
     _check_flow(ref, out, "fused")
     assert_close(outs_j.cd, outs_t.cd, ATOL_CD, "cd")
@@ -155,7 +159,7 @@ def test_fused_twin_matches_reference_pallas_tier(developed, ga_t):
                                       jnp.float32(0.5), 2,
                                       act_mode=jnp.float32(0.0),
                                       tier="pallas")
-    out, outs_t = tops.fused_interval(CFG_T, ga_t, flow_state_from_numpy(*st),
+    out, outs_t = tops.fused_interval(CFG_T, ga_t, _flow(st),
                                       0.5, 2, act_mode=0.0)
     _check_flow(ref, out, "fused vs pallas")
     assert_close(outs_j.cd, outs_t.cd, ATOL_CD, "cd")
@@ -164,7 +168,7 @@ def test_fused_twin_matches_reference_pallas_tier(developed, ga_t):
 def test_fused_twin_batched_mixed_envs(developed, ga_t):
     """A batch with per-env jet/Re/act_mode equals each env run alone."""
     _, st = developed
-    flow = flow_state_from_numpy(*st)
+    flow = _flow(st)
     batch = tsolver.FlowState(*(torch.stack([a, a, a]) for a in flow))
     jet = torch.tensor([0.5, -0.2, 0.1])
     re = torch.tensor([100.0, 200.0, 100.0])
@@ -184,7 +188,7 @@ def test_fused_plain_equals_reference_loop(developed, ga_t):
     """The fused twin and the port's own reference loop are the same
     iteration (packed SOR, same polish) on an even grid."""
     _, st = developed
-    flow = flow_state_from_numpy(*st)
+    flow = _flow(st)
     a, oa = tops.fused_interval(CFG_T, ga_t, flow, 0.3, 3)
     b, ob = tsolver.step_interval(CFG_T, ga_t, flow, 0.3, 3,
                                   act_mode=0.0, backend="reference")
@@ -193,20 +197,26 @@ def test_fused_plain_equals_reference_loop(developed, ga_t):
 
 
 def test_select_tier_and_budget(monkeypatch):
+    """A CUDA state the kernel cannot serve raises: the card never runs the
+    plain loop in the kernel's place.  A CPU state ignores the budget."""
     reset_warning_caches()
+    res16, res32 = tgrid.GridConfig(res=16), tgrid.GridConfig(res=32)
     assert tops.select_tier(CFG_T, "cpu") == "plain"
-    assert tops.select_tier(tgrid.GridConfig(res=16), "cuda") == "cuda"
-    assert tops.smem_bytes(tgrid.GridConfig(res=16)) == 4 * (4 * 66 * 176 + 128)
-    # res 32 would need 743,936 bytes: over one block's 232,448
-    assert tops.smem_bytes(tgrid.GridConfig(res=32)) > tops.SMEM_PER_BLOCK
+    assert tops.select_tier(res16, "cuda") == "cuda"
+    assert tops.smem_bytes(res16) == 4 * (4 * 66 * 176 + 128)
+    # res 17 is the largest default-aspect grid one block holds; res 32
+    # would need 743,936 bytes, over one block's 232,448
+    assert tops.select_tier(tgrid.GridConfig(res=17), "cuda") == "cuda"
+    assert tops.smem_bytes(res32) > tops.SMEM_PER_BLOCK
+    for cfg in (tgrid.GridConfig(res=18), res32):
+        with pytest.raises(ValueError, match="shared memory"):
+            tops.select_tier(cfg, "cuda")
+    assert tops.select_tier(res32, "cpu") == "plain"
     monkeypatch.setattr(tops, "SMEM_PER_BLOCK", 1000)
-    with pytest.warns(RuntimeWarning, match="shared memory"):
-        assert tops.select_tier(tgrid.GridConfig(res=16), "cuda") == \
-            "reference"
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert tops.select_tier(tgrid.GridConfig(res=16), "cuda") == \
-            "reference"
+        with pytest.raises(ValueError, match="backend='reference'"):
+            tops.select_tier(res16, "cuda")
     reset_warning_caches()
 
 
@@ -217,14 +227,19 @@ class _OddGrid:
 
 
 def test_fused_odd_width_warns_once_per_shape():
+    """On a CPU state an odd width falls back to the reference loop,
+    warning once per shape; on a CUDA state it raises."""
     reset_warning_caches()
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         assert tops.select_tier(_OddGrid, "cpu") == "reference"
-        assert tops.select_tier(_OddGrid, "cuda") == "reference"
+        assert tops.select_tier(_OddGrid, "cpu") == "reference"
         assert len(w) == 1 and "falls back" in str(w[0].message)
         reset_warning_caches()
         assert tops.select_tier(_OddGrid, "cpu") == "reference"
+        assert len(w) == 2
+        with pytest.raises(ValueError, match="even grid width"):
+            tops.select_tier(_OddGrid, "cuda")
         assert len(w) == 2
     reset_warning_caches()
 
@@ -232,5 +247,5 @@ def test_fused_odd_width_warns_once_per_shape():
 def test_fused_plain_tier_refuses_other_devices(developed, ga_t):
     _, st = developed
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tops.fused_interval_cuda(CFG_T, ga_t, flow_state_from_numpy(*st),
+        tops.fused_interval_cuda(CFG_T, ga_t, _flow(st),
                                  0.0, 1)
