@@ -2,21 +2,33 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc); builds the hand-written
-kernels from src/repro_torch/kernels/csrc into build/repro_torch_kernels/.
+Needs one CUDA card and the CUDA toolkit (nvcc); builds the five
+hand-written kernels from src/repro_torch/kernels/csrc into
+build/repro_torch_kernels/ (one nvcc process each, in parallel).
 Phases (any failure exits non-zero):
 
 1. kernel checks: each kernel against its plain PyTorch twin on the card at
-   the training shape (res 16, 4 envs), with the stated tolerance, timed
-   with CUDA events;
+   the shape its path gives it (res 16 and 4 envs for the CFD kernels;
+   B=1, S=4096 at phi4-mini's and rwkv6-3b's widths in bf16 for flash
+   attention and WKV6; flash attention also in float32 at that shape and
+   in a small sliding-window case, held by measures scaled to its output,
+   which must reject two deliberately wrong variants), with the stated
+   tolerance, timed with CUDA events;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
 3. the second path: one short episode with backend="pallas"; the
    packed-SOR kernel must run;
-4. golden physics through the fused kernel: the res-8 fixture's Strouhal
+4. the language-model paths: ``lm_loss(backend="pallas")`` of
+   phi4-mini-3.8b and of rwkv6-3b at full width and depth (random bf16
+   params from a seed), B=1, S=4096; one flash-attention or WKV6 launch
+   per layer, logits and loss held against backend="reference";
+5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
+   iters=50, 13 launches of its kernel, the residual reduced;
+6. golden physics through the fused kernel: the res-8 fixture's Strouhal
    number, mean C_D and C_L amplitude within the reference's tolerances;
-5. one JSON line listing both kernels, then the card's line and the result.
+7. one JSON line listing the five kernels, then the card's line and the
+   result.
 
 Imports nothing of jax or of the reference package.
 """
@@ -36,7 +48,38 @@ TOL_ST, TOL_CD, TOL_AMP = 0.015, 0.01, 0.05
 # that stays well inside these (u, v are O(1), p and C_D O(5))
 TOL_FUSED = {"u": 1e-4, "v": 1e-4, "p": 1e-3, "cd": 1e-3, "cl": 1e-3}
 TOL_SOR = 1e-5                 # 52 pairs on unit-variance planes
+# flash attention.  An output row averages v over up to S keys, so |o|
+# falls as 1/sqrt(keys) along the sequence (about 1 at the first row, 0.02
+# at the last of 4096): an absolute limit would be loose for most rows.  So
+# the kernel is held by two measures scaled to the output, (rel-RMS: the
+# RMS of kernel - plain over the RMS of plain, worst row: the largest
+# max|kernel - plain| of a row over max|plain| of that row).  bfloat16: p
+# is rounded at the running max in the kernel and after normalising in the
+# twin, the twin's scores are rounded, and both round the output, each
+# 2^-9 relative at most: 4.3e-3 rel-RMS and 1.7e-2 in the worst of 98304
+# rows on the H100.  float32: only the order of the sums differs, 4.6e-7
+# and 5.5e-6.  The limits are 2-10x those readings; the wrong variants of
+# flash_wrong_kernels read 0.36 and 1.4 rel-RMS
+TOL_FLASH = {"bfloat16": (1e-2, 5e-2), "float32": (5e-6, 5e-5)}
+# WKV6, bf16 in and out: both compute the float32 recurrence on the same
+# values (the chunked algebra against the sequential one), ~1e-6 apart, so
+# the float32 state agrees to 2e-5 of its scale; the bf16 outputs differ by
+# at most one rounding step where the two float32 values straddle a bf16
+# boundary: one ulp, at most 2^-7 of the largest |out|.  Relative to the
+# largest |x|
+TOL_WKV_OUT, TOL_WKV_STATE = 2 ** -7, 2e-5
+# lm_loss at full width in bf16, backend "pallas" against "reference".  The
+# kernels round p and the attention / WKV output to bf16 (8 bits, 2^-8
+# relative) at other points than the plain mixers.  Layer by layer, on the
+# same input, a block's update then differs by a few bf16 ulps of its RMS:
+# 3e-2 allowed, and the logits of the last block likewise.  Through all 32
+# random layers those differences grow (the reference package's own two
+# backends differ by ~30% of the logits' RMS after 32 bf16 layers at
+# reduced width), so the full-depth logits are reported, not held; the loss
+# of near-uniform predictions (~ln V) moves little: 5e-2 allowed
+TOL_LM_LAYER, TOL_LM_LOSS = 3e-2, 5e-2
 FP32_PEAK = 67e12              # H100 SXM, FLOP/s outside the tensor cores
+BF16_PEAK = 989e12             # H100 SXM, dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12             # bytes/s
 # float32 operations per point, counted from the kernels' source
 FLOP_SOR_POINT = 10            # one point of one half-sweep
@@ -71,8 +114,8 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops, nbytes, peak=FP32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -188,19 +231,238 @@ def check_sor(dev, cfg, n_env, iters):
             "shape": f"one rb_sor_planes solve: res {cfg.res} planes "
                      f"({ny}, {w}), {n_env} envs, {rounds} launches"}
 
+def check_sor_full(dev, cfg, n_env, iters):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.poisson import ops
+    rng = np.random.default_rng(2)
+    ny, nx = cfg.ny, cfg.nx
+    rhs, p0 = (torch.tensor(s * rng.standard_normal((n_env, ny, nx)),
+                            dtype=torch.float32, device=dev)
+               for s in (1.0, 0.1))
+    inner, nslabs = 4, ops._pick_nslabs(nx)
+    rounds = -(-iters // inner)
+
+    def kernel():
+        return ops.rb_sor(rhs, cfg.dx, cfg.dy, iters=iters,
+                          omega=cfg.poisson_omega, p0=p0, packed=False)
+
+    def plain():
+        p = p0
+        for _ in range(rounds):
+            p = ops.rb_sor_slabs_plain(p, rhs, dx=cfg.dx, dy=cfg.dy,
+                                       omega=cfg.poisson_omega,
+                                       nslabs=nslabs, inner_iters=inner)
+        return p
+
+    err = float((kernel() - plain()).abs().max())
+    print(f"[kernels] rb_sor_slabs res {cfg.res} N={n_env} rb_sor(iters="
+          f"{iters}, packed=False) = {rounds} rounds x {inner} pairs: "
+          f"max|kernel - plain| {err:.3e} (tol {TOL_SOR:.0e})")
+    if not err <= TOL_SOR:
+        fail(f"rb_sor_slabs differs from its twin by {err:.3e}")
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3)
+    flops = n_env * rounds * inner * ny * nx * FLOP_SOR_POINT
+    nbytes = 4 * n_env * ny * nx * 3
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[kernels] rb_sor_slabs: solve {ms:.4f} ms ({rounds} launches), "
+          f"plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB)")
+    return {"name": "rb_sor_slabs", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/poisson_sor_full.cu",
+            "replaces": "src/repro/kernels/poisson/kernel.py:37",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "no single PyTorch call computes this",
+            "shape": f"one rb_sor(packed=False) solve: res {cfg.res} grid "
+                     f"({ny}, {nx}), {n_env} grids, {rounds} launches"}
+
+
+def flash_measures(out, ref):
+    """(rel-RMS, worst row, max abs) of out against ref, (B, S, H, dh)."""
+    d = (out.float() - ref.float()).abs()
+    row = d.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-30)
+    return rel_rms(out, ref), float(row.max()), float(d.max())
+
+
+def flash_held(what, measures, dtype):
+    """Print the measures against their limits; False if one is over."""
+    rel, row, err = measures
+    tol_rel, tol_row = TOL_FLASH[dtype]
+    print(f"[kernels] flash_attention {what}: rel-RMS {rel:.3e} (tol "
+          f"{tol_rel:.0e}), worst row {row:.3e} (tol {tol_row:.0e}), "
+          f"max abs {err:.3e}")
+    return rel <= tol_rel and row <= tol_row
+
+
+def flash_case(dev, B, S, H, Hkv, dh, window, seed, dtype="bfloat16"):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.standard_normal((B, S, h, dh)),
+                            dtype=torch.float32, device=dev
+                            ).to(getattr(torch, dtype)) for h in (H, Hkv, Hkv))
+
+    def kernel():
+        return ops.flash_attention_cuda(q, k, v, causal=True,
+                                        sliding_window=window)
+
+    def plain():
+        return ops.flash_attention_plain(q, k, v, causal=True,
+                                         sliding_window=window)
+
+    ref = plain()
+    measures = flash_measures(kernel(), ref)
+    if not flash_held(f"{dtype} B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal "
+                      f"window={window}, kernel vs plain", measures, dtype):
+        fail("flash_attention differs from its twin")
+    return measures, (q, k, v), kernel, plain, ref
+
+
+def flash_wrong_kernels(q, k, v, ref):
+    """The held measures must reject two wrong kernels at the path's shape:
+    one that maps the query heads to the wrong KV head, one that masks out
+    the diagonal key."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    S = q.shape[1]
+    nodiag = ops.causal_mask(S, S, device=q.device) & ~torch.eye(
+        S, dtype=torch.bool, device=q.device)[None]
+    for what, out in (
+            ("KV heads mismapped", ops.flash_attention_plain(
+                q, k.roll(1, 2), v.roll(1, 2))),
+            ("diagonal key dropped", ops.gqa_attend(q, k, v, nodiag))):
+        if flash_held(f"wrong kernel, {what}", flash_measures(out, ref),
+                      str(q.dtype).split(".")[-1]):
+            fail(f"the flash_attention check cannot tell a kernel with the "
+                 f"{what} from a right one")
+
+
+def check_flash(dev, cfg, S):
+    import torch
+    import torch.nn.functional as F
+    # one small sliding-window case, the phi4-mini shape in float32, where
+    # only the order of the sums differs, then the path's bf16
+    small = flash_case(dev, 2, 256, 4, 2, 64, 96, 3)[0]
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    fp32 = flash_case(dev, 1, S, H, Hkv, dh, 0, 4, "float32")[0]
+    torch.cuda.empty_cache()
+    bf16, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv, dh,
+                                                     0, 4)
+    flash_wrong_kernels(q, k, v, ref)
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    flops = 2 * H * S * S * dh           # QK^T and PV over the causal half
+    nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
+    bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+    print(f"[kernels] flash_attention: kernel {ms:.4f} ms, plain twin "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f}"
+          f" ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} "
+          f"GFLOP bf16, {nbytes / 1e6:.4f} MB)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:20",
+            "max_abs_err": bf16[2], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "held_by": {"bf16_rel_rms": bf16[0], "bf16_worst_row": bf16[1],
+                        "fp32_rel_rms": fp32[0], "fp32_worst_row": fp32[1],
+                        "fp32_max_abs": fp32[2],
+                        "small_window_rel_rms": small[0]},
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True), timed only",
+            "shape": f"{cfg.name}: bf16, B=1, S={S}, H={H}, Hkv={Hkv}, "
+                     f"dh={dh}, causal"}
+
+
+def wkv6_flops(B, S, H, N, C):
+    """float32 operations of the chunked algebra per call: per chunk and
+    head the products r~S (2CN^2), the strictly lower r~k~^T and its
+    product with v (2 x C(C-1)N), k~^T v (2CN^2), the state update
+    (2N^2) and ~11 elementwise operations per (token, channel)."""
+    per_chunk = 4 * C * N * N + 2 * C * (C - 1) * N + 11 * C * N + 2 * N * N
+    return B * H * (S // C) * per_chunk
+
+
+def check_wkv6(dev, cfg, S):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+    B, H, N = 1, cfg.num_heads, cfg.ssm.head_dim
+    rng = np.random.default_rng(5)
+
+    def t(a, dtype=torch.bfloat16):
+        return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+    r, k, v = (t(rng.standard_normal((B, S, H, N))) for _ in range(3))
+    # the layer's decays: exp(-exp(w0 + d)), w0 = -6 (models/ssm.py)
+    w = t(np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal((B, S, H, N)))),
+          torch.float32)
+    u = t(0.1 * rng.standard_normal((H, N)))
+    s0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
+
+    def kernel():
+        return ops.wkv6_cuda(r, k, v, w, u, s0)
+
+    def plain():
+        return ops.wkv6_plain(r, k, v, w, u, s0)
+
+    (ko, ks), (po, ps) = kernel(), plain()
+    scale, s_scale = float(po.float().abs().max()), float(ps.abs().max())
+    err = float((ko.float() - po.float()).abs().max())
+    s_err = float((ks - ps).abs().max())
+    print(f"[kernels] wkv6 bf16 B={B} S={S} H={H} N={N}: max|kernel - plain|"
+          f" out {err:.3e} (of max |out| {scale:.3e}, tol "
+          f"{TOL_WKV_OUT:.0e} of it), state {s_err:.3e} (of {s_scale:.3e}, "
+          f"tol {TOL_WKV_STATE:.0e} of it)")
+    if not (err <= TOL_WKV_OUT * scale and s_err <= TOL_WKV_STATE * s_scale):
+        fail(f"wkv6 differs from its twin: out {err:.3e}, state {s_err:.3e}")
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 1)
+    C = ops.pick_chunk(S)
+    flops = wkv6_flops(B, S, H, N, C)
+    # r, k, v, w (cast to bf16 by the wrapper) and out in bf16, u, the
+    # float32 state in and out
+    nbytes = 2 * (5 * B * S * H * N + H * N) + 4 * 2 * B * H * N * N
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[kernels] wkv6: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} "
+          f"GFLOP fp32, {nbytes / 1e6:.4f} MB)")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "no single PyTorch call computes this",
+            "shape": f"{cfg.name}: bf16, B={B}, S={S}, H={H}, N={N}, "
+                     f"chunk {C}"}
+
+
+def wrappers():
+    """Each kernel's launching wrapper, by kernel name."""
+    from repro_torch.kernels.actuation import ops as aops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.poisson import ops as pops
+    from repro_torch.kernels.rwkv6 import ops as wops
+    return {"fused_interval": aops.fused_interval_cuda,
+            "rb_sor_slabs_packed": pops.rb_sor_slabs_packed_cuda,
+            "rb_sor_slabs": pops.rb_sor_slabs_cuda,
+            "flash_attention": fops.flash_attention_cuda,
+            "wkv6": wops.wkv6_cuda}
+
 
 def reset_counts():
-    from repro_torch.kernels.actuation import ops as aops
-    from repro_torch.kernels.poisson import ops as pops
-    aops.fused_interval_cuda.launches = 0
-    pops.rb_sor_slabs_packed_cuda.launches = 0
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def counts():
-    from repro_torch.kernels.actuation import ops as aops
-    from repro_torch.kernels.poisson import ops as pops
-    return {"fused_interval": aops.fused_interval_cuda.launches,
-            "rb_sor_slabs_packed": pops.rb_sor_slabs_packed_cuda.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def run_train(backend, env_kw, episodes, grid_kw):
@@ -225,6 +487,133 @@ def run_train(backend, env_kw, episodes, grid_kw):
     print(f"[train {backend}] {episodes} episodes in {secs:.3f} s, "
           f"{n_params} params finite, rewards {hist['reward'].tolist()}, "
           f"kernel launches {launched}")
+    return launched
+
+
+def leaves(tree):
+    """The tensors of a nested dict of parameters."""
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def rel_rms(a, b):
+    """RMS of a - b over the RMS of b."""
+    a, b = a.float(), b.float()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def hold_layers(cfg, params, tokens):
+    """The two backends block by block on the reference's hidden states:
+    (worst block-update difference, difference of the last block's logits,
+    free-running full-depth logits difference, the logits' RMS), each
+    relative to the reference's RMS."""
+    import torch
+    from repro_torch.models import model
+    h_ref = model._embed(cfg, params, tokens)
+    h_free = h_ref
+    pos = model._positions(cfg, tokens)
+    worst = 0.0
+    for i in range(cfg.num_layers):
+        bp = model.layer(params["blocks"], i)
+        k = model._block_body(cfg, h_ref, bp, positions=pos,
+                              backend="pallas")
+        r = model._block_body(cfg, h_ref, bp, positions=pos,
+                              backend="reference")
+        worst = max(worst, rel_rms(k - h_ref, r - h_ref))
+        h_free = model._block_body(cfg, h_free, bp, positions=pos,
+                                   backend="pallas")
+        h_ref = r
+    logits_r = model._unembed(cfg, params, h_ref)
+    if not (bool(torch.isfinite(logits_r).all())
+            and logits_r.shape == (*tokens.shape, cfg.vocab_padded)):
+        fail(f"{cfg.name}: logits {tuple(logits_r.shape)} not finite or "
+             f"not {(*tokens.shape, cfg.vocab_padded)}")
+    rms = float(logits_r.float().square().mean().sqrt())
+    d_last = rel_rms(model._unembed(cfg, params, k), logits_r)
+    d_free = rel_rms(model._unembed(cfg, params, h_free), logits_r)
+    return worst, d_last, d_free, rms
+
+
+def run_lm(dev, name, S, kernel):
+    """lm_loss(backend="pallas") of a full-width config at B=1, S tokens:
+    the kernel must run once per layer; logits and loss held against
+    backend="reference" on the same params and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    cfg = get_config(name)
+    (params, secs) = wall(lambda: model.init_params(cfg, seed=0,
+                                                    device=dev))
+    n_params = sum(x.numel() for x in leaves(params))
+    rng = np.random.default_rng(7)
+    tokens, labels = (torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                                   device=dev) for _ in range(2))
+    batch = {"tokens": tokens, "labels": labels}
+    print(f"[lm {name}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_padded}, {n_params / 1e9:.3f} B params "
+          f"({cfg.param_dtype}) drawn on the card in {secs:.3f} s; B=1, "
+          f"S={S} (train_4k's length, batch cut from 256 to 1)")
+    with torch.inference_mode():
+        reset_counts()
+        (loss, _), secs = wall(lambda: model.lm_loss(cfg, params, batch,
+                                                     backend="pallas"))
+        launched = counts()
+        print(f"[lm {name}] lm_loss(backend='pallas') = {float(loss):.6f} "
+              f"in {secs:.3f} s, kernel launches {launched}")
+        if not math.isfinite(float(loss)):
+            fail(f"{name}: lm_loss is {float(loss)}")
+        if launched[kernel] != cfg.num_layers:
+            fail(f"{name}: {launched[kernel]} {kernel} launches in one "
+                 f"forward, expected {cfg.num_layers}")
+        (ref_loss, _), ref_secs = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="reference"))
+        d_loss = abs(float(loss) - float(ref_loss))
+        worst, d_last, d_free, rms = hold_layers(cfg, params, tokens)
+    print(f"[lm {name}] backend='reference' loss {float(ref_loss):.6f} in "
+          f"{ref_secs:.3f} s; pallas vs reference: loss {d_loss:.3e} (tol "
+          f"{TOL_LM_LOSS:.0e}); on the reference's input to each layer, the "
+          f"block update {worst:.3e} of its RMS at worst, the last block's "
+          f"logits {d_last:.3e} of their RMS (tol {TOL_LM_LAYER:.0e}); "
+          f"free-running through {cfg.num_layers} layers the logits differ "
+          f"by {d_free:.3e} of their RMS {rms:.4f} (reported)")
+    if not (d_loss <= TOL_LM_LOSS and worst <= TOL_LM_LAYER
+            and d_last <= TOL_LM_LAYER):
+        fail(f"{name}: backend 'pallas' disagrees with 'reference'")
+    del params
+    torch.cuda.empty_cache()
+    return launched[kernel]
+
+
+def run_sor_full(dev, cfg, n_env, iters):
+    """The drop-in full-grid solve on random right-hand sides: 13 launches
+    per solve, a finite result of the grid's shape, the residual cut."""
+    import numpy as np
+    import torch
+    from repro_torch.cfd.poisson import residual
+    from repro_torch.kernels.poisson import ops
+    rng = np.random.default_rng(8)
+    rhs = torch.tensor(rng.standard_normal((n_env, cfg.ny, cfg.nx)),
+                       dtype=torch.float32, device=dev)
+    reset_counts()
+    p, secs = wall(lambda: ops.rb_sor(rhs, cfg.dx, cfg.dy, iters=iters,
+                                      omega=cfg.poisson_omega,
+                                      packed=False))
+    launched = counts()["rb_sor_slabs"]
+    r0 = float(residual(torch.zeros_like(rhs), rhs, cfg.dx, cfg.dy
+                        ).abs().max())
+    r1 = float(residual(p, rhs, cfg.dx, cfg.dy).abs().max())
+    print(f"[rb_sor full] res {cfg.res}, {n_env} grids, iters={iters}: "
+          f"{launched} launches in {secs:.4f} s, max residual {r0:.4e} -> "
+          f"{r1:.4e}")
+    expect = -(-iters // 4)
+    if launched != expect:
+        fail(f"rb_sor(packed=False) launched its kernel {launched} times, "
+             f"expected {expect}")
+    if not (bool(torch.isfinite(p).all()) and p.shape == rhs.shape
+            and r1 < r0):
+        fail("rb_sor(packed=False) gave a non-finite, misshapen or "
+             "unconverging result")
     return launched
 
 
@@ -265,6 +654,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.cfd.grid import GridConfig
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -275,13 +665,17 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     _, secs = wall(lambda: build.build(verbose=True))
-    print(f"[build] both kernels built in {secs:.2f} s -> {build.BUILD_DIR}")
+    print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
+          f"{build.BUILD_DIR}")
     dev = torch.device("cuda")
 
     # 1. each kernel against its plain twin at the training shape
     res16 = GridConfig(res=16)
     fused = check_fused(dev, res16, n_env=4, n_steps=50)
     sor = check_sor(dev, res16, n_env=4, iters=50)
+    sor_full = check_sor_full(dev, res16, n_env=4, iters=50)
+    flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
+    wkv = check_wkv6(dev, get_config("rwkv6-3b"), S=4096)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
     main_env = dict(steps_per_action=50, actions_per_episode=100,
@@ -306,11 +700,22 @@ def main():
     sor["launches"] = launched["rb_sor_slabs_packed"]
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
 
-    # 4. golden physics through the fused kernel
+    # 4. the language-model loss paths at full width
+    flash["launches"] = run_lm(dev, "phi4-mini-3.8b", 4096,
+                               "flash_attention")
+    flash["path"] = "lm_loss(phi4-mini-3.8b, backend='pallas'), B=1, S=4096"
+    wkv["launches"] = run_lm(dev, "rwkv6-3b", 4096, "wkv6")
+    wkv["path"] = "lm_loss(rwkv6-3b, backend='pallas'), B=1, S=4096"
+
+    # 5. the full-grid drop-in solve
+    sor_full["launches"] = run_sor_full(dev, res16, n_env=4, iters=50)
+    sor_full["path"] = "rb_sor(packed=False), res 16, 4 grids, iters=50"
+
+    # 6. golden physics through the fused kernel
     golden(dev)
 
-    # 5. the kernels, the card, the result
-    print(json.dumps({"kernels": [fused, sor]}))
+    # 7. the kernels, the card, the result
+    print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,18 @@
+"""Phi-4-mini 3.8B dense (RoPE, SwiGLU, GQA). [arXiv:2412.08905]"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    source="arXiv:2412.08905",
+    num_layers=32,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=8,          # GQA kv=8
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=200064,
+    rope_theta=10_000.0,
+    activation="swiglu",
+    train_microbatches=4,    # 200k vocab: logits HBM fit
+))

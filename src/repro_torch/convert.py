@@ -7,6 +7,7 @@ numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) into an
 ``x @ w`` with ``w`` shaped ``(in, out)``; ``nn.Linear`` holds ``(out,
 in)``, so weights are transposed.  ``flow_state_from_numpy`` and
 ``geom_arrays_from_numpy`` carry a flow state and the geometry fields.
+``model_params_from_jax`` carries a language model's parameter tree.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.cfd import solver
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.drl import networks
+from repro_torch.models.layers import dtype_of
 
 
 def _t(a, device) -> torch.Tensor:
@@ -70,3 +73,31 @@ def params_to_numpy(model: networks.ActorCritic) -> dict:
                  "b": m.bias.detach().cpu().numpy().copy()} for m in ms]
     return {"actor": layers(model.actor), "critic": layers(model.critic),
             "log_std": model.log_std.detach().cpu().numpy().copy()}
+
+
+def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
+                          ) -> dict:
+    """The reference's language-model parameter tree (nested dicts, leaves
+    as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``; blocks
+    stacked on a leading layer axis) as the port's dict of tensors, each
+    leaf in its own dtype.  A bfloat16 leaf arrives as an ``ml_dtypes``
+    array, which torch cannot read: it goes through float32, and back to
+    bfloat16 exactly."""
+    device = resolve_device(device)
+    embed = np.shape(tree["embed"])
+    if embed != (cfg.vocab_padded, cfg.d_model):
+        raise ValueError(f"embed {embed} does not fit {cfg.name}: expected "
+                         f"{(cfg.vocab_padded, cfg.d_model)}")
+    n_layers = np.shape(tree["blocks"]["ln1"]["scale"])[0]
+    if n_layers != cfg.num_layers:
+        raise ValueError(f"{n_layers} stacked layers, {cfg.name} has "
+                         f"{cfg.num_layers}")
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        a = np.asarray(node)
+        t = torch.tensor(a.astype(np.float32), device=device)
+        return t.to(dtype_of(a.dtype.name))
+
+    return conv(tree)

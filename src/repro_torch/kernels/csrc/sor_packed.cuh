@@ -11,9 +11,7 @@
 
 #include <cuda_runtime.h>
 
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+#include "common.cuh"
 
 // One coloured Gauss-Seidel half-sweep over a packed plane `a` of shape
 // (ny, w) held in shared memory, in place, by all threads of the block.
@@ -91,10 +89,4 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c,
   a = scratch[96];
   b = scratch[97];
   c = scratch[98];
-}
-
-// Threads per block for a loop over `n` points: a multiple of 32, <= 1024.
-static inline int threads_for(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t > 1024 ? 1024 : (t < 32 ? 32 : t);
 }

@@ -14,7 +14,9 @@ from repro_torch.cfd import grid as tgrid
 from repro_torch.cfd import poisson as tpoisson
 from repro_torch.cfd import solver as tsolver
 from repro_torch.kernels.actuation import ops as aops
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.poisson import ops as tops
+from repro_torch.kernels.rwkv6 import ops as wops
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -101,3 +103,152 @@ def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
                               tsolver.init_state(cfg, geom, cuda), 0.0, 1,
                               backend="fused")
     assert aops.fused_interval_cuda.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nslabs", [1, 2, 4])
+def test_sor_full_kernel_matches_twin_on_card(cuda, nslabs):
+    """The full-grid kernel against its twin through the drop-in solve:
+    res-16 grid (66, 352), 4 envs, iters=50 -> 13 launches.  FMA
+    contraction rounds a few ulp per pair differently from the twin's op by
+    op float32; over 52 pairs on O(1) fields that stays under 1e-5."""
+    rhs = torch.tensor(_rand((4, 66, 352), 5), device=cuda)
+    p0 = torch.tensor(0.1 * _rand((4, 66, 352), 6), device=cuda)
+    kw = dict(iters=50, omega=1.7, nslabs=nslabs, inner_iters=4)
+    n0 = tops.rb_sor_slabs_cuda.launches
+    out = tops.rb_sor(rhs, 22.0 / 352, 4.1 / 66, p0=p0, packed=False, **kw)
+    assert tops.rb_sor_slabs_cuda.launches - n0 == 13
+    p = p0
+    for _ in range(13):
+        p = tops.rb_sor_slabs_plain(p, rhs, dx=22.0 / 352, dy=4.1 / 66,
+                                    omega=1.7, nslabs=nslabs, inner_iters=4)
+    torch.cuda.synchronize()
+    err = max_diff(p, out)
+    print(f"rb_sor_slabs nslabs={nslabs}: max|kernel - twin| {err:.3e}")
+    assert err <= 1e-5
+
+
+def _decay(rng, shape):
+    """RWKV-6 decays as the model makes them: exp(-exp(w0 + d)) with the
+    configs' w0 = -6 and a data term d ~ N(0, 0.5)."""
+    return np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal(shape)))
+
+
+# (B, S, H, Hkv, dh, causal, window)
+FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
+               (1, 64, 4, 4, 32, True, 0), (1, 96, 2, 1, 64, True, 0),
+               (1, 256, 2, 2, 64, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_twin_on_card(cuda, case, dtype):
+    """The flash kernel (GQA mapped in the kernel) against the plain twin
+    (KV heads repeated, naive softmax).  float32: another summation order,
+    ~1e-6 on O(1) outputs -> 2e-5.  bfloat16: p is rounded to bf16 at the
+    running max in the kernel and after normalising in the twin, and the
+    output is rounded to bf16 (2^-8 relative): a few bf16 ulp at |o| <= 2
+    -> 3e-2."""
+    B, S, H, Hkv, dh, causal, window = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + dh)
+    q, k, v = (torch.tensor(rng.standard_normal((B, S, h, dh)),
+                            dtype=torch.float32, device=cuda).to(dt)
+               for h in (H, Hkv, Hkv))
+    n0 = fops.flash_attention_cuda.launches
+    out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    assert fops.flash_attention_cuda.launches == n0 + 1
+    ref = fops.flash_attention_plain(q, k, v, causal=causal,
+                                     sliding_window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    err = max_diff(ref.float(), out.float())
+    print(f"flash {case} {dtype}: max|kernel - twin| {err:.3e}")
+    assert err <= (2e-5 if dtype == "float32" else 3e-2)
+
+
+def test_flash_rejects_lengths_the_reference_rejects():
+    """S must be a multiple of min(128, S), as the reference asserts."""
+    q = torch.zeros((1, 200, 2, 32))
+    with pytest.raises(ValueError, match="not a multiple"):
+        fops.flash_attention(q, q, q)
+
+
+# (B, S, H, N)
+WKV_CASES = [(2, 128, 2, 64), (1, 100, 3, 32), (1, 16, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
+    """The chunked WKV6 kernel against the sequential twin.  The chunked
+    algebra reassociates the recurrence (exp of cumulative log-decays), so
+    float32 agrees to ~1e-6 of the output's scale -> 2e-5 relative to the
+    largest |out|, the state likewise.  bfloat16 inputs are the same for
+    both; the bf16 outputs differ by at most one rounding step, one ulp of
+    the largest |out| (2^-7 of it), the float32 state by 2e-5."""
+    B, S, H, N = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(S + N)
+
+    def t(a, d=dt):
+        return torch.tensor(a, dtype=torch.float32, device=cuda).to(d)
+
+    r, k, v = (t(rng.standard_normal((B, S, H, N))) for _ in range(3))
+    w = t(_decay(rng, (B, S, H, N)), torch.float32)
+    u = t(0.1 * rng.standard_normal((H, N)))
+    s0 = t(0.1 * rng.standard_normal((B, H, N, N)), torch.float32)
+    n0 = wops.wkv6_cuda.launches
+    out, s_fin = wops.wkv6(r, k, v, w, u, s0)
+    assert wops.wkv6_cuda.launches == n0 + 1
+    ref, s_ref = wops.wkv6_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and s_fin.dtype == torch.float32
+    scale = float(ref.float().abs().max())
+    err = max_diff(ref.float(), out.float()) / scale
+    s_err = max_diff(s_ref, s_fin) / float(s_ref.abs().max())
+    print(f"wkv6 {case} {dtype}: max|kernel - twin| / max|out| {err:.3e}, "
+          f"state {s_err:.3e}")
+    assert err <= (2e-5 if dtype == "float32" else 2 ** -7)
+    assert s_err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
+    """No fallback on the card: a head dim outside 32/64/128 raises and
+    launches nothing."""
+    q = torch.zeros((1, 64, 2, 48), device=cuda)
+    n0 = fops.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fops.flash_attention(q, q, q)
+    assert fops.flash_attention_cuda.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "rwkv6-3b"])
+def test_lm_forward_on_card(cuda, name):
+    """forward_train of the reduced config (float32, 2 layers; phi4-mini
+    with 2 KV heads for the GQA mapping) on the card: backend "pallas"
+    launches its kernel once per layer and agrees with "reference" to
+    2e-5 on the O(1) logits (float32, another summation order)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    cfg = get_config(name).reduced()
+    if cfg.attention_kind == "gqa":
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    params = model.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)), device=cuda)
+    wrapper = (fops.flash_attention_cuda if cfg.attention_kind == "gqa"
+               else wops.wkv6_cuda)
+    n0 = wrapper.launches
+    out, _ = model.forward_train(cfg, params, tokens, backend="pallas")
+    assert wrapper.launches - n0 == cfg.num_layers
+    ref, _ = model.forward_train(cfg, params, tokens, backend="reference")
+    torch.cuda.synchronize()
+    err = max_diff(ref, out)
+    print(f"forward_train {name} reduced: max|pallas - reference| {err:.3e}")
+    assert err <= 2e-5

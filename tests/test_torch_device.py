@@ -9,11 +9,13 @@ import torch
 from repro_torch import convert
 from repro_torch.cfd import grid, scenarios, solver
 from repro_torch.cfd.env import CylinderEnv, EnvConfig
+from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
 from repro_torch.drl import networks
 from repro_torch.drl.engine import EngineConfig, RolloutEngine
 from repro_torch.drl.ppo import PPOConfig
 from repro_torch.drl.train import TrainConfig, train
+from repro_torch.models import model
 
 CFG = grid.GridConfig(res=4)
 
@@ -50,6 +52,10 @@ ENTRY_POINTS = {
     "convert.geom_arrays_from_numpy": lambda: convert.geom_arrays_from_numpy(
         [np.zeros(2)] * len(solver.GeomArrays._fields)),
     "CylinderEnv": lambda: CylinderEnv(EnvConfig(grid=CFG)),
+    "model.init_params": lambda: model.init_params(
+        get_config("rwkv6-3b").reduced()),
+    "convert.model_params_from_jax": lambda: convert.model_params_from_jax(
+        get_config("rwkv6-3b").reduced(), {}),
     "train": lambda: train(TrainConfig(env=EnvConfig(grid=CFG)),
                            log_fn=None),
 }

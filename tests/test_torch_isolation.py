@@ -34,6 +34,7 @@ def test_import_loads_no_jax_and_no_reference():
     assert res["bad"] == [], res["bad"]
     assert "repro_torch.kernels.actuation.ops" in res["modules"]
     assert "repro_torch.drl.train" in res["modules"]
+    assert "repro_torch.models.model" in res["modules"]
 
 
 def test_sources_import_no_jax_and_no_reference():
