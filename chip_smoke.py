@@ -3,17 +3,19 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (nvcc); builds the five
-hand-written kernels from src/repro_torch/kernels/csrc into
+hand-written kernel libraries from src/repro_torch/kernels/csrc into
 build/repro_torch_kernels/ (one nvcc process each, in parallel).
 Phases (any failure exits non-zero):
 
 1. kernel checks: each kernel against its plain PyTorch twin on the card at
    the shape its path gives it (res 16 and 4 envs for the CFD kernels;
    B=1, S=4096 at phi4-mini's and rwkv6-3b's widths in bf16 for flash
-   attention and WKV6; flash attention also in float32 at that shape and
-   in a small sliding-window case, held by measures scaled to its output,
-   which must reject two deliberately wrong variants), with the stated
-   tolerance, timed with CUDA events;
+   attention and WKV6; flash attention's bf16 tensor-core kernel also
+   against the tile-exact oracle flash_attention_tiled, its float32
+   CUDA-core kernel at the same shape, and a small sliding-window case,
+   held by measures scaled to its output, which must reject two
+   deliberately wrong variants; the SASS of the flash library must hold
+   HGMMA instructions), with the stated tolerance, timed with CUDA events;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -21,8 +23,10 @@ Phases (any failure exits non-zero):
    packed-SOR kernel must run;
 4. the language-model paths: ``lm_loss(backend="pallas")`` of
    phi4-mini-3.8b and of rwkv6-3b at full width and depth (random bf16
-   params from a seed), B=1, S=4096; one flash-attention or WKV6 launch
-   per layer, logits and loss held against backend="reference";
+   params from a seed), B=1, S=4096, timed at the first and a second
+   (steady) call; one launch per layer of the bf16 flash-attention or the
+   WKV6 kernel and none of any other, logits and loss held against
+   backend="reference";
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, 13 launches of its kernel, the residual reduced;
 6. golden physics through the fused kernel: the res-8 fixture's Strouhal
@@ -34,6 +38,7 @@ Imports nothing of jax or of the reference package.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +66,16 @@ TOL_SOR = 1e-5                 # 52 pairs on unit-variance planes
 # and 5.5e-6.  The limits are 2-10x those readings; the wrong variants of
 # flash_wrong_kernels read 0.36 and 1.4 rel-RMS
 TOL_FLASH = {"bfloat16": (1e-2, 5e-2), "float32": (5e-6, 5e-5)}
+# the bf16 tensor-core kernel against flash_attention_tiled, which rounds p
+# at the same running max: the two fp32 results differ by the order of the
+# sums and by exp2f against exp (~1 fp32 ulp of p), so a bf16 output
+# differs by one rounding step, one ulp of its row's largest |o| (2^-7 of
+# it), and by at most one more where a p lands on the other side of a bf16
+# boundary in the two: two steps, 2^-6 (the H100 reads 7.75e-3, a row
+# whose largest |o| sits just above a power of two).  Few outputs straddle
+# a boundary: rel-RMS 1.2e-4 on the H100, 2e-3 allowed.  The wrong
+# variants of flash_wrong_kernels read 0.36 and 1.4
+TOL_FLASH_TILED = (2e-3, 2 ** -6)
 # WKV6, bf16 in and out: both compute the float32 recurrence on the same
 # values (the chunked algebra against the sequential one), ~1e-6 apart, so
 # the float32 state agrees to 2e-5 of its scale; the bf16 outputs differ by
@@ -287,9 +302,11 @@ def flash_measures(out, ref):
 
 
 def flash_held(what, measures, dtype):
-    """Print the measures against their limits; False if one is over."""
+    """Print the measures against their limits (TOL_FLASH[dtype], or
+    TOL_FLASH_TILED for dtype "tiled"); False if one is over."""
     rel, row, err = measures
-    tol_rel, tol_row = TOL_FLASH[dtype]
+    tol_rel, tol_row = (TOL_FLASH_TILED if dtype == "tiled"
+                        else TOL_FLASH[dtype])
     print(f"[kernels] flash_attention {what}: rel-RMS {rel:.3e} (tol "
           f"{tol_rel:.0e}), worst row {row:.3e} (tol {tol_row:.0e}), "
           f"max abs {err:.3e}")
@@ -321,10 +338,10 @@ def flash_case(dev, B, S, H, Hkv, dh, window, seed, dtype="bfloat16"):
     return measures, (q, k, v), kernel, plain, ref
 
 
-def flash_wrong_kernels(q, k, v, ref):
+def flash_wrong_kernels(q, k, v, refs):
     """The held measures must reject two wrong kernels at the path's shape:
     one that maps the query heads to the wrong KV head, one that masks out
-    the diagonal key."""
+    the diagonal key; against each (limits, reference) of ``refs``."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     S = q.shape[1]
@@ -334,46 +351,84 @@ def flash_wrong_kernels(q, k, v, ref):
             ("KV heads mismapped", ops.flash_attention_plain(
                 q, k.roll(1, 2), v.roll(1, 2))),
             ("diagonal key dropped", ops.gqa_attend(q, k, v, nodiag))):
-        if flash_held(f"wrong kernel, {what}", flash_measures(out, ref),
-                      str(q.dtype).split(".")[-1]):
-            fail(f"the flash_attention check cannot tell a kernel with the "
-                 f"{what} from a right one")
+        for limits, ref in refs:
+            if flash_held(f"wrong kernel, {what}, vs {limits}",
+                          flash_measures(out, ref), limits):
+                fail(f"the flash_attention check cannot tell a kernel with "
+                     f"the {what} from a right one")
+
+
+def sass_count(lib, op):
+    """How many ``op`` instructions the SASS of a built library holds."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass {lib} exited {sass.returncode}: "
+             f"{sass.stderr.strip()}")
+    return len(re.findall(rf"\b{op}\b", sass.stdout))
 
 
 def check_flash(dev, cfg, S):
     import torch
     import torch.nn.functional as F
-    # one small sliding-window case, the phi4-mini shape in float32, where
-    # only the order of the sums differs, then the path's bf16
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    hgmma = sass_count(build.library_path("flash_attention"), "HGMMA")
+    print(f"[kernels] flash_attention: {hgmma} HGMMA instructions in the "
+          f"SASS of {build.library_path('flash_attention').name}")
+    if hgmma == 0:
+        fail("the flash_attention library holds no HGMMA instruction: the "
+             "bf16 kernel is not on the tensor cores")
+    # one small sliding-window case, the phi4-mini shape in float32 (the
+    # CUDA-core kernel), where only the order of the sums differs, then the
+    # path's bf16 (the tensor-core kernel)
     small = flash_case(dev, 2, 256, 4, 2, 64, 96, 3)[0]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    fp32 = flash_case(dev, 1, S, H, Hkv, dh, 0, 4, "float32")[0]
+    fp32, _, fp32_kernel, _, _ = flash_case(dev, 1, S, H, Hkv, dh, 0, 4,
+                                            "float32")
+    fp32_ms = cuda_ms(fp32_kernel, 3)
+    del fp32_kernel
     torch.cuda.empty_cache()
     bf16, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv, dh,
                                                      0, 4)
-    flash_wrong_kernels(q, k, v, ref)
-    ms = cuda_ms(kernel, 10)
+    tiled = ops.flash_attention_tiled(q, k, v, causal=True)
+    exact = flash_measures(kernel(), tiled)
+    if not flash_held(f"bfloat16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal, "
+                      f"kernel vs tiled", exact, "tiled"):
+        fail("flash_attention differs from the tile-exact oracle")
+    flash_wrong_kernels(q, k, v, (("bfloat16", ref), ("tiled", tiled)))
+    del tiled
+    ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     flops = 2 * H * S * S * dh           # QK^T and PV over the causal half
     nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
     bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
-    print(f"[kernels] flash_attention: kernel {ms:.4f} ms, plain twin "
+    tflops = flops / ms / 1e9
+    print(f"[kernels] flash_attention: kernel {ms:.4f} ms ({tflops:.1f} "
+          f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain twin "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f}"
           f" ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} "
-          f"GFLOP bf16, {nbytes / 1e6:.4f} MB)")
-    return {"name": "flash_attention", "route": "cuda",
+          f"GFLOP bf16, {nbytes / 1e6:.4f} MB); the float32 CUDA-core "
+          f"kernel {fp32_ms:.4f} ms")
+    return {"name": "flash_attention", "route": "cuda (wgmma, TMA)",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:20",
             "max_abs_err": bf16[2], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "bound_share": bound_ms / ms,
+            "tflops": tflops, "hgmma_in_sass": hgmma,
             "held_by": {"bf16_rel_rms": bf16[0], "bf16_worst_row": bf16[1],
+                        "bf16_vs_tiled_rel_rms": exact[0],
+                        "bf16_vs_tiled_worst_row": exact[1],
                         "fp32_rel_rms": fp32[0], "fp32_worst_row": fp32[1],
                         "fp32_max_abs": fp32[2],
                         "small_window_rel_rms": small[0]},
+            "fp32_kernel": {"route": "cuda (CUDA cores)", "ms": fp32_ms},
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True), timed only",
             "shape": f"{cfg.name}: bf16, B=1, S={S}, H={H}, Hkv={Hkv}, "
@@ -452,7 +507,8 @@ def wrappers():
     return {"fused_interval": aops.fused_interval_cuda,
             "rb_sor_slabs_packed": pops.rb_sor_slabs_packed_cuda,
             "rb_sor_slabs": pops.rb_sor_slabs_cuda,
-            "flash_attention": fops.flash_attention_cuda,
+            "flash_attention": fops.flash_attention_bf16_cuda,
+            "flash_attention_fp32": fops.flash_attention_fp32_cuda,
             "wkv6": wops.wkv6_cuda}
 
 
@@ -559,13 +615,18 @@ def run_lm(dev, name, S, kernel):
         (loss, _), secs = wall(lambda: model.lm_loss(cfg, params, batch,
                                                      backend="pallas"))
         launched = counts()
+        _, steady = wall(lambda: model.lm_loss(cfg, params, batch,
+                                               backend="pallas"))
         print(f"[lm {name}] lm_loss(backend='pallas') = {float(loss):.6f} "
-              f"in {secs:.3f} s, kernel launches {launched}")
+              f"in {secs:.3f} s (first call), {steady:.3f} s (second call, "
+              f"steady), kernel launches {launched}")
         if not math.isfinite(float(loss)):
             fail(f"{name}: lm_loss is {float(loss)}")
-        if launched[kernel] != cfg.num_layers:
+        others = sum(n for k, n in launched.items() if k != kernel)
+        if launched[kernel] != cfg.num_layers or others:
             fail(f"{name}: {launched[kernel]} {kernel} launches in one "
-                 f"forward, expected {cfg.num_layers}")
+                 f"forward, expected {cfg.num_layers}, and {others} of the "
+                 f"other kernels, expected 0")
         (ref_loss, _), ref_secs = wall(lambda: model.lm_loss(
             cfg, params, batch, backend="reference"))
         d_loss = abs(float(loss) - float(ref_loss))
@@ -582,7 +643,7 @@ def run_lm(dev, name, S, kernel):
         fail(f"{name}: backend 'pallas' disagrees with 'reference'")
     del params
     torch.cuda.empty_cache()
-    return launched[kernel]
+    return launched[kernel], secs, steady
 
 
 def run_sor_full(dev, cfg, n_env, iters):
@@ -701,10 +762,11 @@ def main():
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
 
     # 4. the language-model loss paths at full width
-    flash["launches"] = run_lm(dev, "phi4-mini-3.8b", 4096,
-                               "flash_attention")
+    flash["launches"], flash["lm_first_s"], flash["lm_steady_s"] = run_lm(
+        dev, "phi4-mini-3.8b", 4096, "flash_attention")
     flash["path"] = "lm_loss(phi4-mini-3.8b, backend='pallas'), B=1, S=4096"
-    wkv["launches"] = run_lm(dev, "rwkv6-3b", 4096, "wkv6")
+    wkv["launches"], wkv["lm_first_s"], wkv["lm_steady_s"] = run_lm(
+        dev, "rwkv6-3b", 4096, "wkv6")
     wkv["path"] = "lm_loss(rwkv6-3b, backend='pallas'), B=1, S=4096"
 
     # 5. the full-grid drop-in solve

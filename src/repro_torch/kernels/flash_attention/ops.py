@@ -3,14 +3,19 @@
 Port of ``repro.kernels.flash_attention`` (``kernel.flash_attention_bhsd``
 and the ``ops.flash_attention`` wrapper).  :func:`flash_attention` takes the
 models' layout, ``q (B, S, H, dh)`` and ``k, v (B, S, Hkv, dh)``: on CUDA
-tensors one launch of the hand-written kernel ``csrc/flash_attention.cu``
-(query head ``h`` reads KV head ``h // (H // Hkv)`` in place), on CPU
-tensors the plain twin :func:`flash_attention_plain`, dense
-:func:`gqa_attend` under the same mask (the reference's
-``ref.attention_ref`` after its wrapper's KV-head repeat).
+tensors one launch of a hand-written kernel of ``csrc/flash_attention.cu``
+(query head ``h`` reads KV head ``h // (H // Hkv)`` in place), picked by
+dtype: bfloat16 runs on the tensor cores (:func:`flash_attention_bf16_cuda`,
+wgmma fed by TMA), float32 on the CUDA cores
+(:func:`flash_attention_fp32_cuda`); any other dtype raises.  On CPU tensors
+it is the plain twin :func:`flash_attention_plain`, dense :func:`gqa_attend`
+under the same mask (the reference's ``ref.attention_ref`` after its
+wrapper's KV-head repeat).  :func:`flash_attention_tiled` walks the
+reference kernel's key tiles with its online softmax: a test oracle that
+rounds p where the kernels round it.
 
 The key tile is the reference's ``min(128, S)`` and must divide ``S``, as
-the reference asserts; other lengths raise.  float32 and bfloat16.
+the reference asserts; other lengths raise.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import torch
 from repro_torch.kernels import SMEM_PER_BLOCK
 
 BLOCK = 128          # the reference's block_q = block_k
-KERNEL_BQ = 64       # query rows per block of the CUDA kernel
+FP32_BQ = 64         # query rows per block of the float32 kernel
+TC_STAGES = 2        # K/V tiles in flight in the bfloat16 kernel's ring
+TC_MIN_SMEM = 120 * 1024   # one bfloat16 block per SM (see the .cu)
 KERNEL_DH = (32, 64, 128)
 NEG_INF = -1e30
 
@@ -37,11 +44,21 @@ def key_block(S: int) -> int:
     return bk
 
 
-def smem_bytes(dh: int) -> int:
-    """Shared-memory bytes of one block of the kernel: the 64 query rows, a
-    K and a V tile (rows padded by one float) and the p tile."""
-    return 4 * (KERNEL_BQ * (dh + 1) + 2 * BLOCK * (dh + 1)
-                + KERNEL_BQ * (BLOCK + 1))
+def smem_bytes(dh: int, dtype: torch.dtype) -> int:
+    """Shared-memory bytes of one block of the kernel for ``dtype``.
+    bfloat16: 1024 bytes of alignment slack, the 128 query rows and a ring
+    of TC_STAGES K and V tiles of 128 rows, bf16, and 8 bytes per barrier
+    (Q, then K full, V full and K/V empty per stage), at least
+    TC_MIN_SMEM.
+    float32: the 64 query rows, a K and a V tile (rows padded by one
+    float) and the p tile."""
+    if dtype == torch.bfloat16:
+        tile = BLOCK * dh * 2
+        need = (1024 + tile * (1 + 2 * TC_STAGES)
+                + 8 * (1 + 3 * TC_STAGES))
+        return max(need, TC_MIN_SMEM)
+    return 4 * (FP32_BQ * (dh + 1) + 2 * BLOCK * (dh + 1)
+                + FP32_BQ * (BLOCK + 1))
 
 
 def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
@@ -93,14 +110,55 @@ def attention_ref(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     return out[:, :, 0]
 
 
+def flash_attention_tiled(q, k, v, *, causal: bool = True,
+                          sliding_window: int = 0):
+    """The reference kernel's arithmetic in plain PyTorch, for tests: q
+    (B, S, H, dh), k, v (B, S, Hkv, dh), KV heads repeated as the
+    reference's wrapper does; 128-key tiles (``min(128, S)``) walked in
+    order with the online softmax of ``kernel.py:32-65``: fp32 scores
+    ``(q . k) * scale`` masked to -1e30, p rounded to v's dtype at the
+    running max before an fp32 product with v, out = acc / max(l, 1e-30)
+    in q's dtype."""
+    bk = _check(q, k, v)
+    B, S, H, dh = q.shape
+    rep = H // k.shape[2]
+    qh = q.transpose(1, 2).float()
+    kh = k.repeat_interleave(rep, dim=2).transpose(1, 2).float()
+    vh = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    scale = dh ** -0.5
+    qpos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, S, 1), device=q.device)
+    acc = torch.zeros((B, H, S, dh), device=q.device)
+    for k0 in range(0, S, bk):
+        s = qh @ kh[:, :, k0:k0 + bk].transpose(-1, -2) * scale
+        kpos = k0 + torch.arange(bk, device=q.device)[None, :]
+        mask = torch.ones((S, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if sliding_window:
+            mask = mask & (kpos > qpos - sliding_window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = p.to(v.dtype).float() @ vh[:, :, k0:k0 + bk].float()
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.to(q.dtype).transpose(1, 2)
+
+
 def _load():
     from repro_torch.kernels import build
     lib = build.load("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = (
-            [p] * 4 + [i] * 9 + [ctypes.c_float, i, p])
-        lib.flash_attention_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.flash_attention_bf16_launch,
+               lib.flash_attention_fp32_launch):
+        if fn.argtypes is None:
+            fn.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, i, p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -118,49 +176,95 @@ def _check(q, k, v):
     return key_block(S)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         sliding_window: int = 0):
-    """One launch of ``csrc/flash_attention.cu``: grid (ceil(S / 64), B * H)."""
+def _check_cuda(q, k, v, dtype):
+    """The checks of both kernels: shapes, CUDA tensors of ``dtype``, a
+    head dim the kernels are built for; returns the key tile."""
     bk = _check(q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}; "
                          f"CPU tensors take the plain twin")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16, "
-                         f"got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != dev:
-            raise ValueError(f"{name}: expected {q.dtype} on {dev}, got "
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{name}: expected {dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    B, S, H, dh = q.shape
+    dh = q.shape[3]
     if dh not in KERNEL_DH:
         raise ValueError(f"flash_attention_cuda is built for head dims "
                          f"{KERNEL_DH}, got {dh}")
-    smem = smem_bytes(dh)
+    smem = smem_bytes(dh, dtype)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"head dim {dh} needs {smem} bytes of shared memory, "
                          f"over the {SMEM_PER_BLOCK}-byte limit of one block")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], dh, bk,
-            int(causal), int(sliding_window), dh ** -0.5, smem, stream)
+    return bk
+
+
+def _aligned(t):
+    """Contiguous and 16-byte aligned, as TMA reads it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(entry, q, k, v, bk, causal, sliding_window):
     from repro_torch.kernels.build import check_launch
-    check_launch(lib, err, "flash_attention")
-    flash_attention_cuda.launches += 1
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    B, S, H, dh = q.shape
+    lib = _load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, k.shape[2], dh, bk, int(causal), int(sliding_window),
+            dh ** -0.5, smem_bytes(dh, q.dtype), stream)
+    check_launch(lib, err, entry)
     return out
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_bf16_cuda(q, k, v, *, causal: bool = True,
+                              sliding_window: int = 0):
+    """One launch of the bfloat16 tensor-core kernel: grid (B * H,
+    ceil(S / 128)), a TMA producer and two wgmma consumer warpgroups."""
+    bk = _check_cuda(q, k, v, torch.bfloat16)
+    out = _launch("flash_attention_bf16_launch", q, k, v, bk, causal,
+                  sliding_window)
+    flash_attention_bf16_cuda.launches += 1
+    return out
+
+
+flash_attention_bf16_cuda.launches = 0
+
+
+def flash_attention_fp32_cuda(q, k, v, *, causal: bool = True,
+                              sliding_window: int = 0):
+    """One launch of the float32 CUDA-core kernel: grid (ceil(S / 64),
+    B * H)."""
+    bk = _check_cuda(q, k, v, torch.float32)
+    out = _launch("flash_attention_fp32_launch", q, k, v, bk, causal,
+                  sliding_window)
+    flash_attention_fp32_cuda.launches += 1
+    return out
+
+
+flash_attention_fp32_cuda.launches = 0
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         sliding_window: int = 0):
+    """The kernel for q's dtype: bfloat16 on the tensor cores, float32 on
+    the CUDA cores; any other dtype raises and launches nothing."""
+    kernels = {torch.bfloat16: flash_attention_bf16_cuda,
+               torch.float32: flash_attention_fp32_cuda}
+    if q.dtype not in kernels:
+        _check(q, k, v)
+        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    return kernels[q.dtype](q, k, v, causal=causal,
+                            sliding_window=sliding_window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
-    """q (B, S, H, dh); k, v (B, S, Hkv, dh) -> (B, S, H, dh): the kernel on
+    """q (B, S, H, dh); k, v (B, S, Hkv, dh) -> (B, S, H, dh): a kernel on
     CUDA tensors, the plain twin on CPU tensors."""
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal,

@@ -134,31 +134,49 @@ def _decay(rng, shape):
     return np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal(shape)))
 
 
-# (B, S, H, Hkv, dh, causal, window)
+# (B, S, H, Hkv, dh, causal, window): dh 32 / 64 / 128 under GQA, a window
+# across the 128-key tile edge, S = 40 (a 40-key tile, not a multiple of
+# 16, in one 128-row box) and 96, non-causal
 FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 64, 4, 4, 32, True, 0), (1, 96, 2, 1, 64, True, 0),
-               (1, 256, 2, 2, 64, False, 0)]
+               (1, 256, 2, 2, 64, False, 0), (1, 40, 4, 2, 32, True, 0),
+               (2, 384, 6, 2, 32, True, 0), (1, 384, 8, 2, 128, True, 0),
+               (1, 512, 4, 1, 128, True, 200), (1, 40, 2, 1, 128, False, 0)]
+
+
+def _worst_row(ref, out) -> float:
+    """The largest max |out - ref| of a row over max |ref| of that row."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    return float((d / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_twin_on_card(cuda, case, dtype):
-    """The flash kernel (GQA mapped in the kernel) against the plain twin
-    (KV heads repeated, naive softmax).  float32: another summation order,
+    """The flash kernel of the dtype (GQA mapped in the kernel; bfloat16 on
+    the tensor cores, float32 on the CUDA cores) against the plain twin (KV
+    heads repeated, naive softmax).  float32: another summation order,
     ~1e-6 on O(1) outputs -> 2e-5.  bfloat16: p is rounded to bf16 at the
     running max in the kernel and after normalising in the twin, and the
     output is rounded to bf16 (2^-8 relative): a few bf16 ulp at |o| <= 2
-    -> 3e-2."""
+    -> 3e-2.  bfloat16 is also held to the tile-exact oracle
+    flash_attention_tiled, which rounds p where the kernel does: the two
+    fp32 results differ by the order of the sums and exp2f against exp
+    (~1 fp32 ulp of p), so a bf16 output differs by one rounding step, one
+    ulp of its row's largest |o| (2^-7 of it), and by at most one more
+    where a p rounds to another bf16 value in the two: 2^-6."""
     B, S, H, Hkv, dh, causal, window = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(S + dh)
     q, k, v = (torch.tensor(rng.standard_normal((B, S, h, dh)),
                             dtype=torch.float32, device=cuda).to(dt)
                for h in (H, Hkv, Hkv))
-    n0 = fops.flash_attention_cuda.launches
+    wrapper = (fops.flash_attention_bf16_cuda if dtype == "bfloat16"
+               else fops.flash_attention_fp32_cuda)
+    n0 = wrapper.launches
     out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
-    assert fops.flash_attention_cuda.launches == n0 + 1
+    assert wrapper.launches == n0 + 1
     ref = fops.flash_attention_plain(q, k, v, causal=causal,
                                      sliding_window=window)
     torch.cuda.synchronize()
@@ -166,6 +184,32 @@ def test_flash_kernel_matches_twin_on_card(cuda, case, dtype):
     err = max_diff(ref.float(), out.float())
     print(f"flash {case} {dtype}: max|kernel - twin| {err:.3e}")
     assert err <= (2e-5 if dtype == "float32" else 3e-2)
+    if dtype == "bfloat16":
+        tiled = fops.flash_attention_tiled(q, k, v, causal=causal,
+                                           sliding_window=window)
+        row = _worst_row(tiled, out)
+        print(f"flash {case} bf16: worst row vs tiled {row:.3e}")
+        assert row <= 2 ** -6
+
+
+@pytest.mark.cuda
+def test_flash_bf16_runs_on_the_tensor_core_kernel(cuda):
+    """A bfloat16 CUDA call launches the tensor-core kernel and never the
+    float32 one; a float32 call the reverse; float16 raises and launches
+    nothing."""
+    def counts():
+        return (fops.flash_attention_bf16_cuda.launches,
+                fops.flash_attention_fp32_cuda.launches)
+
+    q = torch.zeros((1, 128, 2, 64), device=cuda)
+    n_tc, n_fp32 = counts()
+    fops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert counts() == (n_tc + 1, n_fp32)
+    fops.flash_attention(q, q, q)
+    assert counts() == (n_tc + 1, n_fp32 + 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fops.flash_attention(q.half(), q.half(), q.half())
+    assert counts() == (n_tc + 1, n_fp32 + 1)
 
 
 def test_flash_rejects_lengths_the_reference_rejects():
@@ -219,11 +263,14 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
 def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
     """No fallback on the card: a head dim outside 32/64/128 raises and
     launches nothing."""
-    q = torch.zeros((1, 64, 2, 48), device=cuda)
-    n0 = fops.flash_attention_cuda.launches
-    with pytest.raises(ValueError, match="head dims"):
-        fops.flash_attention(q, q, q)
-    assert fops.flash_attention_cuda.launches == n0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 64, 2, 48), device=cuda, dtype=dt)
+        n0 = (fops.flash_attention_bf16_cuda.launches,
+              fops.flash_attention_fp32_cuda.launches)
+        with pytest.raises(ValueError, match="head dims"):
+            fops.flash_attention(q, q, q)
+        assert n0 == (fops.flash_attention_bf16_cuda.launches,
+                      fops.flash_attention_fp32_cuda.launches)
 
 
 @pytest.mark.cuda
@@ -242,7 +289,7 @@ def test_lm_forward_on_card(cuda, name):
     params = model.init_params(cfg, seed=0, device=cuda)
     tokens = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 128)), device=cuda)
-    wrapper = (fops.flash_attention_cuda if cfg.attention_kind == "gqa"
+    wrapper = (fops.flash_attention_fp32_cuda if cfg.attention_kind == "gqa"
                else wops.wkv6_cuda)
     n0 = wrapper.launches
     out, _ = model.forward_train(cfg, params, tokens, backend="pallas")

@@ -246,6 +246,62 @@ def test_flash_plain_bfloat16_matches_reference_kernel():
     assert_close(np.asarray(ref, np.float32), out.float(), 3e-2, "bf16")
 
 
+def _worst_row(ref, out):
+    """The largest max |out - ref| of a row over max |ref| of that row."""
+    ref, out = to_np(ref).astype(np.float64), to_np(out).astype(np.float64)
+    assert ref.shape == out.shape, (ref.shape, out.shape)
+    d = np.abs(out - ref).max(-1)
+    return float((d / np.maximum(np.abs(ref).max(-1), 1e-30)).max())
+
+
+# (B, S, H, Hkv, dh, causal, window): a 40-key tile (S < 128, not a
+# multiple of 16), S = 96 under a window, a window across the 128-key tile
+# edge, non-causal, dh 64; GQA 4 over 2 and 4 over 1
+TILED_CASES = [(1, 40, 4, 2, 32, True, 0), (2, 96, 4, 1, 32, True, 24),
+               (1, 256, 4, 2, 32, True, 96), (1, 256, 2, 2, 32, False, 0),
+               (1, 256, 4, 2, 64, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_flash_tiled_matches_reference_kernel(case, dtype):
+    """flash_attention_tiled, the card kernels' oracle, against the
+    reference's Pallas kernel (interpret mode) through its wrapper, same
+    inputs.  Both walk the same key tiles and round p at the same running
+    max.  float32: only the order of the sums differs, ~5e-7 of a row's
+    largest |o| -> 2e-6.  bfloat16: the two fp32 results differ as in
+    float32, so a bf16 output differs by at most one rounding step, at
+    most one ulp of the row's largest |o| (2^-7 of it)."""
+    B, S, H, Hkv, dh, causal, window = case
+    rng = np.random.default_rng(S + dh)
+    q, k, v = (rng.standard_normal((B, S, h, dh)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    ref = jflash.flash_attention(
+        *(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+        causal=causal, sliding_window=window)
+    out = tflash.flash_attention_tiled(
+        *(_t(a, getattr(torch, dtype)) for a in (q, k, v)), causal=causal,
+        sliding_window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == q.shape
+    err = _worst_row(np.asarray(ref, np.float32), out.float())
+    assert err <= (2e-6 if dtype == "float32" else 2 ** -7), err
+
+
+def test_flash_smem_bytes_per_kernel():
+    """Each kernel's shared memory, as its launch checks it on the card:
+    bf16, the 1024-byte alignment slack, Q and a 2-stage K/V ring of
+    128-row bf16 tiles and 7 barriers, at least 120 KB (one block per SM);
+    float32, the CUDA-core kernel's 64 padded query rows, K, V and p
+    tiles."""
+    from repro_torch.kernels import SMEM_PER_BLOCK
+    assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 5 * 32768 + 56
+    assert tflash.smem_bytes(32, torch.bfloat16) == 120 * 1024
+    assert tflash.smem_bytes(128, torch.float32) == 198_144
+    for dh in tflash.KERNEL_DH:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tflash.smem_bytes(dh, dtype) <= SMEM_PER_BLOCK
+
+
 def test_flash_checks_shapes():
     q = torch.zeros((1, 64, 3, 16))
     kv = torch.zeros((1, 64, 2, 16))
@@ -253,6 +309,8 @@ def test_flash_checks_shapes():
         tflash.flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tflash.flash_attention_cuda(kv, kv, kv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tflash.flash_attention_cuda(kv.half(), kv.half(), kv.half())
 
 
 # ---------------------------------------------------------------------------
