@@ -16,6 +16,11 @@ Phases (any failure exits non-zero):
    held by measures scaled to its output, which must reject two
    deliberately wrong variants; the SASS of the flash library must hold
    HGMMA instructions), with the stated tolerance, timed with CUDA events;
+   the fused kernel also at 1 dt, at 32 envs (timed, with the cluster size
+   chosen there) and at res 18 (held only), its cluster size, blocks, the
+   distinct SMs they ran on and its time per SOR half-sweep reported; its
+   checks must reject a variant built with a planted fault (SOR halo rows
+   one half-sweep stale);
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -48,9 +53,10 @@ ROOT = Path(__file__).resolve().parent
 
 # golden tolerances, the reference's (tests/test_golden_physics.py)
 TOL_ST, TOL_CD, TOL_AMP = 0.015, 0.01, 0.05
-# kernel vs twin: the kernel contracts a*b+c into FMAs and sums forces in
-# another order than the twin's op-by-op float32; over 50 dt x 60 SOR pairs
-# that stays well inside these (u, v are O(1), p and C_D O(5))
+# kernel vs twin: the kernel contracts a*b+c into FMAs, multiplies by
+# float32 reciprocals of the grid constants where the twin divides, and sums
+# forces in another order than the twin's op-by-op float32; over 50 dt x 60
+# SOR pairs that stays well inside these (u, v are O(1), p and C_D O(5))
 TOL_FUSED = {"u": 1e-4, "v": 1e-4, "p": 1e-3, "cd": 1e-3, "cl": 1e-3}
 TOL_SOR = 1e-5                 # 52 pairs on unit-variance planes
 # flash attention.  An output row averages v over up to S keys, so |o|
@@ -135,7 +141,9 @@ def bound(flops, nbytes, peak=FP32_PEAK):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_fused(dev, cfg, n_env, n_steps):
+def fused_case(dev, cfg, n_env, n_steps):
+    """Inputs of a fused-kernel check and its two realizations: n_env
+    perturbed impulsive starts mixing jets and rotary."""
     import numpy as np
     import torch
     from repro_torch.cfd import grid, solver
@@ -148,8 +156,9 @@ def check_fused(dev, cfg, n_env, n_steps):
         a.expand(n_env, *a.shape) + torch.tensor(
             0.01 * rng.standard_normal((n_env,) + tuple(a.shape)),
             dtype=torch.float32, device=dev) for a in flow))
-    jet = torch.tensor([0.3, -0.5, 0.0, 1.0][:n_env], device=dev)
-    mode = torch.tensor([0.0, 0.0, 1.0, 1.0][:n_env], device=dev)
+    reps = -(-n_env // 4)
+    jet = torch.tensor([0.3, -0.5, 0.0, 1.0] * reps, device=dev)[:n_env]
+    mode = torch.tensor([0.0, 0.0, 1.0, 1.0] * reps, device=dev)[:n_env]
 
     def kernel():
         return ops.fused_interval_cuda(cfg, ga, flow, jet, n_steps,
@@ -159,20 +168,121 @@ def check_fused(dev, cfg, n_env, n_steps):
         return ops.fused_interval_plain(cfg, ga, flow, jet, n_steps,
                                         act_mode=mode)
 
+    return kernel, plain
+
+
+def fused_errors(kernel, plain):
+    """max |kernel - twin| of u, v, p, C_D and C_L."""
+    import torch
     (ka, ko), (pa, po) = kernel(), plain()
     torch.cuda.synchronize()
     errs = {n: float((x - y).abs().max())
             for n, x, y in zip("uvp", ka, pa)}
     errs["cd"] = float((ko.cd - po.cd).abs().max())
     errs["cl"] = float((ko.cl - po.cl).abs().max())
-    print(f"[kernels] fused_interval res {cfg.res} N={n_env} "
-          f"{n_steps} dt: max|kernel - plain| " + ", ".join(
-              f"{k} {v:.3e} (tol {TOL_FUSED[k]:.0e})"
-              for k, v in errs.items()))
-    for k, v in errs.items():
-        if not v <= TOL_FUSED[k]:
-            fail(f"fused_interval {k} differs from its twin by {v:.3e}")
+    return errs
+
+
+def fused_report(what, errs):
+    """Print the errors beside TOL_FUSED; True when every one is within."""
+    print(f"[kernels] {what}: max|kernel - plain| " + ", ".join(
+        f"{k} {v:.3e} (tol {TOL_FUSED[k]:.0e})" for k, v in errs.items()))
+    return all(v <= TOL_FUSED[k] for k, v in errs.items())
+
+
+def hold_fused(dev, cfg, n_env, n_steps):
+    """The kernel against its twin (TOL_FUSED); returns (errors, kernel,
+    plain)."""
+    kernel, plain = fused_case(dev, cfg, n_env, n_steps)
+    errs = fused_errors(kernel, plain)
+    if not fused_report(f"fused_interval res {cfg.res} N={n_env} "
+                        f"{n_steps} dt", errs):
+        fail(f"fused_interval res {cfg.res}, {n_env} envs, {n_steps} dt "
+             f"differs from its twin: {errs}")
+    return errs, kernel, plain
+
+
+# The planted fault of the fused kernel: the SOR's edge rows send their
+# neighbours the value from before the half-sweep, so every halo row lags
+# one half-sweep, which is what an edge row reads when its wait on the
+# halo exchange is missing or waits on the wrong phase.
+STALE_HALO = ("st_async(to_prev + 4 * k, val, link.prev_bar)",
+              "st_async(to_next + 4 * k, val, link.next_bar)")
+
+
+def start_stale_halo_build():
+    """Start nvcc on a copy of csrc/fused_interval.cu with the planted
+    fault, beside the other builds; returns (library path, process)."""
+    from repro_torch.kernels import build
+    text = (build.CSRC / "fused_interval.cu").read_text()
+    for line in STALE_HALO:
+        if text.count(line) != 1:
+            fail(f"fused_interval.cu no longer holds {line!r} once: the "
+                 f"stale-halo variant cannot be planted")
+        text = text.replace(line, line.replace(", val,", ", self,"))
+    out = build.BUILD_DIR / "stale_halo"
+    out.mkdir(parents=True, exist_ok=True)
+    for name in build.SOURCES["fused_interval"][1:]:
+        (out / name).write_bytes((build.CSRC / name).read_bytes())
+    (out / "fused_interval.cu").write_text(text)
+    lib = out / "libfused_interval_stale_halo.so"
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                             str(lib), str(out / "fused_interval.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return lib, proc
+
+
+def stale_halo_rejected(dev, job, cfg, n_env, cases):
+    """The fused kernel's checks, taken together, must reject the
+    stale-halo variant: each ``(n_steps, errors of the right kernel)`` of
+    ``cases`` is run through the variant, and at least one must fall
+    outside TOL_FUSED.  Returns the variant's errors by case."""
+    import ctypes
+    from repro_torch.kernels import build
+    path, proc = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"the stale-halo variant did not build:\n{out}")
+    wrong = ctypes.CDLL(str(path))
+    wrong.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    wrong.repro_cuda_error_string.restype = ctypes.c_char_p
+    right = build.load("fused_interval")
+    build._LIBS["fused_interval"] = wrong
+    readings, rejected = {}, False
+    try:
+        for n_steps, right_errs in cases:
+            errs = fused_errors(*fused_case(dev, cfg, n_env, n_steps))
+            readings[f"{n_steps}_dt"] = errs
+            held = fused_report(f"wrong kernel, SOR halo rows one "
+                                f"half-sweep stale, res {cfg.res} "
+                                f"N={n_env} {n_steps} dt", errs)
+            rejected = rejected or not held
+            print(f"[kernels]   the right kernel there: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in right_errs.items()))
+    finally:
+        build._LIBS["fused_interval"] = right
+    if not rejected:
+        fail("TOL_FUSED cannot tell a fused kernel whose SOR halo rows lag "
+             "one half-sweep from a right one")
+    return readings
+
+
+def fused_launch():
+    """(cluster size, blocks, distinct SMs) of the fused wrapper's last
+    launch, as the wrapper recorded them where it launched."""
+    from repro_torch.kernels.actuation import ops
+    sms = ops.fused_interval_cuda.last_block_sms.cpu()
+    return (ops.fused_interval_cuda.last_cluster, int(sms.numel()),
+            int(sms.unique().numel()))
+
+
+def check_fused(dev, cfg, n_env, n_steps):
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.actuation import ops
+    errs, kernel, plain = hold_fused(dev, cfg, n_env, n_steps)
     ms = cuda_ms(kernel, 5)
+    cluster, blocks, sms_busy = fused_launch()
     plain_ms = cuda_ms(plain, 2)
     ny, nx = cfg.ny, cfg.nx
     nu, nv, npts = ny * (nx + 1), (ny + 1) * nx, ny * nx
@@ -183,18 +293,61 @@ def check_fused(dev, cfg, n_env, n_steps):
     nbytes = 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv + ny
                   + 3 * n_env + 2 * n_env * n_steps)
     bound_ms, bound_by = bound(flops, nbytes)
+    # the card's occupancy for this launch shape and the others that fit
+    active = ops.active_clusters(dev, cfg, cluster)
+    by_size = {c: ops.active_clusters(dev, cfg, c) for c in (16, 8, 4)
+               if ops.smem_bytes(ny, nx, c) <= ops.SMEM_PER_BLOCK}
+    # a half-sweep's time: the interval at 60 and at 20 SOR pairs per dt,
+    # the difference over the 40 pairs' half-sweeps
+    few = GridConfig(res=cfg.res, poisson_iters=cfg.poisson_iters - 40)
+    few_ms = cuda_ms(fused_case(dev, few, n_env, n_steps)[0], 5)
+    sweep_us = 1e3 * (ms - few_ms) / (n_steps * 2 * 40)
+    # derived, for the text only: the second floor is the phases of an
+    # interval in sequence, each waiting for rows other blocks wrote (a
+    # neighbour exchange after each SOR half-sweep, a cluster barrier after
+    # the predictor and after the correction)
+    chain = n_steps * (2 * cfg.poisson_iters + 2)
+    sor_share = n_steps * 2 * cfg.poisson_iters * sweep_us / (1e3 * ms)
     print(f"[kernels] fused_interval: kernel {ms:.4f} ms, plain twin "
           f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB)")
+          f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB); clusters of "
+          f"{cluster} blocks, {blocks} blocks ran on {sms_busy} distinct SMs "
+          f"({active} such clusters resident at once; by cluster size "
+          f"{by_size}); {chain} synchronisations in sequence, "
+          f"{1e3 * ms / chain:.4f} us each on average; at "
+          f"{few.poisson_iters} SOR pairs {few_ms:.4f} ms, so "
+          f"{sweep_us:.4f} us per half-sweep, the SOR {sor_share:.3f} of "
+          f"the kernel's time")
     return {"name": "fused_interval", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_interval.cu",
             "replaces": "src/repro/kernels/actuation/kernel.py:39",
-            "max_abs_err": max(errs.values()), "ms": ms,
+            "max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
             "library": "no single PyTorch call computes this",
+            "cluster": cluster, "blocks": blocks, "sms_busy": sms_busy,
+            "active_clusters": active,
+            f"ms_at_{few.poisson_iters}_sor_pairs": few_ms,
+            "half_sweep_us": sweep_us,
             "shape": f"res {cfg.res} (ny {ny}, nx {nx}), {n_env} envs, "
                      f"{n_steps} dt, {cfg.poisson_iters} SOR pairs per dt"}
+
+
+def fused_batch_reading(dev, cfg, n_env, n_steps):
+    """The kernel at a larger env batch: held against its twin, timed, and
+    the launch the wrapper chose there."""
+    from repro_torch.kernels.actuation import ops
+    errs, kernel, _ = hold_fused(dev, cfg, n_env, n_steps)
+    ms = cuda_ms(kernel, 3)
+    cluster, blocks, sms_busy = fused_launch()
+    active = ops.active_clusters(dev, cfg, cluster)
+    print(f"[kernels] fused_interval res {cfg.res}, {n_env} envs, {n_steps} "
+          f"dt: {ms:.4f} ms per interval in clusters of {cluster} blocks "
+          f"({blocks} blocks ran on {sms_busy} distinct SMs; {active} "
+          f"clusters resident at once, so {-(-n_env // active)} waves)")
+    return {"envs": n_env, "ms": ms, "cluster": cluster, "blocks": blocks,
+            "sms_busy": sms_busy, "active_clusters": active,
+            "max_abs_err": max(errs.values())}
 
 
 def check_sor(dev, cfg, n_env, iters):
@@ -725,6 +878,7 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    stale_halo_job = start_stale_halo_build()
     _, secs = wall(lambda: build.build(verbose=True))
     print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
           f"{build.BUILD_DIR}")
@@ -733,6 +887,13 @@ def main():
     # 1. each kernel against its plain twin at the training shape
     res16 = GridConfig(res=16)
     fused = check_fused(dev, res16, n_env=4, n_steps=50)
+    short = hold_fused(dev, res16, n_env=4, n_steps=1)[0]
+    fused["stale_halo_variant"] = stale_halo_rejected(
+        dev, stale_halo_job, res16, 4,
+        ((50, fused["errors"]), (1, short)))
+    fused["envs_32"] = fused_batch_reading(dev, res16, n_env=32, n_steps=50)
+    fused["res_18_max_abs_err"] = max(hold_fused(
+        dev, GridConfig(res=18), n_env=4, n_steps=10)[0].values())
     sor = check_sor(dev, res16, n_env=4, iters=50)
     sor_full = check_sor_full(dev, res16, n_env=4, iters=50)
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)

@@ -5,18 +5,19 @@ Port of ``repro.kernels.actuation.ops``.  One actuation interval
 pressure parity planes carried across every dt:
 
 - on a CUDA tensor, one launch of the hand-written kernel
-  ``csrc/fused_interval.cu`` for the whole env batch, the dt loop inside
-  the kernel (:func:`fused_interval_cuda`);
+  ``csrc/fused_interval.cu`` for the whole env batch, one thread-block
+  cluster per env, the dt loop inside the kernel
+  (:func:`fused_interval_cuda`);
 - on a CPU tensor, its plain PyTorch twin (:func:`fused_interval_plain`),
   which chains the solver's own ``_momentum`` -> packed SOR projection
   -> velocity correction, so the twin cannot drift from the solver.
 
 Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
 (no checkerboard parity) falls back to the reference loop, warning once
-per grid shape.  A CUDA state the kernel cannot serve (odd width, or
-packed planes over the shared memory of one block, the analogue of the
-reference's VMEM budget) raises: the card never runs the plain loop in
-the kernel's place.
+per grid shape.  A CUDA state the kernel cannot serve (odd width, or an
+env's fields over the shared memory of a 16-block cluster, the analogue
+of the reference's VMEM budget) raises: the card never runs the plain
+loop in the kernel's place.
 """
 from __future__ import annotations
 
@@ -30,36 +31,104 @@ from repro_torch.cfd import poisson, solver
 from repro_torch.cfd.grid import GridConfig
 from repro_torch.kernels import SMEM_PER_BLOCK
 
-# reduction slots after the four planes (csrc/fused_interval.cu)
-_SCRATCH_FLOATS = 128
+# the cluster sizes the kernel launches with (csrc/fused_interval.cu
+# kMaxCluster = 16; sizes above 8 are the card's non-portable ones)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# beside the fields: two mbarriers (4 float slots), the block's three
+# partial sums (4 slots) and block_sum3's 128 reduction slots
+# (csrc/fused_interval.cu)
+_SCRATCH_FLOATS = 4 + 4 + 128
 
 _FALLBACK_WARNED = warn_once_cache()
 
 
-def smem_bytes(cfg: GridConfig) -> int:
-    """Shared-memory bytes the kernel keeps resident per env: the four
-    packed planes (red, black, rhs_r, rhs_b) and the reduction slots."""
-    return 4 * (4 * cfg.ny * (cfg.nx // 2) + _SCRATCH_FLOATS)
+def band_starts(ny: int, cluster: int) -> tuple:
+    """The band partition of one env over a cluster: rank r owns pressure
+    (and u) rows ``[starts[r], starts[r + 1])``; rows per rank differ by
+    at most one.  The kernel takes these starts as they are."""
+    if not 1 <= cluster <= ny:
+        raise ValueError(f"a cluster of {cluster} blocks cannot split "
+                         f"{ny} rows")
+    return tuple(r * ny // cluster for r in range(cluster + 1))
+
+
+def block_shape(nx: int, rows: int) -> tuple:
+    """``(threads, tx)`` of a block: ``tx`` lanes (a multiple of 32) span a
+    packed row of ``nx // 2`` columns, ``threads // tx`` thread rows step
+    over the band's ``rows`` rows, at most 1024 threads."""
+    tx = min(1024, 32 * -(-(nx // 2) // 32))
+    return tx * max(1, min(rows, 1024 // tx)), tx
+
+
+def rows_max(starts) -> int:
+    """The most rows any rank of a partition owns."""
+    return max(b - a for a, b in zip(starts, starts[1:]))
+
+
+def smem_bytes(ny: int, nx: int, cluster: int) -> int:
+    """Dynamic shared-memory bytes of one block when an env of an (ny, nx)
+    grid spreads over ``cluster`` blocks: the block's band (the largest of
+    the partition) of u, v, u_pen, v_pen and the four packed planes, with
+    their halo rows, the halo exchange's mbarriers and the reduction
+    slots."""
+    r = rows_max(band_starts(ny, cluster))
+    w = nx // 2
+    floats = ((r + 2) * (nx + 1)      # u, halo rows above and below
+              + (r + 3) * nx          # v, halo above, below and the wall
+              + r * nx                # u_pen (its outlet column implied)
+              + (r + 1) * nx          # v_pen, halo below / wall row
+              + 2 * (r + 2) * w       # red, black
+              + 2 * r * w             # rhs_r, rhs_b
+              + _SCRATCH_FLOATS)
+    return 4 * floats
+
+
+def _fitting_clusters(ny: int, nx: int, smem_per_block: int) -> list:
+    return [c for c in CLUSTER_SIZES
+            if c <= ny and smem_bytes(ny, nx, c) <= smem_per_block]
+
+
+def choose_cluster(ny: int, nx: int, n_env: int, n_sm: int, active,
+                   smem_per_block: int) -> int:
+    """The cluster size for ``n_env`` envs on an (ny, nx) grid.
+
+    ``active`` maps a cluster size to how many such clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``), ``n_sm`` is its SM
+    count: where two blocks fit one SM, the card may hold more clusters
+    than it has SMs for, and a size is taken only if every block of every
+    env has an SM of its own.  The smallest size whose band fits one
+    block's shared memory is
+    the floor; above it the largest of 16, 8, 4, 2 under which all
+    ``n_env`` clusters are resident at once, else the floor (the envs then
+    run in waves, and fewer blocks per env waste fewest SMs)."""
+    fits = _fitting_clusters(ny, nx, smem_per_block)
+    if not fits:
+        raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks "
+                         f"holds grid (ny={ny}, nx={nx})")
+    for c in (16, 8, 4, 2):
+        if c in fits and n_env * c <= n_sm and active.get(c, 0) >= n_env:
+            return c
+    return fits[0]
 
 
 def check_kernel_grid(cfg: GridConfig) -> None:
     """Raise ``ValueError`` unless the CUDA kernel can serve the grid: an
-    even width, and one env's packed planes within one block's shared
-    memory (res <= 17 at the default aspect)."""
+    even width, and one env's fields, cut into 16 bands, within the shared
+    memory of one block each (res <= 38 at the default aspect)."""
     ny, nx = cfg.ny, cfg.nx
     if nx % 2:
         raise ValueError(
             f"backend='fused' needs an even grid width for packed "
             f"checkerboard parity, got grid (ny={ny}, nx={nx}); use "
             f"backend='reference' for this grid")
-    need = smem_bytes(cfg)
-    if need > SMEM_PER_BLOCK:
+    if not _fitting_clusters(ny, nx, SMEM_PER_BLOCK):
+        c = max(c for c in CLUSTER_SIZES if c <= ny)
         raise ValueError(
-            f"backend='fused' keeps one env's four packed pressure planes in "
-            f"one block's shared memory: grid (ny={ny}, nx={nx}) needs {need} "
-            f"bytes, over the {SMEM_PER_BLOCK} a block may have.  Spreading "
-            f"an env over a thread-block cluster is not written yet; run "
-            f"this grid with backend='reference'")
+            f"backend='fused' keeps one env's fields in the shared memory of "
+            f"a cluster of up to {CLUSTER_SIZES[-1]} blocks: grid (ny={ny}, "
+            f"nx={nx}) needs {smem_bytes(ny, nx, c)} bytes per block at {c} "
+            f"blocks, over the {SMEM_PER_BLOCK} a block may have; run this "
+            f"grid with backend='reference'")
 
 
 def select_tier(cfg: GridConfig, device) -> str:
@@ -145,12 +214,14 @@ def fused_interval_plain(cfg: GridConfig, geom_arrays, state, jet_vel,
 
 def _consts(cfg: GridConfig):
     """The kernel's float constants (csrc/fused_interval.cu ``Consts``),
-    each computed in float64 as the reference does, rounded to float32."""
-    dx, dy = cfg.dx, cfg.dy
+    each computed in float64, the reciprocals included, and rounded to
+    float32."""
+    dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
     _, _, inv_diag = poisson.sor_coefficients(dx, dy)
     b, om = cfg.upwind_blend, float(cfg.poisson_omega)
-    vals = (cfg.dt, dx, dy, dx ** 2, dy ** 2, 2 * dx, 2 * dy, b, 1 - b,
-            cfg.dt / cfg.penal_eta, inv_diag, om, 1 - om, cfg.ny * dy,
+    vals = (dt, dx, dy, 1 / dx, 1 / dy, 1 / dx ** 2, 1 / dy ** 2,
+            1 / (2 * dx), 1 / (2 * dy), 1 / dt, b, 1 - b,
+            dt / cfg.penal_eta, inv_diag, om, 1 - om, cfg.ny * dy,
             0.5 * cfg.u_mean ** 2)
     return (ctypes.c_float * len(vals))(*vals)
 
@@ -166,16 +237,61 @@ def _load():
     if lib.fused_interval_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_interval_launch.argtypes = (
-            [p] * 14 + [i] * 7 + [p, p])
+            [p] * 13 + [i] * 7 + [p] + [i] * 4 + [p, p])
         lib.fused_interval_launch.restype = ctypes.c_int
+        lib.fused_interval_max_clusters.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.fused_interval_max_clusters.restype = ctypes.c_int
     return lib
 
 
+_ACTIVE_CLUSTERS = {}
+
+
+def active_clusters(dev, cfg: GridConfig, cluster: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the launch shape of
+    ``cluster`` blocks on ``cfg``'s grid, read once per shape and card."""
+    key = (dev.index, cfg.ny, cfg.nx, cluster)
+    if key not in _ACTIVE_CLUSTERS:
+        from repro_torch.kernels.build import check_launch
+        lib = _load()
+        threads, _ = block_shape(cfg.nx, rows_max(band_starts(cfg.ny,
+                                                              cluster)))
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.fused_interval_max_clusters(
+                cluster, threads, smem_bytes(cfg.ny, cfg.nx, cluster),
+                ctypes.byref(n))
+        check_launch(lib, err, "fused_interval occupancy query")
+        _ACTIVE_CLUSTERS[key] = n.value
+    return _ACTIVE_CLUSTERS[key]
+
+
+def cluster_for(cfg: GridConfig, n_env: int, device) -> int:
+    """The cluster size :func:`fused_interval_cuda` launches with for
+    ``n_env`` envs on the card of ``device`` (:func:`choose_cluster` fed
+    the card's SM count and occupancy)."""
+    check_kernel_grid(cfg)
+    dev = torch.device(device)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fits = _fitting_clusters(cfg.ny, cfg.nx, SMEM_PER_BLOCK)
+    active = {c: active_clusters(dev, cfg, c) for c in (16, 8, 4, 2)
+              if c in fits and n_env * c <= n_sm}
+    return choose_cluster(cfg.ny, cfg.nx, n_env, n_sm, active,
+                          SMEM_PER_BLOCK)
+
+
 def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
-                        n_steps: int, *, re=None, act_mode=None):
+                        n_steps: int, *, re=None, act_mode=None,
+                        cluster=None):
     """One launch of ``csrc/fused_interval.cu`` for the whole env batch:
     ``n_steps`` dt's, returns ``(FlowState, StepOutputs)`` with
-    ``(N, n_steps)`` C_D / C_L (``(n_steps,)`` for an unbatched state)."""
+    ``(N, n_steps)`` C_D / C_L (``(n_steps,)`` for an unbatched state).
+    Each env runs on a cluster of ``cluster`` blocks, by default
+    :func:`cluster_for`'s choice; a size whose bands do not fit one
+    block's shared memory raises.  Each launch records its cluster size
+    (``fused_interval_cuda.last_cluster``) and the SM each block ran on
+    (``fused_interval_cuda.last_block_sms``, int32, one per block)."""
     u, v, p = state
     dev = u.device
     if dev.type != "cuda":
@@ -194,6 +310,15 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
                 or t.device != dev:
             raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if cluster is None:
+        cluster = cluster_for(cfg, n, dev)
+    elif cluster not in _fitting_clusters(ny, nx, SMEM_PER_BLOCK):
+        raise ValueError(f"a cluster of {cluster} blocks cannot hold grid "
+                         f"(ny={ny}, nx={nx}) in shared memory; sizes that "
+                         f"fit: {_fitting_clusters(ny, nx, SMEM_PER_BLOCK)}")
+    starts = band_starts(ny, cluster)
+    rows = rows_max(starts)
+    threads, tx = block_shape(nx, rows)
     ga = solver.GeomArrays(*geom_arrays)
     geom = [g.to(dev, torch.float32).contiguous() for g in ga]
     u, v, p = u.contiguous(), v.contiguous(), p.contiguous()
@@ -202,10 +327,11 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     mode = _per_env_vector(0.0 if act_mode is None else act_mode, n, dev)
     u_out, v_out, p_out = (torch.empty_like(u), torch.empty_like(v),
                            torch.empty_like(p))
-    u_scr, v_scr = torch.empty_like(u), torch.empty_like(v)
     cd = torch.empty((n, n_steps), dtype=torch.float32, device=dev)
     cl = torch.empty_like(cd)
+    block_sms = torch.empty(n * cluster, dtype=torch.int32, device=dev)
     geom_ptrs = (ctypes.c_void_p * len(geom))(*[g.data_ptr() for g in geom])
+    starts_c = (ctypes.c_int * len(starts))(*starts)
     consts = _consts(cfg)
     lib = _load()
     with torch.cuda.device(dev):
@@ -214,13 +340,17 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
             u.data_ptr(), v.data_ptr(), p.data_ptr(),
             ctypes.cast(geom_ptrs, ctypes.c_void_p), jet.data_ptr(),
             re_t.data_ptr(), mode.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), p_out.data_ptr(), u_scr.data_ptr(),
-            v_scr.data_ptr(), cd.data_ptr(), cl.data_ptr(), n, ny, nx,
-            n_steps, cfg.poisson_iters, poisson.n_polish(cfg.poisson_iters),
-            smem_bytes(cfg), ctypes.cast(consts, ctypes.c_void_p), stream)
+            v_out.data_ptr(), p_out.data_ptr(), cd.data_ptr(),
+            cl.data_ptr(), block_sms.data_ptr(), n, ny, nx, n_steps,
+            cfg.poisson_iters, poisson.n_polish(cfg.poisson_iters), cluster,
+            ctypes.cast(starts_c, ctypes.c_void_p), rows, threads, tx,
+            smem_bytes(ny, nx, cluster), ctypes.cast(consts, ctypes.c_void_p),
+            stream)
     from repro_torch.kernels.build import check_launch
     check_launch(lib, err, "fused_interval")
     fused_interval_cuda.launches += 1
+    fused_interval_cuda.last_cluster = cluster
+    fused_interval_cuda.last_block_sms = block_sms
     flow = solver.FlowState(u_out, v_out, p_out)
     if not batched:
         flow = solver.FlowState(*(a[0] for a in flow))
@@ -229,6 +359,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
 
 
 fused_interval_cuda.launches = 0
+fused_interval_cuda.last_cluster = None
+fused_interval_cuda.last_block_sms = None
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// Fused actuation interval: n_steps solver dt's in one launch.
+// Fused actuation interval: n_steps solver dt's in one launch, one
+// thread-block cluster per env.
 //
 // Replaces the Pallas TPU megakernel _fused_dt_kernel / fused_step
 // (src/repro/kernels/actuation/kernel.py:39-85), which ran ONE dt per
@@ -12,25 +13,59 @@
 //   planes; `iters` packed SOR pairs (omega, then an omega=1 polish tail of
 //   n_polish pairs); the projection velocity correction and BCs; C_D, C_L.
 //
-// What bounds it on an H100: operations.  Per dt and env the SOR does
-// iters x ny x nx x ~10 flops (13.9 MFLOP at res 16, iters=60) and the
-// momentum/projection ~2.5 MFLOP, against ~0.6 MB of fields read and
-// written once per interval: thousands of flops per byte.
+// What bounds it on an H100: the chain of dependent phases, not the
+// arithmetic.  A dt is 2 x iters + 2 phases in sequence (the predictor,
+// the SOR half-sweeps, the correction), and each reads the previous one's
+// result across rows, so each waits for the rows another block wrote.  At
+// res 16 a half-sweep is 11,616 points, ~10 flops each: ~0.1 us of work
+// spread over 16 SMs, less than one synchronisation between SMs costs.
+// The operation bound (~14 MFLOP per dt and env at 67 TFLOP/s) is far
+// below what the chain of 50 x 122 synchronisations allows; PERF.md keeps
+// the time per link of the chain beside the bound.
 //
-// Design: one block per env, the whole n_steps loop inside the kernel.  The
-// four packed pressure planes (red, black, rhs_r, rhs_b) live in dynamic
-// shared memory for the whole interval (185,856 bytes at res 16, within
-// the 227 KB a block may have), so the ~120 half-sweeps per dt never leave
-// the SM.  u, v and their scratch copies (u_pen/v_pen, ~375 KB per env at
-// res 16) do not fit beside them: they stay in global memory, which the
-// 50 MB L2 holds for a batch of envs.  The passes of a dt are separated by
-// __syncthreads(); the block reductions are fx, fy and the outflux of
-// column -2 (one pass), the influx once, and C_D/C_L follow from fx, fy.
-// Only n_env of the 132 SMs are busy; spreading an env over a thread-block
-// cluster is later work.
+// Design, against that chain:
+//   * One cluster of C blocks per env (C <= 16, chosen by the wrapper,
+//     kernels/actuation/ops.py choose_cluster).  Rank r owns the pressure
+//     rows [start[r], start[r+1]); u takes the same rows, v the same rows
+//     plus the top wall row ny on the last rank.  A phase's points spread
+//     over C SMs, and n_env x C SMs are busy in place of n_env.
+//   * Every field of the interval lives in the cluster's shared memory:
+//     each block holds its band of u, v, u_pen, v_pen and of the four
+//     packed planes, with one halo row above and below where a stencil
+//     reads across the band's edge.  Global memory is read once at the
+//     start and written once at the end (the static geometry is read from
+//     global memory, where L1/L2 hold it).
+//   * Halo rows travel through distributed shared memory: the thread that
+//     computes a band's first or last row also stores the value into the
+//     neighbouring rank's halo row.  In the SOR, which is all but two
+//     phases of a dt, that store is an st.async counted by an mbarrier of
+//     the receiving block, and a half-sweep waits only for its two
+//     neighbours' rows of the half-sweep before: red-black SOR reads only
+//     the other colour, so one such exchange per half-sweep suffices, and
+//     its arithmetic is the single-domain one.  The edge rows are computed
+//     first.  On an H100 a half-sweep took about twice as long with a
+//     release/acquire cluster barrier after it as with this exchange
+//     (PERF.md); the two phases that need every block (the force sums
+//     after the predictor, the velocity halos after the correction) keep
+//     a cluster barrier.
+//   * The force and outflux sums: each block reduces its band, every warp
+//     of every block reads the C partials through DSMEM and sums them in
+//     one fixed order (no atomics), so every block holds the same
+//     correction and C_D/C_L, and two launches on one input are bitwise
+//     identical.
+//   * Few instructions per point: 2-D loops (rows by thread row, columns
+//     by lane; no index division) and multiplications by float32
+//     reciprocals of the grid constants in place of divisions by them.
+//     The divisions by per-env or per-point values (lap / re, / (1 + lp))
+//     stay.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sor_packed.cuh"
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 16;
 
 struct Geom {  // the reference's GeomArrays order
   const float* chi_u;
@@ -46,80 +81,280 @@ struct Geom {  // the reference's GeomArrays order
   const float* inlet_u;  // (ny,)
 };
 
-// float32 constants, each rounded from the float64 value the reference
-// computes in Python (order: see kernels/actuation/ops.py _CONSTS)
+// float32 constants, each rounded from the float64 value the wrapper
+// computes (order: see kernels/actuation/ops.py _consts)
 struct Consts {
-  float dt, dx, dy, dx2, dy2, two_dx, two_dy, blend, one_m_blend, lam,
-      inv_diag, omega, one_m_omega, ny_dy, coef;
+  float dt, dx, dy, inv_dx, inv_dy, inv_dx2, inv_dy2, inv_2dx, inv_2dy,
+      inv_dt, blend, one_m_blend, lam, inv_diag, omega, one_m_omega, ny_dy,
+      coef;
 };
-constexpr int kNumConsts = 15;
+constexpr int kNumConsts = 18;
 
-// u with the ghosts of the reference's _pad_u: walls reflect (-u), inlet
-// extrapolates (2 u0 - u1), outlet zero-gradient.  j in [-1, ny],
-// i in [-1, nx+1].
-__device__ __forceinline__ float u_row(const float* u, int j, int i, int ny,
-                                       int nxu) {
-  if (j < 0) return -u[i];
-  if (j >= ny) return -u[(ny - 1) * nxu + i];
-  return u[j * nxu + i];
-}
-__device__ __forceinline__ float U(const float* u, int j, int i, int ny,
-                                   int nx) {
-  if (i < 0) return 2.0f * u_row(u, j, 0, ny, nx + 1) - u_row(u, j, 1, ny, nx + 1);
-  if (i > nx) return u_row(u, j, nx, ny, nx + 1);
-  return u_row(u, j, i, ny, nx + 1);
-}
+// The band partition, computed once by the wrapper (ops.band_starts):
+// rank r owns pressure / u rows [start[r], start[r+1]).
+struct Bands {
+  int start[kMaxCluster + 1];
+};
 
-// v with the ghosts of _pad_v: wall rows 0 * v (zero, NaN-propagating),
-// inlet reflects (-v), outlet zero-gradient.  j in [-1, ny+1], i in
-// [-1, nx].
-__device__ __forceinline__ float v_row(const float* v, int j, int i, int ny,
-                                       int nx) {
-  if (j < 0) return v[i] * 0.0f;
-  if (j > ny) return v[ny * nx + i] * 0.0f;
-  return v[j * nx + i];
+// Column ghosts of the reference's _pad_u on one stored row (i in
+// [-1, nx+1]): inlet extrapolates (2 u0 - u1), outlet zero-gradient.  The
+// wall ghost rows are stored (halo rows of the first and last rank).
+__device__ __forceinline__ float U(const float* row, int i, int nx) {
+  if (i < 0) return 2.0f * row[0] - row[1];
+  if (i > nx) return row[nx];
+  return row[i];
 }
-__device__ __forceinline__ float V(const float* v, int j, int i, int ny,
-                                   int nx) {
-  if (i < 0) return -v_row(v, j, 0, ny, nx);
-  if (i >= nx) return v_row(v, j, nx - 1, ny, nx);
-  return v_row(v, j, i, ny, nx);
+// Column ghosts of _pad_v (i in [-1, nx]): inlet reflects, outlet
+// zero-gradient.
+__device__ __forceinline__ float V(const float* row, int i, int nx) {
+  if (i < 0) return -row[0];
+  if (i >= nx) return row[nx - 1];
+  return row[i];
 }
 
-// pressure at full-grid (j, i) from the packed planes
-__device__ __forceinline__ float P(const float* red, const float* black,
-                                   int j, int i, int w) {
-  const int k = j * w + (i >> 1);
-  return ((i + j) & 1) == 0 ? red[k] : black[k];
+// Store `val` at column i of own row lj of a banded field, and mirror it
+// into the neighbours' halo rows when lj is the band's first (`prev`) or
+// last (`next`) row.  `prev` / `next` point at the neighbour's halo row,
+// nullptr where there is no neighbour.
+__device__ __forceinline__ void put(float* row, float* prev, float* next,
+                                    int lj, int nrows, int i, float val) {
+  row[i] = val;
+  if (lj == 0 && prev) prev[i] = val;
+  if (lj == nrows - 1 && next) next[i] = val;
+}
+
+// A full cluster barrier: every thread of every block, stores before it
+// (local and remote) visible to every thread after it.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of `local`'s counterpart in block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* local,
+                                                 int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(local)), "r"(rank));
+  return r;
+}
+
+// The halo exchange of the SOR.  Each block has one mbarrier per colour;
+// a neighbour's edge row lands in this block's halo row by st.async, each
+// 4-byte store counted against the mbarrier's transaction bytes, and the
+// phase completes when both neighbours' rows and this block's own arrival
+// (which states the bytes to expect) are in.  No fence and no cluster
+// barrier: a half-sweep waits only for its two neighbours.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Wait for the phase of `parity` to complete.  A phase that never does
+// (a broken exchange) traps after ~2^31 cycles rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const long long start = clock64();
+  unsigned done = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 31)) __trap();
+  }
+}
+__device__ __forceinline__ void st_async(unsigned addr, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n"
+      :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// Where a block's edge rows of one packed plane go: the shared::cluster
+// addresses of the neighbours' halo rows and of their mbarriers for the
+// plane's colour (0 where there is no neighbour).
+struct Link {
+  unsigned prev, prev_bar, next, next_bar;
+};
+
+// One row lj of a coloured half-sweep over this block's band of a packed
+// plane.  `a` and `o` point at stored row -1 (the halo above) of this
+// colour's and the other colour's band, `rhs` at this colour's own row 0.
+// Rows whose global parity equals shift_parity take their horizontal
+// neighbours at packed columns (k, k+1).  Domain BCs as in
+// packed_half_sweep: Neumann inlet, Dirichlet-0 outlet (negated own
+// value), Neumann walls (own value).  The arithmetic is the reference's,
+// with the divisions by dx^2, dy^2 taken as multiplications by their
+// reciprocals.  kEdge: the band's first or last row, whose values also go
+// to the neighbours' halo rows.
+template <bool kEdge>
+__device__ __forceinline__ void sweep_row(
+    float* a, const float* o, const float* rhs, const Link& link, int lj,
+    int nrows, int j0, int ny, int w, int shift_parity, int tx, int TX,
+    float inv_dx2, float inv_dy2, float inv_diag, float om, float one_m_om) {
+  const int j = j0 + lj;
+  float* arow = a + (lj + 1) * w;
+  const float* orow = o + (lj + 1) * w;
+  const float* rrow = rhs + lj * w;
+  const bool shift = (j & 1) == shift_parity;
+  const bool top = j == 0, bottom = j == ny - 1;
+  const unsigned to_prev = (kEdge && lj == 0) ? link.prev : 0u;
+  const unsigned to_next = (kEdge && lj == nrows - 1) ? link.next : 0u;
+  for (int k = tx; k < w; k += TX) {
+    const float self = arow[k];
+    const float oc = orow[k];
+    float horiz;
+    if (shift) {
+      horiz = oc + ((k == w - 1) ? -self : orow[k + 1]);
+    } else {
+      horiz = ((k == 0) ? self : orow[k - 1]) + oc;
+    }
+    const float north = top ? self : orow[k - w];
+    const float south = bottom ? self : orow[k + w];
+    const float nb = horiz * inv_dx2 + (north + south) * inv_dy2;
+    const float p_gs = (nb - rrow[k]) * inv_diag;
+    const float val = one_m_om * self + om * p_gs;
+    arow[k] = val;
+    if (kEdge) {
+      if (to_prev) st_async(to_prev + 4 * k, val, link.prev_bar);
+      if (to_next) st_async(to_next + 4 * k, val, link.next_bar);
+    }
+  }
+}
+
+// One coloured half-sweep over the band, rows taken in the order first,
+// last, then the interior, round-robin over the thread rows: the edge rows
+// (sent to the neighbours as they are computed) start in the first pass.
+// Only the edge rows read the other colour's halo rows, so only their
+// threads wait for them (`halo`: the mbarrier of that colour, nullptr when
+// there is nothing to wait for; the wait returns at once if the phase of
+// `parity` has completed); the interior rows go ahead.  A block barrier
+// then orders the band before the next half-sweep reads it.
+__device__ __forceinline__ void band_half_sweep(
+    float* a, const float* o, const float* rhs, const Link& link,
+    unsigned long long* halo, unsigned parity, int nrows, int j0, int ny,
+    int w, int shift_parity, int tx, int ty, int TX, int TY, float inv_dx2,
+    float inv_dy2, float inv_diag, float om, float one_m_om) {
+  const int n_edge = nrows > 1 ? 2 : 1;
+  for (int q = ty; q < nrows; q += TY) {
+    if (q < n_edge) {
+      if (halo) mbar_wait(halo, parity);
+      sweep_row<true>(a, o, rhs, link, q == 0 ? 0 : nrows - 1, nrows, j0, ny,
+                      w, shift_parity, tx, TX, inv_dx2, inv_dy2, inv_diag, om,
+                      one_m_om);
+    } else {
+      sweep_row<false>(a, o, rhs, link, q - 1, nrows, j0, ny, w,
+                       shift_parity, tx, TX, inv_dx2, inv_dy2, inv_diag, om,
+                       one_m_om);
+    }
+  }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ p_in, Geom g,
     const float* __restrict__ jet_vel, const float* __restrict__ re_arr,
-    const float* __restrict__ mode_arr, float* u, float* v,
-    float* __restrict__ p_out, float* us, float* vs,
-    float* __restrict__ cd_out, float* __restrict__ cl_out, int ny, int nx,
-    int n_steps, int iters, int n_polish, Consts c) {
+    const float* __restrict__ mode_arr, float* __restrict__ u_out,
+    float* __restrict__ v_out, float* __restrict__ p_out,
+    float* __restrict__ cd_out, float* __restrict__ cl_out,
+    int* __restrict__ block_sm, int ny, int nx, int n_steps, int iters,
+    int n_polish, int rows_max, int tx_dim, Bands bands, Consts c) {
   extern __shared__ float smem[];
-  const int w = nx / 2;
-  const int np = ny * w;
-  const int nxu = nx + 1;
-  const int nu = ny * nxu;
-  const int nv = (ny + 1) * nx;
-  float* red = smem;
-  float* black = red + np;
-  float* rhs_r = black + np;
-  float* rhs_b = rhs_r + np;
-  float* scratch = rhs_b + np;  // 128 floats for block_sum3
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int env = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int TX = tx_dim;
+  const int TY = blockDim.x / TX;
+  const int ty = tid / TX;
+  const int tx = tid - ty * TX;
+  const int lane = tid & 31;
 
-  const int env = blockIdx.x;
-  u_in += static_cast<size_t>(env) * nu;
-  u += static_cast<size_t>(env) * nu;
-  us += static_cast<size_t>(env) * nu;
-  v_in += static_cast<size_t>(env) * nv;
-  v += static_cast<size_t>(env) * nv;
-  vs += static_cast<size_t>(env) * nv;
+  const int w = nx / 2;
+  const int nxu = nx + 1;
+  const int R = rows_max;
+  const int j0 = bands.start[rank];
+  const int nrows = bands.start[rank + 1] - j0;
+  const bool first = rank == 0, last = rank == C - 1;
+  const int nv_rows = nrows + (last ? 1 : 0);  // + the top wall row ny
+  if (tid == 0) {  // the SM this block runs on, for the launch's record
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(sm));
+    block_sm[blockIdx.x] = static_cast<int>(sm);
+  }
+
+  // shared-memory layout (kernels/actuation/ops.py smem_bytes): stored row
+  // s of a field with a halo above is local row s - 1
+  // 2 mbarriers (red, black halo rows received), then the fields
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem);
+  float* u = smem + 4;                 // (R + 2) x nxu, local rows -1..R
+  float* v = u + (R + 2) * nxu;        // (R + 3) x nx, local rows -1..R+1
+  float* us = v + (R + 3) * nx;        // R x nx: u_pen with the inlet BC
+  float* vs = us + R * nx;             // (R + 1) x nx: v_pen with its BCs
+  float* red = vs + (R + 1) * nx;      // (R + 2) x w, local rows -1..R
+  float* black = red + (R + 2) * w;
+  float* rhs_r = black + (R + 2) * w;  // R x w
+  float* rhs_b = rhs_r + R * w;
+  float* part = rhs_b + R * w;         // 4: this block's fx, fy, outflux
+  float* scratch = part + 4;           // 128 floats for block_sum3
+
+  // the neighbours' halo rows (nullptr at the domain's walls)
+  const int nrows_prev = first ? 0 : j0 - bands.start[rank - 1];
+  float *u_prev = nullptr, *v_prev = nullptr, *vs_prev = nullptr;
+  float *u_next = nullptr, *v_next = nullptr;
+  Link red_link{0u, 0u, 0u, 0u}, black_link{0u, 0u, 0u, 0u};
+  if (!first) {
+    u_prev = cluster.map_shared_rank(u, rank - 1) + (nrows_prev + 1) * nxu;
+    v_prev = cluster.map_shared_rank(v, rank - 1) + (nrows_prev + 1) * nx;
+    vs_prev = cluster.map_shared_rank(vs, rank - 1) + nrows_prev * nx;
+    red_link.prev = cluster_addr(red + (nrows_prev + 1) * w, rank - 1);
+    red_link.prev_bar = cluster_addr(&mbar[0], rank - 1);
+    black_link.prev = cluster_addr(black + (nrows_prev + 1) * w, rank - 1);
+    black_link.prev_bar = cluster_addr(&mbar[1], rank - 1);
+  }
+  if (!last) {
+    u_next = cluster.map_shared_rank(u, rank + 1);
+    v_next = cluster.map_shared_rank(v, rank + 1);
+    red_link.next = cluster_addr(red, rank + 1);
+    red_link.next_bar = cluster_addr(&mbar[0], rank + 1);
+    black_link.next = cluster_addr(black, rank + 1);
+    black_link.next_bar = cluster_addr(&mbar[1], rank + 1);
+  }
+  // halo bytes a colour's phase waits for: a row from each neighbour
+  const bool linked = C > 1;
+  const int halo_bytes = 4 * w * ((first ? 0 : 1) + (last ? 0 : 1));
+  unsigned red_parity = 0, black_parity = 0;
+  if (linked && tid == 0) {
+    mbar_init(&mbar[0]);
+    mbar_init(&mbar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&mbar[0], halo_bytes);
+    mbar_expect(&mbar[1], halo_bytes);
+  }
+  // lane r < C of every warp reads rank r's partial sums
+  const float* part_of_lane =
+      cluster.map_shared_rank(part, lane < C ? lane : 0);
+
+  const size_t nu = static_cast<size_t>(ny) * nxu;
+  const size_t nv = static_cast<size_t>(ny + 1) * nx;
+  u_in += env * nu;
+  u_out += env * nu;
+  v_in += env * nv;
+  v_out += env * nv;
   p_in += static_cast<size_t>(env) * ny * nx;
   p_out += static_cast<size_t>(env) * ny * nx;
   cd_out += static_cast<size_t>(env) * n_steps;
@@ -130,173 +365,331 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   const float one_m_m = 1.0f - m;
   const int n_sor = iters - n_polish;
 
-  for (int idx = threadIdx.x; idx < nu; idx += blockDim.x) u[idx] = u_in[idx];
-  for (int idx = threadIdx.x; idx < nv; idx += blockDim.x) v[idx] = v_in[idx];
-  for (int idx = threadIdx.x; idx < np; idx += blockDim.x) {
-    const int j = idx / w;
-    const int k = idx - j * w;
-    red[idx] = p_in[j * nx + 2 * k + (j & 1)];
-    black[idx] = p_in[j * nx + 2 * k + 1 - (j & 1)];
+  // -- load the band with its halo rows; the wall ghost rows of _pad_u /
+  //    _pad_v (-u, 0 * v) where the band meets a wall -------------------
+  for (int lj = ty - 1; lj <= nrows; lj += TY) {
+    const int j = j0 + lj;
+    const float sign = (j < 0 || j >= ny) ? -1.0f : 1.0f;
+    const float* src = u_in + static_cast<size_t>(min(max(j, 0), ny - 1)) * nxu;
+    for (int i = tx; i < nxu; i += TX) u[(lj + 1) * nxu + i] = sign * src[i];
+  }
+  for (int lj = ty - 1; lj <= nrows + 1; lj += TY) {
+    const int j = j0 + lj;
+    const bool ghost = j < 0 || j > ny;
+    const float* src = v_in + static_cast<size_t>(min(max(j, 0), ny)) * nx;
+    for (int i = tx; i < nx; i += TX)
+      v[(lj + 1) * nx + i] = ghost ? src[i] * 0.0f : src[i];
+  }
+  for (int lj = ty - 1; lj <= nrows; lj += TY) {
+    const int j = j0 + lj;
+    const bool inside = j >= 0 && j < ny;
+    const float* src = p_in + static_cast<size_t>(inside ? j : 0) * nx;
+    for (int k = tx; k < w; k += TX) {
+      red[(lj + 1) * w + k] = inside ? src[2 * k + (j & 1)] : 0.0f;
+      black[(lj + 1) * w + k] = inside ? src[2 * k + 1 - (j & 1)] : 0.0f;
+    }
   }
   float s_in = 0.0f, unused_b = 0.0f, unused_c = 0.0f;
-  for (int j = threadIdx.x; j < ny; j += blockDim.x) s_in += g.inlet_u[j];
-  block_sum3(s_in, unused_b, unused_c, scratch);  // also orders the copies
+  for (int j = tid; j < ny; j += blockDim.x) s_in += g.inlet_u[j];
+  block_sum3(s_in, unused_b, unused_c, scratch);
   const float influx = s_in * c.dy;
+  // every block of the cluster has started, holds its band and has its
+  // mbarriers set before any block stores into another's shared memory
+  cluster_barrier();
 
   for (int t = 0; t < n_steps; ++t) {
-    // -- A: predictor, penalization, force and outflux partial sums ------
+    // -- A: predictor, penalization, BCs but the outlet column of u_pen,
+    //    force and outflux partial sums --------------------------------
     float fx = 0.0f, fy = 0.0f, out = 0.0f;
-    for (int idx = threadIdx.x; idx < nu; idx += blockDim.x) {
-      const int j = idx / nxu;
-      const int i = idx - j * nxu;
-      const float uc = U(u, j, i, ny, nx);
-      const float ul = U(u, j, i - 1, ny, nx);
-      const float ur = U(u, j, i + 1, ny, nx);
-      const float ub = U(u, j - 1, i, ny, nx);
-      const float ut = U(u, j + 1, i, ny, nx);
-      const float vau = 0.25f * (((V(v, j, i - 1, ny, nx) + V(v, j, i, ny, nx))
-                                  + V(v, j + 1, i - 1, ny, nx))
-                                 + V(v, j + 1, i, ny, nx));
-      const float dudx_up = uc > 0.0f ? (uc - ul) / c.dx : (ur - uc) / c.dx;
-      const float dudy_up = vau > 0.0f ? (uc - ub) / c.dy : (ut - uc) / c.dy;
-      const float dudx = c.blend * dudx_up + (c.one_m_blend * (ur - ul)) / c.two_dx;
-      const float dudy = c.blend * dudy_up + (c.one_m_blend * (ut - ub)) / c.two_dy;
-      const float adv = uc * dudx + vau * dudy;
-      const float lap = ((ul + ur) - 2.0f * uc) / c.dx2 + ((ub + ut) - 2.0f * uc) / c.dy2;
-      const float u_star = uc + c.dt * (-adv + lap / re);
-      const float tgt = jv * (one_m_m * (g.jet_u[idx] - g.jet_u[nu + idx])
-                              + m * g.rot_u[idx]);
-      const float pen = fmaxf(g.chi_u[idx],
-                              one_m_m * g.jmask_u[idx] + m * g.rmask_u[idx]);
-      const float lp = c.lam * pen;
-      const float u_pen = (u_star + lp * tgt) / (1.0f + lp);
-      us[idx] = u_pen;
-      fx += (u_pen - u_star) / c.dt;
-      if (i == nx - 1) out += u_pen;
+    for (int lj = ty; lj < nrows; lj += TY) {
+      const int j = j0 + lj;
+      const float* ur0 = u + (lj + 1) * nxu;  // row j
+      const float* urb = ur0 - nxu;           // j - 1
+      const float* urt = ur0 + nxu;           // j + 1
+      const float* vr0 = v + (lj + 1) * nx;   // v row j
+      const float* vr1 = vr0 + nx;            // v row j + 1
+      float* usr = us + lj * nx;
+      const float inlet = g.inlet_u[j];
+      for (int i = tx; i < nxu; i += TX) {
+        const int gi = j * nxu + i;
+        const float uc = U(ur0, i, nx);
+        const float ul = U(ur0, i - 1, nx);
+        const float ur = U(ur0, i + 1, nx);
+        const float ub = U(urb, i, nx);
+        const float ut = U(urt, i, nx);
+        const float vau = 0.25f * (((V(vr0, i - 1, nx) + V(vr0, i, nx))
+                                    + V(vr1, i - 1, nx)) + V(vr1, i, nx));
+        const float dudx_up = uc > 0.0f ? (uc - ul) * c.inv_dx : (ur - uc) * c.inv_dx;
+        const float dudy_up = vau > 0.0f ? (uc - ub) * c.inv_dy : (ut - uc) * c.inv_dy;
+        const float dudx = c.blend * dudx_up + (c.one_m_blend * (ur - ul)) * c.inv_2dx;
+        const float dudy = c.blend * dudy_up + (c.one_m_blend * (ut - ub)) * c.inv_2dy;
+        const float adv = uc * dudx + vau * dudy;
+        const float lap = ((ul + ur) - 2.0f * uc) * c.inv_dx2
+                          + ((ub + ut) - 2.0f * uc) * c.inv_dy2;
+        const float u_star = uc + c.dt * (-adv + lap / re);
+        const float tgt = jv * (one_m_m * (g.jet_u[gi] - g.jet_u[nu + gi])
+                                + m * g.rot_u[gi]);
+        const float pen = fmaxf(g.chi_u[gi],
+                                one_m_m * g.jmask_u[gi] + m * g.rmask_u[gi]);
+        const float lp = c.lam * pen;
+        const float u_pen = (u_star + lp * tgt) / (1.0f + lp);
+        fx += (u_pen - u_star) * c.inv_dt;
+        if (i == nx - 1) out += u_pen;
+        if (i < nx) usr[i] = i == 0 ? inlet : u_pen;  // column nx: in C
+      }
     }
-    for (int idx = threadIdx.x; idx < nv; idx += blockDim.x) {
-      const int j = idx / nx;
-      const int i = idx - j * nx;
-      const float vc = V(v, j, i, ny, nx);
-      const float vl = V(v, j, i - 1, ny, nx);
-      const float vr = V(v, j, i + 1, ny, nx);
-      const float vb = V(v, j - 1, i, ny, nx);
-      const float vt = V(v, j + 1, i, ny, nx);
-      const float uav = 0.25f * (((U(u, j - 1, i, ny, nx) + U(u, j - 1, i + 1, ny, nx))
-                                  + U(u, j, i, ny, nx))
-                                 + U(u, j, i + 1, ny, nx));
-      const float dvdx_up = uav > 0.0f ? (vc - vl) / c.dx : (vr - vc) / c.dx;
-      const float dvdy_up = vc > 0.0f ? (vc - vb) / c.dy : (vt - vc) / c.dy;
-      const float dvdx = c.blend * dvdx_up + (c.one_m_blend * (vr - vl)) / c.two_dx;
-      const float dvdy = c.blend * dvdy_up + (c.one_m_blend * (vt - vb)) / c.two_dy;
-      const float adv = uav * dvdx + vc * dvdy;
-      const float lap = ((vl + vr) - 2.0f * vc) / c.dx2 + ((vb + vt) - 2.0f * vc) / c.dy2;
-      const float v_star = vc + c.dt * (-adv + lap / re);
-      const float tgt = jv * (one_m_m * (g.jet_v[idx] - g.jet_v[nv + idx])
-                              + m * g.rot_v[idx]);
-      const float pen = fmaxf(g.chi_v[idx],
-                              one_m_m * g.jmask_v[idx] + m * g.rmask_v[idx]);
-      const float lp = c.lam * pen;
-      const float v_pen = (v_star + lp * tgt) / (1.0f + lp);
-      vs[idx] = v_pen;
-      fy += (v_pen - v_star) / c.dt;
+    for (int lj = ty; lj < nv_rows; lj += TY) {
+      const int j = j0 + lj;
+      const bool wall = j == 0 || j == ny;
+      const float* vr0 = v + (lj + 1) * nx;  // row j
+      const float* vrb = vr0 - nx;
+      const float* vrt = vr0 + nx;
+      const float* ur0 = u + (lj + 1) * nxu;  // u row j
+      const float* urb = ur0 - nxu;           // u row j - 1
+      float* vsr = vs + lj * nx;
+      for (int i = tx; i < nx; i += TX) {
+        const int gi = j * nx + i;
+        const float vc = V(vr0, i, nx);
+        const float vl = V(vr0, i - 1, nx);
+        const float vr = V(vr0, i + 1, nx);
+        const float vb = V(vrb, i, nx);
+        const float vt = V(vrt, i, nx);
+        const float uav = 0.25f * (((U(urb, i, nx) + U(urb, i + 1, nx))
+                                    + U(ur0, i, nx)) + U(ur0, i + 1, nx));
+        const float dvdx_up = uav > 0.0f ? (vc - vl) * c.inv_dx : (vr - vc) * c.inv_dx;
+        const float dvdy_up = vc > 0.0f ? (vc - vb) * c.inv_dy : (vt - vc) * c.inv_dy;
+        const float dvdx = c.blend * dvdx_up + (c.one_m_blend * (vr - vl)) * c.inv_2dx;
+        const float dvdy = c.blend * dvdy_up + (c.one_m_blend * (vt - vb)) * c.inv_2dy;
+        const float adv = uav * dvdx + vc * dvdy;
+        const float lap = ((vl + vr) - 2.0f * vc) * c.inv_dx2
+                          + ((vb + vt) - 2.0f * vc) * c.inv_dy2;
+        const float v_star = vc + c.dt * (-adv + lap / re);
+        const float tgt = jv * (one_m_m * (g.jet_v[gi] - g.jet_v[nv + gi])
+                                + m * g.rot_v[gi]);
+        const float pen = fmaxf(g.chi_v[gi],
+                                one_m_m * g.jmask_v[gi] + m * g.rmask_v[gi]);
+        const float lp = c.lam * pen;
+        const float v_pen = (v_star + lp * tgt) / (1.0f + lp);
+        fy += (v_pen - v_star) * c.inv_dt;
+        // _apply_bc_v: inlet 0, outlet copies column -2, walls 0
+        if (i == nx - 1) continue;
+        const float val = (i == 0 || wall) ? 0.0f : v_pen;
+        put(vsr, vs_prev, nullptr, lj, nrows, i, val);
+        if (i == nx - 2) put(vsr, vs_prev, nullptr, lj, nrows, nx - 1, val);
+      }
     }
-    block_sum3(fx, fy, out, scratch);  // u_pen / v_pen complete after this
+    block_sum3(fx, fy, out, scratch);
+    if (tid == 0) {
+      part[0] = fx;
+      part[1] = fy;
+      part[2] = out;
+    }
+    cluster_barrier();  // partials, u_pen / v_pen and the vs halo complete
+
+    // the cluster's sums, in one fixed order on every warp of every block
+    fx = lane < C ? part_of_lane[0] : 0.0f;
+    fy = lane < C ? part_of_lane[1] : 0.0f;
+    out = lane < C ? part_of_lane[2] : 0.0f;
+    for (int off = 1; off < 32; off <<= 1) {
+      fx += __shfl_xor_sync(0xffffffffu, fx, off);
+      fy += __shfl_xor_sync(0xffffffffu, fy, off);
+      out += __shfl_xor_sync(0xffffffffu, out, off);
+    }
     const float corr = (influx - out * c.dy) / c.ny_dy;
+    if (first && tid == 0) {
+      cd_out[t] = ((-fx * c.dx) * c.dy) / c.coef;
+      cl_out[t] = ((-fy * c.dx) * c.dy) / c.coef;
+    }
 
-    // -- B: BCs + outlet mass correction on the penalized fields ----------
-    for (int j = threadIdx.x; j < ny; j += blockDim.x) {
-      us[j * nxu] = g.inlet_u[j];
-      us[j * nxu + nx] = us[j * nxu + nx - 1] + corr;
+    // -- C: divergence rhs into the two rhs planes.  The outlet column of
+    //    u_bc is u_pen's column -2 plus the mass correction ---------------
+    for (int lj = ty; lj < nrows; lj += TY) {
+      const int j = j0 + lj;
+      const float* usr = us + lj * nx;
+      const float* vs0 = vs + lj * nx;
+      const float* vs1 = vs0 + nx;
+      for (int k = tx; k < w; k += TX) {
+        const int ir = 2 * k + (j & 1);
+        const int ib = 2 * k + 1 - (j & 1);
+        const float ur1 = ir + 1 == nx ? usr[nx - 1] + corr : usr[ir + 1];
+        const float ub1 = ib + 1 == nx ? usr[nx - 1] + corr : usr[ib + 1];
+        rhs_r[lj * w + k] = ((ur1 - usr[ir]) * c.inv_dx
+                             + (vs1[ir] - vs0[ir]) * c.inv_dy) * c.inv_dt;
+        rhs_b[lj * w + k] = ((ub1 - usr[ib]) * c.inv_dx
+                             + (vs1[ib] - vs0[ib]) * c.inv_dy) * c.inv_dt;
+      }
     }
-    for (int j = threadIdx.x; j <= ny; j += blockDim.x) {
-      const bool wall = (j == 0) || (j == ny);
-      vs[j * nx] = 0.0f;
-      vs[j * nx + nx - 1] = wall ? 0.0f : vs[j * nx + nx - 2];
-    }
-    for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-      vs[i] = 0.0f;
-      vs[ny * nx + i] = 0.0f;
-    }
+
     __syncthreads();
 
-    // -- C: divergence rhs, packed into the two rhs planes ----------------
-    for (int idx = threadIdx.x; idx < np; idx += blockDim.x) {
-      const int j = idx / w;
-      const int k = idx - j * w;
-      const int ir = 2 * k + (j & 1);
-      const int ib = 2 * k + 1 - (j & 1);
-      rhs_r[idx] = ((us[j * nxu + ir + 1] - us[j * nxu + ir]) / c.dx
-                    + (vs[(j + 1) * nx + ir] - vs[j * nx + ir]) / c.dy) / c.dt;
-      rhs_b[idx] = ((us[j * nxu + ib + 1] - us[j * nxu + ib]) / c.dx
-                    + (vs[(j + 1) * nx + ib] - vs[j * nx + ib]) / c.dy) / c.dt;
-    }
-    __syncthreads();
-
-    // -- D: packed SOR, warm-started from the previous dt's planes --------
+    // -- D: packed SOR, warm-started from the previous dt's planes.  A
+    //    half-sweep's edge rows first wait for the other colour's halo
+    //    rows of the half-sweep before (the first red one of a dt reads
+    //    black halo rows E already waited for); that colour's mbarrier is
+    //    re-armed once the half-sweep's block barrier is passed ------------
     for (int it = 0; it < iters; ++it) {
       const bool sor = it < n_sor;
       const float om = sor ? c.omega : 1.0f;
       const float one_m_om = sor ? c.one_m_omega : 0.0f;
-      packed_half_sweep(red, black, rhs_r, nullptr, nullptr, ny, w, 1, c.dx2,
-                        c.dy2, c.inv_diag, om, one_m_om);
-      __syncthreads();
-      packed_half_sweep(black, red, rhs_b, nullptr, nullptr, ny, w, 0, c.dx2,
-                        c.dy2, c.inv_diag, om, one_m_om);
-      __syncthreads();
+      const bool wait_black = linked && it > 0;
+      band_half_sweep(red, black, rhs_r, red_link,
+                      wait_black ? &mbar[1] : nullptr, black_parity, nrows,
+                      j0, ny, w, 1, tx, ty, TX, TY, c.inv_dx2, c.inv_dy2,
+                      c.inv_diag, om, one_m_om);
+      if (wait_black) {
+        black_parity ^= 1u;
+        if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
+      }
+      band_half_sweep(black, red, rhs_b, black_link,
+                      linked ? &mbar[0] : nullptr, red_parity, nrows, j0, ny,
+                      w, 0, tx, ty, TX, TY, c.inv_dx2, c.inv_dy2, c.inv_diag,
+                      om, one_m_om);
+      if (linked) {
+        red_parity ^= 1u;
+        if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
+      }
+    }
+    // E reads the black halo rows of the last half-sweep
+    const bool wait_last = linked && iters > 0;
+    if (wait_last) {
+      mbar_wait(&mbar[1], black_parity);
+      black_parity ^= 1u;
     }
 
-    // -- E: velocity correction; outlet columns wait for F ----------------
-    for (int idx = threadIdx.x; idx < nu; idx += blockDim.x) {
-      const int j = idx / nxu;
-      const int i = idx - j * nxu;
-      if (i == nx) continue;
-      float val = us[idx];
-      if (i >= 1) val = val + (-c.dt * (P(red, black, j, i, w) - P(red, black, j, i - 1, w))) / c.dx;
-      u[idx] = val;
+    // -- E: velocity correction and the BCs of _correct; the wall ghost
+    //    rows and the neighbours' halo rows follow the stores ------------
+    for (int lj = ty; lj < nrows; lj += TY) {
+      const int j = j0 + lj;
+      const float* usr = us + lj * nx;
+      const float* pr = red + (lj + 1) * w;
+      const float* pb = black + (lj + 1) * w;
+      float* urow = u + (lj + 1) * nxu;
+      for (int i = tx; i < nx; i += TX) {
+        float val = usr[i];
+        if (i >= 1) {
+          const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
+          const float p0 = ((i - 1 + j) & 1) == 0 ? pr[(i - 1) >> 1]
+                                                  : pb[(i - 1) >> 1];
+          val = val + (-c.dt * (p1 - p0)) * c.inv_dx;
+        }
+        put(urow, u_prev, u_next, lj, nrows, i, val);
+        if (i == nx - 1) put(urow, u_prev, u_next, lj, nrows, nx, val);
+        if (first && lj == 0) {
+          urow[i - nxu] = -val;
+          if (i == nx - 1) urow[nx - nxu] = -val;
+        }
+        if (last && lj == nrows - 1) {
+          urow[i + nxu] = -val;
+          if (i == nx - 1) urow[nx + nxu] = -val;
+        }
+      }
     }
-    for (int idx = threadIdx.x; idx < nv; idx += blockDim.x) {
-      const int j = idx / nx;
-      const int i = idx - j * nx;
-      if (i == nx - 1) continue;
-      v[idx] = (i == 0 || j == 0 || j == ny)
-                   ? 0.0f
-                   : vs[idx] + (-c.dt * (P(red, black, j, i, w) - P(red, black, j - 1, i, w))) / c.dy;
+    for (int lj = ty; lj < nv_rows; lj += TY) {
+      const int j = j0 + lj;
+      const bool zero_row = j == 0 || j == ny;
+      const float* vsr = vs + lj * nx;
+      const float* pr = red + (lj + 1) * w;
+      const float* pb = black + (lj + 1) * w;
+      float* vrow = v + (lj + 1) * nx;
+      for (int i = tx; i < nx - 1; i += TX) {
+        float val = 0.0f;
+        if (!(i == 0 || zero_row)) {
+          const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
+          const float p0 = ((i + j - 1) & 1) == 0 ? pr[(i >> 1) - w]
+                                                  : pb[(i >> 1) - w];
+          val = vsr[i] + (-c.dt * (p1 - p0)) * c.inv_dy;
+        }
+        put(vrow, v_prev, v_next, lj, nrows, i, val);
+        if (i == nx - 2) put(vrow, v_prev, v_next, lj, nrows, nx - 1, val);
+        if (first && lj == 0) {  // ghost row j = -1 of _pad_v: 0 * v[0]
+          vrow[i - nx] = val * 0.0f;
+          if (i == nx - 2) vrow[nx - 1 - nx] = val * 0.0f;
+        }
+        if (last && lj == nrows) {  // ghost row j = ny + 1: 0 * v[ny]
+          vrow[i + nx] = val * 0.0f;
+          if (i == nx - 2) vrow[nx - 1 + nx] = val * 0.0f;
+        }
+      }
     }
-    __syncthreads();
-
-    // -- F: outlet zero-gradient copies the corrected column -2 -----------
-    for (int j = threadIdx.x; j < ny; j += blockDim.x)
-      u[j * nxu + nx] = u[j * nxu + nx - 1];
-    for (int j = threadIdx.x; j <= ny; j += blockDim.x)
-      v[j * nx + nx - 1] = (j == 0 || j == ny) ? 0.0f : v[j * nx + nx - 2];
-    if (threadIdx.x == 0) {
-      cd_out[t] = ((-fx * c.dx) * c.dy) / c.coef;
-      cl_out[t] = ((-fy * c.dx) * c.dy) / c.coef;
-    }
-    __syncthreads();
+    cluster_barrier();  // u, v and their halo and ghost rows complete
+    if (wait_last && tid == 0) mbar_expect(&mbar[1], halo_bytes);
   }
 
-  for (int idx = threadIdx.x; idx < np; idx += blockDim.x) {
-    const int j = idx / w;
-    const int k = idx - j * w;
-    p_out[j * nx + 2 * k + (j & 1)] = red[idx];
-    p_out[j * nx + 2 * k + 1 - (j & 1)] = black[idx];
+  // -- write the band back ---------------------------------------------
+  for (int lj = ty; lj < nrows; lj += TY) {
+    const int j = j0 + lj;
+    for (int i = tx; i < nxu; i += TX)
+      u_out[static_cast<size_t>(j) * nxu + i] = u[(lj + 1) * nxu + i];
+    for (int k = tx; k < w; k += TX) {
+      p_out[static_cast<size_t>(j) * nx + 2 * k + (j & 1)] = red[(lj + 1) * w + k];
+      p_out[static_cast<size_t>(j) * nx + 2 * k + 1 - (j & 1)] =
+          black[(lj + 1) * w + k];
+    }
+  }
+  for (int lj = ty; lj < nv_rows; lj += TY) {
+    const int j = j0 + lj;
+    for (int i = tx; i < nx; i += TX)
+      v_out[static_cast<size_t>(j) * nx + i] = v[(lj + 1) * nx + i];
   }
 }
 
-// geom: 11 device pointers in GeomArrays order; consts: kNumConsts floats.
-// smem: the block's dynamic shared memory in bytes, the four packed planes
-// and the reduction slots (computed by the wrapper, kernels/actuation/ops.py
-// smem_bytes).  Launch on `stream`; returns the CUDA error code (0 =
-// launched).
+static void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                        int n_env, int cluster, int threads, int smem,
+                        cudaStream_t stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(n_env * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+static cudaError_t set_attributes(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_interval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fused_interval_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+}
+
+// How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
+// of dynamic shared memory each) the card holds at once, into *out.
+// Returns the CUDA error code (0 = success).
+extern "C" int fused_interval_max_clusters(int cluster, int threads, int smem,
+                                           int* out) {
+  cudaError_t err = set_attributes(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_config(cfg, attr, 1, cluster, threads, smem, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, fused_interval_kernel, &cfg));
+}
+
+// geom: 11 device pointers in GeomArrays order; consts: kNumConsts floats;
+// block_sm: n_env x cluster ints, the SM id each block ran on;
+// starts: cluster + 1 row starts of the band partition (ops.band_starts).
+// n_env clusters of `cluster` blocks of `threads` = tx_dim x (threads /
+// tx_dim) threads; smem: each block's dynamic shared memory in bytes
+// (ops.smem_bytes).  Launch on `stream`; returns the CUDA error code
+// (0 = launched).
 extern "C" int fused_interval_launch(
     const float* u_in, const float* v_in, const float* p_in,
     const void* const* geom, const float* jet_vel, const float* re,
     const float* act_mode, float* u_out, float* v_out, float* p_out,
-    float* u_scratch, float* v_scratch, float* cd, float* cl, int n_env,
-    int ny, int nx, int n_steps, int iters, int n_polish, int smem,
-    const float* consts, void* stream) {
+    float* cd, float* cl, int* block_sm, int n_env, int ny, int nx,
+    int n_steps, int iters, int n_polish, int cluster, const int* starts,
+    int rows_max, int threads, int tx_dim, int smem, const float* consts,
+    void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   const float* const* gp = reinterpret_cast<const float* const*>(geom);
   g.chi_u = gp[0];
@@ -313,14 +706,18 @@ extern "C" int fused_interval_launch(
   Consts c;
   float* cp = reinterpret_cast<float*>(&c);
   for (int k = 0; k < kNumConsts; ++k) cp[k] = consts[k];
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_interval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  Bands bands{};
+  for (int r = 0; r <= cluster; ++r) bands.start[r] = starts[r];
+  cudaError_t err = set_attributes(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nu = ny * (nx + 1), nv = (ny + 1) * nx;
-  fused_interval_kernel<<<n_env, threads_for(nu > nv ? nu : nv), smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      u_in, v_in, p_in, g, jet_vel, re, act_mode, u_out, v_out, p_out,
-      u_scratch, v_scratch, cd, cl, ny, nx, n_steps, iters, n_polish, c);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_config(cfg, attr, n_env, cluster, threads, smem,
+              static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, fused_interval_kernel, u_in, v_in, p_in, g,
+                           jet_vel, re, act_mode, u_out, v_out, p_out, cd,
+                           cl, block_sm, ny, nx, n_steps, iters, n_polish,
+                           rows_max, tx_dim, bands, c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

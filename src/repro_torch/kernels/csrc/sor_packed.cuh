@@ -1,6 +1,7 @@
-// Shared device code of the two hand-written kernels: the packed red-black
-// SOR half-sweep (the one stencil implementation, as in the reference's
-// cfd/poisson.packed_half_sweep) and a block-wide sum.
+// Device code of the packed-plane kernels: the packed red-black SOR
+// half-sweep of one block (as in the reference's
+// cfd/poisson.packed_half_sweep; fused_interval.cu keeps a banded copy
+// of its arithmetic for a cluster) and a block-wide sum both use.
 //
 // Packed-checkerboard layout (nx even; row j, packed column k):
 //   red[j, k] = p[j, 2k + j%2]        black[j, k] = p[j, 2k + 1 - j%2]

@@ -60,42 +60,127 @@ def test_sor_kernel_matches_twin_on_card(cuda):
         assert max_diff(a, b) <= 1e-5
 
 
-@pytest.mark.cuda
-def test_fused_kernel_matches_twin_on_card(cuda):
-    """The CUDA kernel against its twin on the card: res 16, 4 envs mixing
-    jets and rotary, one 50-dt interval.  The kernel contracts a*b+c into
-    FMAs and sums forces in another order; over 50 dt x 60 SOR pairs that
-    stays below 1e-4 on u, v (O(1)), 1e-3 on p (O(5)) and 1e-3 on C_D."""
-    cfg = tgrid.GridConfig(res=16)
+def _fused_inputs(cuda, res, n_env):
+    """A res-``res`` grid's geometry and ``n_env`` perturbed impulsive
+    starts mixing jets and rotary (per-env jet speeds and modes)."""
+    cfg = tgrid.GridConfig(res=res)
     geom = tgrid.build_geometry(cfg)
     ga = tsolver.geom_to_arrays(geom, cuda)
     rng = np.random.default_rng(0)
     flow = tsolver.init_state(cfg, geom, cuda)
     flow = tsolver.FlowState(*(
-        a.expand(4, *a.shape) + torch.tensor(
-            0.01 * rng.standard_normal((4,) + tuple(a.shape)),
+        a.expand(n_env, *a.shape) + torch.tensor(
+            0.01 * rng.standard_normal((n_env,) + tuple(a.shape)),
             dtype=torch.float32, device=cuda) for a in flow))
-    jet = torch.tensor([0.3, -0.5, 0.0, 1.0], device=cuda)
-    mode = torch.tensor([0.0, 0.0, 1.0, 1.0], device=cuda)
+    reps = -(-n_env // 4)
+    jet = torch.tensor([0.3, -0.5, 0.0, 1.0] * reps, device=cuda)[:n_env]
+    mode = torch.tensor([0.0, 0.0, 1.0, 1.0] * reps, device=cuda)[:n_env]
+    return cfg, ga, flow, jet, mode
+
+
+def _fused_against_twin(cuda, res, n_env, n_steps, cluster=None):
+    """One kernel launch against the twin.  The kernel contracts a*b+c into
+    FMAs, multiplies by float32 reciprocals of the grid constants where the
+    twin divides, and sums forces in another order; over 50 dt x 60 SOR
+    pairs that stays below 1e-4 on u, v (O(1)), 1e-3 on p (O(5)) and 1e-3
+    on C_D and C_L."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, res, n_env)
     n0 = aops.fused_interval_cuda.launches
-    a, oa = aops.fused_interval(cfg, ga, flow, jet, 50, act_mode=mode)
+    if cluster is None:
+        a, oa = aops.fused_interval(cfg, ga, flow, jet, n_steps,
+                                    act_mode=mode)
+    else:
+        a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, n_steps,
+                                         act_mode=mode, cluster=cluster)
     assert aops.fused_interval_cuda.launches == n0 + 1
-    b, ob = aops.fused_interval_plain(cfg, ga, flow, jet, 50, act_mode=mode)
+    # the launch's record: its cluster size and the SM of every block
+    want = aops.cluster_for(cfg, n_env, cuda) if cluster is None else cluster
+    assert aops.fused_interval_cuda.last_cluster == want
+    sms = aops.fused_interval_cuda.last_block_sms
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sms.numel() == n_env * want
+    assert 0 <= int(sms.min()) and int(sms.max()) < n_sm
+    b, ob = aops.fused_interval_plain(cfg, ga, flow, jet, n_steps,
+                                      act_mode=mode)
     torch.cuda.synchronize()
-    for x, y, tol in zip(a, b, (1e-4, 1e-4, 1e-3)):
-        assert max_diff(y, x) <= tol
-    assert max_diff(ob.cd, oa.cd) <= 1e-3
+    errs = [max_diff(y, x) for x, y in zip(a, b)]
+    errs += [max_diff(ob.cd, oa.cd), max_diff(ob.cl, oa.cl)]
+    print(f"fused res {res} N={n_env} {n_steps} dt cluster={cluster}: "
+          f"max|kernel - twin| u, v, p, cd, cl = {errs}")
+    for err, tol in zip(errs, (1e-4, 1e-4, 1e-3, 1e-3, 1e-3)):
+        assert err <= tol
+
+
+@pytest.mark.cuda
+def test_fused_kernel_matches_twin_on_card(cuda):
+    """The training shape: res 16, 4 envs mixing jets and rotary, one 50-dt
+    interval, at the cluster size the wrapper chooses."""
+    _fused_against_twin(cuda, 16, 4, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,cluster", [(8, 1), (8, 2), (16, 4), (16, 8),
+                                         (16, 16)])
+def test_fused_kernel_forced_cluster_matches_twin_on_card(cuda, res,
+                                                          cluster):
+    """Every cluster size against the twin, 4 envs, 50 dt.  A band of one
+    env fits one or two blocks only up to res 8 at the default aspect, so
+    sizes 1 and 2 run there."""
+    _fused_against_twin(cuda, res, 4, 50, cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [18, 32, 38])
+def test_fused_kernel_serves_larger_grids_on_card(cuda, res):
+    """Grids over one block's shared memory (res 18: 8 or 16 blocks an env;
+    res 32 and res 38, the largest a 16-block cluster holds: 16) through
+    the kernel, a few dt against the twin."""
+    _fused_against_twin(cuda, res, 4, 5)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_32_envs_matches_twin_on_card(cuda):
+    """32 envs, more than 16-block clusters can keep resident: the wrapper
+    takes a smaller cluster, all envs against the twin."""
+    _fused_against_twin(cuda, 16, 32, 50)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_is_deterministic_on_card(cuda):
+    """The cluster-wide sums take one fixed order, without atomics: two
+    launches on one input agree bit for bit."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 16, 4)
+    runs = [aops.fused_interval_cuda(cfg, ga, flow, jet, 20, act_mode=mode)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, oa), (b, ob) = runs
+    for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
+    """A forced cluster size whose bands do not fit one block's shared
+    memory raises and launches nothing (res 16 needs 4 blocks an env)."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 16, 1)
+    n0 = aops.fused_interval_cuda.launches
+    for cluster in (1, 2, 3, 32):
+        with pytest.raises(ValueError, match="cannot hold"):
+            aops.fused_interval_cuda(cfg, ga, flow, jet, 1, act_mode=mode,
+                                     cluster=cluster)
+    assert aops.fused_interval_cuda.launches == n0
 
 
 @pytest.mark.cuda
 def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
     """On the card there is no fallback: an odd width for the slab kernel
-    and a res-18 grid for the fused kernel (its packed planes over one
-    block's shared memory) raise instead of running the plain loop."""
+    and a res-48 grid for the fused kernel (its fields over the shared
+    memory of a 16-block cluster) raise instead of running the plain
+    loop."""
     rhs = torch.zeros((8, 11), device=cuda)
     with pytest.raises(ValueError, match="even grid width"):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
-    cfg = tgrid.GridConfig(res=18)
+    cfg = tgrid.GridConfig(res=48)
     geom = tgrid.build_geometry(cfg)
     n0 = aops.fused_interval_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):

@@ -203,15 +203,23 @@ def test_select_tier_and_budget(monkeypatch):
     res16, res32 = tgrid.GridConfig(res=16), tgrid.GridConfig(res=32)
     assert tops.select_tier(CFG_T, "cpu") == "plain"
     assert tops.select_tier(res16, "cuda") == "cuda"
-    assert tops.smem_bytes(res16) == 4 * (4 * 66 * 176 + 128)
-    # res 17 is the largest default-aspect grid one block holds; res 32
-    # would need 743,936 bytes, over one block's 232,448
+    # 66 rows in 16 bands of 4 or 5: the 5-row band's u, v, u_pen, v_pen
+    # and four packed planes with their halo rows, and 136 slots for the
+    # mbarriers and the reductions
+    assert tops.smem_bytes(res16.ny, res16.nx, 16) == 4 * (
+        7 * 353 + 8 * 352 + 5 * 352 + 6 * 352 + 2 * 7 * 176 + 2 * 5 * 176
+        + 136)
+    # a 16-block cluster holds res 18 and res 32 (ny 132, 9 rows a block);
+    # res 48 (ny 198, 13 rows a block) is over one block's 232,448 bytes
     assert tops.select_tier(tgrid.GridConfig(res=17), "cuda") == "cuda"
-    assert tops.smem_bytes(res32) > tops.SMEM_PER_BLOCK
+    assert tops.smem_bytes(res32.ny, res32.nx, 16) <= tops.SMEM_PER_BLOCK
     for cfg in (tgrid.GridConfig(res=18), res32):
-        with pytest.raises(ValueError, match="shared memory"):
-            tops.select_tier(cfg, "cuda")
-    assert tops.select_tier(res32, "cpu") == "plain"
+        assert tops.select_tier(cfg, "cuda") == "cuda"
+    res48 = tgrid.GridConfig(res=48)
+    assert tops.smem_bytes(res48.ny, res48.nx, 16) > tops.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.select_tier(res48, "cuda")
+    assert tops.select_tier(res48, "cpu") == "plain"
     monkeypatch.setattr(tops, "SMEM_PER_BLOCK", 1000)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
