@@ -15,23 +15,26 @@ Phases (any failure exits non-zero):
    CUDA-core kernel at the same shape, and a small sliding-window case,
    held by measures scaled to its output, which must reject two
    deliberately wrong variants; the SASS of the flash library must hold
-   HGMMA instructions), with the stated tolerance, timed with CUDA events;
-   the fused kernel also at 1 dt, at 32 envs (timed, with the cluster size
-   chosen there) and at res 18 (held only), its cluster size, blocks, the
-   distinct SMs they ran on and its time per SOR half-sweep reported; its
-   checks must reject a variant built with a planted fault (SOR halo rows
-   one half-sweep stale);
+   HGMMA instructions, that of WKV6 HMMA), with the stated tolerance,
+   timed with CUDA events; the fused kernel also at 1 dt, at 32 envs
+   (timed, with the cluster size chosen there) and at res 18 (held only),
+   the packed SOR also at res 18 (held only), each cluster kernel's cluster
+   size, blocks, the distinct SMs they ran on and its time per SOR
+   half-sweep reported, WKV6's blocks and SMs as its launch recorded them
+   and each of its two passes timed; the two cluster kernels' checks must
+   reject variants built with a planted fault in their shared half-sweep
+   (SOR halo rows one half-sweep stale);
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
 3. the second path: one short episode with backend="pallas"; the
-   packed-SOR kernel must run;
+   packed-SOR kernel must run, one launch per pressure solve;
 4. the language-model paths: ``lm_loss(backend="pallas")`` of
    phi4-mini-3.8b and of rwkv6-3b at full width and depth (random bf16
    params from a seed), B=1, S=4096, timed at the first and a second
-   (steady) call; one launch per layer of the bf16 flash-attention or the
-   WKV6 kernel and none of any other, logits and loss held against
-   backend="reference";
+   (steady) call; one launch per layer of the bf16 flash-attention kernel,
+   two (its chunk and state passes) of the WKV6 kernel, and none of any
+   other, logits and loss held against backend="reference";
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, 13 launches of its kernel, the residual reduced;
 6. golden physics through the fused kernel: the res-8 fixture's Strouhal
@@ -41,6 +44,7 @@ Phases (any failure exits non-zero):
 
 Imports nothing of jax or of the reference package.
 """
+import contextlib
 import json
 import math
 import re
@@ -101,12 +105,15 @@ TOL_WKV_OUT, TOL_WKV_STATE = 2 ** -7, 2e-5
 TOL_LM_LAYER, TOL_LM_LOSS = 3e-2, 5e-2
 FP32_PEAK = 67e12              # H100 SXM, FLOP/s outside the tensor cores
 BF16_PEAK = 989e12             # H100 SXM, dense bf16 tensor-core FLOP/s
+TF32_PEAK = 495e12             # H100 SXM, dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12             # bytes/s
 # float32 operations per point, counted from the kernels' source
 FLOP_SOR_POINT = 10            # one point of one half-sweep
 FLOP_MOMENTUM_POINT = 51       # predictor + penalization + force, per face
 FLOP_RHS_POINT = 6             # divergence / dt
 FLOP_CORRECT_POINT = 4         # projection correction, per face
+# ~0.1 s of the card's clock, long enough for the host to queue a timed loop
+SLEEP_CYCLES = 200_000_000
 
 
 def fail(msg):
@@ -114,8 +121,29 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps):
+    """ms per call of ``fn`` on the card: after a warm-up, ``reps`` calls
+    queued behind a sleep kernel, so the events time the card's work and
+    not the host's pace of launching it."""
     import torch
     fn()                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_paced_ms(fn, reps):
+    """ms per call of ``fn`` in a loop the host paces (events around
+    back-to-back calls): the card's time or the host's, whichever is
+    longer."""
+    import torch
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -135,8 +163,12 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def bound(flops, nbytes, peak=FP32_PEAK):
-    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
+def bound(nbytes, *work):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over their peaks, ``work`` being (operations, peak
+    FLOP/s) pairs of the unit each runs on."""
+    t_ops = sum(flops / peak for flops, peak in work)
+    t_bytes = nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -202,55 +234,78 @@ def hold_fused(dev, cfg, n_env, n_steps):
     return errs, kernel, plain
 
 
-# The planted fault of the fused kernel: the SOR's edge rows send their
-# neighbours the value from before the half-sweep, so every halo row lags
-# one half-sweep, which is what an edge row reads when its wait on the
-# halo exchange is missing or waits on the wrong phase.
+# The planted fault of the cluster kernels' shared half-sweep
+# (csrc/sor_packed.cuh, used by the fused kernel and the packed-SOR
+# kernel): the edge rows send their neighbours the value from before the
+# half-sweep, so every SOR halo row lags one half-sweep, which is what an
+# edge row reads when its wait on the halo exchange is missing or waits on
+# the wrong phase.
 STALE_HALO = ("st_async(to_prev + 4 * k, val, link.prev_bar)",
               "st_async(to_next + 4 * k, val, link.next_bar)")
+STALE_HALO_HEADER = "sor_packed.cuh"
+STALE_HALO_KERNELS = ("fused_interval", "poisson_sor")
 
 
 def start_stale_halo_build():
-    """Start nvcc on a copy of csrc/fused_interval.cu with the planted
-    fault, beside the other builds; returns (library path, process)."""
+    """Start nvcc on copies of the two cluster kernels built with the
+    planted fault in their shared half-sweep, beside the other builds;
+    returns {kernel: (library path, process)}."""
     from repro_torch.kernels import build
-    text = (build.CSRC / "fused_interval.cu").read_text()
+    text = (build.CSRC / STALE_HALO_HEADER).read_text()
     for line in STALE_HALO:
         if text.count(line) != 1:
-            fail(f"fused_interval.cu no longer holds {line!r} once: the "
+            fail(f"{STALE_HALO_HEADER} no longer holds {line!r} once: the "
                  f"stale-halo variant cannot be planted")
         text = text.replace(line, line.replace(", val,", ", self,"))
     out = build.BUILD_DIR / "stale_halo"
     out.mkdir(parents=True, exist_ok=True)
-    for name in build.SOURCES["fused_interval"][1:]:
+    for name in {src for k in STALE_HALO_KERNELS for src in build.SOURCES[k]}:
         (out / name).write_bytes((build.CSRC / name).read_bytes())
-    (out / "fused_interval.cu").write_text(text)
-    lib = out / "libfused_interval_stale_halo.so"
-    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                             str(lib), str(out / "fused_interval.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return lib, proc
+    (out / STALE_HALO_HEADER).write_text(text)
+    jobs = {}
+    for kernel in STALE_HALO_KERNELS:
+        lib = out / f"lib{kernel}_stale_halo.so"
+        jobs[kernel] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(out / build.SOURCES[kernel][0])], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return jobs
 
 
-def stale_halo_rejected(dev, job, cfg, n_env, cases):
+def stale_halo_libraries(jobs):
+    """Wait for the stale-halo builds; {kernel: loaded library}."""
+    import ctypes
+    libs = {}
+    for kernel, (path, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the stale-halo variant of {kernel} did not build:\n{out}")
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[kernel] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def library_swapped(kernel, wrong):
+    """Run the kernel's wrapper on the library ``wrong`` in the block."""
+    from repro_torch.kernels import build
+    right = build.load(kernel)
+    build._LIBS[kernel] = wrong
+    try:
+        yield
+    finally:
+        build._LIBS[kernel] = right
+
+
+def stale_halo_rejected(dev, wrong, cfg, n_env, cases):
     """The fused kernel's checks, taken together, must reject the
     stale-halo variant: each ``(n_steps, errors of the right kernel)`` of
     ``cases`` is run through the variant, and at least one must fall
     outside TOL_FUSED.  Returns the variant's errors by case."""
-    import ctypes
-    from repro_torch.kernels import build
-    path, proc = job
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        fail(f"the stale-halo variant did not build:\n{out}")
-    wrong = ctypes.CDLL(str(path))
-    wrong.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    wrong.repro_cuda_error_string.restype = ctypes.c_char_p
-    right = build.load("fused_interval")
-    build._LIBS["fused_interval"] = wrong
     readings, rejected = {}, False
-    try:
+    with library_swapped("fused_interval", wrong):
         for n_steps, right_errs in cases:
             errs = fused_errors(*fused_case(dev, cfg, n_env, n_steps))
             readings[f"{n_steps}_dt"] = errs
@@ -260,21 +315,26 @@ def stale_halo_rejected(dev, job, cfg, n_env, cases):
             rejected = rejected or not held
             print(f"[kernels]   the right kernel there: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in right_errs.items()))
-    finally:
-        build._LIBS["fused_interval"] = right
     if not rejected:
         fail("TOL_FUSED cannot tell a fused kernel whose SOR halo rows lag "
              "one half-sweep from a right one")
     return readings
 
 
+def blocks_ran(block_sms):
+    """(blocks, distinct SMs) of a launch from its record of the SM each
+    block ran on, -1 where no block ran."""
+    ran = block_sms.cpu()
+    ran = ran[ran >= 0]
+    return int(ran.numel()), int(ran.unique().numel())
+
+
 def fused_launch():
     """(cluster size, blocks, distinct SMs) of the fused wrapper's last
-    launch, as the wrapper recorded them where it launched."""
+    launch, as the launch recorded them."""
     from repro_torch.kernels.actuation import ops
-    sms = ops.fused_interval_cuda.last_block_sms.cpu()
-    return (ops.fused_interval_cuda.last_cluster, int(sms.numel()),
-            int(sms.unique().numel()))
+    return (ops.fused_interval_cuda.last_cluster,
+            *blocks_ran(ops.fused_interval_cuda.last_block_sms))
 
 
 def check_fused(dev, cfg, n_env, n_steps):
@@ -292,7 +352,7 @@ def check_fused(dev, cfg, n_env, n_steps):
         + (nu + nv) * FLOP_CORRECT_POINT)
     nbytes = 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv + ny
                   + 3 * n_env + 2 * n_env * n_steps)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     # the card's occupancy for this launch shape and the others that fit
     active = ops.active_clusters(dev, cfg, cluster)
     by_size = {c: ops.active_clusters(dev, cfg, c) for c in (16, 8, 4)
@@ -350,54 +410,120 @@ def fused_batch_reading(dev, cfg, n_env, n_steps):
             "max_abs_err": max(errs.values())}
 
 
-def check_sor(dev, cfg, n_env, iters):
+def sor_case(dev, cfg, n_env, iters, seed=1):
+    """Random packed planes of a res-``cfg.res`` grid and the two
+    realizations of an ``rb_sor_planes`` solve on them."""
     import numpy as np
     import torch
     from repro_torch.kernels.poisson import ops
-    rng = np.random.default_rng(1)
-    ny, w = cfg.ny, cfg.nx // 2
-    planes = [torch.tensor(rng.standard_normal((n_env, ny, w)),
+    rng = np.random.default_rng(seed)
+    planes = [torch.tensor(rng.standard_normal((n_env, cfg.ny, cfg.nx // 2)),
                            dtype=torch.float32, device=dev)
               for _ in range(4)]
-    inner, nslabs = 4, ops._pick_nslabs(cfg.nx)
-    rounds = -(-iters // inner)
+    nslabs = ops._pick_nslabs(cfg.nx)
 
-    def kernel():
+    def kernel(iters=iters):
         return ops.rb_sor_planes(*planes, cfg.dx, cfg.dy, iters=iters,
                                  omega=cfg.poisson_omega)
 
     def plain():
         red, black = planes[:2]
-        for _ in range(rounds):
+        for _ in range(-(-iters // 4)):
             red, black = ops.rb_sor_slabs_packed_plain(
                 red, black, *planes[2:], dx=cfg.dx, dy=cfg.dy,
-                omega=cfg.poisson_omega, nslabs=nslabs, inner_iters=inner)
+                omega=cfg.poisson_omega, nslabs=nslabs, inner_iters=4)
         return red, black
 
+    return kernel, plain
+
+
+def sor_error(kernel, plain):
+    import torch
     ka, pa = kernel(), plain()
     torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in zip(ka, pa))
+    return max(float((x - y).abs().max()) for x, y in zip(ka, pa))
+
+
+def sor_launch():
+    """(cluster size, blocks, distinct SMs) of the packed-SOR wrapper's
+    last launch, as the launch recorded them."""
+    from repro_torch.kernels.poisson import ops
+    return (ops.rb_sor_slabs_packed_cuda.last_cluster,
+            *blocks_ran(ops.rb_sor_slabs_packed_cuda.last_block_sms))
+
+
+def check_sor(dev, cfg, n_env, iters, wrong=None):
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.poisson import ops
+    ny, w = cfg.ny, cfg.nx // 2
+    inner, rounds = 4, -(-iters // 4)
+    kernel, plain = sor_case(dev, cfg, n_env, iters)
+    n0 = ops.rb_sor_slabs_packed_cuda.launches
+    err = sor_error(kernel, plain)
+    per_solve = ops.rb_sor_slabs_packed_cuda.launches - n0
+    cluster, blocks, sms_busy = sor_launch()
     print(f"[kernels] rb_sor_slabs_packed res {cfg.res} N={n_env} "
-          f"rb_sor_planes(iters={iters}) = {rounds} rounds x {inner} pairs:"
-          f" max|kernel - plain| {err:.3e} (tol {TOL_SOR:.0e})")
+          f"rb_sor_planes(iters={iters}) = {rounds} rounds x {inner} pairs "
+          f"in {per_solve} launch(es): max|kernel - plain| {err:.3e} (tol "
+          f"{TOL_SOR:.0e})")
     if not err <= TOL_SOR:
         fail(f"rb_sor_slabs_packed differs from its twin by {err:.3e}")
+    if per_solve != 1 or blocks <= n_env:
+        fail(f"rb_sor_planes took {per_solve} launches of {blocks} blocks "
+             f"for {n_env} envs: expected 1, over more than {n_env} blocks")
     ms = cuda_ms(kernel, 20)
+    paced_ms = host_paced_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 3)
+    # a half-sweep's time: the solve at iters and at 10 (3 rounds), the
+    # difference over the rounds' half-sweeps
+    few_ms = cuda_ms(lambda: kernel(10), 20)
+    sweep_us = 1e3 * (ms - few_ms) / (2 * inner * (rounds - 3))
+    active = ops.active_clusters(dev, ny, w, cluster)
     flops = n_env * rounds * inner * ny * cfg.nx * FLOP_SOR_POINT
     nbytes = 4 * n_env * ny * w * (4 + 2)
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[kernels] rb_sor_slabs_packed: solve {ms:.4f} ms ({rounds} "
-          f"launches), plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB)")
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    print(f"[kernels] rb_sor_slabs_packed: solve {ms:.4f} ms (1 launch; "
+          f"{paced_ms:.4f} ms a call when the host paces the calls), "
+          f"plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB); "
+          f"clusters of {cluster} blocks, {blocks} blocks ran on {sms_busy} "
+          f"distinct SMs ({active} such clusters resident at once); at "
+          f"iters=10 {few_ms:.4f} ms, so {sweep_us:.4f} us per half-sweep")
+    res18 = GridConfig(res=18)
+    err18 = sor_error(*sor_case(dev, res18, n_env, iters, seed=3))
+    c18 = sor_launch()
+    print(f"[kernels] rb_sor_slabs_packed res 18 N={n_env} (planes "
+          f"({res18.ny}, {res18.nx // 2}), over one block's shared memory) "
+          f"in clusters of {c18[0]}: max|kernel - plain| {err18:.3e} (tol "
+          f"{TOL_SOR:.0e})")
+    if not err18 <= TOL_SOR:
+        fail(f"rb_sor_slabs_packed at res 18 differs from its twin by "
+             f"{err18:.3e}")
+    stale = None
+    if wrong is not None:
+        with library_swapped("poisson_sor", wrong):
+            stale = sor_error(kernel, plain)
+        print(f"[kernels] wrong kernel, SOR halo rows one half-sweep stale, "
+              f"res {cfg.res} N={n_env}: max|kernel - plain| {stale:.3e} "
+              f"(tol {TOL_SOR:.0e}; the right kernel {err:.3e})")
+        if stale <= TOL_SOR:
+            fail("TOL_SOR cannot tell a packed-SOR kernel whose halo rows "
+                 "lag one half-sweep from a right one")
     return {"name": "rb_sor_slabs_packed", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/poisson_sor.cu",
             "replaces": "src/repro/kernels/poisson/kernel.py:106",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library": "no single PyTorch call computes this",
+            "host_paced_ms": paced_ms,
+            "launches_per_solve": per_solve, "cluster": cluster,
+            "blocks": blocks, "sms_busy": sms_busy, "active_clusters": active,
+            "ms_at_iters_10": few_ms, "half_sweep_us": sweep_us,
+            "res_18_max_abs_err": err18, "res_18_cluster": c18[0],
+            "stale_halo_variant_max_abs_err": stale,
             "shape": f"one rb_sor_planes solve: res {cfg.res} planes "
-                     f"({ny}, {w}), {n_env} envs, {rounds} launches"}
+                     f"({ny}, {w}), {n_env} envs, {rounds} rounds"}
+
 
 def check_sor_full(dev, cfg, n_env, iters):
     import numpy as np
@@ -433,7 +559,7 @@ def check_sor_full(dev, cfg, n_env, iters):
     plain_ms = cuda_ms(plain, 3)
     flops = n_env * rounds * inner * ny * nx * FLOP_SOR_POINT
     nbytes = 4 * n_env * ny * nx * 3
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     print(f"[kernels] rb_sor_slabs: solve {ms:.4f} ms ({rounds} launches), "
           f"plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by}: {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB)")
@@ -560,7 +686,7 @@ def check_flash(dev, cfg, S):
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     flops = 2 * H * S * S * dh           # QK^T and PV over the causal half
     nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
-    bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+    bound_ms, bound_by = bound(nbytes, (flops, BF16_PEAK))
     tflops = flops / ms / 1e9
     print(f"[kernels] flash_attention: kernel {ms:.4f} ms ({tflops:.1f} "
           f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain twin "
@@ -589,20 +715,24 @@ def check_flash(dev, cfg, S):
 
 
 def wkv6_flops(B, S, H, N, C):
-    """float32 operations of the chunked algebra per call: per chunk and
-    head the products r~S (2CN^2), the strictly lower r~k~^T and its
-    product with v (2 x C(C-1)N), k~^T v (2CN^2), the state update
-    (2N^2) and ~11 elementwise operations per (token, channel)."""
-    per_chunk = 4 * C * N * N + 2 * C * (C - 1) * N + 11 * C * N + 2 * N * N
-    return B * H * (S // C) * per_chunk
+    """(products, elementwise): float32 operations of the chunked algebra
+    per call.  Per chunk and head the products r~S (2CN^2), the strictly
+    lower r~k~^T and its product with v (2 x C(C-1)N) and k~^T v (2CN^2);
+    the state update (2N^2) and ~11 elementwise operations per (token,
+    channel)."""
+    chunks = B * H * (S // C)
+    return (chunks * (4 * C * N * N + 2 * C * (C - 1) * N),
+            chunks * (11 * C * N + 2 * N * N))
 
 
-def check_wkv6(dev, cfg, S):
+def wkv6_case(dev, cfg, S, B=1, seed=5):
+    """rwkv6 inputs at a layer's shape and decays, bf16, zero state, and the
+    two realizations of a WKV6 call on them."""
     import numpy as np
     import torch
     from repro_torch.kernels.rwkv6 import ops
-    B, H, N = 1, cfg.num_heads, cfg.ssm.head_dim
-    rng = np.random.default_rng(5)
+    H, N = cfg.num_heads, cfg.ssm.head_dim
+    rng = np.random.default_rng(seed)
 
     def t(a, dtype=torch.bfloat16):
         return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
@@ -613,14 +743,30 @@ def check_wkv6(dev, cfg, S):
           torch.float32)
     u = t(0.1 * rng.standard_normal((H, N)))
     s0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=dev)
+    inputs = (r, k, v, w, u, s0)
 
     def kernel():
-        return ops.wkv6_cuda(r, k, v, w, u, s0)
+        return ops.wkv6_cuda(*inputs)
 
     def plain():
-        return ops.wkv6_plain(r, k, v, w, u, s0)
+        return ops.wkv6_plain(*inputs)
 
+    return inputs, kernel, plain
+
+
+def check_wkv6(dev, cfg, S):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rwkv6 import ops
+    hmma = sass_count(build.library_path("wkv6"), "HMMA")
+    print(f"[kernels] wkv6: {hmma} HMMA instructions in the SASS of "
+          f"{build.library_path('wkv6').name}")
+    if hmma == 0:
+        fail("the wkv6 library holds no HMMA instruction: its products are "
+             "not on the tensor cores")
+    B, H, N = 1, cfg.num_heads, cfg.ssm.head_dim
+    inputs, kernel, plain = wkv6_case(dev, cfg, S, B)
     (ko, ks), (po, ps) = kernel(), plain()
+    blocks, sms_busy = blocks_ran(ops.wkv6_cuda.last_block_sms)
     scale, s_scale = float(po.float().abs().max()), float(ps.abs().max())
     err = float((ko.float() - po.float()).abs().max())
     s_err = float((ks - ps).abs().max())
@@ -630,25 +776,45 @@ def check_wkv6(dev, cfg, S):
           f"tol {TOL_WKV_STATE:.0e} of it)")
     if not (err <= TOL_WKV_OUT * scale and s_err <= TOL_WKV_STATE * s_scale):
         fail(f"wkv6 differs from its twin: out {err:.3e}, state {s_err:.3e}")
+    if blocks <= B * H or blocks != ops.grid_blocks(B, H, N):
+        fail(f"wkv6's state pass ran {blocks} blocks: expected "
+             f"{ops.grid_blocks(B, H, N)}, more than B*H = {B * H}")
     ms = cuda_ms(kernel, 10)
+    call = ops.prepare(*inputs)
+    chunk_ms = cuda_ms(lambda: ops.chunk_pass(call), 10)
+    state_ms = cuda_ms(lambda: ops.state_pass(call), 10)
     plain_ms = cuda_ms(plain, 1)
     C = ops.pick_chunk(S)
-    flops = wkv6_flops(B, S, H, N, C)
+    products, elementwise = wkv6_flops(B, S, H, N, C)
     # r, k, v, w (cast to bf16 by the wrapper) and out in bf16, u, the
-    # float32 state in and out
+    # float32 state in and out; the products run as three TF32 products on
+    # the tensor cores (3xTF32), the rest on the CUDA cores
     nbytes = 2 * (5 * B * S * H * N + H * N) + 4 * 2 * B * H * N * N
-    bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[kernels] wkv6: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} "
-          f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} "
-          f"GFLOP fp32, {nbytes / 1e6:.4f} MB)")
-    return {"name": "wkv6", "route": "cuda",
+    bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
+                               (elementwise, FP32_PEAK))
+    print(f"[kernels] wkv6: kernel {ms:.4f} ms (chunk pass {chunk_ms:.4f} "
+          f"ms, state pass {state_ms:.4f} ms, {1e3 * state_ms / (S // C):.3f}"
+          f" us a link of its chain of {S // C} chunks), plain twin "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{products / 1e9:.4f} GFLOP of products, x3 in TF32, "
+          f"{elementwise / 1e9:.4f} GFLOP fp32 elementwise, "
+          f"{nbytes / 1e6:.4f} MB); a chunk pass of {B * H * (S // C)} "
+          f"blocks, then a state pass whose launch recorded {blocks} blocks "
+          f"on {sms_busy} distinct SMs (B*H = {B * H}, "
+          f"{N // ops.COLUMNS_PER_BLOCK} groups of {ops.COLUMNS_PER_BLOCK} "
+          f"state columns a head)")
+    return {"name": "wkv6", "route": "cuda (mma.sync 3xTF32)",
             "source": "src/repro_torch/kernels/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err, "state_max_abs_err": s_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
             "library": "no single PyTorch call computes this",
+            "chunk_pass_ms": chunk_ms, "state_pass_ms": state_ms,
+            "state_pass_blocks": blocks, "state_pass_sms_busy": sms_busy,
+            "hmma_in_sass": hmma,
             "shape": f"{cfg.name}: bf16, B={B}, S={S}, H={H}, N={N}, "
-                     f"chunk {C}"}
+                     f"chunk {C}; launches count both passes"}
 
 
 def wrappers():
@@ -743,10 +909,10 @@ def hold_layers(cfg, params, tokens):
     return worst, d_last, d_free, rms
 
 
-def run_lm(dev, name, S, kernel):
+def run_lm(dev, name, S, kernel, per_layer=1):
     """lm_loss(backend="pallas") of a full-width config at B=1, S tokens:
-    the kernel must run once per layer; logits and loss held against
-    backend="reference" on the same params and tokens."""
+    the kernel must launch ``per_layer`` times a layer; logits and loss
+    held against backend="reference" on the same params and tokens."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -776,10 +942,10 @@ def run_lm(dev, name, S, kernel):
         if not math.isfinite(float(loss)):
             fail(f"{name}: lm_loss is {float(loss)}")
         others = sum(n for k, n in launched.items() if k != kernel)
-        if launched[kernel] != cfg.num_layers or others:
+        if launched[kernel] != per_layer * cfg.num_layers or others:
             fail(f"{name}: {launched[kernel]} {kernel} launches in one "
-                 f"forward, expected {cfg.num_layers}, and {others} of the "
-                 f"other kernels, expected 0")
+                 f"forward, expected {per_layer * cfg.num_layers}, and "
+                 f"{others} of the other kernels, expected 0")
         (ref_loss, _), ref_secs = wall(lambda: model.lm_loss(
             cfg, params, batch, backend="reference"))
         d_loss = abs(float(loss) - float(ref_loss))
@@ -878,10 +1044,11 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    stale_halo_job = start_stale_halo_build()
+    stale_halo_jobs = start_stale_halo_build()
     _, secs = wall(lambda: build.build(verbose=True))
     print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
           f"{build.BUILD_DIR}")
+    stale_halo = stale_halo_libraries(stale_halo_jobs)
     dev = torch.device("cuda")
 
     # 1. each kernel against its plain twin at the training shape
@@ -889,12 +1056,13 @@ def main():
     fused = check_fused(dev, res16, n_env=4, n_steps=50)
     short = hold_fused(dev, res16, n_env=4, n_steps=1)[0]
     fused["stale_halo_variant"] = stale_halo_rejected(
-        dev, stale_halo_job, res16, 4,
+        dev, stale_halo["fused_interval"], res16, 4,
         ((50, fused["errors"]), (1, short)))
     fused["envs_32"] = fused_batch_reading(dev, res16, n_env=32, n_steps=50)
     fused["res_18_max_abs_err"] = max(hold_fused(
         dev, GridConfig(res=18), n_env=4, n_steps=10)[0].values())
-    sor = check_sor(dev, res16, n_env=4, iters=50)
+    sor = check_sor(dev, res16, n_env=4, iters=50,
+                    wrong=stale_halo["poisson_sor"])
     sor_full = check_sor_full(dev, res16, n_env=4, iters=50)
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
     wkv = check_wkv6(dev, get_config("rwkv6-3b"), S=4096)
@@ -919,6 +1087,14 @@ def main():
                                         warmup_time=1.0), 1, dict(res=16))
     if launched["rb_sor_slabs_packed"] < 1:
         fail("the pallas path did not launch the rb_sor_slabs_packed kernel")
+    # one pressure solve per dt: the 1 t.u. warmup's dt and 2 actions' 50
+    solves = max(1, round(1.0 / GridConfig(res=16).dt)) + 2 * 50
+    print(f"[train pallas] {launched['rb_sor_slabs_packed']} packed-SOR "
+          f"launches for the path's {solves} pressure solves")
+    if launched["rb_sor_slabs_packed"] != solves:
+        fail(f"the pallas path launched rb_sor_slabs_packed "
+             f"{launched['rb_sor_slabs_packed']} times, expected one per "
+             f"solve ({solves})")
     sor["launches"] = launched["rb_sor_slabs_packed"]
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
 
@@ -927,7 +1103,7 @@ def main():
         dev, "phi4-mini-3.8b", 4096, "flash_attention")
     flash["path"] = "lm_loss(phi4-mini-3.8b, backend='pallas'), B=1, S=4096"
     wkv["launches"], wkv["lm_first_s"], wkv["lm_steady_s"] = run_lm(
-        dev, "rwkv6-3b", 4096, "wkv6")
+        dev, "rwkv6-3b", 4096, "wkv6", per_layer=2)
     wkv["path"] = "lm_loss(rwkv6-3b, backend='pallas'), B=1, S=4096"
 
     # 5. the full-grid drop-in solve

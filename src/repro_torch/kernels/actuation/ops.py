@@ -30,39 +30,16 @@ from repro_torch._warn import warn_once_cache
 from repro_torch.cfd import poisson, solver
 from repro_torch.cfd.grid import GridConfig
 from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.kernels import cluster as kcluster
+from repro_torch.kernels.cluster import (CLUSTER_SIZES, band_starts,
+                                         block_shape, rows_max)
 
-# the cluster sizes the kernel launches with (csrc/fused_interval.cu
-# kMaxCluster = 16; sizes above 8 are the card's non-portable ones)
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # beside the fields: two mbarriers (4 float slots), the block's three
 # partial sums (4 slots) and block_sum3's 128 reduction slots
 # (csrc/fused_interval.cu)
 _SCRATCH_FLOATS = 4 + 4 + 128
 
 _FALLBACK_WARNED = warn_once_cache()
-
-
-def band_starts(ny: int, cluster: int) -> tuple:
-    """The band partition of one env over a cluster: rank r owns pressure
-    (and u) rows ``[starts[r], starts[r + 1])``; rows per rank differ by
-    at most one.  The kernel takes these starts as they are."""
-    if not 1 <= cluster <= ny:
-        raise ValueError(f"a cluster of {cluster} blocks cannot split "
-                         f"{ny} rows")
-    return tuple(r * ny // cluster for r in range(cluster + 1))
-
-
-def block_shape(nx: int, rows: int) -> tuple:
-    """``(threads, tx)`` of a block: ``tx`` lanes (a multiple of 32) span a
-    packed row of ``nx // 2`` columns, ``threads // tx`` thread rows step
-    over the band's ``rows`` rows, at most 1024 threads."""
-    tx = min(1024, 32 * -(-(nx // 2) // 32))
-    return tx * max(1, min(rows, 1024 // tx)), tx
-
-
-def rows_max(starts) -> int:
-    """The most rows any rank of a partition owns."""
-    return max(b - a for a, b in zip(starts, starts[1:]))
 
 
 def smem_bytes(ny: int, nx: int, cluster: int) -> int:
@@ -84,31 +61,20 @@ def smem_bytes(ny: int, nx: int, cluster: int) -> int:
 
 
 def _fitting_clusters(ny: int, nx: int, smem_per_block: int) -> list:
-    return [c for c in CLUSTER_SIZES
-            if c <= ny and smem_bytes(ny, nx, c) <= smem_per_block]
+    return kcluster.fitting_clusters(
+        ny, lambda c: smem_bytes(ny, nx, c), smem_per_block)
 
 
 def choose_cluster(ny: int, nx: int, n_env: int, n_sm: int, active,
                    smem_per_block: int) -> int:
-    """The cluster size for ``n_env`` envs on an (ny, nx) grid.
-
-    ``active`` maps a cluster size to how many such clusters the card
-    holds at once (``cudaOccupancyMaxActiveClusters``), ``n_sm`` is its SM
-    count: where two blocks fit one SM, the card may hold more clusters
-    than it has SMs for, and a size is taken only if every block of every
-    env has an SM of its own.  The smallest size whose band fits one
-    block's shared memory is
-    the floor; above it the largest of 16, 8, 4, 2 under which all
-    ``n_env`` clusters are resident at once, else the floor (the envs then
-    run in waves, and fewer blocks per env waste fewest SMs)."""
+    """The cluster size for ``n_env`` envs on an (ny, nx) grid:
+    :func:`repro_torch.kernels.cluster.choose_cluster` over the sizes
+    whose band of this kernel's fields fits one block."""
     fits = _fitting_clusters(ny, nx, smem_per_block)
     if not fits:
         raise ValueError(f"no cluster of up to {CLUSTER_SIZES[-1]} blocks "
                          f"holds grid (ny={ny}, nx={nx})")
-    for c in (16, 8, 4, 2):
-        if c in fits and n_env * c <= n_sm and active.get(c, 0) >= n_env:
-            return c
-    return fits[0]
+    return kcluster.choose_cluster(fits, n_env, n_sm, active)
 
 
 def check_kernel_grid(cfg: GridConfig) -> None:
@@ -245,26 +211,14 @@ def _load():
     return lib
 
 
-_ACTIVE_CLUSTERS = {}
-
-
-def active_clusters(dev, cfg: GridConfig, cluster: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` for the launch shape of
-    ``cluster`` blocks on ``cfg``'s grid, read once per shape and card."""
-    key = (dev.index, cfg.ny, cfg.nx, cluster)
-    if key not in _ACTIVE_CLUSTERS:
-        from repro_torch.kernels.build import check_launch
-        lib = _load()
-        threads, _ = block_shape(cfg.nx, rows_max(band_starts(cfg.ny,
-                                                              cluster)))
-        n = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = lib.fused_interval_max_clusters(
-                cluster, threads, smem_bytes(cfg.ny, cfg.nx, cluster),
-                ctypes.byref(n))
-        check_launch(lib, err, "fused_interval occupancy query")
-        _ACTIVE_CLUSTERS[key] = n.value
-    return _ACTIVE_CLUSTERS[key]
+def active_clusters(dev, cfg: GridConfig, size: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the launch shape of ``size``
+    blocks on ``cfg``'s grid, read once per shape and card."""
+    threads, _ = block_shape(cfg.nx // 2, rows_max(band_starts(cfg.ny,
+                                                               size)))
+    return kcluster.active_clusters(
+        _load(), "fused_interval_max_clusters", dev, (cfg.ny, cfg.nx), size,
+        threads, smem_bytes(cfg.ny, cfg.nx, size))
 
 
 def cluster_for(cfg: GridConfig, n_env: int, device) -> int:
@@ -291,7 +245,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     :func:`cluster_for`'s choice; a size whose bands do not fit one
     block's shared memory raises.  Each launch records its cluster size
     (``fused_interval_cuda.last_cluster``) and the SM each block ran on
-    (``fused_interval_cuda.last_block_sms``, int32, one per block)."""
+    (``fused_interval_cuda.last_block_sms``, int32, one per block, -1 where
+    none ran)."""
     u, v, p = state
     dev = u.device
     if dev.type != "cuda":
@@ -318,7 +273,7 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
                          f"fit: {_fitting_clusters(ny, nx, SMEM_PER_BLOCK)}")
     starts = band_starts(ny, cluster)
     rows = rows_max(starts)
-    threads, tx = block_shape(nx, rows)
+    threads, tx = block_shape(nx // 2, rows)
     ga = solver.GeomArrays(*geom_arrays)
     geom = [g.to(dev, torch.float32).contiguous() for g in ga]
     u, v, p = u.contiguous(), v.contiguous(), p.contiguous()

@@ -63,9 +63,47 @@
 
 #include "sor_packed.cuh"
 
-namespace cg = cooperative_groups;
+// Sum of three per-thread values over the block (blockDim.x a multiple of
+// 32).  `scratch` is shared memory of at least 100 floats.  Every thread
+// returns the totals; contains __syncthreads(), so all threads must call.
+__device__ __forceinline__ void block_sum3(float& a, float& b, float& c,
+                                           float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+    c += __shfl_down_sync(0xffffffffu, c, off);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    scratch[warp] = a;
+    scratch[32 + warp] = b;
+    scratch[64 + warp] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    a = lane < nwarps ? scratch[lane] : 0.0f;
+    b = lane < nwarps ? scratch[32 + lane] : 0.0f;
+    c = lane < nwarps ? scratch[64 + lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, off);
+      b += __shfl_down_sync(0xffffffffu, b, off);
+      c += __shfl_down_sync(0xffffffffu, c, off);
+    }
+    if (lane == 0) {
+      scratch[96] = a;
+      scratch[97] = b;
+      scratch[98] = c;
+    }
+  }
+  __syncthreads();
+  a = scratch[96];
+  b = scratch[97];
+  c = scratch[98];
+}
 
-constexpr int kMaxCluster = 16;
+namespace cg = cooperative_groups;
 
 struct Geom {  // the reference's GeomArrays order
   const float* chi_u;
@@ -89,12 +127,6 @@ struct Consts {
       coef;
 };
 constexpr int kNumConsts = 18;
-
-// The band partition, computed once by the wrapper (ops.band_starts):
-// rank r owns pressure / u rows [start[r], start[r+1]).
-struct Bands {
-  int start[kMaxCluster + 1];
-};
 
 // Column ghosts of the reference's _pad_u on one stored row (i in
 // [-1, nx+1]): inlet extrapolates (2 u0 - u1), outlet zero-gradient.  The
@@ -121,146 +153,6 @@ __device__ __forceinline__ void put(float* row, float* prev, float* next,
   row[i] = val;
   if (lj == 0 && prev) prev[i] = val;
   if (lj == nrows - 1 && next) next[i] = val;
-}
-
-// A full cluster barrier: every thread of every block, stores before it
-// (local and remote) visible to every thread after it.
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The shared::cluster address of `local`'s counterpart in block `rank`.
-__device__ __forceinline__ unsigned cluster_addr(const void* local,
-                                                 int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(smem_u32(local)), "r"(rank));
-  return r;
-}
-
-// The halo exchange of the SOR.  Each block has one mbarrier per colour;
-// a neighbour's edge row lands in this block's halo row by st.async, each
-// 4-byte store counted against the mbarrier's transaction bytes, and the
-// phase completes when both neighbours' rows and this block's own arrival
-// (which states the bytes to expect) are in.  No fence and no cluster
-// barrier: a half-sweep waits only for its two neighbours.
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Wait for the phase of `parity` to complete.  A phase that never does
-// (a broken exchange) traps after ~2^31 cycles rather than hang the card.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const long long start = clock64();
-  unsigned done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 31)) __trap();
-  }
-}
-__device__ __forceinline__ void st_async(unsigned addr, float v,
-                                         unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n"
-      :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
-}
-
-// Where a block's edge rows of one packed plane go: the shared::cluster
-// addresses of the neighbours' halo rows and of their mbarriers for the
-// plane's colour (0 where there is no neighbour).
-struct Link {
-  unsigned prev, prev_bar, next, next_bar;
-};
-
-// One row lj of a coloured half-sweep over this block's band of a packed
-// plane.  `a` and `o` point at stored row -1 (the halo above) of this
-// colour's and the other colour's band, `rhs` at this colour's own row 0.
-// Rows whose global parity equals shift_parity take their horizontal
-// neighbours at packed columns (k, k+1).  Domain BCs as in
-// packed_half_sweep: Neumann inlet, Dirichlet-0 outlet (negated own
-// value), Neumann walls (own value).  The arithmetic is the reference's,
-// with the divisions by dx^2, dy^2 taken as multiplications by their
-// reciprocals.  kEdge: the band's first or last row, whose values also go
-// to the neighbours' halo rows.
-template <bool kEdge>
-__device__ __forceinline__ void sweep_row(
-    float* a, const float* o, const float* rhs, const Link& link, int lj,
-    int nrows, int j0, int ny, int w, int shift_parity, int tx, int TX,
-    float inv_dx2, float inv_dy2, float inv_diag, float om, float one_m_om) {
-  const int j = j0 + lj;
-  float* arow = a + (lj + 1) * w;
-  const float* orow = o + (lj + 1) * w;
-  const float* rrow = rhs + lj * w;
-  const bool shift = (j & 1) == shift_parity;
-  const bool top = j == 0, bottom = j == ny - 1;
-  const unsigned to_prev = (kEdge && lj == 0) ? link.prev : 0u;
-  const unsigned to_next = (kEdge && lj == nrows - 1) ? link.next : 0u;
-  for (int k = tx; k < w; k += TX) {
-    const float self = arow[k];
-    const float oc = orow[k];
-    float horiz;
-    if (shift) {
-      horiz = oc + ((k == w - 1) ? -self : orow[k + 1]);
-    } else {
-      horiz = ((k == 0) ? self : orow[k - 1]) + oc;
-    }
-    const float north = top ? self : orow[k - w];
-    const float south = bottom ? self : orow[k + w];
-    const float nb = horiz * inv_dx2 + (north + south) * inv_dy2;
-    const float p_gs = (nb - rrow[k]) * inv_diag;
-    const float val = one_m_om * self + om * p_gs;
-    arow[k] = val;
-    if (kEdge) {
-      if (to_prev) st_async(to_prev + 4 * k, val, link.prev_bar);
-      if (to_next) st_async(to_next + 4 * k, val, link.next_bar);
-    }
-  }
-}
-
-// One coloured half-sweep over the band, rows taken in the order first,
-// last, then the interior, round-robin over the thread rows: the edge rows
-// (sent to the neighbours as they are computed) start in the first pass.
-// Only the edge rows read the other colour's halo rows, so only their
-// threads wait for them (`halo`: the mbarrier of that colour, nullptr when
-// there is nothing to wait for; the wait returns at once if the phase of
-// `parity` has completed); the interior rows go ahead.  A block barrier
-// then orders the band before the next half-sweep reads it.
-__device__ __forceinline__ void band_half_sweep(
-    float* a, const float* o, const float* rhs, const Link& link,
-    unsigned long long* halo, unsigned parity, int nrows, int j0, int ny,
-    int w, int shift_parity, int tx, int ty, int TX, int TY, float inv_dx2,
-    float inv_dy2, float inv_diag, float om, float one_m_om) {
-  const int n_edge = nrows > 1 ? 2 : 1;
-  for (int q = ty; q < nrows; q += TY) {
-    if (q < n_edge) {
-      if (halo) mbar_wait(halo, parity);
-      sweep_row<true>(a, o, rhs, link, q == 0 ? 0 : nrows - 1, nrows, j0, ny,
-                      w, shift_parity, tx, TX, inv_dx2, inv_dy2, inv_diag, om,
-                      one_m_om);
-    } else {
-      sweep_row<false>(a, o, rhs, link, q - 1, nrows, j0, ny, w,
-                       shift_parity, tx, TX, inv_dx2, inv_dy2, inv_diag, om,
-                       one_m_om);
-    }
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
@@ -291,11 +183,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   const int nrows = bands.start[rank + 1] - j0;
   const bool first = rank == 0, last = rank == C - 1;
   const int nv_rows = nrows + (last ? 1 : 0);  // + the top wall row ny
-  if (tid == 0) {  // the SM this block runs on, for the launch's record
-    unsigned sm;
-    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(sm));
-    block_sm[blockIdx.x] = static_cast<int>(sm);
-  }
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
 
   // shared-memory layout (kernels/actuation/ops.py smem_bytes): stored row
   // s of a field with a halo above is local row s - 1
@@ -532,18 +420,18 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
       const float om = sor ? c.omega : 1.0f;
       const float one_m_om = sor ? c.one_m_omega : 0.0f;
       const bool wait_black = linked && it > 0;
-      band_half_sweep(red, black, rhs_r, red_link,
-                      wait_black ? &mbar[1] : nullptr, black_parity, nrows,
-                      j0, ny, w, 1, tx, ty, TX, TY, c.inv_dx2, c.inv_dy2,
-                      c.inv_diag, om, one_m_om);
+      band_half_sweep<false>(red, black, rhs_r, nullptr, nullptr, red_link,
+                             wait_black ? &mbar[1] : nullptr, black_parity,
+                             nrows, j0, ny, w, 1, tx, ty, TX, TY, c.inv_dx2,
+                             c.inv_dy2, c.inv_diag, om, one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
       }
-      band_half_sweep(black, red, rhs_b, black_link,
-                      linked ? &mbar[0] : nullptr, red_parity, nrows, j0, ny,
-                      w, 0, tx, ty, TX, TY, c.inv_dx2, c.inv_dy2, c.inv_diag,
-                      om, one_m_om);
+      band_half_sweep<false>(black, red, rhs_b, nullptr, nullptr, black_link,
+                             linked ? &mbar[0] : nullptr, red_parity, nrows,
+                             j0, ny, w, 0, tx, ty, TX, TY, c.inv_dx2,
+                             c.inv_dy2, c.inv_diag, om, one_m_om);
       if (linked) {
         red_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
@@ -633,49 +521,19 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   }
 }
 
-static void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
-                        int n_env, int cluster, int threads, int smem,
-                        cudaStream_t stream) {
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(n_env * cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-}
-
-static cudaError_t set_attributes(int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_interval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(fused_interval_kernel,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
-}
-
 // How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
 // of dynamic shared memory each) the card holds at once, into *out.
 // Returns the CUDA error code (0 = success).
 extern "C" int fused_interval_max_clusters(int cluster, int threads, int smem,
                                            int* out) {
-  cudaError_t err = set_attributes(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  fill_config(cfg, attr, 1, cluster, threads, smem, nullptr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(out, fused_interval_kernel, &cfg));
+  return static_cast<int>(max_active_clusters(fused_interval_kernel, cluster,
+                                              threads, smem, out));
 }
 
 // geom: 11 device pointers in GeomArrays order; consts: kNumConsts floats;
-// block_sm: n_env x cluster ints, the SM id each block ran on;
-// starts: cluster + 1 row starts of the band partition (ops.band_starts).
+// block_sm: n_env x cluster ints, the SM id each block ran on (-1 where
+// none ran); starts: cluster + 1 row starts of the band partition
+// (ops.band_starts).
 // n_env clusters of `cluster` blocks of `threads` = tx_dim x (threads /
 // tx_dim) threads; smem: each block's dynamic shared memory in bytes
 // (ops.smem_bytes).  Launch on `stream`; returns the CUDA error code
@@ -708,12 +566,16 @@ extern "C" int fused_interval_launch(
   for (int k = 0; k < kNumConsts; ++k) cp[k] = consts[k];
   Bands bands{};
   for (int r = 0; r <= cluster; ++r) bands.start[r] = starts[r];
-  cudaError_t err = set_attributes(smem);
+  cudaError_t err = set_cluster_attributes(fused_interval_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  fill_config(cfg, attr, n_env, cluster, threads, smem,
-              static_cast<cudaStream_t>(stream));
+  fill_cluster_config(cfg, attr, n_env, cluster, threads, smem,
+                      static_cast<cudaStream_t>(stream));
+  // -1 where no block wrote its SM: the record counts the blocks that ran
+  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * n_env * cluster,
+                        static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, fused_interval_kernel, u_in, v_in, p_in, g,
                            jet_vel, re, act_mode, u_out, v_out, p_out, cd,
                            cl, block_sm, ny, nx, n_steps, iters, n_polish,

@@ -1,12 +1,14 @@
 """Red-black SOR slab smoothers and the solves built on them.
 
-Port of ``repro.kernels.poisson``.  Two smoothers, each one block-Jacobi
-round, each on a CUDA tensor one launch of a hand-written kernel and on a
-CPU tensor its plain twin:
+Port of ``repro.kernels.poisson``.  Two smoothers of block-Jacobi rounds,
+each on a CUDA tensor a hand-written kernel and on a CPU tensor its plain
+twin:
 
 * :func:`rb_sor_slabs_packed` (``kernel.rb_sor_slabs_packed``) on packed
   planes ``(..., ny, W)`` from ``cfd.poisson.pack_checkerboard``:
-  ``csrc/poisson_sor.cu``, twin :func:`rb_sor_slabs_packed_plain`;
+  ``csrc/poisson_sor.cu``, one cluster of blocks per (env, slab) and all
+  rounds of a one-slab solve in one launch; twin
+  :func:`rb_sor_slabs_packed_plain`, one round;
 * :func:`rb_sor_slabs` (``kernel.rb_sor_slabs``) on the full grid ``(...,
   ny, nx)`` with a masked update: ``csrc/poisson_sor_full.cu``, twin
   :func:`rb_sor_slabs_plain` (the reference's ``ref.rb_sor_slabs_ref``).
@@ -24,6 +26,7 @@ from repro_torch.cfd.poisson import (pack_checkerboard, packed_ghost_rows,
                                      packed_half_sweep, sor_coefficients,
                                      unpack_checkerboard)
 from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.kernels import cluster as kcluster
 
 
 def _pick_nslabs(nx: int) -> int:
@@ -41,10 +44,43 @@ def _check_slabs(w: int, nslabs: int) -> int:
     return w // nslabs
 
 
-def smem_bytes(ny: int, bxp: int) -> int:
-    """Shared-memory bytes one block of the kernel claims for a ``(ny,
-    bxp)`` slab: its four packed planes and four ghost columns."""
-    return 4 * (4 * ny * bxp + 4 * ny)
+def smem_bytes(ny: int, bxp: int, cluster: int) -> int:
+    """Shared-memory bytes one block of the kernel claims when a ``(ny,
+    bxp)`` slab spreads over ``cluster`` blocks: the largest band of red
+    and black with a halo row above and below, of rhs_r and rhs_b, its
+    four frozen ghost columns and the halo exchange's two mbarriers."""
+    r = kcluster.rows_max(kcluster.band_starts(ny, cluster))
+    return 4 * (4 + 2 * (r + 2) * bxp + 2 * r * bxp + 4 * r)
+
+
+def _fitting_clusters(ny: int, bxp: int) -> list:
+    return kcluster.fitting_clusters(ny, lambda c: smem_bytes(ny, bxp, c),
+                                     SMEM_PER_BLOCK)
+
+
+def check_planes(ny: int, w: int, nslabs: int) -> int:
+    """The slab width of ``(ny, w)`` packed planes in ``nslabs`` slabs;
+    ``ValueError`` unless the kernel can serve them: the slabs split the
+    width, and a slab cut into 16 bands fits one block's shared memory per
+    band (every grid up to res 70 at the default aspect; res 71, whose
+    width the reference's slab count leaves in one slab, does not)."""
+    bxp = _check_slabs(w, nslabs)
+    if not _fitting_clusters(ny, bxp):
+        c = max(c for c in kcluster.CLUSTER_SIZES if c <= ny)
+        raise ValueError(
+            f"a ({ny}, {bxp}) slab needs {smem_bytes(ny, bxp, c)} bytes of "
+            f"shared memory per block in a cluster of {c} blocks, over the "
+            f"{SMEM_PER_BLOCK}-byte limit of one block; use more slabs")
+    return bxp
+
+
+def choose_cluster(ny: int, bxp: int, n_groups: int, n_sm: int,
+                   active) -> int:
+    """The cluster size for ``n_groups`` (env, slab) clusters of ``(ny,
+    bxp)`` slabs: :func:`repro_torch.kernels.cluster.choose_cluster` over
+    the sizes whose band of this kernel's planes fits one block."""
+    return kcluster.choose_cluster(_fitting_clusters(ny, bxp), n_groups,
+                                   n_sm, active)
 
 
 def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
@@ -83,26 +119,86 @@ def _load():
     if lib.rb_sor_slabs_packed_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rb_sor_slabs_packed_launch.argtypes = (
-            [p] * 6 + [i] * 6 + [f] * 5 + [p])
+            [p] * 7 + [i] * 7 + [p] + [i] * 4 + [f] * 5 + [p])
         lib.rb_sor_slabs_packed_launch.restype = ctypes.c_int
+        lib.rb_sor_packed_max_clusters.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.rb_sor_packed_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def _launch_shape(ny: int, bxp: int, cluster: int) -> tuple:
+    """(band starts, rows of the largest band, threads, lanes a row)."""
+    starts = kcluster.band_starts(ny, cluster)
+    rows = kcluster.rows_max(starts)
+    return (starts, rows, *kcluster.block_shape(bxp, rows))
+
+
+def active_clusters(dev, ny: int, bxp: int, size: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for ``size`` blocks on ``(ny,
+    bxp)`` slabs, read once per shape and card."""
+    threads = _launch_shape(ny, bxp, size)[2]
+    return kcluster.active_clusters(
+        _load(), "rb_sor_packed_max_clusters", dev, (ny, bxp), size, threads,
+        smem_bytes(ny, bxp, size))
+
+
+def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device) -> int:
+    """The cluster size :func:`rb_sor_slabs_packed_cuda` launches with for
+    ``n_env`` envs of ``(ny, w)`` planes in ``nslabs`` slabs on the card of
+    ``device`` (:func:`choose_cluster` fed its SM count and occupancy)."""
+    bxp = check_planes(ny, w, nslabs)
+    dev = torch.device(device)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = n_env * nslabs
+    active = {c: active_clusters(dev, ny, bxp, c) for c in (16, 8, 4, 2)
+              if c in _fitting_clusters(ny, bxp) and groups * c <= n_sm}
+    return choose_cluster(ny, bxp, groups, n_sm, active)
+
+
+_LAUNCH_CONFIGS = {}
+
+
+def _launch_config(dev, ny: int, w: int, nslabs: int, n_env: int,
+                   cluster) -> tuple:
+    """(cluster, band starts as a C array, rows of the largest band,
+    threads, lanes a row, shared-memory bytes) of a launch, worked out once
+    per card, shape, env count and requested cluster size (None: the
+    wrapper's choice), so a solve's host work is the launch itself."""
+    key = (dev.index, ny, w, nslabs, n_env, cluster)
+    if key not in _LAUNCH_CONFIGS:
+        bxp = check_planes(ny, w, nslabs)
+        if cluster is None:
+            cluster = cluster_for(ny, w, nslabs, n_env, dev)
+        elif cluster not in _fitting_clusters(ny, bxp):
+            raise ValueError(f"a cluster of {cluster} blocks cannot hold a "
+                             f"({ny}, {bxp}) slab in shared memory; sizes "
+                             f"that fit: {_fitting_clusters(ny, bxp)}")
+        starts, rows, threads, tx = _launch_shape(ny, bxp, cluster)
+        _LAUNCH_CONFIGS[key] = (cluster, (ctypes.c_int * len(starts))(*starts),
+                                rows, threads, tx,
+                                smem_bytes(ny, bxp, cluster))
+    return _LAUNCH_CONFIGS[key]
 
 
 def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
                              dy: float, omega: float, nslabs: int,
-                             inner_iters: int):
-    """One launch of ``csrc/poisson_sor.cu``: grid (nslabs, n_env)."""
+                             inner_iters: int, rounds: int = 1,
+                             cluster=None):
+    """One launch of ``csrc/poisson_sor.cu``: ``rounds`` block-Jacobi
+    rounds (more than one only with one slab), one cluster of ``cluster``
+    blocks per (env, slab), by default :func:`cluster_for`'s choice.  Each
+    launch records its cluster size (``.last_cluster``) and the SM each
+    block ran on (``.last_block_sms``, int32, one per block, -1 where
+    none ran)."""
     dev = red.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_packed_cuda needs CUDA tensors, got "
                          f"{dev}; CPU tensors take the plain twin")
     ny, w = red.shape[-2:]
-    bxp = _check_slabs(w, nslabs)
-    smem = smem_bytes(ny, bxp)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"a ({ny}, {bxp}) slab needs {smem} bytes of shared "
-                         f"memory, over the {SMEM_PER_BLOCK}-byte limit of "
-                         f"one block; use more slabs")
+    if rounds < 1 or (rounds > 1 and nslabs != 1):
+        raise ValueError(f"one launch runs 1 round, or several with one "
+                         f"slab; got {rounds} rounds over {nslabs} slabs")
     lead = red.shape[:-2]
     planes = []
     for name, t in (("red", red), ("black", black), ("rhs_r", rhs_r),
@@ -114,49 +210,70 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
                              f"{t.device}")
         planes.append(t.reshape(-1, ny, w).contiguous())
     n = planes[0].shape[0]
+    cluster, starts, rows, threads, tx, smem = _launch_config(
+        dev, ny, w, nslabs, n, cluster)
     out_r, out_b = torch.empty_like(planes[0]), torch.empty_like(planes[1])
-    dx2, dy2, inv_diag = sor_coefficients(dx, dy)
+    block_sms = torch.empty(n * nslabs * cluster, dtype=torch.int32,
+                            device=dev)
+    _, _, inv_diag = sor_coefficients(dx, dy)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rb_sor_slabs_packed_launch(
             *(t.data_ptr() for t in planes), out_r.data_ptr(),
-            out_b.data_ptr(), n, ny, w, nslabs, inner_iters, smem, dx2,
-            dy2, inv_diag, omega, 1.0 - omega, stream)
+            out_b.data_ptr(), block_sms.data_ptr(), n, ny, w, nslabs,
+            inner_iters, rounds, cluster, ctypes.cast(starts,
+                                                      ctypes.c_void_p),
+            rows, threads, tx, smem, 1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag,
+            omega, 1.0 - omega, stream)
     from repro_torch.kernels.build import check_launch
     check_launch(lib, err, "rb_sor_slabs_packed")
     rb_sor_slabs_packed_cuda.launches += 1
+    rb_sor_slabs_packed_cuda.last_cluster = cluster
+    rb_sor_slabs_packed_cuda.last_block_sms = block_sms
     return out_r.reshape(*lead, ny, w), out_b.reshape(*lead, ny, w)
 
 
 rb_sor_slabs_packed_cuda.launches = 0
+rb_sor_slabs_packed_cuda.last_cluster = None
+rb_sor_slabs_packed_cuda.last_block_sms = None
 
 
 def rb_sor_slabs_packed(red, black, rhs_r, rhs_b, *, dx: float, dy: float,
-                        omega: float, nslabs: int, inner_iters: int):
-    """One outer block-Jacobi round on packed planes, all slabs in
-    parallel: the kernel on CUDA tensors, the plain twin on CPU tensors."""
+                        omega: float, nslabs: int, inner_iters: int,
+                        rounds: int = 1):
+    """``rounds`` outer block-Jacobi rounds on packed planes, all slabs in
+    parallel within a round (one round is the reference kernel's call).  On
+    CUDA tensors the kernel: one launch for all rounds with one slab, one
+    launch a round with several (a round's ghosts are the other slabs'
+    columns); on CPU tensors the plain twin, round by round."""
     kw = dict(dx=float(dx), dy=float(dy), omega=float(omega), nslabs=nslabs,
               inner_iters=inner_iters)
-    if red.device.type == "cuda":
-        return rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, **kw)
-    return rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, **kw)
+    if red.device.type == "cuda" and nslabs == 1:
+        return rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b,
+                                        rounds=rounds, **kw)
+    step = (rb_sor_slabs_packed_cuda if red.device.type == "cuda"
+            else rb_sor_slabs_packed_plain)
+    for _ in range(rounds):
+        red, black = step(red, black, rhs_r, rhs_b, **kw)
+    return red, black
 
 
 def rb_sor_planes(red, black, rhs_r, rhs_b, dx, dy, *, iters: int = 60,
                   omega: float = 1.7, nslabs: int = 0, inner_iters: int = 4):
     """``iters`` SOR iterations on packed planes as outer block-Jacobi
     rounds of ``inner_iters`` sweep pairs each (``ceil(iters /
-    inner_iters)`` rounds, so the pair count rounds up)."""
+    inner_iters)`` rounds, so the pair count rounds up); on the card one
+    launch per solve where the planes take one slab."""
     w = red.shape[-1]
     if nslabs == 0:
         nslabs = _pick_nslabs(2 * w)
     outer = -(-iters // inner_iters) if iters > 0 else 0
-    for _ in range(outer):
-        red, black = rb_sor_slabs_packed(red, black, rhs_r, rhs_b, dx=dx,
-                                         dy=dy, omega=omega, nslabs=nslabs,
-                                         inner_iters=inner_iters)
-    return red, black
+    if outer == 0:
+        return red, black
+    return rb_sor_slabs_packed(red, black, rhs_r, rhs_b, dx=dx, dy=dy,
+                               omega=omega, nslabs=nslabs,
+                               inner_iters=inner_iters, rounds=outer)
 
 
 # ---------------------------------------------------------------------------

@@ -4,20 +4,24 @@ Port of ``repro.kernels.rwkv6`` (``kernel.wkv6_bhsn`` and the ``ops.wkv6``
 wrapper).  :func:`wkv6` takes the models' layout, ``r, k, v, w (B, S, H,
 N)``, ``u (H, N)``, ``state (B, H, N, N)``, and casts ``w`` and ``u`` to
 ``r``'s dtype as the reference wrapper does (in bfloat16 that rounds the
-decay).  On CUDA tensors it is one launch of the hand-written kernel
-``csrc/wkv6.cu``; on CPU tensors the plain twin :func:`wkv6_plain`, the
+decay).  On CUDA tensors it is the hand-written kernel ``csrc/wkv6.cu``,
+two launches (:func:`chunk_pass`, :func:`state_pass`); on CPU tensors the plain twin :func:`wkv6_plain`, the
 sequential :func:`wkv6_scan` (the reference's ``ref.wkv6_ref``).  The
 output has ``r``'s dtype, the final state is float32.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import SMEM_PER_BLOCK
-
 CHUNK = 32
+# csrc/wkv6.cu: the head sizes it is built for (WKV6_HEAD_SIZES: the
+# multiples of 16 whose state-pass block fits shared memory), and the value
+# columns of the state one block owns
+HEAD_SIZES = tuple(range(16, 193, 16))
+COLUMNS_PER_BLOCK = 16
 
 
 def pick_chunk(S: int, chunk: int = CHUNK) -> int:
@@ -29,10 +33,18 @@ def pick_chunk(S: int, chunk: int = CHUNK) -> int:
     return c
 
 
-def smem_bytes(N: int, C: int) -> int:
-    """Shared-memory bytes of one block: the state, six (C, N + 1) chunk
-    arrays, the (C, C) matrix and three small vectors."""
-    return 4 * (N * N + 6 * C * (N + 1) + C * C + C + 2 * N)
+def grid_blocks(B: int, H: int, N: int) -> int:
+    """Blocks of the kernel's state pass: one per (batch, head, group of
+    ``COLUMNS_PER_BLOCK`` value columns of the state).  (Its chunk pass
+    runs one block per (batch, head, chunk).)"""
+    return B * H * (N // COLUMNS_PER_BLOCK)
+
+
+def scratch_floats(B: int, S: int, H: int, N: int, C: int) -> int:
+    """float32 scratch the chunk pass hands the state pass, per (batch,
+    head, chunk): r~ (``CHUNK`` rows of N + 4), the chunk's own output y
+    (``CHUNK`` x N), its state increment k~^T v (N x N) and its decay."""
+    return (CHUNK * (N + 4) + (CHUNK + N) * N + N) * B * H * (S // C)
 
 
 def wkv6_scan(r, k, v, w, u, state):
@@ -70,15 +82,43 @@ def wkv6_plain(r, k, v, w, u, state):
 def _load():
     from repro_torch.kernels import build
     lib = build.load("wkv6")
-    if lib.wkv6_launch.argtypes is None:
+    if lib.wkv6_chunk_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_launch.argtypes = [p] * 8 + [i] * 7 + [p]
-        lib.wkv6_launch.restype = ctypes.c_int
+        lib.wkv6_chunk_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.wkv6_chunk_launch.restype = ctypes.c_int
+        lib.wkv6_state_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.wkv6_state_launch.restype = ctypes.c_int
     return lib
 
 
-def wkv6_cuda(r, k, v, w, u, state, *, chunk: int = CHUNK):
-    """One launch of ``csrc/wkv6.cu``: grid (B * H), the chunk loop inside."""
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernel's copies
+    move 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@dataclass
+class Call:
+    """A kernel call's checked and cast inputs, its outputs, the scratch
+    its two passes share, and the record of the state pass's blocks."""
+    r: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    u: torch.Tensor
+    s0: torch.Tensor
+    out: torch.Tensor
+    s_fin: torch.Tensor
+    scratch: torch.Tensor
+    block_sms: torch.Tensor
+    chunk: int
+
+
+def prepare(r, k, v, w, u, state, *, chunk: int = CHUNK) -> Call:
+    """Check a call of ``csrc/wkv6.cu``, cast its inputs as the reference
+    wrapper does and allocate what its passes write; raises ``ValueError``
+    for what the kernel does not take."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6_cuda needs CUDA tensors, got {dev}; CPU "
@@ -96,31 +136,73 @@ def wkv6_cuda(r, k, v, w, u, state, *, chunk: int = CHUNK):
     for name, t in (("k", k), ("v", v)):
         if t.dtype != r.dtype:
             raise ValueError(f"{name}: expected {r.dtype}, got {t.dtype}")
+    if N not in HEAD_SIZES:
+        raise ValueError(f"wkv6_cuda is built for head sizes {HEAD_SIZES}, "
+                         f"got {N}")
     C = pick_chunk(S, chunk)
-    smem = smem_bytes(N, C)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"head size {N} needs {smem} bytes of shared memory, "
-                         f"over the {SMEM_PER_BLOCK}-byte limit of one block")
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    w = w.to(r.dtype).contiguous()
-    u = u.to(r.dtype).contiguous()
+    if C > CHUNK:
+        raise ValueError(f"wkv6_cuda takes chunks of at most {CHUNK} tokens, "
+                         f"got {C}")
+    r = _aligned(r)
     s0 = state.float().contiguous()
-    out = torch.empty_like(r)
-    s_fin = torch.empty_like(s0)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wkv6_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_fin.data_ptr(),
-            int(r.dtype == torch.bfloat16), B, S, H, N, C, smem, stream)
+    return Call(r, _aligned(k), _aligned(v), _aligned(w.to(r.dtype)),
+                u.to(r.dtype).contiguous(), s0, torch.empty_like(r),
+                torch.empty_like(s0),
+                torch.empty(scratch_floats(B, S, H, N, C),
+                            dtype=torch.float32, device=dev),
+                torch.empty(grid_blocks(B, H, N), dtype=torch.int32,
+                            device=dev), C)
+
+
+def chunk_pass(c: Call) -> None:
+    """Launch the chunk pass of a prepared call, one block per (batch,
+    head, chunk): everything that does not read the state, into the
+    scratch.  Counted in ``wkv6_cuda.launches``."""
     from repro_torch.kernels.build import check_launch
-    check_launch(lib, err, "wkv6")
+    B, S, H, N = c.r.shape
+    lib = _load()
+    with torch.cuda.device(c.r.device):
+        stream = torch.cuda.current_stream(c.r.device).cuda_stream
+        err = lib.wkv6_chunk_launch(
+            c.r.data_ptr(), c.k.data_ptr(), c.v.data_ptr(), c.w.data_ptr(),
+            c.u.data_ptr(), c.scratch.data_ptr(),
+            int(c.r.dtype == torch.bfloat16), B, S, H, N, c.chunk, stream)
+    check_launch(lib, err, "wkv6 chunk pass")
     wkv6_cuda.launches += 1
-    return out, s_fin
+
+
+def state_pass(c: Call) -> None:
+    """Launch the state pass of a prepared call, :func:`grid_blocks`
+    blocks, each a group of value columns of one head's state, the chunk
+    loop inside: the output and the final state.  Counted in
+    ``wkv6_cuda.launches``; records the SM each block ran on
+    (``wkv6_cuda.last_block_sms``, int32, -1 where no block ran)."""
+    from repro_torch.kernels.build import check_launch
+    B, S, H, N = c.r.shape
+    lib = _load()
+    with torch.cuda.device(c.r.device):
+        stream = torch.cuda.current_stream(c.r.device).cuda_stream
+        err = lib.wkv6_state_launch(
+            c.scratch.data_ptr(), c.s0.data_ptr(), c.out.data_ptr(),
+            c.s_fin.data_ptr(), c.block_sms.data_ptr(),
+            int(c.r.dtype == torch.bfloat16), B, S, H, N, c.chunk, stream)
+    check_launch(lib, err, "wkv6 state pass")
+    wkv6_cuda.launches += 1
+    wkv6_cuda.last_block_sms = c.block_sms
+
+
+def wkv6_cuda(r, k, v, w, u, state, *, chunk: int = CHUNK):
+    """One call of ``csrc/wkv6.cu``: :func:`chunk_pass`, then
+    :func:`state_pass`, two launches on the current stream, each counted
+    in ``wkv6_cuda.launches``."""
+    c = prepare(r, k, v, w, u, state, chunk=chunk)
+    chunk_pass(c)
+    state_pass(c)
+    return c.out, c.s_fin
 
 
 wkv6_cuda.launches = 0
+wkv6_cuda.last_block_sms = None
 
 
 def wkv6(r, k, v, w, u, state, *, chunk: int = CHUNK):

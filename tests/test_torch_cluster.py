@@ -100,7 +100,7 @@ def test_block_shape(res, cluster, want):
     rows step over the band, at most 1024 threads."""
     cfg = tgrid.GridConfig(res=res)
     rows = ops.rows_max(ops.band_starts(cfg.ny, cluster))
-    threads, tx = ops.block_shape(cfg.nx, rows)
+    threads, tx = ops.block_shape(cfg.nx // 2, rows)
     assert (threads, tx) == want
     assert tx % 32 == 0 and tx >= cfg.nx // 2 and threads <= 1024
     assert threads % tx == 0 and threads // tx <= rows

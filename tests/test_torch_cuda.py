@@ -40,24 +40,83 @@ def _rand(shape, seed=0):
         np.float32)
 
 
+def _sor_against_twin(cuda, res, n_env, iters, nslabs=1, cluster=None):
+    """rb_sor_planes through the kernel against the plain twin's rounds on
+    res-``res`` planes: launches, the launch's cluster and its blocks'
+    SMs, and max |kernel - twin|.  The kernel contracts a*b+c into FMAs
+    and multiplies by float32 reciprocals of dx^2, dy^2 where the twin
+    divides: a few ulp per pair over 52 pairs -> 1e-5 on O(1) planes."""
+    cfg = tgrid.GridConfig(res=res)
+    planes = [torch.tensor(_rand((n_env, cfg.ny, cfg.nx // 2), s),
+                           device=cuda) for s in range(4)]
+    rounds = -(-iters // 4)
+    n0 = tops.rb_sor_slabs_packed_cuda.launches
+    if cluster is None:
+        out = tops.rb_sor_planes(*planes, cfg.dx, cfg.dy, iters=iters,
+                                 nslabs=nslabs)
+    else:
+        out = tops.rb_sor_slabs_packed_cuda(
+            *planes, dx=cfg.dx, dy=cfg.dy, omega=1.7, nslabs=nslabs,
+            inner_iters=4, rounds=rounds, cluster=cluster)
+    launches = tops.rb_sor_slabs_packed_cuda.launches - n0
+    red, black = planes[:2]
+    for _ in range(rounds):
+        red, black = tops.rb_sor_slabs_packed_plain(
+            red, black, *planes[2:], dx=cfg.dx, dy=cfg.dy, omega=1.7,
+            nslabs=nslabs, inner_iters=4)
+    torch.cuda.synchronize()
+    err = max(max_diff(a, b) for a, b in zip((red, black), out))
+    print(f"rb_sor_planes res {res} N={n_env} nslabs={nslabs} cluster="
+          f"{tops.rb_sor_slabs_packed_cuda.last_cluster}: max|kernel - "
+          f"twin| {err:.3e}")
+    assert err <= 1e-5
+    return launches, tops.rb_sor_slabs_packed_cuda.last_block_sms
+
+
 @pytest.mark.cuda
 def test_sor_kernel_matches_twin_on_card(cuda):
-    """The CUDA kernel against its twin on the card, res-16 planes, 4 envs.
-    FMA contraction in the kernel rounds differently from the twin's op by
-    op float32: a few ulp per pair over 52 pairs -> 1e-5 on O(1) planes."""
-    planes = [torch.tensor(_rand((4, 66, 176), s), device=cuda)
-              for s in range(4)]
+    """The training shape, res-16 planes, 4 envs, iters=50: 13 rounds in
+    one launch, each env spread over a cluster of more than one block
+    (16 on an H100), every block on an SM of its own."""
+    launches, sms = _sor_against_twin(cuda, 16, 4, 50)
+    assert launches == 1
+    cluster = tops.rb_sor_slabs_packed_cuda.last_cluster
+    assert cluster == tops.cluster_for(66, 176, 1, 4, cuda) > 1
+    # the launch's record, -1 where no block ran: every block ran
+    assert int((sms >= 0).sum()) == sms.numel() == 4 * cluster > 4
+    assert int(sms.unique().numel()) == sms.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_sor_kernel_every_cluster_size_on_card(cuda, cluster):
+    """Every cluster size, 13 rounds in one launch, against the twin."""
+    assert _sor_against_twin(cuda, 16, 4, 50, cluster=cluster)[0] == 1
+
+
+@pytest.mark.cuda
+def test_sor_kernel_two_slabs_launch_per_round_on_card(cuda):
+    """With two slabs a round's ghosts are the other slab's columns: one
+    launch a round, 13 at iters=50."""
+    assert _sor_against_twin(cuda, 16, 2, 50, nslabs=2)[0] == 13
+
+
+@pytest.mark.cuda
+def test_sor_kernel_serves_res_18_on_card(cuda):
+    """A res-18 plane (74, 198), over one block's shared memory, through
+    the kernel, and a res-18 backend="pallas" solve."""
+    assert _sor_against_twin(cuda, 18, 4, 50)[0] == 1
+    assert tops.rb_sor_slabs_packed_cuda.last_cluster > 1
+    cfg = tgrid.GridConfig(res=18)
+    rhs = torch.tensor(_rand((2, cfg.ny, cfg.nx), 7), device=cuda)
     n0 = tops.rb_sor_slabs_packed_cuda.launches
-    out = tops.rb_sor_planes(*planes, 22.0 / 352, 4.1 / 66, iters=50)
-    assert tops.rb_sor_slabs_packed_cuda.launches - n0 == 13
-    red, black = planes[:2]
-    for _ in range(13):
-        red, black = tops.rb_sor_slabs_packed_plain(
-            red, black, *planes[2:], dx=22.0 / 352, dy=4.1 / 66, omega=1.7,
-            nslabs=1, inner_iters=4)
-    torch.cuda.synchronize()
-    for a, b in zip((red, black), out):
-        assert max_diff(a, b) <= 1e-5
+    p = tpoisson.solve(rhs, cfg.dx, cfg.dy, iters=60, backend="pallas")
+    assert tops.rb_sor_slabs_packed_cuda.launches == n0 + 1
+    ref = tpoisson.solve(rhs.cpu(), cfg.dx, cfg.dy, iters=60,
+                         backend="pallas")
+    err = max_diff(ref, p.cpu())
+    print(f"solve(backend='pallas') res 18: max|card - cpu| {err:.3e}")
+    assert err <= 1e-5
 
 
 def _fused_inputs(cuda, res, n_env):
@@ -99,6 +158,7 @@ def _fused_against_twin(cuda, res, n_env, n_steps, cluster=None):
     sms = aops.fused_interval_cuda.last_block_sms
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert sms.numel() == n_env * want
+    # -1 where no block ran: every block ran
     assert 0 <= int(sms.min()) and int(sms.max()) < n_sm
     b, ob = aops.fused_interval_plain(cfg, ga, flow, jet, n_steps,
                                       act_mode=mode)
@@ -173,13 +233,20 @@ def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
 
 @pytest.mark.cuda
 def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
-    """On the card there is no fallback: an odd width for the slab kernel
-    and a res-48 grid for the fused kernel (its fields over the shared
-    memory of a 16-block cluster) raise instead of running the plain
-    loop."""
+    """On the card there is no fallback: an odd width and a res-71 grid
+    (a slab over the shared memory of a 16-block cluster) for the slab
+    kernel, and a res-48 grid for the fused kernel (its fields over the
+    shared memory of a 16-block cluster) raise instead of running the
+    plain loop."""
     rhs = torch.zeros((8, 11), device=cuda)
     with pytest.raises(ValueError, match="even grid width"):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    big = tgrid.GridConfig(res=71)  # a (286, 781) slab: over 16 blocks
+    n0 = tops.rb_sor_slabs_packed_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tpoisson.solve(torch.zeros((big.ny, big.nx), device=cuda), big.dx,
+                       big.dy, iters=6, backend="pallas")
+    assert tops.rb_sor_slabs_packed_cuda.launches == n0
     cfg = tgrid.GridConfig(res=48)
     geom = tgrid.build_geometry(cfg)
     n0 = aops.fused_interval_cuda.launches
@@ -304,8 +371,13 @@ def test_flash_rejects_lengths_the_reference_rejects():
         fops.flash_attention(q, q, q)
 
 
-# (B, S, H, N)
-WKV_CASES = [(2, 128, 2, 64), (1, 100, 3, 32), (1, 16, 1, 64)]
+# (B, S, H, N): chunks of 32, of 25 (padded to 32 in the kernel) and a
+# single chunk of 16; head sizes 64, 32, 128 and 16, and 48, 80 and 192
+# (a scan over fewer threads than the block's, k~^T v a tile a call, the
+# largest head)
+WKV_CASES = [(2, 128, 2, 64), (1, 100, 3, 32), (1, 16, 1, 64),
+             (1, 64, 2, 128), (2, 96, 3, 16), (1, 96, 3, 48),
+             (1, 64, 2, 80), (1, 64, 1, 192)]
 
 
 @pytest.mark.cuda
@@ -331,7 +403,13 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     s0 = t(0.1 * rng.standard_normal((B, H, N, N)), torch.float32)
     n0 = wops.wkv6_cuda.launches
     out, s_fin = wops.wkv6(r, k, v, w, u, s0)
-    assert wops.wkv6_cuda.launches == n0 + 1
+    assert wops.wkv6_cuda.launches == n0 + 2    # chunk pass, state pass
+    # the state pass's record of its blocks' SMs, -1 where none ran: one
+    # block per (batch, head, 16 value columns of the state)
+    sms = wops.wkv6_cuda.last_block_sms
+    ran = int((sms >= 0).sum())
+    assert ran == sms.numel() == B * H * N // 16
+    assert N == 16 or ran > B * H
     ref, s_ref = wops.wkv6_plain(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert out.dtype == dt and s_fin.dtype == torch.float32
@@ -342,6 +420,19 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
           f"state {s_err:.3e}")
     assert err <= (2e-5 if dtype == "float32" else 2 ** -7)
     assert s_err <= 2e-5
+
+
+@pytest.mark.cuda
+def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
+    """No fallback on the card: a head size that is not a multiple of 16,
+    or is over 192, raises and launches nothing."""
+    for N in (24, 208):
+        x = torch.zeros((1, 32, 2, N), device=cuda, dtype=torch.bfloat16)
+        n0 = wops.wkv6_cuda.launches
+        with pytest.raises(ValueError, match="head sizes"):
+            wops.wkv6(x, x, x, x.float(), torch.zeros((2, N), device=cuda),
+                      torch.zeros((1, 2, N, N), device=cuda))
+        assert wops.wkv6_cuda.launches == n0
 
 
 @pytest.mark.cuda
@@ -363,8 +454,9 @@ def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
 def test_lm_forward_on_card(cuda, name):
     """forward_train of the reduced config (float32, 2 layers; phi4-mini
     with 2 KV heads for the GQA mapping) on the card: backend "pallas"
-    launches its kernel once per layer and agrees with "reference" to
-    2e-5 on the O(1) logits (float32, another summation order)."""
+    launches its kernel once per layer (WKV6: its two passes) and agrees
+    with "reference" to 2e-5 on the O(1) logits (float32, another
+    summation order)."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
@@ -374,11 +466,12 @@ def test_lm_forward_on_card(cuda, name):
     params = model.init_params(cfg, seed=0, device=cuda)
     tokens = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 128)), device=cuda)
-    wrapper = (fops.flash_attention_fp32_cuda if cfg.attention_kind == "gqa"
-               else wops.wkv6_cuda)
+    wrapper, per_layer = ((fops.flash_attention_fp32_cuda, 1)
+                          if cfg.attention_kind == "gqa"
+                          else (wops.wkv6_cuda, 2))
     n0 = wrapper.launches
     out, _ = model.forward_train(cfg, params, tokens, backend="pallas")
-    assert wrapper.launches - n0 == cfg.num_layers
+    assert wrapper.launches - n0 == per_layer * cfg.num_layers
     ref, _ = model.forward_train(cfg, params, tokens, backend="reference")
     torch.cuda.synchronize()
     err = max_diff(ref, out)

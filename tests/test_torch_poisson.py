@@ -154,11 +154,29 @@ def test_n_polish_is_the_references(iters, expect):
 
 
 def test_slab_kernel_smem_budget():
-    """The slab kernel's shared memory, owned by the wrapper: four planes
-    and four ghost columns.  A res-16 plane (66, 176) fits one block; a
-    res-18 plane (74, 198) does not, and the CUDA wrapper would refuse it
-    (it checks the budget before it looks for a card)."""
+    """The slab kernel's shared memory, owned by the wrapper: per block the
+    largest band of red and black with a halo row each side, of rhs_r and
+    rhs_b, four ghost columns and two mbarriers.  One block cannot hold a
+    res-18 plane (74, 198), a cluster of 2 or more can; the smallest grid
+    that 16 blocks cannot hold at the reference's slab count (res 71: a
+    (286, 781) slab, its width left in one slab) raises, and the check
+    needs no card."""
+    from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels import SMEM_PER_BLOCK
-    assert tops.smem_bytes(66, 176) == 4 * (4 * 66 * 176 + 4 * 66)
-    assert tops.smem_bytes(66, 176) <= SMEM_PER_BLOCK
-    assert tops.smem_bytes(74, 198) > SMEM_PER_BLOCK
+    assert tops.smem_bytes(66, 176, 1) == 4 * (4 + 2 * 68 * 176
+                                               + 2 * 66 * 176 + 4 * 66)
+    assert tops.smem_bytes(74, 198, 1) > SMEM_PER_BLOCK
+    assert tops.check_planes(74, 198, 1) == 198
+    assert min(tops._fitting_clusters(74, 198)) == 2
+
+    def per_block_at_16(res):
+        cfg = GridConfig(res=res)
+        bxp = cfg.nx // 2 // tops._pick_nslabs(cfg.nx)
+        return tops.smem_bytes(cfg.ny, bxp, 16)
+
+    too_big = next(res for res in range(8, 200)
+                   if per_block_at_16(res) > SMEM_PER_BLOCK)
+    assert too_big == 71
+    cfg = GridConfig(res=too_big)
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.check_planes(cfg.ny, cfg.nx // 2, tops._pick_nslabs(cfg.nx))
