@@ -23,11 +23,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # the kernel sources, each with the headers it includes
 SOURCES = {
-    "poisson_sor": ("poisson_sor.cu", "sor_packed.cuh", "cluster.cuh",
-                    "common.cuh"),
+    "poisson_sor": ("poisson_sor.cu", "sor_slabs.cuh", "sor_packed.cuh",
+                    "cluster.cuh", "common.cuh"),
     "fused_interval": ("fused_interval.cu", "sor_packed.cuh", "cluster.cuh",
                        "common.cuh"),
-    "poisson_sor_full": ("poisson_sor_full.cu", "common.cuh"),
+    "poisson_sor_full": ("poisson_sor_full.cu", "sor_slabs.cuh",
+                         "sor_packed.cuh", "cluster.cuh", "common.cuh"),
     "flash_attention": ("flash_attention.cu", "common.cuh"),
     "wkv6": ("wkv6.cu", "cluster.cuh", "common.cuh"),
 }

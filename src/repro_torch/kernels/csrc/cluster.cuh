@@ -1,5 +1,5 @@
 // Thread-block cluster primitives shared by the kernels that spread one
-// problem over a cluster of blocks (fused_interval.cu, poisson_sor.cu):
+// problem over a cluster of blocks (fused_interval.cu, sor_slabs.cuh):
 // the cluster barrier, shared::cluster addresses, the mbarriers that count
 // a halo exchange (wkv6.cu counts its bulk copies with them too),
 // st.async, and the band partition of rows over ranks.

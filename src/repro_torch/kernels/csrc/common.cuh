@@ -1,7 +1,6 @@
 // What every kernel library of the port shares: the error-string export
-// the ctypes wrappers call (kernels/build.py check_launch), the block size
-// of a loop over points, and the float / bfloat16 conversions of the
-// kernels templated on their element type.
+// the ctypes wrappers call (kernels/build.py check_launch) and the float /
+// bfloat16 conversions of the kernels templated on their element type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,12 +8,6 @@
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Threads per block for a loop over `n` points: a multiple of 32, <= 1024.
-static inline int threads_for(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t > 1024 ? 1024 : (t < 32 ? 32 : t);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -1,7 +1,7 @@
 // The packed red-black SOR half-sweep over one block's band of rows, shared
 // by the kernels that spread a pressure plane over a thread-block cluster
-// (fused_interval.cu: live domain BCs; poisson_sor.cu: ghost columns
-// frozen per block-Jacobi round).  The reference is cfd/poisson's
+// (fused_interval.cu: live domain BCs; sor_slabs.cuh, the two slab
+// kernels: ghost columns frozen per block-Jacobi round).  The reference is cfd/poisson's
 // packed_half_sweep.
 //
 // Packed-checkerboard layout (nx even; row j, packed column k):

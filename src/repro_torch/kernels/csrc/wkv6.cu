@@ -50,9 +50,9 @@
 //     operand together, splitting it once.
 //   * A chunk shorter than 32 tokens (C divides S) is padded with zero
 //     rows, which add nothing to any product.
-//   * Head sizes: every multiple of 16 (the value-column groups, and the
-//     k-steps of 8 of the products) whose state-pass block fits shared
-//     memory: 16 to 192 (WKV6_HEAD_SIZES).
+//   * Head sizes: every multiple of 16 whose state-pass block fits shared
+//     memory, 16 to 192 (WKV6_HEAD_SIZES); the wrapper zero-pads any other
+//     head up to 192 to the next (rwkv6/ops.py pad_heads, w padded with 1).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

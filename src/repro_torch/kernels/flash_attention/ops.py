@@ -15,7 +15,10 @@ reference kernel's key tiles with its online softmax: a test oracle that
 rounds p where the kernels round it.
 
 The key tile is the reference's ``min(128, S)`` and must divide ``S``, as
-the reference asserts; other lengths raise.
+the reference asserts; other lengths raise.  The kernels are built for
+head dims 32, 64 and 128; the wrapper serves every dh up to 128 by zero
+padding to the next of those (:func:`pad_head_dim`), scaled by the
+caller's ``dh ** -0.5``.
 """
 from __future__ import annotations
 
@@ -42,6 +45,31 @@ def key_block(S: int) -> int:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"{bk}-key block (the reference's min(128, S))")
     return bk
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The head dim the kernels run a head of ``dh`` at: the smallest of
+    :data:`KERNEL_DH` that holds it; ``ValueError`` over 128 (at the next
+    power of two, 256, the bfloat16 kernel's Q tile and K/V ring would not
+    fit shared memory, :func:`smem_bytes`)."""
+    for d in KERNEL_DH:
+        if d >= dh:
+            return d
+    raise ValueError(f"flash_attention_cuda serves head dims up to "
+                     f"{KERNEL_DH[-1]} (the kernels' head dims {KERNEL_DH}), "
+                     f"got {dh}: the next head dim of their tile layout, "
+                     f"256, would take {smem_bytes(256, torch.bfloat16)} "
+                     f"bytes of the bfloat16 kernel's shared memory, over "
+                     f"the {SMEM_PER_BLOCK}-byte limit of one block")
+
+
+def pad_head_dim(t, d: int):
+    """``t`` (..., dh) zero-padded to ``d`` along the head dim.  Padded q
+    and k columns add exact zeros to every score, padded v columns give
+    zero output columns, which the wrapper slices off; the scores keep the
+    caller's scale, ``dh ** -0.5``."""
+    dh = t.shape[-1]
+    return t if d == dh else torch.nn.functional.pad(t, (0, d - dh))
 
 
 def smem_bytes(dh: int, dtype: torch.dtype) -> int:
@@ -94,12 +122,13 @@ def causal_mask(Sq: int, Sk: int, sliding_window: int = 0, device=None, *,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          sliding_window: int = 0):
+                          sliding_window: int = 0,
+                          scale: Optional[float] = None):
     """The kernel's plain twin in the models' layout: :func:`gqa_attend`
-    under the kernel's mask."""
+    under the kernel's mask (``scale`` as there)."""
     S = q.shape[1]
     return gqa_attend(q, k, v, causal_mask(S, S, sliding_window, q.device,
-                                           causal=causal))
+                                           causal=causal), scale=scale)
 
 
 def attention_ref(q, k, v, *, causal: bool = True, sliding_window: int = 0):
@@ -111,21 +140,22 @@ def attention_ref(q, k, v, *, causal: bool = True, sliding_window: int = 0):
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True,
-                          sliding_window: int = 0):
+                          sliding_window: int = 0,
+                          scale: Optional[float] = None):
     """The reference kernel's arithmetic in plain PyTorch, for tests: q
     (B, S, H, dh), k, v (B, S, Hkv, dh), KV heads repeated as the
     reference's wrapper does; 128-key tiles (``min(128, S)``) walked in
     order with the online softmax of ``kernel.py:32-65``: fp32 scores
-    ``(q . k) * scale`` masked to -1e30, p rounded to v's dtype at the
-    running max before an fp32 product with v, out = acc / max(l, 1e-30)
-    in q's dtype."""
+    ``(q . k) * scale`` (by default ``dh ** -0.5``) masked to -1e30, p
+    rounded to v's dtype at the running max before an fp32 product with v,
+    out = acc / max(l, 1e-30) in q's dtype."""
     bk = _check(q, k, v)
     B, S, H, dh = q.shape
     rep = H // k.shape[2]
     qh = q.transpose(1, 2).float()
     kh = k.repeat_interleave(rep, dim=2).transpose(1, 2).float()
     vh = v.repeat_interleave(rep, dim=2).transpose(1, 2)
-    scale = dh ** -0.5
+    scale = scale if scale is not None else dh ** -0.5
     qpos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, H, S, 1), device=q.device)
@@ -178,7 +208,7 @@ def _check(q, k, v):
 
 def _check_cuda(q, k, v, dtype):
     """The checks of both kernels: shapes, CUDA tensors of ``dtype``, a
-    head dim the kernels are built for; returns the key tile."""
+    head dim up to 128; returns the key tile."""
     bk = _check(q, k, v)
     dev = q.device
     if dev.type != "cuda":
@@ -188,14 +218,7 @@ def _check_cuda(q, k, v, dtype):
         if t.dtype != dtype or t.device != dev:
             raise ValueError(f"{name}: expected {dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    dh = q.shape[3]
-    if dh not in KERNEL_DH:
-        raise ValueError(f"flash_attention_cuda is built for head dims "
-                         f"{KERNEL_DH}, got {dh}")
-    smem = smem_bytes(dh, dtype)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"head dim {dh} needs {smem} bytes of shared memory, "
-                         f"over the {SMEM_PER_BLOCK}-byte limit of one block")
+    kernel_head_dim(q.shape[3])
     return bk
 
 
@@ -206,19 +229,22 @@ def _aligned(t):
 
 
 def _launch(entry, q, k, v, bk, causal, sliding_window):
+    """Launch ``entry`` on q, k, v padded to the kernel's head dim, scaled
+    by the caller's; the output sliced back to the caller's dh."""
     from repro_torch.kernels.build import check_launch
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
     B, S, H, dh = q.shape
+    d = kernel_head_dim(dh)
+    q, k, v = (_aligned(pad_head_dim(t, d)) for t in (q, k, v))
+    out = torch.empty_like(q)
     lib = _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], dh, bk, int(causal), int(sliding_window),
-            dh ** -0.5, smem_bytes(dh, q.dtype), stream)
+            H, k.shape[2], d, bk, int(causal), int(sliding_window),
+            dh ** -0.5, smem_bytes(d, q.dtype), stream)
     check_launch(lib, err, entry)
-    return out
+    return out if d == dh else out[..., :dh].contiguous()
 
 
 def flash_attention_bf16_cuda(q, k, v, *, causal: bool = True,

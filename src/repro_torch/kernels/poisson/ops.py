@@ -10,8 +10,10 @@ twin:
   rounds of a one-slab solve in one launch; twin
   :func:`rb_sor_slabs_packed_plain`, one round;
 * :func:`rb_sor_slabs` (``kernel.rb_sor_slabs``) on the full grid ``(...,
-  ny, nx)`` with a masked update: ``csrc/poisson_sor_full.cu``, twin
-  :func:`rb_sor_slabs_plain` (the reference's ``ref.rb_sor_slabs_ref``).
+  ny, nx)`` with a masked update: ``csrc/poisson_sor_full.cu``, the same
+  cluster design on the grid split into packed planes as each block loads
+  it; twin :func:`rb_sor_slabs_plain` (the reference's
+  ``ref.rb_sor_slabs_ref``), one round.
 
 :func:`rb_sor_planes` and the drop-in :func:`rb_sor` run ``ceil(iters /
 inner_iters)`` rounds and no polish, the reference's semantics.
@@ -58,6 +60,18 @@ def _fitting_clusters(ny: int, bxp: int) -> list:
                                      SMEM_PER_BLOCK)
 
 
+def _check_fit(ny: int, bxp: int) -> None:
+    """``ValueError`` unless a cluster of at most 16 blocks holds a ``(ny,
+    bxp)`` slab of packed planes, one band per block."""
+    if not _fitting_clusters(ny, bxp):
+        c = max(c for c in kcluster.CLUSTER_SIZES if c <= ny)
+        raise ValueError(
+            f"a ({ny}, {bxp}) slab of packed planes needs "
+            f"{smem_bytes(ny, bxp, c)} bytes of shared memory per block in a "
+            f"cluster of {c} blocks, over the {SMEM_PER_BLOCK}-byte limit of "
+            f"one block; use more slabs")
+
+
 def check_planes(ny: int, w: int, nslabs: int) -> int:
     """The slab width of ``(ny, w)`` packed planes in ``nslabs`` slabs;
     ``ValueError`` unless the kernel can serve them: the slabs split the
@@ -65,12 +79,7 @@ def check_planes(ny: int, w: int, nslabs: int) -> int:
     band (every grid up to res 70 at the default aspect; res 71, whose
     width the reference's slab count leaves in one slab, does not)."""
     bxp = _check_slabs(w, nslabs)
-    if not _fitting_clusters(ny, bxp):
-        c = max(c for c in kcluster.CLUSTER_SIZES if c <= ny)
-        raise ValueError(
-            f"a ({ny}, {bxp}) slab needs {smem_bytes(ny, bxp, c)} bytes of "
-            f"shared memory per block in a cluster of {c} blocks, over the "
-            f"{SMEM_PER_BLOCK}-byte limit of one block; use more slabs")
+    _check_fit(ny, bxp)
     return bxp
 
 
@@ -113,17 +122,28 @@ def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
     return torch.cat(outs_r, dim=-1), torch.cat(outs_b, dim=-1)
 
 
-def _load():
+# the two slab kernels of csrc/sor_slabs.cuh: library, launch export and
+# occupancy query, by the layout of their operands
+_LIBS = {False: ("poisson_sor", "rb_sor_slabs_packed_launch",
+                 "rb_sor_packed_max_clusters"),
+         True: ("poisson_sor_full", "rb_sor_slabs_full_launch",
+                "rb_sor_full_max_clusters")}
+
+
+def _load(full: bool = False):
     from repro_torch.kernels import build
-    lib = build.load("poisson_sor")
-    if lib.rb_sor_slabs_packed_launch.argtypes is None:
+    name, launch, query = _LIBS[full]
+    lib = build.load(name)
+    if getattr(lib, launch).argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rb_sor_slabs_packed_launch.argtypes = (
-            [p] * 7 + [i] * 7 + [p] + [i] * 4 + [f] * 5 + [p])
-        lib.rb_sor_slabs_packed_launch.restype = ctypes.c_int
-        lib.rb_sor_packed_max_clusters.argtypes = [
-            i, i, i, ctypes.POINTER(ctypes.c_int)]
-        lib.rb_sor_packed_max_clusters.restype = ctypes.c_int
+        # the operand pointers (4 planes and 2 outputs, or p, rhs and the
+        # output), block_sm, then sor_slabs.cuh launch_sor_slabs's
+        n_ptr = 4 if full else 7
+        getattr(lib, launch).argtypes = (
+            [p] * n_ptr + [i] * 7 + [p] + [i] * 4 + [f] * 5 + [p])
+        getattr(lib, launch).restype = ctypes.c_int
+        getattr(lib, query).argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        getattr(lib, query).restype = ctypes.c_int
     return lib
 
 
@@ -134,24 +154,28 @@ def _launch_shape(ny: int, bxp: int, cluster: int) -> tuple:
     return (starts, rows, *kcluster.block_shape(bxp, rows))
 
 
-def active_clusters(dev, ny: int, bxp: int, size: int) -> int:
+def active_clusters(dev, ny: int, bxp: int, size: int,
+                    full: bool = False) -> int:
     """``cudaOccupancyMaxActiveClusters`` for ``size`` blocks on ``(ny,
-    bxp)`` slabs, read once per shape and card."""
+    bxp)`` slabs of packed planes (``full``: of the full-grid kernel, on
+    slabs of ``2 * bxp`` grid columns), read once per shape and card."""
     threads = _launch_shape(ny, bxp, size)[2]
     return kcluster.active_clusters(
-        _load(), "rb_sor_packed_max_clusters", dev, (ny, bxp), size, threads,
+        _load(full), _LIBS[full][2], dev, (ny, bxp), size, threads,
         smem_bytes(ny, bxp, size))
 
 
-def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device) -> int:
-    """The cluster size :func:`rb_sor_slabs_packed_cuda` launches with for
-    ``n_env`` envs of ``(ny, w)`` planes in ``nslabs`` slabs on the card of
-    ``device`` (:func:`choose_cluster` fed its SM count and occupancy)."""
+def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device,
+                full: bool = False) -> int:
+    """The cluster size :func:`rb_sor_slabs_packed_cuda` (``full``:
+    :func:`rb_sor_slabs_cuda`) launches with for ``n_env`` envs of ``(ny,
+    w)`` packed planes in ``nslabs`` slabs on the card of ``device``
+    (:func:`choose_cluster` fed its SM count and occupancy)."""
     bxp = check_planes(ny, w, nslabs)
     dev = torch.device(device)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     groups = n_env * nslabs
-    active = {c: active_clusters(dev, ny, bxp, c) for c in (16, 8, 4, 2)
+    active = {c: active_clusters(dev, ny, bxp, c, full) for c in (16, 8, 4, 2)
               if c in _fitting_clusters(ny, bxp) and groups * c <= n_sm}
     return choose_cluster(ny, bxp, groups, n_sm, active)
 
@@ -160,16 +184,17 @@ _LAUNCH_CONFIGS = {}
 
 
 def _launch_config(dev, ny: int, w: int, nslabs: int, n_env: int,
-                   cluster) -> tuple:
+                   cluster, full: bool = False) -> tuple:
     """(cluster, band starts as a C array, rows of the largest band,
-    threads, lanes a row, shared-memory bytes) of a launch, worked out once
-    per card, shape, env count and requested cluster size (None: the
-    wrapper's choice), so a solve's host work is the launch itself."""
-    key = (dev.index, ny, w, nslabs, n_env, cluster)
+    threads, lanes a row, shared-memory bytes) of a launch on ``(ny, w)``
+    packed planes, worked out once per kernel, card, shape, env count and
+    requested cluster size (None: the wrapper's choice), so a solve's host
+    work is the launch itself."""
+    key = (full, dev.index, ny, w, nslabs, n_env, cluster)
     if key not in _LAUNCH_CONFIGS:
         bxp = check_planes(ny, w, nslabs)
         if cluster is None:
-            cluster = cluster_for(ny, w, nslabs, n_env, dev)
+            cluster = cluster_for(ny, w, nslabs, n_env, dev, full)
         elif cluster not in _fitting_clusters(ny, bxp):
             raise ValueError(f"a cluster of {cluster} blocks cannot hold a "
                              f"({ny}, {bxp}) slab in shared memory; sizes "
@@ -179,6 +204,53 @@ def _launch_config(dev, ny: int, w: int, nslabs: int, n_env: int,
                                 rows, threads, tx,
                                 smem_bytes(ny, bxp, cluster))
     return _LAUNCH_CONFIGS[key]
+
+
+def _check_rounds(rounds: int, nslabs: int) -> None:
+    if rounds < 1 or (rounds > 1 and nslabs != 1):
+        raise ValueError(f"one launch runs 1 round, or several with one "
+                         f"slab; got {rounds} rounds over {nslabs} slabs")
+
+
+def _operands(ref, named) -> list:
+    """The ``(name, tensor)`` operands of a launch as ``(n, ny, w)``
+    contiguous float32 on ``ref``'s device, checked against ``ref``."""
+    dev, ny, w = ref.device, *ref.shape[-2:]
+    out = []
+    for name, t in named:
+        if t.shape != ref.shape or t.dtype != torch.float32 \
+                or t.device != dev:
+            raise ValueError(f"{name}: expected float32 {tuple(ref.shape)} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        out.append(t.reshape(-1, ny, w).contiguous())
+    return out
+
+
+def _launch(full: bool, operands, outs, *, ny: int, w: int, dx: float,
+            dy: float, omega: float, nslabs: int, inner_iters: int,
+            rounds: int, cluster, what: str):
+    """Launch a slab kernel on ``operands`` into ``outs``; returns (cluster
+    size, the record of the SM each block ran on)."""
+    from repro_torch.kernels.build import check_launch
+    dev = operands[0].device
+    n = operands[0].shape[0]
+    cluster, starts, rows, threads, tx, smem = _launch_config(
+        dev, ny, w, nslabs, n, cluster, full)
+    block_sms = torch.empty(n * nslabs * cluster, dtype=torch.int32,
+                            device=dev)
+    _, _, inv_diag = sor_coefficients(dx, dy)
+    lib = _load(full)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _LIBS[full][1])(
+            *(t.data_ptr() for t in operands + outs), block_sms.data_ptr(),
+            n, ny, 2 * w if full else w, nslabs, inner_iters, rounds,
+            cluster, ctypes.cast(starts, ctypes.c_void_p), rows, threads, tx,
+            smem, 1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag, omega, 1.0 - omega,
+            stream)
+    check_launch(lib, err, what)
+    return cluster, block_sms
 
 
 def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
@@ -196,42 +268,18 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
         raise ValueError(f"rb_sor_slabs_packed_cuda needs CUDA tensors, got "
                          f"{dev}; CPU tensors take the plain twin")
     ny, w = red.shape[-2:]
-    if rounds < 1 or (rounds > 1 and nslabs != 1):
-        raise ValueError(f"one launch runs 1 round, or several with one "
-                         f"slab; got {rounds} rounds over {nslabs} slabs")
-    lead = red.shape[:-2]
-    planes = []
-    for name, t in (("red", red), ("black", black), ("rhs_r", rhs_r),
-                    ("rhs_b", rhs_b)):
-        if t.shape != red.shape or t.dtype != torch.float32 \
-                or t.device != dev:
-            raise ValueError(f"{name}: expected float32 {tuple(red.shape)} "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-        planes.append(t.reshape(-1, ny, w).contiguous())
-    n = planes[0].shape[0]
-    cluster, starts, rows, threads, tx, smem = _launch_config(
-        dev, ny, w, nslabs, n, cluster)
-    out_r, out_b = torch.empty_like(planes[0]), torch.empty_like(planes[1])
-    block_sms = torch.empty(n * nslabs * cluster, dtype=torch.int32,
-                            device=dev)
-    _, _, inv_diag = sor_coefficients(dx, dy)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rb_sor_slabs_packed_launch(
-            *(t.data_ptr() for t in planes), out_r.data_ptr(),
-            out_b.data_ptr(), block_sms.data_ptr(), n, ny, w, nslabs,
-            inner_iters, rounds, cluster, ctypes.cast(starts,
-                                                      ctypes.c_void_p),
-            rows, threads, tx, smem, 1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag,
-            omega, 1.0 - omega, stream)
-    from repro_torch.kernels.build import check_launch
-    check_launch(lib, err, "rb_sor_slabs_packed")
+    _check_rounds(rounds, nslabs)
+    planes = _operands(red, (("red", red), ("black", black), ("rhs_r", rhs_r),
+                             ("rhs_b", rhs_b)))
+    outs = [torch.empty_like(planes[0]), torch.empty_like(planes[1])]
+    cluster, block_sms = _launch(
+        False, planes, outs, ny=ny, w=w, dx=dx, dy=dy, omega=omega,
+        nslabs=nslabs, inner_iters=inner_iters, rounds=rounds,
+        cluster=cluster, what="rb_sor_slabs_packed")
     rb_sor_slabs_packed_cuda.launches += 1
     rb_sor_slabs_packed_cuda.last_cluster = cluster
     rb_sor_slabs_packed_cuda.last_block_sms = block_sms
-    return out_r.reshape(*lead, ny, w), out_b.reshape(*lead, ny, w)
+    return tuple(o.reshape(red.shape) for o in outs)
 
 
 rb_sor_slabs_packed_cuda.launches = 0
@@ -287,10 +335,23 @@ def _check_full_slabs(nx: int, nslabs: int) -> int:
     return nx // nslabs
 
 
-def full_smem_bytes(ny: int, bx: int) -> int:
-    """Shared-memory bytes one block of the full-grid kernel claims for a
-    ``(ny, bx)`` slab: its p and rhs and two ghost columns."""
-    return 4 * (2 * ny * bx + 2 * ny)
+def full_smem_bytes(ny: int, bx: int, cluster: int) -> int:
+    """Shared-memory bytes one block of the full-grid kernel claims when a
+    ``(ny, bx)`` slab spreads over ``cluster`` blocks: its band split into
+    packed planes, so the packed kernel's bytes for a ``(ny, bx // 2)``
+    slab (:func:`smem_bytes`)."""
+    return smem_bytes(ny, bx // 2, cluster)
+
+
+def check_grid(ny: int, nx: int, nslabs: int) -> int:
+    """The slab width of a ``(ny, nx)`` grid in ``nslabs`` slabs;
+    ``ValueError`` unless the full-grid kernel can serve it: even slabs,
+    and a slab cut into 16 bands fits one block's shared memory per band
+    (every grid up to res 70 at the default aspect, as the packed kernel;
+    res 71 does not)."""
+    bx = _check_full_slabs(nx, nslabs)
+    _check_fit(ny, bx // 2)
+    return bx
 
 
 def rb_sor_slabs_plain(p, rhs, *, dx: float, dy: float, omega: float,
@@ -328,66 +389,55 @@ def rb_sor_slabs_plain(p, rhs, *, dx: float, dy: float, omega: float,
     return torch.cat(outs, dim=-1)
 
 
-def _load_full():
-    from repro_torch.kernels import build
-    lib = build.load("poisson_sor_full")
-    if lib.rb_sor_slabs_full_launch.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rb_sor_slabs_full_launch.argtypes = (
-            [p] * 3 + [i] * 6 + [f] * 5 + [p])
-        lib.rb_sor_slabs_full_launch.restype = ctypes.c_int
-    return lib
-
-
 def rb_sor_slabs_cuda(p, rhs, *, dx: float, dy: float, omega: float,
-                      nslabs: int, inner_iters: int):
-    """One launch of ``csrc/poisson_sor_full.cu``: grid (nslabs, n_env)."""
+                      nslabs: int, inner_iters: int, rounds: int = 1,
+                      cluster=None):
+    """One launch of ``csrc/poisson_sor_full.cu``: ``rounds`` block-Jacobi
+    rounds (more than one only with one slab), one cluster of ``cluster``
+    blocks per (grid, slab), by default :func:`cluster_for`'s choice for
+    the grid's packed planes.  Each launch records its cluster size
+    (``.last_cluster``) and the SM each block ran on (``.last_block_sms``,
+    int32, one per block, -1 where none ran)."""
     dev = p.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_cuda needs CUDA tensors, got {dev}; "
                          f"CPU tensors take the plain twin")
     ny, nx = p.shape[-2:]
-    bx = _check_full_slabs(nx, nslabs)
-    smem = full_smem_bytes(ny, bx)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"a ({ny}, {bx}) slab needs {smem} bytes of shared "
-                         f"memory, over the {SMEM_PER_BLOCK}-byte limit of "
-                         f"one block; use more slabs")
-    for name, t in (("p", p), ("rhs", rhs)):
-        if t.shape != p.shape or t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"{name}: expected float32 {tuple(p.shape)} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    lead = p.shape[:-2]
-    pf = p.reshape(-1, ny, nx).contiguous()
-    rf = rhs.reshape(-1, ny, nx).contiguous()
+    check_grid(ny, nx, nslabs)
+    _check_rounds(rounds, nslabs)
+    pf, rf = _operands(p, (("p", p), ("rhs", rhs)))
     out = torch.empty_like(pf)
-    dx2, dy2, inv_diag = sor_coefficients(dx, dy)
-    lib = _load_full()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rb_sor_slabs_full_launch(
-            pf.data_ptr(), rf.data_ptr(), out.data_ptr(), pf.shape[0], ny, nx,
-            nslabs, inner_iters, smem, dx2, dy2, inv_diag, omega, 1.0 - omega,
-            stream)
-    from repro_torch.kernels.build import check_launch
-    check_launch(lib, err, "rb_sor_slabs")
+    cluster, block_sms = _launch(
+        True, [pf, rf], [out], ny=ny, w=nx // 2, dx=dx, dy=dy, omega=omega,
+        nslabs=nslabs, inner_iters=inner_iters, rounds=rounds,
+        cluster=cluster, what="rb_sor_slabs")
     rb_sor_slabs_cuda.launches += 1
-    return out.reshape(*lead, ny, nx)
+    rb_sor_slabs_cuda.last_cluster = cluster
+    rb_sor_slabs_cuda.last_block_sms = block_sms
+    return out.reshape(p.shape)
 
 
 rb_sor_slabs_cuda.launches = 0
+rb_sor_slabs_cuda.last_cluster = None
+rb_sor_slabs_cuda.last_block_sms = None
 
 
 def rb_sor_slabs(p, rhs, *, dx: float, dy: float, omega: float, nslabs: int,
-                 inner_iters: int):
-    """One outer block-Jacobi round on the full grid, all slabs in
-    parallel: the kernel on CUDA tensors, the plain twin on CPU tensors."""
+                 inner_iters: int, rounds: int = 1):
+    """``rounds`` outer block-Jacobi rounds on the full grid, all slabs in
+    parallel within a round (one round is the reference kernel's call).  On
+    CUDA tensors the kernel: one launch for all rounds with one slab, one
+    launch a round with several; on CPU tensors the plain twin, round by
+    round."""
     kw = dict(dx=float(dx), dy=float(dy), omega=float(omega), nslabs=nslabs,
               inner_iters=inner_iters)
-    if p.device.type == "cuda":
-        return rb_sor_slabs_cuda(p, rhs, **kw)
-    return rb_sor_slabs_plain(p, rhs, **kw)
+    if p.device.type == "cuda" and nslabs == 1:
+        return rb_sor_slabs_cuda(p, rhs, rounds=rounds, **kw)
+    step = (rb_sor_slabs_cuda if p.device.type == "cuda"
+            else rb_sor_slabs_plain)
+    for _ in range(rounds):
+        p = step(p, rhs, **kw)
+    return p
 
 
 def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
@@ -396,7 +446,8 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     smoothers: ``ceil(iters / inner_iters)`` block-Jacobi rounds of
     ``inner_iters`` sweep pairs and no polish.  ``packed=True`` runs the
     packed smoother on the checkerboard planes, ``packed=False`` the
-    full-grid masked one.  Raises ``ValueError`` on an odd width."""
+    full-grid masked one; on the card either takes one launch per solve
+    where the grid is one slab.  Raises ``ValueError`` on an odd width."""
     nx = rhs.shape[-1]
     if nx % 2:
         raise ValueError(
@@ -410,7 +461,8 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
                                dx, dy, iters=iters, omega=omega,
                                nslabs=nslabs, inner_iters=inner_iters)
         return unpack_checkerboard(*planes)
-    for _ in range(-(-iters // inner_iters)):
-        p = rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega, nslabs=nslabs,
-                         inner_iters=inner_iters)
-    return p
+    outer = -(-iters // inner_iters) if iters > 0 else 0
+    if outer == 0:
+        return p
+    return rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega, nslabs=nslabs,
+                        inner_iters=inner_iters, rounds=outer)

@@ -8,6 +8,12 @@ decay).  On CUDA tensors it is the hand-written kernel ``csrc/wkv6.cu``,
 two launches (:func:`chunk_pass`, :func:`state_pass`); on CPU tensors the plain twin :func:`wkv6_plain`, the
 sequential :func:`wkv6_scan` (the reference's ``ref.wkv6_ref``).  The
 output has ``r``'s dtype, the final state is float32.
+
+The kernel is built for head sizes that are multiples of 16 up to 192 and
+chunks of at most 32 tokens; the wrapper serves every head size up to 192
+by zero padding (:func:`pad_heads`) and any ``chunk`` by running the
+largest chunk of at most 32 that divides S (the chunk is a tiling of the
+same recurrence).
 """
 from __future__ import annotations
 
@@ -24,6 +30,46 @@ HEAD_SIZES = tuple(range(16, 193, 16))
 COLUMNS_PER_BLOCK = 16
 
 
+def kernel_head_size(N: int) -> int:
+    """The head size the kernel runs a head of ``N`` at: the smallest of
+    :data:`HEAD_SIZES` that holds it; ``ValueError`` over 192 (the
+    state-pass block of a larger head does not fit shared memory)."""
+    for n in HEAD_SIZES:
+        if n >= N:
+            return n
+    raise ValueError(f"wkv6_cuda serves head sizes up to {HEAD_SIZES[-1]} "
+                     f"(the kernel's head sizes {HEAD_SIZES}), got {N}")
+
+
+def pad_heads(r, k, v, w, u, state, n: int):
+    """The inputs of a WKV6 call with head size N zero-padded to ``n``:
+    r, k, v, u and the state with zeros, the decay w with ones.  The padded
+    rows and columns of the state then stay 0 (S = w S + k^T v with k and v
+    0 there) and add exact zeros to every real output and state entry.  A
+    decay padded with 0 would be clamped to 1e-30 in the chunked algebra,
+    whose exp(-cumulative log-decay) overflows within two tokens, and 0
+    times inf is NaN.  Slice the results back with :func:`unpad_heads`."""
+    N = r.shape[-1]
+    if n == N:
+        return r, k, v, w, u, state
+    pad = n - N
+
+    def cols(t, value=0.0):
+        return torch.nn.functional.pad(t, (0, pad), value=value)
+
+    return (cols(r), cols(k), cols(v), cols(w, 1.0), cols(u),
+            torch.nn.functional.pad(state, (0, pad, 0, pad)))
+
+
+def unpad_heads(out, state, N: int):
+    """The results of a padded call (:func:`pad_heads`) for head size
+    ``N``."""
+    if out.shape[-1] == N:
+        return out, state
+    return (out[..., :N].contiguous(),
+            state[..., :N, :N].contiguous())
+
+
 def pick_chunk(S: int, chunk: int = CHUNK) -> int:
     """The reference's chunk: ``min(chunk, S)``, decremented until it
     divides ``S``."""
@@ -34,10 +80,11 @@ def pick_chunk(S: int, chunk: int = CHUNK) -> int:
 
 
 def grid_blocks(B: int, H: int, N: int) -> int:
-    """Blocks of the kernel's state pass: one per (batch, head, group of
-    ``COLUMNS_PER_BLOCK`` value columns of the state).  (Its chunk pass
-    runs one block per (batch, head, chunk).)"""
-    return B * H * (N // COLUMNS_PER_BLOCK)
+    """Blocks of the kernel's state pass for heads of ``N``: one per
+    (batch, head, group of ``COLUMNS_PER_BLOCK`` value columns of the
+    state padded to :func:`kernel_head_size`).  (Its chunk pass runs one
+    block per (batch, head, chunk).)"""
+    return B * H * (kernel_head_size(N) // COLUMNS_PER_BLOCK)
 
 
 def scratch_floats(B: int, S: int, H: int, N: int, C: int) -> int:
@@ -113,12 +160,19 @@ class Call:
     scratch: torch.Tensor
     block_sms: torch.Tensor
     chunk: int
+    head_size: int     # the caller's N; the tensors above may be padded
+
+    def result(self):
+        """(out, final state) at the caller's head size."""
+        return unpad_heads(self.out, self.s_fin, self.head_size)
 
 
 def prepare(r, k, v, w, u, state, *, chunk: int = CHUNK) -> Call:
     """Check a call of ``csrc/wkv6.cu``, cast its inputs as the reference
-    wrapper does and allocate what its passes write; raises ``ValueError``
-    for what the kernel does not take."""
+    wrapper does, pad the heads to :func:`kernel_head_size` and allocate
+    what its passes write; the kernel runs chunks of ``pick_chunk(S,
+    min(chunk, 32))`` tokens.  Raises ``ValueError`` for what the kernel
+    does not take."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6_cuda needs CUDA tensors, got {dev}; CPU "
@@ -136,22 +190,20 @@ def prepare(r, k, v, w, u, state, *, chunk: int = CHUNK) -> Call:
     for name, t in (("k", k), ("v", v)):
         if t.dtype != r.dtype:
             raise ValueError(f"{name}: expected {r.dtype}, got {t.dtype}")
-    if N not in HEAD_SIZES:
-        raise ValueError(f"wkv6_cuda is built for head sizes {HEAD_SIZES}, "
-                         f"got {N}")
-    C = pick_chunk(S, chunk)
-    if C > CHUNK:
-        raise ValueError(f"wkv6_cuda takes chunks of at most {CHUNK} tokens, "
-                         f"got {C}")
+    n = kernel_head_size(N)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    C = pick_chunk(S, min(chunk, CHUNK))
+    r, k, v, w, u, state = pad_heads(r, k, v, w.to(r.dtype), u.to(r.dtype),
+                                     state.float(), n)
     r = _aligned(r)
-    s0 = state.float().contiguous()
-    return Call(r, _aligned(k), _aligned(v), _aligned(w.to(r.dtype)),
-                u.to(r.dtype).contiguous(), s0, torch.empty_like(r),
-                torch.empty_like(s0),
-                torch.empty(scratch_floats(B, S, H, N, C),
+    s0 = state.contiguous()
+    return Call(r, _aligned(k), _aligned(v), _aligned(w), u.contiguous(), s0,
+                torch.empty_like(r), torch.empty_like(s0),
+                torch.empty(scratch_floats(B, S, H, n, C),
                             dtype=torch.float32, device=dev),
-                torch.empty(grid_blocks(B, H, N), dtype=torch.int32,
-                            device=dev), C)
+                torch.empty(grid_blocks(B, H, n), dtype=torch.int32,
+                            device=dev), C, N)
 
 
 def chunk_pass(c: Call) -> None:
@@ -198,7 +250,7 @@ def wkv6_cuda(r, k, v, w, u, state, *, chunk: int = CHUNK):
     c = prepare(r, k, v, w, u, state, chunk=chunk)
     chunk_pass(c)
     state_pass(c)
-    return c.out, c.s_fin
+    return c.result()
 
 
 wkv6_cuda.launches = 0

@@ -241,7 +241,7 @@ def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
     rhs = torch.zeros((8, 11), device=cuda)
     with pytest.raises(ValueError, match="even grid width"):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
-    big = tgrid.GridConfig(res=71)  # a (286, 781) slab: over 16 blocks
+    big = tgrid.GridConfig(res=71)  # a (292, 781) slab: over 16 blocks
     n0 = tops.rb_sor_slabs_packed_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):
         tpoisson.solve(torch.zeros((big.ny, big.nx), device=cuda), big.dx,
@@ -257,27 +257,110 @@ def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
     assert aops.fused_interval_cuda.launches == n0
 
 
+def _sor_full_against_twin(cuda, res, n_env, iters, nslabs=None,
+                           cluster=None):
+    """rb_sor(packed=False) through the full-grid kernel against the plain
+    twin's rounds on random res-``res`` grids from a warm start: launches,
+    the launch's cluster and its blocks' SMs, and max |kernel - twin|.
+    The kernel splits the grid into packed planes, contracts a*b+c into
+    FMAs and multiplies by float32 reciprocals of dx^2, dy^2 where the
+    twin divides: a few ulp per pair over 52 pairs -> 1e-5 on O(1)
+    fields."""
+    cfg = tgrid.GridConfig(res=res)
+    shape = (n_env, cfg.ny, cfg.nx)
+    rhs = torch.tensor(_rand(shape, 5), device=cuda)
+    p0 = torch.tensor(0.1 * _rand(shape, 6), device=cuda)
+    nslabs = nslabs or tops._pick_nslabs(cfg.nx)
+    rounds = -(-iters // 4)
+    n0 = tops.rb_sor_slabs_cuda.launches
+    if cluster is None:
+        out = tops.rb_sor(rhs, cfg.dx, cfg.dy, p0=p0, iters=iters, omega=1.7,
+                          nslabs=nslabs, inner_iters=4, packed=False)
+    else:
+        out = p0
+        for _ in range(1 if nslabs == 1 else rounds):
+            out = tops.rb_sor_slabs_cuda(
+                out, rhs, dx=cfg.dx, dy=cfg.dy, omega=1.7, nslabs=nslabs,
+                inner_iters=4, rounds=rounds if nslabs == 1 else 1,
+                cluster=cluster)
+    launches = tops.rb_sor_slabs_cuda.launches - n0
+    p = p0
+    for _ in range(rounds):
+        p = tops.rb_sor_slabs_plain(p, rhs, dx=cfg.dx, dy=cfg.dy, omega=1.7,
+                                    nslabs=nslabs, inner_iters=4)
+    torch.cuda.synchronize()
+    err = max_diff(p, out)
+    print(f"rb_sor(packed=False) res {res} N={n_env} nslabs={nslabs} "
+          f"cluster={tops.rb_sor_slabs_cuda.last_cluster}: max|kernel - "
+          f"twin| {err:.3e}")
+    assert err <= 1e-5
+    return launches, tops.rb_sor_slabs_cuda.last_block_sms
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nslabs", [1, 2, 4])
 def test_sor_full_kernel_matches_twin_on_card(cuda, nslabs):
     """The full-grid kernel against its twin through the drop-in solve:
-    res-16 grid (66, 352), 4 envs, iters=50 -> 13 launches.  FMA
-    contraction rounds a few ulp per pair differently from the twin's op by
-    op float32; over 52 pairs on O(1) fields that stays under 1e-5."""
-    rhs = torch.tensor(_rand((4, 66, 352), 5), device=cuda)
-    p0 = torch.tensor(0.1 * _rand((4, 66, 352), 6), device=cuda)
-    kw = dict(iters=50, omega=1.7, nslabs=nslabs, inner_iters=4)
+    res-16 grid (66, 352), 4 envs, iters=50, 13 rounds: one launch with
+    one slab (each grid spread over a cluster of more than one block, every
+    block on an SM of its own), one launch a round with several."""
+    launches, sms = _sor_full_against_twin(cuda, 16, 4, 50, nslabs=nslabs)
+    assert launches == (1 if nslabs == 1 else 13)
+    cluster = tops.rb_sor_slabs_cuda.last_cluster
+    assert cluster == tops.cluster_for(66, 176, nslabs, 4, cuda,
+                                       full=True) > 1
+    assert int((sms >= 0).sum()) == sms.numel() == 4 * nslabs * cluster
+    if nslabs == 1:
+        assert int(sms.unique().numel()) == sms.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nslabs", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_sor_full_kernel_every_cluster_size_on_card(cuda, cluster, nslabs):
+    """Every cluster size that fits the res-16 slab, at one slab (13 rounds
+    in one launch) and at two (a launch a round), against the twin."""
+    launches = _sor_full_against_twin(cuda, 16, 4, 50, nslabs=nslabs,
+                                      cluster=cluster)[0]
+    assert launches == (1 if nslabs == 1 else 13)
+    assert tops.rb_sor_slabs_cuda.last_cluster == cluster
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [18, 70])
+def test_sor_full_kernel_serves_large_grids_on_card(cuda, res):
+    """Res 18 (74, 396), which a one-block design could not hold, in one
+    slab: one launch per solve; and res 70 (288, 1540), the largest grid
+    16-block clusters hold at the reference's slab count, two slabs of 770
+    columns: a launch a round.  Against the twin."""
+    cfg = tgrid.GridConfig(res=res)
+    nslabs = tops._pick_nslabs(cfg.nx)
+    assert nslabs == {18: 1, 70: 2}[res]
+    launches = _sor_full_against_twin(cuda, res, 2, 50)[0]
+    assert launches == (1 if nslabs == 1 else 13)
+    assert tops.rb_sor_slabs_cuda.last_cluster > 1
+
+
+@pytest.mark.cuda
+def test_sor_full_kernel_refuses_res_71_on_card(cuda):
+    """No fallback on the card: a res-71 grid (292, 1562), whose one slab
+    no 16-block cluster holds, raises and launches nothing; so do a
+    cluster size that does not hold the slab and several rounds over
+    several slabs."""
+    big = tgrid.GridConfig(res=71)
+    z = torch.zeros((big.ny, big.nx), device=cuda)
     n0 = tops.rb_sor_slabs_cuda.launches
-    out = tops.rb_sor(rhs, 22.0 / 352, 4.1 / 66, p0=p0, packed=False, **kw)
-    assert tops.rb_sor_slabs_cuda.launches - n0 == 13
-    p = p0
-    for _ in range(13):
-        p = tops.rb_sor_slabs_plain(p, rhs, dx=22.0 / 352, dy=4.1 / 66,
-                                    omega=1.7, nslabs=nslabs, inner_iters=4)
-    torch.cuda.synchronize()
-    err = max_diff(p, out)
-    print(f"rb_sor_slabs nslabs={nslabs}: max|kernel - twin| {err:.3e}")
-    assert err <= 1e-5
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.rb_sor(z, big.dx, big.dy, iters=8, packed=False)
+    cfg = tgrid.GridConfig(res=18)
+    z = torch.zeros((cfg.ny, cfg.nx), device=cuda)
+    with pytest.raises(ValueError, match="cannot hold"):
+        tops.rb_sor_slabs_cuda(z, z, dx=cfg.dx, dy=cfg.dy, omega=1.7,
+                               nslabs=1, inner_iters=4, cluster=1)
+    with pytest.raises(ValueError, match="several with one"):
+        tops.rb_sor_slabs_cuda(z, z, dx=cfg.dx, dy=cfg.dy, omega=1.7,
+                               nslabs=2, inner_iters=4, rounds=2)
+    assert tops.rb_sor_slabs_cuda.launches == n0
 
 
 def _decay(rng, shape):
@@ -288,12 +371,14 @@ def _decay(rng, shape):
 
 # (B, S, H, Hkv, dh, causal, window): dh 32 / 64 / 128 under GQA, a window
 # across the 128-key tile edge, S = 40 (a 40-key tile, not a multiple of
-# 16, in one 128-row box) and 96, non-causal
+# 16, in one 128-row box) and 96, non-causal; dh 48 and 96 (padded to 64
+# and 128 by the wrapper), causal and under a window
 FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 64, 4, 4, 32, True, 0), (1, 96, 2, 1, 64, True, 0),
                (1, 256, 2, 2, 64, False, 0), (1, 40, 4, 2, 32, True, 0),
                (2, 384, 6, 2, 32, True, 0), (1, 384, 8, 2, 128, True, 0),
-               (1, 512, 4, 1, 128, True, 200), (1, 40, 2, 1, 128, False, 0)]
+               (1, 512, 4, 1, 128, True, 200), (1, 40, 2, 1, 128, False, 0),
+               (1, 256, 4, 2, 48, True, 0), (1, 256, 4, 2, 96, True, 96)]
 
 
 def _worst_row(ref, out) -> float:
@@ -371,13 +456,15 @@ def test_flash_rejects_lengths_the_reference_rejects():
         fops.flash_attention(q, q, q)
 
 
-# (B, S, H, N): chunks of 32, of 25 (padded to 32 in the kernel) and a
-# single chunk of 16; head sizes 64, 32, 128 and 16, and 48, 80 and 192
-# (a scan over fewer threads than the block's, k~^T v a tile a call, the
-# largest head)
-WKV_CASES = [(2, 128, 2, 64), (1, 100, 3, 32), (1, 16, 1, 64),
-             (1, 64, 2, 128), (2, 96, 3, 16), (1, 96, 3, 48),
-             (1, 64, 2, 80), (1, 64, 1, 192)]
+# (B, S, H, N, chunk): chunks of 32, of 25 (padded to 32 in the kernel)
+# and a single chunk of 16; head sizes 64, 32, 128 and 16, and 48, 80 and
+# 192 (a scan over fewer threads than the block's, k~^T v a tile a call,
+# the largest head); heads of 24 and 40 (padded to 32 and 48 by the
+# wrapper) and a chunk of 64 asked for (run at 32)
+WKV_CASES = [(2, 128, 2, 64, 32), (1, 100, 3, 32, 32), (1, 16, 1, 64, 32),
+             (1, 64, 2, 128, 32), (2, 96, 3, 16, 32), (1, 96, 3, 48, 32),
+             (1, 64, 2, 80, 32), (1, 64, 1, 192, 32), (1, 64, 2, 24, 32),
+             (1, 128, 2, 40, 64)]
 
 
 @pytest.mark.cuda
@@ -390,7 +477,7 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     largest |out|, the state likewise.  bfloat16 inputs are the same for
     both; the bf16 outputs differ by at most one rounding step, one ulp of
     the largest |out| (2^-7 of it), the float32 state by 2e-5."""
-    B, S, H, N = case
+    B, S, H, N, chunk = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(S + N)
 
@@ -402,13 +489,14 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     u = t(0.1 * rng.standard_normal((H, N)))
     s0 = t(0.1 * rng.standard_normal((B, H, N, N)), torch.float32)
     n0 = wops.wkv6_cuda.launches
-    out, s_fin = wops.wkv6(r, k, v, w, u, s0)
+    out, s_fin = wops.wkv6(r, k, v, w, u, s0, chunk=chunk)
     assert wops.wkv6_cuda.launches == n0 + 2    # chunk pass, state pass
+    assert out.shape == r.shape and s_fin.shape == s0.shape
     # the state pass's record of its blocks' SMs, -1 where none ran: one
-    # block per (batch, head, 16 value columns of the state)
+    # block per (batch, head, 16 value columns of the padded state)
     sms = wops.wkv6_cuda.last_block_sms
     ran = int((sms >= 0).sum())
-    assert ran == sms.numel() == B * H * N // 16
+    assert ran == sms.numel() == B * H * -(-N // 16)
     assert N == 16 or ran > B * H
     ref, s_ref = wops.wkv6_plain(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -424,29 +512,59 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
 
 @pytest.mark.cuda
 def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
-    """No fallback on the card: a head size that is not a multiple of 16,
-    or is over 192, raises and launches nothing."""
-    for N in (24, 208):
-        x = torch.zeros((1, 32, 2, N), device=cuda, dtype=torch.bfloat16)
-        n0 = wops.wkv6_cuda.launches
-        with pytest.raises(ValueError, match="head sizes"):
-            wops.wkv6(x, x, x, x.float(), torch.zeros((2, N), device=cuda),
-                      torch.zeros((1, 2, N, N), device=cuda))
-        assert wops.wkv6_cuda.launches == n0
+    """A head of 24, which the kernel is not built for, runs padded to 32
+    and agrees with the twin (bf16: one rounding step of the largest
+    |out|, the state 2e-5); a head of 208, whose state-pass block would
+    not fit shared memory, raises and launches nothing."""
+    rng = np.random.default_rng(24)
+    x = torch.tensor(rng.standard_normal((3, 1, 32, 2, 24)),
+                     dtype=torch.float32, device=cuda).bfloat16()
+    w = torch.tensor(_decay(rng, (1, 32, 2, 24)), dtype=torch.float32,
+                     device=cuda)
+    u = torch.tensor(0.1 * rng.standard_normal((2, 24)), dtype=torch.float32,
+                     device=cuda)
+    s0 = torch.zeros((1, 2, 24, 24), device=cuda)
+    n0 = wops.wkv6_cuda.launches
+    out, s_fin = wops.wkv6(*x, w, u, s0)
+    assert wops.wkv6_cuda.launches == n0 + 2
+    ref, s_ref = wops.wkv6_plain(*x, w, u, s0)
+    torch.cuda.synchronize()
+    assert max_diff(ref.float(), out.float()) \
+        <= 2 ** -7 * float(ref.float().abs().max())
+    assert max_diff(s_ref, s_fin) <= 2e-5 * float(s_ref.abs().max())
+    x = torch.zeros((1, 32, 2, 208), device=cuda, dtype=torch.bfloat16)
+    n0 = wops.wkv6_cuda.launches
+    with pytest.raises(ValueError, match="head sizes"):
+        wops.wkv6(x, x, x, x.float(), torch.zeros((2, 208), device=cuda),
+                  torch.zeros((1, 2, 208, 208), device=cuda))
+    assert wops.wkv6_cuda.launches == n0
 
 
 @pytest.mark.cuda
 def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
-    """No fallback on the card: a head dim outside 32/64/128 raises and
-    launches nothing."""
-    for dt in (torch.float32, torch.bfloat16):
-        q = torch.zeros((1, 64, 2, 48), device=cuda, dtype=dt)
-        n0 = (fops.flash_attention_bf16_cuda.launches,
-              fops.flash_attention_fp32_cuda.launches)
+    """A head dim of 48, which the kernels are not built for, runs padded
+    to 64 on the kernel of its dtype and agrees with the twin (float32
+    2e-5, bfloat16 3e-2, as above); 192 raises and launches nothing."""
+    def counts():
+        return (fops.flash_attention_bf16_cuda.launches,
+                fops.flash_attention_fp32_cuda.launches)
+
+    rng = np.random.default_rng(48)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        q = torch.tensor(rng.standard_normal((1, 128, 2, 48)),
+                         dtype=torch.float32, device=cuda).to(dt)
+        n0 = counts()
+        out = fops.flash_attention(q, q, q)
+        assert sum(counts()) == sum(n0) + 1
+        ref = fops.flash_attention_plain(q, q, q)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == dt
+        assert max_diff(ref.float(), out.float()) <= tol
+        q = torch.zeros((1, 64, 2, 192), device=cuda, dtype=dt)
+        n0 = counts()
         with pytest.raises(ValueError, match="head dims"):
             fops.flash_attention(q, q, q)
-        assert n0 == (fops.flash_attention_bf16_cuda.launches,
-                      fops.flash_attention_fp32_cuda.launches)
+        assert counts() == n0
 
 
 @pytest.mark.cuda

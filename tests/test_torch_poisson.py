@@ -159,7 +159,7 @@ def test_slab_kernel_smem_budget():
     rhs_b, four ghost columns and two mbarriers.  One block cannot hold a
     res-18 plane (74, 198), a cluster of 2 or more can; the smallest grid
     that 16 blocks cannot hold at the reference's slab count (res 71: a
-    (286, 781) slab, its width left in one slab) raises, and the check
+    (292, 781) slab, its width left in one slab) raises, and the check
     needs no card."""
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels import SMEM_PER_BLOCK
