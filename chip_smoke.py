@@ -20,7 +20,10 @@ Phases (any failure exits non-zero):
    (timed, with the cluster size chosen there) and at res 18 (held only),
    the two SOR slab kernels also at res 18 (held only), each cluster
    kernel's cluster size, blocks, the distinct SMs they ran on and its time
-   per SOR half-sweep reported, WKV6's blocks and SMs as its launch
+   per SOR half-sweep reported, the fused kernel's per-body instantiation
+   on a mixed bank batch (cylinder jets, pinball and tandem rotary at
+   distinct per-body speeds; res 16, 4 envs, 50 dt; each body's C_D / C_L
+   held) and timed beside the scalar one, WKV6's blocks and SMs as its launch
    recorded them and each of its two passes timed, WKV6 also at a head of
    40 and a chunk of 64 and bf16 flash attention at a head dim of 96
    (both padded by their wrappers, held only); the three cluster kernels'
@@ -29,6 +32,11 @@ Phases (any failure exits non-zero):
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
+   then the multi-body path: ``train(scenarios=("cyl_re100",
+   "pinball_re100"))`` at the same widths (act_dim 3, the pinball's 59
+   probes padded to 149), 1 episode; the fused kernel's per-body
+   instantiation must launch once per interval, its scalar one once per
+   warmup group;
 3. the second path: one short episode with backend="pallas"; the
    packed-SOR kernel must run, one launch per pressure solve;
 4. the language-model paths: ``lm_loss(backend="pallas")`` of
@@ -39,8 +47,10 @@ Phases (any failure exits non-zero):
    other, logits and loss held against backend="reference";
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, one launch of its kernel, the residual reduced;
-6. golden physics through the fused kernel: the res-8 fixture's Strouhal
-   number, mean C_D and C_L amplitude within the reference's tolerances;
+6. golden physics through the fused kernel: the res-8 fixtures' Strouhal
+   number, mean C_D and C_L amplitude within the reference's tolerances,
+   the cylinder's through the scalar instantiation, the pinball's through
+   the scalar one and through the per-body one (total forces);
 7. one JSON line listing the five kernels, then the card's line and the
    result.
 
@@ -57,8 +67,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# golden tolerances, the reference's (tests/test_golden_physics.py)
+# golden tolerances, the reference's (tests/test_golden_physics.py and, for
+# the pinball, tests/test_golden_pinball.py)
 TOL_ST, TOL_CD, TOL_AMP = 0.015, 0.01, 0.05
+TOL_PINBALL = {"strouhal": 0.015, "cd_mean": 0.01, "cl_amp": 0.06}
 # kernel vs twin: the kernel contracts a*b+c into FMAs, multiplies by
 # float32 reciprocals of the grid constants where the twin divides, and sums
 # forces in another order than the twin's op-by-op float32; over 50 dt x 60
@@ -114,6 +126,15 @@ FLOP_SOR_POINT = 10            # one point of one half-sweep
 FLOP_MOMENTUM_POINT = 51       # predictor + penalization + force, per face
 FLOP_RHS_POINT = 6             # divergence / dt
 FLOP_CORRECT_POINT = 4         # projection correction, per face
+# the per-body instantiation, per face and body: the target's multiply-add
+# and the force split's
+FLOP_BODY_POINT = 4
+# a mixed bank batch: (geometry, act_mode, per-body speeds) per env; the
+# cylinder's jets ride slot 0, tandem's third slot meets zero planes
+BANK_ENVS = (("cylinder", 0.0, (0.3, 0.0, 0.0)),
+             ("pinball", 1.0, (0.6, -0.3, 0.1)),
+             ("tandem", 1.0, (-0.5, 0.8, 0.4)),
+             ("pinball", 1.0, (1.0, 0.2, -0.7)))
 # ~0.1 s of the card's clock, long enough for the host to queue a timed loop
 SLEEP_CYCLES = 200_000_000
 
@@ -205,6 +226,41 @@ def fused_case(dev, cfg, n_env, n_steps):
     return kernel, plain
 
 
+def bank_case(dev, cfg, n_env, n_steps):
+    """Inputs of a per-body kernel check and its two realizations: the bank
+    of every geometry, ``n_env`` envs cycling through BANK_ENVS, each from
+    its geometry's perturbed impulsive start."""
+    import numpy as np
+    import torch
+    from repro_torch.cfd import grid, solver
+    from repro_torch.kernels.actuation import ops
+    names = grid.geometry_names()
+    geoms = {n: grid.build_geometry(cfg, n) for n in names}
+    bank = solver.geometry_bank(
+        [solver.geom_to_arrays(geoms[n], dev) for n in names],
+        grid.max_bodies())
+    envs = [BANK_ENVS[i % len(BANK_ENVS)] for i in range(n_env)]
+    rng = np.random.default_rng(1)
+    flows = [solver.init_state(cfg, geoms[g], dev) for g, _, _ in envs]
+    flow = solver.FlowState(*(
+        torch.stack(xs) + torch.tensor(
+            0.01 * rng.standard_normal((n_env,) + tuple(xs[0].shape)),
+            dtype=torch.float32, device=dev) for xs in zip(*flows)))
+    gid = torch.tensor([names.index(g) for g, _, _ in envs], device=dev)
+    mode = torch.tensor([m for _, m, _ in envs], device=dev)
+    amp = torch.tensor([a for _, _, a in envs], device=dev)
+
+    def kernel():
+        return ops.fused_interval_cuda(cfg, bank, flow, amp, n_steps,
+                                       act_mode=mode, geom_id=gid)
+
+    def plain():
+        return ops.fused_interval_plain(cfg, bank, flow, amp, n_steps,
+                                        act_mode=mode, geom_id=gid)
+
+    return kernel, plain
+
+
 def fused_errors(kernel, plain):
     """max |kernel - twin| of u, v, p, C_D and C_L."""
     import torch
@@ -224,15 +280,15 @@ def fused_report(what, errs):
     return all(v <= TOL_FUSED[k] for k, v in errs.items())
 
 
-def hold_fused(dev, cfg, n_env, n_steps):
-    """The kernel against its twin (TOL_FUSED); returns (errors, kernel,
-    plain)."""
-    kernel, plain = fused_case(dev, cfg, n_env, n_steps)
+def hold_fused(dev, cfg, n_env, n_steps, case=fused_case, what=""):
+    """The kernel against its twin (TOL_FUSED) on ``case``'s inputs;
+    returns (errors, kernel, plain)."""
+    kernel, plain = case(dev, cfg, n_env, n_steps)
     errs = fused_errors(kernel, plain)
-    if not fused_report(f"fused_interval res {cfg.res} N={n_env} "
+    if not fused_report(f"fused_interval{what} res {cfg.res} N={n_env} "
                         f"{n_steps} dt", errs):
-        fail(f"fused_interval res {cfg.res}, {n_env} envs, {n_steps} dt "
-             f"differs from its twin: {errs}")
+        fail(f"fused_interval{what} res {cfg.res}, {n_env} envs, {n_steps} "
+             f"dt differs from its twin: {errs}")
     return errs, kernel, plain
 
 
@@ -301,17 +357,19 @@ def library_swapped(kernel, wrong):
         build._LIBS[kernel] = right
 
 
-def stale_halo_rejected(dev, wrong, cfg, n_env, cases):
+def stale_halo_rejected(dev, wrong, cfg, n_env, cases, case=fused_case,
+                        what=""):
     """The fused kernel's checks, taken together, must reject the
     stale-halo variant: each ``(n_steps, errors of the right kernel)`` of
-    ``cases`` is run through the variant, and at least one must fall
-    outside TOL_FUSED.  Returns the variant's errors by case."""
+    ``cases`` is run through the variant on ``case``'s inputs, and at
+    least one must fall outside TOL_FUSED.  Returns the variant's errors
+    by case."""
     readings, rejected = {}, False
     with library_swapped("fused_interval", wrong):
         for n_steps, right_errs in cases:
-            errs = fused_errors(*fused_case(dev, cfg, n_env, n_steps))
+            errs = fused_errors(*case(dev, cfg, n_env, n_steps))
             readings[f"{n_steps}_dt"] = errs
-            held = fused_report(f"wrong kernel, SOR halo rows one "
+            held = fused_report(f"wrong kernel{what}, SOR halo rows one "
                                 f"half-sweep stale, res {cfg.res} "
                                 f"N={n_env} {n_steps} dt", errs)
             rejected = rejected or not held
@@ -339,6 +397,29 @@ def fused_launch():
             *blocks_ran(ops.fused_interval_cuda.last_block_sms))
 
 
+def fused_work(cfg, n_env, n_steps, n_bodies=0, n_geoms=1):
+    """(float32 operations, bytes) of one fused interval: every input read
+    once (the fields, the geometry of each of ``n_geoms`` geometries the
+    batch uses, the per-env scalars) and every output written once.  The
+    per-body instantiation (``n_bodies``) reads the per-body planes in
+    place of the summed rotary target and does FLOP_BODY_POINT more
+    operations per face and body."""
+    ny, nx = cfg.ny, cfg.nx
+    nu, nv, npts = ny * (nx + 1), (ny + 1) * nx, ny * nx
+    flops = n_env * n_steps * (
+        cfg.poisson_iters * npts * FLOP_SOR_POINT
+        + (nu + nv) * (FLOP_MOMENTUM_POINT + FLOP_BODY_POINT * n_bodies)
+        + npts * FLOP_RHS_POINT + (nu + nv) * FLOP_CORRECT_POINT)
+    if not n_bodies:
+        return flops, 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv
+                           + ny + 3 * n_env + 2 * n_env * n_steps)
+    planes = 5 + 2 * n_bodies     # chi, 2 jet, jmask, rmask, rotb, own
+    return flops, 4 * (2 * n_env * (nu + nv + npts)
+                       + n_geoms * (planes * (nu + nv) + ny)
+                       + n_env * (n_bodies + 3)
+                       + 2 * n_env * n_steps * n_bodies)
+
+
 def check_fused(dev, cfg, n_env, n_steps):
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels.actuation import ops
@@ -347,13 +428,7 @@ def check_fused(dev, cfg, n_env, n_steps):
     cluster, blocks, sms_busy = fused_launch()
     plain_ms = cuda_ms(plain, 2)
     ny, nx = cfg.ny, cfg.nx
-    nu, nv, npts = ny * (nx + 1), (ny + 1) * nx, ny * nx
-    flops = n_env * n_steps * (
-        cfg.poisson_iters * npts * FLOP_SOR_POINT
-        + (nu + nv) * FLOP_MOMENTUM_POINT + npts * FLOP_RHS_POINT
-        + (nu + nv) * FLOP_CORRECT_POINT)
-    nbytes = 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv + ny
-                  + 3 * n_env + 2 * n_env * n_steps)
+    flops, nbytes = fused_work(cfg, n_env, n_steps)
     bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     # the card's occupancy for this launch shape and the others that fit
     active = ops.active_clusters(dev, cfg, cluster)
@@ -410,6 +485,44 @@ def fused_batch_reading(dev, cfg, n_env, n_steps):
     return {"envs": n_env, "ms": ms, "cluster": cluster, "blocks": blocks,
             "sms_busy": sms_busy, "active_clusters": active,
             "max_abs_err": max(errs.values())}
+
+
+def check_fused_bodies(dev, cfg, n_env, n_steps, scalar_ms):
+    """The per-body instantiation on a mixed bank batch: held against its
+    twin (u, v, p and each body's C_D / C_L), timed beside the scalar
+    instantiation's ``scalar_ms`` on the same grid, env count and dt."""
+    from repro_torch.cfd import grid
+    from repro_torch.kernels.actuation import ops
+    errs, kernel, plain = hold_fused(dev, cfg, n_env, n_steps, bank_case,
+                                     " per-body (mixed bank)")
+    if ops.fused_interval_cuda.last_n_bodies != grid.max_bodies():
+        fail(f"the per-body check launched the instantiation for "
+             f"{ops.fused_interval_cuda.last_n_bodies} bodies")
+    ms = cuda_ms(kernel, 5)
+    cluster, blocks, sms_busy = fused_launch()
+    plain_ms = cuda_ms(plain, 2)
+    nb = grid.max_bodies()
+    n_geoms = len({BANK_ENVS[i % len(BANK_ENVS)][0] for i in range(n_env)})
+    flops, nbytes = fused_work(cfg, n_env, n_steps, nb, n_geoms)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    active = ops.active_clusters(dev, cfg, cluster, nb)
+    print(f"[kernels] fused_interval per-body ({nb} bodies, a bank of "
+          f"{len(grid.geometry_names())} geometries, {n_geoms} in the batch):"
+          f" kernel {ms:.4f} ms ({ms / scalar_ms:.4f} of the scalar "
+          f"instantiation's {scalar_ms:.4f} ms), plain twin {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} GFLOP"
+          f", {nbytes / 1e6:.4f} MB); clusters of {cluster} blocks, {blocks} "
+          f"blocks ran on {sms_busy} distinct SMs ({active} such clusters "
+          f"resident at once)")
+    return {"max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "ms_over_scalar": ms / scalar_ms,
+            "cluster": cluster,
+            "blocks": blocks, "sms_busy": sms_busy,
+            "active_clusters": active,
+            "shape": f"res {cfg.res}, {n_env} envs of a mixed bank batch "
+                     f"(cylinder jets, pinball and tandem rotary), "
+                     f"{n_steps} dt, {cfg.poisson_iters} SOR pairs per dt"}
 
 
 # the two SOR slab kernels: (name, library, source, the TPU kernel it
@@ -848,13 +961,19 @@ def wrappers():
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["fused_interval"].launches_per_body = 0
 
 
 def counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Launches by kernel since reset_counts, the fused kernel's per-body
+    instantiation also on its own (``fused_interval_per_body``)."""
+    out = {name: fn.launches for name, fn in wrappers().items()}
+    out["fused_interval_per_body"] = \
+        wrappers()["fused_interval"].launches_per_body
+    return out
 
 
-def run_train(backend, env_kw, episodes, grid_kw):
+def run_train(backend, env_kw, episodes, grid_kw, scenarios=None):
     import numpy as np
     import torch
     from repro_torch.cfd.env import EnvConfig
@@ -862,20 +981,22 @@ def run_train(backend, env_kw, episodes, grid_kw):
     from repro_torch.drl.train import TrainConfig, train
     cfg = TrainConfig(env=EnvConfig(grid=GridConfig(**grid_kw), **env_kw),
                       n_envs=4, episodes=episodes, seed=0, backend=backend,
-                      device="cuda")
+                      scenarios=scenarios, device="cuda")
+    tag = backend if scenarios is None else f"{backend} {'+'.join(scenarios)}"
     reset_counts()
     (hist, model), secs = wall(lambda: train(
-        cfg, log_fn=lambda s: print(f"[train {backend}] {s}")))
+        cfg, log_fn=lambda s: print(f"[train {tag}] {s}")))
     launched = counts()
     for k, v in hist.items():
         if len(v) != episodes or not np.isfinite(v).all():
-            fail(f"train({backend}) history {k} = {v}")
+            fail(f"train({tag}) history {k} = {v}")
     if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
-        fail(f"train({backend}) left non-finite params")
+        fail(f"train({tag}) left non-finite params")
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train {backend}] {episodes} episodes in {secs:.3f} s, "
-          f"{n_params} params finite, rewards {hist['reward'].tolist()}, "
-          f"kernel launches {launched}")
+    print(f"[train {tag}] {episodes} episodes in {secs:.3f} s, "
+          f"{n_params} params finite (act_dim {model.log_std.numel()}), "
+          f"rewards {hist['reward'].tolist()}, episode walls "
+          f"{hist['wall'].tolist()}, kernel launches {launched}")
     return launched
 
 
@@ -1039,6 +1160,57 @@ def golden(dev):
             fail(f"golden {key} {got} vs {want} outside rel {tol}")
 
 
+def golden_pinball(dev):
+    """The pinball fixture through the card: its 2000-dt window through the
+    scalar instantiation (the scalar zero amplitude, as the reference
+    measures it) and through the per-body one (a zero (3,) vector at
+    act_mode 0, the per-body forces summed), each one launch, each within
+    the reference's pinball tolerances."""
+    import numpy as np
+    import torch
+    from repro_torch.cfd import grid, solver
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.cfd.validation import measure_shedding, run_uncontrolled
+    from repro_torch.convert import flow_state_from_numpy
+    ref = np.load(ROOT / "tests" / "golden" / "pinball_re100_res8.npz")
+    cfg = GridConfig(res=int(ref["res"]), dt=float(ref["dt"]),
+                     poisson_iters=int(ref["poisson_iters"]))
+    state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"], device=dev)
+    n = int(ref["meas_steps"])
+    ga = solver.geom_to_arrays(grid.build_geometry(cfg, "pinball"), dev)
+
+    def per_body():
+        _, outs = solver.step_interval(
+            cfg, ga, state, torch.zeros(3, device=dev), n, act_mode=0.0,
+            backend="fused")
+        return (None, outs.cd.sum(-1).cpu().numpy(),
+                outs.cl.sum(-1).cpu().numpy())
+
+    routes = {"scalar": (lambda: run_uncontrolled(
+        cfg, state, n, backend="fused", geometry="pinball"), 0),
+              "per_body": (per_body, grid.max_bodies())}
+    for name, (run, n_bodies) in routes.items():
+        reset_counts()
+        (_, cds, cls), secs = wall(run)
+        launched = counts()
+        from repro_torch.kernels.actuation import ops
+        print(f"[golden pinball {name}] res 8, {n} dt through the fused "
+              f"kernel in {secs:.3f} s, launches {launched}")
+        if (launched["fused_interval"] != 1
+                or ops.fused_interval_cuda.last_n_bodies != n_bodies):
+            fail(f"the pinball golden run ({name}) did not go through the "
+                 f"fused kernel's instantiation for {n_bodies} bodies")
+        stats = measure_shedding(cds, cls, cfg.dt)
+        for key, tol in TOL_PINBALL.items():
+            want, got = float(ref[key]), stats[key]
+            rel = abs(got - want) / abs(want)
+            print(f"[golden pinball {name}] {key}: {got:.6f} vs fixture "
+                  f"{want:.6f} (rel {rel:.2e}, tol {tol})")
+            if not (math.isfinite(got) and rel <= tol):
+                fail(f"pinball golden ({name}) {key} {got} vs {want} "
+                     f"outside rel {tol}")
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1075,6 +1247,15 @@ def main():
     fused["envs_32"] = fused_batch_reading(dev, res16, n_env=32, n_steps=50)
     fused["res_18_max_abs_err"] = max(hold_fused(
         dev, GridConfig(res=18), n_env=4, n_steps=10)[0].values())
+    bodies = check_fused_bodies(dev, res16, n_env=4, n_steps=50,
+                                scalar_ms=fused["ms"])
+    bodies_short = hold_fused(dev, res16, 4, 1, bank_case,
+                              " per-body (mixed bank)")[0]
+    bodies["stale_halo_variant"] = stale_halo_rejected(
+        dev, stale_halo["fused_interval"], res16, 4,
+        ((50, bodies["errors"]), (1, bodies_short)), bank_case,
+        " per-body (mixed bank)")
+    fused["per_body"] = bodies
     sor = check_sor(dev, res16, n_env=4, iters=50,
                     wrong=stale_halo["poisson_sor"])
     sor_full = check_sor(dev, res16, n_env=4, iters=50, full=True,
@@ -1093,6 +1274,28 @@ def main():
         fail("the main path did not launch the fused_interval kernel")
     fused["launches"] = launched["fused_interval"]
     fused["path"] = "train(backend='fused'), warmup + 2 episodes"
+
+    # the multi-body path: a mixed cylinder + pinball batch, per-body
+    # actuation through the per-body instantiation
+    scenarios = ("cyl_re100", "pinball_re100")
+    print("[train fused cyl_re100+pinball_re100] full width: res 16, 50 dt "
+          "per action, 60 SOR iterations, 2x512 MLP, 149 probes (the "
+          "pinball's 59 padded), act_dim 3, 4 envs (2 cylinder jets, 2 "
+          "pinball rotary); depth cut: 1 episode of 100 actions after a "
+          "30 t.u. warmup per (Re, actuation, geometry) group")
+    launched = run_train("fused", main_env, 1, dict(res=16), scenarios)
+    intervals = main_env["actions_per_episode"]
+    groups = 2                    # (100, jets, cylinder), (100, rotary, pinball)
+    if (launched["fused_interval_per_body"] != intervals
+            or launched["fused_interval"] != intervals + groups):
+        fail(f"the multi-body path launched the per-body instantiation "
+             f"{launched['fused_interval_per_body']} times (expected one "
+             f"per interval, {intervals}) and the fused kernel "
+             f"{launched['fused_interval']} times in all (expected "
+             f"{intervals + groups}: the warmups' {groups} scalar launches)")
+    bodies["launches"] = launched["fused_interval_per_body"]
+    bodies["path"] = ("train(scenarios=('cyl_re100', 'pinball_re100'), "
+                      "backend='fused'), warmup + 1 episode")
 
     # 3. the second path: one short episode with the packed-SOR kernel
     print("[train pallas] res 16, 4 envs; depth cut: 1 episode of 2 actions "
@@ -1127,6 +1330,7 @@ def main():
 
     # 6. golden physics through the fused kernel
     golden(dev)
+    golden_pinball(dev)
 
     # 7. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))

@@ -1,14 +1,17 @@
 """Gym-like cylinder AFC environment (the paper's DRL environment).
 
-Port of ``repro.cfd.env`` for one geometry.  One ``env_step`` = one
-actuation period: the smoothed actuation amplitude (eq. 11, beta = 0.4) is
-held while the solver advances ``steps_per_action`` dt's; the reward is
-eq. (12): r = C_D0 - <C_D> - omega_L |<C_L>|.
+Port of ``repro.cfd.env``.  One ``env_step`` = one actuation period: the
+smoothed actuation amplitude (eq. 11, beta = 0.4) is held while the solver
+advances ``steps_per_action`` dt's; the reward is eq. (12):
+r = C_D0 - <C_D> - omega_L |<C_L>|.
 
 States carry any number of leading env dims (``reset`` returns one env,
 ``broadcast_env_state`` tiles it; where ``repro`` used ``vmap`` the port
-batches).  The geometry is shared by every env; per-env physics (Re,
-actuation mode, probe layout, C_D0) rides in ``EnvState.scn``.
+batches).  Per-env physics (Re, actuation mode, probe layout, C_D0,
+geometry id, live action slots) rides in ``EnvState.scn``.  The amplitude
+is a scalar per env for the single cylinder and a vector of per-body
+rotary speeds for the multi-body geometries; a batch that mixes
+geometries reads each env's geometry from a stacked bank.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.cfd import grid as grid_mod
 from repro_torch.cfd import poisson
 from repro_torch.cfd import probes as probes_mod
 from repro_torch.cfd import scenarios as scn_mod
@@ -29,8 +33,10 @@ from repro_torch.device import resolve_device
 
 @dataclass(frozen=True)
 class EnvConfig:
-    """Environment configuration (the reference's fields, minus the fault
-    hooks).  ``cd0=None`` means "calibrate from the uncontrolled warmup"."""
+    """Environment configuration (the reference's fields).  ``cd0=None``
+    means "calibrate from the uncontrolled warmup"; ``obs_dim`` follows the
+    probe layout, ``act_dim`` the scenario (one slot per rotating body,
+    one for the jets)."""
     grid: GridConfig = GridConfig()
     steps_per_action: int = 50
     actions_per_episode: int = 100
@@ -46,6 +52,14 @@ class EnvConfig:
     guard_div_limit: float = 1e3
 
     @property
+    def obs_dim(self) -> int:
+        return probes_mod.layout_size(self.probe_layout)
+
+    @property
+    def act_dim(self) -> int:
+        return self.scenario().act_dim
+
+    @property
     def action_max(self) -> float:
         return self.grid.u_max    # |V_jet| <= U_m constraint
 
@@ -54,10 +68,21 @@ class EnvConfig:
                         probes=self.probe_layout, geometry=self.geometry,
                         cd0=self.cd0)
 
+    @classmethod
+    def for_scenario(cls, scn, **overrides) -> "EnvConfig":
+        """EnvConfig bound to a registered scenario (or Scenario object)."""
+        scn = scn if isinstance(scn, Scenario) else scn_mod.get_scenario(scn)
+        grid = overrides.pop("grid", GridConfig())
+        grid = dataclasses.replace(grid, re=scn.re)
+        return cls(grid=grid, probe_layout=scn.probes,
+                   actuation=scn.actuation, geometry=scn.geometry,
+                   cd0=scn.cd0, **overrides)
+
 
 class EnvState(NamedTuple):
     flow: solver.FlowState
-    jet_vel: torch.Tensor         # smoothed actuation amplitude (scalar)
+    jet_vel: torch.Tensor         # smoothed actuation amplitude: a scalar
+    #                               or (A,) per-body surface speeds per env
     t: torch.Tensor               # actuation counter
     scn: ScenarioParams           # per-env scenario parameters
     reset_flow: solver.FlowState = None   # warmup flow for quarantine resets
@@ -78,23 +103,26 @@ def _sel(ok, healthy, fallback):
 
 
 class CylinderEnv:
-    """Env functions bound to one geometry on one device.
+    """Env functions bound to a grid and a device; the config's geometry is
+    built once, the others on demand (a mixed batch stacks them all into a
+    bank).
 
     ``backend`` selects the solver backend of every actuation interval
     (warmup included): ``"fused"`` runs the fused-interval kernel on CUDA
-    and its plain twin on the CPU; ``"pallas"`` the packed-SOR kernel
-    inside each dt; the rest are plain PyTorch."""
+    (its scalar instantiation for a scalar amplitude, its per-body one for
+    a vector) and its plain twin on the CPU; ``"pallas"`` the packed-SOR
+    kernel inside each dt; the rest are plain PyTorch."""
 
     def __init__(self, cfg: EnvConfig = EnvConfig(), *,
                  backend: Optional[str] = None, device="cuda"):
-        if cfg.actuation != "jets" and cfg.geometry != "cylinder":
-            raise NotImplementedError("per-body actuation is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = poisson.resolve_backend(backend)
         self.geom = build_geometry(cfg.grid, cfg.geometry)
         self.geom_arrays = solver.geom_to_arrays(self.geom, self.device)
         self._reset_flow = None
+        self._geom_cache = {cfg.geometry: (self.geom, self.geom_arrays)}
+        self._bank = None        # stacked (G, ...) GeomArrays, built lazily
         self._group_cache = {}   # (re, act_mode, geometry) -> (FlowState, cd0)
 
     # -- uncontrolled warmup to a developed shedding state ------------------
@@ -113,31 +141,64 @@ class CylinderEnv:
         return flow
 
     def _warmup_groups(self, groups) -> None:
-        """Warm up every uncached (re, act_mode, geometry) group as one
-        batch; C_D0 is the mean C_D over the last quarter of the warmup."""
+        """Warm up every uncached (re, act_mode, geometry) group, one batch
+        per geometry, with the scalar zero amplitude; C_D0 is the mean
+        total C_D over the last quarter of the warmup."""
         cfg = self.cfg
         todo = [g for g in groups if g not in self._group_cache]
         if not todo:
             return
-        if any(g[2] != cfg.geometry for g in todo):
-            raise NotImplementedError("mixed-geometry batches (the geometry "
-                                      "bank) are not ported yet")
+        by_geom: dict = {}
+        for g in todo:
+            by_geom.setdefault(g[2], []).append(g)
         n = max(1, int(round(cfg.warmup_time / cfg.grid.dt)))
         tail = max(1, n // 4)
-        flow0 = solver.init_state(cfg.grid, self.geom, self.device)
-        flow0 = solver.FlowState(*(a.expand(len(todo), *a.shape).contiguous()
-                                   for a in flow0))
         f32 = dict(dtype=torch.float32, device=self.device)
-        re = torch.tensor([g[0] for g in todo], **f32)
-        mode = torch.tensor([g[1] for g in todo], **f32)
-        flows, outs = solver.step_interval(
-            cfg.grid, self.geom_arrays, flow0, torch.zeros(len(todo), **f32),
-            n, re=re, act_mode=mode, backend=self.backend)
-        cd0s = torch.mean(outs.cd[:, -tail:], dim=1).tolist()
-        for i, g in enumerate(todo):
-            self._group_cache[g] = (
-                solver.FlowState(*(a[i].clone() for a in flows)),
-                float(cd0s[i]))
+        for gname, gtodo in sorted(by_geom.items()):
+            geom, ga = self._geometry(gname)
+            flow0 = solver.init_state(cfg.grid, geom, self.device)
+            flow0 = solver.FlowState(*(
+                a.expand(len(gtodo), *a.shape).contiguous() for a in flow0))
+            re = torch.tensor([g[0] for g in gtodo], **f32)
+            mode = torch.tensor([g[1] for g in gtodo], **f32)
+            flows, outs = solver.step_interval(
+                cfg.grid, ga, flow0, torch.zeros(len(gtodo), **f32), n,
+                re=re, act_mode=mode, backend=self.backend)
+            cd0s = torch.mean(outs.cd[:, -tail:], dim=1).tolist()
+            for i, g in enumerate(gtodo):
+                self._group_cache[g] = (
+                    solver.FlowState(*(a[i].clone() for a in flows)),
+                    float(cd0s[i]))
+
+    # -- multi-geometry support ---------------------------------------------
+
+    def _geometry(self, name: str):
+        """(Geometry, GeomArrays) of a named body set, built once."""
+        if name not in self._geom_cache:
+            geom = build_geometry(self.cfg.grid, name)
+            self._geom_cache[name] = (geom, solver.geom_to_arrays(
+                geom, self.device))
+        return self._geom_cache[name]
+
+    def _ensure_bank(self) -> None:
+        """Stack every registered geometry's arrays into one (G, ...) bank,
+        in ``grid.geometry_names()`` order (``scn.geom_id`` indexes it), the
+        per-body fields zero-padded to ``grid.max_bodies()``."""
+        if self._bank is None:
+            self._bank = solver.geometry_bank(
+                [self._geometry(name)[1]
+                 for name in grid_mod.geometry_names()],
+                grid_mod.max_bodies())
+
+    def _env_geom(self, st: EnvState, per_body: bool):
+        """``(geometry arrays, geom_id)`` of a step: the config's geometry
+        (``geom_id`` None), or the bank and each env's index into it once a
+        batch has mixed geometries.  A scalar amplitude means the single
+        cylinder, so a cylinder config's scalar steps skip the bank."""
+        if self._bank is None or (not per_body
+                                  and self.cfg.geometry == "cylinder"):
+            return self.geom_arrays, None
+        return self._bank, st.scn.geom_id
 
     # -- env API -------------------------------------------------------------
 
@@ -146,11 +207,13 @@ class CylinderEnv:
         if self._reset_flow is None:
             self.warmup()
         flow0 = solver.FlowState(*(a.clone() for a in self._reset_flow))
-        params = scn_mod.scenario_params(self.cfg.scenario(), self.cfg.grid,
+        scn = self.cfg.scenario()
+        params = scn_mod.scenario_params(scn, self.cfg.grid,
                                          cd0=self.cfg.cd0,
                                          device=self.device)
+        shape = () if scn.act_dim == 1 else (scn.act_dim,)
         st = EnvState(flow=flow0,
-                      jet_vel=torch.zeros((), dtype=torch.float32,
+                      jet_vel=torch.zeros(shape, dtype=torch.float32,
                                           device=self.device),
                       t=torch.zeros((), dtype=torch.int64,
                                     device=self.device),
@@ -159,17 +222,23 @@ class CylinderEnv:
         return st, self._observe(st)
 
     def reset_batch(self, scenarios: Sequence, n_envs: Optional[int] = None,
-                    *, obs_dim: Optional[int] = None
+                    *, obs_dim: Optional[int] = None,
+                    act_dim: Optional[int] = None
                     ) -> Tuple[EnvState, torch.Tensor]:
-        """An (N_envs, ...) batch of scenarios assigned round-robin, one
-        warmup per distinct (Re, actuation) group, per-scenario C_D0.
-        Single geometry and scalar actuation only."""
+        """An (N_envs, ...) batch of scenarios assigned round-robin.
+
+        One warmup per distinct (Re, actuation, geometry) group (cached),
+        per-scenario C_D0.  Probe layouts pad to a common ``obs_dim`` and
+        action vectors to a common ``act_dim`` (default: the widest in the
+        batch; 1 keeps the scalar amplitude).  A batch whose geometries
+        stray from the config's builds the geometry bank, from which each
+        env reads its own body set."""
         cfg = self.cfg
         scns = scn_mod.assign_envs(scenarios, n_envs or len(scenarios))
-        if any(s.act_dim != 1 for s in scns):
-            raise NotImplementedError("per-body actuation is not ported yet")
         groups = sorted({(s.re, s.act_mode, s.geometry) for s in scns})
         self._warmup_groups(groups)
+        if any(s.geometry != cfg.geometry for s in scns):
+            self._ensure_bank()
         flows, cd0s = [], []
         for s in scns:
             flow, cd0 = self._group_cache[(s.re, s.act_mode, s.geometry)]
@@ -177,11 +246,13 @@ class CylinderEnv:
             cd0s.append(s.cd0 if s.cd0 is not None else cd0)
         flow_b = solver.FlowState(*(torch.stack(xs) for xs in zip(*flows)))
         params_b = scn_mod.batch_params(scns, cfg.grid, obs_dim=obs_dim,
-                                        act_dim=1, cd0s=cd0s,
+                                        act_dim=act_dim, cd0s=cd0s,
                                         device=self.device)
         n = len(scns)
+        a_dim = scn_mod.common_act_dim(scns) if act_dim is None else act_dim
         st_b = EnvState(flow=flow_b,
-                        jet_vel=torch.zeros(n, dtype=torch.float32,
+                        jet_vel=torch.zeros((n,) if a_dim == 1 else (n, a_dim),
+                                            dtype=torch.float32,
                                             device=self.device),
                         t=torch.zeros(n, dtype=torch.int64,
                                       device=self.device),
@@ -205,21 +276,38 @@ class CylinderEnv:
 
     def env_step(self, st: EnvState, action) -> Tuple[EnvState, EnvOutput]:
         """One actuation period; ``action`` in [-1, 1] shaped like
-        ``st.jet_vel`` (one scalar amplitude per env)."""
+        ``st.jet_vel``: a scalar amplitude per env, or per-body surface
+        speeds whose slots past a scenario's own act_dim are zeroed by
+        ``st.scn.act_mask``."""
         cfg = self.cfg
         a = torch.clamp(torch.as_tensor(action, dtype=torch.float32,
                                         device=self.device),
                         -1.0, 1.0) * cfg.action_max
+        per_body = solver.is_per_body(st.jet_vel, st.flow.u)
+        if per_body:
+            a = a * st.scn.act_mask
         jet = st.jet_vel + cfg.beta * (a - st.jet_vel)        # eq. (11)
         jet = torch.clamp(jet, -cfg.action_max, cfg.action_max)
-        flow, outs = solver.step_interval(cfg.grid, self.geom_arrays,
-                                          st.flow, jet, cfg.steps_per_action,
+        ga, geom_id = self._env_geom(st, per_body)
+        flow, outs = solver.step_interval(cfg.grid, ga, st.flow, jet,
+                                          cfg.steps_per_action,
                                           re=st.scn.re,
                                           act_mode=st.scn.act_mode,
-                                          backend=self.backend)
-        cd = torch.mean(outs.cd, dim=-1)
-        cl = torch.mean(outs.cl, dim=-1)
-        reward = st.scn.cd0 - cd - cfg.reward_omega * torch.abs(cl)  # (12)
+                                          backend=self.backend,
+                                          geom_id=geom_id)
+        if per_body:
+            # (..., n_steps, B): the drag term is the total, the lift is
+            # penalized per body, so opposite body lifts do not cancel
+            cd_b = torch.mean(outs.cd, dim=-2)
+            cl_b = torch.mean(outs.cl, dim=-2)
+            cd = torch.sum(cd_b, dim=-1)
+            cl = torch.sum(cl_b, dim=-1)
+            cl_pen = torch.sum(torch.abs(cl_b), dim=-1)
+        else:
+            cd = torch.mean(outs.cd, dim=-1)
+            cl = torch.mean(outs.cl, dim=-1)
+            cl_pen = torch.abs(cl)
+        reward = st.scn.cd0 - cd - cfg.reward_omega * cl_pen   # eq. (12)
         if st.reset_flow is None:     # sentinel off
             st2 = EnvState(flow=flow, jet_vel=jet, t=st.t + 1, scn=st.scn)
             return st2, EnvOutput(obs=self._observe(st2), reward=reward,

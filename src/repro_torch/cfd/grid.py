@@ -5,9 +5,10 @@ staggered MAC grid with an immersed-boundary cylinder, every mask and
 target precomputed with numpy at construction time.  The arithmetic is the
 reference's line for line, so the masks are identical by construction.
 
-Only the single-cylinder build is ported; the multi-body geometries are
-registered (scenarios name them) but ``build_geometry`` refuses them until
-the per-body fields are ported.
+Every registered geometry builds: the classic single cylinder (jets and
+rotary), the fluidic pinball (three bodies) and tandem cylinders (two),
+each with per-body rotary targets and a nearest-body ownership partition
+for per-body forces.
 
 Coordinates: x in [-2, 20] (cylinder center at origin, inlet 2D upstream),
 y in [-H/2, H/2] with H = 4.1.  The cylinder is offset +0.05D in y to
@@ -37,6 +38,10 @@ class Body:
     r: float = RADIUS
 
 
+# "cylinder" is the single-body Schäfer case (the golden fixtures pin it);
+# "pinball" is the fluidic pinball, three unit cylinders on an equilateral
+# triangle of side 1.5D, apex upstream; "tandem" two inline cylinders 1.5D
+# apart
 _PINBALL_BACK_X = -0.5 + 1.5 * np.sqrt(3.0) / 2.0      # ~0.799
 GEOMETRIES: dict = {
     "cylinder": (Body(CYL_X, CYL_Y),),
@@ -59,6 +64,12 @@ def geometry_index(name: str) -> int:
     except ValueError:
         raise KeyError(f"unknown geometry {name!r}; "
                        f"known: {geometry_names()}") from None
+
+
+def max_bodies() -> int:
+    """The most bodies of any registered geometry: the per-body width of
+    the geometry bank and of the per-body kernel."""
+    return max(len(b) for b in GEOMETRIES.values())
 
 
 @dataclass(frozen=True)
@@ -153,7 +164,12 @@ def _jet_shell(xx, yy, dx):
 
 @dataclass(frozen=True)
 class Geometry:
-    """Static precomputed fields (numpy), in ``solver.GeomArrays`` order."""
+    """Static precomputed fields (numpy), in ``solver.GeomArrays`` order.
+
+    ``rotb_u[b]`` is body *b*'s rotary target per unit surface speed (zero
+    outside its penalization band); ``own_u[b]`` is a nearest-body one-hot
+    partition of unity that splits the penalization force into per-body
+    C_D / C_L.  For the single cylinder they are ``rot_*`` and all ones."""
     chi_u: np.ndarray        # (ny, nx+1) solid fraction at u faces
     chi_v: np.ndarray        # (ny+1, nx) solid fraction at v faces
     jet_u: np.ndarray        # (2, ny, nx+1) jet direction*profile at u faces
@@ -167,18 +183,32 @@ class Geometry:
     inlet_u: np.ndarray      # (ny,) parabolic inlet profile at u rows
     probe_ij: np.ndarray     # (149, 2) float cell-index coords of probes
     cell_volume: float
-    name: str = "cylinder"
+    name: str = "cylinder"   # GEOMETRIES key this was built from
+    rotb_u: np.ndarray = None  # (B, ny, nx+1) per-body rotary target (x comp)
+    rotb_v: np.ndarray = None  # (B, ny+1, nx) per-body rotary target (y comp)
+    own_u: np.ndarray = None   # (B, ny, nx+1) nearest-body partition of unity
+    own_v: np.ndarray = None   # (B, ny+1, nx) nearest-body partition of unity
+
+    @property
+    def n_bodies(self) -> int:
+        return len(GEOMETRIES[self.name])
+
+
+def _ownership(xx, yy, bodies) -> np.ndarray:
+    """(B, ny, nx) nearest-body one-hot partition of unity (ties -> the
+    first body, so the stack sums to exactly 1 at every cell)."""
+    d = np.stack([np.sqrt((xx - b.x) ** 2 + (yy - b.y) ** 2) - b.r
+                  for b in bodies])
+    nearest = np.argmin(d, axis=0)
+    return np.stack([(nearest == i).astype(np.float64)
+                     for i in range(len(bodies))])
 
 
 def build_geometry(cfg: GridConfig, geometry: str = "cylinder") -> Geometry:
     if geometry not in GEOMETRIES:
         raise KeyError(f"unknown geometry {geometry!r}; "
                        f"known: {geometry_names()}")
-    if geometry != "cylinder":
-        raise NotImplementedError(
-            f"geometry {geometry!r} needs the per-body fields, which are not "
-            f"ported yet; only 'cylinder' builds")
-    (body,) = GEOMETRIES[geometry]
+    bodies = GEOMETRIES[geometry]
     dx, dy = cfg.dx, cfg.dy
     xc, yc = cell_centers(cfg)
     # u faces: x at i*dx + X0, y at centers
@@ -190,17 +220,46 @@ def build_geometry(cfg: GridConfig, geometry: str = "cylinder") -> Geometry:
     yv = -H / 2 + np.arange(cfg.ny + 1) * dy
     xxv, yyv = np.meshgrid(xv, yv)
 
-    chi_u = _smoothed_solid(xxu, yyu, dx, body.x, body.y, body.r)
-    chi_v = _smoothed_solid(xxv, yyv, dx, body.x, body.y, body.r)
+    # solid fraction: the union (max) over bodies, the identity for one
+    chi_u = np.maximum.reduce([_smoothed_solid(xxu, yyu, dx, b.x, b.y, b.r)
+                               for b in bodies])
+    chi_v = np.maximum.reduce([_smoothed_solid(xxv, yyv, dx, b.x, b.y, b.r)
+                               for b in bodies])
 
-    ju_prof, nx_u, _, jmask_u = _jet_shell(xxu, yyu, dx)
-    jv_prof, _, ny_v, jmask_v = _jet_shell(xxv, yyv, dx)
-    # jet target velocity: outward normal component * parabolic profile
-    jet_u = ju_prof * nx_u[None]
-    jet_v = jv_prof * ny_v[None]
+    if geometry == "cylinder":
+        # synthetic jets are carved into the classic cylinder only
+        ju_prof, nx_u, _, jmask_u = _jet_shell(xxu, yyu, dx)
+        jv_prof, _, ny_v, jmask_v = _jet_shell(xxv, yyv, dx)
+        # jet target velocity: outward normal component * parabolic profile
+        jet_u = ju_prof * nx_u[None]
+        jet_v = jv_prof * ny_v[None]
+    else:
+        jet_u = np.zeros((2,) + xxu.shape)
+        jet_v = np.zeros((2,) + xxv.shape)
+        jmask_u = np.zeros(xxu.shape)
+        jmask_v = np.zeros(xxv.shape)
 
-    rot_u, _, rmask_u = _rotary_shell(xxu, yyu, dx, body.x, body.y, body.r)
-    _, rot_v, rmask_v = _rotary_shell(xxv, yyv, dx, body.x, body.y, body.r)
+    # per-body rotary targets; distinct bodies' penalization bands never
+    # overlap (gap >= 0.5D against a ~0.75 dx band), so the union mask and
+    # the summed target give each body its rotating-wall BC
+    rotb_u, rotb_v, rmasks_u, rmasks_v = [], [], [], []
+    for b in bodies:
+        ru, _, rmu = _rotary_shell(xxu, yyu, dx, b.x, b.y, b.r)
+        _, rv, rmv = _rotary_shell(xxv, yyv, dx, b.x, b.y, b.r)
+        rotb_u.append(ru)
+        rotb_v.append(rv)
+        rmasks_u.append(rmu)
+        rmasks_v.append(rmv)
+    rotb_u = np.stack(rotb_u)
+    rotb_v = np.stack(rotb_v)
+    rmask_u = np.maximum.reduce(rmasks_u)
+    rmask_v = np.maximum.reduce(rmasks_v)
+    # the single-field target: every body co-rotating at one speed
+    rot_u = np.sum(rotb_u, axis=0)
+    rot_v = np.sum(rotb_v, axis=0)
+
+    own_u = _ownership(xxu, yyu, bodies)
+    own_v = _ownership(xxv, yyv, bodies)
 
     inlet_u = inlet_profile(cfg, yu)
     probe_ij = points_to_ij(cfg, probe_positions())
@@ -209,7 +268,8 @@ def build_geometry(cfg: GridConfig, geometry: str = "cylinder") -> Geometry:
                     rot_u=rot_u, rot_v=rot_v,
                     rmask_u=rmask_u, rmask_v=rmask_v,
                     inlet_u=inlet_u, probe_ij=probe_ij, cell_volume=dx * dy,
-                    name=geometry)
+                    name=geometry, rotb_u=rotb_u, rotb_v=rotb_v,
+                    own_u=own_u, own_v=own_v)
 
 
 def points_to_ij(cfg: GridConfig, pts: np.ndarray) -> np.ndarray:

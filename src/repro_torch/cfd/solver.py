@@ -6,12 +6,16 @@ u: (..., ny, nx+1) x-velocity at x-faces   v: (..., ny+1, nx) y-velocity
 p: (..., ny, nx)   pressure at cell centers
 
 Leading dims are the env batch (where ``repro`` used ``vmap``).  The
-per-env scalars ``jet_vel``, ``re`` and ``act_mode`` are Python floats or
-tensors shaped like the batch, ``(...,)``.
+per-env scalars ``re`` and ``act_mode`` are Python floats or tensors shaped
+like the batch, ``(...,)``.  ``jet_vel`` is either such a scalar or a
+per-body vector of rotary surface speeds, ``(..., A)``: one trailing dim
+more than the batch.  The geometry fields are shared by the batch, or
+carry the batch's dims in front (one geometry per env, gathered from a
+bank: :func:`gather_geometry`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +34,10 @@ class GeomArrays(NamedTuple):
     """Static geometry fields as float32 tensors, shared by every env.
 
     The field order is the reference's (``repro.cfd.solver.GeomArrays``);
-    the fused-interval kernel takes them in this order."""
+    the fused-interval kernel takes them in this order.  The trailing
+    per-body fields (``rotb_*`` per-body rotary targets, ``own_*`` the
+    nearest-body force ownership; see ``grid.Geometry``) default to
+    ``None`` and are read only by the per-body branch of ``_momentum``."""
     chi_u: torch.Tensor
     chi_v: torch.Tensor
     jet_u: torch.Tensor
@@ -42,11 +49,41 @@ class GeomArrays(NamedTuple):
     rmask_u: torch.Tensor
     rmask_v: torch.Tensor
     inlet_u: torch.Tensor
+    rotb_u: torch.Tensor = None   # (B, ny, nx+1)
+    rotb_v: torch.Tensor = None   # (B, ny+1, nx)
+    own_u: torch.Tensor = None    # (B, ny, nx+1)
+    own_v: torch.Tensor = None    # (B, ny+1, nx)
 
 
 class StepOutputs(NamedTuple):
-    cd: torch.Tensor         # drag coefficient, (...,) or (..., n_steps)
-    cl: torch.Tensor
+    cd: torch.Tensor         # drag coefficient, (...,) or (..., n_steps);
+    cl: torch.Tensor         # (..., B) / (..., n_steps, B) per body
+
+
+def is_per_body(jet_vel, u) -> bool:
+    """Whether ``jet_vel`` is a per-body vector for the flow field ``u``
+    ((..., ny, nx+1)): a tensor with one trailing dim beyond the batch."""
+    return torch.is_tensor(jet_vel) and jet_vel.dim() == u.dim() - 1
+
+
+def geometry_bank(arrays: Sequence[GeomArrays], n_bodies: int) -> GeomArrays:
+    """Geometries stacked into one ``(G, ...)`` bank, in the given order,
+    their per-body fields zero-padded to ``n_bodies`` (zero rotary targets
+    and zero ownership: the padded bodies are inert)."""
+    def pad(a):
+        return torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, n_bodies - a.shape[0]))
+
+    per = [ga._replace(rotb_u=pad(ga.rotb_u), rotb_v=pad(ga.rotb_v),
+                       own_u=pad(ga.own_u), own_v=pad(ga.own_v))
+           for ga in arrays]
+    return GeomArrays(*(torch.stack(xs).contiguous() for xs in zip(*per)))
+
+
+def gather_geometry(bank: GeomArrays, geom_id) -> GeomArrays:
+    """Each env's geometry from a stacked ``(G, ...)`` bank: every field
+    gains the batch dims of ``geom_id`` in front."""
+    return GeomArrays(*(None if f is None else f[geom_id] for f in bank))
 
 
 def _per_env(x):
@@ -163,8 +200,12 @@ def _momentum(cfg: GridConfig, ga: GeomArrays, u, v, jet_vel, re, act_mode):
     penalization removed, measured against the predictor ``u_star`` BEFORE
     boundary conditions are applied.
 
-    Scalar actuation only (``act_mode=None``: jets; else the traced
-    jets/rotary blend); the per-body vector branch is not ported yet."""
+    ``jet_vel`` is the scalar amplitude (``act_mode=None``: jets; else
+    the per-env jets/rotary blend) or a per-body vector ``(..., A)`` of
+    rotary surface speeds (:func:`is_per_body`), padded or cut to the
+    geometry's body count; slot 0 doubles as the jet amplitude.  On the
+    per-body branch ``fx``/``fy`` come back per body, ``(..., B)``, split
+    by the nearest-body ownership."""
     chi_u, chi_v, inlet_u = ga.chi_u, ga.chi_v, ga.inlet_u
     dt = cfg.dt
     up, vp = _pad_u(u), _pad_v(v)
@@ -172,15 +213,36 @@ def _momentum(cfg: GridConfig, ga: GeomArrays, u, v, jet_vel, re, act_mode):
     v_star = v + dt * _advect_diffuse_v(up, vp, cfg, re)
 
     lam = dt / cfg.penal_eta
-    jet_tgt_u = ga.jet_u[0] - ga.jet_u[1]
-    jet_tgt_v = ga.jet_v[0] - ga.jet_v[1]
-    jv = _per_env(jet_vel)
-    if act_mode is None:                      # jets-only path
+    jet_tgt_u = ga.jet_u[..., 0, :, :] - ga.jet_u[..., 1, :, :]
+    jet_tgt_v = ga.jet_v[..., 0, :, :] - ga.jet_v[..., 1, :, :]
+    per_body = is_per_body(jet_vel, u)
+    if per_body:
+        if ga.rotb_u is None:
+            raise ValueError(
+                "a per-body (vector) jet_vel needs the per-body geometry "
+                "fields (rotb_*/own_*); build GeomArrays with "
+                "geom_to_arrays(build_geometry(cfg, geometry))")
+        nb = ga.rotb_u.shape[-3]
+        av = jet_vel
+        if av.shape[-1] < nb:                 # pad to the body count
+            av = torch.nn.functional.pad(av, (0, nb - av.shape[-1]))
+        av = av[..., :nb]
+        a0 = _per_env(av[..., 0])
+        m = _per_env(0.0 if act_mode is None else act_mode)
+        rot_t_u = torch.sum(av[..., :, None, None] * ga.rotb_u, dim=-3)
+        rot_t_v = torch.sum(av[..., :, None, None] * ga.rotb_v, dim=-3)
+        tgt_u = (1 - m) * a0 * jet_tgt_u + m * rot_t_u
+        tgt_v = (1 - m) * a0 * jet_tgt_v + m * rot_t_v
+        pen_u = torch.maximum(chi_u, (1 - m) * ga.jmask_u + m * ga.rmask_u)
+        pen_v = torch.maximum(chi_v, (1 - m) * ga.jmask_v + m * ga.rmask_v)
+    elif act_mode is None:                    # jets-only path
+        jv = _per_env(jet_vel)
         tgt_u = jv * jet_tgt_u
         tgt_v = jv * jet_tgt_v
         pen_u = torch.maximum(chi_u, ga.jmask_u)
         pen_v = torch.maximum(chi_v, ga.jmask_v)
     else:                                     # per-env jets/rotary blend
+        jv = _per_env(jet_vel)
         m = _per_env(act_mode)
         tgt_u = jv * ((1 - m) * jet_tgt_u + m * ga.rot_u)
         tgt_v = jv * ((1 - m) * jet_tgt_v + m * ga.rot_v)
@@ -189,11 +251,17 @@ def _momentum(cfg: GridConfig, ga: GeomArrays, u, v, jet_vel, re, act_mode):
     u_pen = (u_star + lam * pen_u * tgt_u) / (1 + lam * pen_u)
     v_pen = (v_star + lam * pen_v * tgt_v) / (1 + lam * pen_v)
     # reaction force from the PREDICTOR, before BCs touch the fields
-    fx = -torch.sum((u_pen - u_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
-    fy = -torch.sum((v_pen - v_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
+    if per_body:
+        fx = -torch.sum(ga.own_u * ((u_pen - u_star) / dt)[..., None, :, :],
+                        dim=(-2, -1)) * cfg.dx * cfg.dy
+        fy = -torch.sum(ga.own_v * ((v_pen - v_star) / dt)[..., None, :, :],
+                        dim=(-2, -1)) * cfg.dx * cfg.dy
+    else:
+        fx = -torch.sum((u_pen - u_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
+        fy = -torch.sum((v_pen - v_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
 
     # inlet BC, outlet BC and the global outlet mass correction in one pass
-    influx = torch.sum(inlet_u) * cfg.dy
+    influx = torch.sum(inlet_u, dim=-1) * cfg.dy
     outflux = torch.sum(u_pen[..., :, -2], dim=-1) * cfg.dy
     out_col = (u_pen[..., :, -2]
                + ((influx - outflux) / (cfg.ny * cfg.dy))[..., None])
@@ -242,37 +310,46 @@ def step(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState, jet_vel,
 
 def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
                   jet_vel, n_steps: int, *, re=None, act_mode=None,
-                  backend: Optional[str] = None
+                  backend: Optional[str] = None, geom_id=None
                   ) -> Tuple[FlowState, StepOutputs]:
     """Advance ``n_steps`` dt under one held actuation amplitude (one
     actuation interval).  Returns per-dt ``(..., n_steps)`` force
-    coefficients.
+    coefficients, ``(..., n_steps, B)`` for a per-body ``jet_vel``.
+
+    ``geom_id`` (int64, the batch's shape) makes ``geom_arrays`` a stacked
+    ``(G, ...)`` bank from which each env takes its own geometry.
 
     ``backend="fused"`` runs the interval through
-    ``repro_torch.kernels.actuation``: on a CUDA tensor one launch of the
-    hand-written fused-interval kernel, on a CPU tensor its plain twin.  A
-    grid the kernel cannot serve raises on a CUDA tensor; on a CPU tensor
-    an odd width falls back to the reference loop with a once-per-shape
-    warning.  Every other backend loops :func:`step`."""
+    ``repro_torch.kernels.actuation``: on a CUDA tensor the hand-written
+    fused-interval kernel, on a CPU tensor its plain twin.  A call the
+    kernel cannot serve raises on a CUDA tensor; on a CPU tensor an odd
+    width falls back to the reference loop with a once-per-shape warning.
+    Every other backend loops :func:`step`."""
     backend = poisson.resolve_backend(backend)
     if backend == "fused":
         from repro_torch.kernels.actuation import ops as actuation_ops
         return actuation_ops.fused_interval(cfg, geom_arrays, state, jet_vel,
-                                            n_steps, re=re, act_mode=act_mode)
+                                            n_steps, re=re, act_mode=act_mode,
+                                            geom_id=geom_id)
+    if geom_id is not None:
+        geom_arrays = gather_geometry(geom_arrays, geom_id)
+    dim = -2 if is_per_body(jet_vel, state.u) else -1
     cds, cls = [], []
     for _ in range(n_steps):
         state, out = step(cfg, geom_arrays, state, jet_vel, re=re,
                           act_mode=act_mode, backend=backend)
         cds.append(out.cd)
         cls.append(out.cl)
-    return state, StepOutputs(cd=torch.stack(cds, dim=-1),
-                              cl=torch.stack(cls, dim=-1))
+    return state, StepOutputs(cd=torch.stack(cds, dim=dim),
+                              cl=torch.stack(cls, dim=dim))
 
 
 def geom_to_arrays(geom: Geometry, device="cuda") -> GeomArrays:
-    """Static geometry as float32 tensors on ``device``."""
+    """Static geometry as float32 tensors on ``device`` (the per-body
+    fields ``None`` where the geometry has none)."""
     device = resolve_device(device)
     def as32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device
-                               ).contiguous()
-    return GeomArrays(*(as32(getattr(geom, f)) for f in GeomArrays._fields))
+        return None if a is None else torch.as_tensor(
+            a, dtype=torch.float32, device=device).contiguous()
+    return GeomArrays(*(as32(getattr(geom, f, None))
+                        for f in GeomArrays._fields))

@@ -16,12 +16,15 @@ from repro_torch.cfd.grid import GridConfig, build_geometry
 
 
 def run_uncontrolled(cfg: GridConfig, state: solver.FlowState, n: int, *,
-                     backend: Optional[str] = None
+                     backend: Optional[str] = None,
+                     geometry: str = "cylinder"
                      ) -> Tuple[solver.FlowState, np.ndarray, np.ndarray]:
     """Advance ``n`` uncontrolled steps on ``state``'s device as one
     interval (``backend="fused"`` on a CUDA state: one kernel launch);
-    returns ``(state, cds, cls)`` with numpy series."""
-    ga = solver.geom_to_arrays(build_geometry(cfg), state.u.device)
+    returns ``(state, cds, cls)`` with numpy series.  ``geometry`` picks
+    the body set (``grid.GEOMETRIES``); the forces are the total over all
+    bodies (the scalar zero amplitude), which the golden fixtures pin."""
+    ga = solver.geom_to_arrays(build_geometry(cfg, geometry), state.u.device)
     state, outs = solver.step_interval(cfg, ga, state, 0.0, n,
                                        backend=backend)
     return state, outs.cd.cpu().numpy(), outs.cl.cpu().numpy()

@@ -59,11 +59,15 @@ def flow_state_from_numpy(u, v, p, device="cuda") -> solver.FlowState:
 
 def geom_arrays_from_numpy(fields: Sequence, device="cuda"
                            ) -> solver.GeomArrays:
-    """``fields``: the eleven geometry arrays in ``GeomArrays`` order (e.g.
-    the reference's ``GeomArrays`` as numpy; trailing per-body fields are
-    ignored)."""
-    vals = list(fields)[:len(solver.GeomArrays._fields)]
-    return solver.GeomArrays(*(_t(a, device) for a in vals))
+    """``fields``: the geometry arrays in ``GeomArrays`` order (e.g. the
+    reference's ``GeomArrays`` as numpy), the eleven single-field ones or
+    all fifteen with the per-body fields (``None`` entries stay absent)."""
+    vals = list(fields)
+    if len(vals) not in (11, len(solver.GeomArrays._fields)):
+        raise ValueError(f"expected 11 or {len(solver.GeomArrays._fields)} "
+                         f"geometry fields, got {len(vals)}")
+    return solver.GeomArrays(*(None if a is None else _t(a, device)
+                               for a in vals))
 
 
 def params_to_numpy(model: networks.ActorCritic) -> dict:

@@ -4,7 +4,9 @@ Port of the synchronous path of ``repro.drl.train``: N_envs environments
 roll out one episode each from the warmed-up flow, trajectories are
 batched, and PPO updates the shared policy (the paper's Fig. 4 loop).  On
 the card the actuation intervals run through the fused-interval kernel
-(``backend="fused"``, the default).  Checkpoints, sinks, plans, fleets and
+(``backend="fused"``, the default).  ``TrainConfig.scenarios`` trains one
+policy on a mixed batch (for example the cylinder and the fluidic
+pinball): the action width follows the batch's amplitude.  Checkpoints, sinks, plans, fleets and
 the watchdog are not ported yet; the history has the reference's keys.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.cfd import scenarios as scn_mod
 from repro_torch.cfd.env import CylinderEnv, EnvConfig, broadcast_env_state
 from repro_torch.device import resolve_device
 from repro_torch.drl import networks
@@ -32,6 +35,9 @@ class TrainConfig:
     n_envs: int = 4
     episodes: int = 100
     seed: int = 0
+    # scenario names (cfd.scenarios) assigned round-robin over the env
+    # batch; None = the single case described by ``env``
+    scenarios: Optional[Tuple[str, ...]] = None
     backend: str = "fused"        # solver backend of every interval
     device: str = "cuda"
 
@@ -48,9 +54,25 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     episode ``e``'s rollout noise and PPO permutations."""
     device = resolve_device(cfg.device)
     env = CylinderEnv(cfg.env, backend=cfg.backend, device=device)
-    st0, obs0 = env.reset()           # warms up + calibrates CD0
-    st_b, obs_b = broadcast_env_state(st0, obs0, cfg.n_envs)
-    pcfg = networks.PolicyConfig(obs_dim=int(obs_b.shape[-1]), act_dim=1)
+    if cfg.scenarios:
+        # mixed-scenario batch: per-env physics, probes and action slots
+        st_b, obs_b = env.reset_batch(cfg.scenarios, cfg.n_envs)
+    else:
+        st0, obs0 = env.reset()       # warms up + calibrates CD0
+        st_b, obs_b = broadcast_env_state(st0, obs0, cfg.n_envs)
+    # the policy's widths follow the reset batch: the padded probe count,
+    # and the amplitude's trailing dim (per-body speeds) or 1
+    obs_dim = int(obs_b.shape[-1])
+    if cfg.scenarios:
+        expect = scn_mod.common_obs_dim(cfg.scenarios)
+        if expect != obs_dim:
+            raise ValueError(
+                f"observation width mismatch: scenarios "
+                f"{tuple(cfg.scenarios)} pad to common_obs_dim={expect} but "
+                f"the reset batch produced obs_dim={obs_dim}")
+    jv = st_b.jet_vel
+    act_dim = int(jv.shape[-1]) if jv.dim() > 1 else 1
+    pcfg = networks.PolicyConfig(obs_dim=obs_dim, act_dim=act_dim)
     engine = RolloutEngine.for_env(
         env, EngineConfig(n_envs=cfg.n_envs,
                           horizon=cfg.env.actions_per_episode,

@@ -13,6 +13,21 @@
 //   planes; `iters` packed SOR pairs (omega, then an omega=1 polish tail of
 //   n_polish pairs); the projection velocity correction and BCs; C_D, C_L.
 //
+// Two instantiations, by the compile-time body count NB:
+//   NB = 0  the scalar amplitude (one jet speed or one surface speed for
+//           every body) on one geometry shared by the batch: the cylinder
+//           path.
+//   NB > 0  per-body actuation, the reference's vector branch of
+//           solver._momentum (which its TPU megakernel does not serve): one
+//           amplitude vector a per env, the target
+//           (1 - m) a_0 jet + m sum_b a_b rotb_b, and C_D / C_L per body,
+//           the reaction force split by the one-hot ownership own_b.  Each
+//           env reads its own geometry from a stacked bank (G geometries,
+//           picked by geom_id[env]), so one launch serves a batch that
+//           mixes the cylinder, the pinball and tandem cylinders.  The
+//           2 NB + 1 force and outflux partials are summed as the scalar
+//           body's three are: in one fixed order through DSMEM.
+//
 // What bounds it on an H100: the chain of dependent phases, not the
 // arithmetic.  A dt is 2 x iters + 2 phases in sequence (the predictor,
 // the SOR half-sweeps, the correction), and each reads the previous one's
@@ -61,6 +76,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "sor_packed.cuh"
 
 // Sum of three per-thread values over the block (blockDim.x a multiple of
@@ -103,6 +120,43 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c,
   c = scratch[98];
 }
 
+// Sum of K per-thread values over the block, as block_sum3 sums three:
+// `scratch` is shared memory of at least 33 K floats; every thread returns
+// the totals; contains __syncthreads(), so all threads must call.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&x)[K], float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      x[k] += __shfl_down_sync(0xffffffffu, x[k], off);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) scratch[32 * k + warp] = x[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      x[k] = lane < nwarps ? scratch[32 * k + lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        x[k] += __shfl_down_sync(0xffffffffu, x[k], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) scratch[32 * K + k] = x[k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = scratch[32 * K + k];
+}
+
 namespace cg = cooperative_groups;
 
 struct Geom {  // the reference's GeomArrays order
@@ -118,6 +172,24 @@ struct Geom {  // the reference's GeomArrays order
   const float* rmask_v;
   const float* inlet_u;  // (ny,)
 };
+
+// The per-body instantiation's geometry: a bank of G geometries, each
+// field stacked on a leading dim of G planes (the per-body fields padded
+// with zero bodies to NB), and the bank index of each env.
+struct GeomBank : Geom {
+  const float* rotb_u;  // (G, NB, ny, nx+1)
+  const float* rotb_v;  // (G, NB, ny+1, nx)
+  const float* own_u;   // (G, NB, ny, nx+1)
+  const float* own_v;   // (G, NB, ny+1, nx)
+  const int* geom_id;   // (n_env,)
+};
+
+template <int NB>
+using GeomOf = std::conditional_t<NB == 0, Geom, GeomBank>;
+
+// float slots of the partial sums a block publishes to its cluster
+template <int NB>
+constexpr int kPartSlots = NB == 0 ? 4 : (2 * NB + 1 + 3) / 4 * 4;
 
 // float32 constants, each rounded from the float64 value the wrapper
 // computes (order: see kernels/actuation/ops.py _consts)
@@ -155,9 +227,10 @@ __device__ __forceinline__ void put(float* row, float* prev, float* next,
   if (lj == nrows - 1 && next) next[i] = val;
 }
 
+template <int NB>
 __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
-    const float* __restrict__ p_in, Geom g,
+    const float* __restrict__ p_in, GeomOf<NB> g,
     const float* __restrict__ jet_vel, const float* __restrict__ re_arr,
     const float* __restrict__ mode_arr, float* __restrict__ u_out,
     float* __restrict__ v_out, float* __restrict__ p_out,
@@ -197,8 +270,11 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   float* black = red + (R + 2) * w;
   float* rhs_r = black + (R + 2) * w;  // R x w
   float* rhs_b = rhs_r + R * w;
-  float* part = rhs_b + R * w;         // 4: this block's fx, fy, outflux
-  float* scratch = part + 4;           // 128 floats for block_sum3
+  // this block's fx, fy, outflux (NB > 0: fx and fy per body), then the
+  // reduction's scratch: 128 floats for block_sum3, 33 (2 NB + 1) for
+  // block_sum
+  float* part = rhs_b + R * w;
+  float* scratch = part + kPartSlots<NB>;
 
   // the neighbours' halo rows (nullptr at the domain's walls)
   const int nrows_prev = first ? 0 : j0 - bands.start[rank - 1];
@@ -239,15 +315,45 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
 
   const size_t nu = static_cast<size_t>(ny) * nxu;
   const size_t nv = static_cast<size_t>(ny + 1) * nx;
+  if constexpr (NB > 0) {  // this env's geometry in the bank
+    const size_t gid = static_cast<size_t>(g.geom_id[env]);
+    g.chi_u += gid * nu;
+    g.chi_v += gid * nv;
+    g.jet_u += gid * 2 * nu;
+    g.jet_v += gid * 2 * nv;
+    g.jmask_u += gid * nu;
+    g.jmask_v += gid * nv;
+    g.rot_u += gid * nu;
+    g.rot_v += gid * nv;
+    g.rmask_u += gid * nu;
+    g.rmask_v += gid * nv;
+    g.inlet_u += gid * ny;
+    g.rotb_u += gid * NB * nu;
+    g.rotb_v += gid * NB * nv;
+    g.own_u += gid * NB * nu;
+    g.own_v += gid * NB * nv;
+  }
   u_in += env * nu;
   u_out += env * nu;
   v_in += env * nv;
   v_out += env * nv;
   p_in += static_cast<size_t>(env) * ny * nx;
   p_out += static_cast<size_t>(env) * ny * nx;
-  cd_out += static_cast<size_t>(env) * n_steps;
-  cl_out += static_cast<size_t>(env) * n_steps;
-  const float jv = jet_vel[env];
+  if constexpr (NB == 0) {
+    cd_out += static_cast<size_t>(env) * n_steps;
+    cl_out += static_cast<size_t>(env) * n_steps;
+  } else {  // (n_env, n_steps, NB)
+    cd_out += static_cast<size_t>(env) * n_steps * NB;
+    cl_out += static_cast<size_t>(env) * n_steps * NB;
+  }
+  // the amplitude: a scalar, or NB per-body speeds whose slot 0 doubles as
+  // the jet amplitude
+  float jvb[NB > 0 ? NB : 1];
+  if constexpr (NB > 0) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) jvb[b] = jet_vel[env * NB + b];
+  }
+  const float jv = NB == 0 ? jet_vel[env] : jvb[0];
   const float re = re_arr[env];
   const float m = mode_arr[env];
   const float one_m_m = 1.0f - m;
@@ -289,6 +395,11 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     // -- A: predictor, penalization, BCs but the outlet column of u_pen,
     //    force and outflux partial sums --------------------------------
     float fx = 0.0f, fy = 0.0f, out = 0.0f;
+    float fxb[NB > 0 ? NB : 1], fyb[NB > 0 ? NB : 1];
+    if constexpr (NB > 0) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fxb[b] = fyb[b] = 0.0f;
+    }
     for (int lj = ty; lj < nrows; lj += TY) {
       const int j = j0 + lj;
       const float* ur0 = u + (lj + 1) * nxu;  // row j
@@ -315,13 +426,27 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
         const float lap = ((ul + ur) - 2.0f * uc) * c.inv_dx2
                           + ((ub + ut) - 2.0f * uc) * c.inv_dy2;
         const float u_star = uc + c.dt * (-adv + lap / re);
-        const float tgt = jv * (one_m_m * (g.jet_u[gi] - g.jet_u[nu + gi])
-                                + m * g.rot_u[gi]);
+        float tgt;
+        if constexpr (NB == 0) {
+          tgt = jv * (one_m_m * (g.jet_u[gi] - g.jet_u[nu + gi])
+                      + m * g.rot_u[gi]);
+        } else {
+          float rot = 0.0f;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) rot += jvb[b] * g.rotb_u[b * nu + gi];
+          tgt = (one_m_m * jv) * (g.jet_u[gi] - g.jet_u[nu + gi]) + m * rot;
+        }
         const float pen = fmaxf(g.chi_u[gi],
                                 one_m_m * g.jmask_u[gi] + m * g.rmask_u[gi]);
         const float lp = c.lam * pen;
         const float u_pen = (u_star + lp * tgt) / (1.0f + lp);
-        fx += (u_pen - u_star) * c.inv_dt;
+        if constexpr (NB == 0) {
+          fx += (u_pen - u_star) * c.inv_dt;
+        } else {
+          const float d = (u_pen - u_star) * c.inv_dt;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) fxb[b] += g.own_u[b * nu + gi] * d;
+        }
         if (i == nx - 1) out += u_pen;
         if (i < nx) usr[i] = i == 0 ? inlet : u_pen;  // column nx: in C
       }
@@ -352,13 +477,27 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
         const float lap = ((vl + vr) - 2.0f * vc) * c.inv_dx2
                           + ((vb + vt) - 2.0f * vc) * c.inv_dy2;
         const float v_star = vc + c.dt * (-adv + lap / re);
-        const float tgt = jv * (one_m_m * (g.jet_v[gi] - g.jet_v[nv + gi])
-                                + m * g.rot_v[gi]);
+        float tgt;
+        if constexpr (NB == 0) {
+          tgt = jv * (one_m_m * (g.jet_v[gi] - g.jet_v[nv + gi])
+                      + m * g.rot_v[gi]);
+        } else {
+          float rot = 0.0f;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) rot += jvb[b] * g.rotb_v[b * nv + gi];
+          tgt = (one_m_m * jv) * (g.jet_v[gi] - g.jet_v[nv + gi]) + m * rot;
+        }
         const float pen = fmaxf(g.chi_v[gi],
                                 one_m_m * g.jmask_v[gi] + m * g.rmask_v[gi]);
         const float lp = c.lam * pen;
         const float v_pen = (v_star + lp * tgt) / (1.0f + lp);
-        fy += (v_pen - v_star) * c.inv_dt;
+        if constexpr (NB == 0) {
+          fy += (v_pen - v_star) * c.inv_dt;
+        } else {
+          const float d = (v_pen - v_star) * c.inv_dt;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) fyb[b] += g.own_v[b * nv + gi] * d;
+        }
         // _apply_bc_v: inlet 0, outlet copies column -2, walls 0
         if (i == nx - 1) continue;
         const float val = (i == 0 || wall) ? 0.0f : v_pen;
@@ -366,27 +505,68 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
         if (i == nx - 2) put(vsr, vs_prev, nullptr, lj, nrows, nx - 1, val);
       }
     }
-    block_sum3(fx, fy, out, scratch);
-    if (tid == 0) {
-      part[0] = fx;
-      part[1] = fy;
-      part[2] = out;
+    if constexpr (NB == 0) {
+      block_sum3(fx, fy, out, scratch);
+      if (tid == 0) {
+        part[0] = fx;
+        part[1] = fy;
+        part[2] = out;
+      }
+    } else {  // per-body fx, per-body fy, outflux
+      float sums[2 * NB + 1];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        sums[b] = fxb[b];
+        sums[NB + b] = fyb[b];
+      }
+      sums[2 * NB] = out;
+      block_sum(sums, scratch);
+      if (tid == 0) {
+#pragma unroll
+        for (int k = 0; k < 2 * NB + 1; ++k) part[k] = sums[k];
+      }
     }
     cluster_barrier();  // partials, u_pen / v_pen and the vs halo complete
 
     // the cluster's sums, in one fixed order on every warp of every block
-    fx = lane < C ? part_of_lane[0] : 0.0f;
-    fy = lane < C ? part_of_lane[1] : 0.0f;
-    out = lane < C ? part_of_lane[2] : 0.0f;
-    for (int off = 1; off < 32; off <<= 1) {
-      fx += __shfl_xor_sync(0xffffffffu, fx, off);
-      fy += __shfl_xor_sync(0xffffffffu, fy, off);
-      out += __shfl_xor_sync(0xffffffffu, out, off);
+    if constexpr (NB == 0) {
+      fx = lane < C ? part_of_lane[0] : 0.0f;
+      fy = lane < C ? part_of_lane[1] : 0.0f;
+      out = lane < C ? part_of_lane[2] : 0.0f;
+      for (int off = 1; off < 32; off <<= 1) {
+        fx += __shfl_xor_sync(0xffffffffu, fx, off);
+        fy += __shfl_xor_sync(0xffffffffu, fy, off);
+        out += __shfl_xor_sync(0xffffffffu, out, off);
+      }
+    } else {
+      float sums[2 * NB + 1];
+#pragma unroll
+      for (int k = 0; k < 2 * NB + 1; ++k)
+        sums[k] = lane < C ? part_of_lane[k] : 0.0f;
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 2 * NB + 1; ++k)
+          sums[k] += __shfl_xor_sync(0xffffffffu, sums[k], off);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        fxb[b] = sums[b];
+        fyb[b] = sums[NB + b];
+      }
+      out = sums[2 * NB];
     }
     const float corr = (influx - out * c.dy) / c.ny_dy;
     if (first && tid == 0) {
-      cd_out[t] = ((-fx * c.dx) * c.dy) / c.coef;
-      cl_out[t] = ((-fy * c.dx) * c.dy) / c.coef;
+      if constexpr (NB == 0) {
+        cd_out[t] = ((-fx * c.dx) * c.dy) / c.coef;
+        cl_out[t] = ((-fy * c.dx) * c.dy) / c.coef;
+      } else {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          cd_out[t * NB + b] = ((-fxb[b] * c.dx) * c.dy) / c.coef;
+          cl_out[t * NB + b] = ((-fyb[b] * c.dx) * c.dy) / c.coef;
+        }
+      }
     }
 
     // -- C: divergence rhs into the two rhs planes.  The outlet column of
@@ -521,34 +701,81 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   }
 }
 
+// The per-body instantiation's body count: grid.max_bodies(), the widest
+// geometry (the pinball); a bank of fewer bodies is zero-padded to it
+constexpr int kBodies = 3;
+
 // How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
-// of dynamic shared memory each) the card holds at once, into *out.
-// Returns the CUDA error code (0 = success).
+// of dynamic shared memory each) the card holds at once, into *out, for
+// the scalar and the per-body instantiation.  Returns the CUDA error code
+// (0 = success).
 extern "C" int fused_interval_max_clusters(int cluster, int threads, int smem,
                                            int* out) {
-  return static_cast<int>(max_active_clusters(fused_interval_kernel, cluster,
-                                              threads, smem, out));
+  return static_cast<int>(max_active_clusters(fused_interval_kernel<0>,
+                                              cluster, threads, smem, out));
 }
 
-// geom: 11 device pointers in GeomArrays order; consts: kNumConsts floats;
-// block_sm: n_env x cluster ints, the SM id each block ran on (-1 where
-// none ran); starts: cluster + 1 row starts of the band partition
-// (ops.band_starts).
+extern "C" int fused_interval_bodies_max_clusters(int cluster, int threads,
+                                                  int smem, int* out) {
+  return static_cast<int>(max_active_clusters(
+      fused_interval_kernel<kBodies>, cluster, threads, smem, out));
+}
+
+// The per-body count the library was built for (the wrapper checks it).
+extern "C" int fused_interval_bodies() { return kBodies; }
+
+template <int NB>
+static cudaError_t launch(const GeomOf<NB>& g, const float* u_in,
+                          const float* v_in, const float* p_in,
+                          const float* jet_vel, const float* re,
+                          const float* act_mode, float* u_out, float* v_out,
+                          float* p_out, float* cd, float* cl, int* block_sm,
+                          int n_env, int ny, int nx, int n_steps, int iters,
+                          int n_polish, int cluster, int rows_max,
+                          int threads, int tx_dim, int smem,
+                          const Bands& bands, const Consts& c,
+                          cudaStream_t stream) {
+  cudaError_t err = set_cluster_attributes(fused_interval_kernel<NB>, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_cluster_config(cfg, attr, n_env, cluster, threads, smem, stream);
+  // -1 where no block wrote its SM: the record counts the blocks that ran
+  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * n_env * cluster,
+                        stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, fused_interval_kernel<NB>, u_in, v_in,
+                           p_in, g, jet_vel, re, act_mode, u_out, v_out,
+                           p_out, cd, cl, block_sm, ny, nx, n_steps, iters,
+                           n_polish, rows_max, tx_dim, bands, c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// geom: 11 device pointers in GeomArrays order (n_bodies = 0: one geometry
+// shared by the batch), or 15 (n_bodies = kBodies: a bank of geometries,
+// each field G planes, the per-body fields kBodies bodies a geometry) and
+// geom_id, each env's index into the bank; jet_vel: n_env amplitudes, or
+// n_env x kBodies; cd, cl: n_env x n_steps, or n_env x n_steps x kBodies;
+// consts: kNumConsts floats; block_sm: n_env x cluster ints, the SM id each
+// block ran on (-1 where none ran); starts: cluster + 1 row starts of the
+// band partition (ops.band_starts).
 // n_env clusters of `cluster` blocks of `threads` = tx_dim x (threads /
 // tx_dim) threads; smem: each block's dynamic shared memory in bytes
 // (ops.smem_bytes).  Launch on `stream`; returns the CUDA error code
 // (0 = launched).
 extern "C" int fused_interval_launch(
     const float* u_in, const float* v_in, const float* p_in,
-    const void* const* geom, const float* jet_vel, const float* re,
-    const float* act_mode, float* u_out, float* v_out, float* p_out,
-    float* cd, float* cl, int* block_sm, int n_env, int ny, int nx,
-    int n_steps, int iters, int n_polish, int cluster, const int* starts,
-    int rows_max, int threads, int tx_dim, int smem, const float* consts,
-    void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster)
+    const void* const* geom, const int* geom_id, int n_bodies,
+    const float* jet_vel, const float* re, const float* act_mode,
+    float* u_out, float* v_out, float* p_out, float* cd, float* cl,
+    int* block_sm, int n_env, int ny, int nx, int n_steps, int iters,
+    int n_polish, int cluster, const int* starts, int rows_max, int threads,
+    int tx_dim, int smem, const float* consts, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster ||
+      (n_bodies != 0 && n_bodies != kBodies))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geom g;
+  GeomBank g;
   const float* const* gp = reinterpret_cast<const float* const*>(geom);
   g.chi_u = gp[0];
   g.chi_v = gp[1];
@@ -566,20 +793,19 @@ extern "C" int fused_interval_launch(
   for (int k = 0; k < kNumConsts; ++k) cp[k] = consts[k];
   Bands bands{};
   for (int r = 0; r <= cluster; ++r) bands.start[r] = starts[r];
-  cudaError_t err = set_cluster_attributes(fused_interval_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  fill_cluster_config(cfg, attr, n_env, cluster, threads, smem,
-                      static_cast<cudaStream_t>(stream));
-  // -1 where no block wrote its SM: the record counts the blocks that ran
-  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * n_env * cluster,
-                        static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, fused_interval_kernel, u_in, v_in, p_in, g,
-                           jet_vel, re, act_mode, u_out, v_out, p_out, cd,
-                           cl, block_sm, ny, nx, n_steps, iters, n_polish,
-                           rows_max, tx_dim, bands, c);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_bodies == 0)
+    return static_cast<int>(launch<0>(
+        g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd,
+        cl, block_sm, n_env, ny, nx, n_steps, iters, n_polish, cluster,
+        rows_max, threads, tx_dim, smem, bands, c, st));
+  g.rotb_u = gp[11];
+  g.rotb_v = gp[12];
+  g.own_u = gp[13];
+  g.own_v = gp[14];
+  g.geom_id = geom_id;
+  return static_cast<int>(launch<kBodies>(
+      g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd, cl,
+      block_sm, n_env, ny, nx, n_steps, iters, n_polish, cluster, rows_max,
+      threads, tx_dim, smem, bands, c, st));
 }

@@ -257,6 +257,160 @@ def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
     assert aops.fused_interval_cuda.launches == n0
 
 
+# a mixed bank batch: (geometry, act_mode, per-body speeds) per env; the
+# cylinder's jets ride slot 0, tandem's third slot meets zero planes
+BANK_ENVS = (("cylinder", 0.0, (0.3, 0.0, 0.0)),
+             ("pinball", 1.0, (0.6, -0.3, 0.1)),
+             ("tandem", 1.0, (-0.5, 0.8, 0.4)),
+             ("pinball", 1.0, (1.0, 0.2, -0.7)))
+
+
+def _bank_inputs(cuda, res, n_env):
+    """The stacked bank of every geometry at res ``res`` and ``n_env``
+    envs cycling through BANK_ENVS, each from its own geometry's perturbed
+    impulsive start."""
+    cfg = tgrid.GridConfig(res=res)
+    names = tgrid.geometry_names()
+    geoms = {n: tgrid.build_geometry(cfg, n) for n in names}
+    bank = tsolver.geometry_bank(
+        [tsolver.geom_to_arrays(geoms[n], cuda) for n in names],
+        tgrid.max_bodies())
+    envs = [BANK_ENVS[i % len(BANK_ENVS)] for i in range(n_env)]
+    rng = np.random.default_rng(1)
+    flows = [tsolver.init_state(cfg, geoms[g], cuda) for g, _, _ in envs]
+    flow = tsolver.FlowState(*(
+        torch.stack(xs) + torch.tensor(
+            0.01 * rng.standard_normal((n_env,) + tuple(xs[0].shape)),
+            dtype=torch.float32, device=cuda) for xs in zip(*flows)))
+    gid = torch.tensor([names.index(g) for g, _, _ in envs], device=cuda)
+    mode = torch.tensor([m for _, m, _ in envs], device=cuda)
+    amp = torch.tensor([a for _, _, a in envs], device=cuda)
+    return cfg, bank, flow, amp, mode, gid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_env,n_steps", [(4, 50), (4, 1), (7, 20)])
+def test_per_body_kernel_matches_twin_on_card(cuda, n_env, n_steps):
+    """The per-body instantiation on a mixed bank batch (cylinder jets,
+    pinball and tandem rotary at distinct per-body speeds) against the
+    twin, held as the scalar kernel is, each body's C_D / C_L included;
+    one launch, recorded as per-body, its cluster and blocks' SMs."""
+    cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 16, n_env)
+    n0 = aops.fused_interval_cuda.launches_per_body
+    a, oa = tsolver.step_interval(cfg, bank, flow, amp, n_steps,
+                                  act_mode=mode, backend="fused",
+                                  geom_id=gid)
+    assert aops.fused_interval_cuda.launches_per_body == n0 + 1
+    assert aops.fused_interval_cuda.last_n_bodies == tgrid.max_bodies()
+    cluster = aops.fused_interval_cuda.last_cluster
+    assert cluster == aops.cluster_for(cfg, n_env, cuda, tgrid.max_bodies())
+    sms = aops.fused_interval_cuda.last_block_sms
+    assert sms.numel() == n_env * cluster and int(sms.min()) >= 0
+    assert oa.cd.shape == (n_env, n_steps, 3)
+    b, ob = aops.fused_interval_plain(cfg, bank, flow, amp, n_steps,
+                                      act_mode=mode, geom_id=gid)
+    torch.cuda.synchronize()
+    errs = [max_diff(y, x) for x, y in zip(a, b)]
+    errs += [max_diff(ob.cd, oa.cd), max_diff(ob.cl, oa.cl)]
+    print(f"per-body fused res 16 N={n_env} {n_steps} dt cluster={cluster}:"
+          f" max|kernel - twin| u, v, p, cd, cl = {errs}")
+    for err, tol in zip(errs, (1e-4, 1e-4, 1e-3, 1e-3, 1e-3)):
+        assert err <= tol
+    # the cylinder env's padded bodies carry no force
+    assert float(oa.cd[0, :, 1:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_per_body_kernel_is_deterministic_on_card(cuda):
+    """The 2 NB + 1 partial sums take one fixed order: two launches on one
+    input agree bit for bit."""
+    cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 16, 4)
+    runs = [aops.fused_interval_cuda(cfg, bank, flow, amp, 20,
+                                     act_mode=mode, geom_id=gid)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, oa), (b, ob) = runs
+    for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_per_body_kernel_single_geometry_on_card(cuda):
+    """Without a bank: one pinball geometry (G = 1), and the tandem's two
+    bodies padded to the kernel's three, against the twin; a length-1
+    vector on the cylinder equals the scalar rotary kernel to summation
+    order."""
+    cfg = tgrid.GridConfig(res=16)
+    for name, amp in (("pinball", (0.6, -0.3, 0.1)), ("tandem", (0.5, -1.0))):
+        geom = tgrid.build_geometry(cfg, name)
+        ga = tsolver.geom_to_arrays(geom, cuda)
+        flow = tsolver.init_state(cfg, geom, cuda)
+        jet = torch.tensor(amp, device=cuda)
+        a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 10,
+                                         act_mode=1.0)
+        b, ob = aops.fused_interval_plain(cfg, ga, flow, jet, 10,
+                                          act_mode=1.0)
+        torch.cuda.synchronize()
+        assert oa.cd.shape == ob.cd.shape == (10, len(amp))
+        for x, y, tol in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl),
+                             (1e-4, 1e-4, 1e-3, 1e-3, 1e-3)):
+            assert max_diff(x, y) <= tol, name
+    geom = tgrid.build_geometry(cfg)
+    ga = tsolver.geom_to_arrays(geom, cuda)
+    flow = tsolver.init_state(cfg, geom, cuda)
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, 0.7, 10, act_mode=1.0)
+    b, ob = aops.fused_interval_cuda(cfg, ga, flow,
+                                     torch.tensor([0.7], device=cuda), 10,
+                                     act_mode=1.0)
+    torch.cuda.synchronize()
+    assert aops.fused_interval_cuda.last_n_bodies == 3
+    for x, y in zip(a, b):
+        assert max_diff(x, y) <= 1e-5
+    assert max_diff(oa.cd, ob.cd.sum(-1)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_scalar_kernel_over_a_bank_of_one_geometry_on_card(cuda):
+    """A scalar amplitude over the bank whose envs all pick one geometry
+    (a cylinder batch of a multi-body env) launches the scalar
+    instantiation on that geometry, as the geometry alone does."""
+    cfg, bank, _, _, _, _ = _bank_inputs(cuda, 16, 4)
+    _, _, flow, jet, mode = _fused_inputs(cuda, 16, 4)
+    gid = torch.full((4,), tgrid.geometry_index("cylinder"), device=cuda)
+    ga = tsolver.geom_to_arrays(tgrid.build_geometry(cfg), cuda)
+    a, oa = aops.fused_interval_cuda(cfg, bank, flow, jet, 10,
+                                     act_mode=mode, geom_id=gid)
+    assert aops.fused_interval_cuda.last_n_bodies == 0
+    b, ob = aops.fused_interval_cuda(cfg, ga, flow, jet, 10, act_mode=mode)
+    torch.cuda.synchronize()
+    for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_per_body_calls_the_kernel_cannot_serve_raise_on_card(cuda):
+    """No fallback on the card: a vector call on a grid the per-body
+    instantiation cannot hold, a vector without the per-body fields, and
+    a scalar amplitude over a bank that mixes geometries raise and launch
+    nothing."""
+    n0 = aops.fused_interval_cuda.launches
+    cfg = tgrid.GridConfig(res=48)
+    geom = tgrid.build_geometry(cfg, "pinball")
+    with pytest.raises(ValueError, match="shared memory"):
+        tsolver.step_interval(cfg, tsolver.geom_to_arrays(geom, cuda),
+                              tsolver.init_state(cfg, geom, cuda),
+                              torch.zeros(3, device=cuda), 1,
+                              act_mode=1.0, backend="fused")
+    cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 8, 4)
+    with pytest.raises(ValueError, match="per-body geometry fields"):
+        aops.fused_interval_cuda(cfg, bank._replace(rotb_u=None), flow, amp,
+                                 1, act_mode=mode, geom_id=gid)
+    with pytest.raises(ValueError, match="one geometry per launch"):
+        aops.fused_interval_cuda(cfg, bank, flow, amp[:, 0], 1,
+                                 act_mode=mode, geom_id=gid)
+    assert aops.fused_interval_cuda.launches == n0
+
+
 def _sor_full_against_twin(cuda, res, n_env, iters, nslabs=None,
                            cluster=None):
     """rb_sor(packed=False) through the full-grid kernel against the plain

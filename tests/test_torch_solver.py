@@ -84,11 +84,6 @@ def test_grid_config_and_probes_match():
                           tgrid.inlet_profile(CFG_T, y))
 
 
-def test_non_cylinder_geometry_not_ported():
-    with pytest.raises(NotImplementedError, match="per-body"):
-        tgrid.build_geometry(CFG_T, "pinball")
-
-
 def test_init_state_matches(developed):
     geom_j, geom_t = jgrid.build_geometry(CFG_J), tgrid.build_geometry(CFG_T)
     for r, o in zip(jsolver.init_state(CFG_J, geom_j),
