@@ -51,7 +51,22 @@ Phases (any failure exits non-zero):
    number, mean C_D and C_L amplitude within the reference's tolerances,
    the cylinder's through the scalar instantiation, the pinball's through
    the scalar one and through the per-body one (total forces);
-7. one JSON line listing the five kernels, then the card's line and the
+7. the attention policy and the robust training path, every run on the
+   card at the main path's widths (res 16, 50 dt per action, 4 envs of
+   ``scenarios=("cyl_re100", "pinball_re100")``, 149 probes, act_dim 3,
+   the attention policy at its own widths: d_model 64, 4 heads over 2 KV
+   heads, 2 layers) under ``torch.use_deterministic_algorithms``: (a) 2
+   episodes checkpointed every episode; 1 episode then a resume to 2 must
+   equal (a) bit for bit (params, Adam moments, generator state, history)
+   and the resume must launch no warmup; (b) ``nan_env`` on env 1 at step 4:
+   exactly 1 quarantine, the other envs' final fields equal to (a)'s first
+   episode's; (c) ``grad_nan`` at PPO step 7: 1 skip, params unchanged
+   across that minibatch; (d) a ``watchdog`` fault at episode 1: one
+   rollback, the completed run equal to (a).  The per-body instantiation
+   must launch once per interval of every run, the scalar one once per
+   warmup group; each run's wall time, the attention episode beside the
+   MLP one, and the checkpoint's bytes and caller-visible time are printed;
+8. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Imports nothing of jax or of the reference package.
@@ -997,7 +1012,7 @@ def run_train(backend, env_kw, episodes, grid_kw, scenarios=None):
           f"{n_params} params finite (act_dim {model.log_std.numel()}), "
           f"rewards {hist['reward'].tolist()}, episode walls "
           f"{hist['wall'].tolist()}, kernel launches {launched}")
-    return launched
+    return launched, hist
 
 
 def leaves(tree):
@@ -1211,8 +1226,266 @@ def golden_pinball(dev):
                      f"outside rel {tol}")
 
 
+@contextlib.contextmanager
+def observed(module, name, before=None, after=None):
+    """Wrap ``module.name`` for the duration: ``before(*args)`` sees each
+    call's arguments, ``after(out)`` its result; the call itself is
+    unchanged (the phase reads what the path computed, it alters
+    nothing)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        if before is not None:
+            before(*args)
+        out = fn(*args, **kw)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def robust_path(mlp_episode_s):
+    """Phase 7: the attention policy and the robust training path on the
+    card, at full width, every run under torch.use_deterministic_algorithms
+    (an op without a deterministic implementation raises).  Returns the
+    per-body instantiation's launches over the phase's runs."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.cfd.env import EnvConfig
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.drl import engine as engine_mod
+    from repro_torch.drl import ppo, rollout
+    from repro_torch.drl import train_state as ts_mod
+    from repro_torch.drl.train import TrainConfig, train
+    from repro_torch.testing import faults
+    scenarios = ("cyl_re100", "pinball_re100")
+    intervals, groups = 100, 2
+    base = ROOT / "build" / "robust_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    print("[robust] full width: res 16, 50 dt per action, 60 SOR "
+          "iterations, 4 envs of cyl_re100+pinball_re100 (149 probes, the "
+          "pinball's 59 padded; act_dim 3), attention policy d_model 64, 4 "
+          "heads over 2 KV heads, 2 layers; 100 actions per episode after a "
+          "30 t.u. warmup per group; deterministic algorithms on")
+    per_body_launches = 0
+
+    def run(tag, episodes, ckpt=None, fault=None, policy="attention", **kw):
+        nonlocal per_body_launches
+        cfg = TrainConfig(
+            env=EnvConfig(grid=GridConfig(res=16), steps_per_action=50,
+                          actions_per_episode=intervals, warmup_time=30.0),
+            n_envs=4, episodes=episodes, seed=0, scenarios=scenarios,
+            policy=policy, backend="fused", device="cuda",
+            ckpt_dir=None if ckpt is None else str(base / ckpt),
+            ckpt_every=1, **kw)
+        health = {}
+        faults.configure(fault)
+        reset_counts()
+        try:
+            (hist, model), secs = wall(lambda: train(
+                cfg, log_fn=lambda m: print(f"[robust {tag}] {m}"),
+                health=health))
+        finally:
+            faults.reset()
+        launched = counts()
+        per_body_launches += launched["fused_interval_per_body"]
+        print(f"[robust {tag}] to episode {episodes} in {secs:.3f} s, episode "
+              f"walls {hist['wall'].tolist()}, health {health}, fused "
+              f"launches {launched['fused_interval']} (per-body "
+              f"{launched['fused_interval_per_body']})")
+        for k, v in hist.items():
+            if len(v) != episodes or not np.isfinite(v).all():
+                fail(f"robust {tag}: history {k} = {v}")
+        return hist, model, health, launched
+
+    def expect_launches(tag, launched, episodes, warmups):
+        want = (episodes * intervals + warmups, episodes * intervals)
+        got = (launched["fused_interval"], launched["fused_interval_per_body"])
+        if got != want:
+            fail(f"robust {tag}: fused launches (all, per-body) {got}, "
+                 f"expected {want}: one per-body launch per interval and "
+                 f"{warmups} scalar warmup launches")
+
+    def same_model(tag, a, b):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            if not torch.equal(x, y):
+                fail(f"robust {tag}: param {k} differs from the "
+                     f"uninterrupted run")
+
+    def same_hist(tag, a, b, n=None):
+        for f in ("reward", "cd", "cl", "quarantines", "grad_skips"):
+            if not np.array_equal(a[f][:n], b[f][:n]):
+                fail(f"robust {tag}: history {f} {b[f]} differs from the "
+                     f"uninterrupted run's {a[f]}")
+
+    finals = []
+
+    def final_flow(out):
+        finals.append([x.clone() for x in out[0].flow])
+
+    def split_run(tag, episodes, ckpt=None, **kw):
+        """run() with each episode's rollout (policy + env steps) and PPO
+        update timed on the host clock between synchronisations."""
+        split = {"rollout": [], "update": []}
+        t0 = [0.0]
+
+        def start(*_):
+            torch.cuda.synchronize()
+            t0[0] = time.perf_counter()
+
+        def stop(key):
+            def after(out):
+                torch.cuda.synchronize()
+                split[key].append(time.perf_counter() - t0[0])
+                if key == "rollout":
+                    final_flow(out)
+            return after
+
+        with observed(rollout, "rollout_batch", start, stop("rollout")), \
+                observed(engine_mod, "ppo_update", start, stop("update")):
+            out = run(tag, episodes, ckpt, **kw)
+        rest = [float(w - r - u) for w, r, u in zip(out[0]["wall"],
+                                             split["rollout"],
+                                             split["update"])]
+        print(f"[robust {tag}] per episode: rollout {split['rollout']} s, "
+              f"PPO update {split['update']} s, the rest (values, GAE, "
+              f"history, checkpoint) {rest} s")
+        return out
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) the uninterrupted run, its first episode's final fields kept
+        hist_a, model_a, health_a, launched = split_run("a", 2, "A")
+        expect_launches("a", launched, 2, groups)
+        clean_final = finals[0]
+        if not all(torch.isfinite(x).all() for x in clean_final):
+            fail("robust a: non-finite fields after the first episode")
+        path = ck.latest_checkpoint(str(base / "A"))
+        ckpt_bytes = Path(path).stat().st_size
+        print(f"[robust a] checkpoint {path}: {ckpt_bytes} bytes; "
+              f"{health_a['ckpt_saves']} saves, "
+              f"{health_a['ckpt_bytes']} bytes written, time_blocked "
+              f"{health_a['ckpt_time_blocked']:.6f} s in all "
+              f"({health_a['ckpt_time_waited']:.6f} s of it waiting for the "
+              f"previous write), "
+              f"{health_a['ckpt_time_blocked'] / health_a['ckpt_saves']:.6f} "
+              f"s a save")
+        print(f"[robust] attention episode {hist_a['wall'][-1]:.3f} s "
+              f"(steady, the second), MLP episode {mlp_episode_s:.3f} s "
+              f"(phase 2, the second)")
+
+        # 1 episode, then a resume to 2: bit-equal, no warmup on resume
+        _, _, _, launched = run("b1", 1, "B")
+        expect_launches("b1", launched, 1, groups)
+        hist_b, model_b, _, launched = run("resume", 2, "B", resume=True)
+        expect_launches("resume", launched, 1, 0)
+        same_model("resume", model_a, model_b)
+        same_hist("resume", hist_a, hist_b)
+        ts_a, _ = ts_mod.load_train_state(path, "cuda")
+        ts_b, _ = ts_mod.load_train_state(
+            ck.latest_checkpoint(str(base / "B")), "cuda")
+        if not torch.equal(ts_a.rng, ts_b.rng) or ts_a.step != ts_b.step:
+            fail("robust resume: generator state or PPO step differs")
+        for k in ("m", "v"):
+            if not all(torch.equal(x, y) for x, y in
+                       zip(ts_a.opt_state[k], ts_b.opt_state[k])):
+                fail(f"robust resume: Adam {k} differs")
+        print("[robust resume] params, Adam m/v, generator state, step "
+              f"{ts_b.step} and history equal to the uninterrupted run's, "
+              "bit for bit")
+
+        # (b) NaN in env 1's u at step 4: one quarantine, the other envs'
+        # final fields those of (a)'s first episode
+        finals.clear()
+        with observed(rollout, "rollout_batch", after=final_flow):
+            hist, _, health, launched = run(
+                "nan_env", 1, fault={"nan_env": {"env": 1, "step": 4}})
+        expect_launches("nan_env", launched, 1, groups)
+        if hist["quarantines"].tolist() != [1.0] or \
+                health["quarantines"] != 1:
+            fail(f"robust nan_env: quarantines {hist['quarantines']}, "
+                 f"expected exactly 1")
+        keep = [0, 2, 3]
+        for x, y in zip(finals[0], clean_final):
+            if not torch.equal(x[keep], y[keep]):
+                fail("robust nan_env: the unpoisoned envs' final fields "
+                     "differ from the clean run's")
+        if not all(torch.isfinite(x).all() for x in finals[0]):
+            fail("robust nan_env: non-finite fields after the quarantine")
+        print("[robust nan_env] 1 quarantine; envs 0, 2, 3 final u, v, p "
+              "equal to the clean run's first episode, bit for bit")
+
+        # (c) a NaN gradient at PPO step 7: skipped, params unchanged across
+        # that minibatch (and changed across the next)
+        snaps, calls = {}, [0]
+
+        def at_minibatch(cfg, model, batch):
+            if calls[0] in (7, 8, 9):
+                snaps[calls[0]] = [q.detach().clone()
+                                   for q in model.parameters()]
+            calls[0] += 1
+
+        with observed(ppo, "ppo_loss", before=at_minibatch):
+            hist, _, health, launched = run(
+                "grad_nan", 1, fault={"grad_nan": {"step": 7}})
+        expect_launches("grad_nan", launched, 1, groups)
+        if hist["grad_skips"].tolist() != [1.0] or health["grad_skips"] != 1:
+            fail(f"robust grad_nan: grad_skips {hist['grad_skips']}, "
+                 f"expected 1")
+        if not all(torch.equal(x, y) for x, y in zip(snaps[7], snaps[8])):
+            fail("robust grad_nan: the skipped minibatch changed params")
+        if all(torch.equal(x, y) for x, y in zip(snaps[8], snaps[9])):
+            fail("robust grad_nan: the next minibatch left params unchanged")
+        print("[robust grad_nan] 1 update skipped; params equal before and "
+              "after minibatch 7, changed by minibatch 8")
+
+        # (d) the watchdog trips at episode 1: one rollback to the episode-1
+        # checkpoint, then the run completes as (a)
+        hist, model, health, launched = run(
+            "watchdog", 2, "D", fault={"watchdog": {"episode": 1}})
+        expect_launches("watchdog", launched, 3, groups)
+        if health["rollbacks"] != 1:
+            fail(f"robust watchdog: {health['rollbacks']} rollbacks, "
+                 f"expected 1")
+        same_model("watchdog", model_a, model)
+        same_hist("watchdog", hist_a, hist)
+        print("[robust watchdog] 1 rollback; completed equal to the "
+              "uninterrupted run, bit for bit")
+
+        # where an episode's time goes: the MLP on the same batch under the
+        # same instrumentation, and the attention policy without
+        # deterministic algorithms
+        hist, _, _, _ = split_run("mlp", 2, policy="mlp")
+        torch.use_deterministic_algorithms(False)
+        hist_n, model_n, _, _ = split_run("nondeterministic", 2)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(model_a.parameters(), model_n.parameters()))
+        print(f"[robust] steady episode: attention {hist_a['wall'][-1]:.3f} s"
+              f", MLP {hist['wall'][-1]:.3f} s (both deterministic), "
+              f"attention without deterministic algorithms "
+              f"{hist_n['wall'][-1]:.3f} s (params "
+              f"{'equal' if same else 'not equal'} to the deterministic "
+              f"run's)")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        shutil.rmtree(base, ignore_errors=True)
+    return per_body_launches
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
+    import os
+    # cuBLAS is repeatable under torch.use_deterministic_algorithms (phase
+    # 7) only with a fixed workspace, set before its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -1269,7 +1542,7 @@ def main():
     print("[train fused] full width: res 16 (ny 66, nx 352), 50 dt per "
           "action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs; depth "
           "cut: 2 episodes of 100 actions after a 30 t.u. warmup")
-    launched = run_train("fused", main_env, 2, dict(res=16))
+    launched, main_hist = run_train("fused", main_env, 2, dict(res=16))
     if launched["fused_interval"] < 1:
         fail("the main path did not launch the fused_interval kernel")
     fused["launches"] = launched["fused_interval"]
@@ -1283,7 +1556,7 @@ def main():
           "pinball's 59 padded), act_dim 3, 4 envs (2 cylinder jets, 2 "
           "pinball rotary); depth cut: 1 episode of 100 actions after a "
           "30 t.u. warmup per (Re, actuation, geometry) group")
-    launched = run_train("fused", main_env, 1, dict(res=16), scenarios)
+    launched, _ = run_train("fused", main_env, 1, dict(res=16), scenarios)
     intervals = main_env["actions_per_episode"]
     groups = 2                    # (100, jets, cylinder), (100, rotary, pinball)
     if (launched["fused_interval_per_body"] != intervals
@@ -1300,7 +1573,7 @@ def main():
     # 3. the second path: one short episode with the packed-SOR kernel
     print("[train pallas] res 16, 4 envs; depth cut: 1 episode of 2 actions "
           "after a 1 t.u. warmup")
-    launched = run_train("pallas", dict(steps_per_action=50,
+    launched, _ = run_train("pallas", dict(steps_per_action=50,
                                         actions_per_episode=2,
                                         warmup_time=1.0), 1, dict(res=16))
     if launched["rb_sor_slabs_packed"] < 1:
@@ -1332,7 +1605,17 @@ def main():
     golden(dev)
     golden_pinball(dev)
 
-    # 7. the kernels, the card, the result
+    # 7. the attention policy and the robust training path
+    bodies["robust_path_launches"] = robust_path(float(main_hist["wall"][-1]))
+    bodies["robust_path"] = (
+        "train(policy='attention', scenarios=('cyl_re100', 'pinball_re100'),"
+        " ckpt_dir=..., resume=..., watchdog=True): 2 + 1 + resumed 1 + "
+        "nan_env 1 + grad_nan 1 + watchdog 3 episodes, then 2 of the MLP "
+        "and 2 without deterministic algorithms")
+    if bodies["robust_path_launches"] < 1:
+        fail("the robust path did not launch the per-body instantiation")
+
+    # 8. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from repro_torch.cfd import solver
 from repro_torch.cfd.grid import GridConfig, build_geometry
 from repro_torch.cfd.scenarios import Scenario, ScenarioParams
 from repro_torch.device import resolve_device
+from repro_torch.testing import faults
 
 
 @dataclass(frozen=True)
@@ -234,11 +235,9 @@ class CylinderEnv:
         stray from the config's builds the geometry bank, from which each
         env reads its own body set."""
         cfg = self.cfg
-        scns = scn_mod.assign_envs(scenarios, n_envs or len(scenarios))
+        scns = self.batch_scenarios(scenarios, n_envs)
         groups = sorted({(s.re, s.act_mode, s.geometry) for s in scns})
         self._warmup_groups(groups)
-        if any(s.geometry != cfg.geometry for s in scns):
-            self._ensure_bank()
         flows, cd0s = [], []
         for s in scns:
             flow, cd0 = self._group_cache[(s.re, s.act_mode, s.geometry)]
@@ -259,6 +258,19 @@ class CylinderEnv:
                         scn=params_b,
                         reset_flow=flow_b if cfg.guard else None)
         return st_b, self._observe(st_b)
+
+    def batch_scenarios(self, scenarios: Sequence,
+                        n_envs: Optional[int] = None) -> Tuple[Scenario, ...]:
+        """The scenarios of an (N_envs, ...) batch, assigned round-robin;
+        builds the geometry bank when their geometries stray from the
+        config's.  Runs no warmup, so a batch restored from a checkpoint
+        calls it to step its own flow: each env's ``scn.geom_id`` indexes
+        the bank in ``grid.geometry_names()`` order, as it did when the
+        batch was reset."""
+        scns = scn_mod.assign_envs(scenarios, n_envs or len(scenarios))
+        if any(s.geometry != self.cfg.geometry for s in scns):
+            self._ensure_bank()
+        return scns
 
     def _observe(self, st: EnvState) -> torch.Tensor:
         return probes_mod.sample_pressure(st.scn.probe_ij, st.flow.p,
@@ -288,8 +300,19 @@ class CylinderEnv:
             a = a * st.scn.act_mask
         jet = st.jet_vel + cfg.beta * (a - st.jet_vel)        # eq. (11)
         jet = torch.clamp(jet, -cfg.action_max, cfg.action_max)
+        flow_in = st.flow
+        fz = faults.active("nan_env")
+        if fz is not None:
+            # env = the index in the flattened batch, as the reference's
+            # axis_index("env"); other envs' fields pass through untouched
+            idx = torch.arange(st.t.numel(), device=st.t.device
+                               ).reshape(st.t.shape)
+            hit = ((idx == int(fz.get("env", 0)))
+                   & (st.t == int(fz.get("step", 0))))
+            flow_in = flow_in._replace(u=_sel(
+                hit, torch.full_like(flow_in.u, float("nan")), flow_in.u))
         ga, geom_id = self._env_geom(st, per_body)
-        flow, outs = solver.step_interval(cfg.grid, ga, st.flow, jet,
+        flow, outs = solver.step_interval(cfg.grid, ga, flow_in, jet,
                                           cfg.steps_per_action,
                                           re=st.scn.re,
                                           act_mode=st.scn.act_mode,

@@ -7,7 +7,7 @@ the async double-buffered loop and fleet mode are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +16,17 @@ from repro_torch.drl import networks, rollout
 from repro_torch.drl.gae import gae_batch
 from repro_torch.drl.ppo import Batch, PPOConfig, make_optimizer, ppo_update
 from repro_torch.drl.rollout import Trajectory
+
+
+class TrainCarry(NamedTuple):
+    """What ``run_sync`` carries from one episode to the next, handed to
+    ``on_state`` after each update: checkpointing it (with the env batch
+    every episode starts from) and re-entering with it reproduces the
+    remaining episodes bit for bit."""
+    model: torch.nn.Module
+    opt_state: dict
+    step: int
+    generator: Optional[torch.Generator]
 
 
 @dataclass(frozen=True)
@@ -88,11 +99,16 @@ class RolloutEngine:
                  st_b, obs_b, episodes: int, *, generator=None, step: int = 0,
                  noise: Optional[Sequence] = None,
                  perms: Optional[Sequence] = None,
-                 on_episode: Optional[Callable] = None):
+                 on_episode: Optional[Callable] = None,
+                 on_state: Optional[Callable] = None):
         """Sequential [collect] -> [update]; every episode starts from
         ``(st_b, obs_b)``, as in the reference.  ``noise[e]`` /
         ``perms[e]`` inject episode ``e``'s rollout noise and PPO
-        permutations."""
+        permutations.  ``step`` seeds the PPO minibatch counter (a resume
+        passes the stored one).  After each update ``on_episode(traj,
+        metrics)`` fires, then ``on_state(TrainCarry)``: an episode that
+        ``on_episode`` rejects by raising is never handed to
+        ``on_state``."""
         returns = []
         for e in range(episodes):
             batch, traj = self.collect(
@@ -105,6 +121,8 @@ class RolloutEngine:
             returns.append(float(torch.mean(torch.sum(traj.reward, dim=1))))
             if on_episode is not None:
                 on_episode(traj, metrics)
+            if on_state is not None:
+                on_state(TrainCarry(model, opt_state, step, generator))
         return model, opt_state, np.asarray(returns)
 
     def init(self, pcfg: networks.PolicyConfig, ppo_cfg: PPOConfig,

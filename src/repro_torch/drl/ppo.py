@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.drl import networks
 from repro_torch.optim.optimizers import adamw, global_norm
+from repro_torch.testing import faults
 
 
 @dataclass(frozen=True)
@@ -107,7 +108,9 @@ def ppo_update(cfg: PPOConfig, optimizer, model, opt_state, batch: Batch,
     otherwise it is drawn from ``generator``.  ``step`` counts minibatch
     updates (it indexes Adam's bias correction) and advances whether or not
     an update is applied; with ``skip_nonfinite_grads`` a non-finite
-    gradient leaves params and moments unchanged and is counted."""
+    gradient leaves params and moments unchanged and is counted (the
+    ``grad_nan`` fault of ``repro_torch.testing.faults`` poisons the
+    minibatch whose ``step`` it names)."""
     params = list(model.parameters())
     n = batch.obs.shape[0]
     mb = n // cfg.minibatches
@@ -124,6 +127,9 @@ def ppo_update(cfg: PPOConfig, optimizer, model, opt_state, batch: Batch,
                          for x in shuffled))
             loss, metrics = ppo_loss(cfg, model, sl)
             grads = torch.autograd.grad(loss, params)
+            fz = faults.active("grad_nan")
+            if fz is not None and step == int(fz.get("step", 0)):
+                grads = [g + float("nan") for g in grads]
             with torch.no_grad():
                 new_p, new_o = optimizer.update(grads, opt_state, params,
                                                 step)

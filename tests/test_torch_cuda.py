@@ -749,3 +749,115 @@ def test_lm_forward_on_card(cuda, name):
     err = max_diff(ref, out)
     print(f"forward_train {name} reduced: max|pallas - reference| {err:.3e}")
     assert err <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the robust training path through the fused kernel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic(cuda, monkeypatch):
+    """torch.use_deterministic_algorithms for one test: an op of the path
+    with no deterministic implementation raises instead of drifting."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _robust_cfg(episodes, ckpt_dir=None, **kw):
+    from repro_torch.cfd.env import EnvConfig
+    from repro_torch.drl.ppo import PPOConfig
+    from repro_torch.drl.train import TrainConfig
+    return TrainConfig(
+        env=EnvConfig(grid=tgrid.GridConfig(res=8), steps_per_action=10,
+                      actions_per_episode=4, warmup_time=1.0),
+        ppo=PPOConfig(epochs=2, minibatches=2), n_envs=4, episodes=episodes,
+        seed=0, scenarios=("cyl_re100", "pinball_re100"), policy="attention",
+        ckpt_dir=ckpt_dir, ckpt_every=1, device="cuda", **kw)
+
+
+@pytest.mark.cuda
+def test_train_bitwise_resume_through_fused_kernel_on_card(cuda,
+                                                            deterministic,
+                                                            tmp_path):
+    """The attention policy on a mixed cylinder + pinball batch, res 8, 4
+    envs: train(episodes=1) then a resume to 2 equals train(episodes=2)
+    bit for bit (params, Adam moments, generator state, history), each
+    interval one launch of the per-body instantiation, and the resume
+    launches no warmup."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.drl import train_state as ts_mod
+    from repro_torch.drl.train import train
+    w = aops.fused_interval_cuda
+
+    def launches(fn):
+        n0, b0 = w.launches, w.launches_per_body
+        out = fn()
+        return out, (w.launches - n0, w.launches_per_body - b0)
+
+    (hist_a, model_a), la = launches(lambda: train(
+        _robust_cfg(2, str(tmp_path / "A")), log_fn=None))
+    _, lk = launches(lambda: train(_robust_cfg(1, str(tmp_path / "B")),
+                                   log_fn=None))
+    (hist_b, model_b), lb = launches(lambda: train(
+        _robust_cfg(2, str(tmp_path / "B"), resume=True), log_fn=None))
+    assert la == (2 + 8, 8) and lk == (2 + 4, 4) and lb == (4, 4)
+    for (k, a), b in zip(model_a.state_dict().items(),
+                         model_b.state_dict().values()):
+        assert torch.equal(a, b), k
+    for f in ("reward", "cd", "cl", "quarantines", "grad_skips"):
+        np.testing.assert_array_equal(hist_a[f], hist_b[f])
+    ts_a, _ = ts_mod.load_train_state(
+        ck.latest_checkpoint(str(tmp_path / "A")), cuda)
+    ts_b, _ = ts_mod.load_train_state(
+        ck.latest_checkpoint(str(tmp_path / "B")), cuda)
+    assert torch.equal(ts_a.rng, ts_b.rng) and ts_a.step == ts_b.step
+    for k in ("m", "v"):
+        for x, y in zip(ts_a.opt_state[k], ts_b.opt_state[k]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenarios", [("cyl_re100",),
+                                       ("cyl_re100", "pinball_re100")])
+def test_nan_env_isolated_across_envs_and_clusters_on_card(cuda,
+                                                           deterministic,
+                                                           scenarios):
+    """A NaN in env 1's u at step 0 reaches the sentinel (env 1 quarantined,
+    reset to its warmup flow) and no other env's cluster: the other envs'
+    fields equal those of the same step without the fault, bit for bit.
+    The cylinder batch runs the scalar instantiation <0>, the mixed one the
+    per-body <3>."""
+    from repro_torch.cfd.env import CylinderEnv, EnvConfig
+    from repro_torch.testing import faults
+    env = CylinderEnv(EnvConfig(grid=tgrid.GridConfig(res=8),
+                                steps_per_action=20, warmup_time=1.0),
+                      backend="fused", device=cuda)
+    st, _ = env.reset_batch(scenarios, 4)
+    act = torch.linspace(-0.5, 0.5, 4, device=cuda)
+    if st.jet_vel.dim() > 1:
+        act = act[:, None].expand(4, st.jet_vel.shape[-1])
+    per_body = int(st.jet_vel.dim() > 1)
+    n0, b0 = aops.fused_interval_cuda.launches, \
+        aops.fused_interval_cuda.launches_per_body
+    clean, clean_out = env.env_step(st, act)
+    faults.configure({"nan_env": {"env": 1, "step": 0}})
+    try:
+        hit, out = env.env_step(st, act)
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    assert aops.fused_interval_cuda.launches - n0 == 2
+    assert aops.fused_interval_cuda.launches_per_body - b0 == 2 * per_body
+    assert aops.fused_interval_cuda.last_cluster > 1
+    assert torch.equal(out.valid, torch.tensor([1.0, 0.0, 1.0, 1.0],
+                                               device=cuda))
+    keep = [0, 2, 3]
+    for a, b in zip(hit.flow, clean.flow):
+        assert torch.equal(a[keep], b[keep])
+    for a, b in zip(hit.flow, st.reset_flow):
+        assert torch.equal(a[1], b[1])
+    for f in ("obs", "reward", "cd", "cl"):
+        assert torch.equal(getattr(out, f)[keep], getattr(clean_out, f)[keep])
+    assert all(torch.isfinite(a).all() for a in hit.flow)

@@ -1,6 +1,7 @@
 """The port stands alone: importing repro_torch (every module) and
 chip_smoke loads neither jax nor the reference package, and no source of
-the port names them in an import."""
+the port names them in an import.  Its checkpoints need only the standard
+library and numpy: neither msgpack nor zstandard is loaded or imported."""
 import json
 import re
 import subprocess
@@ -20,7 +21,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "zstandard"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -35,11 +37,15 @@ def test_import_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.actuation.ops" in res["modules"]
     assert "repro_torch.drl.train" in res["modules"]
     assert "repro_torch.models.model" in res["modules"]
+    for name in ("testing.faults", "ckpt.io", "ckpt.checkpoint",
+                 "drl.health", "drl.train_state"):
+        assert f"repro_torch.{name}" in res["modules"], name
 
 
 def test_sources_import_no_jax_and_no_reference():
-    pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b|"
-                     r"from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
+    pat = re.compile(r"^\s*(import\s+(jax|jaxlib|repro|msgpack|zstandard)"
+                     r"\b|from\s+(jax|jaxlib|repro|msgpack|zstandard)"
+                     r"(\.|\s))", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
