@@ -66,7 +66,21 @@ Phases (any failure exits non-zero):
    must launch once per interval of every run, the scalar one once per
    warmup group; each run's wall time, the attention episode beside the
    MLP one, and the checkpoint's bytes and caller-visible time are printed;
-8. one JSON line listing the five kernels, then the card's line and the
+8. the paper's I/O layer at the main path's widths (res 16, 50 dt per
+   action, 4 envs, 2x512 MLP, backend="fused"), under
+   ``torch.use_deterministic_algorithms``: (a) ``train()`` of 2 episodes
+   with ``SinkSpec(kind="dataset")``: 201 fused launches, episodes 0..1
+   recorded, the run fingerprint in the manifest; (b) ``replay_sync`` of
+   the dataset from the seed: params, Adam moments, PPO step, generator
+   state and returns equal to the live run's bit for bit, no fused
+   launch; (c) a copy with its last shard cut by 8 bytes and one with a
+   payload byte flipped raise ``DatasetError`` and never replay; (d)
+   ``MultiEnvInterface.exchange`` of the second episode's batch in each
+   mode (bytes and host seconds printed, every record read back), then 1
+   episode of ``train(interface=..., sink=...)`` with the optimized
+   interface and a binary sink whose file must read back equal to the
+   episode's trajectory;
+9. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Imports nothing of jax or of the reference package.
@@ -1480,6 +1494,218 @@ def robust_path(mlp_episode_s):
     return per_body_launches
 
 
+def io_path(card):
+    """Phase 8: the paper's I/O layer on the card at the main path's width.
+    (a) ``train()`` recording into a dataset sink; (b) ``replay_sync`` of
+    that dataset from the seed, bit-equal to the live run under
+    deterministic algorithms and launching no fused kernel; (c) a
+    truncated and a byte-flipped copy refused; (d) the CFD<->DRL file
+    interface in each mode on the second episode's batch, then an episode
+    of ``train(interface=..., sink=...)`` spilling to a binary file.
+    Returns the fused kernel's launches while recording."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.cfd.env import EnvConfig
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core.interface import MultiEnvInterface
+    from repro_torch.data.trajectory_dataset import (DatasetError,
+                                                     TrajectoryReader)
+    from repro_torch.drl import engine as engine_mod
+    from repro_torch.drl import networks
+    from repro_torch.drl import train_state as ts_mod
+    from repro_torch.drl.train import TrainConfig, train
+    base = ROOT / "build" / "io_path"
+    shutil.rmtree(base, ignore_errors=True)
+    intervals, episodes = 100, 2
+    env_cfg = EnvConfig(grid=GridConfig(res=16), steps_per_action=50,
+                        actions_per_episode=intervals, warmup_time=30.0)
+    print(f"[io] full width: res 16 (ny 66, nx 352), 50 dt per action, 60 "
+          f"SOR iterations, 2x512 MLP, 149 probes, 4 envs, "
+          f"backend='fused'; depth cut: {episodes} episodes of {intervals} "
+          f"actions after a 30 t.u. warmup; deterministic algorithms on; "
+          f"card {card}")
+
+    def cfg_for(n, **kw):
+        return TrainConfig(env=env_cfg, n_envs=4, episodes=n, seed=0,
+                           backend="fused", device="cuda", **kw)
+
+    def same(what, a, b):
+        if not torch.equal(a, b):
+            fail(f"io replay: {what} differs from the live run")
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) record
+        built, batches = [], []
+        cfg = cfg_for(episodes,
+                      sink=engine_mod.SinkSpec(kind="dataset",
+                                               root=str(base / "ds")),
+                      ckpt_dir=str(base / "ck"), ckpt_every=episodes)
+        reset_counts()
+        with observed(engine_mod.SinkSpec, "build", after=built.append), \
+                observed(engine_mod, "ppo_update",
+                         before=lambda *a: batches.append(a[4])):
+            (hist, model), secs = wall(lambda: train(
+                cfg, log_fn=lambda m: print(f"[io record] {m}")))
+        launched = counts()["fused_interval"]
+        sink = built[0]
+        per_ep = sink.bytes_written / sink.episodes
+        print(f"[io record] train() with a dataset sink: {episodes} episodes "
+              f"in {secs:.3f} s, episode walls {hist['wall'].tolist()}, "
+              f"fused launches {launched}; dataset appends: "
+              f"{sink.bytes_written} bytes in {sink.episodes} records "
+              f"({per_ep:.0f} bytes a record), {sink.time_spent:.6f} s "
+              f"caller-visible ({sink.time_spent / sink.episodes:.6f} s an "
+              f"episode: the copy to the host, pack, write, fsync, "
+              f"manifest), {sink.retries} retries")
+        if launched != episodes * intervals + 1:
+            fail(f"io record: the fused kernel launched {launched} times, "
+                 f"expected {episodes * intervals + 1} (one per interval "
+                 f"and the warmup's)")
+        reader = TrajectoryReader(str(base / "ds"))
+        if reader.episodes != list(range(episodes)):
+            fail(f"io record: the dataset holds episodes {reader.episodes}")
+        want_meta = json.loads(json.dumps(ts_mod.run_metadata(
+            n_envs=4, obs_dim=149, seed=0, grid=env_cfg.grid,
+            horizon=intervals, steps_per_action=env_cfg.steps_per_action,
+            scenarios=None,
+            policy={"policy": "mlp", "obs_dim": 149, "act_dim": 1}),
+            default=str))
+        if reader.metadata != want_meta:
+            fail(f"io record: the manifest's metadata {reader.metadata} is "
+                 f"not the run fingerprint {want_meta}")
+        live, _ = ts_mod.load_train_state(
+            ck.latest_checkpoint(str(base / "ck")), "cuda")
+
+        # (b) replay from the seed, through the same update
+        meta = reader.metadata
+        engine = engine_mod.RolloutEngine(None, engine_mod.EngineConfig(
+            n_envs=meta["n_envs"], horizon=meta["horizon"],
+            gamma=cfg.ppo.gamma, lam=cfg.ppo.lam, timing=True))
+        pcfg = networks.PolicyConfig(obs_dim=meta["obs_dim"],
+                                     act_dim=meta["policy"]["act_dim"])
+        rmodel, optimizer, opt_state, gen = engine.init(
+            pcfg, cfg.ppo, meta["seed"], "cuda")
+        steps = []
+        reset_counts()
+        (rmodel, opt_state, returns), rsecs = wall(lambda: engine.replay_sync(
+            reader, rmodel, opt_state, cfg.ppo, optimizer, len(reader),
+            generator=gen, on_state=lambda c: steps.append(c.step)))
+        if counts()["fused_interval"] != 0:
+            fail("io replay launched the fused kernel")
+        for (k, a), b in zip(rmodel.state_dict().items(),
+                             model.state_dict().values()):
+            same(f"param {k}", a, b)
+        for k in ("m", "v"):
+            for a, b in zip(opt_state[k], live.opt_state[k]):
+                same(f"Adam {k}", a, b)
+        same("the generator state", gen.get_state(), live.rng)
+        if steps[-1] != live.step:
+            fail(f"io replay: PPO step {steps[-1]}, live {live.step}")
+        if not np.array_equal(returns, hist["reward"]):
+            fail(f"io replay: returns {returns} != live {hist['reward']}")
+        print(f"[io replay] replay_sync of {len(reader)} episodes in "
+              f"{rsecs:.3f} s (PPO update {engine.stats['update_s']:.3f} s "
+              f"of it), no fused launch; params, Adam m/v, PPO step "
+              f"{steps[-1]}, generator state and returns {returns.tolist()} "
+              f"equal to the live run's, bit for bit")
+
+        # (c) damaged copies are refused, never replayed
+        shard = sorted((base / "ds").glob("shard_*.bin"))[-1]
+        cut = base / "truncated"
+        shutil.copytree(base / "ds", cut)
+        with open(cut / shard.name, "r+b") as f:
+            f.truncate(shard.stat().st_size - 8)
+        flip = base / "flipped"
+        shutil.copytree(base / "ds", flip)
+        rec = json.loads((flip / "manifest.json").read_text())["episodes"]["1"]
+        with open(flip / rec["shard"], "r+b") as f:
+            f.seek(rec["offset"] + 8 + rec["length"] // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        for what, root, match in (("truncated", cut, "truncated shard"),
+                                  ("flipped", flip, "crc32 mismatch")):
+            try:
+                engine.replay_sync(TrajectoryReader(str(root)), rmodel,
+                                   opt_state, cfg.ppo, optimizer, 2,
+                                   generator=gen, start=1 if what ==
+                                   "flipped" else 0)
+            except DatasetError as e:
+                if match not in str(e):
+                    fail(f"io {what}: refused with {e}, expected "
+                         f"{match!r}")
+                print(f"[io durability] {what} copy refused: {e}")
+            else:
+                fail(f"io {what}: the damaged dataset replayed")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+    # (d) the paper's interface on the second episode's PPO batch
+    batch = batches[-1]
+    for mode in ("file_baseline", "optimized", "disabled"):
+        iface = MultiEnvInterface(mode, str(base / "iface" / mode), 4)
+        _, secs = wall(lambda: iface.exchange(batch))
+        obs = batch.obs.cpu().numpy().reshape(4, intervals, -1)
+        acts = batch.act.cpu().numpy().reshape(4, -1)
+        for i, fi in enumerate(iface.envs if mode != "disabled" else ()):
+            back = fi.read_actuation(0)
+            # the ASCII dump prints 10 significant digits (float32 needs 9)
+            # and the config text the action to 8 decimals; binary is exact
+            want = obs[i].ravel().astype(np.float64)
+            act = float(acts[i, 0])
+            if mode == "file_baseline":
+                ok = np.allclose(back.obs, want, rtol=1e-9, atol=0.0)
+                act = float(f"{act:.8f}")
+            else:
+                ok = np.array_equal(back.obs, obs[i].ravel())
+            if not ok:
+                fail(f"io interface {mode}: env {i}'s probes did not read "
+                     f"back")
+            if back.action != act:
+                fail(f"io interface {mode}: env {i}'s action read back "
+                     f"{back.action}, wrote {act}")
+        print(f"[io interface {mode}] {iface.bytes_moved} bytes per exchange "
+              f"({iface.bytes_moved / 4:.0f} per env), {secs:.6f} s host "
+              f"per exchange (timed {iface.time_spent:.6f} s inside), every "
+              f"record read back; card {card}")
+        iface.cleanup()
+
+    fsink = engine_mod.SinkSpec(kind="binary",
+                                root=str(base / "spill")).build()
+    iface = MultiEnvInterface("optimized", str(base / "iface" / "train"), 4)
+    trajs = []
+    reset_counts()
+    (hist, _), secs = wall(lambda: train(
+        cfg_for(1), log_fn=lambda m: print(f"[io train] {m}"),
+        interface=iface, sink=fsink,
+        on_episode=lambda traj, m: trajs.append(traj)))
+    launched = counts()["fused_interval"]
+    if launched != intervals + 1 or iface.period != 1:
+        fail(f"io train: {launched} fused launches, {iface.period} "
+             f"exchanges")
+    back = fsink.read(0)
+    for f, a, b in zip(back._fields, trajs[0], back):
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a.cpu().numpy(), b)):
+            fail(f"io train: the binary file's {f} differs from the "
+                 f"episode's trajectory")
+    print(f"[io train] 1 episode in {secs:.3f} s with the optimized "
+          f"interface ({iface.bytes_moved} bytes, {iface.time_spent:.6f} s) "
+          f"and a binary sink: {fsink.bytes_written} bytes, "
+          f"{fsink.time_spent:.6f} s caller-visible; the file reads back "
+          f"equal to the episode's trajectory; fused launches {launched}; "
+          f"card {card}")
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(io_path_launches=episodes * intervals + 1,
+                io_path=("train(sink=SinkSpec(kind='dataset')), warmup + 2 "
+                         "episodes; replay_sync launches none"),
+                io_record_bytes=per_ep, io_replay_s=rsecs)
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     import os
@@ -1615,7 +1841,10 @@ def main():
     if bodies["robust_path_launches"] < 1:
         fail("the robust path did not launch the per-body instantiation")
 
-    # 8. the kernels, the card, the result
+    # 8. the I/O path: record, replay, durability, the file interface
+    fused.update(io_path(card))
+
+    # 9. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

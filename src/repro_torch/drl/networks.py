@@ -256,9 +256,25 @@ def sample_action(model: nn.Module, obs, *,
     std = torch.exp(log_std)
     if eps is None:
         # drawn on the generator's (CPU) device, then moved
-        eps = torch.randn(mean.shape, generator=generator).to(mean.device)
+        eps = _action_noise(mean.shape, generator).to(mean.device)
     act = mean + std * eps
     return act, _gauss_logp(act, mean, log_std)
+
+
+def _action_noise(shape, generator: Optional[torch.Generator]):
+    return torch.randn(shape, generator=generator)
+
+
+def burn_action_noise(n: int, act_dim: int, steps: int,
+                      generator: Optional[torch.Generator]) -> None:
+    """Advance ``generator`` exactly as ``steps`` calls of
+    ``sample_action`` on an (n, act_dim) mean without ``eps`` do: the same
+    draws, in the same order, dropped.  Offline replay burns an episode's
+    rollout noise this way, so the generator reaches the PPO update in the
+    live run's state (one draw of steps * n * act_dim values need not
+    leave it there)."""
+    for _ in range(steps):
+        _action_noise((n, act_dim), generator)
 
 
 def log_prob(model: nn.Module, obs, act, aux=None):

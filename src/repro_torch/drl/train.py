@@ -16,9 +16,15 @@ every ``ckpt_every`` episodes, the write on a background thread.
 ``resume=`` restarts from the latest valid checkpoint with no warmup and
 no reset, bitwise identical to an uninterrupted run on the same device.
 The watchdog (``drl/health.py``) rolls a diverging run back to its last
-healthy checkpoint and replays it, a bounded number of times.  Plans,
-fleets and trajectory sinks are not ported yet; the history has the
-reference's keys.
+healthy checkpoint and replays it, a bounded number of times.
+
+The paper's I/O layer, as in the reference: ``TrainConfig.sink`` (or an
+explicit ``sink=``) spills every episode's trajectories, a dataset sink
+recording the run fingerprint in its manifest, so the run can be replayed
+offline (``RolloutEngine.replay_sync``); ``interface=`` routes each
+episode's PPO batch through the CFD<->DRL file interface
+(``core.interface.MultiEnvInterface``).  Plans and fleets are not ported
+yet; the history has the reference's keys.
 
 Fresh and resumed runs share one loop: both build the model, optimizer
 state, generator and env batch first (fresh from the seed and a warmup,
@@ -42,14 +48,15 @@ from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.device import resolve_device
 from repro_torch.drl import networks
 from repro_torch.drl import train_state as ts_mod
-from repro_torch.drl.engine import EngineConfig, RolloutEngine
+from repro_torch.drl.engine import (EngineConfig, RolloutEngine, SinkSpec,
+                                    TrajectorySink)
 from repro_torch.drl.health import DivergenceError, resolve_watchdog
 from repro_torch.drl.ppo import PPOConfig, make_optimizer
 from repro_torch.drl.train_state import HISTORY_FIELDS, TrainState
 
 # the self-healing counters train() reports in ``health`` and stores in
 # every checkpoint's metadata
-HEALTH_FIELDS = ("quarantines", "grad_skips", "rollbacks")
+HEALTH_FIELDS = ("quarantines", "grad_skips", "rollbacks", "sink_retries")
 
 
 @dataclass
@@ -85,6 +92,10 @@ class TrainConfig:
     # rolls back to the last healthy checkpoint (a fresh restart when
     # ckpt_dir is unset) and replays, bounded by max_rollbacks.
     watchdog: Any = True
+    # trajectory spill: one SinkSpec for every strategy ('none' | 'memory' |
+    # 'binary' | 'zstd' | 'dataset'); an explicit sink= to train() wins.
+    # The run fingerprint (run_metadata) is annotated into dataset manifests.
+    sink: Optional[SinkSpec] = None
     backend: str = "fused"        # solver backend of every interval
     device: str = "cuda"
 
@@ -92,9 +103,10 @@ class TrainConfig:
 def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
           model: Optional[torch.nn.Module] = None,
           noise: Optional[Sequence] = None, perms: Optional[Sequence] = None,
+          interface=None, sink: Optional[TrajectorySink] = None,
           on_episode: Optional[Callable] = None,
           health: Optional[Dict[str, Any]] = None,
-          _rollbacks: int = 0,
+          _rollbacks: int = 0, _sink_retries0: int = 0,
           ) -> Tuple[Dict[str, np.ndarray], torch.nn.Module]:
     """Returns (history dict of per-episode arrays, trained model).
 
@@ -103,16 +115,20 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     a resumed run takes the checkpoint's.  ``noise[e]`` ((n_envs, T,
     act_dim)) and ``perms[e]`` ((epochs, n_envs * T)) inject episode
     ``e``'s rollout noise and PPO permutations, ``e`` counted from the
-    run's first episode.  ``on_episode(traj, metrics)`` is an extra
-    per-episode hook; it fires after the built-in logging.  ``health``
-    (optional dict, filled in place) receives the self-healing counters
-    (quarantines, grad_skips, rollbacks: the numbers stored under
-    ``"health"`` in checkpoint metadata) and, with ``ckpt_dir``, the
+    run's first episode.  ``interface`` (a ``MultiEnvInterface``) gets
+    each episode's PPO batch between collect and update.  ``sink`` spills
+    the episodes in place of the one ``cfg.sink`` would build.
+    ``on_episode(traj, metrics)`` is an extra per-episode hook; it fires
+    after the built-in logging.  ``health`` (optional dict, filled in
+    place) receives the self-healing counters (quarantines, grad_skips,
+    rollbacks, sink_retries: the numbers stored under ``"health"`` in
+    checkpoint metadata) and, with ``ckpt_dir``, the
     checkpoint writer's ``ckpt_saves``, ``ckpt_bytes``,
     ``ckpt_time_blocked`` (caller-visible seconds) and
     ``ckpt_time_waited`` (the part of it spent waiting for the previous
     write), summed over rollbacks.
-    ``_rollbacks`` is internal: the watchdog-rollback retry depth."""
+    ``_rollbacks`` / ``_sink_retries0`` are internal: the watchdog-rollback
+    retry depth and the retries counted by the sinks of rolled-back runs."""
     device = resolve_device(cfg.device)
     env = CylinderEnv(cfg.env, backend=cfg.backend, device=device)
     ts: Optional[TrainState] = None
@@ -148,13 +164,17 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     engine = RolloutEngine.for_env(
         env, EngineConfig(n_envs=cfg.n_envs,
                           horizon=cfg.env.actions_per_episode,
-                          gamma=cfg.ppo.gamma, lam=cfg.ppo.lam))
+                          gamma=cfg.ppo.gamma, lam=cfg.ppo.lam,
+                          sink=cfg.sink), sink=sink)
     run_meta = ts_mod.run_metadata(
         n_envs=cfg.n_envs, obs_dim=obs_dim, seed=cfg.seed,
         grid=cfg.env.grid, horizon=cfg.env.actions_per_episode,
         steps_per_action=cfg.env.steps_per_action, scenarios=cfg.scenarios,
         policy={"policy": cfg.policy, "obs_dim": obs_dim,
                 "act_dim": act_dim})
+    if engine.sink is not None:
+        # durable datasets record which run (and which code) produced them
+        engine.sink.annotate(**run_meta)
 
     init_model = None if model is None else copy.deepcopy(model)
     if ts is None:
@@ -202,13 +222,16 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
             if len(hist[f]) < len(hist["reward"]):
                 hist[f] += [0.0] * (len(hist["reward"]) - len(hist[f]))
     ep0 = 0 if ts is None else ts.episode
+    engine.episode = ep0              # sink episode ids continue, not restart
     watchdog = resolve_watchdog(cfg.watchdog)
     health = {} if health is None else health
 
     def fill_health() -> Dict[str, Any]:
         health.update(quarantines=int(round(sum(hist["quarantines"]))),
                       grad_skips=int(round(sum(hist["grad_skips"]))),
-                      rollbacks=int(_rollbacks))
+                      rollbacks=int(_rollbacks),
+                      sink_retries=_sink_retries0 + (
+                          engine.sink.retries if engine.sink else 0))
         return {k: health[k] for k in HEALTH_FIELDS}
 
     remaining = cfg.episodes - ep0
@@ -287,6 +310,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
             generator=generator, step=step,
             noise=None if noise is None else noise[ep0:],
             perms=None if perms is None else perms[ep0:],
+            on_batch=None if interface is None else interface.exchange,
             on_episode=on_episode, on_state=on_state)
     except DivergenceError as e:
         divergence = e
@@ -323,9 +347,16 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
                    f"(retry {_rollbacks + 1}/{max_rb})")
         retry_cfg = dataclasses.replace(
             cfg, resume="auto" if cfg.ckpt_dir else None)
+        # a cfg-built sink dies with this engine, so its retry count is
+        # carried forward; an explicit sink= object survives the recursion
+        # and keeps its own count
+        prior = (0 if sink is not None
+                 else _sink_retries0 + (engine.sink.retries
+                                        if engine.sink else 0))
         return train(retry_cfg, log_fn=log_fn, model=init_model,
-                     noise=noise, perms=perms, on_episode=ep_hook,
-                     health=health, _rollbacks=_rollbacks + 1)
+                     noise=noise, perms=perms, interface=interface,
+                     sink=sink, on_episode=ep_hook, health=health,
+                     _rollbacks=_rollbacks + 1, _sink_retries0=prior)
 
     fill_health()
     return {k: np.asarray(v) for k, v in hist.items()}, model

@@ -6,6 +6,8 @@ a GPU host without jax:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -861,3 +863,50 @@ def test_nan_env_isolated_across_envs_and_clusters_on_card(cuda,
     for f in ("obs", "reward", "cd", "cl"):
         assert torch.equal(getattr(out, f)[keep], getattr(clean_out, f)[keep])
     assert all(torch.isfinite(a).all() for a in hit.flow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["mlp", "attention"])
+def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
+                                                            deterministic,
+                                                            tmp_path,
+                                                            policy):
+    """train(sink=SinkSpec(kind="dataset")) on a mixed cylinder + pinball
+    batch, res 8, 4 envs, then replay_sync of the dataset from the seed in
+    its manifest: params, Adam moments, PPO step, generator state and
+    returns equal to the live run's bit for bit, and the replay launches
+    no fused kernel."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.data.trajectory_dataset import TrajectoryReader
+    from repro_torch.drl import networks
+    from repro_torch.drl import train_state as ts_mod
+    from repro_torch.drl.engine import EngineConfig, RolloutEngine, SinkSpec
+    from repro_torch.drl.train import train
+    cfg = dataclasses.replace(
+        _robust_cfg(2, str(tmp_path / "ck"),
+                    sink=SinkSpec(kind="dataset", root=str(tmp_path / "ds"))),
+        policy=policy)
+    hist, model = train(cfg, log_fn=None)
+    live, _ = ts_mod.load_train_state(
+        ck.latest_checkpoint(str(tmp_path / "ck")), cuda)
+    reader = TrajectoryReader(str(tmp_path / "ds"))
+    meta = reader.metadata
+    engine = RolloutEngine(None, EngineConfig(
+        n_envs=meta["n_envs"], horizon=meta["horizon"], gamma=cfg.ppo.gamma,
+        lam=cfg.ppo.lam))
+    pcfg = networks.PolicyConfig(**meta["policy"])
+    model_r, optimizer, opt_state, gen = engine.init(pcfg, cfg.ppo,
+                                                     meta["seed"], cuda)
+    n0 = aops.fused_interval_cuda.launches
+    model_r, opt_state, returns = engine.replay_sync(
+        reader, model_r, opt_state, cfg.ppo, optimizer, len(reader),
+        generator=gen)
+    assert aops.fused_interval_cuda.launches == n0
+    for (k, a), b in zip(model_r.state_dict().items(),
+                         model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for k in ("m", "v"):
+        for x, y in zip(opt_state[k], live.opt_state[k]):
+            assert torch.equal(x, y)
+    assert torch.equal(gen.get_state(), live.rng)
+    np.testing.assert_array_equal(returns, hist["reward"])

@@ -38,7 +38,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert "repro_torch.drl.train" in res["modules"]
     assert "repro_torch.models.model" in res["modules"]
     for name in ("testing.faults", "ckpt.io", "ckpt.checkpoint",
-                 "drl.health", "drl.train_state"):
+                 "drl.health", "drl.train_state", "core.interface",
+                 "data.trajectory_dataset", "data.pipeline"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 
