@@ -80,7 +80,25 @@ Phases (any failure exits non-zero):
    episode of ``train(interface=..., sink=...)`` with the optimized
    interface and a binary sink whose file must read back equal to the
    episode's trajectory;
-9. one JSON line listing the five kernels, then the card's line and the
+9. the async trainer and the planner at the main path's widths (res 16,
+   50 dt per action, 4 envs, 2x512 MLP, backend="fused", 3 episodes of
+   100 actions after one warmup): (a) under
+   ``torch.use_deterministic_algorithms``, ``RolloutEngine.run_async``
+   (the update's pieces issued between the collect's actions, on a
+   second CUDA stream) must equal bit for bit (params, Adam moments, PPO
+   step, generator state, returns) a serial emulation of its schedule
+   (one stream, a synchronise between collect and update) and the same
+   schedule with the update issued from a worker thread on a second
+   stream, and must differ from
+   ``run_sync``; one fused launch per interval in each; (b) each run's
+   episode walls and the card's time of every collect and update, with
+   their overlap (CUDA events on both streams): no overlap in
+   ``run_async``'s steady episodes fails; (c) ``autotune`` at res 16 with
+   its artifact validated, which must choose (1, 1) and "fused"; (d)
+   ``train(plan="auto")`` for 1 episode: one fused launch per interval and
+   one for the warmup beside the probe's; (e) ``async_speedup`` of the
+   refit model beside the measured ratio;
+10. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Imports nothing of jax or of the reference package.
@@ -1263,6 +1281,31 @@ def observed(module, name, before=None, after=None):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def observed_steps(module, name, first=None, last=None):
+    """Wrap the generator function ``module.name`` for the duration:
+    ``first()`` runs when its first step starts, ``last()`` when its last
+    step ends, each on the stream its caller made current for that step;
+    the steps themselves are unchanged."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        def steps():
+            if first is not None:
+                first()
+            out = yield from fn(*args, **kw)
+            if last is not None:
+                last()
+            return out
+        return steps()
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def robust_path(mlp_episode_s):
     """Phase 7: the attention policy and the robust training path on the
     card, at full width, every run under torch.use_deterministic_algorithms
@@ -1706,6 +1749,314 @@ def io_path(card):
                 io_record_bytes=per_ep, io_replay_s=rsecs)
 
 
+def async_path(card):
+    """Phase 9: the async trainer and the planner on the card at the
+    training shape (res 16, 4 envs, 50 dt per action, 149 probes, 2x512
+    MLP, 3 episodes of 100 actions after one warmup).  (a) Under
+    deterministic algorithms: ``RolloutEngine.run_async``; a serial
+    emulation of its schedule (the same refresh, permutation draws, collect
+    and update order, one stream, a synchronise between collect and
+    update); the same schedule with the update issued from a worker thread
+    on a second stream (the design ``run_async`` does not use: the two
+    threads contend for the interpreter lock); ``run_sync``.  The three
+    async
+    runs must agree bit for bit (params, Adam m / v, PPO step, generator
+    state, returns) and differ from ``run_sync``.  (b) Each run's episode
+    walls and the device time of each collect and update, with the overlap
+    of the two streams (CUDA events at the start and end of each); no
+    overlap in the steady episodes of ``run_async`` fails.  (c)
+    ``autotune`` at res 16 with its artifact validated: (1, 1) and
+    "fused" expected.  (d) ``train(plan="auto")`` for 1 episode: one fused
+    launch per interval and the warmup's, beside the probe's.  (e)
+    ``async_speedup`` of the refit model beside the measured ratio.
+    Returns the launch counts for the kernels line."""
+    import copy
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.cfd.env import CylinderEnv, EnvConfig, \
+        broadcast_env_state
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.core import autotune as at
+    from repro_torch.drl import engine as engine_mod
+    from repro_torch.drl import networks
+    from repro_torch.drl.async_train import async_speedup
+    from repro_torch.drl.engine import EngineConfig, RolloutEngine
+    from repro_torch.drl.ppo import PPOConfig
+    from repro_torch.drl.train import TrainConfig, train
+    intervals, episodes, n_env = 100, 3, 4
+    grid = GridConfig(res=16)
+    env_cfg = EnvConfig(grid=grid, steps_per_action=50,
+                        actions_per_episode=intervals, warmup_time=30.0)
+    ppo_cfg = PPOConfig()
+    base = ROOT / "build" / "async_path"
+    shutil.rmtree(base, ignore_errors=True)
+    print(f"[async] full width: res 16 (ny 66, nx 352), 50 dt per action, "
+          f"60 SOR iterations, 2x512 MLP, 149 probes, {n_env} envs, "
+          f"backend='fused'; depth cut: {episodes} episodes of {intervals} "
+          f"actions after one 30 t.u. warmup; deterministic algorithms on "
+          f"in (a); card {card}")
+    env = CylinderEnv(env_cfg, backend="fused", device="cuda")
+    st0, obs0 = env.reset()
+    st_b, obs_b = broadcast_env_state(st0, obs0, n_env)
+    pcfg = networks.PolicyConfig(obs_dim=int(obs_b.shape[-1]))
+    rec = {}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()                       # on this thread's current stream
+        return ev
+
+    def mark(*_):
+        rec["host"].append(time.perf_counter())
+
+    def run(tag, loop):
+        eng = RolloutEngine.for_env(env, EngineConfig(
+            n_envs=n_env, horizon=intervals, gamma=ppo_cfg.gamma,
+            lam=ppo_cfg.lam))
+        model, optimizer, opt_state, gen = eng.init(pcfg, ppo_cfg, 0, "cuda")
+        rec.update(collect=[], update=[], host=[])
+        torch.cuda.synchronize()
+        t0 = event()
+        reset_counts()
+        mark()
+        with observed(RolloutEngine, "collect",
+                      before=lambda *a: rec["collect"].append([event()]),
+                      after=lambda o: rec["collect"][-1].append(event())), \
+                observed(engine_mod, "ppo_update",
+                         before=lambda *a: rec["update"].append([event()]),
+                         after=lambda o: rec["update"][-1].append(event())), \
+                observed_steps(engine_mod, "ppo_update_steps",
+                               first=lambda: rec["update"].append([event()]),
+                               last=lambda: rec["update"][-1].append(
+                                   event())):
+            opt_state, step, returns = loop(eng, model, optimizer,
+                                            opt_state, gen)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        out = dict(model=model, opt_state=opt_state, step=step,
+                   rng=gen.get_state(), returns=np.asarray(returns),
+                   launches=counts()["fused_interval"])
+        walls = np.diff(rec["host"]).tolist()
+        span = [[t0.elapsed_time(a), t0.elapsed_time(b)]
+                for a, b in rec["collect"] + rec["update"]]
+        c_span, u_span = span[:episodes], span[episodes:]
+        # collect e runs beside the update of e-1's batch (the e-th update)
+        overlap = [max(0.0, min(c[1], u[1]) - max(c[0], u[0]))
+                   for c, u in zip(c_span[1:], u_span)]
+        out.update(walls=walls, overlap_ms=overlap,
+                   collect_ms=[b - a for a, b in c_span],
+                   update_ms=[b - a for a, b in u_span])
+        print(f"[async {tag}] {episodes} episodes in "
+              f"{end - rec['host'][0]:.3f} s; episode walls {walls} s (the "
+              f"last update after them: {end - rec['host'][-1]:.3f} s); on "
+              f"the card: collects {out['collect_ms']} ms, updates "
+              f"{out['update_ms']} ms, collect e beside update e-1 overlapping "
+              f"{overlap} ms; fused launches {out['launches']}, returns "
+              f"{out['returns'].tolist()}")
+        if out["launches"] != episodes * intervals:
+            fail(f"async {tag}: {out['launches']} fused launches, expected "
+                 f"one per interval ({episodes * intervals})")
+        return out
+
+    def run_async(eng, model, optimizer, opt_state, gen):
+        carry = {}
+        _, opt_state, returns = eng.run_async(
+            model, opt_state, ppo_cfg, optimizer, st_b, obs_b, episodes,
+            generator=gen, on_episode=mark,
+            on_state=lambda c: carry.update(step=c.step),
+            state_every=episodes + 1)
+        return opt_state, carry["step"], returns
+
+    def run_sync(eng, model, optimizer, opt_state, gen):
+        carry = {}
+        _, opt_state, returns = eng.run_sync(
+            model, opt_state, ppo_cfg, optimizer, st_b, obs_b, episodes,
+            generator=gen, on_episode=mark,
+            on_state=lambda c: carry.update(step=c.step))
+        return opt_state, carry["step"], returns
+
+    def emulate(worker):
+        """run_async's schedule without its interleaving: the same refresh,
+        permutation draws, collect and update order, the update either on
+        the collect's stream with a synchronise after each collect and each
+        update, or (``worker``) issued from a worker thread on a second
+        stream beside the collect, events ordering the two."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def loop(eng, model, optimizer, opt_state, gen):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream() if worker else None
+            behaviour = copy.deepcopy(model)
+            state = dict(opt_state=opt_state, step=0, job=None, held=None)
+
+            def update(batch, perm, opt_state, step, ready):
+                with contextlib.nullcontext() if side is None \
+                        else torch.cuda.stream(side):
+                    if ready is not None:
+                        side.wait_event(ready)
+                    out = engine_mod.ppo_update(
+                        ppo_cfg, optimizer, model, opt_state, batch, step,
+                        perms=perm)
+                    done = torch.cuda.Event()
+                    done.record()
+                return out, done
+
+            def issue(batch):
+                perm = torch.stack([torch.randperm(batch.obs.shape[0],
+                                                   generator=gen)
+                                    for _ in range(ppo_cfg.epochs)])
+                args = (batch, perm, state["opt_state"], state["step"])
+                state["held"] = args       # freed once main is after it
+                if worker:
+                    ready = torch.cuda.Event()
+                    ready.record()
+                    state["job"] = pool.submit(update, *args, ready)
+                else:
+                    state["job"] = update(*args, None)
+                    torch.cuda.synchronize()
+
+            def settle():
+                job = state["job"]
+                if job is None:
+                    return
+                (opt, step, _), done = job.result() if worker else job
+                main.wait_event(done)
+                state.update(opt_state=opt, step=step, job=None, held=None)
+
+            pending, returns = None, []
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                for _ in range(episodes):
+                    settle()
+                    behaviour.load_state_dict(model.state_dict())
+                    if pending is not None:
+                        issue(pending)
+                    pending, traj = eng.collect(behaviour, st_b, obs_b,
+                                                generator=gen, record=False)
+                    if not worker:
+                        torch.cuda.synchronize()
+                    returns.append(float(torch.mean(torch.sum(traj.reward,
+                                                              dim=1))))
+                    mark()
+                settle()
+                issue(pending)
+                settle()
+            return state["opt_state"], state["step"], returns
+        return loop
+
+    def same(tag, a, b):
+        checks = [("step", a["step"] == b["step"]),
+                  ("generator state", torch.equal(a["rng"], b["rng"])),
+                  ("returns", np.array_equal(a["returns"], b["returns"]))]
+        checks += [(f"param {k}", torch.equal(x, y)) for (k, x), y in zip(
+            a["model"].state_dict().items(),
+            b["model"].state_dict().values())]
+        checks += [(f"Adam {k}[{j}]", torch.equal(x, y))
+                   for k in ("m", "v") for j, (x, y) in enumerate(
+                       zip(a["opt_state"][k], b["opt_state"][k]))]
+        return [what for what, ok in checks if not ok]
+
+    # (a) + (b): the async schedule against its emulations and run_sync
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        sync = run("run_sync", run_sync)
+        asyn = run("run_async", run_async)
+        serial = run("serial emulation", emulate(worker=False))
+        threaded = run("worker-thread emulation", emulate(worker=True))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for tag, other in (("the serial emulation", serial),
+                       ("the worker-thread emulation", threaded)):
+        diff = same(tag, asyn, other)
+        if diff:
+            fail(f"async: run_async differs from {tag} in {diff[:5]}")
+    if not same("run_sync", asyn, sync):
+        fail("async: run_async's final params equal run_sync's: the "
+             "schedule shows no staleness")
+    print(f"[async] run_async equal to the serial emulation and to the "
+          f"worker-thread emulation bit for bit (params, Adam m / v, step "
+          f"{asyn['step']}, generator state, returns); different from "
+          f"run_sync's (step {sync['step']})")
+    steady = slice(1, episodes)
+    if not any(x > 0 for x in asyn["overlap_ms"]):
+        fail(f"async: no steady episode overlaps collect and update on the "
+             f"card: {asyn['overlap_ms']} ms")
+    sync_ep = float(np.mean(sync["walls"][steady]))
+    async_ep = float(np.mean(asyn["walls"][steady]))
+    print(f"[async] steady episode (episodes 1-{episodes - 1}): run_sync "
+          f"{sync_ep:.4f} s, run_async {async_ep:.4f} s (ratio "
+          f"{sync_ep / async_ep:.4f}), worker-thread emulation "
+          f"{float(np.mean(threaded['walls'][steady])):.4f} s, serial "
+          f"emulation {float(np.mean(serial['walls'][steady])):.4f} s; "
+          f"card {card}")
+
+    # (c) the autotuner at res 16
+    art = base / "autotune.json"
+    reset_counts()
+    rp, secs = wall(lambda: at.autotune(grid=grid, device="cuda",
+                                        artifact=str(art)))
+    tuned = counts()
+    record = json.loads(art.read_text())
+    at.validate_artifact(record)
+    m = record["measured"]
+    print(f"[autotune] {secs:.3f} s on {m['device']}; measured: t_step "
+          f"{m['t_step_ranks']} s ({m['t_step_backends']}), pressure solve "
+          f"{m['t_poisson_layouts']} s, {m['interval_probe_steps']}-dt "
+          f"interval {m['t_interval_backends']} s, policy {m['t_policy']} "
+          f"s, update {m['t_update']} s, io {m['io']}; predicted: "
+          f"{record['predicted']}; plan {record['plan']}; launches {tuned}")
+    print(f"[autotune] {rp.describe()}")
+    if (rp.n_envs, rp.n_ranks) != (1, 1) or rp.backend != "fused":
+        fail(f"autotune chose {(rp.n_envs, rp.n_ranks)} with backend "
+             f"{rp.backend!r}, expected (1, 1) and 'fused'")
+
+    # (d) train(plan="auto"): the plan's backend drives the env
+    probe = {}
+    reset_counts()
+    with observed(at, "autotune",
+                  before=lambda *a: probe.update(before=counts()),
+                  after=lambda o: probe.update(after=counts(), plan=o)):
+        (hist, model), secs = wall(lambda: train(
+            TrainConfig(env=env_cfg, n_envs=n_env, episodes=1, seed=0,
+                        plan="auto", device="cuda"),
+            log_fn=lambda msg: print(f"[train plan=auto] {msg}")))
+    auto = counts()
+    probe_launches = {k: probe["after"][k] - probe["before"][k]
+                      for k in auto}
+    path_fused = auto["fused_interval"] - probe_launches["fused_interval"]
+    print(f"[train plan=auto] 1 episode in {secs:.3f} s, wall "
+          f"{hist['wall'].tolist()}; launches {auto}, of them the plan's "
+          f"probe {probe_launches}")
+    if probe["plan"].backend != "fused" or path_fused != intervals + 1:
+        fail(f"train(plan='auto') ran backend {probe['plan'].backend!r} with "
+             f"{path_fused} fused launches outside the probe, expected "
+             f"'fused' and {intervals + 1} (one per interval, one warmup)")
+
+    # (e) the cost model's async gain beside the measured one
+    gain = async_speedup(rp.model, rp.plan)
+    per_dt = (m["t_interval_backends"]["fused"] / m["interval_probe_steps"])
+    gain_fused = async_speedup(dataclasses.replace(rp.model, t_step_1=per_dt),
+                               rp.plan)
+    print(f"[async] async_speedup of the refit model {gain}; with t_step_1 "
+          f"the fused interval's per dt ({per_dt:.3e} s) {gain_fused}; "
+          f"measured steady ratio {sync_ep / async_ep:.4f}")
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(
+        fused=dict(async_path_launches=asyn["launches"],
+                   async_path=("RolloutEngine.run_async, 3 episodes after "
+                               "one warmup, 1 per interval"),
+                   autotune_launches=tuned["fused_interval"],
+                   plan_auto_launches=auto["fused_interval"],
+                   plan_auto_path=("train(plan='auto'): the probe's, the "
+                                   "warmup's and 1 per interval")),
+        sor=dict(autotune_launches=tuned["rb_sor_slabs_packed"],
+                 autotune_path=("autotune t_step_ranks[1]: solver.step("
+                                "backend='pallas'), 1 per solve")),
+        async_episode_s=async_ep, sync_episode_s=sync_ep)
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     import os
@@ -1844,7 +2195,12 @@ def main():
     # 8. the I/O path: record, replay, durability, the file interface
     fused.update(io_path(card))
 
-    # 9. the kernels, the card, the result
+    # 9. the async trainer and the planner
+    planned = async_path(card)
+    fused.update(planned["fused"])
+    sor.update(planned["sor"])
+
+    # 10. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

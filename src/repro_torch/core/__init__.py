@@ -1,1 +1,2 @@
-"""The paper's CFD <-> DRL data interface (``core.interface``)."""
+"""The paper's CFD <-> DRL data interface (``core.interface``) and its
+parallel planner (``core.plan``, ``core.scaling_model``, ``core.autotune``)."""

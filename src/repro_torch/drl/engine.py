@@ -1,7 +1,12 @@
-"""Rollout engine, synchronous path: collect -> values -> GAE -> flatten,
-then the PPO update (the paper's Fig. 4 loop), with offline replay.
+"""Rollout engine: collect -> values -> GAE -> flatten, then the PPO update
+(the paper's Fig. 4 loop), synchronous or double-buffered, with offline
+replay.
 
-Port of the single-host sync path of ``repro.drl.engine``.  It also holds
+Port of the single-host paths of ``repro.drl.engine``.  ``run_sync``
+alternates collect and update; ``run_async`` overlaps them (the paper's
+§IV refinement): on the card the update runs on a second CUDA stream,
+its pieces issued between the actions of the next episode's collect,
+which reads a behaviour copy of the policy.  It also holds
 the paper's §IV I/O refinement for trajectory spill, a pluggable
 ``TrajectorySink``: in memory, one binary file per episode (msgpack + raw
 fp32, the ``core.interface`` codec), or the sharded on-disk dataset
@@ -12,26 +17,35 @@ are the reference's, so either package reads the other's.  This package
 has no zstd codec: ``codec="zstd"`` writes the binary payload, as the
 reference does where zstandard is not installed.
 
-Meshes, the async double-buffered loop and fleet mode are not ported yet.
+An ``EngineConfig.plan`` resolves through ``core.autotune.resolve_plan``;
+only single-rank, single-process plans execute.  Multi-rank meshes (the
+halo backend, ``cfd/decomp.py``) and fleet mode (``launch/distributed.py``)
+are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import os
 import shutil
 import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from repro_torch.ckpt.io import atomic_write_bytes, retry_io
 from repro_torch.core.interface import pack_arrays, unpack_arrays
+from repro_torch.device import DeviceLike
 from repro_torch.drl import networks, rollout
 from repro_torch.drl.gae import gae_batch
-from repro_torch.drl.ppo import Batch, PPOConfig, make_optimizer, ppo_update
+from repro_torch.drl.ppo import (Batch, PPOConfig, make_optimizer,
+                                 ppo_update, ppo_update_steps)
 from repro_torch.drl.rollout import Trajectory
 from repro_torch.testing import faults
 
@@ -303,10 +317,10 @@ def make_sink(mode: str, root: Optional[str] = None
 # ---------------------------------------------------------------------------
 
 class TrainCarry(NamedTuple):
-    """What ``run_sync`` carries from one episode to the next, handed to
-    ``on_state`` after each update: checkpointing it (with the env batch
-    every episode starts from) and re-entering with it reproduces the
-    remaining episodes bit for bit."""
+    """What the training loops carry from one episode to the next, handed
+    to ``on_state`` after each episode: for ``run_sync``, checkpointing it
+    (with the env batch every episode starts from) and re-entering with it
+    reproduces the remaining episodes bit for bit."""
     model: torch.nn.Module
     opt_state: dict
     step: int
@@ -319,10 +333,16 @@ class EngineConfig:
     horizon: int              # actuation periods per episode (the paper's T)
     gamma: float = 0.99
     lam: float = 0.95
+    n_ranks: int = 1          # grid shards per env (only 1 executes here)
+    # hybrid placement: "auto" (measure + optimize via core.autotune), a
+    # core.plan.ParallelPlan / (n_envs, n_ranks) pair, a ResolvedPlan, or
+    # None.  When set, the engine checks the plan's devices exist and
+    # adopts its n_ranks.
+    plan: Any = None
     # trajectory spill (SinkSpec); an explicit sink= to the engine wins
     sink: Optional[SinkSpec] = None
-    # phase timing: synchronise the card around collect and update so
-    # ``engine.stats`` reports their real shares (off: the loop does not
+    # phase timing: synchronise the card's stream around collect and update
+    # so ``engine.stats`` reports their real shares (off: the loop does not
     # wait for the card more than it must)
     timing: bool = False
 
@@ -331,17 +351,51 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _on_stream(stream):
+    """Make ``stream`` this thread's current stream (no-op for None)."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
+def _draw_perms(n: int, epochs: int,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One update's epoch permutations, drawn as ``ppo_update`` draws them
+    itself: the same calls in the same order, so the generator ends in the
+    same state."""
+    return torch.stack([torch.randperm(n, generator=generator)
+                        for _ in range(epochs)])
+
+
 class RolloutEngine:
     """``collect`` rolls the env batch for one episode and returns the
     flattened PPO ``Batch`` with its ``Trajectory``; ``run_sync`` alternates
-    collect and update for a number of episodes; ``replay_sync`` drives the
-    same update from recorded episodes."""
+    collect and update for a number of episodes, ``run_async`` overlaps
+    them; ``replay_sync`` drives the sync update from recorded episodes.
+
+    ``device`` is where an ``EngineConfig.plan`` is resolved and its
+    devices counted; the loops themselves run on the model's device."""
 
     def __init__(self, env_step_fn: Callable, cfg: EngineConfig, *,
                  sink: Optional[TrajectorySink] = None,
-                 obs_aux_fn: Optional[Callable] = None):
+                 obs_aux_fn: Optional[Callable] = None,
+                 device: DeviceLike = "cuda"):
         self.env_step_fn = env_step_fn
         self.obs_aux_fn = obs_aux_fn
+        self.resolved_plan = None
+        if cfg.plan is not None:
+            from repro_torch.core.autotune import resolve_plan
+            # smoke probe: engine construction must not block on a
+            # full-resolution timing sweep (ignored for explicit plans)
+            self.resolved_plan = resolve_plan(cfg.plan, smoke=True,
+                                              device=device)
+            self.resolved_plan.build_mesh(device)
+            if self.resolved_plan.n_ranks != cfg.n_ranks:
+                cfg = dataclasses.replace(
+                    cfg, n_ranks=self.resolved_plan.n_ranks)
+        if cfg.n_ranks > 1:
+            from repro_torch.core.autotune import not_ported
+            raise not_ported(f"n_ranks = {cfg.n_ranks} (the halo backend)",
+                             "cfd/decomp.py")
         self.cfg = cfg
         if sink is None and cfg.sink is not None:
             sink = cfg.sink.build()
@@ -354,12 +408,14 @@ class RolloutEngine:
         """Bind a CylinderEnv-like object; its ``obs_aux`` (probe coords +
         live-slot mask) is threaded to the policy."""
         kw.setdefault("obs_aux_fn", getattr(env, "obs_aux", None))
+        kw.setdefault("device", env.device)
         return cls(env.env_step, cfg, **kw)
 
     def _clock(self, device: torch.device) -> float:
-        """Host seconds, after the card has drained when timing is on."""
+        """Host seconds, after this thread's stream has drained when timing
+        is on (the other stream of ``run_async`` runs on)."""
         if self.cfg.timing and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         return time.perf_counter()
 
     @torch.no_grad()
@@ -396,16 +452,19 @@ class RolloutEngine:
 
     def collect(self, model, st_b, obs_b, *,
                 generator: Optional[torch.Generator] = None, noise=None,
-                record: bool = True) -> Tuple[Batch, Trajectory]:
+                record: bool = True, on_action: Optional[Callable] = None
+                ) -> Tuple[Batch, Trajectory]:
         """One episode of all N_envs environments from ``(st_b, obs_b)``.
         With ``record`` the episode goes to the sink (if any) under id
-        ``self.episode``, which advances either way."""
+        ``self.episode``, which advances either way.  ``on_action(t)``
+        runs after each action's env step is issued."""
         device = _model_device(model)
         t0 = self._clock(device)
         _, traj = rollout.rollout_batch(self.env_step_fn, model, st_b, obs_b,
                                         self.cfg.horizon,
                                         generator=generator, noise=noise,
-                                        obs_aux_fn=self.obs_aux_fn)
+                                        obs_aux_fn=self.obs_aux_fn,
+                                        on_action=on_action)
         batch = self.postprocess(model, traj)
         if self.cfg.timing:
             self.stats["collect_s"] += self._clock(device) - t0
@@ -456,6 +515,162 @@ class RolloutEngine:
                 on_episode(traj, metrics)
             if on_state is not None:
                 on_state(TrainCarry(model, opt_state, step, generator))
+        return model, opt_state, np.asarray(returns)
+
+    def run_async(self, model, opt_state, ppo_cfg: PPOConfig, optimizer,
+                  st_b, obs_b, episodes: int, *, generator=None,
+                  step: int = 0, drain: bool = True,
+                  noise: Optional[Sequence] = None,
+                  perms: Optional[Sequence] = None,
+                  on_episode: Optional[Callable] = None,
+                  on_state: Optional[Callable] = None,
+                  state_every: int = 1):
+        """Double-buffered stale-gradient PPO, the reference's schedule.
+
+        Episode *e* is collected with the learner's params after the update
+        of episode *e-2*, while the update consuming episode *e-1*'s batch
+        runs.  ``model`` is the learner: the update writes it in place, so
+        the collect reads a behaviour copy, refreshed from the learner at
+        the start of each episode once the previous update has finished.
+
+        One host thread issues both.  The update is
+        ``ppo.ppo_update_steps``, paused after each minibatch's gradients
+        and after its parameter update; after each action of the collect
+        the engine runs the update's next pauses, spread evenly over the
+        episode's actions, so its host work fills the time the collect
+        waits for the card.  On the card those pieces run on a second CUDA
+        stream, and events order the streams both ways: the update waits
+        for the refresh, which follows the batch it consumes, and the next
+        refresh waits for the update.  (A worker thread issuing the update
+        competes with the collect for the interpreter lock: both slow
+        down, see ``chip_smoke.py`` phase 9.)
+
+        The generator is drawn in one fixed order per episode: the pending
+        update's permutations (``epochs`` calls of ``randperm``, as
+        ``ppo_update`` draws them), then the collect's rollout noise; the
+        drain's permutations come last.  ``noise[e]`` injects episode
+        ``e``'s rollout noise and ``perms[e]`` the permutations of the
+        update consuming episode ``e``'s batch; injected streams draw
+        nothing.
+
+        ``on_episode(traj, None)`` fires after each collect (the update's
+        metrics are not waited for).  ``on_state(TrainCarry)`` fires every
+        ``state_every`` episodes with the carry as it stands: the update
+        issued this episode has finished (so a checkpoint never reads a
+        half-written model), the batch just collected is not part of it.
+        A resume from such a carry drops that one in-flight update.  One
+        final ``on_state`` fires after the drain.  The sink writes each
+        episode after the next update has been issued.  Only ``run_sync``
+        offers a bitwise resume."""
+        device = _model_device(model)
+        cuda = device.type == "cuda"
+        collect_stream = torch.cuda.current_stream(device) if cuda else None
+        update_stream = torch.cuda.Stream(device) if cuda else None
+        learner = list(model.state_dict().values())
+        behaviour = copy.deepcopy(model)
+        behaviour_t = list(behaviour.state_dict().values())
+        pauses = 2 * ppo_cfg.epochs * ppo_cfg.minibatches
+        horizon = self.cfg.horizon
+
+        def event(stream):
+            if stream is None:
+                return None
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            return ev
+
+        # the update in flight: its paused steps, the event its stream
+        # waits for, pauses run, and (once finished) its result; ``held``
+        # references its inputs until the caller's stream is ordered after
+        # it, since freed earlier the caching allocator could hand their
+        # memory to the collect while the update still reads them
+        inflight: Dict[str, Any] = {}
+
+        def dispatch(batch, episode):
+            perm = (perms[episode] if perms is not None
+                    else _draw_perms(batch.obs.shape[0], ppo_cfg.epochs,
+                                     generator))
+            inflight.update(
+                steps=ppo_update_steps(ppo_cfg, optimizer, model, opt_state,
+                                       batch, step, perms=perm),
+                ready=event(collect_stream), paused=0, out=None,
+                held=(batch, opt_state))
+
+        def advance(upto):
+            """Run the in-flight update on its stream until ``upto`` pauses
+            have passed, or to its end."""
+            if not inflight or inflight["out"] is not None:
+                return
+            with _on_stream(update_stream), torch.enable_grad():
+                ready = inflight.pop("ready", None)
+                if ready is not None:
+                    update_stream.wait_event(ready)
+                while inflight["paused"] < upto:
+                    try:
+                        next(inflight["steps"])
+                    except StopIteration as done:
+                        inflight["out"] = done.value
+                        inflight["done"] = event(update_stream)
+                        return
+                    inflight["paused"] += 1
+
+        def on_action(t):
+            advance(-(-(t + 1) * pauses // horizon))
+
+        def join():
+            """Finish the in-flight update and order the caller's stream
+            after it."""
+            nonlocal opt_state, step
+            if not inflight:
+                return
+            advance(pauses + 1)
+            opt_state, step, _ = inflight["out"]
+            if inflight["done"] is not None:
+                collect_stream.wait_event(inflight["done"])
+            inflight.clear()
+
+        pending = None           # (batch, episode) awaiting its update
+        spill = None             # (episode, traj) awaiting the sink
+        returns = []
+        try:
+            for i in range(episodes):
+                join()
+                with torch.no_grad():
+                    for b, t in zip(behaviour_t, learner):
+                        b.copy_(t)
+                if pending is not None:
+                    dispatch(*pending)
+                ep_id = self.episode
+                batch, traj = self.collect(
+                    behaviour, st_b, obs_b, generator=generator,
+                    noise=None if noise is None else noise[i], record=False,
+                    on_action=on_action)
+                if self.sink is not None and spill is not None:
+                    self.sink.write(*spill)
+                pending, spill = (batch, i), (ep_id, traj)
+                returns.append(float(torch.mean(torch.sum(traj.reward,
+                                                          dim=1))))
+                if on_episode is not None:
+                    on_episode(traj, None)
+                if on_state is not None and (i + 1) % max(1, state_every) \
+                        == 0:
+                    join()
+                    on_state(TrainCarry(model, opt_state, step, generator))
+            join()
+            if drain and pending is not None:
+                dispatch(*pending)
+                join()
+        finally:
+            if inflight and cuda:
+                # unwinding mid-update: nothing may reuse its inputs' memory
+                # before its issued work is done
+                collect_stream.wait_stream(update_stream)
+        if self.sink is not None and spill is not None:
+            self.sink.write(*spill)
+        if on_state is not None and episodes > 0:
+            # the carry after the drain: no update in flight, so a
+            # checkpoint of it loses nothing
+            on_state(TrainCarry(model, opt_state, step, generator))
         return model, opt_state, np.asarray(returns)
 
     def replay_sync(self, reader, model, opt_state, ppo_cfg: PPOConfig,

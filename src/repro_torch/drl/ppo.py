@@ -6,7 +6,7 @@ Port of ``repro.drl.ppo``; gradients come from autograd, the update from
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Generator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,6 +103,26 @@ def ppo_update(cfg: PPOConfig, optimizer, model, opt_state, batch: Batch,
                perms=None) -> Tuple[dict, int, Dict[str, torch.Tensor]]:
     """``epochs`` passes of ``minibatches`` shuffled splits, updating
     ``model`` in place; returns ``(opt_state, step, metrics)``.
+    :func:`ppo_update_steps` run to its end."""
+    steps = ppo_update_steps(cfg, optimizer, model, opt_state, batch, step,
+                             generator=generator, perms=perms)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def ppo_update_steps(cfg: PPOConfig, optimizer, model, opt_state,
+                     batch: Batch, step: int, *,
+                     generator: Optional[torch.Generator] = None, perms=None
+                     ) -> Generator[None, None,
+                                    Tuple[dict, int,
+                                          Dict[str, torch.Tensor]]]:
+    """The PPO update as a generator: it pauses after each minibatch's
+    gradients and after each minibatch's parameter update (``2 * epochs *
+    minibatches`` pauses) and returns ``(opt_state, step, metrics)``, so a
+    caller can interleave it with other work (``RolloutEngine.run_async``).
 
     ``perms`` (optional, (epochs, n)) injects each epoch's permutation;
     otherwise it is drawn from ``generator``.  ``step`` counts minibatch
@@ -130,6 +150,7 @@ def ppo_update(cfg: PPOConfig, optimizer, model, opt_state, batch: Batch,
             fz = faults.active("grad_nan")
             if fz is not None and step == int(fz.get("step", 0)):
                 grads = [g + float("nan") for g in grads]
+            yield
             with torch.no_grad():
                 new_p, new_o = optimizer.update(grads, opt_state, params,
                                                 step)
@@ -149,6 +170,7 @@ def ppo_update(cfg: PPOConfig, optimizer, model, opt_state, batch: Batch,
             opt_state = new_o
             step += 1
             history.append({k: v.detach() for k, v in metrics.items()})
+            yield
     out = {k: torch.mean(torch.stack([h[k] for h in history]))
            for k in history[0] if k != "grad_skips"}
     if "grad_skips" in history[0]:

@@ -5,7 +5,7 @@ over N, the port loops over T on batched env state).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,13 +29,16 @@ class Trajectory(NamedTuple):
 @torch.no_grad()
 def rollout_batch(env_step_fn, model, st0_b, obs0_b, length: int, *,
                   generator: Optional[torch.Generator] = None, noise=None,
-                  obs_aux_fn=None) -> Tuple[object, Trajectory]:
+                  obs_aux_fn=None, on_action: Optional[Callable] = None
+                  ) -> Tuple[object, Trajectory]:
     """Roll every env of the batch for ``length`` actuation periods.
 
     ``env_step_fn(state, action) -> (state, EnvOutput)``; ``noise``
     (optional, (N, T, act_dim)) injects the policy's standard-normal draws,
     otherwise they come from ``generator``.  ``obs_aux_fn(state)`` is
-    evaluated once on the initial state and fed to every policy call."""
+    evaluated once on the initial state and fed to every policy call.
+    ``on_action(t)`` runs after action ``t``'s env step has been issued
+    (``RolloutEngine.run_async`` issues update work there)."""
     aux0 = None if obs_aux_fn is None else obs_aux_fn(st0_b)
     st, obs = st0_b, obs0_b
     rows = []
@@ -49,6 +52,8 @@ def rollout_batch(env_step_fn, model, st0_b, obs0_b, length: int, *,
         st, out = env_step_fn(st, a)
         rows.append((obs, act, logp, out.reward, out.cd, out.cl, out.valid))
         obs = out.obs
+        if on_action is not None:
+            on_action(t)
     cols = list(zip(*rows))
 
     def stack(xs):

@@ -23,8 +23,16 @@ explicit ``sink=``) spills every episode's trajectories, a dataset sink
 recording the run fingerprint in its manifest, so the run can be replayed
 offline (``RolloutEngine.replay_sync``); ``interface=`` routes each
 episode's PPO batch through the CFD<->DRL file interface
-(``core.interface.MultiEnvInterface``).  Plans and fleets are not ported
-yet; the history has the reference's keys.
+(``core.interface.MultiEnvInterface``).  The history has the reference's
+keys.
+
+The hybrid plan, as in the reference: ``TrainConfig.plan`` ("auto" to
+measure the card and optimize with ``core.autotune``, a ``ParallelPlan``
+or an (n_envs, n_ranks) pair) picks the solver backend of every interval
+and rounds ``n_envs`` up to a multiple of the plan's.  Only single-rank,
+single-process plans execute: multi-rank meshes (the halo backend,
+``cfd/decomp.py``) and fleets (``launch/distributed.py``) are not ported
+yet.
 
 Fresh and resumed runs share one loop: both build the model, optimizer
 state, generator and env batch first (fresh from the seed and a warmup,
@@ -73,6 +81,15 @@ class TrainConfig:
     # "attention" (permutation-invariant set encoder over (x, y, p) probe
     # tokens; serves mixed and variable sensor sets)
     policy: str = "mlp"
+    # hybrid placement: None (the configured backend), "auto" (measure the
+    # card and optimize via core.autotune), a core.plan.ParallelPlan /
+    # (n_envs, n_ranks) pair, or a ResolvedPlan.  train() checks the plan's
+    # devices, runs the plan's backend in place of ``backend`` and logs the
+    # chosen split.
+    plan: Any = None
+    # extra kwargs for the plan="auto" measurement (core.autotune.autotune),
+    # e.g. {"smoke": False, "iters": 5}; default: a one-iteration probe
+    plan_args: Optional[Dict[str, Any]] = None
     # fault tolerance: with ckpt_dir set, the TrainState is saved every
     # ckpt_every episodes (and at the final one) via an AsyncCheckpointer
     # (keep newest ckpt_keep; background write unless ckpt_async=False)
@@ -130,7 +147,23 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     ``_rollbacks`` / ``_sink_retries0`` are internal: the watchdog-rollback
     retry depth and the retries counted by the sinks of rolled-back runs."""
     device = resolve_device(cfg.device)
-    env = CylinderEnv(cfg.env, backend=cfg.backend, device=device)
+    resolved = None
+    backend, n_envs = cfg.backend, cfg.n_envs
+    if cfg.plan is not None:
+        from repro_torch.core.autotune import resolve_plan
+        resolved = resolve_plan(cfg.plan, grid=cfg.env.grid, device=device,
+                                **{"smoke": True, **(cfg.plan_args or {})})
+        resolved.build_mesh(device)
+        backend = resolved.backend
+        if n_envs % resolved.n_envs:
+            # the batch must tile the plan's data axis: round up, never down
+            n_envs += resolved.n_envs - n_envs % resolved.n_envs
+        if log_fn:
+            log_fn(resolved.describe())
+            if n_envs != cfg.n_envs:
+                log_fn(f"n_envs {cfg.n_envs} -> {n_envs} (rounded up to a "
+                       f"multiple of the plan's data axis {resolved.n_envs})")
+    env = CylinderEnv(cfg.env, backend=backend, device=device)
     ts: Optional[TrainState] = None
     src = ts_mod.resolve_resume(cfg.resume, cfg.ckpt_dir)
     if src is not None:
@@ -143,10 +176,10 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
         st_b, obs_b = ts.env_state, ts.obs
     elif cfg.scenarios:
         # mixed-scenario batch: per-env physics, probes and action slots
-        st_b, obs_b = env.reset_batch(cfg.scenarios, cfg.n_envs)
+        st_b, obs_b = env.reset_batch(cfg.scenarios, n_envs)
     else:
         st0, obs0 = env.reset()       # warms up + calibrates CD0
-        st_b, obs_b = broadcast_env_state(st0, obs0, cfg.n_envs)
+        st_b, obs_b = broadcast_env_state(st0, obs0, n_envs)
     # the policy's widths follow the batch: the padded probe count, and
     # the amplitude's trailing dim (per-body speeds) or 1
     obs_dim = int(obs_b.shape[-1])
@@ -162,14 +195,18 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     pcfg = networks.PolicyConfig(obs_dim=obs_dim, act_dim=act_dim,
                                  policy=cfg.policy)
     engine = RolloutEngine.for_env(
-        env, EngineConfig(n_envs=cfg.n_envs,
+        env, EngineConfig(n_envs=n_envs,
                           horizon=cfg.env.actions_per_episode,
                           gamma=cfg.ppo.gamma, lam=cfg.ppo.lam,
+                          n_ranks=resolved.n_ranks if resolved else 1,
                           sink=cfg.sink), sink=sink)
     run_meta = ts_mod.run_metadata(
-        n_envs=cfg.n_envs, obs_dim=obs_dim, seed=cfg.seed,
+        n_envs=n_envs, obs_dim=obs_dim, seed=cfg.seed,
         grid=cfg.env.grid, horizon=cfg.env.actions_per_episode,
         steps_per_action=cfg.env.steps_per_action, scenarios=cfg.scenarios,
+        plan={"n_envs": resolved.n_envs, "n_ranks": resolved.n_ranks,
+              "backend": resolved.backend,
+              "n_processes": resolved.n_processes} if resolved else None,
         policy={"policy": cfg.policy, "obs_dim": obs_dim,
                 "act_dim": act_dim})
     if engine.sink is not None:
@@ -192,7 +229,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
             # the env steps the restored batch over the geometry bank, which
             # a resume builds without the warmup; each env's geom_id must
             # index the slot of its own geometry
-            scns = env.batch_scenarios(cfg.scenarios, cfg.n_envs)
+            scns = env.batch_scenarios(cfg.scenarios, n_envs)
             want = [grid_mod.geometry_index(s.geometry) for s in scns]
             got = ts.env_state.scn.geom_id.reshape(-1).tolist()
             if got != want:
@@ -345,8 +382,11 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
         if log_fn:
             log_fn(f"watchdog: {divergence}; rolling back "
                    f"(retry {_rollbacks + 1}/{max_rb})")
+        # the retry keeps the resolved plan: a re-measured "auto" plan could
+        # pick another backend, and the replay would not be the same run
         retry_cfg = dataclasses.replace(
-            cfg, resume="auto" if cfg.ckpt_dir else None)
+            cfg, resume="auto" if cfg.ckpt_dir else None,
+            plan=resolved if resolved is not None else cfg.plan)
         # a cfg-built sink dies with this engine, so its retry count is
         # carried forward; an explicit sink= object survives the recursion
         # and keeps its own count

@@ -54,7 +54,8 @@ class TrainState(NamedTuple):
     #                                   next episode
     step: int                         # PPO minibatch counter
     episode: int                      # episodes completed
-    env_state: Optional[EnvState]     # batched env state (or None)
+    env_state: Any                    # batched EnvState, a plain tensor
+    #                                   (engine-level loops) or None
     obs: Optional[torch.Tensor]       # batched observations (or None)
     history: Dict[str, np.ndarray]    # per-episode logs, length == episode
 
@@ -75,12 +76,15 @@ def to_tree(ts: TrainState) -> Dict[str, Any]:
         "history": {k: np.asarray(v) for k, v in ts.history.items()},
     }
     st = ts.env_state
-    if st is not None:
+    if isinstance(st, EnvState):
         tree["env_state"] = {"flow": st.flow._asdict(),
                              "jet_vel": st.jet_vel, "t": st.t,
                              "scn": st.scn._asdict()}
         if st.reset_flow is not None:      # sentinel quarantine flow
             tree["env_state"]["reset_flow"] = st.reset_flow._asdict()
+    elif st is not None:
+        # engine-level loops (toy envs, tests) carry a plain tensor
+        tree["env_state"] = st
     if ts.obs is not None:
         tree["obs"] = ts.obs
     return tree
@@ -122,14 +126,16 @@ def from_tree(tree: Dict[str, Any], device="cuda") -> TrainState:
         return FlowState(**{k: dev(v) for k, v in d.items()})
 
     env_state = None
-    if "env_state" in tree:
-        st = tree["env_state"]
+    st = tree.get("env_state")
+    if isinstance(st, dict):
         env_state = EnvState(
             flow=flow(st["flow"]), jet_vel=dev(st["jet_vel"]),
             t=dev(st["t"]),
             scn=ScenarioParams(**{k: dev(v) for k, v in st["scn"].items()}),
             reset_flow=flow(st["reset_flow"]) if "reset_flow" in st
             else None)
+    elif st is not None:
+        env_state = dev(st)
     return TrainState(
         params={k: dev(v) for k, v in tree["params"].items()},
         opt_state={k: [dev(a) for a in v]
@@ -221,10 +227,14 @@ def code_fingerprint() -> Dict[str, Any]:
 def run_metadata(*, n_envs: int, obs_dim: int, seed: int, grid,
                  horizon: int, steps_per_action: int,
                  scenarios: Optional[Tuple[str, ...]],
+                 plan: Optional[Dict[str, Any]] = None,
                  policy: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The run fingerprint stored beside every checkpoint: everything that
     must match for a bitwise resume (``RESUME_STRICT_FIELDS``) plus the
-    seed and the code fingerprint (informational).  ``policy`` is the
+    seed, the plan actually executed and the code fingerprint
+    (informational: a resume may change the plan).  ``plan`` is
+    {"n_envs", "n_ranks", "backend", "n_processes"} of a resolved plan
+    (None: no plan, the single-host default).  ``policy`` is the
     architecture fingerprint ({"policy", "obs_dim", "act_dim"}): an MLP's
     params cannot restore into an attention run."""
     return {
@@ -236,6 +246,8 @@ def run_metadata(*, n_envs: int, obs_dim: int, seed: int, grid,
         "horizon": int(horizon),
         "steps_per_action": int(steps_per_action),
         "scenarios": list(scenarios) if scenarios else None,
+        "plan": plan or {"n_envs": int(n_envs), "n_ranks": 1,
+                         "backend": "single-host"},
         "policy": policy or {"policy": "mlp"},
         "framework": "torch",
         "code": code_fingerprint(),
@@ -246,7 +258,7 @@ def check_resume_compatible(meta: Dict[str, Any], current: Dict[str, Any]
                             ) -> List[str]:
     """Raise ``CheckpointError`` listing every strict-field mismatch between
     a checkpoint's metadata and the current run's fingerprint; returns
-    human-readable notes for allowed differences (the seed)."""
+    human-readable notes for allowed differences (the plan, the seed)."""
     errs = [f"{f}: checkpoint={meta.get(f)!r} current={current.get(f)!r}"
             for f in RESUME_STRICT_FIELDS if meta.get(f) != current.get(f)]
     if errs:
@@ -256,6 +268,10 @@ def check_resume_compatible(meta: Dict[str, Any], current: Dict[str, Any]
             "the framework, so resuming would not continue the same "
             "run):\n  " + "\n  ".join(errs))
     notes = []
+    if meta.get("plan") != current.get("plan"):
+        notes.append(f"cross-plan resume: checkpoint ran {meta.get('plan')}, "
+                     f"resuming onto {current.get('plan')} (the env batch "
+                     f"restored onto this run's device)")
     if meta.get("seed") != current.get("seed"):
         notes.append(f"seed differs (checkpoint {meta.get('seed')}, config "
                      f"{current.get('seed')}): ignored, the restored "

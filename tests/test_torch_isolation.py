@@ -39,7 +39,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert "repro_torch.models.model" in res["modules"]
     for name in ("testing.faults", "ckpt.io", "ckpt.checkpoint",
                  "drl.health", "drl.train_state", "core.interface",
-                 "data.trajectory_dataset", "data.pipeline"):
+                 "data.trajectory_dataset", "data.pipeline", "core.plan",
+                 "core.scaling_model", "core.autotune", "drl.async_train"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 
