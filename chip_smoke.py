@@ -98,7 +98,26 @@ Phases (any failure exits non-zero):
    ``train(plan="auto")`` for 1 episode: one fused launch per interval and
    one for the warmup beside the probe's; (e) ``async_speedup`` of the
    refit model beside the measured ratio;
-10. one JSON line listing the five kernels, then the card's line and the
+10. fleet mode at the main path's widths (res 16, 50 dt per action, 60
+   SOR iterations, 2x512 MLP, 149 probes, 4 envs in all, backend="fused"
+   with the cluster pinned at 16, 2 episodes of 100 actions after a 30
+   t.u. warmup), every run through the port's launcher (``python -m
+   repro_torch.launch.fleet``, gloo between the runners, all on the one
+   card): (a) a 1-process fleet (4 envs) and a 2-process fleet (2 envs
+   each) whose final checkpoints must be equal bit for bit (params, Adam
+   moments, generator state, step, env batch, history but its wall);
+   every runner must launch the fused kernel once per interval (and once
+   for its warmup); each fleet's steady episode wall, gather seconds and
+   bytes per episode printed; (b) a runner killed after its second episode
+   of 3: the supervisor must shrink 2 -> 1 and resume to the target, its
+   episode-2 checkpoint equal to (a)'s; (c) ``--plan auto`` in a 2-process
+   fleet: ``autotune(max_processes=2)`` in every runner, its artifact
+   valid with a measured (``estimated: false``) gloo ``t_interhost``;
+11. the user-facing scripts on the card: ``drl_cylinder`` at res 16, 4
+   envs, 1 episode of 100 actions (one fused launch per interval),
+   ``serve_batch`` from (a)'s checkpoint (p50 / p99 latency, actions/s)
+   and ``hybrid_scaling_demo`` in paper mode and ``--auto`` at res 16;
+12. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Imports nothing of jax or of the reference package.
@@ -2057,6 +2076,235 @@ def async_path(card):
         async_episode_s=async_ep, sync_episode_s=sync_ep)
 
 
+def fleet_path(card):
+    """Phase 10: fleet mode through the port's launcher on the card at the
+    training shape (res 16, 4 envs in all, 50 dt per action, 60 SOR
+    iterations, 2x512 MLP, 149 probes, cluster 16, 100 actions an
+    episode).  (a) 1- and 2-process fleets of 2 episodes, final
+    checkpoints bit-equal, one fused launch per interval in every runner;
+    (b) kill -> shrink -> resume to 3 episodes, its episode-2 checkpoint
+    equal to (a)'s; (c) ``--plan auto`` in a 2-process fleet: the
+    autotuner's measured gloo ``t_interhost``.  Returns the launch counts
+    for the kernels line and (a)'s checkpoint directory."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import latest_checkpoint, step_path
+    from repro_torch.core import autotune as at
+    from repro_torch.drl.train_state import load_train_state
+    base = ROOT / "build" / "fleet_path"
+    shutil.rmtree(base, ignore_errors=True)
+    intervals, warmups = 100, 1
+    shape = ["--res", "16", "--dt", "0.005", "--poisson-iters", "60",
+             "--steps-per-action", "50", "--actions-per-episode",
+             str(intervals), "--warmup", "30",
+             "--device", "cuda", "--heartbeat-timeout", "180",
+             "--launch-timeout", "300"]
+    print(f"[fleet] full width: res 16 (ny 66, nx 352), 50 dt per action, 60 "
+          f"SOR iterations, 2x512 MLP, 149 probes, 4 envs in all, "
+          f"backend='fused', cluster 16; depth cut: {intervals} actions an "
+          f"episode after a 30 t.u. warmup; every runner on the one card, "
+          f"gloo between them, deterministic algorithms; card {card}")
+    torch.cuda.empty_cache()
+
+    def launch(tag, *extra):
+        wd = base / tag
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.fleet", *shape,
+             "--workdir", str(wd), *map(str, extra)],
+            capture_output=True, text=True, env=env, timeout=420,
+            cwd=str(ROOT))
+        secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"fleet {tag}: the launcher exited {out.returncode}\n"
+                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        return wd, out.stdout, secs
+
+    def timings(wd, stdout, procs, gen=0):
+        """Each runner's FLEET_TIMING, process 0's from the launcher's
+        stdout, the others' from their logs."""
+        texts = [stdout] + [(wd / f"runner_gen{gen}_p{p:03d}.log").read_text()
+                            for p in range(1, procs)]
+        out = []
+        for p, text in enumerate(texts):
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("FLEET_TIMING")]
+            if not lines:
+                fail(f"fleet {wd.name}: runner {p} printed no FLEET_TIMING")
+            out.append({k: float(v) for k, v in
+                        (kv.split("=") for kv in lines[-1].split()[1:])})
+        return out
+
+    def stats(stdout):
+        line = [ln for ln in stdout.splitlines()
+                if ln.startswith("FLEET_STATS")][-1]
+        return json.loads(line.split(" ", 1)[1])
+
+    def differs(a, b):
+        (ta, ma), (tb, mb) = a, b
+        checks = [("episode", ma["episode"] == mb["episode"]),
+                  ("step", ta.step == tb.step),
+                  ("generator state", torch.equal(ta.rng, tb.rng)),
+                  ("obs", torch.equal(ta.obs, tb.obs)),
+                  ("flow u", torch.equal(ta.env_state.flow.u,
+                                         tb.env_state.flow.u))]
+        checks += [(f"param {k}", torch.equal(ta.params[k], tb.params[k]))
+                   for k in ta.params]
+        checks += [(f"Adam {k}[{j}]", torch.equal(x, y))
+                   for k in ("m", "v") for j, (x, y) in enumerate(
+                       zip(ta.opt_state[k], tb.opt_state[k]))]
+        checks += [(f"history {f}", np.array_equal(v, tb.history[f]))
+                   for f, v in ta.history.items() if f != "wall"]
+        return [what for what, ok in checks if not ok]
+
+    # (a) the bitwise contract across fleet sizes
+    runs = {}
+    for procs in (1, 2):
+        wd, stdout, secs = launch(f"p{procs}", "--processes", procs,
+                                  "--episodes", 2)
+        tm, st = timings(wd, stdout, procs), stats(stdout)
+        final = load_train_state(latest_checkpoint(str(wd / "ckpt")), "cpu")
+        fused = [int(t["fused_launches"]) for t in tm]
+        runs[procs] = dict(wd=wd, timing=tm, stats=st, final=final,
+                           fused=fused)
+        steady = st["wall"][1]
+        gather_s = [t["gather_s"] / 2 for t in tm]
+        gather_b = [int(t["gather_bytes"]) // 2 for t in tm]
+        rollout_s = [t["rollout_s"] / 2 for t in tm]
+        print(f"[fleet p={procs}] 2 episodes in {secs:.3f} s of launcher "
+              f"(process start, build check, warmup included); episode "
+              f"walls {st['wall']} s (steady {steady:.4f} s); per episode "
+              f"and runner: rollout {rollout_s} s, gather {gather_s} s, "
+              f"{gather_b} bytes gathered; fused launches per runner "
+              f"{fused}, clusters {[int(t['fused_cluster']) for t in tm]}; "
+              f"card {card}")
+        want = warmups + 2 * intervals
+        if fused != [want] * procs:
+            fail(f"fleet p={procs}: fused launches per runner {fused}, "
+                 f"expected {want} each (one per interval, one warmup)")
+        # pin_cluster fixes the whole batch's cluster in every runner
+        clusters = [int(t["fused_cluster"]) for t in tm]
+        if clusters != [16] * procs:
+            fail(f"fleet p={procs}: fused clusters per runner {clusters}, "
+                 f"expected the 4-env batch's 16 in each")
+    diff = differs(runs[1]["final"], runs[2]["final"])
+    if diff:
+        fail(f"fleet: the 2-process fleet's final checkpoint differs from "
+             f"the 1-process fleet's in {diff[:6]}")
+    if runs[2]["final"][1]["plan"]["n_processes"] != 2:
+        fail(f"fleet: the 2-process checkpoint records plan "
+             f"{runs[2]['final'][1]['plan']}")
+    w1, w2 = runs[1]["stats"]["wall"][1], runs[2]["stats"]["wall"][1]
+    print(f"[fleet] 1- and 2-process final checkpoints equal bit for bit "
+          f"(params, Adam m / v, step {runs[1]['final'][0].step}, generator "
+          f"state, env batch, history); steady episode N=1 {w1:.4f} s, "
+          f"N=2 {w2:.4f} s (N=2 / N=1 = {w2 / w1:.4f}); card {card}")
+
+    # (b) kill -> shrink -> resume
+    wd, stdout, secs = launch("elastic", "--processes", 2, "--episodes", 3,
+                              "--kill-process", 1, "--kill-episode", 2)
+    for want in ("FLEET_SHRINK gen=1 procs=2->1 reason=exit",
+                 "FLEET_DONE episodes=3", "resume: "):
+        if want not in stdout:
+            fail(f"fleet elastic: no {want!r} in the launcher's output:\n"
+                 f"{stdout[-3000:]}")
+    final = load_train_state(latest_checkpoint(str(wd / "ckpt")), "cpu")
+    at2 = load_train_state(str(step_path(str(wd / "ckpt"), 2)), "cpu")
+    if final[1]["episode"] != 3:
+        fail(f"fleet elastic: final checkpoint at episode "
+             f"{final[1]['episode']}, expected 3")
+    diff = differs(at2, runs[1]["final"])
+    if diff:
+        fail(f"fleet elastic: its episode-2 checkpoint differs from the "
+             f"uninterrupted fleet's in {diff[:6]}")
+    resumed = [ln for ln in stdout.splitlines() if ln.startswith("resume: ")]
+    print(f"[fleet elastic] runner 1 killed after episode 2 of 3: shrink "
+          f"2 -> 1, {resumed[0]}, 3 episodes done in {secs:.3f} s of "
+          f"launcher; its episode-2 checkpoint equal to the uninterrupted "
+          f"fleet's bit for bit")
+
+    # (c) autotune(max_processes=2) inside a 2-process fleet
+    wd, stdout, secs = launch("auto", "--processes", 2, "--plan", "auto",
+                              "--n-envs", 4, "--episodes", 1)
+    record = json.loads((wd / "autotune.json").read_text())
+    at.validate_artifact(record)
+    ih = record["measured"]["t_interhost"]
+    tm = timings(wd, stdout, 2)
+    sor = [int(t["sor_launches"]) for t in tm]
+    fused_auto = [int(t["fused_launches"]) for t in tm]
+    print(f"[fleet auto] autotune(max_processes=2) in each of 2 runners: "
+          f"t_interhost {ih}; plan {record['plan']}; launches per runner: "
+          f"packed SOR {sor}, fused {fused_auto}; {secs:.3f} s of launcher; "
+          f"card {card}")
+    if ih["estimated"] or ih["processes"] != 2:
+        fail(f"fleet auto: t_interhost {ih}, expected a measured 2-process "
+             f"gather")
+    if record["plan"]["n_processes"] != 2 or min(sor) < 1:
+        fail(f"fleet auto: plan {record['plan']}, packed-SOR launches {sor}")
+    return dict(
+        fused=dict(fleet_launches=runs[2]["fused"],
+                   fleet_path=("python -m repro_torch.launch.fleet, 2 "
+                               "runners of 2 envs on the card, warmup + 2 "
+                               "episodes each: 1 per interval per runner")),
+        sor=dict(fleet_launches=sor,
+                 fleet_path=("python -m repro_torch.launch.fleet --plan "
+                             "auto, 2 runners: autotune(max_processes=2) "
+                             "t_step_ranks[1] probe in each")),
+        ckpt_dir=runs[1]["wd"] / "ckpt")
+
+
+def scripts_path(card, ckpt_dir):
+    """Phase 11: the three user-facing scripts on the card, through the
+    ``main(argv)`` their ``python -m`` entry points run; removes its own
+    and phase 10's scratch directories after."""
+    import shutil
+    import numpy as np
+    from repro_torch.core import autotune as at
+    from repro_torch.examples import drl_cylinder, hybrid_scaling_demo, \
+        serve_batch
+    base = ROOT / "build" / "scripts_path"
+    base.mkdir(parents=True, exist_ok=True)
+    argv = ["--device", "cuda", "--res", "16", "--n-envs", "4", "--actions",
+            "100", "--steps-per-action", "50", "--episodes", "1",
+            "--warmup", "30", "--out", str(base / "drl_cylinder.json")]
+    print(f"[scripts] drl_cylinder {' '.join(argv)}")
+    reset_counts()
+    hist, secs = wall(lambda: drl_cylinder.main(argv))
+    launched = counts()
+    if not np.isfinite(hist["reward"]).all() or \
+            launched["fused_interval"] != 100 + 1:
+        fail(f"drl_cylinder: rewards {hist['reward']}, fused launches "
+             f"{launched['fused_interval']} (expected 101: one per "
+             f"interval, one warmup)")
+    print(f"[scripts] drl_cylinder: 1 episode in {secs:.3f} s, reward "
+          f"{hist['reward'].tolist()}, launches {launched}")
+    for extra in ([], ["--deterministic"]):
+        res = serve_batch.main(["--device", "cuda", "--ckpt", str(ckpt_dir),
+                                "--batch", "16", "--requests", "200",
+                                *extra])
+        print(f"[scripts] serve_batch {' '.join(extra) or '--sampled'} from "
+              f"the fleet's checkpoint: p50 {res['p50_s'] * 1e3:.4f} ms, p99 "
+              f"{res['p99_s'] * 1e3:.4f} ms, {res['actions_per_s']:.1f} "
+              f"actions/s (batch 16, 200 requests, the card synchronised "
+              f"around each); card {card}")
+    best = hybrid_scaling_demo.main(["--workers", "60"])
+    if (best.n_envs, best.n_ranks) != (60, 1):
+        fail(f"hybrid_scaling_demo paper mode chose {best}")
+    art = base / "autotune_demo.json"
+    reset_counts()
+    (best, rp), secs = wall(lambda: hybrid_scaling_demo.main(
+        ["--auto", "--device", "cuda", "--res", "16", "--artifact",
+         str(art)]))
+    at.validate_artifact(json.loads(art.read_text()))
+    print(f"[scripts] hybrid_scaling_demo --auto at res 16: {rp.describe()} "
+          f"in {secs:.3f} s, launches {counts()}")
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.rmtree(ckpt_dir.parents[1], ignore_errors=True)   # phase 10's
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     import os
@@ -2200,7 +2448,15 @@ def main():
     fused.update(planned["fused"])
     sor.update(planned["sor"])
 
-    # 10. the kernels, the card, the result
+    # 10. fleet mode through the launcher
+    fleet = fleet_path(card)
+    fused.update(fleet["fused"])
+    sor.update(fleet["sor"])
+
+    # 11. the user-facing scripts
+    scripts_path(card, fleet["ckpt_dir"])
+
+    # 12. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,13 +112,16 @@ class CylinderEnv:
     (warmup included): ``"fused"`` runs the fused-interval kernel on CUDA
     (its scalar instantiation for a scalar amplitude, its per-body one for
     a vector) and its plain twin on the CPU; ``"pallas"`` the packed-SOR
-    kernel inside each dt; the rest are plain PyTorch."""
+    kernel inside each dt; the rest are plain PyTorch.  ``cluster`` is the
+    fused kernel's cluster size on the card: None, its own choice for each
+    launch's env count, until :meth:`pin_cluster` fixes it."""
 
     def __init__(self, cfg: EnvConfig = EnvConfig(), *,
                  backend: Optional[str] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = poisson.resolve_backend(backend)
+        self.cluster: Optional[int] = None
         self.geom = build_geometry(cfg.grid, cfg.geometry)
         self.geom_arrays = solver.geom_to_arrays(self.geom, self.device)
         self._reset_flow = None
@@ -126,12 +129,26 @@ class CylinderEnv:
         self._bank = None        # stacked (G, ...) GeomArrays, built lazily
         self._group_cache = {}   # (re, act_mode, geometry) -> (FlowState, cd0)
 
+    def pin_cluster(self, n_envs: int, per_body: bool) -> None:
+        """Fix the fused kernel's cluster size to the size it picks for
+        ``n_envs`` envs on this card: a fleet pins the whole batch's size,
+        so a process's env shard runs each env as the whole batch would
+        (the cluster size orders the force sums).  A no-op off the card or
+        off the fused backend."""
+        if self.device.type != "cuda" or self.backend != "fused":
+            return
+        from repro_torch.kernels.actuation import ops as actuation_ops
+        self.cluster = actuation_ops.cluster_for(
+            self.cfg.grid, n_envs, self.device,
+            actuation_ops.N_BODIES if per_body else 0)
+
     # -- uncontrolled warmup to a developed shedding state ------------------
 
-    def warmup(self) -> solver.FlowState:
+    def warmup(self, verbose: bool = False) -> solver.FlowState:
         """Run (or fetch from the cache) the uncontrolled warmup of this
         config's (Re, actuation) group and calibrate ``cd0`` from its last
-        quarter when unset."""
+        quarter when unset; ``verbose`` prints the reference's line (the
+        warmup's dt count and C_D0)."""
         cfg = self.cfg
         group = (cfg.grid.re, cfg.scenario().act_mode, cfg.geometry)
         self._warmup_groups([group])
@@ -139,6 +156,9 @@ class CylinderEnv:
         self._reset_flow = flow
         if self.cfg.cd0 is None:
             self.cfg = dataclasses.replace(self.cfg, cd0=cd0)
+        if verbose:
+            n = max(1, int(round(cfg.warmup_time / cfg.grid.dt)))
+            print(f"warmup {n} steps: CD0={self.cfg.cd0:.3f}")
         return flow
 
     def _warmup_groups(self, groups) -> None:
@@ -164,7 +184,8 @@ class CylinderEnv:
             mode = torch.tensor([g[1] for g in gtodo], **f32)
             flows, outs = solver.step_interval(
                 cfg.grid, ga, flow0, torch.zeros(len(gtodo), **f32), n,
-                re=re, act_mode=mode, backend=self.backend)
+                re=re, act_mode=mode, backend=self.backend,
+                cluster=self.cluster)
             cd0s = torch.mean(outs.cd[:, -tail:], dim=1).tolist()
             for i, g in enumerate(gtodo):
                 self._group_cache[g] = (
@@ -317,7 +338,8 @@ class CylinderEnv:
                                           re=st.scn.re,
                                           act_mode=st.scn.act_mode,
                                           backend=self.backend,
-                                          geom_id=geom_id)
+                                          geom_id=geom_id,
+                                          cluster=self.cluster)
         if per_body:
             # (..., n_steps, B): the drag term is the total, the lift is
             # penalized per body, so opposite body lifts do not cancel

@@ -310,7 +310,8 @@ def step(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState, jet_vel,
 
 def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
                   jet_vel, n_steps: int, *, re=None, act_mode=None,
-                  backend: Optional[str] = None, geom_id=None
+                  backend: Optional[str] = None, geom_id=None,
+                  cluster: Optional[int] = None
                   ) -> Tuple[FlowState, StepOutputs]:
     """Advance ``n_steps`` dt under one held actuation amplitude (one
     actuation interval).  Returns per-dt ``(..., n_steps)`` force
@@ -324,13 +325,15 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
     fused-interval kernel, on a CPU tensor its plain twin.  A call the
     kernel cannot serve raises on a CUDA tensor; on a CPU tensor an odd
     width falls back to the reference loop with a once-per-shape warning.
-    Every other backend loops :func:`step`."""
+    ``cluster`` fixes the kernel's cluster size on the card (None: its own
+    choice; the CPU twin and the other backends ignore it).  Every other
+    backend loops :func:`step`."""
     backend = poisson.resolve_backend(backend)
     if backend == "fused":
         from repro_torch.kernels.actuation import ops as actuation_ops
         return actuation_ops.fused_interval(cfg, geom_arrays, state, jet_vel,
                                             n_steps, re=re, act_mode=act_mode,
-                                            geom_id=geom_id)
+                                            geom_id=geom_id, cluster=cluster)
     if geom_id is not None:
         geom_arrays = gather_geometry(geom_arrays, geom_id)
     dim = -2 if is_per_body(jet_vel, state.u) else -1

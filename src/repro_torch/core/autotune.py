@@ -21,10 +21,13 @@ where the code runs and makes the result executable:
      component times under the reference's schema tag, so an artifact
      written by either package validates in both.
 
-Only single-rank, single-process plans execute here: ``n_ranks > 1`` needs
-the halo decomposition (``cfd/decomp.py``) and ``n_processes > 1`` the
-fleet launcher (``launch/distributed.py``), neither ported yet; such plans
-raise ``NotImplementedError`` naming the missing module.
+Single-rank plans execute here, on one process or across a fleet
+(``launch/distributed.py``): in a live fleet ``ResolvedPlan.build_mesh``
+spans the plan's data groups over the processes, ``measure_components``
+times a real gloo all-gather for ``t_interhost`` and ``autotune``'s
+``max_processes`` admits fleet layouts.  ``n_ranks > 1`` needs the halo
+decomposition (``cfd/decomp.py``), not ported yet; such plans raise
+``NotImplementedError`` naming it.
 
 ``resolve_plan`` is the single entry point engines and training loops use
 to accept ``plan="auto" | ParallelPlan | (n_envs, n_ranks) | ResolvedPlan``.
@@ -58,8 +61,7 @@ def not_ported(what: str, module: str) -> NotImplementedError:
     ``module`` of the reference, not ported yet."""
     return NotImplementedError(
         f"{what} needs {module}, which is not ported to repro_torch yet; "
-        f"use a single-rank, single-process plan (n_ranks = 1, "
-        f"n_processes = 1)")
+        f"use a single-rank plan (n_ranks = 1)")
 
 
 def plan_devices(device: DeviceLike = "cuda") -> List[torch.device]:
@@ -107,11 +109,32 @@ class ResolvedPlan:
     def n_processes(self) -> int:
         return self.plan.n_processes
 
-    def build_mesh(self, device: DeviceLike = "cuda") -> List[torch.device]:
-        """The plan's devices, ``n_envs * n_ranks`` of them in (data,
-        model) order; raises when this host has fewer."""
-        devices = plan_devices(device)
+    def build_mesh(self, device: DeviceLike = "cuda",
+                   span_processes: Optional[bool] = None) -> List:
+        """The plan's ``n_envs * n_ranks`` workers in (data, model) order.
+
+        In a live fleet (``span_processes=None`` and
+        ``launch.distributed.fleet_active()``) the data groups span the
+        processes, whatever ``n_processes`` the plan modelled (the actual
+        topology wins): ``n // P`` consecutive groups on every process,
+        each process's on its own card, as (process, device) pairs
+        (``launch.distributed.span_devices``).  Otherwise the plan's
+        devices on this host; raises when it has fewer."""
+        from repro_torch.launch import distributed as dist_mod
         n = self.n_envs * self.n_ranks
+        if span_processes is None:
+            span_processes = dist_mod.fleet_active()
+        if span_processes:
+            groups = dist_mod.span_devices(n, device)
+            procs = len({p for p, _ in groups})
+            if (n // procs) % self.n_ranks:
+                raise ValueError(
+                    f"plan (n_envs, n_ranks) = ({self.n_envs}, "
+                    f"{self.n_ranks}) cannot span {procs} processes: each "
+                    f"process's {n // procs} workers must hold whole envs "
+                    f"(a multiple of n_ranks = {self.n_ranks})")
+            return groups
+        devices = plan_devices(device)
         if n > len(devices):
             raise ValueError(
                 f"plan needs n_envs * n_ranks = {n} devices but this host "
@@ -154,8 +177,9 @@ def resolve_plan(plan, *, n_total: Optional[int] = None, grid=None,
     (n_envs, n_ranks) tuple, or an existing ResolvedPlan (passed through).
     ``grid``/``autotune_kw`` parameterize the "auto" measurement; with no
     grid in scope the backend choice is conservative (never "pallas",
-    whose even-nx requirement can't be checked).  Plans this package
-    cannot execute (``n_ranks > 1``, ``n_processes > 1``) raise
+    whose even-nx requirement can't be checked).  A plan's modelled
+    ``n_processes`` needs nothing here (the live fleet decides where its
+    workers run, ``ResolvedPlan.build_mesh``); ``n_ranks > 1`` raises
     ``NotImplementedError``.
     """
     if isinstance(plan, ResolvedPlan):
@@ -171,9 +195,6 @@ def resolve_plan(plan, *, n_total: Optional[int] = None, grid=None,
         plan = ParallelPlan(n_total or n_envs * n_ranks, n_envs, n_ranks)
     if not isinstance(plan, ParallelPlan):
         raise ValueError(f"cannot resolve plan from {plan!r}")
-    if plan.n_processes > 1:
-        raise not_ported(f"n_processes = {plan.n_processes} (a fleet)",
-                          "launch/distributed.py")
     nx = grid.nx if grid is not None else None
     return ResolvedPlan(plan=plan,
                         backend=default_backend(plan.n_ranks, nx, device),
@@ -236,9 +257,14 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
       io             bytes + seconds for one episode spill through the
                      binary FileSink -> per-actuation volume and
                      single-stream bandwidth
-      t_interhost    the reference's single-process estimate from the
-                     CostModel's loopback defaults (``estimated: true``)
+      t_interhost    one episode-sized trajectory all-gather across the
+                     fleet: a real gloo timing when this process is part of
+                     one (``estimated: false``), otherwise the estimate
+                     from the CostModel's loopback defaults
+                     (``estimated: true``)
     plus ``device``: the type, name and count of the devices measured.
+    ``n_devices`` counts the fleet's devices (each process's, summed), as
+    the reference's ``jax.devices()``.
     """
     import tempfile
 
@@ -250,10 +276,12 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
     from repro_torch.drl.ppo import Batch, PPOConfig, make_optimizer, \
         ppo_update
     from repro_torch.drl.rollout import Trajectory
+    from repro_torch.launch.distributed import all_gather_rows, fleet_info
 
     dev = resolve_device(device)
     grid = grid or GridConfig()
-    n_devices = len(plan_devices(dev))
+    procs = fleet_info().num_processes
+    n_devices = procs * len(plan_devices(dev))
     n_total = n_total or n_devices
     ppo_cfg = ppo_cfg or PPOConfig()
     geom = build_geometry(grid)
@@ -326,13 +354,25 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
     if own_dir:
         sink.cleanup()
 
-    # -- inter-host all-gather: one process here, so the model's estimate ---
-    base = CostModel()
-    t_interhost = {"processes": 1, "bytes": float(nbytes),
-                   "seconds": base.interhost_latency
-                   + float(nbytes) / base.interhost_bandwidth,
-                   "bandwidth": base.interhost_bandwidth,
-                   "estimated": True}
+    # -- inter-host all-gather (the fleet cost term) -------------------------
+    # traffic: one probe episode's trajectory payload, what the fleet engine
+    # all-gathers after every rollout, from host tensors over gloo as it does
+    if procs > 1:
+        host = torch.zeros((1, max(1, int(nbytes) // (4 * procs))))
+        t_gather = _time(all_gather_rows, host, device=torch.device("cpu"),
+                         iters=iters)
+        t_interhost = {"processes": procs, "bytes": float(nbytes),
+                       "seconds": t_gather,
+                       "bandwidth": float(nbytes) * (procs - 1) / procs
+                       / max(t_gather, 1e-9),
+                       "estimated": False}
+    else:
+        base = CostModel()
+        t_interhost = {"processes": 1, "bytes": float(nbytes),
+                       "seconds": base.interhost_latency
+                       + float(nbytes) / base.interhost_bandwidth,
+                       "bandwidth": base.interhost_bandwidth,
+                       "estimated": True}
 
     return {
         "n_total": n_total,
@@ -431,37 +471,49 @@ def autotune(n_total: Optional[int] = None, *, grid=None, ppo_cfg=None,
              n_episodes: int = 3000, io_bytes: Optional[float] = None,
              horizon: int = 32, iters: int = 3, seed: int = 0,
              artifact: Optional[str] = None, base: Optional[CostModel] = None,
-             smoke: bool = False, device: DeviceLike = "cuda"
-             ) -> ResolvedPlan:
+             max_processes: Optional[int] = None, smoke: bool = False,
+             device: DeviceLike = "cuda") -> ResolvedPlan:
     """Measure -> refit -> optimize -> ResolvedPlan (+ JSON artifact).
 
-    ``n_total`` defaults to the device count (the executable budget).
+    ``n_total`` defaults to the fleet's device count (the executable
+    budget).  ``max_processes`` caps the fleet layouts the optimizer may
+    pick (default: however many processes this fleet has, so a standalone
+    run never plans processes it cannot execute); a layout is feasible
+    when each process's share of the workers fits its local devices.
     ``artifact`` writes the measured-vs-predicted record; ``smoke`` shrinks
     the probe (1 timing iteration, short horizon).  ``device`` is where the
     components are measured: ``"cuda"`` raises on a host without a card.
-    Only single-rank, single-process plans are candidates (one card
-    measures no multi-rank step, and neither the halo backend nor fleets
-    are ported).
+    Only single-rank plans are candidates (one card measures no multi-rank
+    step, and the halo backend is not ported).  In a multi-process fleet
+    every process measures (the all-gather needs them all) and all adopt
+    process 0's plan, so the replicated learners run one backend; process
+    0 writes the artifact.
     """
     from repro_torch.cfd.grid import GridConfig
+    from repro_torch.launch.distributed import fleet_info
 
     dev = resolve_device(device)
     grid = grid or GridConfig(res=6)
     if smoke:
         iters, horizon = 1, 8
+    if max_processes is None:
+        max_processes = fleet_info().num_processes
     measured = measure_components(grid, n_total=n_total, ppo_cfg=ppo_cfg,
                                   horizon=horizon, iters=iters, seed=seed,
                                   device=dev)
     n_total = measured["n_total"]
     model = refit_cost_model(measured, base=base)
     # optimize over the EXECUTABLE lattice only: single-rank plans whose
-    # n_total workers fit on this host's devices
-    plans = [p for p in enumerate_plans(n_total, 1)
-             if p.n_ranks == 1 and n_total <= measured["n_devices"]]
+    # per-process share of the n_total workers fits one process's devices
+    # (a budget that fits one process keeps n_processes = 1: inter-process
+    # comms are pure cost)
+    local = len(plan_devices(dev))
+    plans = [p for p in enumerate_plans(n_total, max_processes)
+             if p.n_ranks == 1 and n_total // p.n_processes <= local]
     if not plans:
         raise ValueError(
             f"no executable plan: n_total = {n_total} workers cannot be "
-            f"placed on 1 host x {measured['n_devices']} local devices")
+            f"placed on {max_processes} host(s) x {local} local devices")
     best = min(plans, key=lambda p: (model.t_training(p, n_episodes,
                                                       io_bytes),
                                      -p.utilization, p.n_ranks,
@@ -510,12 +562,20 @@ def autotune(n_total: Optional[int] = None, *, grid=None, ppo_cfg=None,
             for p in plans
         ],
     }
-    if artifact:
+    resolved = ResolvedPlan(plan=best, backend=backend, model=model,
+                            source="auto", measurements=record, layout=layout)
+    info = fleet_info()
+    if info.num_processes > 1:
+        # one plan for the fleet: process 0's measurement decides
+        box = [resolved]
+        torch.distributed.broadcast_object_list(box, src=0)
+        resolved = box[0]
+    if artifact and info.is_coordinator:      # one writer in a fleet
         path = Path(artifact)
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(record, indent=1, default=float))
-    return ResolvedPlan(plan=best, backend=backend, model=model,
-                        source="auto", measurements=record, layout=layout)
+        path.write_text(json.dumps(resolved.measurements, indent=1,
+                                   default=float))
+    return resolved
 
 
 def validate_artifact(record: Dict[str, Any]) -> None:

@@ -18,9 +18,12 @@ has no zstd codec: ``codec="zstd"`` writes the binary payload, as the
 reference does where zstandard is not installed.
 
 An ``EngineConfig.plan`` resolves through ``core.autotune.resolve_plan``;
-only single-rank, single-process plans execute.  Multi-rank meshes (the
-halo backend, ``cfd/decomp.py``) and fleet mode (``launch/distributed.py``)
-are not ported yet.
+single-rank plans execute, multi-rank meshes (the halo backend,
+``cfd/decomp.py``) are not ported yet.  ``EngineConfig.fleet`` is the
+reference's multi-process fleet mode (``launch/distributed.py``): each
+process rolls out its shard of the env batch on its own card, the
+trajectories are all-gathered over gloo on the host, and the values, GAE
+and the PPO update run replicated on every process over the full batch.
 """
 from __future__ import annotations
 
@@ -345,6 +348,25 @@ class EngineConfig:
     # so ``engine.stats`` reports their real shares (off: the loop does not
     # wait for the card more than it must)
     timing: bool = False
+    # multi-process fleet mode (repro_torch.launch.distributed): each
+    # process rolls out its n_envs // P rows, the trajectories are
+    # all-gathered to the host over gloo, and postprocess + the PPO update
+    # run replicated on every process over the full batch (the drlfoam
+    # runner/learner split: no gradient traffic).  Training is bitwise-
+    # identical at every fleet size: the policy runs on one env at a time,
+    # every process draws the whole batch's noise and takes its rows, and
+    # the caller pins the fused kernel's cluster.  Sinks spill per-process
+    # env shards.
+    fleet: bool = False
+
+
+def _tree_rows(x, rows: slice):
+    """Rows ``rows`` of every tensor of a (nested NamedTuple) env batch."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x[rows]
+    return type(x)(*(_tree_rows(a, rows) for a in x))
 
 
 def _model_device(model) -> torch.device:
@@ -396,6 +418,18 @@ class RolloutEngine:
             from repro_torch.core.autotune import not_ported
             raise not_ported(f"n_ranks = {cfg.n_ranks} (the halo backend)",
                              "cfd/decomp.py")
+        if cfg.fleet:
+            from repro_torch.launch.distributed import fleet_info
+            if self.resolved_plan is None:
+                raise ValueError("EngineConfig(fleet=True) needs a plan: "
+                                 "the fleet spans the plan's data groups "
+                                 "over the processes")
+            procs = fleet_info().num_processes
+            if cfg.n_envs % procs:
+                raise ValueError(
+                    f"fleet mode needs n_envs = {cfg.n_envs} divisible by "
+                    f"the process count {procs} (each process owns an "
+                    f"equal env shard)")
         self.cfg = cfg
         if sink is None and cfg.sink is not None:
             sink = cfg.sink.build()
@@ -460,19 +494,98 @@ class RolloutEngine:
         runs after each action's env step is issued."""
         device = _model_device(model)
         t0 = self._clock(device)
-        _, traj = rollout.rollout_batch(self.env_step_fn, model, st_b, obs_b,
-                                        self.cfg.horizon,
-                                        generator=generator, noise=noise,
-                                        obs_aux_fn=self.obs_aux_fn,
-                                        on_action=on_action)
+        if self.cfg.fleet:
+            traj = self._fleet_collect(model, st_b, obs_b, generator, noise,
+                                       on_action)
+        else:
+            _, traj = rollout.rollout_batch(
+                self.env_step_fn, model, st_b, obs_b, self.cfg.horizon,
+                generator=generator, noise=noise, obs_aux_fn=self.obs_aux_fn,
+                on_action=on_action)
         batch = self.postprocess(model, traj)
         if self.cfg.timing:
             self.stats["collect_s"] += self._clock(device) - t0
             self.stats["episodes"] += 1
-        if record and self.sink is not None:
-            self.sink.write(self.episode, traj)
+        if record:
+            self._sink_write(self.episode, traj)
         self.episode += 1
         return batch, traj
+
+    # -- fleet mode ----------------------------------------------------------
+
+    def _shard(self) -> Tuple[int, int]:
+        """(first row, row count) of this process's env shard."""
+        from repro_torch.launch.distributed import fleet_info
+        info = fleet_info()
+        per = self.cfg.n_envs // info.num_processes
+        return info.process_id * per, per
+
+    def rollout_local(self, model, st_b, obs_b, *,
+                      generator: Optional[torch.Generator] = None,
+                      noise=None, on_action: Optional[Callable] = None
+                      ) -> Trajectory:
+        """This process's rows of the fleet rollout, on its card: no
+        all-gather, no postprocess, no sink (the no-comms twin of
+        ``collect`` that separates contention from communication).
+        ``st_b`` / ``obs_b`` and the noise are the full batch's: every
+        process draws the whole batch's noise from ``generator`` (one
+        ``(n_envs, act_dim)`` draw per action, as the single-process
+        rollout draws it) and keeps its rows, so the generator ends in the
+        same state at every fleet size."""
+        lo, per = self._shard()
+        if noise is None:
+            act_dim = model.cfg.act_dim
+            noise = torch.stack([networks.action_noise(
+                (self.cfg.n_envs, act_dim), generator)
+                for _ in range(self.cfg.horizon)], dim=1)
+        rows = slice(lo, lo + per)
+        _, traj = rollout.rollout_batch(
+            self.env_step_fn, model, _tree_rows(st_b, rows), obs_b[rows],
+            self.cfg.horizon, noise=noise[rows], obs_aux_fn=self.obs_aux_fn,
+            on_action=on_action, per_env=True)
+        return traj
+
+    def _fleet_collect(self, model, st_b, obs_b, generator, noise,
+                       on_action) -> Trajectory:
+        """The local rollout, its rows copied to the host and all-gathered
+        over gloo (one collective of every field's rows side by side), the
+        full batch back on the card.  Adds the rollout's and the gather's
+        host seconds and the gathered bytes to ``stats``."""
+        from repro_torch.launch.distributed import all_gather_rows
+        device = _model_device(model)
+        t0 = time.perf_counter()
+        local = self.rollout_local(model, st_b, obs_b, generator=generator,
+                                   noise=noise, on_action=on_action)
+        fields = [(f, a) for f, a in zip(Trajectory._fields, local)
+                  if a is not None]
+        widths = [a[0].numel() for _, a in fields]
+        host = torch.cat([a.detach().reshape(a.shape[0], -1)
+                          .to(torch.float32).cpu() for _, a in fields], dim=1)
+        t1 = time.perf_counter()
+        full = all_gather_rows(host)
+        t2 = time.perf_counter()
+        out = {}
+        for (f, a), part in zip(fields,
+                                torch.split(full.to(device), widths, dim=1)):
+            out[f] = part.reshape(full.shape[0], *a.shape[1:]).to(a.dtype)
+        self.stats["rollout_s"] = self.stats.get("rollout_s", 0.0) + t1 - t0
+        self.stats["gather_s"] = self.stats.get("gather_s", 0.0) + t2 - t1
+        self.stats["gather_bytes"] = (self.stats.get("gather_bytes", 0)
+                                      + full.numel() * full.element_size())
+        return Trajectory(**out)
+
+    def _sink_write(self, episode: int, traj: Trajectory) -> None:
+        """Spill one episode; fleet runners write only THEIR env rows (the
+        sink's per-process suffix or part dir keeps concurrent writers
+        apart)."""
+        if self.sink is None:
+            return
+        if self.cfg.fleet:
+            lo, per = self._shard()
+            if per != self.cfg.n_envs:
+                traj = Trajectory(*(None if a is None else a[lo:lo + per]
+                                    for a in traj))
+        self.sink.write(episode, traj)
 
     def _update(self, ppo_cfg, optimizer, model, opt_state, batch, step,
                 generator, perm):
@@ -645,8 +758,8 @@ class RolloutEngine:
                     behaviour, st_b, obs_b, generator=generator,
                     noise=None if noise is None else noise[i], record=False,
                     on_action=on_action)
-                if self.sink is not None and spill is not None:
-                    self.sink.write(*spill)
+                if spill is not None:
+                    self._sink_write(*spill)
                 pending, spill = (batch, i), (ep_id, traj)
                 returns.append(float(torch.mean(torch.sum(traj.reward,
                                                           dim=1))))
@@ -665,8 +778,8 @@ class RolloutEngine:
                 # unwinding mid-update: nothing may reuse its inputs' memory
                 # before its issued work is done
                 collect_stream.wait_stream(update_stream)
-        if self.sink is not None and spill is not None:
-            self.sink.write(*spill)
+        if spill is not None:
+            self._sink_write(*spill)
         if on_state is not None and episodes > 0:
             # the carry after the drain: no update in flight, so a
             # checkpoint of it loses nothing

@@ -256,12 +256,14 @@ def sample_action(model: nn.Module, obs, *,
     std = torch.exp(log_std)
     if eps is None:
         # drawn on the generator's (CPU) device, then moved
-        eps = _action_noise(mean.shape, generator).to(mean.device)
+        eps = action_noise(mean.shape, generator).to(mean.device)
     act = mean + std * eps
     return act, _gauss_logp(act, mean, log_std)
 
 
-def _action_noise(shape, generator: Optional[torch.Generator]):
+def action_noise(shape, generator: Optional[torch.Generator]):
+    """The policy's standard-normal draw for a mean of ``shape``, on the
+    generator's (CPU) device."""
     return torch.randn(shape, generator=generator)
 
 
@@ -274,7 +276,7 @@ def burn_action_noise(n: int, act_dim: int, steps: int,
     live run's state (one draw of steps * n * act_dim values need not
     leave it there)."""
     for _ in range(steps):
-        _action_noise((n, act_dim), generator)
+        action_noise((n, act_dim), generator)
 
 
 def log_prob(model: nn.Module, obs, act, aux=None):

@@ -26,10 +26,28 @@ class Trajectory(NamedTuple):
     valid: torch.Tensor = None       # (N, T) 1 = healthy step (sentinel)
 
 
+def _policy(model, obs, generator, eps, aux, per_env: bool):
+    """``sample_action`` on the whole batch, or on a fresh copy of each
+    env's row, one call an env."""
+    if not per_env:
+        return networks.sample_action(model, obs, generator=generator,
+                                      eps=eps, aux=aux)
+
+    def row(x, i):
+        return x[i:i + 1].clone()
+
+    outs = [networks.sample_action(
+        model, row(obs, i), eps=row(eps, i),
+        aux=None if aux is None else {k: row(v, i) for k, v in aux.items()})
+        for i in range(obs.shape[0])]
+    return (torch.cat([a for a, _ in outs]), torch.cat([lp for _, lp in outs]))
+
+
 @torch.no_grad()
 def rollout_batch(env_step_fn, model, st0_b, obs0_b, length: int, *,
                   generator: Optional[torch.Generator] = None, noise=None,
-                  obs_aux_fn=None, on_action: Optional[Callable] = None
+                  obs_aux_fn=None, on_action: Optional[Callable] = None,
+                  per_env: bool = False
                   ) -> Tuple[object, Trajectory]:
     """Roll every env of the batch for ``length`` actuation periods.
 
@@ -38,15 +56,21 @@ def rollout_batch(env_step_fn, model, st0_b, obs0_b, length: int, *,
     otherwise they come from ``generator``.  ``obs_aux_fn(state)`` is
     evaluated once on the initial state and fed to every policy call.
     ``on_action(t)`` runs after action ``t``'s env step has been issued
-    (``RolloutEngine.run_async`` issues update work there)."""
+    (``RolloutEngine.run_async`` issues update work there).
+
+    ``per_env`` evaluates the policy one env at a time, on a fresh copy of
+    its row (the fleet engine's rollout), so an env's action does not
+    depend on how many envs the batch holds: a matmul's float32 result
+    depends on its row count and alignment.  It needs ``noise``."""
+    if per_env and noise is None:
+        raise ValueError("rollout_batch(per_env=True) needs injected noise")
     aux0 = None if obs_aux_fn is None else obs_aux_fn(st0_b)
     st, obs = st0_b, obs0_b
     rows = []
     for t in range(length):
         eps = (None if noise is None else torch.as_tensor(
             noise[:, t], dtype=torch.float32, device=obs.device))
-        act, logp = networks.sample_action(model, obs, generator=generator,
-                                           eps=eps, aux=aux0)
+        act, logp = _policy(model, obs, generator, eps, aux0, per_env)
         # scalar envs take the bare amplitude
         a = act[..., 0] if act.shape[-1] == 1 else act
         st, out = env_step_fn(st, a)

@@ -29,10 +29,15 @@ keys.
 The hybrid plan, as in the reference: ``TrainConfig.plan`` ("auto" to
 measure the card and optimize with ``core.autotune``, a ``ParallelPlan``
 or an (n_envs, n_ranks) pair) picks the solver backend of every interval
-and rounds ``n_envs`` up to a multiple of the plan's.  Only single-rank,
-single-process plans execute: multi-rank meshes (the halo backend,
-``cfd/decomp.py``) and fleets (``launch/distributed.py``) are not ported
-yet.
+and rounds ``n_envs`` up to a multiple of the plan's.  Single-rank plans
+execute; multi-rank meshes (the halo backend, ``cfd/decomp.py``) are not
+ported yet.
+
+Fleet mode, as in the reference: in a process group that
+``launch.distributed.initialize_fleet`` joined (or with ``REPRO_FLEET=1``),
+each process rolls out its shard of the env batch on its card and learns
+from the all-gathered batch (``EngineConfig.fleet``); only process 0 logs
+and writes checkpoints, and runs of every fleet size are bitwise equal.
 
 Fresh and resumed runs share one loop: both build the model, optimizer
 state, generator and env batch first (fresh from the seed and a warmup,
@@ -61,6 +66,7 @@ from repro_torch.drl.engine import (EngineConfig, RolloutEngine, SinkSpec,
 from repro_torch.drl.health import DivergenceError, resolve_watchdog
 from repro_torch.drl.ppo import PPOConfig, make_optimizer
 from repro_torch.drl.train_state import HISTORY_FIELDS, TrainState
+from repro_torch.launch import distributed as dist_mod
 
 # the self-healing counters train() reports in ``health`` and stores in
 # every checkpoint's metadata
@@ -113,6 +119,12 @@ class TrainConfig:
     # 'binary' | 'zstd' | 'dataset'); an explicit sink= to train() wins.
     # The run fingerprint (run_metadata) is annotated into dataset manifests.
     sink: Optional[SinkSpec] = None
+    # multi-process fleet mode (repro_torch.launch.distributed): None =
+    # auto (fleet when this process is in a multi-process group or the
+    # launcher exported REPRO_FLEET=1; single-process fleets keep the same
+    # engine path so runs are bitwise-comparable across fleet sizes).
+    # Requires a plan; only process 0 logs and writes checkpoints.
+    fleet: Optional[bool] = None
     backend: str = "fused"        # solver backend of every interval
     device: str = "cuda"
 
@@ -143,12 +155,23 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     checkpoint writer's ``ckpt_saves``, ``ckpt_bytes``,
     ``ckpt_time_blocked`` (caller-visible seconds) and
     ``ckpt_time_waited`` (the part of it spent waiting for the previous
-    write), summed over rollbacks.
+    write), summed over rollbacks; in a fleet also this runner's
+    ``fleet_rollout_s``, ``fleet_gather_s`` (host seconds) and
+    ``fleet_gather_bytes`` (``RolloutEngine.stats``), summed likewise.
     ``_rollbacks`` / ``_sink_retries0`` are internal: the watchdog-rollback
     retry depth and the retries counted by the sinks of rolled-back runs."""
     device = resolve_device(cfg.device)
     resolved = None
     backend, n_envs = cfg.backend, cfg.n_envs
+    fleet = dist_mod.fleet_active() if cfg.fleet is None else cfg.fleet
+    info = dist_mod.fleet_info()
+    proc0 = info.is_coordinator
+    if fleet and cfg.plan is None:
+        raise ValueError("fleet training needs a plan (TrainConfig.plan): "
+                         "the fleet spans the plan's data groups over the "
+                         "processes")
+    if fleet and not proc0:
+        log_fn = None                  # one log stream: the coordinator's
     if cfg.plan is not None:
         from repro_torch.core.autotune import resolve_plan
         resolved = resolve_plan(cfg.plan, grid=cfg.env.grid, device=device,
@@ -192,6 +215,8 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
                 f"the reset batch produced obs_dim={obs_dim}")
     jv = st_b.jet_vel
     act_dim = int(jv.shape[-1]) if jv.dim() > 1 else 1
+    if fleet:
+        env.pin_cluster(n_envs, per_body=jv.dim() > 1)
     pcfg = networks.PolicyConfig(obs_dim=obs_dim, act_dim=act_dim,
                                  policy=cfg.policy)
     engine = RolloutEngine.for_env(
@@ -199,14 +224,15 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
                           horizon=cfg.env.actions_per_episode,
                           gamma=cfg.ppo.gamma, lam=cfg.ppo.lam,
                           n_ranks=resolved.n_ranks if resolved else 1,
-                          sink=cfg.sink), sink=sink)
+                          plan=resolved,
+                          sink=cfg.sink, fleet=fleet), sink=sink)
     run_meta = ts_mod.run_metadata(
         n_envs=n_envs, obs_dim=obs_dim, seed=cfg.seed,
         grid=cfg.env.grid, horizon=cfg.env.actions_per_episode,
         steps_per_action=cfg.env.steps_per_action, scenarios=cfg.scenarios,
         plan={"n_envs": resolved.n_envs, "n_ranks": resolved.n_ranks,
               "backend": resolved.backend,
-              "n_processes": resolved.n_processes} if resolved else None,
+              "n_processes": info.num_processes} if resolved else None,
         policy={"policy": cfg.policy, "obs_dim": obs_dim,
                 "act_dim": act_dim})
     if engine.sink is not None:
@@ -262,6 +288,8 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     engine.episode = ep0              # sink episode ids continue, not restart
     watchdog = resolve_watchdog(cfg.watchdog)
     health = {} if health is None else health
+    fleet0 = {k: health.get(f"fleet_{k}", 0)
+              for k in ("rollout_s", "gather_s", "gather_bytes")}
 
     def fill_health() -> Dict[str, Any]:
         health.update(quarantines=int(round(sum(hist["quarantines"]))),
@@ -269,6 +297,11 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
                       rollbacks=int(_rollbacks),
                       sink_retries=_sink_retries0 + (
                           engine.sink.retries if engine.sink else 0))
+        if fleet:
+            # the fleet's rollout / gather split, summed over rollbacks
+            for k in ("rollout_s", "gather_s", "gather_bytes"):
+                health[f"fleet_{k}"] = (fleet0.get(k, 0)
+                                        + engine.stats.get(k, 0))
         return {k: health[k] for k in HEALTH_FIELDS}
 
     remaining = cfg.episodes - ep0
@@ -280,7 +313,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
         return {k: np.asarray(v) for k, v in hist.items()}, model
 
     ckpter = None
-    if cfg.ckpt_dir:
+    if cfg.ckpt_dir and proc0:        # one writer: the coordinator
         ckpter = ckpt_mod.AsyncCheckpointer(
             cfg.ckpt_dir, keep=cfg.ckpt_keep, compress=cfg.ckpt_compress,
             background=cfg.ckpt_async)

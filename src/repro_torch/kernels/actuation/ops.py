@@ -443,10 +443,11 @@ fused_interval_cuda.last_block_sms = None
 
 def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
                    jet_vel, n_steps: int, *, re=None, act_mode=None,
-                   geom_id=None):
+                   geom_id=None, cluster=None):
     """One actuation interval with fields resident across every dt; the
     ``backend="fused"`` arm of ``solver.step_interval`` (``geom_id``: each
-    env's index into the bank ``geom_arrays``).  The realization follows
+    env's index into the bank ``geom_arrays``; ``cluster``: the kernel's
+    cluster size, None for its own choice).  The realization follows
     :func:`select_tier` for the state's device: a CUDA state launches the
     kernel or raises, it never falls back to the twin or the reference
     loop."""
@@ -464,6 +465,7 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
                                     backend="reference", geom_id=geom_id)
     if tier == "cuda":
         return fused_interval_cuda(cfg, geom_arrays, state, jet_vel, n_steps,
-                                   re=re, act_mode=act_mode, geom_id=geom_id)
+                                   re=re, act_mode=act_mode, geom_id=geom_id,
+                                   cluster=cluster)
     return fused_interval_plain(cfg, geom_arrays, state, jet_vel, n_steps,
                                 re=re, act_mode=act_mode, geom_id=geom_id)

@@ -476,8 +476,10 @@ def test_train_records_its_plan(tmp_path):
 @pytest.mark.parametrize("plan,error,match", [
     ((2, 1), ValueError, "devices but this host has 1"),
     ((1, 2), NotImplementedError, r"cfd/decomp\.py"),
-    (tplan.ParallelPlan(2, 2, 1, 2), NotImplementedError,
-     r"launch/distributed\.py")])
+    # a fleet plan outside a fleet: its 2 workers need 2 devices, as in
+    # the reference
+    (tplan.ParallelPlan(2, 2, 1, 2), ValueError,
+     "devices but this host has 1")])
 def test_train_refuses_plans_it_cannot_run(tmp_path, plan, error, match):
     with pytest.raises(error, match=match):
         train(_tiny_train(tmp_path, plan=plan), log_fn=None)

@@ -1,9 +1,9 @@
 """The port's autotuner on one device: plan resolution and its errors, the
 backend rules, the plans this package refuses (``n_ranks > 1`` needs the
-halo backend, ``n_processes > 1`` a fleet), a measured ``smoke=True``
-autotune on the CPU whose artifact validates under both packages'
-``validate_artifact`` (and the reference's under the port's), and damaged
-artifacts refused by both."""
+halo backend), fleet plans resolved as the reference's, a measured
+``smoke=True`` autotune on the CPU whose artifact validates under both
+packages' ``validate_artifact`` (and the reference's under the port's),
+and damaged artifacts refused by both."""
 import copy
 import json
 
@@ -12,6 +12,7 @@ import torch
 
 from repro.cfd.grid import GridConfig as JGridConfig
 from repro.core import autotune as jat
+from repro.core.plan import ParallelPlan as JParallelPlan
 from repro_torch.cfd.grid import GridConfig
 from repro_torch.core import autotune as tat
 from repro_torch.core.plan import CostModel, ParallelPlan
@@ -78,10 +79,18 @@ def test_multi_rank_plans_raise_naming_the_halo_backend(make):
         make()
 
 
-def test_fleet_plans_raise_naming_the_launcher():
-    with pytest.raises(NotImplementedError,
-                       match=r"launch/distributed\.py"):
-        tat.resolve_plan(ParallelPlan(4, 4, 1, 2), device="cpu")
+def test_fleet_plans_resolve_as_the_reference():
+    """A fleet plan (n_processes > 1) resolves like the reference's; outside
+    a fleet its 4 workers need 4 devices, and one device refuses it as the
+    reference's mesh does."""
+    rp = tat.resolve_plan(ParallelPlan(4, 4, 1, 2), device="cpu")
+    ref = jat.resolve_plan(JParallelPlan(4, 4, 1, 2))
+    assert rp.n_processes == ref.n_processes == 2
+    assert (rp.backend, rp.source) == (ref.backend, ref.source)
+    assert rp.describe() == ref.describe()
+    for build in (lambda: rp.build_mesh("cpu"), ref.build_mesh):
+        with pytest.raises(ValueError, match="devices but this host has 1"):
+            build()
 
 
 def test_build_mesh_counts_devices():

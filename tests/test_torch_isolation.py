@@ -40,7 +40,9 @@ def test_import_loads_no_jax_and_no_reference():
     for name in ("testing.faults", "ckpt.io", "ckpt.checkpoint",
                  "drl.health", "drl.train_state", "core.interface",
                  "data.trajectory_dataset", "data.pipeline", "core.plan",
-                 "core.scaling_model", "core.autotune", "drl.async_train"):
+                 "core.scaling_model", "core.autotune", "drl.async_train",
+                 "launch.distributed", "launch.fleet", "examples.drl_cylinder",
+                 "examples.serve_batch", "examples.hybrid_scaling_demo"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 
