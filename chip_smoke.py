@@ -117,7 +117,25 @@ Phases (any failure exits non-zero):
    envs, 1 episode of 100 actions (one fused launch per interval),
    ``serve_batch`` from (a)'s checkpoint (p50 / p99 latency, actions/s)
    and ``hybrid_scaling_demo`` in paper mode and ``--auto`` at res 16;
-12. one JSON line listing the five kernels, then the card's line and the
+12. the halo decomposition (the paper's N_ranks axis: each env's pressure
+   solve as x-slabs with halo messages, every slab on the card; plain
+   PyTorch, no kernel of its own), with
+   ``REPRO_TORCH_FORCE_DEVICE_COUNT=4`` for the phase only: (a)
+   ``decomposed_solve`` at res 16 (ny 66, nx 352), 4 envs, 60 pairs with
+   a polish of 10, at ranks 1, 2 and 4, ``halo_inner`` 1 and 4, packed and
+   legacy: rank 1 bit-equal to the monolithic solve of its layout, ranks
+   2 and 4 at ``halo_inner=1`` within 1e-5 relative of it, messages of
+   (33, 1) packed and (66, 1) legacy or block-Jacobi, 4 x 60 x (r - 1) a
+   solve at ``halo_inner=1`` packed, each case's ms per solve; (b) the
+   res-8 golden fixture through ``run_uncontrolled(backend="halo")`` at
+   two ranks within the golden tolerances; (c) a mixed scenario batch
+   with fixed actions through the env step on a (2, 2) mesh at res 16,
+   within 0.05 of the un-decomposed backend; (d) ``train(plan=
+   ParallelPlan(4, 2, 2))`` at the main path's widths, 2 episodes of 8
+   actions after a 1 t.u. warmup: the plan line names 'halo' and 2 x 2,
+   returns finite, no kernel launched; (e) ``autotune`` over the four
+   workers, ``t_step_ranks`` at ranks 1, 2 and 4 and the plan chosen;
+13. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Imports nothing of jax or of the reference package.
@@ -2076,6 +2094,229 @@ def async_path(card):
         async_episode_s=async_ep, sync_episode_s=sync_ep)
 
 
+HALO_SCENARIOS = ("cyl_re100", "cyl_re100_rotary", "cyl_re200", "cyl_re100")
+TOL_HALO_MONOLITHIC = 1e-5     # relative, the reference's bound
+TOL_HALO_ROLLOUT = 0.05        # the reference's mixed-batch gate
+
+
+def halo_solves(dev, card):
+    """Phase 12 (a): the decomposed solve at the training shape against
+    the monolithic one, its messages recorded."""
+    import torch
+    from repro_torch.cfd import decomp, poisson
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.launch.mesh import mesh_for_plan
+    grid = GridConfig(res=16)
+    gen = torch.Generator().manual_seed(12)
+    rhs = torch.randn((4, grid.ny, grid.nx), generator=gen).to(dev)
+    p0 = (0.1 * torch.randn((4, grid.ny, grid.nx), generator=gen)).to(dev)
+    kw = dict(iters=60, polish=10)
+    mono = {packed: poisson.solve(rhs, grid.dx, grid.dy, p0=p0,
+                                  backend="packed" if packed else "full",
+                                  **kw) for packed in (True, False)}
+    scale = float(mono[True].abs().max())
+    rows = []
+    for r in (1, 2, 4):
+        mesh = mesh_for_plan((1, r), device=dev)
+        for inner in (1, 4):
+            for packed in (True, False):
+                def solve(mesh=mesh, inner=inner, packed=packed):
+                    return decomp.decomposed_solve(
+                        rhs, p0, mesh=mesh, dx=grid.dx, dy=grid.dy,
+                        inner_iters=inner, packed=packed, **kw)
+                with decomp.record_messages() as log:
+                    out = solve()
+                torch.cuda.synchronize()
+                shapes = sorted({shape for shape, _ in log})
+                per_env = sum(n for _, n in log)
+                nbytes = sum(n * shape[0] * shape[1] * 4 for shape, n in log)
+                rel = float((out - mono[packed]).abs().max()) / scale
+                row = dict(ranks=r, halo_inner=inner, packed=packed,
+                           ms=cuda_ms(solve, 3),
+                           host_paced_ms=host_paced_ms(solve, 3),
+                           messages_per_env=per_env, message_shapes=shapes,
+                           bytes_per_env=nbytes, rel_to_monolithic=rel)
+                print(f"[halo solve] ranks {r}, halo_inner {inner}, "
+                      f"{'packed' if packed else 'legacy'}: {row['ms']:.4f} "
+                      f"ms a solve of 4 envs (host-paced "
+                      f"{row['host_paced_ms']:.4f} ms), {per_env} messages "
+                      f"{shapes} and {nbytes} bytes an env, max |diff| / "
+                      f"max |p| against the monolithic solve {rel:.3e}; card "
+                      f"{card}")
+                if not torch.isfinite(out).all():
+                    fail(f"halo solve {row} is not finite")
+                if r == 1 and not torch.equal(out, mono[packed]):
+                    fail(f"the rank-1 halo solve {row} differs from the "
+                         f"monolithic one")
+                if r > 1 and inner == 1 and packed \
+                        and rel > TOL_HALO_MONOLITHIC:
+                    fail(f"the tight-coupling halo solve at {r} ranks is "
+                         f"{rel:.3e} from the monolithic one (> "
+                         f"{TOL_HALO_MONOLITHIC})")
+                want = (33, 1) if packed and inner == 1 else (66, 1)
+                if r > 1 and shapes != [want]:
+                    fail(f"halo messages {shapes}, expected [{want}]")
+                if r > 1 and packed and inner == 1 \
+                        and per_env != 4 * kw["iters"] * (r - 1):
+                    fail(f"{per_env} halo messages an env at {r} ranks, "
+                         f"expected {4 * kw['iters'] * (r - 1)}")
+                if r == 1 and log:
+                    fail("a one-rank halo solve sent messages")
+                rows.append(row)
+    return rows
+
+
+def halo_path(card):
+    """Phase 12: the halo decomposition on the card, four plan workers
+    served by the card (``REPRO_TORCH_FORCE_DEVICE_COUNT=4`` for the phase
+    only).  Returns the phase's readings for the kernels line."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.cfd import decomp
+    from repro_torch.cfd.env import CylinderEnv, EnvConfig
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.cfd.validation import measure_shedding, run_uncontrolled
+    from repro_torch.convert import flow_state_from_numpy
+    from repro_torch.core import autotune as at
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.drl.engine import shard_env_batch
+    from repro_torch.drl.train import TrainConfig, train
+    from repro_torch.launch.mesh import mesh_for_plan
+    dev = torch.device("cuda")
+    prev = os.environ.get(at.FORCE_DEVICE_COUNT)
+    os.environ[at.FORCE_DEVICE_COUNT] = "4"
+    try:
+        # (a) the solve
+        (solves, secs) = wall(lambda: halo_solves(dev, card))
+        print(f"[halo solve] 12 cases in {secs:.3f} s")
+
+        # (b) the golden fixture at two ranks
+        ref = np.load(ROOT / "tests" / "golden" / "cyl_re100_res8.npz")
+        cfg = GridConfig(res=int(ref["res"]), dt=float(ref["dt"]),
+                         poisson_iters=int(ref["poisson_iters"]))
+        state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"],
+                                      device=dev)
+        reset_counts()
+        (_, cds, cls), golden_s = wall(lambda: run_uncontrolled(
+            cfg, state, int(ref["meas_steps"]), backend="halo",
+            mesh=mesh_for_plan((1, 2), device=dev)))
+        launched = counts()
+        stats = measure_shedding(cds, cls, cfg.dt)
+        print(f"[halo golden] res 8, {int(ref['meas_steps'])} dt at two "
+              f"ranks in {golden_s:.3f} s, launches {launched}")
+        if any(launched.values()):
+            fail(f"the halo golden run launched kernels: {launched}")
+        for key, tol in (("strouhal", TOL_ST), ("cd_mean", TOL_CD),
+                         ("cl_amp", TOL_AMP)):
+            want, got = float(ref[key]), stats[key]
+            rel = abs(got - want) / abs(want)
+            print(f"[halo golden] {key}: {got:.6f} vs fixture {want:.6f} "
+                  f"(rel {rel:.2e}, tol {tol})")
+            if not (math.isfinite(got) and rel <= tol):
+                fail(f"halo golden {key} {got} vs {want} outside rel {tol}")
+
+        # (c) a mixed batch with fixed actions on a (2, 2) mesh
+        env_cfg = EnvConfig(grid=GridConfig(res=16), steps_per_action=50,
+                            warmup_time=1.0)
+        mesh = mesh_for_plan(ParallelPlan(4, 2, 2), device=dev)
+        outs = {}
+        reset_counts()
+        for tag, backend, env_mesh in (("halo", "halo", mesh),
+                                       ("reference", "reference", None)):
+            env = CylinderEnv(env_cfg, backend=backend, mesh=env_mesh,
+                              device=dev)
+            st_b, _ = env.reset_batch(HALO_SCENARIOS, 4)
+            if env_mesh is not None:
+                st_b = shard_env_batch(env_mesh, st_b, 2)
+            rows = []
+            t0 = time.perf_counter()
+            for a in (0.3, -0.2, 0.1):
+                st_b, out = env.env_step(st_b, torch.full((4,), a,
+                                                          device=dev))
+                rows.append(out)
+            torch.cuda.synchronize()
+            outs[tag] = {f: torch.stack([getattr(o, f) for o in rows])
+                         for f in ("reward", "cd", "cl", "obs")}
+            print(f"[halo rollout] {tag}: 3 actions of 50 dt on 4 envs "
+                  f"{HALO_SCENARIOS} in {time.perf_counter() - t0:.3f} s "
+                  f"(after the warmup)")
+        launched = counts()
+        for f in ("reward", "cd", "cl", "obs"):
+            d = float((outs["halo"][f] - outs["reference"][f]).abs().max())
+            print(f"[halo rollout] {f}: max |halo - reference| {d:.3e} "
+                  f"(tol {TOL_HALO_ROLLOUT})")
+            if not (torch.isfinite(outs["halo"][f]).all()
+                    and d < TOL_HALO_ROLLOUT):
+                fail(f"the (2, 2) halo rollout's {f} is {d} from the "
+                     f"reference backend's")
+        if any(launched.values()):
+            fail(f"the halo rollout launched kernels: {launched}")
+
+        # (d) train() with the hybrid plan; its episodes' solves must send
+        # 4 half-width messages a sweep pair (the warmup is un-decomposed)
+        logs = []
+        reset_counts()
+        with decomp.record_messages() as messages:
+            (hist, model), train_s = wall(lambda: train(
+                TrainConfig(env=EnvConfig(grid=GridConfig(res=16),
+                                          steps_per_action=50,
+                                          actions_per_episode=8,
+                                          warmup_time=1.0),
+                            n_envs=4, episodes=2, seed=0,
+                            plan=ParallelPlan(4, 2, 2), device="cuda"),
+                log_fn=lambda msg: (logs.append(msg),
+                                    print(f"[halo train] {msg}"))))
+        launched = counts()
+        sent = sum(n for _, n in messages)
+        want = 4 * 60 * 2 * 8 * 50
+        print(f"[halo train] {sent} halo messages an env "
+              f"{sorted({shape for shape, _ in messages})} (expected {want} "
+              f"of (33, 1): 4 a sweep pair, 60 pairs, 800 dt)")
+        if sent != want or {shape for shape, _ in messages} != {(33, 1)}:
+            fail(f"the halo train sent {sent} messages, expected {want}")
+        line = [msg for msg in logs if "plan[explicit]" in msg]
+        print(f"[halo train] 2 episodes of 8 actions in {train_s:.3f} s, "
+              f"episode walls {hist['wall'].tolist()}, rewards "
+              f"{hist['reward'].tolist()}, launches {launched}")
+        if not line or "'halo'" not in line[0] or "2 x 2" not in line[0]:
+            fail(f"train(plan=ParallelPlan(4, 2, 2)) logged {line}")
+        if not all(np.isfinite(v).all() for v in hist.values()) or not all(
+                bool(torch.isfinite(p).all()) for p in model.parameters()):
+            fail("train(plan=ParallelPlan(4, 2, 2)) is not finite")
+        if launched["fused_interval"] or launched["rb_sor_slabs_packed"]:
+            fail(f"the halo train launched kernels: {launched}")
+
+        # (e) autotune over the four workers
+        reset_counts()
+        rp, tune_s = wall(lambda: at.autotune(grid=GridConfig(res=16),
+                                              device="cuda"))
+        tuned = counts()
+        m = rp.measurements["measured"]
+        print(f"[halo autotune] {tune_s:.3f} s, 4 workers: t_step_ranks "
+              f"{m['t_step_ranks']} s ({m['t_step_backends']}); "
+              f"{rp.describe()}; launches {tuned}; card {card}")
+        if sorted(m["t_step_ranks"]) != [1, 2, 4]:
+            fail(f"autotune over 4 workers timed ranks "
+                 f"{sorted(m['t_step_ranks'])}, expected [1, 2, 4]")
+    finally:
+        if prev is None:
+            os.environ.pop(at.FORCE_DEVICE_COUNT, None)
+        else:
+            os.environ[at.FORCE_DEVICE_COUNT] = prev
+    return dict(
+        fused=dict(halo_train_launches=launched["fused_interval"],
+                   halo_autotune_launches=tuned["fused_interval"],
+                   halo_path=("train(plan=ParallelPlan(4, 2, 2)), warmup + "
+                              "2 episodes of 8 actions: none (the halo "
+                              "backend); autotune over 4 workers: its "
+                              "interval probe")),
+        sor=dict(halo_train_launches=launched["rb_sor_slabs_packed"],
+                 halo_autotune_launches=tuned["rb_sor_slabs_packed"]),
+        solves=solves, golden_s=golden_s, train_s=train_s,
+        t_step_ranks=m["t_step_ranks"], plan=rp.describe())
+
+
 def fleet_path(card):
     """Phase 10: fleet mode through the port's launcher on the card at the
     training shape (res 16, 4 envs in all, 50 dt per action, 60 SOR
@@ -2456,7 +2697,12 @@ def main():
     # 11. the user-facing scripts
     scripts_path(card, fleet["ckpt_dir"])
 
-    # 12. the kernels, the card, the result
+    # 12. the halo decomposition: multi-rank plans on the card
+    halo = halo_path(card)
+    fused.update(halo["fused"])
+    sor.update(halo["sor"])
+
+    # 13. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,15 +112,29 @@ class CylinderEnv:
     (warmup included): ``"fused"`` runs the fused-interval kernel on CUDA
     (its scalar instantiation for a scalar amplitude, its per-body one for
     a vector) and its plain twin on the CPU; ``"pallas"`` the packed-SOR
-    kernel inside each dt; the rest are plain PyTorch.  ``cluster`` is the
-    fused kernel's cluster size on the card: None, its own choice for each
-    launch's env count, until :meth:`pin_cluster` fixes it."""
+    kernel inside each dt; the rest are plain PyTorch.  ``backend="halo"``
+    with a ("data", "model") ``mesh`` runs each env's pressure solve as
+    explicit x-slabs over the "model" axis (the plan's n_ranks), every slab
+    of an env on ``device``; its warmup runs the un-decomposed "reference"
+    backend, as the reference's does (the two solve the same equations).
+    ``cluster`` is the fused kernel's cluster size on the card: None, its
+    own choice for each launch's env count, until :meth:`pin_cluster`
+    fixes it."""
 
     def __init__(self, cfg: EnvConfig = EnvConfig(), *,
-                 backend: Optional[str] = None, device="cuda"):
+                 backend: Optional[str] = None, mesh=None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = poisson.resolve_backend(backend)
+        self.mesh = mesh
+        if self.backend == "halo":
+            from repro_torch.cfd.decomp import validate_decomposition
+            from repro_torch.launch.mesh import slab_device
+            if mesh is None:
+                raise ValueError("backend='halo' needs mesh= (e.g. "
+                                 "launch.mesh.mesh_for_plan(plan))")
+            validate_decomposition(mesh, cfg.grid.nx)
+            slab_device(mesh)
         self.cluster: Optional[int] = None
         self.geom = build_geometry(cfg.grid, cfg.geometry)
         self.geom_arrays = solver.geom_to_arrays(self.geom, self.device)
@@ -182,10 +196,12 @@ class CylinderEnv:
                 a.expand(len(gtodo), *a.shape).contiguous() for a in flow0))
             re = torch.tensor([g[0] for g in gtodo], **f32)
             mode = torch.tensor([g[1] for g in gtodo], **f32)
+            # the halo env warms up un-decomposed (see the class docstring)
             flows, outs = solver.step_interval(
                 cfg.grid, ga, flow0, torch.zeros(len(gtodo), **f32), n,
-                re=re, act_mode=mode, backend=self.backend,
-                cluster=self.cluster)
+                re=re, act_mode=mode,
+                backend="reference" if self.backend == "halo"
+                else self.backend, cluster=self.cluster)
             cd0s = torch.mean(outs.cd[:, -tail:], dim=1).tolist()
             for i, g in enumerate(gtodo):
                 self._group_cache[g] = (
@@ -339,7 +355,8 @@ class CylinderEnv:
                                           act_mode=st.scn.act_mode,
                                           backend=self.backend,
                                           geom_id=geom_id,
-                                          cluster=self.cluster)
+                                          cluster=self.cluster,
+                                          mesh=self.mesh)
         if per_body:
             # (..., n_steps, B): the drag term is the total, the lift is
             # penalized per body, so opposite body lifts do not cancel

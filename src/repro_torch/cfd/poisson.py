@@ -13,6 +13,9 @@ the backends:
                named as in ``repro`` so both packages' backend names match:
                the hand-written CUDA kernel on CUDA tensors, its plain twin
                on CPU tensors
+  "halo"       the explicit x-slab decomposition with halo messages
+               (``cfd/decomp.py``) over a mesh's "model" axis: the
+               paper's N_ranks > 1 configuration
   "fused"      an actuation-interval option (``solver.step_interval``); a
                single ``solve`` runs "reference"
 
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch._warn import warn_once_cache
 
-BACKENDS = ("reference", "packed", "full", "pallas", "fused")
+BACKENDS = ("reference", "packed", "full", "pallas", "halo", "fused")
 
 # pairs at the end of a solve swept with omega = 1 (the polish tail)
 POLISH = 10
@@ -49,8 +52,7 @@ def resolve_backend(backend: Optional[str] = None) -> str:
     backend = "reference" if backend is None else backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown solver backend {backend!r}; choose from "
-                         f"{BACKENDS} (the halo decomposition is not ported "
-                         f"yet)")
+                         f"{BACKENDS}")
     return backend
 
 
@@ -178,7 +180,8 @@ def _full_sweeps(rhs, p, dx, dy, iters, n_sor, omega):
 
 
 def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
-          backend: Optional[str] = None, polish: int = POLISH):
+          backend: Optional[str] = None, polish: int = POLISH, mesh=None,
+          halo_axis: str = "model", halo_inner: int = 4):
     """Red-black SOR on ``(..., ny, nx)``; the last :func:`n_polish` pairs
     run with omega = 1.
 
@@ -186,9 +189,24 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     slab kernel (so 52 SOR pairs where "packed" does 50 at iters=60), then
     the polish pairs on the packed planes, as ``repro`` does.  On an odd
     grid width it has no checkerboard parity: a CPU tensor falls back to
-    the reference path (warning once per shape), a CUDA tensor raises."""
+    the reference path (warning once per shape), a CUDA tensor raises.
+    ``backend="halo"`` runs ``cfd/decomp``'s explicit x-slab decomposition
+    over ``mesh``'s ``halo_axis`` (``halo_inner`` local sweep pairs per
+    halo exchange): the paper's N_ranks > 1 configuration."""
     backend = resolve_backend(backend)
     ny, nx = rhs.shape[-2:]
+    if backend == "halo":
+        if mesh is None:
+            raise ValueError(
+                "backend='halo' needs a mesh with a spatial axis; pass "
+                "mesh= (e.g. launch.mesh.mesh_for_plan(plan)) or choose "
+                "backend='reference'")
+        from repro_torch.cfd import decomp
+        p = torch.zeros_like(rhs) if p0 is None else p0
+        return decomp.decomposed_solve(rhs, p, mesh=mesh, axis=halo_axis,
+                                       dx=dx, dy=dy, omega=omega,
+                                       iters=iters, inner_iters=halo_inner,
+                                       polish=polish)
     if backend == "fused":
         backend = "reference"
     if backend == "pallas" and nx % 2:

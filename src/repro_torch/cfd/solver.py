@@ -288,11 +288,15 @@ def force_coefficients(cfg: GridConfig, fx, fy):
 
 
 def step(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState, jet_vel,
-         *, re=None, act_mode=None, backend: Optional[str] = None
-         ) -> Tuple[FlowState, StepOutputs]:
+         *, re=None, act_mode=None, backend: Optional[str] = None,
+         mesh=None, halo_inner: int = 1) -> Tuple[FlowState, StepOutputs]:
     """Advance one dt.  ``backend`` picks the Poisson backend (see
     ``poisson.solve``); "fused" only changes behaviour at the interval level
-    and solves a single step with the reference sweep."""
+    and solves a single step with the reference sweep.  "halo" needs
+    ``mesh`` and runs the pressure solve as explicit x-slabs over its
+    "model" axis; ``halo_inner`` local sweep pairs per halo exchange, the
+    default 1 exchanging the updated parity before every colored
+    half-sweep (the decomposed iteration is then the monolithic one)."""
     backend = poisson.resolve_backend(backend)
     ga = GeomArrays(*geom_arrays)
     if re is None:
@@ -302,7 +306,8 @@ def step(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState, jet_vel,
     rhs = divergence(u_bc, v_bc, cfg) / cfg.dt
     p = poisson.solve(rhs, cfg.dx, cfg.dy, iters=cfg.poisson_iters,
                       omega=cfg.poisson_omega, p0=p,
-                      backend="reference" if backend == "fused" else backend)
+                      backend="reference" if backend == "fused" else backend,
+                      mesh=mesh, halo_inner=halo_inner)
     u_new, v_new = _correct(cfg, ga, u_bc, v_bc, p)
     cd, cl = force_coefficients(cfg, fx, fy)
     return FlowState(u_new, v_new, p), StepOutputs(cd=cd, cl=cl)
@@ -311,8 +316,8 @@ def step(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState, jet_vel,
 def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
                   jet_vel, n_steps: int, *, re=None, act_mode=None,
                   backend: Optional[str] = None, geom_id=None,
-                  cluster: Optional[int] = None
-                  ) -> Tuple[FlowState, StepOutputs]:
+                  cluster: Optional[int] = None, mesh=None,
+                  halo_inner: int = 1) -> Tuple[FlowState, StepOutputs]:
     """Advance ``n_steps`` dt under one held actuation amplitude (one
     actuation interval).  Returns per-dt ``(..., n_steps)`` force
     coefficients, ``(..., n_steps, B)`` for a per-body ``jet_vel``.
@@ -327,7 +332,8 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
     width falls back to the reference loop with a once-per-shape warning.
     ``cluster`` fixes the kernel's cluster size on the card (None: its own
     choice; the CPU twin and the other backends ignore it).  Every other
-    backend loops :func:`step`."""
+    backend loops :func:`step` (``mesh`` / ``halo_inner`` for "halo"; the
+    fused kernel is single-rank)."""
     backend = poisson.resolve_backend(backend)
     if backend == "fused":
         from repro_torch.kernels.actuation import ops as actuation_ops
@@ -340,7 +346,8 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
     cds, cls = [], []
     for _ in range(n_steps):
         state, out = step(cfg, geom_arrays, state, jet_vel, re=re,
-                          act_mode=act_mode, backend=backend)
+                          act_mode=act_mode, backend=backend, mesh=mesh,
+                          halo_inner=halo_inner)
         cds.append(out.cd)
         cls.append(out.cl)
     return state, StepOutputs(cd=torch.stack(cds, dim=dim),

@@ -16,17 +16,19 @@ from repro_torch.cfd.grid import GridConfig, build_geometry
 
 
 def run_uncontrolled(cfg: GridConfig, state: solver.FlowState, n: int, *,
-                     backend: Optional[str] = None,
+                     backend: Optional[str] = None, mesh=None,
                      geometry: str = "cylinder"
                      ) -> Tuple[solver.FlowState, np.ndarray, np.ndarray]:
     """Advance ``n`` uncontrolled steps on ``state``'s device as one
     interval (``backend="fused"`` on a CUDA state: one kernel launch);
-    returns ``(state, cds, cls)`` with numpy series.  ``geometry`` picks
+    returns ``(state, cds, cls)`` with numpy series.  ``backend`` /
+    ``mesh`` select the Poisson backend (``mesh`` for "halo": the golden
+    window re-measured through the decomposed solve).  ``geometry`` picks
     the body set (``grid.GEOMETRIES``); the forces are the total over all
     bodies (the scalar zero amplitude), which the golden fixtures pin."""
     ga = solver.geom_to_arrays(build_geometry(cfg, geometry), state.u.device)
     state, outs = solver.step_interval(cfg, ga, state, 0.0, n,
-                                       backend=backend)
+                                       backend=backend, mesh=mesh)
     return state, outs.cd.cpu().numpy(), outs.cl.cpu().numpy()
 
 

@@ -7,8 +7,10 @@ cluster (Tables I/II, Fig. 7).  This module re-measures those constants
 where the code runs and makes the result executable:
 
   1. ``measure_components`` times the real building blocks, the card
-     synchronised around each call: one single-env solver step with the
-     backend a single-rank plan runs, one pressure solve per sweep layout,
+     synchronised around each call: one single-env solver step at every
+     feasible rank count (rank 1 with the backend a single-rank plan runs,
+     more ranks through the halo backend on a (1, r) mesh: the paper's
+     Fig. 7 axis), one pressure solve per sweep layout,
      one ``INTERVAL_PROBE_STEPS``-dt actuation interval through the plain
      loop and through the fused-interval kernel, policy inference, one PPO
      update, one trajectory-sink write.
@@ -21,13 +23,15 @@ where the code runs and makes the result executable:
      component times under the reference's schema tag, so an artifact
      written by either package validates in both.
 
-Single-rank plans execute here, on one process or across a fleet
+Plans execute here on one process, multi-rank ones through the halo
+decomposition (``cfd/decomp.py``: an env's x-slabs side by side on its
+device), and single-rank ones across a fleet too
 (``launch/distributed.py``): in a live fleet ``ResolvedPlan.build_mesh``
 spans the plan's data groups over the processes, ``measure_components``
 times a real gloo all-gather for ``t_interhost`` and ``autotune``'s
-``max_processes`` admits fleet layouts.  ``n_ranks > 1`` needs the halo
-decomposition (``cfd/decomp.py``), not ported yet; such plans raise
-``NotImplementedError`` naming it.
+``max_processes`` admits fleet layouts.  A plan's workers are the host's
+devices; ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` makes them serve N workers
+(``plan_devices``), as the reference's forced host device count does.
 
 ``resolve_plan`` is the single entry point engines and training loops use
 to accept ``plan="auto" | ParallelPlan | (n_envs, n_ranks) | ResolvedPlan``.
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -56,22 +61,37 @@ AUTOTUNE_SCHEMA = "repro.autotune/v4"
 INTERVAL_PROBE_STEPS = 10
 
 
-def not_ported(what: str, module: str) -> NotImplementedError:
+def not_ported(what: str, needs: str, hint: str) -> NotImplementedError:
     """The error a plan this package cannot execute raises: ``what`` needs
-    ``module`` of the reference, not ported yet."""
+    ``needs`` of the reference, not ported yet; ``hint`` says what runs."""
     return NotImplementedError(
-        f"{what} needs {module}, which is not ported to repro_torch yet; "
-        f"use a single-rank plan (n_ranks = 1)")
+        f"{what} needs {needs}, which is not ported to repro_torch yet; "
+        f"{hint}")
+
+
+# N workers over the host's devices (cycling), the counterpart of the
+# reference's XLA_FLAGS=--xla_force_host_platform_device_count=N
+FORCE_DEVICE_COUNT = "REPRO_TORCH_FORCE_DEVICE_COUNT"
 
 
 def plan_devices(device: DeviceLike = "cuda") -> List[torch.device]:
     """The devices a plan's workers map onto: every CUDA card of this host,
-    or the one CPU device."""
+    or the one CPU device; with ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` set,
+    N workers cycling over them (4 on one card, or 4 on the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [torch.device("cpu")]
+    forced = os.environ.get(FORCE_DEVICE_COUNT)
+    if forced:
+        n = int(forced)
+        if n < 1:
+            raise ValueError(f"{FORCE_DEVICE_COUNT}={forced}: need a "
+                             f"positive worker count")
+        devices = [devices[i % len(devices)] for i in range(n)]
+    return devices
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +158,8 @@ class ResolvedPlan:
         if n > len(devices):
             raise ValueError(
                 f"plan needs n_envs * n_ranks = {n} devices but this host "
-                f"has {len(devices)}; shrink the plan")
+                f"has {len(devices)}; shrink the plan or force more workers "
+                f"per device ({FORCE_DEVICE_COUNT}={n})")
         return devices[:n]
 
     def describe(self) -> str:
@@ -154,15 +175,14 @@ class ResolvedPlan:
 
 def default_backend(n_ranks: int, nx: Optional[int] = None,
                     device: DeviceLike = "cuda") -> str:
-    """Poisson backend implied by a split: single-rank runs use the packed
-    SOR kernel (``"pallas"``) on a CUDA device with an even grid width, as
-    the reference does on a TPU, and the plain ``"reference"`` elsewhere.
+    """Poisson backend implied by a split: n_ranks > 1 needs the explicit
+    halo decomposition; single-rank runs use the packed SOR kernel
+    (``"pallas"``) on a CUDA device with an even grid width, as the
+    reference does on a TPU, and the plain ``"reference"`` elsewhere.
     With ``nx`` unknown the conservative "reference" is chosen: it is
-    correct on every grid.  ``n_ranks > 1`` needs the halo decomposition,
-    which is not ported: it raises."""
+    correct on every grid."""
     if n_ranks > 1:
-        raise not_ported(f"n_ranks = {n_ranks} (the halo backend)",
-                          "cfd/decomp.py")
+        return "halo"
     if nx is not None and torch.device(device).type == "cuda" \
             and nx % 2 == 0:
         return "pallas"
@@ -179,8 +199,7 @@ def resolve_plan(plan, *, n_total: Optional[int] = None, grid=None,
     grid in scope the backend choice is conservative (never "pallas",
     whose even-nx requirement can't be checked).  A plan's modelled
     ``n_processes`` needs nothing here (the live fleet decides where its
-    workers run, ``ResolvedPlan.build_mesh``); ``n_ranks > 1`` raises
-    ``NotImplementedError``.
+    workers run, ``ResolvedPlan.build_mesh``).
     """
     if isinstance(plan, ResolvedPlan):
         return plan
@@ -229,8 +248,7 @@ def _time(fn, *args, device: torch.device, warmup: int = 1, iters: int = 3,
 
 def candidate_ranks(n_total: int, nx: int, n_devices: int) -> List[int]:
     """Rank counts worth timing: divide the worker budget AND the grid
-    width, and fit on the host's devices.  Only ``1`` executes in this
-    package (``default_backend``)."""
+    width, and fit on the host's devices."""
     return [r for r in range(1, n_total + 1)
             if n_total % r == 0 and nx % r == 0 and r <= n_devices]
 
@@ -243,9 +261,11 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
     """Time the real components of one training episode on ``device``.
 
     Returns a dict with per-component times (seconds), the reference's:
-      t_step_ranks   {1: solver-step time} with the backend a single-rank
-                     plan runs (``t_step_backends``); one card has no
-                     multi-rank point of the paper's Fig. 7
+      t_step_ranks   {n_ranks: solver-step time}: rank 1 with the backend
+                     a single-rank plan runs (``t_step_backends``), more
+                     ranks with the halo backend on a (1, r) mesh, for
+                     every feasible r (``candidate_ranks``): the paper's
+                     Fig. 7 measurement
       t_poisson_layouts  {layout: time} for one pressure solve in packed vs
                      full-grid checkerboard storage (plain PyTorch)
       t_interval_backends  {backend: time} for one
@@ -277,6 +297,7 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
         ppo_update
     from repro_torch.drl.rollout import Trajectory
     from repro_torch.launch.distributed import all_gather_rows, fleet_info
+    from repro_torch.launch.mesh import mesh_for_plan
 
     dev = resolve_device(device)
     grid = grid or GridConfig()
@@ -293,10 +314,20 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
     def timed(fn, *args):
         return _time(fn, *args, device=dev, iters=iters)
 
-    # -- one solver step, with the backend a single-rank plan executes ------
-    step_backends = {1: default_backend(1, grid.nx, dev)}
-    t_step_ranks = {1: timed(lambda: solver.step(
-        grid, ga, st, zero, backend=step_backends[1]))}
+    # -- one solver step per rank count (Fig. 7's axis), each with the
+    # backend a plan of that n_ranks executes; a fleet runs single-rank
+    # plans only (fleets with n_ranks > 1 are not ported)
+    t_step_ranks: Dict[int, float] = {}
+    step_backends: Dict[int, str] = {}
+    ranks = (candidate_ranks(n_total, grid.nx, len(plan_devices(dev)))
+             if procs == 1 else [1])
+    for r in ranks:
+        backend = default_backend(r, grid.nx, dev)
+        mesh_r = mesh_for_plan((1, r), device=dev, span_processes=False) \
+            if r > 1 else None
+        t_step_ranks[r] = timed(lambda b=backend, m=mesh_r: solver.step(
+            grid, ga, st, zero, backend=b, mesh=m))
+        step_backends[r] = backend
 
     # -- sweep storage layout: packed checkerboard vs full grid -------------
     rhs = torch.randn((grid.ny, grid.nx), generator=gen).to(dev)
@@ -483,8 +514,9 @@ def autotune(n_total: Optional[int] = None, *, grid=None, ppo_cfg=None,
     ``artifact`` writes the measured-vs-predicted record; ``smoke`` shrinks
     the probe (1 timing iteration, short horizon).  ``device`` is where the
     components are measured: ``"cuda"`` raises on a host without a card.
-    Only single-rank plans are candidates (one card measures no multi-rank
-    step, and the halo backend is not ported).  In a multi-process fleet
+    A rank count is a candidate where it was measured (``candidate_ranks``:
+    it divides the budget and the grid width and fits the host's workers).
+    In a multi-process fleet
     every process measures (the all-gather needs them all) and all adopt
     process 0's plan, so the replicated learners run one backend; process
     0 writes the artifact.
@@ -503,13 +535,15 @@ def autotune(n_total: Optional[int] = None, *, grid=None, ppo_cfg=None,
                                   device=dev)
     n_total = measured["n_total"]
     model = refit_cost_model(measured, base=base)
-    # optimize over the EXECUTABLE lattice only: single-rank plans whose
-    # per-process share of the n_total workers fits one process's devices
-    # (a budget that fits one process keeps n_processes = 1: inter-process
-    # comms are pure cost)
+    # optimize over the EXECUTABLE lattice only: a rank count that was not
+    # measurable cannot be run by the halo backend either, and a process's
+    # share of the n_total workers must fit its devices (a budget that fits
+    # one process keeps n_processes = 1: inter-process comms are pure cost)
+    feasible = {int(r) for r in measured["t_step_ranks"]}
     local = len(plan_devices(dev))
     plans = [p for p in enumerate_plans(n_total, max_processes)
-             if p.n_ranks == 1 and n_total // p.n_processes <= local]
+             if p.n_ranks in feasible
+             and n_total // p.n_processes <= local]
     if not plans:
         raise ValueError(
             f"no executable plan: n_total = {n_total} workers cannot be "
@@ -526,9 +560,11 @@ def autotune(n_total: Optional[int] = None, *, grid=None, ppo_cfg=None,
     if backend == "reference":
         backend = layout
     # single-rank plans upgrade to the fused actuation-interval path when
-    # its measured interval time beats the plain loop
+    # its measured interval time beats the plain loop (multi-rank plans need
+    # the halo decomposition, which the fused kernel does not serve)
     intervals = measured.get("t_interval_backends", {})
-    if "fused" in intervals and intervals["fused"] <= min(intervals.values()):
+    if (best.n_ranks == 1 and "fused" in intervals
+            and intervals["fused"] <= min(intervals.values())):
         backend = "fused"
 
     steps = {int(k): float(v) for k, v in measured["t_step_ranks"].items()}

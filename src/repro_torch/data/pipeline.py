@@ -5,8 +5,8 @@ Port of ``repro.data.pipeline``.  The LM stream is deterministic by step:
 (seed, step) -> batch in host numpy, the reference's tokens bit for bit,
 so every data-parallel worker can slice its own shard without
 coordination.  The modality frontends are not ported (``ROADMAP.md`` §1
-item 7), so a config with a ``frontend`` raises.  Placing a batch on a
-mesh (the reference's ``shard_batch``) waits for the mesh slice.
+item 7), so a config with a ``frontend`` raises.  ``shard_batch`` places
+a host batch on a mesh's device (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,21 @@ def lm_iterator(cfg: LMDataConfig, model_cfg: Optional[ModelConfig] = None,
     while True:
         yield synthetic_batch(cfg, step, model_cfg)
         step += 1
+
+
+def shard_batch(batch: Dict, sharding_tree) -> Dict:
+    """Place a host batch onto the mesh: every array of ``batch`` as a
+    tensor on the device ``sharding_tree`` names for it, a ``Mesh`` (this
+    process's device of it), a device, or a dict of those by key."""
+    from repro_torch.launch.mesh import Mesh
+
+    def target(where):
+        return where.local_device if isinstance(where, Mesh) \
+            else torch.device(where)
+
+    return {k: torch.as_tensor(np.asarray(x)).to(target(
+        sharding_tree[k] if isinstance(sharding_tree, dict)
+        else sharding_tree)) for k, x in batch.items()}
 
 
 # ---------------------------------------------------------------------------

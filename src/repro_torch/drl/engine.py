@@ -17,13 +17,17 @@ are the reference's, so either package reads the other's.  This package
 has no zstd codec: ``codec="zstd"`` writes the binary payload, as the
 reference does where zstandard is not installed.
 
-An ``EngineConfig.plan`` resolves through ``core.autotune.resolve_plan``;
-single-rank plans execute, multi-rank meshes (the halo backend,
-``cfd/decomp.py``) are not ported yet.  ``EngineConfig.fleet`` is the
-reference's multi-process fleet mode (``launch/distributed.py``): each
-process rolls out its shard of the env batch on its own card, the
-trajectories are all-gathered over gloo on the host, and the values, GAE
-and the PPO update run replicated on every process over the full batch.
+An ``EngineConfig.plan`` resolves through ``core.autotune.resolve_plan``
+into a ("data", "model") mesh (``launch/mesh.py``) whose n_ranks the
+engine adopts; a multi-rank plan runs each env's pressure solve as x-slabs
+with halo messages (the "halo" backend, ``cfd/decomp.py``), every slab on
+the env's device.  ``place_env_batch`` puts an env batch (fresh, or
+restored from a checkpoint of another plan) on a mesh.
+``EngineConfig.fleet`` is the reference's multi-process fleet mode
+(``launch/distributed.py``): each process rolls out its shard of the env
+batch on its own card, the trajectories are all-gathered over gloo on the
+host, and the values, GAE and the PPO update run replicated on every
+process over the full batch.
 """
 from __future__ import annotations
 
@@ -336,11 +340,12 @@ class EngineConfig:
     horizon: int              # actuation periods per episode (the paper's T)
     gamma: float = 0.99
     lam: float = 0.95
-    n_ranks: int = 1          # grid shards per env (only 1 executes here)
+    n_ranks: int = 1          # grid shards per env over the "model" axis
     # hybrid placement: "auto" (measure + optimize via core.autotune), a
     # core.plan.ParallelPlan / (n_envs, n_ranks) pair, a ResolvedPlan, or
-    # None.  When set, the engine checks the plan's devices exist and
-    # adopts its n_ranks.
+    # None (explicit mesh= / single device).  When set and no mesh is
+    # passed, the engine builds its mesh from the resolved plan (which
+    # checks the plan's workers exist) and adopts the plan's n_ranks.
     plan: Any = None
     # trajectory spill (SinkSpec); an explicit sink= to the engine wins
     sink: Optional[SinkSpec] = None
@@ -360,13 +365,69 @@ class EngineConfig:
     fleet: bool = False
 
 
-def _tree_rows(x, rows: slice):
-    """Rows ``rows`` of every tensor of a (nested NamedTuple) env batch."""
+# ---------------------------------------------------------------------------
+# mesh placement (the twins of the reference's sharding helpers)
+# ---------------------------------------------------------------------------
+
+def env_state_specs(mesh) -> Tuple[Tuple, Tuple]:
+    """(batch-only spec, batch+space spec) for env state leaves, as axis
+    name tuples with the meaning of the reference's ``PartitionSpec``s:
+    the env batch dim over "data", a grid field's x (last) dim over
+    "model" when the plan uses n_ranks > 1.  Here the "model" split is
+    the x-slab view the halo solve takes of each field
+    (``cfd.decomp.to_slabs``)."""
+    del mesh
+    return ("data",), ("data", None, "model")
+
+
+def mesh_spans_processes(mesh) -> bool:
+    """True when the mesh's workers live on more than one fleet process."""
+    if mesh is None:
+        return False
+    return len({int(p) for p in mesh.processes.flat}) > 1
+
+
+def _tree_map(fn, x):
+    """``fn`` on every tensor leaf of a nested (named) tuple; None stays."""
     if x is None:
         return None
     if torch.is_tensor(x):
-        return x[rows]
-    return type(x)(*(_tree_rows(a, rows) for a in x))
+        return fn(x)
+    if isinstance(x, tuple):
+        parts = [_tree_map(fn, a) for a in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return fn(torch.as_tensor(x))
+
+
+def shard_env_batch(mesh, st_b, n_ranks: int = 1):
+    """Place a batched env state on ``mesh``: every leaf onto this
+    process's device of the mesh.  An env's slabs share its device, so the
+    "model" split of its grid fields (n_ranks) is the halo solve's view,
+    not a copy; a fleet process holds the whole batch and steps its own
+    rows (``RolloutEngine.rollout_local``).  Host arrays (a checkpoint)
+    are copied over."""
+    if n_ranks > 1 and mesh.shape["model"] != n_ranks:
+        raise ValueError(f"n_ranks = {n_ranks} does not match the mesh's "
+                         f"model axis {mesh.shape['model']}")
+    device = mesh.local_device
+    return _tree_map(lambda a: a.to(device), st_b)
+
+
+def place_env_batch(mesh, st_b, n_ranks: int = 1):
+    """Place a (possibly checkpoint-restored) env batch for the engine.
+
+    With a mesh this is :func:`shard_env_batch`, the cross-plan resume
+    step: a state saved under one ``ParallelPlan`` is put on whatever mesh
+    the current plan resolved to.  Without a mesh the batch stays where
+    it is (a restored one is loaded onto the run's device)."""
+    if mesh is not None:
+        return shard_env_batch(mesh, st_b, n_ranks)
+    return st_b
+
+
+def _tree_rows(x, rows: slice):
+    """Rows ``rows`` of every tensor of a (nested NamedTuple) env batch."""
+    return _tree_map(lambda a: a[rows], x)
 
 
 def _model_device(model) -> torch.device:
@@ -398,7 +459,7 @@ class RolloutEngine:
     devices counted; the loops themselves run on the model's device."""
 
     def __init__(self, env_step_fn: Callable, cfg: EngineConfig, *,
-                 sink: Optional[TrajectorySink] = None,
+                 mesh=None, sink: Optional[TrajectorySink] = None,
                  obs_aux_fn: Optional[Callable] = None,
                  device: DeviceLike = "cuda"):
         self.env_step_fn = env_step_fn
@@ -406,18 +467,20 @@ class RolloutEngine:
         self.resolved_plan = None
         if cfg.plan is not None:
             from repro_torch.core.autotune import resolve_plan
+            from repro_torch.launch.mesh import mesh_for_plan
             # smoke probe: engine construction must not block on a
             # full-resolution timing sweep (ignored for explicit plans)
             self.resolved_plan = resolve_plan(cfg.plan, smoke=True,
                                               device=device)
-            self.resolved_plan.build_mesh(device)
+            if mesh is None:
+                mesh = mesh_for_plan(self.resolved_plan, device=device)
             if self.resolved_plan.n_ranks != cfg.n_ranks:
                 cfg = dataclasses.replace(
                     cfg, n_ranks=self.resolved_plan.n_ranks)
-        if cfg.n_ranks > 1:
-            from repro_torch.core.autotune import not_ported
-            raise not_ported(f"n_ranks = {cfg.n_ranks} (the halo backend)",
-                             "cfd/decomp.py")
+        if cfg.fleet and cfg.n_ranks > 1:
+            from repro_torch.launch.mesh import fleet_ranks_not_ported
+            raise fleet_ranks_not_ported(cfg.n_ranks)
+        self.mesh = mesh
         if cfg.fleet:
             from repro_torch.launch.distributed import fleet_info
             if self.resolved_plan is None:

@@ -28,10 +28,13 @@ keys.
 
 The hybrid plan, as in the reference: ``TrainConfig.plan`` ("auto" to
 measure the card and optimize with ``core.autotune``, a ``ParallelPlan``
-or an (n_envs, n_ranks) pair) picks the solver backend of every interval
-and rounds ``n_envs`` up to a multiple of the plan's.  Single-rank plans
-execute; multi-rank meshes (the halo backend, ``cfd/decomp.py``) are not
-ported yet.
+or an (n_envs, n_ranks) pair) picks the solver backend of every interval,
+builds the plan's ("data", "model") mesh (``launch/mesh.py``) and rounds
+``n_envs`` up to a multiple of the plan's.  A multi-rank plan runs the
+"halo" backend: each env's pressure solve as n_ranks x-slabs with halo
+messages (``cfd/decomp.py``), every slab on the env's device.  The env
+batch, fresh or restored, is placed on the mesh (``place_env_batch``),
+so a checkpoint of one plan resumes under another.
 
 Fleet mode, as in the reference: in a process group that
 ``launch.distributed.initialize_fleet`` joined (or with ``REPRO_FLEET=1``),
@@ -62,11 +65,12 @@ from repro_torch.device import resolve_device
 from repro_torch.drl import networks
 from repro_torch.drl import train_state as ts_mod
 from repro_torch.drl.engine import (EngineConfig, RolloutEngine, SinkSpec,
-                                    TrajectorySink)
+                                    TrajectorySink, place_env_batch)
 from repro_torch.drl.health import DivergenceError, resolve_watchdog
 from repro_torch.drl.ppo import PPOConfig, make_optimizer
 from repro_torch.drl.train_state import HISTORY_FIELDS, TrainState
 from repro_torch.launch import distributed as dist_mod
+from repro_torch.launch.mesh import mesh_for_plan
 
 # the self-healing counters train() reports in ``health`` and stores in
 # every checkpoint's metadata
@@ -161,7 +165,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     ``_rollbacks`` / ``_sink_retries0`` are internal: the watchdog-rollback
     retry depth and the retries counted by the sinks of rolled-back runs."""
     device = resolve_device(cfg.device)
-    resolved = None
+    resolved = mesh = None
     backend, n_envs = cfg.backend, cfg.n_envs
     fleet = dist_mod.fleet_active() if cfg.fleet is None else cfg.fleet
     info = dist_mod.fleet_info()
@@ -176,7 +180,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
         from repro_torch.core.autotune import resolve_plan
         resolved = resolve_plan(cfg.plan, grid=cfg.env.grid, device=device,
                                 **{"smoke": True, **(cfg.plan_args or {})})
-        resolved.build_mesh(device)
+        mesh = mesh_for_plan(resolved, device=device)
         backend = resolved.backend
         if n_envs % resolved.n_envs:
             # the batch must tile the plan's data axis: round up, never down
@@ -185,8 +189,8 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
             log_fn(resolved.describe())
             if n_envs != cfg.n_envs:
                 log_fn(f"n_envs {cfg.n_envs} -> {n_envs} (rounded up to a "
-                       f"multiple of the plan's data axis {resolved.n_envs})")
-    env = CylinderEnv(cfg.env, backend=backend, device=device)
+                       f"multiple of the mesh data axis {resolved.n_envs})")
+    env = CylinderEnv(cfg.env, backend=backend, mesh=mesh, device=device)
     ts: Optional[TrainState] = None
     src = ts_mod.resolve_resume(cfg.resume, cfg.ckpt_dir)
     if src is not None:
@@ -225,7 +229,7 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
                           gamma=cfg.ppo.gamma, lam=cfg.ppo.lam,
                           n_ranks=resolved.n_ranks if resolved else 1,
                           plan=resolved,
-                          sink=cfg.sink, fleet=fleet), sink=sink)
+                          sink=cfg.sink, fleet=fleet), mesh=mesh, sink=sink)
     run_meta = ts_mod.run_metadata(
         n_envs=n_envs, obs_dim=obs_dim, seed=cfg.seed,
         grid=cfg.env.grid, horizon=cfg.env.actions_per_episode,
@@ -238,6 +242,10 @@ def train(cfg: TrainConfig, *, log_fn: Optional[Callable] = print,
     if engine.sink is not None:
         # durable datasets record which run (and which code) produced them
         engine.sink.annotate(**run_meta)
+    # the batch onto the plan's mesh; for a resumed run this is the
+    # cross-plan step (a checkpoint of one plan restored under another)
+    st_b = place_env_batch(mesh, st_b, engine.cfg.n_ranks)
+    obs_b = place_env_batch(mesh, obs_b)
 
     init_model = None if model is None else copy.deepcopy(model)
     if ts is None:

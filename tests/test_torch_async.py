@@ -475,7 +475,9 @@ def test_train_records_its_plan(tmp_path):
 
 @pytest.mark.parametrize("plan,error,match", [
     ((2, 1), ValueError, "devices but this host has 1"),
-    ((1, 2), NotImplementedError, r"cfd/decomp\.py"),
+    # a halo plan on one device: its 2 workers need 2 devices, as the
+    # reference's mesh says
+    ((1, 2), ValueError, "devices but this host has 1"),
     # a fleet plan outside a fleet: its 2 workers need 2 devices, as in
     # the reference
     (tplan.ParallelPlan(2, 2, 1, 2), ValueError,

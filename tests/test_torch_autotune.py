@@ -1,6 +1,6 @@
 """The port's autotuner on one device: plan resolution and its errors, the
-backend rules, the plans this package refuses (``n_ranks > 1`` needs the
-halo backend), fleet plans resolved as the reference's, a measured
+backend rules, multi-rank plans resolved to the halo backend as the
+reference's, fleet plans resolved as the reference's, a measured
 ``smoke=True`` autotune on the CPU whose artifact validates under both
 packages' ``validate_artifact`` (and the reference's under the port's),
 and damaged artifacts refused by both."""
@@ -66,17 +66,55 @@ def test_default_backend(nx, device, want):
         assert jat.default_backend(1, nx) == want
 
 
+def _resolves_to_halo(plan, jplan):
+    rp, ref = tat.resolve_plan(plan, device="cpu"), jat.resolve_plan(jplan)
+    assert (rp.backend, ref.backend) == ("halo", "halo")
+    assert rp.describe() == ref.describe()
+
+
+def _engine_with_two_ranks():
+    eng = RolloutEngine(None, EngineConfig(n_envs=2, horizon=3, n_ranks=2),
+                        device="cpu")
+    assert eng.cfg.n_ranks == 2 and eng.mesh is None
+
+
+def _engine_plan_needs_two_workers(mp):
+    """On one device the plan's mesh refuses, with the reference's
+    ValueError; two forced workers on the CPU run it."""
+    from repro.drl import engine as jengine
+    for make in (lambda: RolloutEngine(None, EngineConfig(
+            n_envs=2, horizon=3, plan=(1, 2)), device="cpu"),
+                 lambda: jengine.RolloutEngine(None, jengine.EngineConfig(
+                     n_envs=2, horizon=3, plan=(1, 2)))):
+        with pytest.raises(ValueError, match=r"plan needs n_envs \* n_ranks "
+                                             r"= 2 devices but this host "
+                                             r"has 1"):
+            make()
+    mp.setenv(tat.FORCE_DEVICE_COUNT, "2")
+    eng = RolloutEngine(None, EngineConfig(n_envs=2, horizon=3, plan=(1, 2)),
+                        device="cpu")
+    assert eng.cfg.n_ranks == 2 and eng.resolved_plan.backend == "halo"
+    assert dict(eng.mesh.shape) == {"data": 1, "model": 2}
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tat.default_backend(2, 88),
-    lambda: tat.resolve_plan(ParallelPlan(4, 2, 2), device="cpu"),
-    lambda: tat.resolve_plan((1, 4), device="cpu"),
-    lambda: RolloutEngine(None, EngineConfig(n_envs=2, horizon=3,
-                                             n_ranks=2), device="cpu"),
-    lambda: RolloutEngine(None, EngineConfig(n_envs=2, horizon=3,
-                                             plan=(1, 2)), device="cpu")])
-def test_multi_rank_plans_raise_naming_the_halo_backend(make):
-    with pytest.raises(NotImplementedError, match=r"cfd/decomp\.py"):
-        make()
+    lambda mp: _equal(tat.default_backend(2, 88), "halo",
+                      jat.default_backend(2, 88)),
+    lambda mp: _resolves_to_halo(ParallelPlan(4, 2, 2),
+                                 JParallelPlan(4, 2, 2)),
+    lambda mp: _resolves_to_halo((1, 4), (1, 4)),
+    lambda mp: _engine_with_two_ranks(),
+    lambda mp: _engine_plan_needs_two_workers(mp)])
+def test_multi_rank_plans_raise_naming_the_halo_backend(make, monkeypatch):
+    """Multi-rank plans resolve to the halo backend (``cfd/decomp.py``) as
+    the reference's do, and an engine adopts their n_ranks; the only
+    refusal left is the reference's, a plan needing more devices than the
+    host has."""
+    make(monkeypatch)
+
+
+def _equal(*values):
+    assert len(set(values)) == 1, values
 
 
 def test_fleet_plans_resolve_as_the_reference():
