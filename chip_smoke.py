@@ -112,7 +112,13 @@ Phases (any failure exits non-zero):
    of 3: the supervisor must shrink 2 -> 1 and resume to the target, its
    episode-2 checkpoint equal to (a)'s; (c) ``--plan auto`` in a 2-process
    fleet: ``autotune(max_processes=2)`` in every runner, its artifact
-   valid with a measured (``estimated: false``) gloo ``t_interhost``;
+   valid with a measured (``estimated: false``) gloo ``t_interhost``; (d)
+   a 1- and a 2-runner fleet of ``--plan 4,2,2`` (2 envs of 2 x-slabs each
+   on the halo backend, one env a runner in the second; 1 episode of 4
+   actions after a 1 t.u. warmup) whose final checkpoints must be equal
+   bit for bit; (e) ``--plan auto`` in 2 runners of 4 workers each
+   (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``): ``autotune(max_processes=2)``
+   must time ranks 1, 2 and 4;
 11. the user-facing scripts on the card: ``drl_cylinder`` at res 16, 4
    envs, 1 episode of 100 actions (one fused launch per interval),
    ``serve_batch`` from (a)'s checkpoint (p50 / p99 latency, actions/s)
@@ -135,8 +141,29 @@ Phases (any failure exits non-zero):
    actions after a 1 t.u. warmup: the plan line names 'halo' and 2 x 2,
    returns finite, no kernel launched; (e) ``autotune`` over the four
    workers, ``t_step_ranks`` at ranks 1, 2 and 4 and the plan chosen;
-13. one JSON line listing the five kernels, then the card's line and the
+13. the language model's serving path (``prefill``, ``decode_step``), random
+   bf16 params from a seed: (a) phi4-mini-3.8b at full width and depth,
+   ``prefill`` of B=1, S=4096 into a cache of 4160 (timed; its K/V of each
+   layer bit-equal to ``apply_attention(return_kv=True)`` on its input to
+   that layer), 64 greedy ``decode_step``s (ms per token p50 / p99 beside
+   the bound of the bytes a token reads), and the decode held block by
+   block against ``forward_train(backend="pallas")`` over the 4097 tokens
+   and 127 more (the flash kernel's 128-key tile; 32 launches): each
+   layer fed the forward's input to it, the decode block's update at
+   position 4096 within ``TOL_LM_LAYER`` of the forward's; (b) rwkv6-3b
+   the same (64 WKV6 launches), prefill's states held against the
+   kernel's; (c) phi4-mini at decode_32k's cache length, ``init_cache(B=8,
+   S=32768)`` (the batch cut from 128), 16 steps; (d) llama3-405b (4 of
+   126 layers), mistral-large-123b (8 of 88) and qwen1.5-32b (32 of 64)
+   decoding 16 steps from a float8_e4m3fn ``init_cache(B=8, S=4096)`` and
+   from a bfloat16 one, each block's update within ``TOL_FLOAT8_BLOCK`` of
+   the bfloat16 run's and the float8 cache byte for byte the cast of its
+   K/V;
+14. one JSON line listing the five kernels, then the card's line and the
    result.
+
+``--phases 10,12,13`` runs any of those three phases alone after the build
+(a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
 """
@@ -2325,8 +2352,10 @@ def fleet_path(card):
     checkpoints bit-equal, one fused launch per interval in every runner;
     (b) kill -> shrink -> resume to 3 episodes, its episode-2 checkpoint
     equal to (a)'s; (c) ``--plan auto`` in a 2-process fleet: the
-    autotuner's measured gloo ``t_interhost``.  Returns the launch counts
-    for the kernels line and (a)'s checkpoint directory."""
+    autotuner's measured gloo ``t_interhost``; (d) plan (4, 2, 2) on the
+    halo backend in 1 and 2 runners, bit-equal; (e) ``autotune`` in 2
+    runners of 4 workers timing ranks 1, 2 and 4.  Returns the launch
+    counts for the kernels line and (a)'s checkpoint directory."""
     import os
     import shutil
     import numpy as np
@@ -2349,9 +2378,10 @@ def fleet_path(card):
           f"gloo between them, deterministic algorithms; card {card}")
     torch.cuda.empty_cache()
 
-    def launch(tag, *extra):
+    def launch(tag, *extra, env_extra=None):
         wd = base / tag
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   **(env_extra or {}))
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.fleet", *shape,
@@ -2485,6 +2515,59 @@ def fleet_path(card):
              f"gather")
     if record["plan"]["n_processes"] != 2 or min(sor) < 1:
         fail(f"fleet auto: plan {record['plan']}, packed-SOR launches {sor}")
+
+    # (d) a multi-rank plan across the fleet: (4, 2, 2), 2 envs of 2
+    # x-slabs each on the halo backend, one env a runner in the 2-runner
+    # fleet; depth cut to 1 episode of 4 actions after a 1 t.u. warmup
+    halo_depth = ["--plan", "4,2,2", "--n-envs", 2, "--episodes", 1,
+                  "--actions-per-episode", 4, "--warmup", 1]
+    halo = {}
+    for procs in (1, 2):
+        wd, stdout, secs = launch(f"halo_p{procs}", "--processes", procs,
+                                  *halo_depth)
+        for want in ("poisson backend 'halo'",
+                     "mesh (data, model) = (2, 2)", "FLEET_DONE episodes=1"):
+            if want not in stdout:
+                fail(f"fleet halo p={procs}: no {want!r} in the launcher's "
+                     f"output:\n{stdout[-3000:]}")
+        final = load_train_state(latest_checkpoint(str(wd / "ckpt")), "cpu")
+        st = stats(stdout)
+        halo[procs] = final
+        print(f"[fleet halo p={procs}] plan (4, 2, 2): 2 envs x 2 slabs on "
+              f"the halo backend, {procs} runner(s); 1 episode of 4 actions "
+              f"after a 1 t.u. warmup in {secs:.3f} s of launcher; episode "
+              f"wall {st['wall']} s; plan recorded {final[1]['plan']}; "
+              f"card {card}")
+        if final[1]["plan"] != {"n_envs": 2, "n_ranks": 2, "backend": "halo",
+                                "n_processes": procs}:
+            fail(f"fleet halo p={procs}: checkpoint plan {final[1]['plan']}")
+    diff = differs(halo[1], halo[2])
+    if diff:
+        fail(f"fleet halo: the 2-runner (4, 2, 2) fleet's final checkpoint "
+             f"differs from the 1-runner fleet's in {diff[:6]}")
+    print("[fleet halo] 1- and 2-runner fleets at plan (4, 2, 2) write the "
+          "same final checkpoint bit for bit (params, Adam m / v, step, "
+          "generator state, env batch, history)")
+
+    # (e) autotune(max_processes=2) in a 2-runner fleet whose runners serve
+    # 4 workers each: it times every candidate rank count, as the
+    # reference's does
+    wd, stdout, secs = launch(
+        "auto_ranks", "--processes", 2, "--plan", "auto", "--n-envs", 4,
+        "--episodes", 1, "--actions-per-episode", 4, "--warmup", 1,
+        env_extra={at.FORCE_DEVICE_COUNT: "4"})
+    record = json.loads((wd / "autotune.json").read_text())
+    at.validate_artifact(record)
+    ranks = record["measured"]["t_step_ranks"]
+    print(f"[fleet auto ranks] autotune(max_processes=2) in each of 2 runners "
+          f"of 4 workers: t_step_ranks "
+          f"{ {int(r): round(v * 1e3, 4) for r, v in ranks.items()} } ms "
+          f"(backends {record['measured']['t_step_backends']}); plan "
+          f"{record['plan']}; {len(record['candidates'])} candidate "
+          f"layouts; {secs:.3f} s of launcher; card {card}")
+    if sorted(int(r) for r in ranks) != [1, 2, 4]:
+        fail(f"fleet auto ranks: t_step_ranks at {sorted(ranks)}, expected "
+             f"ranks 1, 2 and 4")
     return dict(
         fused=dict(fleet_launches=runs[2]["fused"],
                    fleet_path=("python -m repro_torch.launch.fleet, 2 "
@@ -2546,7 +2629,416 @@ def scripts_path(card, ckpt_dir):
     shutil.rmtree(ckpt_dir.parents[1], ignore_errors=True)   # phase 10's
 
 
+# phase 13: serving.  The prompt of train_4k's length, a cache of 64 more
+# positions, 64 greedy decode steps; the yardstick's forward runs the
+# flash kernel, which (like the reference's) takes a multiple of its
+# 128-key tile, so it covers the 4097 tokens and 127 more (causal: the
+# token at 4096 attends to its 4097 alone)
+SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 4096, 4160, 64
+SERVE_YARDSTICK = 4224
+# decode_32k's cache length, its batch cut from 128 to 8 to fit the card
+SERVE_32K_BATCH, SERVE_32K_LEN, SERVE_32K_STEPS = 8, 32768, 16
+# the float8 configs at cut depth: (name, layers of the config's)
+SERVE_FLOAT8 = (("llama3-405b", 4), ("mistral-large-123b", 8),
+                ("qwen1.5-32b", 32))
+SERVE_F8_BATCH, SERVE_F8_LEN, SERVE_F8_STEPS = 8, 4096, 16
+# a float8 cache against a bfloat16 one, block by block on the same input:
+# e4m3 keeps 3 mantissa bits, each K/V off by up to 2^-4 of itself; the
+# tolerance of tests/test_torch_serve.py, where a block's update moves by
+# ~5% of its RMS at reduced width
+TOL_FLOAT8_BLOCK = 0.1
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def percentile_ms(times, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(times) * 1e3, q))
+
+
+def decode_reading(params, cache):
+    """(bytes a decode step must read, its ms at the memory rate): every
+    block's weights, the final norm, the head, the whole cache."""
+    head = params.get("lm_head", params["embed"])
+    parts = {"blocks": nbytes(leaves(params["blocks"])),
+             "head": nbytes([head]) + nbytes(leaves(params["final_norm"])),
+             "cache": nbytes(cache.values())}
+    total = sum(parts.values())
+    return parts, total, 1e3 * total / HBM_RATE
+
+
+def timed_decode(cfg, params, cache, tokens, pos0, steps=None):
+    """``decode_step`` from position ``pos0``, once per column of
+    ``tokens``, or with ``steps`` that many times greedily from ``tokens``
+    (B, 1); the card synchronised around each step: (host seconds per
+    step, the tokens fed, the first step's logits)."""
+    import torch
+    from repro_torch.models import model
+    times, fed, first = [], [], None
+    tok = tokens[:, :1]
+    for t in range(tokens.shape[1] if steps is None else steps):
+        if steps is None:
+            tok = tokens[:, t:t + 1]
+        fed.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(cfg, params, cache, tok, pos0 + t)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if first is None:
+            first = logits
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name}: decode step {t} gave non-finite logits")
+    return times, torch.cat(fed, dim=1), first
+
+
+def profile_decode(cfg, params, cache, tokens, pos0, steps=4):
+    """``steps`` more decode steps under ``torch.profiler``: (kernels a
+    step, the card's busy ms a step: the sum of its kernels' spans), or
+    None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(steps):
+            model.decode_step(cfg, params, cache, tokens, pos0 + t)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not kernels or busy_us <= 0:
+        return None
+    return len(kernels) / steps, busy_us / 1e3 / steps
+
+
+def profile_note(prof, p50):
+    if prof is None:
+        return "card busy share: not measured (no device time in the trace)"
+    n, busy = prof
+    return (f"under torch.profiler {n:.0f} kernels a step, the card busy "
+            f"{busy:.4f} ms of it: {100 * (1 - busy / p50):.1f}% idle at "
+            f"the p50")
+
+
+def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
+    """Run prefill's layers one by one on its own inputs: each layer's
+    cache (K and V from ``apply_attention(return_kv=True)``, or RWKV's
+    states) and the logits must equal ``prefill``'s bit for bit."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model
+    from repro_torch.models.layers import apply_norm
+    h = model._embed(cfg, params, tokens)
+    pos = model._positions(cfg, tokens)
+    S = tokens.shape[1]
+    for i in range(cfg.num_layers):
+        bp = model.layer(params["blocks"], i)
+        if cfg.attention_kind == "none":
+            x0, s0 = model._rwkv_zero_states(cfg, h)
+            h, xt, st, xc = model._rwkv_block(cfg, h, bp, x0, s0, x0)
+            got = {"xprev_t": xt, "state": st, "xprev_c": xc}
+            same = all(torch.equal(cache[k][i], v) for k, v in got.items())
+        else:
+            a, k, v = attn_mod.apply_attention(
+                cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), pos,
+                return_kv=True)
+            same = (torch.equal(cache["k"][i, :, :S], k)
+                    and torch.equal(cache["v"][i, :, :S], v)
+                    and not cache["k"][i, :, S:].any()
+                    and not cache["v"][i, :, S:].any())
+            h = h + a
+            h = h + model._ffn(cfg, bp, h)
+        if not same:
+            fail(f"{cfg.name}: prefill's cache of layer {i} differs from "
+                 f"its layer run on prefill's input to it")
+    if not torch.equal(model._unembed(cfg, params, h[:, -1:])[:, 0], logits):
+        fail(f"{cfg.name}: prefill's logits differ from its layers' run")
+
+
+def hold_decode_blocks(cfg, params, seq, at):
+    """The decode block against the pallas forward, block by block: feed
+    layer i the forward's input to it (``seq``'s tokens, ``backend=
+    "pallas"``), build that layer's cache from the first ``at`` positions
+    with prefill's layer code, decode position ``at`` through it, and
+    compare the block's update there with the forward's.  For RWKV also
+    hold the states prefill's layer code gives against the kernel's on the
+    same input.  Returns (worst update difference, worst state readings)."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model
+    from repro_torch.models.layers import apply_norm
+    h = model._embed(cfg, params, seq)
+    pos = model._positions(cfg, seq)
+    p_at = model._pos_tensor(at, seq.device)
+    worst, st_worst, xc_worst, xt_equal = 0.0, 0.0, 0.0, True
+    for i in range(cfg.num_layers):
+        bp = model.layer(params["blocks"], i)
+        h_next = model._block_body(cfg, h, bp, positions=pos,
+                                   backend="pallas")
+        x_pre, x_tok = h[:, :at], h[:, at:at + 1]
+        if cfg.attention_kind == "none":
+            x0, s0 = model._rwkv_zero_states(cfg, x_pre)
+            _, xt, st, xc = model._rwkv_block(cfg, x_pre, bp, x0, s0, x0)
+            _, xt_k, st_k, xc_k = model._rwkv_block(cfg, x_pre, bp, x0, s0,
+                                                    x0, backend="pallas")
+            st_worst = max(st_worst, float((st - st_k).abs().max()
+                                           / st_k.abs().max()))
+            xc_worst = max(xc_worst, rel_rms(xc, xc_k))
+            xt_equal &= torch.equal(xt, xt_k)
+            slices = {"state": st, "xprev_t": xt, "xprev_c": xc}
+        else:
+            _, k, v = attn_mod.apply_attention(
+                cfg, bp["attn"], apply_norm(cfg, bp["ln1"], x_pre),
+                pos[:, :at], return_kv=True)
+            shape = (k.shape[0], SERVE_CACHE) + tuple(k.shape[2:])
+            slices = {n: torch.zeros(shape, dtype=t.dtype, device=t.device)
+                      for n, t in (("k", k), ("v", v))}
+            model._pad_cache(slices["k"], k)
+            model._pad_cache(slices["v"], v)
+        out, _ = model._decode_block(cfg, x_tok, bp, slices, p_at)
+        worst = max(worst, rel_rms(out - x_tok,
+                                   h_next[:, at:at + 1] - x_tok))
+        h = h_next
+    return worst, (st_worst, xc_worst, xt_equal)
+
+
+def serve_lm(dev, card, name, kernel, per_layer):
+    """Phase 13 (a) / (b): prefill, greedy decode and the block-by-block
+    hold of one config at full width and depth.  Returns (readings for
+    the kernels line, params)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    cfg = get_config(name)
+    params = model.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(13)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (1, SERVE_PROMPT)), device=dev)
+    tag = f"[serve {name}]"
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        (logits, cache), first_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        (logits, cache), steady_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        if logits.shape != (1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{name}: prefill logits {tuple(logits.shape)} not finite "
+                 f"or not (1, {cfg.vocab_padded})")
+        dtypes = sorted({str(v.dtype) for v in cache.values()})
+        print(f"{tag} {cfg.num_layers} layers, d_model {cfg.d_model}, bf16 "
+              f"random params (seed 0); prefill B=1, S={SERVE_PROMPT}, "
+              f"cache_len {SERVE_CACHE}: {first_s:.4f} s first call, "
+              f"{steady_s:.4f} s steady; cache {nbytes(cache.values())} "
+              f"bytes ({', '.join(dtypes)}); card {card}")
+        prefill_equals_its_layers(cfg, params, prompt, logits, cache)
+        what = ("K/V" if cfg.attention_kind != "none"
+                else "state / xprev_t / xprev_c")
+        print(f"{tag} prefill's {what} of every layer and its logits equal "
+              f"its layers run one by one on its input to each, bit for bit")
+        times, decoded, first = timed_decode(
+            cfg, params, cache, logits.argmax(-1, keepdim=True),
+            SERVE_PROMPT, steps=SERVE_STEPS)
+        parts, total, bound_ms = decode_reading(params, cache)
+        p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+        prof = profile_decode(cfg, params, cache, decoded[:, -1:],
+                              SERVE_CACHE - 4)
+        print(f"{tag} {SERVE_STEPS} greedy decode_steps from position "
+              f"{SERVE_PROMPT}: p50 {p50:.4f} ms, p99 {p99:.4f} ms per "
+              f"token (host clock, the card synchronised around each); the "
+              f"bound {bound_ms:.4f} ms: {total} bytes read a token "
+              f"({parts}) at 3.35 TB/s; p50 / bound {p50 / bound_ms:.2f}; "
+              f"{profile_note(prof, p50)}")
+        pad = torch.tensor(rng.integers(
+            0, cfg.vocab_size, (1, SERVE_YARDSTICK - SERVE_PROMPT
+                                - SERVE_STEPS)), device=dev)
+        seq = torch.cat([prompt, decoded, pad], dim=1)
+        reset_counts()
+        (fwd, _), fwd_s = wall(lambda: model.forward_train(
+            cfg, params, seq, backend="pallas"))
+        launched = counts()
+        others = sum(n for k, n in launched.items() if k != kernel)
+        fwd_at = fwd[:, SERVE_PROMPT]
+        del fwd
+        free = rel_rms(first, fwd_at)
+        agree = bool(first.argmax(-1) == fwd_at.argmax(-1))
+        worst, (st_w, xc_w, xt_eq) = hold_decode_blocks(cfg, params, seq,
+                                                        SERVE_PROMPT)
+    print(f"{tag} yardstick forward_train(backend='pallas') over "
+          f"{SERVE_YARDSTICK} tokens (the {SERVE_PROMPT + 1} and "
+          f"{SERVE_YARDSTICK - SERVE_PROMPT - 1} more) in {fwd_s:.4f} s: "
+          f"{launched[kernel]} {kernel} launches, {others} of the others; "
+          f"block by block on the forward's input to each layer, the decode "
+          f"block's update at position {SERVE_PROMPT} is {worst:.3e} of its "
+          f"RMS from the forward's at worst (tol {TOL_LM_LAYER:.0e}); "
+          f"free-running, the first decoded logits differ from the "
+          f"forward's by {free:.3e} of their RMS (reported), argmax "
+          f"{'equal' if agree else 'different'}")
+    if cfg.attention_kind == "none":
+        print(f"{tag} on the forward's input to each layer, prefill's layer "
+              f"code against the WKV6 kernel's: state {st_w:.3e} of its "
+              f"largest |value| at worst (tol {TOL_WKV_STATE:.0e}), xprev_c "
+              f"{xc_w:.3e} of its RMS (tol {TOL_LM_LAYER:.0e}), xprev_t "
+              f"{'equal' if xt_eq else 'different'}")
+        if not (st_w <= TOL_WKV_STATE and xc_w <= TOL_LM_LAYER and xt_eq):
+            fail(f"{name}: prefill's states disagree with the kernel's")
+    if launched[kernel] != per_layer * cfg.num_layers or others:
+        fail(f"{name}: the yardstick launched {launched[kernel]} {kernel} "
+             f"(expected {per_layer * cfg.num_layers}) and {others} others")
+    if not worst <= TOL_LM_LAYER:
+        fail(f"{name}: a decode block differs from the pallas forward's")
+    del cache
+    return dict(serve_launches=launched[kernel],
+                serve_path=(f"forward_train({name}, backend='pallas') over "
+                            f"{SERVE_YARDSTICK} tokens: phase 13's yardstick "
+                            f"of decode_step"),
+                serve_prefill_s=steady_s, serve_decode_p50_ms=p50,
+                serve_decode_p99_ms=p99, serve_decode_bound_ms=bound_ms,
+                serve_block_worst=worst), params
+
+
+def serve_decode_32k(dev, card, cfg, params):
+    """Phase 13 (c): decode at decode_32k's cache length, batch 8."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    cache = model.init_cache(cfg, SERVE_32K_BATCH, SERVE_32K_LEN, device=dev)
+    toks = torch.tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (SERVE_32K_BATCH, SERVE_32K_STEPS)), device=dev)
+    with torch.inference_mode():
+        times, _, _ = timed_decode(cfg, params, cache, toks,
+                                   SERVE_32K_LEN - SERVE_32K_STEPS)
+        prof = profile_decode(cfg, params, cache, toks[:, :1],
+                              SERVE_32K_LEN - 4)
+    parts, total, bound_ms = decode_reading(params, cache)
+    p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+    print(f"[serve decode_32k {cfg.name}] init_cache(B={SERVE_32K_BATCH}, "
+          f"S={SERVE_32K_LEN}) ({nbytes(cache.values())} bytes, the batch "
+          f"cut from 128 to {SERVE_32K_BATCH}), {SERVE_32K_STEPS} "
+          f"decode_steps at the cache's last positions: p50 {p50:.4f} ms, "
+          f"p99 {p99:.4f} ms per step of {SERVE_32K_BATCH} tokens; the "
+          f"bound {bound_ms:.4f} ms ({total} bytes: {parts}); p50 / bound "
+          f"{p50 / bound_ms:.2f}; {profile_note(prof, p50)}; card {card}")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(p50_ms=p50, p99_ms=p99, bound_ms=bound_ms)
+
+
+def serve_float8(dev, card, name, layers):
+    """Phase 13 (d): one float8 config at cut depth.  Decode from a float8
+    ``init_cache`` and from a bfloat16 one (each timed); then both block by
+    block on the bfloat16 run's inputs: each block's update within
+    TOL_FLOAT8_BLOCK, the float8 cache's bytes the cast of the bfloat16
+    cache's K/V."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    params = model.init_params(cfg, seed=0, device=dev)
+    toks = torch.tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (SERVE_F8_BATCH, SERVE_F8_STEPS)), device=dev)
+    tag = f"[serve float8 {name}]"
+
+    def cache(dtype=None):
+        return model.init_cache(cfg, SERVE_F8_BATCH, SERVE_F8_LEN,
+                                dtype=dtype, device=dev)
+
+    # at most one float8 and one bfloat16 cache at a time beside the
+    # weights (qwen1.5-32b's 40 KV heads: 10.7 GB and 21.5 GB at 32 layers)
+    with torch.inference_mode():
+        c8 = cache()
+        if c8["k"].dtype != torch.float8_e4m3fn:
+            fail(f"{name}: init_cache gave {c8['k'].dtype}")
+        t8, _, _ = timed_decode(cfg, params, c8, toks, 0)
+        parts8, _, bound8 = decode_reading(params, c8)
+        del c8
+        cb = cache(torch.bfloat16)
+        tb, _, _ = timed_decode(cfg, params, cb, toks, 0)
+        del cb
+        c8, cb = cache(), cache(torch.bfloat16)
+        worst = 0.0
+        for t in range(SERVE_F8_STEPS):
+            h = model._embed(cfg, params, toks[:, t:t + 1])
+            pos = model._pos_tensor(t, dev)
+            for i in range(layers):
+                bp = model.layer(params["blocks"], i)
+                o8, _ = model._decode_block(
+                    cfg, h, bp, {k: v[i] for k, v in c8.items()}, pos)
+                ob, _ = model._decode_block(
+                    cfg, h, bp, {k: v[i] for k, v in cb.items()}, pos)
+                worst = max(worst, rel_rms(o8 - h, ob - h))
+                h = ob
+        same = all(torch.equal(c8[k].view(torch.uint8),
+                               cb[k].to(torch.float8_e4m3fn).view(
+                                   torch.uint8)) for k in ("k", "v"))
+    print(f"{tag} {layers} of {full.num_layers} layers "
+          f"({nbytes(leaves(params)) / 1e9:.2f} GB of bf16 weights), "
+          f"init_cache(B={SERVE_F8_BATCH}, S={SERVE_F8_LEN}): float8 "
+          f"{nbytes(c8.values())} bytes, {SERVE_F8_STEPS} decode_steps p50 "
+          f"{percentile_ms(t8, 50):.4f} ms (p99 {percentile_ms(t8, 99):.4f}); "
+          f"from a bfloat16 cache p50 {percentile_ms(tb, 50):.4f} ms (p99 "
+          f"{percentile_ms(tb, 99):.4f}); the float8 step's bound "
+          f"{bound8:.4f} ms ({parts8}); block by block the float8 update is "
+          f"{worst:.3e} of the bfloat16 one's RMS at worst (tol "
+          f"{TOL_FLOAT8_BLOCK}); the float8 cache "
+          f"{'equals' if same else 'differs from'} the cast of the bfloat16 "
+          f"cache's K/V byte for byte; card {card}")
+    if not (0.0 < worst <= TOL_FLOAT8_BLOCK and same):
+        fail(f"{name}: the float8 decode disagrees with the bfloat16 one")
+    del params, c8, cb
+    torch.cuda.empty_cache()
+    return dict(p50_ms=percentile_ms(t8, 50), bf16_p50_ms=percentile_ms(
+        tb, 50), bound_ms=bound8, worst=worst)
+
+
+def serve_path(card):
+    """Phase 13: the language model's serving path on the card.  Returns
+    the readings of the flash-attention and WKV6 rows."""
+    import torch
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    flash, params = serve_lm(dev, card, "phi4-mini-3.8b", "flash_attention",
+                             1)
+    from repro_torch.configs.base import get_config
+    flash["decode_32k"] = serve_decode_32k(dev, card,
+                                           get_config("phi4-mini-3.8b"),
+                                           params)
+    del params
+    torch.cuda.empty_cache()
+    wkv, params = serve_lm(dev, card, "rwkv6-3b", "wkv6", 2)
+    del params
+    torch.cuda.empty_cache()
+    flash["float8"] = {name: serve_float8(dev, card, name, layers)
+                       for name, layers in SERVE_FLOAT8}
+    return flash, wkv
+
+
+# phases that need no other phase's results: ``--phases`` runs them alone
+STANDALONE_PHASES = ("10", "12", "13")
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="",
+                    help=f"run only these of the phases "
+                         f"{', '.join(STANDALONE_PHASES)} (comma-separated) "
+                         f"after the build: a partial run, which prints no "
+                         f"kernels line and no result line")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if set(phases) - set(STANDALONE_PHASES):
+        ap.error(f"--phases takes {STANDALONE_PHASES}, got {phases}")
     sys.path.insert(0, str(ROOT / "src"))
     import os
     # cuBLAS is repeatable under torch.use_deterministic_algorithms (phase
@@ -2569,6 +3061,16 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    if phases:
+        _, secs = wall(lambda: build.build(verbose=True))
+        print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
+        run = {"10": fleet_path, "12": halo_path, "13": serve_path}
+        for p in phases:
+            _, secs = wall(lambda: run[p](card))
+            print(f"[phase {p}] {secs:.3f} s")
+        print(f"partial run of phases {', '.join(phases)}: no kernels line, "
+              f"no result")
+        return
     stale_halo_jobs = start_stale_halo_build()
     _, secs = wall(lambda: build.build(verbose=True))
     print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
@@ -2702,7 +3204,12 @@ def main():
     fused.update(halo["fused"])
     sor.update(halo["sor"])
 
-    # 13. the kernels, the card, the result
+    # 13. the language model's serving path
+    serve_flash, serve_wkv = serve_path(card)
+    flash.update(serve_flash)
+    wkv.update(serve_wkv)
+
+    # 14. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,17 @@ def _per_env(x):
     return x[..., None, None] if torch.is_tensor(x) else x
 
 
+def _sum_each(x, dims: int):
+    """Sum over the last ``dims`` axes, one reduction per leading index.
+    torch's batched sum on the card picks its block shape from the number
+    of rows it reduces, so one env's float32 sum would depend on how many
+    envs share the batch; summed alone it does not (fleet runners holding
+    different numbers of envs agree bit for bit)."""
+    lead = x.shape[:-dims]
+    rows = x.reshape((-1,) + tuple(x.shape[-dims:]))
+    return torch.stack([r.sum() for r in rows.unbind(0)]).reshape(lead)
+
+
 def init_state(cfg: GridConfig, geom: Geometry, device="cuda") -> FlowState:
     """Start from the inlet profile everywhere (impulsive start)."""
     device = resolve_device(device)
@@ -252,17 +263,17 @@ def _momentum(cfg: GridConfig, ga: GeomArrays, u, v, jet_vel, re, act_mode):
     v_pen = (v_star + lam * pen_v * tgt_v) / (1 + lam * pen_v)
     # reaction force from the PREDICTOR, before BCs touch the fields
     if per_body:
-        fx = -torch.sum(ga.own_u * ((u_pen - u_star) / dt)[..., None, :, :],
-                        dim=(-2, -1)) * cfg.dx * cfg.dy
-        fy = -torch.sum(ga.own_v * ((v_pen - v_star) / dt)[..., None, :, :],
-                        dim=(-2, -1)) * cfg.dx * cfg.dy
+        fx = -_sum_each(ga.own_u * ((u_pen - u_star) / dt)[..., None, :, :],
+                        2) * cfg.dx * cfg.dy
+        fy = -_sum_each(ga.own_v * ((v_pen - v_star) / dt)[..., None, :, :],
+                        2) * cfg.dx * cfg.dy
     else:
-        fx = -torch.sum((u_pen - u_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
-        fy = -torch.sum((v_pen - v_star) / dt, dim=(-2, -1)) * cfg.dx * cfg.dy
+        fx = -_sum_each((u_pen - u_star) / dt, 2) * cfg.dx * cfg.dy
+        fy = -_sum_each((v_pen - v_star) / dt, 2) * cfg.dx * cfg.dy
 
     # inlet BC, outlet BC and the global outlet mass correction in one pass
-    influx = torch.sum(inlet_u, dim=-1) * cfg.dy
-    outflux = torch.sum(u_pen[..., :, -2], dim=-1) * cfg.dy
+    influx = _sum_each(inlet_u, 1) * cfg.dy
+    outflux = _sum_each(u_pen[..., :, -2], 1) * cfg.dy
     out_col = (u_pen[..., :, -2]
                + ((influx - outflux) / (cfg.ny * cfg.dy))[..., None])
     u_bc = u_pen.clone()

@@ -4,7 +4,8 @@ The port's own copy of ``repro.configs.base`` (plain dataclasses, no
 framework dependency): ``ModelConfig`` and its parts, ``reduced()`` (the CPU
 smoke variant: 2 layers, d_model <= 256, <= 4 experts), the input shapes and
 the registry.  Only the configs whose model path is ported register here:
-``phi4-mini-3.8b`` and ``rwkv6-3b``.
+the dense ``phi4-mini-3.8b``, ``qwen1.5-32b``, ``mistral-large-123b`` and
+``llama3-405b``, and ``rwkv6-3b``.
 """
 from __future__ import annotations
 
@@ -195,4 +196,5 @@ def list_configs() -> list:
 
 def _load_all() -> None:
     # import side-effect registers each config module
-    from repro_torch.configs import phi4_mini_38b, rwkv6_3b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        llama3_405b, mistral_large_123b, phi4_mini_38b, qwen15_32b, rwkv6_3b)

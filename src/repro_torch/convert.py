@@ -15,7 +15,7 @@ way back.  ``train_state_from_numpy`` carries a reference run's training
 state (``repro.drl.train_state.to_tree`` content) into the port's
 ``TrainState``.  ``flow_state_from_numpy`` and ``geom_arrays_from_numpy``
 carry a flow state and the geometry fields; ``model_params_from_jax`` a
-language model's parameter tree.
+language model's parameter tree, ``cache_from_jax`` its decode cache.
 """
 from __future__ import annotations
 
@@ -241,3 +241,27 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
         return t.to(dtype_of(a.dtype.name))
 
     return conv(tree)
+
+
+def cache_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> dict:
+    """The reference's decode cache (a dict of numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, cache)``, each stacked on a leading layer
+    axis) as the port's dict of tensors, each leaf in its own dtype: a
+    bfloat16 leaf through float32, exactly; a float8_e4m3fn leaf through
+    its uint8 view, so its bits arrive unchanged."""
+    device = resolve_device(device)
+    out = {}
+    for name, leaf in tree.items():
+        a = np.asarray(leaf)
+        if a.shape[0] != cfg.num_layers:
+            raise ValueError(f"cache leaf {name!r} {a.shape} does not fit "
+                             f"{cfg.name}: expected {cfg.num_layers} "
+                             f"stacked layers")
+        dtype = dtype_of(a.dtype.name)
+        if dtype.itemsize == 1:
+            out[name] = torch.tensor(a.view(np.uint8),
+                                     device=device).view(dtype)
+        else:
+            out[name] = torch.tensor(a.astype(np.float32),
+                                     device=device).to(dtype)
+    return out

@@ -23,13 +23,14 @@ where the code runs and makes the result executable:
      component times under the reference's schema tag, so an artifact
      written by either package validates in both.
 
-Plans execute here on one process, multi-rank ones through the halo
-decomposition (``cfd/decomp.py``: an env's x-slabs side by side on its
-device), and single-rank ones across a fleet too
-(``launch/distributed.py``): in a live fleet ``ResolvedPlan.build_mesh``
-spans the plan's data groups over the processes, ``measure_components``
-times a real gloo all-gather for ``t_interhost`` and ``autotune``'s
-``max_processes`` admits fleet layouts.  A plan's workers are the host's
+Plans execute on one process or across a fleet (``launch/distributed.py``),
+multi-rank ones through the halo decomposition (``cfd/decomp.py``: an env's
+x-slabs side by side on its device).  In a live fleet
+``ResolvedPlan.build_mesh`` spans the plan's data groups over the
+processes, each holding whole envs; ``measure_components`` times every
+candidate rank count there too and a real gloo all-gather for
+``t_interhost``, and ``autotune``'s ``max_processes`` admits the fleet x
+rank layouts.  A plan's workers are the host's
 devices; ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` makes them serve N workers
 (``plan_devices``), as the reference's forced host device count does.
 
@@ -59,14 +60,6 @@ AUTOTUNE_SCHEMA = "repro.autotune/v4"
 # the fused path's per-interval amortization shows, short enough to keep
 # the probe cheap
 INTERVAL_PROBE_STEPS = 10
-
-
-def not_ported(what: str, needs: str, hint: str) -> NotImplementedError:
-    """The error a plan this package cannot execute raises: ``what`` needs
-    ``needs`` of the reference, not ported yet; ``hint`` says what runs."""
-    return NotImplementedError(
-        f"{what} needs {needs}, which is not ported to repro_torch yet; "
-        f"{hint}")
 
 
 # N workers over the host's devices (cycling), the counterpart of the
@@ -152,7 +145,8 @@ class ResolvedPlan:
                     f"plan (n_envs, n_ranks) = ({self.n_envs}, "
                     f"{self.n_ranks}) cannot span {procs} processes: each "
                     f"process's {n // procs} workers must hold whole envs "
-                    f"(a multiple of n_ranks = {self.n_ranks})")
+                    f"(a multiple of n_ranks = {self.n_ranks}) so halo "
+                    f"exchanges stay inside a process")
             return groups
         devices = plan_devices(device)
         if n > len(devices):
@@ -315,13 +309,12 @@ def measure_components(grid=None, *, n_total: Optional[int] = None,
         return _time(fn, *args, device=dev, iters=iters)
 
     # -- one solver step per rank count (Fig. 7's axis), each with the
-    # backend a plan of that n_ranks executes; a fleet runs single-rank
-    # plans only (fleets with n_ranks > 1 are not ported)
+    # backend a plan of that n_ranks executes.  An env's slabs stay on one
+    # process, so the rank counts are capped by this process's workers, in
+    # a fleet as alone
     t_step_ranks: Dict[int, float] = {}
     step_backends: Dict[int, str] = {}
-    ranks = (candidate_ranks(n_total, grid.nx, len(plan_devices(dev)))
-             if procs == 1 else [1])
-    for r in ranks:
+    for r in candidate_ranks(n_total, grid.nx, len(plan_devices(dev))):
         backend = default_backend(r, grid.nx, dev)
         mesh_r = mesh_for_plan((1, r), device=dev, span_processes=False) \
             if r > 1 else None

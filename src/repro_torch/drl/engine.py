@@ -27,7 +27,9 @@ restored from a checkpoint of another plan) on a mesh.
 (``launch/distributed.py``): each process rolls out its shard of the env
 batch on its own card, the trajectories are all-gathered over gloo on the
 host, and the values, GAE and the PPO update run replicated on every
-process over the full batch.
+process over the full batch.  A fleet of a multi-rank plan steps its
+shard on the halo backend: each process holds whole envs, so the slabs
+and their halo messages never leave it.
 """
 from __future__ import annotations
 
@@ -477,9 +479,6 @@ class RolloutEngine:
             if self.resolved_plan.n_ranks != cfg.n_ranks:
                 cfg = dataclasses.replace(
                     cfg, n_ranks=self.resolved_plan.n_ranks)
-        if cfg.fleet and cfg.n_ranks > 1:
-            from repro_torch.launch.mesh import fleet_ranks_not_ported
-            raise fleet_ranks_not_ported(cfg.n_ranks)
         self.mesh = mesh
         if cfg.fleet:
             from repro_torch.launch.distributed import fleet_info
@@ -612,8 +611,11 @@ class RolloutEngine:
                        on_action) -> Trajectory:
         """The local rollout, its rows copied to the host and all-gathered
         over gloo (one collective of every field's rows side by side), the
-        full batch back on the card.  Adds the rollout's and the gather's
-        host seconds and the gathered bytes to ``stats``."""
+        full batch back on the card.  A multi-rank plan gathers the same
+        rows: the slabs are a view the halo solve takes of each env's
+        fields, and no field of the trajectory carries a rank dimension.
+        Adds the rollout's and the gather's host seconds and the gathered
+        bytes to ``stats``."""
         from repro_torch.launch.distributed import all_gather_rows
         device = _model_device(model)
         t0 = time.perf_counter()

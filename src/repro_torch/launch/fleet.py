@@ -144,9 +144,11 @@ def _train_config(args, info):
         plan_args = {"max_processes": info.num_processes,
                      "artifact": str(workdir / "autotune.json")}
     else:
-        # an explicit plan's intervals run the fused kernel
-        plan = ResolvedPlan(plan=ParallelPlan(*args.plan_tuple),
-                            backend="fused")
+        # an explicit single-rank plan's intervals run the fused kernel, a
+        # multi-rank one's the halo decomposition
+        plan = ParallelPlan(*args.plan_tuple)
+        plan = ResolvedPlan(plan=plan, backend="fused" if plan.n_ranks == 1
+                            else "halo")
         plan_args = None
     sink = None
     if args.sink_root:
@@ -240,19 +242,25 @@ def run_runner_bench(args, cfg, info, on_episode) -> None:
     from repro_torch.cfd.env import CylinderEnv, broadcast_env_state
     from repro_torch.core.autotune import resolve_plan
     from repro_torch.drl import networks
-    from repro_torch.drl.engine import EngineConfig, RolloutEngine
+    from repro_torch.drl.engine import (EngineConfig, RolloutEngine,
+                                        place_env_batch)
+    from repro_torch.launch.mesh import mesh_for_plan
 
     dev = torch.device(args.device)
     resolved = resolve_plan(cfg.plan, grid=cfg.env.grid, device=dev,
                             **{"smoke": True, **(cfg.plan_args or {})})
-    env = CylinderEnv(cfg.env, backend=resolved.backend, device=dev)
+    mesh = mesh_for_plan(resolved, device=dev)
+    env = CylinderEnv(cfg.env, backend=resolved.backend, mesh=mesh,
+                      device=dev)
     st0, obs0 = env.reset()
     st_b, obs_b = broadcast_env_state(st0, obs0, cfg.n_envs)
+    st_b = place_env_batch(mesh, st_b, resolved.n_ranks)
     env.pin_cluster(cfg.n_envs, per_body=False)
     engine = RolloutEngine.for_env(
         env, EngineConfig(n_envs=cfg.n_envs,
                           horizon=cfg.env.actions_per_episode,
-                          plan=resolved, fleet=True))
+                          n_ranks=resolved.n_ranks, plan=resolved,
+                          fleet=True), mesh=mesh)
     pcfg = networks.PolicyConfig(obs_dim=int(obs_b.shape[-1]))
     model, _, _, gen = engine.init(pcfg, cfg.ppo, cfg.seed, dev)
 

@@ -8,7 +8,10 @@ env's device, side by side as a rank dimension of the same tensors.
 Several workers may name the same device: ``REPRO_TORCH_FORCE_DEVICE_COUNT``
 (read by ``core.autotune.plan_devices``) makes the host's devices serve N
 workers, the counterpart of the reference's
-``XLA_FLAGS=--xla_force_host_platform_device_count=N``.
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``.  In a fleet the
+"data" axis spans the processes and each process holds whole envs (every
+slab of an env on that process's device), the reference's intra-host halo
+rule: a halo message never leaves its process.
 
 The production and abstract meshes of the language-model dry run are not
 ported (``ROADMAP.md`` §1 item 5).
@@ -79,8 +82,9 @@ def mesh_for_plan(plan, devices: Optional[Sequence[torch.device]] = None, *,
     (``ResolvedPlan.build_mesh``, on ``device``): this host's workers, or
     in a live fleet (``span_processes`` None and a fleet active) the plan's
     data groups spread over the processes, each process's on its own card.
-    A process must then hold whole envs, so halo exchanges stay inside it;
-    fleets with ``n_ranks > 1`` are not ported and raise."""
+    A process must then hold whole envs, so halo exchanges stay inside it:
+    a layout whose per-process share is not a multiple of ``n_ranks``
+    raises ``ValueError``, as the reference's does."""
     n_envs, n_ranks = (plan.mesh_shape if hasattr(plan, "mesh_shape")
                        else tuple(plan))
     n = n_envs * n_ranks
@@ -89,8 +93,6 @@ def mesh_for_plan(plan, devices: Optional[Sequence[torch.device]] = None, *,
         from repro_torch.launch import distributed as dist_mod
         if span_processes is None:
             span_processes = dist_mod.fleet_active()
-        if span_processes and n_ranks > 1:
-            raise fleet_ranks_not_ported(n_ranks)
         workers = resolve_plan((n_envs, n_ranks), device=device).build_mesh(
             device, span_processes=span_processes)
         if span_processes:
@@ -109,15 +111,6 @@ def mesh_for_plan(plan, devices: Optional[Sequence[torch.device]] = None, *,
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
     return Mesh(arr.reshape(n_envs, n_ranks))
-
-
-def fleet_ranks_not_ported(n_ranks: int) -> NotImplementedError:
-    """The refusal of a fleet whose envs are split into x-slabs."""
-    from repro_torch.core.autotune import not_ported
-    return not_ported(f"a fleet with n_ranks = {n_ranks}",
-                      "the process-spanning halo mesh",
-                      "run n_ranks > 1 in one process, or n_ranks = 1 in "
-                      "a fleet")
 
 
 def slab_device(mesh: Mesh, axis: str = "model") -> torch.device:

@@ -1,14 +1,16 @@
-"""GQA attention for training and prefill.
+"""GQA attention for training, prefill and cached decode.
 
 Port of ``repro.models.attention`` (``init_attention``, ``_project_qkv``,
 ``gqa_attend``, ``chunked_gqa_attend``, ``causal_mask``,
-``apply_attention``).  ``backend="pallas"`` runs the causal path through the
-hand-written flash-attention kernel (``kernels/flash_attention``), which on
-CUDA tensors launches ``csrc/flash_attention.cu`` and never falls back;
+``apply_attention``, ``init_kv_cache``, ``cache_write``,
+``decode_attention``).  ``backend="pallas"`` runs the causal path through
+the hand-written flash-attention kernel (``kernels/flash_attention``), which
+on CUDA tensors launches ``csrc/flash_attention.cu`` and never falls back;
 ``"reference"`` runs the query-chunked dense attention.  ``gqa_attend`` and
 ``causal_mask`` live beside the kernel, whose plain twin they are, and are
-imported here.  Cross attention and the cached decode path are not ported
-yet.
+imported here.  A decode step attends one token to the whole KV cache
+through the dense ``gqa_attend``, as the reference's does.  The
+reference's mesh-sharded decode branch and cross attention are not ported.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import (causal_mask,
                                                      flash_attention,
                                                      gqa_attend)
-from repro_torch.models.layers import apply_rope, dense_init, dtype_of
+from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
+                                       to_cache_dtype)
 
 BACKENDS = ("reference", "pallas")
 
@@ -117,3 +120,61 @@ def apply_attention(cfg: ModelConfig, p, x, positions, *,
     if return_kv:
         return out, k, v
     return out
+
+
+# ---------------------------------------------------------------------------
+# decode with a KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, layers: int,
+                  dtype, device) -> dict:
+    """Zeroed K and V caches, (layers, batch, seq_len, num_kv_heads, dh)."""
+    shape = (layers, batch, seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_write(cache, new, pos):
+    """Write one token's K/V ``new`` (B, 1, ...) into ``cache`` (B, S, ...)
+    at ``pos`` on axis 1, in place, and return ``cache``.  ``pos`` is a 0-d
+    integer tensor on the cache's device (no host synchronisation).  As
+    ``jax.lax.dynamic_update_slice`` does, a position past the end is
+    clamped: ``pos >= S`` overwrites the last slot."""
+    idx = pos.clamp(0, cache.shape[1] - 1).reshape(1)
+    new = to_cache_dtype(new, cache.dtype)
+    if cache.dtype.itemsize == 1:
+        # float8 has no index_copy kernel: move its bytes
+        cache.view(torch.uint8).index_copy_(1, idx, new.view(torch.uint8))
+    else:
+        cache.index_copy_(1, idx, new)
+    return cache
+
+
+def decode_attention(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
+    """One-token decode.  x: (B, 1, D); cache_k / cache_v: (B, S, Hkv, dh);
+    pos: 0-d integer tensor on x's device.
+
+    Returns (out (B, 1, D), cache_k, cache_v): the new token's K/V are
+    written into the caches in place at ``pos`` (``cache_write``) and the
+    token attends to the cache positions ``<= pos`` (and inside the
+    sliding window), the whole cache cast up to the compute dtype."""
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    q, k, v = _project_qkv(cfg, p, x)                        # (B, 1, ., dh)
+    if cfg.rope_kind == "rope":
+        pvec = pos.reshape(1, 1).expand(B, 1)
+        q = apply_rope(q, pvec, cfg.rope_theta)
+        k = apply_rope(k, pvec, cfg.rope_theta)
+    elif cfg.rope_kind != "none":
+        raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
+                                  f"ported")
+    cache_write(cache_k, k, pos)
+    cache_write(cache_v, v, pos)
+    kpos = torch.arange(S, device=x.device)[None, None, :]   # (1, 1, S)
+    mask = kpos <= pos
+    if cfg.sliding_window:
+        mask = mask & (kpos > pos - cfg.sliding_window)
+    out = gqa_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+    cd = dtype_of(cfg.compute_dtype)
+    out = out.reshape(B, 1, -1) @ p["wo"].to(cd)
+    return out, cache_k, cache_v

@@ -18,11 +18,28 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+           "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
+
+# float8_e4m3fn's largest finite value is 448; a value of magnitude above
+# 464 (halfway to the next step, 480) rounds past it
+E4M3_OVERFLOW = 464.0
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache's dtype.  Casting to float8_e4m3fn, a value
+    that rounds past 448 and an infinity become NaN (0x7F, 0xFF when
+    negative), as the reference's cast (XLA, ml_dtypes) makes them, where
+    torch's own cast saturates to +-448; a NaN keeps its sign likewise."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    bits = x.to(dtype).view(torch.uint8)
+    over = ~(x.abs() <= E4M3_OVERFLOW)              # NaN included
+    nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(over, nan, bits).view(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -35,13 +52,15 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (scale / math.sqrt(fan_in))).to(dtype)
+    # scaled in place: one float32 buffer at a time (a (64, 27392, 5120)
+    # stack is 36 GB in float32)
+    return t.mul_(scale / math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

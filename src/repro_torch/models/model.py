@@ -1,7 +1,8 @@
-"""Decoder-only language model: init, ``forward_train``, ``lm_loss``.
+"""Decoder-only language model: init, ``forward_train``, ``lm_loss``, and
+serving: ``init_cache``, ``prefill``, ``decode_step``.
 
-Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (phi4-mini)
-and ``"none"`` (RWKV-6).  Parameters are a plain dict shaped like the
+Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (the dense
+configs) and ``"none"`` (RWKV-6).  Parameters are a plain dict shaped like the
 reference's tree: ``{"embed", "blocks", "final_norm", "lm_head"}`` with
 every leaf of ``blocks`` stacked on a leading layer axis; the reference's
 ``lax.scan`` over layers is a Python loop over that axis.  The reference's
@@ -15,8 +16,16 @@ hand-written kernel: flash attention (``kernels/flash_attention``) for
 ``"gqa"``, WKV6 (``kernels/rwkv6``) for ``"none"``; one launch per layer
 on CUDA tensors.  ``"reference"`` runs the plain PyTorch mixers.
 
-Not ported yet: MoE, MLA, hybrid, the encoder-decoder, the frontends, MTP,
-``prefill`` and ``decode_step``.
+Serving follows the reference: ``prefill`` runs the reference mixers and
+returns the next-token logits with a cache in the compute dtype (also for
+a config whose ``kv_cache_dtype`` is float8: that dtype is ``init_cache``'s
+only, a quirk of the reference kept here); ``decode_step`` runs one token
+through every layer against the cache, which it updates in place, layer
+slice by layer slice, with no host synchronisation.  An RWKV cache is the
+per-layer WKV state (float32) and the two token-shift states.
+
+Not ported yet: MoE, MLA, hybrid, the encoder-decoder, the frontends and
+MTP (``check_supported`` refuses them at every entry point).
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
-                                       embed_init, init_mlp, init_norm)
+                                       embed_init, init_mlp, init_norm,
+                                       to_cache_dtype)
 
 Params = Dict[str, Any]
 
@@ -113,23 +123,33 @@ def _ffn(cfg: ModelConfig, bp, h):
     return apply_mlp(cfg, bp["ffn"], apply_norm(cfg, bp["ln2"], h))
 
 
+def _rwkv_block(cfg: ModelConfig, h, bp, xprev_t, state, xprev_c, *,
+                backend="reference"):
+    """One RWKV block, time mix then channel mix, from the given token-shift
+    states and WKV state -> (h, new xprev_t, new state, new xprev_c)."""
+    hn = apply_norm(cfg, bp["ln1"], h)
+    mix, xprev_t, state = ssm_mod.apply_rwkv_tmix(
+        cfg, bp["tmix"], hn, xprev_t, state, backend=backend)
+    h = h + mix
+    hn = apply_norm(cfg, bp["ln2"], h)
+    cm, xprev_c = ssm_mod.apply_rwkv_cmix(cfg, bp["cmix"], hn, xprev_c)
+    return h + cm, xprev_t, state, xprev_c
+
+
+def _rwkv_zero_states(cfg: ModelConfig, h):
+    """A sequence's starting (x_prev, WKV state): zeros."""
+    B, _, D = h.shape
+    N = cfg.ssm.head_dim
+    return h.new_zeros((B, D)), torch.zeros(
+        (B, cfg.num_heads, N, N), dtype=torch.float32, device=h.device)
+
+
 def _block_body(cfg: ModelConfig, h, bp, *, positions, backend="reference"):
     """One residual block."""
     if cfg.attention_kind == "none":
         # rwkv: time mix + channel mix, zero shift states per sequence
-        B, S, D = h.shape
-        N = cfg.ssm.head_dim
-        hn = apply_norm(cfg, bp["ln1"], h)
-        state0 = torch.zeros((B, cfg.num_heads, N, N), dtype=torch.float32,
-                             device=h.device)
-        mix, _, _ = ssm_mod.apply_rwkv_tmix(
-            cfg, bp["tmix"], hn, hn.new_zeros((B, D)), state0,
-            backend=backend)
-        h = h + mix
-        hn = apply_norm(cfg, bp["ln2"], h)
-        cm, _ = ssm_mod.apply_rwkv_cmix(cfg, bp["cmix"], hn,
-                                        hn.new_zeros((B, D)))
-        return h + cm
+        x0, state0 = _rwkv_zero_states(cfg, h)
+        return _rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0]
     h = h + _mixer(cfg, bp, h, positions, backend=backend)
     return h + _ffn(cfg, bp, h)
 
@@ -204,3 +224,144 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     else:
         loss = nll.mean()
     return loss + aux, {"loss": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype: Optional[torch.dtype] = None, device="cuda") -> Params:
+    """A zeroed decode cache for ``batch`` sequences of ``seq_len``
+    positions, every leaf stacked on a leading layer axis.  ``dtype``
+    defaults to ``kv_cache_dtype``, else the compute dtype; RWKV's WKV
+    state is float32 whatever it is."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dt = dtype or dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+    L = cfg.num_layers
+    if cfg.attention_kind == "none":
+        N = cfg.ssm.head_dim
+        shift = (L, batch, cfg.d_model)
+        return {"state": torch.zeros((L, batch, cfg.num_heads, N, N),
+                                     dtype=torch.float32, device=device),
+                "xprev_t": torch.zeros(shift, dtype=dt, device=device),
+                "xprev_c": torch.zeros(shift, dtype=dt, device=device)}
+    return attn_mod.init_kv_cache(cfg, batch, seq_len, L, dt, device)
+
+
+def _pos_tensor(pos, device) -> torch.Tensor:
+    """A decode position, a Python int or a 0-d integer tensor, as a 0-d
+    int64 tensor on ``device``."""
+    if torch.is_tensor(pos):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.tensor(pos, dtype=torch.int64, device=device)
+
+
+def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
+    """One block of single-token decode on this layer's cache slices;
+    returns (h, new slices).  A KV slice comes back as the same tensor,
+    written in place; RWKV's states come back new."""
+    new = dict(cache_slices)
+    if cfg.attention_kind == "none":
+        h, new["xprev_t"], new["state"], new["xprev_c"] = _rwkv_block(
+            cfg, h, bp, cache_slices["xprev_t"], cache_slices["state"],
+            cache_slices["xprev_c"])
+        return h, new
+    mix, new["k"], new["v"] = attn_mod.decode_attention(
+        cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), cache_slices["k"],
+        cache_slices["v"], pos)
+    h = h + mix
+    return h + _ffn(cfg, bp, h), new
+
+
+def _scan_decode(cfg: ModelConfig, blocks, h, cache, pos):
+    """The layers in order for one token; each layer's slice of the
+    stacked cache is updated in place (one buffer, as the reference's
+    loop-carried cache)."""
+    for i in range(blocks["ln1"]["scale"].shape[0]):
+        slices = {k: v[i] for k, v in cache.items()}
+        h, new = _decode_block(cfg, h, layer(blocks, i), slices, pos)
+        for k, t in new.items():
+            if t is not slices[k]:
+                slices[k].copy_(to_cache_dtype(t, slices[k].dtype))
+    return h
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
+                pos):
+    """token (B, 1) int; pos a Python int or a 0-d integer tensor ->
+    (logits (B, V) float32, cache).  The cache returned is the one given,
+    updated in place (the reference donates its buffer): a caller that
+    needs the old cache clones it first.  A ``pos`` past the cache's end
+    overwrites its last slot, as the reference's clamped update does."""
+    check_supported(cfg)
+    pos = _pos_tensor(pos, token.device)
+    h = _embed(cfg, params, token)
+    h = _scan_decode(cfg, params["blocks"], h, cache, pos)
+    return _unembed(cfg, params, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# prefill: the forward pass that also fills the decode cache
+# ---------------------------------------------------------------------------
+
+def _pad_cache(out, x) -> None:
+    """Write one layer's K or V ``x`` (B, S, ...) into its zeroed cache
+    slice ``out`` (B, cache_len, ...): cut past ``cache_len``, zeros after
+    S (the reference's pad or truncation, in place)."""
+    n = min(x.shape[1], out.shape[1])
+    out[:, :n] = x[:, :n]
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
+    """tokens (B, S) int -> (next-token logits (B, V) float32, the cache
+    filled for positions [0, S)).  The KV cache holds ``cache_len``
+    positions (default S) in the compute dtype; RWKV's cache is its
+    states after the last token, whatever ``cache_len``.  Runs the
+    reference mixers, as the reference's prefill does."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    if cfg.attention_kind == "none":
+        h, cache = _rwkv_prefill_cache(cfg, params, tokens)
+        return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
+    blocks = params["blocks"]
+    h = _embed(cfg, params, tokens)
+    pos = _positions(cfg, tokens)
+    L = blocks["ln1"]["scale"].shape[0]
+    cache = attn_mod.init_kv_cache(cfg, B, cache_len, L,
+                                   dtype_of(cfg.compute_dtype), h.device)
+    for i in range(L):
+        bp = layer(blocks, i)
+        a, k, v = attn_mod.apply_attention(
+            cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), pos,
+            return_kv=True)
+        h = h + a
+        h = h + _ffn(cfg, bp, h)
+        _pad_cache(cache["k"][i], k)
+        _pad_cache(cache["v"][i], v)
+    # only the next-token logits: the whole (B, S, V) is dead weight
+    return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
+
+
+def _rwkv_prefill_cache(cfg: ModelConfig, params, tokens):
+    """One recurrent pass from zero states -> (h, each layer's states
+    after the last token)."""
+    blocks = params["blocks"]
+    h = _embed(cfg, params, tokens)
+    B = tokens.shape[0]
+    L = blocks["ln1"]["scale"].shape[0]
+    N = cfg.ssm.head_dim
+    cd = dtype_of(cfg.compute_dtype)
+    cache = {"state": torch.empty((L, B, cfg.num_heads, N, N),
+                                  dtype=torch.float32, device=h.device),
+             "xprev_t": torch.empty((L, B, cfg.d_model), dtype=cd,
+                                    device=h.device),
+             "xprev_c": torch.empty((L, B, cfg.d_model), dtype=cd,
+                                    device=h.device)}
+    for i in range(L):
+        x0, state0 = _rwkv_zero_states(cfg, h)
+        h, cache["xprev_t"][i], cache["state"][i], cache["xprev_c"][i] = \
+            _rwkv_block(cfg, h, layer(blocks, i), x0, state0, x0)
+    return h, cache

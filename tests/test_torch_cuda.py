@@ -910,3 +910,64 @@ def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
             assert torch.equal(x, y)
     assert torch.equal(gen.get_state(), live.rng)
     np.testing.assert_array_equal(returns, hist["reward"])
+
+
+# ---------------------------------------------------------------------------
+# the language model's serving path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,changes", [
+    ("phi4-mini-3.8b", {"num_kv_heads": 2}), ("rwkv6-3b", {}),
+    ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"})])
+def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
+    """``prefill`` of 64 tokens, then 4 ``decode_step``s from it and 4 from
+    ``init_cache`` (float8 for llama3 here), of a reduced float32 config on
+    the card against the same calls on the CPU (TF32 off): logits within
+    2e-5 (the CPU parity tests' tolerance against the reference), every
+    cache leaf within 2e-5 of its largest value, a float8 leaf within one
+    e4m3 step (2^-3 of the value); the position goes in as a CUDA tensor
+    on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config(name).reduced(), **changes)
+    params = model.init_params(cfg, seed=0, device="cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    pc = to(params, cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 64)))
+    steps = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 4)))
+
+    def hold(a, b, what):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        f8 = a.dtype == torch.float8_e4m3fn
+        a, b = a.float(), b.cpu().float()
+        if f8:
+            assert bool(((a - b).abs() <= 0.125 * a.abs()).all()), what
+            return
+        scale = max(float(a.abs().max()), 1.0)
+        assert max_diff(a, b) <= 2e-5 * scale, (what, max_diff(a, b))
+
+    for start in ("prefill", "init_cache"):
+        if start == "prefill":
+            l_cpu, c_cpu = model.prefill(cfg, params, toks, cache_len=68)
+            l_gpu, c_gpu = model.prefill(cfg, pc, toks.to(cuda), cache_len=68)
+            hold(l_cpu, l_gpu, "prefill logits")
+            pos0 = 64
+        else:
+            c_cpu = model.init_cache(cfg, 2, 8, device="cpu")
+            c_gpu = model.init_cache(cfg, 2, 8, device=cuda)
+            pos0 = 0
+        for t in range(4):
+            tok = steps[:, t:t + 1]
+            l_cpu, _ = model.decode_step(cfg, params, c_cpu, tok, pos0 + t)
+            l_gpu, _ = model.decode_step(
+                cfg, pc, c_gpu, tok.to(cuda),
+                torch.tensor(pos0 + t, device=cuda))
+            hold(l_cpu, l_gpu, f"{start} decode {t} logits")
+            for k in c_cpu:
+                hold(c_cpu[k], c_gpu[k], f"{start} decode {t} {k}")

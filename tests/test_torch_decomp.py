@@ -331,13 +331,36 @@ def test_slabs_on_several_devices_are_refused():
         tmesh.slab_device(mesh)
 
 
-def test_fleets_with_ranks_are_refused():
+def test_fleets_with_ranks_are_refused(monkeypatch):
+    """Fleets with n_ranks > 1 run now (the name is kept from when they
+    raised): over two processes the (2, 2) mesh puts each env's two
+    workers on one process, the reference's intra-host halo rule; a share
+    that splits an env raises the reference's ValueError; a fleet engine
+    of a multi-rank plan constructs."""
+    from repro_torch.core.autotune import ResolvedPlan
+    from repro_torch.core.plan import ParallelPlan
     from repro_torch.drl.engine import EngineConfig, RolloutEngine
-    with pytest.raises(NotImplementedError, match="a fleet with n_ranks = 2"):
-        tmesh.mesh_for_plan((1, 2), span_processes=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="a fleet with n_ranks = 2"):
-        RolloutEngine(None, EngineConfig(n_envs=2, horizon=3, n_ranks=2,
-                                         fleet=True), device="cpu")
+    from repro_torch.launch import distributed as tdist
+    monkeypatch.setattr(tdist, "fleet_info",
+                        lambda: tdist.FleetInfo(2, 0, None))
+    mesh = tmesh.mesh_for_plan((2, 2), span_processes=True, device="cpu")
+    assert dict(mesh.shape) == {"data": 2, "model": 2}
+    np.testing.assert_array_equal(mesh.processes, [[0, 0], [1, 1]])
+    assert tmesh.slab_device(mesh) == torch.device("cpu")
+    for plan in ((1, 2), (3, 2)):
+        with pytest.raises(ValueError, match=r"cannot span 2 processes: each "
+                                             r"process's \d+ workers must "
+                                             r"hold whole envs \(a multiple "
+                                             r"of n_ranks = 2\)"):
+            tmesh.mesh_for_plan(plan, span_processes=True, device="cpu")
+    monkeypatch.setenv(tdist.ENV_FLEET, "1")
+    rp = ResolvedPlan(plan=ParallelPlan(4, 2, 2), backend="halo")
+    engine = RolloutEngine(None, EngineConfig(n_envs=2, horizon=3,
+                                              n_ranks=2, plan=rp,
+                                              fleet=True), device="cpu")
+    assert engine.cfg.n_ranks == 2 and engine.cfg.fleet
+    np.testing.assert_array_equal(engine.mesh.processes, [[0, 0], [1, 1]])
+    assert engine._shard() == (0, 1)
 
 
 def test_shard_batch_places_on_the_mesh_device(monkeypatch):

@@ -56,6 +56,10 @@ ENTRY_POINTS = {
         get_config("rwkv6-3b").reduced()),
     "convert.model_params_from_jax": lambda: convert.model_params_from_jax(
         get_config("rwkv6-3b").reduced(), {}),
+    "model.init_cache": lambda: model.init_cache(
+        get_config("llama3-405b").reduced(), 1, 4),
+    "convert.cache_from_jax": lambda: convert.cache_from_jax(
+        get_config("rwkv6-3b").reduced(), {}),
     "train": lambda: train(TrainConfig(env=EnvConfig(grid=CFG)),
                            log_fn=None),
 }

@@ -50,9 +50,10 @@ SRC = str(ROOT / "src")
 TIMEOUT_S = 240
 
 
-def _launch(workdir, *extra, processes=1, episodes=2, expect_ok=True):
+def _launch(workdir, *extra, processes=1, episodes=2, expect_ok=True,
+            env_extra=None):
     env = {"PYTHONPATH": SRC, "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-           "HOME": str(workdir), "OMP_NUM_THREADS": "1"}
+           "HOME": str(workdir), "OMP_NUM_THREADS": "1", **(env_extra or {})}
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.fleet", "--device", "cpu",
          "--processes", str(processes), "--episodes", str(episodes),
@@ -116,6 +117,75 @@ def test_two_process_training_bitwise_matches_single(fleets):
         if f == "wall":                   # wall-clock seconds: not bitwise
             continue
         np.testing.assert_array_equal(v, ts2.history[f])
+
+
+@pytest.fixture(scope="module")
+def halo_fleets(tmp_path_factory):
+    """A 1-process and a 2-process fleet at plan (4, 2, 2): 2 envs of 2
+    x-slabs each on the halo backend, one env a process in the second."""
+    base = tmp_path_factory.mktemp("halo_fleets")
+    out = {}
+    for procs in (1, 2):
+        wd = base / f"p{procs}"
+        wd.mkdir()
+        res = _launch(wd, "--plan", "4,2,2", processes=procs,
+                      env_extra={tat.FORCE_DEVICE_COUNT: "4"})
+        out[procs] = dict(workdir=wd, stdout=res.stdout)
+    return out
+
+
+def test_halo_fleet_bitwise_matches_single(halo_fleets):
+    """A fleet of a multi-rank plan: the 2-process fleet of plan (4, 2, 2)
+    writes the 1-process fleet's final checkpoint bit for bit, and both
+    ran the halo backend on a 2 x 2 mesh."""
+    for procs in (1, 2):
+        out = halo_fleets[procs]["stdout"]
+        assert "FLEET_DONE episodes=2" in out
+        assert "poisson backend 'halo'" in out and \
+            "mesh (data, model) = (2, 2)" in out, out[-2000:]
+    ts1, meta1 = _final_state(halo_fleets[1]["workdir"])
+    ts2, meta2 = _final_state(halo_fleets[2]["workdir"])
+    for meta, procs in ((meta1, 1), (meta2, 2)):
+        assert meta["episode"] == 2
+        assert meta["plan"] == {"n_envs": 2, "n_ranks": 2, "backend": "halo",
+                                "n_processes": procs}
+    for k in ts1.params:
+        assert torch.equal(ts1.params[k], ts2.params[k]), k
+    for k in ("m", "v"):
+        for a, b in zip(ts1.opt_state[k], ts2.opt_state[k]):
+            assert torch.equal(a, b), k
+    assert torch.equal(ts1.rng, ts2.rng) and ts1.step == ts2.step > 0
+    assert torch.equal(ts1.obs, ts2.obs)
+    assert torch.equal(ts1.env_state.flow.u, ts2.env_state.flow.u)
+    for f, v in ts1.history.items():
+        if f != "wall":
+            np.testing.assert_array_equal(v, ts2.history[f])
+
+
+def test_fleet_autotune_times_every_rank_count(tmp_path):
+    """``autotune(max_processes=2)`` inside a 2-process fleet of 2 forced
+    workers a process times ranks 1 and 2, as the reference times every
+    candidate rank count, and its lattice holds the reference's fleet x
+    rank layouts of the 4-worker budget: those of 2 processes (a process
+    has 2 workers), with rank counts that fit a process."""
+    from repro.core import plan as jplan
+    res = _launch(tmp_path, "--plan", "auto", "--n-envs", "2", processes=2,
+                  episodes=1, env_extra={tat.FORCE_DEVICE_COUNT: "2"})
+    assert "FLEET_DONE episodes=1" in res.stdout
+    rec = json.loads((tmp_path / "autotune.json").read_text())
+    tat.validate_artifact(rec)
+    measured = rec["measured"]
+    assert measured["n_total"] == 4
+    assert sorted(int(r) for r in measured["t_step_ranks"]) == [1, 2]
+    assert measured["t_step_backends"] == {"1": "reference", "2": "halo"}
+    assert measured["t_interhost"]["estimated"] is False
+    want = [(p.n_envs, p.n_ranks, p.n_processes)
+            for p in jplan.enumerate_plans(4, 2)
+            if p.n_ranks in (1, 2) and 4 // p.n_processes <= 2]
+    assert (2, 2, 2) in want
+    assert [(c["n_envs"], c["n_ranks"], c["n_processes"])
+            for c in rec["candidates"]] == want
+    assert rec["plan"]["n_processes"] == 2
 
 
 def test_fleet_reports_its_gather(fleets):
@@ -210,6 +280,19 @@ def test_bench_mode_reports_throughput(tmp_path):
                           "env_steps", "elapsed_s", "env_steps_per_sec"}
     assert stats["env_steps"] == 4 * 3 * 3 and stats["gather"] is True
     assert "FLEET_TIMING process=0" in out.stdout
+
+
+def test_bench_mode_runs_a_multi_rank_plan(tmp_path):
+    """``--mode bench`` at plan (4, 2, 2) over 2 runners: each runner
+    steps its env's two slabs on the halo backend and process 0 reports
+    the 2 envs' steps."""
+    out = _launch(tmp_path, "--plan", "4,2,2", "--mode", "bench",
+                  "--measure-episodes", "1", processes=2,
+                  env_extra={"REPRO_FLEET_TIMING": "1"})
+    stats = json.loads([ln for ln in out.stdout.splitlines()
+                        if ln.startswith("FLEET_STATS")][-1].split(" ", 1)[1])
+    assert (stats["processes"], stats["n_envs"]) == (2, 2)
+    assert stats["env_steps"] == 2 * 3 * 3 and stats["env_steps_per_sec"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,9 @@ def test_import_loads_no_jax_and_no_reference():
                  "data.trajectory_dataset", "data.pipeline", "core.plan",
                  "core.scaling_model", "core.autotune", "drl.async_train",
                  "launch.distributed", "launch.fleet", "launch.mesh",
-                 "cfd.decomp", "core.runner", "examples.drl_cylinder",
+                 "cfd.decomp", "core.runner", "launch.steps",
+                 "configs.llama3_405b", "configs.mistral_large_123b",
+                 "configs.qwen15_32b", "examples.drl_cylinder",
                  "examples.serve_batch", "examples.hybrid_scaling_demo"):
         assert f"repro_torch.{name}" in res["modules"], name
 
