@@ -159,11 +159,30 @@ Phases (any failure exits non-zero):
    from a bfloat16 one, each block's update within ``TOL_FLOAT8_BLOCK`` of
    the bfloat16 run's and the float8 cache byte for byte the cast of its
    K/V;
-14. one JSON line listing the five kernels, then the card's line and the
+14. the language model's training path, which runs no kernel (the
+   reference's train step runs the reference mixers; it cannot
+   differentiate its Pallas kernels): (a) ``make_train_step`` of
+   phi4-mini-3.8b (AdamW, 4 microbatches) and rwkv6-3b (AdamW, 2) at full
+   width and depth, bf16, remat "full", ``synthetic_batch`` at train_4k's
+   length with one sequence a microbatch, 3 steps: every loss finite, the
+   first within ``TOL_TRAIN_LOSS`` of a separate ``lm_loss``, no kernel
+   launched; s per step, tokens/s, the peak allocation and model FLOPs
+   over the H100 preset's peak reported; (b) at phi4-mini's widths, 4
+   layers, under deterministic algorithms: the 4-microbatch step's
+   gradients within ``TOL_MICROBATCH`` of one full-batch step's, remat
+   "full" equal to "" bit for bit, both peaks; a bf16 checkpoint of a layer
+   restored bit-equal; (c) Adafactor (bf16 direction, per-layer path) at
+   mistral-large-123b's widths, 6 of 88 layers, 4 microbatches, 2 steps;
+   (d) ``python -m repro_torch.launch.train --reduced --steps 20
+   --ckpt-dir`` and ``python -m repro_torch.examples.quickstart`` exit 0
+   (the checkpoint restores and saves again byte for byte); (e)
+   ``make_train_step(backend="pallas")`` and a gradient through
+   ``forward_train(backend="pallas")`` raise, launching nothing;
+15. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13`` runs any of those three phases alone after the build
-(a partial run: no kernels line, no result line).
+``--phases 10,12,13,14`` runs any of those four phases alone after the
+build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
 """
@@ -3023,8 +3042,394 @@ def serve_path(card):
     return flash, wkv
 
 
+# phase 14: training.  train_4k's length; its batch of 256 cut to one
+# sequence a microbatch (the config's train_microbatches), 3 steps, random
+# bf16 params from a seed, remat "full" (the configs' default)
+TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+TRAIN_CONFIGS = ("phi4-mini-3.8b", "rwkv6-3b")
+# the first step's loss against a separate no-grad forward of lm_loss on
+# its batch: the step averages its microbatches' bf16 losses in float32,
+# the forward the whole batch's at once
+TOL_TRAIN_LOSS = 1e-3
+# (b) the microbatched step's accumulated gradients against one full-batch
+# step's, per leaf, by rel-RMS, on a float32 copy of the bf16 params (the
+# compute bf16 still): then each parameter's gradient sums its tokens in
+# float32 in both, and what is left is the bf16 activations of GEMMs of
+# other shapes (a batch of 4 against 1) and the order of the sums: 1.9e-3
+# on the card at every leaf.  On the bf16 params themselves the
+# embedding's gradient, a scatter-add of thousands of repeats of the
+# frequent tokens into a bf16 table, reads 0.29 between the two and is
+# reported only.  A missing division by the microbatch count would read
+# 3, a dropped microbatch ~0.5
+TRAIN_HOLD_LAYERS, TOL_MICROBATCH = 4, 1e-2
+# (c) Adafactor at mistral-large-123b's widths: 6 of its 88 layers (more
+# than 4 stacked layers, so its per-layer update path runs), 4
+# microbatches of one sequence, 2 steps
+ADAFACTOR_CONFIG, ADAFACTOR_LAYERS, ADAFACTOR_STEPS = \
+    "mistral-large-123b", 6, 2
+
+
+def train_batch(cfg, n, step, seed=0):
+    import torch
+    from repro_torch.data.pipeline import LMDataConfig, synthetic_batch
+    b = synthetic_batch(LMDataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_SEQ, global_batch=n,
+                                     seed=seed), step, cfg)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+
+def train_steps(cfg, params, steps_n, n_seq, profiled=False):
+    """``steps_n`` steps of ``make_train_step`` -> (losses, seconds of each
+    step, peak bytes, and with ``profiled`` one more step's reading under
+    ``torch.profiler``, :func:`profile_step`)."""
+    import torch
+    from repro_torch.launch import steps
+    opt_state = steps.make_opt(cfg).init(steps.param_leaves(params))
+    train_step = steps.make_train_step(cfg)
+    step, losses, secs = 0, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps_n):
+        batch = train_batch(cfg, n_seq, i)
+        (params, opt_state, step, m), s = wall(
+            lambda: train_step(params, opt_state, step, batch))
+        losses.append(float(m["loss"]))
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    prof = None
+    if profiled:
+        batch = train_batch(cfg, n_seq, steps_n)
+        prof = profile_step(lambda: train_step(params, opt_state, step,
+                                               batch))
+    del opt_state
+    return losses, secs, peak, prof
+
+
+def profile_step(fn, top=5):
+    """``fn`` once under ``torch.profiler``: (kernels, the card's busy ms:
+    the sum of their spans, the ``top`` kernel names by device time as
+    (name, ms, count)), or None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # the card's activity only: a step runs ~10^5 kernels, and host-side
+    # events would multiply the trace the profiler must assemble
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    if not kernels or busy <= 0:
+        return None
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return len(kernels), busy, [(k[:70], round(ms, 4), n)
+                                for k, (ms, n) in heaviest]
+
+
+def train_full(card, name):
+    """Phase 14 (a): ``make_train_step`` of one config at full width and
+    depth, bf16, remat "full"."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import model
+    cfg = get_config(name)
+    n_mb = cfg.train_microbatches
+    tag = f"[train {name}]"
+    params = model.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in steps.param_leaves(params))
+    with torch.no_grad():
+        (ref, _), ref_s = wall(lambda: model.lm_loss(
+            cfg, params, train_batch(cfg, n_mb, 0), backend="reference"))
+    ref = float(ref)
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses, secs, peak, prof = train_steps(cfg, params, TRAIN_STEPS, n_mb,
+                                           profiled=True)
+    launched = counts()
+    del params
+    torch.cuda.empty_cache()
+    steady = sum(secs[1:]) / len(secs[1:])
+    if prof is None:
+        where = "card busy share: not measured (no device time in the trace)"
+    else:
+        n_k, busy, heaviest = prof
+        idle = 100 * (1 - busy / 1e3 / steady)
+        where = (f"one more step under torch.profiler: {n_k} kernels, the "
+                 f"card busy {busy:.1f} ms, {idle:.1f}% idle against the "
+                 f"steady step; the heaviest kernels (name, ms, count): "
+                 f"{heaviest}")
+    tokens = n_mb * TRAIN_SEQ
+    hw = roofline.hardware_spec(device="cuda")
+    flops = roofline.model_flops(cfg, InputShape("train", TRAIN_SEQ, n_mb,
+                                                 "train"),
+                                 steps.abstract_params(cfg))
+    mfu = flops / (steady * hw.peak_flops)
+    d_loss = abs(losses[0] - ref) / abs(ref)
+    print(f"{tag} {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_padded}, {n_params} params bf16, {cfg.optimizer}, "
+          f"remat {cfg.remat!r}; batch {n_mb} x {TRAIN_SEQ} (train_4k's "
+          f"length, its batch cut from 256 to one sequence a microbatch), "
+          f"{n_mb} microbatches; losses {losses}; s per step {secs} (first "
+          f"{secs[0]:.4f}, steady {steady:.4f}); {tokens / steady:.1f} "
+          f"tokens/s; peak {peak} bytes allocated; model FLOPs {flops:.4e} a "
+          f"step, {mfu:.4f} of {hw.name}'s {hw.peak_flops:.3e} FLOP/s; the "
+          f"first loss {losses[0]:.6f} against a separate forward's "
+          f"{ref:.6f} ({ref_s:.3f} s): {d_loss:.3e} relative (tol "
+          f"{TOL_TRAIN_LOSS:.0e}); kernel launches {launched}; card {card}")
+    print(f"{tag} {where}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: a training loss is not finite: {losses}")
+    if d_loss > TOL_TRAIN_LOSS:
+        fail(f"{name}: the first step's loss {losses[0]} differs from "
+             f"lm_loss's {ref} by {d_loss:.3e} relative")
+    if any(launched.values()):
+        fail(f"{name}: the train step launched kernels {launched}; the "
+             f"reference's train step runs none")
+    return dict(losses=losses, s_per_step=secs, steady_s=steady,
+                tokens_per_s=tokens / steady, peak_bytes=peak, mfu=mfu,
+                profile=prof)
+
+
+@contextlib.contextmanager
+def gradient_probe():
+    """``launch.steps.make_opt`` replaced by an optimizer that leaves the
+    gradients it is handed in ``probe["grads"]`` (copies in host memory,
+    so that the card holds one step at a time) and changes nothing: a
+    train step then shows what it would update with."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import Optimizer
+    probe = {}
+
+    def update(grads, state, params, step, donate=False):
+        probe["grads"] = [g.to("cpu") for g in grads]
+        return params, state
+    real = steps.make_opt
+    steps.make_opt = lambda cfg: Optimizer(lambda p: {}, update)
+    try:
+        yield probe
+    finally:
+        steps.make_opt = real
+
+
+def step_grads(cfg, params, batch):
+    """(the gradients one train step hands its optimizer, peak bytes)."""
+    import torch
+    from repro_torch.launch import steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with gradient_probe() as probe:
+        steps.make_train_step(cfg)(params, {}, 0, batch)
+    return probe["grads"], torch.cuda.max_memory_allocated()
+
+
+def train_hold(card):
+    """Phase 14 (b): at phi4-mini's width, 4 layers, deterministic
+    algorithms, by the gradients each step hands its optimizer: remat
+    "full" against "" on the bf16 params, bit for bit; 4 microbatches
+    against one full-batch step on a float32 copy of them (the compute
+    still bf16), so that each parameter's gradient sums its tokens in
+    float32 in both; the same on the bf16 params reported."""
+    import dataclasses
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"),
+                              num_layers=TRAIN_HOLD_LAYERS)
+    n_mb = cfg.train_microbatches
+    one_cfg = dataclasses.replace(cfg, train_microbatches=1)
+    params = model.init_params(cfg, seed=1, device="cuda")
+    names = [k for k, _ in steps.leaves_with_paths(params)]
+    batch = train_batch(cfg, n_mb, 0, seed=1)
+
+    def per_leaf(a, b):
+        return sorted(((rel_rms(x, y), k) for k, x, y in zip(names, a, b)),
+                      reverse=True)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        full_remat, peak_remat = step_grads(cfg, params, batch)
+        no_remat, peak_plain = step_grads(
+            dataclasses.replace(cfg, remat=""), params, batch)
+        one, peak_one = step_grads(one_cfg, params, batch)
+        f32 = float32_copy(params)
+        mb32, _ = step_grads(cfg, f32, batch)
+        one32, _ = step_grads(one_cfg, f32, batch)
+        del f32
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    bitwise = all(torch.equal(a, b) for a, b in zip(full_remat, no_remat))
+    held, bf16 = per_leaf(mb32, one32), per_leaf(full_remat, one)
+    worst = held[0][0]
+    print(f"[train hold] phi4-mini-3.8b widths, {TRAIN_HOLD_LAYERS} of 32 "
+          f"layers, batch {n_mb} x {TRAIN_SEQ}, deterministic algorithms: "
+          f"remat 'full' against '': "
+          f"{'bit-equal' if bitwise else 'DIFFERENT'}; peaks {peak_remat} "
+          f"bytes (remat 'full'), {peak_plain} (remat ''), {peak_one} (one "
+          f"full-batch step, remat 'full'); the {n_mb}-microbatch step's "
+          f"gradients against one full-batch step's on float32 params, "
+          f"rel-RMS by leaf (worst first): "
+          f"{[(k, f'{e:.3e}') for e, k in held[:4]]} (tol "
+          f"{TOL_MICROBATCH:.0e}); on the bf16 params (reported): "
+          f"{[(k, f'{e:.3e}') for e, k in bf16[:4]]}; card {card}")
+    if not bitwise:
+        fail("remat 'full' changed the gradients")
+    if worst > TOL_MICROBATCH:
+        fail(f"microbatched gradients differ from the full batch's by "
+             f"{worst:.3e} rel-RMS ({held[0][1]})")
+    # a bf16 checkpoint of one layer of these params, restored bit-equal
+    path = ROOT / "build" / "train_path" / "layer0.ckpt"
+    layer0 = model.layer(params["blocks"], 0)
+    ck.save(str(path), layer0, step=1, compress=False)
+    back, manifest = ck.restore(str(path))
+    flat = dict(steps.leaves_with_paths(layer0))
+    same = all(back[k].dtype == torch.bfloat16 and torch.equal(
+        back[k], flat[k].cpu()) for k in flat)
+    dtypes = sorted({v["dtype"] for v in manifest["arrays"].values()})
+    print(f"[train hold] layer 0 ({nbytes(flat.values())} bytes, dtypes "
+          f"{dtypes}) saved and restored "
+          f"{'bit-equal' if same else 'DIFFERENT'}")
+    path.unlink()
+    if not same:
+        fail("a bf16 checkpoint did not restore bit-equal")
+    del params
+    torch.cuda.empty_cache()
+    return dict(microbatch_rel_rms=worst, remat_bitwise=bitwise,
+                peak_remat=peak_remat, peak_no_remat=peak_plain)
+
+
+def float32_copy(tree):
+    return {k: float32_copy(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def train_adafactor(card):
+    """Phase 14 (c): Adafactor with its bf16 update direction at
+    mistral-large-123b's widths, depth cut."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config(ADAFACTOR_CONFIG),
+                              num_layers=ADAFACTOR_LAYERS)
+    params = model.init_params(cfg, seed=0, device="cuda")
+    stacked = [p for p in steps.param_leaves(params["blocks"])
+               if p.dim() >= 3 and min(p.shape[-2:]) >= 128]
+    reset_counts()
+    losses, secs, peak, _ = train_steps(cfg, params, ADAFACTOR_STEPS,
+                                        cfg.train_microbatches)
+    launched = counts()
+    print(f"[train adafactor] {ADAFACTOR_CONFIG} widths (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}), "
+          f"{ADAFACTOR_LAYERS} of 88 layers: {len(stacked)} stacked "
+          f"factored leaves of {ADAFACTOR_LAYERS} layers take the per-layer "
+          f"update; batch {cfg.train_microbatches} x {TRAIN_SEQ}, "
+          f"{cfg.train_microbatches} microbatches, update_dtype bfloat16; "
+          f"losses {losses}; s per step {secs}; peak {peak} bytes "
+          f"allocated; kernel launches {launched}; card {card}")
+    if not all(math.isfinite(x) for x in losses) or any(launched.values()):
+        fail(f"adafactor: losses {losses}, launches {launched}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(losses=losses, s_per_step=secs, peak_bytes=peak)
+
+
+def train_scripts(card):
+    """Phase 14 (d): the training script and the quickstart as
+    subprocesses on the card."""
+    import os
+    import shutil
+    from repro_torch.ckpt import checkpoint as ck
+    base = ROOT / "build" / "train_path"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {"train": ["repro_torch.launch.train", "--arch",
+                      "phi4-mini-3.8b", "--reduced", "--steps", "20",
+                      "--ckpt-dir", str(base / "ckpt")],
+            "quickstart": ["repro_torch.examples.quickstart"]}
+    out = {}
+    for tag, argv in runs.items():
+        res, secs = wall(lambda: subprocess.run(
+            [sys.executable, "-m", *argv], capture_output=True, text=True,
+            timeout=300, cwd=str(ROOT), env=env))
+        lines = res.stdout.strip().splitlines()
+        print(f"[train scripts] python -m {' '.join(argv)}: exit "
+              f"{res.returncode} in {secs:.3f} s; last lines {lines[-3:]}")
+        if res.returncode:
+            fail(f"{tag} exited {res.returncode}: {res.stderr[-2000:]}")
+        out[tag] = lines
+    final = [ln for ln in out["train"] if ln.startswith("final loss")][0]
+    if out["quickstart"][-1] != "OK":
+        fail("the quickstart did not print OK")
+    path = ck.latest_checkpoint(str(base / "ckpt"))
+    arrays, manifest = ck.restore(path)
+    again = base / "again.ckpt"
+    ck.save(str(again), arrays, step=manifest["step"])
+    # every restored leaf saves again with the shape, dtype and crc32 of
+    # the bytes first written
+    same = ck.read_manifest(str(again))["arrays"] == manifest["arrays"]
+    dtypes = sorted({v["dtype"] for v in manifest["arrays"].values()})
+    print(f"[train scripts] {final}; its checkpoint {path} ({len(arrays)} "
+          f"leaves, dtypes {dtypes}: the reduced config is float32) "
+          f"restores, and saves again with every leaf's crc32 "
+          f"{'equal' if same else 'DIFFERENT'}")
+    shutil.rmtree(base, ignore_errors=True)
+    if not same:
+        fail("the training checkpoint did not restore bit-equal")
+
+
+def train_refusals():
+    """Phase 14 (e): no gradient through a kernel on the card."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    try:
+        steps.make_train_step(get_config("phi4-mini-3.8b"), backend="pallas")
+        fail("make_train_step(backend='pallas') did not raise")
+    except NotImplementedError as e:
+        print(f"[train refusals] make_train_step(backend='pallas'): {e}")
+    for name in TRAIN_CONFIGS:
+        cfg = get_config(name).reduced()
+        params = model.init_params(cfg, seed=0, device="cuda")
+        for p in steps.param_leaves(params):
+            p.requires_grad_(True)
+        tok = torch.zeros((1, 128), dtype=torch.int64, device="cuda")
+        reset_counts()
+        try:
+            model.forward_train(cfg, params, tok, backend="pallas")
+            fail(f"{name}: forward_train(backend='pallas') with params "
+                 f"requiring grad did not raise")
+        except RuntimeError as e:
+            print(f"[train refusals] {name} forward_train(backend='pallas')"
+                  f" on params requiring grad: {str(e)[:80]}...; launches "
+                  f"{counts()}")
+        if any(counts().values()):
+            fail(f"{name}: a refused call launched a kernel")
+
+
+def train_path(card):
+    """Phase 14: the language model's training path on the card."""
+    import torch
+    torch.cuda.empty_cache()
+    (ROOT / "build" / "train_path").mkdir(parents=True, exist_ok=True)
+    out = {name: train_full(card, name) for name in TRAIN_CONFIGS}
+    out["hold"] = train_hold(card)
+    out["adafactor"] = train_adafactor(card)
+    train_scripts(card)
+    train_refusals()
+    return out
+
+
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13")
+STANDALONE_PHASES = ("10", "12", "13", "14")
 
 
 def main():
@@ -3064,7 +3469,8 @@ def main():
     if phases:
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
-        run = {"10": fleet_path, "12": halo_path, "13": serve_path}
+        run = {"10": fleet_path, "12": halo_path, "13": serve_path,
+               "14": train_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -3209,7 +3615,11 @@ def main():
     flash.update(serve_flash)
     wkv.update(serve_wkv)
 
-    # 14. the kernels, the card, the result
+    # 14. the language model's training path (no kernel on it)
+    _, secs = wall(lambda: train_path(card))
+    print(f"[phase 14] {secs:.3f} s")
+
+    # 15. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,19 @@ never a garbage tree.
 A tree is nested dicts / lists / tuples (NamedTuples by field name) whose
 leaves are numpy arrays, torch tensors or scalars; a leaf's path is its
 keys joined by ``/``.  ``None`` leaves are dropped.  ``restore`` returns
-numpy arrays.
+numpy arrays, except for a bfloat16 leaf.  numpy has no bfloat16 (the
+reference leans on ``ml_dtypes``, which the port does without), so a
+bfloat16 leaf is written as the reference writes it, under the manifest
+dtype ``"bfloat16"`` with its raw 2-byte bits (crc32 over those bytes),
+and comes back as a CPU ``torch.bfloat16`` tensor holding the same bits,
+never through float32.
+
+``save_reference`` / ``restore_reference`` write and read the JAX
+package's own format (magic ``REPRO_CKPT_V1``, msgpack manifest through the
+port's encoder in ``core.interface``), uncompressed: the port has no zstd,
+so a reference checkpoint saved with its default zstd compression is
+refused and one saved with ``compress=False`` reads.  The leaves' bytes and
+manifest entries are the same in both formats.
 
 Directory layout (``save_step`` / ``latest_checkpoint`` / ``AsyncCheckpointer``):
 
@@ -49,11 +61,13 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.io import atomic_write_text, byte_view, read_exact
+from repro_torch.core.interface import packb, unpackb
 from repro_torch.testing import faults
 
 MAGIC = b"REPRO_TORCH_CKPT_V1"
 REFERENCE_MAGIC = b"REPRO_CKPT_V1"   # the JAX package's checkpoints
 LATEST_NAME = "LATEST"
+BFLOAT16 = "bfloat16"     # manifest dtype of a bfloat16 leaf's 2-byte bits
 ZLIB_LEVEL = 1
 _CHUNK = 1 << 20          # streaming-restore granularity (1 MiB)
 
@@ -85,12 +99,29 @@ def _flatten_with_paths(tree) -> Dict[str, Any]:
     return out
 
 
+def leaf_dtype(v) -> str:
+    """The manifest dtype of a leaf: ``"bfloat16"`` for a bfloat16 tensor
+    or ``ml_dtypes`` array, else its numpy dtype's name."""
+    if torch.is_tensor(v):
+        if v.dtype == torch.bfloat16:
+            return BFLOAT16
+        return str(torch.empty((), dtype=v.dtype).numpy().dtype)
+    return str(np.asarray(v).dtype)
+
+
 def host_array(v, *, copy: bool = False) -> np.ndarray:
     """A leaf as a C-contiguous host ndarray; ``copy=True`` never aliases
-    the caller's memory (a CPU tensor's ``.cpu()`` would)."""
+    the caller's memory (a CPU tensor's ``.cpu()`` would).  A bfloat16
+    leaf comes as its bits, a uint16 array (:func:`leaf_dtype` names it)."""
     if torch.is_tensor(v):
         v = v.detach()
-        a = (v.to("cpu", copy=True) if copy else v.cpu()).numpy()
+        t = v.to("cpu", copy=True) if copy else v.cpu()
+        if t.dtype == torch.bfloat16:
+            a = t.contiguous().view(torch.int16).numpy().view(np.uint16)
+        else:
+            a = t.numpy()
+    elif isinstance(v, np.ndarray) and v.dtype.name == BFLOAT16:
+        a = (v.copy() if copy else v).view(np.uint16)
     else:
         a = np.array(v, copy=copy) if copy else np.asarray(v)
     # NB: np.ascontiguousarray would promote 0-d to (1,)
@@ -104,12 +135,27 @@ def save(path: str, tree: Any, *, step: int = 0, compress: bool = True,
     ``metadata`` must be JSON-serializable (plain dict/list/str/num); it
     rides in the manifest and comes back from ``restore``/``read_manifest``.
     """
-    arrays = {k: host_array(v) for k, v in _flatten_with_paths(tree).items()}
+    return _write(path, tree, step, metadata, compress, MAGIC,
+                  lambda m: json.dumps(m).encode("utf-8"))
+
+
+def save_reference(path: str, tree: Any, *, step: int = 0,
+                   metadata: Optional[Dict] = None) -> int:
+    """Write ``tree`` in the JAX package's format, uncompressed, for
+    ``repro.ckpt.checkpoint.restore`` to read; returns bytes written.
+    ``metadata`` must be what the port's msgpack encoder takes (plain
+    dict/list/str/int/float/bool/None)."""
+    return _write(path, tree, step, metadata, False, REFERENCE_MAGIC, packb)
+
+
+def _write(path, tree, step, metadata, compress, magic, encode) -> int:
+    leaves = _flatten_with_paths(tree)
+    arrays = {k: host_array(v) for k, v in leaves.items()}
     manifest = {
         "step": step,
         "metadata": metadata or {},
         "arrays": {k: {"shape": list(a.shape),
-                       "dtype": str(a.dtype),
+                       "dtype": leaf_dtype(leaves[k]),
                        "crc32": zlib.crc32(byte_view(a))}
                    for k, a in arrays.items()},
         "compressed": bool(compress),
@@ -117,11 +163,11 @@ def save(path: str, tree: Any, *, step: int = 0, compress: bool = True,
     tmp = Path(str(path) + ".tmp")
     tmp.parent.mkdir(parents=True, exist_ok=True)
     with open(tmp, "wb") as f:
-        mb = json.dumps(manifest).encode("utf-8")
-        f.write(MAGIC)
+        mb = encode(manifest)
+        f.write(magic)
         f.write(len(mb).to_bytes(8, "little"))
         f.write(mb)
-        n = len(MAGIC) + 8 + len(mb)
+        n = len(magic) + 8 + len(mb)
         for k in sorted(arrays):
             buf = byte_view(arrays[k])     # zero-copy
             if compress:
@@ -151,12 +197,30 @@ def _read_header(f, path) -> Dict:
                 f"magic {REFERENCE_MAGIC.decode()}), not of repro_torch: "
                 f"read its tree on the JAX side (repro.ckpt.checkpoint."
                 f"restore, then repro.drl.train_state._nest) and carry it "
-                f"across with repro_torch.convert.train_state_from_numpy")
+                f"across with repro_torch.convert.train_state_from_numpy; "
+                f"one saved with compress=False reads with "
+                f"restore_reference")
         raise CheckpointError(f"not a repro_torch checkpoint: {path}")
+    return _read_manifest_body(f, path, json.loads)
+
+
+def _read_reference_header(f, path) -> Dict:
+    if f.read(len(REFERENCE_MAGIC)) != REFERENCE_MAGIC:
+        raise CheckpointError(f"not a checkpoint of the JAX package "
+                              f"(magic {REFERENCE_MAGIC.decode()}): {path}")
+    manifest = _read_manifest_body(f, path, unpackb)
+    if manifest.get("compressed"):
+        raise CheckpointError(
+            f"{path} is zstd-compressed, and the port reads no zstd: save "
+            f"it with repro.ckpt.checkpoint.save(..., compress=False)")
+    return manifest
+
+
+def _read_manifest_body(f, path, decode) -> Dict:
     mlen = int.from_bytes(_read_exact(f, 8, path, "manifest length"),
                           "little")
     try:
-        manifest = json.loads(_read_exact(f, mlen, path, "manifest"))
+        manifest = decode(_read_exact(f, mlen, path, "manifest"))
     except ValueError as e:
         raise CheckpointError(
             f"corrupted checkpoint {path}: manifest unreadable ({e})") from e
@@ -166,15 +230,17 @@ def _read_header(f, path) -> Dict:
     return manifest
 
 
-def _read_leaf(f, path, key: str, spec: Dict, compressed: bool
-               ) -> np.ndarray:
+def _read_leaf(f, path, key: str, spec: Dict, compressed: bool):
     """Read one array segment, streaming uncompressed data in chunks
-    directly into the destination buffer (bounded memory for large leaves)."""
+    directly into the destination buffer (bounded memory for large leaves).
+    A bfloat16 leaf comes back as a CPU ``torch.bfloat16`` tensor of the
+    file's bits, any other as an ndarray."""
     blen = int.from_bytes(_read_exact(f, 8, path, f"length of {key!r}"),
                           "little")
     shape = tuple(spec["shape"])
+    bf16 = spec["dtype"] == BFLOAT16
     try:
-        dtype = np.dtype(spec["dtype"])
+        dtype = np.dtype(np.uint16 if bf16 else spec["dtype"])
     except TypeError as e:
         raise CheckpointError(f"checkpoint {path}: leaf {key!r} has an "
                               f"unknown dtype {spec['dtype']!r}") from e
@@ -213,6 +279,8 @@ def _read_leaf(f, path, key: str, spec: Dict, compressed: bool
         raise CheckpointError(
             f"corrupted checkpoint {path}: leaf {key!r} fails its crc32 "
             f"integrity check")
+    if bf16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return arr
 
 
@@ -250,18 +318,46 @@ def restore(path: str, target: Any = None, *, cast: bool = False) -> Any:
     """Load a checkpoint.
 
     Without ``target``: returns ``(arrays, manifest)`` where ``arrays`` maps
-    flattened leaf paths to host ndarrays.
+    flattened leaf paths to host ndarrays (a bfloat16 leaf: a CPU
+    ``torch.bfloat16`` tensor of the file's bits).
 
     With ``target``: validates structure, per-leaf shape AND dtype against
-    the target tree and returns ``{path: ndarray}`` in the target's leaf
+    the target tree and returns ``{path: array}`` in the target's leaf
     order.  A dtype mismatch raises ``CheckpointError`` naming the leaf
     unless ``cast=True`` (explicit opt-in to convert)."""
     with open(path, "rb") as f:
         manifest = _read_header(f, path)
-        compressed = bool(manifest.get("compressed"))
-        arrays = {k: _read_leaf(f, path, k, manifest["arrays"][k],
-                                compressed)
-                  for k in sorted(manifest["arrays"])}
+        arrays = _read_leaves(f, path, manifest)
+    return _matched(path, arrays, manifest, target, cast)
+
+
+def restore_reference(path: str, target: Any = None, *,
+                      cast: bool = False) -> Any:
+    """:func:`restore` for a checkpoint of the JAX package saved with
+    ``compress=False``; leaves come back in the same forms."""
+    with open(path, "rb") as f:
+        manifest = _read_reference_header(f, path)
+        arrays = _read_leaves(f, path, manifest)
+    return _matched(path, arrays, manifest, target, cast)
+
+
+def _read_leaves(f, path, manifest) -> Dict[str, Any]:
+    compressed = bool(manifest.get("compressed"))
+    return {k: _read_leaf(f, path, k, manifest["arrays"][k], compressed)
+            for k in sorted(manifest["arrays"])}
+
+
+def _cast(arr, dtype: str):
+    """``arr`` (an ndarray or a bfloat16 tensor) in the manifest dtype
+    ``dtype``; bfloat16 rounds to nearest even, as numpy's cast does."""
+    if dtype == BFLOAT16:
+        return torch.from_numpy(np.asarray(arr)).to(torch.bfloat16)
+    if torch.is_tensor(arr):
+        arr = arr.float().numpy()
+    return arr.astype(dtype)
+
+
+def _matched(path, arrays, manifest, target, cast):
     if target is None:
         return arrays, manifest
     tgt = _flatten_with_paths(target)
@@ -273,17 +369,18 @@ def restore(path: str, target: Any = None, *, cast: bool = False) -> Any:
     out = {}
     for key, leaf in tgt.items():
         arr, want = arrays[key], host_array(leaf)
-        if arr.shape != want.shape:
+        if tuple(arr.shape) != want.shape:
             raise CheckpointError(
-                f"checkpoint {path}: leaf {key!r} has shape {arr.shape}, "
-                f"target wants {want.shape}")
-        if arr.dtype != want.dtype:
+                f"checkpoint {path}: leaf {key!r} has shape "
+                f"{tuple(arr.shape)}, target wants {want.shape}")
+        have, wanted = manifest["arrays"][key]["dtype"], leaf_dtype(leaf)
+        if have != wanted:
             if not cast:
                 raise CheckpointError(
                     f"checkpoint {path}: leaf {key!r} has dtype "
-                    f"{arr.dtype}, target wants {want.dtype} "
+                    f"{have}, target wants {wanted} "
                     f"(pass cast=True to convert)")
-            arr = arr.astype(want.dtype)
+            arr = _cast(arr, wanted)
         out[key] = arr
     return out
 
@@ -358,6 +455,14 @@ def latest_step(ckpt_dir: str) -> Optional[str]:
 # async saves: host snapshot now, disk write in the background
 # ---------------------------------------------------------------------------
 
+def _snapshot(v):
+    """A host copy of a leaf that keeps its manifest dtype: a bfloat16
+    tensor stays a (CPU) tensor, anything else becomes an ndarray."""
+    if torch.is_tensor(v) and v.dtype == torch.bfloat16:
+        return v.detach().to("cpu", copy=True)
+    return host_array(v, copy=True)
+
+
 class AsyncCheckpointer:
     """Periodic checkpoint writer whose disk I/O hides behind compute.
 
@@ -394,7 +499,7 @@ class AsyncCheckpointer:
         t0 = time.perf_counter()
         self.wait()                        # <=1 write in flight; raise errors
         self.time_waited += time.perf_counter() - t0
-        host = {k: host_array(v, copy=True)
+        host = {k: _snapshot(v)
                 for k, v in _flatten_with_paths(tree).items()}
         if self._pool is not None:
             self._inflight = self._pool.submit(self._write, step, host,

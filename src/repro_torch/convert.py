@@ -15,7 +15,8 @@ way back.  ``train_state_from_numpy`` carries a reference run's training
 state (``repro.drl.train_state.to_tree`` content) into the port's
 ``TrainState``.  ``flow_state_from_numpy`` and ``geom_arrays_from_numpy``
 carry a flow state and the geometry fields; ``model_params_from_jax`` a
-language model's parameter tree, ``cache_from_jax`` its decode cache.
+language model's parameter tree, ``opt_state_from_jax`` its optimizer
+state, ``cache_from_jax`` its decode cache.
 """
 from __future__ import annotations
 
@@ -215,6 +216,14 @@ def train_state_from_numpy(tree: Mapping, device="cuda", *,
                                np.float64) for k in HISTORY_FIELDS})
 
 
+def _lm_tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype; a bfloat16 (``ml_dtypes``)
+    leaf through float32, exactly."""
+    a = np.asarray(a)
+    return torch.tensor(a.astype(np.float32),
+                        device=device).to(dtype_of(a.dtype.name))
+
+
 def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
                           ) -> dict:
     """The reference's language-model parameter tree (nested dicts, leaves
@@ -236,11 +245,32 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
-        a = np.asarray(node)
-        t = torch.tensor(a.astype(np.float32), device=device)
-        return t.to(dtype_of(a.dtype.name))
+        return _lm_tensor(node, device)
 
     return conv(tree)
+
+
+def opt_state_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"):
+    """The reference's optimizer state for ``cfg``'s parameters (numpy
+    leaves, e.g. ``jax.tree.map(np.asarray, opt_state)``) in the port's
+    layout: AdamW's ``{"m": tree, "v": tree}`` as ``{"m": [...], "v":
+    [...]}``, Adafactor's tree of ``{"vr", "vc"}`` / ``{"v"}`` as a list of
+    those dicts, each list in ``launch.steps.param_leaves`` order.  Leaves
+    keep their dtype (bfloat16 through float32, exactly)."""
+    from repro_torch.launch.steps import abstract_params, leaves_with_paths
+    device = resolve_device(device)
+    paths = [p for p, _ in leaves_with_paths(abstract_params(cfg))]
+
+    def at(node, path):
+        for k in path.split("/"):
+            node = node[k]
+        return node
+
+    if "m" in tree and "v" in tree:
+        return {k: [_lm_tensor(at(tree[k], p), device) for p in paths]
+                for k in ("m", "v")}
+    return [{k: _lm_tensor(a, device) for k, a in at(tree, p).items()}
+            for p in paths]
 
 
 def cache_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> dict:

@@ -1,5 +1,25 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their builds
 (``build.py``) and their Python wrappers with plain PyTorch twins."""
 
+import torch
+
 # dynamic shared memory one block may claim on an H100 (227 KB)
 SMEM_PER_BLOCK = 232_448
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when a gradient would have to pass through ``kernel``: grad
+    mode is on and one of ``tensors`` requires grad.  The kernels are
+    forward only, as the reference's Pallas kernels are (jax cannot
+    differentiate them: ``pallas_call``'s JVP rule asserts), and a CUDA
+    launch has no autograd link, so a backward through it would drop the
+    gradient silently.  The plain twin on CPU tensors refuses the same way,
+    so both devices train only through ``backend="reference"``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} is forward only and cannot be differentiated: the "
+            f"reference cannot differentiate its Pallas kernels either, "
+            f"so training runs the reference mixers (backend='reference'); "
+            f"call the kernel under torch.no_grad() or on tensors that do "
+            f"not require grad")

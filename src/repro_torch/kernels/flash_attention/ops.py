@@ -19,6 +19,10 @@ the reference asserts; other lengths raise.  The kernels are built for
 head dims 32, 64 and 128; the wrapper serves every dh up to 128 by zero
 padding to the next of those (:func:`pad_head_dim`), scaled by the
 caller's ``dh ** -0.5``.
+
+The kernels are forward only: :func:`flash_attention` and the ``_cuda``
+entry points of both kernels raise when grad mode is on and an input
+requires grad (``kernels.refuse_grad``), on CUDA and CPU tensors alike.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.kernels import SMEM_PER_BLOCK, refuse_grad
 
 BLOCK = 128          # the reference's block_q = block_k
 FP32_BQ = 64         # query rows per block of the float32 kernel
@@ -210,6 +214,7 @@ def _check_cuda(q, k, v, dtype):
     """The checks of both kernels: shapes, CUDA tensors of ``dtype``, a
     head dim up to 128; returns the key tile."""
     bk = _check(q, k, v)
+    refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}; "
@@ -296,5 +301,6 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
         return flash_attention_cuda(q, k, v, causal=causal,
                                     sliding_window=sliding_window)
     _check(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     return flash_attention_plain(q, k, v, causal=causal,
                                  sliding_window=sliding_window)

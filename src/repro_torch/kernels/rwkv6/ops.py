@@ -14,6 +14,10 @@ chunks of at most 32 tokens; the wrapper serves every head size up to 192
 by zero padding (:func:`pad_heads`) and any ``chunk`` by running the
 largest chunk of at most 32 that divides S (the chunk is a tiling of the
 same recurrence).
+
+The kernel is forward only: :func:`wkv6` and :func:`wkv6_cuda` raise when
+grad mode is on and an input requires grad (``kernels.refuse_grad``), on
+CUDA and CPU tensors alike.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.kernels import refuse_grad
 
 CHUNK = 32
 # csrc/wkv6.cu: the head sizes it is built for (WKV6_HEAD_SIZES: the
@@ -173,6 +179,7 @@ def prepare(r, k, v, w, u, state, *, chunk: int = CHUNK) -> Call:
     what its passes write; the kernel runs chunks of ``pick_chunk(S,
     min(chunk, 32))`` tokens.  Raises ``ValueError`` for what the kernel
     does not take."""
+    refuse_grad("wkv6_cuda", r, k, v, w, u, state)
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6_cuda needs CUDA tensors, got {dev}; CPU "
@@ -260,7 +267,8 @@ wkv6_cuda.last_block_sms = None
 def wkv6(r, k, v, w, u, state, *, chunk: int = CHUNK):
     """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) -> (out (B, S,
     H, N) in r's dtype, new state (B, H, N, N) float32): the kernel on CUDA
-    tensors, the plain twin on CPU tensors."""
+    tensors, the plain twin on CPU tensors; either refuses a gradient."""
     if r.device.type == "cuda":
         return wkv6_cuda(r, k, v, w, u, state, chunk=chunk)
+    refuse_grad("wkv6", r, k, v, w, u, state)
     return wkv6_plain(r, k, v, w, u, state)

@@ -46,11 +46,28 @@ def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # init helpers
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands in for the ``torch.Generator`` of an init on the ``"meta"``
+    device: parameters with their shapes and dtypes and no memory, nothing
+    drawn."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """float32 N(0, 1) draws from ``gen`` on its device (none on meta)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0):
     """Truncated-normal fan-in init: N(0, 1) cut at +-2, times
     ``scale / sqrt(fan_in)``, drawn in float32."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     # scaled in place: one float32 buffer at a time (a (64, 27392, 5120)
     # stack is 36 GB in float32)
@@ -58,9 +75,7 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0):
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    t = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return t.mul_(0.02).to(dtype)
+    return randn(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,13 @@ every leaf of ``blocks`` stacked on a leading layer axis; the reference's
 ``lax.scan`` over layers is a Python loop over that axis.  The reference's
 ``act_sharding.constrain`` calls place activations on a device mesh and do
 nothing without one; the port runs on one card, so they are left out.
-The remat policy is a training-memory choice of the reference's backward
-pass and has no counterpart here.
+
+The remat policy follows the reference's: with ``cfg.remat == "full"``
+each block runs under ``torch.utils.checkpoint`` (non-reentrant) when grad
+is enabled, as ``jax.checkpoint`` wraps the reference's scan body, so a
+backward keeps one hidden state per layer and recomputes the block's
+activations; ``""`` and ``"dots"`` leave the block as it is (the reference
+tests only ``"full"``).  Under ``torch.no_grad`` it changes nothing.
 
 ``backend="pallas"`` runs each layer's sequence mixer through a
 hand-written kernel: flash attention (``kernels/flash_attention``) for
@@ -32,14 +37,15 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
-                                       embed_init, init_mlp, init_norm,
-                                       to_cache_dtype)
+from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
+                                       dtype_of, embed_init, init_mlp,
+                                       init_norm, to_cache_dtype)
 
 Params = Dict[str, Any]
 
@@ -88,10 +94,15 @@ def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int) -> Params:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters with the reference's distributions, drawn on
-    ``device`` from a ``torch.Generator`` seeded with ``seed``."""
+    ``device`` from a ``torch.Generator`` seeded with ``seed``.  On the
+    ``"meta"`` device: the shapes and dtypes only, no memory and no draws
+    (``launch.steps.abstract_params``)."""
     check_supported(cfg)
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if str(device) == "meta":
+        device, gen = torch.device("meta"), ShapesOnly()
+    else:
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, (cfg.vocab_padded, cfg.d_model),
                                      dt)}
@@ -156,10 +167,17 @@ def _block_body(cfg: ModelConfig, h, bp, *, positions, backend="reference"):
 
 def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions,
                  backend="reference"):
-    """The layers in order (the reference's scan over the stacked axis)."""
+    """The layers in order (the reference's scan over the stacked axis),
+    each under activation checkpointing for ``remat == "full"``."""
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i in range(blocks["ln1"]["scale"].shape[0]):
-        h = _block_body(cfg, h, layer(blocks, i), positions=positions,
-                        backend=backend)
+        bp = layer(blocks, i)
+        if remat:
+            h = checkpoint(_block_body, cfg, h, bp, positions=positions,
+                           backend=backend, use_reentrant=False)
+        else:
+            h = _block_body(cfg, h, bp, positions=positions,
+                            backend=backend)
     return h
 
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6.ops import wkv6, wkv6_scan
 from repro_torch.models.attention import resolve_backend
-from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.models.layers import dense_init, dtype_of, randn
 
 
 # ---------------------------------------------------------------------------
@@ -49,8 +49,7 @@ def init_rwkv_tmix(cfg: ModelConfig, gen: torch.Generator, lead=()):
         "w_decay_a": dense_init(gen, lead + (D, lora), dt),
         "w_decay_b": dense_init(gen, lead + (lora, D), dt, scale=0.1),
         "w0": full(-6.0),
-        "u": (torch.randn(lead + (H, N), generator=gen, dtype=torch.float32,
-                          device=dev) * 0.1).to(dt),
+        "u": (randn(gen, lead + (H, N)) * 0.1).to(dt),
         "w_out": dense_init(gen, lead + (D, D), dt),
         "ln_x_scale": full(1.0),
     }
@@ -88,33 +87,40 @@ def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64):
     within a chunk everything is a matrix product, the state is carried
     from chunk to chunk.  ``w`` is rounded to ``r``'s dtype first, as the
     reference does.  Falls back to :func:`wkv6_scan` unless ``chunk``
-    divides S and S > chunk."""
+    divides S and S > chunk.
+
+    Every chunk's products are taken at once, batched over the chunks;
+    only the state's carry, ``S <- decay * (S + k^T v)``, runs chunk by
+    chunk (two operations each), so a training step records ~2 operations
+    a chunk instead of ~15."""
     B, S, H, N = r.shape
     if S % chunk or S <= chunk:
         return wkv6_scan(r, k, v, w, u, state)
+    nc = S // chunk
     w = w.to(r.dtype)
     uf = u.float()
     ti = torch.arange(chunk, device=r.device)
     tril = (ti[None, :] < ti[:, None]).float()
+    # (B, S, H, N) -> (B, H, nc, C, N), float32
+    rc, kc, vc, wc = (a.float().reshape(B, nc, chunk, H, N)
+                      .permute(0, 3, 1, 2, 4) for a in (r, k, v, w))
+    lw = torch.log(torch.clamp(wc, min=1e-30))
+    lp = torch.cumsum(lw, dim=3)
+    r_t = rc * torch.exp(lp - lw)                   # r * P_{t-1}
+    k_t = kc * torch.exp(-lp)                       # k / P_t
+    A = torch.einsum("bhzcn,bhzsn->bhzcs", r_t, k_t) * tril
+    intra = torch.einsum("bhzcs,bhzsm->bhzcm", A, vc)
+    diag = (rc * uf[None, :, None, None, :] * kc).sum(-1, keepdim=True)
+    decay = torch.exp(lp[:, :, :, -1, :])           # (B, H, nc, N)
+    kv = torch.einsum("bhzsn,bhzsm->bhznm", k_t, vc)
     S0 = state.float()
-    outs = []
-    for c0 in range(0, S, chunk):
-        # (B, C, H, N) -> (B, H, C, N), float32 per chunk
-        rc, kc, vc, wc = (a[:, c0:c0 + chunk].transpose(1, 2).float()
-                          for a in (r, k, v, w))
-        lw = torch.log(torch.clamp(wc, min=1e-30))
-        lp = torch.cumsum(lw, dim=2)
-        r_t = rc * torch.exp(lp - lw)               # r * P_{t-1}
-        k_t = kc * torch.exp(-lp)                   # k / P_t
-        inter = torch.einsum("bhcn,bhnm->bhcm", r_t, S0)
-        A = torch.einsum("bhcn,bhsn->bhcs", r_t, k_t) * tril
-        intra = torch.einsum("bhcs,bhsm->bhcm", A, vc)
-        diag = (rc * uf[None, :, None, :] * kc).sum(-1, keepdim=True)
-        outs.append((inter + intra + diag * vc).transpose(1, 2))
-        decay = torch.exp(lp[:, :, -1, :])
-        kv = torch.einsum("bhsn,bhsm->bhnm", k_t, vc)
-        S0 = decay[..., None] * (S0 + kv)
-    return torch.cat(outs, dim=1), S0
+    starts = []
+    for z in range(nc):
+        starts.append(S0)
+        S0 = decay[:, :, z, :, None] * (S0 + kv[:, :, z])
+    inter = torch.einsum("bhzcn,bhznm->bhzcm", r_t, torch.stack(starts, 2))
+    out = inter + intra + diag * vc                 # (B, H, nc, C, N)
+    return out.permute(0, 2, 3, 1, 4).reshape(B, S, H, N), S0
 
 
 def apply_rwkv_tmix(cfg: ModelConfig, p, x, x_prev, state, *,

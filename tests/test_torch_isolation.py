@@ -45,7 +45,9 @@ def test_import_loads_no_jax_and_no_reference():
                  "cfd.decomp", "core.runner", "launch.steps",
                  "configs.llama3_405b", "configs.mistral_large_123b",
                  "configs.qwen15_32b", "examples.drl_cylinder",
-                 "examples.serve_batch", "examples.hybrid_scaling_demo"):
+                 "examples.serve_batch", "examples.hybrid_scaling_demo",
+                 "optim.optimizers", "launch.train", "launch.roofline",
+                 "examples.quickstart"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 
