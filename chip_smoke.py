@@ -178,10 +178,38 @@ Phases (any failure exits non-zero):
    (the checkpoint restores and saves again byte for byte); (e)
    ``make_train_step(backend="pallas")`` and a gradient through
    ``forward_train(backend="pallas")`` raise, launching nothing;
-15. one JSON line listing the five kernels, then the card's line and the
+15. the mixture of experts, phi3.5-moe-42b-a6.6b at its widths (random
+   bf16 params; 42 B params do not fit one card beside activations, so
+   depth is cut): (a) ``lm_loss(backend="pallas")`` at 16 of 32 layers,
+   B=1, S=4096, one flash launch a layer; each layer fed the reference
+   backend's input to it, the attention update held within
+   ``TOL_LM_LAYER`` of the reference mixer's, the whole block's update,
+   the tokens the two backends route to other experts (with their
+   probability gaps), each backend's aux and the share of pairs dropped
+   at the config's capacity reported; the flash kernel at this shape (H
+   32, Hkv 8) held against its twin and timed beside SDPA; (b) ``prefill``
+   of a 4096 prompt and 64 greedy ``decode_step``s (ms per token p50 / p99
+   beside the bound of every expert's bytes and of the routed experts'
+   only, the card's idle share), the decode held block by block against
+   ``forward_train(backend="pallas")`` over 4224 tokens at capacity
+   factor 8.0 (dropless, as a one-token decode is): the attention update
+   within ``TOL_LM_LAYER``, the whole block within it where the decode and
+   the forward route the token alike (reported where they do not); (c)
+   one MoE layer at full width, T 4096: the card's dispatch order and
+   kept set at capacity factor 1.25 equal to the CPU's for the same router
+   output, the dropless dispatch within ``TOL_MOE_DENSE`` of the dense mix
+   of each token's top-k experts, the dispatch timed; the shared expert
+   and the dense prefix at 2 layers (forward, prefill, decode); (d)
+   ``make_train_step`` at 3 layers (2 if 3 run out of memory), AdamW, 4
+   microbatches of one 4096-token sequence, 3 steps: losses finite, the
+   first within ``TOL_TRAIN_LOSS`` of its microbatches' separate
+   ``lm_loss`` (aux included), no kernel launched; (e) ``python -m
+   repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --reduced --steps
+   20`` exits 0;
+16. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13,14`` runs any of those four phases alone after the
+``--phases 10,12,13,14,15`` runs any of those five phases alone after the
 build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
@@ -1153,15 +1181,14 @@ def hold_layers(cfg, params, tokens):
     h_free = h_ref
     pos = model._positions(cfg, tokens)
     worst = 0.0
-    for i in range(cfg.num_layers):
-        bp = model.layer(params["blocks"], i)
+    for bp in model.all_layers(params):
         k = model._block_body(cfg, h_ref, bp, positions=pos,
-                              backend="pallas")
+                              backend="pallas")[0]
         r = model._block_body(cfg, h_ref, bp, positions=pos,
-                              backend="reference")
+                              backend="reference")[0]
         worst = max(worst, rel_rms(k - h_ref, r - h_ref))
         h_free = model._block_body(cfg, h_free, bp, positions=pos,
-                                   backend="pallas")
+                                   backend="pallas")[0]
         h_ref = r
     logits_r = model._unembed(cfg, params, h_ref)
     if not (bool(torch.isfinite(logits_r).all())
@@ -2755,8 +2782,7 @@ def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
     h = model._embed(cfg, params, tokens)
     pos = model._positions(cfg, tokens)
     S = tokens.shape[1]
-    for i in range(cfg.num_layers):
-        bp = model.layer(params["blocks"], i)
+    for i, bp in enumerate(model.all_layers(params)):
         if cfg.attention_kind == "none":
             x0, s0 = model._rwkv_zero_states(cfg, h)
             h, xt, st, xc = model._rwkv_block(cfg, h, bp, x0, s0, x0)
@@ -2771,12 +2797,31 @@ def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
                     and not cache["k"][i, :, S:].any()
                     and not cache["v"][i, :, S:].any())
             h = h + a
-            h = h + model._ffn(cfg, bp, h)
+            h = h + model._ffn(cfg, bp, h)[0]
         if not same:
             fail(f"{cfg.name}: prefill's cache of layer {i} differs from "
                  f"its layer run on prefill's input to it")
     if not torch.equal(model._unembed(cfg, params, h[:, -1:])[:, 0], logits):
         fail(f"{cfg.name}: prefill's logits differ from its layers' run")
+
+
+def layer_cache(cfg, bp, x_pre, pos):
+    """One layer's K/V cache of SERVE_CACHE positions built from its input
+    ``x_pre`` with prefill's layer code (``apply_attention(return_kv=
+    True)``), zeros after."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model
+    from repro_torch.models.layers import apply_norm
+    _, k, v = attn_mod.apply_attention(
+        cfg, bp["attn"], apply_norm(cfg, bp["ln1"], x_pre), pos,
+        return_kv=True)
+    shape = (k.shape[0], SERVE_CACHE) + tuple(k.shape[2:])
+    slices = {n: torch.zeros(shape, dtype=t.dtype, device=t.device)
+              for n, t in (("k", k), ("v", v))}
+    model._pad_cache(slices["k"], k)
+    model._pad_cache(slices["v"], v)
+    return slices
 
 
 def hold_decode_blocks(cfg, params, seq, at):
@@ -2788,17 +2833,14 @@ def hold_decode_blocks(cfg, params, seq, at):
     hold the states prefill's layer code gives against the kernel's on the
     same input.  Returns (worst update difference, worst state readings)."""
     import torch
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model
-    from repro_torch.models.layers import apply_norm
     h = model._embed(cfg, params, seq)
     pos = model._positions(cfg, seq)
     p_at = model._pos_tensor(at, seq.device)
     worst, st_worst, xc_worst, xt_equal = 0.0, 0.0, 0.0, True
-    for i in range(cfg.num_layers):
-        bp = model.layer(params["blocks"], i)
+    for bp in model.all_layers(params):
         h_next = model._block_body(cfg, h, bp, positions=pos,
-                                   backend="pallas")
+                                   backend="pallas")[0]
         x_pre, x_tok = h[:, :at], h[:, at:at + 1]
         if cfg.attention_kind == "none":
             x0, s0 = model._rwkv_zero_states(cfg, x_pre)
@@ -2811,14 +2853,7 @@ def hold_decode_blocks(cfg, params, seq, at):
             xt_equal &= torch.equal(xt, xt_k)
             slices = {"state": st, "xprev_t": xt, "xprev_c": xc}
         else:
-            _, k, v = attn_mod.apply_attention(
-                cfg, bp["attn"], apply_norm(cfg, bp["ln1"], x_pre),
-                pos[:, :at], return_kv=True)
-            shape = (k.shape[0], SERVE_CACHE) + tuple(k.shape[2:])
-            slices = {n: torch.zeros(shape, dtype=t.dtype, device=t.device)
-                      for n, t in (("k", k), ("v", v))}
-            model._pad_cache(slices["k"], k)
-            model._pad_cache(slices["v"], v)
+            slices = layer_cache(cfg, bp, x_pre, pos[:, :at])
         out, _ = model._decode_block(cfg, x_tok, bp, slices, p_at)
         worst = max(worst, rel_rms(out - x_tok,
                                    h_next[:, at:at + 1] - x_tok))
@@ -3428,8 +3463,528 @@ def train_path(card):
     return out
 
 
+# phase 15: the mixture of experts.  phi3.5-moe-42b-a6.6b at its widths:
+# its 32 layers are 41.9 B params, 83.75 GB in bf16, which do not fit beside
+# activations on one card, so depth is cut: 16 layers (42.1 GB) for the
+# forward and serving, 3 for training (AdamW's 16 bytes a parameter: 66.6
+# GB before activations), 2 (45.8 GB) if 3 run out of memory
+MOE_CONFIG = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS, MOE_TRAIN_LAYERS, MOE_SEQ = 16, (3, 2), 4096
+# a capacity factor of E / K = 8: C = T, so no pair is dropped
+MOE_DROPLESS = 8.0
+# (c) the dispatch against the dense per-token mix of the top-k experts,
+# bf16: the expert outputs are the same GEMMs' (over other rows); the
+# dispatch then rounds p to bf16, each weighted output and their sum (three
+# roundings of 2^-9 relative), the float32 mix none: rel-RMS, and the worst
+# |difference| over the largest |value| (4 bf16 ulps of it)
+TOL_MOE_DENSE = (1e-2, 2.0 ** -6)
+
+
+def moe_config(layers, **moe):
+    """phi3.5-moe at its widths, ``layers`` deep, its ``MoEConfig`` replaced
+    by ``moe``."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MOE_CONFIG)
+    return dataclasses.replace(cfg, num_layers=layers,
+                               moe=dataclasses.replace(cfg.moe, **moe))
+
+
+def moe_routes(cfg, bp, h):
+    """One MoE layer's router on ``h``, the block's hidden state after its
+    attention: (the experts of each token as a sorted set (T, K), the
+    router's probabilities (T, E))."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm
+    xf = apply_norm(cfg, bp["ln2"], h).reshape(-1, cfg.d_model)
+    _, top_idx, _ = moe.router(cfg, bp["moe"], xf)
+    probs = torch.softmax(xf.float() @ bp["moe"]["w_router"].float(), -1)
+    return top_idx.sort(-1).values, probs
+
+
+def kth_gap(probs, k):
+    """Each row's gap between its k-th and (k+1)-th largest probability."""
+    s = probs.sort(-1, descending=True).values
+    return s[:, k - 1] - s[:, k]
+
+
+def flip_note(gaps):
+    if not gaps:
+        return "none"
+    return (f"{len(gaps)}, their k-th / (k+1)-th probability gaps "
+            f"{min(gaps):.3e} to {max(gaps):.3e}")
+
+
+def moe_hold_layers(cfg, params, tokens):
+    """Phase 15 (a)'s hold, each layer fed the reference backend's input to
+    it: the attention update of backend "pallas" (the flash kernel) against
+    "reference" (worst rel-RMS), the whole block's update (reported), the
+    tokens the two route to other experts with their probability gaps, and
+    each layer's share of token-expert pairs dropped at the config's
+    capacity."""
+    from repro_torch.models import model, moe
+    h = model._embed(cfg, params, tokens)
+    pos = model._positions(cfg, tokens)
+    C = moe._capacity(cfg, tokens.numel())
+    out = dict(attn=0.0, block=0.0, gaps=[], drops=[])
+    for bp in model.all_layers(params):
+        mix_p = model._mixer(cfg, bp, h, pos, backend="pallas")
+        mix_r = model._mixer(cfg, bp, h, pos, backend="reference")
+        out["attn"] = max(out["attn"], rel_rms(mix_p, mix_r))
+        f_p, _ = model._ffn(cfg, bp, h + mix_p)
+        f_r, _ = model._ffn(cfg, bp, h + mix_r)
+        out["block"] = max(out["block"], rel_rms(mix_p + f_p, mix_r + f_r))
+        if "moe" in bp:
+            i_p, _ = moe_routes(cfg, bp, h + mix_p)
+            i_r, probs = moe_routes(cfg, bp, h + mix_r)
+            flipped = (i_p != i_r).any(-1)
+            out["gaps"] += kth_gap(probs, cfg.moe.top_k)[flipped].tolist()
+            keep = moe.dispatch_plan(cfg, i_r, C)[3]
+            out["drops"].append(1.0 - float(keep.float().mean()))
+        h = h + mix_r + f_r
+    return out
+
+
+def moe_forward(dev, card, cfg, params, tokens, labels):
+    """Phase 15 (a): ``lm_loss(backend="pallas")`` at the cut depth, one
+    flash launch a layer, held against "reference" layer by layer."""
+    import torch
+    from repro_torch.models import model
+    tag = f"[moe forward {MOE_CONFIG}]"
+    batch = {"tokens": tokens, "labels": labels}
+    with torch.inference_mode():
+        reset_counts()
+        (loss, parts), first_s = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="pallas"))
+        launched = counts()
+        _, steady_s = wall(lambda: model.lm_loss(cfg, params, batch,
+                                                 backend="pallas"))
+        (ref, ref_parts), ref_s = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="reference"))
+        held = moe_hold_layers(cfg, params, tokens)
+    others = sum(n for k, n in launched.items() if k != "flash_attention")
+    d_loss = abs(float(loss) - float(ref))
+    print(f"{tag} lm_loss(backend='pallas') {float(loss):.6f} (aux "
+          f"{float(parts['aux']):.6e}) in {first_s:.3f} s first call, "
+          f"{steady_s:.3f} s steady; backend='reference' {float(ref):.6f} "
+          f"(aux {float(ref_parts['aux']):.6e}) in {ref_s:.3f} s: loss "
+          f"{d_loss:.3e} apart (tol {TOL_LM_LOSS:.0e}); kernel launches "
+          f"{launched}; card {card}")
+    print(f"{tag} on the reference's input to each layer: the attention "
+          f"update (the flash kernel) {held['attn']:.3e} of its RMS from the "
+          f"reference mixer's at worst (tol {TOL_LM_LAYER:.0e}); the whole "
+          f"block {held['block']:.3e} (reported); tokens routed to other "
+          f"experts: {flip_note(held['gaps'])}; pairs dropped at capacity "
+          f"factor {cfg.moe.capacity_factor}: {min(held['drops']):.4f} to "
+          f"{max(held['drops']):.4f} of the {cfg.moe.top_k * tokens.numel()} "
+          f"a layer")
+    if launched["flash_attention"] != cfg.num_layers or others:
+        fail(f"{MOE_CONFIG}: {launched['flash_attention']} flash launches "
+             f"(expected {cfg.num_layers}) and {others} of the others")
+    if not (math.isfinite(float(loss)) and d_loss <= TOL_LM_LOSS
+            and held["attn"] <= TOL_LM_LAYER):
+        fail(f"{MOE_CONFIG}: backend 'pallas' disagrees with 'reference'")
+    return dict(moe_launches=launched["flash_attention"],
+                moe_path=(f"lm_loss({MOE_CONFIG}, {cfg.num_layers} of 32 "
+                          f"layers, backend='pallas'), B=1, S={MOE_SEQ}"),
+                moe_lm_first_s=first_s, moe_lm_steady_s=steady_s,
+                moe_attn_worst=held["attn"], moe_block_worst=held["block"],
+                moe_flips=len(held["gaps"]), moe_drop_share=held["drops"],
+                moe_aux=(float(parts["aux"]), float(ref_parts["aux"])))
+
+
+def moe_flash_reading(dev):
+    """Phase 15 (a): the flash kernel at phi3.5's attention shape (H 32, Hkv
+    8, dh 128), held against its twin and timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    H, Hkv, dh, S = 32, 8, 128, MOE_SEQ
+    measures, (q, k, v), kernel, plain, _ = flash_case(dev, 1, S, H, Hkv,
+                                                       dh, 0, 8)
+    ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    flops = 2 * H * S * S * dh
+    bound_ms, bound_by = bound(2 * S * dh * (2 * H + 2 * Hkv),
+                               (flops, BF16_PEAK))
+    print(f"[moe flash] bf16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal: "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the bound), scaled_dot_product_attention "
+          f"{library_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, rel_rms=measures[0],
+                worst_row=measures[1], shape=f"bf16, B=1, S={S}, H={H}, "
+                                            f"Hkv={Hkv}, dh={dh}, causal")
+
+
+def moe_hold_decode(cfg, params, seq, at):
+    """Phase 15 (b)'s hold, as ``hold_decode_blocks`` builds each layer's
+    cache from the pallas forward's input to it: the decode's attention
+    update at position ``at`` against the forward's (the flash kernel;
+    worst rel-RMS), and the whole decode block's update against the
+    forward's where the two route that token to the same experts (worst),
+    else reported with the token's probability gap."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model
+    from repro_torch.models.layers import apply_norm
+    h = model._embed(cfg, params, seq)
+    pos = model._positions(cfg, seq)
+    p_at = model._pos_tensor(at, seq.device)
+    attn, block, flipped = 0.0, 0.0, []
+    for i, bp in enumerate(model.all_layers(params)):
+        mix_f = model._mixer(cfg, bp, h, pos, backend="pallas")
+        f, _ = model._ffn(cfg, bp, h + mix_f)
+        h_next = h + mix_f + f
+        x_tok = h[:, at:at + 1]
+        slices = layer_cache(cfg, bp, h[:, :at], pos[:, :at])
+        mix_d, _, _ = attn_mod.decode_attention(
+            cfg, bp["attn"], apply_norm(cfg, bp["ln1"], x_tok), slices["k"],
+            slices["v"], p_at)
+        attn = max(attn, rel_rms(mix_d, mix_f[:, at:at + 1]))
+        out, _ = model._decode_block(cfg, x_tok, bp, slices, p_at)
+        err = rel_rms(out - x_tok, h_next[:, at:at + 1] - x_tok)
+        i_d, _ = moe_routes(cfg, bp, x_tok + mix_d)
+        i_f, probs = moe_routes(cfg, bp, (h + mix_f)[:, at:at + 1])
+        if torch.equal(i_d, i_f):
+            block = max(block, err)
+        else:
+            flipped.append((i, err, float(kth_gap(probs, cfg.moe.top_k)[0])))
+        h = h_next
+    return attn, block, flipped
+
+
+def moe_serve(dev, card, cfg, params):
+    """Phase 15 (b): prefill of a 4096 prompt, 64 greedy decode steps, the
+    decode held block by block against the dropless pallas forward."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    tag = f"[moe serve {MOE_CONFIG}]"
+    rng = np.random.default_rng(16)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)),
+                          device=dev)
+    with torch.inference_mode():
+        (logits, cache), first_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        (logits, cache), steady_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        if logits.shape != (1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{MOE_CONFIG}: prefill logits not finite or not (1, "
+                 f"{cfg.vocab_padded})")
+        prefill_equals_its_layers(cfg, params, prompt, logits, cache)
+        times, decoded, _ = timed_decode(
+            cfg, params, cache, logits.argmax(-1, keepdim=True),
+            SERVE_PROMPT, steps=SERVE_STEPS)
+        prof = profile_decode(cfg, params, cache, decoded[:, -1:],
+                              SERVE_CACHE - 4)
+        parts, total, bound_ms = decode_reading(params, cache)
+        experts = nbytes(params["blocks"]["moe"][w]
+                         for w in ("we1", "we2", "we3"))
+        routed = total - experts + experts * cfg.moe.top_k \
+            // cfg.moe.num_experts
+        routed_ms = 1e3 * routed / HBM_RATE
+        p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+        print(f"{tag} {cfg.num_layers} of 32 layers, bf16 random params; "
+              f"prefill B=1, S={SERVE_PROMPT}, cache_len {SERVE_CACHE}: "
+              f"{first_s:.4f} s first call, {steady_s:.4f} s steady, its "
+              f"K/V and logits equal its layers run one by one; "
+              f"{SERVE_STEPS} greedy decode_steps: p50 {p50:.4f} ms, p99 "
+              f"{p99:.4f} ms per token; bounds: every expert read (the "
+              f"reference's dispatch runs all {cfg.moe.num_experts} over "
+              f"their 8 rows) {total} bytes, {bound_ms:.4f} ms ({parts}); "
+              f"the routed experts only {routed} bytes, {routed_ms:.4f} ms; "
+              f"p50 / bound {p50 / bound_ms:.2f}; {profile_note(prof, p50)}; "
+              f"card {card}")
+        pad = torch.tensor(rng.integers(
+            0, cfg.vocab_size, (1, SERVE_YARDSTICK - SERVE_PROMPT
+                                - SERVE_STEPS)), device=dev)
+        seq = torch.cat([prompt, decoded, pad], dim=1)
+        del cache
+        dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_DROPLESS))
+        reset_counts()
+        (fwd, _), fwd_s = wall(lambda: model.forward_train(
+            dropless, params, seq, backend="pallas"))
+        launched = counts()
+        del fwd
+        attn, block, flipped = moe_hold_decode(dropless, params, seq,
+                                               SERVE_PROMPT)
+    others = sum(n for k, n in launched.items() if k != "flash_attention")
+    print(f"{tag} yardstick forward_train(backend='pallas') over "
+          f"{SERVE_YARDSTICK} tokens at capacity factor {MOE_DROPLESS} "
+          f"(dropless, as a one-token decode is) in {fwd_s:.4f} s: "
+          f"{launched['flash_attention']} flash launches, {others} of the "
+          f"others; block by block at position {SERVE_PROMPT}: the decode's "
+          f"attention update {attn:.3e} of its RMS from the forward's at "
+          f"worst (tol {TOL_LM_LAYER:.0e}); the whole block "
+          f"{block:.3e} where the two route the token alike (tol "
+          f"{TOL_LM_LAYER:.0e}); layers where they route it otherwise "
+          f"(layer, block difference, probability gap): {flipped}")
+    if launched["flash_attention"] != cfg.num_layers or others:
+        fail(f"{MOE_CONFIG}: the yardstick launched "
+             f"{launched['flash_attention']} flash (expected "
+             f"{cfg.num_layers}) and {others} others")
+    if not (attn <= TOL_LM_LAYER and block <= TOL_LM_LAYER):
+        fail(f"{MOE_CONFIG}: a decode block differs from the forward's")
+    return dict(moe_serve_launches=launched["flash_attention"],
+                moe_prefill_s=steady_s, moe_decode_p50_ms=p50,
+                moe_decode_p99_ms=p99, moe_decode_bound_ms=bound_ms,
+                moe_decode_routed_bound_ms=routed_ms,
+                moe_decode_profile=prof, moe_decode_attn_worst=attn,
+                moe_decode_block_worst=block, moe_decode_flips=flipped)
+
+
+def dense_mix(cfg, p, xf, top_p, top_idx):
+    """Every expert run on every token, each token's top-k outputs mixed by
+    their probabilities in float32 (the twin of tests/test_substrates.py's
+    dropless parity)."""
+    import torch
+    import torch.nn.functional as F
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    for e in range(cfg.moe.num_experts):
+        h = F.silu(xf @ p["we1"][e]) * (xf @ p["we3"][e])
+        o = (h @ p["we2"][e]).float()
+        for k in range(cfg.moe.top_k):
+            w = torch.where(top_idx[:, k] == e, top_p[:, k], 0.0)
+            out += o * w[:, None]
+    return out
+
+
+def moe_dispatch_card(dev, card):
+    """Phase 15 (c): one MoE layer at full width, bf16, T 4096: the kept set
+    on the card equal to the CPU's for the same router output; the dropless
+    dispatch against the dense mix; the dispatch's time."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    cfg = moe_config(1)
+    T, D = MOE_SEQ, cfg.d_model
+    E, K, Fe = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert
+    tag = "[moe dispatch]"
+    p = moe.init_moe(cfg, torch.Generator(device=dev).manual_seed(3))
+    x = torch.tensor(np.random.default_rng(17).standard_normal((1, T, D)),
+                     dtype=torch.float32, device=dev).to(torch.bfloat16)
+    xf = x.reshape(T, D)
+    C = moe._capacity(cfg, T)
+    with torch.inference_mode():
+        top_p, top_idx, _ = moe.router(cfg, p, xf)
+        card_plan = moe.dispatch_plan(cfg, top_idx, C)
+        cpu_plan = moe.dispatch_plan(cfg, top_idx.cpu(), C)
+        same = all(torch.equal(a.cpu(), b)
+                   for a, b in zip(card_plan, cpu_plan))
+        keep = card_plan[3]
+        _, cpu_idx, _ = moe.router(cfg, {"w_router": p["w_router"].cpu()},
+                                   xf.cpu())
+        other = (cpu_idx.sort(-1).values
+                 != top_idx.cpu().sort(-1).values).any(-1)
+        probs = torch.softmax(xf.float() @ p["w_router"], -1)
+        gaps = kth_gap(probs, K).cpu()[other].tolist()
+        dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_DROPLESS))
+        out, _ = moe._moe_dispatch(dropless, p, x)
+        ref = dense_mix(cfg, p, xf, top_p, top_idx)
+        out = out.reshape(T, D).float()
+        rel = rel_rms(out, ref)
+        worst = float((out - ref).abs().max() / ref.abs().max())
+        ms = cuda_ms(lambda: moe._moe_dispatch(cfg, p, x), 10)
+    flops = 3 * 2 * E * C * D * Fe
+    bound_ms, bound_by = bound(3 * E * D * Fe * 2 + 2 * T * D * 2,
+                               (flops, BF16_PEAK))
+    print(f"{tag} {MOE_CONFIG} widths (E {E}, top {K}, D {D}, F {Fe}), bf16, "
+          f"T {T}: at capacity factor {cfg.moe.capacity_factor} (C {C}) the "
+          f"card's dispatch order, expert rows and kept set "
+          f"{'equal' if same else 'DIFFER FROM'} the CPU's for the same "
+          f"router output; {int(keep.sum())} of {T * K} pairs kept "
+          f"({1 - float(keep.float().mean()):.4f} dropped); the CPU's "
+          f"float32 router on the same input routes tokens otherwise: "
+          f"{flip_note(gaps)} (reported); dropless (C {T}) against the "
+          f"dense mix of each token's top-{K} experts: rel-RMS {rel:.3e} "
+          f"(tol {TOL_MOE_DENSE[0]:.0e}), worst {worst:.3e} of the largest "
+          f"|value| (tol {TOL_MOE_DENSE[1]:.1e}); _moe_dispatch at C {C} "
+          f"{ms:.4f} ms on the card, plain PyTorch, against a bound of "
+          f"{bound_ms:.4f} ms ({bound_by}); card {card}")
+    if not same:
+        fail("the kept set on the card differs from the CPU's")
+    if not (rel <= TOL_MOE_DENSE[0] and worst <= TOL_MOE_DENSE[1]):
+        fail("the dropless dispatch differs from the dense mix")
+    del p, x, out, ref
+    torch.cuda.empty_cache()
+    return dict(kept_equal=same, dense_rel_rms=rel, dense_worst=worst,
+                dispatch_ms=ms, dispatch_bound_ms=bound_ms,
+                cpu_router_flips=len(gaps))
+
+
+def moe_branches(dev, card):
+    """Phase 15 (c): the shared expert and the dense prefix at phi3.5's
+    widths, 2 layers: lm_loss(backend="pallas") (two flash launches, held
+    as (a) holds), prefill and 4 decode steps through both stacks."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    cfg = moe_config(2, num_shared_experts=1, first_dense_layers=1)
+    params = model.init_params(cfg, seed=4, device=dev)
+    rng = np.random.default_rng(18)
+    tokens, labels = (torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                (1, MOE_SEQ)), device=dev)
+                      for _ in range(2))
+    with torch.inference_mode():
+        reset_counts()
+        loss, parts = model.lm_loss(cfg, params, {"tokens": tokens,
+                                                  "labels": labels},
+                                    backend="pallas")
+        launched = counts()
+        held = moe_hold_layers(cfg, params, tokens)
+        logits, cache = model.prefill(cfg, params, tokens[:, :-4],
+                                      cache_len=MOE_SEQ)
+        for t in range(4):
+            logits, _ = model.decode_step(cfg, params, cache,
+                                          tokens[:, t - 4:t - 3 or None],
+                                          MOE_SEQ - 4 + t)
+    finite = math.isfinite(float(loss)) and bool(
+        torch.isfinite(logits).all())
+    print(f"[moe branches] {MOE_CONFIG} widths, 2 layers: blocks_dense "
+          f"{'blocks_dense' in params} (1 layer, d_ff {cfg.d_ff}), a shared "
+          f"expert of width {params['blocks']['moe']['shared']['w1'].shape[-1]}"
+          f"; lm_loss(backend='pallas') {float(loss):.6f}, aux "
+          f"{float(parts['aux']):.6e}, launches {launched}; the attention "
+          f"update {held['attn']:.3e} of its RMS from the reference's at "
+          f"worst (tol {TOL_LM_LAYER:.0e}), the block {held['block']:.3e}; "
+          f"prefill of {MOE_SEQ - 4} and 4 decode steps over both stacks "
+          f"{'finite' if finite else 'NOT FINITE'}, the cache "
+          f"{tuple(cache['k'].shape)}; card {card}")
+    if not (finite and launched["flash_attention"] == 2
+            and float(parts["aux"]) > 0 and held["attn"] <= TOL_LM_LAYER
+            and cache["k"].shape[0] == 2):
+        fail("the shared expert or the dense prefix failed on the card")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def moe_train_at(card, layers):
+    """Phase 15 (d) at ``layers`` of phi3.5's layers."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import model
+    cfg = moe_config(layers)
+    n_mb = cfg.train_microbatches
+    params = model.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in steps.param_leaves(params))
+    batch = train_batch(cfg, n_mb, 0)
+    with torch.no_grad():
+        # the step's loss is the mean of its microbatches' (loss + aux),
+        # each dispatched with its own capacity
+        ref = sum(float(model.lm_loss(cfg, params, {
+            k: v[i:i + 1] for k, v in batch.items()})[0])
+            for i in range(n_mb)) / n_mb
+    del batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses, secs, peak, _ = train_steps(cfg, params, TRAIN_STEPS, n_mb)
+    launched = counts()
+    del params
+    torch.cuda.empty_cache()
+    steady = sum(secs[1:]) / len(secs[1:])
+    hw = roofline.hardware_spec(device="cuda")
+    flops = roofline.model_flops(cfg, InputShape("train", TRAIN_SEQ, n_mb,
+                                                 "train"),
+                                 steps.abstract_params(cfg))
+    d_loss = abs(losses[0] - ref) / abs(ref)
+    print(f"[moe train] {MOE_CONFIG} widths, {layers} of 32 layers, "
+          f"{n_params} params bf16, AdamW, remat {cfg.remat!r}; {n_mb} "
+          f"microbatches of one {TRAIN_SEQ}-token sequence; losses {losses}; "
+          f"s per step {secs} (steady {steady:.4f}); "
+          f"{n_mb * TRAIN_SEQ / steady:.1f} tokens/s; peak {peak} bytes "
+          f"allocated; active model FLOPs {flops:.4e} a step, "
+          f"{flops / (steady * hw.peak_flops):.4f} of {hw.name}'s "
+          f"{hw.peak_flops:.3e} FLOP/s; the first loss against its "
+          f"microbatches' separate lm_loss (aux included) {ref:.6f}: "
+          f"{d_loss:.3e} relative (tol {TOL_TRAIN_LOSS:.0e}); kernel "
+          f"launches {launched}; card {card}")
+    if not all(math.isfinite(x) for x in losses) or d_loss > TOL_TRAIN_LOSS:
+        fail(f"{MOE_CONFIG}: train losses {losses}, separate {ref}")
+    if any(launched.values()):
+        fail(f"{MOE_CONFIG}: the train step launched kernels {launched}")
+    return dict(layers=layers, losses=losses, s_per_step=secs,
+                steady_s=steady, tokens_per_s=n_mb * TRAIN_SEQ / steady,
+                peak_bytes=peak, mfu=flops / (steady * hw.peak_flops))
+
+
+def moe_train(card):
+    """Phase 15 (d): ``make_train_step`` at phi3.5's widths, 3 layers, or 2
+    where 3 run out of the card's memory."""
+    import gc
+    import torch
+    for layers in MOE_TRAIN_LAYERS:
+        try:
+            return moe_train_at(card, layers)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[moe train] {layers} layers ran out of memory "
+                  f"({str(e)[:120]}...); next: fewer layers")
+        gc.collect()
+        torch.cuda.empty_cache()
+    fail(f"{MOE_CONFIG}: no depth of {MOE_TRAIN_LAYERS} trained on the card")
+
+
+def moe_script(card):
+    """Phase 15 (e): the training script on the reduced config."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = ["repro_torch.launch.train", "--arch", MOE_CONFIG, "--reduced",
+            "--steps", "20"]
+    res, secs = wall(lambda: subprocess.run(
+        [sys.executable, "-m", *argv], capture_output=True, text=True,
+        timeout=300, cwd=str(ROOT), env=env))
+    lines = res.stdout.strip().splitlines()
+    print(f"[moe script] python -m {' '.join(argv)}: exit {res.returncode} "
+          f"in {secs:.3f} s; last lines {lines[-2:]}")
+    if res.returncode:
+        fail(f"launch.train {MOE_CONFIG} exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+
+
+def moe_path(card):
+    """Phase 15: the mixture of experts on the card.  Returns the flash
+    row's readings."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = moe_config(MOE_LAYERS)
+    params, secs = wall(lambda: model.init_params(cfg, seed=0, device=dev))
+    n = sum(x.numel() for x in leaves(params))
+    print(f"[moe] {MOE_CONFIG}: {MOE_LAYERS} of 32 layers at full width, "
+          f"{n} params ({2 * n / 1e9:.2f} GB bf16) drawn on the card in "
+          f"{secs:.3f} s; capacity factor {cfg.moe.capacity_factor}, impl "
+          f"{cfg.moe.impl!r} (no mesh: one dispatch, no waves)")
+    rng = np.random.default_rng(19)
+    tokens, labels = (torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                (1, MOE_SEQ)), device=dev)
+                      for _ in range(2))
+    out = moe_forward(dev, card, cfg, params, tokens, labels)
+    out.update(moe_serve(dev, card, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    out["moe_shape"] = moe_flash_reading(dev)
+    out["moe_dispatch"] = moe_dispatch_card(dev, card)
+    moe_branches(dev, card)
+    out["moe_train"] = moe_train(card)
+    moe_script(card)
+    return out
+
+
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14")
+STANDALONE_PHASES = ("10", "12", "13", "14", "15")
 
 
 def main():
@@ -3470,7 +4025,7 @@ def main():
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
         run = {"10": fleet_path, "12": halo_path, "13": serve_path,
-               "14": train_path}
+               "14": train_path, "15": moe_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -3619,7 +4174,12 @@ def main():
     _, secs = wall(lambda: train_path(card))
     print(f"[phase 14] {secs:.3f} s")
 
-    # 15. the kernels, the card, the result
+    # 15. the mixture of experts
+    moe, secs = wall(lambda: moe_path(card))
+    flash.update(moe)
+    print(f"[phase 15] {secs:.3f} s")
+
+    # 16. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -229,15 +229,19 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
     """The reference's language-model parameter tree (nested dicts, leaves
     as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``; blocks
     stacked on a leading layer axis) as the port's dict of tensors, each
-    leaf in its own dtype.  A bfloat16 leaf arrives as an ``ml_dtypes``
-    array, which torch cannot read: it goes through float32, and back to
-    bfloat16 exactly."""
+    leaf in its own dtype (a MoE router's ``w_router`` stays float32).  A
+    bfloat16 leaf arrives as an ``ml_dtypes`` array, which torch cannot
+    read: it goes through float32, and back to bfloat16 exactly.  The
+    layers of ``blocks`` and of a MoE config's ``blocks_dense`` together
+    must be the config's."""
     device = resolve_device(device)
     embed = np.shape(tree["embed"])
     if embed != (cfg.vocab_padded, cfg.d_model):
         raise ValueError(f"embed {embed} does not fit {cfg.name}: expected "
                          f"{(cfg.vocab_padded, cfg.d_model)}")
-    n_layers = np.shape(tree["blocks"]["ln1"]["scale"])[0]
+    # a MoE config's dense prefix is a stack of its own
+    n_layers = sum(np.shape(tree[k]["ln1"]["scale"])[0]
+                   for k in ("blocks_dense", "blocks") if k in tree)
     if n_layers != cfg.num_layers:
         raise ValueError(f"{n_layers} stacked layers, {cfg.name} has "
                          f"{cfg.num_layers}")

@@ -5,7 +5,7 @@ Port of ``repro.data.pipeline``.  The LM stream is deterministic by step:
 (seed, step) -> batch in host numpy, the reference's tokens bit for bit,
 so every data-parallel worker can slice its own shard without
 coordination.  The modality frontends are not ported (``ROADMAP.md`` §1
-item 7), so a config with a ``frontend`` raises.  ``shard_batch`` places
+item 5.5), so a config with a ``frontend`` raises.  ``shard_batch`` places
 a host batch on a mesh's device (``launch/mesh.py``).
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ def synthetic_batch(cfg: LMDataConfig, step: int,
     if model_cfg is not None and model_cfg.frontend:
         raise NotImplementedError(
             f"{model_cfg.name}: frontend {model_cfg.frontend!r} embeddings "
-            f"are not ported yet (ROADMAP.md §1 item 7, the modality "
+            f"are not ported yet (ROADMAP.md §1 item 5.5, the modality "
             f"frontends)")
     rng = np.random.default_rng((cfg.seed, step))
     ranks = rng.zipf(cfg.zipf_alpha,

@@ -14,7 +14,7 @@ slab of an env on that process's device), the reference's intra-host halo
 rule: a halo message never leaves its process.
 
 The production and abstract meshes of the language-model dry run are not
-ported (``ROADMAP.md`` §1 item 5).
+ported (``ROADMAP.md`` §1 item 5.8).
 """
 from __future__ import annotations
 

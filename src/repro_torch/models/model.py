@@ -2,10 +2,16 @@
 serving: ``init_cache``, ``prefill``, ``decode_step``.
 
 Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (the dense
-configs) and ``"none"`` (RWKV-6).  Parameters are a plain dict shaped like the
-reference's tree: ``{"embed", "blocks", "final_norm", "lm_head"}`` with
-every leaf of ``blocks`` stacked on a leading layer axis; the reference's
-``lax.scan`` over layers is a Python loop over that axis.  The reference's
+configs and the mixture of experts) and ``"none"`` (RWKV-6).  Parameters
+are a plain dict shaped like the reference's tree: ``{"embed", "blocks",
+"final_norm", "lm_head"}`` with every leaf of ``blocks`` stacked on a
+leading layer axis; the reference's ``lax.scan`` over layers is a Python
+loop over that axis.  A MoE config's blocks hold ``moe``
+(``models/moe.py``) in place of ``ffn``; with ``first_dense_layers`` its
+first layers are a stack of their own, ``blocks_dense``, run before
+``blocks`` (the reference's two scans).  Each block returns the router's
+aux loss beside its output (0 for a dense FFN), and ``forward_train``
+returns their sum over both stacks.  The reference's
 ``act_sharding.constrain`` calls place activations on a device mesh and do
 nothing without one; the port runs on one card, so they are left out.
 
@@ -27,10 +33,12 @@ a config whose ``kv_cache_dtype`` is float8: that dtype is ``init_cache``'s
 only, a quirk of the reference kept here); ``decode_step`` runs one token
 through every layer against the cache, which it updates in place, layer
 slice by layer slice, with no host synchronisation.  An RWKV cache is the
-per-layer WKV state (float32) and the two token-shift states.
+per-layer WKV state (float32) and the two token-shift states.  The cache
+keeps one leading axis of ``num_layers`` whatever the stacks: each stack
+works on its slice of that axis, in place.
 
-Not ported yet: MoE, MLA, hybrid, the encoder-decoder, the frontends and
-MTP (``check_supported`` refuses them at every entry point).
+Not ported yet: MLA, hybrid, the encoder-decoder, the frontends, MTP and
+M-RoPE (``check_supported`` refuses them at every entry point).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
                                        dtype_of, embed_init, init_mlp,
@@ -60,8 +69,7 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"attention_kind {cfg.attention_kind!r}")
     if cfg.attention_kind == "gqa" and cfg.rope_kind != "rope":
         missing.append(f"rope_kind {cfg.rope_kind!r}")
-    for name, present in (("moe", cfg.moe is not None),
-                          ("mla", cfg.mla is not None),
+    for name, present in (("mla", cfg.mla is not None),
                           ("encoder-decoder", cfg.is_encdec),
                           ("frontend", bool(cfg.frontend)),
                           ("mtp", cfg.mtp)):
@@ -79,15 +87,19 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int) -> Params:
+def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int, *,
+                 is_moe: bool = False) -> Params:
     lead = (n,)
     p: Params = {"ln1": init_norm(cfg, lead + (cfg.d_model,), gen.device),
                  "ln2": init_norm(cfg, lead + (cfg.d_model,), gen.device)}
     if cfg.attention_kind == "none":
         p["tmix"] = ssm_mod.init_rwkv_tmix(cfg, gen, lead)
         p["cmix"] = ssm_mod.init_rwkv_cmix(cfg, gen, lead)
+        return p
+    p["attn"] = attn_mod.init_attention(cfg, gen, lead)
+    if is_moe:
+        p["moe"] = moe_mod.init_moe(cfg, gen, lead)
     else:
-        p["attn"] = attn_mod.init_attention(cfg, gen, lead)
         p["ffn"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead)
     return p
 
@@ -106,7 +118,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     dt = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, (cfg.vocab_padded, cfg.d_model),
                                      dt)}
-    p["blocks"] = _init_blocks(cfg, gen, cfg.num_layers)
+    nd = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    if nd:
+        p["blocks_dense"] = _init_blocks(cfg, gen, nd)
+    p["blocks"] = _init_blocks(cfg, gen, cfg.num_layers - nd,
+                               is_moe=cfg.moe is not None)
     p["final_norm"] = init_norm(cfg, (cfg.d_model,), device)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_padded), dt)
@@ -117,6 +133,23 @@ def layer(blocks: Params, i: int) -> Params:
     """Layer ``i`` of a stacked block tree."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def block_stacks(params: Params):
+    """The stacks of blocks in layer order: a MoE config's dense prefix
+    ``blocks_dense`` where it has one, then ``blocks``."""
+    return [params[k] for k in ("blocks_dense", "blocks") if k in params]
+
+
+def stack_depth(blocks: Params) -> int:
+    return blocks["ln1"]["scale"].shape[0]
+
+
+def all_layers(params: Params):
+    """Every layer's parameters in order, over both stacks."""
+    for blocks in block_stacks(params):
+        for i in range(stack_depth(blocks)):
+            yield layer(blocks, i)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +164,17 @@ def _mixer(cfg: ModelConfig, bp, h, positions, *, backend="reference"):
 
 
 def _ffn(cfg: ModelConfig, bp, h):
-    return apply_mlp(cfg, bp["ffn"], apply_norm(cfg, bp["ln2"], h))
+    """The feed-forward sublayer on its normed input -> (out, aux loss):
+    the experts and the router's aux where the block has ``moe``, else the
+    dense MLP and 0."""
+    hn = apply_norm(cfg, bp["ln2"], h)
+    if "moe" in bp:
+        return moe_mod.apply_moe(cfg, bp["moe"], hn)
+    return apply_mlp(cfg, bp["ffn"], hn), _no_aux(h)
+
+
+def _no_aux(h):
+    return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _rwkv_block(cfg: ModelConfig, h, bp, xprev_t, state, xprev_c, *,
@@ -156,29 +199,34 @@ def _rwkv_zero_states(cfg: ModelConfig, h):
 
 
 def _block_body(cfg: ModelConfig, h, bp, *, positions, backend="reference"):
-    """One residual block."""
+    """One residual block -> (h, the block's aux loss)."""
     if cfg.attention_kind == "none":
         # rwkv: time mix + channel mix, zero shift states per sequence
         x0, state0 = _rwkv_zero_states(cfg, h)
-        return _rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0]
+        return (_rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0],
+                _no_aux(h))
     h = h + _mixer(cfg, bp, h, positions, backend=backend)
-    return h + _ffn(cfg, bp, h)
+    f, aux = _ffn(cfg, bp, h)
+    return h + f, aux
 
 
 def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions,
                  backend="reference"):
-    """The layers in order (the reference's scan over the stacked axis),
-    each under activation checkpointing for ``remat == "full"``."""
+    """The layers of one stack in order (the reference's scan over the
+    stacked axis), each under activation checkpointing for ``remat ==
+    "full"`` -> (h, the sum of the blocks' aux losses)."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for i in range(blocks["ln1"]["scale"].shape[0]):
+    aux = _no_aux(h)
+    for i in range(stack_depth(blocks)):
         bp = layer(blocks, i)
         if remat:
-            h = checkpoint(_block_body, cfg, h, bp, positions=positions,
-                           backend=backend, use_reentrant=False)
+            h, a = checkpoint(_block_body, cfg, h, bp, positions=positions,
+                              backend=backend, use_reentrant=False)
         else:
-            h = _block_body(cfg, h, bp, positions=positions,
-                            backend=backend)
-    return h
+            h, a = _block_body(cfg, h, bp, positions=positions,
+                               backend=backend)
+        aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +258,16 @@ def _unembed(cfg: ModelConfig, params, h):
 
 def forward_train(cfg: ModelConfig, params: Params, tokens, *,
                   backend: Optional[str] = None):
-    """tokens (B, S) int -> (logits (B, S, V) float32, aux loss 0.0)."""
+    """tokens (B, S) int -> (logits (B, S, V) float32, aux loss: the
+    routers' over every MoE layer, 0.0 without one)."""
     check_supported(cfg)
     backend = attn_mod.resolve_backend(backend)
     h = _embed(cfg, params, tokens)
-    h = _scan_blocks(cfg, params["blocks"], h,
-                     positions=_positions(cfg, tokens), backend=backend)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    pos = _positions(cfg, tokens)
+    aux = _no_aux(h)
+    for blocks in block_stacks(params):
+        h, a = _scan_blocks(cfg, blocks, h, positions=pos, backend=backend)
+        aux = aux + a
     return _unembed(cfg, params, h), aux
 
 
@@ -290,14 +341,14 @@ def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
         cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), cache_slices["k"],
         cache_slices["v"], pos)
     h = h + mix
-    return h + _ffn(cfg, bp, h), new
+    return h + _ffn(cfg, bp, h)[0], new
 
 
 def _scan_decode(cfg: ModelConfig, blocks, h, cache, pos):
-    """The layers in order for one token; each layer's slice of the
-    stacked cache is updated in place (one buffer, as the reference's
-    loop-carried cache)."""
-    for i in range(blocks["ln1"]["scale"].shape[0]):
+    """The layers of one stack in order for one token; each layer's slice
+    of the stacked cache (the stack's own layers) is updated in place (one
+    buffer, as the reference's loop-carried cache)."""
+    for i in range(stack_depth(blocks)):
         slices = {k: v[i] for k, v in cache.items()}
         h, new = _decode_block(cfg, h, layer(blocks, i), slices, pos)
         for k, t in new.items():
@@ -316,7 +367,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
     check_supported(cfg)
     pos = _pos_tensor(pos, token.device)
     h = _embed(cfg, params, token)
-    h = _scan_decode(cfg, params["blocks"], h, cache, pos)
+    first = 0
+    for blocks in block_stacks(params):
+        n = stack_depth(blocks)
+        # the stack's layers of the cache: views, written in place
+        h = _scan_decode(cfg, blocks, h, {k: v[first:first + n]
+                                          for k, v in cache.items()}, pos)
+        first += n
     return _unembed(cfg, params, h)[:, 0], cache
 
 
@@ -344,19 +401,16 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
     if cfg.attention_kind == "none":
         h, cache = _rwkv_prefill_cache(cfg, params, tokens)
         return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
-    blocks = params["blocks"]
     h = _embed(cfg, params, tokens)
     pos = _positions(cfg, tokens)
-    L = blocks["ln1"]["scale"].shape[0]
-    cache = attn_mod.init_kv_cache(cfg, B, cache_len, L,
+    cache = attn_mod.init_kv_cache(cfg, B, cache_len, cfg.num_layers,
                                    dtype_of(cfg.compute_dtype), h.device)
-    for i in range(L):
-        bp = layer(blocks, i)
+    for i, bp in enumerate(all_layers(params)):
         a, k, v = attn_mod.apply_attention(
             cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), pos,
             return_kv=True)
         h = h + a
-        h = h + _ffn(cfg, bp, h)
+        h = h + _ffn(cfg, bp, h)[0]
         _pad_cache(cache["k"][i], k)
         _pad_cache(cache["v"][i], v)
     # only the next-token logits: the whole (B, S, V) is dead weight
@@ -369,7 +423,7 @@ def _rwkv_prefill_cache(cfg: ModelConfig, params, tokens):
     blocks = params["blocks"]
     h = _embed(cfg, params, tokens)
     B = tokens.shape[0]
-    L = blocks["ln1"]["scale"].shape[0]
+    L = stack_depth(blocks)
     N = cfg.ssm.head_dim
     cd = dtype_of(cfg.compute_dtype)
     cache = {"state": torch.empty((L, B, cfg.num_heads, N, N),

@@ -724,7 +724,8 @@ def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "rwkv6-3b"])
+@pytest.mark.parametrize("name", ["phi4-mini-3.8b", "rwkv6-3b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_lm_forward_on_card(cuda, name):
     """forward_train of the reduced config (float32, 2 layers; phi4-mini
     with 2 KV heads for the GQA mapping) on the card: backend "pallas"
@@ -919,7 +920,8 @@ def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,changes", [
     ("phi4-mini-3.8b", {"num_kv_heads": 2}), ("rwkv6-3b", {}),
-    ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"})])
+    ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"}),
+    ("phi3.5-moe-42b-a6.6b", {})])
 def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
     """``prefill`` of 64 tokens, then 4 ``decode_step``s from it and 4 from
     ``init_cache`` (float8 for llama3 here), of a reduced float32 config on
@@ -971,3 +973,37 @@ def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
             hold(l_cpu, l_gpu, f"{start} decode {t} logits")
             for k in c_cpu:
                 hold(c_cpu[k], c_gpu[k], f"{start} decode {t} {k}")
+
+
+# ---------------------------------------------------------------------------
+# the mixture of experts' dispatch on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 1.0, 0.5])
+def test_moe_dispatch_on_the_card_matches_the_cpu(cuda, cf):
+    """The reduced phi3.5's MoE layer (float32, 4 experts, top 2), T 2 x 64,
+    at capacity factors 8.0 (dropless), 1.0 and 0.5: for the same router
+    output the card's sort order, expert rows and kept set equal the
+    CPU's (the stable sort), the router's experts equal, and the
+    dispatch's O(1) outputs within 1e-5 (float32 products of another
+    summation order) and its aux within 1e-6."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(5))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.tensor(_rand((2, 64, cfg.d_model), 6))
+    C = moe._capacity(cfg, 128)
+    _, idx_cpu, _ = moe.router(cfg, p, x.reshape(128, -1))
+    _, idx_gpu, _ = moe.router(cfg, pc, x.to(cuda).reshape(128, -1))
+    assert torch.equal(idx_cpu, idx_gpu.cpu())
+    for a, b in zip(moe.dispatch_plan(cfg, idx_cpu, C),
+                    moe.dispatch_plan(cfg, idx_cpu.to(cuda), C)):
+        assert torch.equal(a, b.cpu())
+    out_cpu, aux_cpu = moe._moe_dispatch(cfg, p, x)
+    out_gpu, aux_gpu = moe._moe_dispatch(cfg, pc, x.to(cuda))
+    assert max_diff(out_cpu, out_gpu.cpu()) <= 1e-5
+    assert abs(float(aux_cpu) - float(aux_gpu)) <= 1e-6

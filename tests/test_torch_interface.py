@@ -284,7 +284,7 @@ def test_lm_iterator_steps_and_frontend_refusal():
     from repro_torch.configs.base import get_config
     vision = dataclasses.replace(get_config("phi4-mini-3.8b"),
                                  frontend="vision")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5.5"):
         tpipe.synthetic_batch(cfg, 0, vision)
 
 

@@ -47,7 +47,8 @@ def test_import_loads_no_jax_and_no_reference():
                  "configs.qwen15_32b", "examples.drl_cylinder",
                  "examples.serve_batch", "examples.hybrid_scaling_demo",
                  "optim.optimizers", "launch.train", "launch.roofline",
-                 "examples.quickstart"):
+                 "examples.quickstart", "models.moe",
+                 "configs.phi35_moe_42b"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 

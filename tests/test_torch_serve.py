@@ -435,12 +435,22 @@ UNPORTED = {
 }
 
 
+# parts ported since their refusal case was written: each case now checks
+# that the serving entry points accept such a config
+PORTED = ("moe",)
+
+
 @pytest.mark.parametrize("part", sorted(UNPORTED))
 def test_serving_refuses_unported_configs(part):
     """Every serving entry point refuses what the model path does not
-    port, as ``init_params`` and ``forward_train`` do."""
+    port, as ``init_params`` and ``forward_train`` do.  A part ported since
+    (``PORTED``) keeps its case: the four entry points accept such a
+    config, and ``init_cache`` equals the reference's ``jax.eval_shape``."""
     cfg = dataclasses.replace(tbase.get_config("phi4-mini-3.8b").reduced(),
                               **UNPORTED[part])
+    if part in PORTED:
+        serving_accepts(part, cfg)
+        return
     good = tbase.get_config("phi4-mini-3.8b").reduced()
     params = tmodel.init_params(good, seed=0, device="cpu")
     cache = tmodel.init_cache(good, 1, 4, device="cpu")
@@ -451,6 +461,31 @@ def test_serving_refuses_unported_configs(part):
                  lambda: tsteps.make_serve_step(cfg)(params, cache, tok, 0)):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
+
+
+def serving_accepts(part, cfg):
+    """init_cache (against the reference's shapes and dtypes), prefill,
+    decode_step and the serve step on ``cfg`` with its own parameters:
+    finite logits of the padded vocabulary."""
+    changes = {"moe": {"moe": jbase.MoEConfig(num_experts=4, top_k=2,
+                                              d_ff_expert=64)}}[part]
+    cfg_j = dataclasses.replace(jbase.get_config("phi4-mini-3.8b").reduced(),
+                                **changes)
+    assert dataclasses.asdict(cfg_j) == dataclasses.asdict(cfg)
+    ref = jax.eval_shape(lambda: jmodel.init_cache(cfg_j, 1, 4))
+    cache = tmodel.init_cache(cfg, 1, 4, device="cpu")
+    assert sorted(ref) == sorted(cache)
+    for k, r in ref.items():
+        assert tuple(r.shape) == tuple(cache[k].shape), k
+        assert cache[k].dtype == tmodel.dtype_of(np.dtype(r.dtype).name), k
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    outs = [tmodel.prefill(cfg, params, tok, cache_len=4)[0],
+            tmodel.decode_step(cfg, params, cache, tok, 1)[0],
+            tsteps.make_serve_step(cfg)(params, cache, tok, 2)[0]]
+    for logits in outs:
+        assert logits.shape == (1, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_decode_takes_an_int_or_a_tensor_position():
