@@ -206,11 +206,33 @@ Phases (any failure exits non-zero):
    ``lm_loss`` (aux included), no kernel launched; (e) ``python -m
    repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --reduced --steps
    20`` exits 0;
-16. one JSON line listing the five kernels, then the card's line and the
+16. the hybrid family, hymba-1.5b at full width and depth (32 layers,
+   random bf16 params; attention with a window of 1024 beside a Mamba
+   branch in every block): (a) ``lm_loss(backend="pallas")``, B=1,
+   S=4096, 32 launches of the bf16 flash kernel and none of any other,
+   held block by block against backend="reference" as phase 4 holds, and
+   each layer's attention branch within ``TOL_LM_LAYER`` of the reference
+   mixer's; the flash kernel at this shape (H 25 over Hkv 5, dh 64,
+   window 1024) against its twin and the tile-exact oracle, timed beside
+   SDPA under the window's mask, its bound counting the window's visible
+   pairs; (b) one layer's Mamba branch: the two-level doubling scan
+   against the step-by-step oracle within ``TOL_MAMBA_SCAN`` on the
+   card, its device time, kernels (``torch.profiler``) and peak bytes;
+   (c) ``prefill`` of a 4096 prompt (its K/V and Mamba states equal to
+   its layers run one by one) and 64 greedy ``decode_step``s (p50 / p99
+   beside the bound of the bytes a token reads, the card's idle share),
+   the decode held block by block against ``forward_train(backend=
+   "pallas")`` over 4224 tokens at position 4096, past the window; (d)
+   ``make_train_step``, AdamW, remat "full", 4 microbatches of one
+   4096-token sequence, 3 steps, one microbatch's forward and backward
+   under ``torch.profiler``, the first loss within ``TOL_TRAIN_LOSS`` of
+   its microbatches' separate ``lm_loss``, no kernel launched; (e) ``python -m repro_torch.launch.train --arch
+   hymba-1.5b --reduced --steps 20`` exits 0;
+17. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13,14,15`` runs any of those five phases alone after the
-build (a partial run: no kernels line, no result line).
+``--phases 10,12,13,14,15,16`` runs any of those six phases alone after
+the build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
 """
@@ -856,6 +878,18 @@ def flash_held(what, measures, dtype):
     return rel <= tol_rel and row <= tol_row
 
 
+def flash_flops(H, S, dh, window=0):
+    """Operations of QK^T and PV, 4 dh per visible (query, key) pair and
+    head: over the causal half, S^2 / 2 pairs (as the causal cases have
+    always counted); with a window, the pairs it leaves, the sum over q of
+    min(q + 1, window)."""
+    if window and window < S:
+        pairs = window * (window + 1) // 2 + (S - window) * window
+    else:
+        pairs = S * S / 2
+    return 4 * dh * H * pairs
+
+
 def flash_case(dev, B, S, H, Hkv, dh, window, seed, dtype="bfloat16"):
     import numpy as np
     import torch
@@ -951,7 +985,7 @@ def check_flash(dev, cfg, S):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = 2 * H * S * S * dh           # QK^T and PV over the causal half
+    flops = flash_flops(H, S, dh)
     nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
     bound_ms, bound_by = bound(nbytes, (flops, BF16_PEAK))
     tflops = flops / ms / 1e9
@@ -2773,11 +2807,12 @@ def profile_note(prof, p50):
 
 def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
     """Run prefill's layers one by one on its own inputs: each layer's
-    cache (K and V from ``apply_attention(return_kv=True)``, or RWKV's
-    states) and the logits must equal ``prefill``'s bit for bit."""
+    cache (K and V from ``apply_attention(return_kv=True)``, a hybrid
+    layer's also its Mamba states from ``apply_mamba``, or RWKV's states)
+    and the logits must equal ``prefill``'s bit for bit."""
     import torch
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import model
+    from repro_torch.models import hybrid, model, ssm
     from repro_torch.models.layers import apply_norm
     h = model._embed(cfg, params, tokens)
     pos = model._positions(cfg, tokens)
@@ -2789,9 +2824,17 @@ def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
             got = {"xprev_t": xt, "state": st, "xprev_c": xc}
             same = all(torch.equal(cache[k][i], v) for k, v in got.items())
         else:
+            hn = apply_norm(cfg, bp["ln1"], h)
             a, k, v = attn_mod.apply_attention(
-                cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), pos,
-                return_kv=True)
+                cfg, bp["hyb"]["attn"] if "hyb" in bp else bp["attn"], hn,
+                pos, return_kv=True)
+            if "hyb" in bp:
+                m, conv, st = ssm.apply_mamba(cfg, bp["hyb"]["mamba"], hn)
+                a = hybrid.merge(bp["hyb"], a, m)
+                if not (torch.equal(cache["conv"][i], conv)
+                        and torch.equal(cache["ssm"][i], st)):
+                    fail(f"{cfg.name}: prefill's Mamba states of layer {i} "
+                         f"differ from its layer run on its input")
             same = (torch.equal(cache["k"][i, :, :S], k)
                     and torch.equal(cache["v"][i, :, :S], v)
                     and not cache["k"][i, :, S:].any()
@@ -2808,19 +2851,24 @@ def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
 def layer_cache(cfg, bp, x_pre, pos):
     """One layer's K/V cache of SERVE_CACHE positions built from its input
     ``x_pre`` with prefill's layer code (``apply_attention(return_kv=
-    True)``), zeros after."""
+    True)``), zeros after; a hybrid layer's also its Mamba states after
+    ``x_pre`` (``apply_mamba``)."""
     import torch
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models import model
+    from repro_torch.models import model, ssm
     from repro_torch.models.layers import apply_norm
+    hn = apply_norm(cfg, bp["ln1"], x_pre)
     _, k, v = attn_mod.apply_attention(
-        cfg, bp["attn"], apply_norm(cfg, bp["ln1"], x_pre), pos,
+        cfg, bp["hyb"]["attn"] if "hyb" in bp else bp["attn"], hn, pos,
         return_kv=True)
     shape = (k.shape[0], SERVE_CACHE) + tuple(k.shape[2:])
     slices = {n: torch.zeros(shape, dtype=t.dtype, device=t.device)
               for n, t in (("k", k), ("v", v))}
     model._pad_cache(slices["k"], k)
     model._pad_cache(slices["v"], v)
+    if "hyb" in bp:
+        _, slices["conv"], slices["ssm"] = ssm.apply_mamba(
+            cfg, bp["hyb"]["mamba"], hn)
     return slices
 
 
@@ -3606,7 +3654,7 @@ def moe_flash_reading(dev):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = 2 * H * S * S * dh
+    flops = flash_flops(H, S, dh)
     bound_ms, bound_by = bound(2 * S * dh * (2 * H + 2 * Hkv),
                                (flops, BF16_PEAK))
     print(f"[moe flash] bf16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal: "
@@ -3935,20 +3983,20 @@ def moe_train(card):
     fail(f"{MOE_CONFIG}: no depth of {MOE_TRAIN_LAYERS} trained on the card")
 
 
-def moe_script(card):
-    """Phase 15 (e): the training script on the reduced config."""
+def train_script(card, name):
+    """The training script on ``name``'s reduced config, on the card."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    argv = ["repro_torch.launch.train", "--arch", MOE_CONFIG, "--reduced",
+    argv = ["repro_torch.launch.train", "--arch", name, "--reduced",
             "--steps", "20"]
     res, secs = wall(lambda: subprocess.run(
         [sys.executable, "-m", *argv], capture_output=True, text=True,
         timeout=300, cwd=str(ROOT), env=env))
     lines = res.stdout.strip().splitlines()
-    print(f"[moe script] python -m {' '.join(argv)}: exit {res.returncode} "
-          f"in {secs:.3f} s; last lines {lines[-2:]}")
+    print(f"[script] python -m {' '.join(argv)}: exit {res.returncode} in "
+          f"{secs:.3f} s; last lines {lines[-2:]}; card {card}")
     if res.returncode:
-        fail(f"launch.train {MOE_CONFIG} exited {res.returncode}: "
+        fail(f"launch.train {name} exited {res.returncode}: "
              f"{res.stderr[-2000:]}")
 
 
@@ -3979,12 +4027,348 @@ def moe_path(card):
     out["moe_dispatch"] = moe_dispatch_card(dev, card)
     moe_branches(dev, card)
     out["moe_train"] = moe_train(card)
-    moe_script(card)
+    train_script(card, MOE_CONFIG)
+    return out
+
+
+HYBRID_CONFIG = "hymba-1.5b"
+# (b) the two-level doubling scan against the step-by-step oracle on one
+# layer's own dA, dBx and C, float32 on the card: the same products in
+# another order, a few ulp apart (the CPU reads 1.2e-7 to 5.5e-7 of the
+# output's RMS at reduced width): the rel-RMS of y, and the last state's
+# worst |difference| over its largest |value|
+TOL_MAMBA_SCAN = 1e-5
+
+
+def hybrid_attention_hold(cfg, params, tokens):
+    """Phase 16 (a): on the reference backend's input to each layer, the
+    attention branch through the flash kernel (backend "pallas") against
+    the reference mixer's; -> the worst rel-RMS."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model
+    from repro_torch.models.layers import apply_norm
+    h = model._embed(cfg, params, tokens)
+    pos = model._positions(cfg, tokens)
+    worst = 0.0
+    for bp in model.all_layers(params):
+        hn = apply_norm(cfg, bp["ln1"], h)
+        a_p, a_r = (attn_mod.apply_attention(cfg, bp["hyb"]["attn"], hn, pos,
+                                             backend=b)
+                    for b in ("pallas", "reference"))
+        worst = max(worst, rel_rms(a_p, a_r))
+        h = model._block_body(cfg, h, bp, positions=pos)[0]
+    return worst
+
+
+def hybrid_flash_reading(dev, card):
+    """Phase 16 (a): the flash kernel at hymba's attention shape (H 25 over
+    Hkv 5, dh 64, window 1024: from query tile 9 on, the key tiles before
+    the window are skipped) held against its plain twin and the tile-exact
+    oracle, timed beside SDPA under the window's mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops
+    cfg = get_config(HYBRID_CONFIG)
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    S, W = TRAIN_SEQ, cfg.sliding_window
+    measures, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv,
+                                                         dh, W, 9)
+    tiled = flash_measures(kernel(), ops.flash_attention_tiled(
+        q, k, v, causal=True, sliding_window=W))
+    if not flash_held(f"bfloat16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal "
+                      f"window={W}, kernel vs tiled", tiled, "tiled"):
+        fail("flash_attention at hymba's shape differs from the tile-exact "
+             "oracle")
+    ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    # SDPA: K / V repeated to the query heads (query head h reads KV head
+    # h // 5), the window as an additive bf16 mask built once
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+              .contiguous() for x in (k, v))
+    mask = torch.zeros((S, S), dtype=q.dtype, device=dev).masked_fill(
+        ~ops.causal_mask(S, S, W, dev)[0], float("-inf"))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    sdpa_rel = rel_rms(sdpa().transpose(1, 2), ref)
+    library_ms = cuda_ms(sdpa, 20)
+    # the backend SDPA's dispatcher picks for these inputs
+    from torch.nn.attention import SDPBackend
+    names = {b.value: name for name, b in SDPBackend.__members__.items()}
+    sdpa_ran = names.get(int(torch._fused_sdp_choice(qt, kt, vt,
+                                                     attn_mask=mask)))
+    flops, nb = flash_flops(H, S, dh, W), 2 * S * dh * (2 * H + 2 * Hkv)
+    bound_ms, bound_by = bound(nb, (flops, BF16_PEAK))
+    print(f"[hybrid flash] bf16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal, "
+          f"window {W}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the windowed bound), plain twin "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention (mask, K/V "
+          f"repeated) {library_ms:.4f} ms on its {sdpa_ran} backend, its "
+          f"output {sdpa_rel:.3e} of the twin's RMS away; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP bf16 over "
+          f"the window's visible pairs, {nb / 1e6:.4f} MB); card {card}")
+    if bound_ms / ms >= 1:
+        fail(f"the flash kernel at hymba's shape reads {bound_ms / ms:.3f} of "
+             f"its bound: the bound's count is wrong")
+    del q, k, v, qt, kt, vt, mask, ref
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_backend=sdpa_ran, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
+                tflops=flops / ms / 1e9, rel_rms=measures[0],
+                worst_row=measures[1], vs_tiled_rel_rms=tiled[0],
+                vs_tiled_worst_row=tiled[1],
+                shape=f"bf16, B=1, S={S}, H={H}, Hkv={Hkv}, dh={dh}, causal, "
+                      f"window {W}")
+
+
+def hybrid_mamba(dev, card, cfg, params):
+    """Phase 16 (b): the Mamba branch of one layer at full width, B 1, S
+    4096: the two-level scan against the step-by-step oracle on the
+    layer's own inputs in float32; the branch's ms, kernels and peak bytes,
+    forward and forward + backward."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model, ssm
+    mp = model.layer(params["blocks"], 0)["hyb"]["mamba"]
+    S, D = TRAIN_SEQ, cfg.d_model
+    x = torch.tensor(np.random.default_rng(21).standard_normal((1, S, D)),
+                     dtype=torch.float32, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        dA, dBx, C, _, _, _ = ssm.mamba_discretize(cfg, mp, x)
+        h0 = torch.zeros(dA.shape[:1] + dA.shape[2:], device=dev)
+        (y2, s2), scan_s = wall(lambda: ssm.mamba_scan(dA, dBx, C, h0))
+        (y1, s1), seq_s = wall(lambda: ssm.mamba_scan_sequential(dA, dBx, C,
+                                                                 h0))
+        rel = rel_rms(y2, y1)
+        st = float((s2 - s1).abs().max() / s1.abs().max())
+        del y1, y2, s1, s2
+        scan_ms = cuda_ms(lambda: ssm.mamba_scan(dA, dBx, C, h0), 5)
+        prof_scan = profile_step(lambda: ssm.mamba_scan(dA, dBx, C, h0))
+        del dA, dBx, C
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ssm.apply_mamba(cfg, mp, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(lambda: ssm.apply_mamba(cfg, mp, x), 5)
+        prof = profile_step(lambda: ssm.apply_mamba(cfg, mp, x))
+    xg = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, _, _ = ssm.apply_mamba(cfg, mp, xg)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    grad_peak = torch.cuda.max_memory_allocated() - base
+    del out, xg
+    torch.cuda.empty_cache()
+    kernels = prof[0] if prof else "not measured"
+    scan_kernels = prof_scan[0] if prof_scan else "not measured"
+    print(f"[hybrid mamba] one layer's Mamba branch at full width (D {D}, "
+          f"d_inner {mp['Dskip'].shape[0]}, n {cfg.ssm.state_size}), bf16, B=1, "
+          f"S={S}: the two-level doubling scan against the step-by-step "
+          f"oracle on the layer's own float32 inputs, y {rel:.3e} of its "
+          f"RMS (tol {TOL_MAMBA_SCAN:.0e}), the last state {st:.3e} of its "
+          f"largest |value| (tol {TOL_MAMBA_SCAN:.0e}); the scan {scan_s:.4f} "
+          f"s first call, the oracle {seq_s:.4f} s; device times: "
+          f"apply_mamba {ms:.4f} ms ({kernels} kernels, torch.profiler), the "
+          f"scan alone {scan_ms:.4f} ms ({scan_kernels} kernels); peak "
+          f"{peak} bytes above the inputs (forward, inference), {grad_peak} "
+          f"bytes (forward and backward of the input's gradient); card "
+          f"{card}")
+    if not (rel <= TOL_MAMBA_SCAN and st <= TOL_MAMBA_SCAN):
+        fail("the Mamba scan on the card differs from its step-by-step "
+             "oracle")
+    return dict(ms=ms, kernels=kernels, top=prof[2] if prof else None,
+                scan_ms=scan_ms, scan_kernels=scan_kernels,
+                peak_bytes=peak, grad_peak_bytes=grad_peak,
+                scan_vs_sequential_rel_rms=rel, state_worst=st)
+
+
+def hybrid_serve(dev, card, cfg, params):
+    """Phase 16 (c): prefill of a 4096 prompt (its cache, Mamba states
+    included, equal to its layers run one by one), 64 greedy decode steps,
+    the decode held block by block against the pallas forward at position
+    4096, past the window of 1024."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    tag = f"[hybrid serve {HYBRID_CONFIG}]"
+    rng = np.random.default_rng(22)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)),
+                          device=dev)
+    with torch.inference_mode():
+        (logits, cache), first_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        (logits, cache), steady_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        if logits.shape != (1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{HYBRID_CONFIG}: prefill logits not finite or not (1, "
+                 f"{cfg.vocab_padded})")
+        prefill_equals_its_layers(cfg, params, prompt, logits, cache)
+        leaves_bytes = {k: nbytes([v]) for k, v in cache.items()}
+        times, decoded, _ = timed_decode(
+            cfg, params, cache, logits.argmax(-1, keepdim=True),
+            SERVE_PROMPT, steps=SERVE_STEPS)
+        prof = profile_decode(cfg, params, cache, decoded[:, -1:],
+                              SERVE_CACHE - 4)
+        parts, total, bound_ms = decode_reading(params, cache)
+        p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+        print(f"{tag} 32 layers, bf16 random params; prefill B=1, "
+              f"S={SERVE_PROMPT}, cache_len {SERVE_CACHE}: {first_s:.4f} s "
+              f"first call, {steady_s:.4f} s steady; cache bytes "
+              f"{leaves_bytes}; its K/V, conv and SSM states and logits "
+              f"equal its layers run one by one; {SERVE_STEPS} greedy "
+              f"decode_steps: p50 {p50:.4f} ms, p99 {p99:.4f} ms per token; "
+              f"the bound {bound_ms:.4f} ms: {total} bytes read a token "
+              f"({parts}) at 3.35 TB/s; p50 / bound {p50 / bound_ms:.2f}; "
+              f"{profile_note(prof, p50)}; card {card}")
+        pad = torch.tensor(rng.integers(
+            0, cfg.vocab_size, (1, SERVE_YARDSTICK - SERVE_PROMPT
+                                - SERVE_STEPS)), device=dev)
+        seq = torch.cat([prompt, decoded, pad], dim=1)
+        del cache
+        reset_counts()
+        (fwd, _), fwd_s = wall(lambda: model.forward_train(
+            cfg, params, seq, backend="pallas"))
+        launched = counts()
+        del fwd
+        worst, _ = hold_decode_blocks(cfg, params, seq, SERVE_PROMPT)
+    others = sum(n for k, n in launched.items() if k != "flash_attention")
+    print(f"{tag} yardstick forward_train(backend='pallas') over "
+          f"{SERVE_YARDSTICK} tokens in {fwd_s:.4f} s: "
+          f"{launched['flash_attention']} flash launches, {others} of the "
+          f"others; block by block on the forward's input to each layer "
+          f"(its K/V, conv and SSM states built from the first "
+          f"{SERVE_PROMPT} positions), the decode block's update at "
+          f"position {SERVE_PROMPT} (window {cfg.sliding_window}) is "
+          f"{worst:.3e} of its RMS from the forward's at worst (tol "
+          f"{TOL_LM_LAYER:.0e})")
+    if launched["flash_attention"] != cfg.num_layers or others:
+        fail(f"{HYBRID_CONFIG}: the yardstick launched "
+             f"{launched['flash_attention']} flash (expected "
+             f"{cfg.num_layers}) and {others} others")
+    if not worst <= TOL_LM_LAYER:
+        fail(f"{HYBRID_CONFIG}: a decode block differs from the pallas "
+             f"forward's")
+    return dict(hymba_serve_launches=launched["flash_attention"],
+                hymba_prefill_s=steady_s, hymba_prefill_first_s=first_s,
+                hymba_cache_bytes=sum(leaves_bytes.values()),
+                hymba_decode_p50_ms=p50, hymba_decode_p99_ms=p99,
+                hymba_decode_bound_ms=bound_ms,
+                hymba_decode_profile=prof, hymba_decode_block_worst=worst)
+
+
+def hybrid_train(card):
+    """Phase 16 (d): ``make_train_step`` of hymba-1.5b at full width and
+    depth, AdamW, remat "full", 4 microbatches of one 4096-token
+    sequence, 3 steps; then one microbatch's forward and backward under
+    ``torch.profiler``."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import model
+    cfg = get_config(HYBRID_CONFIG)
+    n_mb = cfg.train_microbatches
+    params = model.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in steps.param_leaves(params))
+    batch = train_batch(cfg, n_mb, 0)
+    with torch.no_grad():
+        ref = sum(float(model.lm_loss(cfg, params, {
+            k: v[i:i + 1] for k, v in batch.items()})[0])
+            for i in range(n_mb)) / n_mb
+    del batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses, secs, peak, _ = train_steps(cfg, params, TRAIN_STEPS, n_mb)
+    launched = counts()
+    # one microbatch's forward and backward under torch.profiler: a quarter
+    # of a step's kernels (the profiler takes ~40 s over a whole step's)
+    trainable = steps.param_leaves(params)
+    mb = train_batch(cfg, 1, TRAIN_STEPS)
+    for p in trainable:
+        p.requires_grad_(True)
+    prof = profile_step(lambda: torch.autograd.grad(
+        model.lm_loss(cfg, params, mb)[0], trainable))
+    del params, trainable, mb
+    torch.cuda.empty_cache()
+    steady = sum(secs[1:]) / len(secs[1:])
+    hw = roofline.hardware_spec(device="cuda")
+    flops = roofline.model_flops(cfg, InputShape("train", TRAIN_SEQ, n_mb,
+                                                 "train"),
+                                 steps.abstract_params(cfg))
+    d_loss = abs(losses[0] - ref) / abs(ref)
+    note = "not measured (no device time in the trace)" if prof is None \
+        else (f"{prof[0]} kernels, the card busy {prof[1]:.1f} ms "
+              f"({100 * (1 - prof[1] * n_mb / (1e3 * steady)):.1f}% idle "
+              f"against a quarter of the steady step), the heaviest "
+              f"{prof[2]}")
+    print(f"[hybrid train] {HYBRID_CONFIG}, 32 layers, {n_params} params "
+          f"bf16, AdamW, remat {cfg.remat!r}; {n_mb} microbatches of one "
+          f"{TRAIN_SEQ}-token sequence; losses {losses}; s per step {secs} "
+          f"(steady {steady:.4f}); {n_mb * TRAIN_SEQ / steady:.1f} "
+          f"tokens/s; peak {peak} bytes allocated; model FLOPs "
+          f"{flops:.4e} a step, {flops / (steady * hw.peak_flops):.4f} of "
+          f"{hw.name}'s {hw.peak_flops:.3e} FLOP/s; the first loss against "
+          f"its microbatches' separate lm_loss {ref:.6f}: {d_loss:.3e} "
+          f"relative (tol {TOL_TRAIN_LOSS:.0e}); kernel launches "
+          f"{launched}; one microbatch's forward and backward under "
+          f"torch.profiler: {note}; card {card}")
+    if not all(math.isfinite(x) for x in losses) or d_loss > TOL_TRAIN_LOSS:
+        fail(f"{HYBRID_CONFIG}: train losses {losses}, separate {ref}")
+    if any(launched.values()):
+        fail(f"{HYBRID_CONFIG}: the train step launched kernels {launched}")
+    return dict(losses=losses, s_per_step=secs, steady_s=steady,
+                tokens_per_s=n_mb * TRAIN_SEQ / steady, peak_bytes=peak,
+                mfu=flops / (steady * hw.peak_flops), profile=prof)
+
+
+def hybrid_path(card):
+    """Phase 16: the hybrid family on the card.  Returns the flash row's
+    readings."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    out = {}
+    (out["hymba_launches"], out["hymba_lm_first_s"],
+     out["hymba_lm_steady_s"]) = run_lm(dev, HYBRID_CONFIG, TRAIN_SEQ,
+                                        "flash_attention")
+    out["hymba_path"] = (f"lm_loss({HYBRID_CONFIG}, backend='pallas'), B=1, "
+                         f"S={TRAIN_SEQ}, window 1024")
+    cfg = get_config(HYBRID_CONFIG)
+    params = model.init_params(cfg, seed=0, device=dev)
+    tokens = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, TRAIN_SEQ)), device=dev)
+    with torch.inference_mode():
+        attn = hybrid_attention_hold(cfg, params, tokens)
+    print(f"[hybrid forward] on the reference's input to each layer, the "
+          f"attention branch through the flash kernel (window "
+          f"{cfg.sliding_window}) {attn:.3e} of its RMS from the reference "
+          f"mixer's at worst (tol {TOL_LM_LAYER:.0e})")
+    if attn > TOL_LM_LAYER:
+        fail(f"{HYBRID_CONFIG}: the flash kernel's attention branch differs "
+             f"from the reference mixer's")
+    out["hymba_attn_worst"] = attn
+    out["hymba_shape"] = hybrid_flash_reading(dev, card)
+    out["hymba_mamba"] = hybrid_mamba(dev, card, cfg, params)
+    out.update(hybrid_serve(dev, card, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    out["hymba_train"] = hybrid_train(card)
+    train_script(card, HYBRID_CONFIG)
     return out
 
 
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14", "15")
+STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16")
 
 
 def main():
@@ -4025,7 +4409,7 @@ def main():
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
         run = {"10": fleet_path, "12": halo_path, "13": serve_path,
-               "14": train_path, "15": moe_path}
+               "14": train_path, "15": moe_path, "16": hybrid_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -4179,7 +4563,12 @@ def main():
     flash.update(moe)
     print(f"[phase 15] {secs:.3f} s")
 
-    # 16. the kernels, the card, the result
+    # 16. the hybrid family
+    hyb, secs = wall(lambda: hybrid_path(card))
+    flash.update(hyb)
+    print(f"[phase 16] {secs:.3f} s")
+
+    # 17. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

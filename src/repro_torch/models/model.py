@@ -2,11 +2,12 @@
 serving: ``init_cache``, ``prefill``, ``decode_step``.
 
 Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (the dense
-configs and the mixture of experts) and ``"none"`` (RWKV-6).  Parameters
-are a plain dict shaped like the reference's tree: ``{"embed", "blocks",
-"final_norm", "lm_head"}`` with every leaf of ``blocks`` stacked on a
-leading layer axis; the reference's ``lax.scan`` over layers is a Python
-loop over that axis.  A MoE config's blocks hold ``moe``
+configs and the mixture of experts), ``"none"`` (RWKV-6) and ``"hybrid"``
+(Hymba: attention and Mamba side by side, ``models/hybrid.py``, in
+``hyb``).  Parameters are a plain dict shaped like the reference's tree:
+``{"embed", "blocks", "final_norm", "lm_head"}`` with every leaf of
+``blocks`` stacked on a leading layer axis; the reference's ``lax.scan``
+over layers is a Python loop over that axis.  A MoE config's blocks hold ``moe``
 (``models/moe.py``) in place of ``ffn``; with ``first_dense_layers`` its
 first layers are a stack of their own, ``blocks_dense``, run before
 ``blocks`` (the reference's two scans).  Each block returns the router's
@@ -24,8 +25,10 @@ tests only ``"full"``).  Under ``torch.no_grad`` it changes nothing.
 
 ``backend="pallas"`` runs each layer's sequence mixer through a
 hand-written kernel: flash attention (``kernels/flash_attention``) for
-``"gqa"``, WKV6 (``kernels/rwkv6``) for ``"none"``; one launch per layer
-on CUDA tensors.  ``"reference"`` runs the plain PyTorch mixers.
+``"gqa"`` and for a hybrid block's attention branch (its Mamba branch is
+plain PyTorch, as in the reference), WKV6 (``kernels/rwkv6``) for
+``"none"``; one launch per layer on CUDA tensors.  ``"reference"`` runs
+the plain PyTorch mixers.
 
 Serving follows the reference: ``prefill`` runs the reference mixers and
 returns the next-token logits with a cache in the compute dtype (also for
@@ -33,11 +36,12 @@ a config whose ``kv_cache_dtype`` is float8: that dtype is ``init_cache``'s
 only, a quirk of the reference kept here); ``decode_step`` runs one token
 through every layer against the cache, which it updates in place, layer
 slice by layer slice, with no host synchronisation.  An RWKV cache is the
-per-layer WKV state (float32) and the two token-shift states.  The cache
-keeps one leading axis of ``num_layers`` whatever the stacks: each stack
-works on its slice of that axis, in place.
+per-layer WKV state (float32) and the two token-shift states; a hybrid
+cache is K and V beside the Mamba conv state (compute dtype) and SSM state
+(float32).  The cache keeps one leading axis of ``num_layers`` whatever
+the stacks: each stack works on its slice of that axis, in place.
 
-Not ported yet: MLA, hybrid, the encoder-decoder, the frontends, MTP and
+Not ported yet: MLA, the encoder-decoder, the frontends, MTP and
 M-RoPE (``check_supported`` refuses them at every entry point).
 """
 from __future__ import annotations
@@ -50,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import hybrid as hyb_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
@@ -58,7 +63,7 @@ from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
 
 Params = Dict[str, Any]
 
-ATTENTION_KINDS = ("gqa", "none")
+ATTENTION_KINDS = ("gqa", "none", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -67,7 +72,7 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.attention_kind not in ATTENTION_KINDS:
         missing.append(f"attention_kind {cfg.attention_kind!r}")
-    if cfg.attention_kind == "gqa" and cfg.rope_kind != "rope":
+    if cfg.attention_kind in ("gqa", "hybrid") and cfg.rope_kind != "rope":
         missing.append(f"rope_kind {cfg.rope_kind!r}")
     for name, present in (("mla", cfg.mla is not None),
                           ("encoder-decoder", cfg.is_encdec),
@@ -78,6 +83,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention_kind == "none" and (cfg.ssm is None
                                          or cfg.ssm.kind != "rwkv6"):
         missing.append("an ssm other than rwkv6")
+    if cfg.attention_kind == "hybrid" and (cfg.ssm is None
+                                           or cfg.ssm.kind != "mamba"):
+        missing.append("a hybrid ssm other than mamba")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported: "
                                   f"{', '.join(missing)}")
@@ -96,7 +104,10 @@ def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int, *,
         p["tmix"] = ssm_mod.init_rwkv_tmix(cfg, gen, lead)
         p["cmix"] = ssm_mod.init_rwkv_cmix(cfg, gen, lead)
         return p
-    p["attn"] = attn_mod.init_attention(cfg, gen, lead)
+    if cfg.attention_kind == "hybrid":
+        p["hyb"] = hyb_mod.init_hybrid(cfg, gen, lead)
+    else:
+        p["attn"] = attn_mod.init_attention(cfg, gen, lead)
     if is_moe:
         p["moe"] = moe_mod.init_moe(cfg, gen, lead)
     else:
@@ -157,9 +168,13 @@ def all_layers(params: Params):
 # ---------------------------------------------------------------------------
 
 def _mixer(cfg: ModelConfig, bp, h, positions, *, backend="reference"):
-    """The causal self-attention of one block, on its normed input."""
-    return attn_mod.apply_attention(cfg, bp["attn"],
-                                    apply_norm(cfg, bp["ln1"], h), positions,
+    """The sequence mixer of one block on its normed input: the causal
+    self-attention, or a hybrid block's attention and Mamba."""
+    hn = apply_norm(cfg, bp["ln1"], h)
+    if "hyb" in bp:
+        return hyb_mod.apply_hybrid(cfg, bp["hyb"], hn, positions,
+                                    backend=backend)
+    return attn_mod.apply_attention(cfg, bp["attn"], hn, positions,
                                     backend=backend)
 
 
@@ -304,7 +319,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """A zeroed decode cache for ``batch`` sequences of ``seq_len``
     positions, every leaf stacked on a leading layer axis.  ``dtype``
     defaults to ``kv_cache_dtype``, else the compute dtype; RWKV's WKV
-    state is float32 whatever it is."""
+    state and Mamba's SSM state are float32 whatever it is."""
     check_supported(cfg)
     device = resolve_device(device)
     dt = dtype or dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
@@ -316,7 +331,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                      dtype=torch.float32, device=device),
                 "xprev_t": torch.zeros(shift, dtype=dt, device=device),
                 "xprev_c": torch.zeros(shift, dtype=dt, device=device)}
-    return attn_mod.init_kv_cache(cfg, batch, seq_len, L, dt, device)
+    c = attn_mod.init_kv_cache(cfg, batch, seq_len, L, dt, device)
+    if cfg.attention_kind == "hybrid":
+        c.update(_mamba_states(cfg, L, batch, dt, device))
+    return c
+
+
+def _mamba_states(cfg: ModelConfig, L: int, batch: int, dt, device):
+    """A hybrid cache's zeroed Mamba leaves: ``conv`` (L, B, W - 1, di) in
+    ``dt`` and ``ssm`` (L, B, di, n) in float32."""
+    di = cfg.num_heads * cfg.resolved_head_dim
+    return {"conv": torch.zeros((L, batch, cfg.ssm.conv_width - 1, di),
+                                dtype=dt, device=device),
+            "ssm": torch.zeros((L, batch, di, cfg.ssm.state_size),
+                               dtype=torch.float32, device=device)}
 
 
 def _pos_tensor(pos, device) -> torch.Tensor:
@@ -330,16 +358,22 @@ def _pos_tensor(pos, device) -> torch.Tensor:
 def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
     """One block of single-token decode on this layer's cache slices;
     returns (h, new slices).  A KV slice comes back as the same tensor,
-    written in place; RWKV's states come back new."""
+    written in place; RWKV's and Mamba's states come back new."""
     new = dict(cache_slices)
     if cfg.attention_kind == "none":
         h, new["xprev_t"], new["state"], new["xprev_c"] = _rwkv_block(
             cfg, h, bp, cache_slices["xprev_t"], cache_slices["state"],
             cache_slices["xprev_c"])
         return h, new
-    mix, new["k"], new["v"] = attn_mod.decode_attention(
-        cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), cache_slices["k"],
-        cache_slices["v"], pos)
+    hn = apply_norm(cfg, bp["ln1"], h)
+    if "hyb" in bp:
+        mix, new["k"], new["v"], new["conv"], new["ssm"] = \
+            hyb_mod.decode_hybrid(cfg, bp["hyb"], hn, cache_slices["k"],
+                                  cache_slices["v"], cache_slices["conv"],
+                                  cache_slices["ssm"], pos)
+    else:
+        mix, new["k"], new["v"] = attn_mod.decode_attention(
+            cfg, bp["attn"], hn, cache_slices["k"], cache_slices["v"], pos)
     h = h + mix
     return h + _ffn(cfg, bp, h)[0], new
 
@@ -392,9 +426,10 @@ def _pad_cache(out, x) -> None:
 def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
     """tokens (B, S) int -> (next-token logits (B, V) float32, the cache
     filled for positions [0, S)).  The KV cache holds ``cache_len``
-    positions (default S) in the compute dtype; RWKV's cache is its
-    states after the last token, whatever ``cache_len``.  Runs the
-    reference mixers, as the reference's prefill does."""
+    positions (default S) in the compute dtype; RWKV's cache, and a
+    hybrid cache's Mamba leaves, are the states after the last token,
+    whatever ``cache_len``.  Runs the reference mixers, as the reference's
+    prefill does."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -403,12 +438,21 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
         return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
     h = _embed(cfg, params, tokens)
     pos = _positions(cfg, tokens)
-    cache = attn_mod.init_kv_cache(cfg, B, cache_len, cfg.num_layers,
-                                   dtype_of(cfg.compute_dtype), h.device)
+    cd = dtype_of(cfg.compute_dtype)
+    cache = attn_mod.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cd,
+                                   h.device)
+    if cfg.attention_kind == "hybrid":
+        cache.update(_mamba_states(cfg, cfg.num_layers, B, cd, h.device))
     for i, bp in enumerate(all_layers(params)):
+        hn = apply_norm(cfg, bp["ln1"], h)
+        hyb = bp.get("hyb")
         a, k, v = attn_mod.apply_attention(
-            cfg, bp["attn"], apply_norm(cfg, bp["ln1"], h), pos,
+            cfg, bp["attn"] if hyb is None else hyb["attn"], hn, pos,
             return_kv=True)
+        if hyb is not None:
+            m, cache["conv"][i], cache["ssm"][i] = ssm_mod.apply_mamba(
+                cfg, hyb["mamba"], hn)
+            a = hyb_mod.merge(hyb, a, m)
         h = h + a
         h = h + _ffn(cfg, bp, h)[0]
         _pad_cache(cache["k"][i], k)

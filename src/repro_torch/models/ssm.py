@@ -1,7 +1,7 @@
-"""RWKV-6 "Finch" time mix and channel mix.
+"""RWKV-6 "Finch" time mix and channel mix, and the Mamba selective SSM.
 
-Port of the RWKV-6 part of ``repro.models.ssm``.  Per head, with a key-dim
-N x value-dim N state S:
+Port of ``repro.models.ssm``.  RWKV-6, per head, with a key-dim N x
+value-dim N state S:
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     o_t = r_t (diag(u) k_t^T v_t + S_{t-1})
@@ -10,7 +10,19 @@ N x value-dim N state S:
 WKV6 kernel (``kernels/rwkv6``: ``csrc/wkv6.cu`` on CUDA tensors, never a
 fallback there); ``"reference"`` runs :func:`wkv6_chunked` from 128 tokens
 on, else the sequential ``wkv6_scan``, which is the kernel's own plain twin
-(``kernels/rwkv6/ops.py``).  Mamba is not ported yet.
+(``kernels/rwkv6/ops.py``).
+
+Mamba (Hymba's SSM heads), per channel d and state slot j:
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,    y_t = h_t . C_t + D x_t
+
+No kernel stands behind it in the reference (``lax.scan`` step by step),
+so the port's is plain PyTorch, and its launches grow with log2 S, never
+with S: :func:`mamba_scan` composes the steps' affine maps ``h -> a h +
+b`` by doubling, inside every chunk of 64 at once, then over the chunks'
+totals, then carries each chunk's start state in.
+:func:`mamba_scan_sequential` is its step-by-step oracle, used by no entry
+point.
 """
 from __future__ import annotations
 
@@ -171,3 +183,163 @@ def apply_rwkv_cmix(cfg: ModelConfig, p, x, x_prev):
     xr = x + (xs - x) * p["mu_r"].to(cd)
     h = torch.relu(xk @ p["w1"].to(cd)).square() @ p["w2"].to(cd)
     return torch.sigmoid(xr @ p["wr"].to(cd)) * h, x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective SSM (Hymba's SSM heads)
+# ---------------------------------------------------------------------------
+
+# the reference's scan chunk, and the first level's length here
+MAMBA_CHUNK = 64
+
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, lead=(),
+               d_inner: int = 0):
+    """``d_inner`` defaults to ``expand * d_model``; ``A_log`` (log 1..n
+    per channel) and ``Dskip`` (ones) are float32 and drawn from
+    nothing."""
+    s = cfg.ssm
+    dt = dtype_of(cfg.param_dtype)
+    D = cfg.d_model
+    di = d_inner or s.expand * D
+    n = s.state_size
+    dt_rank = s.dt_rank or -(-D // 16)
+    lead = tuple(lead)
+    dev = gen.device
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=dev))
+    return {
+        "w_in": dense_init(gen, lead + (D, 2 * di), dt),     # x and gate z
+        "conv_w": (randn(gen, lead + (s.conv_width, di)) * 0.1).to(dt),
+        "conv_b": torch.zeros(lead + (di,), dtype=dt, device=dev),
+        "w_bcdt": dense_init(gen, lead + (di, 2 * n + dt_rank), dt),
+        "w_dt": dense_init(gen, lead + (dt_rank, di), dt),
+        "dt_bias": torch.full(lead + (di,), -4.0, dtype=dt, device=dev),
+        "A_log": a_log.expand(lead + (di, n)).clone(),
+        "Dskip": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
+        "w_out": dense_init(gen, lead + (di, D), dt),
+    }
+
+
+def _causal_conv(x, w, b, conv_state=None):
+    """Depthwise causal convolution.  x: (B, S, di); w: (W, di) ->
+    (y, the new conv state: the last W - 1 rows of [conv_state; x])."""
+    B, S, di = x.shape
+    W = w.shape[0]
+    if conv_state is None:
+        conv_state = x.new_zeros((B, W - 1, di))
+    xp = torch.cat([conv_state, x], dim=1)
+    # the taps in the reference's order (its sum starts from an exact 0)
+    y = xp[:, :S] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b, xp[:, -(W - 1):]
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) at every x (``F.softplus`` turns
+    into the identity past 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def mamba_scan_sequential(dA, dBx, C, h0):
+    """The oracle of :func:`mamba_scan`: one step at a time, as the
+    reference's ``lax.scan``.  dA, dBx (B, S, di, n) float32; C (B, S, n);
+    h0 (B, di, n) -> (y (B, S, di), the state after the last step)."""
+    h, ys = h0, []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _doubling_scan(a, b, dim: int):
+    """Inclusive scan of the affine maps ``h -> a h + b`` along ``dim``
+    (Hillis-Steele): each of ceil(log2 L) levels composes every element
+    with the one ``d`` before it.  -> (the products of the a's up to each
+    element, each prefix's composition applied to a zero state)."""
+    L = a.shape[dim]
+    d = 1
+    while d < L:
+        a_lo, a_hi = a.narrow(dim, 0, L - d), a.narrow(dim, d, L - d)
+        b_lo, b_hi = b.narrow(dim, 0, L - d), b.narrow(dim, d, L - d)
+        b = torch.cat([b.narrow(dim, 0, d), torch.addcmul(b_hi, a_hi, b_lo)],
+                      dim)
+        a = torch.cat([a.narrow(dim, 0, d), a_hi * a_lo], dim)
+        d *= 2
+    return a, b
+
+
+def mamba_scan(dA, dBx, C, h0, *, chunk: int = MAMBA_CHUNK):
+    """The selective scan ``h_t = dA_t h_{t-1} + dBx_t``, ``y_t = h_t .
+    C_t`` in float32, on :func:`mamba_scan_sequential`'s arguments, in
+    ceil(log2 chunk) + ceil(log2 (S / chunk)) levels of four launches:
+
+    1. a doubling scan inside every chunk at once, from a zero state;
+    2. a doubling scan over the chunks' totals, ``h0`` folded into the
+       first;
+    3. each chunk's start state carried in by one multiply-add.
+
+    A length that is not a multiple of the chunk is padded with identity
+    maps (a = 1, b = 0), which change no state.  One step (decode) is one
+    step.  Differentiable by autograd."""
+    B, S, di, n = dA.shape
+    if S == 1:
+        h = dA[:, 0] * h0 + dBx[:, 0]
+        return torch.einsum("bdn,bn->bd", h, C[:, 0])[:, None], h
+    L = min(chunk, S)
+    pad = -S % L
+    if pad:
+        dA = torch.cat([dA, dA.new_ones((B, pad, di, n))], dim=1)
+        dBx = torch.cat([dBx, dBx.new_zeros((B, pad, di, n))], dim=1)
+    nc = (S + pad) // L
+    a, b = _doubling_scan(dA.reshape(B, nc, L, di, n),
+                          dBx.reshape(B, nc, L, di, n), 2)
+    a_tot, b_tot = a[:, :, -1], b[:, :, -1]               # (B, nc, di, n)
+    b_tot = torch.cat([torch.addcmul(b_tot[:, :1], a_tot[:, :1],
+                                     h0[:, None]), b_tot[:, 1:]], dim=1)
+    _, ends = _doubling_scan(a_tot, b_tot, 1)             # each chunk's end
+    starts = torch.cat([h0[:, None], ends[:, :-1]], dim=1)
+    h = torch.addcmul(b, a, starts[:, :, None]).reshape(B, nc * L, di, n)
+    y = torch.einsum("bsdn,bsn->bsd", h[:, :S], C)
+    return y, ends[:, -1]
+
+
+def mamba_discretize(cfg: ModelConfig, p, x, conv_state=None):
+    """The scan's inputs from x (B, S, D): (dA, dBx (B, S, di, n) and C (B,
+    S, n), float32; the convolved, activated xi and the gate z (B, S, di)
+    in the compute dtype; the new conv state).  The projections and the
+    convolution run in the compute dtype, the discretisation in float32."""
+    cd = dtype_of(cfg.compute_dtype)
+    n = cfg.ssm.state_size
+    xi, z = (x.to(cd) @ p["w_in"].to(cd)).chunk(2, dim=-1)
+    xi, new_conv = _causal_conv(
+        xi, p["conv_w"].to(cd), p["conv_b"].to(cd),
+        None if conv_state is None else conv_state.to(cd))
+    xi = F.silu(xi)
+    bcdt = xi @ p["w_bcdt"].to(cd)
+    Bm, Cm, dt_in = bcdt.split([n, n, bcdt.shape[-1] - 2 * n], dim=-1)
+    dt = _softplus((dt_in @ p["w_dt"].to(cd)).float()
+                   + p["dt_bias"].float())                 # (B, S, di)
+    A = -torch.exp(p["A_log"].float())                     # (di, n)
+    # discretize: h_t = exp(dt A) h + dt B_t x_t
+    dA = torch.exp(dt[..., None] * A)                      # (B, S, di, n)
+    dBx = (dt * xi.float())[..., None] * Bm.float()[:, :, None, :]
+    return dA, dBx, Cm.float(), xi, z, new_conv
+
+
+def apply_mamba(cfg: ModelConfig, p, x, conv_state=None, ssm_state=None):
+    """x: (B, S, D) -> (out (B, S, D), the new conv state (B, W - 1, di)
+    in x's dtype, the new SSM state (B, di, n) float32).  The scan and the
+    skip run in float32, the gate and the output projection in the
+    compute dtype."""
+    cd = dtype_of(cfg.compute_dtype)
+    dA, dBx, C, xi, z, new_conv = mamba_discretize(cfg, p, x, conv_state)
+    if ssm_state is None:
+        B, _, di, n = dA.shape
+        ssm_state = torch.zeros((B, di, n), dtype=torch.float32,
+                                device=x.device)
+    y, new_state = mamba_scan(dA, dBx, C, ssm_state.float())
+    y = y + p["Dskip"].float() * xi.float()
+    out = (y.to(cd) * F.silu(z)) @ p["w_out"].to(cd)
+    return out, new_conv.to(x.dtype), new_state

@@ -534,7 +534,8 @@ FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 256, 2, 2, 64, False, 0), (1, 40, 4, 2, 32, True, 0),
                (2, 384, 6, 2, 32, True, 0), (1, 384, 8, 2, 128, True, 0),
                (1, 512, 4, 1, 128, True, 200), (1, 40, 2, 1, 128, False, 0),
-               (1, 256, 4, 2, 48, True, 0), (1, 256, 4, 2, 96, True, 96)]
+               (1, 256, 4, 2, 48, True, 0), (1, 256, 4, 2, 96, True, 96),
+               (1, 1024, 25, 5, 64, True, 256)]
 
 
 def _worst_row(ref, out) -> float:
@@ -725,13 +726,14 @@ def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["phi4-mini-3.8b", "rwkv6-3b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])
 def test_lm_forward_on_card(cuda, name):
     """forward_train of the reduced config (float32, 2 layers; phi4-mini
-    with 2 KV heads for the GQA mapping) on the card: backend "pallas"
-    launches its kernel once per layer (WKV6: its two passes) and agrees
-    with "reference" to 2e-5 on the O(1) logits (float32, another
-    summation order)."""
+    with 2 KV heads for the GQA mapping; hymba's attention branch with its
+    window of 64 over 128 tokens) on the card: backend "pallas" launches
+    its kernel once per layer (WKV6: its two passes) and agrees with
+    "reference" to 2e-5 on the O(1) logits (float32, another summation
+    order)."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
@@ -742,7 +744,7 @@ def test_lm_forward_on_card(cuda, name):
     tokens = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 128)), device=cuda)
     wrapper, per_layer = ((fops.flash_attention_fp32_cuda, 1)
-                          if cfg.attention_kind == "gqa"
+                          if cfg.attention_kind in ("gqa", "hybrid")
                           else (wops.wkv6_cuda, 2))
     n0 = wrapper.launches
     out, _ = model.forward_train(cfg, params, tokens, backend="pallas")
@@ -921,15 +923,15 @@ def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
 @pytest.mark.parametrize("name,changes", [
     ("phi4-mini-3.8b", {"num_kv_heads": 2}), ("rwkv6-3b", {}),
     ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"}),
-    ("phi3.5-moe-42b-a6.6b", {})])
+    ("phi3.5-moe-42b-a6.6b", {}), ("hymba-1.5b", {})])
 def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
     """``prefill`` of 64 tokens, then 4 ``decode_step``s from it and 4 from
     ``init_cache`` (float8 for llama3 here), of a reduced float32 config on
     the card against the same calls on the CPU (TF32 off): logits within
     2e-5 (the CPU parity tests' tolerance against the reference), every
-    cache leaf within 2e-5 of its largest value, a float8 leaf within one
-    e4m3 step (2^-3 of the value); the position goes in as a CUDA tensor
-    on the card."""
+    cache leaf within 2e-5 of its largest value (hymba's Mamba conv and
+    SSM states among them), a float8 leaf within one e4m3 step (2^-3 of
+    the value); the position goes in as a CUDA tensor on the card."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
     cfg = dataclasses.replace(get_config(name).reduced(), **changes)
@@ -1007,3 +1009,45 @@ def test_moe_dispatch_on_the_card_matches_the_cpu(cuda, cf):
     out_gpu, aux_gpu = moe._moe_dispatch(cfg, pc, x.to(cuda))
     assert max_diff(out_cpu, out_gpu.cpu()) <= 1e-5
     assert abs(float(aux_cpu) - float(aux_gpu)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the Mamba selective SSM on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,state", [(1, True), (200, False), (256, True)])
+def test_apply_mamba_on_the_card_matches_the_cpu(cuda, S, state):
+    """hymba's reduced Mamba branch (float32, d_inner 256, n 8) on the
+    card against the CPU, from zero and carried conv / SSM states: the
+    output within 1e-5 of its RMS and the SSM state within 1e-6 absolute
+    (O(1) states), the tolerances the CPU holds against the reference
+    (the card's exp and the doubling scan's products round a few ulp
+    apart); the two-level scan against its step-by-step oracle on the
+    card likewise."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("hymba-1.5b").reduced()
+    p = ssm.init_mamba(cfg, torch.Generator().manual_seed(2), d_inner=256)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    x = torch.tensor(_rand((2, S, cfg.d_model), S))
+    cs = torch.tensor(_rand((2, 3, 256), 1)) if state else None
+    hs = torch.tensor(_rand((2, 256, cfg.ssm.state_size), 2)) if state \
+        else None
+    out_cpu = ssm.apply_mamba(cfg, p, x, cs, hs)
+    out_gpu = ssm.apply_mamba(cfg, pc, x.to(cuda),
+                              None if cs is None else cs.to(cuda),
+                              None if hs is None else hs.to(cuda))
+    a, b = out_cpu[0], out_gpu[0].cpu()
+    rel = float((a - b).square().mean().sqrt() / a.square().mean().sqrt())
+    print(f"apply_mamba S={S}: rel-RMS {rel:.3e}, state "
+          f"{max_diff(out_cpu[2], out_gpu[2].cpu()):.3e}")
+    assert rel <= 1e-5
+    assert max_diff(out_cpu[1], out_gpu[1].cpu()) <= 2e-5
+    assert max_diff(out_cpu[2], out_gpu[2].cpu()) <= 1e-6
+    dA, dBx, C, _, _, _ = ssm.mamba_discretize(cfg, pc, x.to(cuda))
+    h0 = torch.zeros((2, 256, cfg.ssm.state_size), device=cuda)
+    y, h = ssm.mamba_scan(dA, dBx, C, h0)
+    ry, rh = ssm.mamba_scan_sequential(dA, dBx, C, h0)
+    assert max_diff(ry, y) <= 1e-6 * float(ry.abs().max())
+    assert max_diff(rh, h) <= 1e-6 * float(rh.abs().max())

@@ -38,7 +38,7 @@ from repro_torch.models import ssm as tssm
 from tests._torch_parity import assert_close, max_diff, to_np
 
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
-         "llama3-405b", "phi3.5-moe-42b-a6.6b")
+         "llama3-405b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b")
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -63,9 +63,9 @@ def _t(a, dtype=torch.float32):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_configs_match_reference(name):
-    """The port's copy of the six configs, full and reduced, field by
+    """The port's copy of the seven configs, full and reduced, field by
     field; the padded vocabularies (every vocabulary is a multiple of 256
-    but phi4-mini's and phi3.5-moe's)."""
+    but phi4-mini's, phi3.5-moe's and hymba's)."""
     ref, out = jbase.get_config(name), tbase.get_config(name)
     assert dataclasses.asdict(ref) == dataclasses.asdict(out)
     assert dataclasses.asdict(ref.reduced()) == dataclasses.asdict(
@@ -74,7 +74,8 @@ def test_configs_match_reference(name):
     assert out.resolved_head_dim == ref.resolved_head_dim
     assert {"phi4-mini-3.8b": 200192, "rwkv6-3b": 65536,
             "qwen1.5-32b": 152064, "mistral-large-123b": 32768,
-            "llama3-405b": 128256, "phi3.5-moe-42b-a6.6b": 32256}[name] \
+            "llama3-405b": 128256, "phi3.5-moe-42b-a6.6b": 32256,
+            "hymba-1.5b": 32256}[name] \
         == out.vocab_padded
     assert ({k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()}
             == {k: dataclasses.asdict(v)
@@ -82,7 +83,7 @@ def test_configs_match_reference(name):
 
 
 def test_registry_holds_the_ported_configs():
-    """The six configs whose model path is ported, each the registry's
+    """The seven configs whose model path is ported, each the registry's
     object; the reference's other configs and unknown names raise."""
     assert tbase.list_configs() == sorted(NAMES)
     for name in NAMES:

@@ -427,7 +427,9 @@ def test_cache_from_jax_keeps_every_bit():
 UNPORTED = {
     "moe": {"moe": tbase.MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)},
     "mla": {"attention_kind": "mla", "mla": tbase.MLAConfig()},
-    "hybrid": {"attention_kind": "hybrid"},
+    "hybrid": {"attention_kind": "hybrid",
+               "ssm": tbase.SSMConfig(kind="mamba", state_size=8)},
+    "hybrid-rwkv6": {"attention_kind": "hybrid", "ssm": tbase.SSMConfig()},
     "encoder-decoder": {"encoder_layers": 2},
     "frontend": {"frontend": "audio"},
     "mtp": {"mtp": True},
@@ -437,7 +439,7 @@ UNPORTED = {
 
 # parts ported since their refusal case was written: each case now checks
 # that the serving entry points accept such a config
-PORTED = ("moe",)
+PORTED = ("moe", "hybrid")
 
 
 @pytest.mark.parametrize("part", sorted(UNPORTED))
@@ -468,7 +470,10 @@ def serving_accepts(part, cfg):
     decode_step and the serve step on ``cfg`` with its own parameters:
     finite logits of the padded vocabulary."""
     changes = {"moe": {"moe": jbase.MoEConfig(num_experts=4, top_k=2,
-                                              d_ff_expert=64)}}[part]
+                                              d_ff_expert=64)},
+               "hybrid": {"attention_kind": "hybrid",
+                          "ssm": jbase.SSMConfig(kind="mamba",
+                                                 state_size=8)}}[part]
     cfg_j = dataclasses.replace(jbase.get_config("phi4-mini-3.8b").reduced(),
                                 **changes)
     assert dataclasses.asdict(cfg_j) == dataclasses.asdict(cfg)
