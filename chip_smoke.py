@@ -228,11 +228,35 @@ Phases (any failure exits non-zero):
    under ``torch.profiler``, the first loss within ``TOL_TRAIN_LOSS`` of
    its microbatches' separate ``lm_loss``, no kernel launched; (e) ``python -m repro_torch.launch.train --arch
    hymba-1.5b --reduced --steps 20`` exits 0;
-17. one JSON line listing the five kernels, then the card's line and the
+17. MLA, the MTP head and deepseek-v3-671b at its widths, random bf16
+   params (671 B params do not fit one card: 5 of 61 layers, the 3 dense
+   prefix layers and 2 MoE layers of 256 experts top 8, with the MTP
+   head, 54.4 GB; no kernel on this path, as in the reference, whose MLA
+   takes no backend): (a) ``lm_loss`` with backend "pallas" (first and
+   steady call) and "reference", B=1, S=4096: no kernel launched, the
+   losses within ``TOL_DS_REPEAT`` (their spread printed); each layer's
+   MLA, dense FFN and MoE update within ``TOL_LM_LAYER`` of the card's
+   float32 recomputation of that layer on the same input and routing;
+   the MTP term, the routers' aux and each MoE layer's share of pairs
+   dropped at cf 1.25 printed; (b) ``prefill`` of a 4096 prompt into a
+   cache of 4160 and 16 greedy absorbed-form ``decode_step``s (p50 / p99
+   beside the bound of every byte a token reads, kernels a step, the idle
+   share, the peak; the compressed cache's bytes a token against an
+   expanded one's), the first decode's logits within ``TOL_DS_DECODE`` of
+   the expanded ``forward_train``'s at position 4096 (dropless); (c) a
+   forward and backward of ``lm_loss`` at 3 dense + 1 MoE layer (cut
+   further where it runs out of memory, ``DS_GRAD_CUTS``): gradients
+   finite, the peak; (d) ``make_train_step`` at the dense prefix and the
+   MTP head (no MoE layer), Adafactor with its bf16 update, 4
+   microbatches of one 4096-token sequence, 3 steps: the first loss
+   within ``TOL_TRAIN_LOSS`` of its microbatches' separate ``lm_loss``;
+   (e) ``python -m repro_torch.launch.train --arch deepseek-v3-671b
+   --reduced --steps 20`` exits 0;
+18. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13,14,15,16`` runs any of those six phases alone after
-the build (a partial run: no kernels line, no result line).
+``--phases 10,12,13,14,15,16,17`` runs any of those seven phases alone
+after the build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
 """
@@ -2740,9 +2764,12 @@ def percentile_ms(times, q):
 
 def decode_reading(params, cache):
     """(bytes a decode step must read, its ms at the memory rate): every
-    block's weights, the final norm, the head, the whole cache."""
+    block's weights (both stacks of a dense prefix), the final norm, the
+    head, the whole cache."""
+    from repro_torch.models import model
     head = params.get("lm_head", params["embed"])
-    parts = {"blocks": nbytes(leaves(params["blocks"])),
+    parts = {"blocks": sum(nbytes(leaves(b))
+                           for b in model.block_stacks(params)),
              "head": nbytes([head]) + nbytes(leaves(params["final_norm"])),
              "cache": nbytes(cache.values())}
     total = sum(parts.values())
@@ -4367,8 +4394,406 @@ def hybrid_path(card):
     return out
 
 
+DEEPSEEK_CONFIG = "deepseek-v3-671b"
+# phase 17's depths of deepseek-v3's 61 layers, every width kept (random
+# bf16 params; 671 B params do not fit one card): (a) and (b) the 3 dense
+# prefix layers and 2 MoE layers with the MTP head (27.2 B params, 54.4
+# GB); (c) the gradient at 3 dense + 1 MoE layer (31.4 GB of params and as
+# much of gradients) over 4096 tokens, which runs out of the card's memory
+# on an H100 (the two float32 logits of 2.1 GB each and their softmax
+# beside 62.8 GB), so over 1024 tokens, else 1 + 1 layers; (d)
+# the train step at the dense prefix and the MTP head alone (no MoE
+# layer: Adafactor's float32 temporaries of one (1, 256, 7168, 2048)
+# expert leaf are 15 GB each beside the params and gradients)
+DS_LAYERS, DS_TRAIN_LAYERS = 5, 3
+DS_GRAD_CUTS = ((4, 4096), (4, 1024), (2, 4096))      # (layers, tokens)
+DS_SEQ, DS_DECODE_STEPS = 4096, 16
+# (b) the yardstick forward over 4097 tokens is dropless, as a one-token
+# decode is: capacity factor E / K (C >= every wave's tokens, whatever the
+# routing; random weights route so lopsidedly that at cf 8, C 1032, a
+# pair of the held token was dropped on the card), its MoE dispatched in
+# waves of 241 tokens (4097 = 17 x 241) through the config's "gspmd"
+# path so that the (E, C, D) buffer stays ~1 GB; every pair kept is
+# checked
+DS_YARDSTICK_WAVE = 241
+# (a) each layer's update in bf16 against the card's own float32
+# recomputation of the same layer on the same input and the same routing
+# (float32 copies of the layer's weights, float32 compute): MLA rounds its
+# six products, its two latent norms and its softmax weights to bf16 (2^-9
+# relative each), the SwiGLU and the experts their three products, the
+# combine its K adds; a few bf16 ulps of the update's RMS, as phase 4
+# holds two bf16 paths: TOL_LM_LAYER.  Repeats of the bf16 forward: the
+# combine adds in one fixed order and the GEMMs' are fixed for a shape, so
+# they should agree to the bit; held within TOL_DS_REPEAT of the loss,
+# the spread printed
+TOL_DS_REPEAT = 1e-3
+# (b) the reference's test_prefill_decode_consistency gate: max |decode -
+# forward| over max |forward| of the logits at the decoded position
+TOL_DS_DECODE = 0.05
+
+
+def ds_config(layers, moe=True):
+    """deepseek-v3 at its widths, ``layers`` deep: its 3 dense prefix
+    layers (fewer where ``layers`` is 3 or less, leaving one MoE layer)
+    and MoE layers after them, or with ``moe=False`` dense layers only."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(DEEPSEEK_CONFIG)
+    if not moe:
+        return dataclasses.replace(cfg, num_layers=layers, moe=None)
+    dense = min(cfg.moe.first_dense_layers, layers - 1)
+    return dataclasses.replace(cfg, num_layers=layers, moe=dataclasses.replace(
+        cfg.moe, first_dense_layers=dense))
+
+
+def ds_moe_float32(cfg, p, x):
+    """One MoE layer in float32 on ``x``, with the bf16 run's routing and
+    kept pairs (the router is float32 in both): each expert's kept rows
+    through float32 copies of its weights, their outputs times their
+    probabilities summed per token in float32, plus the shared expert."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    T, D = x.shape[0] * x.shape[1], x.shape[2]
+    xf = x.reshape(T, D)
+    top_p, top_idx, _ = moe.router(cfg, p, xf)
+    order, e_s, _, keep = moe.dispatch_plan(cfg, top_idx,
+                                            moe._capacity(cfg, T))
+    t_s, p_s = order // cfg.moe.top_k, top_p.reshape(-1)[order]
+    x32 = xf.float()
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e in range(cfg.moe.num_experts):
+        sel = (e_s == e) & keep
+        t = t_s[sel]
+        xe = x32[t]
+        h = F.silu(xe @ p["we1"][e].float()) * (xe @ p["we3"][e].float())
+        y.index_add_(0, t, (h @ p["we2"][e].float()) * p_s[sel][:, None])
+    sp = float32_copy(p["shared"])
+    y += (F.silu(x32 @ sp["w1"]) * (x32 @ sp["w3"])) @ sp["w2"]
+    return y.reshape(x.shape), 1.0 - float(keep.float().mean())
+
+
+def ds_hold_layers(cfg, params, tokens):
+    """Phase 17 (a)'s hold on the bf16 forward's own hidden states: each
+    layer's MLA update and FFN (or MoE) update against the card's float32
+    recomputation of that layer (worst rel-RMS of each), each MoE layer's
+    share of pairs dropped at the config's capacity, and the MTP term of
+    the blocks' output."""
+    import dataclasses
+    from repro_torch.models import mla, model
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    h = model._embed(cfg, params, tokens)
+    pos = model._positions(cfg, tokens)
+    out = dict(mla=0.0, ffn=0.0, moe=0.0, drops=[])
+    for bp in model.all_layers(params):
+        hn = apply_norm(cfg, bp["ln1"], h)
+        mix = model._mixer(cfg, bp, h, pos)
+        mix32 = mla.apply_mla(cfg32, float32_copy(bp["mla"]), hn.float(), pos)
+        out["mla"] = max(out["mla"], rel_rms(mix, mix32))
+        h = h + mix
+        f, _ = model._ffn(cfg, bp, h)
+        hn = apply_norm(cfg, bp["ln2"], h)
+        if "moe" in bp:
+            f32, dropped = ds_moe_float32(cfg, bp["moe"], hn)
+            out["moe"] = max(out["moe"], rel_rms(f, f32))
+            out["drops"].append(dropped)
+        else:
+            f32 = apply_mlp(cfg32, float32_copy(bp["ffn"]), hn.float())
+            out["ffn"] = max(out["ffn"], rel_rms(f, f32))
+        h = h + f
+    out["mtp"] = float(model._mtp_loss(cfg, params, h, tokens))
+    return out
+
+
+def ds_forward(dev, card, cfg, params, tokens, labels):
+    """Phase 17 (a): ``lm_loss`` with backend "pallas" (a first and a
+    steady call) and "reference": no kernel launched, the three losses
+    alike; the layers held against their float32 recomputation."""
+    import torch
+    from repro_torch.models import model
+    tag = f"[deepseek forward {DEEPSEEK_CONFIG}]"
+    batch = {"tokens": tokens, "labels": labels}
+    with torch.inference_mode():
+        reset_counts()
+        (loss, parts), first_s = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="pallas"))
+        (again, _), steady_s = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="pallas"))
+        (ref, ref_parts), ref_s = wall(lambda: model.lm_loss(
+            cfg, params, batch, backend="reference"))
+        launched = counts()
+        held = ds_hold_layers(cfg, params, tokens)
+    losses = [float(loss), float(again), float(ref)]
+    spread = max(losses) - min(losses)
+    router = float(parts["aux"]) - held["mtp"]
+    print(f"{tag} lm_loss(backend='pallas') {losses[0]:.6f} in {first_s:.3f} "
+          f"s first call, {losses[1]:.6f} in {steady_s:.3f} s steady; "
+          f"backend='reference' {losses[2]:.6f} in {ref_s:.3f} s: spread "
+          f"{spread:.3e} (tol {TOL_DS_REPEAT:.0e}; bit-equal "
+          f"{len(set(losses)) == 1}); kernel launches over the three "
+          f"{launched}; aux {float(parts['aux']):.6f}: the MTP term "
+          f"{held['mtp']:.6f}, the routers' {router:.6e}; card {card}")
+    print(f"{tag} on the bf16 forward's input to each layer against the "
+          f"card's float32 recomputation of it (same routing): MLA's "
+          f"update {held['mla']:.3e} of its RMS at worst, the dense FFN's "
+          f"{held['ffn']:.3e}, the MoE's {held['moe']:.3e} (tol "
+          f"{TOL_LM_LAYER:.0e}); pairs dropped at capacity factor "
+          f"{cfg.moe.capacity_factor} per MoE layer {held['drops']}")
+    if any(launched.values()):
+        fail(f"{DEEPSEEK_CONFIG}: the forward launched kernels {launched}; "
+             f"MLA and the experts run none")
+    if not (all(math.isfinite(x) for x in losses) and spread <= TOL_DS_REPEAT
+            and math.isfinite(held["mtp"]) and held["mtp"] > 0):
+        fail(f"{DEEPSEEK_CONFIG}: losses {losses}, MTP {held['mtp']}")
+    if max(held["mla"], held["ffn"], held["moe"]) > TOL_LM_LAYER:
+        fail(f"{DEEPSEEK_CONFIG}: a layer differs from its float32 "
+             f"recomputation")
+    return dict(lm_first_s=first_s, lm_steady_s=steady_s, losses=losses,
+                spread=spread, aux=float(parts["aux"]), mtp=held["mtp"],
+                mla_worst=held["mla"], ffn_worst=held["ffn"],
+                moe_worst=held["moe"], drop_share=held["drops"],
+                launches=sum(launched.values()))
+
+
+def ds_serve(dev, card, cfg, params):
+    """Phase 17 (b): prefill of a 4096 prompt into a cache of 4160, 16
+    greedy absorbed-form decode steps, the first held against the expanded
+    forward's logits at position 4096."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import model, moe
+    tag = f"[deepseek serve {DEEPSEEK_CONFIG}]"
+    rng = np.random.default_rng(23)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)),
+                          device=dev)
+    with torch.inference_mode():
+        (logits, cache), first_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        (logits, cache), steady_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE))
+        if logits.shape != (1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{DEEPSEEK_CONFIG}: prefill logits not finite or not (1, "
+                 f"{cfg.vocab_padded})")
+        cache_bytes = {k: nbytes([v]) for k, v in cache.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        dec_routes = []
+        with observed(moe, "router", after=lambda out: dec_routes.append(
+                out[1][-1].sort().values)):
+            times, decoded, first = timed_decode(
+                cfg, params, cache, logits.argmax(-1, keepdim=True),
+                SERVE_PROMPT, steps=DS_DECODE_STEPS)
+        launched = counts()
+        prof = profile_decode(cfg, params, cache, decoded[:, -1:],
+                              SERVE_PROMPT + DS_DECODE_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        parts, total, bound_ms = decode_reading(params, cache)
+        p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+        del cache
+        torch.cuda.empty_cache()
+        # the expanded forward over the prompt and the first decoded token,
+        # dropless; its logits at position 4096
+        seq = torch.cat([prompt, decoded[:, :1]], dim=1)
+        dropless = dataclasses.replace(cfg, mtp=False, moe=dataclasses.replace(
+            cfg.moe, impl="gspmd",
+            capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        kept, fwd_routes = [], []
+        wave = moe.MOE_TOKEN_WAVE
+        moe.MOE_TOKEN_WAVE = DS_YARDSTICK_WAVE
+        try:
+            with observed(moe, "dispatch_plan",
+                          after=lambda out: kept.append(bool(out[3].all()))), \
+                    observed(moe, "router", after=lambda out:
+                             fwd_routes.append(out[1][-1].sort().values)):
+                (fwd, _), fwd_s = wall(lambda: model.forward_train(
+                    dropless, params, seq))
+        finally:
+            moe.MOE_TOKEN_WAVE = wave
+        ref = fwd[:, SERVE_PROMPT]
+        del fwd
+        # the held token's experts at each MoE layer: the last wave's last
+        # row in the forward, the first decode step's
+        waves = seq.shape[1] // DS_YARDSTICK_WAVE
+        fwd_routes = fwd_routes[waves - 1::waves]
+        alike = [bool(torch.equal(a, b))
+                 for a, b in zip(fwd_routes, dec_routes[:len(fwd_routes)])]
+    ratio = float((first - ref).abs().max() / ref.abs().max())
+    m = cfg.mla
+    per_token = (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    expanded = 2 * cfg.num_heads * m.v_head_dim * 2
+    print(f"{tag} {cfg.num_layers} of 61 layers (3 dense, "
+          f"{cfg.num_layers - 3} MoE), bf16 random params; prefill B=1, "
+          f"S={SERVE_PROMPT}, cache_len {SERVE_CACHE}: {first_s:.4f} s first "
+          f"call, {steady_s:.4f} s steady; cache bytes {cache_bytes}: "
+          f"{per_token} bytes a token and layer ((512 + 64) x 2) against "
+          f"{expanded} for an expanded K/V cache (2 x 128 x 128 x 2); "
+          f"{DS_DECODE_STEPS} greedy absorbed-form decode_steps: p50 "
+          f"{p50:.4f} ms, p99 {p99:.4f} ms per token, kernel launches "
+          f"{launched}; the bound {bound_ms:.4f} ms: {total} bytes read a "
+          f"token ({parts}; the reference's dispatch runs all "
+          f"{cfg.moe.num_experts} experts over their 8 rows) at 3.35 TB/s; "
+          f"p50 / bound {p50 / bound_ms:.2f}; {profile_note(prof, p50)}; "
+          f"peak {peak} bytes allocated while decoding; card {card}")
+    print(f"{tag} the absorbed-form decode at position {SERVE_PROMPT} "
+          f"against the expanded forward_train over {seq.shape[1]} tokens "
+          f"(dropless: capacity factor {dropless.moe.capacity_factor}, "
+          f"waves of {DS_YARDSTICK_WAVE} tokens; every pair kept: "
+          f"{all(kept)}) in {fwd_s:.3f} s: max|decode - forward| / "
+          f"max|forward| of the logits {ratio:.4e} (tol {TOL_DS_DECODE}); "
+          f"the held token routed alike at each MoE layer: {alike}")
+    if any(launched.values()):
+        fail(f"{DEEPSEEK_CONFIG}: decode launched kernels {launched}")
+    if not (all(kept) and ratio < TOL_DS_DECODE):
+        fail(f"{DEEPSEEK_CONFIG}: the decode at {SERVE_PROMPT} differs from "
+             f"the forward's logits")
+    return dict(prefill_s=steady_s, prefill_first_s=first_s,
+                cache_bytes=sum(cache_bytes.values()), decode_p50_ms=p50,
+                decode_p99_ms=p99, decode_bound_ms=bound_ms,
+                decode_profile=prof, decode_peak_bytes=peak,
+                decode_vs_forward=ratio, decode_routed_alike=alike)
+
+
+def ds_grad(card):
+    """Phase 17 (c): one forward and backward of ``lm_loss`` at 3 dense + 1
+    MoE layer with the MTP head, remat "full", B=1, at the first cut of
+    DS_GRAD_CUTS that fits the card: every gradient finite, the peak."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    for layers, S in DS_GRAD_CUTS:
+        cfg = ds_config(layers)
+        dense = cfg.moe.first_dense_layers
+        try:
+            params = model.init_params(cfg, seed=1, device="cuda")
+            leaves_ = steps.param_leaves(params)
+            n = sum(p.numel() for p in leaves_)
+            rng = np.random.default_rng(24)
+            tokens, labels = (torch.tensor(rng.integers(
+                0, cfg.vocab_size, (1, S)), device="cuda")
+                for _ in range(2))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for p in leaves_:
+                p.requires_grad_(True)
+            reset_counts()
+            (loss, parts), secs = wall(lambda: model.lm_loss(
+                cfg, params, {"tokens": tokens, "labels": labels}))
+            grads, bwd_s = wall(lambda: torch.autograd.grad(loss, leaves_))
+            peak = torch.cuda.max_memory_allocated()
+            launched = counts()
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            norm = float(torch.stack([g.float().norm() for g in grads]).norm())
+            print(f"[deepseek grad] {layers} layers ({dense} dense, "
+                  f"{layers - dense} MoE) and the MTP head, {n} params bf16, "
+                  f"remat {cfg.remat!r}, B=1, S={S}: loss "
+                  f"{float(loss.detach()):.6f} (aux "
+                  f"{float(parts['aux'].detach()):.6f}) in "
+                  f"{secs:.3f} s, its gradient in {bwd_s:.3f} s: "
+                  f"{len(grads)} leaves, finite {finite}, global norm "
+                  f"{norm:.4e}; peak {peak} bytes allocated; kernel launches "
+                  f"{launched}; card {card}")
+            del params, leaves_, grads, loss, parts
+            torch.cuda.empty_cache()
+            if not (finite and math.isfinite(norm)) or any(launched.values()):
+                fail(f"{DEEPSEEK_CONFIG}: the gradient is not finite or "
+                     f"launched kernels")
+            return dict(layers=layers, tokens=S, peak_bytes=peak, fwd_s=secs,
+                        bwd_s=bwd_s, grad_norm=norm)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[deepseek grad] {layers} layers over {S} tokens ran out "
+                  f"of memory ({str(e)[:120]}...); next cut")
+        params = leaves_ = grads = loss = parts = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    fail(f"{DEEPSEEK_CONFIG}: no cut of {DS_GRAD_CUTS} took a gradient")
+
+
+def ds_train(card):
+    """Phase 17 (d): ``make_train_step`` at the dense prefix and the MTP
+    head (3 layers, no MoE layer), every width kept: the config's
+    Adafactor (bf16 update direction), 4 microbatches of one 4096-token
+    sequence, remat "full", 3 steps."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    cfg = ds_config(DS_TRAIN_LAYERS, moe=False)
+    n_mb = cfg.train_microbatches
+    params = model.init_params(cfg, seed=2, device="cuda")
+    n_params = sum(p.numel() for p in steps.param_leaves(params))
+    batch = train_batch(cfg, n_mb, 0)
+    with torch.no_grad():
+        ref = sum(float(model.lm_loss(cfg, params, {
+            k: v[i:i + 1] for k, v in batch.items()})[0])
+            for i in range(n_mb)) / n_mb
+    del batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses, secs, peak, _ = train_steps(cfg, params, TRAIN_STEPS, n_mb)
+    launched = counts()
+    del params
+    torch.cuda.empty_cache()
+    steady = sum(secs[1:]) / len(secs[1:])
+    d_loss = abs(losses[0] - ref) / abs(ref)
+    print(f"[deepseek train] {DEEPSEEK_CONFIG} widths, {cfg.num_layers} dense "
+          f"layers (d_ff {cfg.d_ff}) and the MTP head, no MoE layer, "
+          f"{n_params} params bf16, {cfg.optimizer} (bf16 update), remat "
+          f"{cfg.remat!r}; {n_mb} microbatches of one {TRAIN_SEQ}-token "
+          f"sequence; losses {losses}; s per step {secs} (steady "
+          f"{steady:.4f}); {n_mb * TRAIN_SEQ / steady:.1f} tokens/s; peak "
+          f"{peak} bytes allocated; the first loss against its microbatches' "
+          f"separate lm_loss (MTP included) {ref:.6f}: {d_loss:.3e} relative "
+          f"(tol {TOL_TRAIN_LOSS:.0e}); kernel launches {launched}; card "
+          f"{card}")
+    if not all(math.isfinite(x) for x in losses) or d_loss > TOL_TRAIN_LOSS:
+        fail(f"{DEEPSEEK_CONFIG}: train losses {losses}, separate {ref}")
+    if any(launched.values()):
+        fail(f"{DEEPSEEK_CONFIG}: the train step launched kernels {launched}")
+    return dict(losses=losses, s_per_step=secs, steady_s=steady,
+                tokens_per_s=n_mb * TRAIN_SEQ / steady, peak_bytes=peak)
+
+
+def deepseek_path(card):
+    """Phase 17: MLA, the MTP head and deepseek-v3 on the card.  Runs no
+    kernel; returns its readings."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = ds_config(DS_LAYERS)
+    params, secs = wall(lambda: model.init_params(cfg, seed=0, device=dev))
+    n = sum(x.numel() for x in leaves(params))
+    print(f"[deepseek] {DEEPSEEK_CONFIG}: {DS_LAYERS} of 61 layers at full "
+          f"width (the 3 dense prefix layers, 2 MoE layers of 256 experts "
+          f"top 8) and the MTP head, {n} params ({2 * n / 1e9:.2f} GB bf16) "
+          f"drawn on the card in {secs:.3f} s; capacity factor "
+          f"{cfg.moe.capacity_factor}, impl {cfg.moe.impl!r} (no mesh: one "
+          f"dispatch, no waves); depth cuts: the gradient at "
+          f"{DS_GRAD_CUTS[0][0]} layers, the train step at "
+          f"{DS_TRAIN_LAYERS} dense layers with no MoE layer")
+    rng = np.random.default_rng(25)
+    tokens, labels = (torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                (1, DS_SEQ)), device=dev)
+                      for _ in range(2))
+    out = {"forward": ds_forward(dev, card, cfg, params, tokens, labels)}
+    out["serve"] = ds_serve(dev, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    out["grad"] = ds_grad(card)
+    out["train"] = ds_train(card)
+    train_script(card, DEEPSEEK_CONFIG)
+    return out
+
+
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16")
+STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17")
 
 
 def main():
@@ -4409,7 +4834,8 @@ def main():
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
         run = {"10": fleet_path, "12": halo_path, "13": serve_path,
-               "14": train_path, "15": moe_path, "16": hybrid_path}
+               "14": train_path, "15": moe_path, "16": hybrid_path,
+               "17": deepseek_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -4568,7 +4994,11 @@ def main():
     flash.update(hyb)
     print(f"[phase 16] {secs:.3f} s")
 
-    # 17. the kernels, the card, the result
+    # 17. MLA, the MTP head and deepseek-v3 (no kernel on its path)
+    _, secs = wall(lambda: deepseek_path(card))
+    print(f"[phase 17] {secs:.3f} s")
+
+    # 18. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

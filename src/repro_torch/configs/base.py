@@ -6,7 +6,8 @@ smoke variant: 2 layers, d_model <= 256, <= 4 experts), the input shapes and
 the registry.  Only the configs whose model path is ported register here:
 the dense ``phi4-mini-3.8b``, ``qwen1.5-32b``, ``mistral-large-123b`` and
 ``llama3-405b``, ``rwkv6-3b``, the mixture of experts
-``phi3.5-moe-42b-a6.6b`` and the hybrid ``hymba-1.5b``.
+``phi3.5-moe-42b-a6.6b``, the hybrid ``hymba-1.5b`` and ``deepseek-v3-671b``
+(MLA, the MTP head and 256 experts).
 """
 from __future__ import annotations
 
@@ -198,5 +199,5 @@ def list_configs() -> list:
 def _load_all() -> None:
     # import side-effect registers each config module
     from repro_torch.configs import (  # noqa: F401
-        hymba_15b, llama3_405b, mistral_large_123b, phi35_moe_42b,
-        phi4_mini_38b, qwen15_32b, rwkv6_3b)
+        deepseek_v3_671b, hymba_15b, llama3_405b, mistral_large_123b,
+        phi35_moe_42b, phi4_mini_38b, qwen15_32b, rwkv6_3b)

@@ -233,7 +233,8 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
     bfloat16 leaf arrives as an ``ml_dtypes`` array, which torch cannot
     read: it goes through float32, and back to bfloat16 exactly.  The
     layers of ``blocks`` and of a MoE config's ``blocks_dense`` together
-    must be the config's."""
+    must be the config's; an MTP head's unstacked block (``mtp``) and MLA's
+    leaves (``mla``) come over as any other subtree."""
     device = resolve_device(device)
     embed = np.shape(tree["embed"])
     if embed != (cfg.vocab_padded, cfg.d_model):
@@ -280,7 +281,8 @@ def opt_state_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"):
 def cache_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> dict:
     """The reference's decode cache (a dict of numpy leaves, e.g.
     ``jax.tree.map(np.asarray, cache)``, each stacked on a leading layer
-    axis) as the port's dict of tensors, each leaf in its own dtype: a
+    axis: K and V, RWKV's or Mamba's states, or MLA's ``c_kv`` and
+    ``k_rope``) as the port's dict of tensors, each leaf in its own dtype: a
     bfloat16 leaf through float32, exactly; a float8_e4m3fn leaf through
     its uint8 view, so its bits arrive unchanged."""
     device = resolve_device(device)

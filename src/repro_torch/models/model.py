@@ -2,17 +2,22 @@
 serving: ``init_cache``, ``prefill``, ``decode_step``.
 
 Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (the dense
-configs and the mixture of experts), ``"none"`` (RWKV-6) and ``"hybrid"``
+configs and the mixture of experts), ``"none"`` (RWKV-6), ``"hybrid"``
 (Hymba: attention and Mamba side by side, ``models/hybrid.py``, in
-``hyb``).  Parameters are a plain dict shaped like the reference's tree:
-``{"embed", "blocks", "final_norm", "lm_head"}`` with every leaf of
-``blocks`` stacked on a leading layer axis; the reference's ``lax.scan``
-over layers is a Python loop over that axis.  A MoE config's blocks hold ``moe``
+``hyb``) and ``"mla"`` (DeepSeek-V3's latent attention, ``models/mla.py``,
+in ``mla``; it takes no kernel backend, as in the reference).  Parameters
+are a plain dict shaped like the reference's tree: ``{"embed", "blocks",
+"final_norm", "lm_head"}`` with every leaf of ``blocks`` stacked on a
+leading layer axis; the reference's ``lax.scan`` over layers is a Python
+loop over that axis.  A MoE config's blocks hold ``moe``
 (``models/moe.py``) in place of ``ffn``; with ``first_dense_layers`` its
 first layers are a stack of their own, ``blocks_dense``, run before
 ``blocks`` (the reference's two scans).  Each block returns the router's
 aux loss beside its output (0 for a dense FFN), and ``forward_train``
-returns their sum over both stacks.  The reference's
+returns their sum over both stacks.  A config with ``mtp`` (DeepSeek's
+multi-token prediction) holds ``params["mtp"] = {"block", "norm"}``, one
+unstacked dense block whose loss on the token two ahead joins the aux
+(0.3 of its mean) in ``forward_train``.  The reference's
 ``act_sharding.constrain`` calls place activations on a device mesh and do
 nothing without one; the port runs on one card, so they are left out.
 
@@ -21,7 +26,9 @@ each block runs under ``torch.utils.checkpoint`` (non-reentrant) when grad
 is enabled, as ``jax.checkpoint`` wraps the reference's scan body, so a
 backward keeps one hidden state per layer and recomputes the block's
 activations; ``""`` and ``"dots"`` leave the block as it is (the reference
-tests only ``"full"``).  Under ``torch.no_grad`` it changes nothing.
+tests only ``"full"``).  Under ``torch.no_grad`` it changes nothing.  The
+MTP block runs under checkpointing whenever grad is enabled, whatever
+``remat`` says, as the reference wraps it in ``jax.checkpoint``.
 
 ``backend="pallas"`` runs each layer's sequence mixer through a
 hand-written kernel: flash attention (``kernels/flash_attention``) for
@@ -38,11 +45,14 @@ through every layer against the cache, which it updates in place, layer
 slice by layer slice, with no host synchronisation.  An RWKV cache is the
 per-layer WKV state (float32) and the two token-shift states; a hybrid
 cache is K and V beside the Mamba conv state (compute dtype) and SSM state
-(float32).  The cache keeps one leading axis of ``num_layers`` whatever
-the stacks: each stack works on its slice of that axis, in place.
+(float32); an MLA cache is the compressed latent ``c_kv`` and the rope
+key ``k_rope``, which decode reads in the absorbed form.  Neither
+``prefill`` nor ``decode_step`` runs the MTP head, as in the reference.
+The cache keeps one leading axis of ``num_layers`` whatever the stacks:
+each stack works on its slice of that axis, in place.
 
-Not ported yet: MLA, the encoder-decoder, the frontends, MTP and
-M-RoPE (``check_supported`` refuses them at every entry point).
+Not ported yet: the encoder-decoder, the frontends and M-RoPE
+(``check_supported`` refuses them at every entry point).
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hyb_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
@@ -63,7 +74,7 @@ from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
 
 Params = Dict[str, Any]
 
-ATTENTION_KINDS = ("gqa", "none", "hybrid")
+ATTENTION_KINDS = ("gqa", "none", "hybrid", "mla")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -72,12 +83,10 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.attention_kind not in ATTENTION_KINDS:
         missing.append(f"attention_kind {cfg.attention_kind!r}")
-    if cfg.attention_kind in ("gqa", "hybrid") and cfg.rope_kind != "rope":
+    if cfg.attention_kind != "none" and cfg.rope_kind != "rope":
         missing.append(f"rope_kind {cfg.rope_kind!r}")
-    for name, present in (("mla", cfg.mla is not None),
-                          ("encoder-decoder", cfg.is_encdec),
-                          ("frontend", bool(cfg.frontend)),
-                          ("mtp", cfg.mtp)):
+    for name, present in (("encoder-decoder", cfg.is_encdec),
+                          ("frontend", bool(cfg.frontend))):
         if present:
             missing.append(name)
     if cfg.attention_kind == "none" and (cfg.ssm is None
@@ -95,9 +104,11 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int, *,
+def _init_blocks(cfg: ModelConfig, gen: torch.Generator, lead, *,
                  is_moe: bool = False) -> Params:
-    lead = (n,)
+    """The blocks of a stack of ``lead`` layers (``(n,)``), or one unstacked
+    block (``()``: the MTP head's)."""
+    lead = tuple(lead)
     p: Params = {"ln1": init_norm(cfg, lead + (cfg.d_model,), gen.device),
                  "ln2": init_norm(cfg, lead + (cfg.d_model,), gen.device)}
     if cfg.attention_kind == "none":
@@ -106,6 +117,8 @@ def _init_blocks(cfg: ModelConfig, gen: torch.Generator, n: int, *,
         return p
     if cfg.attention_kind == "hybrid":
         p["hyb"] = hyb_mod.init_hybrid(cfg, gen, lead)
+    elif cfg.attention_kind == "mla":
+        p["mla"] = mla_mod.init_mla(cfg, gen, lead)
     else:
         p["attn"] = attn_mod.init_attention(cfg, gen, lead)
     if is_moe:
@@ -131,12 +144,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                      dt)}
     nd = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     if nd:
-        p["blocks_dense"] = _init_blocks(cfg, gen, nd)
-    p["blocks"] = _init_blocks(cfg, gen, cfg.num_layers - nd,
+        p["blocks_dense"] = _init_blocks(cfg, gen, (nd,))
+    p["blocks"] = _init_blocks(cfg, gen, (cfg.num_layers - nd,),
                                is_moe=cfg.moe is not None)
     p["final_norm"] = init_norm(cfg, (cfg.d_model,), device)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_padded), dt)
+    if cfg.mtp:
+        p["mtp"] = {"block": _init_blocks(cfg, gen, ()),
+                    "norm": init_norm(cfg, (cfg.d_model,), device)}
     return p
 
 
@@ -169,8 +185,11 @@ def all_layers(params: Params):
 
 def _mixer(cfg: ModelConfig, bp, h, positions, *, backend="reference"):
     """The sequence mixer of one block on its normed input: the causal
-    self-attention, or a hybrid block's attention and Mamba."""
+    self-attention, a hybrid block's attention and Mamba, or MLA (which
+    takes no backend)."""
     hn = apply_norm(cfg, bp["ln1"], h)
+    if "mla" in bp:
+        return mla_mod.apply_mla(cfg, bp["mla"], hn, positions)
     if "hyb" in bp:
         return hyb_mod.apply_hybrid(cfg, bp["hyb"], hn, positions,
                                     backend=backend)
@@ -274,7 +293,8 @@ def _unembed(cfg: ModelConfig, params, h):
 def forward_train(cfg: ModelConfig, params: Params, tokens, *,
                   backend: Optional[str] = None):
     """tokens (B, S) int -> (logits (B, S, V) float32, aux loss: the
-    routers' over every MoE layer, 0.0 without one)."""
+    routers' over every MoE layer, 0.0 without one, plus the MTP head's
+    loss where the config has one)."""
     check_supported(cfg)
     backend = attn_mod.resolve_backend(backend)
     h = _embed(cfg, params, tokens)
@@ -283,7 +303,31 @@ def forward_train(cfg: ModelConfig, params: Params, tokens, *,
     for blocks in block_stacks(params):
         h, a = _scan_blocks(cfg, blocks, h, positions=pos, backend=backend)
         aux = aux + a
-    return _unembed(cfg, params, h), aux
+    logits = _unembed(cfg, params, h)
+    if cfg.mtp:
+        aux = aux + _mtp_loss(cfg, params, h, tokens)
+    return logits, aux
+
+
+def _mtp_loss(cfg: ModelConfig, params, h, tokens):
+    """DeepSeek's multi-token prediction: one extra dense block predicts
+    token t + 2 from the blocks' output ``h`` at t (before the final norm)
+    and the embedding of token t + 1 -> 0.3 times its mean cross entropy
+    over the first S - 2 positions.  The shifts wrap around, as
+    ``jnp.roll`` does; the block runs the reference mixer, checkpointed
+    whenever grad is enabled (the reference's ``jax.checkpoint``)."""
+    emb_next = _embed(cfg, params, torch.roll(tokens, -1, dims=1))
+    hm = apply_norm(cfg, params["mtp"]["norm"], h) + emb_next
+    pos = _positions(cfg, tokens)
+    bp = params["mtp"]["block"]
+    if torch.is_grad_enabled():
+        hm, _ = checkpoint(_block_body, cfg, hm, bp, positions=pos,
+                           use_reentrant=False)
+    else:
+        hm, _ = _block_body(cfg, hm, bp, positions=pos)
+    logits = _unembed(cfg, params, hm)                    # predicts t + 2
+    nll = _token_nll(cfg, logits, torch.roll(tokens, -2, dims=1))
+    return 0.3 * nll[:, :-2].mean()
 
 
 def _token_nll(cfg: ModelConfig, logits, labels):
@@ -331,20 +375,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                      dtype=torch.float32, device=device),
                 "xprev_t": torch.zeros(shift, dtype=dt, device=device),
                 "xprev_c": torch.zeros(shift, dtype=dt, device=device)}
+    if cfg.attention_kind == "mla":
+        return mla_mod.init_mla_cache(cfg, batch, seq_len, L, dt, device)
     c = attn_mod.init_kv_cache(cfg, batch, seq_len, L, dt, device)
     if cfg.attention_kind == "hybrid":
-        c.update(_mamba_states(cfg, L, batch, dt, device))
+        # the Mamba leaves: conv (L, B, W - 1, di) in dt, ssm float32
+        di = cfg.num_heads * cfg.resolved_head_dim
+        c["conv"] = torch.zeros((L, batch, cfg.ssm.conv_width - 1, di),
+                                dtype=dt, device=device)
+        c["ssm"] = torch.zeros((L, batch, di, cfg.ssm.state_size),
+                               dtype=torch.float32, device=device)
     return c
-
-
-def _mamba_states(cfg: ModelConfig, L: int, batch: int, dt, device):
-    """A hybrid cache's zeroed Mamba leaves: ``conv`` (L, B, W - 1, di) in
-    ``dt`` and ``ssm`` (L, B, di, n) in float32."""
-    di = cfg.num_heads * cfg.resolved_head_dim
-    return {"conv": torch.zeros((L, batch, cfg.ssm.conv_width - 1, di),
-                                dtype=dt, device=device),
-            "ssm": torch.zeros((L, batch, di, cfg.ssm.state_size),
-                               dtype=torch.float32, device=device)}
 
 
 def _pos_tensor(pos, device) -> torch.Tensor:
@@ -366,7 +407,11 @@ def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
             cache_slices["xprev_c"])
         return h, new
     hn = apply_norm(cfg, bp["ln1"], h)
-    if "hyb" in bp:
+    if "mla" in bp:
+        mix, new["c_kv"], new["k_rope"] = mla_mod.decode_mla(
+            cfg, bp["mla"], hn, cache_slices["c_kv"], cache_slices["k_rope"],
+            pos)
+    elif "hyb" in bp:
         mix, new["k"], new["v"], new["conv"], new["ssm"] = \
             hyb_mod.decode_hybrid(cfg, bp["hyb"], hn, cache_slices["k"],
                                   cache_slices["v"], cache_slices["conv"],
@@ -416,18 +461,19 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
 # ---------------------------------------------------------------------------
 
 def _pad_cache(out, x) -> None:
-    """Write one layer's K or V ``x`` (B, S, ...) into its zeroed cache
-    slice ``out`` (B, cache_len, ...): cut past ``cache_len``, zeros after
-    S (the reference's pad or truncation, in place)."""
+    """Write one layer's K, V, latent or rope key ``x`` (B, S, ...) into
+    its zeroed cache slice ``out`` (B, cache_len, ...): cut past
+    ``cache_len``, zeros after S (the reference's pad or truncation, in
+    place)."""
     n = min(x.shape[1], out.shape[1])
     out[:, :n] = x[:, :n]
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
     """tokens (B, S) int -> (next-token logits (B, V) float32, the cache
-    filled for positions [0, S)).  The KV cache holds ``cache_len``
-    positions (default S) in the compute dtype; RWKV's cache, and a
-    hybrid cache's Mamba leaves, are the states after the last token,
+    filled for positions [0, S)).  The KV (or MLA) cache holds
+    ``cache_len`` positions (default S) in the compute dtype; RWKV's cache,
+    and a hybrid cache's Mamba leaves, are the states after the last token,
     whatever ``cache_len``.  Runs the reference mixers, as the reference's
     prefill does."""
     check_supported(cfg)
@@ -438,25 +484,31 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
         return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
     h = _embed(cfg, params, tokens)
     pos = _positions(cfg, tokens)
-    cd = dtype_of(cfg.compute_dtype)
-    cache = attn_mod.init_kv_cache(cfg, B, cache_len, cfg.num_layers, cd,
-                                   h.device)
-    if cfg.attention_kind == "hybrid":
-        cache.update(_mamba_states(cfg, cfg.num_layers, B, cd, h.device))
+    cache = init_cache(cfg, B, cache_len, dtype_of(cfg.compute_dtype),
+                       h.device)
+    # the leaves each layer's mixer returns, padded to cache_len
+    padded = ("c_kv", "k_rope") if cfg.attention_kind == "mla" else ("k",
+                                                                      "v")
     for i, bp in enumerate(all_layers(params)):
         hn = apply_norm(cfg, bp["ln1"], h)
         hyb = bp.get("hyb")
-        a, k, v = attn_mod.apply_attention(
-            cfg, bp["attn"] if hyb is None else hyb["attn"], hn, pos,
-            return_kv=True)
+        if "mla" in bp:
+            # c_kv after its norm, the rope key after RoPE: the same
+            # projection as the mixer's output
+            a, *kv = mla_mod.apply_mla(cfg, bp["mla"], hn, pos,
+                                       return_cache=True)
+        else:
+            a, *kv = attn_mod.apply_attention(
+                cfg, bp["attn"] if hyb is None else hyb["attn"], hn, pos,
+                return_kv=True)
         if hyb is not None:
             m, cache["conv"][i], cache["ssm"][i] = ssm_mod.apply_mamba(
                 cfg, hyb["mamba"], hn)
             a = hyb_mod.merge(hyb, a, m)
         h = h + a
         h = h + _ffn(cfg, bp, h)[0]
-        _pad_cache(cache["k"][i], k)
-        _pad_cache(cache["v"][i], v)
+        for name, x in zip(padded, kv):
+            _pad_cache(cache[name][i], x)
     # only the next-token logits: the whole (B, S, V) is dead weight
     return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
 

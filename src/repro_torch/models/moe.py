@@ -7,7 +7,10 @@ Switch load-balance loss as the auxiliary loss.  ``_moe_dispatch`` sorts
 the (token, slot) pairs by expert, keeps the first ``C`` of each expert
 (the capacity), runs every expert over its ``C`` rows of an expert-major
 (E, C, D) buffer as batched products, and adds each kept pair's output,
-weighted by its probability, back to its token.
+weighted by its probability, back to its token: a token's K terms in
+ascending expert order, rounded to the compute dtype after each add, as
+the reference's scatter-add adds them on the CPU (``combine``), and so in
+one fixed order on the card too.
 
 ``cfg.moe.impl``:
 
@@ -140,6 +143,30 @@ def dispatch_plan(cfg: ModelConfig, top_idx, C: int):
     return order, e_s, pos, pos < C
 
 
+def combine(out_buf, slot, w, order, top_idx):
+    """The weighted expert outputs added back to their tokens, in the
+    compute dtype: ``out_buf`` (rows, D) the experts' output rows; ``slot``
+    and ``w`` (T K,) each pair's row and weight in ``dispatch_plan``'s
+    sorted ``order``; ``top_idx`` (T, K) -> y (T, D).
+
+    The reference's scatter-add (``.at[t_s].add``) meets a token's K terms
+    in the sorted order, which is ascending expert, and rounds after each
+    add (XLA on the CPU); so does this loop, K gathers, products and adds
+    of (T, D).  ``index_add_`` would sum each token's terms in float32 and
+    round once on the CPU (in bf16 it matches the reference at K = 2 and
+    in about half the elements at K = 8), and on CUDA in no fixed order."""
+    T, K = top_idx.shape
+    slot_t, w_t = torch.empty_like(slot), torch.empty_like(w)
+    slot_t[order], w_t[order] = slot, w            # token-major: t K + k
+    by_expert = top_idx.argsort(dim=1)
+    slot_t = slot_t.view(T, K).gather(1, by_expert)
+    w_t = w_t.view(T, K).gather(1, by_expert)
+    y = out_buf.new_zeros((T, out_buf.shape[1]))
+    for k in range(K):
+        y = y + out_buf[slot_t[:, k]] * w_t[:, k, None]
+    return y
+
+
 def _moe_dispatch(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     m = cfg.moe
@@ -168,11 +195,10 @@ def _moe_dispatch(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor,
         buf, p["we3"].to(cd))
     out_buf = torch.bmm(h, p["we2"].to(cd)).view(E * C, D)
 
-    # the combine, in the compute dtype: a dropped pair reads slot 0 of its
-    # expert and adds it times 0, as the reference does
+    # a dropped pair reads slot 0 of its expert and adds it times 0, as the
+    # reference does
     slot_c = torch.where(keep, slot, e_s * C)
-    contrib = out_buf[slot_c] * (p_s * keep).to(cd)[:, None]
-    y = xc.new_zeros((T, D)).index_add_(0, t_s, contrib)
+    y = combine(out_buf, slot_c, (p_s * keep).to(cd), order, top_idx)
 
     if m.num_shared_experts and "shared" in p:
         sp = p["shared"]

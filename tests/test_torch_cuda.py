@@ -756,6 +756,44 @@ def test_lm_forward_on_card(cuda, name):
     assert err <= 2e-5
 
 
+@pytest.mark.cuda
+def test_deepseek_forward_on_card(cuda):
+    """forward_train of the reduced deepseek-v3 (float32, 1 dense and 1 MoE
+    layer, MLA, the MTP head) on the card against the CPU: the logits
+    within 2e-5 (the CPU parity tests' tolerance against the reference)
+    and the aux (the router's loss and the MTP term) within 1e-5; no kernel
+    launches on either backend (MLA and the experts run none), and backend
+    "pallas" gives what "reference" gives."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    cfg = get_config("deepseek-v3-671b").reduced()
+    params = model.init_params(cfg, seed=0, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+
+    pc = to(params)
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    wrappers = (fops.flash_attention_bf16_cuda, fops.flash_attention_fp32_cuda,
+                wops.wkv6_cuda, tops.rb_sor_slabs_packed_cuda,
+                tops.rb_sor_slabs_cuda, aops.fused_interval_cuda)
+    n0 = [w.launches for w in wrappers]
+    out, aux = model.forward_train(cfg, pc, tokens.to(cuda),
+                                   backend="pallas")
+    ref, ref_aux = model.forward_train(cfg, pc, tokens.to(cuda))
+    assert [w.launches for w in wrappers] == n0
+    cpu, cpu_aux = model.forward_train(cfg, params, tokens)
+    torch.cuda.synchronize()
+    err = max_diff(cpu, out.cpu())
+    print(f"forward_train deepseek-v3 reduced: max|card - cpu| {err:.3e}, "
+          f"aux {float(aux):.6f} vs {float(cpu_aux):.6f}")
+    assert err <= 2e-5 and max_diff(ref, out) <= 2e-5
+    assert abs(float(aux) - float(cpu_aux)) <= 1e-5
+    assert abs(float(ref_aux) - float(aux)) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # the robust training path through the fused kernel
 # ---------------------------------------------------------------------------
@@ -923,14 +961,16 @@ def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
 @pytest.mark.parametrize("name,changes", [
     ("phi4-mini-3.8b", {"num_kv_heads": 2}), ("rwkv6-3b", {}),
     ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"}),
-    ("phi3.5-moe-42b-a6.6b", {}), ("hymba-1.5b", {})])
+    ("phi3.5-moe-42b-a6.6b", {}), ("hymba-1.5b", {}),
+    ("deepseek-v3-671b", {})])
 def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
     """``prefill`` of 64 tokens, then 4 ``decode_step``s from it and 4 from
     ``init_cache`` (float8 for llama3 here), of a reduced float32 config on
     the card against the same calls on the CPU (TF32 off): logits within
     2e-5 (the CPU parity tests' tolerance against the reference), every
     cache leaf within 2e-5 of its largest value (hymba's Mamba conv and
-    SSM states among them), a float8 leaf within one e4m3 step (2^-3 of
+    SSM states and deepseek-v3's MLA latent and rope key among them; its
+    decode runs the absorbed form), a float8 leaf within one e4m3 step (2^-3 of
     the value); the position goes in as a CUDA tensor on the card."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model

@@ -38,7 +38,8 @@ from repro_torch.models import ssm as tssm
 from tests._torch_parity import assert_close, max_diff, to_np
 
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
-         "llama3-405b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b")
+         "llama3-405b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+         "deepseek-v3-671b")
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -63,7 +64,7 @@ def _t(a, dtype=torch.float32):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_configs_match_reference(name):
-    """The port's copy of the seven configs, full and reduced, field by
+    """The port's copy of the eight configs, full and reduced, field by
     field; the padded vocabularies (every vocabulary is a multiple of 256
     but phi4-mini's, phi3.5-moe's and hymba's)."""
     ref, out = jbase.get_config(name), tbase.get_config(name)
@@ -75,7 +76,7 @@ def test_configs_match_reference(name):
     assert {"phi4-mini-3.8b": 200192, "rwkv6-3b": 65536,
             "qwen1.5-32b": 152064, "mistral-large-123b": 32768,
             "llama3-405b": 128256, "phi3.5-moe-42b-a6.6b": 32256,
-            "hymba-1.5b": 32256}[name] \
+            "hymba-1.5b": 32256, "deepseek-v3-671b": 129280}[name] \
         == out.vocab_padded
     assert ({k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()}
             == {k: dataclasses.asdict(v)
@@ -83,12 +84,13 @@ def test_configs_match_reference(name):
 
 
 def test_registry_holds_the_ported_configs():
-    """The seven configs whose model path is ported, each the registry's
-    object; the reference's other configs and unknown names raise."""
+    """The eight configs whose model path is ported, each the registry's
+    object; the reference's other configs (the encoder-decoder's among
+    them) and unknown names raise."""
     assert tbase.list_configs() == sorted(NAMES)
     for name in NAMES:
         assert tbase.get_config(name).name == name
-    for name in ("deepseek-v3-671b", "no-such-arch"):
+    for name in ("seamless-m4t-large-v2", "no-such-arch"):
         with pytest.raises(KeyError, match="unknown arch"):
             tbase.get_config(name)
 
@@ -541,9 +543,18 @@ def test_model_params_from_jax_keeps_bfloat16_exactly():
 
 
 def test_unported_configs_raise():
+    """M-RoPE and the encoder-decoder are refused; MLA and the MTP head,
+    ported since their cases were written, are accepted: ``init_params``
+    builds their trees (``mla`` in the blocks, ``mtp`` beside them)."""
     cfg = tbase.get_config("phi4-mini-3.8b").reduced()
-    for changes in ({"attention_kind": "mla"}, {"mtp": True},
-                    {"rope_kind": "mrope"}, {"encoder_layers": 2}):
+    for changes in ({"rope_kind": "mrope"}, {"encoder_layers": 2}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tmodel.init_params(dataclasses.replace(cfg, **changes),
                                device="cpu")
+    for changes, key in (({"attention_kind": "mla",
+                           "mla": tbase.MLAConfig(q_lora_rank=64,
+                                                  kv_lora_rank=32)}, "mla"),
+                         ({"mtp": True}, "mtp")):
+        params = tmodel.init_params(dataclasses.replace(cfg, **changes),
+                                    device="cpu")
+        assert key in (params if key == "mtp" else params["blocks"])

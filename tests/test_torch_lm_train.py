@@ -69,7 +69,7 @@ from tests._torch_parity import to_np
 
 ROOT = Path(__file__).resolve().parent.parent
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
-         "llama3-405b")
+         "llama3-405b", "deepseek-v3-671b")
 STEPS = 3
 LR = 1e-4                     # make_opt's rate
 B, S = 4, 32

@@ -33,7 +33,7 @@ from tests._torch_parity import assert_close, max_diff, to_np
 from tests.test_torch_lm import LOGIT_ATOL
 
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
-         "llama3-405b")
+         "llama3-405b", "deepseek-v3-671b")
 DENSE = ("phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b",
          "llama3-405b")
 F8 = "float8_e4m3fn"
@@ -110,7 +110,8 @@ def test_init_cache_matches_reference_shapes(name):
     """The full configs' caches, as ``jax.eval_shape`` gives the
     reference's (the twin of tests/test_launch.py's fp8 check): the three
     big dense configs in float8_e4m3fn, phi4-mini in bfloat16, RWKV's
-    state in float32 beside bfloat16 shift states; all zero."""
+    state in float32 beside bfloat16 shift states, deepseek-v3's
+    compressed MLA latent and rope key in bfloat16; all zero."""
     cfg_j, cfg_t = jbase.get_config(name), tbase.get_config(name)
     ref = jax.eval_shape(lambda: jmodel.init_cache(cfg_j, 2, 64))
     out = tmodel.init_cache(cfg_t, 2, 64, device="cpu")
@@ -119,9 +120,11 @@ def test_init_cache_matches_reference_shapes(name):
         assert tuple(r.shape) == tuple(out[k].shape), k
         assert out[k].dtype == tmodel.dtype_of(np.dtype(r.dtype).name), k
         assert not out[k].view(torch.uint8).any(), k
-    kv_dtype = out["xprev_t" if name == "rwkv6-3b" else "k"].dtype
+    kv_dtype = out[{"rwkv6-3b": "xprev_t",
+                    "deepseek-v3-671b": "c_kv"}.get(name, "k")].dtype
     assert kv_dtype == (torch.bfloat16 if name in ("phi4-mini-3.8b",
-                                                   "rwkv6-3b")
+                                                   "rwkv6-3b",
+                                                   "deepseek-v3-671b")
                         else torch.float8_e4m3fn)
     over = tmodel.init_cache(cfg_t, 1, 8, dtype=torch.bfloat16, device="cpu")
     assert all(v.dtype == (torch.float32 if k == "state" else torch.bfloat16)
@@ -439,7 +442,7 @@ UNPORTED = {
 
 # parts ported since their refusal case was written: each case now checks
 # that the serving entry points accept such a config
-PORTED = ("moe", "hybrid")
+PORTED = ("moe", "hybrid", "mla", "mtp")
 
 
 @pytest.mark.parametrize("part", sorted(UNPORTED))
@@ -473,7 +476,9 @@ def serving_accepts(part, cfg):
                                               d_ff_expert=64)},
                "hybrid": {"attention_kind": "hybrid",
                           "ssm": jbase.SSMConfig(kind="mamba",
-                                                 state_size=8)}}[part]
+                                                 state_size=8)},
+               "mla": {"attention_kind": "mla", "mla": jbase.MLAConfig()},
+               "mtp": {"mtp": True}}[part]
     cfg_j = dataclasses.replace(jbase.get_config("phi4-mini-3.8b").reduced(),
                                 **changes)
     assert dataclasses.asdict(cfg_j) == dataclasses.asdict(cfg)
