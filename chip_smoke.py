@@ -252,10 +252,36 @@ Phases (any failure exits non-zero):
    within ``TOL_TRAIN_LOSS`` of its microbatches' separate ``lm_loss``;
    (e) ``python -m repro_torch.launch.train --arch deepseek-v3-671b
    --reduced --steps 20`` exits 0;
-18. one JSON line listing the five kernels, then the card's line and the
+18. the encoder-decoder and the modality frontends, both models at full
+   width and depth, random bf16 params from a seed: (a) qwen2-vl-2b (28
+   layers, M-RoPE, qkv biases) with 1024 patch embeddings from a seed,
+   (b) seamless-m4t-large-v2 (24 encoder and 24 decoder layers, gelu,
+   LayerNorm, sinusoidal positions) with 512 frame embeddings; for each:
+   ``lm_loss(backend="pallas")``, B=1, S=4096, first and steady call, one
+   bf16 flash launch a decoder layer (28, 24) and none of any other, held
+   block by block (cross attention included) against backend="reference"
+   within ``TOL_LM_LAYER`` and the loss within ``TOL_LM_LOSS``; for (b)
+   the encoder alone over its frames launches no kernel; the flash kernel
+   at the decoder's shape (H 12 over Hkv 2 at dh 128; H 16 over Hkv 16 at
+   dh 64) against its twin within ``TOL_FLASH["bfloat16"]``, timed beside
+   SDPA (``is_causal=True, enable_gqa=True``) and its bound; ``prefill``
+   of a 4096 prompt with its embeddings into a cache of 4160 and 16
+   greedy ``decode_step``s (p50 / p99 beside the bound of the bytes a
+   token reads: the decoder's blocks, the head and the whole cache, the
+   cross K / V included; kernels a step, the idle share, the peak), the
+   first decode's logits within ``TOL_FRONTEND_DECODE`` of
+   ``forward_train(backend="reference")``'s at position 4096 and each
+   decode block within ``TOL_LM_LAYER`` of the pallas forward's over 4224
+   tokens (28 / 24 flash launches); ``make_train_step`` (AdamW, 4
+   microbatches of one 4096-token sequence with its embeddings, 3 steps):
+   the first loss within ``TOL_TRAIN_LOSS`` of its microbatches' separate
+   ``lm_loss``, no kernel launched, the peak; ``python -m
+   repro_torch.launch.train --arch <config> --reduced --steps 20`` exits
+   0;
+19. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13,14,15,16,17`` runs any of those seven phases alone
+``--phases 10,12,13,14,15,16,17,18`` runs any of those eight phases alone
 after the build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
@@ -1228,25 +1254,29 @@ def rel_rms(a, b):
     return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
 
 
-def hold_layers(cfg, params, tokens):
+def hold_layers(cfg, params, tokens, frontend_embeds=None):
     """The two backends block by block on the reference's hidden states:
     (worst block-update difference, difference of the last block's logits,
     free-running full-depth logits difference, the logits' RMS), each
-    relative to the reference's RMS."""
+    relative to the reference's RMS.  A frontend config's embeddings go
+    into the decoder's input (a vision prompt's patches) or through the
+    encoder, whose output ``enc_out`` every decoder block attends."""
     import torch
     from repro_torch.models import model
-    h_ref = model._embed(cfg, params, tokens)
+    h_ref = model._embed(cfg, params, tokens, frontend_embeds)
+    enc_out = (model._run_encoder(cfg, params, frontend_embeds)
+               if cfg.is_encdec else None)
     h_free = h_ref
     pos = model._positions(cfg, tokens)
     worst = 0.0
     for bp in model.all_layers(params):
-        k = model._block_body(cfg, h_ref, bp, positions=pos,
+        k = model._block_body(cfg, h_ref, bp, positions=pos, enc_out=enc_out,
                               backend="pallas")[0]
-        r = model._block_body(cfg, h_ref, bp, positions=pos,
+        r = model._block_body(cfg, h_ref, bp, positions=pos, enc_out=enc_out,
                               backend="reference")[0]
         worst = max(worst, rel_rms(k - h_ref, r - h_ref))
         h_free = model._block_body(cfg, h_free, bp, positions=pos,
-                                   backend="pallas")[0]
+                                   enc_out=enc_out, backend="pallas")[0]
         h_ref = r
     logits_r = model._unembed(cfg, params, h_ref)
     if not (bool(torch.isfinite(logits_r).all())
@@ -1259,10 +1289,23 @@ def hold_layers(cfg, params, tokens):
     return worst, d_last, d_free, rms
 
 
+def frontend_embeds(cfg, S, rng, dev):
+    """A frontend config's embeddings for a prompt of S tokens (its frames
+    or patches, N(0, 1) float32 from ``rng``), or None."""
+    import torch
+    from repro_torch.models import frontend
+    if not cfg.frontend:
+        return None
+    return torch.tensor(rng.standard_normal(
+        (1, frontend.num_frontend_tokens(cfg, S), frontend.frontend_dim(cfg))),
+        dtype=torch.float32, device=dev)
+
+
 def run_lm(dev, name, S, kernel, per_layer=1):
-    """lm_loss(backend="pallas") of a full-width config at B=1, S tokens:
-    the kernel must launch ``per_layer`` times a layer; logits and loss
-    held against backend="reference" on the same params and tokens."""
+    """lm_loss(backend="pallas") of a full-width config at B=1, S tokens
+    (a frontend config's embeddings drawn after them): the kernel must
+    launch ``per_layer`` times a decoder layer; logits and loss held
+    against backend="reference" on the same params and inputs."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -1275,10 +1318,17 @@ def run_lm(dev, name, S, kernel, per_layer=1):
     tokens, labels = (torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)),
                                    device=dev) for _ in range(2))
     batch = {"tokens": tokens, "labels": labels}
-    print(f"[lm {name}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab_padded}, {n_params / 1e9:.3f} B params "
-          f"({cfg.param_dtype}) drawn on the card in {secs:.3f} s; B=1, "
-          f"S={S} (train_4k's length, batch cut from 256 to 1)")
+    fe = frontend_embeds(cfg, S, rng, dev)
+    if fe is not None:
+        batch["frontend_embeds"] = fe
+    extra = "" if fe is None else (
+        f", {cfg.encoder_layers} encoder layers" if cfg.is_encdec else "")
+    seen = "" if fe is None else (f"; {cfg.frontend} embeddings "
+                                  f"{tuple(fe.shape)}")
+    print(f"[lm {name}] {cfg.num_layers} layers{extra}, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_padded}, {n_params / 1e9:.3f} B "
+          f"params ({cfg.param_dtype}) drawn on the card in {secs:.3f} s; "
+          f"B=1, S={S} (train_4k's length, batch cut from 256 to 1){seen}")
     with torch.inference_mode():
         reset_counts()
         (loss, _), secs = wall(lambda: model.lm_loss(cfg, params, batch,
@@ -1299,7 +1349,7 @@ def run_lm(dev, name, S, kernel, per_layer=1):
         (ref_loss, _), ref_secs = wall(lambda: model.lm_loss(
             cfg, params, batch, backend="reference"))
         d_loss = abs(float(loss) - float(ref_loss))
-        worst, d_last, d_free, rms = hold_layers(cfg, params, tokens)
+        worst, d_last, d_free, rms = hold_layers(cfg, params, tokens, fe)
     print(f"[lm {name}] backend='reference' loss {float(ref_loss):.6f} in "
           f"{ref_secs:.3f} s; pallas vs reference: loss {d_loss:.3e} (tol "
           f"{TOL_LM_LOSS:.0e}); on the reference's input to each layer, the "
@@ -2875,11 +2925,12 @@ def prefill_equals_its_layers(cfg, params, tokens, logits, cache):
         fail(f"{cfg.name}: prefill's logits differ from its layers' run")
 
 
-def layer_cache(cfg, bp, x_pre, pos):
+def layer_cache(cfg, bp, x_pre, pos, enc_out=None):
     """One layer's K/V cache of SERVE_CACHE positions built from its input
     ``x_pre`` with prefill's layer code (``apply_attention(return_kv=
     True)``), zeros after; a hybrid layer's also its Mamba states after
-    ``x_pre`` (``apply_mamba``)."""
+    ``x_pre`` (``apply_mamba``); an encoder-decoder layer's also its cross
+    K / V of ``enc_out`` (``cross_kv``)."""
     import torch
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import model, ssm
@@ -2896,26 +2947,32 @@ def layer_cache(cfg, bp, x_pre, pos):
     if "hyb" in bp:
         _, slices["conv"], slices["ssm"] = ssm.apply_mamba(
             cfg, bp["hyb"]["mamba"], hn)
+    if "cross" in bp:
+        slices["xk"], slices["xv"] = attn_mod.cross_kv(cfg, bp["cross"],
+                                                       enc_out)
     return slices
 
 
-def hold_decode_blocks(cfg, params, seq, at):
+def hold_decode_blocks(cfg, params, seq, at, frontend_embeds=None):
     """The decode block against the pallas forward, block by block: feed
-    layer i the forward's input to it (``seq``'s tokens, ``backend=
-    "pallas"``), build that layer's cache from the first ``at`` positions
-    with prefill's layer code, decode position ``at`` through it, and
-    compare the block's update there with the forward's.  For RWKV also
-    hold the states prefill's layer code gives against the kernel's on the
-    same input.  Returns (worst update difference, worst state readings)."""
+    layer i the forward's input to it (``seq``'s tokens and a frontend
+    config's embeddings, ``backend="pallas"``), build that layer's cache
+    from the first ``at`` positions with prefill's layer code (and the
+    encoder's output), decode position ``at`` through it, and compare the
+    block's update there with the forward's.  For RWKV also hold the
+    states prefill's layer code gives against the kernel's on the same
+    input.  Returns (worst update difference, worst state readings)."""
     import torch
     from repro_torch.models import model
-    h = model._embed(cfg, params, seq)
+    h = model._embed(cfg, params, seq, frontend_embeds)
+    enc_out = (model._run_encoder(cfg, params, frontend_embeds)
+               if cfg.is_encdec else None)
     pos = model._positions(cfg, seq)
     p_at = model._pos_tensor(at, seq.device)
     worst, st_worst, xc_worst, xt_equal = 0.0, 0.0, 0.0, True
     for bp in model.all_layers(params):
         h_next = model._block_body(cfg, h, bp, positions=pos,
-                                   backend="pallas")[0]
+                                   enc_out=enc_out, backend="pallas")[0]
         x_pre, x_tok = h[:, :at], h[:, at:at + 1]
         if cfg.attention_kind == "none":
             x0, s0 = model._rwkv_zero_states(cfg, x_pre)
@@ -2928,7 +2985,7 @@ def hold_decode_blocks(cfg, params, seq, at):
             xt_equal &= torch.equal(xt, xt_k)
             slices = {"state": st, "xprev_t": xt, "xprev_c": xc}
         else:
-            slices = layer_cache(cfg, bp, x_pre, pos[:, :at])
+            slices = layer_cache(cfg, bp, x_pre, pos[:, :at], enc_out)
         out, _ = model._decode_block(cfg, x_tok, bp, slices, p_at)
         worst = max(worst, rel_rms(out - x_tok,
                                    h_next[:, at:at + 1] - x_tok))
@@ -4792,8 +4849,272 @@ def deepseek_path(card):
     return out
 
 
+# the two configs and their keys in the kernels line's flash row
+FRONTEND_CONFIGS = {"qwen2-vl-2b": "qwen2_vl",
+                    "seamless-m4t-large-v2": "seamless"}
+# (b) / (c) of phase 18: 16 greedy decode steps from the 4096 prompt
+FRONTEND_DECODE_STEPS = 16
+# the first decode's logits against forward_train(backend="reference")'s at
+# position 4096, the forward that runs the mixers prefill filled the cache
+# with: max |decode - forward| / max |forward|, the reference's
+# test_prefill_decode_consistency gate (phase 17's TOL_DS_DECODE)
+TOL_FRONTEND_DECODE = 0.05
+
+
+def frontend_flash_reading(dev, card, cfg):
+    """Phase 18: the flash kernel at the decoder's shape (qwen2-vl: H 12
+    over Hkv 2, a group of 6, dh 128; seamless: H 16 over Hkv 16, dh 64),
+    causal, B 1, S 4096, held against its plain twin, timed beside SDPA
+    and its bound."""
+    import torch
+    import torch.nn.functional as F
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    S = TRAIN_SEQ
+    measures, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv,
+                                                         dh, 0, 10)
+    ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    sdpa_rel = rel_rms(sdpa().transpose(1, 2), ref)
+    library_ms = cuda_ms(sdpa, 20)
+    flops, nb = flash_flops(H, S, dh), 2 * S * dh * (2 * H + 2 * Hkv)
+    bound_ms, bound_by = bound(nb, (flops, BF16_PEAK))
+    print(f"[frontend flash {cfg.name}] bf16 B=1 S={S} H={H} Hkv={Hkv} "
+          f"dh={dh} causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain twin "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention(is_causal=True, "
+          f"enable_gqa=True) {library_ms:.4f} ms, its output {sdpa_rel:.3e} "
+          f"of the twin's RMS away; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP bf16, {nb / 1e6:.4f} MB); card {card}")
+    if bound_ms / ms >= 1:
+        fail(f"the flash kernel at {cfg.name}'s shape reads "
+             f"{bound_ms / ms:.3f} of its bound: the bound's count is wrong")
+    del q, k, v, qt, kt, vt, ref
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
+                rel_rms=measures[0], worst_row=measures[1],
+                max_abs_err=measures[2], sdpa_rel_rms=sdpa_rel,
+                shape=f"bf16, B=1, S={S}, H={H}, Hkv={Hkv}, dh={dh}, causal")
+
+
+def frontend_encoder_launches(dev, card, cfg, params):
+    """Phase 18 (b): the encoder alone over 512 frames launches no kernel
+    (its non-causal attention is the dense plain one, as the reference's
+    encoder scan takes its default backend); its time."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    fe = frontend_embeds(cfg, TRAIN_SEQ, np.random.default_rng(27), dev)
+    with torch.inference_mode():
+        reset_counts()
+        enc, secs = wall(lambda: model._run_encoder(cfg, params, fe))
+        launched = counts()
+    print(f"[frontend encoder {cfg.name}] _run_encoder over "
+          f"{fe.shape[1]} frames of {fe.shape[2]}: {cfg.encoder_layers} "
+          f"layers, out {tuple(enc.shape)} finite "
+          f"{bool(torch.isfinite(enc).all())}, {secs:.4f} s; kernel "
+          f"launches {launched}; card {card}")
+    if any(launched.values()) or not bool(torch.isfinite(enc).all()):
+        fail(f"{cfg.name}: the encoder launched kernels {launched} or gave "
+             f"non-finite output")
+    return secs
+
+
+def frontend_serve(dev, card, cfg, params):
+    """Phase 18 (a) / (b): prefill of a 4096 prompt with its frontend
+    embeddings into a cache of 4160, 16 greedy decode steps (p50 / p99
+    beside the bound of the bytes a token reads: the decoder's blocks,
+    the head and the whole cache, cross K / V included, not the encoder,
+    which a decode does not run), kernels a step, the idle share, the
+    peak; the first decode held against the forward's logits at position
+    4096 and block by block against the pallas forward."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    tag = f"[frontend serve {cfg.name}]"
+    rng = np.random.default_rng(26)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)),
+                          device=dev)
+    fe = frontend_embeds(cfg, SERVE_PROMPT, rng, dev)
+    n = FRONTEND_DECODE_STEPS
+    with torch.inference_mode():
+        (logits, cache), first_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE, frontend_embeds=fe))
+        (logits, cache), steady_s = wall(lambda: model.prefill(
+            cfg, params, prompt, cache_len=SERVE_CACHE, frontend_embeds=fe))
+        if logits.shape != (1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name}: prefill logits not finite or not (1, "
+                 f"{cfg.vocab_padded})")
+        cache_bytes = {k: nbytes([v]) for k, v in cache.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, decoded, first = timed_decode(
+            cfg, params, cache, logits.argmax(-1, keepdim=True),
+            SERVE_PROMPT, steps=n)
+        launched = counts()
+        prof = profile_decode(cfg, params, cache, decoded[:, -1:],
+                              SERVE_PROMPT + n)
+        peak = torch.cuda.max_memory_allocated()
+        parts, total, bound_ms = decode_reading(params, cache)
+        p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+        del cache
+        torch.cuda.empty_cache()
+        pad = torch.tensor(rng.integers(
+            0, cfg.vocab_size, (1, SERVE_YARDSTICK - SERVE_PROMPT - n)),
+            device=dev)
+        seq = torch.cat([prompt, decoded, pad], dim=1)
+        (ref, _), ref_s = wall(lambda: model.forward_train(
+            cfg, params, seq, fe, backend="reference"))
+        ref = ref[:, SERVE_PROMPT]
+        reset_counts()
+        (fwd, _), fwd_s = wall(lambda: model.forward_train(
+            cfg, params, seq, fe, backend="pallas"))
+        fwd_launched = counts()
+        fwd = fwd[:, SERVE_PROMPT]
+        ratio = float((first - ref).abs().max() / ref.abs().max())
+        free = rel_rms(first, fwd)
+        agree = bool(first.argmax(-1) == ref.argmax(-1))
+        worst, _ = hold_decode_blocks(cfg, params, seq, SERVE_PROMPT, fe)
+    others = sum(v for k, v in fwd_launched.items() if k != "flash_attention")
+    leaves_note = ", cross K / V of the prompt's frames read by every step" \
+        if cfg.is_encdec else ""
+    print(f"{tag} {cfg.num_layers} decoder layers, bf16 random params; "
+          f"prefill B=1, S={SERVE_PROMPT} with {fe.shape[1]} {cfg.frontend} "
+          f"embeddings, cache_len {SERVE_CACHE}: {first_s:.4f} s first call, "
+          f"{steady_s:.4f} s steady; cache bytes {cache_bytes}{leaves_note}; "
+          f"{n} greedy decode_steps: p50 {p50:.4f} ms, p99 {p99:.4f} ms per "
+          f"token, kernel launches {launched}; the bound {bound_ms:.4f} ms: "
+          f"{total} bytes read a token ({parts}; not the encoder) at 3.35 "
+          f"TB/s; p50 / bound {p50 / bound_ms:.2f}; "
+          f"{profile_note(prof, p50)}; peak {peak} bytes allocated while "
+          f"decoding; card {card}")
+    print(f"{tag} the first decode at position {SERVE_PROMPT} against "
+          f"forward_train over {SERVE_YARDSTICK} tokens: backend 'reference' "
+          f"({ref_s:.4f} s), max|decode - forward| / max|forward| of the "
+          f"logits {ratio:.4e} (tol {TOL_FRONTEND_DECODE}), argmax "
+          f"{'equal' if agree else 'different'}; backend 'pallas' "
+          f"({fwd_s:.4f} s, {fwd_launched['flash_attention']} flash "
+          f"launches, {others} of the others): the logits {free:.3e} of "
+          f"their RMS apart (reported); block by block on its input to each "
+          f"layer, the decode block's update {worst:.3e} of its RMS from the "
+          f"forward's at worst (tol {TOL_LM_LAYER:.0e})")
+    if any(launched.values()):
+        fail(f"{cfg.name}: decode launched kernels {launched}")
+    if fwd_launched["flash_attention"] != cfg.num_layers or others:
+        fail(f"{cfg.name}: the yardstick launched "
+             f"{fwd_launched['flash_attention']} flash (expected "
+             f"{cfg.num_layers}) and {others} others")
+    if not (ratio < TOL_FRONTEND_DECODE and worst <= TOL_LM_LAYER):
+        fail(f"{cfg.name}: the decode at {SERVE_PROMPT} differs from the "
+             f"forward's")
+    return dict(prefill_s=steady_s, prefill_first_s=first_s,
+                cache_bytes=sum(cache_bytes.values()), decode_p50_ms=p50,
+                decode_p99_ms=p99, decode_bound_ms=bound_ms,
+                decode_profile=prof, decode_peak_bytes=peak,
+                decode_vs_forward=ratio, decode_block_worst=worst,
+                yardstick_launches=fwd_launched["flash_attention"])
+
+
+def frontend_train(card, name):
+    """Phase 18 (a) / (b): ``make_train_step`` at full width and depth,
+    AdamW, remat "full", 4 microbatches of one 4096-token sequence with
+    its frontend embeddings (``synthetic_batch``), 3 steps."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import model
+    cfg = get_config(name)
+    n_mb = cfg.train_microbatches
+    params = model.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in steps.param_leaves(params))
+    batch = train_batch(cfg, n_mb, 0)
+    fe_shape = tuple(batch["frontend_embeds"].shape)
+    with torch.no_grad():
+        ref = sum(float(model.lm_loss(cfg, params, {
+            k: v[i:i + 1] for k, v in batch.items()})[0])
+            for i in range(n_mb)) / n_mb
+    del batch
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses, secs, peak, _ = train_steps(cfg, params, TRAIN_STEPS, n_mb)
+    launched = counts()
+    del params
+    torch.cuda.empty_cache()
+    steady = sum(secs[1:]) / len(secs[1:])
+    hw = roofline.hardware_spec(device="cuda")
+    flops = roofline.model_flops(cfg, InputShape("train", TRAIN_SEQ, n_mb,
+                                                 "train"),
+                                 steps.abstract_params(cfg))
+    d_loss = abs(losses[0] - ref) / abs(ref)
+    print(f"[frontend train {name}] {n_params} params bf16, AdamW, remat "
+          f"{cfg.remat!r}; {n_mb} microbatches of one {TRAIN_SEQ}-token "
+          f"sequence with its {cfg.frontend} embeddings (batch {fe_shape}); "
+          f"losses {losses}; s per step {secs} (steady {steady:.4f}); "
+          f"{n_mb * TRAIN_SEQ / steady:.1f} tokens/s; peak {peak} bytes "
+          f"allocated; model FLOPs {flops:.4e} a step (the encoder's over "
+          f"the frames), {flops / (steady * hw.peak_flops):.4f} of "
+          f"{hw.name}'s {hw.peak_flops:.3e} FLOP/s; the first loss against "
+          f"its microbatches' separate lm_loss {ref:.6f}: {d_loss:.3e} "
+          f"relative (tol {TOL_TRAIN_LOSS:.0e}); kernel launches {launched}; "
+          f"card {card}")
+    if not all(math.isfinite(x) for x in losses) or d_loss > TOL_TRAIN_LOSS:
+        fail(f"{name}: train losses {losses}, separate {ref}")
+    if any(launched.values()):
+        fail(f"{name}: the train step launched kernels {launched}")
+    return dict(losses=losses, s_per_step=secs, steady_s=steady,
+                tokens_per_s=n_mb * TRAIN_SEQ / steady, peak_bytes=peak,
+                mfu=flops / (steady * hw.peak_flops))
+
+
+def frontend_model(dev, card, name):
+    """Phase 18 (a) / (b): one frontend model whole on the card."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    torch.cuda.empty_cache()
+    out = {}
+    out["launches"], out["lm_first_s"], out["lm_steady_s"] = run_lm(
+        dev, name, TRAIN_SEQ, "flash_attention")
+    cfg = get_config(name)
+    params = model.init_params(cfg, seed=0, device=dev)
+    if cfg.is_encdec:
+        out["encoder_s"] = frontend_encoder_launches(dev, card, cfg, params)
+        out["encoder_launches"] = 0
+    out["flash"] = frontend_flash_reading(dev, card, cfg)
+    out["serve"] = frontend_serve(dev, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    out["train"] = frontend_train(card, name)
+    train_script(card, name)
+    return out
+
+
+def frontend_path(card):
+    """Phase 18: the encoder-decoder and the modality frontends on the
+    card.  Returns the flash row's readings."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, key in FRONTEND_CONFIGS.items():
+        r = frontend_model(dev, card, name)
+        out[f"{key}_launches"] = r.pop("launches")
+        out[f"{key}_path"] = (f"lm_loss({name}, backend='pallas'), B=1, "
+                              f"S={TRAIN_SEQ}, with its frontend embeddings")
+        out[f"{key}_shape"] = r.pop("flash")
+        out[key] = r
+    return out
+
+
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17")
+STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18")
 
 
 def main():
@@ -4835,7 +5156,7 @@ def main():
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
         run = {"10": fleet_path, "12": halo_path, "13": serve_path,
                "14": train_path, "15": moe_path, "16": hybrid_path,
-               "17": deepseek_path}
+               "17": deepseek_path, "18": frontend_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -4998,7 +5319,12 @@ def main():
     _, secs = wall(lambda: deepseek_path(card))
     print(f"[phase 17] {secs:.3f} s")
 
-    # 18. the kernels, the card, the result
+    # 18. the encoder-decoder and the modality frontends
+    fronts, secs = wall(lambda: frontend_path(card))
+    flash.update(fronts)
+    print(f"[phase 18] {secs:.3f} s")
+
+    # 19. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 The port's own copy of ``repro.configs.base`` (plain dataclasses, no
 framework dependency): ``ModelConfig`` and its parts, ``reduced()`` (the CPU
 smoke variant: 2 layers, d_model <= 256, <= 4 experts), the input shapes and
-the registry.  Only the configs whose model path is ported register here:
-the dense ``phi4-mini-3.8b``, ``qwen1.5-32b``, ``mistral-large-123b`` and
+the registry, which holds the reference's ten configs: the dense
+``phi4-mini-3.8b``, ``qwen1.5-32b``, ``mistral-large-123b`` and
 ``llama3-405b``, ``rwkv6-3b``, the mixture of experts
-``phi3.5-moe-42b-a6.6b``, the hybrid ``hymba-1.5b`` and ``deepseek-v3-671b``
-(MLA, the MTP head and 256 experts).
+``phi3.5-moe-42b-a6.6b``, the hybrid ``hymba-1.5b``, ``deepseek-v3-671b``
+(MLA, the MTP head and 256 experts), the encoder-decoder
+``seamless-m4t-large-v2`` (audio frontend) and ``qwen2-vl-2b`` (M-RoPE,
+vision frontend).
 """
 from __future__ import annotations
 
@@ -200,4 +202,5 @@ def _load_all() -> None:
     # import side-effect registers each config module
     from repro_torch.configs import (  # noqa: F401
         deepseek_v3_671b, hymba_15b, llama3_405b, mistral_large_123b,
-        phi35_moe_42b, phi4_mini_38b, qwen15_32b, rwkv6_3b)
+        phi35_moe_42b, phi4_mini_38b, qwen2_vl_2b, qwen15_32b, rwkv6_3b,
+        seamless_m4t_large_v2)

@@ -233,8 +233,10 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
     bfloat16 leaf arrives as an ``ml_dtypes`` array, which torch cannot
     read: it goes through float32, and back to bfloat16 exactly.  The
     layers of ``blocks`` and of a MoE config's ``blocks_dense`` together
-    must be the config's; an MTP head's unstacked block (``mtp``) and MLA's
-    leaves (``mla``) come over as any other subtree."""
+    must be the config's, and an encoder-decoder's ``encoder`` blocks its
+    ``encoder_layers``; an MTP head's unstacked block (``mtp``), MLA's
+    leaves (``mla``), the cross attention (``ln_c``, ``cross``) and the
+    frontend's projector (``frontend``) come over as any other subtree."""
     device = resolve_device(device)
     embed = np.shape(tree["embed"])
     if embed != (cfg.vocab_padded, cfg.d_model):
@@ -246,6 +248,12 @@ def model_params_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"
     if n_layers != cfg.num_layers:
         raise ValueError(f"{n_layers} stacked layers, {cfg.name} has "
                          f"{cfg.num_layers}")
+    if cfg.is_encdec:
+        enc = tree.get("encoder", {}).get("blocks", {})
+        n_enc = np.shape(enc["ln1"]["scale"])[0] if enc else 0
+        if n_enc != cfg.encoder_layers:
+            raise ValueError(f"{n_enc} stacked encoder layers, {cfg.name} "
+                             f"has {cfg.encoder_layers}")
 
     def conv(node):
         if isinstance(node, Mapping):
@@ -281,10 +289,11 @@ def opt_state_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda"):
 def cache_from_jax(cfg: ModelConfig, tree: Mapping, device="cuda") -> dict:
     """The reference's decode cache (a dict of numpy leaves, e.g.
     ``jax.tree.map(np.asarray, cache)``, each stacked on a leading layer
-    axis: K and V, RWKV's or Mamba's states, or MLA's ``c_kv`` and
-    ``k_rope``) as the port's dict of tensors, each leaf in its own dtype: a
-    bfloat16 leaf through float32, exactly; a float8_e4m3fn leaf through
-    its uint8 view, so its bits arrive unchanged."""
+    axis: K and V, RWKV's or Mamba's states, MLA's ``c_kv`` and ``k_rope``,
+    an encoder-decoder's cross ``xk`` and ``xv``) as the port's dict of
+    tensors, each leaf in its own dtype: a bfloat16 leaf through float32,
+    exactly; a float8_e4m3fn leaf through its uint8 view, so its bits
+    arrive unchanged."""
     device = resolve_device(device)
     out = {}
     for name, leaf in tree.items():

@@ -4,9 +4,11 @@ trajectory store.
 Port of ``repro.data.pipeline``.  The LM stream is deterministic by step:
 (seed, step) -> batch in host numpy, the reference's tokens bit for bit,
 so every data-parallel worker can slice its own shard without
-coordination.  The modality frontends are not ported (``ROADMAP.md`` §1
-item 5.5), so a config with a ``frontend`` raises.  ``shard_batch`` places
-a host batch on a mesh's device (``launch/mesh.py``).
+coordination.  A config with a modality frontend also gets its stub
+embeddings, ``frontend_embeds`` (B, T, frontend_dim) float32, drawn from
+the same generator after the tokens, the reference's bit for bit.
+``shard_batch`` places a host batch on a mesh's device
+(``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import frontend as fe_mod
 
 
 @dataclass(frozen=True)
@@ -32,16 +35,17 @@ class LMDataConfig:
 def synthetic_batch(cfg: LMDataConfig, step: int,
                     model_cfg: Optional[ModelConfig] = None) -> Dict:
     """Deterministic synthetic batch for a given step (host numpy)."""
-    if model_cfg is not None and model_cfg.frontend:
-        raise NotImplementedError(
-            f"{model_cfg.name}: frontend {model_cfg.frontend!r} embeddings "
-            f"are not ported yet (ROADMAP.md §1 item 5.5, the modality "
-            f"frontends)")
     rng = np.random.default_rng((cfg.seed, step))
     ranks = rng.zipf(cfg.zipf_alpha,
                      size=(cfg.global_batch, cfg.seq_len + 1))
     tokens = np.minimum(ranks, cfg.vocab_size - 1).astype(np.int32)
-    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if model_cfg is not None and model_cfg.frontend:
+        t = fe_mod.num_frontend_tokens(model_cfg, cfg.seq_len)
+        d = fe_mod.frontend_dim(model_cfg)
+        batch["frontend_embeds"] = rng.standard_normal(
+            (cfg.global_batch, t, d)).astype(np.float32)
+    return batch
 
 
 def lm_iterator(cfg: LMDataConfig, model_cfg: Optional[ModelConfig] = None,

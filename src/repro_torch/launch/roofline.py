@@ -4,9 +4,11 @@ Port of the device half of ``repro.launch.roofline``: :class:`HardwareSpec`,
 :data:`HARDWARE_PRESETS`, :func:`hardware_spec`, :func:`param_count`,
 :func:`active_param_count` and :func:`model_flops`.  MODEL_FLOPS is 6 N D
 for a train step over D tokens (6 N_active D for MoE) and 2 N per token
-for prefill and decode.  The presets keep the reference's ``tpu_v5e`` and
-``cpu_generic`` and add ``h100_sxm``, the dense bfloat16 tensor-core peak
-and HBM3 rate of an H100 SXM.  A spec is chosen explicitly, through
+for prefill and decode; an encoder-decoder's encoder parameters count
+over the frontend's frames instead of the tokens, and not in a decode.
+The presets keep the reference's ``tpu_v5e`` and ``cpu_generic`` and add
+``h100_sxm``, the dense bfloat16 tensor-core peak and HBM3 rate of an
+H100 SXM.  A spec is chosen explicitly, through
 ``$REPRO_HW_SPEC``, or detected from the torch device (a CUDA H100 ->
 ``h100_sxm``, the CPU -> ``cpu_generic``); any other device raises with
 the preset list, as the reference does for an unknown platform.
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.steps import leaves_with_paths, param_leaves
+from repro_torch.models import frontend as fe_mod
 
 
 @dataclass(frozen=True)
@@ -120,14 +123,24 @@ def active_param_count(cfg: ModelConfig, params_shape) -> int:
     return total
 
 
+def _encoder_param_count(params_shape) -> int:
+    return sum(math.prod(leaf.shape)
+               for path, leaf in leaves_with_paths(params_shape)
+               if path.startswith("encoder/"))
+
+
 def model_flops(cfg: ModelConfig, shape: InputShape, params_shape) -> float:
     """6 N_active D for a train step, 2 N_active D for prefill / decode
-    (D = batch x seq, or batch for one decode token).  The encoder's term
-    of an encoder-decoder waits with that model (ROADMAP.md §1 item 5.5)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder is not "
-                                  f"ported")
+    (D = batch x seq, or batch for one decode token).  An encoder-decoder's
+    encoder parameters run over the frontend's frames (batch x T_enc), and
+    not at all in a decode."""
+    n_enc = _encoder_param_count(params_shape) if cfg.is_encdec else 0
     tokens = shape.global_batch * (1 if shape.kind == "decode"
                                    else shape.seq_len)
     mult = 6.0 if shape.kind == "train" else 2.0
-    return mult * active_param_count(cfg, params_shape) * tokens
+    fl = mult * (active_param_count(cfg, params_shape) - n_enc) * tokens
+    if n_enc and shape.kind != "decode":
+        t_enc = shape.global_batch * fe_mod.num_frontend_tokens(
+            cfg, shape.seq_len)
+        fl += mult * n_enc * t_enc
+    return fl

@@ -6,7 +6,8 @@ Port of ``repro.launch.steps``:
 
   train   -> train_step(params, opt_state, step, batch)
              -> (params, opt_state, step + 1, {"loss"})
-  prefill -> prefill_step(params, tokens) -> (logits, cache)
+  prefill -> prefill_step(params, tokens, frontend_embeds=None)
+             -> (logits, cache)
   decode  -> serve_step(params, cache, token, pos) -> (logits, cache)
 
 A train step runs the reference mixers, as the reference's does: jax
@@ -85,7 +86,8 @@ def make_train_step(cfg: ModelConfig,
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     step + 1, {"loss"})``; ``batch`` holds ``tokens`` and ``labels`` (B, S)
     (tensors, or numpy arrays moved to the parameters' device) and may
-    hold a ``mask``."""
+    hold a ``mask`` and a frontend config's ``frontend_embeds`` (B, T,
+    frontend_dim); every key is cut into the same microbatches."""
     backend = resolve_backend(backend)
     if backend == "pallas":
         raise NotImplementedError(
@@ -147,14 +149,16 @@ def make_train_step(cfg: ModelConfig,
 
 def make_prefill_step(cfg: ModelConfig,
                       backend: Optional[str] = None) -> Callable:
-    """``prefill_step(params, tokens) -> (logits (B, V), cache)``.  Prefill
-    always runs the reference mixers, as the reference's does (the flash
-    kernel serves training's causal forward); ``backend`` is validated all
-    the same, so an unknown selection fails here."""
+    """``prefill_step(params, tokens, frontend_embeds=None) -> (logits (B,
+    V), cache)``.  Prefill always runs the reference mixers, as the
+    reference's does (the flash kernel serves training's causal forward);
+    ``backend`` is validated all the same, so an unknown selection fails
+    here."""
     resolve_backend(backend)
 
-    def prefill_step(params, tokens):
-        return M.prefill(cfg, params, tokens)
+    def prefill_step(params, tokens, frontend_embeds=None):
+        return M.prefill(cfg, params, tokens,
+                         frontend_embeds=frontend_embeds)
     return prefill_step
 
 

@@ -8,9 +8,14 @@ the hand-written flash-attention kernel (``kernels/flash_attention``), which
 on CUDA tensors launches ``csrc/flash_attention.cu`` and never falls back;
 ``"reference"`` runs the query-chunked dense attention.  ``gqa_attend`` and
 ``causal_mask`` live beside the kernel, whose plain twin they are, and are
-imported here.  A decode step attends one token to the whole KV cache
-through the dense ``gqa_attend``, as the reference's does.  The
-reference's mesh-sharded decode branch and cross attention are not ported.
+imported here.  RoPE is applied for ``rope_kind`` ``"rope"`` and
+``"mrope"`` (Qwen2-VL's sections over (t, h, w) positions), none for
+``"none"``.  :func:`apply_cross_attention` is the encoder-decoder's cross
+attention: the dense ``gqa_attend``, no mask, no RoPE and no bias, as the
+reference's; its K and V (:func:`cross_kv`) are what a decode cache keeps.
+A decode step attends one token to the whole KV cache through the dense
+``gqa_attend``, as the reference's does.  The reference's mesh-sharded
+decode branch is not ported.
 """
 from __future__ import annotations
 
@@ -101,12 +106,7 @@ def apply_attention(cfg: ModelConfig, p, x, positions, *,
     backend = resolve_backend(backend)
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
-    if cfg.rope_kind == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_kind != "none":
-        raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
-                                  f"ported")
+    q, k = _rotate(cfg, q, k, positions)
     if backend == "pallas" and causal:
         out = flash_attention(q, k, v, causal=True,
                               sliding_window=cfg.sliding_window)
@@ -120,6 +120,47 @@ def apply_attention(cfg: ModelConfig, p, x, positions, *,
     if return_kv:
         return out, k, v
     return out
+
+
+def _rotate(cfg: ModelConfig, q, k, positions):
+    """q and k after RoPE or M-RoPE (as ``rope_kind`` says), or as they
+    are for ``"none"``."""
+    if cfg.rope_kind in ("rope", "mrope"):
+        return (apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections))
+    if cfg.rope_kind != "none":
+        raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
+                                  f"ported")
+    return q, k
+
+
+def cross_kv(cfg: ModelConfig, p, kv_src):
+    """Cross attention's K and V from the encoder's output kv_src (B, T,
+    D): (B, T, Hkv, dh) each in the compute dtype, no bias."""
+    cd = dtype_of(cfg.compute_dtype)
+    B, T, _ = kv_src.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    src = kv_src.to(cd)
+    return ((src @ p["wk"].to(cd)).reshape(shape),
+            (src @ p["wv"].to(cd)).reshape(shape))
+
+
+def cross_attend(cfg: ModelConfig, p, x, k, v):
+    """Cross attention of the decoder's normed x (B, S, D) to K and V (B,
+    T, Hkv, dh): unmasked dense attention, the output projection; the
+    queries carry no bias and no RoPE."""
+    cd = dtype_of(cfg.compute_dtype)
+    B, S, _ = x.shape
+    q = (x.to(cd) @ p["wq"].to(cd)).reshape(B, S, cfg.num_heads,
+                                           cfg.resolved_head_dim)
+    out = gqa_attend(q, k.to(q.dtype), v.to(q.dtype), None)
+    return out.reshape(B, S, -1) @ p["wo"].to(cd)
+
+
+def apply_cross_attention(cfg: ModelConfig, p, x, kv_src):
+    """Encoder-decoder cross attention of x (B, S, D) to the encoder's
+    output kv_src (B, T, D): no mask, no RoPE, no bias."""
+    return cross_attend(cfg, p, x, *cross_kv(cfg, p, kv_src))
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +202,10 @@ def decode_attention(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     B = x.shape[0]
     S = cache_k.shape[1]
     q, k, v = _project_qkv(cfg, p, x)                        # (B, 1, ., dh)
-    if cfg.rope_kind == "rope":
-        pvec = pos.reshape(1, 1).expand(B, 1)
-        q = apply_rope(q, pvec, cfg.rope_theta)
-        k = apply_rope(k, pvec, cfg.rope_theta)
-    elif cfg.rope_kind != "none":
-        raise NotImplementedError(f"rope_kind {cfg.rope_kind!r} is not "
-                                  f"ported")
+    pvec = pos.reshape(1, 1).expand(B, 1)
+    if cfg.rope_kind == "mrope":
+        pvec = pvec[..., None].expand(B, 1, 3)
+    q, k = _rotate(cfg, q, k, pvec)
     cache_write(cache_k, k, pos)
     cache_write(cache_v, v, pos)
     kpos = torch.arange(S, device=x.device)[None, None, :]   # (1, 1, S)

@@ -1,7 +1,8 @@
 """Core layers: dtypes, initialisers, norms, RoPE, MLPs.
 
-Port of ``repro.models.layers`` as far as the ported configs
-(``phi4-mini-3.8b``, ``rwkv6-3b``) use it.  Parameters are plain dicts of
+Port of ``repro.models.layers``: norms, RoPE and Qwen2-VL's M-RoPE, the
+sinusoidal positions of the encoder-decoder, and the SwiGLU, RWKV and gelu
+MLPs.  Parameters are plain dicts of
 tensors; a stacked-layer parameter carries a leading layer axis, which the
 initialisers accept (the fan-in is always ``shape[-2]``).  Initialisers draw
 from a ``torch.Generator`` with the reference's distributions; the two
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -106,7 +108,7 @@ def apply_norm(cfg: ModelConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (plain RoPE)
+# rotary embeddings (RoPE and Qwen2-VL's M-RoPE), sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -114,11 +116,26 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, dh); positions: (B, S).  Rotates the two halves of the
-    head dimension in float32, cast back to ``x``'s dtype."""
+def apply_rope(x, positions, theta: float, mrope_sections=()):
+    """x: (B, S, H, dh); positions: (B, S), or (B, S, 3) for M-RoPE.
+    Rotates the two halves of the head dimension in float32, cast back to
+    ``x``'s dtype.  With ``mrope_sections`` and (t, h, w) positions the
+    dh / 2 frequency slots split into three sections, each turned by its
+    own position component [arXiv:2409.12191]; (B, S, 3) positions without
+    sections rotate by their first component."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * freqs            # (B, S, dh/2)
+    if mrope_sections and positions.ndim == 3:
+        if sum(mrope_sections) != x.shape[-1] // 2:
+            raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do "
+                             f"not split dh / 2 = {x.shape[-1] // 2}")
+        pos = torch.cat([positions[..., i:i + 1].float().expand(
+            *positions.shape[:2], s) for i, s in enumerate(mrope_sections)],
+            dim=-1)                                          # (B, S, dh/2)
+        angles = pos * freqs
+    else:
+        if positions.ndim == 3:
+            positions = positions[..., 0]
+        angles = positions.float()[..., None] * freqs        # (B, S, dh/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -126,11 +143,39 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_at(pos, dim: int) -> torch.Tensor:
+    """Sinusoidal position rows, float32, for positions given as a tensor
+    (any shape, on any device: a decode's 0-d position stays on the card)
+    -> (..., dim): sin at the even columns, cos at the odd ones.  The
+    frequencies are the reference's float32 arithmetic (log 10000 rounded
+    to float32 first)."""
+    pos = pos.float()
+    neg_log = -torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                      device=pos.device))
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=pos.device) * (neg_log / dim))
+    ang = pos[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *pos.shape, dim)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """The (seq, dim) table of positions 0..seq-1 the encoder adds:
+    computed in numpy float64, then cast to float32, as the reference
+    computes it."""
+    pos = np.arange(seq)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * (-np.log(10000.0) / dim))
+    pe = np.zeros((seq, dim), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
-MLP_ACTIVATIONS = ("swiglu", "rwkv_ffn")
+MLP_ACTIVATIONS = ("swiglu", "rwkv_ffn", "gelu")
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
@@ -156,6 +201,10 @@ def apply_mlp(cfg: ModelConfig, p, x):
         return h @ p["w2"].to(cd)
     if cfg.activation == "rwkv_ffn":
         h = torch.relu(x @ p["w1"].to(cd)).square()
+        return h @ p["w2"].to(cd)
+    if cfg.activation == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ p["w1"].to(cd), approximate="tanh")
         return h @ p["w2"].to(cd)
     raise NotImplementedError(f"activation {cfg.activation!r} is not ported; "
                               f"have {MLP_ACTIVATIONS}")

@@ -1,5 +1,6 @@
-"""Decoder-only language model: init, ``forward_train``, ``lm_loss``, and
-serving: ``init_cache``, ``prefill``, ``decode_step``.
+"""The language model, decoder-only or encoder-decoder: init,
+``forward_train``, ``lm_loss``, and serving: ``init_cache``, ``prefill``,
+``decode_step``.
 
 Port of ``repro.models.model`` for ``attention_kind`` ``"gqa"`` (the dense
 configs and the mixture of experts), ``"none"`` (RWKV-6), ``"hybrid"``
@@ -51,8 +52,26 @@ key ``k_rope``, which decode reads in the absorbed form.  Neither
 The cache keeps one leading axis of ``num_layers`` whatever the stacks:
 each stack works on its slice of that axis, in place.
 
-Not ported yet: the encoder-decoder, the frontends and M-RoPE
-(``check_supported`` refuses them at every entry point).
+The encoder-decoder (``encoder_layers > 0``, seamless-m4t) and the
+modality frontends are ported.  An audio config's frame embeddings
+(``frontend_embeds``, (B, T, frontend_dim)) go through the learned
+projector (``models/frontend.py``), gain sinusoidal positions and run
+through ``params["encoder"]``: a stack of non-causal blocks (dense
+attention over the reference mixer, whatever ``backend``, as the
+reference's encoder scan takes its default backend) and a final norm.
+Every decoder block holds ``ln_c`` and ``cross`` and attends the
+encoder's output after its self-attention; its cache keeps the cross K
+and V, ``xk`` / ``xv`` (L, B, T_enc, Hkv, dh), which ``prefill`` fills
+from the prompt's frames (``init_cache`` sizes T_enc from its length
+instead, a quirk of the reference kept here) and each decode step reads.
+A config with ``rope_kind == "none"`` adds sinusoidal positions to the
+token embeddings, a decode's at its device position.  A vision config's
+projected patch embeddings replace the first P token embeddings of the
+prompt; M-RoPE (``rope_kind == "mrope"``) runs on (t, h, w) positions
+that repeat the text position three times, as the reference's do (so it
+turns every vector as RoPE does).  ``check_supported`` refuses an
+encoder-decoder without the audio frontend or over another mixer than
+GQA attention, which the reference cannot run or serve.
 """
 from __future__ import annotations
 
@@ -64,17 +83,21 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import frontend as fe_mod
 from repro_torch.models import hybrid as hyb_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
                                        dtype_of, embed_init, init_mlp,
-                                       init_norm, to_cache_dtype)
+                                       init_norm, sinusoidal_at,
+                                       sinusoidal_positions, to_cache_dtype)
 
 Params = Dict[str, Any]
 
 ATTENTION_KINDS = ("gqa", "none", "hybrid", "mla")
+ROPE_KINDS = ("rope", "mrope", "none")
+FRONTENDS = ("", "audio", "vision")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -83,12 +106,17 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.attention_kind not in ATTENTION_KINDS:
         missing.append(f"attention_kind {cfg.attention_kind!r}")
-    if cfg.attention_kind != "none" and cfg.rope_kind != "rope":
+    if cfg.attention_kind != "none" and cfg.rope_kind not in ROPE_KINDS:
         missing.append(f"rope_kind {cfg.rope_kind!r}")
-    for name, present in (("encoder-decoder", cfg.is_encdec),
-                          ("frontend", bool(cfg.frontend))):
-        if present:
-            missing.append(name)
+    if cfg.frontend not in FRONTENDS:
+        missing.append(f"frontend {cfg.frontend!r}")
+    if cfg.is_encdec and cfg.frontend != "audio":
+        # the reference's encoder reads the frontend's frame embeddings
+        missing.append("an encoder-decoder without the audio frontend")
+    if cfg.is_encdec and cfg.attention_kind != "gqa":
+        # the reference's prefill fills the cross cache in its GQA branch
+        missing.append(f"an encoder-decoder over attention_kind "
+                       f"{cfg.attention_kind!r}")
     if cfg.attention_kind == "none" and (cfg.ssm is None
                                          or cfg.ssm.kind != "rwkv6"):
         missing.append("an ssm other than rwkv6")
@@ -105,9 +133,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_blocks(cfg: ModelConfig, gen: torch.Generator, lead, *,
-                 is_moe: bool = False) -> Params:
+                 is_moe: bool = False, cross: bool = False) -> Params:
     """The blocks of a stack of ``lead`` layers (``(n,)``), or one unstacked
-    block (``()``: the MTP head's)."""
+    block (``()``: the MTP head's); with ``cross`` each also holds the
+    encoder-decoder's cross attention (``ln_c``, ``cross``)."""
     lead = tuple(lead)
     p: Params = {"ln1": init_norm(cfg, lead + (cfg.d_model,), gen.device),
                  "ln2": init_norm(cfg, lead + (cfg.d_model,), gen.device)}
@@ -125,6 +154,9 @@ def _init_blocks(cfg: ModelConfig, gen: torch.Generator, lead, *,
         p["moe"] = moe_mod.init_moe(cfg, gen, lead)
     else:
         p["ffn"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead)
+    if cross:
+        p["ln_c"] = init_norm(cfg, lead + (cfg.d_model,), gen.device)
+        p["cross"] = attn_mod.init_attention(cfg, gen, lead)
     return p
 
 
@@ -146,10 +178,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if nd:
         p["blocks_dense"] = _init_blocks(cfg, gen, (nd,))
     p["blocks"] = _init_blocks(cfg, gen, (cfg.num_layers - nd,),
-                               is_moe=cfg.moe is not None)
+                               is_moe=cfg.moe is not None,
+                               cross=cfg.is_encdec)
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "blocks": _init_blocks(cfg, gen, (cfg.encoder_layers,)),
+            "final_norm": init_norm(cfg, (cfg.d_model,), device)}
     p["final_norm"] = init_norm(cfg, (cfg.d_model,), device)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_padded), dt)
+    if cfg.frontend:
+        p["frontend"] = fe_mod.init_frontend(cfg, gen)
     if cfg.mtp:
         p["mtp"] = {"block": _init_blocks(cfg, gen, ()),
                     "norm": init_norm(cfg, (cfg.d_model,), device)}
@@ -163,8 +202,9 @@ def layer(blocks: Params, i: int) -> Params:
 
 
 def block_stacks(params: Params):
-    """The stacks of blocks in layer order: a MoE config's dense prefix
-    ``blocks_dense`` where it has one, then ``blocks``."""
+    """The decoder's stacks of blocks in layer order: a MoE config's dense
+    prefix ``blocks_dense`` where it has one, then ``blocks`` (an
+    encoder-decoder's encoder is ``params["encoder"]``)."""
     return [params[k] for k in ("blocks_dense", "blocks") if k in params]
 
 
@@ -183,10 +223,11 @@ def all_layers(params: Params):
 # block application
 # ---------------------------------------------------------------------------
 
-def _mixer(cfg: ModelConfig, bp, h, positions, *, backend="reference"):
-    """The sequence mixer of one block on its normed input: the causal
-    self-attention, a hybrid block's attention and Mamba, or MLA (which
-    takes no backend)."""
+def _mixer(cfg: ModelConfig, bp, h, positions, *, causal=True,
+           backend="reference"):
+    """The sequence mixer of one block on its normed input: the
+    self-attention (causal, or unmasked in the encoder), a hybrid block's
+    attention and Mamba, or MLA (which takes no backend)."""
     hn = apply_norm(cfg, bp["ln1"], h)
     if "mla" in bp:
         return mla_mod.apply_mla(cfg, bp["mla"], hn, positions)
@@ -194,7 +235,7 @@ def _mixer(cfg: ModelConfig, bp, h, positions, *, backend="reference"):
         return hyb_mod.apply_hybrid(cfg, bp["hyb"], hn, positions,
                                     backend=backend)
     return attn_mod.apply_attention(cfg, bp["attn"], hn, positions,
-                                    backend=backend)
+                                    causal=causal, backend=backend)
 
 
 def _ffn(cfg: ModelConfig, bp, h):
@@ -232,20 +273,25 @@ def _rwkv_zero_states(cfg: ModelConfig, h):
         (B, cfg.num_heads, N, N), dtype=torch.float32, device=h.device)
 
 
-def _block_body(cfg: ModelConfig, h, bp, *, positions, backend="reference"):
-    """One residual block -> (h, the block's aux loss)."""
+def _block_body(cfg: ModelConfig, h, bp, *, positions, causal=True,
+                enc_out=None, backend="reference"):
+    """One residual block -> (h, the block's aux loss).  A decoder block of
+    an encoder-decoder attends ``enc_out`` after its mixer."""
     if cfg.attention_kind == "none":
         # rwkv: time mix + channel mix, zero shift states per sequence
         x0, state0 = _rwkv_zero_states(cfg, h)
         return (_rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0],
                 _no_aux(h))
-    h = h + _mixer(cfg, bp, h, positions, backend=backend)
+    h = h + _mixer(cfg, bp, h, positions, causal=causal, backend=backend)
+    if enc_out is not None and "cross" in bp:
+        hc = apply_norm(cfg, bp["ln_c"], h)
+        h = h + attn_mod.apply_cross_attention(cfg, bp["cross"], hc, enc_out)
     f, aux = _ffn(cfg, bp, h)
     return h + f, aux
 
 
-def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions,
-                 backend="reference"):
+def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions, causal=True,
+                 enc_out=None, backend="reference"):
     """The layers of one stack in order (the reference's scan over the
     stacked axis), each under activation checkpointing for ``remat ==
     "full"`` -> (h, the sum of the blocks' aux losses)."""
@@ -255,9 +301,11 @@ def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions,
         bp = layer(blocks, i)
         if remat:
             h, a = checkpoint(_block_body, cfg, h, bp, positions=positions,
+                              causal=causal, enc_out=enc_out,
                               backend=backend, use_reentrant=False)
         else:
             h, a = _block_body(cfg, h, bp, positions=positions,
+                               causal=causal, enc_out=enc_out,
                                backend=backend)
         aux = aux + a
     return h, aux
@@ -267,15 +315,38 @@ def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions,
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens):
+def _lookup(cfg: ModelConfig, params, tokens):
     """The embedding rows of ``tokens`` in the compute dtype."""
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
 
 
+def _embed(cfg: ModelConfig, params, tokens, frontend_embeds=None,
+           pos_offset=0):
+    """The decoder's input: the embedding rows of ``tokens``; a vision
+    prompt's projected patches in place of its first P rows; for
+    ``rope_kind == "none"`` plus the sinusoidal rows of positions
+    ``pos_offset + arange(S)`` (``pos_offset`` an int, or a decode's 0-d
+    device tensor)."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = _lookup(cfg, params, tokens)
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        proj = fe_mod.project(cfg, params["frontend"], frontend_embeds)
+        h = torch.cat([proj.to(cd), h[:, proj.shape[1]:]], dim=1)
+    if cfg.rope_kind == "none" and cfg.attention_kind != "none":
+        pos = pos_offset + torch.arange(h.shape[1], device=h.device)
+        h = h + sinusoidal_at(pos, cfg.d_model).to(cd)[None]
+    return h
+
+
 def _positions(cfg: ModelConfig, tokens):
+    """(B, S) int32 positions 0..S-1; M-RoPE's (B, S, 3) repeat them as
+    the (t, h, w) components, as the reference's text positions do."""
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32,
-                        device=tokens.device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=tokens.device)[None].expand(B, S)
+    if cfg.rope_kind == "mrope":
+        pos = pos[..., None].expand(B, S, 3)
+    return pos
 
 
 def _unembed(cfg: ModelConfig, params, h):
@@ -286,22 +357,42 @@ def _unembed(cfg: ModelConfig, params, h):
     return (h.to(cd) @ head).float()
 
 
+def _run_encoder(cfg: ModelConfig, params, frontend_embeds):
+    """The audio encoder over the frame embeddings (B, T, frontend_dim) ->
+    (B, T, D): the projector, sinusoidal positions, the non-causal blocks
+    on the reference mixer (the reference's encoder scan takes its default
+    backend, so the flash kernel never runs here), the final norm."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = fe_mod.project(cfg, params["frontend"], frontend_embeds).to(cd)
+    B, T, _ = h.shape
+    h = h + sinusoidal_positions(T, cfg.d_model, h.device).to(cd)[None]
+    pos = torch.arange(T, dtype=torch.int32, device=h.device)[None].expand(
+        B, T)
+    h, _ = _scan_blocks(cfg, params["encoder"]["blocks"], h, positions=pos,
+                        causal=False)
+    return apply_norm(cfg, params["encoder"]["final_norm"], h)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(cfg: ModelConfig, params: Params, tokens, *,
-                  backend: Optional[str] = None):
-    """tokens (B, S) int -> (logits (B, S, V) float32, aux loss: the
-    routers' over every MoE layer, 0.0 without one, plus the MTP head's
-    loss where the config has one)."""
+def forward_train(cfg: ModelConfig, params: Params, tokens,
+                  frontend_embeds=None, *, backend: Optional[str] = None):
+    """tokens (B, S) int[, frontend_embeds (B, T, frontend_dim): an audio
+    config's frames, a vision config's patches] -> (logits (B, S, V)
+    float32, aux loss: the routers' over every MoE layer, 0.0 without one,
+    plus the MTP head's loss where the config has one)."""
     check_supported(cfg)
     backend = attn_mod.resolve_backend(backend)
-    h = _embed(cfg, params, tokens)
+    enc_out = (_run_encoder(cfg, params, frontend_embeds) if cfg.is_encdec
+               else None)
+    h = _embed(cfg, params, tokens, frontend_embeds)
     pos = _positions(cfg, tokens)
     aux = _no_aux(h)
     for blocks in block_stacks(params):
-        h, a = _scan_blocks(cfg, blocks, h, positions=pos, backend=backend)
+        h, a = _scan_blocks(cfg, blocks, h, positions=pos, enc_out=enc_out,
+                            backend=backend)
         aux = aux + a
     logits = _unembed(cfg, params, h)
     if cfg.mtp:
@@ -316,7 +407,7 @@ def _mtp_loss(cfg: ModelConfig, params, h, tokens):
     over the first S - 2 positions.  The shifts wrap around, as
     ``jnp.roll`` does; the block runs the reference mixer, checkpointed
     whenever grad is enabled (the reference's ``jax.checkpoint``)."""
-    emb_next = _embed(cfg, params, torch.roll(tokens, -1, dims=1))
+    emb_next = _lookup(cfg, params, torch.roll(tokens, -1, dims=1))
     hm = apply_norm(cfg, params["mtp"]["norm"], h) + emb_next
     pos = _positions(cfg, tokens)
     bp = params["mtp"]["block"]
@@ -340,9 +431,10 @@ def _token_nll(cfg: ModelConfig, logits, labels):
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             backend: Optional[str] = None):
-    """batch: {"tokens": (B, S) int, "labels": (B, S) int[, "mask"]} ->
-    (loss + aux, {"loss", "aux"})."""
+    """batch: {"tokens": (B, S) int, "labels": (B, S) int[, "mask"][,
+    "frontend_embeds"]} -> (loss + aux, {"loss", "aux"})."""
     logits, aux = forward_train(cfg, params, batch["tokens"],
+                                batch.get("frontend_embeds"),
                                 backend=backend)
     nll = _token_nll(cfg, logits, batch["labels"])
     mask = batch.get("mask")
@@ -363,10 +455,32 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """A zeroed decode cache for ``batch`` sequences of ``seq_len``
     positions, every leaf stacked on a leading layer axis.  ``dtype``
     defaults to ``kv_cache_dtype``, else the compute dtype; RWKV's WKV
-    state and Mamba's SSM state are float32 whatever it is."""
+    state and Mamba's SSM state are float32 whatever it is.  An
+    encoder-decoder's cache also holds the cross K and V, ``xk`` / ``xv``
+    (L, batch, T_enc, Hkv, dh), T_enc the frames a prompt of ``seq_len``
+    tokens carries."""
     check_supported(cfg)
     device = resolve_device(device)
     dt = dtype or dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
+    c = _self_cache(cfg, batch, seq_len, dt, device)
+    if cfg.is_encdec:
+        c.update(_cross_cache(cfg, batch, fe_mod.num_frontend_tokens(
+            cfg, seq_len), dt, device))
+    return c
+
+
+def _cross_cache(cfg: ModelConfig, batch: int, t_enc: int, dt, device):
+    """Zeroed cross K and V, (L, batch, t_enc, Hkv, dh)."""
+    shape = (cfg.num_layers, batch, t_enc, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"xk": torch.zeros(shape, dtype=dt, device=device),
+            "xv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _self_cache(cfg: ModelConfig, batch: int, seq_len: int, dt,
+                device) -> Params:
+    """The zeroed cache of the decoder's own mixers, in ``dt`` (float32
+    states aside)."""
     L = cfg.num_layers
     if cfg.attention_kind == "none":
         N = cfg.ssm.head_dim
@@ -420,6 +534,10 @@ def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
         mix, new["k"], new["v"] = attn_mod.decode_attention(
             cfg, bp["attn"], hn, cache_slices["k"], cache_slices["v"], pos)
     h = h + mix
+    if "cross" in bp:
+        hc = apply_norm(cfg, bp["ln_c"], h)
+        h = h + attn_mod.cross_attend(cfg, bp["cross"], hc,
+                                      cache_slices["xk"], cache_slices["xv"])
     return h + _ffn(cfg, bp, h)[0], new
 
 
@@ -442,10 +560,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, token,
     (logits (B, V) float32, cache).  The cache returned is the one given,
     updated in place (the reference donates its buffer): a caller that
     needs the old cache clones it first.  A ``pos`` past the cache's end
-    overwrites its last slot, as the reference's clamped update does."""
+    overwrites its last slot, as the reference's clamped update does.  An
+    encoder-decoder's token attends the cross K and V its cache holds."""
     check_supported(cfg)
     pos = _pos_tensor(pos, token.device)
-    h = _embed(cfg, params, token)
+    h = _embed(cfg, params, token, pos_offset=pos)
     first = 0
     for blocks in block_stacks(params):
         n = stack_depth(blocks)
@@ -469,23 +588,29 @@ def _pad_cache(out, x) -> None:
     out[:, :n] = x[:, :n]
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
-    """tokens (B, S) int -> (next-token logits (B, V) float32, the cache
-    filled for positions [0, S)).  The KV (or MLA) cache holds
-    ``cache_len`` positions (default S) in the compute dtype; RWKV's cache,
-    and a hybrid cache's Mamba leaves, are the states after the last token,
-    whatever ``cache_len``.  Runs the reference mixers, as the reference's
-    prefill does."""
+def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0,
+            frontend_embeds=None):
+    """tokens (B, S) int[, frontend_embeds as ``forward_train`` takes them]
+    -> (next-token logits (B, V) float32, the cache filled for positions
+    [0, S)).  The KV (or MLA) cache holds ``cache_len`` positions (default
+    S) in the compute dtype; RWKV's cache, and a hybrid cache's Mamba
+    leaves, are the states after the last token, whatever ``cache_len``;
+    an encoder-decoder's cross K and V cover the prompt's frames, however
+    many.  Runs the reference mixers, as the reference's prefill does."""
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
     if cfg.attention_kind == "none":
         h, cache = _rwkv_prefill_cache(cfg, params, tokens)
         return _unembed(cfg, params, h[:, -1:, :])[:, 0], cache
-    h = _embed(cfg, params, tokens)
+    enc_out = (_run_encoder(cfg, params, frontend_embeds) if cfg.is_encdec
+               else None)
+    h = _embed(cfg, params, tokens, frontend_embeds)
     pos = _positions(cfg, tokens)
-    cache = init_cache(cfg, B, cache_len, dtype_of(cfg.compute_dtype),
-                       h.device)
+    cd = dtype_of(cfg.compute_dtype)
+    cache = _self_cache(cfg, B, cache_len, cd, h.device)
+    if enc_out is not None:
+        cache.update(_cross_cache(cfg, B, enc_out.shape[1], cd, h.device))
     # the leaves each layer's mixer returns, padded to cache_len
     padded = ("c_kv", "k_rope") if cfg.attention_kind == "mla" else ("k",
                                                                       "v")
@@ -506,6 +631,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens, cache_len: int = 0):
                 cfg, hyb["mamba"], hn)
             a = hyb_mod.merge(hyb, a, m)
         h = h + a
+        if enc_out is not None:
+            xk, xv = attn_mod.cross_kv(cfg, bp["cross"], enc_out)
+            hc = apply_norm(cfg, bp["ln_c"], h)
+            h = h + attn_mod.cross_attend(cfg, bp["cross"], hc, xk, xv)
+            cache["xk"][i], cache["xv"][i] = xk, xv
         h = h + _ffn(cfg, bp, h)[0]
         for name, x in zip(padded, kv):
             _pad_cache(cache[name][i], x)

@@ -535,7 +535,9 @@ FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (2, 384, 6, 2, 32, True, 0), (1, 384, 8, 2, 128, True, 0),
                (1, 512, 4, 1, 128, True, 200), (1, 40, 2, 1, 128, False, 0),
                (1, 256, 4, 2, 48, True, 0), (1, 256, 4, 2, 96, True, 96),
-               (1, 1024, 25, 5, 64, True, 256)]
+               (1, 1024, 25, 5, 64, True, 256),
+               # qwen2-vl's group of 6 at dh 128, seamless-m4t's group of 1
+               (1, 512, 12, 2, 128, True, 0), (1, 512, 16, 16, 64, True, 0)]
 
 
 def _worst_row(ref, out) -> float:
@@ -726,14 +728,16 @@ def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["phi4-mini-3.8b", "rwkv6-3b",
-                                  "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])
+                                  "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+                                  "seamless-m4t-large-v2", "qwen2-vl-2b"])
 def test_lm_forward_on_card(cuda, name):
     """forward_train of the reduced config (float32, 2 layers; phi4-mini
     with 2 KV heads for the GQA mapping; hymba's attention branch with its
-    window of 64 over 128 tokens) on the card: backend "pallas" launches
-    its kernel once per layer (WKV6: its two passes) and agrees with
-    "reference" to 2e-5 on the O(1) logits (float32, another summation
-    order)."""
+    window of 64 over 128 tokens; seamless-m4t with 16 frames through its
+    encoder, qwen2-vl with 32 patches and M-RoPE) on the card: backend
+    "pallas" launches its kernel once per decoder layer (WKV6: its two
+    passes; the encoder none) and agrees with "reference" to 2e-5 on the
+    O(1) logits (float32, another summation order)."""
     import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
@@ -743,17 +747,30 @@ def test_lm_forward_on_card(cuda, name):
     params = model.init_params(cfg, seed=0, device=cuda)
     tokens = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 128)), device=cuda)
+    fe = _frontend_embeds(cfg, 128, cuda)
     wrapper, per_layer = ((fops.flash_attention_fp32_cuda, 1)
                           if cfg.attention_kind in ("gqa", "hybrid")
                           else (wops.wkv6_cuda, 2))
     n0 = wrapper.launches
-    out, _ = model.forward_train(cfg, params, tokens, backend="pallas")
+    out, _ = model.forward_train(cfg, params, tokens, fe, backend="pallas")
     assert wrapper.launches - n0 == per_layer * cfg.num_layers
-    ref, _ = model.forward_train(cfg, params, tokens, backend="reference")
+    ref, _ = model.forward_train(cfg, params, tokens, fe,
+                                 backend="reference")
     torch.cuda.synchronize()
     err = max_diff(ref, out)
     print(f"forward_train {name} reduced: max|pallas - reference| {err:.3e}")
     assert err <= 2e-5
+
+
+def _frontend_embeds(cfg, seq, device):
+    """A frontend config's embeddings for a prompt of ``seq`` tokens, N(0,
+    1) from a seed; None without a frontend."""
+    if not cfg.frontend:
+        return None
+    from repro_torch.models import frontend
+    return torch.tensor(np.random.default_rng(2).standard_normal(
+        (2, frontend.num_frontend_tokens(cfg, seq),
+         frontend.frontend_dim(cfg))), dtype=torch.float32, device=device)
 
 
 @pytest.mark.cuda
@@ -962,7 +979,8 @@ def test_record_replay_bitwise_through_fused_kernel_on_card(cuda,
     ("phi4-mini-3.8b", {"num_kv_heads": 2}), ("rwkv6-3b", {}),
     ("qwen1.5-32b", {}), ("llama3-405b", {"kv_cache_dtype": "float8_e4m3fn"}),
     ("phi3.5-moe-42b-a6.6b", {}), ("hymba-1.5b", {}),
-    ("deepseek-v3-671b", {})])
+    ("deepseek-v3-671b", {}), ("seamless-m4t-large-v2", {}),
+    ("qwen2-vl-2b", {})])
 def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
     """``prefill`` of 64 tokens, then 4 ``decode_step``s from it and 4 from
     ``init_cache`` (float8 for llama3 here), of a reduced float32 config on
@@ -970,7 +988,9 @@ def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
     2e-5 (the CPU parity tests' tolerance against the reference), every
     cache leaf within 2e-5 of its largest value (hymba's Mamba conv and
     SSM states and deepseek-v3's MLA latent and rope key among them; its
-    decode runs the absorbed form), a float8 leaf within one e4m3 step (2^-3 of
+    decode runs the absorbed form; seamless-m4t's cross K / V of the
+    prompt's 8 frames, its decode's sinusoidal position read at a device
+    position), a float8 leaf within one e4m3 step (2^-3 of
     the value); the position goes in as a CUDA tensor on the card."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
@@ -998,8 +1018,12 @@ def test_decode_on_the_card_matches_the_cpu(cuda, name, changes):
 
     for start in ("prefill", "init_cache"):
         if start == "prefill":
-            l_cpu, c_cpu = model.prefill(cfg, params, toks, cache_len=68)
-            l_gpu, c_gpu = model.prefill(cfg, pc, toks.to(cuda), cache_len=68)
+            fe = _frontend_embeds(cfg, 64, "cpu")
+            l_cpu, c_cpu = model.prefill(cfg, params, toks, cache_len=68,
+                                         frontend_embeds=fe)
+            l_gpu, c_gpu = model.prefill(
+                cfg, pc, toks.to(cuda), cache_len=68,
+                frontend_embeds=None if fe is None else fe.to(cuda))
             hold(l_cpu, l_gpu, "prefill logits")
             pos0 = 64
         else:

@@ -272,6 +272,10 @@ def test_synthetic_batch_equals_the_reference(seed, step):
 
 
 def test_lm_iterator_steps_and_frontend_refusal():
+    """The iterator's batches from ``start_step`` on; with a frontend
+    config (the vision one, once refused here) each batch also holds the
+    patch embeddings drawn after the tokens, bit-equal to the
+    reference's."""
     cfg = tpipe.LMDataConfig(vocab_size=100, seq_len=8, global_batch=2,
                              seed=1)
     it = tpipe.lm_iterator(cfg, start_step=5)
@@ -281,11 +285,22 @@ def test_lm_iterator_steps_and_frontend_refusal():
             jpipe.synthetic_batch(jpipe.LMDataConfig(
                 vocab_size=100, seq_len=8, global_batch=2, seed=1),
                 step)["tokens"])
+    from repro.configs.base import get_config as jget
     from repro_torch.configs.base import get_config
     vision = dataclasses.replace(get_config("phi4-mini-3.8b"),
                                  frontend="vision")
-    with pytest.raises(NotImplementedError, match="item 5.5"):
-        tpipe.synthetic_batch(cfg, 0, vision)
+    jvision = dataclasses.replace(jget("phi4-mini-3.8b"), frontend="vision")
+    it = tpipe.lm_iterator(cfg, vision, start_step=2)
+    for step in (2, 3):
+        ours = next(it)
+        ref = jpipe.synthetic_batch(jpipe.LMDataConfig(
+            vocab_size=100, seq_len=8, global_batch=2, seed=1), step, jvision)
+        assert sorted(ours) == sorted(ref) == ["frontend_embeds", "labels",
+                                               "tokens"]
+        assert ours["frontend_embeds"].shape == (2, 8, 1280)
+        for k in ours:
+            assert ours[k].dtype == ref[k].dtype
+            np.testing.assert_array_equal(ours[k], ref[k])
 
 
 def test_trajectory_store_evicts_and_concatenates_as_the_reference():

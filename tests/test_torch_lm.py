@@ -39,7 +39,7 @@ from tests._torch_parity import assert_close, max_diff, to_np
 
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
          "llama3-405b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
-         "deepseek-v3-671b")
+         "deepseek-v3-671b", "seamless-m4t-large-v2", "qwen2-vl-2b")
 
 
 def _rand(shape, seed=0, scale=1.0):
@@ -64,9 +64,10 @@ def _t(a, dtype=torch.float32):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_configs_match_reference(name):
-    """The port's copy of the eight configs, full and reduced, field by
+    """The port's copy of the ten configs, full and reduced, field by
     field; the padded vocabularies (every vocabulary is a multiple of 256
-    but phi4-mini's, phi3.5-moe's and hymba's)."""
+    but phi4-mini's, phi3.5-moe's, hymba's, seamless-m4t's and
+    qwen2-vl's)."""
     ref, out = jbase.get_config(name), tbase.get_config(name)
     assert dataclasses.asdict(ref) == dataclasses.asdict(out)
     assert dataclasses.asdict(ref.reduced()) == dataclasses.asdict(
@@ -76,7 +77,8 @@ def test_configs_match_reference(name):
     assert {"phi4-mini-3.8b": 200192, "rwkv6-3b": 65536,
             "qwen1.5-32b": 152064, "mistral-large-123b": 32768,
             "llama3-405b": 128256, "phi3.5-moe-42b-a6.6b": 32256,
-            "hymba-1.5b": 32256, "deepseek-v3-671b": 129280}[name] \
+            "hymba-1.5b": 32256, "deepseek-v3-671b": 129280,
+            "seamless-m4t-large-v2": 256256, "qwen2-vl-2b": 152064}[name] \
         == out.vocab_padded
     assert ({k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()}
             == {k: dataclasses.asdict(v)
@@ -84,15 +86,14 @@ def test_configs_match_reference(name):
 
 
 def test_registry_holds_the_ported_configs():
-    """The eight configs whose model path is ported, each the registry's
-    object; the reference's other configs (the encoder-decoder's among
-    them) and unknown names raise."""
-    assert tbase.list_configs() == sorted(NAMES)
+    """The reference's ten configs, the encoder-decoder's and the vision
+    model's among them since their model path was ported, each the
+    registry's object; only an unknown name raises."""
+    assert tbase.list_configs() == sorted(NAMES) == jbase.list_configs()
     for name in NAMES:
         assert tbase.get_config(name).name == name
-    for name in ("seamless-m4t-large-v2", "no-such-arch"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            tbase.get_config(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tbase.get_config("no-such-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -543,18 +544,29 @@ def test_model_params_from_jax_keeps_bfloat16_exactly():
 
 
 def test_unported_configs_raise():
-    """M-RoPE and the encoder-decoder are refused; MLA and the MTP head,
-    ported since their cases were written, are accepted: ``init_params``
-    builds their trees (``mla`` in the blocks, ``mtp`` beside them)."""
+    """MLA, the MTP head, M-RoPE and the encoder-decoder (with its audio
+    frontend), ported since their cases were written, are accepted:
+    ``init_params`` builds their trees (``mla`` and ``cross`` in the
+    blocks, ``mtp`` and ``encoder`` beside them; M-RoPE's attention is
+    RoPE's).  An encoder-decoder without a frontend, which the reference
+    cannot run (its encoder reads the frontend's frames), is refused by
+    name."""
     cfg = tbase.get_config("phi4-mini-3.8b").reduced()
-    for changes in ({"rope_kind": "mrope"}, {"encoder_layers": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmodel.init_params(dataclasses.replace(cfg, **changes),
-                               device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="not ported: an encoder-decoder without the "
+                             "audio frontend"):
+        tmodel.init_params(dataclasses.replace(cfg, encoder_layers=2),
+                           device="cpu")
     for changes, key in (({"attention_kind": "mla",
                            "mla": tbase.MLAConfig(q_lora_rank=64,
                                                   kv_lora_rank=32)}, "mla"),
-                         ({"mtp": True}, "mtp")):
+                         ({"mtp": True}, "mtp"),
+                         ({"rope_kind": "mrope"}, "attn"),
+                         ({"encoder_layers": 2, "frontend": "audio"},
+                          "encoder"),
+                         ({"encoder_layers": 2, "frontend": "audio"},
+                          "cross")):
         params = tmodel.init_params(dataclasses.replace(cfg, **changes),
                                     device="cpu")
-        assert key in (params if key == "mtp" else params["blocks"])
+        assert key in (params if key in ("mtp", "encoder")
+                       else params["blocks"])

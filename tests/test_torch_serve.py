@@ -28,12 +28,14 @@ from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import attention as tattn
+from repro_torch.models import frontend as tfe
 from repro_torch.models import model as tmodel
 from tests._torch_parity import assert_close, max_diff, to_np
 from tests.test_torch_lm import LOGIT_ATOL
 
 NAMES = ("phi4-mini-3.8b", "rwkv6-3b", "qwen1.5-32b", "mistral-large-123b",
-         "llama3-405b", "deepseek-v3-671b")
+         "llama3-405b", "deepseek-v3-671b", "seamless-m4t-large-v2",
+         "qwen2-vl-2b")
 DENSE = ("phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b",
          "llama3-405b")
 F8 = "float8_e4m3fn"
@@ -111,7 +113,9 @@ def test_init_cache_matches_reference_shapes(name):
     reference's (the twin of tests/test_launch.py's fp8 check): the three
     big dense configs in float8_e4m3fn, phi4-mini in bfloat16, RWKV's
     state in float32 beside bfloat16 shift states, deepseek-v3's
-    compressed MLA latent and rope key in bfloat16; all zero."""
+    compressed MLA latent and rope key in bfloat16, seamless-m4t's cross
+    K / V of 8 frames beside its K / V and qwen2-vl's K / V in bfloat16;
+    all zero."""
     cfg_j, cfg_t = jbase.get_config(name), tbase.get_config(name)
     ref = jax.eval_shape(lambda: jmodel.init_cache(cfg_j, 2, 64))
     out = tmodel.init_cache(cfg_t, 2, 64, device="cpu")
@@ -122,10 +126,9 @@ def test_init_cache_matches_reference_shapes(name):
         assert not out[k].view(torch.uint8).any(), k
     kv_dtype = out[{"rwkv6-3b": "xprev_t",
                     "deepseek-v3-671b": "c_kv"}.get(name, "k")].dtype
-    assert kv_dtype == (torch.bfloat16 if name in ("phi4-mini-3.8b",
-                                                   "rwkv6-3b",
-                                                   "deepseek-v3-671b")
-                        else torch.float8_e4m3fn)
+    assert kv_dtype == (torch.bfloat16 if name in (
+        "phi4-mini-3.8b", "rwkv6-3b", "deepseek-v3-671b",
+        "seamless-m4t-large-v2", "qwen2-vl-2b") else torch.float8_e4m3fn)
     over = tmodel.init_cache(cfg_t, 1, 8, dtype=torch.bfloat16, device="cpu")
     assert all(v.dtype == (torch.float32 if k == "state" else torch.bfloat16)
                for k, v in over.items())
@@ -234,13 +237,21 @@ def test_prefill_decode_consistency(name):
     consistency on the port alone, its own random parameters: prefill of
     S - 1 tokens into a cache of S + 2, then a decode of the last token
     matches the teacher-forced forward's logits at S - 1 within the
-    reference's 0.05 of their scale."""
+    reference's 0.05 of their scale.  A frontend config's forward and
+    prefill take the embeddings of a 16-token prompt, as the reference's
+    test draws them."""
     cfg = tbase.get_config(name).reduced()
     params = tmodel.init_params(cfg, seed=0, device="cpu")
     S = 12
     toks = torch.tensor(_tokens(cfg, (2, S), 0))
-    full, _ = tmodel.forward_train(cfg, params, toks)
-    _, cache = tmodel.prefill(cfg, params, toks[:, :S - 1], cache_len=S + 2)
+    fe = None
+    if cfg.frontend:
+        fe = torch.tensor(np.random.default_rng(1).standard_normal(
+            (2, tfe.num_frontend_tokens(cfg, 16), tfe.frontend_dim(cfg))),
+            dtype=torch.float32)
+    full, _ = tmodel.forward_train(cfg, params, toks, fe)
+    _, cache = tmodel.prefill(cfg, params, toks[:, :S - 1], cache_len=S + 2,
+                              frontend_embeds=fe)
     logits, _ = tmodel.decode_step(cfg, params, cache, toks[:, S - 1:],
                                    S - 1)
     ref = full[:, S - 1]
@@ -433,7 +444,7 @@ UNPORTED = {
     "hybrid": {"attention_kind": "hybrid",
                "ssm": tbase.SSMConfig(kind="mamba", state_size=8)},
     "hybrid-rwkv6": {"attention_kind": "hybrid", "ssm": tbase.SSMConfig()},
-    "encoder-decoder": {"encoder_layers": 2},
+    "encoder-decoder": {"encoder_layers": 2, "frontend": "audio"},
     "frontend": {"frontend": "audio"},
     "mtp": {"mtp": True},
     "mrope": {"rope_kind": "mrope"},
@@ -442,7 +453,8 @@ UNPORTED = {
 
 # parts ported since their refusal case was written: each case now checks
 # that the serving entry points accept such a config
-PORTED = ("moe", "hybrid", "mla", "mtp")
+PORTED = ("moe", "hybrid", "mla", "mtp", "encoder-decoder", "frontend",
+          "mrope")
 
 
 @pytest.mark.parametrize("part", sorted(UNPORTED))
@@ -471,14 +483,18 @@ def test_serving_refuses_unported_configs(part):
 def serving_accepts(part, cfg):
     """init_cache (against the reference's shapes and dtypes), prefill,
     decode_step and the serve step on ``cfg`` with its own parameters:
-    finite logits of the padded vocabulary."""
+    finite logits of the padded vocabulary.  A frontend config's prefill
+    takes the embeddings of its one-token prompt (8 frames or patches)."""
     changes = {"moe": {"moe": jbase.MoEConfig(num_experts=4, top_k=2,
                                               d_ff_expert=64)},
                "hybrid": {"attention_kind": "hybrid",
                           "ssm": jbase.SSMConfig(kind="mamba",
                                                  state_size=8)},
                "mla": {"attention_kind": "mla", "mla": jbase.MLAConfig()},
-               "mtp": {"mtp": True}}[part]
+               "mtp": {"mtp": True},
+               "encoder-decoder": {"encoder_layers": 2, "frontend": "audio"},
+               "frontend": {"frontend": "audio"},
+               "mrope": {"rope_kind": "mrope"}}[part]
     cfg_j = dataclasses.replace(jbase.get_config("phi4-mini-3.8b").reduced(),
                                 **changes)
     assert dataclasses.asdict(cfg_j) == dataclasses.asdict(cfg)
@@ -490,7 +506,12 @@ def serving_accepts(part, cfg):
         assert cache[k].dtype == tmodel.dtype_of(np.dtype(r.dtype).name), k
     params = tmodel.init_params(cfg, seed=0, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int64)
-    outs = [tmodel.prefill(cfg, params, tok, cache_len=4)[0],
+    fe = None
+    if cfg.frontend:
+        fe = torch.ones((1, tfe.num_frontend_tokens(cfg, 1),
+                         tfe.frontend_dim(cfg)))
+    outs = [tmodel.prefill(cfg, params, tok, cache_len=4,
+                           frontend_embeds=fe)[0],
             tmodel.decode_step(cfg, params, cache, tok, 1)[0],
             tsteps.make_serve_step(cfg)(params, cache, tok, 2)[0]]
     for logits in outs:
