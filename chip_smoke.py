@@ -137,7 +137,7 @@ Phases (any failure exits non-zero):
    two ranks within the golden tolerances; (c) a mixed scenario batch
    with fixed actions through the env step on a (2, 2) mesh at res 16,
    within 0.05 of the un-decomposed backend; (d) ``train(plan=
-   ParallelPlan(4, 2, 2))`` at the main path's widths, 2 episodes of 8
+   ParallelPlan(4, 2, 2))`` at the main path's widths, 1 episode of 8
    actions after a 1 t.u. warmup: the plan line names 'halo' and 2 x 2,
    returns finite, no kernel launched; (e) ``autotune`` over the four
    workers, ``t_step_ranks`` at ranks 1, 2 and 4 and the plan chosen;
@@ -164,7 +164,9 @@ Phases (any failure exits non-zero):
    differentiate its Pallas kernels): (a) ``make_train_step`` of
    phi4-mini-3.8b (AdamW, 4 microbatches) and rwkv6-3b (AdamW, 2) at full
    width and depth, bf16, remat "full", ``synthetic_batch`` at train_4k's
-   length with one sequence a microbatch, 3 steps: every loss finite, the
+   length with one sequence a microbatch, 2 steps (``TRAIN_STEPS``, as in
+   every train phase: the first and one steady step; phi4-mini's steady
+   step then once more under ``torch.profiler``): every loss finite, the
    first within ``TOL_TRAIN_LOSS`` of a separate ``lm_loss``, no kernel
    launched; s per step, tokens/s, the peak allocation and model FLOPs
    over the H100 preset's peak reported; (b) at phi4-mini's widths, 4
@@ -173,9 +175,8 @@ Phases (any failure exits non-zero):
    "full" equal to "" bit for bit, both peaks; a bf16 checkpoint of a layer
    restored bit-equal; (c) Adafactor (bf16 direction, per-layer path) at
    mistral-large-123b's widths, 6 of 88 layers, 4 microbatches, 2 steps;
-   (d) ``python -m repro_torch.launch.train --reduced --steps 20
-   --ckpt-dir`` and ``python -m repro_torch.examples.quickstart`` exit 0
-   (the checkpoint restores and saves again byte for byte); (e)
+   (d) ``python -m repro_torch.examples.quickstart`` exits 0 (the
+   training script runs in phase 19 (d)); (e)
    ``make_train_step(backend="pallas")`` and a gradient through
    ``forward_train(backend="pallas")`` raise, launching nothing;
 15. the mixture of experts, phi3.5-moe-42b-a6.6b at its widths (random
@@ -201,11 +202,11 @@ Phases (any failure exits non-zero):
    of each token's top-k experts, the dispatch timed; the shared expert
    and the dense prefix at 2 layers (forward, prefill, decode); (d)
    ``make_train_step`` at 3 layers (2 if 3 run out of memory), AdamW, 4
-   microbatches of one 4096-token sequence, 3 steps: losses finite, the
+   microbatches of one 4096-token sequence, 2 steps: losses finite, the
    first within ``TOL_TRAIN_LOSS`` of its microbatches' separate
-   ``lm_loss`` (aux included), no kernel launched; (e) ``python -m
-   repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --reduced --steps
-   20`` exits 0;
+   ``lm_loss`` (aux included), no kernel launched; (e) the training
+   script's ``main(--arch phi3.5-moe-42b-a6.6b --reduced --steps 20)`` in
+   this process (as phases 16-18 run theirs) returns;
 16. the hybrid family, hymba-1.5b at full width and depth (32 layers,
    random bf16 params; attention with a window of 1024 beside a Mamba
    branch in every block): (a) ``lm_loss(backend="pallas")``, B=1,
@@ -224,10 +225,10 @@ Phases (any failure exits non-zero):
    the decode held block by block against ``forward_train(backend=
    "pallas")`` over 4224 tokens at position 4096, past the window; (d)
    ``make_train_step``, AdamW, remat "full", 4 microbatches of one
-   4096-token sequence, 3 steps, one microbatch's forward and backward
+   4096-token sequence, 2 steps, one microbatch's forward and backward
    under ``torch.profiler``, the first loss within ``TOL_TRAIN_LOSS`` of
-   its microbatches' separate ``lm_loss``, no kernel launched; (e) ``python -m repro_torch.launch.train --arch
-   hymba-1.5b --reduced --steps 20`` exits 0;
+   its microbatches' separate ``lm_loss``, no kernel launched; (e) the
+   training script's ``main`` on the reduced config returns;
 17. MLA, the MTP head and deepseek-v3-671b at its widths, random bf16
    params (671 B params do not fit one card: 5 of 61 layers, the 3 dense
    prefix layers and 2 MoE layers of 256 experts top 8, with the MTP
@@ -248,10 +249,9 @@ Phases (any failure exits non-zero):
    further where it runs out of memory, ``DS_GRAD_CUTS``): gradients
    finite, the peak; (d) ``make_train_step`` at the dense prefix and the
    MTP head (no MoE layer), Adafactor with its bf16 update, 4
-   microbatches of one 4096-token sequence, 3 steps: the first loss
+   microbatches of one 4096-token sequence, 2 steps: the first loss
    within ``TOL_TRAIN_LOSS`` of its microbatches' separate ``lm_loss``;
-   (e) ``python -m repro_torch.launch.train --arch deepseek-v3-671b
-   --reduced --steps 20`` exits 0;
+   (e) the training script's ``main`` on the reduced config returns;
 18. the encoder-decoder and the modality frontends, both models at full
    width and depth, random bf16 params from a seed: (a) qwen2-vl-2b (28
    layers, M-RoPE, qkv biases) with 1024 patch embeddings from a seed,
@@ -273,16 +273,38 @@ Phases (any failure exits non-zero):
    ``forward_train(backend="reference")``'s at position 4096 and each
    decode block within ``TOL_LM_LAYER`` of the pallas forward's over 4224
    tokens (28 / 24 flash launches); ``make_train_step`` (AdamW, 4
-   microbatches of one 4096-token sequence with its embeddings, 3 steps):
+   microbatches of one 4096-token sequence with its embeddings, 2 steps):
    the first loss within ``TOL_TRAIN_LOSS`` of its microbatches' separate
-   ``lm_loss``, no kernel launched, the peak; ``python -m
-   repro_torch.launch.train --arch <config> --reduced --steps 20`` exits
-   0;
-19. one JSON line listing the five kernels, then the card's line and the
+   ``lm_loss``, no kernel launched, the peak; the training script's
+   ``main`` on the reduced config returns;
+19. the language model's mesh layer on the card, a single controller
+   (every shard on the card, the meshes abstract): (a) one phi3.5-moe MoE
+   layer at full width (D 4096, 16 experts of 6400, top 2, cf 1.25), bf16,
+   B 1 S 4096, through the expert-parallel dispatch under (1, 4) and (1,
+   16) meshes: the kept pairs at both hops equal to the CPU's for the
+   card's routes, the output within ``TOL_MESH_MOE`` of the CPU's float32
+   run, the dropless (cf 8) output within it of ``_moe_dispatch``'s, the
+   drop shares at each hop, ms a call beside ``_moe_dispatch``'s; (b)
+   ``lm_loss(backend="pallas")`` of phi3.5-moe at 4 of 32 layers under a
+   (1, 16) mesh: one flash launch a layer and none of any other, the loss
+   finite beside the mesh-less one, s a call; (c) phi4-mini whole under
+   the production (16, 16) mesh, B 1: prefill of 4096 and 16 greedy
+   decodes (the masked cache write, the decode chain), p50 / p99 beside
+   the mesh-less decode's and the bound with the masked write; each
+   decode block within ``TOL_LM_LAYER`` of the pallas forward's; a step
+   at pos >= S leaves the cache bit-equal; (d) one train step of
+   phi4-mini at 8 of 32 layers, 4 x 4096 tokens, under a (2, 1) mesh (2
+   microbatches): the loss within ``TOL_MESH_TRAIN_LOSS`` of its
+   microbatches' separate mesh forward, the peak beside the mesh-less
+   step's; ``python -m repro_torch.launch.train --arch phi4-mini-3.8b
+   --reduced --steps 20 --ckpt-dir`` (under its debug mesh) exits 0 and
+   its checkpoint restores and saves again byte for byte;
+20. one JSON line listing the five kernels, then the card's line and the
    result.
 
-``--phases 10,12,13,14,15,16,17,18`` runs any of those eight phases alone
-after the build (a partial run: no kernels line, no result line).
+Each phase prints its seconds (``[phase N]``).  ``--phases
+10,12,13,14,15,16,17,18,19`` runs any of those nine phases alone after the
+build (a partial run: no kernels line, no result line).
 
 Imports nothing of jax or of the reference package.
 """
@@ -2278,6 +2300,8 @@ def async_path(card):
 HALO_SCENARIOS = ("cyl_re100", "cyl_re100_rotary", "cyl_re200", "cyl_re100")
 TOL_HALO_MONOLITHIC = 1e-5     # relative, the reference's bound
 TOL_HALO_ROLLOUT = 0.05        # the reference's mixed-batch gate
+# (d) train() on plan (4, 2, 2): ~20 s an episode of 8 actions on the card
+HALO_TRAIN_EPISODES = 1
 
 
 def halo_solves(dev, card):
@@ -2444,20 +2468,22 @@ def halo_path(card):
                                           steps_per_action=50,
                                           actions_per_episode=8,
                                           warmup_time=1.0),
-                            n_envs=4, episodes=2, seed=0,
+                            n_envs=4, episodes=HALO_TRAIN_EPISODES, seed=0,
                             plan=ParallelPlan(4, 2, 2), device="cuda"),
                 log_fn=lambda msg: (logs.append(msg),
                                     print(f"[halo train] {msg}"))))
         launched = counts()
         sent = sum(n for _, n in messages)
-        want = 4 * 60 * 2 * 8 * 50
+        want = 4 * 60 * HALO_TRAIN_EPISODES * 8 * 50
         print(f"[halo train] {sent} halo messages an env "
               f"{sorted({shape for shape, _ in messages})} (expected {want} "
-              f"of (33, 1): 4 a sweep pair, 60 pairs, 800 dt)")
+              f"of (33, 1): 4 a sweep pair, 60 pairs, "
+              f"{HALO_TRAIN_EPISODES * 8 * 50} dt)")
         if sent != want or {shape for shape, _ in messages} != {(33, 1)}:
             fail(f"the halo train sent {sent} messages, expected {want}")
         line = [msg for msg in logs if "plan[explicit]" in msg]
-        print(f"[halo train] 2 episodes of 8 actions in {train_s:.3f} s, "
+        print(f"[halo train] {HALO_TRAIN_EPISODES} episode(s) of 8 actions "
+              f"in {train_s:.3f} s, "
               f"episode walls {hist['wall'].tolist()}, rewards "
               f"{hist['reward'].tolist()}, launches {launched}")
         if not line or "'halo'" not in line[0] or "2 x 2" not in line[0]:
@@ -3210,9 +3236,10 @@ def serve_path(card):
 
 
 # phase 14: training.  train_4k's length; its batch of 256 cut to one
-# sequence a microbatch (the config's train_microbatches), 3 steps, random
+# sequence a microbatch (the config's train_microbatches), 2 steps, random
 # bf16 params from a seed, remat "full" (the configs' default)
-TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+# the steps of each train phase: the first and one steady step
+TRAIN_SEQ, TRAIN_STEPS = 4096, 2
 TRAIN_CONFIGS = ("phi4-mini-3.8b", "rwkv6-3b")
 # the first step's loss against a separate no-grad forward of lm_loss on
 # its batch: the step averages its microbatches' bf16 losses in float32,
@@ -3315,13 +3342,16 @@ def train_full(card, name):
     ref = float(ref)
     torch.cuda.empty_cache()
     reset_counts()
-    losses, secs, peak, prof = train_steps(cfg, params, TRAIN_STEPS, n_mb,
-                                           profiled=True)
+    losses, secs, peak, prof = train_steps(
+        cfg, params, TRAIN_STEPS, n_mb, profiled=name == TRAIN_CONFIGS[0])
     launched = counts()
     del params
     torch.cuda.empty_cache()
     steady = sum(secs[1:]) / len(secs[1:])
-    if prof is None:
+    if name != TRAIN_CONFIGS[0]:
+        where = (f"card busy share: not measured (only "
+                 f"{TRAIN_CONFIGS[0]}'s step is profiled)")
+    elif prof is None:
         where = "card busy share: not measured (no device time in the trace)"
     else:
         n_k, busy, heaviest = prof
@@ -3509,32 +3539,44 @@ def train_adafactor(card):
     return dict(losses=losses, s_per_step=secs, peak_bytes=peak)
 
 
-def train_scripts(card):
-    """Phase 14 (d): the training script and the quickstart as
-    subprocesses on the card."""
+def run_script(tag, argv):
+    """``python -m <argv>`` on the card -> its stdout's lines."""
     import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res, secs = wall(lambda: subprocess.run(
+        [sys.executable, "-m", *argv], capture_output=True, text=True,
+        timeout=300, cwd=str(ROOT), env=env))
+    lines = res.stdout.strip().splitlines()
+    print(f"{tag} python -m {' '.join(argv)}: exit {res.returncode} in "
+          f"{secs:.3f} s; last lines {lines[-3:]}")
+    if res.returncode:
+        fail(f"{argv[0]} exited {res.returncode}: {res.stderr[-2000:]}")
+    return lines
+
+
+def train_scripts(card):
+    """Phase 14 (d): the quickstart as a subprocess on the card (the
+    training script runs in phase 19 (d), under its debug mesh)."""
+    lines = run_script("[train scripts]",
+                       ["repro_torch.examples.quickstart"])
+    if lines[-1] != "OK":
+        fail("the quickstart did not print OK")
+
+
+def train_script_checkpoint(card):
+    """Phase 19 (d): ``python -m repro_torch.launch.train`` (its step under
+    ``make_debug_mesh(1, 1)``) as a subprocess on the card, and its
+    checkpoint restored and saved again bit-equal."""
     import shutil
     from repro_torch.ckpt import checkpoint as ck
     base = ROOT / "build" / "train_path"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = {"train": ["repro_torch.launch.train", "--arch",
-                      "phi4-mini-3.8b", "--reduced", "--steps", "20",
-                      "--ckpt-dir", str(base / "ckpt")],
-            "quickstart": ["repro_torch.examples.quickstart"]}
-    out = {}
-    for tag, argv in runs.items():
-        res, secs = wall(lambda: subprocess.run(
-            [sys.executable, "-m", *argv], capture_output=True, text=True,
-            timeout=300, cwd=str(ROOT), env=env))
-        lines = res.stdout.strip().splitlines()
-        print(f"[train scripts] python -m {' '.join(argv)}: exit "
-              f"{res.returncode} in {secs:.3f} s; last lines {lines[-3:]}")
-        if res.returncode:
-            fail(f"{tag} exited {res.returncode}: {res.stderr[-2000:]}")
-        out[tag] = lines
-    final = [ln for ln in out["train"] if ln.startswith("final loss")][0]
-    if out["quickstart"][-1] != "OK":
-        fail("the quickstart did not print OK")
+    shutil.rmtree(base, ignore_errors=True)
+    lines = run_script("[mesh train script]", [
+        "repro_torch.launch.train", "--arch", "phi4-mini-3.8b", "--reduced",
+        "--steps", "20", "--ckpt-dir", str(base / "ckpt")])
+    final = [ln for ln in lines if ln.startswith("final loss")][0]
+    if not lines[0].startswith("init phi4-mini-3.8b-reduced"):
+        fail(f"launch.train printed {lines[0]!r} first")
     path = ck.latest_checkpoint(str(base / "ckpt"))
     arrays, manifest = ck.restore(path)
     again = base / "again.ckpt"
@@ -3543,10 +3585,10 @@ def train_scripts(card):
     # the bytes first written
     same = ck.read_manifest(str(again))["arrays"] == manifest["arrays"]
     dtypes = sorted({v["dtype"] for v in manifest["arrays"].values()})
-    print(f"[train scripts] {final}; its checkpoint {path} ({len(arrays)} "
-          f"leaves, dtypes {dtypes}: the reduced config is float32) "
-          f"restores, and saves again with every leaf's crc32 "
-          f"{'equal' if same else 'DIFFERENT'}")
+    print(f"[mesh train script] {final}; its checkpoint {path} "
+          f"({len(arrays)} leaves, dtypes {dtypes}: the reduced config is "
+          f"float32) restores, and saves again with every leaf's crc32 "
+          f"{'equal' if same else 'DIFFERENT'}; card {card}")
     shutil.rmtree(base, ignore_errors=True)
     if not same:
         fail("the training checkpoint did not restore bit-equal")
@@ -4068,20 +4110,21 @@ def moe_train(card):
 
 
 def train_script(card, name):
-    """The training script on ``name``'s reduced config, on the card."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    argv = ["repro_torch.launch.train", "--arch", name, "--reduced",
-            "--steps", "20"]
-    res, secs = wall(lambda: subprocess.run(
-        [sys.executable, "-m", *argv], capture_output=True, text=True,
-        timeout=300, cwd=str(ROOT), env=env))
-    lines = res.stdout.strip().splitlines()
-    print(f"[script] python -m {' '.join(argv)}: exit {res.returncode} in "
-          f"{secs:.3f} s; last lines {lines[-2:]}; card {card}")
-    if res.returncode:
-        fail(f"launch.train {name} exited {res.returncode}: "
-             f"{res.stderr[-2000:]}")
+    """The training script on ``name``'s reduced config, on the card,
+    through the ``main(argv)`` its ``python -m`` entry point runs (phase
+    19 (d) runs it as a subprocess)."""
+    import io
+    from repro_torch.launch import train as train_mod
+    argv = ["--arch", name, "--reduced", "--steps", "20"]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, secs = wall(lambda: train_mod.main(argv))
+    except (AssertionError, RuntimeError) as e:
+        fail(f"launch.train {name}: {e!r}\n{buf.getvalue()[-2000:]}")
+    lines = buf.getvalue().strip().splitlines()
+    print(f"[script] repro_torch.launch.train.main({' '.join(argv)}): "
+          f"returned in {secs:.3f} s; last lines {lines[-2:]}; card {card}")
 
 
 def moe_path(card):
@@ -4351,7 +4394,7 @@ def hybrid_serve(dev, card, cfg, params):
 def hybrid_train(card):
     """Phase 16 (d): ``make_train_step`` of hymba-1.5b at full width and
     depth, AdamW, remat "full", 4 microbatches of one 4096-token
-    sequence, 3 steps; then one microbatch's forward and backward under
+    sequence, 2 steps; then one microbatch's forward and backward under
     ``torch.profiler``."""
     import torch
     from repro_torch.configs.base import InputShape, get_config
@@ -4458,12 +4501,13 @@ DEEPSEEK_CONFIG = "deepseek-v3-671b"
 # GB); (c) the gradient at 3 dense + 1 MoE layer (31.4 GB of params and as
 # much of gradients) over 4096 tokens, which runs out of the card's memory
 # on an H100 (the two float32 logits of 2.1 GB each and their softmax
-# beside 62.8 GB), so over 1024 tokens, else 1 + 1 layers; (d)
+# beside 62.8 GB), so over 1024 tokens (the first cut tried), else 1 + 1
+# layers; (d)
 # the train step at the dense prefix and the MTP head alone (no MoE
 # layer: Adafactor's float32 temporaries of one (1, 256, 7168, 2048)
 # expert leaf are 15 GB each beside the params and gradients)
 DS_LAYERS, DS_TRAIN_LAYERS = 5, 3
-DS_GRAD_CUTS = ((4, 4096), (4, 1024), (2, 4096))      # (layers, tokens)
+DS_GRAD_CUTS = ((4, 1024), (2, 4096))      # (layers, tokens)
 DS_SEQ, DS_DECODE_STEPS = 4096, 16
 # (b) the yardstick forward over 4097 tokens is dropless, as a one-token
 # decode is: capacity factor E / K (C >= every wave's tokens, whatever the
@@ -4776,7 +4820,7 @@ def ds_train(card):
     """Phase 17 (d): ``make_train_step`` at the dense prefix and the MTP
     head (3 layers, no MoE layer), every width kept: the config's
     Adafactor (bf16 update direction), 4 microbatches of one 4096-token
-    sequence, remat "full", 3 steps."""
+    sequence, remat "full", 2 steps."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import model
@@ -5026,7 +5070,7 @@ def frontend_serve(dev, card, cfg, params):
 def frontend_train(card, name):
     """Phase 18 (a) / (b): ``make_train_step`` at full width and depth,
     AdamW, remat "full", 4 microbatches of one 4096-token sequence with
-    its frontend embeddings (``synthetic_batch``), 3 steps."""
+    its frontend embeddings (``synthetic_batch``), 2 steps."""
     import torch
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.launch import roofline, steps
@@ -5113,8 +5157,347 @@ def frontend_path(card):
     return out
 
 
+# phase 19: the language model's mesh layer on one card, a single
+# controller: every shard on the card, the mesh an abstract map from axis
+# names to sizes
+MESH_MOE_MESHES = ((1, 4), (1, 16))
+MESH_LM_LAYERS, MESH_LM_MESH = 4, (1, 16)
+MESH_SERVE_CONFIG, MESH_SERVE_STEPS = "phi4-mini-3.8b", 16
+MESH_TRAIN_LAYERS, MESH_TRAIN_MESH, MESH_TRAIN_BATCH = 8, (2, 1), 4
+# (a) the card's expert-parallel output (bf16) against the CPU's on the
+# same routes and kept pairs in float32 (the card rounds each expert
+# product, its hidden rows and each weighted term to bf16), and the
+# dropless dispatch on the card against _moe_dispatch's (the same GEMMs
+# over other row groupings, a token's terms added in another order): the
+# rel-RMS and worst-element tolerances of phase 15's dense mix
+TOL_MESH_MOE = TOL_MOE_DENSE
+# (d) the train step's first loss against its microbatches' separate mesh
+# forward: the same operations on the same card
+TOL_MESH_TRAIN_LOSS = 1e-6
+
+
+def mesh_moe(dev, card):
+    """Phase 19 (a): one phi3.5-moe MoE layer at full width, bf16, B 1 S
+    4096, through the expert-parallel dispatch under abstract (1, 4) and
+    (1, 16) meshes: the kept pairs at both hops equal to the CPU's for the
+    same routes, the output against the CPU's float32 run, the dropless
+    (cf 8) output against ``_moe_dispatch``'s, the drop shares at cf 1.25,
+    ms per call beside ``_moe_dispatch``'s."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import act_sharding, moe
+    from repro_torch.models import moe_shard_map as msm
+    cfg = moe_config(1)
+    cf = cfg.moe.capacity_factor
+    T, D = MOE_SEQ, cfg.d_model
+    p = moe.init_moe(cfg, torch.Generator(device=dev).manual_seed(3))
+    x = torch.tensor(np.random.default_rng(17).standard_normal((1, T, D)),
+                     dtype=torch.float32, device=dev).to(torch.bfloat16)
+    p_cpu = {k: v.float().cpu() for k, v in p.items()}
+    dropless = moe_config(1, capacity_factor=MOE_DROPLESS)
+    out = {}
+    for shape in MESH_MOE_MESHES:
+        mesh = make_abstract_mesh(shape, ("data", "model"))
+        tag = f"[mesh moe {shape}]"
+        lay = msm.layout(cfg, mesh, 1, T)
+        with torch.inference_mode():
+            xs = msm.to_shards(x, lay)
+            top_p, top_idx, aux = msm.route(cfg, p, xs, lay)
+            info, info_cpu = {}, {}
+            y = msm.exchange(cfg, p, xs, top_p, top_idx, lay, info)
+            y_cpu = msm.exchange(cfg, p_cpu, xs.float().cpu(), top_p.cpu(),
+                                 top_idx.cpu(), lay, info_cpu)
+            same = all(torch.equal(info[k].cpu(), info_cpu[k])
+                       for k in ("sent", "kept"))
+            rel = rel_rms(y.float().cpu(), y_cpu)
+            worst = float((y.float().cpu() - y_cpu).abs().max()
+                          / y_cpu.abs().max())
+            sent, kept = info["sent"], info["kept"]
+            drop1 = 1 - float(sent.float().mean())
+            drop2 = float((sent & ~kept).float().mean())
+
+            def ep():
+                with act_sharding.activation_mesh(mesh):
+                    return msm.apply_moe_expert_parallel(cfg, p, x)
+            ms = cuda_ms(ep, 5)
+            ms_dispatch = cuda_ms(lambda: moe._moe_dispatch(cfg, p, x), 5)
+            with act_sharding.activation_mesh(mesh):
+                info8 = {}
+                y8, aux8 = msm.apply_moe_expert_parallel(dropless, p, x,
+                                                         info8)
+            yd, auxd = moe._moe_dispatch(dropless, p, x)
+            rel8 = rel_rms(y8, yd)
+            worst8 = float((y8.float() - yd.float()).abs().max()
+                           / yd.float().abs().max())
+            lay8 = info8["layout"]
+            all8 = bool(info8["kept"].all())
+        shards = lay["n_dp"] * lay["EP"]
+        verdict = "equal" if same else "DIFFER FROM"
+        print(f"{tag} {MOE_CONFIG} widths (E 16, top 2, D {D}, F "
+              f"{cfg.moe.d_ff_expert}), bf16, B 1 S {T}: {shards} shards of "
+              f"{lay['T_loc']} tokens, c_send {lay['c_send']}, c_exp "
+              f"{lay['c_exp']} at cf {cf}; the card's kept pairs at both "
+              f"hops {verdict} the CPU's for the same routes; dropped "
+              f"{drop1:.4f} of the pairs at the first hop, {drop2:.4f} more "
+              f"at the second; the card's bf16 output against the CPU's "
+              f"float32 run: rel-RMS {rel:.3e}, worst {worst:.3e} of the "
+              f"largest |value| (tol {TOL_MESH_MOE[0]:.0e}, "
+              f"{TOL_MESH_MOE[1]:.1e}); aux {float(aux):.6e}; dropless (cf "
+              f"{MOE_DROPLESS}: c_send {lay8['c_send']}, c_exp "
+              f"{lay8['c_exp']}, every pair kept: {all8}) against "
+              f"_moe_dispatch's: rel-RMS {rel8:.3e}, worst {worst8:.3e}, "
+              f"aux {float(aux8):.6e} against {float(auxd):.6e}; "
+              f"{ms:.4f} ms a call (router, two hops, experts) beside "
+              f"_moe_dispatch's {ms_dispatch:.4f} ms at cf {cf} (CUDA "
+              f"events); card {card}")
+        if not same:
+            fail(f"mesh moe {shape}: the kept pairs on the card differ "
+                 f"from the CPU's")
+        if not (rel <= TOL_MESH_MOE[0] and worst <= TOL_MESH_MOE[1]):
+            fail(f"mesh moe {shape}: the card's output differs from the "
+                 f"CPU's")
+        if not (all8 and rel8 <= TOL_MESH_MOE[0]
+                and worst8 <= TOL_MESH_MOE[1]):
+            fail(f"mesh moe {shape}: the dropless expert-parallel output "
+                 f"differs from _moe_dispatch's")
+        out[f"{shape[0]}x{shape[1]}"] = dict(
+            c_send=lay["c_send"], c_exp=lay["c_exp"], drop_hop1=drop1,
+            drop_hop2=drop2, cpu_rel_rms=rel, dropless_rel_rms=rel8, ms=ms,
+            dispatch_ms=ms_dispatch)
+        del y, y_cpu, y8, yd, xs, info, info_cpu, info8
+        torch.cuda.empty_cache()
+    del p, p_cpu, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lm(dev, card):
+    """Phase 19 (b): ``lm_loss(backend="pallas")`` of phi3.5-moe at 4 of
+    32 layers under an abstract (1, 16) mesh: one flash launch a layer,
+    the loss finite beside the mesh-less one (they differ by the
+    expert-parallel capacities), s per call."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import act_sharding, model
+    cfg = moe_config(MESH_LM_LAYERS)
+    params = model.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(19)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (1, MOE_SEQ)),
+                             device=dev) for k in ("tokens", "labels")}
+    mesh = make_abstract_mesh(MESH_LM_MESH, ("data", "model"))
+
+    def loss(m):
+        with act_sharding.activation_mesh(m):
+            return model.lm_loss(cfg, params, batch, backend="pallas")
+    with torch.inference_mode():
+        reset_counts()
+        (l_mesh, parts), first_s = wall(lambda: loss(mesh))
+        launched = counts()
+        (_, _), steady_s = wall(lambda: loss(mesh))
+        (l_plain, parts0), plain_s = wall(lambda: loss(None))
+    others = sum(n for k, n in launched.items() if k != "flash_attention")
+    print(f"[mesh lm {MOE_CONFIG}] {MESH_LM_LAYERS} of 32 layers at full "
+          f"width, bf16, B 1 S {MOE_SEQ}, lm_loss(backend='pallas') under "
+          f"an abstract {MESH_LM_MESH} mesh (the one-hot lookup, the "
+          f"expert-parallel MoE at cf {cfg.moe.capacity_factor}): loss "
+          f"{float(l_mesh):.6f} (aux {float(parts['aux']):.6e}); without "
+          f"the mesh (one dispatch) {float(l_plain):.6f} (aux "
+          f"{float(parts0['aux']):.6e}); {launched['flash_attention']} "
+          f"flash launches, {others} of the others; {first_s:.4f} s first "
+          f"call, {steady_s:.4f} s steady, {plain_s:.4f} s without the "
+          f"mesh; card {card}")
+    if not math.isfinite(float(l_mesh)):
+        fail("mesh lm: the loss under the mesh is not finite")
+    if launched["flash_attention"] != MESH_LM_LAYERS or others:
+        fail(f"mesh lm: launches {launched}, expected "
+             f"{MESH_LM_LAYERS} flash and none of any other")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launched["flash_attention"],
+                loss=float(l_mesh), loss_no_mesh=float(l_plain),
+                first_s=first_s, steady_s=steady_s, no_mesh_s=plain_s)
+
+
+def mesh_serve(dev, card):
+    """Phase 19 (c): phi4-mini whole under the production (16, 16) mesh, B
+    1 (the tiny-batch cache spec): prefill of 4096 and 16 greedy decodes,
+    p50 / p99 beside the mesh-less decode and the bound with the masked
+    write; each decode block within ``TOL_LM_LAYER`` of the pallas
+    forward's; a step at pos >= S leaves the cache bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import act_sharding, model
+    from repro_torch.models.sharding import cache_leaf_spec
+    cfg = get_config(MESH_SERVE_CONFIG)
+    params = model.init_params(cfg, seed=0, device=dev)
+    mesh = make_production_mesh()
+    rng = np.random.default_rng(13)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SERVE_PROMPT)),
+                          device=dev)
+    tag = f"[mesh serve {MESH_SERVE_CONFIG}]"
+    with torch.inference_mode():
+        with act_sharding.activation_mesh(mesh):
+            logits, cache = model.prefill(cfg, params, prompt,
+                                          cache_len=SERVE_CACHE)
+            specs = {k: tuple(cache_leaf_spec(mesh, k, v.shape))
+                     for k, v in cache.items()}
+            times, decoded, _ = timed_decode(
+                cfg, params, cache, logits.argmax(-1, keepdim=True),
+                SERVE_PROMPT, steps=MESH_SERVE_STEPS)
+            before = {k: v.clone() for k, v in cache.items()}
+            past, _ = model.decode_step(cfg, params, cache,
+                                        decoded[:, -1:], SERVE_CACHE)
+            untouched = all(torch.equal(before[k], cache[k]) for k in cache)
+            del before
+        logits0, cache0 = model.prefill(cfg, params, prompt,
+                                        cache_len=SERVE_CACHE)
+        times0, decoded0, _ = timed_decode(
+            cfg, params, cache0, logits0.argmax(-1, keepdim=True),
+            SERVE_PROMPT, steps=MESH_SERVE_STEPS)
+        same_tokens = torch.equal(decoded, decoded0)
+        del cache0
+        parts, total, _ = decode_reading(params, cache)
+        write = 2 * nbytes([cache["k"], cache["v"]])
+        bound_ms = 1e3 * (total + write) / HBM_RATE
+        pad = torch.tensor(rng.integers(
+            0, cfg.vocab_size, (1, SERVE_YARDSTICK - SERVE_PROMPT
+                                - MESH_SERVE_STEPS)), device=dev)
+        seq = torch.cat([prompt, decoded, pad], dim=1)
+        del cache
+        with act_sharding.activation_mesh(mesh):
+            worst, _ = hold_decode_blocks(cfg, params, seq, SERVE_PROMPT)
+    p50, p99 = percentile_ms(times, 50), percentile_ms(times, 99)
+    q50, q99 = percentile_ms(times0, 50), percentile_ms(times0, 99)
+    print(f"{tag} {cfg.num_layers} layers, bf16 random params (seed 0), "
+          f"under the production mesh {dict(mesh.shape)} (abstract; B 1 "
+          f"takes the tiny-batch cache spec {specs['k']}): prefill of "
+          f"{SERVE_PROMPT}, {MESH_SERVE_STEPS} greedy decode_steps: p50 "
+          f"{p50:.4f} ms, p99 {p99:.4f} ms a token (host clock, the card "
+          f"synchronised around each); without the mesh p50 {q50:.4f} ms, "
+          f"p99 {q99:.4f} ms (greedy tokens "
+          f"{'equal' if same_tokens else 'different'}); the bound "
+          f"{bound_ms:.4f} ms: {total + write} bytes a token ({parts} and "
+          f"the masked write's read and write of every K/V slot, {write}) "
+          f"at 3.35 TB/s; p50 / bound {p50 / bound_ms:.2f}; a step at pos "
+          f"{SERVE_CACHE} >= S leaves the cache "
+          f"{'bit-equal' if untouched else 'CHANGED'} (logits finite: "
+          f"{bool(torch.isfinite(past).all())}); block by block on the "
+          f"pallas forward's input to each layer, the mesh decode block's "
+          f"update at position {SERVE_PROMPT} is {worst:.3e} of its RMS "
+          f"from the forward's at worst (tol {TOL_LM_LAYER:.0e}); card "
+          f"{card}")
+    if not untouched:
+        fail("mesh serve: a decode step at pos >= S changed the cache")
+    if not worst <= TOL_LM_LAYER:
+        fail("mesh serve: a mesh decode block differs from the pallas "
+             "forward's")
+    del params
+    torch.cuda.empty_cache()
+    return dict(decode_p50_ms=p50, decode_p99_ms=p99,
+                no_mesh_decode_p50_ms=q50, no_mesh_decode_p99_ms=q99,
+                decode_bound_ms=bound_ms, block_worst=worst)
+
+
+def mesh_train(card):
+    """Phase 19 (d): one train step of phi4-mini at 8 of 32 layers, 4 x
+    4096 tokens, under an abstract (2, 1) mesh (2 microbatches: each must
+    divide the 2 dp ways): its loss against its microbatches' separate
+    mesh forward, its peak beside the mesh-less step's (4 microbatches);
+    then ``python -m repro_torch.launch.train``, under its debug mesh."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import act_sharding, model
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"),
+                              num_layers=MESH_TRAIN_LAYERS)
+    mesh = make_abstract_mesh(MESH_TRAIN_MESH, ("data", "model"))
+    B = MESH_TRAIN_BATCH
+    n_mb = steps.microbatches(cfg.train_microbatches, B,
+                              MESH_TRAIN_MESH[0])
+    n_plain = steps.microbatches(cfg.train_microbatches, B)
+    params = model.init_params(cfg, seed=0, device="cuda")
+    batch = train_batch(cfg, B, 0)
+    b = B // n_mb
+    with torch.no_grad(), act_sharding.activation_mesh(mesh):
+        parts = [model.lm_loss(cfg, params, {k: v[i * b:(i + 1) * b]
+                                             for k, v in batch.items()})[0]
+                 for i in range(n_mb)]
+        ref = torch.zeros((), dtype=torch.float32,
+                          device=batch["tokens"].device)
+        for p_ in parts:
+            ref = ref + p_
+        ref = float(ref / n_mb)
+    del parts
+    peaks, losses, secs = {}, {}, {}
+    # in turns: the first mesh step, the mesh-less one, a steady mesh step
+    for what, m in (("mesh", mesh), ("no mesh", None),
+                    ("mesh steady", mesh)):
+        opt_state = steps.make_opt(cfg).init(steps.param_leaves(params))
+        fn = steps.make_train_step(cfg, m)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt_state, _, metrics), secs[what] = wall(
+            lambda: fn(params, opt_state, 0, batch))
+        peaks[what] = torch.cuda.max_memory_allocated()
+        losses[what] = float(metrics["loss"])
+        del opt_state
+    d = abs(losses["mesh"] - ref) / abs(ref)
+    print(f"[mesh train phi4-mini-3.8b] {MESH_TRAIN_LAYERS} of 32 layers, "
+          f"bf16, AdamW, batch {B} x {TRAIN_SEQ}, under an abstract "
+          f"{MESH_TRAIN_MESH} mesh: {n_mb} microbatches (clamped from "
+          f"{cfg.train_microbatches} by the 2 dp ways; {n_plain} without "
+          f"the mesh), each one-hot lookup {b} x {TRAIN_SEQ} x "
+          f"{cfg.vocab_padded} bf16 = {2 * b * TRAIN_SEQ * cfg.vocab_padded}"
+          f" bytes; the first loss {losses['mesh']:.6f} against its "
+          f"microbatches' separate mesh forward {ref:.6f}: {d:.3e} relative "
+          f"(tol {TOL_MESH_TRAIN_LOSS:.0e}); {secs['mesh']:.4f} s, peak "
+          f"{peaks['mesh']} bytes allocated; then on the updated params "
+          f"the mesh-less step (gather lookup, {n_plain} microbatches): "
+          f"loss {losses['no mesh']:.6f}, {secs['no mesh']:.4f} s, peak "
+          f"{peaks['no mesh']} bytes; a steady mesh step: loss "
+          f"{losses['mesh steady']:.6f}, {secs['mesh steady']:.4f} s, peak "
+          f"{peaks['mesh steady']} bytes; card {card}")
+    if not (math.isfinite(losses["mesh"]) and d <= TOL_MESH_TRAIN_LOSS):
+        fail("mesh train: the step's loss differs from its separate mesh "
+             "forward's")
+    if n_mb != 2:
+        fail(f"mesh train: {n_mb} microbatches under the (2, 1) mesh")
+    del params, batch
+    torch.cuda.empty_cache()
+    train_script_checkpoint(card)
+    return dict(loss=losses["mesh"], forward_loss=ref, peak_mesh=peaks["mesh"],
+                peak_no_mesh=peaks["no mesh"], first_s=secs["mesh"],
+                steady_s=secs["mesh steady"], no_mesh_s=secs["no mesh"])
+
+
+def mesh_path(card):
+    """Phase 19: the language model's mesh layer on one card.  Returns the
+    flash row's readings."""
+    import torch
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    moe_r = mesh_moe(dev, card)
+    lm_r = mesh_lm(dev, card)
+    serve_r = mesh_serve(dev, card)
+    train_r = mesh_train(card)
+    return dict(mesh_launches=lm_r.pop("launches"),
+                mesh_path=(f"lm_loss({MOE_CONFIG}, {MESH_LM_LAYERS} layers, "
+                           f"backend='pallas') under an abstract "
+                           f"{MESH_LM_MESH} mesh, B=1, S={MOE_SEQ}"),
+                mesh=dict(moe=moe_r, lm=lm_r, serve=serve_r, train=train_r))
+
+
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18")
+STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18", "19")
 
 
 def main():
@@ -5156,7 +5539,7 @@ def main():
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
         run = {"10": fleet_path, "12": halo_path, "13": serve_path,
                "14": train_path, "15": moe_path, "16": hybrid_path,
-               "17": deepseek_path, "18": frontend_path}
+               "17": deepseek_path, "18": frontend_path, "19": mesh_path}
         for p in phases:
             _, secs = wall(lambda: run[p](card))
             print(f"[phase {p}] {secs:.3f} s")
@@ -5169,6 +5552,14 @@ def main():
           f"{build.BUILD_DIR}")
     stale_halo = stale_halo_libraries(stale_halo_jobs)
     dev = torch.device("cuda")
+
+    # each phase's seconds, phases 1-13 here (14-19 print their own)
+    lap = {"t": time.perf_counter(), "start": time.perf_counter()}
+
+    def done(n):
+        now = time.perf_counter()
+        print(f"[phase {n}] {now - lap['t']:.3f} s")
+        lap["t"] = now
 
     # 1. each kernel against its plain twin at the training shape
     res16 = GridConfig(res=16)
@@ -5195,6 +5586,7 @@ def main():
                          wrong=stale_halo["poisson_sor_full"])
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
     wkv = check_wkv6(dev, get_config("rwkv6-3b"), S=4096)
+    done(1)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
     main_env = dict(steps_per_action=50, actions_per_episode=100,
@@ -5229,6 +5621,7 @@ def main():
     bodies["launches"] = launched["fused_interval_per_body"]
     bodies["path"] = ("train(scenarios=('cyl_re100', 'pinball_re100'), "
                       "backend='fused'), warmup + 1 episode")
+    done(2)
 
     # 3. the second path: one short episode with the packed-SOR kernel
     print("[train pallas] res 16, 4 envs; depth cut: 1 episode of 2 actions "
@@ -5248,6 +5641,7 @@ def main():
              f"solve ({solves})")
     sor["launches"] = launched["rb_sor_slabs_packed"]
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
+    done(3)
 
     # 4. the language-model loss paths at full width
     flash["launches"], flash["lm_first_s"], flash["lm_steady_s"] = run_lm(
@@ -5256,14 +5650,17 @@ def main():
     wkv["launches"], wkv["lm_first_s"], wkv["lm_steady_s"] = run_lm(
         dev, "rwkv6-3b", 4096, "wkv6", per_layer=2)
     wkv["path"] = "lm_loss(rwkv6-3b, backend='pallas'), B=1, S=4096"
+    done(4)
 
     # 5. the full-grid drop-in solve
     sor_full["launches"] = run_sor_full(dev, res16, n_env=4, iters=50)
     sor_full["path"] = "rb_sor(packed=False), res 16, 4 grids, iters=50"
+    done(5)
 
     # 6. golden physics through the fused kernel
     golden(dev)
     golden_pinball(dev)
+    done(6)
 
     # 7. the attention policy and the robust training path
     bodies["robust_path_launches"] = robust_path(float(main_hist["wall"][-1]))
@@ -5274,32 +5671,39 @@ def main():
         "and 2 without deterministic algorithms")
     if bodies["robust_path_launches"] < 1:
         fail("the robust path did not launch the per-body instantiation")
+    done(7)
 
     # 8. the I/O path: record, replay, durability, the file interface
     fused.update(io_path(card))
+    done(8)
 
     # 9. the async trainer and the planner
     planned = async_path(card)
     fused.update(planned["fused"])
     sor.update(planned["sor"])
+    done(9)
 
     # 10. fleet mode through the launcher
     fleet = fleet_path(card)
     fused.update(fleet["fused"])
     sor.update(fleet["sor"])
+    done(10)
 
     # 11. the user-facing scripts
     scripts_path(card, fleet["ckpt_dir"])
+    done(11)
 
     # 12. the halo decomposition: multi-rank plans on the card
     halo = halo_path(card)
     fused.update(halo["fused"])
     sor.update(halo["sor"])
+    done(12)
 
     # 13. the language model's serving path
     serve_flash, serve_wkv = serve_path(card)
     flash.update(serve_flash)
     wkv.update(serve_wkv)
+    done(13)
 
     # 14. the language model's training path (no kernel on it)
     _, secs = wall(lambda: train_path(card))
@@ -5324,7 +5728,16 @@ def main():
     flash.update(fronts)
     print(f"[phase 18] {secs:.3f} s")
 
-    # 19. the kernels, the card, the result
+    # 19. the language model's mesh layer, one controller on the card
+    meshed, secs = wall(lambda: mesh_path(card))
+    if meshed["mesh_launches"] < 1:
+        fail("the mesh path did not launch the flash kernel")
+    flash.update(meshed)
+    print(f"[phase 19] {secs:.3f} s")
+    print(f"[chip_smoke] phases 1-19 in "
+          f"{time.perf_counter() - lap['start']:.3f} s after the build")
+
+    # 20. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,19 @@ workers, the counterpart of the reference's
 slab of an env on that process's device), the reference's intra-host halo
 rule: a halo message never leaves its process.
 
-The production and abstract meshes of the language-model dry run are not
-ported (``ROADMAP.md`` §1 item 5.8).
+The language model's meshes are :class:`AbstractMesh`es: a map from axis
+names to sizes and nothing else (``make_abstract_mesh``,
+``make_production_mesh``).  The sharding functions
+(``models/sharding.py``, ``models/act_sharding.py``) read only a mesh's
+``.shape``, so they take either kind.  The language model runs as a
+single controller: every tensor stays on the one device its caller chose,
+and where the reference's numbers depend on the mesh (the expert-parallel
+dispatch of ``models/moe_shard_map.py``) the ranks are a dimension of the
+port's tensors.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -27,6 +35,44 @@ import torch
 from repro_torch.device import DeviceLike
 
 AXES = ("data", "model")
+
+
+class AbstractMesh:
+    """A device-less mesh: axis names and sizes (``.shape``, an
+    ``OrderedDict`` as the plan-path :class:`Mesh` has), for the specs and
+    the single-controller language model."""
+
+    def __init__(self, shape, axes):
+        shape, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"a mesh needs one size per distinct axis, got "
+                             f"{shape} over {axes}")
+        self.axis_names = axes
+        self.shape = OrderedDict(zip(axes, shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return "AbstractMesh(" + ", ".join(
+            f"{a}={n}" for a, n in self.shape.items()) + ")"
+
+
+def make_abstract_mesh(shape, axes) -> AbstractMesh:
+    """A device-less mesh of ``shape`` over ``axes``."""
+    return AbstractMesh(shape, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The dry run's production mesh: one pod, (16, 16) over ("data",
+    "model"), or two, (2, 16, 16) over ("pod", "data", "model"), the pod
+    axis pure data parallelism.  Abstract: one process cannot hold 256 or
+    512 cards, so it serves the specs, the per-device byte counts of
+    ``launch/dryrun.py`` and the single-controller model on one card."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 class Mesh:

@@ -13,16 +13,20 @@ H100 SXM.  A spec is chosen explicitly, through
 ``h100_sxm``, the CPU -> ``cpu_generic``); any other device raises with
 the preset list, as the reference does for an unknown platform.
 
-``Roofline`` and ``build``, which read the dry run's compiled-HLO
-artifacts, wait with ``launch/dryrun.py`` and the mesh (``ROADMAP.md`` §1
-item 5.8).
+:class:`Roofline` and :func:`build` are the reference's terms over a dict
+of per-device HLO counts (``flops``, ``bytes``, ``coll_bytes`` and
+``coll_<kind>``), priced against a :class:`HardwareSpec`: compute =
+flops / peak, memory = bytes / HBM rate, collective = collective bytes /
+link rate.  Torch has no compiled-HLO cost analysis, so the port's dry run
+(``launch/dryrun.py``) records no such dict; these take one from the
+caller, as the reference's do from its HLO analysis.
 """
 from __future__ import annotations
 
 import math
 import os
 from dataclasses import dataclass
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -144,3 +148,88 @@ def model_flops(cfg: ModelConfig, shape: InputShape, params_shape) -> float:
             cfg, shape.seq_len)
         fl += mult * n_enc * t_enc
     return fl
+
+
+@dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    n_devices: int
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    model_flops: float
+    coll_by_kind: Dict[str, float]
+    # the device the terms price against; None resolves through
+    # hardware_spec() (explicit > $REPRO_HW_SPEC > device detection)
+    hw: Optional[HardwareSpec] = None
+
+    def __post_init__(self):
+        if self.hw is None:
+            self.hw = hardware_spec()
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_dev / self.hw.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_dev / self.hw.hbm_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes_per_dev / self.hw.ici_bw
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_ratio(self) -> float:
+        """MODEL_FLOPS over the global HLO flops."""
+        total = self.flops_per_dev * self.n_devices
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def mfu_bound(self) -> float:
+        """The model-FLOPs utilization the terms allow at most."""
+        ideal = self.model_flops / (self.n_devices * self.hw.peak_flops)
+        return ideal / self.bound_s if self.bound_s else 0.0
+
+    def to_dict(self) -> Dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "n_devices": self.n_devices,
+            "flops_per_dev": self.flops_per_dev,
+            "bytes_per_dev": self.bytes_per_dev,
+            "coll_bytes_per_dev": self.coll_bytes_per_dev,
+            "coll_by_kind": self.coll_by_kind,
+            "model_flops": self.model_flops,
+            "hw": self.hw.to_dict(),
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "useful_ratio": self.useful_ratio, "mfu_bound": self.mfu_bound,
+        }
+
+
+def build(arch: str, shape_name: str, mesh_name: str, n_devices: int,
+          analyzed: Dict[str, float], model_fl: float,
+          hw: Union[None, str, HardwareSpec] = None) -> Roofline:
+    """A :class:`Roofline` from per-device counts ``analyzed``: ``flops``,
+    ``bytes``, ``coll_bytes`` and each ``coll_<kind>``."""
+    coll_by_kind = {k[len("coll_"):]: v for k, v in analyzed.items()
+                    if k.startswith("coll_") and k != "coll_bytes"}
+    return Roofline(
+        arch=arch, shape=shape_name, mesh=mesh_name, n_devices=n_devices,
+        flops_per_dev=analyzed.get("flops", 0.0),
+        bytes_per_dev=analyzed.get("bytes", 0.0),
+        coll_bytes_per_dev=analyzed.get("coll_bytes", 0.0),
+        model_flops=model_fl, coll_by_kind=coll_by_kind,
+        hw=hardware_spec(hw))

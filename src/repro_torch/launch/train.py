@@ -4,8 +4,10 @@ Port of ``repro.launch.train``: trains any config the port has (full or
 ``--reduced``) on one device with ``launch.steps.make_train_step`` on the
 synthetic token stream, logs every ``--log-every`` steps, optionally
 saves the parameters as a checkpoint, and fails unless the loss fell.
-There is no mesh yet (``ROADMAP.md`` §1 item 5.8): one card, or the CPU
-with ``--device cpu``.
+As the reference's, the step runs under ``make_debug_mesh(n, 1)`` over
+the host's n devices (one card, or the CPU with ``--device cpu``), so it
+takes the mesh path: the one-hot embedding lookup, whose gradient is a
+matmul, and the microbatches clamped by the data-parallel width.
 
     python -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced \\
         [--steps 20] [--batch 8] [--seq 64] [--ckpt-dir runs/lm] \\
@@ -21,7 +23,9 @@ from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import LMDataConfig, synthetic_batch
 from repro_torch.device import resolve_device
+from repro_torch.core.autotune import plan_devices
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as M
 
 
@@ -50,14 +54,16 @@ def main(argv=None) -> None:
     S = args.seq or (64 if args.reduced else 1024)
     device = resolve_device(args.device)
 
+    n_dev = len(plan_devices(device))
+    mesh = make_debug_mesh(n_dev, 1, device=device)
     print(f"init {cfg.name}: L={cfg.num_layers} d={cfg.d_model} "
-          f"V={cfg.vocab_size} devices=1 ({device})")
+          f"V={cfg.vocab_size} devices={n_dev} ({device})")
     params = M.init_params(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in steps.param_leaves(params))
     print(f"params: {n_params/1e6:.2f} M")
     opt = steps.make_opt(cfg)
     opt_state = opt.init(steps.param_leaves(params))
-    train_step = steps.make_train_step(cfg)
+    train_step = steps.make_train_step(cfg, mesh)
 
     dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                         seed=args.seed)

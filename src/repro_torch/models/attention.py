@@ -14,8 +14,13 @@ imported here.  RoPE is applied for ``rope_kind`` ``"rope"`` and
 attention: the dense ``gqa_attend``, no mask, no RoPE and no bias, as the
 reference's; its K and V (:func:`cross_kv`) are what a decode cache keeps.
 A decode step attends one token to the whole KV cache through the dense
-``gqa_attend``, as the reference's does.  The reference's mesh-sharded
-decode branch is not ported.
+``gqa_attend``, as the reference's does.  Under a mesh
+(``act_sharding.activation_mesh``) it runs the reference's mesh chain
+instead: the cache write is a masked write over every slot (at ``pos >=
+S`` it writes nothing, where the mesh-less write overwrites the last
+slot), and the attention is a grouped einsum, a float32 masked softmax
+and a second einsum, each step constrained to the cache's sequence
+sharding (``constrain`` records it; one controller computes every shard).
 """
 from __future__ import annotations
 
@@ -27,8 +32,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import (causal_mask,
                                                      flash_attention,
                                                      gqa_attend)
+from repro_torch.models import act_sharding
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
                                        to_cache_dtype)
+from repro_torch.models.sharding import kv_cache_spec
 
 BACKENDS = ("reference", "pallas")
 
@@ -180,9 +187,22 @@ def cache_write(cache, new, pos):
     at ``pos`` on axis 1, in place, and return ``cache``.  ``pos`` is a 0-d
     integer tensor on the cache's device (no host synchronisation).  As
     ``jax.lax.dynamic_update_slice`` does, a position past the end is
-    clamped: ``pos >= S`` overwrites the last slot."""
-    idx = pos.clamp(0, cache.shape[1] - 1).reshape(1)
+    clamped: ``pos >= S`` overwrites the last slot.  Under a mesh, the
+    reference's masked write: every slot is read and written, the one at
+    ``pos`` takes ``new``, and at ``pos >= S`` none does."""
     new = to_cache_dtype(new, cache.dtype)
+    if act_sharding.current_mesh() is not None:
+        S = cache.shape[1]
+        hit = (torch.arange(S, device=cache.device) == pos).reshape(
+            (1, S) + (1,) * (cache.dim() - 2))
+        if cache.dtype.itemsize == 1:
+            # float8 has no where kernel: move its bytes
+            bits = cache.view(torch.uint8)
+            torch.where(hit, new.view(torch.uint8), bits, out=bits)
+        else:
+            torch.where(hit, new, cache, out=cache)
+        return cache
+    idx = pos.clamp(0, cache.shape[1] - 1).reshape(1)
     if cache.dtype.itemsize == 1:
         # float8 has no index_copy kernel: move its bytes
         cache.view(torch.uint8).index_copy_(1, idx, new.view(torch.uint8))
@@ -212,7 +232,35 @@ def decode_attention(cfg: ModelConfig, p, x, cache_k, cache_v, pos):
     mask = kpos <= pos
     if cfg.sliding_window:
         mask = mask & (kpos > pos - cfg.sliding_window)
-    out = gqa_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+    mesh = act_sharding.current_mesh()
+    if mesh is not None:
+        out = _mesh_decode_attend(mesh, q, cache_k, cache_v, mask)
+    else:
+        out = gqa_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
     cd = dtype_of(cfg.compute_dtype)
     out = out.reshape(B, 1, -1) @ p["wo"].to(cd)
     return out, cache_k, cache_v
+
+
+def _mesh_decode_attend(mesh, q, cache_k, cache_v, mask):
+    """The reference's decode attention under a mesh: q (B, 1, H, dh)
+    against the cache (B, S, Hkv, dh) in the compute dtype, grouped by KV
+    head; the logits (B, Hkv, G, 1, S) cast to float32 and scaled, masked
+    to -1e30 where ``mask`` (1, 1, S) is False, softmaxed, cast to V's
+    dtype and contracted with V -> (B, 1, H dh).  Each step is constrained
+    to the cache's sequence sharding."""
+    B, S = cache_k.shape[:2]
+    spec = kv_cache_spec(mesh, B, S)[1:]                     # (B, S, H, dh)
+    seq_ax = spec[1]
+    k = act_sharding.constrain(cache_k.to(q.dtype), *spec)
+    v = act_sharding.constrain(cache_v.to(q.dtype), *spec)
+    Hkv, dh = k.shape[2], q.shape[-1]
+    qg = q.reshape(B, 1, Hkv, q.shape[2] // Hkv, dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * dh ** -0.5
+    logits = act_sharding.constrain(logits, spec[0], None, None, None,
+                                    seq_ax)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    w = act_sharding.constrain(w, spec[0], None, None, None, seq_ax)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(B, 1, -1)

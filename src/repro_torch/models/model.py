@@ -18,9 +18,17 @@ aux loss beside its output (0 for a dense FFN), and ``forward_train``
 returns their sum over both stacks.  A config with ``mtp`` (DeepSeek's
 multi-token prediction) holds ``params["mtp"] = {"block", "norm"}``, one
 unstacked dense block whose loss on the token two ahead joins the aux
-(0.3 of its mean) in ``forward_train``.  The reference's
-``act_sharding.constrain`` calls place activations on a device mesh and do
-nothing without one; the port runs on one card, so they are left out.
+(0.3 of its mean) in ``forward_train``.
+
+Under a mesh (``act_sharding.activation_mesh``, set by the step builders)
+the model computes what the reference's mesh path computes, on one
+controller: the embedding lookup is a one-hot matmul (its gradient a
+matmul, not a scatter-add), a decode's cache write is the masked write and
+its attention the mesh chain (``models/attention.py``), a MoE layer with
+``impl="shard_map"`` runs the expert-parallel dispatch
+(``models/moe_shard_map.py``), and the reference's activation constraints
+are ``act_sharding.constrain`` calls, which return their input and record
+its spec.  Without a mesh none of this runs.
 
 The remat policy follows the reference's: with ``cfg.remat == "full"``
 each block runs under ``torch.utils.checkpoint`` (non-reentrant) when grad
@@ -82,6 +90,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import act_sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import frontend as fe_mod
 from repro_torch.models import hybrid as hyb_mod
@@ -92,6 +101,7 @@ from repro_torch.models.layers import (ShapesOnly, apply_mlp, apply_norm,
                                        dtype_of, embed_init, init_mlp,
                                        init_norm, sinusoidal_at,
                                        sinusoidal_positions, to_cache_dtype)
+from repro_torch.models.sharding import cache_leaf_spec
 
 Params = Dict[str, Any]
 
@@ -280,14 +290,20 @@ def _block_body(cfg: ModelConfig, h, bp, *, positions, causal=True,
     if cfg.attention_kind == "none":
         # rwkv: time mix + channel mix, zero shift states per sequence
         x0, state0 = _rwkv_zero_states(cfg, h)
-        return (_rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0],
+        h = _rwkv_block(cfg, h, bp, x0, state0, x0, backend=backend)[0]
+        # channel sharding: the WKV recurrence is sequential over the
+        # sequence
+        return (act_sharding.constrain(h, act_sharding.dp(), None, "model"),
                 _no_aux(h))
     h = h + _mixer(cfg, bp, h, positions, causal=causal, backend=backend)
     if enc_out is not None and "cross" in bp:
         hc = apply_norm(cfg, bp["ln_c"], h)
         h = h + attn_mod.apply_cross_attention(cfg, bp["cross"], hc, enc_out)
     f, aux = _ffn(cfg, bp, h)
-    return h + f, aux
+    # the sequence-parallel residual stream: batch over dp, sequence over
+    # "model"
+    return act_sharding.constrain(h + f, act_sharding.dp(), "model",
+                                  None), aux
 
 
 def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions, causal=True,
@@ -316,8 +332,19 @@ def _scan_blocks(cfg: ModelConfig, blocks, h, *, positions, causal=True,
 # ---------------------------------------------------------------------------
 
 def _lookup(cfg: ModelConfig, params, tokens):
-    """The embedding rows of ``tokens`` in the compute dtype."""
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    """The embedding rows of ``tokens`` in the compute dtype.  Under a mesh,
+    the reference's one-hot matmul (the vocab axis on "model"): the same
+    rows, and a backward that is a matmul (one-hot^T @ dh) where the
+    gather's is a scatter-add.  The one-hot is (B, S, V) in the compute
+    dtype, built by a scatter (no int64 one-hot)."""
+    cd = dtype_of(cfg.compute_dtype)
+    if act_sharding.current_mesh() is None:
+        return params["embed"][tokens].to(cd)
+    oh = torch.zeros(tuple(tokens.shape) + (cfg.vocab_padded,), dtype=cd,
+                     device=tokens.device)
+    oh.scatter_(-1, tokens.long()[..., None], 1.0)
+    oh = act_sharding.constrain(oh, act_sharding.dp(), None, "model")
+    return oh @ params["embed"].to(cd)
 
 
 def _embed(cfg: ModelConfig, params, tokens, frontend_embeds=None,
@@ -335,7 +362,9 @@ def _embed(cfg: ModelConfig, params, tokens, frontend_embeds=None,
     if cfg.rope_kind == "none" and cfg.attention_kind != "none":
         pos = pos_offset + torch.arange(h.shape[1], device=h.device)
         h = h + sinusoidal_at(pos, cfg.d_model).to(cd)[None]
-    return h
+    if cfg.attention_kind == "none":            # rwkv: channel sharding
+        return act_sharding.constrain(h, act_sharding.dp(), None, "model")
+    return act_sharding.constrain(h, act_sharding.dp(), "model", None)
 
 
 def _positions(cfg: ModelConfig, tokens):
@@ -351,6 +380,8 @@ def _positions(cfg: ModelConfig, tokens):
 
 def _unembed(cfg: ModelConfig, params, h):
     cd = dtype_of(cfg.compute_dtype)
+    # leave sequence parallelism before the vocab-parallel contraction
+    h = act_sharding.constrain(h, act_sharding.dp(), None, None)
     h = apply_norm(cfg, params["final_norm"], h)
     head = (params["embed"].to(cd).T if cfg.tie_embeddings
             else params["lm_head"].to(cd))
@@ -423,7 +454,10 @@ def _mtp_loss(cfg: ModelConfig, params, h, tokens):
 
 def _token_nll(cfg: ModelConfig, logits, labels):
     """Cross entropy per token, logsumexp minus the label's logit (the
-    reference's one-hot contraction picks the same value)."""
+    reference's one-hot contraction picks the same value; its one-hot,
+    shaped as the logits, carries the vocab-parallel constraint, recorded
+    here on the logits)."""
+    act_sharding.constrain(logits, act_sharding.dp(), None, "model")
     lse = torch.logsumexp(logits.float(), dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0].float()
     return lse - gold
@@ -460,7 +494,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     (L, batch, T_enc, Hkv, dh), T_enc the frames a prompt of ``seq_len``
     tokens carries."""
     check_supported(cfg)
-    device = resolve_device(device)
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     dt = dtype or dtype_of(cfg.kv_cache_dtype or cfg.compute_dtype)
     c = _self_cache(cfg, batch, seq_len, dt, device)
     if cfg.is_encdec:
@@ -541,16 +576,28 @@ def _decode_block(cfg: ModelConfig, h, bp, cache_slices, pos):
     return h + _ffn(cfg, bp, h)[0], new
 
 
+def _pin_cache(cache) -> None:
+    """Under a mesh, each stacked cache leaf constrained to its
+    ``cache_leaf_spec``, as the reference pins its loop-carried cache."""
+    mesh = act_sharding.current_mesh()
+    if mesh is not None:
+        for k, v in cache.items():
+            act_sharding.constrain_to(v, cache_leaf_spec(mesh, k, v.shape))
+
+
 def _scan_decode(cfg: ModelConfig, blocks, h, cache, pos):
     """The layers of one stack in order for one token; each layer's slice
     of the stacked cache (the stack's own layers) is updated in place (one
-    buffer, as the reference's loop-carried cache)."""
+    buffer, as the reference's loop-carried cache), pinned to its spec
+    before the loop and after each layer under a mesh."""
+    _pin_cache(cache)
     for i in range(stack_depth(blocks)):
         slices = {k: v[i] for k, v in cache.items()}
         h, new = _decode_block(cfg, h, layer(blocks, i), slices, pos)
         for k, t in new.items():
             if t is not slices[k]:
                 slices[k].copy_(to_cache_dtype(t, slices[k].dtype))
+        _pin_cache(cache)
     return h
 
 
@@ -662,4 +709,5 @@ def _rwkv_prefill_cache(cfg: ModelConfig, params, tokens):
         x0, state0 = _rwkv_zero_states(cfg, h)
         h, cache["xprev_t"][i], cache["state"][i], cache["xprev_c"][i] = \
             _rwkv_block(cfg, h, layer(blocks, i), x0, state0, x0)
+        h = act_sharding.constrain(h, act_sharding.dp(), None, "model")
     return h, cache

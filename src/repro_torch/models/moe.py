@@ -17,14 +17,14 @@ one fixed order on the card too.
 * ``"gspmd"``: the dispatch, in token waves of at most
   :data:`MOE_TOKEN_WAVE` tokens along the sequence when the input is
   longer (each wave its own capacity; the aux is the mean of the waves').
-* ``"shard_map"``: the reference's explicit all-to-all expert parallelism
-  (``repro.models.moe_shard_map``) needs a mesh with a "model" axis and
-  otherwise falls back to the dispatch itself, with no waves.  The port
-  has no language-model mesh yet (``ROADMAP.md`` §1 item 5.8), so it runs
-  that fallback.
+* ``"shard_map"``: the explicit all-to-all expert parallelism
+  (``models/moe_shard_map.py``, the ranks a dimension of the tensors on
+  one controller) under a mesh with a "model" axis; with no mesh, or one
+  it cannot use, the dispatch itself, with no waves, as the reference
+  falls back.
 
-The reference's ``act_sharding.constrain`` of the buffer places it on a
-mesh and does nothing without one, so it is left out here.  The expert
+Under a mesh the (E, C, D) buffer carries the reference's constraint
+(experts on "model"; ``act_sharding.constrain`` records it).  The expert
 products run outside any kernel in the reference (``jnp.einsum``), and so
 in plain PyTorch here.
 """
@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import act_sharding
 from repro_torch.models.layers import dense_init, dtype_of
 
 # the most tokens dispatched at once (the (E, C, D) buffer's memory bound)
@@ -112,9 +113,9 @@ def apply_moe(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     T = B * S
     if m.impl == "shard_map":
-        # no mesh with a "model" axis: the reference's expert-parallel
-        # path falls back to the dispatch, with no waves
-        return _moe_dispatch(cfg, p, x)
+        from repro_torch.models.moe_shard_map import \
+            apply_moe_expert_parallel
+        return apply_moe_expert_parallel(cfg, p, x)
     s_wave = max(1, MOE_TOKEN_WAVE // B)
     if T > MOE_TOKEN_WAVE and S % s_wave == 0 and S > s_wave:
         # waves along the sequence, each with its own capacity
@@ -189,7 +190,7 @@ def _moe_dispatch(cfg: ModelConfig, p, x) -> Tuple[torch.Tensor,
     slot = torch.where(keep, e_s * C + pos, E * C)
     buf = xc.new_zeros((E * C + 1, D))
     buf[slot] = xc[t_s]
-    buf = buf[:E * C].view(E, C, D)
+    buf = act_sharding.constrain(buf[:E * C].view(E, C, D), "model")
 
     h = F.silu(torch.bmm(buf, p["we1"].to(cd))) * torch.bmm(
         buf, p["we3"].to(cd))
