@@ -26,9 +26,15 @@ Phases (any failure exits non-zero):
    held) and timed beside the scalar one, WKV6's blocks and SMs as its launch
    recorded them and each of its two passes timed, WKV6 also at a head of
    40 and a chunk of 64 and bf16 flash attention at a head dim of 96
-   (both padded by their wrappers, held only); the three cluster kernels'
-   checks must reject variants built with a planted fault in their shared
-   half-sweep (SOR halo rows one half-sweep stale);
+   (both padded by their wrappers, held only); the wide heads: flash
+   attention at Gemma 2's shape (B 1, S 4096, 16 heads over 8 of dh 256)
+   in bf16 against its twin, the tile-exact oracle and the wrong variants,
+   timed beside SDPA, in float32 (timed), and bf16 at a head of 160
+   (padded to 256, held only); WKV6 at rwkv6-3b's width in heads of 256
+   and 512 (its cluster passes: each pass timed, the state pass's blocks
+   and SMs), and at a head of 200 (padded to 208, held only); the three
+   cluster kernels' checks must reject variants built with a planted fault
+   in their shared half-sweep (SOR halo rows one half-sweep stale);
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -44,7 +50,10 @@ Phases (any failure exits non-zero):
    params from a seed), B=1, S=4096, timed at the first and a second
    (steady) call; one launch per layer of the bf16 flash-attention kernel,
    two (its chunk and state passes) of the WKV6 kernel, and none of any
-   other, logits and loss held against backend="reference";
+   other, logits and loss held against backend="reference"; then the same
+   at the wide heads, 4 of 32 layers: phi4-mini as 12 heads of 256 over 4
+   (4 flash launches) and rwkv6-3b as 10 WKV6 heads of 256 and as 5 of 512
+   (8 WKV6 launches each);
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, one launch of its kernel, the residual reduced;
 6. golden physics through the fused kernel: the res-8 fixtures' Strouhal
@@ -103,14 +112,15 @@ Phases (any failure exits non-zero):
    with the cluster pinned at 16, 2 episodes of 100 actions after a 30
    t.u. warmup), every run through the port's launcher (``python -m
    repro_torch.launch.fleet``, gloo between the runners, all on the one
-   card): (a) a 1-process fleet (4 envs) and a 2-process fleet (2 envs
-   each) whose final checkpoints must be equal bit for bit (params, Adam
-   moments, generator state, step, env batch, history but its wall);
-   every runner must launch the fused kernel once per interval (and once
-   for its warmup); each fleet's steady episode wall, gather seconds and
-   bytes per episode printed; (b) a runner killed after its second episode
-   of 3: the supervisor must shrink 2 -> 1 and resume to the target, its
-   episode-2 checkpoint equal to (a)'s; (c) ``--plan auto`` in a 2-process
+   card): (a) a 1-process fleet (4 envs) of 2 episodes, which must launch
+   the fused kernel once per interval (and once for its warmup), its
+   steady episode wall, gather seconds and bytes per episode printed; (b)
+   a 2-process fleet (2 envs each) of 3 episodes whose second runner is
+   killed after its second episode: the supervisor must shrink 2 -> 1 and
+   resume to the target; the episode-1 checkpoint the two runners wrote
+   (its plan a 2-process one) must equal (a)'s bit for bit (params, Adam
+   moments, generator state, step, env batch, history but its wall), its
+   episode-2 checkpoint (a)'s final one; (c) ``--plan auto`` in a 2-process
    fleet: ``autotune(max_processes=2)`` in every runner, its artifact
    valid with a measured (``estimated: false``) gloo ``t_interhost``; (d)
    a 1- and a 2-runner fleet of ``--plan 4,2,2`` (2 envs of 2 x-slabs each
@@ -302,13 +312,18 @@ Phases (any failure exits non-zero):
 20. one JSON line listing the five kernels, then the card's line and the
    result.
 
-Each phase prints its seconds (``[phase N]``).  ``--phases
-10,12,13,14,15,16,17,18,19`` runs any of those nine phases alone after the
-build (a partial run: no kernels line, no result line).
+Each phase prints its seconds (``[phase N]``), and the run its whole
+seconds.  ``--phases 10,12,13,14,15,16,17,18,19`` runs any of those nine
+phases alone after the build (a partial run: no kernels line, no result
+line).  ``--compare TREE`` times phase 1's flash (dh 128) and WKV6 (N 64)
+yardsticks of another checkout's ``repro_torch`` (its kernels built into
+its own ``build/``) and exits: run it on the older, the newer, the newer
+and the older tree in one call to compare two commits on one card.
 
 Imports nothing of jax or of the reference package.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -1089,6 +1104,71 @@ def check_flash(dev, cfg, S):
                      f"dh={dh}, causal"}
 
 
+# Gemma 2's attention (arXiv:2408.00118): 16 query heads over 8 KV heads of
+# 256, the flash kernels' widest head; B 1, S 4096, causal
+GEMMA2_ATTENTION = dict(B=1, S=4096, H=16, Hkv=8, dh=256)
+
+
+def check_flash_wide(dev):
+    """The flash kernels at dh 256 (the bfloat16 kernel's split-consumer
+    layout, the float32 kernel's one K/V buffer): Gemma 2's shape in bf16
+    against the plain twin, the tile-exact oracle and the wrong variants,
+    timed beside SDPA and its bound; the float32 kernel there; a head of
+    160 zero-padded to 256 (held only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    g = GEMMA2_ATTENTION
+    B, S, H, Hkv, dh = g["B"], g["S"], g["H"], g["Hkv"], g["dh"]
+    padded = flash_case(dev, 1, 1024, 8, 2, 160, 0, 11)[0]
+    fp32, _, fp32_kernel, _, _ = flash_case(dev, B, S, H, Hkv, dh, 0, 12,
+                                            "float32")
+    fp32_ms = cuda_ms(fp32_kernel, 3)
+    del fp32_kernel
+    torch.cuda.empty_cache()
+    bf16, (q, k, v), kernel, plain, ref = flash_case(dev, B, S, H, Hkv, dh,
+                                                     0, 13)
+    tiled = ops.flash_attention_tiled(q, k, v, causal=True)
+    exact = flash_measures(kernel(), tiled)
+    if not flash_held(f"bfloat16 B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal, "
+                      f"kernel vs tiled", exact, "tiled"):
+        fail("flash_attention at dh 256 differs from the tile-exact oracle")
+    flash_wrong_kernels(q, k, v, (("bfloat16", ref), ("tiled", tiled)))
+    del tiled
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    flops = flash_flops(H, S, dh)
+    nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
+    bound_ms, bound_by = bound(nbytes, (flops, BF16_PEAK))
+    tflops = flops / ms / 1e9
+    print(f"[kernels] flash_attention dh 256 (Gemma 2's attention): kernel "
+          f"{ms:.4f} ms ({tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+          f"bound), plain twin {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP bf16, "
+          f"{nbytes / 1e6:.4f} MB); the float32 CUDA-core kernel "
+          f"{fp32_ms:.4f} ms")
+    del q, k, v, qt, kt, vt, kernel, plain, ref
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_share": bound_ms / ms, "tflops": tflops,
+            "max_abs_err": bf16[2],
+            "held_by": {"bf16_rel_rms": bf16[0], "bf16_worst_row": bf16[1],
+                        "bf16_vs_tiled_rel_rms": exact[0],
+                        "bf16_vs_tiled_worst_row": exact[1],
+                        "fp32_rel_rms": fp32[0], "fp32_worst_row": fp32[1],
+                        "fp32_max_abs": fp32[2],
+                        "bf16_dh_160_rel_rms": padded[0],
+                        "bf16_dh_160_worst_row": padded[1]},
+            "fp32_kernel": {"route": "cuda (CUDA cores)", "ms": fp32_ms},
+            "shape": f"Gemma 2's attention: bf16, B={B}, S={S}, H={H}, "
+                     f"Hkv={Hkv}, dh={dh}, causal"}
+
+
 def wkv6_flops(B, S, H, N, C):
     """(products, elementwise): float32 operations of the chunked algebra
     per call.  Per chunk and head the products r~S (2CN^2), the strictly
@@ -1208,6 +1288,77 @@ def check_wkv6(dev, cfg, S):
                      f"chunk {C}; launches count both passes"}
 
 
+# the rwkv6-3b width (2560) at WKV6 heads of 256 and 512, the kernel's
+# cluster passes (clusters of 4 and 8 blocks)
+WKV6_WIDE = ((256, 10), (512, 5))
+
+
+def rwkv_at_head(cfg, N, layers=None):
+    """rwkv6-3b's config at WKV6 heads of ``N`` (width kept: H = d_model /
+    N), cut to ``layers`` layers if given."""
+    H = cfg.d_model // N
+    changes = dict(head_dim=N, num_heads=H, num_kv_heads=H,
+                   ssm=dataclasses.replace(cfg.ssm, head_dim=N))
+    if layers:
+        changes["num_layers"] = layers
+    return dataclasses.replace(cfg, name=f"{cfg.name}-n{N}", **changes)
+
+
+def check_wkv6_wide(dev, cfg, S):
+    """WKV6's cluster passes at rwkv6-3b's width, heads of 256 and 512:
+    held against the sequential twin within TOL_WKV_OUT / TOL_WKV_STATE,
+    each pass timed alone, the state pass's blocks and their distinct SMs
+    as its launch recorded them, the bound; a head of 200 zero-padded to
+    208 (held only)."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+    wkv6_errors("bf16 B=1 S=1024 H=2 N=200 (padded to 208)",
+                *wkv6_case(dev, dataclasses.replace(cfg, num_heads=2),
+                           1024, N=200)[1:])
+    out = {}
+    for N, H in WKV6_WIDE:
+        c = rwkv_at_head(cfg, N)
+        inputs, kernel, plain = wkv6_case(dev, c, S)
+        err, _, s_err, _ = wkv6_errors(f"bf16 B=1 S={S} H={H} N={N}", kernel,
+                                       plain)
+        blocks, sms_busy = blocks_ran(ops.wkv6_cuda.last_block_sms)
+        if blocks != ops.grid_blocks(1, H, N):
+            fail(f"wkv6 N {N}: the state pass ran {blocks} blocks, expected "
+                 f"{ops.grid_blocks(1, H, N)}")
+        ms = cuda_ms(kernel, 5)
+        call = ops.prepare(*inputs)
+        chunk_ms = cuda_ms(lambda: ops.chunk_pass(call), 5)
+        state_ms = cuda_ms(lambda: ops.state_pass(call), 5)
+        plain_ms = cuda_ms(plain, 1)
+        C = ops.pick_chunk(S)
+        g = ops.cluster_blocks(N)
+        products, elementwise = wkv6_flops(1, S, H, N, C)
+        nbytes = 2 * (5 * S * H * N + H * N) + 4 * 2 * H * N * N
+        bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
+                                   (elementwise, FP32_PEAK))
+        print(f"[kernels] wkv6 N {N} (H {H}, clusters of {g}): kernel "
+              f"{ms:.4f} ms (chunk pass {chunk_ms:.4f} ms, {H * (S // C) * g}"
+              f" blocks; state pass {state_ms:.4f} ms, "
+              f"{1e3 * state_ms / (S // C):.3f} us a link of {S // C}, its "
+              f"launch recorded {blocks} blocks on {sms_busy} distinct SMs), "
+              f"plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {products / 1e9:.4f} GFLOP of products, x3 in "
+              f"TF32, {elementwise / 1e9:.4f} GFLOP fp32 elementwise, "
+              f"{nbytes / 1e6:.4f} MB)")
+        out[f"n_{N}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "max_abs_err": err,
+            "state_max_abs_err": s_err, "chunk_pass_ms": chunk_ms,
+            "state_pass_ms": state_ms, "chunk_pass_blocks": H * (S // C) * g,
+            "state_pass_blocks": blocks, "state_pass_sms_busy": sms_busy,
+            "cluster": g,
+            "shape": f"rwkv6-3b's width at N={N}: bf16, B=1, S={S}, H={H}, "
+                     f"chunk {C}"}
+        del inputs, kernel, plain, call
+        torch.cuda.empty_cache()
+    return out
+
+
 def wrappers():
     """Each kernel's launching wrapper, by kernel name."""
     from repro_torch.kernels.actuation import ops as aops
@@ -1323,16 +1474,17 @@ def frontend_embeds(cfg, S, rng, dev):
         dtype=torch.float32, device=dev)
 
 
-def run_lm(dev, name, S, kernel, per_layer=1):
+def run_lm(dev, name, S, kernel, per_layer=1, cfg=None):
     """lm_loss(backend="pallas") of a full-width config at B=1, S tokens
     (a frontend config's embeddings drawn after them): the kernel must
     launch ``per_layer`` times a decoder layer; logits and loss held
-    against backend="reference" on the same params and inputs."""
+    against backend="reference" on the same params and inputs.  ``cfg``
+    (a registered config with fields replaced) in place of ``name``'s."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     (params, secs) = wall(lambda: model.init_params(cfg, seed=0,
                                                     device=dev))
     n_params = sum(x.numel() for x in leaves(params))
@@ -2528,10 +2680,12 @@ def fleet_path(card):
     """Phase 10: fleet mode through the port's launcher on the card at the
     training shape (res 16, 4 envs in all, 50 dt per action, 60 SOR
     iterations, 2x512 MLP, 149 probes, cluster 16, 100 actions an
-    episode).  (a) 1- and 2-process fleets of 2 episodes, final
-    checkpoints bit-equal, one fused launch per interval in every runner;
-    (b) kill -> shrink -> resume to 3 episodes, its episode-2 checkpoint
-    equal to (a)'s; (c) ``--plan auto`` in a 2-process fleet: the
+    episode).  (a) a 1-process fleet of 2 episodes, one fused launch per
+    interval; (b) a 2-process fleet killed after episode 2 of 3 -> shrink
+    -> resume: the episode-1 checkpoint its two runners wrote equal to
+    (a)'s bit for bit (the fleets of 1 and 2 processes agree), its
+    episode-2 checkpoint equal to (a)'s final one, the resumed episode
+    completing; (c) ``--plan auto`` in a 2-process fleet: the
     autotuner's measured gloo ``t_interhost``; (d) plan (4, 2, 2) on the
     halo backend in 1 and 2 runners, bit-equal; (e) ``autotune`` in 2
     runners of 4 workers timing ranks 1, 2 and 4.  Returns the launch
@@ -2611,9 +2765,10 @@ def fleet_path(card):
                    for f, v in ta.history.items() if f != "wall"]
         return [what for what, ok in checks if not ok]
 
-    # (a) the bitwise contract across fleet sizes
+    # (a) a 1-process fleet; (b) holds a 2-process fleet's checkpoint
+    # against it
     runs = {}
-    for procs in (1, 2):
+    for procs in (1,):
         wd, stdout, secs = launch(f"p{procs}", "--processes", procs,
                                   "--episodes", 2)
         tm, st = timings(wd, stdout, procs), stats(stdout)
@@ -2641,20 +2796,9 @@ def fleet_path(card):
         if clusters != [16] * procs:
             fail(f"fleet p={procs}: fused clusters per runner {clusters}, "
                  f"expected the 4-env batch's 16 in each")
-    diff = differs(runs[1]["final"], runs[2]["final"])
-    if diff:
-        fail(f"fleet: the 2-process fleet's final checkpoint differs from "
-             f"the 1-process fleet's in {diff[:6]}")
-    if runs[2]["final"][1]["plan"]["n_processes"] != 2:
-        fail(f"fleet: the 2-process checkpoint records plan "
-             f"{runs[2]['final'][1]['plan']}")
-    w1, w2 = runs[1]["stats"]["wall"][1], runs[2]["stats"]["wall"][1]
-    print(f"[fleet] 1- and 2-process final checkpoints equal bit for bit "
-          f"(params, Adam m / v, step {runs[1]['final'][0].step}, generator "
-          f"state, env batch, history); steady episode N=1 {w1:.4f} s, "
-          f"N=2 {w2:.4f} s (N=2 / N=1 = {w2 / w1:.4f}); card {card}")
-
-    # (b) kill -> shrink -> resume
+    # (b) a 2-process fleet, killed after episode 2 of 3 -> shrink ->
+    # resume: its episode-2 checkpoint, written by both runners, against
+    # (a)'s final one
     wd, stdout, secs = launch("elastic", "--processes", 2, "--episodes", 3,
                               "--kill-process", 1, "--kill-episode", 2)
     for want in ("FLEET_SHRINK gen=1 procs=2->1 reason=exit",
@@ -2667,15 +2811,32 @@ def fleet_path(card):
     if final[1]["episode"] != 3:
         fail(f"fleet elastic: final checkpoint at episode "
              f"{final[1]['episode']}, expected 3")
+    # the episode-1 checkpoint is the 2-process fleet's (the kill comes
+    # after episode 2); the episode-2 one may be the resumed runner's
+    at1 = load_train_state(str(step_path(str(wd / "ckpt"), 1)), "cpu")
+    p1_at1 = load_train_state(
+        str(step_path(str(runs[1]["wd"] / "ckpt"), 1)), "cpu")
+    if at1[1]["plan"]["n_processes"] != 2:
+        fail(f"fleet elastic: the episode-1 checkpoint records plan "
+             f"{at1[1]['plan']}, not the 2-process fleet's")
+    diff = differs(at1, p1_at1)
+    if diff:
+        fail(f"fleet: the 2-process fleet's episode-1 checkpoint differs "
+             f"from the 1-process fleet's in {diff[:6]}")
     diff = differs(at2, runs[1]["final"])
     if diff:
         fail(f"fleet elastic: its episode-2 checkpoint differs from the "
              f"uninterrupted fleet's in {diff[:6]}")
     resumed = [ln for ln in stdout.splitlines() if ln.startswith("resume: ")]
-    print(f"[fleet elastic] runner 1 killed after episode 2 of 3: shrink "
-          f"2 -> 1, {resumed[0]}, 3 episodes done in {secs:.3f} s of "
-          f"launcher; its episode-2 checkpoint equal to the uninterrupted "
-          f"fleet's bit for bit")
+    w1, w2 = (float(t[0].history["wall"][0]) for t in (p1_at1, at1))
+    print(f"[fleet elastic] 2 runners, runner 1 killed after episode 2 of "
+          f"3: shrink 2 -> 1, {resumed[0]}, 3 episodes done in {secs:.3f} s "
+          f"of launcher; the 2-process fleet's episode-1 checkpoint equal "
+          f"to the 1-process fleet's bit for bit (params, Adam m / v, step "
+          f"{at1[0].step}, generator state, env batch, history), its "
+          f"episode-2 checkpoint to the uninterrupted fleet's; first "
+          f"episode N=1 {w1:.4f} s, N=2 {w2:.4f} s (N=2 / N=1 = "
+          f"{w2 / w1:.4f}); card {card}")
 
     # (c) autotune(max_processes=2) inside a 2-process fleet
     wd, stdout, secs = launch("auto", "--processes", 2, "--plan", "auto",
@@ -2749,10 +2910,10 @@ def fleet_path(card):
         fail(f"fleet auto ranks: t_step_ranks at {sorted(ranks)}, expected "
              f"ranks 1, 2 and 4")
     return dict(
-        fused=dict(fleet_launches=runs[2]["fused"],
-                   fleet_path=("python -m repro_torch.launch.fleet, 2 "
-                               "runners of 2 envs on the card, warmup + 2 "
-                               "episodes each: 1 per interval per runner")),
+        fused=dict(fleet_launches=runs[1]["fused"],
+                   fleet_path=("python -m repro_torch.launch.fleet, 1 "
+                               "runner of 4 envs on the card, warmup + 2 "
+                               "episodes: 1 per interval")),
         sor=dict(fleet_launches=sor,
                  fleet_path=("python -m repro_torch.launch.fleet --plan "
                              "auto, 2 runners: autotune(max_processes=2) "
@@ -5500,19 +5661,51 @@ def mesh_path(card):
 STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18", "19")
 
 
+def compare_tree(card):
+    """``--compare TREE``: phase 1's yardsticks of the shapes the registered
+    configs run, read from TREE's ``repro_torch`` (its kernels built into
+    TREE's ``build/``) with this script's helpers, so that two commits are
+    timed alike: the bf16 flash kernel at phi4-mini's shape (dh 128, held
+    against its twin first) and the WKV6 call at rwkv6-3b's (N 64).  One
+    process reads one tree: run it in turns on the older, the newer, the
+    newer and the older tree in one call on one card.  Prints one JSON
+    line; no result line."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    dev = torch.device("cuda")
+    _, secs = wall(lambda: build.build(["flash_attention", "wkv6"]))
+    phi, rwkv = get_config("phi4-mini-3.8b"), get_config("rwkv6-3b")
+    flash = flash_case(dev, 1, 4096, phi.num_heads, phi.num_kv_heads,
+                       phi.resolved_head_dim, 0, 4)[2]
+    wkv6 = wkv6_case(dev, rwkv, 4096)[1]
+    print(json.dumps({
+        "tree": str(build.CSRC.parents[3]), "card": card,
+        "build_s": secs,
+        "flash_phi4_mini_bf16_S4096_ms": cuda_ms(flash, 20),
+        "wkv6_rwkv6_3b_bf16_S4096_ms": cuda_ms(wkv6, 10)}))
+
+
 def main():
     import argparse
+    script_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
                     help=f"run only these of the phases "
                          f"{', '.join(STANDALONE_PHASES)} (comma-separated) "
                          f"after the build: a partial run, which prints no "
                          f"kernels line and no result line")
+    ap.add_argument("--compare", metavar="TREE", default="",
+                    help="time phase 1's flash (dh 128) and WKV6 (N 64) "
+                         "yardsticks of TREE's repro_torch (a checkout "
+                         "root, e.g. an older commit unpacked with git "
+                         "archive) and exit: no kernels line, no result")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(STANDALONE_PHASES):
         ap.error(f"--phases takes {STANDALONE_PHASES}, got {phases}")
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.compare).resolve() / "src"
+                           if args.compare else ROOT / "src"))
     import os
     # cuBLAS is repeatable under torch.use_deterministic_algorithms (phase
     # 7) only with a fixed workspace, set before its first handle
@@ -5534,6 +5727,9 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    if args.compare:
+        compare_tree(card)
+        return
     if phases:
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
@@ -5585,7 +5781,9 @@ def main():
     sor_full = check_sor(dev, res16, n_env=4, iters=50, full=True,
                          wrong=stale_halo["poisson_sor_full"])
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
+    flash["dh_256"] = check_flash_wide(dev)
     wkv = check_wkv6(dev, get_config("rwkv6-3b"), S=4096)
+    wkv.update(check_wkv6_wide(dev, get_config("rwkv6-3b"), S=4096))
     done(1)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
@@ -5650,6 +5848,24 @@ def main():
     wkv["launches"], wkv["lm_first_s"], wkv["lm_steady_s"] = run_lm(
         dev, "rwkv6-3b", 4096, "wkv6", per_layer=2)
     wkv["path"] = "lm_loss(rwkv6-3b, backend='pallas'), B=1, S=4096"
+    # the wide heads through the same entry point, at the models' widths,
+    # 4 of 32 layers: phi4-mini's 3072 as 12 heads of 256 over 4 KV heads,
+    # rwkv6-3b's 2560 as WKV6 heads of 256 and 512
+    phi = get_config("phi4-mini-3.8b")
+    phi256 = dataclasses.replace(phi, name=f"{phi.name}-dh256", head_dim=256,
+                                 num_heads=12, num_kv_heads=4, num_layers=4)
+    wide = flash["dh_256"]
+    wide["launches"], wide["lm_first_s"], wide["lm_steady_s"] = run_lm(
+        dev, phi256.name, 4096, "flash_attention", cfg=phi256)
+    wide["path"] = ("lm_loss(phi4-mini-3.8b at dh 256: 12 heads over 4, 4 "
+                    "layers, backend='pallas'), B=1, S=4096")
+    for N, _ in WKV6_WIDE:
+        c = rwkv_at_head(get_config("rwkv6-3b"), N, layers=4)
+        wide = wkv[f"n_{N}"]
+        wide["launches"], wide["lm_first_s"], wide["lm_steady_s"] = run_lm(
+            dev, c.name, 4096, "wkv6", per_layer=2, cfg=c)
+        wide["path"] = (f"lm_loss(rwkv6-3b at N {N}: {c.num_heads} heads, 4 "
+                        f"layers, backend='pallas'), B=1, S=4096")
     done(4)
 
     # 5. the full-grid drop-in solve
@@ -5734,8 +5950,9 @@ def main():
         fail("the mesh path did not launch the flash kernel")
     flash.update(meshed)
     print(f"[phase 19] {secs:.3f} s")
-    print(f"[chip_smoke] phases 1-19 in "
-          f"{time.perf_counter() - lap['start']:.3f} s after the build")
+    now = time.perf_counter()
+    print(f"[chip_smoke] phases 1-19 in {now - lap['start']:.3f} s after "
+          f"the build; the whole script {now - script_start:.3f} s")
 
     # 20. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))

@@ -52,11 +52,26 @@
 // - causal balance: blockIdx.y walks the query blocks from the last (the
 //   most key tiles) to the first, so the short blocks fill the tail.
 // Shared memory at dh 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+// At dh 256 (heads of 129 to 256, zero-padded by the wrapper) a consumer
+// that held 64 rows' 64 x 256 fp32 accumulator (128 registers a thread)
+// beside its 64 x 128 S tile (64) would spill: ptxas allocates the kernel's
+// 168 registers a thread, whatever setmaxnreg grants later (a draft that
+// did so spilled and had its wgmma serialised, by nvcc's -Xptxas -v).  So
+// a block owns 64 query rows and its two consumers split the work of all
+// 64: consumer c forms S on keys [64c, 64c + 64) of the tile (32
+// registers) and the output's columns [128c, 128c + 128) (64); the row
+// maxima cross through shared memory, so both round p at the same running
+// max, and P (bf16, 16 KB) crosses whole, the shared-memory A operand of
+// P V.  Q 32 KB + K 64 KB + V 64 KB + P 16 KB = 176 KB, a one-stage ring
+// whose K and V are freed apart (the next K loads during this tile's
+// softmax and P V, the next V during the next S).
 //
 // float32 design (flash_attention_fp32_kernel): grid (ceil(S / 64), B * H),
 // 256 threads.  A block owns 64 query rows (in shared memory for the whole
 // key loop) and walks the key tiles: the tile's K and V (rows padded by one
-// float so column reads are conflict-free) go to shared memory, each thread
+// float so column reads are conflict-free) go to shared memory (at dh 256
+// through one buffer, V after K once the scores are formed: Q 65,792 B +
+// one tile 131,584 B + p 33,024 B = 230,400 B), each thread
 // computes a 4 x 8 patch of scores (4 rows, 8 key columns 16 apart), the
 // row max and sum are shuffles over the 16 lanes that share a row, p goes
 // to shared memory, and each thread accumulates a 4 x (dh / 16) patch of
@@ -102,10 +117,13 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fp32_kernel(
   constexpr int LD = DH + 1;
   constexpr int LDP = BK_MAX + 1;
   constexpr int DC = DH / 16;   // output columns per thread
+  // up to dh 128 the K and V tiles have a buffer each; at dh 256 two
+  // 128-row tiles would not fit beside Q and p, so V follows K through one
+  constexpr bool ONE_KV = DH > 128;
   extern __shared__ float smem[];
   float* q_s = smem;                   // [BQ][LD]
   float* k_s = q_s + BQ * LD;          // [BK_MAX][LD]
-  float* v_s = k_s + BK_MAX * LD;      // [BK_MAX][LD]
+  float* v_s = ONE_KV ? k_s : k_s + BK_MAX * LD;   // [BK_MAX][LD]
   float* p_s = v_s + BK_MAX * LD;      // [BQ][LDP]
 
   const int bh = blockIdx.y;
@@ -154,7 +172,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fp32_kernel(
       const int d = idx - r * DH;
       const size_t g = static_cast<size_t>(k0 + r) * kv_row + d;
       k_s[r * LD + d] = kb[g];
-      v_s[r * LD + d] = vb[g];
+      if (!ONE_KV) v_s[r * LD + d] = vb[g];
     }
     __syncthreads();
 
@@ -209,6 +227,14 @@ __global__ void __launch_bounds__(THREADS) flash_attention_fp32_kernel(
       m[i] = m_new;
     }
     __syncthreads();
+    if (ONE_KV) {   // every score is formed: V takes K's buffer
+      for (int idx = tid; idx < bk * DH; idx += THREADS) {
+        const int r = idx / DH;
+        const int d = idx - r * DH;
+        v_s[r * LD + d] = vb[static_cast<size_t>(k0 + r) * kv_row + d];
+      }
+      __syncthreads();
+    }
 
     float pv[4][DC];
 #pragma unroll
@@ -269,7 +295,6 @@ namespace tc {
 
 constexpr int BQ = 128;        // query rows per block: two consumers of 64
 constexpr int BKT = 128;       // key rows of a shared-memory tile (>= bk)
-constexpr int NST = 2;         // stages of the K/V ring
 constexpr int THREADS = 384;   // producer + two consumer warpgroups
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -278,20 +303,39 @@ constexpr float LOG2E = 1.4426950408889634f;
 // stored as NCH chunks of ROWB-byte rows, each chunk one TMA box, swizzled
 // with a ROWB-byte pattern (128 bytes, or 64 at dh 32) that the wgmma
 // descriptors name too.  Tiles start on 1024-byte boundaries, the period
-// of the 128-byte swizzle.
+// of the 128-byte swizzle.  The K/V ring has NST stages: two up to dh 128;
+// one at dh 256, where one K and V tile take 128 KB beside Q and P,
+// staggered: K and V have an empty barrier each, so the next tile's K
+// lands while this tile's V is read, and its V while the next S is formed.
 template <int DH>
 struct Layout {
+  // dh 256: a block of 64 query rows, both consumers on all of them (see
+  // the kernel); below, 128 rows, 64 a consumer
+  static constexpr bool SPLIT = DH > 128;
+  static constexpr int QROWS = SPLIT ? 64 : BQ;   // query rows of a block
+  static constexpr int NST = DH <= 128 ? 2 : 1;
   static constexpr int ROWB = DH * 2 < 128 ? DH * 2 : 128;
   static constexpr int NCH = DH * 2 / ROWB;
-  static constexpr int CHUNK = BKT * ROWB;     // bytes of one chunk
-  static constexpr int TILE = NCH * CHUNK;     // bytes of one tile
-  static constexpr int K_OFF = TILE;           // Q at 0
+  static constexpr int CHUNK = BKT * ROWB;     // bytes of one K / V chunk
+  static constexpr int TILE = NCH * CHUNK;     // bytes of one K / V tile
+  static constexpr int QCHUNK = QROWS * ROWB;  // bytes of one Q chunk
+  static constexpr int QTILE = NCH * QCHUNK;
+  static constexpr int K_OFF = QTILE;          // Q at 0
   static constexpr int V_OFF = K_OFF + NST * TILE;
-  static constexpr int BAR_OFF = V_OFF + NST * TILE;
-  // barriers: Q full, then K full, V full and K/V empty for each stage.
-  // At least half an SM's shared memory, so that one block runs per SM:
-  // the consumers' setmaxnreg.inc takes the registers the producer frees.
-  static constexpr int NEED = 1024 + BAR_OFF + 8 * (1 + 3 * NST);
+  // SPLIT: P (bf16, QROWS x BKT keys, two chunks of 64 keys, 128-byte
+  // rows swizzled as Q's: the A operand of P V)
+  static constexpr int P_OFF = V_OFF + NST * TILE;
+  static constexpr int PCHUNK = QROWS * 128;
+  static constexpr int PTILE = SPLIT ? 2 * PCHUNK : 0;
+  static constexpr int BAR_OFF = P_OFF + PTILE;
+  // barriers: Q full, then K full, V full and K (/V) empty for each stage,
+  // and at one stage a V empty; SPLIT: after them, the two consumers' row
+  // maxima (then sums) of QROWS floats each.  At least half an SM's shared
+  // memory, so that one block runs per SM: the consumers' setmaxnreg.inc
+  // takes the registers the producer frees.
+  static constexpr int NBAR = 1 + 3 * NST + (NST == 1);
+  static constexpr int RED_OFF = BAR_OFF + 8 * NBAR;
+  static constexpr int NEED = 1024 + RED_OFF + (SPLIT ? 2 * QROWS * 4 : 0);
   static constexpr int SMEM = NEED > 120 * 1024 ? NEED : 120 * 1024;
   static constexpr uint64_t SWIZZLE = ROWB == 128 ? 1 : 2;   // descriptor
 };
@@ -411,6 +455,67 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, fp32) (+)= A (64 x 16) * B (16 x 64), both from shared
+// memory, both K-major; accumulate == 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, shared memory, K-major) * B (16 x 128,
+// shared memory, MN-major: the transposed-B form)
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+
+// the two consumer warpgroups (threads 128-383), named barrier 1
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
 // D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x
 // 32, shared memory, MN-major: the transposed-B form)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -510,6 +615,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
     int S, int H, int Hkv, int bk, int causal, int window, float scale) {
   using L = Layout<DH>;
+  constexpr int NST = L::NST;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -520,22 +626,29 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
   const int b = bh / H;
   const int h = bh - b * H;
   const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::QROWS;   // heaviest first
 
   // the key tiles holding a visible key for some row of this block
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + L::QROWS, S) - 1;
   int kt_end = S / bk;
   if (causal) kt_end = min(kt_end, q_last / bk + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / bk;
   const int n_tiles = kt_end - kt_begin;
 
+  // a stage's K empty and V empty barriers: one barrier for both with two
+  // stages, two with one
+  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * NST + st); };
+  auto v_empty = [&](int st) {
+    return NST == 1 ? bars + 8 * (1 + 3 * NST) : k_empty(st);
+  };
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < NST; ++st) {
       mbar_init(bars + 8 * (1 + st), 1);              // K full
       mbar_init(bars + 8 * (1 + NST + st), 1);        // V full
-      mbar_init(bars + 8 * (1 + 2 * NST + st), 2);    // K/V empty
+      mbar_init(k_empty(st), 2);                      // K (/V) empty
+      if (NST == 1) mbar_init(v_empty(st), 2);        // V empty
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -546,9 +659,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     // ---- producer: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::TILE);
+      mbar_expect_tx(q_full, L::QTILE);
       for (int ch = 0; ch < L::NCH; ++ch)
-        tma_load(q_s + ch * L::CHUNK, &tq, q_full, ch * (L::ROWB / 2), h, q0,
+        tma_load(q_s + ch * L::QCHUNK, &tq, q_full, ch * (L::ROWB / 2), h, q0,
                  b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST;
@@ -558,16 +671,186 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
         const uint32_t v_full = bars + 8 * (1 + NST + st);
         const uint32_t k_s = base + L::K_OFF + st * L::TILE;
         const uint32_t v_s = base + L::V_OFF + st * L::TILE;
-        mbar_wait(bars + 8 * (1 + 2 * NST + st), ph ^ 1);   // stage free
+        mbar_wait(k_empty(st), ph ^ 1);   // stage (its K) free
         mbar_expect_tx(k_full, L::TILE);
         for (int ch = 0; ch < L::NCH; ++ch)
           tma_load(k_s + ch * L::CHUNK, &tk, k_full, ch * (L::ROWB / 2), hk,
                    k0, b);
+        if (NST == 1) mbar_wait(v_empty(st), ph ^ 1);   // its V free
         mbar_expect_tx(v_full, L::TILE);
         for (int ch = 0; ch < L::NCH; ++ch)
           tma_load(v_s + ch * L::CHUNK, &tv, v_full, ch * (L::ROWB / 2), hk,
                    k0, b);
       }
+    }
+  } else if constexpr (L::SPLIT) {
+    // ---- dh 256: both consumers on the block's 64 query rows ----
+    // Consumer c forms S for keys [64c, 64c + 64) of each tile (32 fp32
+    // registers a thread) and owns the output's columns [128c, 128c + 128)
+    // (64): with P V's accumulator split so, no thread holds more than the
+    // dh-128 kernel's consumers, and nothing spills under its 168
+    // registers.  A row's max crosses between the two through shared
+    // memory before p is formed, so both round p at the same running max,
+    // and P (bf16) crosses whole, as the A operand of P V.  Two named
+    // barriers a tile join the consumers: the maxima are in; P is in.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int rl = 16 * (t >> 5) + (lane >> 2);   // local rows rl, rl + 8
+    const int r0 = q0 + rl;
+    const int cq = 2 * (lane & 3);
+    const int row_first = q0;
+    const int row_last = q0 + L::QROWS - 1;
+    const uint32_t p_s = base + L::P_OFF;
+    float* red = reinterpret_cast<float*>(
+        smem_raw + (base - smem_u32(smem_raw)) + L::RED_OFF);
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+    float s[32];
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NST;
+      const uint32_t ph = (j / NST) & 1;
+      const int k0 = (kt_begin + j) * bk;
+      const uint32_t k_s = base + L::K_OFF + st * L::TILE;
+      const uint32_t v_s = base + L::V_OFF + st * L::TILE;
+
+      // S = Q K^T on this consumer's 64 keys of the tile
+      mbar_wait(bars + 8 * (1 + st), ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t col = (kk * 32 / L::ROWB), byte = kk * 32 % L::ROWB;
+        wgmma_ss_n64(s, desc<DH>(q_s + col * L::QCHUNK + byte, 16,
+                                 8 * L::ROWB),
+                     desc<DH>(k_s + col * L::CHUNK + c * 64 * L::ROWB + byte,
+                              16, 8 * L::ROWB),
+                     kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(s);
+      if (NST == 1 && t == 0) mbar_arrive(k_empty(st));   // K read
+
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+      const bool edge = bk < BKT || (causal && k0 + bk - 1 > row_first) ||
+                        (window > 0 && k0 <= row_last - window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 64 * c + 8 * (i / 4) + cq + (i & 1);
+          const int qpos = r0 + 8 * ((i >> 1) & 1);
+          const int kpos = k0 + col;
+          const bool visible = (!causal || kpos <= qpos) &&
+                               (window == 0 || kpos > qpos - window);
+          s[i] = col >= bk ? -INFINITY : (visible ? s[i] : MASKED);
+        }
+      }
+
+      // the row max over this consumer's keys, then over the other's
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      if ((lane & 3) == 0) {
+        red[c * L::QROWS + rl] = mx0;
+        red[c * L::QROWS + rl + 8] = mx1;
+      }
+      consumers_sync();   // both consumers' maxima are in
+      mx0 = fmaxf(mx0, red[(1 - c) * L::QROWS + rl]);
+      mx1 = fmaxf(mx1, red[(1 - c) * L::QROWS + rl + 8]);
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f((m0 - mn0) * LOG2E);
+      const float a1 = exp2f((m1 - mn1) * LOG2E);
+      m0 = mn0;
+      m1 = mn1;
+      // p, rounded to bf16 into P's chunk c: key 8i + cq of this
+      // consumer's 64 is byte 16i + 2cq of a 128-byte row, whose 16-byte
+      // unit i the 128-byte swizzle moves to i ^ (row % 8)
+      float sum0 = 0.f, sum1 = 0.f;
+      const uint32_t prow = p_s + c * L::PCHUNK + rl * 128 + 2 * cq;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p0 = exp2f((s[4 * i] - mn0) * LOG2E);
+        const float p1 = exp2f((s[4 * i + 1] - mn0) * LOG2E);
+        const float p2 = exp2f((s[4 * i + 2] - mn1) * LOG2E);
+        const float p3 = exp2f((s[4 * i + 3] - mn1) * LOG2E);
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        const uint32_t unit = (i ^ (rl & 7)) << 4;
+        st_shared_u32(prow + unit, pack_bf16(p0, p1));
+        st_shared_u32(prow + 8 * 128 + unit, pack_bf16(p2, p3));
+      }
+      // per-lane partial sums over this consumer's keys; the quad's lanes
+      // and the two consumers are added at the end
+      l0 = a0 * l0 + sum0;
+      l1 = a1 * l1 + sum1;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        acc[4 * i] *= a0;
+        acc[4 * i + 1] *= a0;
+        acc[4 * i + 2] *= a1;
+        acc[4 * i + 3] *= a1;
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      consumers_sync();   // P is whole
+
+      // O[:, 128c .. 128c + 127] += P V[:, 128c ..], 8 k-steps of 16 keys
+      mbar_wait(bars + 8 * (1 + NST + st), ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+        wgmma_ss_n128_tb(acc,
+                         desc<DH>(p_s + (kk / 4) * L::PCHUNK + kk % 4 * 32,
+                                  16, 8 * 128),
+                         desc<DH>(v_s + 2 * c * L::CHUNK + kk * 16 * L::ROWB,
+                                  L::CHUNK, 8 * L::ROWB));
+      wg_commit();
+      wg_wait_all();
+      pin(acc);
+      if (t == 0) mbar_arrive(v_empty(st));   // V read: stage free
+    }
+
+    // l: the quad's lanes, then the two consumers' parts, in that order
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if ((lane & 3) == 0) {
+      red[c * L::QROWS + rl] = l0;
+      red[c * L::QROWS + rl + 8] = l1;
+    }
+    consumers_sync();
+    const float d0 = fmaxf(red[rl] + red[L::QROWS + rl], 1e-30f);
+    const float d1 = fmaxf(red[rl + 8] + red[L::QROWS + rl + 8], 1e-30f);
+    const size_t q_row = static_cast<size_t>(H) * DH;
+    __nv_bfloat16* ob =
+        o + static_cast<size_t>(b) * S * q_row + h * DH + 128 * c + cq;
+    if (r0 < S) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * q_row + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+    }
+    if (r0 + 8 < S) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * q_row + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
     }
   } else {
     // ---- consumers: 64 query rows each ----
@@ -678,7 +961,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
       wg_commit();
       wg_wait_all();
       pin(acc);
-      if (t == 0) mbar_arrive(bars + 8 * (1 + 2 * NST + st));   // stage free
+      if (t == 0) mbar_arrive(v_empty(st));   // V (and K) read: stage free
     }
 
 #pragma unroll
@@ -732,10 +1015,10 @@ EncodeTiled encode_tiled() {
 }
 
 // The map of a (B, S, heads, dh) bf16 tensor, innermost first: (dh, heads,
-// S, B); the box is one ROWB-byte chunk of a head's row, 128 rows.
+// S, B); the box is one ROWB-byte chunk of a head's row, `rows` rows.
 template <int DH>
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
-                  int B, int S, int heads) {
+                  int B, int S, int heads, int rows) {
   using L = Layout<DH>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
                               static_cast<cuuint64_t>(heads),
@@ -743,7 +1026,8 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t row = 2ull * DH;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {L::ROWB / 2, 1, BKT, 1};
+  const cuuint32_t box[4] = {L::ROWB / 2, 1, static_cast<cuuint32_t>(rows),
+                             1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, one,
@@ -762,15 +1046,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (make_map<DH>(&tq, encode, q, B, S, H) != CUDA_SUCCESS ||
-      make_map<DH>(&tk, encode, k, B, S, Hkv) != CUDA_SUCCESS ||
-      make_map<DH>(&tv, encode, v, B, S, Hkv) != CUDA_SUCCESS)
+  if (make_map<DH>(&tq, encode, q, B, S, H, Layout<DH>::QROWS) !=
+          CUDA_SUCCESS ||
+      make_map<DH>(&tk, encode, k, B, S, Hkv, BKT) != CUDA_SUCCESS ||
+      make_map<DH>(&tv, encode, v, B, S, Hkv, BKT) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_attention_tc_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  constexpr int QROWS = Layout<DH>::QROWS;
+  const dim3 grid(B * H, (S + QROWS - 1) / QROWS);
   kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv,
                                         static_cast<__nv_bfloat16*>(o), S, H,
                                         Hkv, bk, causal, window, scale);
@@ -792,12 +1078,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     case 128:                                                                  \
       return NS::launch<128>(q, k, v, o, B, S, H, Hkv, bk, causal, window,     \
                              scale, smem, static_cast<cudaStream_t>(stream));  \
+    case 256:                                                                  \
+      return NS::launch<256>(q, k, v, o, B, S, H, Hkv, bk, causal, window,     \
+                             scale, smem, static_cast<cudaStream_t>(stream));  \
     default:                                                                   \
       return static_cast<int>(cudaErrorInvalidValue);                          \
   }
 
 // q (B, S, H, dh), k and v (B, S, Hkv, dh), o like q, all contiguous.  dh is
-// 32, 64 or 128; bk = min(128, S) divides S; smem from the wrapper
+// 32, 64, 128 or 256; bk = min(128, S) divides S; smem from the wrapper
 // (kernels/flash_attention/ops.py smem_bytes).  Launch on `stream`; returns
 // the CUDA error code (0 = launched).
 //

@@ -51,8 +51,11 @@
 //   * A chunk shorter than 32 tokens (C divides S) is padded with zero
 //     rows, which add nothing to any product.
 //   * Head sizes: every multiple of 16 whose state-pass block fits shared
-//     memory, 16 to 192 (WKV6_HEAD_SIZES); the wrapper zero-pads any other
-//     head up to 192 to the next (rwkv6/ops.py pad_heads, w padded with 1).
+//     memory, 16 to 192 (WKV6_HEAD_SIZES), on the one-block passes; every
+//     multiple of 16 from 208 to 1024 on the cluster passes below, which
+//     split a head's channels and state rows over a cluster of blocks.  The
+//     wrapper zero-pads any other head up to 1024 (rwkv6/ops.py pad_heads,
+//     w padded with 1): to a multiple of 16 up to 256, of 64 above.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -496,6 +499,447 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// heads of 208 to 1024: both passes split over a thread-block cluster
+// ---------------------------------------------------------------------------
+//
+// Past N 192 neither pass fits one block: the state pass's ring and state
+// buffers take 249,816 bytes at N 208, the chunk pass's r~, k~, v and r u k
+// tiles outgrow a block near N 440.  So each problem (a chunk of a head in
+// the chunk pass, a group of kMb value columns of a head in the state pass)
+// runs on a cluster of G = ceil(N / R) blocks, block g owning R channels,
+// or R rows of the state, [g R, g R + R); channels and rows from N to G R
+// are zero and add nothing.  R is a template argument (R = 64: clusters of
+// 4 to 16 blocks), N a launch argument, so one instantiation serves every
+// head size of the range.
+//
+// The chunk pass: block g scans its channels (r~, k~, the decay), forms its
+// part of A = strict_tril(r~ k~^T) and of sum(r u k) over them, and writes
+// its rows of k~^T v (for every value column, v streamed through shared
+// memory in tiles of R columns).  After a cluster barrier every block adds
+// the G parts of A and sum(r u k) in rank order, read through distributed
+// shared memory, so every block holds the same A; block g then forms y for
+// value columns [g R, g R + R).
+//
+// The state pass: block g holds rows [g R, g R + R) of S for the group's
+// kMb columns.  A link: its rows' part of r~ S (warps 0-3) beside the
+// update of its rows of S (warps 4-7), a cluster barrier, then out = the G
+// parts added in rank order through distributed shared memory, + y.  The
+// parts are double-buffered, so one cluster barrier a link suffices.
+
+constexpr int kClusterRows = 64;     // R of the instantiation
+constexpr int kClusterMaxN = 1024;   // G <= 16, the card's largest cluster
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// `local`'s counterpart in block `rank` of the cluster
+__device__ __forceinline__ float ld_cluster(const float* local, int rank) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x) : "r"(cluster_addr(local, rank)) : "memory");
+  return x;
+}
+
+// Scratch per (batch * head, chunk), fp32, for heads split in blocks of R:
+// r~ by row block (G blocks of kCp x (R + 4)); for each group of kMb value
+// columns, y (kCp x kMb) then k~^T v (G R x kMb, row block g at rows
+// [g R, g R + R)); the decay (G R).
+template <int R>
+struct ClusterScratch {
+  static constexpr int kLdK = R + 4;
+  static constexpr int kRtFloats = kCp * kLdK;   // one row block's r~
+  int n, g, np;
+  __host__ __device__ explicit ClusterScratch(int n_)
+      : n(n_), g((n_ + R - 1) / R), np(g * R) {}
+  __host__ __device__ int group0() const { return g * kRtFloats; }
+  __host__ __device__ int group_floats() const { return (kCp + np) * kMb; }
+  __host__ __device__ int dec() const {
+    return group0() + (n / kMb) * group_floats();
+  }
+  __host__ __device__ int floats() const { return dec() + np; }
+  __device__ int y(int t, int m) const {
+    return group0() + (m / kMb) * group_floats() + t * kMb + m % kMb;
+  }
+  __device__ int kv(int row, int m) const {
+    return group0() + (m / kMb) * group_floats() + (kCp + row) * kMb +
+           m % kMb;
+  }
+};
+
+template <int R>
+struct ChunkClusterSmem {
+  static constexpr int kLdK = R + 4;
+  static constexpr int kLdV = R + 8;
+  static constexpr int kParts = scan_parts(R);
+  static constexpr int kFloats = 2 * kCp * kLdK   // r~, k~
+                                 + kCp * kLdV     // a tile of v
+                                 + 2 * kCp * kLdA // this block's part of A, A
+                                 + kCp * R        // r u k
+                                 + kParts * R     // scan part sums
+                                 + 2 * kCp;       // sum(r u k): part, whole
+  static constexpr int kBytes = 4 * kFloats;
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
+    const T* __restrict__ r, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ w,
+    const T* __restrict__ u, float* __restrict__ scratch, int S, int H,
+    int N, int C) {
+  using L = ChunkClusterSmem<R>;
+  constexpr int kLdK = L::kLdK, kLdV = L::kLdV, kParts = L::kParts;
+  constexpr int kPer = kCp / kParts;  // tokens of a scan part
+  constexpr int kWarps = kThreads / 32;
+  const ClusterScratch<R> sc(N);
+  extern __shared__ __align__(16) float smem[];
+  float* rt = smem;
+  float* kt = rt + kCp * kLdK;
+  float* vt = kt + kCp * kLdK;
+  float* a_part = vt + kCp * kLdV;
+  float* a_s = a_part + kCp * kLdA;
+  float* ruk = a_s + kCp * kLdA;
+  float* part = ruk + kCp * R;
+  float* dg_part = part + kParts * R;
+  float* dg = dg_part + kCp;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rank = cluster_rank();
+  const int n_chunks = S / C;
+  const int prob = blockIdx.x / sc.g;   // (batch * head, chunk)
+  const int bh = prob / n_chunks;
+  const int ci = prob - bh * n_chunks;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = static_cast<size_t>(H) * N;  // a token's stride
+  const size_t base =
+      (static_cast<size_t>(b) * S + static_cast<size_t>(ci) * C) * row +
+      h * N;
+  float* out = scratch + static_cast<size_t>(prob) * sc.floats();
+  const int c0 = rank * R;  // this block's first channel
+
+  // -- 1. a channel and a part of the chunk per thread: the inputs, the
+  //    running sum of log-decays, r u k ---------------------------------
+  const int n = tid % R;
+  const int q = tid / R;
+  const int ng = c0 + n;
+  const bool scans = q < kParts;
+  const bool has = ng < N;
+  const float un = has ? to_f(u[h * N + ng]) : 0.0f;
+  float lw[kPer], lp[kPer], rv[kPer], kv[kPer];
+  if (scans) {
+    float run = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = q * kPer + i;
+      const bool in = t < C && has;
+      const size_t gi = base + static_cast<size_t>(t) * row + ng;
+      lw[i] = in ? logf(fmaxf(to_f(w[gi]), 1e-30f)) : 0.0f;
+      rv[i] = in ? to_f(r[gi]) : 0.0f;
+      kv[i] = in ? to_f(k[gi]) : 0.0f;
+      ruk[t * R + n] = rv[i] * un * kv[i];
+      run += lw[i];
+      lp[i] = run;
+    }
+    part[q * R + n] = run;
+  }
+  __syncthreads();
+
+  // -- 2. r~, k~ and the decay, the earlier parts' sums added in order;
+  //    this block's part of sum(r u k) per token ---------------------------
+  if (scans) {
+    float off = 0.0f;
+    for (int p = 0; p < q; ++p) off += part[p * R + n];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = q * kPer + i;
+      const bool in = t < C;
+      const float lpt = off + lp[i];
+      const float rtv = in ? rv[i] * expf(lpt - lw[i]) : 0.0f;
+      rt[t * kLdK + n] = rtv;
+      kt[t * kLdK + n] = in ? kv[i] * expf(-lpt) : 0.0f;
+      out[rank * sc.kRtFloats + t * kLdK + n] = rtv;
+      if (t == C - 1) out[sc.dec() + ng] = expf(lpt);
+    }
+  }
+  for (int t = warp; t < kCp; t += kWarps) {
+    float d = 0.0f;
+    for (int nn = lane; nn < R; nn += 32) d += ruk[t * R + nn];
+    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+    if (lane == 0) dg_part[t] = d;
+  }
+  __syncthreads();
+
+  // -- 3. this block's part of A = strict_tril(r~ k~^T), over its
+  //    channels: tiles as in the one-block chunk pass ------------------------
+  {
+    const int at = warp < 2 || warp >= 6 ? 0 : 1;
+    const int as = warp < 2 ? warp : (warp < 6 ? warp - 2 : warp - 4);
+    float d[1][4] = {};
+    if (warp < 6)
+      tiles_3xtf32<1, false, true>(d, rt + at * 16 * kLdK, 0, kLdK,
+                                   kt + as * 8 * kLdK, nullptr, kLdK, R / 8,
+                                   lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = at * 16 + frag_row(lane, e);
+      const int s = as * 8 + frag_col(lane, e);
+      a_part[t * kLdA + s] = s < t ? d[0][e] : 0.0f;
+    }
+  }
+  cluster_barrier();  // every block's parts are in its shared memory
+
+  // -- 4. A and sum(r u k): the G blocks' parts added in rank order --------
+  for (int idx = tid; idx < kCp * kCp + kCp; idx += kThreads) {
+    const bool in_a = idx < kCp * kCp;
+    const int t = idx / kCp, s = idx - t * kCp;
+    const float* src = in_a ? a_part + t * kLdA + s : dg_part + (idx - kCp * kCp);
+    float acc = 0.0f;
+    for (int gg = 0; gg < sc.g; ++gg) acc += ld_cluster(src, gg);
+    if (in_a)
+      a_s[t * kLdA + s] = acc;
+    else
+      dg[idx - kCp * kCp] = acc;
+  }
+  __syncthreads();
+
+  // -- 5. v in tiles of R value columns: k~^T v on this block's rows for
+  //    every tile (a warp takes a column tile of 8 and the R / 16 row tiles
+  //    that share it); y = A v + sum(r u k) v on the tile of its rank ------
+  constexpr int kRowTiles = R / 16;
+  for (int j = 0; j < sc.g; ++j) {
+    const int m0 = j * R;
+    for (int idx = tid; idx < kCp * R; idx += kThreads) {
+      const int t = idx / R, m = idx - t * R;
+      const bool in = t < C && m0 + m < N;
+      vt[t * kLdV + m] =
+          in ? to_f(v[base + static_cast<size_t>(t) * row + m0 + m]) : 0.0f;
+    }
+    __syncthreads();
+    for (int mt = warp; mt < R / 8; mt += kWarps) {
+      float d[kRowTiles][4] = {};
+      tiles_3xtf32<kRowTiles, true, false>(d, kt, 16, kLdK, vt + mt * 8,
+                                           nullptr, kLdV, kCp / 8, lane);
+#pragma unroll
+      for (int i = 0; i < kRowTiles; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + mt * 8 + frag_col(lane, e);
+          if (m < N) out[sc.kv(c0 + i * 16 + frag_row(lane, e), m)] = d[i][e];
+        }
+    }
+    if (j == rank) {
+      for (int mt = warp; mt < R / 8; mt += kWarps) {
+        float d[2][4] = {};
+        tiles_3xtf32<2, false, false>(d, a_s, 16 * kLdA, kLdA, vt + mt * 8,
+                                      nullptr, kLdV, kCp / 8, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = i * 16 + frag_row(lane, e);
+            const int ml = mt * 8 + frag_col(lane, e);
+            if (m0 + ml < N)
+              out[sc.y(t, m0 + ml)] = d[i][e] + dg[t] * vt[t * kLdV + ml];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  cluster_barrier();  // no block leaves while another reads its parts
+}
+
+// A ring stage of the cluster's state pass: this block's r~ (kCp x
+// (R + 4)), the group's y (kCp x kMb), its rows of k~^T v (R x kMb) and of
+// the decay (R).  Beside the ring: the two state buffers (S and its TF32
+// high and low parts, R x kLdY each), the two buffers of this block's part
+// of r~ S (kCp x kMb), and an mbarrier a stage.
+template <int R>
+struct StateClusterSmem {
+  static constexpr int kLdK = R + 4;
+  static constexpr int kStageFloats = kCp * kLdK + kCp * kMb + R * kMb + R;
+  static constexpr int kStateFloats = 3 * R * kLdY;
+  static constexpr int kFloats =
+      kStages * kStageFloats + 2 * kStateFloats + 2 * kCp * kMb;
+  static constexpr int kBytes = 4 * kFloats + 8 * kStages;
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
+    const float* __restrict__ scratch, const float* __restrict__ s0,
+    T* __restrict__ out, float* __restrict__ s_fin,
+    int* __restrict__ block_sm, int S, int H, int N, int C) {
+  using L = StateClusterSmem<R>;
+  constexpr int kLdK = L::kLdK;
+  const ClusterScratch<R> sc(N);
+  extern __shared__ __align__(16) float smem[];
+  float* states = smem + kStages * L::kStageFloats;
+  float* parts = states + 2 * L::kStateFloats;
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(parts + 2 * kCp * kMb);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rank = cluster_rank();
+  const int groups = N / kMb;
+  const int prob = blockIdx.x / sc.g;   // (batch * head, value group)
+  const int grp = prob % groups;
+  const int bh = prob / groups;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int m0 = grp * kMb;
+  const int n0 = rank * R;  // this block's first row of S
+  const int n_chunks = S / C;
+  const size_t row = static_cast<size_t>(H) * N;  // a token's stride
+  const size_t base = static_cast<size_t>(b) * S * row + h * N + m0;
+  const size_t sbase = static_cast<size_t>(bh) * N * N;
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
+
+  // state buffer i: S, then its TF32 high and low parts
+  auto state = [&](int i) { return states + (i & 1) * L::kStateFloats; };
+  auto set_state = [&](float* sb, int n, int m, float x) {
+    unsigned hi, lo;
+    split_tf32(x, hi, lo);
+    sb[n * kLdY + m] = x;
+    sb[R * kLdY + n * kLdY + m] = __uint_as_float(hi);
+    sb[2 * R * kLdY + n * kLdY + m] = __uint_as_float(lo);
+  };
+  for (int idx = tid; idx < R * kMb; idx += kThreads) {
+    const int n = idx / kMb, m = idx - n * kMb;
+    set_state(state(0), n, m,
+              n0 + n < N ? s0[sbase + (n0 + n) * N + m0 + m] : 0.0f);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // one chunk's stage: four bulk copies by one thread
+  auto prefetch = [&](int ci) {
+    if (tid != 0 || ci >= n_chunks) return;
+    float* dst = smem + (ci % kStages) * L::kStageFloats;
+    const float* src =
+        scratch + (static_cast<size_t>(bh) * n_chunks + ci) * sc.floats();
+    const float* grp_src = src + sc.group0() + grp * sc.group_floats();
+    constexpr int kRtBytes = 4 * kCp * kLdK;
+    constexpr int kYBytes = 4 * kCp * kMb;
+    constexpr int kKvBytes = 4 * R * kMb;
+    constexpr int kDecBytes = 4 * R;
+    unsigned long long* landed = &bar[ci % kStages];
+    mbar_expect(landed, kRtBytes + kYBytes + kKvBytes + kDecBytes);
+    bulk_copy(dst, src + rank * sc.kRtFloats, kRtBytes, landed);
+    bulk_copy(dst + kCp * kLdK, grp_src, kYBytes, landed);
+    bulk_copy(dst + kCp * kLdK + kCp * kMb, grp_src + (kCp + n0) * kMb,
+              kKvBytes, landed);
+    bulk_copy(dst + kCp * kLdK + kCp * kMb + R * kMb, src + sc.dec() + n0,
+              kDecBytes, landed);
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
+  const int tt = warp >> 1, mt = warp & 1;  // warps 0-3: an output tile
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    mbar_wait(&bar[ci % kStages], (ci / kStages) & 1);
+    __syncthreads();
+    prefetch(ci + kStages - 1);
+    const float* rts = smem + (ci % kStages) * L::kStageFloats;
+    const float* ys = rts + kCp * kLdK;
+    const float* kvs = ys + kCp * kMb;
+    const float* ds = kvs + R * kMb;
+    const float* cur = state(ci);
+    float* part = parts + (ci & 1) * kCp * kMb;
+    if (warp < 4) {  // this block's rows' part of r~ S
+      float d[1][4] = {};
+      tiles_3xtf32<1, false, false>(d, rts + tt * 16 * kLdK, 0, kLdK,
+                                    cur + R * kLdY + mt * 8,
+                                    cur + 2 * R * kLdY + mt * 8, kLdY, R / 8,
+                                    lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(tt * 16 + frag_row(lane, e)) * kMb + mt * 8 +
+             frag_col(lane, e)] = d[0][e];
+    } else {  // the next state of this block's rows: decay * (S + k~^T v)
+      float* nxt = state(ci + 1);
+      for (int idx = tid - 128; idx < R * kMb; idx += kThreads - 128) {
+        const int nn = idx / kMb, m = idx - nn * kMb;
+        set_state(nxt, nn, m,
+                  ds[nn] * (cur[nn * kLdY + m] + kvs[nn * kMb + m]));
+      }
+    }
+    cluster_barrier();  // every block's part of this link is written
+    // out = the G parts in rank order + y, spread over the first blocks
+    for (int o = rank * kThreads + tid; o < kCp * kMb;
+         o += sc.g * kThreads) {
+      const int t = o / kMb, m = o - t * kMb;
+      if (t < C) {
+        float acc = 0.0f;
+        for (int gg = 0; gg < sc.g; ++gg) acc += ld_cluster(part + o, gg);
+        out[base + (static_cast<size_t>(ci) * C + t) * row + m] =
+            from_f<T>(acc + ys[o]);
+      }
+    }
+  }
+  cluster_barrier();  // the last parts are read, the last state written
+  const float* fin = state(n_chunks);
+  for (int idx = tid; idx < R * kMb; idx += kThreads) {
+    const int n = idx / kMb, m = idx - n * kMb;
+    if (n0 + n < N) s_fin[sbase + (n0 + n) * N + m0 + m] = fin[n * kLdY + m];
+  }
+}
+
+template <typename T, int R>
+int launch_chunk_cluster(const void* r, const void* k, const void* v,
+                         const void* w, const void* u, float* scratch, int B,
+                         int S, int H, int N, int C, cudaStream_t stream) {
+  constexpr int smem = ChunkClusterSmem<R>::kBytes;
+  static_assert(smem <= kSmemMax, "chunk pass over shared memory");
+  auto kernel = wkv6_chunk_cluster_kernel<T, R>;
+  cudaError_t err = set_cluster_attributes(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_cluster_config(cfg, attr, B * H * (S / C), (N + R - 1) / R, kThreads,
+                      smem, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(r),
+                           static_cast<const T*>(k), static_cast<const T*>(v),
+                           static_cast<const T*>(w), static_cast<const T*>(u),
+                           scratch, S, H, N, C);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int R>
+int launch_state_cluster(const float* scratch, const float* s0, void* out,
+                         float* s_fin, int* block_sm, int B, int S, int H,
+                         int N, int C, cudaStream_t stream) {
+  constexpr int smem = StateClusterSmem<R>::kBytes;
+  static_assert(smem <= kSmemMax, "state pass over shared memory");
+  const int g = (N + R - 1) / R;
+  const int clusters = B * H * (N / kMb);
+  auto kernel = wkv6_state_cluster_kernel<T, R>;
+  cudaError_t err = set_cluster_attributes(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // -1 where no block wrote its SM: the record counts the blocks that ran
+  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * clusters * g, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_cluster_config(cfg, attr, clusters, g, kThreads, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, scratch, s0, static_cast<T*>(out),
+                           s_fin, block_sm, S, H, N, C);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a head the one-block passes do not take, which the cluster passes do
+bool cluster_head(int N) {
+  return N > 192 && N <= kClusterMaxN && N % kMb == 0;
+}
+
 template <typename T, int N>
 int launch_chunk(const void* r, const void* k, const void* v, const void* w,
                  const void* u, float* scratch, int B, int S, int H, int C,
@@ -543,6 +987,9 @@ int chunk_n(const void* r, const void* k, const void* v, const void* w,
     WKV6_HEAD_SIZES(WKV6_CASE)
 #undef WKV6_CASE
     default:
+      if (cluster_head(N))
+        return launch_chunk_cluster<T, kClusterRows>(r, k, v, w, u, scratch,
+                                                     B, S, H, N, C, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -559,6 +1006,9 @@ int state_n(const float* scratch, const float* s0, void* out, float* s_fin,
     WKV6_HEAD_SIZES(WKV6_CASE)
 #undef WKV6_CASE
     default:
+      if (cluster_head(N))
+        return launch_state_cluster<T, kClusterRows>(
+            scratch, s0, out, s_fin, block_sm, B, S, H, N, C, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -568,13 +1018,14 @@ int state_n(const float* scratch, const float* s0, void* out, float* s_fin,
 // A call is two launches on `stream`, the chunk pass, then the state pass.
 // r, k, v, w, out (B, S, H, N) and u (H, N), contiguous and 16-byte
 // aligned, of one dtype: float32 (bf16 == 0) or bfloat16 (bf16 == 1); s0,
-// s_fin (B, H, N, N) float32.  N a multiple of 16 from 16 to 192; C <= 32
-// divides S.  scratch: float32, 16-byte aligned, of (2 * 32 + N + 1) * N *
-// B * H * S / C floats (kernels/rwkv6/ops.py scratch_floats), written by
-// the chunk pass and read by the state pass.  Both take 256 threads a
-// block and return the CUDA error code (0 = launched).
+// s_fin (B, H, N, N) float32.  N a multiple of 16 from 16 to 1024 (past
+// 192 on clusters of ceil(N / 64) blocks); C <= 32 divides S.  scratch:
+// float32, 16-byte aligned, of kernels/rwkv6/ops.py scratch_floats (Scratch
+// or ClusterScratch floats per (batch, head, chunk)), written by the chunk
+// pass and read by the state pass.  Both take 256 threads a block and
+// return the CUDA error code (0 = launched).
 
-// The chunk pass: B * H * S / C blocks.
+// The chunk pass: B * H * S / C blocks (times the cluster's past 192).
 extern "C" int wkv6_chunk_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, float* scratch,
                                  int bf16, int B, int S, int H, int N, int C,
@@ -587,8 +1038,9 @@ extern "C" int wkv6_chunk_launch(const void* r, const void* k, const void* v,
   return chunk_n<float>(r, k, v, w, u, scratch, B, S, H, N, C, st);
 }
 
-// The state pass: B * H * N / 16 blocks (ops.grid_blocks); block_sm, as
-// many ints, gets the SM id each block ran on (-1 where none ran).
+// The state pass: B * H * N / 16 blocks, times the cluster's past 192
+// (ops.grid_blocks); block_sm, as many ints, gets the SM id each block ran
+// on (-1 where none ran).
 extern "C" int wkv6_state_launch(const float* scratch, const float* s0,
                                  void* out, float* s_fin, int* block_sm,
                                  int bf16, int B, int S, int H, int N, int C,

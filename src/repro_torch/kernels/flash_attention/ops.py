@@ -16,9 +16,9 @@ rounds p where the kernels round it.
 
 The key tile is the reference's ``min(128, S)`` and must divide ``S``, as
 the reference asserts; other lengths raise.  The kernels are built for
-head dims 32, 64 and 128; the wrapper serves every dh up to 128 by zero
-padding to the next of those (:func:`pad_head_dim`), scaled by the
-caller's ``dh ** -0.5``.
+head dims 32, 64, 128 and 256; the wrapper serves every dh up to 256 by
+zero padding to the next of those (:func:`pad_head_dim`), scaled by the
+caller's ``dh ** -0.5``.  A larger dh raises and launches nothing.
 
 The kernels are forward only: :func:`flash_attention` and the ``_cuda``
 entry points of both kernels raise when grad mode is on and an input
@@ -35,9 +35,8 @@ from repro_torch.kernels import SMEM_PER_BLOCK, refuse_grad
 
 BLOCK = 128          # the reference's block_q = block_k
 FP32_BQ = 64         # query rows per block of the float32 kernel
-TC_STAGES = 2        # K/V tiles in flight in the bfloat16 kernel's ring
 TC_MIN_SMEM = 120 * 1024   # one bfloat16 block per SM (see the .cu)
-KERNEL_DH = (32, 64, 128)
+KERNEL_DH = (32, 64, 128, 256)
 NEG_INF = -1e30
 
 
@@ -53,18 +52,20 @@ def key_block(S: int) -> int:
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim the kernels run a head of ``dh`` at: the smallest of
-    :data:`KERNEL_DH` that holds it; ``ValueError`` over 128 (at the next
-    power of two, 256, the bfloat16 kernel's Q tile and K/V ring would not
-    fit shared memory, :func:`smem_bytes`)."""
+    :data:`KERNEL_DH` that holds it; ``ValueError`` over 256 (at the next
+    head dim of the layout, 320, the float32 kernel's Q, K/V tile and p
+    would not fit one block's shared memory, :func:`smem_bytes`)."""
     for d in KERNEL_DH:
         if d >= dh:
             return d
     raise ValueError(f"flash_attention_cuda serves head dims up to "
                      f"{KERNEL_DH[-1]} (the kernels' head dims {KERNEL_DH}), "
-                     f"got {dh}: the next head dim of their tile layout, "
-                     f"256, would take {smem_bytes(256, torch.bfloat16)} "
-                     f"bytes of the bfloat16 kernel's shared memory, over "
-                     f"the {SMEM_PER_BLOCK}-byte limit of one block")
+                     f"got {dh}: at the next head dim of their layout, 320, "
+                     f"the float32 kernel's 64 query rows, one K/V tile of "
+                     f"128 rows and p would take "
+                     f"{4 * (FP32_BQ * 321 + BLOCK * 321 + FP32_BQ * 129)} "
+                     f"bytes of shared memory, over the {SMEM_PER_BLOCK}-"
+                     f"byte limit of one block")
 
 
 def pad_head_dim(t, d: int):
@@ -78,18 +79,25 @@ def pad_head_dim(t, d: int):
 
 def smem_bytes(dh: int, dtype: torch.dtype) -> int:
     """Shared-memory bytes of one block of the kernel for ``dtype``.
-    bfloat16: 1024 bytes of alignment slack, the 128 query rows and a ring
-    of TC_STAGES K and V tiles of 128 rows, bf16, and 8 bytes per barrier
-    (Q, then K full, V full and K/V empty per stage), at least
-    TC_MIN_SMEM.
-    float32: the 64 query rows, a K and a V tile (rows padded by one
-    float) and the p tile."""
+    bfloat16: 1024 bytes of alignment slack, the block's query rows (128;
+    64 at dh 256) and a ring of K and V tiles of 128 rows, bf16 (two
+    stages; one at dh 256, its K and V freed apart), at dh 256 the bf16 P
+    of its 64 rows and 128 keys, 8 bytes per barrier (Q, then K full, V
+    full and K/V empty per stage, and a V empty at one stage) and at dh
+    256 the two consumers' 64 row maxima; at least TC_MIN_SMEM.
+    float32: the 64 query rows, a K and a V tile (rows padded by one float;
+    one tile for both at dh 256) and the p tile."""
     if dtype == torch.bfloat16:
-        tile = BLOCK * dh * 2
-        need = (1024 + tile * (1 + 2 * TC_STAGES)
-                + 8 * (1 + 3 * TC_STAGES))
+        split = dh > 128
+        stages = 1 if split else 2
+        q_rows = 64 if split else BLOCK
+        need = (1024 + q_rows * dh * 2 + 2 * stages * BLOCK * dh * 2
+                + split * (q_rows * BLOCK * 2)
+                + 8 * (1 + 3 * stages + (stages == 1))
+                + split * (2 * q_rows * 4))
         return max(need, TC_MIN_SMEM)
-    return 4 * (FP32_BQ * (dh + 1) + 2 * BLOCK * (dh + 1)
+    kv_tiles = 2 if dh <= 128 else 1
+    return 4 * (FP32_BQ * (dh + 1) + kv_tiles * BLOCK * (dh + 1)
                 + FP32_BQ * (BLOCK + 1))
 
 
@@ -212,7 +220,7 @@ def _check(q, k, v):
 
 def _check_cuda(q, k, v, dtype):
     """The checks of both kernels: shapes, CUDA tensors of ``dtype``, a
-    head dim up to 128; returns the key tile."""
+    head dim up to 256; returns the key tile."""
     bk = _check(q, k, v)
     refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
@@ -255,7 +263,8 @@ def _launch(entry, q, k, v, bk, causal, sliding_window):
 def flash_attention_bf16_cuda(q, k, v, *, causal: bool = True,
                               sliding_window: int = 0):
     """One launch of the bfloat16 tensor-core kernel: grid (B * H,
-    ceil(S / 128)), a TMA producer and two wgmma consumer warpgroups."""
+    ceil(S / 128)) (ceil(S / 64) at dh 256), a TMA producer and two wgmma
+    consumer warpgroups."""
     bk = _check_cuda(q, k, v, torch.bfloat16)
     out = _launch("flash_attention_bf16_launch", q, k, v, bk, causal,
                   sliding_window)

@@ -9,11 +9,15 @@ two launches (:func:`chunk_pass`, :func:`state_pass`); on CPU tensors the plain 
 sequential :func:`wkv6_scan` (the reference's ``ref.wkv6_ref``).  The
 output has ``r``'s dtype, the final state is float32.
 
-The kernel is built for head sizes that are multiples of 16 up to 192 and
-chunks of at most 32 tokens; the wrapper serves every head size up to 192
-by zero padding (:func:`pad_heads`) and any ``chunk`` by running the
-largest chunk of at most 32 that divides S (the chunk is a tiling of the
-same recurrence).
+The kernel is built for head sizes that are multiples of 16 up to 1024
+and chunks of at most 32 tokens: up to 192 each pass runs a block per
+problem, past 192 a cluster of ``ceil(N / 64)`` blocks, each holding 64
+channels (the chunk pass) or 64 rows of the state (the state pass), whose
+parts are added in rank order.  The wrapper serves every head size up to
+1024 by zero padding (:func:`pad_heads`; to a multiple of 16 up to 256, of
+64 above) and any ``chunk`` by running the largest chunk of at most 32
+that divides S (the chunk is a tiling of the same recurrence).  A larger
+head raises and launches nothing.
 
 The kernel is forward only: :func:`wkv6` and :func:`wkv6_cuda` raise when
 grad mode is on and an input requires grad (``kernels.refuse_grad``), on
@@ -29,22 +33,35 @@ import torch
 from repro_torch.kernels import refuse_grad
 
 CHUNK = 32
-# csrc/wkv6.cu: the head sizes it is built for (WKV6_HEAD_SIZES: the
-# multiples of 16 whose state-pass block fits shared memory), and the value
-# columns of the state one block owns
-HEAD_SIZES = tuple(range(16, 193, 16))
+# csrc/wkv6.cu: the largest head of the one-block passes (WKV6_HEAD_SIZES:
+# the multiples of 16 whose state-pass block fits shared memory), the
+# channels or state rows of a block of the cluster passes beyond it
+# (kClusterRows), and the value columns of the state a block owns
+ONE_BLOCK_MAX = 192
+CLUSTER_ROWS = 64
 COLUMNS_PER_BLOCK = 16
+# the head sizes the wrapper runs: multiples of 16 up to 256, of 64 above,
+# up to 1024 (clusters of up to 16 blocks, the card's largest)
+HEAD_SIZES = tuple(range(16, 257, 16)) + tuple(range(320, 1025, 64))
 
 
 def kernel_head_size(N: int) -> int:
     """The head size the kernel runs a head of ``N`` at: the smallest of
-    :data:`HEAD_SIZES` that holds it; ``ValueError`` over 192 (the
-    state-pass block of a larger head does not fit shared memory)."""
+    :data:`HEAD_SIZES` that holds it; ``ValueError`` over 1024 (a larger
+    head would need a cluster of more than 16 blocks of 64 state rows)."""
     for n in HEAD_SIZES:
         if n >= N:
             return n
     raise ValueError(f"wkv6_cuda serves head sizes up to {HEAD_SIZES[-1]} "
-                     f"(the kernel's head sizes {HEAD_SIZES}), got {N}")
+                     f"(a multiple of 16 up to 256, of 64 above; past "
+                     f"{ONE_BLOCK_MAX} on clusters of {CLUSTER_ROWS}-row "
+                     f"blocks, at most 16), got {N}")
+
+
+def cluster_blocks(n: int) -> int:
+    """Blocks of a cluster for a kernel head of ``n``: 1 up to
+    :data:`ONE_BLOCK_MAX` (one block per problem), else ``ceil(n / 64)``."""
+    return 1 if n <= ONE_BLOCK_MAX else -(-n // CLUSTER_ROWS)
 
 
 def pad_heads(r, k, v, w, u, state, n: int):
@@ -88,16 +105,28 @@ def pick_chunk(S: int, chunk: int = CHUNK) -> int:
 def grid_blocks(B: int, H: int, N: int) -> int:
     """Blocks of the kernel's state pass for heads of ``N``: one per
     (batch, head, group of ``COLUMNS_PER_BLOCK`` value columns of the
-    state padded to :func:`kernel_head_size`).  (Its chunk pass runs one
-    block per (batch, head, chunk).)"""
-    return B * H * (kernel_head_size(N) // COLUMNS_PER_BLOCK)
+    state padded to :func:`kernel_head_size`), times :func:`cluster_blocks`
+    (the state's rows split over a cluster).  (Its chunk pass runs
+    ``cluster_blocks`` blocks per (batch, head, chunk).)"""
+    n = kernel_head_size(N)
+    return B * H * (n // COLUMNS_PER_BLOCK) * cluster_blocks(n)
 
 
 def scratch_floats(B: int, S: int, H: int, N: int, C: int) -> int:
     """float32 scratch the chunk pass hands the state pass, per (batch,
-    head, chunk): r~ (``CHUNK`` rows of N + 4), the chunk's own output y
-    (``CHUNK`` x N), its state increment k~^T v (N x N) and its decay."""
-    return (CHUNK * (N + 4) + (CHUNK + N) * N + N) * B * H * (S // C)
+    head, chunk), for a kernel head of ``N``: r~ (``CHUNK`` rows of N + 4),
+    the chunk's own output y (``CHUNK`` x N), its state increment k~^T v
+    (N x N) and its decay.  Past :data:`ONE_BLOCK_MAX` the rows are padded
+    to the cluster's G x 64: r~ in G blocks of ``CHUNK`` rows of 68, k~^T v
+    and the decay on G x 64 rows."""
+    g = cluster_blocks(N)
+    if g == 1:
+        per_chunk = CHUNK * (N + 4) + (CHUNK + N) * N + N
+    else:
+        rows = g * CLUSTER_ROWS
+        per_chunk = (g * CHUNK * (CLUSTER_ROWS + 4) + (CHUNK + rows) * N
+                     + rows)
+    return per_chunk * B * H * (S // C)
 
 
 def wkv6_scan(r, k, v, w, u, state):

@@ -528,7 +528,10 @@ def _decay(rng, shape):
 # (B, S, H, Hkv, dh, causal, window): dh 32 / 64 / 128 under GQA, a window
 # across the 128-key tile edge, S = 40 (a 40-key tile, not a multiple of
 # 16, in one 128-row box) and 96, non-causal; dh 48 and 96 (padded to 64
-# and 128 by the wrapper), causal and under a window
+# and 128 by the wrapper), causal and under a window; the wide heads: dh
+# 256 (the bf16 kernel's split consumers, the float32 kernel's one K/V
+# buffer) grouped and not, causal, windowed, non-causal and in one 40-key
+# tile, and 160 and 192 padded to 256
 FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 64, 4, 4, 32, True, 0), (1, 96, 2, 1, 64, True, 0),
                (1, 256, 2, 2, 64, False, 0), (1, 40, 4, 2, 32, True, 0),
@@ -537,7 +540,10 @@ FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 256, 4, 2, 48, True, 0), (1, 256, 4, 2, 96, True, 96),
                (1, 1024, 25, 5, 64, True, 256),
                # qwen2-vl's group of 6 at dh 128, seamless-m4t's group of 1
-               (1, 512, 12, 2, 128, True, 0), (1, 512, 16, 16, 64, True, 0)]
+               (1, 512, 12, 2, 128, True, 0), (1, 512, 16, 16, 64, True, 0),
+               (1, 256, 4, 2, 256, True, 0), (1, 384, 4, 4, 256, True, 100),
+               (2, 256, 4, 1, 192, True, 0), (1, 256, 2, 2, 160, True, 96),
+               (1, 128, 2, 1, 256, False, 0), (1, 40, 2, 1, 256, True, 0)]
 
 
 def _worst_row(ref, out) -> float:
@@ -618,12 +624,17 @@ def test_flash_rejects_lengths_the_reference_rejects():
 # (B, S, H, N, chunk): chunks of 32, of 25 (padded to 32 in the kernel)
 # and a single chunk of 16; head sizes 64, 32, 128 and 16, and 48, 80 and
 # 192 (a scan over fewer threads than the block's, k~^T v a tile a call,
-# the largest head); heads of 24 and 40 (padded to 32 and 48 by the
-# wrapper) and a chunk of 64 asked for (run at 32)
+# the largest head of one block); heads of 24 and 40 (padded to 32 and 48
+# by the wrapper) and a chunk of 64 asked for (run at 32); past 192 the
+# cluster passes, S 256: 208, 256, 320, 512 and 1024 (clusters of 4, 4, 5,
+# 8 and 16 blocks), 200 (padded to 208), and 256 in chunks of 25
 WKV_CASES = [(2, 128, 2, 64, 32), (1, 100, 3, 32, 32), (1, 16, 1, 64, 32),
              (1, 64, 2, 128, 32), (2, 96, 3, 16, 32), (1, 96, 3, 48, 32),
              (1, 64, 2, 80, 32), (1, 64, 1, 192, 32), (1, 64, 2, 24, 32),
-             (1, 128, 2, 40, 64)]
+             (1, 128, 2, 40, 64), (1, 256, 2, 200, 32), (1, 256, 1, 208, 32),
+             (1, 256, 2, 256, 32), (2, 256, 1, 320, 32),
+             (1, 256, 1, 512, 32), (1, 256, 1, 1024, 32),
+             (1, 200, 1, 256, 25)]
 
 
 @pytest.mark.cuda
@@ -652,10 +663,12 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     assert wops.wkv6_cuda.launches == n0 + 2    # chunk pass, state pass
     assert out.shape == r.shape and s_fin.shape == s0.shape
     # the state pass's record of its blocks' SMs, -1 where none ran: one
-    # block per (batch, head, 16 value columns of the padded state)
+    # block per (batch, head, 16 value columns of the padded state), a
+    # cluster of them past 192
     sms = wops.wkv6_cuda.last_block_sms
     ran = int((sms >= 0).sum())
-    assert ran == sms.numel() == B * H * -(-N // 16)
+    n = wops.kernel_head_size(N)
+    assert ran == sms.numel() == B * H * (n // 16) * wops.cluster_blocks(n)
     assert N == 16 or ran > B * H
     ref, s_ref = wops.wkv6_plain(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -673,8 +686,8 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
 def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
     """A head of 24, which the kernel is not built for, runs padded to 32
     and agrees with the twin (bf16: one rounding step of the largest
-    |out|, the state 2e-5); a head of 208, whose state-pass block would
-    not fit shared memory, raises and launches nothing."""
+    |out|, the state 2e-5); a head of 1025, past the largest cluster's
+    1024 rows, raises and launches nothing."""
     rng = np.random.default_rng(24)
     x = torch.tensor(rng.standard_normal((3, 1, 32, 2, 24)),
                      dtype=torch.float32, device=cuda).bfloat16()
@@ -691,11 +704,11 @@ def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
     assert max_diff(ref.float(), out.float()) \
         <= 2 ** -7 * float(ref.float().abs().max())
     assert max_diff(s_ref, s_fin) <= 2e-5 * float(s_ref.abs().max())
-    x = torch.zeros((1, 32, 2, 208), device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros((1, 32, 2, 1025), device=cuda, dtype=torch.bfloat16)
     n0 = wops.wkv6_cuda.launches
-    with pytest.raises(ValueError, match="head sizes"):
-        wops.wkv6(x, x, x, x.float(), torch.zeros((2, 208), device=cuda),
-                  torch.zeros((1, 2, 208, 208), device=cuda))
+    with pytest.raises(ValueError, match="head sizes up to 1024"):
+        wops.wkv6(x, x, x, x.float(), torch.zeros((2, 1025), device=cuda),
+                  torch.zeros((1, 2, 1025, 1025), device=cuda))
     assert wops.wkv6_cuda.launches == n0
 
 
@@ -703,7 +716,8 @@ def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
 def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
     """A head dim of 48, which the kernels are not built for, runs padded
     to 64 on the kernel of its dtype and agrees with the twin (float32
-    2e-5, bfloat16 3e-2, as above); 192 raises and launches nothing."""
+    2e-5, bfloat16 3e-2, as above); 257, past the kernels' 256, raises and
+    launches nothing."""
     def counts():
         return (fops.flash_attention_bf16_cuda.launches,
                 fops.flash_attention_fp32_cuda.launches)
@@ -719,9 +733,9 @@ def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
         torch.cuda.synchronize()
         assert out.shape == q.shape and out.dtype == dt
         assert max_diff(ref.float(), out.float()) <= tol
-        q = torch.zeros((1, 64, 2, 192), device=cuda, dtype=dt)
+        q = torch.zeros((1, 64, 2, 257), device=cuda, dtype=dt)
         n0 = counts()
-        with pytest.raises(ValueError, match="head dims"):
+        with pytest.raises(ValueError, match="head dims up to 256"):
             fops.flash_attention(q, q, q)
         assert counts() == n0
 

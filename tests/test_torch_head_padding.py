@@ -1,14 +1,16 @@
 """The head padding of the WKV6 and flash-attention wrappers, on the CPU.
 
 The CUDA kernels are built for WKV6 head sizes that are multiples of 16 up
-to 192 and for attention head dims 32, 64 and 128; their wrappers serve
-any head up to 192 (WKV6) or 128 (flash attention) by zero padding to the
-next size the kernel takes and slicing the result back
+to 1024 (past 192 on a cluster of blocks) and for attention head dims 32,
+64, 128 and 256; their wrappers serve any head up to 1024 (WKV6: padded to
+a multiple of 16 up to 256, of 64 above) or 256 (flash attention) by zero
+padding to the next size the kernel takes and slicing the result back
 (``kernels/rwkv6/ops.py`` ``pad_heads``, ``kernels/flash_attention/ops.py``
 ``pad_head_dim``).  Here those padding functions, run through the plain
 twins and through the kernels' own algebra in plain PyTorch, are held
 against the reference's Pallas kernels in interpret mode at head sizes the
-kernels are not built for.  The kernels themselves run only on the card
+kernels are not built for, and the plain twins at the wide heads the
+reference's kernels take.  The kernels themselves run only on the card
 (tests/test_torch_cuda.py).
 """
 import jax.numpy as jnp
@@ -111,15 +113,22 @@ def test_wkv6_decay_padded_with_zero_poisons_the_chunked_algebra():
 
 
 def test_wkv6_head_size_limits():
-    """Every head size up to 192 runs at the next multiple of 16, on one
-    state-pass block per 16 padded columns; 208 raises (its state-pass
-    block would not fit shared memory)."""
+    """Every head size up to 256 runs at the next multiple of 16, up to
+    1024 at the next multiple of 64; up to 192 on one state-pass block per
+    16 padded columns, past it on a cluster of ceil(n / 64) blocks per 16
+    columns; 1025 raises (a cluster of more than 16 blocks)."""
     assert [twkv.kernel_head_size(N) for N in (1, 16, 17, 24, 40, 72, 192)] \
         == [16, 16, 32, 32, 48, 80, 192]
+    assert [twkv.kernel_head_size(N) for N in (193, 200, 256, 257, 500,
+                                               1024)] \
+        == [208, 208, 256, 320, 512, 1024]
     assert twkv.grid_blocks(1, 2, 24) == 4
     assert twkv.grid_blocks(1, 40, 64) == 160
-    with pytest.raises(ValueError, match="head sizes up to 192"):
-        twkv.kernel_head_size(208)
+    assert twkv.grid_blocks(1, 10, 256) == 10 * 16 * 4
+    assert twkv.grid_blocks(1, 5, 512) == 5 * 32 * 8
+    assert twkv.grid_blocks(1, 1, 1024) == 64 * 16
+    with pytest.raises(ValueError, match="head sizes up to 1024"):
+        twkv.kernel_head_size(1025)
     out, s = twkv.unpad_heads(torch.ones(1, 4, 2, 32), torch.ones(1, 2, 32, 32),
                               24)
     assert out.shape == (1, 4, 2, 24) and s.shape == (1, 2, 24, 24)
@@ -163,14 +172,86 @@ def test_flash_padded_head_dim_matches_reference_kernel(dh, window):
 
 
 def test_flash_head_dim_limits():
-    """Every head dim up to 128 runs at the next of 32, 64, 128; 192
-    raises (the next head dim of the kernels' layout, 256, would take
-    about 328 KB of the bfloat16 kernel's shared memory)."""
+    """Every head dim up to 256 runs at the next of 32, 64, 128, 256; 257
+    raises (at the layout's next head dim, 320, the float32 kernel's Q,
+    K/V tile and p would take 279,552 bytes of shared memory).  At
+    dh 256 the bfloat16 kernel keeps 64 query rows, one K and V tile (a
+    one-stage ring), P, 5 barriers and the row maxima (181,800 bytes), the
+    float32 kernel Q, one tile for K then V, and p (230,400 bytes)."""
     assert [tflash.kernel_head_dim(d) for d in (1, 32, 33, 48, 64, 96, 128)] \
         == [32, 32, 64, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        tflash.kernel_head_dim(192)
-    assert tflash.smem_bytes(256, torch.bfloat16) == 328_760
+    assert [tflash.kernel_head_dim(d) for d in (129, 160, 192, 256)] \
+        == [256] * 4
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        tflash.kernel_head_dim(257)
+    assert tflash.smem_bytes(256, torch.bfloat16) == 181_800
+    assert tflash.smem_bytes(256, torch.float32) == 230_400
     t = torch.ones(1, 8, 2, 48)
     assert tflash.pad_head_dim(t, 48) is t
     assert torch.equal(tflash.pad_head_dim(t, 64)[..., :48], t)
+
+
+# ---------------------------------------------------------------------------
+# the wide heads: flash attention at dh 192 / 256, WKV6 at N 208 to 512
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dh", [192, 256])
+def test_flash_wide_heads_match_reference_kernel(dh, window):
+    """Head dims 192 (zero-padded to 256) and 256, S 256, GQA 4 over 2,
+    causal and with a 100-key window: the reference's wrapper (Pallas,
+    interpret mode) against the plain twin on the padded inputs, scaled by
+    the caller's dh ** -0.5 (online against naive softmax: 1e-5 on O(1)
+    outputs), and against flash_attention_tiled, the kernels' oracle (the
+    same 128-key tiles: 2e-6 of a row's largest |o|)."""
+    B, S, H, Hkv = 1, 256, 4, 2
+    rng = np.random.default_rng(dh + window)
+    q, k, v = (rng.standard_normal((B, S, h, dh)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    ref = jflash.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                                 sliding_window=window)
+    d = tflash.kernel_head_dim(dh)
+    assert d == 256
+    qp, kp, vp = (tflash.pad_head_dim(torch.tensor(a), d) for a in (q, k, v))
+    kw = dict(causal=True, sliding_window=window, scale=dh ** -0.5)
+    out = tflash.flash_attention_plain(qp, kp, vp, **kw)
+    assert not out[..., dh:].any()
+    assert_close(ref, out[..., :dh], 1e-5, f"plain twin, dh {dh}")
+    tiled = tflash.flash_attention_tiled(qp, kp, vp, **kw)[..., :dh]
+    d_row = np.abs(to_np(ref) - to_np(tiled)).max(-1)
+    assert (d_row <= 2e-6 * np.abs(to_np(ref)).max(-1)).all()
+
+
+@pytest.mark.parametrize("N", [208, 256, 512])
+def test_wkv6_wide_heads_match_reference_kernel(N):
+    """Heads of 208, 256 and 512 (the kernel's sizes past 192, on a cluster
+    of 4, 4 and 8 blocks), S 64, chunks of 32: the sequential twin against
+    the reference's wrapper (its chunked Pallas kernel in interpret mode),
+    the same recurrence in another summation order, 1e-5 relative to the
+    largest |out| and |S|; a head of 200 runs padded to 208 and sliced
+    back."""
+    B, S, H = 1, 64, 2
+    inputs = _wkv_inputs(B, S, H, N, N)
+    ref, s_ref = jwkv.wkv6(*map(jnp.asarray, inputs), chunk=32)
+    scale = float(np.abs(to_np(ref)).max())
+    s_scale = float(np.abs(to_np(s_ref)).max())
+    assert twkv.kernel_head_size(N) == N
+    out, s_out = twkv.wkv6_plain(*map(torch.tensor, inputs))
+    assert max_diff(ref, out)[0] <= 1e-5 * scale
+    assert max_diff(s_ref, s_out)[0] <= 1e-5 * s_scale
+
+
+def test_wkv6_head_of_200_padded_to_208_matches_reference_kernel():
+    """A head of 200 (not a multiple of 16, past 192): padded to 208, zeros
+    in r, k, v, u and the state and ones in w, through the sequential twin
+    and sliced back, within 1e-5 of the reference's Pallas kernel."""
+    B, S, H, N = 1, 64, 1, 200
+    inputs = _wkv_inputs(B, S, H, N, 7)
+    ref, s_ref = jwkv.wkv6(*map(jnp.asarray, inputs), chunk=32)
+    n = twkv.kernel_head_size(N)
+    assert n == 208
+    out, s_out = twkv.unpad_heads(*twkv.wkv6_plain(
+        *twkv.pad_heads(*map(torch.tensor, inputs), n)), N)
+    assert max_diff(ref, out)[0] <= 1e-5 * float(np.abs(to_np(ref)).max())
+    assert max_diff(s_ref, s_out)[0] <= \
+        1e-5 * float(np.abs(to_np(s_ref)).max())

@@ -9,7 +9,12 @@ change no arithmetic:
   block-Jacobi rounds in one launch with the ghost columns snapshot at each
   round's start;
 * the WKV6 kernel (``csrc/wkv6.cu``) gives each group of value columns of
-  a head's state a block of its own.
+  a head's state a block of its own, and past a head of 192 a cluster of
+  blocks: the chunk pass splits a chunk's channels over it, the state pass
+  the state's rows, and both add the blocks' parts in rank order;
+* the bfloat16 flash kernel (``csrc/flash_attention.cu``) forms the
+  output of dh 256 as two n128 products a k-step, one per half of V's
+  columns, from the same P.
 
 Here plain twins of those partitions are held against the port's plain
 twins and against the reference's Pallas kernels in interpret mode.  The
@@ -22,12 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import ops as jflash
 from repro.kernels.poisson import kernel as jsor
 from repro.kernels.rwkv6 import kernel as jwkv
 from repro_torch.cfd.grid import GridConfig
 from repro_torch.cfd.poisson import packed_half_sweep, sor_coefficients
 from repro_torch.kernels import SMEM_PER_BLOCK
 from repro_torch.kernels import cluster as kcluster
+from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.poisson import ops as tsor
 from repro_torch.kernels.rwkv6 import ops as twkv
 from tests._torch_parity import assert_close, max_diff
@@ -252,10 +259,11 @@ def test_wkv6_grid_splits_each_head_by_columns(B, H, N, want):
     """One block per (batch, head, 16 value columns): rwkv6-3b at batch 1
     (40 heads of 64) gets 160 blocks, more than the card's 132 SMs and 4x
     the one-block-per-head grid.  Every multiple of 16 up to 192 is a head
-    size the kernel is built for."""
+    size the one-block passes are built for."""
     assert twkv.grid_blocks(B, H, N) == want
     assert N in twkv.HEAD_SIZES and N % twkv.COLUMNS_PER_BLOCK == 0
-    assert twkv.HEAD_SIZES == tuple(range(16, 193, 16))
+    assert twkv.HEAD_SIZES[:12] == tuple(range(16, 193, 16))
+    assert twkv.ONE_BLOCK_MAX == 192 and twkv.cluster_blocks(N) == 1
 
 
 def test_wkv6_scratch_holds_a_stage_per_chunk():
@@ -318,3 +326,163 @@ def test_wkv6_3xtf32_split_keeps_the_state_limit():
     _, s_one = wkv6_column_groups(r, k, v, w, u, s0, chunk=32, mb=16,
                                   mm=_mm_tf32)
     assert max_diff(s_seq, s_one)[0] > 2e-5 * s_scale
+
+
+# ---------------------------------------------------------------------------
+# WKV6 past a head of 192: channels and state rows split over a cluster
+# ---------------------------------------------------------------------------
+
+def wkv6_cluster_split(r, k, v, w, u, s0, *, chunk, rows=64,
+                       mm=torch.matmul):
+    """The cluster passes' partition in the reference kernel's (BH, S, N)
+    layout, float32: per chunk, the chunk pass's groups of ``rows``
+    channels each form their part of A = strict_tril(r~ k~^T) (masked
+    before the parts meet) and of sum(r u k), added in group order from
+    zero; y = A v + sum(r u k) v; the state pass's blocks of ``rows`` rows
+    of S each form their part of r~ S, added in block order from zero, and
+    y last; each block updates its own rows.  The kernel runs this for
+    every group of 16 value columns apart, which changes nothing: each
+    column of out and S reads its own column of S and v only."""
+    BH, S, N = r.shape
+    r, k, v, w, u = (torch.as_tensor(a).float() for a in (r, k, v, w, u))
+    blocks = [slice(g, min(N, g + rows)) for g in range(0, N, rows)]
+    out = torch.zeros(BH, S, N)
+    st = torch.as_tensor(s0).float().clone()
+    strict = torch.ones(chunk, chunk).tril(-1)
+    for c0 in range(0, S, chunk):
+        t = slice(c0, c0 + chunk)
+        rc, kc, vc = r[:, t], k[:, t], v[:, t]
+        lw = torch.log(torch.clamp(w[:, t], min=1e-30))
+        lp = torch.cumsum(lw, dim=1)
+        rt = rc * torch.exp(lp - lw)
+        kt = kc * torch.exp(-lp)
+        a = dg = part = 0.0
+        for b in blocks:
+            a = a + mm(rt[..., b], kt[..., b].transpose(1, 2)) * strict
+            dg = dg + (rc[..., b] * u[..., b] * kc[..., b]).sum(
+                -1, keepdim=True)
+        y = mm(a, vc) + dg * vc
+        for b in blocks:
+            part = part + mm(rt[..., b], st[:, b])
+        out[:, t] = part + y
+        st = torch.exp(lp[:, -1])[:, :, None] * (
+            st + mm(kt.transpose(1, 2), vc))
+    return out, st
+
+
+@pytest.mark.parametrize("N", [208, 256, 512])
+def test_wkv6_cluster_split_matches_pallas_kernel(N):
+    """Heads of 208 (a cluster of 4 blocks, the last holding 16 channels),
+    256 (4 x 64) and 512 (8 x 64), S 64 in chunks of 32: the cluster
+    partition against the reference's chunked Pallas kernel (interpret
+    mode), the same algebra in another summation order, 1e-5 relative to
+    the largest |out| and |S|; against the sequential twin (the kernel's
+    oracle on the card) likewise; and against the one-block partition (the
+    state split by value columns only) likewise."""
+    BH, S = 2, 64
+    r, k, v = (_rand((BH, S, N), 20 + i) for i in range(3))
+    w = _decay((BH, S, N), 23)
+    u = _rand((BH, 1, N), 24, 0.1)
+    s0 = _rand((BH, N, N), 25, 0.1)
+    ref, s_ref = jwkv.wkv6_bhsn(*map(jnp.asarray, (r, k, v, w, u, s0)),
+                                chunk=32, interpret=True)
+    out, s_out = wkv6_cluster_split(r, k, v, w, u, s0, chunk=32,
+                                    rows=twkv.CLUSTER_ROWS)
+    assert twkv.cluster_blocks(N) == -(-N // 64)
+    scale = float(np.abs(np.asarray(ref)).max())
+    s_scale = float(np.abs(np.asarray(s_ref)).max())
+    assert max_diff(ref, out)[0] <= 1e-5 * scale
+    assert max_diff(s_ref, s_out)[0] <= 1e-5 * s_scale
+    seq, s_seq = twkv.wkv6_ref(*map(torch.tensor, (r, k, v, w, u, s0)))
+    assert max_diff(seq, out)[0] <= 1e-5 * scale
+    assert max_diff(s_seq, s_out)[0] <= 1e-5 * s_scale
+    one, s_one = wkv6_column_groups(r, k, v, w, u, s0, chunk=32, mb=16)
+    assert max_diff(one, out)[0] <= 1e-5 * scale
+    assert max_diff(s_one, s_out)[0] <= 1e-5 * s_scale
+
+
+def test_wkv6_cluster_split_in_3xtf32_keeps_the_state_limit():
+    """The cluster partition with every product in 3xTF32, as the kernel
+    forms them, at a head of 256 (4 blocks), bf16 inputs and the layer's
+    decays, 256 tokens: the state within TOL_WKV_STATE (2e-5 of its largest
+    value) of the sequential float32 recurrence and the bf16 output within
+    one rounding step (2^-7 of the largest |out|)."""
+    BH, S, N = 1, 256, 256
+    rng = np.random.default_rng(8)
+
+    def bf16(a):
+        return torch.tensor(a, dtype=torch.float32).bfloat16().float()
+
+    r, k, v = (bf16(rng.standard_normal((BH, S, N))) for _ in range(3))
+    w = bf16(np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal((BH, S, N)))))
+    u = bf16(0.1 * rng.standard_normal((BH, 1, N)))
+    s0 = torch.zeros(BH, N, N)
+    seq, s_seq = twkv.wkv6_ref(r, k, v, w, u, s0)
+    out, s_out = wkv6_cluster_split(r, k, v, w, u, s0, chunk=32,
+                                    mm=_mm_3xtf32)
+    assert max_diff(s_seq, s_out)[0] <= 2e-5 * float(s_seq.abs().max())
+    assert max_diff(seq.bfloat16().float(), out.bfloat16().float())[0] \
+        <= 2 ** -7 * float(seq.abs().max())
+
+
+@pytest.mark.parametrize("B,H,N,blocks", [(1, 10, 256, 640),
+                                          (1, 5, 512, 1280),
+                                          (1, 1, 208, 52), (2, 2, 1024, 4096),
+                                          (1, 1, 320, 100)])
+def test_wkv6_grid_splits_wide_heads_over_clusters(B, H, N, blocks):
+    """Past 192 the state pass runs a cluster of ceil(N / 64) blocks per
+    (batch, head, 16 value columns): rwkv6-3b's width at N 256 (10 heads)
+    gets 640 blocks in clusters of 4, at N 512 (5 heads) 1280 in clusters
+    of 8; N 1024 clusters of 16, the card's largest."""
+    assert twkv.grid_blocks(B, H, N) == blocks
+    assert blocks == B * H * (N // 16) * twkv.cluster_blocks(N)
+    assert 4 <= twkv.cluster_blocks(N) <= 16
+
+
+def test_wkv6_cluster_scratch_holds_a_stage_per_block():
+    """Past 192 the chunk pass lays its scratch out by the cluster's row
+    blocks, per (batch, head, chunk): r~ in G blocks of 32 rows of 68, for
+    every value column y (32 rows) and k~^T v (G x 64 rows), the decay (G
+    x 64): at N 256 (G 4) 330,752 bytes a chunk, ~423 MB for rwkv6-3b's
+    width at batch 1, S 4096 (10 heads); at N 208 the rows pad to 256."""
+    per_chunk = 4 * 32 * 68 + (32 + 256) * 256 + 256
+    assert twkv.scratch_floats(1, 32, 1, 256, 32) == per_chunk
+    assert 4 * per_chunk == 330_752
+    assert twkv.scratch_floats(1, 4096, 10, 256, 32) == 1280 * per_chunk
+    assert twkv.scratch_floats(1, 32, 1, 208, 32) == (
+        4 * 32 * 68 + (32 + 256) * 208 + 256)
+
+
+# ---------------------------------------------------------------------------
+# flash attention at dh 256: the output in two column halves
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_dh256_output_halves_match_reference_kernel(window):
+    """At dh 256 each consumer warpgroup of the bfloat16 kernel forms its
+    64 x 256 output as two n128 products a k-step, V's columns 0-127 and
+    128-255, from the same bf16 P.  A column of the output reads its own
+    column of V only, so the tile-exact oracle run with each half of V's
+    columns (the other half zeroed) and joined equals it run whole, bit for
+    bit, in bfloat16 too; and matches
+    the reference's Pallas kernel (interpret mode) at S 256, GQA 4 over 2,
+    within 2e-6 of a row's largest |o| (float32)."""
+    B, S, H, Hkv, dh = 1, 256, 4, 2, 256
+    rng = np.random.default_rng(window)
+    q, k, v = (rng.standard_normal((B, S, h, dh)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    ref = jflash.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                                 sliding_window=window)
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv = (torch.tensor(a).to(dtype) for a in (q, k, v))
+        kw = dict(causal=True, sliding_window=window)
+        whole = tflash.flash_attention_tiled(tq, tk, tv, **kw)
+        half = torch.arange(dh) < 128
+        lo, hi = (tflash.flash_attention_tiled(tq, tk, tv * m, **kw)
+                  for m in (half, ~half))
+        assert torch.equal(whole, torch.cat([lo[..., :128], hi[..., 128:]],
+                                            dim=-1))
+    whole = tflash.flash_attention_tiled(*map(torch.tensor, (q, k, v)),
+                                         causal=True, sliding_window=window)
+    d_row = np.abs(np.asarray(ref) - whole.numpy()).max(-1)
+    assert (d_row <= 2e-6 * np.abs(np.asarray(ref)).max(-1)).all()
