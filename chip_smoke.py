@@ -34,7 +34,17 @@ Phases (any failure exits non-zero):
    and 512 (its cluster passes: each pass timed, the state pass's blocks
    and SMs), and at a head of 200 (padded to 208, held only); the three
    cluster kernels' checks must reject variants built with a planted fault
-   in their shared half-sweep (SOR halo rows one half-sweep stale);
+   in their shared half-sweep (SOR halo rows one half-sweep stale); the
+   float16 instantiations: HGMMA in the SASS of the float16 flash kernels,
+   float16 flash at phi4-mini's (dh 128) and Gemma 2's (dh 256) shapes
+   against its twin, the tile-exact oracle and the wrong variants, timed
+   beside SDPA in float16, and float16 WKV6 at rwkv6-3b's width in heads
+   of 64 and 512; past the old limits: the column-split flash kernels at
+   dh 320 (H 8 over 2) and 512 (H 6 over 2), bf16 (also against the
+   oracle and the wrong variants) and float32, timed beside SDPA (its
+   kernels named), the repeated QK^T work beside the bound; WKV6 at heads
+   of 1088 (2 heads) and 2560 (1 head) on several clusters a problem, each
+   pass (and the add of the clusters' parts) timed;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -53,7 +63,14 @@ Phases (any failure exits non-zero):
    other, logits and loss held against backend="reference"; then the same
    at the wide heads, 4 of 32 layers: phi4-mini as 12 heads of 256 over 4
    (4 flash launches) and rwkv6-3b as 10 WKV6 heads of 256 and as 5 of 512
-   (8 WKV6 launches each);
+   (8 WKV6 launches each); both models at full depth with float16 params
+   and compute (32 launches of the float16 flash instantiation and none of
+   any other; 64 WKV6 launches, all on its float16 instantiation); past
+   the old limits, 4 of 32 layers: phi4-mini as 6 heads of 512 over 2 (4
+   launches, all on the column-split kernel) and rwkv6-3b as 2 WKV6 heads
+   of 1280 (12 launches, all on 2 clusters a problem: the two passes and
+   the add of the clusters' parts a layer); a ``[holds]`` line each before
+   the kernels line;
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, one launch of its kernel, the residual reduced;
 6. golden physics through the fused kernel: the res-8 fixtures' Strouhal
@@ -120,15 +137,16 @@ Phases (any failure exits non-zero):
    resume to the target; the episode-1 checkpoint the two runners wrote
    (its plan a 2-process one) must equal (a)'s bit for bit (params, Adam
    moments, generator state, step, env batch, history but its wall), its
-   episode-2 checkpoint (a)'s final one; (c) ``--plan auto`` in a 2-process
-   fleet: ``autotune(max_processes=2)`` in every runner, its artifact
-   valid with a measured (``estimated: false``) gloo ``t_interhost``; (d)
-   a 1- and a 2-runner fleet of ``--plan 4,2,2`` (2 envs of 2 x-slabs each
-   on the halo backend, one env a runner in the second; 1 episode of 4
-   actions after a 1 t.u. warmup) whose final checkpoints must be equal
-   bit for bit; (e) ``--plan auto`` in 2 runners of 4 workers each
-   (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``): ``autotune(max_processes=2)``
-   must time ranks 1, 2 and 4;
+   episode-2 checkpoint (a)'s final one; (c) a 1- and a 2-runner fleet of
+   ``--plan 4,2,2`` (2 envs of 2 x-slabs each on the halo backend, one env
+   a runner in the second; 1 episode of 4 actions after a 1 t.u. warmup)
+   whose final checkpoints must be equal bit for bit; (d) ``--plan auto``
+   in 2 runners of 4 workers each (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``; 1
+   episode of 2 actions after a 0.5 t.u. warmup):
+   ``autotune(max_processes=2)`` in every runner, its artifact valid with
+   a measured (``estimated: false``) gloo ``t_interhost``, ranks 1, 2 and
+   4 timed, a packed-SOR launch in each runner; phase 12's golden (b)
+   runs in a child process beside this phase;
 11. the user-facing scripts on the card: ``drl_cylinder`` at res 16, 4
    envs, 1 episode of 100 actions (one fused launch per interval),
    ``serve_batch`` from (a)'s checkpoint (p50 / p99 latency, actions/s)
@@ -136,7 +154,8 @@ Phases (any failure exits non-zero):
 12. the halo decomposition (the paper's N_ranks axis: each env's pressure
    solve as x-slabs with halo messages, every slab on the card; plain
    PyTorch, no kernel of its own), with
-   ``REPRO_TORCH_FORCE_DEVICE_COUNT=4`` for the phase only: (a)
+   ``REPRO_TORCH_FORCE_DEVICE_COUNT=4`` for the phase only (and its child
+   process): (a)
    ``decomposed_solve`` at res 16 (ny 66, nx 352), 4 envs, 60 pairs with
    a polish of 10, at ranks 1, 2 and 4, ``halo_inner`` 1 and 4, packed and
    legacy: rank 1 bit-equal to the monolithic solve of its layout, ranks
@@ -144,10 +163,11 @@ Phases (any failure exits non-zero):
    (33, 1) packed and (66, 1) legacy or block-Jacobi, 4 x 60 x (r - 1) a
    solve at ``halo_inner=1`` packed, each case's ms per solve; (b) the
    res-8 golden fixture through ``run_uncontrolled(backend="halo")`` at
-   two ranks within the golden tolerances; (c) a mixed scenario batch
-   with fixed actions through the env step on a (2, 2) mesh at res 16,
+   two ranks within the golden tolerances (in a child process,
+   ``--halo-golden``, started before phase 10 and joined here); (c) a mixed scenario batch
+   with 2 fixed actions through the env step on a (2, 2) mesh at res 16,
    within 0.05 of the un-decomposed backend; (d) ``train(plan=
-   ParallelPlan(4, 2, 2))`` at the main path's widths, 1 episode of 8
+   ParallelPlan(4, 2, 2))`` at the main path's widths, 1 episode of 2
    actions after a 1 t.u. warmup: the plan line names 'halo' and 2 x 2,
    returns finite, no kernel launched; (e) ``autotune`` over the four
    workers, ``t_step_ranks`` at ranks 1, 2 and 4 and the plan chosen;
@@ -324,6 +344,7 @@ Imports nothing of jax or of the reference package.
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -355,8 +376,11 @@ TOL_SOR = 1e-5                 # 52 pairs on unit-variance planes
 # 2^-9 relative at most: 4.3e-3 rel-RMS and 1.7e-2 in the worst of 98304
 # rows on the H100.  float32: only the order of the sums differs, 4.6e-7
 # and 5.5e-6.  The limits are 2-10x those readings; the wrong variants of
-# flash_wrong_kernels read 0.36 and 1.4 rel-RMS
-TOL_FLASH = {"bfloat16": (1e-2, 5e-2), "float32": (5e-6, 5e-5)}
+# flash_wrong_kernels read 0.36 and 1.4 rel-RMS.  float16 rounds at the
+# same places with 3 more bits (2^-11 relative): 1/8 of the bf16 readings
+# predicted (5.4e-4, 2.1e-3), limits ~4x that
+TOL_FLASH = {"bfloat16": (1e-2, 5e-2), "float16": (2e-3, 1e-2),
+             "float32": (5e-6, 5e-5)}
 # the bf16 tensor-core kernel against flash_attention_tiled, which rounds p
 # at the same running max: the two fp32 results differ by the order of the
 # sums and by exp2f against exp (~1 fp32 ulp of p), so a bf16 output
@@ -365,15 +389,17 @@ TOL_FLASH = {"bfloat16": (1e-2, 5e-2), "float32": (5e-6, 5e-5)}
 # boundary in the two: two steps, 2^-6 (the H100 reads 7.75e-3, a row
 # whose largest |o| sits just above a power of two).  Few outputs straddle
 # a boundary: rel-RMS 1.2e-4 on the H100, 2e-3 allowed.  The wrong
-# variants of flash_wrong_kernels read 0.36 and 1.4
-TOL_FLASH_TILED = (2e-3, 2 ** -6)
+# variants of flash_wrong_kernels read 0.36 and 1.4.  float16: one step is
+# 2^-10 of the row's largest |o|, two 2^-9; rel-RMS 1/8 of bf16's allowed
+TOL_FLASH_TILED = {"bfloat16": (2e-3, 2 ** -6), "float16": (2.5e-4, 2 ** -9)}
 # WKV6, bf16 in and out: both compute the float32 recurrence on the same
 # values (the chunked algebra against the sequential one), ~1e-6 apart, so
 # the float32 state agrees to 2e-5 of its scale; the bf16 outputs differ by
 # at most one rounding step where the two float32 values straddle a bf16
-# boundary: one ulp, at most 2^-7 of the largest |out|.  Relative to the
-# largest |x|
-TOL_WKV_OUT, TOL_WKV_STATE = 2 ** -7, 2e-5
+# boundary: one ulp, at most 2^-7 of the largest |out| (float16: 2^-10).
+# Relative to the largest |x|
+TOL_WKV_OUT = {"bfloat16": 2 ** -7, "float16": 2 ** -10}
+TOL_WKV_STATE = 2e-5
 # lm_loss at full width in bf16, backend "pallas" against "reference".  The
 # kernels round p and the attention / WKV output to bf16 (8 bits, 2^-8
 # relative) at other points than the plain mixers.  Layer by layer, on the
@@ -410,12 +436,14 @@ def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_ms(fn, reps):
-    """ms per call of ``fn`` on the card: after a warm-up, ``reps`` calls
-    queued behind a sleep kernel, so the events time the card's work and
-    not the host's pace of launching it."""
+def cuda_ms(fn, reps, warm=True):
+    """ms per call of ``fn`` on the card: after a warm-up (skipped where
+    the caller has just run ``fn``), ``reps`` calls queued behind a sleep
+    kernel, so the events time the card's work and not the host's pace of
+    launching it."""
     import torch
-    fn()                                  # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
@@ -955,10 +983,10 @@ def flash_measures(out, ref):
 
 def flash_held(what, measures, dtype):
     """Print the measures against their limits (TOL_FLASH[dtype], or
-    TOL_FLASH_TILED for dtype "tiled"); False if one is over."""
+    TOL_FLASH_TILED[d] for dtype "tiled d"); False if one is over."""
     rel, row, err = measures
-    tol_rel, tol_row = (TOL_FLASH_TILED if dtype == "tiled"
-                        else TOL_FLASH[dtype])
+    tol_rel, tol_row = (TOL_FLASH_TILED[dtype.split()[1]]
+                        if dtype.startswith("tiled") else TOL_FLASH[dtype])
     print(f"[kernels] flash_attention {what}: rel-RMS {rel:.3e} (tol "
           f"{tol_rel:.0e}), worst row {row:.3e} (tol {tol_row:.0e}), "
           f"max abs {err:.3e}")
@@ -1022,8 +1050,9 @@ def flash_wrong_kernels(q, k, v, refs):
                      f"the {what} from a right one")
 
 
-def sass_count(lib, op):
-    """How many ``op`` instructions the SASS of a built library holds."""
+@functools.lru_cache(maxsize=None)
+def sass_functions(lib):
+    """The SASS of a built library by function: {mangled name: text}."""
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -1031,77 +1060,49 @@ def sass_count(lib, op):
     if sass.returncode != 0:
         fail(f"cuobjdump -sass {lib} exited {sass.returncode}: "
              f"{sass.stderr.strip()}")
-    return len(re.findall(rf"\b{op}\b", sass.stdout))
+    parts = re.split(r"Function : (\S+)", sass.stdout)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def sass_count(lib, op, function=""):
+    """How many ``op`` instructions the SASS of a built library holds (in
+    the functions whose mangled name holds ``function``, if given)."""
+    return sum(len(re.findall(rf"\b{op}\b", body))
+               for name, body in sass_functions(lib).items()
+               if function in name)
 
 
 def check_flash(dev, cfg, S):
-    import torch
-    import torch.nn.functional as F
+    """The flash kernels at the path's shape (phi4-mini): HGMMA in the
+    library's SASS; a small sliding-window case and a head dim of 96
+    (padded to 128), held only; the float32 CUDA-core kernel and the bf16
+    tensor-core kernel, the latter against its twin, the tile-exact oracle
+    and the wrong variants, each timed beside SDPA and its bound."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops
     hgmma = sass_count(build.library_path("flash_attention"), "HGMMA")
     print(f"[kernels] flash_attention: {hgmma} HGMMA instructions in the "
           f"SASS of {build.library_path('flash_attention').name}")
     if hgmma == 0:
         fail("the flash_attention library holds no HGMMA instruction: the "
              "bf16 kernel is not on the tensor cores")
-    # one small sliding-window case, the phi4-mini shape in float32 (the
-    # CUDA-core kernel), where only the order of the sums differs, then the
-    # path's bf16 (the tensor-core kernel)
     small = flash_case(dev, 2, 256, 4, 2, 64, 96, 3)[0]
-    # a head dim the kernels are not built for, zero-padded to 128 by the
-    # wrapper (held only)
     padded = flash_case(dev, 1, 1024, 8, 2, 96, 0, 6)[0]
-    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    fp32, _, fp32_kernel, _, _ = flash_case(dev, 1, S, H, Hkv, dh, 0, 4,
-                                            "float32")
-    fp32_ms = cuda_ms(fp32_kernel, 3)
-    del fp32_kernel
-    torch.cuda.empty_cache()
-    bf16, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv, dh,
-                                                     0, 4)
-    tiled = ops.flash_attention_tiled(q, k, v, causal=True)
-    exact = flash_measures(kernel(), tiled)
-    if not flash_held(f"bfloat16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal, "
-                      f"kernel vs tiled", exact, "tiled"):
-        fail("flash_attention differs from the tile-exact oracle")
-    flash_wrong_kernels(q, k, v, (("bfloat16", ref), ("tiled", tiled)))
-    del tiled
-    ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(plain, 3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = flash_flops(H, S, dh)
-    nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
-    bound_ms, bound_by = bound(nbytes, (flops, BF16_PEAK))
-    tflops = flops / ms / 1e9
-    print(f"[kernels] flash_attention: kernel {ms:.4f} ms ({tflops:.1f} "
-          f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain twin "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f}"
-          f" ms, bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} "
-          f"GFLOP bf16, {nbytes / 1e6:.4f} MB); the float32 CUDA-core "
-          f"kernel {fp32_ms:.4f} ms")
-    return {"name": "flash_attention", "route": "cuda (wgmma, TMA)",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:20",
-            "max_abs_err": bf16[2], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bound_share": bound_ms / ms,
-            "tflops": tflops, "hgmma_in_sass": hgmma,
-            "held_by": {"bf16_rel_rms": bf16[0], "bf16_worst_row": bf16[1],
-                        "bf16_vs_tiled_rel_rms": exact[0],
-                        "bf16_vs_tiled_worst_row": exact[1],
-                        "fp32_rel_rms": fp32[0], "fp32_worst_row": fp32[1],
-                        "fp32_max_abs": fp32[2],
-                        "small_window_rel_rms": small[0],
-                        "bf16_dh_96_rel_rms": padded[0],
-                        "bf16_dh_96_worst_row": padded[1]},
-            "fp32_kernel": {"route": "cuda (CUDA cores)", "ms": fp32_ms},
-            "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True), timed only",
-            "shape": f"{cfg.name}: bf16, B=1, S={S}, H={H}, Hkv={Hkv}, "
-                     f"dh={dh}, causal"}
+    shape = (1, S, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    fp32 = flash_timed(dev, *shape, 4, "float32", 3)
+    out = flash_timed(dev, *shape, 4, "bfloat16", 20, tiled=True)
+    out.update(
+        name="flash_attention", route="cuda (wgmma, TMA)",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:20",
+        hgmma_in_sass=hgmma,
+        held_by={"small_window_rel_rms": small[0],
+                 "bf16_dh_96_rel_rms": padded[0],
+                 "bf16_dh_96_worst_row": padded[1]},
+        fp32_kernel={"route": "cuda (CUDA cores)", **fp32},
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True), timed only",
+        shape=f"{cfg.name}: {out['shape']}")
+    return out
 
 
 # Gemma 2's attention (arXiv:2408.00118): 16 query heads over 8 KV heads of
@@ -1110,63 +1111,21 @@ GEMMA2_ATTENTION = dict(B=1, S=4096, H=16, Hkv=8, dh=256)
 
 
 def check_flash_wide(dev):
-    """The flash kernels at dh 256 (the bfloat16 kernel's split-consumer
-    layout, the float32 kernel's one K/V buffer): Gemma 2's shape in bf16
-    against the plain twin, the tile-exact oracle and the wrong variants,
-    timed beside SDPA and its bound; the float32 kernel there; a head of
-    160 zero-padded to 256 (held only)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops
+    """The flash kernels at dh 256 (the tensor-core kernel's
+    split-consumer layout, the float32 kernel's one K/V buffer): Gemma 2's
+    shape in bf16 against the plain twin, the tile-exact oracle and the
+    wrong variants, timed beside SDPA and its bound; the float32 kernel
+    there; a head of 160 zero-padded to 256 (held only)."""
     g = GEMMA2_ATTENTION
-    B, S, H, Hkv, dh = g["B"], g["S"], g["H"], g["Hkv"], g["dh"]
+    shape = (g["B"], g["S"], g["H"], g["Hkv"], g["dh"])
     padded = flash_case(dev, 1, 1024, 8, 2, 160, 0, 11)[0]
-    fp32, _, fp32_kernel, _, _ = flash_case(dev, B, S, H, Hkv, dh, 0, 12,
-                                            "float32")
-    fp32_ms = cuda_ms(fp32_kernel, 3)
-    del fp32_kernel
-    torch.cuda.empty_cache()
-    bf16, (q, k, v), kernel, plain, ref = flash_case(dev, B, S, H, Hkv, dh,
-                                                     0, 13)
-    tiled = ops.flash_attention_tiled(q, k, v, causal=True)
-    exact = flash_measures(kernel(), tiled)
-    if not flash_held(f"bfloat16 B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal, "
-                      f"kernel vs tiled", exact, "tiled"):
-        fail("flash_attention at dh 256 differs from the tile-exact oracle")
-    flash_wrong_kernels(q, k, v, (("bfloat16", ref), ("tiled", tiled)))
-    del tiled
-    ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(plain, 3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = flash_flops(H, S, dh)
-    nbytes = 2 * S * dh * (2 * H + 2 * Hkv)
-    bound_ms, bound_by = bound(nbytes, (flops, BF16_PEAK))
-    tflops = flops / ms / 1e9
-    print(f"[kernels] flash_attention dh 256 (Gemma 2's attention): kernel "
-          f"{ms:.4f} ms ({tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
-          f"bound), plain twin {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP bf16, "
-          f"{nbytes / 1e6:.4f} MB); the float32 CUDA-core kernel "
-          f"{fp32_ms:.4f} ms")
-    del q, k, v, qt, kt, vt, kernel, plain, ref
-    torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "bound_share": bound_ms / ms, "tflops": tflops,
-            "max_abs_err": bf16[2],
-            "held_by": {"bf16_rel_rms": bf16[0], "bf16_worst_row": bf16[1],
-                        "bf16_vs_tiled_rel_rms": exact[0],
-                        "bf16_vs_tiled_worst_row": exact[1],
-                        "fp32_rel_rms": fp32[0], "fp32_worst_row": fp32[1],
-                        "fp32_max_abs": fp32[2],
-                        "bf16_dh_160_rel_rms": padded[0],
-                        "bf16_dh_160_worst_row": padded[1]},
-            "fp32_kernel": {"route": "cuda (CUDA cores)", "ms": fp32_ms},
-            "shape": f"Gemma 2's attention: bf16, B={B}, S={S}, H={H}, "
-                     f"Hkv={Hkv}, dh={dh}, causal"}
+    fp32 = flash_timed(dev, *shape, 12, "float32", 3)
+    out = flash_timed(dev, *shape, 13, "bfloat16", 20, tiled=True)
+    out["held_by"] = {"bf16_dh_160_rel_rms": padded[0],
+                      "bf16_dh_160_worst_row": padded[1]}
+    out["fp32_kernel"] = {"route": "cuda (CUDA cores)", **fp32}
+    out["shape"] = f"Gemma 2's attention: {out['shape']}"
+    return out
 
 
 def wkv6_flops(B, S, H, N, C):
@@ -1180,18 +1139,20 @@ def wkv6_flops(B, S, H, N, C):
             chunks * (11 * C * N + 2 * N * N))
 
 
-def wkv6_case(dev, cfg, S, B=1, seed=5, N=None, chunk=None):
+def wkv6_case(dev, cfg, S, B=1, seed=5, N=None, chunk=None,
+              dtype="bfloat16"):
     """rwkv6 inputs at a layer's shape and decays (or at a head of ``N``),
-    bf16, zero state, and the two realizations of a WKV6 call on them (the
-    kernel at ``chunk`` tokens a chunk, by default its own)."""
+    in ``dtype`` (the decays float32, cast by the wrapper), zero state, and
+    the two realizations of a WKV6 call on them (the kernel at ``chunk``
+    tokens a chunk, by default its own)."""
     import numpy as np
     import torch
     from repro_torch.kernels.rwkv6 import ops
     H, N = cfg.num_heads, N or cfg.ssm.head_dim
     rng = np.random.default_rng(seed)
 
-    def t(a, dtype=torch.bfloat16):
-        return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+    def t(a, dt=getattr(torch, dtype)):
+        return torch.tensor(a, dtype=torch.float32, device=dev).to(dt)
 
     r, k, v = (t(rng.standard_normal((B, S, H, N))) for _ in range(3))
     # the layer's decays: exp(-exp(w0 + d)), w0 = -6 (models/ssm.py)
@@ -1212,16 +1173,18 @@ def wkv6_case(dev, cfg, S, B=1, seed=5, N=None, chunk=None):
 
 def wkv6_errors(what, kernel, plain):
     """max |kernel - twin| of the output and the state, each over its
-    scale, printed beside TOL_WKV_OUT and TOL_WKV_STATE; fails if one is
-    over.  Returns (out error, its scale, state error, its scale)."""
+    scale, printed beside TOL_WKV_OUT[the output's dtype] and
+    TOL_WKV_STATE; fails if one is over.  Returns (out error, its scale,
+    state error, its scale)."""
     (ko, ks), (po, ps) = kernel(), plain()
+    tol = TOL_WKV_OUT[str(po.dtype).split(".")[-1]]
     scale, s_scale = float(po.float().abs().max()), float(ps.abs().max())
     err = float((ko.float() - po.float()).abs().max())
     s_err = float((ks - ps).abs().max())
     print(f"[kernels] wkv6 {what}: max|kernel - plain| out {err:.3e} (of "
-          f"max |out| {scale:.3e}, tol {TOL_WKV_OUT:.0e} of it), state "
+          f"max |out| {scale:.3e}, tol {tol:.1e} of it), state "
           f"{s_err:.3e} (of {s_scale:.3e}, tol {TOL_WKV_STATE:.0e} of it)")
-    if not (err <= TOL_WKV_OUT * scale and s_err <= TOL_WKV_STATE * s_scale):
+    if not (err <= tol * scale and s_err <= TOL_WKV_STATE * s_scale):
         fail(f"wkv6 {what} differs from its twin: out {err:.3e}, state "
              f"{s_err:.3e}")
     return err, scale, s_err, s_scale
@@ -1290,7 +1253,7 @@ def check_wkv6(dev, cfg, S):
 
 # the rwkv6-3b width (2560) at WKV6 heads of 256 and 512, the kernel's
 # cluster passes (clusters of 4 and 8 blocks)
-WKV6_WIDE = ((256, 10), (512, 5))
+WKV6_WIDE = (256, 512)
 
 
 def rwkv_at_head(cfg, N, layers=None):
@@ -1305,57 +1268,206 @@ def rwkv_at_head(cfg, N, layers=None):
 
 
 def check_wkv6_wide(dev, cfg, S):
-    """WKV6's cluster passes at rwkv6-3b's width, heads of 256 and 512:
-    held against the sequential twin within TOL_WKV_OUT / TOL_WKV_STATE,
-    each pass timed alone, the state pass's blocks and their distinct SMs
-    as its launch recorded them, the bound; a head of 200 zero-padded to
-    208 (held only)."""
-    import torch
-    from repro_torch.kernels.rwkv6 import ops
+    """WKV6's cluster passes at rwkv6-3b's width, heads of 256 and 512
+    (wkv6_timed: held against the twin, each pass timed, the state pass's
+    blocks and SMs, the bound); a head of 200 zero-padded to 208 (held
+    only)."""
     wkv6_errors("bf16 B=1 S=1024 H=2 N=200 (padded to 208)",
                 *wkv6_case(dev, dataclasses.replace(cfg, num_heads=2),
                            1024, N=200)[1:])
+    return {f"n_{N}": wkv6_timed(dev, rwkv_at_head(cfg, N), S, N, "bfloat16")
+            for N in WKV6_WIDE}
+
+
+def sdpa_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs (the backend
+    scaled_dot_product_attention picked), by device time, longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = sorted((e for e in prof.key_averages() if device_us(e) > 0),
+                    key=device_us, reverse=True)
+    return [e.key[:80] for e in events[:3]]
+
+
+def flash_timed(dev, B, S, H, Hkv, dh, seed, dtype, reps, tiled=False):
+    """The flash kernel of ``dtype`` at one shape: held against its twin
+    (and, ``tiled``, against the tile-exact oracle and the wrong
+    variants), timed beside its twin and SDPA at the same shape and dtype,
+    past dh 256 SDPA's kernels named (up to 256 its flash or cuDNN
+    backend); the bound counts the reference's work once
+    (4 dh a visible pair and head) and the bytes of q, k, v and out.  Past
+    dh 256 the column-split kernel repeats the QK^T half of that work once
+    per further column group: stated beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    measures, (q, k, v), kernel, plain, ref = flash_case(
+        dev, B, S, H, Hkv, dh, 0, seed, dtype)
+    out = {"max_abs_err": measures[2], "rel_rms": measures[0],
+           "worst_row": measures[1]}
+    if tiled:
+        oracle = ops.flash_attention_tiled(q, k, v, causal=True)
+        exact = flash_measures(kernel(), oracle)
+        if not flash_held(f"{dtype} B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+                          f"causal, kernel vs tiled", exact, f"tiled {dtype}"):
+            fail(f"flash_attention {dtype} dh {dh} differs from the "
+                 f"tile-exact oracle")
+        flash_wrong_kernels(q, k, v, ((dtype, ref), (f"tiled {dtype}",
+                                                     oracle)))
+        out.update(vs_tiled_rel_rms=exact[0], vs_tiled_worst_row=exact[1])
+        del oracle
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    out["ms"] = cuda_ms(kernel, reps)
+    out["plain_ms"] = cuda_ms(plain, 1, warm=False)   # flash_case ran it
+    out["library_ms"] = cuda_ms(sdpa, reps)
+    if dh > ops.KERNEL_DH[-1]:
+        out["library_kernels"] = sdpa_kernels(sdpa)
+    d = ops.kernel_head_dim(dh)
+    groups = ops.column_groups(d, q.dtype)
+    flops = flash_flops(H, S, dh)
+    nbytes = q.element_size() * S * dh * (2 * H + 2 * Hkv)
+    peak = FP32_PEAK if dtype == "float32" else BF16_PEAK
+    out["bound_ms"], out["bound_by"] = bound(nbytes, (flops, peak))
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["tflops"] = flops / out["ms"] / 1e9
+    out["column_groups"] = groups
+    out["recompute_flops"] = flops / 2 * (groups - 1) * d / dh
+    out["shape"] = (f"{dtype}, B={B}, S={S}, H={H}, Hkv={Hkv}, dh={dh} "
+                    f"(kernel head dim {d}, {groups} column group(s)), "
+                    f"causal")
+    print(f"[kernels] flash_attention {dtype} dh {dh} (H {H} over {Hkv}): "
+          f"kernel {out['ms']:.4f} ms ({out['tflops']:.1f} TFLOP/s, "
+          f"{out['bound_share']:.3f} of the bound), plain twin "
+          f"{out['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {out['library_ms']:.4f} ms "
+          f"(kernels {out.get('library_kernels', 'not named')}), bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}: {flops / 1e9:.3f} "
+          f"GFLOP, {nbytes / 1e6:.4f} MB; the {groups} column groups repeat "
+          f"{out['recompute_flops'] / 1e9:.3f} GFLOP of QK^T beside it)")
+    del q, k, v, qt, kt, vt, kernel, plain, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_f16(dev, cfg):
+    """The float16 instantiation of the tensor-core kernel: HGMMA in its
+    SASS (the split and the column-split kernels), then at phi4-mini's
+    shape (dh 128) and Gemma 2's (dh 256) against its twin, the tile-exact
+    oracle and the wrong variants, timed beside SDPA in float16."""
+    from repro_torch.kernels import build
+    lib = build.library_path("flash_attention")
+    hgmma = {name: sass_count(lib, "HGMMA", f"{name}I6__half")
+             for name in ("flash_attention_tc_kernel",
+                          "flash_attention_tc_wide_kernel")}
+    print(f"[kernels] flash_attention float16: HGMMA instructions in the "
+          f"SASS of its instantiations {hgmma}")
+    if not all(hgmma.values()):
+        fail("a float16 flash instantiation holds no HGMMA instruction")
+    g = GEMMA2_ATTENTION
+    out = {"hgmma_in_sass": hgmma}
+    for dh, (H, Hkv) in ((cfg.resolved_head_dim,
+                          (cfg.num_heads, cfg.num_kv_heads)),
+                         (g["dh"], (g["H"], g["Hkv"]))):
+        out[f"dh_{dh}"] = flash_timed(dev, 1, 4096, H, Hkv, dh, 20 + dh,
+                                      "float16", 20, tiled=True)
+    return out
+
+
+# past dh 256: (dh, H, Hkv) at B 1, S 4096: a 2560 width in heads of 320
+# over 2 KV heads, phi4-mini's 3072 in heads of 512
+FLASH_COLUMN_SPLIT = ((320, 8, 2), (512, 6, 2))
+
+
+def check_flash_column_split(dev):
+    """The column-split kernels, bf16 (tensor cores, groups of 256 columns)
+    and float32 (CUDA cores, groups of 128), at dh 320 and 512: held
+    against the twin (bf16 also the oracle and the wrong variants), timed
+    beside SDPA at the same shape and dtype."""
     out = {}
-    for N, H in WKV6_WIDE:
-        c = rwkv_at_head(cfg, N)
-        inputs, kernel, plain = wkv6_case(dev, c, S)
-        err, _, s_err, _ = wkv6_errors(f"bf16 B=1 S={S} H={H} N={N}", kernel,
-                                       plain)
-        blocks, sms_busy = blocks_ran(ops.wkv6_cuda.last_block_sms)
-        if blocks != ops.grid_blocks(1, H, N):
-            fail(f"wkv6 N {N}: the state pass ran {blocks} blocks, expected "
-                 f"{ops.grid_blocks(1, H, N)}")
-        ms = cuda_ms(kernel, 5)
-        call = ops.prepare(*inputs)
-        chunk_ms = cuda_ms(lambda: ops.chunk_pass(call), 5)
-        state_ms = cuda_ms(lambda: ops.state_pass(call), 5)
-        plain_ms = cuda_ms(plain, 1)
-        C = ops.pick_chunk(S)
-        g = ops.cluster_blocks(N)
-        products, elementwise = wkv6_flops(1, S, H, N, C)
-        nbytes = 2 * (5 * S * H * N + H * N) + 4 * 2 * H * N * N
-        bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
-                                   (elementwise, FP32_PEAK))
-        print(f"[kernels] wkv6 N {N} (H {H}, clusters of {g}): kernel "
-              f"{ms:.4f} ms (chunk pass {chunk_ms:.4f} ms, {H * (S // C) * g}"
-              f" blocks; state pass {state_ms:.4f} ms, "
-              f"{1e3 * state_ms / (S // C):.3f} us a link of {S // C}, its "
-              f"launch recorded {blocks} blocks on {sms_busy} distinct SMs), "
-              f"plain twin {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}: {products / 1e9:.4f} GFLOP of products, x3 in "
-              f"TF32, {elementwise / 1e9:.4f} GFLOP fp32 elementwise, "
-              f"{nbytes / 1e6:.4f} MB)")
-        out[f"n_{N}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    for dh, H, Hkv in FLASH_COLUMN_SPLIT:
+        out[f"dh_{dh}"] = {
+            dtype: flash_timed(dev, 1, 4096, H, Hkv, dh, 40 + dh, dtype,
+                               10 if dtype == "bfloat16" else 2,
+                               tiled=dtype == "bfloat16")
+            for dtype in ("bfloat16", "float32")}
+    return out
+
+
+def wkv6_timed(dev, cfg, S, N, dtype):
+    """One WKV6 call at rwkv6-3b's S and a head of ``N`` (``cfg``'s heads)
+    in ``dtype``: held against its twin, its blocks checked against the
+    launch's record, timed with each of its passes, beside its twin and
+    its bound."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops
+    H = cfg.num_heads
+    inputs, kernel, plain = wkv6_case(dev, cfg, S, N=N, dtype=dtype)
+    err, _, s_err, _ = wkv6_errors(f"{dtype} B=1 S={S} H={H} N={N}", kernel,
+                                   plain)
+    blocks, sms_busy = blocks_ran(ops.wkv6_cuda.last_block_sms)
+    if blocks != ops.grid_blocks(1, H, N):
+        fail(f"wkv6 N {N}: the state pass ran {blocks} blocks, expected "
+             f"{ops.grid_blocks(1, H, N)}")
+    ms = cuda_ms(kernel, 5)
+    call = ops.prepare(*inputs)
+    passes = {"chunk_pass_ms": cuda_ms(lambda: ops.chunk_pass(call), 5),
+              "state_pass_ms": cuda_ms(lambda: ops.state_pass(call), 5)}
+    if call.parts is not None:
+        passes["add_pass_ms"] = cuda_ms(lambda: ops.add_pass(call), 5)
+    plain_ms = cuda_ms(plain, 1, warm=False)   # wkv6_errors ran it
+    C = ops.pick_chunk(S)
+    nc, g = ops.head_split(ops.kernel_head_size(N))
+    products, elementwise = wkv6_flops(1, S, H, N, C)
+    item = inputs[0].element_size()
+    nbytes = item * (5 * S * H * N + H * N) + 4 * 2 * H * N * N
+    bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
+                               (elementwise, FP32_PEAK))
+    print(f"[kernels] wkv6 {dtype} N {N} (H {H}, {nc} cluster(s) of {g} "
+          f"a problem): kernel {ms:.4f} ms ({passes}), plain twin "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{products / 1e9:.4f} GFLOP of products, x3 in TF32, "
+          f"{elementwise / 1e9:.4f} GFLOP fp32 elementwise, "
+          f"{nbytes / 1e6:.4f} MB); the state pass's launch recorded "
+          f"{blocks} blocks on {sms_busy} distinct SMs")
+    del inputs, kernel, plain, call
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "max_abs_err": err,
-            "state_max_abs_err": s_err, "chunk_pass_ms": chunk_ms,
-            "state_pass_ms": state_ms, "chunk_pass_blocks": H * (S // C) * g,
-            "state_pass_blocks": blocks, "state_pass_sms_busy": sms_busy,
-            "cluster": g,
-            "shape": f"rwkv6-3b's width at N={N}: bf16, B=1, S={S}, H={H}, "
-                     f"chunk {C}"}
-        del inputs, kernel, plain, call
-        torch.cuda.empty_cache()
+            "state_max_abs_err": s_err, **passes, "state_pass_blocks": blocks,
+            "state_pass_sms_busy": sms_busy, "clusters": nc, "cluster": g,
+            "shape": f"{dtype}, B=1, S={S}, H={H}, N={N}, chunk {C}"}
+
+
+# past a head of 1024: (N, H) at S 4096, bf16
+WKV6_PAST_1024 = ((1088, 2), (2560, 1))
+
+
+def check_wkv6_f16_and_past_1024(dev, cfg, S):
+    """WKV6's float16 instantiation at rwkv6-3b's width in heads of 64 and
+    512; then, bf16, heads of 1088 and 2560 on several clusters a problem
+    (the add of their parts a third launch)."""
+    out = {"float16": {}, "past_1024": {}}
+    for N in (64, 512):
+        out["float16"][f"n_{N}"] = wkv6_timed(
+            dev, rwkv_at_head(cfg, N), S, N, "float16")
+    for N, H in WKV6_PAST_1024:
+        out["past_1024"][f"n_{N}"] = wkv6_timed(
+            dev, dataclasses.replace(cfg, num_heads=H), S, N, "bfloat16")
     return out
 
 
@@ -1369,23 +1481,47 @@ def wrappers():
             "rb_sor_slabs_packed": pops.rb_sor_slabs_packed_cuda,
             "rb_sor_slabs": pops.rb_sor_slabs_cuda,
             "flash_attention": fops.flash_attention_bf16_cuda,
+            "flash_attention_f16": fops.flash_attention_f16_cuda,
             "flash_attention_fp32": fops.flash_attention_fp32_cuda,
             "wkv6": wops.wkv6_cuda}
 
 
+FLASH_WRAPPERS = ("flash_attention", "flash_attention_f16",
+                  "flash_attention_fp32")
+
+
 def reset_counts():
-    for fn in wrappers().values():
+    w = wrappers()
+    for fn in w.values():
         fn.launches = 0
-    wrappers()["fused_interval"].launches_per_body = 0
+    w["fused_interval"].launches_per_body = 0
+    for name in FLASH_WRAPPERS:
+        w[name].column_split_launches = 0
+    w["wkv6"].launches_by_dtype = dict.fromkeys(
+        w["wkv6"].launches_by_dtype, 0)
+    w["wkv6"].multi_cluster_launches = 0
 
 
 def counts():
-    """Launches by kernel since reset_counts, the fused kernel's per-body
-    instantiation also on its own (``fused_interval_per_body``)."""
-    out = {name: fn.launches for name, fn in wrappers().items()}
-    out["fused_interval_per_body"] = \
-        wrappers()["fused_interval"].launches_per_body
+    """Launches by kernel since reset_counts; and, as views of those, the
+    fused kernel's per-body instantiation (``fused_interval_per_body``),
+    the flash kernels' column-split launches past dh 256
+    (``flash_attention_column_split``), WKV6's float16 launches
+    (``wkv6_float16``) and its launches past a head of 1024
+    (``wkv6_multi_cluster``)."""
+    w = wrappers()
+    out = {name: fn.launches for name, fn in w.items()}
+    out["fused_interval_per_body"] = w["fused_interval"].launches_per_body
+    out["flash_attention_column_split"] = sum(
+        w[name].column_split_launches for name in FLASH_WRAPPERS)
+    out["wkv6_float16"] = w["wkv6"].launches_by_dtype["float16"]
+    out["wkv6_multi_cluster"] = w["wkv6"].multi_cluster_launches
     return out
+
+
+# the count keys that are views of another kernel's launches
+COUNT_VIEWS = ("fused_interval_per_body", "flash_attention_column_split",
+               "wkv6_float16", "wkv6_multi_cluster")
 
 
 def run_train(backend, env_kw, episodes, grid_kw, scenarios=None):
@@ -1474,12 +1610,14 @@ def frontend_embeds(cfg, S, rng, dev):
         dtype=torch.float32, device=dev)
 
 
-def run_lm(dev, name, S, kernel, per_layer=1, cfg=None):
+def run_lm(dev, name, S, kernel, per_layer=1, cfg=None, views=()):
     """lm_loss(backend="pallas") of a full-width config at B=1, S tokens
     (a frontend config's embeddings drawn after them): the kernel must
-    launch ``per_layer`` times a decoder layer; logits and loss held
-    against backend="reference" on the same params and inputs.  ``cfg``
-    (a registered config with fields replaced) in place of ``name``'s."""
+    launch ``per_layer`` times a decoder layer, every one of them counted
+    in each of ``views`` too (count keys of COUNT_VIEWS: the instantiation
+    the path must run), and no other kernel; logits and loss held against
+    backend="reference" on the same params and inputs.  ``cfg`` (a
+    registered config with fields replaced) in place of ``name``'s."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -1515,11 +1653,15 @@ def run_lm(dev, name, S, kernel, per_layer=1, cfg=None):
               f"steady), kernel launches {launched}")
         if not math.isfinite(float(loss)):
             fail(f"{name}: lm_loss is {float(loss)}")
-        others = sum(n for k, n in launched.items() if k != kernel)
-        if launched[kernel] != per_layer * cfg.num_layers or others:
+        others = sum(n for k, n in launched.items()
+                     if k != kernel and k not in views)
+        want = per_layer * cfg.num_layers
+        if (launched[kernel] != want or others
+                or any(launched[v] != want for v in views)):
             fail(f"{name}: {launched[kernel]} {kernel} launches in one "
-                 f"forward, expected {per_layer * cfg.num_layers}, and "
-                 f"{others} of the other kernels, expected 0")
+                 f"forward ({ {v: launched[v] for v in views} }), expected "
+                 f"{want} (each of them counted in {views}), and {others} of "
+                 f"the other kernels, expected 0")
         (ref_loss, _), ref_secs = wall(lambda: model.lm_loss(
             cfg, params, batch, backend="reference"))
         d_loss = abs(float(loss) - float(ref_loss))
@@ -2452,8 +2594,17 @@ def async_path(card):
 HALO_SCENARIOS = ("cyl_re100", "cyl_re100_rotary", "cyl_re200", "cyl_re100")
 TOL_HALO_MONOLITHIC = 1e-5     # relative, the reference's bound
 TOL_HALO_ROLLOUT = 0.05        # the reference's mixed-batch gate
-# (d) train() on plan (4, 2, 2): ~20 s an episode of 8 actions on the card
+# (d) train() on plan (4, 2, 2): ~17 s an episode of 8 actions on the card,
+# cut to 2
 HALO_TRAIN_EPISODES = 1
+HALO_TRAIN_ACTIONS = 2
+# (c) the halo rollout's fixed actions (of 50 dt each) on the mixed batch,
+# cut from 3
+HALO_ROLLOUT_ACTIONS = (0.3, -0.2)
+# phase 10's autotune fleet (d): 1 episode of this many actions after this
+# warmup (t.u.); its gates read autotune's artifact, written before them
+FLEET_AUTO_ACTIONS = 2
+FLEET_AUTO_WARMUP = 0.5
 
 
 def halo_solves(dev, card):
@@ -2523,18 +2674,86 @@ def halo_solves(dev, card):
     return rows
 
 
-def halo_path(card):
+def halo_golden(dev):
+    """Phase 12 (b): the res-8 golden fixture through
+    ``run_uncontrolled(backend="halo")`` at two ranks (plain PyTorch, no
+    kernel launched), held within the golden tolerances.  Returns its
+    seconds."""
+    import numpy as np
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.cfd.validation import measure_shedding, run_uncontrolled
+    from repro_torch.convert import flow_state_from_numpy
+    from repro_torch.launch.mesh import mesh_for_plan
+    ref = np.load(ROOT / "tests" / "golden" / "cyl_re100_res8.npz")
+    cfg = GridConfig(res=int(ref["res"]), dt=float(ref["dt"]),
+                     poisson_iters=int(ref["poisson_iters"]))
+    state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"], device=dev)
+    reset_counts()
+    (_, cds, cls), golden_s = wall(lambda: run_uncontrolled(
+        cfg, state, int(ref["meas_steps"]), backend="halo",
+        mesh=mesh_for_plan((1, 2), device=dev)))
+    launched = counts()
+    stats = measure_shedding(cds, cls, cfg.dt)
+    print(f"[halo golden] res 8, {int(ref['meas_steps'])} dt at two "
+          f"ranks in {golden_s:.3f} s, launches {launched}")
+    if any(launched.values()):
+        fail(f"the halo golden run launched kernels: {launched}")
+    for key, tol in (("strouhal", TOL_ST), ("cd_mean", TOL_CD),
+                     ("cl_amp", TOL_AMP)):
+        want, got = float(ref[key]), stats[key]
+        rel = abs(got - want) / abs(want)
+        print(f"[halo golden] {key}: {got:.6f} vs fixture {want:.6f} "
+              f"(rel {rel:.2e}, tol {tol})")
+        if not (math.isfinite(got) and rel <= tol):
+            fail(f"halo golden {key} {got} vs {want} outside rel {tol}")
+    return golden_s
+
+
+# the halo golden's child process: its last line
+HALO_GOLDEN_DONE = "HALO_GOLDEN_DONE"
+
+
+def start_halo_golden():
+    """Phase 12 (b) in a child process (``--halo-golden``), started before
+    phase 10: the golden is ~1600 dt of host-bound plain PyTorch, which
+    then runs beside the fleets' process starts instead of after them.
+    It holds ~1 GB of the card and ends before phase 13."""
+    import os
+    from repro_torch.core import autotune as at
+    env = dict(os.environ, **{at.FORCE_DEVICE_COUNT: "4"})
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--halo-golden"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=ROOT)
+
+
+def halo_golden_joined(proc):
+    """Wait for the golden's child, print its lines, fail if it failed.
+    Returns its golden seconds."""
+    out, _ = proc.communicate(timeout=900)
+    lines = out.strip().splitlines()
+    for line in lines:
+        if line.startswith(("[halo golden]", "chip_smoke FAILED")):
+            print(line)
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith(HALO_GOLDEN_DONE):
+        fail(f"the halo golden's child exited {proc.returncode}:\n"
+             f"{out[-3000:]}")
+    return float(lines[-1].split()[1])
+
+
+def halo_path(card, golden=None):
     """Phase 12: the halo decomposition on the card, four plan workers
     served by the card (``REPRO_TORCH_FORCE_DEVICE_COUNT=4`` for the phase
-    only).  Returns the phase's readings for the kernels line."""
+    only); the golden (b) read from ``golden``, its child process, where
+    one was started.  Returns the phase's readings for the kernels
+    line."""
     import os
     import numpy as np
     import torch
     from repro_torch.cfd import decomp
     from repro_torch.cfd.env import CylinderEnv, EnvConfig
     from repro_torch.cfd.grid import GridConfig
-    from repro_torch.cfd.validation import measure_shedding, run_uncontrolled
-    from repro_torch.convert import flow_state_from_numpy
     from repro_torch.core import autotune as at
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.drl.engine import shard_env_batch
@@ -2548,30 +2767,12 @@ def halo_path(card):
         (solves, secs) = wall(lambda: halo_solves(dev, card))
         print(f"[halo solve] 12 cases in {secs:.3f} s")
 
-        # (b) the golden fixture at two ranks
-        ref = np.load(ROOT / "tests" / "golden" / "cyl_re100_res8.npz")
-        cfg = GridConfig(res=int(ref["res"]), dt=float(ref["dt"]),
-                         poisson_iters=int(ref["poisson_iters"]))
-        state = flow_state_from_numpy(ref["u"], ref["v"], ref["p"],
-                                      device=dev)
-        reset_counts()
-        (_, cds, cls), golden_s = wall(lambda: run_uncontrolled(
-            cfg, state, int(ref["meas_steps"]), backend="halo",
-            mesh=mesh_for_plan((1, 2), device=dev)))
-        launched = counts()
-        stats = measure_shedding(cds, cls, cfg.dt)
-        print(f"[halo golden] res 8, {int(ref['meas_steps'])} dt at two "
-              f"ranks in {golden_s:.3f} s, launches {launched}")
-        if any(launched.values()):
-            fail(f"the halo golden run launched kernels: {launched}")
-        for key, tol in (("strouhal", TOL_ST), ("cd_mean", TOL_CD),
-                         ("cl_amp", TOL_AMP)):
-            want, got = float(ref[key]), stats[key]
-            rel = abs(got - want) / abs(want)
-            print(f"[halo golden] {key}: {got:.6f} vs fixture {want:.6f} "
-                  f"(rel {rel:.2e}, tol {tol})")
-            if not (math.isfinite(got) and rel <= tol):
-                fail(f"halo golden {key} {got} vs {want} outside rel {tol}")
+        # (b) the golden fixture at two ranks: the child started before
+        # phase 10, or here
+        if golden is None:
+            golden_s = halo_golden(dev)
+        else:
+            golden_s = halo_golden_joined(golden)
 
         # (c) a mixed batch with fixed actions on a (2, 2) mesh
         env_cfg = EnvConfig(grid=GridConfig(res=16), steps_per_action=50,
@@ -2588,14 +2789,15 @@ def halo_path(card):
                 st_b = shard_env_batch(env_mesh, st_b, 2)
             rows = []
             t0 = time.perf_counter()
-            for a in (0.3, -0.2, 0.1):
+            for a in HALO_ROLLOUT_ACTIONS:
                 st_b, out = env.env_step(st_b, torch.full((4,), a,
                                                           device=dev))
                 rows.append(out)
             torch.cuda.synchronize()
             outs[tag] = {f: torch.stack([getattr(o, f) for o in rows])
                          for f in ("reward", "cd", "cl", "obs")}
-            print(f"[halo rollout] {tag}: 3 actions of 50 dt on 4 envs "
+            print(f"[halo rollout] {tag}: {len(HALO_ROLLOUT_ACTIONS)} actions "
+                  f"of 50 dt on 4 envs "
                   f"{HALO_SCENARIOS} in {time.perf_counter() - t0:.3f} s "
                   f"(after the warmup)")
         launched = counts()
@@ -2618,7 +2820,8 @@ def halo_path(card):
             (hist, model), train_s = wall(lambda: train(
                 TrainConfig(env=EnvConfig(grid=GridConfig(res=16),
                                           steps_per_action=50,
-                                          actions_per_episode=8,
+                                          actions_per_episode=(
+                                              HALO_TRAIN_ACTIONS),
                                           warmup_time=1.0),
                             n_envs=4, episodes=HALO_TRAIN_EPISODES, seed=0,
                             plan=ParallelPlan(4, 2, 2), device="cuda"),
@@ -2626,15 +2829,16 @@ def halo_path(card):
                                     print(f"[halo train] {msg}"))))
         launched = counts()
         sent = sum(n for _, n in messages)
-        want = 4 * 60 * HALO_TRAIN_EPISODES * 8 * 50
+        steps = HALO_TRAIN_EPISODES * HALO_TRAIN_ACTIONS * 50
+        want = 4 * 60 * steps
         print(f"[halo train] {sent} halo messages an env "
               f"{sorted({shape for shape, _ in messages})} (expected {want} "
-              f"of (33, 1): 4 a sweep pair, 60 pairs, "
-              f"{HALO_TRAIN_EPISODES * 8 * 50} dt)")
+              f"of (33, 1): 4 a sweep pair, 60 pairs, {steps} dt)")
         if sent != want or {shape for shape, _ in messages} != {(33, 1)}:
             fail(f"the halo train sent {sent} messages, expected {want}")
         line = [msg for msg in logs if "plan[explicit]" in msg]
-        print(f"[halo train] {HALO_TRAIN_EPISODES} episode(s) of 8 actions "
+        print(f"[halo train] {HALO_TRAIN_EPISODES} episode(s) of "
+              f"{HALO_TRAIN_ACTIONS} actions "
               f"in {train_s:.3f} s, "
               f"episode walls {hist['wall'].tolist()}, rewards "
               f"{hist['reward'].tolist()}, launches {launched}")
@@ -2666,10 +2870,11 @@ def halo_path(card):
     return dict(
         fused=dict(halo_train_launches=launched["fused_interval"],
                    halo_autotune_launches=tuned["fused_interval"],
-                   halo_path=("train(plan=ParallelPlan(4, 2, 2)), warmup + "
-                              "2 episodes of 8 actions: none (the halo "
-                              "backend); autotune over 4 workers: its "
-                              "interval probe")),
+                   halo_path=(f"train(plan=ParallelPlan(4, 2, 2)), warmup + "
+                              f"{HALO_TRAIN_EPISODES} episode of "
+                              f"{HALO_TRAIN_ACTIONS} actions: none (the halo "
+                              f"backend); autotune over 4 workers: its "
+                              f"interval probe")),
         sor=dict(halo_train_launches=launched["rb_sor_slabs_packed"],
                  halo_autotune_launches=tuned["rb_sor_slabs_packed"]),
         solves=solves, golden_s=golden_s, train_s=train_s,
@@ -2685,11 +2890,11 @@ def fleet_path(card):
     -> resume: the episode-1 checkpoint its two runners wrote equal to
     (a)'s bit for bit (the fleets of 1 and 2 processes agree), its
     episode-2 checkpoint equal to (a)'s final one, the resumed episode
-    completing; (c) ``--plan auto`` in a 2-process fleet: the
-    autotuner's measured gloo ``t_interhost``; (d) plan (4, 2, 2) on the
-    halo backend in 1 and 2 runners, bit-equal; (e) ``autotune`` in 2
-    runners of 4 workers timing ranks 1, 2 and 4.  Returns the launch
-    counts for the kernels line and (a)'s checkpoint directory."""
+    completing; (c) plan (4, 2, 2) on the halo backend in 1 and 2
+    runners, bit-equal; (d) ``--plan auto`` in 2 runners of 4 workers:
+    the autotuner's measured gloo ``t_interhost`` and ranks 1, 2 and 4
+    timed.  Returns the launch counts for the kernels line and (a)'s
+    checkpoint directory."""
     import os
     import shutil
     import numpy as np
@@ -2838,28 +3043,10 @@ def fleet_path(card):
           f"episode N=1 {w1:.4f} s, N=2 {w2:.4f} s (N=2 / N=1 = "
           f"{w2 / w1:.4f}); card {card}")
 
-    # (c) autotune(max_processes=2) inside a 2-process fleet
-    wd, stdout, secs = launch("auto", "--processes", 2, "--plan", "auto",
-                              "--n-envs", 4, "--episodes", 1)
-    record = json.loads((wd / "autotune.json").read_text())
-    at.validate_artifact(record)
-    ih = record["measured"]["t_interhost"]
-    tm = timings(wd, stdout, 2)
-    sor = [int(t["sor_launches"]) for t in tm]
-    fused_auto = [int(t["fused_launches"]) for t in tm]
-    print(f"[fleet auto] autotune(max_processes=2) in each of 2 runners: "
-          f"t_interhost {ih}; plan {record['plan']}; launches per runner: "
-          f"packed SOR {sor}, fused {fused_auto}; {secs:.3f} s of launcher; "
-          f"card {card}")
-    if ih["estimated"] or ih["processes"] != 2:
-        fail(f"fleet auto: t_interhost {ih}, expected a measured 2-process "
-             f"gather")
-    if record["plan"]["n_processes"] != 2 or min(sor) < 1:
-        fail(f"fleet auto: plan {record['plan']}, packed-SOR launches {sor}")
-
-    # (d) a multi-rank plan across the fleet: (4, 2, 2), 2 envs of 2
+    # (c) a multi-rank plan across the fleet: (4, 2, 2), 2 envs of 2
     # x-slabs each on the halo backend, one env a runner in the 2-runner
-    # fleet; depth cut to 1 episode of 4 actions after a 1 t.u. warmup
+    # fleet; depth cut to 1 episode of 4 actions after a 1 t.u. warmup (at
+    # 2 actions after 0.5 t.u. the two fleets' final actor weights differ)
     halo_depth = ["--plan", "4,2,2", "--n-envs", 2, "--episodes", 1,
                   "--actions-per-episode", 4, "--warmup", 1]
     halo = {}
@@ -2890,25 +3077,38 @@ def fleet_path(card):
           "same final checkpoint bit for bit (params, Adam m / v, step, "
           "generator state, env batch, history)")
 
-    # (e) autotune(max_processes=2) in a 2-runner fleet whose runners serve
-    # 4 workers each: it times every candidate rank count, as the
-    # reference's does
+    # (d) autotune(max_processes=2) inside a 2-runner fleet whose runners
+    # serve 4 workers each: its artifact valid, a measured 2-process gloo
+    # t_interhost, and every candidate rank count timed, as the
+    # reference's autotune does
     wd, stdout, secs = launch(
-        "auto_ranks", "--processes", 2, "--plan", "auto", "--n-envs", 4,
-        "--episodes", 1, "--actions-per-episode", 4, "--warmup", 1,
+        "auto", "--processes", 2, "--plan", "auto", "--n-envs", 4,
+        "--episodes", 1, "--actions-per-episode", FLEET_AUTO_ACTIONS,
+        "--warmup", FLEET_AUTO_WARMUP,
         env_extra={at.FORCE_DEVICE_COUNT: "4"})
     record = json.loads((wd / "autotune.json").read_text())
     at.validate_artifact(record)
+    ih = record["measured"]["t_interhost"]
     ranks = record["measured"]["t_step_ranks"]
-    print(f"[fleet auto ranks] autotune(max_processes=2) in each of 2 runners "
-          f"of 4 workers: t_step_ranks "
+    tm = timings(wd, stdout, 2)
+    sor = [int(t["sor_launches"]) for t in tm]
+    fused_auto = [int(t["fused_launches"]) for t in tm]
+    print(f"[fleet auto] autotune(max_processes=2) in each of 2 runners of 4 "
+          f"workers: t_interhost {ih}; t_step_ranks "
           f"{ {int(r): round(v * 1e3, 4) for r, v in ranks.items()} } ms "
           f"(backends {record['measured']['t_step_backends']}); plan "
           f"{record['plan']}; {len(record['candidates'])} candidate "
-          f"layouts; {secs:.3f} s of launcher; card {card}")
+          f"layouts; launches per runner: packed SOR {sor}, fused "
+          f"{fused_auto}; {secs:.3f} s of launcher; card {card}")
+    if ih["estimated"] or ih["processes"] != 2:
+        fail(f"fleet auto: t_interhost {ih}, expected a measured 2-process "
+             f"gather")
+    if record["plan"]["n_processes"] != 2 or min(sor) < 1:
+        fail(f"fleet auto: plan {record['plan']}, packed-SOR launches {sor}")
     if sorted(int(r) for r in ranks) != [1, 2, 4]:
-        fail(f"fleet auto ranks: t_step_ranks at {sorted(ranks)}, expected "
-             f"ranks 1, 2 and 4")
+        fail(f"fleet auto: t_step_ranks at {sorted(ranks)}, expected ranks "
+             f"1, 2 and 4")
+
     return dict(
         fused=dict(fleet_launches=runs[1]["fused"],
                    fleet_path=("python -m repro_torch.launch.fleet, 1 "
@@ -4365,7 +4565,8 @@ def hybrid_flash_reading(dev, card):
     tiled = flash_measures(kernel(), ops.flash_attention_tiled(
         q, k, v, causal=True, sliding_window=W))
     if not flash_held(f"bfloat16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal "
-                      f"window={W}, kernel vs tiled", tiled, "tiled"):
+                      f"window={W}, kernel vs tiled", tiled,
+                      "tiled bfloat16"):
         fail("flash_attention at hymba's shape differs from the tile-exact "
              "oracle")
     ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
@@ -5695,6 +5896,10 @@ def main():
                          f"{', '.join(STANDALONE_PHASES)} (comma-separated) "
                          f"after the build: a partial run, which prints no "
                          f"kernels line and no result line")
+    ap.add_argument("--halo-golden", action="store_true",
+                    help="run phase 12's golden at two ranks alone and "
+                         "exit (the child process the whole run starts "
+                         "before phase 10)")
     ap.add_argument("--compare", metavar="TREE", default="",
                     help="time phase 1's flash (dh 128) and WKV6 (N 64) "
                          "yardsticks of TREE's repro_torch (a checkout "
@@ -5716,6 +5921,9 @@ def main():
              "CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # float16 products of the twins and the reference mixers accumulate in
+    # float32, as the kernels' do
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
@@ -5730,15 +5938,28 @@ def main():
     if args.compare:
         compare_tree(card)
         return
+    if args.halo_golden:
+        secs = halo_golden(torch.device("cuda"))
+        print(f"{HALO_GOLDEN_DONE} {secs}")
+        return
     if phases:
         _, secs = wall(lambda: build.build(verbose=True))
         print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s")
-        run = {"10": fleet_path, "12": halo_path, "13": serve_path,
-               "14": train_path, "15": moe_path, "16": hybrid_path,
-               "17": deepseek_path, "18": frontend_path, "19": mesh_path}
-        for p in phases:
-            _, secs = wall(lambda: run[p](card))
-            print(f"[phase {p}] {secs:.3f} s")
+        # with phase 10 before it, phase 12's golden runs beside it
+        child = (start_halo_golden() if {"10", "12"} <= set(phases)
+                 and phases.index("10") < phases.index("12") else None)
+        run = {"10": fleet_path, "12": lambda c: halo_path(c, child),
+               "13": serve_path, "14": train_path, "15": moe_path,
+               "16": hybrid_path, "17": deepseek_path, "18": frontend_path,
+               "19": mesh_path}
+        try:
+            for p in phases:
+                _, secs = wall(lambda: run[p](card))
+                print(f"[phase {p}] {secs:.3f} s")
+        finally:
+            if child is not None and child.poll() is None:
+                child.kill()
+                child.wait()
         print(f"partial run of phases {', '.join(phases)}: no kernels line, "
               f"no result")
         return
@@ -5782,8 +6003,12 @@ def main():
                          wrong=stale_halo["poisson_sor_full"])
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
     flash["dh_256"] = check_flash_wide(dev)
+    flash["float16"] = check_flash_f16(dev, get_config("phi4-mini-3.8b"))
+    flash["column_split"] = check_flash_column_split(dev)
     wkv = check_wkv6(dev, get_config("rwkv6-3b"), S=4096)
     wkv.update(check_wkv6_wide(dev, get_config("rwkv6-3b"), S=4096))
+    wkv.update(check_wkv6_f16_and_past_1024(dev, get_config("rwkv6-3b"),
+                                            S=4096))
     done(1)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
@@ -5859,13 +6084,49 @@ def main():
         dev, phi256.name, 4096, "flash_attention", cfg=phi256)
     wide["path"] = ("lm_loss(phi4-mini-3.8b at dh 256: 12 heads over 4, 4 "
                     "layers, backend='pallas'), B=1, S=4096")
-    for N, _ in WKV6_WIDE:
+    for N in WKV6_WIDE:
         c = rwkv_at_head(get_config("rwkv6-3b"), N, layers=4)
         wide = wkv[f"n_{N}"]
         wide["launches"], wide["lm_first_s"], wide["lm_steady_s"] = run_lm(
             dev, c.name, 4096, "wkv6", per_layer=2, cfg=c)
         wide["path"] = (f"lm_loss(rwkv6-3b at N {N}: {c.num_heads} heads, 4 "
                         f"layers, backend='pallas'), B=1, S=4096")
+    # float16 params and compute at full width and depth: the float16
+    # flash instantiation 32 times, the float16 WKV6 one 64 times
+    f16 = dict(param_dtype="float16", compute_dtype="float16")
+    holds = {}
+    for cfg, kernel, per_layer, views, row in (
+            (phi, "flash_attention_f16", 1, (), flash["float16"]),
+            (get_config("rwkv6-3b"), "wkv6", 2, ("wkv6_float16",),
+             wkv["float16"])):
+        c = dataclasses.replace(cfg, name=f"{cfg.name}-float16", **f16)
+        row["launches"], row["lm_first_s"], row["lm_steady_s"] = run_lm(
+            dev, c.name, 4096, kernel, per_layer, cfg=c, views=views)
+        row["path"] = (f"lm_loss({cfg.name}, float16 params and compute, "
+                       f"backend='pallas'), B=1, S=4096")
+        holds[c.name] = row["launches"]
+    # past dh 256 and N 1024, 4 of 32 layers at the models' widths:
+    # phi4-mini's 3072 as 6 heads of 512 over 2 (the column-split kernel),
+    # rwkv6-3b's 2560 as 2 WKV6 heads of 1280 (2 clusters a problem: the
+    # two passes and the add of the clusters' parts, 3 launches a layer)
+    phi512 = dataclasses.replace(phi, name=f"{phi.name}-dh512", head_dim=512,
+                                 num_heads=6, num_kv_heads=2, num_layers=4)
+    row = flash["column_split"]["dh_512"]["bfloat16"]
+    row["launches"], row["lm_first_s"], row["lm_steady_s"] = run_lm(
+        dev, phi512.name, 4096, "flash_attention", cfg=phi512,
+        views=("flash_attention_column_split",))
+    row["path"] = ("lm_loss(phi4-mini-3.8b at dh 512: 6 heads over 2, 4 "
+                   "layers, backend='pallas'), B=1, S=4096")
+    holds[phi512.name] = row["launches"]
+    c = rwkv_at_head(get_config("rwkv6-3b"), 1280, layers=4)
+    row = wkv["past_1024"]["n_1280"] = {}
+    row["launches"], row["lm_first_s"], row["lm_steady_s"] = run_lm(
+        dev, c.name, 4096, "wkv6", per_layer=3, cfg=c,
+        views=("wkv6_multi_cluster",))
+    row["path"] = ("lm_loss(rwkv6-3b at N 1280: 2 heads, 4 layers, "
+                   "backend='pallas'), B=1, S=4096: chunk pass, state pass "
+                   "and add a layer")
+    holds[c.name] = row["launches"]
     done(4)
 
     # 5. the full-grid drop-in solve
@@ -5899,21 +6160,28 @@ def main():
     sor.update(planned["sor"])
     done(9)
 
-    # 10. fleet mode through the launcher
-    fleet = fleet_path(card)
-    fused.update(fleet["fused"])
-    sor.update(fleet["sor"])
-    done(10)
+    # 10. fleet mode through the launcher, phase 12's golden beside it in
+    # a child process
+    child = start_halo_golden()
+    try:
+        fleet = fleet_path(card)
+        fused.update(fleet["fused"])
+        sor.update(fleet["sor"])
+        done(10)
 
-    # 11. the user-facing scripts
-    scripts_path(card, fleet["ckpt_dir"])
-    done(11)
+        # 11. the user-facing scripts
+        scripts_path(card, fleet["ckpt_dir"])
+        done(11)
 
-    # 12. the halo decomposition: multi-rank plans on the card
-    halo = halo_path(card)
-    fused.update(halo["fused"])
-    sor.update(halo["sor"])
-    done(12)
+        # 12. the halo decomposition: multi-rank plans on the card
+        halo = halo_path(card, child)
+        fused.update(halo["fused"])
+        sor.update(halo["sor"])
+        done(12)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
 
     # 13. the language model's serving path
     serve_flash, serve_wkv = serve_path(card)
@@ -5953,6 +6221,10 @@ def main():
     now = time.perf_counter()
     print(f"[chip_smoke] phases 1-19 in {now - lap['start']:.3f} s after "
           f"the build; the whole script {now - script_start:.3f} s")
+    for name, n in holds.items():
+        print(f"[holds] {name}: lm_loss(backend='pallas') held block by "
+              f"block against backend='reference' (phase 4), {n} launches "
+              f"of its instantiation")
 
     # 20. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their builds
 (``build.py``) and their Python wrappers with plain PyTorch twins."""
 
+import contextlib
+
 import torch
 
 # dynamic shared memory one block may claim on an H100 (227 KB)
@@ -23,3 +25,22 @@ def refuse_grad(kernel: str, *tensors) -> None:
             f"so training runs the reference mixers (backend='reference'); "
             f"call the kernel under torch.no_grad() or on tensors that do "
             f"not require grad")
+
+
+
+@contextlib.contextmanager
+def allocating(kernel: str, nbytes: int, device):
+    """Allocate a call's outputs, scratch and padded copies inside this
+    block: where the card cannot hold them, the allocator's out-of-memory
+    error becomes a ``ValueError`` that names the call's ``nbytes`` (which
+    the wrapper reckons from the shapes) beside the card's free bytes.
+    The wrappers allocate before any launch, so such a call launches
+    nothing."""
+    try:
+        yield
+    except torch.OutOfMemoryError as err:
+        free, total = torch.cuda.mem_get_info(device)
+        raise ValueError(
+            f"{kernel} needs {nbytes} bytes of device memory for this call "
+            f"(outputs, scratch and padded copies), more than {device} can "
+            f"give: {free} bytes free of {total}") from err

@@ -1,9 +1,11 @@
 // What every kernel library of the port shares: the error-string export
 // the ctypes wrappers call (kernels/build.py check_launch) and the float /
-// bfloat16 conversions of the kernels templated on their element type.
+// bfloat16 / float16 conversions of the kernels templated on their element
+// type.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* repro_cuda_error_string(int err) {
@@ -14,6 +16,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -23,4 +26,8 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }

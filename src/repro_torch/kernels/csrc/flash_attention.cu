@@ -1,6 +1,7 @@
 // Causal / sliding-window flash attention with an online softmax, GQA-aware:
-// a bfloat16 kernel on Hopper's tensor cores (wgmma, fed by TMA) and a
-// float32 kernel on the CUDA cores.
+// a tensor-core kernel (wgmma, fed by TMA) for bfloat16 and float16, and a
+// float32 kernel on the CUDA cores; past a head dim of 256 a column-split
+// kernel of each.
 //
 // Replaces the Pallas TPU kernel _flash_kernel / flash_attention_bhsd
 // (src/repro/kernels/flash_attention/kernel.py:20-98) together with the
@@ -11,11 +12,12 @@
 // masked scores are -1e30 (not -inf); a running max m, sum l and fp32
 // accumulator acc with m_new = max(m, rowmax(s)), p = exp(s - m_new),
 // alpha = exp(m - m_new), l = alpha * l + sum(p), acc = acc * alpha +
-// round(p) @ v, where round(p) is p cast to v's dtype (bf16 rounds it, as
-// the TPU kernel's p.astype(v.dtype) does); out = acc / max(l, 1e-30) cast
-// to q's dtype.  The key tile size is the TPU kernel's, because the running
-// max at which p is rounded depends on it.  The bf16 kernel takes exp(x) as
-// exp2f(x * log2(e)), which moves p by about one fp32 ulp.
+// round(p) @ v, where round(p) is p cast to v's dtype (bf16 and float16
+// round it, as the TPU kernel's p.astype(v.dtype) does); out = acc /
+// max(l, 1e-30) cast to q's dtype.  The key tile size is the TPU kernel's,
+// because the running max at which p is rounded depends on it.  The
+// tensor-core kernels take exp(x) as exp2f(x * log2(e)), which moves p by
+// about one fp32 ulp.
 //
 // Differences in the launch, not in the function: query head h reads KV
 // head h / (H / Hkv) in place (no repeated K/V in memory); q, k, v and out
@@ -30,7 +32,10 @@
 // phi4-mini shape (B 1, S 4096, H 24 over 8 KV heads, dh 128): operations,
 // 103 GFLOP, 0.104 ms at the 989 TFLOP/s of bf16 on the tensor cores.
 //
-// bfloat16 design (flash_attention_tc_kernel): grid (B * H, ceil(S / 128)),
+// Tensor-core design (flash_attention_tc_kernel, templated on the element
+// type: bfloat16 and float16 differ only in the pair conversion, the wgmma
+// operand type and the TMA data type, at two bytes an element both, so
+// the layouts below serve both): grid (B * H, ceil(S / 128)),
 // 384 threads in three warpgroups; a block owns 128 query rows of one
 // (b, h).  What it does about each cause of the CUDA-core kernel's slowness:
 // - products on the tensor cores: S = Q K^T is wgmma.m64n128k16 with Q and
@@ -44,7 +49,7 @@
 //   (registers raised) run the products and the softmax, so one
 //   consumer's softmax overlaps the other's products.
 // - asynchronous copies: Q is loaded once, K and V tile by tile, by TMA
-//   (bf16, 128-byte swizzle, or 64-byte at dh 32; the wgmma shared-memory
+//   (128-byte swizzle, or 64-byte at dh 32; the wgmma shared-memory
 //   descriptors use the same swizzle).  Loads of tile j + 1 overlap the
 //   math of tile j.  TMA zero-fills rows past S; key columns past bk
 //   (S < 128) get -inf, so they add exactly 0; query rows past S are not
@@ -77,11 +82,22 @@
 // to shared memory, and each thread accumulates a 4 x (dh / 16) patch of
 // the output.  Its products stay in fp32 on the CUDA cores: TF32 tensor
 // cores would not hold the float32 path's tolerance.
+//
+// Past dh 256 (any multiple of 64; the wrapper zero-pads other head dims)
+// neither design fits a block, and both split the output's columns over a
+// third grid dimension: flash_attention_tc_wide_kernel (groups of 256
+// columns, Q and K streamed in 64-column sub-tiles) and
+// flash_attention_fp32_wide_kernel (groups of 128); see each.  Every
+// group's block forms the same scores and p, so the column split changes
+// no value; it repeats the QK^T products once per group.
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -286,10 +302,204 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Past dh 256 (dh a multiple of 64, zero-padded by the wrapper): Q, the
+// K/V tiles and p of the kernel above no longer fit a block (at dh 320
+// they would take 279,552 bytes).  So the output's columns are split over
+// a third grid dimension, GC = 128 columns a block, and each block forms
+// the scores over the whole head dim from 64-column sub-tiles of Q and K
+// streamed through shared memory, then p as above, then P V on its own
+// columns of V.  Every column group's block adds the same products in the
+// same order, so all of them form the same s and p, bit for bit; the score
+// products are repeated once per group (ceil(dh / 128) times).
+// Shared memory: Q and K sub-tiles, 16,640 + 33,280 B; V's columns, 66,048
+// B; p, 33,024 B: 148,992 B.
+constexpr int WIDE_GC = 128;   // output columns of a block
+constexpr int WIDE_DS = 64;    // head-dim columns of a Q / K sub-tile
+
+__global__ void __launch_bounds__(THREADS) flash_attention_fp32_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int S, int H, int Hkv,
+    int dh, int bk, int causal, int window, float scale) {
+  constexpr int LDS = WIDE_DS + 1;
+  constexpr int LDV = WIDE_GC + 1;
+  constexpr int LDP = BK_MAX + 1;
+  constexpr int DC = WIDE_GC / 16;   // output columns per thread
+  extern __shared__ float smem[];
+  float* q_s = smem;                    // [BQ][LDS]
+  float* k_s = q_s + BQ * LDS;          // [BK_MAX][LDS]
+  float* v_s = k_s + BK_MAX * LDS;      // [BK_MAX][LDV]
+  float* p_s = v_s + BK_MAX * LDV;      // [BQ][LDP]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.x * BQ;
+  const int c0 = blockIdx.z * WIDE_GC;  // the block's first output column
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const size_t q_row = static_cast<size_t>(H) * dh;
+  const size_t kv_row = static_cast<size_t>(Hkv) * dh;
+  const float* qb = q + static_cast<size_t>(b) * S * q_row + h * dh;
+  const float* kb = k + static_cast<size_t>(b) * S * kv_row + hk * dh;
+  const float* vb = v + static_cast<size_t>(b) * S * kv_row + hk * dh;
+  float* ob = o + static_cast<size_t>(b) * S * q_row + h * dh;
+
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int q_last = min(q0 + BQ, S) - 1;
+  int kt_end = S / bk;
+  if (causal) kt_end = min(kt_end, q_last / bk + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / bk;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * bk;
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    // the scores over the whole head dim, sub-tile by sub-tile in order
+    for (int d0 = 0; d0 < dh; d0 += WIDE_DS) {
+      __syncthreads();   // the last sub-tile's (and tile's) reads are done
+      for (int idx = tid; idx < BQ * WIDE_DS; idx += THREADS) {
+        const int r = idx / WIDE_DS;
+        const int d = idx - r * WIDE_DS;
+        q_s[r * LDS + d] =
+            q0 + r < S ? qb[static_cast<size_t>(q0 + r) * q_row + d0 + d]
+                       : 0.f;
+      }
+      for (int idx = tid; idx < bk * WIDE_DS; idx += THREADS) {
+        const int r = idx / WIDE_DS;
+        const int d = idx - r * WIDE_DS;
+        k_s[r * LDS + d] = kb[static_cast<size_t>(k0 + r) * kv_row + d0 + d];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < WIDE_DS; ++d) {
+        float qv[4], kv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * LDS + d];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) kv[c] = k_s[(tx + 16 * c) * LDS + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+      }
+    }
+
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = tx + 16 * c;
+        const int kpos = k0 + col;
+        float x;
+        if (col >= bk) {
+          x = -INFINITY;
+        } else {
+          const bool visible = (!causal || kpos <= qpos) &&
+                               (window == 0 || kpos > qpos - window);
+          x = visible ? s[i][c] * scale : MASKED;
+        }
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float p = expf(s[i][c] - m_new);
+        sum += p;
+        p_s[(ty * 4 + i) * LDP + tx + 16 * c] = p;
+      }
+      alpha[i] = expf(m[i] - m_new);
+      l[i] = alpha[i] * l[i] + row_sum16(sum);
+      m[i] = m_new;
+    }
+    // this block's columns of V (zero past dh)
+    for (int idx = tid; idx < bk * WIDE_GC; idx += THREADS) {
+      const int r = idx / WIDE_GC;
+      const int d = idx - r * WIDE_GC;
+      v_s[r * LDV + d] =
+          c0 + d < dh ? vb[static_cast<size_t>(k0 + r) * kv_row + c0 + d]
+                      : 0.f;
+    }
+    __syncthreads();
+
+    float pv[4][DC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pv[i][c] = 0.f;
+    for (int kk = 0; kk < bk; ++kk) {
+      float pr[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = p_s[(ty * 4 + i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = v_s[kk * LDV + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) pv[i][c] = fmaf(pr[i], vv[c], pv[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] = acc[i][c] * alpha[i] + pv[i][c];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col < dh)
+        ob[static_cast<size_t>(row) * q_row + col] = acc[i][c] / denom;
+    }
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int dh, int bk, int causal, int window,
+                float scale, int smem, cudaStream_t stream) {
+  constexpr int kSmem =
+      4 * (BQ * (WIDE_DS + 1) + BK_MAX * (WIDE_DS + 1) +
+           BK_MAX * (WIDE_GC + 1) + BQ * (BK_MAX + 1));
+  if (smem != kSmem || dh % WIDE_DS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_attention_fp32_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BQ - 1) / BQ, B * H, (dh + WIDE_GC - 1) / WIDE_GC);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, dh, bk,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace fp32
 
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor-core kernel
+// bfloat16 and float16: the tensor-core kernels
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -419,92 +629,106 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// The element types of the tensor-core kernel: bfloat16 and float16.  They
+// differ in the pair conversion, the wgmma operand type (.bf16 / .f16) and
+// the TMA data type; the layouts, sizes and swizzles are the same.
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
+// two floats rounded to T, packed as the 32 bits of a T pair
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// D (64 x 128, fp32) (+)= A (64 x 16) * B (16 x 128), both from shared
-// memory, both K-major; accumulate == 0 overwrites D
+// out[0], out[1] = lo, hi rounded to T (one 4-byte store)
+template <typename T>
+__device__ __forceinline__ void store2(T* out, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(out) = pack2<T>(lo, hi);
+}
+
+#define WG_REGS16 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}"
+#define WG_REGS32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define WG_REGS64 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+#define WG_OUT16(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WG_OUT32(d) WG_OUT16(d), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_OUT64(d) WG_OUT32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// D (64 x N, fp32) (+)= A (64 x 16) * B (16 x N), both from shared memory,
+// both K-major; accumulate == 0 overwrites D.  AB: the operand type.
+#define WGMMA_SS(N, AB, REGS, OUTS, PRED, DESCS)                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." AB "." AB \
+               " " REGS ", " DESCS ", p, 1, 1, 0, 0;\n}\n"                 \
+               : OUTS(d)                                                  \
+               : "l"(da), "l"(db), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kHalf<T>)
+    WGMMA_SS(128, "f16", WG_REGS64, WG_OUT64, "%66", "%64, %65");
+  else
+    WGMMA_SS(128, "bf16", WG_REGS64, WG_OUT64, "%66", "%64, %65");
 }
 
-// D (64 x 64, fp32) (+)= A (64 x 16) * B (16 x 64), both from shared
-// memory, both K-major; accumulate == 0 overwrites D
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kHalf<T>)
+    WGMMA_SS(64, "f16", WG_REGS32, WG_OUT32, "%34", "%32, %33");
+  else
+    WGMMA_SS(64, "bf16", WG_REGS32, WG_OUT32, "%34", "%32, %33");
 }
 
 // D (64 x 128, fp32) += A (64 x 16, shared memory, K-major) * B (16 x 128,
 // shared memory, MN-major: the transposed-B form)
+#define WGMMA_SS_TB(AB)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB   \
+               " " WG_REGS64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"            \
+               : WG_OUT64(d)                                              \
+               : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (kHalf<T>)
+    WGMMA_SS_TB("f16");
+  else
+    WGMMA_SS_TB("bf16");
 }
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t x) {
@@ -516,91 +740,42 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// D (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x
-// 32, shared memory, MN-major: the transposed-B form)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                              const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+// D (64 x N, fp32) += A (64 x 16, T pairs in registers) * B (16 x N, shared
+// memory, MN-major: the transposed-B form)
+#define WGMMA_RS(N, AB, REGS, OUTS, A4, REST)                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " REST ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." AB "." AB \
+               " " REGS ", " A4 ", p, 1, 1, 1;\n}\n"                       \
+               : OUTS(d)                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(1))
 
-// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x
-// 64, shared memory, MN-major: the transposed-B form)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x
-// 128, shared memory, MN-major: the transposed-B form)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t* a,
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a,
-                                             uint64_t db) {
-  wgmma_rs_n32(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t* a,
-                                             uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
-                                              const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(d, a, db);
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 32) {
+    if constexpr (kHalf<T>)
+      WGMMA_RS(32, "f16", WG_REGS16, WG_OUT16, "{%16, %17, %18, %19}, %20",
+               "%21");
+    else
+      WGMMA_RS(32, "bf16", WG_REGS16, WG_OUT16, "{%16, %17, %18, %19}, %20",
+               "%21");
+  } else if constexpr (N == 64) {
+    if constexpr (kHalf<T>)
+      WGMMA_RS(64, "f16", WG_REGS32, WG_OUT32, "{%32, %33, %34, %35}, %36",
+               "%37");
+    else
+      WGMMA_RS(64, "bf16", WG_REGS32, WG_OUT32, "{%32, %33, %34, %35}, %36",
+               "%37");
+  } else {
+    static_assert(N == 128, "P V at dh 32, 64 or 128");
+    if constexpr (kHalf<T>)
+      WGMMA_RS(128, "f16", WG_REGS64, WG_OUT64, "{%64, %65, %66, %67}, %68",
+               "%69");
+    else
+      WGMMA_RS(128, "bf16", WG_REGS64, WG_OUT64, "{%64, %65, %66, %67}, %68",
+               "%69");
+  }
 }
 
 // Register layout of a 64 x N wgmma accumulator d in a consumer warpgroup:
@@ -608,11 +783,11 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
 // (d[4i+2], d[4i+3]), columns 8i + 2(l%4) and 8i + 2(l%4) + 1.  The bf16
 // A fragment of k-step kk of P V is then {d[8kk..8kk+1], d[8kk+2..+3],
 // d[8kk+4..+5], d[8kk+6..+7]} as pairs: the conversion is in place.
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
     int S, int H, int Hkv, int bk, int causal, int window, float scale) {
   using L = Layout<DH>;
   constexpr int NST = L::NST;
@@ -726,7 +901,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t col = (kk * 32 / L::ROWB), byte = kk * 32 % L::ROWB;
-        wgmma_ss_n64(s, desc<DH>(q_s + col * L::QCHUNK + byte, 16,
+        wgmma_ss_n64<T>(s, desc<DH>(q_s + col * L::QCHUNK + byte, 16,
                                  8 * L::ROWB),
                      desc<DH>(k_s + col * L::CHUNK + c * 64 * L::ROWB + byte,
                               16, 8 * L::ROWB),
@@ -791,8 +966,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
         sum0 += p0 + p1;
         sum1 += p2 + p3;
         const uint32_t unit = (i ^ (rl & 7)) << 4;
-        st_shared_u32(prow + unit, pack_bf16(p0, p1));
-        st_shared_u32(prow + 8 * 128 + unit, pack_bf16(p2, p3));
+        st_shared_u32(prow + unit, pack2<T>(p0, p1));
+        st_shared_u32(prow + 8 * 128 + unit, pack2<T>(p2, p3));
       }
       // per-lane partial sums over this consumer's keys; the quad's lanes
       // and the two consumers are added at the end
@@ -813,7 +988,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BKT / 16; ++kk)
-        wgmma_ss_n128_tb(acc,
+        wgmma_ss_n128_tb<T>(acc,
                          desc<DH>(p_s + (kk / 4) * L::PCHUNK + kk % 4 * 32,
                                   16, 8 * 128),
                          desc<DH>(v_s + 2 * c * L::CHUNK + kk * 16 * L::ROWB,
@@ -838,19 +1013,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     const float d0 = fmaxf(red[rl] + red[L::QROWS + rl], 1e-30f);
     const float d1 = fmaxf(red[rl + 8] + red[L::QROWS + rl + 8], 1e-30f);
     const size_t q_row = static_cast<size_t>(H) * DH;
-    __nv_bfloat16* ob =
-        o + static_cast<size_t>(b) * S * q_row + h * DH + 128 * c + cq;
+    T* ob = o + static_cast<size_t>(b) * S * q_row + h * DH + 128 * c + cq;
     if (r0 < S) {
 #pragma unroll
       for (int i = 0; i < 16; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * q_row + 8 * i) =
-            __floats2bfloat162_rn(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+        store2<T>(ob + r0 * q_row + 8 * i, acc[4 * i] / d0,
+                  acc[4 * i + 1] / d0);
     }
     if (r0 + 8 < S) {
 #pragma unroll
       for (int i = 0; i < 16; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * q_row + 8 * i) =
-            __floats2bfloat162_rn(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
+        store2<T>(ob + (r0 + 8) * q_row + 8 * i, acc[4 * i + 2] / d1,
+                  acc[4 * i + 3] / d1);
     }
   } else {
     // ---- consumers: 64 query rows each ----
@@ -869,7 +1043,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
     float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
     float s[BKT / 2];
-    uint32_t pf[BKT / 4];   // p as bf16 pairs: the A fragments of P V
+    uint32_t pf[BKT / 4];   // p as T pairs: the A fragments of P V
 
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
@@ -885,7 +1059,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t off = (kk * 32 / L::ROWB) * L::CHUNK + kk * 32 % L::ROWB;
-        wgmma_ss_n128(s, desc<DH>(q_c + off, 16, 8 * L::ROWB),
+        wgmma_ss_n128<T>(s, desc<DH>(q_c + off, 16, 8 * L::ROWB),
                       desc<DH>(k_s + off, 16, 8 * L::ROWB), kk > 0);
       }
       wg_commit();
@@ -936,8 +1110,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
         const float p3 = exp2f((s[4 * i + 3] - mn1) * LOG2E);
         sum0 += p0 + p1;
         sum1 += p2 + p3;
-        pf[2 * i] = pack_bf16(p0, p1);
-        pf[2 * i + 1] = pack_bf16(p2, p3);
+        pf[2 * i] = pack2<T>(p0, p1);
+        pf[2 * i + 1] = pack2<T>(p2, p3);
       }
       // per-lane partial sums; the quad's lanes are added at the end
       l0 = a0 * l0 + sum0;
@@ -955,7 +1129,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BKT / 16; ++kk)
-        wgmma_pv<DH>(acc, &pf[4 * kk],
+        wgmma_rs<T, DH>(acc, &pf[4 * kk],
                      desc<DH>(v_s + kk * 16 * L::ROWB, L::CHUNK,
                               8 * L::ROWB));
       wg_commit();
@@ -971,18 +1145,277 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
     const size_t q_row = static_cast<size_t>(H) * DH;
-    __nv_bfloat16* ob = o + static_cast<size_t>(b) * S * q_row + h * DH + cq;
+    T* ob = o + static_cast<size_t>(b) * S * q_row + h * DH + cq;
     if (r0 < S) {
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * q_row + 8 * i) =
-            __floats2bfloat162_rn(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+        store2<T>(ob + r0 * q_row + 8 * i, acc[4 * i] / d0,
+                  acc[4 * i + 1] / d0);
     }
     if (r0 + 8 < S) {
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * q_row + 8 * i) =
-            __floats2bfloat162_rn(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
+        store2<T>(ob + (r0 + 8) * q_row + 8 * i, acc[4 * i + 2] / d1,
+                  acc[4 * i + 3] / d1);
+    }
+  }
+}
+
+// Past dh 256 (dh a multiple of 64, zero-padded by the wrapper) the split
+// layout above no longer fits: at dh 384 its Q, K and V tiles and P take
+// 273 KB.  So the output's columns are split over a third grid dimension,
+// WIDE_GROUP = 256 columns a block, and each block of 64 query rows:
+// - forms S = Q K^T over the whole head dim from 64-column sub-tiles (one
+//   128-byte row chunk, the 128-byte-swizzle box) of Q and of the tile's K,
+//   which the producer streams through a ring of WIDE_NSUB stages; wgmma
+//   accumulates S across the sub-tiles, consumer c on keys [64c, 64c + 64)
+//   as in the split layout;
+// - forms p as the split layout does (the row maxima cross through shared
+//   memory, P crosses whole as bf16 / f16) and multiplies it by its own
+//   group's columns of V, consumer c on columns [128c, 128c + 128) of the
+//   group.  Columns past dh are not loaded and not stored; a consumer with
+//   none left skips its P V.
+// Every column group's block issues the same S products in the same order,
+// so every group rounds p at the same running max, once, as the TPU
+// kernel's tile does; the QK^T products are repeated once per group
+// (ceil(dh / 256) times).  Shared memory: the ring 4 x (Q 8 KB + K 16 KB),
+// V 64 KB, P 16 KB, barriers and the row maxima: 181,840 bytes.
+constexpr int WIDE_GROUP = 256;
+constexpr int WIDE_NSUB = 4;
+constexpr int WIDE_ROWS = 64;                     // query rows of a block
+constexpr int WIDE_QSUB = WIDE_ROWS * 128;        // a Q sub-tile's bytes
+constexpr int WIDE_KSUB = BKT * 128;              // a K sub-tile's bytes
+constexpr int WIDE_STAGE = WIDE_QSUB + WIDE_KSUB;
+constexpr int WIDE_VCHUNK = BKT * 128;            // 64 columns of V
+constexpr int WIDE_V_OFF = WIDE_NSUB * WIDE_STAGE;
+constexpr int WIDE_P_OFF = WIDE_V_OFF + 4 * WIDE_VCHUNK;
+constexpr int WIDE_PCHUNK = WIDE_ROWS * 128;
+// barriers: full and empty per ring stage, V full, V empty
+constexpr int WIDE_BAR_OFF = WIDE_P_OFF + 2 * WIDE_PCHUNK;
+constexpr int WIDE_RED_OFF = WIDE_BAR_OFF + 8 * (2 * WIDE_NSUB + 2);
+constexpr int WIDE_SMEM = 1024 + WIDE_RED_OFF + 2 * WIDE_ROWS * 4;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_wide_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S, int H,
+    int Hkv, int dh, int bk, int causal, int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + WIDE_BAR_OFF;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (WIDE_NSUB + st); };
+  const uint32_t v_full = bars + 8 * (2 * WIDE_NSUB);
+  const uint32_t v_empty = v_full + 8;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WIDE_ROWS;  // heaviest first
+  const int g0 = blockIdx.z * WIDE_GROUP;   // the group's first column
+  const int nsub = dh / 64;
+
+  const int q_last = min(q0 + WIDE_ROWS, S) - 1;
+  int kt_end = S / bk;
+  if (causal) kt_end = min(kt_end, q_last / bk + 1);
+  int kt_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / bk;
+  const int n_tiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < WIDE_NSUB; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 2);
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      // the group's 64-column chunks of V that hold columns of the head
+      const int v_chunks = min(4, (dh - g0) / 64);
+      int it = 0;   // sub-tiles issued
+      for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = (kt_begin + j) * bk;
+        for (int d = 0; d < nsub; ++d, ++it) {
+          const int st = it % WIDE_NSUB;
+          const uint32_t dst = base + st * WIDE_STAGE;
+          mbar_wait(empty(st), ((it / WIDE_NSUB) & 1) ^ 1);
+          mbar_expect_tx(full(st), WIDE_STAGE);
+          tma_load(dst, &tq, full(st), 64 * d, h, q0, b);
+          tma_load(dst + WIDE_QSUB, &tk, full(st), 64 * d, hk, k0, b);
+        }
+        mbar_wait(v_empty, (j & 1) ^ 1);
+        mbar_expect_tx(v_full, v_chunks * WIDE_VCHUNK);
+        for (int ch = 0; ch < v_chunks; ++ch)
+          tma_load(base + WIDE_V_OFF + ch * WIDE_VCHUNK, &tv, v_full,
+                   g0 + 64 * ch, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- both consumers on the block's 64 query rows (see above) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int rl = 16 * (t >> 5) + (lane >> 2);   // local rows rl, rl + 8
+    const int r0 = q0 + rl;
+    const int cq = 2 * (lane & 3);
+    const int row_first = q0;
+    const int row_last = q0 + WIDE_ROWS - 1;
+    const int col0 = g0 + 128 * c;            // this consumer's columns
+    const bool has_cols = col0 < dh;
+    const uint32_t p_s = base + WIDE_P_OFF;
+    const uint32_t v_s = base + WIDE_V_OFF;
+    float* red = reinterpret_cast<float*>(
+        smem_raw + (base - smem_u32(smem_raw)) + WIDE_RED_OFF);
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+    float s[32];
+
+    int it = 0;   // sub-tiles consumed
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = (kt_begin + j) * bk;
+
+      // S = Q K^T on this consumer's 64 keys, 4 k-steps a sub-tile
+      for (int d = 0; d < nsub; ++d, ++it) {
+        const int st = it % WIDE_NSUB;
+        const uint32_t q_sub = base + st * WIDE_STAGE;
+        const uint32_t k_sub = q_sub + WIDE_QSUB + c * 64 * 128;
+        mbar_wait(full(st), (it / WIDE_NSUB) & 1);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64<T>(s, desc<256>(q_sub + kk * 32, 16, 8 * 128),
+                          desc<256>(k_sub + kk * 32, 16, 8 * 128),
+                          d > 0 || kk > 0);
+        wg_commit();
+        wg_wait_all();
+        pin(s);
+        if (t == 0) mbar_arrive(empty(st));   // the sub-tile is read
+      }
+
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+      const bool edge = bk < BKT || (causal && k0 + bk - 1 > row_first) ||
+                        (window > 0 && k0 <= row_last - window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 64 * c + 8 * (i / 4) + cq + (i & 1);
+          const int qpos = r0 + 8 * ((i >> 1) & 1);
+          const int kpos = k0 + col;
+          const bool visible = (!causal || kpos <= qpos) &&
+                               (window == 0 || kpos > qpos - window);
+          s[i] = col >= bk ? -INFINITY : (visible ? s[i] : MASKED);
+        }
+      }
+
+      // the row max over this consumer's keys, then over the other's
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      if ((lane & 3) == 0) {
+        red[c * WIDE_ROWS + rl] = mx0;
+        red[c * WIDE_ROWS + rl + 8] = mx1;
+      }
+      consumers_sync();   // both consumers' maxima are in
+      mx0 = fmaxf(mx0, red[(1 - c) * WIDE_ROWS + rl]);
+      mx1 = fmaxf(mx1, red[(1 - c) * WIDE_ROWS + rl + 8]);
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f((m0 - mn0) * LOG2E);
+      const float a1 = exp2f((m1 - mn1) * LOG2E);
+      m0 = mn0;
+      m1 = mn1;
+      // p, rounded to T into P's chunk c, swizzled as in the split layout
+      float sum0 = 0.f, sum1 = 0.f;
+      const uint32_t prow = p_s + c * WIDE_PCHUNK + rl * 128 + 2 * cq;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p0 = exp2f((s[4 * i] - mn0) * LOG2E);
+        const float p1 = exp2f((s[4 * i + 1] - mn0) * LOG2E);
+        const float p2 = exp2f((s[4 * i + 2] - mn1) * LOG2E);
+        const float p3 = exp2f((s[4 * i + 3] - mn1) * LOG2E);
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        const uint32_t unit = (i ^ (rl & 7)) << 4;
+        st_shared_u32(prow + unit, pack2<T>(p0, p1));
+        st_shared_u32(prow + 8 * 128 + unit, pack2<T>(p2, p3));
+      }
+      l0 = a0 * l0 + sum0;
+      l1 = a1 * l1 + sum1;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        acc[4 * i] *= a0;
+        acc[4 * i + 1] *= a0;
+        acc[4 * i + 2] *= a1;
+        acc[4 * i + 3] *= a1;
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      consumers_sync();   // P is whole
+
+      // O[:, col0 .. col0 + 127] += P V[:, col0 ..], 8 k-steps of 16 keys
+      mbar_wait(v_full, j & 1);
+      if (has_cols) {
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKT / 16; ++kk)
+          wgmma_ss_n128_tb<T>(
+              acc,
+              desc<256>(p_s + (kk / 4) * WIDE_PCHUNK + kk % 4 * 32, 16,
+                        8 * 128),
+              desc<256>(v_s + 2 * c * WIDE_VCHUNK + kk * 16 * 128,
+                        WIDE_VCHUNK, 8 * 128));
+        wg_commit();
+        wg_wait_all();
+        pin(acc);
+      }
+      if (t == 0) mbar_arrive(v_empty);   // V read: it may be refilled
+    }
+
+    // l: the quad's lanes, then the two consumers' parts, in that order
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    if ((lane & 3) == 0) {
+      red[c * WIDE_ROWS + rl] = l0;
+      red[c * WIDE_ROWS + rl + 8] = l1;
+    }
+    consumers_sync();
+    const float d0 = fmaxf(red[rl] + red[WIDE_ROWS + rl], 1e-30f);
+    const float d1 = fmaxf(red[rl + 8] + red[WIDE_ROWS + rl + 8], 1e-30f);
+    const size_t q_row = static_cast<size_t>(H) * dh;
+    T* ob = o + static_cast<size_t>(b) * S * q_row + h * dh + col0 + cq;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (col0 + 8 * i >= dh) break;
+      if (r0 < S)
+        store2<T>(ob + r0 * q_row + 8 * i, acc[4 * i] / d0,
+                  acc[4 * i + 1] / d0);
+      if (r0 + 8 < S)
+        store2<T>(ob + (r0 + 8) * q_row + 8 * i, acc[4 * i + 2] / d1,
+                  acc[4 * i + 3] / d1);
     }
   }
 }
@@ -1014,52 +1447,79 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a (B, S, heads, dh) bf16 tensor, innermost first: (dh, heads,
-// S, B); the box is one ROWB-byte chunk of a head's row, `rows` rows.
-template <int DH>
+// The map of a (B, S, heads, dh) tensor of T, innermost first: (dh, heads,
+// S, B); the box is one rowb-byte chunk of a head's row, `rows` rows.
+template <typename T>
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
-                  int B, int S, int heads, int rows) {
-  using L = Layout<DH>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                  int B, int S, int heads, int dh, int rows, int rowb) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = 2ull * DH;
+  const cuuint64_t row = 2ull * dh;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {L::ROWB / 2, 1, static_cast<cuuint32_t>(rows),
-                             1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(rowb / 2), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, one,
+  return encode(map,
+                kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(ptr), dims, strides, box, one,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
+                rowb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DH>
+template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int bk, int causal, int window, float scale,
            int smem, cudaStream_t stream) {
-  if (smem != Layout<DH>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  using L = Layout<DH>;
+  if (smem != L::SMEM) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (make_map<DH>(&tq, encode, q, B, S, H, Layout<DH>::QROWS) !=
+  if (make_map<T>(&tq, encode, q, B, S, H, DH, L::QROWS, L::ROWB) !=
           CUDA_SUCCESS ||
-      make_map<DH>(&tk, encode, k, B, S, Hkv, BKT) != CUDA_SUCCESS ||
-      make_map<DH>(&tv, encode, v, B, S, Hkv, BKT) != CUDA_SUCCESS)
+      make_map<T>(&tk, encode, k, B, S, Hkv, DH, BKT, L::ROWB) !=
+          CUDA_SUCCESS ||
+      make_map<T>(&tv, encode, v, B, S, Hkv, DH, BKT, L::ROWB) !=
+          CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_attention_tc_kernel<DH>;
+  auto kern = flash_attention_tc_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int QROWS = Layout<DH>::QROWS;
-  const dim3 grid(B * H, (S + QROWS - 1) / QROWS);
-  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv,
-                                        static_cast<__nv_bfloat16*>(o), S, H,
+  const dim3 grid(B * H, (S + L::QROWS - 1) / L::QROWS);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H,
                                         Hkv, bk, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int dh, int bk, int causal, int window,
+                float scale, int smem, cudaStream_t stream) {
+  if (smem != WIDE_SMEM || dh % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (make_map<T>(&tq, encode, q, B, S, H, dh, WIDE_ROWS, 128) !=
+          CUDA_SUCCESS ||
+      make_map<T>(&tk, encode, k, B, S, Hkv, dh, BKT, 128) != CUDA_SUCCESS ||
+      make_map<T>(&tv, encode, v, B, S, Hkv, dh, BKT, 128) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_attention_tc_wide_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + WIDE_ROWS - 1) / WIDE_ROWS,
+                  (dh + WIDE_GROUP - 1) / WIDE_GROUP);
+  kern<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H,
+                                        Hkv, dh, bk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1067,37 +1527,54 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-#define FLASH_DISPATCH(NS)                                                     \
-  switch (dh) {                                                                \
-    case 32:                                                                   \
-      return NS::launch<32>(q, k, v, o, B, S, H, Hkv, bk, causal, window,      \
-                            scale, smem, static_cast<cudaStream_t>(stream));   \
-    case 64:                                                                   \
-      return NS::launch<64>(q, k, v, o, B, S, H, Hkv, bk, causal, window,      \
-                            scale, smem, static_cast<cudaStream_t>(stream));   \
-    case 128:                                                                  \
-      return NS::launch<128>(q, k, v, o, B, S, H, Hkv, bk, causal, window,     \
-                             scale, smem, static_cast<cudaStream_t>(stream));  \
-    case 256:                                                                  \
-      return NS::launch<256>(q, k, v, o, B, S, H, Hkv, bk, causal, window,     \
-                             scale, smem, static_cast<cudaStream_t>(stream));  \
-    default:                                                                   \
-      return static_cast<int>(cudaErrorInvalidValue);                          \
+// The kernel of head dim dh for the tensor-core entry points: one of the
+// instantiations of 32, 64, 128 and 256, past 256 the column-split kernel.
+#define FLASH_DISPATCH(NS, WIDE, ...)                                         \
+  cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
+  switch (dh) {                                                               \
+    case 32:                                                                  \
+      return NS::launch<__VA_ARGS__ 32>(q, k, v, o, B, S, H, Hkv, bk, causal, \
+                                        window, scale, smem, st);             \
+    case 64:                                                                  \
+      return NS::launch<__VA_ARGS__ 64>(q, k, v, o, B, S, H, Hkv, bk, causal, \
+                                        window, scale, smem, st);             \
+    case 128:                                                                 \
+      return NS::launch<__VA_ARGS__ 128>(q, k, v, o, B, S, H, Hkv, bk,        \
+                                         causal, window, scale, smem, st);    \
+    case 256:                                                                 \
+      return NS::launch<__VA_ARGS__ 256>(q, k, v, o, B, S, H, Hkv, bk,        \
+                                         causal, window, scale, smem, st);    \
+    default:                                                                  \
+      if (dh > 256)                                                           \
+        return WIDE(q, k, v, o, B, S, H, Hkv, dh, bk, causal, window, scale,  \
+                    smem, st);                                                \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
   }
 
 // q (B, S, H, dh), k and v (B, S, Hkv, dh), o like q, all contiguous.  dh is
-// 32, 64, 128 or 256; bk = min(128, S) divides S; smem from the wrapper
-// (kernels/flash_attention/ops.py smem_bytes).  Launch on `stream`; returns
-// the CUDA error code (0 = launched).
+// 32, 64, 128 or 256, or past 256 any multiple of 64; bk = min(128, S)
+// divides S; smem from the wrapper (kernels/flash_attention/ops.py
+// smem_bytes).  Launch on `stream`; returns the CUDA error code (0 =
+// launched).
 //
-// bfloat16, on the tensor cores; the tensors 16-byte aligned (TMA).
+// bfloat16 and float16, on the tensor cores; the tensors 16-byte aligned
+// (TMA).
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int S, int H, int Hkv, int dh,
                                            int bk, int causal, int window,
                                            float scale, int smem,
                                            void* stream) {
-  FLASH_DISPATCH(tc)
+  FLASH_DISPATCH(tc, tc::launch_wide<__nv_bfloat16>, __nv_bfloat16, )
+}
+
+extern "C" int flash_attention_f16_launch(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int S, int H, int Hkv, int dh,
+                                          int bk, int causal, int window,
+                                          float scale, int smem,
+                                          void* stream) {
+  FLASH_DISPATCH(tc, tc::launch_wide<__half>, __half, )
 }
 
 // float32, on the CUDA cores.
@@ -1107,5 +1584,5 @@ extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
                                            int bk, int causal, int window,
                                            float scale, int smem,
                                            void* stream) {
-  FLASH_DISPATCH(fp32)
+  FLASH_DISPATCH(fp32, fp32::launch_wide, )
 }

@@ -52,11 +52,17 @@
 //     rows, which add nothing to any product.
 //   * Head sizes: every multiple of 16 whose state-pass block fits shared
 //     memory, 16 to 192 (WKV6_HEAD_SIZES), on the one-block passes; every
-//     multiple of 16 from 208 to 1024 on the cluster passes below, which
-//     split a head's channels and state rows over a cluster of blocks.  The
-//     wrapper zero-pads any other head up to 1024 (rwkv6/ops.py pad_heads,
-//     w padded with 1): to a multiple of 16 up to 256, of 64 above.
+//     multiple of 16 past 192 on the cluster passes below, which split a
+//     head's channels and state rows over a cluster of blocks (past 1024
+//     over several clusters, whose parts a third launch adds).  The wrapper
+//     zero-pads any other head (rwkv6/ops.py pad_heads, w padded with 1): to
+//     a multiple of 16 up to 256, of 64 above.
+//   * Element types: float32, bfloat16 and float16 in and out (the state
+//     and every intermediate float32), one instantiation of each kernel per
+//     type; the wrapper casts w and u to r's type, as the TPU kernel's
+//     wrapper does.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -500,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// heads of 208 to 1024: both passes split over a thread-block cluster
+// heads past 192: both passes split over thread-block clusters
 // ---------------------------------------------------------------------------
 //
 // Past N 192 neither pass fits one block: the state pass's ring and state
@@ -511,7 +517,22 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_kernel(
 // or R rows of the state, [g R, g R + R); channels and rows from N to G R
 // are zero and add nothing.  R is a template argument (R = 64: clusters of
 // 4 to 16 blocks), N a launch argument, so one instantiation serves every
-// head size of the range.
+// head size.
+//
+// Past N 1024 a problem takes more than the card's largest cluster (16
+// blocks).  Its R-row blocks are then split over NC = ceil(N / 1024)
+// clusters of G = ceil(ceil(N / R) / NC) blocks, global block cl G + g
+// owning rows [(cl G + g) R, ...).  Nothing in the chain needs another
+// cluster: S = diag(decay) (S + k~^T v) is elementwise in S's rows, so each
+// block runs its rows' chain alone, and only sums over channels or rows
+// cross blocks.  Cluster cl adds its blocks' parts of A and sum(r u k) as
+// above and forms its part of the chunk's own output, y_cl = A_cl v +
+// sum_cl(r u k) v (the products are linear in the parts), for every value
+// column; in the state pass it adds its blocks' parts of r~ S and y_cl and
+// writes that float32 part of out to global memory.  A third launch
+// (wkv6_add_parts_kernel) adds the NC parts in cluster order and rounds
+// out: no atomics, so a call gives the same bits every time.  With NC = 1
+// every index below is the single cluster's.
 //
 // The chunk pass: block g scans its channels (r~, k~, the decay), forms its
 // part of A = strict_tril(r~ k~^T) and of sum(r u k) over them, and writes
@@ -528,7 +549,6 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_kernel(
 // parts are double-buffered, so one cluster barrier a link suffices.
 
 constexpr int kClusterRows = 64;     // R of the instantiation
-constexpr int kClusterMaxN = 1024;   // G <= 16, the card's largest cluster
 
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
@@ -544,28 +564,35 @@ __device__ __forceinline__ float ld_cluster(const float* local, int rank) {
   return x;
 }
 
-// Scratch per (batch * head, chunk), fp32, for heads split in blocks of R:
-// r~ by row block (G blocks of kCp x (R + 4)); for each group of kMb value
-// columns, y (kCp x kMb) then k~^T v (G R x kMb, row block g at rows
-// [g R, g R + R)); the decay (G R).
+// A problem's split for heads in blocks of R rows: NC clusters (nc) of G
+// blocks (g), nc g row blocks in all.  Scratch per (batch * head, chunk),
+// fp32: r~ by row block (nc g blocks of kCp x (R + 4)); for each group of
+// kMb value columns, each cluster's y_cl (nc x kCp x kMb) then k~^T v (nc g
+// R x kMb, row block b at rows [b R, b R + R)); the decay (nc g R).
 template <int R>
 struct ClusterScratch {
   static constexpr int kLdK = R + 4;
   static constexpr int kRtFloats = kCp * kLdK;   // one row block's r~
-  int n, g, np;
+  int n, nc, g, np;
   __host__ __device__ explicit ClusterScratch(int n_)
-      : n(n_), g((n_ + R - 1) / R), np(g * R) {}
-  __host__ __device__ int group0() const { return g * kRtFloats; }
-  __host__ __device__ int group_floats() const { return (kCp + np) * kMb; }
+      : n(n_),
+        nc(((n_ + R - 1) / R + kMaxCluster - 1) / kMaxCluster),
+        g(((n_ + R - 1) / R + nc - 1) / nc),
+        np(nc * g * R) {}
+  __host__ __device__ int group0() const { return nc * g * kRtFloats; }
+  __host__ __device__ int group_floats() const {
+    return (nc * kCp + np) * kMb;
+  }
   __host__ __device__ int dec() const {
     return group0() + (n / kMb) * group_floats();
   }
   __host__ __device__ int floats() const { return dec() + np; }
-  __device__ int y(int t, int m) const {
-    return group0() + (m / kMb) * group_floats() + t * kMb + m % kMb;
+  __device__ int y(int cl, int t, int m) const {
+    return group0() + (m / kMb) * group_floats() + (cl * kCp + t) * kMb +
+           m % kMb;
   }
   __device__ int kv(int row, int m) const {
-    return group0() + (m / kMb) * group_floats() + (kCp + row) * kMb +
+    return group0() + (m / kMb) * group_floats() + (nc * kCp + row) * kMb +
            m % kMb;
   }
 };
@@ -610,7 +637,9 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
   const int warp = tid >> 5, lane = tid & 31;
   const int rank = cluster_rank();
   const int n_chunks = S / C;
-  const int prob = blockIdx.x / sc.g;   // (batch * head, chunk)
+  const int prob = blockIdx.x / (sc.nc * sc.g);   // (batch * head, chunk)
+  const int cl = blockIdx.x / sc.g % sc.nc;       // the problem's cluster
+  const int gb = cl * sc.g + rank;                // the problem's row block
   const int bh = prob / n_chunks;
   const int ci = prob - bh * n_chunks;
   const int b = bh / H;
@@ -620,7 +649,7 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
       (static_cast<size_t>(b) * S + static_cast<size_t>(ci) * C) * row +
       h * N;
   float* out = scratch + static_cast<size_t>(prob) * sc.floats();
-  const int c0 = rank * R;  // this block's first channel
+  const int c0 = gb * R;  // this block's first channel
 
   // -- 1. a channel and a part of the chunk per thread: the inputs, the
   //    running sum of log-decays, r u k ---------------------------------
@@ -662,7 +691,7 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
       const float rtv = in ? rv[i] * expf(lpt - lw[i]) : 0.0f;
       rt[t * kLdK + n] = rtv;
       kt[t * kLdK + n] = in ? kv[i] * expf(-lpt) : 0.0f;
-      out[rank * sc.kRtFloats + t * kLdK + n] = rtv;
+      out[gb * sc.kRtFloats + t * kLdK + n] = rtv;
       if (t == C - 1) out[sc.dec() + ng] = expf(lpt);
     }
   }
@@ -693,7 +722,8 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
   }
   cluster_barrier();  // every block's parts are in its shared memory
 
-  // -- 4. A and sum(r u k): the G blocks' parts added in rank order --------
+  // -- 4. A and sum(r u k) (the cluster's part of them past 1024): the G
+  //    blocks' parts added in rank order -----------------------------------
   for (int idx = tid; idx < kCp * kCp + kCp; idx += kThreads) {
     const bool in_a = idx < kCp * kCp;
     const int t = idx / kCp, s = idx - t * kCp;
@@ -709,9 +739,11 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
 
   // -- 5. v in tiles of R value columns: k~^T v on this block's rows for
   //    every tile (a warp takes a column tile of 8 and the R / 16 row tiles
-  //    that share it); y = A v + sum(r u k) v on the tile of its rank ------
+  //    that share it); the cluster's y = A v + sum(r u k) v on the tiles j
+  //    with j % G == rank ----------------------------------------------------
   constexpr int kRowTiles = R / 16;
-  for (int j = 0; j < sc.g; ++j) {
+  const int v_tiles = (N + R - 1) / R;
+  for (int j = 0; j < v_tiles; ++j) {
     const int m0 = j * R;
     for (int idx = tid; idx < kCp * R; idx += kThreads) {
       const int t = idx / R, m = idx - t * R;
@@ -732,7 +764,7 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
           if (m < N) out[sc.kv(c0 + i * 16 + frag_row(lane, e), m)] = d[i][e];
         }
     }
-    if (j == rank) {
+    if (j % sc.g == rank) {
       for (int mt = warp; mt < R / 8; mt += kWarps) {
         float d[2][4] = {};
         tiles_3xtf32<2, false, false>(d, a_s, 16 * kLdA, kLdA, vt + mt * 8,
@@ -744,7 +776,8 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_cluster_kernel(
             const int t = i * 16 + frag_row(lane, e);
             const int ml = mt * 8 + frag_col(lane, e);
             if (m0 + ml < N)
-              out[sc.y(t, m0 + ml)] = d[i][e] + dg[t] * vt[t * kLdV + ml];
+              out[sc.y(cl, t, m0 + ml)] =
+                  d[i][e] + dg[t] * vt[t * kLdV + ml];
           }
       }
     }
@@ -768,11 +801,14 @@ struct StateClusterSmem {
   static constexpr int kBytes = 4 * kFloats + 8 * kStages;
 };
 
+// Past 1024 (NC > 1) a cluster writes its float32 part of out to `parts`
+// (NC x the output's B S H N elements, `total`) instead of out.
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
     const float* __restrict__ scratch, const float* __restrict__ s0,
-    T* __restrict__ out, float* __restrict__ s_fin,
-    int* __restrict__ block_sm, int S, int H, int N, int C) {
+    T* __restrict__ out, float* __restrict__ parts_out,
+    float* __restrict__ s_fin, int* __restrict__ block_sm, int S, int H,
+    int N, int C, long long total) {
   using L = StateClusterSmem<R>;
   constexpr int kLdK = L::kLdK;
   const ClusterScratch<R> sc(N);
@@ -786,13 +822,15 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
   const int warp = tid >> 5, lane = tid & 31;
   const int rank = cluster_rank();
   const int groups = N / kMb;
-  const int prob = blockIdx.x / sc.g;   // (batch * head, value group)
+  const int prob = blockIdx.x / (sc.nc * sc.g);  // (batch * head, group)
+  const int cl = blockIdx.x / sc.g % sc.nc;      // the problem's cluster
+  const int gb = cl * sc.g + rank;               // the problem's row block
   const int grp = prob % groups;
   const int bh = prob / groups;
   const int b = bh / H;
   const int h = bh - b * H;
   const int m0 = grp * kMb;
-  const int n0 = rank * R;  // this block's first row of S
+  const int n0 = gb * R;  // this block's first row of S
   const int n_chunks = S / C;
   const size_t row = static_cast<size_t>(H) * N;  // a token's stride
   const size_t base = static_cast<size_t>(b) * S * row + h * N + m0;
@@ -832,10 +870,10 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
     constexpr int kDecBytes = 4 * R;
     unsigned long long* landed = &bar[ci % kStages];
     mbar_expect(landed, kRtBytes + kYBytes + kKvBytes + kDecBytes);
-    bulk_copy(dst, src + rank * sc.kRtFloats, kRtBytes, landed);
-    bulk_copy(dst + kCp * kLdK, grp_src, kYBytes, landed);
-    bulk_copy(dst + kCp * kLdK + kCp * kMb, grp_src + (kCp + n0) * kMb,
-              kKvBytes, landed);
+    bulk_copy(dst, src + gb * sc.kRtFloats, kRtBytes, landed);
+    bulk_copy(dst + kCp * kLdK, grp_src + cl * kCp * kMb, kYBytes, landed);
+    bulk_copy(dst + kCp * kLdK + kCp * kMb,
+              grp_src + (sc.nc * kCp + n0) * kMb, kKvBytes, landed);
     bulk_copy(dst + kCp * kLdK + kCp * kMb + R * kMb, src + sc.dec() + n0,
               kDecBytes, landed);
   };
@@ -871,15 +909,19 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
       }
     }
     cluster_barrier();  // every block's part of this link is written
-    // out = the G parts in rank order + y, spread over the first blocks
+    // out (past 1024 the cluster's part of it) = the G parts in rank
+    // order + y, spread over the first blocks
     for (int o = rank * kThreads + tid; o < kCp * kMb;
          o += sc.g * kThreads) {
       const int t = o / kMb, m = o - t * kMb;
       if (t < C) {
         float acc = 0.0f;
         for (int gg = 0; gg < sc.g; ++gg) acc += ld_cluster(part + o, gg);
-        out[base + (static_cast<size_t>(ci) * C + t) * row + m] =
-            from_f<T>(acc + ys[o]);
+        const size_t at = base + (static_cast<size_t>(ci) * C + t) * row + m;
+        if (sc.nc == 1)
+          out[at] = from_f<T>(acc + ys[o]);
+        else
+          parts_out[cl * total + at] = acc + ys[o];
       }
     }
   }
@@ -889,6 +931,20 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_state_cluster_kernel(
     const int n = idx / kMb, m = idx - n * kMb;
     if (n0 + n < N) s_fin[sbase + (n0 + n) * N + m0 + m] = fin[n * kLdY + m];
   }
+}
+
+// out = the NC clusters' float32 parts added in cluster order, rounded to
+// T; one thread an element.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wkv6_add_parts_kernel(
+    const float* __restrict__ parts, T* __restrict__ out, long long total,
+    int nc) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  float acc = parts[i];
+  for (int cl = 1; cl < nc; ++cl) acc += parts[cl * total + i];
+  out[i] = from_f<T>(acc);
 }
 
 template <typename T, int R>
@@ -902,7 +958,8 @@ int launch_chunk_cluster(const void* r, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  fill_cluster_config(cfg, attr, B * H * (S / C), (N + R - 1) / R, kThreads,
+  const ClusterScratch<R> sc(N);
+  fill_cluster_config(cfg, attr, B * H * (S / C) * sc.nc, sc.g, kThreads,
                       smem, stream);
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(r),
                            static_cast<const T*>(k), static_cast<const T*>(v),
@@ -914,31 +971,43 @@ int launch_chunk_cluster(const void* r, const void* k, const void* v,
 
 template <typename T, int R>
 int launch_state_cluster(const float* scratch, const float* s0, void* out,
-                         float* s_fin, int* block_sm, int B, int S, int H,
-                         int N, int C, cudaStream_t stream) {
+                         float* parts, float* s_fin, int* block_sm, int B,
+                         int S, int H, int N, int C, cudaStream_t stream) {
   constexpr int smem = StateClusterSmem<R>::kBytes;
   static_assert(smem <= kSmemMax, "state pass over shared memory");
-  const int g = (N + R - 1) / R;
-  const int clusters = B * H * (N / kMb);
+  const ClusterScratch<R> sc(N);
+  if (sc.nc > 1 && parts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int clusters = B * H * (N / kMb) * sc.nc;
+  const long long total = static_cast<long long>(B) * S * H * N;
   auto kernel = wkv6_state_cluster_kernel<T, R>;
   cudaError_t err = set_cluster_attributes(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // -1 where no block wrote its SM: the record counts the blocks that ran
-  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * clusters * g, stream);
+  err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * clusters * sc.g,
+                        stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  fill_cluster_config(cfg, attr, clusters, g, kThreads, smem, stream);
+  fill_cluster_config(cfg, attr, clusters, sc.g, kThreads, smem, stream);
   err = cudaLaunchKernelEx(&cfg, kernel, scratch, s0, static_cast<T*>(out),
-                           s_fin, block_sm, S, H, N, C);
+                           parts, s_fin, block_sm, S, H, N, C, total);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// a head the one-block passes do not take, which the cluster passes do
-bool cluster_head(int N) {
-  return N > 192 && N <= kClusterMaxN && N % kMb == 0;
+template <typename T>
+int launch_add_parts(const float* parts, void* out, long long total, int nc,
+                     cudaStream_t stream) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  wkv6_add_parts_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             stream>>>(parts, static_cast<T*>(out), total,
+                                       nc);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// a head the one-block passes do not take, which the cluster passes do
+bool cluster_head(int N) { return N > 192 && N % kMb == 0; }
 
 template <typename T, int N>
 int launch_chunk(const void* r, const void* k, const void* v, const void* w,
@@ -995,8 +1064,8 @@ int chunk_n(const void* r, const void* k, const void* v, const void* w,
 }
 
 template <typename T>
-int state_n(const float* scratch, const float* s0, void* out, float* s_fin,
-            int* block_sm, int B, int S, int H, int N, int C,
+int state_n(const float* scratch, const float* s0, void* out, float* parts,
+            float* s_fin, int* block_sm, int B, int S, int H, int N, int C,
             cudaStream_t st) {
   switch (N) {
 #define WKV6_CASE(n)                                                     \
@@ -1008,48 +1077,75 @@ int state_n(const float* scratch, const float* s0, void* out, float* s_fin,
     default:
       if (cluster_head(N))
         return launch_state_cluster<T, kClusterRows>(
-            scratch, s0, out, s_fin, block_sm, B, S, H, N, C, st);
+            scratch, s0, out, parts, s_fin, block_sm, B, S, H, N, C, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// A call is two launches on `stream`, the chunk pass, then the state pass.
-// r, k, v, w, out (B, S, H, N) and u (H, N), contiguous and 16-byte
-// aligned, of one dtype: float32 (bf16 == 0) or bfloat16 (bf16 == 1); s0,
-// s_fin (B, H, N, N) float32.  N a multiple of 16 from 16 to 1024 (past
-// 192 on clusters of ceil(N / 64) blocks); C <= 32 divides S.  scratch:
-// float32, 16-byte aligned, of kernels/rwkv6/ops.py scratch_floats (Scratch
-// or ClusterScratch floats per (batch, head, chunk)), written by the chunk
-// pass and read by the state pass.  Both take 256 threads a block and
-// return the CUDA error code (0 = launched).
+// A call is two launches on `stream`, the chunk pass, then the state pass
+// (and past N 1024 a third, the add of the clusters' parts).  r, k, v, w,
+// out (B, S, H, N) and u (H, N), contiguous and 16-byte aligned, of one
+// dtype: float32 (dtype 0), bfloat16 (1) or float16 (2); s0, s_fin (B, H,
+// N, N) float32.  N a multiple of 16 (past 192 on clusters of up to 16
+// blocks of 64 rows, past 1024 on ceil(N / 1024) clusters a problem); C <=
+// 32 divides S.  scratch: float32, 16-byte aligned, of
+// kernels/rwkv6/ops.py scratch_floats (Scratch or ClusterScratch floats per
+// (batch, head, chunk)), written by the chunk pass and read by the state
+// pass; past 1024, parts: float32, NC x B S H N, written by the state pass
+// and read by the add.  All take 256 threads a block and return the CUDA
+// error code (0 = launched).
 
-// The chunk pass: B * H * S / C blocks (times the cluster's past 192).
+#define WKV6_BY_DTYPE(CALL)                                 \
+  switch (dtype) {                                          \
+    case 0:                                                 \
+      return CALL(float);                                   \
+    case 1:                                                 \
+      return CALL(__nv_bfloat16);                           \
+    case 2:                                                 \
+      return CALL(__half);                                  \
+    default:                                                \
+      return static_cast<int>(cudaErrorInvalidValue);       \
+  }
+
+// The chunk pass: B * H * S / C blocks (past 192 times the blocks of a
+// problem's clusters).
 extern "C" int wkv6_chunk_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, float* scratch,
-                                 int bf16, int B, int S, int H, int N, int C,
+                                 int dtype, int B, int S, int H, int N, int C,
                                  void* stream) {
   if (C < 1 || C > kCp || S % C)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return chunk_n<__nv_bfloat16>(r, k, v, w, u, scratch, B, S, H, N, C, st);
-  return chunk_n<float>(r, k, v, w, u, scratch, B, S, H, N, C, st);
+#define CHUNK_CALL(T) \
+  chunk_n<T>(r, k, v, w, u, scratch, B, S, H, N, C, st)
+  WKV6_BY_DTYPE(CHUNK_CALL)
+#undef CHUNK_CALL
 }
 
-// The state pass: B * H * N / 16 blocks, times the cluster's past 192
-// (ops.grid_blocks); block_sm, as many ints, gets the SM id each block ran
-// on (-1 where none ran).
+// The state pass: B * H * N / 16 blocks, past 192 times the blocks of a
+// problem's clusters (ops.grid_blocks); block_sm, as many ints, gets the SM
+// id each block ran on (-1 where none ran).
 extern "C" int wkv6_state_launch(const float* scratch, const float* s0,
-                                 void* out, float* s_fin, int* block_sm,
-                                 int bf16, int B, int S, int H, int N, int C,
-                                 void* stream) {
+                                 void* out, float* parts, float* s_fin,
+                                 int* block_sm, int dtype, int B, int S,
+                                 int H, int N, int C, void* stream) {
   if (C < 1 || C > kCp || S % C)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return state_n<__nv_bfloat16>(scratch, s0, out, s_fin, block_sm, B, S, H,
-                                  N, C, st);
-  return state_n<float>(scratch, s0, out, s_fin, block_sm, B, S, H, N, C, st);
+#define STATE_CALL(T) \
+  state_n<T>(scratch, s0, out, parts, s_fin, block_sm, B, S, H, N, C, st)
+  WKV6_BY_DTYPE(STATE_CALL)
+#undef STATE_CALL
+}
+
+// Past N 1024: out (B S H N elements, `total`) = the nc clusters' float32
+// parts added in cluster order.
+extern "C" int wkv6_add_launch(const float* parts, void* out, long long total,
+                               int nc, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ADD_CALL(T) launch_add_parts<T>(parts, out, total, nc, st)
+  WKV6_BY_DTYPE(ADD_CALL)
+#undef ADD_CALL
 }

@@ -5,20 +5,27 @@ and the ``ops.flash_attention`` wrapper).  :func:`flash_attention` takes the
 models' layout, ``q (B, S, H, dh)`` and ``k, v (B, S, Hkv, dh)``: on CUDA
 tensors one launch of a hand-written kernel of ``csrc/flash_attention.cu``
 (query head ``h`` reads KV head ``h // (H // Hkv)`` in place), picked by
-dtype: bfloat16 runs on the tensor cores (:func:`flash_attention_bf16_cuda`,
-wgmma fed by TMA), float32 on the CUDA cores
-(:func:`flash_attention_fp32_cuda`); any other dtype raises.  On CPU tensors
-it is the plain twin :func:`flash_attention_plain`, dense :func:`gqa_attend`
-under the same mask (the reference's ``ref.attention_ref`` after its
-wrapper's KV-head repeat).  :func:`flash_attention_tiled` walks the
-reference kernel's key tiles with its online softmax: a test oracle that
-rounds p where the kernels round it.
+dtype: bfloat16 and float16 run on the tensor cores
+(:func:`flash_attention_bf16_cuda`, :func:`flash_attention_f16_cuda`: wgmma
+fed by TMA, p rounded to the input's type), float32 on the CUDA cores
+(:func:`flash_attention_fp32_cuda`); any other dtype raises, as no Pallas
+kernel takes it on the card's path either.  On CPU tensors it is the plain
+twin :func:`flash_attention_plain`, dense :func:`gqa_attend` under the same
+mask (the reference's ``ref.attention_ref`` after its wrapper's KV-head
+repeat).  :func:`flash_attention_tiled` walks the reference kernel's key
+tiles with its online softmax: a test oracle that rounds p where the
+kernels round it.
 
 The key tile is the reference's ``min(128, S)`` and must divide ``S``, as
 the reference asserts; other lengths raise.  The kernels are built for
-head dims 32, 64, 128 and 256; the wrapper serves every dh up to 256 by
-zero padding to the next of those (:func:`pad_head_dim`), scaled by the
-caller's ``dh ** -0.5``.  A larger dh raises and launches nothing.
+head dims 32, 64, 128 and 256, and past 256 for any multiple of 64 (the
+column-split kernels: the output's columns in groups over a third grid
+dimension, each group's block forming the scores over the whole head
+dim); the wrapper serves every other dh by zero padding to the next of
+those (:func:`kernel_head_dim`, :func:`pad_head_dim`), scaled by the
+caller's ``dh ** -0.5``.  A call whose padded copies and output the card
+cannot hold raises with the byte count and launches nothing
+(``kernels.allocating``).
 
 The kernels are forward only: :func:`flash_attention` and the ``_cuda``
 entry points of both kernels raise when grad mode is on and an input
@@ -31,12 +38,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import SMEM_PER_BLOCK, refuse_grad
+from repro_torch.kernels import allocating, refuse_grad
 
 BLOCK = 128          # the reference's block_q = block_k
 FP32_BQ = 64         # query rows per block of the float32 kernel
-TC_MIN_SMEM = 120 * 1024   # one bfloat16 block per SM (see the .cu)
+TC_MIN_SMEM = 120 * 1024   # one tensor-core block per SM (see the .cu)
 KERNEL_DH = (32, 64, 128, 256)
+# past 256: head dims padded to a multiple of WIDE_STEP (one 128-byte row
+# chunk of a bf16 / f16 sub-tile); output columns a block, tensor cores
+# and CUDA cores
+WIDE_STEP = 64
+WIDE_GROUP = {"tc": 256, "fp32": 128}
+TC_DTYPES = (torch.bfloat16, torch.float16)
 NEG_INF = -1e30
 
 
@@ -52,20 +65,22 @@ def key_block(S: int) -> int:
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim the kernels run a head of ``dh`` at: the smallest of
-    :data:`KERNEL_DH` that holds it; ``ValueError`` over 256 (at the next
-    head dim of the layout, 320, the float32 kernel's Q, K/V tile and p
-    would not fit one block's shared memory, :func:`smem_bytes`)."""
+    :data:`KERNEL_DH` that holds it, past 256 the next multiple of
+    :data:`WIDE_STEP` (the column-split kernels)."""
     for d in KERNEL_DH:
         if d >= dh:
             return d
-    raise ValueError(f"flash_attention_cuda serves head dims up to "
-                     f"{KERNEL_DH[-1]} (the kernels' head dims {KERNEL_DH}), "
-                     f"got {dh}: at the next head dim of their layout, 320, "
-                     f"the float32 kernel's 64 query rows, one K/V tile of "
-                     f"128 rows and p would take "
-                     f"{4 * (FP32_BQ * 321 + BLOCK * 321 + FP32_BQ * 129)} "
-                     f"bytes of shared memory, over the {SMEM_PER_BLOCK}-"
-                     f"byte limit of one block")
+    return -(-dh // WIDE_STEP) * WIDE_STEP
+
+
+def column_groups(d: int, dtype: torch.dtype) -> int:
+    """Blocks a (batch, head, query block) takes at kernel head dim ``d``:
+    1 up to 256, past it one per :data:`WIDE_GROUP` output columns, each
+    repeating the score products over the whole head dim."""
+    if d <= KERNEL_DH[-1]:
+        return 1
+    group = WIDE_GROUP["tc" if dtype in TC_DTYPES else "fp32"]
+    return -(-d // group)
 
 
 def pad_head_dim(t, d: int):
@@ -79,15 +94,27 @@ def pad_head_dim(t, d: int):
 
 def smem_bytes(dh: int, dtype: torch.dtype) -> int:
     """Shared-memory bytes of one block of the kernel for ``dtype``.
-    bfloat16: 1024 bytes of alignment slack, the block's query rows (128;
-    64 at dh 256) and a ring of K and V tiles of 128 rows, bf16 (two
-    stages; one at dh 256, its K and V freed apart), at dh 256 the bf16 P
-    of its 64 rows and 128 keys, 8 bytes per barrier (Q, then K full, V
-    full and K/V empty per stage, and a V empty at one stage) and at dh
-    256 the two consumers' 64 row maxima; at least TC_MIN_SMEM.
+    bfloat16 and float16 (two bytes an element both): 1024 bytes of
+    alignment slack, the block's query rows (128; 64 at dh 256) and a ring
+    of K and V tiles of 128 rows (two stages; one at dh 256, its K and V
+    freed apart), at dh 256 the P of its 64 rows and 128 keys, 8 bytes per
+    barrier (Q, then K full, V full and K/V empty per stage, and a V empty
+    at one stage) and at dh 256 the two consumers' 64 row maxima; at least
+    TC_MIN_SMEM.  Past 256, the column-split kernel: a ring of 4 stages of
+    a 64-column sub-tile of Q (64 rows) and of K (128 rows), V's 256
+    columns of the tile, P, 10 barriers and the row maxima.
     float32: the 64 query rows, a K and a V tile (rows padded by one float;
-    one tile for both at dh 256) and the p tile."""
-    if dtype == torch.bfloat16:
+    one tile for both at dh 256) and the p tile; past 256, 64-column
+    sub-tiles of Q and K, 128 columns of V and the p tile."""
+    if dh > KERNEL_DH[-1]:
+        if dtype in TC_DTYPES:
+            q_sub, k_sub, p = 64 * 128, BLOCK * 128, 64 * BLOCK * 2
+            return (1024 + 4 * (q_sub + k_sub) + BLOCK * WIDE_GROUP["tc"] * 2
+                    + p + 8 * 10 + 2 * 64 * 4)
+        ds, gc = WIDE_STEP + 1, WIDE_GROUP["fp32"] + 1
+        return 4 * (FP32_BQ * ds + BLOCK * ds + BLOCK * gc
+                    + FP32_BQ * (BLOCK + 1))
+    if dtype in TC_DTYPES:
         split = dh > 128
         stages = 1 if split else 2
         q_rows = 64 if split else BLOCK
@@ -197,6 +224,7 @@ def _load():
     lib = build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.flash_attention_bf16_launch,
+               lib.flash_attention_f16_launch,
                lib.flash_attention_fp32_launch):
         if fn.argtypes is None:
             fn.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, i, p]
@@ -219,8 +247,8 @@ def _check(q, k, v):
 
 
 def _check_cuda(q, k, v, dtype):
-    """The checks of both kernels: shapes, CUDA tensors of ``dtype``, a
-    head dim up to 256; returns the key tile."""
+    """The checks of the kernels: shapes, CUDA tensors of ``dtype``;
+    returns the key tile."""
     bk = _check(q, k, v)
     refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
@@ -231,8 +259,16 @@ def _check_cuda(q, k, v, dtype):
         if t.dtype != dtype or t.device != dev:
             raise ValueError(f"{name}: expected {dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    kernel_head_dim(q.shape[3])
     return bk
+
+
+def call_bytes(q, k) -> int:
+    """Device bytes a call allocates: the output at the kernel's head dim
+    and, where dh is padded, the padded q, k and v."""
+    B, S, H, dh = q.shape
+    d = kernel_head_dim(dh)
+    padded = (B * S * (H + 2 * k.shape[2]) * d) if d != dh else 0
+    return q.element_size() * (B * S * H * d + padded)
 
 
 def _aligned(t):
@@ -243,12 +279,14 @@ def _aligned(t):
 
 def _launch(entry, q, k, v, bk, causal, sliding_window):
     """Launch ``entry`` on q, k, v padded to the kernel's head dim, scaled
-    by the caller's; the output sliced back to the caller's dh."""
+    by the caller's; the output sliced back to the caller's dh, and whether
+    the launch ran a column-split kernel (a head dim past 256)."""
     from repro_torch.kernels.build import check_launch
     B, S, H, dh = q.shape
     d = kernel_head_dim(dh)
-    q, k, v = (_aligned(pad_head_dim(t, d)) for t in (q, k, v))
-    out = torch.empty_like(q)
+    with allocating(entry, call_bytes(q, k), q.device):
+        q, k, v = (_aligned(pad_head_dim(t, d)) for t in (q, k, v))
+        out = torch.empty_like(q)
     lib = _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -257,48 +295,70 @@ def _launch(entry, q, k, v, bk, causal, sliding_window):
             H, k.shape[2], d, bk, int(causal), int(sliding_window),
             dh ** -0.5, smem_bytes(d, q.dtype), stream)
     check_launch(lib, err, entry)
-    return out if d == dh else out[..., :dh].contiguous()
+    return (out if d == dh else out[..., :dh].contiguous()), d > KERNEL_DH[-1]
+
+
+def _counted(wrapper, launched):
+    """Count one launch of ``wrapper``'s kernel (and, past a head dim of
+    256, of its column-split kernel) and return the output."""
+    out, split = launched
+    wrapper.launches += 1
+    wrapper.column_split_launches += split
+    return out
 
 
 def flash_attention_bf16_cuda(q, k, v, *, causal: bool = True,
                               sliding_window: int = 0):
     """One launch of the bfloat16 tensor-core kernel: grid (B * H,
-    ceil(S / 128)) (ceil(S / 64) at dh 256), a TMA producer and two wgmma
-    consumer warpgroups."""
+    ceil(S / 128)) (ceil(S / 64) from dh 256, times :func:`column_groups`
+    past it), a TMA producer and two wgmma consumer warpgroups."""
     bk = _check_cuda(q, k, v, torch.bfloat16)
-    out = _launch("flash_attention_bf16_launch", q, k, v, bk, causal,
-                  sliding_window)
-    flash_attention_bf16_cuda.launches += 1
-    return out
+    return _counted(flash_attention_bf16_cuda, _launch(
+        "flash_attention_bf16_launch", q, k, v, bk, causal, sliding_window))
 
 
 flash_attention_bf16_cuda.launches = 0
+flash_attention_bf16_cuda.column_split_launches = 0
+
+
+def flash_attention_f16_cuda(q, k, v, *, causal: bool = True,
+                             sliding_window: int = 0):
+    """One launch of the float16 instantiation of the tensor-core kernel
+    (the bfloat16 kernel's layouts and grid, p rounded to float16)."""
+    bk = _check_cuda(q, k, v, torch.float16)
+    return _counted(flash_attention_f16_cuda, _launch(
+        "flash_attention_f16_launch", q, k, v, bk, causal, sliding_window))
+
+
+flash_attention_f16_cuda.launches = 0
+flash_attention_f16_cuda.column_split_launches = 0
 
 
 def flash_attention_fp32_cuda(q, k, v, *, causal: bool = True,
                               sliding_window: int = 0):
     """One launch of the float32 CUDA-core kernel: grid (ceil(S / 64),
-    B * H)."""
+    B * H), times :func:`column_groups` past dh 256."""
     bk = _check_cuda(q, k, v, torch.float32)
-    out = _launch("flash_attention_fp32_launch", q, k, v, bk, causal,
-                  sliding_window)
-    flash_attention_fp32_cuda.launches += 1
-    return out
+    return _counted(flash_attention_fp32_cuda, _launch(
+        "flash_attention_fp32_launch", q, k, v, bk, causal, sliding_window))
 
 
 flash_attention_fp32_cuda.launches = 0
+flash_attention_fp32_cuda.column_split_launches = 0
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          sliding_window: int = 0):
-    """The kernel for q's dtype: bfloat16 on the tensor cores, float32 on
-    the CUDA cores; any other dtype raises and launches nothing."""
+    """The kernel for q's dtype: bfloat16 and float16 on the tensor cores,
+    float32 on the CUDA cores; any other dtype raises and launches
+    nothing."""
     kernels = {torch.bfloat16: flash_attention_bf16_cuda,
+               torch.float16: flash_attention_f16_cuda,
                torch.float32: flash_attention_fp32_cuda}
     if q.dtype not in kernels:
         _check(q, k, v)
-        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+        raise ValueError(f"flash_attention_cuda takes float32, bfloat16 or "
+                         f"float16, got {q.dtype}")
     return kernels[q.dtype](q, k, v, causal=causal,
                             sliding_window=sliding_window)
 

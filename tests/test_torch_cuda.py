@@ -22,6 +22,8 @@ from repro_torch.kernels.rwkv6 import ops as wops
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# the float16 twins' products accumulate in float32, as the kernels' do
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 @pytest.fixture
@@ -531,7 +533,10 @@ def _decay(rng, shape):
 # and 128 by the wrapper), causal and under a window; the wide heads: dh
 # 256 (the bf16 kernel's split consumers, the float32 kernel's one K/V
 # buffer) grouped and not, causal, windowed, non-causal and in one 40-key
-# tile, and 160 and 192 padded to 256
+# tile, and 160 and 192 padded to 256; past 256 the column-split kernels:
+# dh 320 (two groups of 256 columns on the tensor cores, the second with 64
+# columns; three of 128 on the CUDA cores), 384 non-causal, 512 under a
+# window, 576, 320 in one 40-key tile, and 300 padded to 320
 FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 64, 4, 4, 32, True, 0), (1, 96, 2, 1, 64, True, 0),
                (1, 256, 2, 2, 64, False, 0), (1, 40, 4, 2, 32, True, 0),
@@ -543,7 +548,17 @@ FLASH_CASES = [(2, 256, 4, 2, 64, True, 0), (2, 256, 4, 2, 128, True, 96),
                (1, 512, 12, 2, 128, True, 0), (1, 512, 16, 16, 64, True, 0),
                (1, 256, 4, 2, 256, True, 0), (1, 384, 4, 4, 256, True, 100),
                (2, 256, 4, 1, 192, True, 0), (1, 256, 2, 2, 160, True, 96),
-               (1, 128, 2, 1, 256, False, 0), (1, 40, 2, 1, 256, True, 0)]
+               (1, 128, 2, 1, 256, False, 0), (1, 40, 2, 1, 256, True, 0),
+               (1, 256, 4, 2, 320, True, 0), (1, 128, 2, 2, 384, False, 0),
+               (1, 256, 2, 1, 512, True, 100), (1, 128, 2, 1, 576, True, 0),
+               (1, 40, 2, 1, 320, True, 0), (1, 256, 2, 2, 300, True, 0)]
+# tolerances by dtype: against the plain twin, and the worst row against
+# the tile-exact oracle (see the test)
+FLASH_TOL = {"float32": (2e-5, None), "bfloat16": (3e-2, 2 ** -6),
+             "float16": (4e-3, 2 ** -9)}
+FLASH_WRAPPERS = {"float32": "flash_attention_fp32_cuda",
+                  "bfloat16": "flash_attention_bf16_cuda",
+                  "float16": "flash_attention_f16_cuda"}
 
 
 def _worst_row(ref, out) -> float:
@@ -553,29 +568,30 @@ def _worst_row(ref, out) -> float:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_twin_on_card(cuda, case, dtype):
-    """The flash kernel of the dtype (GQA mapped in the kernel; bfloat16 on
-    the tensor cores, float32 on the CUDA cores) against the plain twin (KV
-    heads repeated, naive softmax).  float32: another summation order,
-    ~1e-6 on O(1) outputs -> 2e-5.  bfloat16: p is rounded to bf16 at the
-    running max in the kernel and after normalising in the twin, and the
-    output is rounded to bf16 (2^-8 relative): a few bf16 ulp at |o| <= 2
-    -> 3e-2.  bfloat16 is also held to the tile-exact oracle
-    flash_attention_tiled, which rounds p where the kernel does: the two
-    fp32 results differ by the order of the sums and exp2f against exp
-    (~1 fp32 ulp of p), so a bf16 output differs by one rounding step, one
-    ulp of its row's largest |o| (2^-7 of it), and by at most one more
-    where a p rounds to another bf16 value in the two: 2^-6."""
+    """The flash kernel of the dtype (GQA mapped in the kernel; bfloat16
+    and float16 on the tensor cores, float32 on the CUDA cores) against the
+    plain twin (KV heads repeated, naive softmax).  float32: another
+    summation order, ~1e-6 on O(1) outputs -> 2e-5.  bfloat16: p is rounded
+    to bf16 at the running max in the kernel and after normalising in the
+    twin, and the output is rounded to bf16 (2^-8 relative): a few bf16 ulp
+    at |o| <= 2 -> 3e-2; float16 rounds at the same places with 3 more
+    bits -> 4e-3.  The tensor-core kernels are also held to the tile-exact
+    oracle flash_attention_tiled, which rounds p where the kernel does: the
+    two fp32 results differ by the order of the sums and exp2f against exp
+    (~1 fp32 ulp of p), so an output differs by one rounding step, one ulp
+    of its row's largest |o| (bf16 2^-7 of it, float16 2^-10), and by at
+    most one more where a p rounds to another value in the two: 2^-6 and
+    2^-9."""
     B, S, H, Hkv, dh, causal, window = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(S + dh)
     q, k, v = (torch.tensor(rng.standard_normal((B, S, h, dh)),
                             dtype=torch.float32, device=cuda).to(dt)
                for h in (H, Hkv, Hkv))
-    wrapper = (fops.flash_attention_bf16_cuda if dtype == "bfloat16"
-               else fops.flash_attention_fp32_cuda)
+    wrapper = getattr(fops, FLASH_WRAPPERS[dtype])
     n0 = wrapper.launches
     out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
     assert wrapper.launches == n0 + 1
@@ -583,35 +599,40 @@ def test_flash_kernel_matches_twin_on_card(cuda, case, dtype):
                                      sliding_window=window)
     torch.cuda.synchronize()
     assert out.dtype == dt and out.shape == q.shape
+    tol, tol_row = FLASH_TOL[dtype]
     err = max_diff(ref.float(), out.float())
     print(f"flash {case} {dtype}: max|kernel - twin| {err:.3e}")
-    assert err <= (2e-5 if dtype == "float32" else 3e-2)
-    if dtype == "bfloat16":
+    assert err <= tol
+    if tol_row is not None:
         tiled = fops.flash_attention_tiled(q, k, v, causal=causal,
                                            sliding_window=window)
         row = _worst_row(tiled, out)
-        print(f"flash {case} bf16: worst row vs tiled {row:.3e}")
-        assert row <= 2 ** -6
+        print(f"flash {case} {dtype}: worst row vs tiled {row:.3e}")
+        assert row <= tol_row
 
 
 @pytest.mark.cuda
 def test_flash_bf16_runs_on_the_tensor_core_kernel(cuda):
-    """A bfloat16 CUDA call launches the tensor-core kernel and never the
-    float32 one; a float32 call the reverse; float16 raises and launches
+    """A bfloat16 CUDA call launches the bf16 tensor-core kernel and no
+    other; a float16 call its float16 instantiation; a float32 call the
+    CUDA-core kernel; float64, which no kernel takes, raises and launches
     nothing."""
     def counts():
         return (fops.flash_attention_bf16_cuda.launches,
+                fops.flash_attention_f16_cuda.launches,
                 fops.flash_attention_fp32_cuda.launches)
 
     q = torch.zeros((1, 128, 2, 64), device=cuda)
-    n_tc, n_fp32 = counts()
+    n_tc, n_f16, n_fp32 = counts()
     fops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
-    assert counts() == (n_tc + 1, n_fp32)
+    assert counts() == (n_tc + 1, n_f16, n_fp32)
+    fops.flash_attention(q.half(), q.half(), q.half())
+    assert counts() == (n_tc + 1, n_f16 + 1, n_fp32)
     fops.flash_attention(q, q, q)
-    assert counts() == (n_tc + 1, n_fp32 + 1)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fops.flash_attention(q.half(), q.half(), q.half())
-    assert counts() == (n_tc + 1, n_fp32 + 1)
+    assert counts() == (n_tc + 1, n_f16 + 1, n_fp32 + 1)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fops.flash_attention(q.double(), q.double(), q.double())
+    assert counts() == (n_tc + 1, n_f16 + 1, n_fp32 + 1)
 
 
 def test_flash_rejects_lengths_the_reference_rejects():
@@ -627,26 +648,34 @@ def test_flash_rejects_lengths_the_reference_rejects():
 # the largest head of one block); heads of 24 and 40 (padded to 32 and 48
 # by the wrapper) and a chunk of 64 asked for (run at 32); past 192 the
 # cluster passes, S 256: 208, 256, 320, 512 and 1024 (clusters of 4, 4, 5,
-# 8 and 16 blocks), 200 (padded to 208), and 256 in chunks of 25
+# 8 and 16 blocks), 200 (padded to 208), and 256 in chunks of 25; past 1024
+# several clusters a problem and the add of their parts: 1088 (2 x 9
+# blocks), 1280 (2 x 10) in chunks of 25, and 1100 padded to 1152 (2 x 9)
 WKV_CASES = [(2, 128, 2, 64, 32), (1, 100, 3, 32, 32), (1, 16, 1, 64, 32),
              (1, 64, 2, 128, 32), (2, 96, 3, 16, 32), (1, 96, 3, 48, 32),
              (1, 64, 2, 80, 32), (1, 64, 1, 192, 32), (1, 64, 2, 24, 32),
              (1, 128, 2, 40, 64), (1, 256, 2, 200, 32), (1, 256, 1, 208, 32),
              (1, 256, 2, 256, 32), (2, 256, 1, 320, 32),
              (1, 256, 1, 512, 32), (1, 256, 1, 1024, 32),
-             (1, 200, 1, 256, 25)]
+             (1, 200, 1, 256, 25), (1, 128, 1, 1088, 32),
+             (1, 100, 2, 1280, 25), (1, 64, 1, 1100, 32)]
+# the bound on max |kernel - twin| of the output over its largest |value|:
+# float32 the chunked algebra's reassociation, the others one rounding
+# step of the output's type
+WKV_TOL = {"float32": 2e-5, "bfloat16": 2 ** -7, "float16": 2 ** -10}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", WKV_CASES)
 def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     """The chunked WKV6 kernel against the sequential twin.  The chunked
     algebra reassociates the recurrence (exp of cumulative log-decays), so
     float32 agrees to ~1e-6 of the output's scale -> 2e-5 relative to the
-    largest |out|, the state likewise.  bfloat16 inputs are the same for
-    both; the bf16 outputs differ by at most one rounding step, one ulp of
-    the largest |out| (2^-7 of it), the float32 state by 2e-5."""
+    largest |out|, the state likewise.  bfloat16 and float16 inputs are the
+    same for both; their outputs differ by at most one rounding step, one
+    ulp of the largest |out| (2^-7 of it in bf16, 2^-10 in float16), the
+    float32 state by 2e-5."""
     B, S, H, N, chunk = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(S + N)
@@ -660,15 +689,17 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     s0 = t(0.1 * rng.standard_normal((B, H, N, N)), torch.float32)
     n0 = wops.wkv6_cuda.launches
     out, s_fin = wops.wkv6(r, k, v, w, u, s0, chunk=chunk)
-    assert wops.wkv6_cuda.launches == n0 + 2    # chunk pass, state pass
+    # chunk pass, state pass (past 1024 the add of the clusters' parts)
+    assert wops.wkv6_cuda.launches == n0 + wops.launches_per_call(N)
     assert out.shape == r.shape and s_fin.shape == s0.shape
     # the state pass's record of its blocks' SMs, -1 where none ran: one
     # block per (batch, head, 16 value columns of the padded state), a
-    # cluster of them past 192
+    # cluster of them past 192, several past 1024
     sms = wops.wkv6_cuda.last_block_sms
     ran = int((sms >= 0).sum())
     n = wops.kernel_head_size(N)
-    assert ran == sms.numel() == B * H * (n // 16) * wops.cluster_blocks(n)
+    nc, g = wops.head_split(n)
+    assert ran == sms.numel() == B * H * (n // 16) * nc * g
     assert N == 16 or ran > B * H
     ref, s_ref = wops.wkv6_plain(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -678,16 +709,16 @@ def test_wkv6_kernel_matches_twin_on_card(cuda, case, dtype):
     s_err = max_diff(s_ref, s_fin) / float(s_ref.abs().max())
     print(f"wkv6 {case} {dtype}: max|kernel - twin| / max|out| {err:.3e}, "
           f"state {s_err:.3e}")
-    assert err <= (2e-5 if dtype == "float32" else 2 ** -7)
+    assert err <= WKV_TOL[dtype]
     assert s_err <= 2e-5
 
 
 @pytest.mark.cuda
 def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
-    """A head of 24, which the kernel is not built for, runs padded to 32
-    and agrees with the twin (bf16: one rounding step of the largest
-    |out|, the state 2e-5); a head of 1025, past the largest cluster's
-    1024 rows, raises and launches nothing."""
+    """Heads of 24 and 1025, which the kernel is not built for, run padded
+    to 32 and to 1088 (past the largest cluster's 1024 rows: 2 clusters a
+    problem and the add of their parts, 3 launches) and agree with the
+    twin (bf16: one rounding step of the largest |out|, the state 2e-5)."""
     rng = np.random.default_rng(24)
     x = torch.tensor(rng.standard_normal((3, 1, 32, 2, 24)),
                      dtype=torch.float32, device=cuda).bfloat16()
@@ -704,40 +735,47 @@ def test_wkv6_raises_on_head_sizes_it_was_not_built_for(cuda):
     assert max_diff(ref.float(), out.float()) \
         <= 2 ** -7 * float(ref.float().abs().max())
     assert max_diff(s_ref, s_fin) <= 2e-5 * float(s_ref.abs().max())
-    x = torch.zeros((1, 32, 2, 1025), device=cuda, dtype=torch.bfloat16)
+    x = torch.tensor(rng.standard_normal((3, 1, 32, 2, 1025)),
+                     dtype=torch.float32, device=cuda).bfloat16()
+    w = torch.tensor(_decay(rng, (1, 32, 2, 1025)), dtype=torch.float32,
+                     device=cuda)
+    u = torch.tensor(0.1 * rng.standard_normal((2, 1025)),
+                     dtype=torch.float32, device=cuda)
+    s0 = torch.zeros((1, 2, 1025, 1025), device=cuda)
     n0 = wops.wkv6_cuda.launches
-    with pytest.raises(ValueError, match="head sizes up to 1024"):
-        wops.wkv6(x, x, x, x.float(), torch.zeros((2, 1025), device=cuda),
-                  torch.zeros((1, 2, 1025, 1025), device=cuda))
-    assert wops.wkv6_cuda.launches == n0
+    out, s_fin = wops.wkv6(*x, w, u, s0)
+    assert wops.wkv6_cuda.launches == n0 + 3
+    assert out.shape == x[0].shape and s_fin.shape == s0.shape
+    ref, s_ref = wops.wkv6_plain(*x, w, u, s0)
+    torch.cuda.synchronize()
+    assert max_diff(ref.float(), out.float()) \
+        <= 2 ** -7 * float(ref.float().abs().max())
+    assert max_diff(s_ref, s_fin) <= 2e-5 * float(s_ref.abs().max())
 
 
 @pytest.mark.cuda
 def test_flash_raises_on_head_dims_it_was_not_built_for(cuda):
-    """A head dim of 48, which the kernels are not built for, runs padded
-    to 64 on the kernel of its dtype and agrees with the twin (float32
-    2e-5, bfloat16 3e-2, as above); 257, past the kernels' 256, raises and
-    launches nothing."""
+    """Head dims of 48 and 257, which the kernels are not built for, run
+    padded to 64 and to 320 (the column-split kernels) on the kernel of
+    their dtype, one launch each, and agree with the twin (float32 2e-5,
+    bfloat16 3e-2, float16 4e-3, as above)."""
     def counts():
-        return (fops.flash_attention_bf16_cuda.launches,
-                fops.flash_attention_fp32_cuda.launches)
+        return tuple(getattr(fops, w).launches
+                     for w in FLASH_WRAPPERS.values())
 
     rng = np.random.default_rng(48)
-    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
-        q = torch.tensor(rng.standard_normal((1, 128, 2, 48)),
-                         dtype=torch.float32, device=cuda).to(dt)
-        n0 = counts()
-        out = fops.flash_attention(q, q, q)
-        assert sum(counts()) == sum(n0) + 1
-        ref = fops.flash_attention_plain(q, q, q)
-        torch.cuda.synchronize()
-        assert out.shape == q.shape and out.dtype == dt
-        assert max_diff(ref.float(), out.float()) <= tol
-        q = torch.zeros((1, 64, 2, 257), device=cuda, dtype=dt)
-        n0 = counts()
-        with pytest.raises(ValueError, match="head dims up to 256"):
-            fops.flash_attention(q, q, q)
-        assert counts() == n0
+    for dh in (48, 257):
+        for name, (tol, _) in FLASH_TOL.items():
+            dt = getattr(torch, name)
+            q = torch.tensor(rng.standard_normal((1, 128, 2, dh)),
+                             dtype=torch.float32, device=cuda).to(dt)
+            n0 = counts()
+            out = fops.flash_attention(q, q, q)
+            assert sum(counts()) == sum(n0) + 1
+            ref = fops.flash_attention_plain(q, q, q)
+            torch.cuda.synchronize()
+            assert out.shape == q.shape and out.dtype == dt
+            assert max_diff(ref.float(), out.float()) <= tol
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 """The head padding of the WKV6 and flash-attention wrappers, on the CPU.
 
-The CUDA kernels are built for WKV6 head sizes that are multiples of 16 up
-to 1024 (past 192 on a cluster of blocks) and for attention head dims 32,
-64, 128 and 256; their wrappers serve any head up to 1024 (WKV6: padded to
-a multiple of 16 up to 256, of 64 above) or 256 (flash attention) by zero
-padding to the next size the kernel takes and slicing the result back
+The CUDA kernels are built for WKV6 head sizes that are multiples of 16
+(past 192 on a cluster of blocks, past 1024 on several) and for attention
+head dims 32, 64, 128 and 256 and, past 256, every multiple of 64 (the
+column-split kernels); their wrappers serve any other head (WKV6: padded
+to a multiple of 16 up to 256, of 64 above; flash attention: to the next
+of 32, 64, 128, 256, then to a multiple of 64) by zero padding to the next
+size the kernel takes and slicing the result back
 (``kernels/rwkv6/ops.py`` ``pad_heads``, ``kernels/flash_attention/ops.py``
 ``pad_head_dim``).  Here those padding functions, run through the plain
 twins and through the kernels' own algebra in plain PyTorch, are held
@@ -113,22 +115,23 @@ def test_wkv6_decay_padded_with_zero_poisons_the_chunked_algebra():
 
 
 def test_wkv6_head_size_limits():
-    """Every head size up to 256 runs at the next multiple of 16, up to
-    1024 at the next multiple of 64; up to 192 on one state-pass block per
-    16 padded columns, past it on a cluster of ceil(n / 64) blocks per 16
-    columns; 1025 raises (a cluster of more than 16 blocks)."""
+    """Every head size up to 256 runs at the next multiple of 16, past it
+    at the next multiple of 64; up to 192 on one state-pass block per 16
+    padded columns, past it on a cluster of ceil(n / 64) blocks per 16
+    columns, past 1024 (more than the card's 16-block cluster) on several:
+    1025 runs at 1088 on 2 clusters of 9 blocks."""
     assert [twkv.kernel_head_size(N) for N in (1, 16, 17, 24, 40, 72, 192)] \
         == [16, 16, 32, 32, 48, 80, 192]
     assert [twkv.kernel_head_size(N) for N in (193, 200, 256, 257, 500,
-                                               1024)] \
-        == [208, 208, 256, 320, 512, 1024]
+                                               1024, 1025, 2560)] \
+        == [208, 208, 256, 320, 512, 1024, 1088, 2560]
     assert twkv.grid_blocks(1, 2, 24) == 4
     assert twkv.grid_blocks(1, 40, 64) == 160
     assert twkv.grid_blocks(1, 10, 256) == 10 * 16 * 4
     assert twkv.grid_blocks(1, 5, 512) == 5 * 32 * 8
     assert twkv.grid_blocks(1, 1, 1024) == 64 * 16
-    with pytest.raises(ValueError, match="head sizes up to 1024"):
-        twkv.kernel_head_size(1025)
+    assert twkv.head_split(1088) == (2, 9)
+    assert twkv.grid_blocks(1, 1, 1025) == 68 * 2 * 9
     out, s = twkv.unpad_heads(torch.ones(1, 4, 2, 32), torch.ones(1, 2, 32, 32),
                               24)
     assert out.shape == (1, 4, 2, 24) and s.shape == (1, 2, 24, 24)
@@ -172,20 +175,31 @@ def test_flash_padded_head_dim_matches_reference_kernel(dh, window):
 
 
 def test_flash_head_dim_limits():
-    """Every head dim up to 256 runs at the next of 32, 64, 128, 256; 257
-    raises (at the layout's next head dim, 320, the float32 kernel's Q,
-    K/V tile and p would take 279,552 bytes of shared memory).  At
-    dh 256 the bfloat16 kernel keeps 64 query rows, one K and V tile (a
-    one-stage ring), P, 5 barriers and the row maxima (181,800 bytes), the
-    float32 kernel Q, one tile for K then V, and p (230,400 bytes)."""
+    """Every head dim up to 256 runs at the next of 32, 64, 128, 256, past
+    it at the next multiple of 64 on the column-split kernels (257 at
+    320).  At dh 256 the bfloat16 and float16 kernels keep 64 query rows,
+    one K and V tile (a one-stage ring), P, 5 barriers and the row maxima
+    (181,800 bytes), the float32 kernel Q, one tile for K then V, and p
+    (230,400 bytes); past 256 the tensor-core kernels a ring of 4 Q and K
+    sub-tiles, V's 256 columns, P, 10 barriers and the row maxima (181,840
+    bytes) whatever the head dim, the float32 kernel Q and K sub-tiles,
+    V's 128 columns and p (148,992 bytes)."""
     assert [tflash.kernel_head_dim(d) for d in (1, 32, 33, 48, 64, 96, 128)] \
         == [32, 32, 64, 64, 64, 128, 128]
     assert [tflash.kernel_head_dim(d) for d in (129, 160, 192, 256)] \
         == [256] * 4
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        tflash.kernel_head_dim(257)
-    assert tflash.smem_bytes(256, torch.bfloat16) == 181_800
+    assert [tflash.kernel_head_dim(d) for d in (257, 320, 321, 512, 1000)] \
+        == [320, 320, 384, 512, 1024]
+    for dt in (torch.bfloat16, torch.float16):
+        assert tflash.smem_bytes(256, dt) == 181_800
+        assert tflash.smem_bytes(320, dt) == tflash.smem_bytes(1024, dt) \
+            == 181_840
     assert tflash.smem_bytes(256, torch.float32) == 230_400
+    assert tflash.smem_bytes(512, torch.float32) == 148_992
+    assert [tflash.column_groups(d, torch.bfloat16) for d in (256, 320, 512)] \
+        == [1, 2, 2]
+    assert [tflash.column_groups(d, torch.float32) for d in (256, 320, 512)] \
+        == [1, 3, 4]
     t = torch.ones(1, 8, 2, 48)
     assert tflash.pad_head_dim(t, 48) is t
     assert torch.equal(tflash.pad_head_dim(t, 64)[..., :48], t)

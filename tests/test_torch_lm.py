@@ -322,8 +322,10 @@ def test_flash_checks_shapes():
         tflash.flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tflash.flash_attention_cuda(kv, kv, kv)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         tflash.flash_attention_cuda(kv.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tflash.flash_attention_cuda(kv.double(), kv.double(), kv.double())
 
 
 # ---------------------------------------------------------------------------
