@@ -414,14 +414,6 @@ FP32_PEAK = 67e12              # H100 SXM, FLOP/s outside the tensor cores
 BF16_PEAK = 989e12             # H100 SXM, dense bf16 tensor-core FLOP/s
 TF32_PEAK = 495e12             # H100 SXM, dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12             # bytes/s
-# float32 operations per point, counted from the kernels' source
-FLOP_SOR_POINT = 10            # one point of one half-sweep
-FLOP_MOMENTUM_POINT = 51       # predictor + penalization + force, per face
-FLOP_RHS_POINT = 6             # divergence / dt
-FLOP_CORRECT_POINT = 4         # projection correction, per face
-# the per-body instantiation, per face and body: the target's multiply-add
-# and the force split's
-FLOP_BODY_POINT = 4
 # a mixed bank batch: (geometry, act_mode, per-body speeds) per env; the
 # cylinder's jets ride slot 0, tandem's third slot meets zero planes
 BANK_ENVS = (("cylinder", 0.0, (0.3, 0.0, 0.0)),
@@ -692,29 +684,6 @@ def fused_launch():
             *blocks_ran(ops.fused_interval_cuda.last_block_sms))
 
 
-def fused_work(cfg, n_env, n_steps, n_bodies=0, n_geoms=1):
-    """(float32 operations, bytes) of one fused interval: every input read
-    once (the fields, the geometry of each of ``n_geoms`` geometries the
-    batch uses, the per-env scalars) and every output written once.  The
-    per-body instantiation (``n_bodies``) reads the per-body planes in
-    place of the summed rotary target and does FLOP_BODY_POINT more
-    operations per face and body."""
-    ny, nx = cfg.ny, cfg.nx
-    nu, nv, npts = ny * (nx + 1), (ny + 1) * nx, ny * nx
-    flops = n_env * n_steps * (
-        cfg.poisson_iters * npts * FLOP_SOR_POINT
-        + (nu + nv) * (FLOP_MOMENTUM_POINT + FLOP_BODY_POINT * n_bodies)
-        + npts * FLOP_RHS_POINT + (nu + nv) * FLOP_CORRECT_POINT)
-    if not n_bodies:
-        return flops, 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv
-                           + ny + 3 * n_env + 2 * n_env * n_steps)
-    planes = 5 + 2 * n_bodies     # chi, 2 jet, jmask, rmask, rotb, own
-    return flops, 4 * (2 * n_env * (nu + nv + npts)
-                       + n_geoms * (planes * (nu + nv) + ny)
-                       + n_env * (n_bodies + 3)
-                       + 2 * n_env * n_steps * n_bodies)
-
-
 def check_fused(dev, cfg, n_env, n_steps):
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels.actuation import ops
@@ -723,7 +692,7 @@ def check_fused(dev, cfg, n_env, n_steps):
     cluster, blocks, sms_busy = fused_launch()
     plain_ms = cuda_ms(plain, 2)
     ny, nx = cfg.ny, cfg.nx
-    flops, nbytes = fused_work(cfg, n_env, n_steps)
+    flops, nbytes = ops.work(cfg, n_env, n_steps)
     bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     # the card's occupancy for this launch shape and the others that fit
     active = ops.active_clusters(dev, cfg, cluster)
@@ -798,7 +767,7 @@ def check_fused_bodies(dev, cfg, n_env, n_steps, scalar_ms):
     plain_ms = cuda_ms(plain, 2)
     nb = grid.max_bodies()
     n_geoms = len({BANK_ENVS[i % len(BANK_ENVS)][0] for i in range(n_env)})
-    flops, nbytes = fused_work(cfg, n_env, n_steps, nb, n_geoms)
+    flops, nbytes = ops.work(cfg, n_env, n_steps, nb, n_geoms)
     bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     active = ops.active_clusters(dev, cfg, cluster, nb)
     print(f"[kernels] fused_interval per-body ({nb} bodies, a bank of "
@@ -930,8 +899,7 @@ def check_sor(dev, cfg, n_env, iters, full=False, wrong=None):
     few_ms = cuda_ms(lambda: kernel(10), 20)
     sweep_us = 1e3 * (ms - few_ms) / (2 * inner * (rounds - 3))
     active = ops.active_clusters(dev, ny, nx // 2, cluster, full)
-    flops = n_env * rounds * inner * ny * nx * FLOP_SOR_POINT
-    nbytes = 4 * n_env * ny * nx * 3     # p and rhs read, p written
+    flops, nbytes = ops.work(n_env, ny, nx, iters, inner)
     bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
     print(f"[kernels] {name}: solve {ms:.4f} ms (1 launch; {paced_ms:.4f} "
           f"ms a call when the host paces the calls), plain twin "
@@ -991,18 +959,6 @@ def flash_held(what, measures, dtype):
           f"{tol_rel:.0e}), worst row {row:.3e} (tol {tol_row:.0e}), "
           f"max abs {err:.3e}")
     return rel <= tol_rel and row <= tol_row
-
-
-def flash_flops(H, S, dh, window=0):
-    """Operations of QK^T and PV, 4 dh per visible (query, key) pair and
-    head: over the causal half, S^2 / 2 pairs (as the causal cases have
-    always counted); with a window, the pairs it leaves, the sum over q of
-    min(q + 1, window)."""
-    if window and window < S:
-        pairs = window * (window + 1) // 2 + (S - window) * window
-    else:
-        pairs = S * S / 2
-    return 4 * dh * H * pairs
 
 
 def flash_case(dev, B, S, H, Hkv, dh, window, seed, dtype="bfloat16"):
@@ -1128,17 +1084,6 @@ def check_flash_wide(dev):
     return out
 
 
-def wkv6_flops(B, S, H, N, C):
-    """(products, elementwise): float32 operations of the chunked algebra
-    per call.  Per chunk and head the products r~S (2CN^2), the strictly
-    lower r~k~^T and its product with v (2 x C(C-1)N) and k~^T v (2CN^2);
-    the state update (2N^2) and ~11 elementwise operations per (token,
-    channel)."""
-    chunks = B * H * (S // C)
-    return (chunks * (4 * C * N * N + 2 * C * (C - 1) * N),
-            chunks * (11 * C * N + 2 * N * N))
-
-
 def wkv6_case(dev, cfg, S, B=1, seed=5, N=None, chunk=None,
               dtype="bfloat16"):
     """rwkv6 inputs at a layer's shape and decays (or at a head of ``N``),
@@ -1217,11 +1162,10 @@ def check_wkv6(dev, cfg, S):
     state_ms = cuda_ms(lambda: ops.state_pass(call), 10)
     plain_ms = cuda_ms(plain, 1)
     C = ops.pick_chunk(S)
-    products, elementwise = wkv6_flops(B, S, H, N, C)
-    # r, k, v, w (cast to bf16 by the wrapper) and out in bf16, u, the
-    # float32 state in and out; the products run as three TF32 products on
-    # the tensor cores (3xTF32), the rest on the CUDA cores
-    nbytes = 2 * (5 * B * S * H * N + H * N) + 4 * 2 * B * H * N * N
+    products, elementwise = ops.flops_by_unit(B, S, H, N, C)
+    # the products run as three TF32 products on the tensor cores
+    # (3xTF32), the rest on the CUDA cores
+    nbytes = ops.work(B, S, H, N, C, inputs[0].element_size())[1]
     bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
                                (elementwise, FP32_PEAK))
     print(f"[kernels] wkv6: kernel {ms:.4f} ms (chunk pass {chunk_ms:.4f} "
@@ -1339,8 +1283,7 @@ def flash_timed(dev, B, S, H, Hkv, dh, seed, dtype, reps, tiled=False):
         out["library_kernels"] = sdpa_kernels(sdpa)
     d = ops.kernel_head_dim(dh)
     groups = ops.column_groups(d, q.dtype)
-    flops = flash_flops(H, S, dh)
-    nbytes = q.element_size() * S * dh * (2 * H + 2 * Hkv)
+    flops, nbytes = ops.work(B, S, H, Hkv, dh, q.element_size())
     peak = FP32_PEAK if dtype == "float32" else BF16_PEAK
     out["bound_ms"], out["bound_by"] = bound(nbytes, (flops, peak))
     out["bound_share"] = out["bound_ms"] / out["ms"]
@@ -1432,9 +1375,8 @@ def wkv6_timed(dev, cfg, S, N, dtype):
     plain_ms = cuda_ms(plain, 1, warm=False)   # wkv6_errors ran it
     C = ops.pick_chunk(S)
     nc, g = ops.head_split(ops.kernel_head_size(N))
-    products, elementwise = wkv6_flops(1, S, H, N, C)
-    item = inputs[0].element_size()
-    nbytes = item * (5 * S * H * N + H * N) + 4 * 2 * H * N * N
+    products, elementwise = ops.flops_by_unit(1, S, H, N, C)
+    nbytes = ops.work(1, S, H, N, C, inputs[0].element_size())[1]
     bound_ms, bound_by = bound(nbytes, (3 * products, TF32_PEAK),
                                (elementwise, FP32_PEAK))
     print(f"[kernels] wkv6 {dtype} N {N} (H {H}, {nc} cluster(s) of {g} "
@@ -4134,6 +4076,7 @@ def moe_flash_reading(dev):
     8, dh 128), held against its twin and timed beside SDPA."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     H, Hkv, dh, S = 32, 8, 128, MOE_SEQ
     measures, (q, k, v), kernel, plain, _ = flash_case(dev, 1, S, H, Hkv,
                                                        dh, 0, 8)
@@ -4141,9 +4084,8 @@ def moe_flash_reading(dev):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = flash_flops(H, S, dh)
-    bound_ms, bound_by = bound(2 * S * dh * (2 * H + 2 * Hkv),
-                               (flops, BF16_PEAK))
+    flops, nb = flash_ops.work(1, S, H, Hkv, dh, 2)
+    bound_ms, bound_by = bound(nb, (flops, BF16_PEAK))
     print(f"[moe flash] bf16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal: "
           f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
           f"{bound_ms / ms:.3f} of the bound), scaled_dot_product_attention "
@@ -4588,7 +4530,7 @@ def hybrid_flash_reading(dev, card):
     names = {b.value: name for name, b in SDPBackend.__members__.items()}
     sdpa_ran = names.get(int(torch._fused_sdp_choice(qt, kt, vt,
                                                      attn_mask=mask)))
-    flops, nb = flash_flops(H, S, dh, W), 2 * S * dh * (2 * H + 2 * Hkv)
+    flops, nb = ops.work(1, S, H, Hkv, dh, 2, sliding_window=W)
     bound_ms, bound_by = bound(nb, (flops, BF16_PEAK))
     print(f"[hybrid flash] bf16 B=1 S={S} H={H} Hkv={Hkv} dh={dh} causal, "
           f"window {W}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
@@ -5274,6 +5216,7 @@ def frontend_flash_reading(dev, card, cfg):
     and its bound."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     S = TRAIN_SEQ
     measures, (q, k, v), kernel, plain, ref = flash_case(dev, 1, S, H, Hkv,
@@ -5287,7 +5230,7 @@ def frontend_flash_reading(dev, card, cfg):
 
     sdpa_rel = rel_rms(sdpa().transpose(1, 2), ref)
     library_ms = cuda_ms(sdpa, 20)
-    flops, nb = flash_flops(H, S, dh), 2 * S * dh * (2 * H + 2 * Hkv)
+    flops, nb = flash_ops.work(1, S, H, Hkv, dh, 2)
     bound_ms, bound_by = bound(nb, (flops, BF16_PEAK))
     print(f"[frontend flash {cfg.name}] bf16 B=1 S={S} H={H} Hkv={Hkv} "
           f"dh={dh} causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
@@ -5859,7 +5802,181 @@ def mesh_path(card):
 
 
 # phases that need no other phase's results: ``--phases`` runs them alone
-STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18", "19")
+# phase 20: phi4-mini-3.8b cut to 2 of 32 layers, B 1, S 4096
+COST_CONFIG, COST_LAYERS = "phi4-mini-3.8b", 2
+# the counted peak against torch.cuda.max_memory_allocated()'s rise: the
+# margin takes cuBLAS workspaces, allocator rounding and the kernels'
+# padding copies and scratch, freed inside their wrappers
+TOL_PEAK_SHARE, TOL_PEAK_BYTES = 0.05, 64 * 2 ** 20
+
+
+def measured_run(make_args, fn):
+    """``fn(*make_args())`` on the card -> (the rise of
+    ``max_memory_allocated`` in its first call over the bytes allocated
+    before the arguments were made (their initialization's own peak left
+    out), the first call's seconds, a second call's)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, first = wall(lambda: fn(*args))
+    rise = torch.cuda.max_memory_allocated() - base
+    _, steady = wall(lambda: fn(*args))
+    del args
+    torch.cuda.empty_cache()
+    return rise, first, steady
+
+
+def cost_path(card):
+    """Phase 20: ``launch/cost_analysis``'s counter against the card.  (a)
+    phi4-mini at 2 of 32 layers, B 1, S 4096: ``lm_loss`` under no_grad
+    (backend "pallas") and the train step (backend "reference") counted on
+    meta tensors, then run once each on the card: the counted
+    ``peak_per_device_bytes`` within 5% + 64 MiB of the rise of
+    ``max_memory_allocated``; (b) the ``lm_loss`` run on the card under
+    the counter: its ``flash_attention`` entry has the launches the
+    wrapper recorded (2) and twice the work phase 1's bound counts at that
+    shape; (c) one interval of ``env_step(backend="fused")`` at the
+    training shape (res 16, 4 envs, 50 dt) under the counter on the card:
+    one ``fused_interval`` launch of the kernel's ``work(...)``; (d) the
+    counted flops over each run's seconds as a share of ``h100_sxm``'s
+    peak, beside the roofline's ``bound_s``."""
+    import numpy as np
+    import torch
+    from repro_torch.cfd import scenarios as scn_mod
+    from repro_torch.cfd import solver
+    from repro_torch.cfd.env import CylinderEnv, EnvConfig, EnvState
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.actuation import ops as aops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import cost_analysis, roofline, steps
+    from repro_torch.models import model
+    base = get_config(COST_CONFIG)
+    cfg = cost_analysis.with_depths(base, {"blocks": COST_LAYERS})
+    S = TRAIN_SEQ
+    rng = np.random.default_rng(11)
+    tokens, labels = (rng.integers(0, cfg.vocab_size, (1, S))
+                      for _ in range(2))
+
+    def batch(device):
+        return {k: (torch.tensor(v, device=device) if device != "meta"
+                    else torch.empty(v.shape, dtype=torch.int64,
+                                     device="meta"))
+                for k, v in (("tokens", tokens), ("labels", labels))}
+
+    def lm(params, b):
+        with torch.no_grad():
+            return model.lm_loss(cfg, params, b, backend="pallas")[0]
+
+    def train_args(device):
+        params = model.init_params(cfg, seed=0, device=device)
+        opt = steps.make_opt(cfg).init(steps.param_leaves(params))
+        return params, opt, 0, batch(device)
+
+    runs = {
+        "lm_loss": (lambda d: (model.init_params(cfg, seed=0, device=d),
+                               batch(d)), lm),
+        "train_step": (train_args, steps.make_train_step(cfg)),
+    }
+    hw = roofline.hardware_spec("h100_sxm")
+    out = {}
+    for name, (make_args, fn) in runs.items():
+        (cost, mem), counted_s = wall(lambda: cost_analysis.count(
+            fn, *make_args("meta")))
+        rise, first, secs = measured_run(lambda: make_args("cuda"), fn)
+        peak = mem["peak_per_device_bytes"]
+        limit = TOL_PEAK_SHARE * rise + TOL_PEAK_BYTES
+        rl = roofline.build(cfg.name, f"{name} B=1 S={S}", "one card", 1,
+                            cost, 0.0, hw=hw)
+        share = cost["flops"] / secs / hw.peak_flops
+        print(f"[cost {name}] {cfg.name} at {COST_LAYERS} of "
+              f"{base.num_layers} layers, B=1, S={S}: counted on meta in "
+              f"{counted_s:.3f} s: {cost['flops'] / 1e12:.4f} TFLOP, "
+              f"{cost['bytes'] / 1e9:.4f} GB, argument "
+              f"{mem['argument_bytes'] / 2**30:.4f} GiB, temp "
+              f"{mem['temp_bytes'] / 2**30:.4f} GiB, output "
+              f"{mem['output_bytes'] / 2**30:.4f} GiB, peak "
+              f"{peak / 2**30:.4f} GiB, kernels {cost['kernels']}; on the "
+              f"card the rise of max_memory_allocated {rise / 2**30:.4f} GiB "
+              f"(counted - measured {(peak - rise) / 2**20:.1f} MiB, tol "
+              f"{limit / 2**20:.1f} MiB); {first:.4f} s first call, "
+              f"{secs:.4f} s second: {cost['flops'] / secs / 1e12:.2f} "
+              f"TFLOP/s counted over measured, {share:.4f} of h100_sxm's "
+              f"peak; roofline bound_s {rl.bound_s:.6f} ({rl.dominant}), "
+              f"{rl.bound_s / secs:.4f} of the measured seconds")
+        if not abs(peak - rise) <= limit:
+            fail(f"cost {name}: counted peak {peak} bytes, measured rise "
+                 f"{rise} bytes, over {limit:.0f} apart")
+        out[name] = {"flops": cost["flops"], "bytes": cost["bytes"],
+                     "kernels": cost["kernels"], "peak_bytes": peak,
+                     "measured_rise_bytes": rise, "first_s": first,
+                     "seconds": secs, "flops_share_of_peak": share,
+                     "bound_s": rl.bound_s, "dominant": rl.dominant}
+    if out["train_step"]["kernels"]:
+        fail(f"cost train: the train step counted kernels "
+             f"{out['train_step']['kernels']}, expected none")
+    # (b) the flash kernel as the counter saw it on the card
+    args = runs["lm_loss"][0]("cuda")
+    reset_counts()
+    with cost_analysis.CostCounter() as c:
+        lm(*args)
+        torch.cuda.synchronize()
+    wrapper = counts()["flash_attention"]
+    entry = c.result()["kernels"].get("flash_attention", {})
+    del args
+    want = fops.work(1, S, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim, 2)[0]
+    print(f"[cost flash] lm_loss counted on the card: {entry}; the wrapper "
+          f"recorded {wrapper} launches; the bound's count a call "
+          f"{want / 1e9:.3f} GFLOP")
+    if not (entry.get("launches") == wrapper == COST_LAYERS
+            and entry.get("flops") == COST_LAYERS * want
+            and entry == out["lm_loss"]["kernels"]["flash_attention"]):
+        fail(f"cost flash: counted {entry} on the card, the wrapper "
+             f"launched {wrapper}, expected {COST_LAYERS} launches of {want} "
+             f"flops each, as counted on meta")
+    out["lm_loss"]["kernels_on_card"] = c.result()["kernels"]
+    # (c) one fused interval at the training shape
+    grid = GridConfig(res=16)
+    env = CylinderEnv(EnvConfig(grid=grid, steps_per_action=50),
+                      backend="fused", device="cuda")
+    n = 4
+    scn = scn_mod.batch_params([env.cfg.scenario()] * n, grid,
+                               cd0s=[0.0] * n, device="cuda")
+    st = EnvState(flow=solver.FlowState(
+        torch.zeros(n, grid.ny, grid.nx + 1, device="cuda"),
+        torch.zeros(n, grid.ny + 1, grid.nx, device="cuda"),
+        torch.zeros(n, grid.ny, grid.nx, device="cuda")),
+        jet_vel=torch.zeros(n, device="cuda"),
+        t=torch.zeros(n, dtype=torch.int64, device="cuda"), scn=scn)
+    reset_counts()
+    with cost_analysis.CostCounter() as c:
+        env.env_step(st, torch.full((n,), 0.5, device="cuda"))
+        torch.cuda.synchronize()
+    entry = c.result()["kernels"].get("fused_interval", {})
+    flops, nbytes = aops.work(grid, n, 50)
+    launched = counts()["fused_interval"]
+    print(f"[cost fused] env_step(backend='fused'), res 16, {n} envs, 50 dt, "
+          f"counted on the card: {entry} ({entry.get('flops', 0) / 1e9:.4f} "
+          f"GFLOP, {entry.get('bytes', 0) / 1e6:.4f} MB); the wrapper "
+          f"launched {launched}")
+    if (entry != {"launches": 1, "flops": flops, "bytes": nbytes}
+            or launched != 1):
+        fail(f"cost fused: counted {entry}, launched {launched}, expected "
+             f"one launch of {flops} flops and {nbytes} bytes")
+    out["fused_interval"] = entry
+    del env, st
+    torch.cuda.empty_cache()
+    print(f"[cost] {json.dumps(out)}")
+    return out
+
+
+STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18", "19",
+                     "20")
 
 
 def compare_tree(card):
@@ -5951,7 +6068,7 @@ def main():
         run = {"10": fleet_path, "12": lambda c: halo_path(c, child),
                "13": serve_path, "14": train_path, "15": moe_path,
                "16": hybrid_path, "17": deepseek_path, "18": frontend_path,
-               "19": mesh_path}
+               "19": mesh_path, "20": cost_path}
         try:
             for p in phases:
                 _, secs = wall(lambda: run[p](card))
@@ -6218,15 +6335,21 @@ def main():
         fail("the mesh path did not launch the flash kernel")
     flash.update(meshed)
     print(f"[phase 19] {secs:.3f} s")
+
+    # 20. the cost counter against the card
+    costs, secs = wall(lambda: cost_path(card))
+    fused["counted_interval"] = costs["fused_interval"]
+    flash["counted_lm_loss"] = costs["lm_loss"]["kernels_on_card"]
+    print(f"[phase 20] {secs:.3f} s")
     now = time.perf_counter()
-    print(f"[chip_smoke] phases 1-19 in {now - lap['start']:.3f} s after "
+    print(f"[chip_smoke] phases 1-20 in {now - lap['start']:.3f} s after "
           f"the build; the whole script {now - script_start:.3f} s")
     for name, n in holds.items():
         print(f"[holds] {name}: lm_loss(backend='pallas') held block by "
               f"block against backend='reference' (phase 4), {n} launches "
               f"of its instantiation")
 
-    # 20. the kernels, the card, the result
+    # 21. the kernels, the card, the result
     print(json.dumps({"kernels": [fused, sor, sor_full, flash, wkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,8 @@ import torch
 
 from repro_torch._warn import warn_once_cache
 from repro_torch.cfd import poisson, solver
-from repro_torch.cfd.grid import GridConfig, max_bodies
-from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.cfd.grid import GridConfig, geometry_names, max_bodies
+from repro_torch.kernels import SMEM_PER_BLOCK, counted
 from repro_torch.kernels import cluster as kcluster
 from repro_torch.kernels.cluster import (CLUSTER_SIZES, band_starts,
                                          block_shape, rows_max)
@@ -41,6 +41,56 @@ from repro_torch.kernels.cluster import (CLUSTER_SIZES, band_starts,
 N_BODIES = max_bodies()
 
 _FALLBACK_WARNED = warn_once_cache()
+
+# float32 operations per point, counted from the kernel's source
+FLOP_MOMENTUM_POINT = 51       # predictor + penalization + force, per face
+FLOP_RHS_POINT = 6             # divergence / dt
+FLOP_CORRECT_POINT = 4         # projection correction, per face
+# the per-body instantiation, per face and body: the target's multiply-add
+# and the force split's
+FLOP_BODY_POINT = 4
+
+
+def work(cfg: GridConfig, n_env: int, n_steps: int, n_bodies: int = 0,
+         n_geoms: int = 1):
+    """(float32 operations, bytes) of one fused interval: every input read
+    once (the fields, the geometry of each of ``n_geoms`` geometries the
+    batch uses, the per-env scalars) and every output written once.  The
+    per-body instantiation (``n_bodies``) reads the per-body planes in
+    place of the summed rotary target and does FLOP_BODY_POINT more
+    operations per face and body."""
+    from repro_torch.kernels.poisson.ops import FLOP_SOR_POINT
+    ny, nx = cfg.ny, cfg.nx
+    nu, nv, npts = ny * (nx + 1), (ny + 1) * nx, ny * nx
+    flops = n_env * n_steps * (
+        cfg.poisson_iters * npts * FLOP_SOR_POINT
+        + (nu + nv) * (FLOP_MOMENTUM_POINT + FLOP_BODY_POINT * n_bodies)
+        + npts * FLOP_RHS_POINT + (nu + nv) * FLOP_CORRECT_POINT)
+    if not n_bodies:
+        return flops, 4 * (2 * n_env * (nu + nv + npts) + 6 * nu + 6 * nv
+                           + ny + 3 * n_env + 2 * n_env * n_steps)
+    planes = 5 + 2 * n_bodies     # chi, 2 jet, jmask, rmask, rotb, own
+    return flops, 4 * (2 * n_env * (nu + nv + npts)
+                       + n_geoms * (planes * (nu + nv) + ny)
+                       + n_env * (n_bodies + 3)
+                       + 2 * n_env * n_steps * n_bodies)
+
+
+def call_work(cfg: GridConfig, state, jet_vel, n_steps: int, geom_id=None):
+    """:func:`work` of a call of :func:`fused_interval` on ``state``: the
+    per-body instantiation's geometries are the distinct ``geom_id`` of
+    the batch (the bank's size on meta tensors, which hold no ids)."""
+    u = state.u
+    n_env = u.shape[0] if u.dim() == 3 else 1
+    if not solver.is_per_body(jet_vel, u):
+        return work(cfg, n_env, n_steps)
+    if geom_id is None:
+        n_geoms = 1
+    else:
+        gid = torch.as_tensor(geom_id)
+        n_geoms = (len(geometry_names()) if gid.device.type == "meta"
+                   else int(gid.unique().numel()))
+    return work(cfg, n_env, n_steps, N_BODIES, n_geoms)
 
 
 def _round4(n: int) -> int:
@@ -463,9 +513,12 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
         return solver.step_interval(cfg, geom_arrays, state, jet_vel,
                                     n_steps, re=re, act_mode=act_mode,
                                     backend="reference", geom_id=geom_id)
-    if tier == "cuda":
-        return fused_interval_cuda(cfg, geom_arrays, state, jet_vel, n_steps,
-                                   re=re, act_mode=act_mode, geom_id=geom_id,
-                                   cluster=cluster)
-    return fused_interval_plain(cfg, geom_arrays, state, jet_vel, n_steps,
-                                re=re, act_mode=act_mode, geom_id=geom_id)
+    with counted("fused_interval", lambda: call_work(
+            cfg, state, jet_vel, n_steps, geom_id)):
+        if tier == "cuda":
+            return fused_interval_cuda(cfg, geom_arrays, state, jet_vel,
+                                       n_steps, re=re, act_mode=act_mode,
+                                       geom_id=geom_id, cluster=cluster)
+        return fused_interval_plain(cfg, geom_arrays, state, jet_vel,
+                                    n_steps, re=re, act_mode=act_mode,
+                                    geom_id=geom_id)

@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import allocating, refuse_grad
+from repro_torch.kernels import allocating, counted, refuse_grad
 
 BLOCK = 128          # the reference's block_q = block_k
 FP32_BQ = 64         # query rows per block of the float32 kernel
@@ -126,6 +126,24 @@ def smem_bytes(dh: int, dtype: torch.dtype) -> int:
     kv_tiles = 2 if dh <= 128 else 1
     return 4 * (FP32_BQ * (dh + 1) + kv_tiles * BLOCK * (dh + 1)
                 + FP32_BQ * (BLOCK + 1))
+
+
+def work(B: int, S: int, H: int, Hkv: int, dh: int, itemsize: int, *,
+         causal: bool = True, sliding_window: int = 0):
+    """(flops, bytes) of one call: the products QK^T and PV, 4 dh per
+    visible (query, key) pair and head, over S^2 / 2 pairs when causal (as
+    the causal cases have always counted), S^2 when not, and under a
+    window the pairs it leaves (the sum over q of min(q + 1, window));
+    q, k, v read and the output written once, at the caller's dh (the
+    wrapper's padding and a column split's repeated products are not the
+    reference's work)."""
+    W = sliding_window
+    if W and W < S:
+        pairs = W * (W + 1) // 2 + (S - W) * W
+    else:
+        pairs = S * S / 2 if causal else S * S
+    return (4 * dh * B * H * pairs,
+            itemsize * B * S * dh * (2 * H + 2 * Hkv))
 
 
 def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
@@ -365,11 +383,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
 
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     """q (B, S, H, dh); k, v (B, S, Hkv, dh) -> (B, S, H, dh): a kernel on
-    CUDA tensors, the plain twin on CPU tensors."""
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal,
-                                    sliding_window=sliding_window)
-    _check(q, k, v)
-    refuse_grad("flash_attention", q, k, v)
-    return flash_attention_plain(q, k, v, causal=causal,
-                                 sliding_window=sliding_window)
+    CUDA tensors, the plain twin on CPU tensors; one call of
+    ``flash_attention`` with :func:`work` under a cost counter."""
+    B, S, H, dh = q.shape
+    with counted("flash_attention", lambda: work(
+            B, S, H, k.shape[2], dh, q.element_size(), causal=causal,
+            sliding_window=sliding_window)):
+        if q.device.type == "cuda":
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        sliding_window=sliding_window)
+        _check(q, k, v)
+        refuse_grad("flash_attention", q, k, v)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sliding_window=sliding_window)

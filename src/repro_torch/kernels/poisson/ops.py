@@ -27,8 +27,23 @@ import torch
 from repro_torch.cfd.poisson import (pack_checkerboard, packed_ghost_rows,
                                      packed_half_sweep, sor_coefficients,
                                      unpack_checkerboard)
-from repro_torch.kernels import SMEM_PER_BLOCK
+from repro_torch.kernels import SMEM_PER_BLOCK, counted
 from repro_torch.kernels import cluster as kcluster
+
+# float32 operations of one point of one SOR half-sweep, counted from the
+# kernels' source (csrc/sor_packed.cuh)
+FLOP_SOR_POINT = 10
+
+
+def work(n: int, ny: int, nx: int, iters: int, inner_iters: int = 4):
+    """(flops, bytes) of one solve of ``n`` (ny, nx) grids at ``iters``
+    (``ceil(iters / inner_iters)`` rounds of ``inner_iters`` pairs of
+    half-sweeps, each touching half the points): p and rhs read and p
+    written once, in float32, whether as the grid or as its two packed
+    planes."""
+    rounds = -(-iters // inner_iters) if iters > 0 else 0
+    return (n * rounds * inner_iters * ny * nx * FLOP_SOR_POINT,
+            4 * n * ny * nx * 3)
 
 
 def _pick_nslabs(nx: int) -> int:
@@ -312,16 +327,21 @@ def rb_sor_planes(red, black, rhs_r, rhs_b, dx, dy, *, iters: int = 60,
     """``iters`` SOR iterations on packed planes as outer block-Jacobi
     rounds of ``inner_iters`` sweep pairs each (``ceil(iters /
     inner_iters)`` rounds, so the pair count rounds up); on the card one
-    launch per solve where the planes take one slab."""
+    launch per solve where the planes take one slab.  Under a cost counter
+    one call of ``rb_sor_slabs_packed`` with :func:`work`."""
     w = red.shape[-1]
     if nslabs == 0:
         nslabs = _pick_nslabs(2 * w)
     outer = -(-iters // inner_iters) if iters > 0 else 0
     if outer == 0:
         return red, black
-    return rb_sor_slabs_packed(red, black, rhs_r, rhs_b, dx=dx, dy=dy,
-                               omega=omega, nslabs=nslabs,
-                               inner_iters=inner_iters, rounds=outer)
+    ny = red.shape[-2]
+    with counted("rb_sor_slabs_packed", lambda: work(
+            red.numel() // (ny * w), ny, 2 * w, iters, inner_iters),
+            launches=1 if nslabs == 1 else outer):
+        return rb_sor_slabs_packed(red, black, rhs_r, rhs_b, dx=dx, dy=dy,
+                                   omega=omega, nslabs=nslabs,
+                                   inner_iters=inner_iters, rounds=outer)
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +467,9 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     ``inner_iters`` sweep pairs and no polish.  ``packed=True`` runs the
     packed smoother on the checkerboard planes, ``packed=False`` the
     full-grid masked one; on the card either takes one launch per solve
-    where the grid is one slab.  Raises ``ValueError`` on an odd width."""
+    where the grid is one slab.  Raises ``ValueError`` on an odd width.
+    Under a cost counter one call of the kernel it runs, with
+    :func:`work`."""
     nx = rhs.shape[-1]
     if nx % 2:
         raise ValueError(
@@ -464,5 +486,10 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     outer = -(-iters // inner_iters) if iters > 0 else 0
     if outer == 0:
         return p
-    return rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega, nslabs=nslabs,
-                        inner_iters=inner_iters, rounds=outer)
+    ny = rhs.shape[-2]
+    with counted("rb_sor_slabs", lambda: work(
+            rhs.numel() // (ny * nx), ny, nx, iters, inner_iters),
+            launches=1 if nslabs == 1 else outer):
+        return rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega,
+                            nslabs=nslabs, inner_iters=inner_iters,
+                            rounds=outer)

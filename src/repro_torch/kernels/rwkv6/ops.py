@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import allocating, refuse_grad
+from repro_torch.kernels import allocating, counted, refuse_grad
 
 CHUNK = 32
 # csrc/wkv6.cu: the largest head of the one-block passes (WKV6_HEAD_SIZES:
@@ -166,6 +166,27 @@ def parts_floats(B: int, S: int, H: int, N: int) -> int:
     itself), for a kernel head of ``N``."""
     nc = head_split(N)[0]
     return 0 if nc == 1 else nc * B * S * H * N
+
+
+def flops_by_unit(B: int, S: int, H: int, N: int, C: int):
+    """(products, elementwise): float32 operations of the chunked algebra
+    per call.  Per chunk and head the products r~S (2CN^2), the strictly
+    lower r~k~^T and its product with v (2 x C(C-1)N) and k~^T v (2CN^2);
+    the state update (2N^2) and ~11 elementwise operations per (token,
+    channel)."""
+    chunks = B * H * (S // C)
+    return (chunks * (4 * C * N * N + 2 * C * (C - 1) * N),
+            chunks * (11 * C * N + 2 * N * N))
+
+
+def work(B: int, S: int, H: int, N: int, C: int, itemsize: int):
+    """(flops, bytes) of one call at the caller's head size ``N`` and
+    chunks of ``C``: both of :func:`flops_by_unit`'s counts; r, k, v, w
+    (cast to r's dtype by the wrapper) read and the output written in
+    ``itemsize`` bytes, u, the float32 state read and written."""
+    products, elementwise = flops_by_unit(B, S, H, N, C)
+    return (products + elementwise,
+            itemsize * (5 * B * S * H * N + H * N) + 4 * 2 * B * H * N * N)
 
 
 def wkv6_scan(r, k, v, w, u, state):
@@ -384,8 +405,14 @@ wkv6_cuda.last_block_sms = None
 def wkv6(r, k, v, w, u, state, *, chunk: int = CHUNK):
     """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) -> (out (B, S,
     H, N) in r's dtype, new state (B, H, N, N) float32): the kernel on CUDA
-    tensors, the plain twin on CPU tensors; either refuses a gradient."""
-    if r.device.type == "cuda":
-        return wkv6_cuda(r, k, v, w, u, state, chunk=chunk)
-    refuse_grad("wkv6", r, k, v, w, u, state)
-    return wkv6_plain(r, k, v, w, u, state)
+    tensors, the plain twin on CPU tensors; either refuses a gradient.
+    Under a cost counter one call of ``wkv6`` with :func:`work` at the
+    kernel's chunk and the launches the card makes for it."""
+    B, S, H, N = r.shape
+    with counted("wkv6", lambda: work(
+            B, S, H, N, pick_chunk(S, min(chunk, CHUNK)), r.element_size()),
+            launches_per_call(N)):
+        if r.device.type == "cuda":
+            return wkv6_cuda(r, k, v, w, u, state, chunk=chunk)
+        refuse_grad("wkv6", r, k, v, w, u, state)
+        return wkv6_plain(r, k, v, w, u, state)

@@ -11,13 +11,33 @@ abstract mesh (``launch.mesh.make_production_mesh``), and records:
 * ``memory.argument_bytes``: one device's bytes of every argument (each
   leaf's ``sharding.shard_shape`` times its itemsize), the counterpart of
   the compiled step's ``argument_size_in_bytes``, with its parts;
+* ``cost_analysis``: the step run once on its meta arguments under
+  ``launch/cost_analysis.CostCounter`` (the counterpart of the
+  reference's ``hlo_analysis``: ``flops``, ``bytes``, ``coll_bytes``,
+  ``coll_<kind>``, ``kernels``), each stack of blocks walked at a few
+  layers and scaled to its depth (``cost_analysis.scaled_by_depth``).
+  The counts are global, one controller running every shard, and the
+  record splits them evenly over the mesh's devices (``per_device``
+  says so); the collectives XLA inserts for the reference are not
+  counted, only the expert-parallel all-to-all the port performs;
+* ``memory.output_bytes``, ``memory.temp_bytes`` (the count's, split
+  evenly) and ``memory.peak_per_device_bytes`` (the exact argument
+  bytes plus those two);
+* ``roofline``: ``roofline.build`` on those per-device counts, priced
+  against ``h100_sxm``, the port's card (the reference prices its
+  production meshes against ``tpu_v5e``);
 * ``params``, ``params_active`` and ``model_flops``
   (``launch/roofline.py``); ``status``.
 
+The counts depend on the architecture and the shape, not on the mesh:
+``main`` counts each (arch, shape) once, on the first mesh it records,
+and reuses the count for the other (``counted_on``).  A step the counter
+cannot walk gives its record ``status: "fail"`` with the error.  Torch has
+no XLA cost analysis, so there is no ``xla_cost_analysis`` and no
+``alias_bytes`` (the steps update their donated arguments in place).
+
 It touches no device: no tensor leaves the meta device and no kernel is
-built.  Torch has no compiled-HLO cost analysis, so there is no
-``hlo_analysis``, ``xla_cost_analysis`` or ``roofline`` in a record and
-no temporary or peak bytes; nothing is priced against a hardware preset.
+built.
 
     python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
         --shape train_4k
@@ -34,11 +54,17 @@ import traceback
 from pathlib import Path
 
 from repro_torch.configs.base import INPUT_SHAPES, get_config, list_configs
-from repro_torch.launch import roofline, steps
+from repro_torch.launch import cost_analysis, roofline, steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.sharding import shard_shape
 
 DEFAULT_OUT = "build/dryrun"
+# the card the port prices a step against
+HW = "h100_sxm"
+PER_DEVICE = ("the global count of one controller split evenly over "
+              "n_devices; collectives: only those the port performs (the "
+              "expert-parallel all-to-all), not those XLA inserts for the "
+              "reference")
 
 
 def _leaves(tree):
@@ -81,36 +107,83 @@ def argument_parts(cfg, shape, mesh) -> dict:
     return {"params": args[0], "cache": args[1], "batch": [args[2], args[3]]}
 
 
+def _metas(tree):
+    """A tree of Structs as its meta tensors."""
+    if isinstance(tree, steps.Struct):
+        return tree.meta
+    if isinstance(tree, dict):
+        return {k: _metas(v) for k, v in tree.items()}
+    return [_metas(v) for v in tree]
+
+
+def step_counts(cfg, shape, mesh) -> dict:
+    """The global counts of ``shape``'s step of ``cfg`` under ``mesh``:
+    ``cost`` (``cost_analysis.analyze``'s dict) and ``memory``
+    (``output_bytes``, ``temp_bytes``), each stack walked at a few layers
+    on meta arguments and scaled to its depth."""
+    def count_at(c):
+        fn, args = steps.lowering_for(c, shape, mesh)
+        cost, mem = cost_analysis.count(fn, *_metas(args))
+        return {"cost": cost, "memory": {"output_bytes": mem["output_bytes"],
+                                         "temp_bytes": mem["temp_bytes"]}}
+    return cost_analysis.scaled_by_depth(cfg, count_at)
+
+
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
-            out_dir: str = DEFAULT_OUT, verbose: bool = True) -> dict:
+            out_dir: str = DEFAULT_OUT, verbose: bool = True,
+            counts: dict = None, counted_on: str = None) -> dict:
+    """The record of one (arch, shape, mesh); ``counts`` (as
+    :func:`step_counts` gives them, taken on the mesh ``counted_on``) are
+    reused where given, else counted here."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    n_dev = mesh.size
     t0 = time.time()
     parts = argument_parts(cfg, shape, mesh)
     part_bytes = {k: device_bytes(v, mesh) for k, v in parts.items()}
     params_shape = steps.abstract_params(cfg)
+    t_specs = time.time() - t0
+    if counts is None:
+        counts, counted_on = step_counts(cfg, shape, mesh), mesh_name
+    per_dev = cost_analysis.per_device(counts, n_dev)
+    mf = roofline.model_flops(cfg, shape, params_shape)
+    cost = per_dev["cost"]
+    rl = roofline.build(arch, shape_name, mesh_name, n_dev, cost, mf, hw=HW)
+    arg_bytes = sum(part_bytes.values())
+    mem = per_dev["memory"]
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
-        "n_devices": mesh.size, "status": "ok",
-        "t_specs_s": time.time() - t0,
-        "memory": {"argument_bytes": sum(part_bytes.values()),
-                   **{f"{k}_bytes": v for k, v in part_bytes.items()}},
+        "n_devices": n_dev, "status": "ok",
+        "t_specs_s": t_specs,
+        "memory": {"argument_bytes": arg_bytes,
+                   **{f"{k}_bytes": v for k, v in part_bytes.items()},
+                   "output_bytes": mem["output_bytes"],
+                   "temp_bytes": mem["temp_bytes"],
+                   "peak_per_device_bytes": (arg_bytes + mem["temp_bytes"]
+                                             + mem["output_bytes"])},
+        "cost_analysis": cost,
+        "per_device": PER_DEVICE,
+        "counted_on": counted_on,
+        "roofline": rl.to_dict(),
         "specs": {k: _spec_json(v) for k, v in parts.items()},
         "params": roofline.param_count(cfg, params_shape),
         "params_active": roofline.active_param_count(cfg, params_shape),
-        "model_flops": roofline.model_flops(cfg, shape, params_shape),
+        "model_flops": mf,
     }
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{arch}__{shape_name}__{mesh_name}.json").write_text(
         json.dumps(rec, indent=1))
     if verbose:
+        m = rec["memory"]
         print(f"OK {arch:24s} {shape_name:12s} {mesh_name:10s} "
-              f"args/dev {rec['memory']['argument_bytes'] / 2**30:8.3f} GiB  "
-              f"params {rec['params'] / 1e9:8.3f} B  "
-              f"model {rec['model_flops']:.3e} flop", flush=True)
+              f"counted on {counted_on:10s} "
+              f"mem/dev {m['peak_per_device_bytes'] / 2**30:8.2f} GiB  "
+              f"dom={rl.dominant:10s} "
+              f"C/M/X = {rl.compute_s * 1e3:.1f}/{rl.memory_s * 1e3:.1f}/"
+              f"{rl.collective_s * 1e3:.1f} ms", flush=True)
     return rec
 
 
@@ -131,6 +204,7 @@ def main(argv=None) -> None:
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     failures = []
+    counted = {}      # (arch, shape) -> (counts, the mesh counted on)
     for mp in meshes:
         for arch in archs:
             for shape in shapes:
@@ -142,7 +216,13 @@ def main(argv=None) -> None:
                         print(f"SKIP {arch} {shape} {mesh_name} (cached)")
                         continue
                 try:
-                    run_one(arch, shape, multi_pod=mp, out_dir=args.out)
+                    if (arch, shape) not in counted:
+                        counted[(arch, shape)] = (step_counts(
+                            get_config(arch), INPUT_SHAPES[shape],
+                            make_production_mesh(multi_pod=mp)), mesh_name)
+                    counts, on = counted[(arch, shape)]
+                    run_one(arch, shape, multi_pod=mp, out_dir=args.out,
+                            counts=counts, counted_on=on)
                 except Exception as e:  # noqa: BLE001
                     failures.append((arch, shape, mp, repr(e)))
                     Path(args.out).mkdir(parents=True, exist_ok=True)

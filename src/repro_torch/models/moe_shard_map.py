@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import cost_analysis
 from repro_torch.models import act_sharding
 from repro_torch.models.layers import dtype_of
 
@@ -180,7 +181,9 @@ def exchange(cfg: ModelConfig, p, xs, top_p, top_idx, lay: Dict,
 
     def all_to_all(t):
         # (dp, source rank, destination rank, ...) -> (dp, destination,
-        # source, ...): what each destination receives, source-major
+        # source, ...): what each destination receives, source-major; every
+        # shard's buckets are its bytes sent
+        cost_analysis.collective("all-to-all", t)
         return t.reshape((n_dp, EP, EP) + t.shape[2:]).transpose(1, 2)
 
     rx = all_to_all(send).reshape(G, EP * c_send, D)

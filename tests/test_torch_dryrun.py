@@ -8,7 +8,7 @@ phi4-mini on a (2, 4) mesh of forced host devices, in one child process
 at a small train, prefill and decode shape; the port counts the same
 arguments from their specs (``sharding.shard_shape``) on meta tensors,
 and the two must be equal.  The whole dry run (10 configs x 4 shapes x 2
-production meshes) touches no device."""
+production meshes), its cost terms included, touches no device."""
 import json
 import subprocess
 import sys
@@ -107,10 +107,12 @@ def test_roofline_takes_a_spec_and_resolves_none(monkeypatch):
 def test_dryrun_writes_every_record_without_a_device(tmp_path,
                                                      monkeypatch):
     """``--all --both-meshes``: 10 configs x 4 shapes x 2 meshes, 80 ``ok``
-    records, each with its specs, per-device argument bytes, parameter
-    counts and model flops; no tensor is made on a device (the CPU
-    allocator is refused), and the records match the reference's counts
-    (``param_count``, ``active_param_count``, ``model_flops``)."""
+    records, each with its specs, per-device argument bytes, cost terms
+    (``cost_analysis``, a ``roofline`` priced against ``h100_sxm``,
+    temporary and peak bytes), parameter counts and model flops; no
+    tensor is made on a device (the CPU allocator is refused), and the
+    records match the reference's counts (``param_count``,
+    ``active_param_count``, ``model_flops``)."""
     made = []
     for fn in ("empty", "zeros"):
         def meta_only(*a, _real=getattr(torch, fn), device=None, **kw):
@@ -125,11 +127,15 @@ def test_dryrun_writes_every_record_without_a_device(tmp_path,
     by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
     r = by[("llama3-405b", "train_4k", "pod2x16x16")]
     assert r["n_devices"] == 512 and r["memory"]["opt_state_bytes"] > 0
-    assert "hlo_analysis" not in r and "roofline" not in r
+    assert r["roofline"]["hw"]["name"] == "h100_sxm"
+    assert min(r["cost_analysis"]["flops"], r["cost_analysis"]["bytes"],
+               r["memory"]["temp_bytes"],
+               r["memory"]["peak_per_device_bytes"]) > 0
     assert r["specs"]["params"]["embed"] == ["model", ["pod", "data"]]
     assert r["memory"]["argument_bytes"] == sum(
         v for k, v in r["memory"].items() if k.endswith("_bytes")
-        and k != "argument_bytes")
+        and k not in ("argument_bytes", "output_bytes", "temp_bytes",
+                      "peak_per_device_bytes"))
     for name in ("deepseek-v3-671b", "qwen2-vl-2b"):
         jcfg = jbase.get_config(name)
         ps = jax.eval_shape(lambda: jmodel.init_params(

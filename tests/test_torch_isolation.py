@@ -48,7 +48,8 @@ def test_import_loads_no_jax_and_no_reference():
                  "examples.serve_batch", "examples.hybrid_scaling_demo",
                  "optim.optimizers", "launch.train", "launch.roofline",
                  "examples.quickstart", "models.moe",
-                 "configs.phi35_moe_42b"):
+                 "configs.phi35_moe_42b", "launch.dryrun",
+                 "launch.cost_analysis", "launch.dryrun_drl"):
         assert f"repro_torch.{name}" in res["modules"], name
 
 
