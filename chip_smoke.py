@@ -44,7 +44,15 @@ Phases (any failure exits non-zero):
    oracle and the wrong variants) and float32, timed beside SDPA (its
    kernels named), the repeated QK^T work beside the bound; WKV6 at heads
    of 1088 (2 heads) and 2560 (1 head) on several clusters a problem, each
-   pass (and the add of the clusters' parts) timed;
+   pass (and the add of the clusters' parts) timed; past one cluster, the
+   CFD kernels' global-memory kernels: the fused interval's scalar and
+   per-body instantiations at res 48 (4 envs, 50 dt; the mixed bank batch
+   for the per-body one) and res 96 (4 envs, 10 dt of 0.002), the packed
+   and the
+   full-grid SOR at res 71 (one slab, one launch a solve) and res 98 (two
+   slabs, a launch a round), 4 envs, iters 50, each held against its twin
+   and timed, its G, blocks and SMs reported, and each check must reject
+   a build whose wait on the neighbours before a half-sweep is missing;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -52,9 +60,14 @@ Phases (any failure exits non-zero):
    "pinball_re100"))`` at the same widths (act_dim 3, the pinball's 59
    probes padded to 149), 1 episode; the fused kernel's per-body
    instantiation must launch once per interval, its scalar one once per
-   warmup group;
+   warmup group; then ``train()`` at res 48 through the default backend
+   (4 envs, 1 episode of 4 actions after a 1 t.u. warmup): the fused
+   global-memory kernel must launch once an interval;
 3. the second path: one short episode with backend="pallas"; the
-   packed-SOR kernel must run, one launch per pressure solve;
+   packed-SOR kernel must run, one launch per pressure solve; then the
+   same at res 71 (dt 0.0025: the default 0.005 is past explicit
+   diffusion's limit there), one launch a solve of its global-memory
+   kernel;
 4. the language-model paths: ``lm_loss(backend="pallas")`` of
    phi4-mini-3.8b and of rwkv6-3b at full width and depth (random bf16
    params from a seed), B=1, S=4096, timed at the first and a second
@@ -72,7 +85,8 @@ Phases (any failure exits non-zero):
    the add of the clusters' parts a layer); a ``[holds]`` line each before
    the kernels line;
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
-   iters=50, one launch of its kernel, the residual reduced;
+   iters=50, one launch of its kernel, the residual reduced; and at res 71,
+   one launch of its global-memory kernel;
 6. golden physics through the fused kernel: the res-8 fixtures' Strouhal
    number, mean C_D and C_L amplitude within the reference's tolerances,
    the cylinder's through the scalar instantiation, the pinball's through
@@ -336,12 +350,14 @@ Each phase prints its seconds (``[phase N]``), and the run its whole
 seconds.  ``--phases 10,12,13,14,15,16,17,18,19`` runs any of those nine
 phases alone after the build (a partial run: no kernels line, no result
 line).  ``--compare TREE`` times phase 1's flash (dh 128) and WKV6 (N 64)
-yardsticks of another checkout's ``repro_torch`` (its kernels built into
+yardsticks and the CFD kernels at the training shape (with a digest of
+each output) of another checkout's ``repro_torch`` (its kernels built into
 its own ``build/``) and exits: run it on the older, the newer, the newer
 and the older tree in one call to compare two commits on one card.
 
 Imports nothing of jax or of the reference package.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -483,9 +499,10 @@ def bound(nbytes, *work):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fused_case(dev, cfg, n_env, n_steps):
+def fused_case(dev, cfg, n_env, n_steps, **kw):
     """Inputs of a fused-kernel check and its two realizations: n_env
-    perturbed impulsive starts mixing jets and rotary."""
+    perturbed impulsive starts mixing jets and rotary (``kw``: the
+    kernel's ``cluster`` and ``force_global``)."""
     import numpy as np
     import torch
     from repro_torch.cfd import grid, solver
@@ -504,7 +521,7 @@ def fused_case(dev, cfg, n_env, n_steps):
 
     def kernel():
         return ops.fused_interval_cuda(cfg, ga, flow, jet, n_steps,
-                                       act_mode=mode)
+                                       act_mode=mode, **kw)
 
     def plain():
         return ops.fused_interval_plain(cfg, ga, flow, jet, n_steps,
@@ -579,34 +596,41 @@ def hold_fused(dev, cfg, n_env, n_steps, case=fused_case, what=""):
     return errs, kernel, plain
 
 
-# The planted fault of the cluster kernels' shared half-sweep
+# The planted faults of the CFD kernels' half-sweeps, one build of each of
+# the three libraries with both: in the cluster kernels' shared half-sweep
 # (csrc/sor_packed.cuh, used by the fused kernel and the two SOR slab
-# kernels): the edge rows send their neighbours the value from before the
+# kernels) the edge rows send their neighbours the value from before the
 # half-sweep, so every SOR halo row lags one half-sweep, which is what an
 # edge row reads when its wait on the halo exchange is missing or waits on
-# the wrong phase.
-STALE_HALO = ("st_async(to_prev + 4 * k, val, link.prev_bar)",
-              "st_async(to_next + 4 * k, val, link.next_bar)")
-STALE_HALO_HEADER = "sor_packed.cuh"
+# the wrong phase; in the global-memory kernels (csrc/grid_sync.cuh) the
+# wait on the neighbours before each half-sweep is missing, so an edge row
+# reads the other colour's row across its band's edge as it stands, a
+# half-sweep stale or ahead.  (file, line, its faulty version)
+STALE_HALO = (
+    ("sor_packed.cuh", "st_async(to_prev + 4 * k, val, link.prev_bar)",
+     "st_async(to_prev + 4 * k, self, link.prev_bar)"),
+    ("sor_packed.cuh", "st_async(to_next + 4 * k, val, link.next_bar)",
+     "st_async(to_next + 4 * k, self, link.next_bar)"),
+    ("grid_sync.cuh", "wait_ranks(flags, lo, hi, rank, gen);",
+     "__syncthreads();"))
 STALE_HALO_KERNELS = ("fused_interval", "poisson_sor", "poisson_sor_full")
 
 
 def start_stale_halo_build():
-    """Start nvcc on copies of the three cluster kernels built with the
-    planted fault in their shared half-sweep, beside the other builds;
+    """Start nvcc on copies of the three CFD kernel libraries built with
+    the planted faults in their half-sweeps, beside the other builds;
     returns {kernel: (library path, process)}."""
     from repro_torch.kernels import build
-    text = (build.CSRC / STALE_HALO_HEADER).read_text()
-    for line in STALE_HALO:
-        if text.count(line) != 1:
-            fail(f"{STALE_HALO_HEADER} no longer holds {line!r} once: the "
-                 f"stale-halo variant cannot be planted")
-        text = text.replace(line, line.replace(", val,", ", self,"))
     out = build.BUILD_DIR / "stale_halo"
     out.mkdir(parents=True, exist_ok=True)
     for name in {src for k in STALE_HALO_KERNELS for src in build.SOURCES[k]}:
         (out / name).write_bytes((build.CSRC / name).read_bytes())
-    (out / STALE_HALO_HEADER).write_text(text)
+    for header, line, wrong in STALE_HALO:
+        text = (out / header).read_text()
+        if text.count(line) != 1:
+            fail(f"{header} no longer holds {line!r} once: the stale-halo "
+                 f"variant cannot be planted")
+        (out / header).write_text(text.replace(line, wrong))
     jobs = {}
     for kernel in STALE_HALO_KERNELS:
         lib = out / f"lib{kernel}_stale_halo.so"
@@ -656,15 +680,15 @@ def stale_halo_rejected(dev, wrong, cfg, n_env, cases, case=fused_case,
         for n_steps, right_errs in cases:
             errs = fused_errors(*case(dev, cfg, n_env, n_steps))
             readings[f"{n_steps}_dt"] = errs
-            held = fused_report(f"wrong kernel{what}, SOR halo rows one "
-                                f"half-sweep stale, res {cfg.res} "
-                                f"N={n_env} {n_steps} dt", errs)
+            held = fused_report(f"wrong kernel{what}, SOR halo rows stale "
+                                f"(planted), res {cfg.res} N={n_env} "
+                                f"{n_steps} dt", errs)
             rejected = rejected or not held
             print(f"[kernels]   the right kernel there: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in right_errs.items()))
     if not rejected:
-        fail("TOL_FUSED cannot tell a fused kernel whose SOR halo rows lag "
-             "one half-sweep from a right one")
+        fail(f"TOL_FUSED cannot tell a fused kernel{what} whose SOR halo "
+             f"rows are stale from a right one")
     return readings
 
 
@@ -787,6 +811,246 @@ def check_fused_bodies(dev, cfg, n_env, n_steps, scalar_ms):
             "shape": f"res {cfg.res}, {n_env} envs of a mixed bank batch "
                      f"(cylinder jets, pinball and tandem rotary), "
                      f"{n_steps} dt, {cfg.poisson_iters} SOR pairs per dt"}
+
+
+def fused_global_reading(dev, cfg, n_env, n_steps, case, what, plain=True):
+    """The fused global-memory kernel on ``case``'s inputs: held against
+    its twin, one launch, timed, with its G, blocks, SMs and bound."""
+    from repro_torch.kernels.actuation import ops
+    errs, kernel, twin = hold_fused(dev, cfg, n_env, n_steps, case, what)
+    plan = ops.fused_interval_cuda.last_plan
+    if plan.kernel != "global" or plan.launches != 1:
+        fail(f"fused_interval{what} res {cfg.res} ran {plan}: expected one "
+             f"launch of the global-memory kernel")
+    ms = cuda_ms(kernel, 3)
+    size, blocks, sms_busy = fused_launch()
+    plain_ms = cuda_ms(twin, 1) if plain else None
+    nb = ops.fused_interval_cuda.last_n_bodies
+    n_geoms = (len({BANK_ENVS[i % len(BANK_ENVS)][0] for i in range(n_env)})
+               if nb else 1)
+    flops, nbytes = ops.work(cfg, n_env, n_steps, nb, n_geoms)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    resident = ops.resident_blocks(dev, cfg, size, nb)
+    chain = n_steps * (2 * cfg.poisson_iters + 2)
+    print(f"[kernels] fused_interval{what} res {cfg.res} (ny {cfg.ny}, nx "
+          f"{cfg.nx}), {n_env} envs, {n_steps} dt: kernel {ms:.4f} ms"
+          + (f", plain twin {plain_ms:.4f} ms" if plain else "")
+          + f", bound {bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} "
+          f"GFLOP, {nbytes / 1e6:.4f} MB), {ms / bound_ms:.1f}x it; G "
+          f"{size}, {blocks} blocks ran on {sms_busy} distinct SMs ({resident}"
+          f" blocks resident at once), workspace "
+          f"{plan.workspace_bytes / 1e6:.3f} MB; {chain} synchronisations in "
+          f"sequence, {1e3 * ms / chain:.4f} us each on average")
+    return {"max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "group": size, "blocks": blocks,
+            "sms_busy": sms_busy, "resident_blocks": resident,
+            "workspace_bytes": plan.workspace_bytes,
+            "us_per_synchronisation": 1e3 * ms / chain,
+            "shape": f"res {cfg.res}, {n_env} envs, {n_steps} dt, "
+                     f"{cfg.poisson_iters} SOR pairs per dt"}
+
+
+def check_fused_global(dev, wrong):
+    """The fused kernel past one cluster (csrc/fused_interval.cu
+    fused_interval_global_kernel): the scalar and the per-body (mixed bank)
+    instantiation at res 48 (4 envs, 50 dt) and res 96 (4 envs, 10 dt)
+    held against their twins and timed; the planted stale halo rejected at
+    res 48; returns its entry under row 1 of the kernels line."""
+    from repro_torch.cfd.grid import GridConfig
+    res48 = GridConfig(res=48)
+    res96 = GridConfig(res=96, dt=FINE_DT[96])
+    row = fused_global_reading(dev, res48, 4, 50, fused_case, " global")
+    row.update(name="fused_interval_global", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_interval.cu",
+               replaces="src/repro/kernels/actuation/kernel.py:39",
+               library="no single PyTorch call computes this")
+    short = hold_fused(dev, res48, 4, 1, what=" global")[0]
+    row["stale_halo_variant"] = stale_halo_rejected(
+        dev, wrong, res48, 4, ((50, row["errors"]), (1, short)),
+        what=" global")
+    row["res_96"] = fused_global_reading(dev, res96, 4, 10, fused_case,
+                                         " global", plain=False)
+    bodies = fused_global_reading(dev, res48, 4, 50, bank_case,
+                                  " global per-body (mixed bank)")
+    bodies["ms_over_scalar"] = bodies["ms"] / row["ms"]
+    bodies["res_96"] = fused_global_reading(
+        dev, res96, 4, 10, bank_case, " global per-body (mixed bank)",
+        plain=False)
+    row["per_body"] = bodies
+    return row
+
+
+def check_sor_global(dev, full, wrong):
+    """An SOR slab kernel past one cluster (csrc/sor_slabs.cuh
+    sor_slabs_global): res 71 (one slab, 1 launch a solve) and res 98 (two
+    slabs, 13 launches a solve), 4 envs, iters 50, held against its twin
+    and timed; the planted stale halo rejected at res 71; returns its
+    entry under the kernel's row of the kernels line."""
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.poisson import ops
+    name, lib, source, replaces, solve = SOR_KERNELS[full]
+    wrapper = sor_wrapper(full)
+    row = {}
+    for res in (71, 98):
+        cfg = GridConfig(res=res)
+        nslabs = ops._pick_nslabs(cfg.nx)
+        kernel, plain = sor_case(dev, cfg, 4, 50, 2 if full else 1, full)
+        n0 = wrapper.launches_global
+        err = sor_error(kernel, plain)
+        per_solve = wrapper.launches_global - n0
+        want = 1 if nslabs == 1 else 13
+        if wrapper.last_kernel != "global" or per_solve != want:
+            fail(f"{solve} at res {res} took {per_solve} launches of the "
+                 f"{wrapper.last_kernel} kernel: expected {want} of the "
+                 f"global-memory kernel")
+        if not err <= TOL_SOR:
+            fail(f"{name} global at res {res} differs from its twin by "
+                 f"{err:.3e}")
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 1)
+        size, blocks, sms_busy = sor_launch(full)
+        flops, nbytes = ops.work(4, cfg.ny, cfg.nx, 50, 4)
+        bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+        resident = ops.resident_blocks(dev, cfg.ny, cfg.nx // 2 // nslabs,
+                                       size, full)
+        waits = 2 * 4 * 13
+        print(f"[kernels] {name} global res {res} (grid ({cfg.ny}, "
+              f"{cfg.nx}), {nslabs} slab(s)) N=4 {solve} at iters=50: "
+              f"max|kernel - plain| {err:.3e} (tol {TOL_SOR:.0e}); solve "
+              f"{ms:.4f} ms in {per_solve} launch(es), plain twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB), "
+              f"{ms / bound_ms:.1f}x it; G {size}, {blocks} blocks ran on "
+              f"{sms_busy} distinct SMs ({resident} resident at once); "
+              f"{1e3 * ms / waits:.4f} us per half-sweep")
+        reading = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "launches_per_solve": per_solve,
+                   "group": size, "blocks": blocks, "sms_busy": sms_busy,
+                   "resident_blocks": resident,
+                   "half_sweep_us": 1e3 * ms / waits,
+                   "shape": f"one {solve} solve: res {res}, grid ({cfg.ny},"
+                            f" {cfg.nx}), {nslabs} slab(s), 4 grids, 13 "
+                            f"rounds"}
+        if res == 71:
+            with library_swapped(lib, wrong):
+                stale = sor_error(kernel, plain)
+            print(f"[kernels] wrong kernel, SOR halo rows stale (planted), "
+                  f"{name} global res 71 N=4: max|kernel - plain| "
+                  f"{stale:.3e} (tol {TOL_SOR:.0e}; the right kernel "
+                  f"{err:.3e})")
+            if stale <= TOL_SOR:
+                fail(f"TOL_SOR cannot tell a {name} global kernel whose "
+                     f"halo rows are stale from a right one")
+            row.update(reading, name=f"{name}_global", route="cuda",
+                       source=source, replaces=replaces,
+                       library="no single PyTorch call computes this",
+                       stale_halo_variant_max_abs_err=stale)
+        else:
+            row["res_98"] = reading
+    return row
+
+
+def fused_beside_cluster(dev):
+    """On res 38, which both fused kernels serve: the global-memory kernel,
+    forced at the cluster kernel's size, against the cluster kernel on one
+    input (4 envs, 50 dt), within TOL_FUSED (a point's arithmetic and the
+    order of the sums are the same in both, so the bits are expected to
+    agree; reported), each timed."""
+    import torch
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.actuation import ops
+    cfg = GridConfig(res=38)
+    cluster_kernel = fused_case(dev, cfg, 4, 50)[0]
+    (ca, co) = cluster_kernel()
+    size = ops.fused_interval_cuda.last_cluster
+    global_kernel = fused_case(dev, cfg, 4, 50, cluster=size,
+                               force_global=True)[0]
+    (ga, go) = global_kernel()
+    if (ops.fused_interval_cuda.last_kernel != "global"
+            or ops.fused_interval_cuda.last_cluster != size):
+        fail(f"the forced fused kernel at res 38 ran "
+             f"{ops.fused_interval_cuda.last_plan}: expected the "
+             f"global-memory kernel at G {size}")
+    torch.cuda.synchronize()
+    pairs = dict(zip("uvp", zip(ca, ga)), cd=(co.cd, go.cd),
+                 cl=(co.cl, go.cl))
+    errs = {k: float((x - y).abs().max()) for k, (x, y) in pairs.items()}
+    equal = all(torch.equal(x, y) for x, y in pairs.values())
+    cluster_ms, global_ms = cuda_ms(cluster_kernel, 3), cuda_ms(global_kernel,
+                                                                3)
+    print(f"[kernels] fused_interval res 38 N=4 50 dt, global-memory kernel "
+          f"at G {size} beside the cluster kernel of {size} blocks: "
+          f"bit-equal {equal}, max|global - cluster| " + ", ".join(
+              f"{k} {v:.3e} (tol {TOL_FUSED[k]:.0e})" for k, v in errs.items())
+          + f"; global {global_ms:.4f} ms, cluster {cluster_ms:.4f} ms")
+    if not all(v <= TOL_FUSED[k] for k, v in errs.items()):
+        fail(f"the fused global-memory kernel at res 38 differs from the "
+             f"cluster kernel: {errs}")
+    return {"res": 38, "group": size, "bit_equal": equal,
+            "max_abs_err": max(errs.values()), "errors": errs,
+            "ms": global_ms, "cluster_ms": cluster_ms}
+
+
+def sor_beside_cluster(dev, full):
+    """On res 70, which both SOR slab kernels serve (two slabs): the
+    global-memory kernel, forced at the cluster kernel's size, against
+    the cluster kernel on one input (4 grids, 13 rounds, a launch each):
+    bit for bit, since a half-sweep's arithmetic on a row is the same in
+    both; each timed."""
+    import numpy as np
+    import torch
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.poisson import ops
+    name, _, _, _, _ = SOR_KERNELS[full]
+    wrapper = sor_wrapper(full)
+    cfg = GridConfig(res=70)
+    nslabs = ops._pick_nslabs(cfg.nx)
+    rng = np.random.default_rng(5)
+    width = cfg.nx if full else cfg.nx // 2
+    ins = [torch.tensor(rng.standard_normal((4, cfg.ny, width)),
+                        dtype=torch.float32, device=dev)
+           for _ in range(2 if full else 4)]
+    kw = dict(dx=cfg.dx, dy=cfg.dy, omega=cfg.poisson_omega, nslabs=nslabs,
+              inner_iters=4)
+
+    def solve(**pin):
+        out = tuple(ins[:1] if full else ins[:2])
+        for _ in range(13):
+            out = wrapper(*out, *ins[len(out):], **kw, **pin)
+            out = (out,) if full else out
+        return out
+
+    a = solve()
+    if wrapper.last_kernel != "cluster":
+        fail(f"{name} at res 70 ran the {wrapper.last_kernel} kernel: "
+             f"expected the cluster kernel")
+    size = wrapper.last_cluster
+    b = solve(cluster=size, force_global=True)
+    if wrapper.last_kernel != "global" or wrapper.last_cluster != size:
+        fail(f"the forced {name} at res 70 ran {wrapper.last_plan}: "
+             f"expected the global-memory kernel at G {size}")
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    cluster_ms = cuda_ms(solve, 5)
+    global_ms = cuda_ms(lambda: solve(cluster=size, force_global=True), 5)
+    print(f"[kernels] {name} res 70 ({nslabs} slabs) N=4, 13 rounds: "
+          f"global-memory kernel at G {size} beside the cluster kernel of "
+          f"{size} blocks: bit-equal {equal} (max diff {err:.3e}); global "
+          f"{global_ms:.4f} ms, cluster {cluster_ms:.4f} ms a solve")
+    if not equal:
+        fail(f"the {name} global-memory kernel at res 70 differs from the "
+             f"cluster kernel by {err:.3e}")
+    return {"res": 70, "group": size, "bit_equal": equal,
+            "max_abs_err": err, "ms": global_ms, "cluster_ms": cluster_ms}
+
+
+# dt on the finest grids run here: explicit Euler diffusion is stable for
+# dt <= Re h^2 / 4 (h the cell size), 4.96e-3 at res 71 and 2.72e-3 at res
+# 96 at Re 100, below the default 5e-3; halved and cut to 2e-3
+FINE_DT = {71: 0.0025, 96: 0.002}
 
 
 # the two SOR slab kernels: (name, library, source, the TPU kernel it
@@ -921,12 +1185,12 @@ def check_sor(dev, cfg, n_env, iters, full=False, wrong=None):
     if wrong is not None:
         with library_swapped(lib, wrong):
             stale = sor_error(kernel, plain)
-        print(f"[kernels] wrong kernel, SOR halo rows one half-sweep stale, "
+        print(f"[kernels] wrong kernel, SOR halo rows stale (planted), "
               f"res {cfg.res} N={n_env}: max|kernel - plain| {stale:.3e} "
               f"(tol {TOL_SOR:.0e}; the right kernel {err:.3e})")
         if stale <= TOL_SOR:
-            fail(f"TOL_SOR cannot tell a {name} kernel whose halo rows lag "
-                 f"one half-sweep from a right one")
+            fail(f"TOL_SOR cannot tell a {name} kernel whose halo rows are "
+                 f"stale from a right one")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1026,6 +1290,33 @@ def sass_count(lib, op, function=""):
     return sum(len(re.findall(rf"\b{op}\b", body))
                for name, body in sass_functions(lib).items()
                if function in name)
+
+
+def sass_profile(lib, function):
+    """The SASS of the functions of a built library whose mangled name
+    holds ``function``: {name: {opcode: count, "total": instructions}},
+    each opcode without its modifiers (LDS, STS, LD, ST, LDG, ...), and
+    the registers, stack and local bytes ``cuobjdump -res-usage`` reads
+    for it."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-res-usage", str(lib)],
+                         capture_output=True, text=True, timeout=120)
+    usage = {m[0]: {"REG": int(m[1]), "STACK": int(m[2]),
+                    "LOCAL": int(m[3])}
+             for m in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)"
+                                 r" SHARED:\d+ LOCAL:(\d+)", res.stdout)}
+    out = {}
+    for name, body in sass_functions(lib).items():
+        if function not in name:
+            continue
+        ops = collections.Counter(
+            op.split(".")[0] for op in re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+                body))
+        out[name] = {"total": sum(ops.values()), **usage.get(name, {}),
+                     **dict(sorted(ops.items()))}
+    return out
 
 
 def check_flash(dev, cfg, S):
@@ -1430,6 +1721,9 @@ def wrappers():
 
 FLASH_WRAPPERS = ("flash_attention", "flash_attention_f16",
                   "flash_attention_fp32")
+# the CFD wrappers, each of which launches a cluster or a global-memory
+# kernel
+GLOBAL_WRAPPERS = ("fused_interval", "rb_sor_slabs_packed", "rb_sor_slabs")
 
 
 def reset_counts():
@@ -1437,6 +1731,8 @@ def reset_counts():
     for fn in w.values():
         fn.launches = 0
     w["fused_interval"].launches_per_body = 0
+    for name in GLOBAL_WRAPPERS:
+        w[name].launches_global = 0
     for name in FLASH_WRAPPERS:
         w[name].column_split_launches = 0
     w["wkv6"].launches_by_dtype = dict.fromkeys(
@@ -1447,12 +1743,15 @@ def reset_counts():
 def counts():
     """Launches by kernel since reset_counts; and, as views of those, the
     fused kernel's per-body instantiation (``fused_interval_per_body``),
-    the flash kernels' column-split launches past dh 256
+    the CFD wrappers' global-memory kernels (``<name>_global``), the flash
+    kernels' column-split launches past dh 256
     (``flash_attention_column_split``), WKV6's float16 launches
     (``wkv6_float16``) and its launches past a head of 1024
     (``wkv6_multi_cluster``)."""
     w = wrappers()
     out = {name: fn.launches for name, fn in w.items()}
+    for name in GLOBAL_WRAPPERS:
+        out[f"{name}_global"] = w[name].launches_global
     out["fused_interval_per_body"] = w["fused_interval"].launches_per_body
     out["flash_attention_column_split"] = sum(
         w[name].column_split_launches for name in FLASH_WRAPPERS)
@@ -1463,7 +1762,8 @@ def counts():
 
 # the count keys that are views of another kernel's launches
 COUNT_VIEWS = ("fused_interval_per_body", "flash_attention_column_split",
-               "wkv6_float16", "wkv6_multi_cluster")
+               "wkv6_float16", "wkv6_multi_cluster",
+               *(f"{name}_global" for name in GLOBAL_WRAPPERS))
 
 
 def run_train(backend, env_kw, episodes, grid_kw, scenarios=None):
@@ -1639,12 +1939,18 @@ def run_sor_full(dev, cfg, n_env, iters):
                                       omega=cfg.poisson_omega,
                                       packed=False))
     launched = counts()["rb_sor_slabs"]
+    kernel = ops.rb_sor_slabs_cuda.last_kernel
+    if kernel != ops.slab_kernel(cfg.ny, cfg.nx // 2) or (
+            kernel == "global" and counts()["rb_sor_slabs_global"] != 1):
+        fail(f"rb_sor(packed=False) at res {cfg.res} ran the {kernel} "
+             f"kernel, expected the "
+             f"{ops.slab_kernel(cfg.ny, cfg.nx // 2)} one")
     r0 = float(residual(torch.zeros_like(rhs), rhs, cfg.dx, cfg.dy
                         ).abs().max())
     r1 = float(residual(p, rhs, cfg.dx, cfg.dy).abs().max())
     print(f"[rb_sor full] res {cfg.res}, {n_env} grids, iters={iters}: "
-          f"{launched} launches in {secs:.4f} s, max residual {r0:.4e} -> "
-          f"{r1:.4e}")
+          f"{launched} launches of the {kernel} kernel in {secs:.4f} s, max "
+          f"residual {r0:.4e} -> {r1:.4e}")
     if ops._pick_nslabs(cfg.nx) != 1 or launched != 1:
         fail(f"rb_sor(packed=False) launched its kernel {launched} times, "
              f"expected 1 on a one-slab grid")
@@ -5984,24 +6290,57 @@ def compare_tree(card):
     configs run, read from TREE's ``repro_torch`` (its kernels built into
     TREE's ``build/``) with this script's helpers, so that two commits are
     timed alike: the bf16 flash kernel at phi4-mini's shape (dh 128, held
-    against its twin first) and the WKV6 call at rwkv6-3b's (N 64).  One
-    process reads one tree: run it in turns on the older, the newer, the
-    newer and the older tree in one call on one card.  Prints one JSON
-    line; no result line."""
+    against its twin first), the WKV6 call at rwkv6-3b's (N 64), and the
+    CFD kernels at the training shape (res 16, 4 envs: the fused interval's
+    scalar and per-body instantiations over 50 dt, the packed and the
+    full-grid SOR solve at iters 50) and on the largest grids their
+    cluster kernels serve (the scalar fused interval at res 38, the packed
+    solve at res 70), each with a digest of its output's bytes, which two
+    trees that compute alike share; and the SASS of the cluster kernels
+    (:func:`sass_profile`: registers and instructions by opcode), where
+    two builds that time apart differ.  One process reads
+    one tree: run it in turns on the older, the newer, the newer and the
+    older tree in one call on one card.  Prints one JSON line; no result
+    line."""
+    import hashlib
     import torch
+    from repro_torch.cfd.grid import GridConfig
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     dev = torch.device("cuda")
-    _, secs = wall(lambda: build.build(["flash_attention", "wkv6"]))
+    _, secs = wall(lambda: build.build(["flash_attention", "wkv6",
+                                        *STALE_HALO_KERNELS]))
     phi, rwkv = get_config("phi4-mini-3.8b"), get_config("rwkv6-3b")
     flash = flash_case(dev, 1, 4096, phi.num_heads, phi.num_kv_heads,
                        phi.resolved_head_dim, 0, 4)[2]
     wkv6 = wkv6_case(dev, rwkv, 4096)[1]
+    res16, res38, res70 = (GridConfig(res=r) for r in (16, 38, 70))
+    cfd = {"fused_interval_scalar": fused_case(dev, res16, 4, 50)[0],
+           "fused_interval_per_body": bank_case(dev, res16, 4, 50)[0],
+           "rb_sor_planes": sor_case(dev, res16, 4, 50)[0],
+           "rb_sor_full": sor_case(dev, res16, 4, 50, 2, True)[0],
+           "fused_interval_scalar_res38": fused_case(dev, res38, 4, 50)[0],
+           "rb_sor_planes_res70": sor_case(dev, res70, 4, 50)[0]}
+    readings = {}
+    for name, kernel in cfd.items():
+        out = kernel()
+        if name.startswith("fused"):
+            out = (*out[0], out[1].cd, out[1].cl)
+        digest = hashlib.sha256()
+        for t in out:
+            digest.update(t.cpu().numpy().tobytes())
+        readings[name] = {"ms": cuda_ms(kernel, 50, warm=False),
+                          "sha256": digest.hexdigest()[:16]}
     print(json.dumps({
         "tree": str(build.CSRC.parents[3]), "card": card,
         "build_s": secs,
         "flash_phi4_mini_bf16_S4096_ms": cuda_ms(flash, 20),
-        "wkv6_rwkv6_3b_bf16_S4096_ms": cuda_ms(wkv6, 10)}))
+        "wkv6_rwkv6_3b_bf16_S4096_ms": cuda_ms(wkv6, 10),
+        "cfd": readings,
+        "sass": {**sass_profile(build.library_path("fused_interval"),
+                                "fused_interval_kernel"),
+                 **sass_profile(build.library_path("poisson_sor"),
+                                "cluster")}}))
 
 
 def main():
@@ -6019,7 +6358,9 @@ def main():
                          "before phase 10)")
     ap.add_argument("--compare", metavar="TREE", default="",
                     help="time phase 1's flash (dh 128) and WKV6 (N 64) "
-                         "yardsticks of TREE's repro_torch (a checkout "
+                         "yardsticks and the CFD kernels at the training "
+                         "shape (each output's digest beside its time) "
+                         "of TREE's repro_torch (a checkout "
                          "root, e.g. an older commit unpacked with git "
                          "archive) and exit: no kernels line, no result")
     args = ap.parse_args()
@@ -6118,6 +6459,15 @@ def main():
                     wrong=stale_halo["poisson_sor"])
     sor_full = check_sor(dev, res16, n_env=4, iters=50, full=True,
                          wrong=stale_halo["poisson_sor_full"])
+    # past one cluster: the global-memory kernels
+    fused["global"] = check_fused_global(dev, stale_halo["fused_interval"])
+    sor["global"] = check_sor_global(dev, False, stale_halo["poisson_sor"])
+    sor_full["global"] = check_sor_global(dev, True,
+                                          stale_halo["poisson_sor_full"])
+    # the two kernels of each function on a grid both serve
+    fused["global"]["beside_cluster"] = fused_beside_cluster(dev)
+    sor["global"]["beside_cluster"] = sor_beside_cluster(dev, False)
+    sor_full["global"]["beside_cluster"] = sor_beside_cluster(dev, True)
     flash = check_flash(dev, get_config("phi4-mini-3.8b"), S=4096)
     flash["dh_256"] = check_flash_wide(dev)
     flash["float16"] = check_flash_f16(dev, get_config("phi4-mini-3.8b"))
@@ -6161,6 +6511,26 @@ def main():
     bodies["launches"] = launched["fused_interval_per_body"]
     bodies["path"] = ("train(scenarios=('cyl_re100', 'pinball_re100'), "
                       "backend='fused'), warmup + 1 episode")
+
+    # past one cluster: the default backend at res 48 runs the fused
+    # global-memory kernel, once for the warmup and once an interval
+    wide_env = dict(steps_per_action=50, actions_per_episode=4,
+                    warmup_time=1.0)
+    print("[train fused res 48] full width: res 48 (ny 198, nx 1056), 50 dt "
+          "per action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs, "
+          "the default backend; depth cut: 1 episode of 4 actions after a "
+          "1 t.u. warmup")
+    launched, _ = run_train("fused", wide_env, 1, dict(res=48))
+    intervals = 1 + wide_env["actions_per_episode"]
+    if (launched["fused_interval_global"] != intervals
+            or launched["fused_interval"] != intervals):
+        fail(f"train() at res 48 launched the fused kernel "
+             f"{launched['fused_interval']} times, "
+             f"{launched['fused_interval_global']} of them the global-memory"
+             f" kernel: expected {intervals}, all global (one an interval)")
+    fused["global"]["launches"] = launched["fused_interval_global"]
+    fused["global"]["path"] = ("train(backend='fused') at res 48, warmup + 1 "
+                               "episode of 4 actions")
     done(2)
 
     # 3. the second path: one short episode with the packed-SOR kernel
@@ -6181,6 +6551,26 @@ def main():
              f"solve ({solves})")
     sor["launches"] = launched["rb_sor_slabs_packed"]
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
+
+    # past one cluster: res 71, one slab no cluster holds, on the packed
+    # SOR's global-memory kernel, one launch a solve
+    print(f"[train pallas res 71] res 71 (ny 292, nx 1562: one slab), dt "
+          f"{FINE_DT[71]}, 4 envs; depth cut: 1 episode of 2 actions after "
+          f"a 1 t.u. warmup")
+    launched, _ = run_train("pallas", dict(steps_per_action=50,
+                                        actions_per_episode=2,
+                                        warmup_time=1.0), 1,
+                            dict(res=71, dt=FINE_DT[71]))
+    solves = round(1.0 / FINE_DT[71]) + 2 * 50
+    if (launched["rb_sor_slabs_packed_global"] != solves
+            or launched["rb_sor_slabs_packed"] != solves):
+        fail(f"the pallas path at res 71 launched rb_sor_slabs_packed "
+             f"{launched['rb_sor_slabs_packed']} times, "
+             f"{launched['rb_sor_slabs_packed_global']} of them the "
+             f"global-memory kernel: expected {solves}, all global")
+    sor["global"]["launches"] = launched["rb_sor_slabs_packed_global"]
+    sor["global"]["path"] = ("train(backend='pallas') at res 71, warmup + 1 "
+                             "episode of 2 actions")
     done(3)
 
     # 4. the language-model loss paths at full width
@@ -6249,6 +6639,10 @@ def main():
     # 5. the full-grid drop-in solve
     sor_full["launches"] = run_sor_full(dev, res16, n_env=4, iters=50)
     sor_full["path"] = "rb_sor(packed=False), res 16, 4 grids, iters=50"
+    sor_full["global"]["launches"] = run_sor_full(
+        dev, GridConfig(res=71), n_env=4, iters=50)
+    sor_full["global"]["path"] = ("rb_sor(packed=False), res 71, 4 grids, "
+                                  "iters=50")
     done(5)
 
     # 6. golden physics through the fused kernel

@@ -117,9 +117,9 @@ class CylinderEnv:
     explicit x-slabs over the "model" axis (the plan's n_ranks), every slab
     of an env on ``device``; its warmup runs the un-decomposed "reference"
     backend, as the reference's does (the two solve the same equations).
-    ``cluster`` is the fused kernel's cluster size on the card: None, its
-    own choice for each launch's env count, until :meth:`pin_cluster`
-    fixes it."""
+    ``cluster`` is the fused kernel's blocks an env on the card (its
+    cluster size, or G on a grid past one cluster): None, its own choice
+    for each launch's env count, until :meth:`pin_cluster` fixes it."""
 
     def __init__(self, cfg: EnvConfig = EnvConfig(), *,
                  backend: Optional[str] = None, mesh=None, device="cuda"):
@@ -144,11 +144,11 @@ class CylinderEnv:
         self._group_cache = {}   # (re, act_mode, geometry) -> (FlowState, cd0)
 
     def pin_cluster(self, n_envs: int, per_body: bool) -> None:
-        """Fix the fused kernel's cluster size to the size it picks for
-        ``n_envs`` envs on this card: a fleet pins the whole batch's size,
-        so a process's env shard runs each env as the whole batch would
-        (the cluster size orders the force sums).  A no-op off the card or
-        off the fused backend."""
+        """Fix the fused kernel's blocks an env to those it picks for
+        ``n_envs`` envs on this card (the cluster size, or G past one
+        cluster): a fleet pins the whole batch's, so a process's env shard
+        runs each env as the whole batch would (the blocks an env order the
+        force sums).  A no-op off the card or off the fused backend."""
         if self.device.type != "cuda" or self.backend != "fused":
             return
         from repro_torch.kernels.actuation import ops as actuation_ops

@@ -337,11 +337,12 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
     ``(G, ...)`` bank from which each env takes its own geometry.
 
     ``backend="fused"`` runs the interval through
-    ``repro_torch.kernels.actuation``: on a CUDA tensor the hand-written
-    fused-interval kernel, on a CPU tensor its plain twin.  A call the
-    kernel cannot serve raises on a CUDA tensor; on a CPU tensor an odd
-    width falls back to the reference loop with a once-per-shape warning.
-    ``cluster`` fixes the kernel's cluster size on the card (None: its own
+    ``repro_torch.kernels.actuation``: on a CUDA tensor a hand-written
+    fused-interval kernel (the cluster kernel, or past one cluster the
+    global-memory kernel), on a CPU tensor its plain twin.  An odd width
+    raises on a CUDA tensor; on a CPU tensor it falls back to the reference
+    loop with a once-per-shape warning.  ``cluster`` fixes the kernel's
+    blocks an env on the card (the cluster size, or G; None: its own
     choice; the CPU twin and the other backends ignore it).  Every other
     backend loops :func:`step` (``mesh`` / ``halo_inner`` for "halo"; the
     fused kernel is single-rank)."""

@@ -33,19 +33,21 @@ COUNTERS: list = []
 
 
 @contextlib.contextmanager
-def counted(kernel: str, work, launches: int = 1):
+def counted(kernel: str, work, launches=1):
     """Run a wrapper's body as one call of ``kernel``: under an active cost
     counter the call is recorded once, with ``work()`` (the kernel's
     ``(flops, bytes)`` from the call's shapes) and the ``launches`` the
-    card makes for it, and the ops the body issues (the twin's on CPU or
-    meta tensors, the padding and copies on the card) are not counted
+    card makes for it (a count, or a function that returns it, called
+    only under a counter), and the ops the body issues (the twin's on CPU
+    or meta tensors, the padding and copies on the card) are not counted
     themselves; only the storages that outlive the body count as
     allocated.  Without a counter, or inside another counted body, it does
     nothing."""
     if not COUNTERS:
         yield
         return
-    with COUNTERS[-1].kernel(kernel, work, launches):
+    with COUNTERS[-1].kernel(kernel, work, launches() if callable(launches)
+                             else launches):
         yield
 
 

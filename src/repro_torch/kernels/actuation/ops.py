@@ -4,22 +4,27 @@ Port of ``repro.kernels.actuation.ops``.  One actuation interval
 (``steps_per_action`` dt's) runs with the velocity fields and both packed
 pressure parity planes carried across every dt:
 
-- on a CUDA tensor, one launch of the hand-written kernel
-  ``csrc/fused_interval.cu`` for the whole env batch, one thread-block
-  cluster per env, the dt loop inside the kernel
-  (:func:`fused_interval_cuda`): its scalar instantiation for a scalar
-  amplitude, its per-body one (``max_bodies()`` bodies, each env reading
-  its own geometry from a bank) for a per-body vector;
+- on a CUDA tensor, one launch of a hand-written kernel of
+  ``csrc/fused_interval.cu`` for the whole env batch, the dt loop inside
+  the kernel (:func:`fused_interval_cuda`): the cluster kernel (one
+  thread-block cluster per env, its fields in the cluster's shared memory)
+  on every grid a cluster holds, the global-memory kernel (a group of G
+  blocks per env, its fields in a workspace in global memory) on every
+  other grid; each in a scalar instantiation for a scalar amplitude and a
+  per-body one (``max_bodies()`` bodies, each env reading its own geometry
+  from a bank) for a per-body vector;
 - on a CPU tensor, its plain PyTorch twin (:func:`fused_interval_plain`),
   which chains the solver's own ``_momentum`` -> packed SOR projection
   -> velocity correction, so the twin cannot drift from the solver.
 
 Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
 (no checkerboard parity) falls back to the reference loop, warning once
-per grid shape.  A CUDA state the kernel cannot serve (odd width, or an
-env's fields over the shared memory of a 16-block cluster, the analogue
-of the reference's VMEM budget) raises: the card never runs the plain
-loop in the kernel's place.
+per grid shape.  A CUDA state on a grid of odd width raises: the card
+never runs the plain loop in a kernel's place.  Which kernel serves an
+even grid (:func:`check_kernel_grid`) follows the shared memory of a
+16-block cluster, the analogue of the reference's VMEM budget: the
+cluster kernel where it holds one env's bands, the global-memory kernel
+past it (res 39 and above at the default aspect).
 """
 from __future__ import annotations
 
@@ -31,9 +36,10 @@ import torch
 from repro_torch._warn import warn_once_cache
 from repro_torch.cfd import poisson, solver
 from repro_torch.cfd.grid import GridConfig, geometry_names, max_bodies
-from repro_torch.kernels import SMEM_PER_BLOCK, counted
+from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
 from repro_torch.kernels import cluster as kcluster
-from repro_torch.kernels.cluster import (CLUSTER_SIZES, band_starts,
+from repro_torch.kernels.cluster import (CLUSTER_SIZES, FLAG_STRIDE,
+                                         LaunchPlan, band_starts,
                                          block_shape, rows_max)
 
 # the body count of the kernel's per-body instantiation
@@ -144,33 +150,74 @@ def choose_cluster(ny: int, nx: int, n_env: int, n_sm: int, active,
     return kcluster.choose_cluster(fits, n_env, n_sm, active)
 
 
-def check_kernel_grid(cfg: GridConfig, n_bodies: int = 0) -> None:
-    """Raise ``ValueError`` unless the CUDA kernel's instantiation for
-    ``n_bodies`` (0: scalar) can serve the grid: an even width, and one
-    env's fields, cut into 16 bands, within the shared memory of one block
-    each (res <= 38 at the default aspect, either instantiation)."""
+def part_slots(n_bodies: int = 0) -> int:
+    """Float slots of one block's partial sums (csrc/fused_interval.cu
+    kPartSlots): fx, fy and the outflux in 4, or 2 NB + 1 rounded up to
+    4."""
+    return 4 if not n_bodies else _round4(2 * n_bodies + 1)
+
+
+def env_floats(ny: int, nx: int) -> int:
+    """Floats of one env's fields in the global-memory kernel's workspace
+    (csrc/fused_interval.cu ws_floats): the env as one band of all ny rows,
+    u (ny + 2) x (nx + 1), v (ny + 3) x nx, u_pen ny x nx, v_pen (ny + 1) x
+    nx, red and black (ny + 2) x w, rhs_r and rhs_b ny x w."""
+    w = nx // 2
+    return ((ny + 2) * (nx + 1) + (ny + 3) * nx + ny * nx + (ny + 1) * nx
+            + 2 * (ny + 2) * w + 2 * ny * w)
+
+
+def workspace_bytes(ny: int, nx: int, group: int, n_env: int,
+                    n_bodies: int = 0) -> int:
+    """The global-memory kernel's workspace for ``n_env`` envs of ``group``
+    blocks each: every env's fields, then each block's partial sums, then
+    each block's flag on a 128-byte line of its own."""
+    return 4 * n_env * (env_floats(ny, nx) + group * part_slots(n_bodies)
+                        + group * FLAG_STRIDE)
+
+
+def check_kernel_grid(cfg: GridConfig, n_bodies: int = 0) -> str:
+    """Which CUDA kernel serves the grid for the instantiation of
+    ``n_bodies`` (0: scalar): "cluster" where one env's fields, cut into
+    at most 16 bands, fit the shared memory of one block each (res <= 38
+    at the default aspect, either instantiation), "global" on every other
+    grid.  ``ValueError`` on an odd width."""
     ny, nx = cfg.ny, cfg.nx
     if nx % 2:
         raise ValueError(
             f"backend='fused' needs an even grid width for packed "
             f"checkerboard parity, got grid (ny={ny}, nx={nx}); use "
             f"backend='reference' for this grid")
-    if not _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies):
-        c = max(c for c in CLUSTER_SIZES if c <= ny)
-        raise ValueError(
-            f"backend='fused' keeps one env's fields in the shared memory of "
-            f"a cluster of up to {CLUSTER_SIZES[-1]} blocks: grid (ny={ny}, "
-            f"nx={nx}) needs {smem_bytes(ny, nx, c, n_bodies)} bytes per "
-            f"block at {c} blocks, over the {SMEM_PER_BLOCK} a block may "
-            f"have; run this grid with backend='reference'")
+    return ("cluster" if _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies)
+            else "global")
+
+
+def plan_launch(cfg: GridConfig, n_env: int, n_sm: int, active, resident,
+                n_bodies: int = 0, cluster=None,
+                force_global: bool = False) -> LaunchPlan:
+    """How :func:`fused_interval_cuda` runs ``n_env`` envs on a card of
+    ``n_sm`` SMs: ``active(c)`` is how many clusters of ``c`` blocks the
+    card holds at once, ``resident(G)`` how many blocks of the
+    global-memory kernel at the launch shape of G blocks an env.  The
+    kernel is :func:`check_kernel_grid`'s, or the global-memory one with
+    ``force_global``; ``cluster`` fixes the blocks of an env (the cluster
+    size, or G), by default :func:`choose_cluster`'s or
+    :func:`repro_torch.kernels.cluster.global_group`'s choice.  A size the
+    kernel cannot take, or a group the card cannot hold at once, raises."""
+    ny, nx = cfg.ny, cfg.nx
+    check_kernel_grid(cfg, n_bodies)
+    return kcluster.plan_groups(
+        _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies), n_env, ny, n_sm, active,
+        resident, lambda g, n: workspace_bytes(ny, nx, g, n, n_bodies),
+        f"fused_interval on grid (ny={ny}, nx={nx})", cluster, force_global)
 
 
 def select_tier(cfg: GridConfig, device, n_bodies: int = 0) -> str:
     """Which realization serves ``backend="fused"`` for tensors on ``device``.
 
-    "cuda"       CUDA tensors: the hand-written kernel (its instantiation
-                 for ``n_bodies``, 0: scalar); a grid it cannot serve
-                 raises (:func:`check_kernel_grid`)
+    "cuda"       CUDA tensors: a hand-written kernel (its instantiation for
+                 ``n_bodies``, 0: scalar; the cluster or the global-memory
+                 kernel, :func:`check_kernel_grid`); an odd width raises
     "plain"      CPU tensors: its plain PyTorch twin
     "reference"  CPU tensors on a grid of odd width (warns once per shape)
     """
@@ -291,6 +338,21 @@ def _load():
                 f"csrc/fused_interval.cu's per-body instantiation serves "
                 f"{lib.fused_interval_bodies()} bodies, the geometries "
                 f"need {N_BODIES}")
+        lib.fused_interval_global_launch.argtypes = (
+            [p] * 5 + [i] + [p] * 10 + [i] * 10 + [p, p])
+        lib.fused_interval_global_launch.restype = ctypes.c_int
+        lib.fused_interval_global_blocks_per_sm.argtypes = [
+            i, i, ctypes.POINTER(i)]
+        lib.fused_interval_global_blocks_per_sm.restype = ctypes.c_int
+        lib.fused_interval_part_slots.argtypes = [i]
+        lib.fused_interval_part_slots.restype = ctypes.c_int
+        for nb in (0, N_BODIES):
+            if lib.fused_interval_part_slots(nb) != part_slots(nb):
+                raise RuntimeError(
+                    f"csrc/fused_interval.cu keeps "
+                    f"{lib.fused_interval_part_slots(nb)} partial-sum slots "
+                    f"a block at {nb} bodies, the wrapper counts "
+                    f"{part_slots(nb)}")
     return lib
 
 
@@ -308,19 +370,41 @@ def active_clusters(dev, cfg: GridConfig, size: int, n_bodies: int = 0
         smem_bytes(cfg.ny, cfg.nx, size, n_bodies))
 
 
-def cluster_for(cfg: GridConfig, n_env: int, device, n_bodies: int = 0
-                ) -> int:
-    """The cluster size :func:`fused_interval_cuda` launches with for
-    ``n_env`` envs on the card of ``device`` (:func:`choose_cluster` fed
-    the card's SM count and occupancy)."""
-    check_kernel_grid(cfg, n_bodies)
+def global_shape(cfg: GridConfig, group: int) -> tuple:
+    """``(threads, tx)`` of a block of the global-memory kernel with
+    ``group`` blocks an env (:func:`repro_torch.kernels.cluster.
+    block_shape` over its largest band)."""
+    return block_shape(cfg.nx // 2, rows_max(band_starts(cfg.ny, group)))
+
+
+def resident_blocks(dev, cfg: GridConfig, group: int, n_bodies: int = 0
+                    ) -> int:
+    """Blocks of the global-memory kernel (the instantiation for
+    ``n_bodies``) the card holds at once at the launch shape of ``group``
+    blocks an env, read once per shape and card."""
+    return kcluster.resident_blocks(
+        _load(), "fused_interval_global_blocks_per_sm", dev,
+        (cfg.ny, cfg.nx), (n_bodies,), global_shape(cfg, group)[0])
+
+
+def launch_plan(cfg: GridConfig, n_env: int, device, n_bodies: int = 0,
+                cluster=None, force_global: bool = False) -> LaunchPlan:
+    """:func:`plan_launch` fed the card of ``device``: its SM count, its
+    cluster occupancy and the global-memory kernel's residency."""
     dev = torch.device(device)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    fits = _fitting_clusters(cfg.ny, cfg.nx, SMEM_PER_BLOCK, n_bodies)
-    active = {c: active_clusters(dev, cfg, c, n_bodies) for c in (16, 8, 4, 2)
-              if c in fits and n_env * c <= n_sm}
-    return choose_cluster(cfg.ny, cfg.nx, n_env, n_sm, active,
-                          SMEM_PER_BLOCK, n_bodies)
+    return plan_launch(
+        cfg, n_env, n_sm, lambda c: active_clusters(dev, cfg, c, n_bodies),
+        lambda g: resident_blocks(dev, cfg, g, n_bodies), n_bodies, cluster,
+        force_global)
+
+
+def cluster_for(cfg: GridConfig, n_env: int, device, n_bodies: int = 0
+                ) -> int:
+    """The blocks an env :func:`fused_interval_cuda` launches with for
+    ``n_env`` envs on the card of ``device``: the cluster size, or G on a
+    grid the global-memory kernel serves (:func:`launch_plan`)."""
+    return launch_plan(cfg, n_env, device, n_bodies).size
 
 
 def _shared_geometry(ga: solver.GeomArrays, geom_id, dev) -> list:
@@ -380,9 +464,10 @@ def _amplitudes(jet_vel, n: int, dev) -> torch.Tensor:
 
 def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
                         n_steps: int, *, re=None, act_mode=None,
-                        cluster=None, geom_id=None):
-    """One launch of ``csrc/fused_interval.cu`` for the whole env batch:
-    ``n_steps`` dt's, returns ``(FlowState, StepOutputs)`` with
+                        cluster=None, geom_id=None,
+                        force_global: bool = False):
+    """One call of a kernel of ``csrc/fused_interval.cu`` for the whole env
+    batch: ``n_steps`` dt's, returns ``(FlowState, StepOutputs)`` with
     ``(N, n_steps)`` C_D / C_L (``(n_steps,)`` for an unbatched state).
 
     A per-body ``jet_vel`` (``(N, A)``, ``solver.is_per_body``) launches the
@@ -392,14 +477,20 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     geometry.  A scalar amplitude launches the scalar instantiation on one
     geometry.  A call the kernel cannot serve raises.
 
-    Each env runs on a cluster of ``cluster`` blocks, by default
-    :func:`cluster_for`'s choice; a size whose bands do not fit one
-    block's shared memory raises.  Each launch records its cluster size
-    (``fused_interval_cuda.last_cluster``), the instantiation's body count
-    (``last_n_bodies``, 0: scalar) and the SM each block ran on
-    (``last_block_sms``, int32, one per block, -1 where none ran);
-    ``launches`` counts every launch, ``launches_per_body`` those of the
-    per-body instantiation."""
+    The kernel is :func:`launch_plan`'s: the cluster kernel (one launch,
+    each env on a cluster of ``cluster`` blocks, by default its choice; a
+    size whose bands do not fit one block's shared memory raises) on the
+    grids a cluster holds, else the global-memory kernel (each env on a
+    group of ``cluster`` blocks, G, by default its choice; one launch while
+    the card holds every env's blocks at once, more past that), which
+    ``force_global`` also picks on a grid a cluster holds.  Each call
+    records its kernel (``fused_interval_cuda.last_kernel``, "cluster" or
+    "global"), its blocks an env (``last_cluster``), its plan
+    (``last_plan``), the instantiation's body count (``last_n_bodies``, 0:
+    scalar) and the SM each block ran on (``last_block_sms``, int32, one
+    per block, -1 where none ran); ``launches`` counts every launch,
+    ``launches_per_body`` those of the per-body instantiation,
+    ``launches_global`` those of the global-memory kernel."""
     u, v, p = state
     dev = u.device
     if dev.type != "cuda":
@@ -420,16 +511,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
                 or t.device != dev:
             raise ValueError(f"{name}: expected float32 {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    fits = _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies)
-    if cluster is None:
-        cluster = cluster_for(cfg, n, dev, n_bodies)
-    elif cluster not in fits:
-        raise ValueError(f"a cluster of {cluster} blocks cannot hold grid "
-                         f"(ny={ny}, nx={nx}) in shared memory; sizes that "
-                         f"fit: {fits}")
-    starts = band_starts(ny, cluster)
-    rows = rows_max(starts)
-    threads, tx = block_shape(nx // 2, rows)
+    plan = launch_plan(cfg, n, dev, n_bodies, cluster, force_global)
+    size = plan.size
     ga = solver.GeomArrays(*geom_arrays)
     if per_body:
         geom, gid, nb = _bank(ga, geom_id, n, dev)
@@ -442,33 +525,53 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     u, v, p = u.contiguous(), v.contiguous(), p.contiguous()
     re_t = _per_env_vector(cfg.re if re is None else re, n, dev)
     mode = _per_env_vector(0.0 if act_mode is None else act_mode, n, dev)
-    u_out, v_out, p_out = (torch.empty_like(u), torch.empty_like(v),
-                           torch.empty_like(p))
-    cd = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    cl = torch.empty_like(cd)
-    block_sms = torch.empty(n * cluster, dtype=torch.int32, device=dev)
+    out_bytes = 4 * (u.numel() + v.numel() + p.numel()
+                     + 2 * n * n_steps * out_shape[-1] + n * size)
+    with allocating("fused_interval", out_bytes + plan.workspace_bytes, dev):
+        u_out, v_out, p_out = (torch.empty_like(u), torch.empty_like(v),
+                               torch.empty_like(p))
+        cd = torch.empty(out_shape, dtype=torch.float32, device=dev)
+        cl = torch.empty_like(cd)
+        block_sms = torch.empty(n * size, dtype=torch.int32, device=dev)
+        ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                          device=dev) if plan.kernel == "global" else None)
     geom_ptrs = (ctypes.c_void_p * len(geom))(*[g.data_ptr() for g in geom])
-    starts_c = (ctypes.c_int * len(starts))(*starts)
     consts = _consts(cfg)
+    operands = (u.data_ptr(), v.data_ptr(), p.data_ptr(),
+                ctypes.cast(geom_ptrs, ctypes.c_void_p),
+                None if gid is None else gid.data_ptr(), n_bodies,
+                jet.data_ptr(), re_t.data_ptr(), mode.data_ptr(),
+                u_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
+                cd.data_ptr(), cl.data_ptr(), block_sms.data_ptr())
+    iters, n_polish = cfg.poisson_iters, poisson.n_polish(cfg.poisson_iters)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_interval_launch(
-            u.data_ptr(), v.data_ptr(), p.data_ptr(),
-            ctypes.cast(geom_ptrs, ctypes.c_void_p),
-            None if gid is None else gid.data_ptr(), n_bodies,
-            jet.data_ptr(), re_t.data_ptr(), mode.data_ptr(),
-            u_out.data_ptr(), v_out.data_ptr(), p_out.data_ptr(),
-            cd.data_ptr(), cl.data_ptr(), block_sms.data_ptr(), n, ny, nx,
-            n_steps, cfg.poisson_iters, poisson.n_polish(cfg.poisson_iters),
-            cluster, ctypes.cast(starts_c, ctypes.c_void_p), rows, threads,
-            tx, smem_bytes(ny, nx, cluster, n_bodies),
-            ctypes.cast(consts, ctypes.c_void_p), stream)
+        if plan.kernel == "cluster":
+            starts = band_starts(ny, size)
+            rows = rows_max(starts)
+            threads, tx = block_shape(nx // 2, rows)
+            starts_c = (ctypes.c_int * len(starts))(*starts)
+            err = lib.fused_interval_launch(
+                *operands, n, ny, nx, n_steps, iters, n_polish, size,
+                ctypes.cast(starts_c, ctypes.c_void_p), rows, threads, tx,
+                smem_bytes(ny, nx, size, n_bodies),
+                ctypes.cast(consts, ctypes.c_void_p), stream)
+        else:
+            threads, tx = global_shape(cfg, size)
+            err = lib.fused_interval_global_launch(
+                *operands, ws.data_ptr(), n, plan.per_launch, ny, nx,
+                n_steps, iters, n_polish, size, threads, tx,
+                ctypes.cast(consts, ctypes.c_void_p), stream)
     from repro_torch.kernels.build import check_launch
-    check_launch(lib, err, "fused_interval")
-    fused_interval_cuda.launches += 1
-    fused_interval_cuda.launches_per_body += bool(per_body)
-    fused_interval_cuda.last_cluster = cluster
+    check_launch(lib, err, f"fused_interval ({plan.kernel})")
+    fused_interval_cuda.launches += plan.launches
+    fused_interval_cuda.launches_per_body += plan.launches * bool(per_body)
+    fused_interval_cuda.launches_global += plan.launches * (
+        plan.kernel == "global")
+    fused_interval_cuda.last_kernel = plan.kernel
+    fused_interval_cuda.last_cluster = size
+    fused_interval_cuda.last_plan = plan
     fused_interval_cuda.last_n_bodies = n_bodies
     fused_interval_cuda.last_block_sms = block_sms
     if per_body:
@@ -482,7 +585,10 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
 
 fused_interval_cuda.launches = 0
 fused_interval_cuda.launches_per_body = 0
+fused_interval_cuda.launches_global = 0
+fused_interval_cuda.last_kernel = None
 fused_interval_cuda.last_cluster = None
+fused_interval_cuda.last_plan = None
 fused_interval_cuda.last_n_bodies = None
 fused_interval_cuda.last_block_sms = None
 
@@ -493,16 +599,18 @@ fused_interval_cuda.last_block_sms = None
 
 def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
                    jet_vel, n_steps: int, *, re=None, act_mode=None,
-                   geom_id=None, cluster=None):
+                   geom_id=None, cluster=None, force_global: bool = False):
     """One actuation interval with fields resident across every dt; the
     ``backend="fused"`` arm of ``solver.step_interval`` (``geom_id``: each
     env's index into the bank ``geom_arrays``; ``cluster``: the kernel's
-    cluster size, None for its own choice).  The realization follows
-    :func:`select_tier` for the state's device: a CUDA state launches the
-    kernel or raises, it never falls back to the twin or the reference
-    loop."""
+    blocks an env, None for its own choice; ``force_global``: the
+    global-memory kernel on a grid a cluster holds).  The realization
+    follows :func:`select_tier` for the state's device: a CUDA state
+    launches a kernel or raises, it never falls back to the twin or the
+    reference loop."""
     per_body = solver.is_per_body(jet_vel, state.u)
-    tier = select_tier(cfg, state.u.device, N_BODIES if per_body else 0)
+    n_bodies = N_BODIES if per_body else 0
+    tier = select_tier(cfg, state.u.device, n_bodies)
     if re is None:
         re = cfg.re
     # act_mode=0.0 is exact against the jets-only branch ((1-0)*jet + 0*rot
@@ -513,12 +621,21 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
         return solver.step_interval(cfg, geom_arrays, state, jet_vel,
                                     n_steps, re=re, act_mode=act_mode,
                                     backend="reference", geom_id=geom_id)
+
+    def launches():
+        if tier != "cuda":
+            return 1
+        n = state.u.shape[0] if state.u.dim() == 3 else 1
+        return launch_plan(cfg, n, state.u.device, n_bodies, cluster,
+                           force_global).launches
+
     with counted("fused_interval", lambda: call_work(
-            cfg, state, jet_vel, n_steps, geom_id)):
+            cfg, state, jet_vel, n_steps, geom_id), launches):
         if tier == "cuda":
             return fused_interval_cuda(cfg, geom_arrays, state, jet_vel,
                                        n_steps, re=re, act_mode=act_mode,
-                                       geom_id=geom_id, cluster=cluster)
+                                       geom_id=geom_id, cluster=cluster,
+                                       force_global=force_global)
         return fused_interval_plain(cfg, geom_arrays, state, jet_vel,
                                     n_steps, re=re, act_mode=act_mode,
                                     geom_id=geom_id)

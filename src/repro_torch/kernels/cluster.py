@@ -1,16 +1,21 @@
-"""How a kernel spreads one problem over a thread-block cluster.
+"""How a kernel spreads one problem over a group of blocks.
 
-Shared by the kernels whose blocks each hold a band of rows of a plane in
-shared memory and exchange halo rows through distributed shared memory
-(``csrc/cluster.cuh``): the fused actuation interval
-(``kernels/actuation/ops.py``) and the packed-SOR slab smoother
-(``kernels/poisson/ops.py``).  Each kernel states its own per-block
-shared-memory bytes; the partition, the block shape and the choice of
-the cluster size are the same for both.
+Shared by the CFD kernels, each of which has two realizations: a cluster
+kernel, whose blocks each hold a band of rows of a plane in shared memory
+and exchange halo rows through distributed shared memory
+(``csrc/cluster.cuh``), and a global-memory kernel for the grids no
+cluster holds, whose group of blocks splits the rows of fields kept in a
+workspace in global memory and orders its phases by flags
+(``csrc/grid_sync.cuh``).  The kernels are the fused actuation interval
+(``kernels/actuation/ops.py``) and the two SOR slab smoothers
+(``kernels/poisson/ops.py``).  Each states its own per-block shared-memory
+and per-group workspace bytes; the partition, the block shape, the choice
+of the group size and the launch plan are the same for all.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Callable, Dict, Iterable
 
 import torch
@@ -18,6 +23,12 @@ import torch
 # the cluster sizes the kernels launch with (csrc/cluster.cuh kMaxCluster =
 # 16; sizes above 8 are the card's non-portable ones)
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# the most blocks of one group of a global-memory kernel (csrc/grid_sync.cuh
+# kMaxGroup): warp 0's lanes poll the group's flags and read its partial
+# sums, a lane a block
+GROUP_MAX = 32
+# unsigned words between two blocks' flags (csrc/grid_sync.cuh kFlagStride)
+FLAG_STRIDE = 32
 
 
 def band_starts(ny: int, cluster: int) -> tuple:
@@ -94,3 +105,101 @@ def active_clusters(lib, query: str, dev, shape: tuple, cluster: int,
         check_launch(lib, err, f"{query} occupancy query")
         _ACTIVE[key] = n.value
     return _ACTIVE[key]
+
+
+def global_group(ny: int, n_groups: int, n_sm: int) -> int:
+    """G, the blocks each of ``n_groups`` groups (one per env, or per env
+    and slab) spreads over in a global-memory kernel: a block per SM while
+    the groups leave SMs to spare, at most :data:`GROUP_MAX` and one row a
+    block; one block a group when the groups outnumber the SMs."""
+    return max(1, min(GROUP_MAX, ny, n_sm // max(1, n_groups)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How a call of a CFD kernel runs: ``kernel`` "cluster" or "global";
+    ``size`` the blocks of a group (the cluster size, or G, which orders
+    the force sums as the cluster size does); ``per_launch`` groups a
+    launch, ``launches`` launches a call; ``workspace_bytes`` the
+    global-memory kernel's workspace, one launch's, reused by the next (0
+    for the cluster kernel)."""
+    kernel: str
+    size: int
+    per_launch: int
+    launches: int
+    workspace_bytes: int
+
+
+def global_plan(n_groups: int, size: int, resident: int,
+                workspace: Callable[[int], int], what: str) -> LaunchPlan:
+    """The launches of ``n_groups`` groups of ``size`` blocks of a
+    global-memory kernel, every block of a launch resident at once (a
+    block waits for the others of its group): ``resident`` is how many
+    blocks of the kernel the card holds at once, ``workspace(n)`` the
+    workspace bytes of n groups.  Groups past what the card holds run in
+    further launches, never one group's blocks in waves; a group the card
+    cannot hold at all raises, naming the numbers."""
+    if size > resident:
+        raise ValueError(
+            f"{what}: the global-memory kernel needs the {size} blocks of a "
+            f"group resident at once, the card holds {resident} blocks of "
+            f"this launch shape at once")
+    per = min(n_groups, resident // size)
+    return LaunchPlan("global", size, per, -(-n_groups // per),
+                      workspace(per))
+
+
+def plan_groups(fits, n_groups: int, ny: int, n_sm: int, active, resident,
+                workspace: Callable[[int, int], int], what: str, size=None,
+                force_global: bool = False) -> LaunchPlan:
+    """How a CFD kernel runs ``n_groups`` groups of ``ny`` rows on a card
+    of ``n_sm`` SMs.  ``fits``: the cluster sizes whose band fits one
+    block's shared memory (:func:`fitting_clusters`); where there is one
+    (and not ``force_global``) the cluster kernel runs, at ``size`` or
+    :func:`choose_cluster`'s choice fed ``active(c)``, the clusters of
+    ``c`` blocks the card holds at once.  Else the global-memory kernel, at
+    ``size`` or :func:`global_group`'s G, planned by :func:`global_plan`
+    from ``resident(G)``, the blocks the card holds at once at that launch
+    shape, and ``workspace(G, n)``, the bytes of n groups.  A size the
+    kernel cannot take raises."""
+    if fits and not force_global:
+        if size is None:
+            size = choose_cluster(fits, n_groups, n_sm, {
+                c: active(c) for c in (16, 8, 4, 2)
+                if c in fits and n_groups * c <= n_sm})
+        elif size not in fits:
+            raise ValueError(f"{what}: a cluster of {size} blocks cannot "
+                             f"hold it in shared memory; sizes that fit: "
+                             f"{fits}")
+        # one launch: clusters the card cannot hold at once run in waves,
+        # as no cluster waits for another
+        return LaunchPlan("cluster", size, n_groups, 1, 0)
+    if size is None:
+        size = global_group(ny, n_groups, n_sm)
+    elif not 1 <= size <= min(GROUP_MAX, ny):
+        raise ValueError(f"{what}: a group of {size} blocks; the global-"
+                         f"memory kernel splits {ny} rows over 1 to "
+                         f"{min(GROUP_MAX, ny)} blocks")
+    return global_plan(n_groups, size, resident(size),
+                       lambda n: workspace(size, n), what)
+
+
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def resident_blocks(lib, query: str, dev, shape: tuple, args: tuple,
+                    threads: int) -> int:
+    """Blocks of a global-memory kernel the card holds at once at
+    ``threads`` threads a block: its library's ``query(*args, threads,
+    int*)`` export (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    times the SM count, read once per card, launch shape and block size."""
+    key = (query, shape, dev.index, args, threads)
+    if key not in _RESIDENT:
+        from repro_torch.kernels.build import check_launch
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = getattr(lib, query)(*args, threads, ctypes.byref(n))
+        check_launch(lib, err, f"{query} occupancy query")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        _RESIDENT[key] = n.value * n_sm
+    return _RESIDENT[key]

@@ -1,5 +1,7 @@
 // Fused actuation interval: n_steps solver dt's in one launch, one
-// thread-block cluster per env.
+// thread-block cluster per env (fused_interval_kernel) on the grids a
+// cluster holds, one group of blocks per env whose fields live in global
+// memory (fused_interval_global_kernel) on every other grid.
 //
 // Replaces the Pallas TPU megakernel _fused_dt_kernel / fused_step
 // (src/repro/kernels/actuation/kernel.py:39-85), which ran ONE dt per
@@ -73,11 +75,16 @@
 //     reciprocals of the grid constants in place of divisions by them.
 //     The divisions by per-env or per-point values (lap / re, / (1 + lp))
 //     stay.
+//   * Past what a 16-block cluster's shared memory holds (res 39 and up at
+//     the default aspect) the global-memory kernel below runs the same
+//     phases, the same functions on a band view of the env's fields in a
+//     workspace in global memory, ordered by flags (grid_sync.cuh).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "grid_sync.cuh"
 #include "sor_packed.cuh"
 
 // Sum of three per-thread values over the block (blockDim.x a multiple of
@@ -219,12 +226,477 @@ __device__ __forceinline__ float V(const float* row, int i, int nx) {
 // Store `val` at column i of own row lj of a banded field, and mirror it
 // into the neighbours' halo rows when lj is the band's first (`prev`) or
 // last (`next`) row.  `prev` / `next` point at the neighbour's halo row,
-// nullptr where there is no neighbour.
+// nullptr where there is no neighbour (and throughout in the global-memory
+// kernel, whose bands share one copy of each row).
 __device__ __forceinline__ void put(float* row, float* prev, float* next,
                                     int lj, int nrows, int i, float val) {
   row[i] = val;
   if (lj == 0 && prev) prev[i] = val;
   if (lj == nrows - 1 && next) next[i] = val;
+}
+
+// -- what both kernels share: the phases of a dt over one block's band ------
+//
+// A band is rows [j0, j0 + nrows) of one env's fields.  u, v, red and black
+// point at the band's stored row -1 (the halo row above), us, vs, rhs_r and
+// rhs_b at its row 0, each field stored row after row at its own width.
+// The cluster kernel's band lives in the block's shared memory, with halo
+// rows the neighbours fill; the global-memory kernel's is a window onto the
+// env's whole fields in its workspace, where the row above the band is the
+// neighbour's own.  The arithmetic of a point is the same in both.
+struct Band {
+  float *u, *v, *us, *vs, *red, *black, *rhs_r, *rhs_b;
+  int j0, nrows, nv_rows;  // nv_rows: + the top wall row ny on the last
+  bool first, last;
+};
+
+// The neighbours' halo rows a band's edge rows are mirrored into (nullptr
+// at the walls, and in the global-memory kernel).
+struct Mirror {
+  float *u_prev, *v_prev, *vs_prev, *u_next, *v_next;
+};
+
+// The thread layout: lanes tx of TX span a row, thread rows ty of TY step
+// over the band's rows.
+struct Lanes {
+  int tx, ty, TX, TY;
+};
+
+// One env's amplitude (a scalar, or NB per-body speeds whose slot 0 doubles
+// as the jet amplitude), Reynolds number and act_mode blend.
+template <int NB>
+struct Actuation {
+  float jvb[NB > 0 ? NB : 1];
+  float jv, re, m, one_m_m;
+};
+
+// A block's (then the env's) reaction force and outflux sums: fx, fy for
+// the scalar body, fxb, fyb per body.
+template <int NB>
+struct Sums {
+  float fx, fy, out;
+  float fxb[NB > 0 ? NB : 1], fyb[NB > 0 ? NB : 1];
+};
+
+// Point `g` at env `env`'s geometry in the bank (NB > 0).
+template <int NB>
+__device__ __forceinline__ void env_geometry(GeomOf<NB>& g, int env,
+                                             size_t nu, size_t nv, int ny) {
+  if constexpr (NB > 0) {
+    const size_t gid = static_cast<size_t>(g.geom_id[env]);
+    g.chi_u += gid * nu;
+    g.chi_v += gid * nv;
+    g.jet_u += gid * 2 * nu;
+    g.jet_v += gid * 2 * nv;
+    g.jmask_u += gid * nu;
+    g.jmask_v += gid * nv;
+    g.rot_u += gid * nu;
+    g.rot_v += gid * nv;
+    g.rmask_u += gid * nu;
+    g.rmask_v += gid * nv;
+    g.inlet_u += gid * ny;
+    g.rotb_u += gid * NB * nu;
+    g.rotb_v += gid * NB * nv;
+    g.own_u += gid * NB * nu;
+    g.own_v += gid * NB * nv;
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ Actuation<NB> env_actuation(
+    const float* jet_vel, const float* re_arr, const float* mode_arr,
+    int env) {
+  Actuation<NB> a;
+  if constexpr (NB > 0) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) a.jvb[b] = jet_vel[env * NB + b];
+  }
+  a.jv = NB == 0 ? jet_vel[env] : a.jvb[0];
+  a.re = re_arr[env];
+  a.m = mode_arr[env];
+  a.one_m_m = 1.0f - a.m;
+  return a;
+}
+
+// Load the band's rows lj in [lo, u_hi] of u and of the packed pressure
+// planes and [lo, v_hi] of v from the env's input; the wall ghost rows of
+// _pad_u / _pad_v (-u, 0 * v) where the band meets a wall.
+__device__ __forceinline__ void load_rows(const Band& b, const float* u_in,
+                                          const float* v_in,
+                                          const float* p_in, const Lanes& l,
+                                          int ny, int nx, int lo, int u_hi,
+                                          int v_hi) {
+  const int nxu = nx + 1, w = nx / 2;
+  for (int lj = lo + l.ty; lj <= u_hi; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const float sign = (j < 0 || j >= ny) ? -1.0f : 1.0f;
+    const float* src = u_in + static_cast<size_t>(min(max(j, 0), ny - 1)) * nxu;
+    for (int i = l.tx; i < nxu; i += l.TX) b.u[(lj + 1) * nxu + i] = sign * src[i];
+  }
+  for (int lj = lo + l.ty; lj <= v_hi; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const bool ghost = j < 0 || j > ny;
+    const float* src = v_in + static_cast<size_t>(min(max(j, 0), ny)) * nx;
+    for (int i = l.tx; i < nx; i += l.TX)
+      b.v[(lj + 1) * nx + i] = ghost ? src[i] * 0.0f : src[i];
+  }
+  for (int lj = lo + l.ty; lj <= u_hi; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const bool inside = j >= 0 && j < ny;
+    const float* src = p_in + static_cast<size_t>(inside ? j : 0) * nx;
+    for (int k = l.tx; k < w; k += l.TX) {
+      b.red[(lj + 1) * w + k] = inside ? src[2 * k + (j & 1)] : 0.0f;
+      b.black[(lj + 1) * w + k] = inside ? src[2 * k + 1 - (j & 1)] : 0.0f;
+    }
+  }
+}
+
+// -- A: predictor, penalization, BCs but the outlet column of u_pen, this
+//    block's force and outflux partial sums -------------------------------
+template <int NB>
+__device__ __forceinline__ void predictor(const Band& b, const Mirror& h,
+                                          const GeomOf<NB>& g,
+                                          const Actuation<NB>& a,
+                                          const Consts& c, const Lanes& l,
+                                          int ny, int nx, Sums<NB>& s) {
+  const int nxu = nx + 1;
+  const size_t nu = static_cast<size_t>(ny) * nxu;
+  const size_t nv = static_cast<size_t>(ny + 1) * nx;
+  const float jv = a.jv, re = a.re, m = a.m, one_m_m = a.one_m_m;
+  s.fx = 0.0f;
+  s.fy = 0.0f;
+  s.out = 0.0f;
+  if constexpr (NB > 0) {
+#pragma unroll
+    for (int k = 0; k < NB; ++k) s.fxb[k] = s.fyb[k] = 0.0f;
+  }
+  for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const float* ur0 = b.u + (lj + 1) * nxu;  // row j
+    const float* urb = ur0 - nxu;             // j - 1
+    const float* urt = ur0 + nxu;             // j + 1
+    const float* vr0 = b.v + (lj + 1) * nx;   // v row j
+    const float* vr1 = vr0 + nx;              // v row j + 1
+    float* usr = b.us + lj * nx;
+    const float inlet = g.inlet_u[j];
+    for (int i = l.tx; i < nxu; i += l.TX) {
+      const int gi = j * nxu + i;
+      const float uc = U(ur0, i, nx);
+      const float ul = U(ur0, i - 1, nx);
+      const float ur = U(ur0, i + 1, nx);
+      const float ub = U(urb, i, nx);
+      const float ut = U(urt, i, nx);
+      const float vau = 0.25f * (((V(vr0, i - 1, nx) + V(vr0, i, nx))
+                                  + V(vr1, i - 1, nx)) + V(vr1, i, nx));
+      const float dudx_up = uc > 0.0f ? (uc - ul) * c.inv_dx : (ur - uc) * c.inv_dx;
+      const float dudy_up = vau > 0.0f ? (uc - ub) * c.inv_dy : (ut - uc) * c.inv_dy;
+      const float dudx = c.blend * dudx_up + (c.one_m_blend * (ur - ul)) * c.inv_2dx;
+      const float dudy = c.blend * dudy_up + (c.one_m_blend * (ut - ub)) * c.inv_2dy;
+      const float adv = uc * dudx + vau * dudy;
+      const float lap = ((ul + ur) - 2.0f * uc) * c.inv_dx2
+                        + ((ub + ut) - 2.0f * uc) * c.inv_dy2;
+      const float u_star = uc + c.dt * (-adv + lap / re);
+      float tgt;
+      if constexpr (NB == 0) {
+        tgt = jv * (one_m_m * (g.jet_u[gi] - g.jet_u[nu + gi])
+                    + m * g.rot_u[gi]);
+      } else {
+        float rot = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) rot += a.jvb[k] * g.rotb_u[k * nu + gi];
+        tgt = (one_m_m * jv) * (g.jet_u[gi] - g.jet_u[nu + gi]) + m * rot;
+      }
+      const float pen = fmaxf(g.chi_u[gi],
+                              one_m_m * g.jmask_u[gi] + m * g.rmask_u[gi]);
+      const float lp = c.lam * pen;
+      const float u_pen = (u_star + lp * tgt) / (1.0f + lp);
+      if constexpr (NB == 0) {
+        s.fx += (u_pen - u_star) * c.inv_dt;
+      } else {
+        const float d = (u_pen - u_star) * c.inv_dt;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) s.fxb[k] += g.own_u[k * nu + gi] * d;
+      }
+      if (i == nx - 1) s.out += u_pen;
+      if (i < nx) usr[i] = i == 0 ? inlet : u_pen;  // column nx: in C
+    }
+  }
+  for (int lj = l.ty; lj < b.nv_rows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const bool wall = j == 0 || j == ny;
+    const float* vr0 = b.v + (lj + 1) * nx;  // row j
+    const float* vrb = vr0 - nx;
+    const float* vrt = vr0 + nx;
+    const float* ur0 = b.u + (lj + 1) * nxu;  // u row j
+    const float* urb = ur0 - nxu;             // u row j - 1
+    float* vsr = b.vs + lj * nx;
+    for (int i = l.tx; i < nx; i += l.TX) {
+      const int gi = j * nx + i;
+      const float vc = V(vr0, i, nx);
+      const float vl = V(vr0, i - 1, nx);
+      const float vr = V(vr0, i + 1, nx);
+      const float vb = V(vrb, i, nx);
+      const float vt = V(vrt, i, nx);
+      const float uav = 0.25f * (((U(urb, i, nx) + U(urb, i + 1, nx))
+                                  + U(ur0, i, nx)) + U(ur0, i + 1, nx));
+      const float dvdx_up = uav > 0.0f ? (vc - vl) * c.inv_dx : (vr - vc) * c.inv_dx;
+      const float dvdy_up = vc > 0.0f ? (vc - vb) * c.inv_dy : (vt - vc) * c.inv_dy;
+      const float dvdx = c.blend * dvdx_up + (c.one_m_blend * (vr - vl)) * c.inv_2dx;
+      const float dvdy = c.blend * dvdy_up + (c.one_m_blend * (vt - vb)) * c.inv_2dy;
+      const float adv = uav * dvdx + vc * dvdy;
+      const float lap = ((vl + vr) - 2.0f * vc) * c.inv_dx2
+                        + ((vb + vt) - 2.0f * vc) * c.inv_dy2;
+      const float v_star = vc + c.dt * (-adv + lap / re);
+      float tgt;
+      if constexpr (NB == 0) {
+        tgt = jv * (one_m_m * (g.jet_v[gi] - g.jet_v[nv + gi])
+                    + m * g.rot_v[gi]);
+      } else {
+        float rot = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) rot += a.jvb[k] * g.rotb_v[k * nv + gi];
+        tgt = (one_m_m * jv) * (g.jet_v[gi] - g.jet_v[nv + gi]) + m * rot;
+      }
+      const float pen = fmaxf(g.chi_v[gi],
+                              one_m_m * g.jmask_v[gi] + m * g.rmask_v[gi]);
+      const float lp = c.lam * pen;
+      const float v_pen = (v_star + lp * tgt) / (1.0f + lp);
+      if constexpr (NB == 0) {
+        s.fy += (v_pen - v_star) * c.inv_dt;
+      } else {
+        const float d = (v_pen - v_star) * c.inv_dt;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) s.fyb[k] += g.own_v[k * nv + gi] * d;
+      }
+      // _apply_bc_v: inlet 0, outlet copies column -2, walls 0
+      if (i == nx - 1) continue;
+      const float val = (i == 0 || wall) ? 0.0f : v_pen;
+      put(vsr, h.vs_prev, nullptr, lj, b.nrows, i, val);
+      if (i == nx - 2) put(vsr, h.vs_prev, nullptr, lj, b.nrows, nx - 1, val);
+    }
+  }
+}
+
+// The block's partial sums, reduced over its threads, into `part` (thread 0
+// writes; `scratch`: the reduction's shared memory).
+template <int NB>
+__device__ __forceinline__ void publish_partials(Sums<NB>& s, float* part,
+                                                 float* scratch) {
+  if constexpr (NB == 0) {
+    block_sum3(s.fx, s.fy, s.out, scratch);
+    if (threadIdx.x == 0) {
+      part[0] = s.fx;
+      part[1] = s.fy;
+      part[2] = s.out;
+    }
+  } else {  // per-body fx, per-body fy, outflux
+    float sums[2 * NB + 1];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      sums[k] = s.fxb[k];
+      sums[NB + k] = s.fyb[k];
+    }
+    sums[2 * NB] = s.out;
+    block_sum(sums, scratch);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < 2 * NB + 1; ++k) part[k] = sums[k];
+    }
+  }
+}
+
+// The env's sums from its C blocks' partials, in one fixed order on every
+// warp of every block: lane r < C reads rank r's (`part_of_lane`), then a
+// butterfly over the 32 lanes.  C orders the sums, whichever kernel runs.
+template <int NB>
+__device__ __forceinline__ void gather_sums(const float* part_of_lane, int C,
+                                            int lane, Sums<NB>& s) {
+  if constexpr (NB == 0) {
+    s.fx = lane < C ? part_of_lane[0] : 0.0f;
+    s.fy = lane < C ? part_of_lane[1] : 0.0f;
+    s.out = lane < C ? part_of_lane[2] : 0.0f;
+    for (int off = 1; off < 32; off <<= 1) {
+      s.fx += __shfl_xor_sync(0xffffffffu, s.fx, off);
+      s.fy += __shfl_xor_sync(0xffffffffu, s.fy, off);
+      s.out += __shfl_xor_sync(0xffffffffu, s.out, off);
+    }
+  } else {
+    float sums[2 * NB + 1];
+#pragma unroll
+    for (int k = 0; k < 2 * NB + 1; ++k)
+      sums[k] = lane < C ? part_of_lane[k] : 0.0f;
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 2 * NB + 1; ++k)
+        sums[k] += __shfl_xor_sync(0xffffffffu, sums[k], off);
+    }
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      s.fxb[k] = sums[k];
+      s.fyb[k] = sums[NB + k];
+    }
+    s.out = sums[2 * NB];
+  }
+}
+
+// C_D and C_L of dt t from the env's sums (one thread of the env calls).
+template <int NB>
+__device__ __forceinline__ void write_coefficients(float* cd_out,
+                                                   float* cl_out, int t,
+                                                   const Sums<NB>& s,
+                                                   const Consts& c) {
+  if constexpr (NB == 0) {
+    cd_out[t] = ((-s.fx * c.dx) * c.dy) / c.coef;
+    cl_out[t] = ((-s.fy * c.dx) * c.dy) / c.coef;
+  } else {
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      cd_out[t * NB + k] = ((-s.fxb[k] * c.dx) * c.dy) / c.coef;
+      cl_out[t * NB + k] = ((-s.fyb[k] * c.dx) * c.dy) / c.coef;
+    }
+  }
+}
+
+// -- C: divergence rhs into the two rhs planes.  The outlet column of
+//    u_bc is u_pen's column -2 plus the mass correction ------------------
+__device__ __forceinline__ void divergence_rhs(const Band& b, float corr,
+                                               const Consts& c,
+                                               const Lanes& l, int nx) {
+  const int w = nx / 2;
+  for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const float* usr = b.us + lj * nx;
+    const float* vs0 = b.vs + lj * nx;
+    const float* vs1 = vs0 + nx;
+    for (int k = l.tx; k < w; k += l.TX) {
+      const int ir = 2 * k + (j & 1);
+      const int ib = 2 * k + 1 - (j & 1);
+      const float ur1 = ir + 1 == nx ? usr[nx - 1] + corr : usr[ir + 1];
+      const float ub1 = ib + 1 == nx ? usr[nx - 1] + corr : usr[ib + 1];
+      b.rhs_r[lj * w + k] = ((ur1 - usr[ir]) * c.inv_dx
+                             + (vs1[ir] - vs0[ir]) * c.inv_dy) * c.inv_dt;
+      b.rhs_b[lj * w + k] = ((ub1 - usr[ib]) * c.inv_dx
+                             + (vs1[ib] - vs0[ib]) * c.inv_dy) * c.inv_dt;
+    }
+  }
+}
+
+// -- E: velocity correction and the BCs of _correct; the wall ghost rows
+//    and the neighbours' halo rows follow the stores ---------------------
+__device__ __forceinline__ void correct(const Band& b, const Mirror& h,
+                                        const Consts& c, const Lanes& l,
+                                        int ny, int nx) {
+  const int nxu = nx + 1, w = nx / 2;
+  for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const float* usr = b.us + lj * nx;
+    const float* pr = b.red + (lj + 1) * w;
+    const float* pb = b.black + (lj + 1) * w;
+    float* urow = b.u + (lj + 1) * nxu;
+    for (int i = l.tx; i < nx; i += l.TX) {
+      float val = usr[i];
+      if (i >= 1) {
+        const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
+        const float p0 = ((i - 1 + j) & 1) == 0 ? pr[(i - 1) >> 1]
+                                                : pb[(i - 1) >> 1];
+        val = val + (-c.dt * (p1 - p0)) * c.inv_dx;
+      }
+      put(urow, h.u_prev, h.u_next, lj, b.nrows, i, val);
+      if (i == nx - 1) put(urow, h.u_prev, h.u_next, lj, b.nrows, nx, val);
+      if (b.first && lj == 0) {
+        urow[i - nxu] = -val;
+        if (i == nx - 1) urow[nx - nxu] = -val;
+      }
+      if (b.last && lj == b.nrows - 1) {
+        urow[i + nxu] = -val;
+        if (i == nx - 1) urow[nx + nxu] = -val;
+      }
+    }
+  }
+  for (int lj = l.ty; lj < b.nv_rows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    const bool zero_row = j == 0 || j == ny;
+    const float* vsr = b.vs + lj * nx;
+    const float* pr = b.red + (lj + 1) * w;
+    const float* pb = b.black + (lj + 1) * w;
+    float* vrow = b.v + (lj + 1) * nx;
+    for (int i = l.tx; i < nx - 1; i += l.TX) {
+      float val = 0.0f;
+      if (!(i == 0 || zero_row)) {
+        const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
+        const float p0 = ((i + j - 1) & 1) == 0 ? pr[(i >> 1) - w]
+                                                : pb[(i >> 1) - w];
+        val = vsr[i] + (-c.dt * (p1 - p0)) * c.inv_dy;
+      }
+      put(vrow, h.v_prev, h.v_next, lj, b.nrows, i, val);
+      if (i == nx - 2) put(vrow, h.v_prev, h.v_next, lj, b.nrows, nx - 1, val);
+      if (b.first && lj == 0) {  // ghost row j = -1 of _pad_v: 0 * v[0]
+        vrow[i - nx] = val * 0.0f;
+        if (i == nx - 2) vrow[nx - 1 - nx] = val * 0.0f;
+      }
+      if (b.last && lj == b.nrows) {  // ghost row j = ny + 1: 0 * v[ny]
+        vrow[i + nx] = val * 0.0f;
+        if (i == nx - 2) vrow[nx - 1 + nx] = val * 0.0f;
+      }
+    }
+  }
+}
+
+// Write the band's own rows back to the env's outputs.
+__device__ __forceinline__ void write_band(const Band& b, float* u_out,
+                                           float* v_out, float* p_out,
+                                           const Lanes& l, int nx) {
+  const int nxu = nx + 1, w = nx / 2;
+  for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    for (int i = l.tx; i < nxu; i += l.TX)
+      u_out[static_cast<size_t>(j) * nxu + i] = b.u[(lj + 1) * nxu + i];
+    for (int k = l.tx; k < w; k += l.TX) {
+      p_out[static_cast<size_t>(j) * nx + 2 * k + (j & 1)] = b.red[(lj + 1) * w + k];
+      p_out[static_cast<size_t>(j) * nx + 2 * k + 1 - (j & 1)] =
+          b.black[(lj + 1) * w + k];
+    }
+  }
+  for (int lj = l.ty; lj < b.nv_rows; lj += l.TY) {
+    const int j = b.j0 + lj;
+    for (int i = l.tx; i < nx; i += l.TX)
+      v_out[static_cast<size_t>(j) * nx + i] = b.v[(lj + 1) * nx + i];
+  }
+}
+
+// Offset the env's inputs and outputs to env `env`.
+template <int NB>
+struct EnvIO {
+  const float *u_in, *v_in, *p_in;
+  float *u_out, *v_out, *p_out, *cd_out, *cl_out;
+
+  __device__ EnvIO(const float* u_i, const float* v_i, const float* p_i,
+                   float* u_o, float* v_o, float* p_o, float* cd, float* cl,
+                   int env, int ny, int nx, int n_steps) {
+    const size_t nu = static_cast<size_t>(ny) * (nx + 1);
+    const size_t nv = static_cast<size_t>(ny + 1) * nx;
+    const size_t np = static_cast<size_t>(ny) * nx;
+    u_in = u_i + env * nu;
+    u_out = u_o + env * nu;
+    v_in = v_i + env * nv;
+    v_out = v_o + env * nv;
+    p_in = p_i + env * np;
+    p_out = p_o + env * np;
+    // (n_env, n_steps), or (n_env, n_steps, NB)
+    const size_t per = static_cast<size_t>(n_steps) * (NB > 0 ? NB : 1);
+    cd_out = cd + env * per;
+    cl_out = cl + env * per;
+  }
+};
+
+// The inlet's volume flux, summed by every block in the same order.
+template <int NB>
+__device__ __forceinline__ float inlet_flux(const GeomOf<NB>& g, int ny,
+                                            const Consts& c, float* scratch) {
+  float s_in = 0.0f, unused_b = 0.0f, unused_c = 0.0f;
+  for (int j = threadIdx.x; j < ny; j += blockDim.x) s_in += g.inlet_u[j];
+  block_sum3(s_in, unused_b, unused_c, scratch);
+  return s_in * c.dy;
 }
 
 template <int NB>
@@ -243,59 +715,63 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   const int rank = static_cast<int>(cluster.block_rank());
   const int env = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const int TX = tx_dim;
-  const int TY = blockDim.x / TX;
-  const int ty = tid / TX;
-  const int tx = tid - ty * TX;
+  Lanes l;
+  l.TX = tx_dim;
+  l.TY = blockDim.x / l.TX;
+  l.ty = tid / l.TX;
+  l.tx = tid - l.ty * l.TX;
   const int lane = tid & 31;
 
   const int w = nx / 2;
   const int nxu = nx + 1;
   const int R = rows_max;
-  const int j0 = bands.start[rank];
-  const int nrows = bands.start[rank + 1] - j0;
-  const bool first = rank == 0, last = rank == C - 1;
-  const int nv_rows = nrows + (last ? 1 : 0);  // + the top wall row ny
+  Band b;
+  b.j0 = bands.start[rank];
+  b.nrows = bands.start[rank + 1] - b.j0;
+  b.first = rank == 0;
+  b.last = rank == C - 1;
+  b.nv_rows = b.nrows + (b.last ? 1 : 0);  // + the top wall row ny
+  const int j0 = b.j0, nrows = b.nrows;
+  const bool first = b.first, last = b.last;
   if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
 
   // shared-memory layout (kernels/actuation/ops.py smem_bytes): stored row
   // s of a field with a halo above is local row s - 1
   // 2 mbarriers (red, black halo rows received), then the fields
   unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem);
-  float* u = smem + 4;                 // (R + 2) x nxu, local rows -1..R
-  float* v = u + (R + 2) * nxu;        // (R + 3) x nx, local rows -1..R+1
-  float* us = v + (R + 3) * nx;        // R x nx: u_pen with the inlet BC
-  float* vs = us + R * nx;             // (R + 1) x nx: v_pen with its BCs
-  float* red = vs + (R + 1) * nx;      // (R + 2) x w, local rows -1..R
-  float* black = red + (R + 2) * w;
-  float* rhs_r = black + (R + 2) * w;  // R x w
-  float* rhs_b = rhs_r + R * w;
+  b.u = smem + 4;                        // (R + 2) x nxu, local rows -1..R
+  b.v = b.u + (R + 2) * nxu;             // (R + 3) x nx, local rows -1..R+1
+  b.us = b.v + (R + 3) * nx;             // R x nx: u_pen with the inlet BC
+  b.vs = b.us + R * nx;                  // (R + 1) x nx: v_pen with its BCs
+  b.red = b.vs + (R + 1) * nx;           // (R + 2) x w, local rows -1..R
+  b.black = b.red + (R + 2) * w;
+  b.rhs_r = b.black + (R + 2) * w;       // R x w
+  b.rhs_b = b.rhs_r + R * w;
   // this block's fx, fy, outflux (NB > 0: fx and fy per body), then the
   // reduction's scratch: 128 floats for block_sum3, 33 (2 NB + 1) for
   // block_sum
-  float* part = rhs_b + R * w;
+  float* part = b.rhs_b + R * w;
   float* scratch = part + kPartSlots<NB>;
 
   // the neighbours' halo rows (nullptr at the domain's walls)
   const int nrows_prev = first ? 0 : j0 - bands.start[rank - 1];
-  float *u_prev = nullptr, *v_prev = nullptr, *vs_prev = nullptr;
-  float *u_next = nullptr, *v_next = nullptr;
+  Mirror h{nullptr, nullptr, nullptr, nullptr, nullptr};
   Link red_link{0u, 0u, 0u, 0u}, black_link{0u, 0u, 0u, 0u};
   if (!first) {
-    u_prev = cluster.map_shared_rank(u, rank - 1) + (nrows_prev + 1) * nxu;
-    v_prev = cluster.map_shared_rank(v, rank - 1) + (nrows_prev + 1) * nx;
-    vs_prev = cluster.map_shared_rank(vs, rank - 1) + nrows_prev * nx;
-    red_link.prev = cluster_addr(red + (nrows_prev + 1) * w, rank - 1);
+    h.u_prev = cluster.map_shared_rank(b.u, rank - 1) + (nrows_prev + 1) * nxu;
+    h.v_prev = cluster.map_shared_rank(b.v, rank - 1) + (nrows_prev + 1) * nx;
+    h.vs_prev = cluster.map_shared_rank(b.vs, rank - 1) + nrows_prev * nx;
+    red_link.prev = cluster_addr(b.red + (nrows_prev + 1) * w, rank - 1);
     red_link.prev_bar = cluster_addr(&mbar[0], rank - 1);
-    black_link.prev = cluster_addr(black + (nrows_prev + 1) * w, rank - 1);
+    black_link.prev = cluster_addr(b.black + (nrows_prev + 1) * w, rank - 1);
     black_link.prev_bar = cluster_addr(&mbar[1], rank - 1);
   }
   if (!last) {
-    u_next = cluster.map_shared_rank(u, rank + 1);
-    v_next = cluster.map_shared_rank(v, rank + 1);
-    red_link.next = cluster_addr(red, rank + 1);
+    h.u_next = cluster.map_shared_rank(b.u, rank + 1);
+    h.v_next = cluster.map_shared_rank(b.v, rank + 1);
+    red_link.next = cluster_addr(b.red, rank + 1);
     red_link.next_bar = cluster_addr(&mbar[0], rank + 1);
-    black_link.next = cluster_addr(black, rank + 1);
+    black_link.next = cluster_addr(b.black, rank + 1);
     black_link.next_bar = cluster_addr(&mbar[1], rank + 1);
   }
   // halo bytes a colour's phase waits for: a row from each neighbour
@@ -315,278 +791,33 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
 
   const size_t nu = static_cast<size_t>(ny) * nxu;
   const size_t nv = static_cast<size_t>(ny + 1) * nx;
-  if constexpr (NB > 0) {  // this env's geometry in the bank
-    const size_t gid = static_cast<size_t>(g.geom_id[env]);
-    g.chi_u += gid * nu;
-    g.chi_v += gid * nv;
-    g.jet_u += gid * 2 * nu;
-    g.jet_v += gid * 2 * nv;
-    g.jmask_u += gid * nu;
-    g.jmask_v += gid * nv;
-    g.rot_u += gid * nu;
-    g.rot_v += gid * nv;
-    g.rmask_u += gid * nu;
-    g.rmask_v += gid * nv;
-    g.inlet_u += gid * ny;
-    g.rotb_u += gid * NB * nu;
-    g.rotb_v += gid * NB * nv;
-    g.own_u += gid * NB * nu;
-    g.own_v += gid * NB * nv;
-  }
-  u_in += env * nu;
-  u_out += env * nu;
-  v_in += env * nv;
-  v_out += env * nv;
-  p_in += static_cast<size_t>(env) * ny * nx;
-  p_out += static_cast<size_t>(env) * ny * nx;
-  if constexpr (NB == 0) {
-    cd_out += static_cast<size_t>(env) * n_steps;
-    cl_out += static_cast<size_t>(env) * n_steps;
-  } else {  // (n_env, n_steps, NB)
-    cd_out += static_cast<size_t>(env) * n_steps * NB;
-    cl_out += static_cast<size_t>(env) * n_steps * NB;
-  }
-  // the amplitude: a scalar, or NB per-body speeds whose slot 0 doubles as
-  // the jet amplitude
-  float jvb[NB > 0 ? NB : 1];
-  if constexpr (NB > 0) {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) jvb[b] = jet_vel[env * NB + b];
-  }
-  const float jv = NB == 0 ? jet_vel[env] : jvb[0];
-  const float re = re_arr[env];
-  const float m = mode_arr[env];
-  const float one_m_m = 1.0f - m;
+  env_geometry<NB>(g, env, nu, nv, ny);
+  const EnvIO<NB> io(u_in, v_in, p_in, u_out, v_out, p_out, cd_out, cl_out,
+                     env, ny, nx, n_steps);
+  const Actuation<NB> act = env_actuation<NB>(jet_vel, re_arr, mode_arr, env);
   const int n_sor = iters - n_polish;
 
-  // -- load the band with its halo rows; the wall ghost rows of _pad_u /
-  //    _pad_v (-u, 0 * v) where the band meets a wall -------------------
-  for (int lj = ty - 1; lj <= nrows; lj += TY) {
-    const int j = j0 + lj;
-    const float sign = (j < 0 || j >= ny) ? -1.0f : 1.0f;
-    const float* src = u_in + static_cast<size_t>(min(max(j, 0), ny - 1)) * nxu;
-    for (int i = tx; i < nxu; i += TX) u[(lj + 1) * nxu + i] = sign * src[i];
-  }
-  for (int lj = ty - 1; lj <= nrows + 1; lj += TY) {
-    const int j = j0 + lj;
-    const bool ghost = j < 0 || j > ny;
-    const float* src = v_in + static_cast<size_t>(min(max(j, 0), ny)) * nx;
-    for (int i = tx; i < nx; i += TX)
-      v[(lj + 1) * nx + i] = ghost ? src[i] * 0.0f : src[i];
-  }
-  for (int lj = ty - 1; lj <= nrows; lj += TY) {
-    const int j = j0 + lj;
-    const bool inside = j >= 0 && j < ny;
-    const float* src = p_in + static_cast<size_t>(inside ? j : 0) * nx;
-    for (int k = tx; k < w; k += TX) {
-      red[(lj + 1) * w + k] = inside ? src[2 * k + (j & 1)] : 0.0f;
-      black[(lj + 1) * w + k] = inside ? src[2 * k + 1 - (j & 1)] : 0.0f;
-    }
-  }
-  float s_in = 0.0f, unused_b = 0.0f, unused_c = 0.0f;
-  for (int j = tid; j < ny; j += blockDim.x) s_in += g.inlet_u[j];
-  block_sum3(s_in, unused_b, unused_c, scratch);
-  const float influx = s_in * c.dy;
+  // -- load the band with its halo rows --------------------------------
+  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows, nrows + 1);
+  const float influx = inlet_flux<NB>(g, ny, c, scratch);
   // every block of the cluster has started, holds its band and has its
   // mbarriers set before any block stores into another's shared memory
   cluster_barrier();
 
   for (int t = 0; t < n_steps; ++t) {
-    // -- A: predictor, penalization, BCs but the outlet column of u_pen,
-    //    force and outflux partial sums --------------------------------
-    float fx = 0.0f, fy = 0.0f, out = 0.0f;
-    float fxb[NB > 0 ? NB : 1], fyb[NB > 0 ? NB : 1];
-    if constexpr (NB > 0) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) fxb[b] = fyb[b] = 0.0f;
-    }
-    for (int lj = ty; lj < nrows; lj += TY) {
-      const int j = j0 + lj;
-      const float* ur0 = u + (lj + 1) * nxu;  // row j
-      const float* urb = ur0 - nxu;           // j - 1
-      const float* urt = ur0 + nxu;           // j + 1
-      const float* vr0 = v + (lj + 1) * nx;   // v row j
-      const float* vr1 = vr0 + nx;            // v row j + 1
-      float* usr = us + lj * nx;
-      const float inlet = g.inlet_u[j];
-      for (int i = tx; i < nxu; i += TX) {
-        const int gi = j * nxu + i;
-        const float uc = U(ur0, i, nx);
-        const float ul = U(ur0, i - 1, nx);
-        const float ur = U(ur0, i + 1, nx);
-        const float ub = U(urb, i, nx);
-        const float ut = U(urt, i, nx);
-        const float vau = 0.25f * (((V(vr0, i - 1, nx) + V(vr0, i, nx))
-                                    + V(vr1, i - 1, nx)) + V(vr1, i, nx));
-        const float dudx_up = uc > 0.0f ? (uc - ul) * c.inv_dx : (ur - uc) * c.inv_dx;
-        const float dudy_up = vau > 0.0f ? (uc - ub) * c.inv_dy : (ut - uc) * c.inv_dy;
-        const float dudx = c.blend * dudx_up + (c.one_m_blend * (ur - ul)) * c.inv_2dx;
-        const float dudy = c.blend * dudy_up + (c.one_m_blend * (ut - ub)) * c.inv_2dy;
-        const float adv = uc * dudx + vau * dudy;
-        const float lap = ((ul + ur) - 2.0f * uc) * c.inv_dx2
-                          + ((ub + ut) - 2.0f * uc) * c.inv_dy2;
-        const float u_star = uc + c.dt * (-adv + lap / re);
-        float tgt;
-        if constexpr (NB == 0) {
-          tgt = jv * (one_m_m * (g.jet_u[gi] - g.jet_u[nu + gi])
-                      + m * g.rot_u[gi]);
-        } else {
-          float rot = 0.0f;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) rot += jvb[b] * g.rotb_u[b * nu + gi];
-          tgt = (one_m_m * jv) * (g.jet_u[gi] - g.jet_u[nu + gi]) + m * rot;
-        }
-        const float pen = fmaxf(g.chi_u[gi],
-                                one_m_m * g.jmask_u[gi] + m * g.rmask_u[gi]);
-        const float lp = c.lam * pen;
-        const float u_pen = (u_star + lp * tgt) / (1.0f + lp);
-        if constexpr (NB == 0) {
-          fx += (u_pen - u_star) * c.inv_dt;
-        } else {
-          const float d = (u_pen - u_star) * c.inv_dt;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) fxb[b] += g.own_u[b * nu + gi] * d;
-        }
-        if (i == nx - 1) out += u_pen;
-        if (i < nx) usr[i] = i == 0 ? inlet : u_pen;  // column nx: in C
-      }
-    }
-    for (int lj = ty; lj < nv_rows; lj += TY) {
-      const int j = j0 + lj;
-      const bool wall = j == 0 || j == ny;
-      const float* vr0 = v + (lj + 1) * nx;  // row j
-      const float* vrb = vr0 - nx;
-      const float* vrt = vr0 + nx;
-      const float* ur0 = u + (lj + 1) * nxu;  // u row j
-      const float* urb = ur0 - nxu;           // u row j - 1
-      float* vsr = vs + lj * nx;
-      for (int i = tx; i < nx; i += TX) {
-        const int gi = j * nx + i;
-        const float vc = V(vr0, i, nx);
-        const float vl = V(vr0, i - 1, nx);
-        const float vr = V(vr0, i + 1, nx);
-        const float vb = V(vrb, i, nx);
-        const float vt = V(vrt, i, nx);
-        const float uav = 0.25f * (((U(urb, i, nx) + U(urb, i + 1, nx))
-                                    + U(ur0, i, nx)) + U(ur0, i + 1, nx));
-        const float dvdx_up = uav > 0.0f ? (vc - vl) * c.inv_dx : (vr - vc) * c.inv_dx;
-        const float dvdy_up = vc > 0.0f ? (vc - vb) * c.inv_dy : (vt - vc) * c.inv_dy;
-        const float dvdx = c.blend * dvdx_up + (c.one_m_blend * (vr - vl)) * c.inv_2dx;
-        const float dvdy = c.blend * dvdy_up + (c.one_m_blend * (vt - vb)) * c.inv_2dy;
-        const float adv = uav * dvdx + vc * dvdy;
-        const float lap = ((vl + vr) - 2.0f * vc) * c.inv_dx2
-                          + ((vb + vt) - 2.0f * vc) * c.inv_dy2;
-        const float v_star = vc + c.dt * (-adv + lap / re);
-        float tgt;
-        if constexpr (NB == 0) {
-          tgt = jv * (one_m_m * (g.jet_v[gi] - g.jet_v[nv + gi])
-                      + m * g.rot_v[gi]);
-        } else {
-          float rot = 0.0f;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) rot += jvb[b] * g.rotb_v[b * nv + gi];
-          tgt = (one_m_m * jv) * (g.jet_v[gi] - g.jet_v[nv + gi]) + m * rot;
-        }
-        const float pen = fmaxf(g.chi_v[gi],
-                                one_m_m * g.jmask_v[gi] + m * g.rmask_v[gi]);
-        const float lp = c.lam * pen;
-        const float v_pen = (v_star + lp * tgt) / (1.0f + lp);
-        if constexpr (NB == 0) {
-          fy += (v_pen - v_star) * c.inv_dt;
-        } else {
-          const float d = (v_pen - v_star) * c.inv_dt;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) fyb[b] += g.own_v[b * nv + gi] * d;
-        }
-        // _apply_bc_v: inlet 0, outlet copies column -2, walls 0
-        if (i == nx - 1) continue;
-        const float val = (i == 0 || wall) ? 0.0f : v_pen;
-        put(vsr, vs_prev, nullptr, lj, nrows, i, val);
-        if (i == nx - 2) put(vsr, vs_prev, nullptr, lj, nrows, nx - 1, val);
-      }
-    }
-    if constexpr (NB == 0) {
-      block_sum3(fx, fy, out, scratch);
-      if (tid == 0) {
-        part[0] = fx;
-        part[1] = fy;
-        part[2] = out;
-      }
-    } else {  // per-body fx, per-body fy, outflux
-      float sums[2 * NB + 1];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        sums[b] = fxb[b];
-        sums[NB + b] = fyb[b];
-      }
-      sums[2 * NB] = out;
-      block_sum(sums, scratch);
-      if (tid == 0) {
-#pragma unroll
-        for (int k = 0; k < 2 * NB + 1; ++k) part[k] = sums[k];
-      }
-    }
+    // -- A -------------------------------------------------------------
+    Sums<NB> s;
+    predictor<NB>(b, h, g, act, c, l, ny, nx, s);
+    publish_partials<NB>(s, part, scratch);
     cluster_barrier();  // partials, u_pen / v_pen and the vs halo complete
 
     // the cluster's sums, in one fixed order on every warp of every block
-    if constexpr (NB == 0) {
-      fx = lane < C ? part_of_lane[0] : 0.0f;
-      fy = lane < C ? part_of_lane[1] : 0.0f;
-      out = lane < C ? part_of_lane[2] : 0.0f;
-      for (int off = 1; off < 32; off <<= 1) {
-        fx += __shfl_xor_sync(0xffffffffu, fx, off);
-        fy += __shfl_xor_sync(0xffffffffu, fy, off);
-        out += __shfl_xor_sync(0xffffffffu, out, off);
-      }
-    } else {
-      float sums[2 * NB + 1];
-#pragma unroll
-      for (int k = 0; k < 2 * NB + 1; ++k)
-        sums[k] = lane < C ? part_of_lane[k] : 0.0f;
-      for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-        for (int k = 0; k < 2 * NB + 1; ++k)
-          sums[k] += __shfl_xor_sync(0xffffffffu, sums[k], off);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        fxb[b] = sums[b];
-        fyb[b] = sums[NB + b];
-      }
-      out = sums[2 * NB];
-    }
-    const float corr = (influx - out * c.dy) / c.ny_dy;
-    if (first && tid == 0) {
-      if constexpr (NB == 0) {
-        cd_out[t] = ((-fx * c.dx) * c.dy) / c.coef;
-        cl_out[t] = ((-fy * c.dx) * c.dy) / c.coef;
-      } else {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          cd_out[t * NB + b] = ((-fxb[b] * c.dx) * c.dy) / c.coef;
-          cl_out[t * NB + b] = ((-fyb[b] * c.dx) * c.dy) / c.coef;
-        }
-      }
-    }
+    gather_sums<NB>(part_of_lane, C, lane, s);
+    const float corr = (influx - s.out * c.dy) / c.ny_dy;
+    if (first && tid == 0) write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
 
-    // -- C: divergence rhs into the two rhs planes.  The outlet column of
-    //    u_bc is u_pen's column -2 plus the mass correction ---------------
-    for (int lj = ty; lj < nrows; lj += TY) {
-      const int j = j0 + lj;
-      const float* usr = us + lj * nx;
-      const float* vs0 = vs + lj * nx;
-      const float* vs1 = vs0 + nx;
-      for (int k = tx; k < w; k += TX) {
-        const int ir = 2 * k + (j & 1);
-        const int ib = 2 * k + 1 - (j & 1);
-        const float ur1 = ir + 1 == nx ? usr[nx - 1] + corr : usr[ir + 1];
-        const float ub1 = ib + 1 == nx ? usr[nx - 1] + corr : usr[ib + 1];
-        rhs_r[lj * w + k] = ((ur1 - usr[ir]) * c.inv_dx
-                             + (vs1[ir] - vs0[ir]) * c.inv_dy) * c.inv_dt;
-        rhs_b[lj * w + k] = ((ub1 - usr[ib]) * c.inv_dx
-                             + (vs1[ib] - vs0[ib]) * c.inv_dy) * c.inv_dt;
-      }
-    }
+    // -- C -------------------------------------------------------------
+    divergence_rhs(b, corr, c, l, nx);
 
     __syncthreads();
 
@@ -600,18 +831,20 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
       const float om = sor ? c.omega : 1.0f;
       const float one_m_om = sor ? c.one_m_omega : 0.0f;
       const bool wait_black = linked && it > 0;
-      band_half_sweep<false>(red, black, rhs_r, nullptr, nullptr, red_link,
-                             wait_black ? &mbar[1] : nullptr, black_parity,
-                             nrows, j0, ny, w, 1, tx, ty, TX, TY, c.inv_dx2,
-                             c.inv_dy2, c.inv_diag, om, one_m_om);
+      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
+                             red_link, wait_black ? &mbar[1] : nullptr,
+                             black_parity, nrows, j0, ny, w, 1, l.tx, l.ty,
+                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
+                             one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
       }
-      band_half_sweep<false>(black, red, rhs_b, nullptr, nullptr, black_link,
-                             linked ? &mbar[0] : nullptr, red_parity, nrows,
-                             j0, ny, w, 0, tx, ty, TX, TY, c.inv_dx2,
-                             c.inv_dy2, c.inv_diag, om, one_m_om);
+      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
+                             black_link, linked ? &mbar[0] : nullptr,
+                             red_parity, nrows, j0, ny, w, 0, l.tx, l.ty,
+                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
+                             one_m_om);
       if (linked) {
         red_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
@@ -624,81 +857,166 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
       black_parity ^= 1u;
     }
 
-    // -- E: velocity correction and the BCs of _correct; the wall ghost
-    //    rows and the neighbours' halo rows follow the stores ------------
-    for (int lj = ty; lj < nrows; lj += TY) {
-      const int j = j0 + lj;
-      const float* usr = us + lj * nx;
-      const float* pr = red + (lj + 1) * w;
-      const float* pb = black + (lj + 1) * w;
-      float* urow = u + (lj + 1) * nxu;
-      for (int i = tx; i < nx; i += TX) {
-        float val = usr[i];
-        if (i >= 1) {
-          const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
-          const float p0 = ((i - 1 + j) & 1) == 0 ? pr[(i - 1) >> 1]
-                                                  : pb[(i - 1) >> 1];
-          val = val + (-c.dt * (p1 - p0)) * c.inv_dx;
-        }
-        put(urow, u_prev, u_next, lj, nrows, i, val);
-        if (i == nx - 1) put(urow, u_prev, u_next, lj, nrows, nx, val);
-        if (first && lj == 0) {
-          urow[i - nxu] = -val;
-          if (i == nx - 1) urow[nx - nxu] = -val;
-        }
-        if (last && lj == nrows - 1) {
-          urow[i + nxu] = -val;
-          if (i == nx - 1) urow[nx + nxu] = -val;
-        }
-      }
-    }
-    for (int lj = ty; lj < nv_rows; lj += TY) {
-      const int j = j0 + lj;
-      const bool zero_row = j == 0 || j == ny;
-      const float* vsr = vs + lj * nx;
-      const float* pr = red + (lj + 1) * w;
-      const float* pb = black + (lj + 1) * w;
-      float* vrow = v + (lj + 1) * nx;
-      for (int i = tx; i < nx - 1; i += TX) {
-        float val = 0.0f;
-        if (!(i == 0 || zero_row)) {
-          const float p1 = ((i + j) & 1) == 0 ? pr[i >> 1] : pb[i >> 1];
-          const float p0 = ((i + j - 1) & 1) == 0 ? pr[(i >> 1) - w]
-                                                  : pb[(i >> 1) - w];
-          val = vsr[i] + (-c.dt * (p1 - p0)) * c.inv_dy;
-        }
-        put(vrow, v_prev, v_next, lj, nrows, i, val);
-        if (i == nx - 2) put(vrow, v_prev, v_next, lj, nrows, nx - 1, val);
-        if (first && lj == 0) {  // ghost row j = -1 of _pad_v: 0 * v[0]
-          vrow[i - nx] = val * 0.0f;
-          if (i == nx - 2) vrow[nx - 1 - nx] = val * 0.0f;
-        }
-        if (last && lj == nrows) {  // ghost row j = ny + 1: 0 * v[ny]
-          vrow[i + nx] = val * 0.0f;
-          if (i == nx - 2) vrow[nx - 1 + nx] = val * 0.0f;
-        }
-      }
-    }
+    // -- E -------------------------------------------------------------
+    correct(b, h, c, l, ny, nx);
     cluster_barrier();  // u, v and their halo and ghost rows complete
     if (wait_last && tid == 0) mbar_expect(&mbar[1], halo_bytes);
   }
 
   // -- write the band back ---------------------------------------------
-  for (int lj = ty; lj < nrows; lj += TY) {
-    const int j = j0 + lj;
-    for (int i = tx; i < nxu; i += TX)
-      u_out[static_cast<size_t>(j) * nxu + i] = u[(lj + 1) * nxu + i];
-    for (int k = tx; k < w; k += TX) {
-      p_out[static_cast<size_t>(j) * nx + 2 * k + (j & 1)] = red[(lj + 1) * w + k];
-      p_out[static_cast<size_t>(j) * nx + 2 * k + 1 - (j & 1)] =
-          black[(lj + 1) * w + k];
+  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
+}
+
+// -- the global-memory kernel: the grids no cluster holds -------------------
+//
+// One group of G <= kMaxGroup blocks per env (G chosen by the wrapper,
+// kernels/cluster.py global_group).  Each env's fields live in a workspace
+// in global memory, laid out as one band of all ny rows (ws_floats below):
+// rank r's band is the window of rows [r ny / G, (r + 1) ny / G), and the
+// rows above and below it are its neighbours' own, read where they lie
+// (L2 holds an env's fields: ~7 MB at res 48).  The phases of a dt are the
+// cluster kernel's, the same functions on the same band view; what orders
+// them is grid_sync.cuh's flags: a group barrier after the predictor (the
+// force sums need every block's partials) and after the correction (the
+// next predictor reads the neighbours' u and v rows), and before each SOR
+// half-sweep and before the correction a wait on the two neighbours only.
+// The partial sums go to the workspace and every block adds the G of them
+// in the cluster kernel's order, so G orders the sums as the cluster size
+// does, and two launches on one input are bitwise identical.
+
+// floats of one env's fields in the workspace: u (ny + 2) x (nx + 1), v
+// (ny + 3) x nx, u_pen ny x nx, v_pen (ny + 1) x nx, red and black
+// (ny + 2) x w, rhs_r and rhs_b ny x w (kernels/actuation/ops.py
+// workspace_bytes)
+__host__ __device__ inline size_t ws_floats(int ny, int nx) {
+  const size_t w = nx / 2, nxu = nx + 1;
+  return (ny + 2) * nxu + (ny + 3) * static_cast<size_t>(nx)
+         + static_cast<size_t>(ny) * nx + (ny + 1) * static_cast<size_t>(nx)
+         + 2 * (ny + 2) * w + 2 * static_cast<size_t>(ny) * w;
+}
+
+// the reduction's scratch of the global-memory kernel, in static shared
+// memory: block_sum3's 100 floats, block_sum's 33 (2 NB + 1)
+template <int NB>
+constexpr int kScratchFloats = NB == 0 ? 128 : (33 * (2 * NB + 1) + 3) / 4 * 4;
+
+template <int NB>
+__global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ p_in, GeomOf<NB> g,
+    const float* __restrict__ jet_vel, const float* __restrict__ re_arr,
+    const float* __restrict__ mode_arr, float* __restrict__ u_out,
+    float* __restrict__ v_out, float* __restrict__ p_out,
+    float* __restrict__ cd_out, float* __restrict__ cl_out,
+    int* __restrict__ block_sm, float* ws, int env0, int n_env, int ny,
+    int nx, int n_steps, int iters, int n_polish, int tx_dim, Consts c) {
+  __shared__ float scratch[kScratchFloats<NB>];
+  const int G = static_cast<int>(gridDim.x) / n_env;
+  const int local = blockIdx.x / G;  // the env within this launch
+  const int rank = blockIdx.x - local * G;
+  const int env = env0 + local;
+  const int tid = threadIdx.x;
+  Lanes l;
+  l.TX = tx_dim;
+  l.TY = blockDim.x / l.TX;
+  l.ty = tid / l.TX;
+  l.tx = tid - l.ty * l.TX;
+  const int lane = tid & 31;
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
+
+  const int w = nx / 2;
+  const int nxu = nx + 1;
+  // the env's fields, then every env's partial sums, then the flags
+  float* f = ws + local * ws_floats(ny, nx);
+  float* parts = ws + n_env * ws_floats(ny, nx);
+  unsigned* flags = reinterpret_cast<unsigned*>(
+      parts + static_cast<size_t>(n_env) * G * kPartSlots<NB>) +
+      static_cast<size_t>(local) * G * kFlagStride;
+  unsigned* my_flag = flags + rank * kFlagStride;
+  Band b;
+  b.j0 = band_start(rank, ny, G);
+  b.nrows = band_start(rank + 1, ny, G) - b.j0;
+  b.first = rank == 0;
+  b.last = rank == G - 1;
+  b.nv_rows = b.nrows + (b.last ? 1 : 0);
+  float* u = f;
+  float* v = u + (ny + 2) * nxu;
+  float* us = v + (ny + 3) * nx;
+  float* vs = us + ny * nx;
+  float* red = vs + (ny + 1) * nx;
+  float* black = red + (ny + 2) * w;
+  float* rhs_r = black + (ny + 2) * w;
+  float* rhs_b = rhs_r + ny * w;
+  b.u = u + b.j0 * nxu;
+  b.v = v + b.j0 * nx;
+  b.us = us + b.j0 * nx;
+  b.vs = vs + b.j0 * nx;
+  b.red = red + b.j0 * w;
+  b.black = black + b.j0 * w;
+  b.rhs_r = rhs_r + b.j0 * w;
+  b.rhs_b = rhs_b + b.j0 * w;
+  const Mirror h{nullptr, nullptr, nullptr, nullptr, nullptr};
+  const Link none{0u, 0u, 0u, 0u};
+  float* part = parts + (static_cast<size_t>(local) * G + rank) * kPartSlots<NB>;
+  const float* part_of_lane =
+      parts + (static_cast<size_t>(local) * G + (lane < G ? lane : 0)) *
+                  kPartSlots<NB>;
+
+  const size_t nu = static_cast<size_t>(ny) * nxu;
+  const size_t nv = static_cast<size_t>(ny + 1) * nx;
+  env_geometry<NB>(g, env, nu, nv, ny);
+  const EnvIO<NB> io(u_in, v_in, p_in, u_out, v_out, p_out, cd_out, cl_out,
+                     env, ny, nx, n_steps);
+  const Actuation<NB> act = env_actuation<NB>(jet_vel, re_arr, mode_arr, env);
+  const int n_sor = iters - n_polish;
+
+  // -- load the band's own rows, and the wall ghost rows at its ends -----
+  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, b.first ? -1 : 0,
+            b.nrows - 1 + (b.last ? 1 : 0), b.nrows - 1 + (b.last ? 2 : 0));
+  const float influx = inlet_flux<NB>(g, ny, c, scratch);
+  unsigned gen = 0;
+  group_barrier(flags, rank, G, gen);  // every row loaded
+
+  for (int t = 0; t < n_steps; ++t) {
+    Sums<NB> s;
+    predictor<NB>(b, h, g, act, c, l, ny, nx, s);
+    publish_partials<NB>(s, part, scratch);
+    group_barrier(flags, rank, G, gen);  // partials, u_pen and v_pen
+
+    gather_sums<NB>(part_of_lane, G, lane, s);
+    const float corr = (influx - s.out * c.dy) / c.ny_dy;
+    if (b.first && tid == 0)
+      write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
+
+    divergence_rhs(b, corr, c, l, nx);
+    __syncthreads();
+
+    // the first red half-sweep of a dt reads black rows the group barrier
+    // after the last correction ordered
+    for (int it = 0; it < iters; ++it) {
+      const bool sor = it < n_sor;
+      const float om = sor ? c.omega : 1.0f;
+      const float one_m_om = sor ? c.one_m_omega : 0.0f;
+      if (it > 0) wait_neighbours(flags, rank, G, gen);
+      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
+                             none, nullptr, 0u, b.nrows, b.j0, ny, w, 1,
+                             l.tx, l.ty, l.TX, l.TY, c.inv_dx2, c.inv_dy2,
+                             c.inv_diag, om, one_m_om);
+      arrive(my_flag, ++gen);
+      wait_neighbours(flags, rank, G, gen);
+      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
+                             none, nullptr, 0u, b.nrows, b.j0, ny, w, 0,
+                             l.tx, l.ty, l.TX, l.TY, c.inv_dx2, c.inv_dy2,
+                             c.inv_diag, om, one_m_om);
+      arrive(my_flag, ++gen);
     }
+    // the correction of v reads the planes' row above the band
+    wait_neighbours(flags, rank, G, gen);
+    correct(b, h, c, l, ny, nx);
+    group_barrier(flags, rank, G, gen);  // u, v and their ghost rows
   }
-  for (int lj = ty; lj < nv_rows; lj += TY) {
-    const int j = j0 + lj;
-    for (int i = tx; i < nx; i += TX)
-      v_out[static_cast<size_t>(j) * nx + i] = v[(lj + 1) * nx + i];
-  }
+
+  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
 }
 
 // The per-body instantiation's body count: grid.max_bodies(), the widest
@@ -764,18 +1082,11 @@ static cudaError_t launch(const GeomOf<NB>& g, const float* u_in,
 // tx_dim) threads; smem: each block's dynamic shared memory in bytes
 // (ops.smem_bytes).  Launch on `stream`; returns the CUDA error code
 // (0 = launched).
-extern "C" int fused_interval_launch(
-    const float* u_in, const float* v_in, const float* p_in,
-    const void* const* geom, const int* geom_id, int n_bodies,
-    const float* jet_vel, const float* re, const float* act_mode,
-    float* u_out, float* v_out, float* p_out, float* cd, float* cl,
-    int* block_sm, int n_env, int ny, int nx, int n_steps, int iters,
-    int n_polish, int cluster, const int* starts, int rows_max, int threads,
-    int tx_dim, int smem, const float* consts, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster ||
-      (n_bodies != 0 && n_bodies != kBodies))
-    return static_cast<int>(cudaErrorInvalidValue);
-  GeomBank g;
+// The geometry's device pointers (the 11 or 15 fields below, in GeomArrays
+// order) and the float constants as the kernels take them.
+static GeomBank unpack_geometry(const void* const* geom, const int* geom_id,
+                                int n_bodies) {
+  GeomBank g{};
   const float* const* gp = reinterpret_cast<const float* const*>(geom);
   g.chi_u = gp[0];
   g.chi_v = gp[1];
@@ -788,9 +1099,36 @@ extern "C" int fused_interval_launch(
   g.rmask_u = gp[8];
   g.rmask_v = gp[9];
   g.inlet_u = gp[10];
+  if (n_bodies) {
+    g.rotb_u = gp[11];
+    g.rotb_v = gp[12];
+    g.own_u = gp[13];
+    g.own_v = gp[14];
+    g.geom_id = geom_id;
+  }
+  return g;
+}
+
+static Consts unpack_consts(const float* consts) {
   Consts c;
   float* cp = reinterpret_cast<float*>(&c);
   for (int k = 0; k < kNumConsts; ++k) cp[k] = consts[k];
+  return c;
+}
+
+extern "C" int fused_interval_launch(
+    const float* u_in, const float* v_in, const float* p_in,
+    const void* const* geom, const int* geom_id, int n_bodies,
+    const float* jet_vel, const float* re, const float* act_mode,
+    float* u_out, float* v_out, float* p_out, float* cd, float* cl,
+    int* block_sm, int n_env, int ny, int nx, int n_steps, int iters,
+    int n_polish, int cluster, const int* starts, int rows_max, int threads,
+    int tx_dim, int smem, const float* consts, void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster ||
+      (n_bodies != 0 && n_bodies != kBodies))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GeomBank g = unpack_geometry(geom, geom_id, n_bodies);
+  const Consts c = unpack_consts(consts);
   Bands bands{};
   for (int r = 0; r <= cluster; ++r) bands.start[r] = starts[r];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -799,13 +1137,98 @@ extern "C" int fused_interval_launch(
         g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd,
         cl, block_sm, n_env, ny, nx, n_steps, iters, n_polish, cluster,
         rows_max, threads, tx_dim, smem, bands, c, st));
-  g.rotb_u = gp[11];
-  g.rotb_v = gp[12];
-  g.own_u = gp[13];
-  g.own_v = gp[14];
-  g.geom_id = geom_id;
   return static_cast<int>(launch<kBodies>(
       g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd, cl,
       block_sm, n_env, ny, nx, n_steps, iters, n_polish, cluster, rows_max,
       threads, tx_dim, smem, bands, c, st));
+}
+
+// -- the global-memory kernel's exports ------------------------------------
+
+// How many blocks of `threads` threads of the global-memory kernel's
+// instantiation for `n_bodies` (0 or kBodies) one SM holds at once, into
+// *out.  Returns the CUDA error code (0 = success).
+extern "C" int fused_interval_global_blocks_per_sm(int n_bodies, int threads,
+                                                   int* out) {
+  return static_cast<int>(
+      n_bodies ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     out, fused_interval_global_kernel<kBodies>, threads, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     out, fused_interval_global_kernel<0>, threads, 0));
+}
+
+// The float slots of one block's partial sums (ops.workspace_bytes).
+extern "C" int fused_interval_part_slots(int n_bodies) {
+  return n_bodies ? kPartSlots<kBodies> : kPartSlots<0>;
+}
+
+template <int NB>
+static cudaError_t launch_global(const GeomOf<NB>& g, const float* u_in,
+                                 const float* v_in, const float* p_in,
+                                 const float* jet_vel, const float* re,
+                                 const float* act_mode, float* u_out,
+                                 float* v_out, float* p_out, float* cd,
+                                 float* cl, int* block_sm, float* ws,
+                                 int n_env, int per_launch, int ny, int nx,
+                                 int n_steps, int iters, int n_polish,
+                                 int group, int threads, int tx_dim,
+                                 const Consts& c, cudaStream_t stream) {
+  // -1 where no block wrote its SM: the record counts the blocks that ran
+  cudaError_t err = cudaMemsetAsync(
+      block_sm, 0xff, sizeof(int) * static_cast<size_t>(n_env) * group,
+      stream);
+  if (err != cudaSuccess) return err;
+  for (int e0 = 0; e0 < n_env; e0 += per_launch) {
+    const int n = n_env - e0 < per_launch ? n_env - e0 : per_launch;
+    // the launch's flags, after its envs' fields and partial sums
+    float* flags = ws + n * ws_floats(ny, nx)
+                   + static_cast<size_t>(n) * group * kPartSlots<NB>;
+    err = cudaMemsetAsync(flags, 0,
+                          sizeof(unsigned) * n * group * kFlagStride, stream);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    fill_cooperative_config(cfg, attr, n * group, threads, stream);
+    err = cudaLaunchKernelEx(&cfg, fused_interval_global_kernel<NB>, u_in,
+                             v_in, p_in, g, jet_vel, re, act_mode, u_out,
+                             v_out, p_out, cd, cl, block_sm + e0 * group, ws,
+                             e0, n, ny, nx, n_steps, iters, n_polish, tx_dim,
+                             c);
+    if (err != cudaSuccess) return err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The operands as fused_interval_launch takes them; ws: the workspace of
+// `per_launch` envs (ops.workspace_bytes), reused by each launch; n_env
+// envs in ceil(n_env / per_launch) cooperative launches of per_launch x
+// group blocks (the last launch fewer) of `threads` = tx_dim x (threads /
+// tx_dim) threads, each env on `group` blocks (<= kMaxGroup, <= ny), all
+// of a launch resident at once; block_sm: n_env x group ints.  Launch on
+// `stream`; returns the CUDA error code (0 = launched).
+extern "C" int fused_interval_global_launch(
+    const float* u_in, const float* v_in, const float* p_in,
+    const void* const* geom, const int* geom_id, int n_bodies,
+    const float* jet_vel, const float* re, const float* act_mode,
+    float* u_out, float* v_out, float* p_out, float* cd, float* cl,
+    int* block_sm, float* ws, int n_env, int per_launch, int ny, int nx,
+    int n_steps, int iters, int n_polish, int group, int threads, int tx_dim,
+    const float* consts, void* stream) {
+  if (group < 1 || group > kMaxGroup || group > ny || per_launch < 1 ||
+      (n_bodies != 0 && n_bodies != kBodies))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GeomBank g = unpack_geometry(geom, geom_id, n_bodies);
+  const Consts c = unpack_consts(consts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_bodies == 0)
+    return static_cast<int>(launch_global<0>(
+        g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd,
+        cl, block_sm, ws, n_env, per_launch, ny, nx, n_steps, iters,
+        n_polish, group, threads, tx_dim, c, st));
+  return static_cast<int>(launch_global<kBodies>(
+      g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd, cl,
+      block_sm, ws, n_env, per_launch, ny, nx, n_steps, iters, n_polish,
+      group, threads, tx_dim, c, st));
 }

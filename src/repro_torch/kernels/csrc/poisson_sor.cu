@@ -1,5 +1,7 @@
 // Packed red-black SOR slab smoother: `rounds` block-Jacobi rounds in one
-// launch, one thread-block cluster per (env, slab).
+// launch, one thread-block cluster per (env, slab) where a cluster holds
+// the slab, one group of blocks on a workspace in global memory where
+// not.
 //
 // Replaces the Pallas TPU kernel rb_sor_packed_slab_kernel /
 // rb_sor_slabs_packed (src/repro/kernels/poisson/kernel.py:106-175), which
@@ -29,6 +31,23 @@ __global__ void __launch_bounds__(1024, 1) rb_sor_packed_cluster_kernel(
                     one_m_om);
 }
 
+__global__ void __launch_bounds__(1024, 1) rb_sor_packed_global_kernel(
+    PackedPlanes io, int* __restrict__ block_sm, float* ws, int group0,
+    int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
+    int tx_dim, float inv_dx2, float inv_dy2, float inv_diag, float om,
+    float one_m_om) {
+  sor_slabs_global(io, block_sm, ws, group0, n_groups, ny, w, nslabs,
+                   inner_iters, rounds, tx_dim, inv_dx2, inv_dy2, inv_diag,
+                   om, one_m_om);
+}
+
+// How many blocks of `threads` threads of the global-memory kernel one SM
+// holds at once, into *out.  Returns the CUDA error code (0 = success).
+extern "C" int rb_sor_packed_global_blocks_per_sm(int threads, int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, rb_sor_packed_global_kernel, threads, 0));
+}
+
 // How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
 // of dynamic shared memory each) the card holds at once, into *out.
 // Returns the CUDA error code (0 = success).
@@ -54,4 +73,23 @@ extern "C" int rb_sor_slabs_packed_launch(
                           rows_max, threads, tx_dim, smem, inv_dx2, inv_dy2,
                           inv_diag, om, one_m_om,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The operands as the cluster launch takes them; the global-memory kernel
+// launched as sor_slabs.cuh launch_sor_slabs_global says (ws: the
+// workspace of per_launch groups).  Launch on `stream`; returns the CUDA
+// error code (0 = launched).
+extern "C" int rb_sor_slabs_packed_global_launch(
+    const float* red, const float* black, const float* rhs_r,
+    const float* rhs_b, float* red_out, float* black_out, int* block_sm,
+    float* ws, int n_env, int ny, int w,
+    int nslabs, int inner_iters, int rounds, int group, int per_launch,
+    int threads, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om, void* stream) {
+  const PackedPlanes io{red, black, rhs_r, rhs_b, red_out, black_out, w};
+  return launch_sor_slabs_global(rb_sor_packed_global_kernel, io, block_sm, ws,
+                                 n_env, ny, w, nslabs, inner_iters,
+                                 rounds, group, per_launch, threads, tx_dim,
+                                 inv_dx2, inv_dy2, inv_diag, om, one_m_om,
+                                 static_cast<cudaStream_t>(stream));
 }

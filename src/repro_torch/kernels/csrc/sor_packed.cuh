@@ -1,8 +1,8 @@
 // The packed red-black SOR half-sweep over one block's band of rows, shared
 // by the kernels that spread a pressure plane over a thread-block cluster
-// (fused_interval.cu: live domain BCs; sor_slabs.cuh, the two slab
-// kernels: ghost columns frozen per block-Jacobi round).  The reference is cfd/poisson's
-// packed_half_sweep.
+// or a group of blocks (fused_interval.cu: live domain BCs; sor_slabs.cuh,
+// the two slab kernels: ghost columns frozen per block-Jacobi round).  The
+// reference is cfd/poisson's packed_half_sweep.
 //
 // Packed-checkerboard layout (nx even; row j, packed column k):
 //   red[j, k] = p[j, 2k + j%2]        black[j, k] = p[j, 2k + 1 - j%2]
@@ -14,7 +14,10 @@
 // above and one below.  A half-sweep reads only the other colour, so the
 // band split changes no arithmetic, only when each row is read: a
 // neighbour's edge row of the half-sweep before must be in the halo row
-// (cluster.cuh: st.async counted by the receiver's mbarrier).
+// (cluster.cuh: st.async counted by the receiver's mbarrier).  The
+// global-memory kernels pass a window onto the whole plane, whose halo
+// rows are the neighbours' own rows, with no link and no mbarrier, and
+// order the half-sweeps by flags (grid_sync.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -33,11 +33,16 @@
 //     per round (rounds = 1), and the ghosts come from the launch's input.
 //   * 2-D loops (rows by thread row, columns by lane: no index division)
 //     and multiplications by float32 reciprocals of dx^2 and dy^2.
+//   * A slab no 16-block cluster holds in shared memory goes to the
+//     global-memory kernel (sor_slabs_global below): a group of blocks per
+//     (env, slab) on its planes in a workspace in global memory, the same
+//     half-sweep on a band view, ordered by flags (grid_sync.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
 #include "sor_packed.cuh"
 
 // Packed planes (n_env, ny, w), one array per colour and field.  `row` is
@@ -104,6 +109,96 @@ struct FullGrid {
   }
 };
 
+// -- what both slab kernels share: a block's band of one (env, slab) -------
+//
+// A band is rows [j0, j0 + nrows) of the slab's packed planes: red and black
+// point at the band's stored row -1 (the halo row above), rhs_r, rhs_b and
+// the four frozen ghost columns at its row 0, each plane bxp columns wide.
+// The cluster kernel's band lives in the block's shared memory; the
+// global-memory kernel's is a window onto the (env, slab)'s planes in its
+// workspace, where the row above the band is the neighbour's own.
+struct SlabBand {
+  float *red, *black, *rhs_r, *rhs_b, *r_lg, *r_rg, *b_lg, *b_rg;
+  int j0, nrows;
+};
+
+// Load the band's rows lj in [lo, hi] of the planes from `io` (zeros
+// outside the grid), and its own rows of the right-hand sides.
+template <class IO>
+__device__ __forceinline__ void load_slab_rows(const IO& io,
+                                               const SlabBand& b,
+                                               size_t base, int c0, int ny,
+                                               int bxp, int lo, int hi,
+                                               int tx, int ty, int TX,
+                                               int TY) {
+  for (int lj = lo + ty; lj <= hi; lj += TY) {
+    const int j = b.j0 + lj;
+    const bool inside = j >= 0 && j < ny;
+    const size_t row = base + (inside ? j : 0);
+    for (int k = tx; k < bxp; k += TX) {
+      float r = 0.0f, bl = 0.0f;
+      if (inside) io.load(row, c0 + k, j, r, bl);
+      b.red[(lj + 1) * bxp + k] = r;
+      b.black[(lj + 1) * bxp + k] = bl;
+      if (lj >= 0 && lj < b.nrows) {
+        io.load_rhs(row, c0 + k, j, r, bl);
+        b.rhs_r[lj * bxp + k] = r;
+        b.rhs_b[lj * bxp + k] = bl;
+      }
+    }
+  }
+}
+
+// The round's frozen single-parity ghosts of the band's rows: a red
+// update's west/east neighbours are black, so its interior ghosts are the
+// neighbour slab's black edge columns (and vice versa); at the domain ends
+// the ghost has the update parity (Neumann inlet = own first column,
+// Dirichlet outlet = -own last column), as the round starts.  Round 0 reads
+// them from `io`, later rounds (one slab: the wrapper's rule) from the
+// band's own edge columns.  A block barrier follows.
+template <class IO>
+__device__ __forceinline__ void freeze_ghosts(const IO& io,
+                                              const SlabBand& b, int round,
+                                              size_t base, int c0, int s,
+                                              int nslabs, int bxp) {
+  for (int lj = threadIdx.x; lj < b.nrows; lj += blockDim.x) {
+    if (round == 0) {
+      const int j = b.j0 + lj;
+      const size_t row = base + j;
+      const int kl = c0, kr = c0 + bxp - 1;
+      b.r_lg[lj] = s == 0 ? io.p(row, kl, 0, j) : io.p(row, kl - 1, 1, j);
+      b.r_rg[lj] = s == nslabs - 1 ? -io.p(row, kr, 0, j)
+                                   : io.p(row, kr + 1, 1, j);
+      b.b_lg[lj] = s == 0 ? io.p(row, kl, 1, j) : io.p(row, kl - 1, 0, j);
+      b.b_rg[lj] = s == nslabs - 1 ? -io.p(row, kr, 1, j)
+                                   : io.p(row, kr + 1, 0, j);
+    } else {
+      const float* rrow = b.red + (lj + 1) * bxp;
+      const float* brow = b.black + (lj + 1) * bxp;
+      b.r_lg[lj] = rrow[0];
+      b.r_rg[lj] = -rrow[bxp - 1];
+      b.b_lg[lj] = brow[0];
+      b.b_rg[lj] = -brow[bxp - 1];
+    }
+  }
+  __syncthreads();
+}
+
+// Store the band's own rows through `io`.
+template <class IO>
+__device__ __forceinline__ void store_slab_rows(const IO& io,
+                                                const SlabBand& b,
+                                                size_t base, int c0, int bxp,
+                                                int tx, int ty, int TX,
+                                                int TY) {
+  for (int lj = ty; lj < b.nrows; lj += TY) {
+    const int j = b.j0 + lj;
+    for (int k = tx; k < bxp; k += TX)
+      io.store(base + j, c0 + k, j, b.red[(lj + 1) * bxp + k],
+               b.black[(lj + 1) * bxp + k]);
+  }
+}
+
 // The kernel body: `rounds` rounds of the (env, slab) of this block's
 // cluster, on packed planes of width w (a slab w / nslabs packed columns).
 template <class IO>
@@ -130,34 +225,37 @@ __device__ __forceinline__ void sor_slabs_cluster(
   const int bxp = w / nslabs;
   const int c0 = s * bxp;
   const int R = rows_max;
-  const int j0 = bands.start[rank];
-  const int nrows = bands.start[rank + 1] - j0;
+  SlabBand b;
+  b.j0 = bands.start[rank];
+  b.nrows = bands.start[rank + 1] - b.j0;
+  const int j0 = b.j0, nrows = b.nrows;
   const bool first = rank == 0, last = rank == C - 1;
 
   // shared-memory layout (kernels/poisson/ops.py smem_bytes): stored row
   // s of a plane with halo rows is local row s - 1
   unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem);
-  float* red = smem + 4;               // (R + 2) x bxp, local rows -1..R
-  float* black = red + (R + 2) * bxp;
-  float* rhs_r = black + (R + 2) * bxp;  // R x bxp
-  float* rhs_b = rhs_r + R * bxp;
-  float* r_lg = rhs_b + R * bxp;       // R each: the frozen ghost columns
-  float* r_rg = r_lg + R;
-  float* b_lg = r_rg + R;
-  float* b_rg = b_lg + R;
+  b.red = smem + 4;                    // (R + 2) x bxp, local rows -1..R
+  b.black = b.red + (R + 2) * bxp;
+  b.rhs_r = b.black + (R + 2) * bxp;   // R x bxp
+  b.rhs_b = b.rhs_r + R * bxp;
+  b.r_lg = b.rhs_b + R * bxp;          // R each: the frozen ghost columns
+  b.r_rg = b.r_lg + R;
+  b.b_lg = b.r_rg + R;
+  b.b_rg = b.b_lg + R;
 
   const int nrows_prev = first ? 0 : j0 - bands.start[rank - 1];
   Link red_link{0u, 0u, 0u, 0u}, black_link{0u, 0u, 0u, 0u};
   if (!first) {
-    red_link.prev = cluster_addr(red + (nrows_prev + 1) * bxp, rank - 1);
+    red_link.prev = cluster_addr(b.red + (nrows_prev + 1) * bxp, rank - 1);
     red_link.prev_bar = cluster_addr(&mbar[0], rank - 1);
-    black_link.prev = cluster_addr(black + (nrows_prev + 1) * bxp, rank - 1);
+    black_link.prev = cluster_addr(b.black + (nrows_prev + 1) * bxp,
+                                   rank - 1);
     black_link.prev_bar = cluster_addr(&mbar[1], rank - 1);
   }
   if (!last) {
-    red_link.next = cluster_addr(red, rank + 1);
+    red_link.next = cluster_addr(b.red, rank + 1);
     red_link.next_bar = cluster_addr(&mbar[0], rank + 1);
-    black_link.next = cluster_addr(black, rank + 1);
+    black_link.next = cluster_addr(b.black, rank + 1);
     black_link.next_bar = cluster_addr(&mbar[1], rank + 1);
   }
   // halo bytes a colour's phase waits for: a row from each neighbour
@@ -173,71 +271,31 @@ __device__ __forceinline__ void sor_slabs_cluster(
   }
 
   const size_t base = static_cast<size_t>(env) * ny;  // the env's row 0
-  for (int lj = ty - 1; lj <= nrows; lj += TY) {
-    const int j = j0 + lj;
-    const bool inside = j >= 0 && j < ny;
-    const size_t row = base + (inside ? j : 0);
-    for (int k = tx; k < bxp; k += TX) {
-      float r = 0.0f, b = 0.0f;
-      if (inside) io.load(row, c0 + k, j, r, b);
-      red[(lj + 1) * bxp + k] = r;
-      black[(lj + 1) * bxp + k] = b;
-      if (lj >= 0 && lj < nrows) {
-        io.load_rhs(row, c0 + k, j, r, b);
-        rhs_r[lj * bxp + k] = r;
-        rhs_b[lj * bxp + k] = b;
-      }
-    }
-  }
+  load_slab_rows(io, b, base, c0, ny, bxp, -1, nrows, tx, ty, TX, TY);
   // every block of the cluster has started, holds its band and has its
   // mbarriers set before any block stores into another's shared memory
   cluster_barrier();
 
   for (int round = 0; round < rounds; ++round) {
-    // the round's frozen single-parity ghosts: a red update's west/east
-    // neighbours are black, so its interior ghosts are the neighbour slab's
-    // black edge columns (and vice versa); at the domain ends the ghost has
-    // the update parity (Neumann inlet = own first column, Dirichlet outlet
-    // = -own last column), as the round starts
-    for (int lj = tid; lj < nrows; lj += blockDim.x) {
-      if (round == 0) {
-        const int j = j0 + lj;
-        const size_t row = base + j;
-        const int kl = c0, kr = c0 + bxp - 1;
-        r_lg[lj] = s == 0 ? io.p(row, kl, 0, j) : io.p(row, kl - 1, 1, j);
-        r_rg[lj] = s == nslabs - 1 ? -io.p(row, kr, 0, j)
-                                   : io.p(row, kr + 1, 1, j);
-        b_lg[lj] = s == 0 ? io.p(row, kl, 1, j) : io.p(row, kl - 1, 0, j);
-        b_rg[lj] = s == nslabs - 1 ? -io.p(row, kr, 1, j)
-                                   : io.p(row, kr + 1, 0, j);
-      } else {  // one slab (the wrapper's rule): the domain ends
-        const float* rrow = red + (lj + 1) * bxp;
-        const float* brow = black + (lj + 1) * bxp;
-        r_lg[lj] = rrow[0];
-        r_rg[lj] = -rrow[bxp - 1];
-        b_lg[lj] = brow[0];
-        b_rg[lj] = -brow[bxp - 1];
-      }
-    }
-    __syncthreads();
+    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
     // a half-sweep's edge rows first wait for the other colour's halo rows
     // of the half-sweep before (the launch's first red one reads the loaded
     // halo rows); that colour's mbarrier is re-armed once the half-sweep's
     // block barrier is passed
     for (int it = 0; it < inner_iters; ++it) {
       const bool wait_black = linked && (round > 0 || it > 0);
-      band_half_sweep<true>(red, black, rhs_r, r_lg, r_rg, red_link,
-                            wait_black ? &mbar[1] : nullptr, black_parity,
-                            nrows, j0, ny, bxp, 1, tx, ty, TX, TY, inv_dx2,
-                            inv_dy2, inv_diag, om, one_m_om);
+      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg,
+                            red_link, wait_black ? &mbar[1] : nullptr,
+                            black_parity, nrows, j0, ny, bxp, 1, tx, ty, TX,
+                            TY, inv_dx2, inv_dy2, inv_diag, om, one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
       }
-      band_half_sweep<true>(black, red, rhs_b, b_lg, b_rg, black_link,
-                            linked ? &mbar[0] : nullptr, red_parity, nrows,
-                            j0, ny, bxp, 0, tx, ty, TX, TY, inv_dx2, inv_dy2,
-                            inv_diag, om, one_m_om);
+      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg,
+                            black_link, linked ? &mbar[0] : nullptr,
+                            red_parity, nrows, j0, ny, bxp, 0, tx, ty, TX, TY,
+                            inv_dx2, inv_dy2, inv_diag, om, one_m_om);
       if (linked) {
         red_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
@@ -248,14 +306,104 @@ __device__ __forceinline__ void sor_slabs_cluster(
   // this block: wait for them before the block may exit
   if (linked && rounds * inner_iters > 0) mbar_wait(&mbar[1], black_parity);
 
-  for (int lj = ty; lj < nrows; lj += TY) {
-    const int j = j0 + lj;
-    for (int k = tx; k < bxp; k += TX)
-      io.store(base + j, c0 + k, j, red[(lj + 1) * bxp + k],
-               black[(lj + 1) * bxp + k]);
-  }
+  store_slab_rows(io, b, base, c0, bxp, tx, ty, TX, TY);
   // no block exits while a neighbour may still address its shared memory
   cluster_barrier();
+}
+
+// -- the global-memory slab kernel: the slabs no cluster holds -------------
+//
+// One group of G <= kMaxGroup blocks per (env, slab) (G chosen by the
+// wrapper, kernels/cluster.py global_group).  The slab's planes live in a
+// workspace in global memory as one band of all ny rows (slab_ws_floats):
+// rank r's band is the window of rows [r ny / G, (r + 1) ny / G), and the
+// rows above and below it are its neighbours' own, read where they lie.
+// The half-sweep is the cluster kernel's (sor_packed.cuh) on that band view
+// without links; before each half-sweep a block waits for its two
+// neighbours to have passed the half-sweep before (grid_sync.cuh), and the
+// ghost snapshot between rounds reads only the block's own rows.  A point's
+// arithmetic is the cluster kernel's, so the two give the same bits.
+
+// floats of one (env, slab)'s planes in the workspace: red and black
+// (ny + 2) x bxp, rhs_r and rhs_b ny x bxp, the four ghost columns ny each
+// (kernels/poisson/ops.py workspace_bytes)
+__host__ __device__ inline size_t slab_ws_floats(int ny, int bxp) {
+  return 2 * static_cast<size_t>(ny + 2) * bxp
+         + 2 * static_cast<size_t>(ny) * bxp + 4 * static_cast<size_t>(ny);
+}
+
+// The kernel body: `rounds` rounds of the (env, slab) of this block's
+// group; this launch's groups are group0 .. group0 + gridDim.x / G - 1.
+template <class IO>
+__device__ __forceinline__ void sor_slabs_global(
+    const IO& io, int* __restrict__ block_sm, float* ws, int group0,
+    int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
+    int tx_dim, float inv_dx2, float inv_dy2, float inv_diag, float om,
+    float one_m_om) {
+  const int G = static_cast<int>(gridDim.x) / n_groups;
+  const int local = blockIdx.x / G;
+  const int rank = blockIdx.x - local * G;
+  const int group = group0 + local;  // (env, slab), slabs fastest
+  const int env = group / nslabs;
+  const int s = group - env * nslabs;
+  const int tid = threadIdx.x;
+  const int TX = tx_dim;
+  const int TY = blockDim.x / TX;
+  const int ty = tid / TX;
+  const int tx = tid - ty * TX;
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
+
+  const int bxp = w / nslabs;
+  const int c0 = s * bxp;
+  float* f = ws + local * slab_ws_floats(ny, bxp);
+  unsigned* flags = reinterpret_cast<unsigned*>(
+      ws + n_groups * slab_ws_floats(ny, bxp)) +
+      static_cast<size_t>(local) * G * kFlagStride;
+  unsigned* my_flag = flags + rank * kFlagStride;
+  SlabBand b;
+  b.j0 = band_start(rank, ny, G);
+  b.nrows = band_start(rank + 1, ny, G) - b.j0;
+  const bool first = rank == 0, last = rank == G - 1;
+  float* red = f;
+  float* black = red + (ny + 2) * bxp;
+  float* rhs_r = black + (ny + 2) * bxp;
+  float* rhs_b = rhs_r + ny * bxp;
+  float* ghosts = rhs_b + ny * bxp;
+  b.red = red + b.j0 * bxp;
+  b.black = black + b.j0 * bxp;
+  b.rhs_r = rhs_r + b.j0 * bxp;
+  b.rhs_b = rhs_b + b.j0 * bxp;
+  b.r_lg = ghosts + b.j0;
+  b.r_rg = b.r_lg + ny;
+  b.b_lg = b.r_rg + ny;
+  b.b_rg = b.b_lg + ny;
+  const Link none{0u, 0u, 0u, 0u};
+
+  const size_t base = static_cast<size_t>(env) * ny;  // the env's row 0
+  // the band's own rows, and the zero rows beyond the walls at its ends
+  load_slab_rows(io, b, base, c0, ny, bxp, first ? -1 : 0,
+                 b.nrows - 1 + (last ? 1 : 0), tx, ty, TX, TY);
+  unsigned gen = 0;
+  arrive(my_flag, ++gen);  // loaded: the first half-sweep waits for it
+
+  for (int round = 0; round < rounds; ++round) {
+    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
+    for (int it = 0; it < inner_iters; ++it) {
+      wait_neighbours(flags, rank, G, gen);
+      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg, none,
+                            nullptr, 0u, b.nrows, b.j0, ny, bxp, 1, tx, ty,
+                            TX, TY, inv_dx2, inv_dy2, inv_diag, om,
+                            one_m_om);
+      arrive(my_flag, ++gen);
+      wait_neighbours(flags, rank, G, gen);
+      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg, none,
+                            nullptr, 0u, b.nrows, b.j0, ny, bxp, 0, tx, ty,
+                            TX, TY, inv_dx2, inv_dy2, inv_diag, om,
+                            one_m_om);
+      arrive(my_flag, ++gen);
+    }
+  }
+  store_slab_rows(io, b, base, c0, bxp, tx, ty, TX, TY);
 }
 
 // Launch `kernel` (a __global__ wrapper of sor_slabs_cluster on `io`):
@@ -293,4 +441,47 @@ static int launch_sor_slabs(K kernel, const IO& io, int* block_sm, int n_env,
                            inv_dx2, inv_dy2, inv_diag, om, one_m_om);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch `kernel` (a __global__ wrapper of sor_slabs_global on `io`):
+// n_env x nslabs groups of `group` blocks (<= kMaxGroup, <= ny) of
+// `threads` = tx_dim x (threads / tx_dim) threads, in cooperative launches
+// of at most `per_launch` groups, each launch's blocks all resident at
+// once; ws: the workspace of per_launch groups (ops.workspace_bytes),
+// reused by each launch; block_sm: n_env x nslabs x group ints, the SM id
+// each block ran on (-1 where none ran).  rounds > 1 needs nslabs == 1.
+// Returns the CUDA error code (0 = launched).
+template <class K, class IO>
+static int launch_sor_slabs_global(K kernel, const IO& io, int* block_sm,
+                                   float* ws, int n_env, int ny, int w,
+                                   int nslabs, int inner_iters, int rounds,
+                                   int group, int per_launch, int threads,
+                                   int tx_dim, float inv_dx2, float inv_dy2,
+                                   float inv_diag, float om, float one_m_om,
+                                   cudaStream_t stream) {
+  if (group < 1 || group > kMaxGroup || group > ny || per_launch < 1 ||
+      nslabs < 1 || w % nslabs || (rounds > 1 && nslabs != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_groups = n_env * nslabs;
+  const int bxp = w / nslabs;
+  cudaError_t err = cudaMemsetAsync(
+      block_sm, 0xff, sizeof(int) * static_cast<size_t>(n_groups) * group,
+      stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int g0 = 0; g0 < n_groups; g0 += per_launch) {
+    const int n = n_groups - g0 < per_launch ? n_groups - g0 : per_launch;
+    err = cudaMemsetAsync(ws + n * slab_ws_floats(ny, bxp), 0,
+                          sizeof(unsigned) * n * group * kFlagStride, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    fill_cooperative_config(cfg, attr, n * group, threads, stream);
+    err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm + g0 * group, ws, g0,
+                             n, ny, w, nslabs, inner_iters, rounds, tx_dim,
+                             inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

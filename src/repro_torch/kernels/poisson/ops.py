@@ -15,8 +15,14 @@ twin:
   it; twin :func:`rb_sor_slabs_plain` (the reference's
   ``ref.rb_sor_slabs_ref``), one round.
 
-:func:`rb_sor_planes` and the drop-in :func:`rb_sor` run ``ceil(iters /
-inner_iters)`` rounds and no polish, the reference's semantics.
+Each library holds two kernels (``csrc/sor_slabs.cuh``): the cluster
+kernel on every slab a 16-block cluster holds in shared memory, and past
+that the global-memory kernel, a group of G blocks per (env, slab) on
+planes kept in a workspace in global memory (:func:`slab_kernel`; the
+reference's slab count, :func:`_pick_nslabs`, stays: it sets the
+block-Jacobi numerics).  :func:`rb_sor_planes` and the drop-in
+:func:`rb_sor` run ``ceil(iters / inner_iters)`` rounds and no polish, the
+reference's semantics.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ import torch
 from repro_torch.cfd.poisson import (pack_checkerboard, packed_ghost_rows,
                                      packed_half_sweep, sor_coefficients,
                                      unpack_checkerboard)
-from repro_torch.kernels import SMEM_PER_BLOCK, counted
+from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
 from repro_torch.kernels import cluster as kcluster
+from repro_torch.kernels.cluster import FLAG_STRIDE, LaunchPlan
 
 # float32 operations of one point of one SOR half-sweep, counted from the
 # kernels' source (csrc/sor_packed.cuh)
@@ -71,31 +78,57 @@ def smem_bytes(ny: int, bxp: int, cluster: int) -> int:
 
 
 def _fitting_clusters(ny: int, bxp: int) -> list:
-    return kcluster.fitting_clusters(ny, lambda c: smem_bytes(ny, bxp, c),
-                                     SMEM_PER_BLOCK)
+    return kcluster.fitting_clusters(
+        ny, lambda c: smem_bytes(ny, bxp, c), SMEM_PER_BLOCK)
 
 
-def _check_fit(ny: int, bxp: int) -> None:
-    """``ValueError`` unless a cluster of at most 16 blocks holds a ``(ny,
-    bxp)`` slab of packed planes, one band per block."""
-    if not _fitting_clusters(ny, bxp):
-        c = max(c for c in kcluster.CLUSTER_SIZES if c <= ny)
-        raise ValueError(
-            f"a ({ny}, {bxp}) slab of packed planes needs "
-            f"{smem_bytes(ny, bxp, c)} bytes of shared memory per block in a "
-            f"cluster of {c} blocks, over the {SMEM_PER_BLOCK}-byte limit of "
-            f"one block; use more slabs")
+def slab_kernel(ny: int, bxp: int) -> str:
+    """Which kernel serves a ``(ny, bxp)`` slab of packed planes: "cluster"
+    where a cluster of at most 16 blocks holds it, one band per block in
+    shared memory (every grid up to res 70 at the default aspect and the
+    reference's slab count), "global" past that."""
+    return "cluster" if _fitting_clusters(ny, bxp) else "global"
 
 
 def check_planes(ny: int, w: int, nslabs: int) -> int:
     """The slab width of ``(ny, w)`` packed planes in ``nslabs`` slabs;
-    ``ValueError`` unless the kernel can serve them: the slabs split the
-    width, and a slab cut into 16 bands fits one block's shared memory per
-    band (every grid up to res 70 at the default aspect; res 71, whose
-    width the reference's slab count leaves in one slab, does not)."""
-    bxp = _check_slabs(w, nslabs)
-    _check_fit(ny, bxp)
-    return bxp
+    ``ValueError`` unless the slabs split the width.  Every such slab has
+    a kernel (:func:`slab_kernel`)."""
+    return _check_slabs(w, nslabs)
+
+
+def slab_floats(ny: int, bxp: int) -> int:
+    """Floats of one (env, slab) in the global-memory kernel's workspace
+    (csrc/sor_slabs.cuh slab_ws_floats): red and black (ny + 2) x bxp,
+    rhs_r and rhs_b ny x bxp, four ghost columns of ny."""
+    return 2 * (ny + 2) * bxp + 2 * ny * bxp + 4 * ny
+
+
+def workspace_bytes(ny: int, bxp: int, group: int, n_groups: int) -> int:
+    """The global-memory kernel's workspace for ``n_groups`` (env, slab)
+    groups of ``group`` blocks: every group's planes, then each block's
+    flag on a 128-byte line of its own."""
+    return 4 * n_groups * (slab_floats(ny, bxp) + group * FLAG_STRIDE)
+
+
+def plan_launch(ny: int, w: int, nslabs: int, n_env: int, n_sm: int,
+                active, resident, cluster=None,
+                force_global: bool = False) -> LaunchPlan:
+    """How a slab kernel runs ``n_env`` envs of ``(ny, w)`` packed planes
+    in ``nslabs`` slabs on a card of ``n_sm`` SMs: ``active(c)`` clusters
+    of ``c`` blocks the card holds at once, ``resident(G)`` blocks of the
+    global-memory kernel at the launch shape of G blocks a group.  The
+    kernel is :func:`slab_kernel`'s, or the global-memory one with
+    ``force_global``; ``cluster`` fixes the blocks of a group (the cluster
+    size, or G), by default :func:`choose_cluster`'s or
+    :func:`repro_torch.kernels.cluster.global_group`'s.  A size the kernel
+    cannot take, or a group the card cannot hold at once, raises."""
+    bxp = check_planes(ny, w, nslabs)
+    return kcluster.plan_groups(
+        _fitting_clusters(ny, bxp), n_env * nslabs, ny,
+        n_sm, active, resident,
+        lambda g, n: workspace_bytes(ny, bxp, g, n),
+        f"SOR slab kernel on ({ny}, {bxp}) slabs", cluster, force_global)
 
 
 def choose_cluster(ny: int, bxp: int, n_groups: int, n_sm: int,
@@ -137,17 +170,21 @@ def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
     return torch.cat(outs_r, dim=-1), torch.cat(outs_b, dim=-1)
 
 
-# the two slab kernels of csrc/sor_slabs.cuh: library, launch export and
-# occupancy query, by the layout of their operands
+# the two SOR slab libraries of csrc/sor_slabs.cuh, by the layout of their
+# operands: the library, the cluster kernel's launch export and occupancy
+# query, the global-memory kernel's
 _LIBS = {False: ("poisson_sor", "rb_sor_slabs_packed_launch",
-                 "rb_sor_packed_max_clusters"),
+                 "rb_sor_packed_max_clusters",
+                 "rb_sor_slabs_packed_global_launch",
+                 "rb_sor_packed_global_blocks_per_sm"),
          True: ("poisson_sor_full", "rb_sor_slabs_full_launch",
-                "rb_sor_full_max_clusters")}
+                "rb_sor_full_max_clusters", "rb_sor_slabs_full_global_launch",
+                "rb_sor_full_global_blocks_per_sm")}
 
 
 def _load(full: bool = False):
     from repro_torch.kernels import build
-    name, launch, query = _LIBS[full]
+    name, launch, query, global_launch, global_query = _LIBS[full]
     lib = build.load(name)
     if getattr(lib, launch).argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -159,6 +196,13 @@ def _load(full: bool = False):
         getattr(lib, launch).restype = ctypes.c_int
         getattr(lib, query).argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
         getattr(lib, query).restype = ctypes.c_int
+        # the operand pointers, block_sm and the workspace, then
+        # launch_sor_slabs_global's
+        getattr(lib, global_launch).argtypes = (
+            [p] * (n_ptr + 1) + [i] * 10 + [f] * 5 + [p])
+        getattr(lib, global_launch).restype = ctypes.c_int
+        getattr(lib, global_query).argtypes = [i, ctypes.POINTER(i)]
+        getattr(lib, global_query).restype = ctypes.c_int
     return lib
 
 
@@ -180,44 +224,61 @@ def active_clusters(dev, ny: int, bxp: int, size: int,
         smem_bytes(ny, bxp, size))
 
 
-def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device,
-                full: bool = False) -> int:
-    """The cluster size :func:`rb_sor_slabs_packed_cuda` (``full``:
-    :func:`rb_sor_slabs_cuda`) launches with for ``n_env`` envs of ``(ny,
-    w)`` packed planes in ``nslabs`` slabs on the card of ``device``
-    (:func:`choose_cluster` fed its SM count and occupancy)."""
+def resident_blocks(dev, ny: int, bxp: int, group: int,
+                    full: bool = False) -> int:
+    """Blocks of the global-memory kernel (``full``: the full-grid one) the
+    card holds at once at the launch shape of ``group`` blocks on ``(ny,
+    bxp)`` slabs, read once per shape and card."""
+    return kcluster.resident_blocks(
+        _load(full), _LIBS[full][4], dev, (ny, bxp), (),
+        _launch_shape(ny, bxp, group)[2])
+
+
+def launch_plan(ny: int, w: int, nslabs: int, n_env: int, device,
+                full: bool = False, cluster=None,
+                force_global: bool = False) -> LaunchPlan:
+    """:func:`plan_launch` fed the card of ``device``: its SM count, its
+    cluster occupancy and the global-memory kernel's residency."""
     bxp = check_planes(ny, w, nslabs)
     dev = torch.device(device)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = n_env * nslabs
-    active = {c: active_clusters(dev, ny, bxp, c, full) for c in (16, 8, 4, 2)
-              if c in _fitting_clusters(ny, bxp) and groups * c <= n_sm}
-    return choose_cluster(ny, bxp, groups, n_sm, active)
+    return plan_launch(
+        ny, w, nslabs, n_env, n_sm,
+        lambda c: active_clusters(dev, ny, bxp, c, full),
+        lambda g: resident_blocks(dev, ny, bxp, g, full), cluster,
+        force_global)
+
+
+def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device,
+                full: bool = False) -> int:
+    """The blocks a group :func:`rb_sor_slabs_packed_cuda` (``full``:
+    :func:`rb_sor_slabs_cuda`) launches with for ``n_env`` envs of ``(ny,
+    w)`` packed planes in ``nslabs`` slabs on the card of ``device``: the
+    cluster size, or G on slabs the global-memory kernel serves."""
+    return launch_plan(ny, w, nslabs, n_env, device, full).size
 
 
 _LAUNCH_CONFIGS = {}
 
 
 def _launch_config(dev, ny: int, w: int, nslabs: int, n_env: int,
-                   cluster, full: bool = False) -> tuple:
-    """(cluster, band starts as a C array, rows of the largest band,
-    threads, lanes a row, shared-memory bytes) of a launch on ``(ny, w)``
-    packed planes, worked out once per kernel, card, shape, env count and
-    requested cluster size (None: the wrapper's choice), so a solve's host
-    work is the launch itself."""
-    key = (full, dev.index, ny, w, nslabs, n_env, cluster)
+                   cluster, full: bool = False,
+                   force_global: bool = False) -> tuple:
+    """(plan, band starts as a C array, rows of the largest band, threads,
+    lanes a row, shared-memory bytes) of a launch on ``(ny, w)`` packed
+    planes, worked out once per kernel, card, shape, env count, requested
+    size (None: the wrapper's choice) and kernel, so a solve's host work is
+    the launch itself."""
+    key = (full, dev.index, ny, w, nslabs, n_env, cluster, force_global)
     if key not in _LAUNCH_CONFIGS:
         bxp = check_planes(ny, w, nslabs)
-        if cluster is None:
-            cluster = cluster_for(ny, w, nslabs, n_env, dev, full)
-        elif cluster not in _fitting_clusters(ny, bxp):
-            raise ValueError(f"a cluster of {cluster} blocks cannot hold a "
-                             f"({ny}, {bxp}) slab in shared memory; sizes "
-                             f"that fit: {_fitting_clusters(ny, bxp)}")
-        starts, rows, threads, tx = _launch_shape(ny, bxp, cluster)
-        _LAUNCH_CONFIGS[key] = (cluster, (ctypes.c_int * len(starts))(*starts),
-                                rows, threads, tx,
-                                smem_bytes(ny, bxp, cluster))
+        plan = launch_plan(ny, w, nslabs, n_env, dev, full, cluster,
+                           force_global)
+        starts, rows, threads, tx = _launch_shape(ny, bxp, plan.size)
+        _LAUNCH_CONFIGS[key] = (
+            plan, (ctypes.c_int * len(starts))(*starts), rows, threads, tx,
+            smem_bytes(ny, bxp, plan.size) if plan.kernel == "cluster"
+            else 0)
     return _LAUNCH_CONFIGS[key]
 
 
@@ -242,42 +303,80 @@ def _operands(ref, named) -> list:
     return out
 
 
-def _launch(full: bool, operands, outs, *, ny: int, w: int, dx: float,
+def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
             dy: float, omega: float, nslabs: int, inner_iters: int,
-            rounds: int, cluster, what: str):
-    """Launch a slab kernel on ``operands`` into ``outs``; returns (cluster
-    size, the record of the SM each block ran on)."""
+            rounds: int, cluster, force_global: bool, what: str):
+    """Launch a slab kernel on ``operands`` into ``make_outs()``'s outputs,
+    allocated beside the launch's record and workspace; returns (outputs,
+    plan, the record of the SM each block ran on)."""
     from repro_torch.kernels.build import check_launch
     dev = operands[0].device
     n = operands[0].shape[0]
-    cluster, starts, rows, threads, tx, smem = _launch_config(
-        dev, ny, w, nslabs, n, cluster, full)
-    block_sms = torch.empty(n * nslabs * cluster, dtype=torch.int32,
-                            device=dev)
+    plan, starts, rows, threads, tx, smem = _launch_config(
+        dev, ny, w, nslabs, n, cluster, full, force_global)
+    n_blocks = n * nslabs * plan.size
+    out_bytes = 4 * (operands[0].numel() * (1 if full else 2) + n_blocks)
+    with allocating(what, out_bytes + plan.workspace_bytes, dev):
+        outs = make_outs()
+        block_sms = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+        ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                          device=dev) if plan.kernel == "global" else None)
     _, _, inv_diag = sor_coefficients(dx, dy)
+    coeffs = (1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag, omega, 1.0 - omega)
+    ptrs = [t.data_ptr() for t in operands + outs] + [block_sms.data_ptr()]
+    width = 2 * w if full else w
     lib = _load(full)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _LIBS[full][1])(
-            *(t.data_ptr() for t in operands + outs), block_sms.data_ptr(),
-            n, ny, 2 * w if full else w, nslabs, inner_iters, rounds,
-            cluster, ctypes.cast(starts, ctypes.c_void_p), rows, threads, tx,
-            smem, 1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag, omega, 1.0 - omega,
-            stream)
-    check_launch(lib, err, what)
-    return cluster, block_sms
+        if plan.kernel == "cluster":
+            err = getattr(lib, _LIBS[full][1])(
+                *ptrs, n, ny, width, nslabs, inner_iters, rounds, plan.size,
+                ctypes.cast(starts, ctypes.c_void_p), rows, threads, tx,
+                smem, *coeffs, stream)
+        else:
+            err = getattr(lib, _LIBS[full][3])(
+                *ptrs, ws.data_ptr(), n, ny, width, nslabs, inner_iters,
+                rounds, plan.size, plan.per_launch, threads, tx, *coeffs,
+                stream)
+    check_launch(lib, err, f"{what} ({plan.kernel})")
+    return outs, plan, block_sms
+
+
+def _record(wrapper, plan: LaunchPlan, block_sms) -> None:
+    """A slab wrapper's launch counters and its record of the last call."""
+    wrapper.launches += plan.launches
+    wrapper.launches_global += plan.launches * (plan.kernel == "global")
+    wrapper.last_kernel = plan.kernel
+    wrapper.last_cluster = plan.size
+    wrapper.last_plan = plan
+    wrapper.last_block_sms = block_sms
+
+
+def _reset_record(wrapper) -> None:
+    wrapper.launches = 0
+    wrapper.launches_global = 0
+    wrapper.last_kernel = None
+    wrapper.last_cluster = None
+    wrapper.last_plan = None
+    wrapper.last_block_sms = None
 
 
 def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
                              dy: float, omega: float, nslabs: int,
                              inner_iters: int, rounds: int = 1,
-                             cluster=None):
-    """One launch of ``csrc/poisson_sor.cu``: ``rounds`` block-Jacobi
-    rounds (more than one only with one slab), one cluster of ``cluster``
-    blocks per (env, slab), by default :func:`cluster_for`'s choice.  Each
-    launch records its cluster size (``.last_cluster``) and the SM each
-    block ran on (``.last_block_sms``, int32, one per block, -1 where
-    none ran)."""
+                             cluster=None, force_global: bool = False):
+    """One call of ``csrc/poisson_sor.cu``: ``rounds`` block-Jacobi rounds
+    (more than one only with one slab).  The cluster kernel on slabs a
+    cluster holds (one launch, one cluster of ``cluster`` blocks per (env,
+    slab), by default :func:`launch_plan`'s choice), else the global-memory
+    kernel (a group of ``cluster`` blocks per (env, slab), G, by default
+    its choice; one launch while the card holds every group at once),
+    which ``force_global`` also picks on slabs a cluster holds.  Each call
+    records its kernel (``.last_kernel``), its blocks a group
+    (``.last_cluster``), its plan (``.last_plan``) and the SM each block
+    ran on (``.last_block_sms``, int32, one per block, -1 where none ran);
+    ``.launches`` counts every launch, ``.launches_global`` those of the
+    global-memory kernel."""
     dev = red.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_packed_cuda needs CUDA tensors, got "
@@ -286,20 +385,17 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
     _check_rounds(rounds, nslabs)
     planes = _operands(red, (("red", red), ("black", black), ("rhs_r", rhs_r),
                              ("rhs_b", rhs_b)))
-    outs = [torch.empty_like(planes[0]), torch.empty_like(planes[1])]
-    cluster, block_sms = _launch(
-        False, planes, outs, ny=ny, w=w, dx=dx, dy=dy, omega=omega,
-        nslabs=nslabs, inner_iters=inner_iters, rounds=rounds,
-        cluster=cluster, what="rb_sor_slabs_packed")
-    rb_sor_slabs_packed_cuda.launches += 1
-    rb_sor_slabs_packed_cuda.last_cluster = cluster
-    rb_sor_slabs_packed_cuda.last_block_sms = block_sms
+    outs, plan, block_sms = _launch(
+        False, planes, lambda: [torch.empty_like(planes[0]),
+                                torch.empty_like(planes[1])],
+        ny=ny, w=w, dx=dx, dy=dy, omega=omega, nslabs=nslabs,
+        inner_iters=inner_iters, rounds=rounds, cluster=cluster,
+        force_global=force_global, what="rb_sor_slabs_packed")
+    _record(rb_sor_slabs_packed_cuda, plan, block_sms)
     return tuple(o.reshape(red.shape) for o in outs)
 
 
-rb_sor_slabs_packed_cuda.launches = 0
-rb_sor_slabs_packed_cuda.last_cluster = None
-rb_sor_slabs_packed_cuda.last_block_sms = None
+_reset_record(rb_sor_slabs_packed_cuda)
 
 
 def rb_sor_slabs_packed(red, black, rhs_r, rhs_b, *, dx: float, dy: float,
@@ -322,6 +418,21 @@ def rb_sor_slabs_packed(red, black, rhs_r, rhs_b, *, dx: float, dy: float,
     return red, black
 
 
+def _launches(ref, w: int, nslabs: int, rounds: int,
+              full: bool = False) -> int:
+    """The card's launches for a solve on ``ref``'s grids (packed width
+    ``w``): one call with one slab, one a round with several, each call
+    as many launches as its plan (one off the card, where the twin runs
+    in their place); read only under a cost counter."""
+    calls = 1 if nslabs == 1 else rounds
+    if ref.device.type != "cuda":
+        return calls
+    ny = ref.shape[-2]
+    n = ref.numel() // (ny * ref.shape[-1])
+    plan = _launch_config(ref.device, ny, w, nslabs, n, None, full)[0]
+    return calls * plan.launches
+
+
 def rb_sor_planes(red, black, rhs_r, rhs_b, dx, dy, *, iters: int = 60,
                   omega: float = 1.7, nslabs: int = 0, inner_iters: int = 4):
     """``iters`` SOR iterations on packed planes as outer block-Jacobi
@@ -338,7 +449,7 @@ def rb_sor_planes(red, black, rhs_r, rhs_b, dx, dy, *, iters: int = 60,
     ny = red.shape[-2]
     with counted("rb_sor_slabs_packed", lambda: work(
             red.numel() // (ny * w), ny, 2 * w, iters, inner_iters),
-            launches=1 if nslabs == 1 else outer):
+            launches=lambda: _launches(red, w, nslabs, outer)):
         return rb_sor_slabs_packed(red, black, rhs_r, rhs_b, dx=dx, dy=dy,
                                    omega=omega, nslabs=nslabs,
                                    inner_iters=inner_iters, rounds=outer)
@@ -365,13 +476,12 @@ def full_smem_bytes(ny: int, bx: int, cluster: int) -> int:
 
 def check_grid(ny: int, nx: int, nslabs: int) -> int:
     """The slab width of a ``(ny, nx)`` grid in ``nslabs`` slabs;
-    ``ValueError`` unless the full-grid kernel can serve it: even slabs,
-    and a slab cut into 16 bands fits one block's shared memory per band
-    (every grid up to res 70 at the default aspect, as the packed kernel;
-    res 71 does not)."""
-    bx = _check_full_slabs(nx, nslabs)
-    _check_fit(ny, bx // 2)
-    return bx
+    ``ValueError`` unless the slabs are of even width.  The full-grid
+    kernel's shared memory per block is the packed kernel's on the split
+    slab, so :func:`slab_kernel` of ``(ny, bx // 2)`` routes it: the
+    cluster kernel up to res 70 at the default aspect, the global-memory
+    kernel past it."""
+    return _check_full_slabs(nx, nslabs)
 
 
 def rb_sor_slabs_plain(p, rhs, *, dx: float, dy: float, omega: float,
@@ -411,13 +521,12 @@ def rb_sor_slabs_plain(p, rhs, *, dx: float, dy: float, omega: float,
 
 def rb_sor_slabs_cuda(p, rhs, *, dx: float, dy: float, omega: float,
                       nslabs: int, inner_iters: int, rounds: int = 1,
-                      cluster=None):
-    """One launch of ``csrc/poisson_sor_full.cu``: ``rounds`` block-Jacobi
-    rounds (more than one only with one slab), one cluster of ``cluster``
-    blocks per (grid, slab), by default :func:`cluster_for`'s choice for
-    the grid's packed planes.  Each launch records its cluster size
-    (``.last_cluster``) and the SM each block ran on (``.last_block_sms``,
-    int32, one per block, -1 where none ran)."""
+                      cluster=None, force_global: bool = False):
+    """One call of ``csrc/poisson_sor_full.cu``: ``rounds`` block-Jacobi
+    rounds (more than one only with one slab), the grid's packed planes
+    served as :func:`rb_sor_slabs_packed_cuda` serves them (the cluster or
+    the global-memory kernel, ``cluster`` blocks a (grid, slab),
+    ``force_global``), and recorded alike."""
     dev = p.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_cuda needs CUDA tensors, got {dev}; "
@@ -426,20 +535,16 @@ def rb_sor_slabs_cuda(p, rhs, *, dx: float, dy: float, omega: float,
     check_grid(ny, nx, nslabs)
     _check_rounds(rounds, nslabs)
     pf, rf = _operands(p, (("p", p), ("rhs", rhs)))
-    out = torch.empty_like(pf)
-    cluster, block_sms = _launch(
-        True, [pf, rf], [out], ny=ny, w=nx // 2, dx=dx, dy=dy, omega=omega,
-        nslabs=nslabs, inner_iters=inner_iters, rounds=rounds,
-        cluster=cluster, what="rb_sor_slabs")
-    rb_sor_slabs_cuda.launches += 1
-    rb_sor_slabs_cuda.last_cluster = cluster
-    rb_sor_slabs_cuda.last_block_sms = block_sms
+    (out,), plan, block_sms = _launch(
+        True, [pf, rf], lambda: [torch.empty_like(pf)], ny=ny, w=nx // 2,
+        dx=dx, dy=dy, omega=omega, nslabs=nslabs, inner_iters=inner_iters,
+        rounds=rounds, cluster=cluster, force_global=force_global,
+        what="rb_sor_slabs")
+    _record(rb_sor_slabs_cuda, plan, block_sms)
     return out.reshape(p.shape)
 
 
-rb_sor_slabs_cuda.launches = 0
-rb_sor_slabs_cuda.last_cluster = None
-rb_sor_slabs_cuda.last_block_sms = None
+_reset_record(rb_sor_slabs_cuda)
 
 
 def rb_sor_slabs(p, rhs, *, dx: float, dy: float, omega: float, nslabs: int,
@@ -489,7 +594,8 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     ny = rhs.shape[-2]
     with counted("rb_sor_slabs", lambda: work(
             rhs.numel() // (ny * nx), ny, nx, iters, inner_iters),
-            launches=1 if nslabs == 1 else outer):
+            launches=lambda: _launches(rhs, nx // 2, nslabs, outer,
+                                       full=True)):
         return rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega,
                             nslabs=nslabs, inner_iters=inner_iters,
                             rounds=outer)

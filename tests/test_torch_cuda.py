@@ -123,10 +123,22 @@ def test_sor_kernel_serves_res_18_on_card(cuda):
     assert err <= 1e-5
 
 
+# dt past res 70: explicit Euler diffusion is stable for dt <= Re h^2 / 4
+# (h the cell size), 2.72e-3 at res 96 at Re 100, below the default 5e-3
+FINE_DT = {96: 0.002}
+
+
+def _grid(res):
+    """The res-``res`` grid, at a stable dt on the finest grids."""
+    if res in FINE_DT:
+        return tgrid.GridConfig(res=res, dt=FINE_DT[res])
+    return tgrid.GridConfig(res=res)
+
+
 def _fused_inputs(cuda, res, n_env):
     """A res-``res`` grid's geometry and ``n_env`` perturbed impulsive
     starts mixing jets and rotary (per-env jet speeds and modes)."""
-    cfg = tgrid.GridConfig(res=res)
+    cfg = _grid(res)
     geom = tgrid.build_geometry(cfg)
     ga = tsolver.geom_to_arrays(geom, cuda)
     rng = np.random.default_rng(0)
@@ -236,29 +248,39 @@ def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_grids_the_kernels_cannot_serve_raise_on_card(cuda):
-    """On the card there is no fallback: an odd width and a res-71 grid
-    (a slab over the shared memory of a 16-block cluster) for the slab
-    kernel, and a res-48 grid for the fused kernel (its fields over the
-    shared memory of a 16-block cluster) raise instead of running the
-    plain loop."""
+def test_only_odd_widths_raise_on_card(cuda):
+    """On the card there is no fallback, and only an odd width raises: a
+    res-71 solve (a (292, 781) slab, over the shared memory of a 16-block
+    cluster) runs on the packed SOR's global-memory kernel, one launch,
+    and a res-48 interval (its fields over the shared memory of a 16-block
+    cluster) on the fused kernel's, one launch; each within its tolerance
+    of the CPU's twin."""
     rhs = torch.zeros((8, 11), device=cuda)
     with pytest.raises(ValueError, match="even grid width"):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
-    big = tgrid.GridConfig(res=71)  # a (292, 781) slab: over 16 blocks
-    n0 = tops.rb_sor_slabs_packed_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tpoisson.solve(torch.zeros((big.ny, big.nx), device=cuda), big.dx,
-                       big.dy, iters=6, backend="pallas")
-    assert tops.rb_sor_slabs_packed_cuda.launches == n0
+    big = tgrid.GridConfig(res=71)
+    rhs = torch.tensor(_rand((big.ny, big.nx), 9), device=cuda)
+    n0 = tops.rb_sor_slabs_packed_cuda.launches_global
+    p = tpoisson.solve(rhs, big.dx, big.dy, iters=8, backend="pallas")
+    assert tops.rb_sor_slabs_packed_cuda.launches_global == n0 + 1
+    assert tops.rb_sor_slabs_packed_cuda.last_kernel == "global"
+    ref = tpoisson.solve(rhs.cpu(), big.dx, big.dy, iters=8,
+                         backend="pallas")
+    assert max_diff(ref, p.cpu()) <= 1e-5
     cfg = tgrid.GridConfig(res=48)
     geom = tgrid.build_geometry(cfg)
-    n0 = aops.fused_interval_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tsolver.step_interval(cfg, tsolver.geom_to_arrays(geom, cuda),
-                              tsolver.init_state(cfg, geom, cuda), 0.0, 1,
-                              backend="fused")
-    assert aops.fused_interval_cuda.launches == n0
+    n0 = aops.fused_interval_cuda.launches_global
+    flow, outs = tsolver.step_interval(
+        cfg, tsolver.geom_to_arrays(geom, cuda),
+        tsolver.init_state(cfg, geom, cuda), 0.0, 1, backend="fused")
+    assert aops.fused_interval_cuda.launches_global == n0 + 1
+    assert aops.fused_interval_cuda.last_kernel == "global"
+    want, wouts = tsolver.step_interval(
+        cfg, tsolver.geom_to_arrays(geom, "cpu"),
+        tsolver.init_state(cfg, geom, "cpu"), 0.0, 1, backend="fused")
+    for x, y, tol in zip((*flow, outs.cd), (*want, wouts.cd),
+                         (1e-4, 1e-4, 1e-3, 1e-3)):
+        assert max_diff(x.cpu(), y) <= tol
 
 
 # a mixed bank batch: (geometry, act_mode, per-body speeds) per env; the
@@ -273,7 +295,7 @@ def _bank_inputs(cuda, res, n_env):
     """The stacked bank of every geometry at res ``res`` and ``n_env``
     envs cycling through BANK_ENVS, each from its own geometry's perturbed
     impulsive start."""
-    cfg = tgrid.GridConfig(res=res)
+    cfg = _grid(res)
     names = tgrid.geometry_names()
     geoms = {n: tgrid.build_geometry(cfg, n) for n in names}
     bank = tsolver.geometry_bank(
@@ -393,18 +415,11 @@ def test_scalar_kernel_over_a_bank_of_one_geometry_on_card(cuda):
 
 @pytest.mark.cuda
 def test_per_body_calls_the_kernel_cannot_serve_raise_on_card(cuda):
-    """No fallback on the card: a vector call on a grid the per-body
-    instantiation cannot hold, a vector without the per-body fields, and
+    """No fallback on the card: a vector without the per-body fields and
     a scalar amplitude over a bank that mixes geometries raise and launch
-    nothing."""
+    nothing (a grid past one cluster runs on the global-memory kernel:
+    test_fused_global_kernel_matches_twin_on_card)."""
     n0 = aops.fused_interval_cuda.launches
-    cfg = tgrid.GridConfig(res=48)
-    geom = tgrid.build_geometry(cfg, "pinball")
-    with pytest.raises(ValueError, match="shared memory"):
-        tsolver.step_interval(cfg, tsolver.geom_to_arrays(geom, cuda),
-                              tsolver.init_state(cfg, geom, cuda),
-                              torch.zeros(3, device=cuda), 1,
-                              act_mode=1.0, backend="fused")
     cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 8, 4)
     with pytest.raises(ValueError, match="per-body geometry fields"):
         aops.fused_interval_cuda(cfg, bank._replace(rotb_u=None), flow, amp,
@@ -500,18 +515,18 @@ def test_sor_full_kernel_serves_large_grids_on_card(cuda, res):
 
 
 @pytest.mark.cuda
-def test_sor_full_kernel_refuses_res_71_on_card(cuda):
+def test_sor_full_kernel_serves_res_71_on_card(cuda):
     """No fallback on the card: a res-71 grid (292, 1562), whose one slab
-    no 16-block cluster holds, raises and launches nothing; so do a
-    cluster size that does not hold the slab and several rounds over
-    several slabs."""
-    big = tgrid.GridConfig(res=71)
-    z = torch.zeros((big.ny, big.nx), device=cuda)
-    n0 = tops.rb_sor_slabs_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tops.rb_sor(z, big.dx, big.dy, iters=8, packed=False)
+    no 16-block cluster holds, runs on the global-memory kernel, one launch
+    a solve, within the twin's tolerance; a cluster size that does not
+    hold a slab and several rounds over several slabs raise and launch
+    nothing."""
+    launches, sms = _sor_full_against_twin(cuda, 71, 1, 8)
+    assert launches == 1 and tops.rb_sor_slabs_cuda.last_kernel == "global"
+    assert int(sms.min()) >= 0
     cfg = tgrid.GridConfig(res=18)
     z = torch.zeros((cfg.ny, cfg.nx), device=cuda)
+    n0 = tops.rb_sor_slabs_cuda.launches
     with pytest.raises(ValueError, match="cannot hold"):
         tops.rb_sor_slabs_cuda(z, z, dx=cfg.dx, dy=cfg.dy, omega=1.7,
                                nslabs=1, inner_iters=4, cluster=1)
@@ -519,6 +534,198 @@ def test_sor_full_kernel_refuses_res_71_on_card(cuda):
         tops.rb_sor_slabs_cuda(z, z, dx=cfg.dx, dy=cfg.dy, omega=1.7,
                                nslabs=2, inner_iters=4, rounds=2)
     assert tops.rb_sor_slabs_cuda.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# the global-memory kernels: the grids no cluster holds
+# ---------------------------------------------------------------------------
+
+def _bank_against_twin(cuda, res, n_env, n_steps, **kw):
+    """The per-body instantiation on a mixed bank batch against its twin,
+    held as _fused_against_twin holds the scalar one; returns the
+    kernel's result."""
+    cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, res, n_env)
+    a, oa = aops.fused_interval_cuda(cfg, bank, flow, amp, n_steps,
+                                     act_mode=mode, geom_id=gid, **kw)
+    assert aops.fused_interval_cuda.last_n_bodies == tgrid.max_bodies()
+    b, ob = aops.fused_interval_plain(cfg, bank, flow, amp, n_steps,
+                                      act_mode=mode, geom_id=gid)
+    torch.cuda.synchronize()
+    errs = [max_diff(y, x) for x, y in zip(a, b)]
+    errs += [max_diff(ob.cd, oa.cd), max_diff(ob.cl, oa.cl)]
+    print(f"per-body fused res {res} N={n_env} {n_steps} dt "
+          f"{aops.fused_interval_cuda.last_kernel} "
+          f"G={aops.fused_interval_cuda.last_cluster}: max|kernel - twin| "
+          f"u, v, p, cd, cl = {errs}")
+    for err, tol in zip(errs, (1e-4, 1e-4, 1e-3, 1e-3, 1e-3)):
+        assert err <= tol
+    return a, oa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,n_steps", [(48, 10), (96, 3)])
+def test_fused_global_kernel_matches_twin_on_card(cuda, res, n_steps):
+    """Past one cluster (res 48: ny 198, nx 1056; res 96: 394 x 2112) the
+    global-memory kernel, scalar and per-body on a mixed bank batch, 4
+    envs, one launch, every block on an SM, against the twin at the
+    cluster kernel's tolerances."""
+    n0 = aops.fused_interval_cuda.launches_global
+    _fused_against_twin(cuda, res, 4, n_steps)
+    assert aops.fused_interval_cuda.launches_global == n0 + 1
+    assert aops.fused_interval_cuda.last_kernel == "global"
+    _bank_against_twin(cuda, res, 4, n_steps)
+    assert aops.fused_interval_cuda.launches_global == n0 + 2
+    plan = aops.fused_interval_cuda.last_plan
+    assert (plan.kernel, plan.launches) == ("global", 1)
+
+
+@pytest.mark.cuda
+def test_fused_global_kernel_is_deterministic_on_card(cuda):
+    """The partial sums added in block order on every block: two launches
+    on one input agree bit for bit, scalar and per-body."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
+    runs = [aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode)
+            for _ in range(2)]
+    cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 48, 4)
+    runs += [aops.fused_interval_cuda(cfg, bank, flow, amp, 5,
+                                      act_mode=mode, geom_id=gid)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for (a, oa), (b, ob) in (runs[:2], runs[2:]):
+        for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fused_global_env_alone_equals_batch_at_pinned_group_on_card(cuda):
+    """G orders the sums, as the cluster size does: env 0 of a 4-env launch
+    equals a 1-env launch at the same G bit for bit (a fleet's shard runs
+    each env as the whole batch would)."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
+    g = aops.cluster_for(cfg, 4, cuda)
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode)
+    assert aops.fused_interval_cuda.last_cluster == g
+    one = tsolver.FlowState(*(x[:1] for x in flow))
+    b, ob = aops.fused_interval_cuda(cfg, ga, one, jet[:1], 5,
+                                     act_mode=mode[:1], cluster=g)
+    torch.cuda.synchronize()
+    assert aops.fused_interval_cuda.last_cluster == g
+    for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+        assert torch.equal(x[:1], y)
+
+
+@pytest.mark.cuda
+def test_fused_global_kernel_beside_cluster_kernel_on_card(cuda):
+    """On res 38, which both kernels serve, the global-memory kernel at the
+    cluster kernel's size against the cluster kernel: within the twin's
+    tolerances (the per-point arithmetic and the order of the sums are the
+    same, so the two are expected to agree bit for bit; reported)."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 38, 4)
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 10, act_mode=mode)
+    assert aops.fused_interval_cuda.last_kernel == "cluster"
+    size = aops.fused_interval_cuda.last_cluster
+    b, ob = aops.fused_interval_cuda(cfg, ga, flow, jet, 10, act_mode=mode,
+                                     cluster=size, force_global=True)
+    assert aops.fused_interval_cuda.last_kernel == "global"
+    torch.cuda.synchronize()
+    pairs = list(zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)))
+    print(f"fused res 38 global vs cluster at {size} blocks: bit-equal "
+          f"{all(torch.equal(x, y) for x, y in pairs)}, max diff "
+          f"{[max_diff(x, y) for x, y in pairs]}")
+    for (x, y), tol in zip(pairs, (1e-4, 1e-4, 1e-3, 1e-3, 1e-3)):
+        assert max_diff(x, y) <= tol
+
+
+@pytest.mark.cuda
+def test_fused_global_kernel_runs_envs_past_residency_on_card(cuda):
+    """More envs than the card holds at once at a pinned G: several
+    cooperative launches, never one env's blocks in waves, each env equal
+    to a launch of its own."""
+    n = aops.resident_blocks(cuda, tgrid.GridConfig(res=40), 32) // 32 + 1
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 40, n)
+    n0 = aops.fused_interval_cuda.launches
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 2, act_mode=mode,
+                                     cluster=32)
+    plan = aops.fused_interval_cuda.last_plan
+    assert plan.launches == 2 == aops.fused_interval_cuda.launches - n0
+    last = tsolver.FlowState(*(x[-1:] for x in flow))
+    b, ob = aops.fused_interval_cuda(cfg, ga, last, jet[-1:], 2,
+                                     act_mode=mode[-1:], cluster=32)
+    torch.cuda.synchronize()
+    for x, y in zip((*a, oa.cd), (*b, ob.cd)):
+        assert torch.equal(x[-1:], y)
+
+
+def _sor_pair(cuda, res, n_env, iters, full, seed=3, **kw):
+    """One solve of the packed (or ``full``) SOR kernel at res ``res`` on
+    random inputs through the wrapper; returns (result, twin's)."""
+    cfg = tgrid.GridConfig(res=res)
+    nslabs = tops._pick_nslabs(cfg.nx)
+    rounds = -(-iters // 4)
+    k = dict(dx=cfg.dx, dy=cfg.dy, omega=1.7, nslabs=nslabs, inner_iters=4)
+    if full:
+        shape = (n_env, cfg.ny, cfg.nx)
+        rhs = torch.tensor(_rand(shape, seed), device=cuda)
+        p = torch.tensor(0.1 * _rand(shape, seed + 1), device=cuda)
+        out, want = p, p
+        for _ in range(1 if nslabs == 1 else rounds):
+            out = tops.rb_sor_slabs_cuda(
+                out, rhs, rounds=rounds if nslabs == 1 else 1, **k, **kw)
+        for _ in range(rounds):
+            want = tops.rb_sor_slabs_plain(want, rhs, **k)
+        return (out,), (want,)
+    planes = [torch.tensor(_rand((n_env, cfg.ny, cfg.nx // 2), seed + s),
+                           device=cuda) for s in range(4)]
+    out = planes[:2]
+    for _ in range(1 if nslabs == 1 else rounds):
+        out = tops.rb_sor_slabs_packed_cuda(
+            *out, *planes[2:], rounds=rounds if nslabs == 1 else 1, **k,
+            **kw)
+    want = planes[:2]
+    for _ in range(rounds):
+        want = tops.rb_sor_slabs_packed_plain(*want, *planes[2:], **k)
+    return tuple(out), tuple(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("res,n_env", [(71, 2), (98, 2)])
+def test_sor_global_kernel_matches_twin_on_card(cuda, full, res, n_env):
+    """Past one cluster: res 71 (292 x 1562, one slab: one launch a solve)
+    and res 98 (402 x 2156, two slabs: one launch a round) through the
+    global-memory kernel, packed and full-grid, against the twin within
+    1e-5; two solves agree bit for bit."""
+    wrapper = tops.rb_sor_slabs_cuda if full else tops.rb_sor_slabs_packed_cuda
+    n0 = wrapper.launches_global
+    out, want = _sor_pair(cuda, res, n_env, 50, full)
+    launches = wrapper.launches_global - n0
+    assert wrapper.last_kernel == "global"
+    assert launches == (1 if res == 71 else 13)
+    again, _ = _sor_pair(cuda, res, n_env, 50, full)
+    torch.cuda.synchronize()
+    err = max(max_diff(x, y) for x, y in zip(out, want))
+    print(f"SOR {'full' if full else 'packed'} res {res} global "
+          f"G={wrapper.last_cluster}: max|kernel - twin| {err:.3e}")
+    assert err <= 1e-5
+    for x, y in zip(out, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_sor_global_kernel_equals_cluster_kernel_on_card(cuda, full):
+    """On res 70, which both kernels serve (two slabs of (288, 385) packed
+    columns), the global-memory kernel at the cluster kernel's size gives
+    the cluster kernel's bits: the same half-sweep on the same rows."""
+    wrapper = tops.rb_sor_slabs_cuda if full else tops.rb_sor_slabs_packed_cuda
+    a, _ = _sor_pair(cuda, 70, 2, 50, full)
+    assert wrapper.last_kernel == "cluster"
+    b, _ = _sor_pair(cuda, 70, 2, 50, full, cluster=wrapper.last_cluster,
+                     force_global=True)
+    assert wrapper.last_kernel == "global"
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _decay(rng, shape):

@@ -426,8 +426,9 @@ def test_obs_aux_exposes_mixed_layouts(envs):
 def test_per_body_kernel_budget():
     """The per-body instantiation's shared memory: the scalar one's plus
     its 2 NB + 1 partial sums (8 slots) and their reduction slots (232),
-    in place of 4 and 128; it serves the same grids (res <= 38) on the
-    card, and a CPU state takes the twin."""
+    in place of 4 and 128; its cluster kernel serves the same grids (res
+    <= 38) on the card, its global-memory kernel the rest (8 partial-sum
+    slots a block in the workspace), and a CPU state takes the twin."""
     res16, res38, res48 = (tgrid.GridConfig(res=r) for r in (16, 38, 48))
     nb = tops.N_BODIES
     assert nb == tgrid.max_bodies() == 3
@@ -435,8 +436,12 @@ def test_per_body_kernel_budget():
     assert tops.smem_bytes(res16.ny, res16.nx, 16, nb) == (
         tops.smem_bytes(res16.ny, res16.nx, 16) + 4 * (244 - 136))
     assert tops.select_tier(res38, "cuda", nb) == "cuda"
-    with pytest.raises(ValueError, match="shared memory"):
-        tops.select_tier(res48, "cuda", nb)
+    assert tops.check_kernel_grid(res38, nb) == "cluster"
+    assert tops.select_tier(res48, "cuda", nb) == "cuda"
+    assert tops.check_kernel_grid(res48, nb) == "global"
+    assert tops.part_slots() == 4 and tops.part_slots(nb) == 8
+    assert (tops.workspace_bytes(res48.ny, res48.nx, 32, 1, nb)
+            - tops.workspace_bytes(res48.ny, res48.nx, 32, 1)) == 4 * 32 * 4
     assert tops.select_tier(res48, "cpu", nb) == "plain"
 
 

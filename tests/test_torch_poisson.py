@@ -159,8 +159,10 @@ def test_slab_kernel_smem_budget():
     rhs_b, four ghost columns and two mbarriers.  One block cannot hold a
     res-18 plane (74, 198), a cluster of 2 or more can; the smallest grid
     that 16 blocks cannot hold at the reference's slab count (res 71: a
-    (292, 781) slab, its width left in one slab) raises, and the check
-    needs no card."""
+    (292, 781) slab, its width left in one slab) goes to the global-memory
+    kernel, whose workspace keeps the slab's planes with a halo row each
+    side, its right-hand sides and ghost columns; the routing needs no
+    card."""
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels import SMEM_PER_BLOCK
     assert tops.smem_bytes(66, 176, 1) == 4 * (4 + 2 * 68 * 176
@@ -168,6 +170,7 @@ def test_slab_kernel_smem_budget():
     assert tops.smem_bytes(74, 198, 1) > SMEM_PER_BLOCK
     assert tops.check_planes(74, 198, 1) == 198
     assert min(tops._fitting_clusters(74, 198)) == 2
+    assert tops.slab_kernel(74, 198) == "cluster"
 
     def per_block_at_16(res):
         cfg = GridConfig(res=res)
@@ -178,5 +181,10 @@ def test_slab_kernel_smem_budget():
                    if per_block_at_16(res) > SMEM_PER_BLOCK)
     assert too_big == 71
     cfg = GridConfig(res=too_big)
-    with pytest.raises(ValueError, match="shared memory"):
-        tops.check_planes(cfg.ny, cfg.nx // 2, tops._pick_nslabs(cfg.nx))
+    bxp = tops.check_planes(cfg.ny, cfg.nx // 2, tops._pick_nslabs(cfg.nx))
+    assert (cfg.ny, bxp) == (292, 781)
+    assert tops.slab_kernel(cfg.ny, bxp) == "global"
+    assert tops.slab_floats(292, 781) == (2 * 294 * 781 + 2 * 292 * 781
+                                          + 4 * 292)
+    assert tops.workspace_bytes(292, 781, 32, 2) == 4 * 2 * (
+        tops.slab_floats(292, 781) + 32 * 32)

@@ -192,12 +192,15 @@ def test_fused_plain_equals_reference_loop(developed, ga_t):
 
 
 def test_select_tier_and_budget(monkeypatch):
-    """A CUDA state the kernel cannot serve raises: the card never runs the
-    plain loop in the kernel's place.  A CPU state ignores the budget."""
+    """A CUDA state on an even grid always has a kernel: the card never
+    runs the plain loop in a kernel's place.  The shared memory of a
+    16-block cluster picks which: the cluster kernel up to res 38, the
+    global-memory kernel past it.  A CPU state ignores the budget."""
     reset_warning_caches()
     res16, res32 = tgrid.GridConfig(res=16), tgrid.GridConfig(res=32)
     assert tops.select_tier(CFG_T, "cpu") == "plain"
     assert tops.select_tier(res16, "cuda") == "cuda"
+    assert tops.check_kernel_grid(res16) == "cluster"
     # 66 rows in 16 bands of 4 or 5: the 5-row band's u, v, u_pen, v_pen
     # and four packed planes with their halo rows, and 136 slots for the
     # mbarriers and the reductions
@@ -205,21 +208,24 @@ def test_select_tier_and_budget(monkeypatch):
         7 * 353 + 8 * 352 + 5 * 352 + 6 * 352 + 2 * 7 * 176 + 2 * 5 * 176
         + 136)
     # a 16-block cluster holds res 18 and res 32 (ny 132, 9 rows a block);
-    # res 48 (ny 198, 13 rows a block) is over one block's 232,448 bytes
+    # res 48 (ny 198, 13 rows a block) is over one block's 232,448 bytes,
+    # so the global-memory kernel takes it
     assert tops.select_tier(tgrid.GridConfig(res=17), "cuda") == "cuda"
     assert tops.smem_bytes(res32.ny, res32.nx, 16) <= tops.SMEM_PER_BLOCK
     for cfg in (tgrid.GridConfig(res=18), res32):
         assert tops.select_tier(cfg, "cuda") == "cuda"
+        assert tops.check_kernel_grid(cfg) == "cluster"
     res48 = tgrid.GridConfig(res=48)
     assert tops.smem_bytes(res48.ny, res48.nx, 16) > tops.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        tops.select_tier(res48, "cuda")
+    assert tops.select_tier(res48, "cuda") == "cuda"
+    assert tops.check_kernel_grid(res48) == "global"
     assert tops.select_tier(res48, "cpu") == "plain"
+    # a smaller budget moves res 16 to the global-memory kernel, silently
     monkeypatch.setattr(tops, "SMEM_PER_BLOCK", 1000)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        with pytest.raises(ValueError, match="backend='reference'"):
-            tops.select_tier(res16, "cuda")
+        assert tops.select_tier(res16, "cuda") == "cuda"
+        assert tops.check_kernel_grid(res16) == "global"
     reset_warning_caches()
 
 

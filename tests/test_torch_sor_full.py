@@ -119,22 +119,22 @@ def test_smem_bytes_of_the_res16_slab():
 def test_full_grid_fits_res_18_to_70_in_16_blocks():
     """The full-grid kernel's shared memory per block is the packed
     kernel's on the split slab, so 16 blocks hold a slab of every grid from
-    res 18 (which one block could not hold) to res
-    70 at the reference's slab count; res 71, a (292, 1562) grid left in
-    one slab, raises before any launch."""
+    res 18 (which one block could not hold) to res 70 at the reference's
+    slab count, and the cluster kernel serves them; res 71, a (292, 1562)
+    grid left in one slab, goes to the global-memory kernel."""
     for res in range(18, 72):
         cfg = GridConfig(res=res)
         nslabs = tops._pick_nslabs(cfg.nx)
         bx = cfg.nx // nslabs
         at_16 = tops.full_smem_bytes(cfg.ny, bx, 16)
+        assert tops.check_grid(cfg.ny, cfg.nx, nslabs) == bx
         if res <= 70:
             assert at_16 <= SMEM_PER_BLOCK, res
-            assert tops.check_grid(cfg.ny, cfg.nx, nslabs) == bx
+            assert tops.slab_kernel(cfg.ny, bx // 2) == "cluster", res
         else:
             assert (cfg.ny, cfg.nx, nslabs) == (292, 1562, 1)
             assert at_16 > SMEM_PER_BLOCK
-            with pytest.raises(ValueError, match="shared memory"):
-                tops.check_grid(cfg.ny, cfg.nx, nslabs)
+            assert tops.slab_kernel(cfg.ny, bx // 2) == "global"
     assert tops.full_smem_bytes(74, 396, 1) > SMEM_PER_BLOCK
     assert tops._fitting_clusters(74, 198) == [2, 4, 8, 16]
 
