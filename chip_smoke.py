@@ -45,14 +45,22 @@ Phases (any failure exits non-zero):
    kernels named), the repeated QK^T work beside the bound; WKV6 at heads
    of 1088 (2 heads) and 2560 (1 head) on several clusters a problem, each
    pass (and the add of the clusters' parts) timed; past one cluster, the
-   CFD kernels' global-memory kernels: the fused interval's scalar and
-   per-body instantiations at res 48 (4 envs, 50 dt; the mixed bank batch
-   for the per-body one) and res 96 (4 envs, 10 dt of 0.002), the packed
-   and the
-   full-grid SOR at res 71 (one slab, one launch a solve) and res 98 (two
-   slabs, a launch a round), 4 envs, iters 50, each held against its twin
-   and timed, its G, blocks and SMs reported, and each check must reject
-   a build whose wait on the neighbours before a half-sweep is missing;
+   CFD kernels' resident kernels: the fused interval's scalar and per-body
+   instantiations at res 48 (4 envs, 50 dt, G 32; the mixed bank batch for
+   the per-body one), the packed and the full-grid SOR at res 71 (one
+   slab) and res 98 (two slabs), 4 envs, 13 rounds, each held against its
+   twin, bit-equal to the global-memory kernel at the same G and timed
+   beside it in alternating pairs, its G, clusters, launches, blocks and
+   SMs reported, and each check must reject a build whose SOR halo rows
+   are stale (its twin's tolerance) and one whose wait on the
+   cross-cluster row is missing (the bit gate); then the global-memory
+   kernels on their own grids: the fused interval at res 56 (4 envs, 20
+   dt; scalar and per-body) and res 96 (4 envs, 10 dt of 0.002), the two
+   SOR at res 95 (one slab no resident group holds), each held against its
+   twin and timed, each check rejecting a build whose wait on the
+   neighbours before a half-sweep is missing; and the synchronisation
+   floor: 6100 handoffs at G 32 with no arithmetic through L2 flags, L2
+   rows by flags, L2 tagged rows and DSMEM, in us a synchronisation;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -61,13 +69,17 @@ Phases (any failure exits non-zero):
    probes padded to 149), 1 episode; the fused kernel's per-body
    instantiation must launch once per interval, its scalar one once per
    warmup group; then ``train()`` at res 48 through the default backend
-   (4 envs, 1 episode of 4 actions after a 1 t.u. warmup): the fused
-   global-memory kernel must launch once an interval;
+   (4 envs, 1 episode of 4 actions after a 1 t.u. warmup): every fused
+   call on the resident kernel (as many launches a call as its plan, the
+   card holding 3 such groups of 4 envs at once), none on the
+   global-memory one; and the same at res 56, every call on the
+   global-memory kernel;
 3. the second path: one short episode with backend="pallas"; the
    packed-SOR kernel must run, one launch per pressure solve; then the
    same at res 71 (dt 0.0025: the default 0.005 is past explicit
-   diffusion's limit there), one launch a solve of its global-memory
-   kernel;
+   diffusion's limit there), one launch a solve of its resident kernel,
+   and at res 95 (dt 0.0025, a 0.25 t.u. warmup), one launch a solve of
+   its global-memory kernel;
 4. the language-model paths: ``lm_loss(backend="pallas")`` of
    phi4-mini-3.8b and of rwkv6-3b at full width and depth (random bf16
    params from a seed), B=1, S=4096, timed at the first and a second
@@ -86,7 +98,7 @@ Phases (any failure exits non-zero):
    the kernels line;
 5. the full-grid drop-in solve ``rb_sor(packed=False)``: res 16, 4 grids,
    iters=50, one launch of its kernel, the residual reduced; and at res 71,
-   one launch of its global-memory kernel;
+   one launch of its resident kernel, at res 95 of its global-memory one;
 6. golden physics through the fused kernel: the res-8 fixtures' Strouhal
    number, mean C_D and C_L amplitude within the reference's tolerances,
    the cylinder's through the scalar instantiation, the pinball's through
@@ -350,8 +362,9 @@ Each phase prints its seconds (``[phase N]``), and the run its whole
 seconds.  ``--phases 10,12,13,14,15,16,17,18,19`` runs any of those nine
 phases alone after the build (a partial run: no kernels line, no result
 line).  ``--compare TREE`` times phase 1's flash (dh 128) and WKV6 (N 64)
-yardsticks and the CFD kernels at the training shape (with a digest of
-each output) of another checkout's ``repro_torch`` (its kernels built into
+yardsticks and the CFD kernels at the training shape and past one cluster
+(res 48 and 71: the resident kernels; with a digest of each output) of
+another checkout's ``repro_torch`` (its kernels built into
 its own ``build/``) and exits: run it on the older, the newer, the newer
 and the older tree in one call to compare two commits on one card.
 
@@ -530,10 +543,11 @@ def fused_case(dev, cfg, n_env, n_steps, **kw):
     return kernel, plain
 
 
-def bank_case(dev, cfg, n_env, n_steps):
+def bank_case(dev, cfg, n_env, n_steps, **kw):
     """Inputs of a per-body kernel check and its two realizations: the bank
     of every geometry, ``n_env`` envs cycling through BANK_ENVS, each from
-    its geometry's perturbed impulsive start."""
+    its geometry's perturbed impulsive start (``kw``: the kernel's
+    ``cluster`` and ``force_global``)."""
     import numpy as np
     import torch
     from repro_torch.cfd import grid, solver
@@ -556,7 +570,7 @@ def bank_case(dev, cfg, n_env, n_steps):
 
     def kernel():
         return ops.fused_interval_cuda(cfg, bank, flow, amp, n_steps,
-                                       act_mode=mode, geom_id=gid)
+                                       act_mode=mode, geom_id=gid, **kw)
 
     def plain():
         return ops.fused_interval_plain(cfg, bank, flow, amp, n_steps,
@@ -614,26 +628,36 @@ STALE_HALO = (
     ("grid_sync.cuh", "wait_ranks(flags, lo, hi, rank, gen);",
      "__syncthreads();"))
 STALE_HALO_KERNELS = ("fused_interval", "poisson_sor", "poisson_sor_full")
+# The planted fault of the resident kernels (csrc/resident.cuh
+# wait_tagged): the wait on the cross-cluster neighbour's row is missing,
+# each tagged word taken as it stands rather than polled until it carries
+# the phase, so an edge row may read the neighbour's row of two
+# half-sweeps before, or none yet
+NO_CROSS_WAIT = (("resident.cuh",
+                  "for (unsigned polls = 0; static_cast<unsigned>(w >> 32) "
+                  "!= gen; ++polls) {",
+                  "for (unsigned polls = 0; false; ++polls) {"),)
 
 
-def start_stale_halo_build():
-    """Start nvcc on copies of the three CFD kernel libraries built with
-    the planted faults in their half-sweeps, beside the other builds;
-    returns {kernel: (library path, process)}."""
+def start_variant_build(tag, faults, kernels=STALE_HALO_KERNELS):
+    """Start nvcc on copies of the CFD kernel libraries ``kernels`` built
+    with the planted ``faults`` ((file, line, its faulty version)), beside
+    the other builds, into build/.../``tag``; returns {kernel: (library
+    path, process)}."""
     from repro_torch.kernels import build
-    out = build.BUILD_DIR / "stale_halo"
+    out = build.BUILD_DIR / tag
     out.mkdir(parents=True, exist_ok=True)
-    for name in {src for k in STALE_HALO_KERNELS for src in build.SOURCES[k]}:
+    for name in {src for k in kernels for src in build.SOURCES[k]}:
         (out / name).write_bytes((build.CSRC / name).read_bytes())
-    for header, line, wrong in STALE_HALO:
+    for header, line, wrong in faults:
         text = (out / header).read_text()
         if text.count(line) != 1:
-            fail(f"{header} no longer holds {line!r} once: the stale-halo "
+            fail(f"{header} no longer holds {line!r} once: the {tag} "
                  f"variant cannot be planted")
         (out / header).write_text(text.replace(line, wrong))
     jobs = {}
-    for kernel in STALE_HALO_KERNELS:
-        lib = out / f"lib{kernel}_stale_halo.so"
+    for kernel in kernels:
+        lib = out / f"lib{kernel}_{tag}.so"
         jobs[kernel] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
              str(out / build.SOURCES[kernel][0])], stdout=subprocess.PIPE,
@@ -641,14 +665,19 @@ def start_stale_halo_build():
     return jobs
 
 
-def stale_halo_libraries(jobs):
-    """Wait for the stale-halo builds; {kernel: loaded library}."""
+def start_stale_halo_build():
+    """The stale-halo variants of the three CFD kernel libraries."""
+    return start_variant_build("stale_halo", STALE_HALO)
+
+
+def stale_halo_libraries(jobs, tag="stale-halo"):
+    """Wait for a variant build's processes; {kernel: loaded library}."""
     import ctypes
     libs = {}
     for kernel, (path, proc) in jobs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            fail(f"the stale-halo variant of {kernel} did not build:\n{out}")
+            fail(f"the {tag} variant of {kernel} did not build:\n{out}")
         lib = ctypes.CDLL(str(path))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -851,105 +880,374 @@ def fused_global_reading(dev, cfg, n_env, n_steps, case, what, plain=True):
                      f"{cfg.poisson_iters} SOR pairs per dt"}
 
 
-def check_fused_global(dev, wrong):
-    """The fused kernel past one cluster (csrc/fused_interval.cu
-    fused_interval_global_kernel): the scalar and the per-body (mixed bank)
-    instantiation at res 48 (4 envs, 50 dt) and res 96 (4 envs, 10 dt)
-    held against their twins and timed; the planted stale halo rejected at
-    res 48; returns its entry under row 1 of the kernels line."""
+def alternating_ms(a, b, reps, pairs=3):
+    """ms a call of ``a`` and of ``b`` timed in alternating pairs (a b, b a,
+    a b, ...) in this process on this card: two lists."""
+    ta, tb = [], []
+    for i in range(pairs):
+        for fn, out in (((a, ta), (b, tb)) if i % 2 == 0
+                        else ((b, tb), (a, ta))):
+            out.append(cuda_ms(fn, reps))
+    return ta, tb
+
+
+def outputs_equal(a, b):
+    """(bit-equal, max |a - b|) of two fused results (flow, outputs) or two
+    tuples of planes."""
+    import torch
+    if not isinstance(a[0], torch.Tensor):
+        a, b = (*a[0], a[1].cd, a[1].cl), (*b[0], b[1].cd, b[1].cl)
+    torch.cuda.synchronize()
+    return (all(torch.equal(x, y) for x, y in zip(a, b)),
+            max(float((x - y).abs().max()) for x, y in zip(a, b)))
+
+
+def fused_resident_reading(dev, cfg, n_env, n_steps, case, what):
+    """The fused resident kernel on ``case``'s inputs: held against its
+    twin, bit-equal to the global-memory kernel at the same G (the
+    yardstick), the two timed in alternating pairs, with its G, clusters,
+    launches, blocks, SMs and bound; returns (reading, its kernel, the
+    yardstick)."""
+    import statistics
+    from repro_torch.kernels.actuation import ops
+    errs, kernel, twin = hold_fused(dev, cfg, n_env, n_steps, case, what)
+    plan = ops.fused_interval_cuda.last_plan
+    if plan.kernel != "resident":
+        fail(f"fused_interval{what} res {cfg.res} ran {plan}: expected the "
+             f"resident kernel")
+    size, blocks, sms_busy = fused_launch()
+    nb = ops.fused_interval_cuda.last_n_bodies
+    yard = case(dev, cfg, n_env, n_steps, cluster=plan.size,
+                force_global=True)[0]
+    out = kernel()
+    equal, diff = outputs_equal(out, yard())
+    if ops.fused_interval_cuda.last_kernel != "global":
+        fail(f"the forced fused kernel at res {cfg.res} ran "
+             f"{ops.fused_interval_cuda.last_plan}")
+    if not equal:
+        fail(f"fused_interval{what} res {cfg.res}: the resident kernel at G "
+             f"{plan.size} differs from the global-memory kernel at G "
+             f"{plan.size} by {diff:.3e}")
+    times, yard_times = alternating_ms(kernel, yard, 3)
+    ms, yard_ms = statistics.median(times), statistics.median(yard_times)
+    plain_ms = cuda_ms(twin, 1)
+    n_geoms = (len({BANK_ENVS[i % len(BANK_ENVS)][0] for i in range(n_env)})
+               if nb else 1)
+    flops, nbytes = ops.work(cfg, n_env, n_steps, nb, n_geoms)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    active = ops.resident_active_clusters(dev, cfg, plan.cluster, plan.size,
+                                          nb)
+    chain = n_steps * (2 * cfg.poisson_iters + 2)
+    print(f"[kernels] fused_interval{what} res {cfg.res} (ny {cfg.ny}, nx "
+          f"{cfg.nx}), {n_env} envs, {n_steps} dt: kernel {ms:.4f} ms "
+          f"(pairs {[round(t, 4) for t in times]}), the global-memory kernel "
+          f"at G {plan.size} {yard_ms:.4f} ms (pairs "
+          f"{[round(t, 4) for t in yard_times]}), {yard_ms / ms:.3f}x; "
+          f"bit-equal to it; plain twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e9:.4f} GFLOP, "
+          f"{nbytes / 1e6:.4f} MB), {ms / bound_ms:.1f}x it; G {size} = "
+          f"{size // plan.cluster} clusters of {plan.cluster}, "
+          f"{plan.per_launch} envs a launch ({active} such clusters "
+          f"resident at once), {plan.launches} launch(es), {blocks} blocks "
+          f"ran on {sms_busy} distinct SMs, workspace "
+          f"{plan.workspace_bytes / 1e6:.3f} MB; {chain} synchronisations "
+          f"in sequence a launch, {1e3 * ms / (chain * plan.launches):.4f} us "
+          f"each on average")
+    return {"max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
+            "ms_pairs": times, "global_ms": yard_ms,
+            "global_ms_pairs": yard_times, "bit_equal_global": equal,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "group": size, "cluster": plan.cluster,
+            "launches_per_call": plan.launches,
+            "envs_per_launch": plan.per_launch, "active_clusters": active,
+            "blocks": blocks, "sms_busy": sms_busy,
+            "workspace_bytes": plan.workspace_bytes,
+            "us_per_synchronisation": 1e3 * ms / (chain * plan.launches),
+            "shape": f"res {cfg.res}, {n_env} envs, {n_steps} dt, "
+                     f"{cfg.poisson_iters} SOR pairs per dt"}, kernel, yard
+
+
+def no_cross_wait_rejected(kernel_name, wrong, kernel, yard, what):
+    """The bit gate against the planted missing cross-cluster wait: the
+    resident ``kernel`` run on the variant library ``wrong`` must not give
+    the global-memory ``yard``'s bits.  Returns the variant's max
+    difference."""
+    right = yard()
+    with library_swapped(kernel_name, wrong):
+        equal, diff = outputs_equal(kernel(), right)
+    print(f"[kernels] wrong kernel, no wait on the cross-cluster flag "
+          f"(planted), {what}: bit-equal to the global-memory kernel "
+          f"{equal}, max diff {diff:.3e}")
+    if equal:
+        fail(f"the bit gate cannot tell a {what} resident kernel without "
+             f"its cross-cluster wait from a right one")
+    return diff
+
+
+def check_fused_resident(dev, stale, no_wait):
+    """The fused kernel past one cluster on its resident kernel
+    (csrc/fused_interval.cu fused_interval_resident_kernel): the scalar and
+    the per-body (mixed bank) instantiation at res 48 (4 envs, 50 dt, G
+    32) held against their twins, bit-equal to the global-memory kernel at
+    G 32 and timed beside it in alternating pairs; the planted stale halo
+    (TOL_FUSED) and the planted missing cross-cluster wait (the bit gate)
+    rejected; 1 and 2 envs timed in each cluster size; returns its entry
+    under row 1 of the kernels line."""
     from repro_torch.cfd.grid import GridConfig
     res48 = GridConfig(res=48)
+    row, kernel, yard = fused_resident_reading(dev, res48, 4, 50, fused_case,
+                                               " resident")
+    row.update(name="fused_interval_resident", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_interval.cu",
+               replaces="src/repro/kernels/actuation/kernel.py:39",
+               library="no single PyTorch call computes this")
+    short = hold_fused(dev, res48, 4, 1, what=" resident")[0]
+    row["stale_halo_variant"] = stale_halo_rejected(
+        dev, stale, res48, 4, ((50, row["errors"]), (1, short)),
+        what=" resident")
+    row["no_cross_wait_variant_max_diff"] = no_cross_wait_rejected(
+        "fused_interval", no_wait, kernel, yard, "fused_interval res 48")
+    bodies = fused_resident_reading(dev, res48, 4, 50, bank_case,
+                                    " resident per-body (mixed bank)")[0]
+    bodies["ms_over_scalar"] = bodies["ms"] / row["ms"]
+    row["per_body"] = bodies
+    row["by_cluster"] = {f"{n}_envs": fused_clusters_compared(dev, res48, n)
+                         for n in (1, 2)}
+    return row
+
+
+def fused_clusters_compared(dev, cfg, n_env):
+    """The fused resident kernel at ``n_env`` envs (a fleet runner's
+    batch, or one env), 50 dt, G 32, in clusters of each C it takes (16,
+    8, 4, 2), each pinned in turn (kernels/cluster.py RESIDENT_CLUSTERS,
+    which the plan reads): one launch each, bit-equal to one another,
+    timed in alternating rounds (each round's order the reverse of the
+    last's); returns the C the plan takes and the ms by C."""
+    import statistics
+    from repro_torch.kernels import cluster as kcluster
+    from repro_torch.kernels.actuation import ops
+    kernel = fused_case(dev, cfg, n_env, 50)[0]
+    order = kcluster.RESIDENT_CLUSTERS
+
+    def pinned(c):
+        def run():
+            kcluster.RESIDENT_CLUSTERS = (c,)
+            try:
+                return kernel()
+            finally:
+                kcluster.RESIDENT_CLUSTERS = order
+        return run
+
+    out = kernel()
+    chosen = ops.fused_interval_cuda.last_plan.cluster
+    runs = {}
+    for c in order:
+        runs[c] = pinned(c)
+        equal, diff = outputs_equal(runs[c](), out)
+        plan = ops.fused_interval_cuda.last_plan
+        if (plan.kernel, plan.size, plan.cluster, plan.launches) != (
+                "resident", 32, c, 1):
+            fail(f"fused_interval res {cfg.res}, {n_env} envs, pinned to "
+                 f"clusters of {c}, ran {plan}")
+        if not equal:
+            fail(f"fused_interval res {cfg.res}: clusters of {c} differ from "
+                 f"clusters of {chosen} by {diff:.3e}")
+    times = {c: [] for c in runs}
+    for i in range(3):
+        for c in (order if i % 2 == 0 else order[::-1]):
+            times[c].append(cuda_ms(runs[c], 3))
+    ms = {c: statistics.median(t) for c, t in times.items()}
+    print(f"[kernels] fused_interval resident res {cfg.res}, {n_env} envs, "
+          f"50 dt, G 32, by cluster size (one launch each, bit-equal): "
+          + ", ".join(f"C {c} {ms[c]:.4f} ms (rounds "
+                      f"{[round(t, 4) for t in times[c]]})" for c in ms)
+          + f"; the plan takes C {chosen}, the fastest is C "
+            f"{min(ms, key=ms.get)}")
+    return {"plan_cluster": chosen,
+            "ms_by_cluster": {str(c): v for c, v in ms.items()},
+            "rounds_by_cluster": {str(c): t for c, t in times.items()}}
+
+
+def check_fused_global(dev, wrong):
+    """The fused kernel's global-memory kernel (csrc/fused_interval.cu
+    fused_interval_global_kernel) on the grids it serves: the scalar and
+    the per-body (mixed bank) instantiation at res 56 (4 envs, 20 dt), the
+    scalar at res 96 (4 envs, 10 dt), held against their twins and timed;
+    the planted stale halo rejected at res 56; returns its entry under row
+    1 of the kernels line."""
+    from repro_torch.cfd.grid import GridConfig
+    res56 = GridConfig(res=56)
     res96 = GridConfig(res=96, dt=FINE_DT[96])
-    row = fused_global_reading(dev, res48, 4, 50, fused_case, " global")
+    row = fused_global_reading(dev, res56, 4, 20, fused_case, " global")
     row.update(name="fused_interval_global", route="cuda",
                source="src/repro_torch/kernels/csrc/fused_interval.cu",
                replaces="src/repro/kernels/actuation/kernel.py:39",
                library="no single PyTorch call computes this")
-    short = hold_fused(dev, res48, 4, 1, what=" global")[0]
+    short = hold_fused(dev, res56, 4, 1, what=" global")[0]
     row["stale_halo_variant"] = stale_halo_rejected(
-        dev, wrong, res48, 4, ((50, row["errors"]), (1, short)),
+        dev, wrong, res56, 4, ((20, row["errors"]), (1, short)),
         what=" global")
     row["res_96"] = fused_global_reading(dev, res96, 4, 10, fused_case,
                                          " global", plain=False)
-    bodies = fused_global_reading(dev, res48, 4, 50, bank_case,
+    bodies = fused_global_reading(dev, res56, 4, 20, bank_case,
                                   " global per-body (mixed bank)")
     bodies["ms_over_scalar"] = bodies["ms"] / row["ms"]
-    bodies["res_96"] = fused_global_reading(
-        dev, res96, 4, 10, bank_case, " global per-body (mixed bank)",
-        plain=False)
     row["per_body"] = bodies
     return row
 
 
-def check_sor_global(dev, full, wrong):
-    """An SOR slab kernel past one cluster (csrc/sor_slabs.cuh
-    sor_slabs_global): res 71 (one slab, 1 launch a solve) and res 98 (two
-    slabs, 13 launches a solve), 4 envs, iters 50, held against its twin
-    and timed; the planted stale halo rejected at res 71; returns its
-    entry under the kernel's row of the kernels line."""
+def check_sor_resident(dev, full, stale, no_wait):
+    """An SOR slab kernel past one cluster on its resident kernel
+    (csrc/sor_slabs.cuh sor_slabs_resident): res 71 (one slab, one call a
+    solve) and res 98 (two slabs, 13 calls), 4 envs, 13 rounds, held
+    against its twin, bit-equal to the global-memory kernel at the same G
+    and timed beside it in alternating pairs; the planted stale halo
+    (TOL_SOR) and the planted missing cross-cluster wait (the bit gate)
+    rejected at res 71; returns its entry under the kernel's row of the
+    kernels line."""
+    import statistics
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels.poisson import ops
-    name, lib, source, replaces, solve = SOR_KERNELS[full]
+    name, lib, source, replaces, _ = SOR_KERNELS[full]
     wrapper = sor_wrapper(full)
     row = {}
     for res in (71, 98):
         cfg = GridConfig(res=res)
         nslabs = ops._pick_nslabs(cfg.nx)
-        kernel, plain = sor_case(dev, cfg, 4, 50, 2 if full else 1, full)
-        n0 = wrapper.launches_global
-        err = sor_error(kernel, plain)
-        per_solve = wrapper.launches_global - n0
-        want = 1 if nslabs == 1 else 13
-        if wrapper.last_kernel != "global" or per_solve != want:
-            fail(f"{solve} at res {res} took {per_solve} launches of the "
-                 f"{wrapper.last_kernel} kernel: expected {want} of the "
-                 f"global-memory kernel")
-        if not err <= TOL_SOR:
-            fail(f"{name} global at res {res} differs from its twin by "
-                 f"{err:.3e}")
-        ms = cuda_ms(kernel, 10)
-        plain_ms = cuda_ms(plain, 1)
+        solve, plain = sor_case(dev, cfg, 4, 50, full=full)
+        n0 = wrapper.launches_resident
+        out = solve()
+        per_solve = wrapper.launches_resident - n0
+        plan = wrapper.last_plan
+        if plan.kernel != "resident":
+            fail(f"{name} at res {res} ran {plan}: expected the resident "
+                 f"kernel")
         size, blocks, sms_busy = sor_launch(full)
+        err = outputs_equal(out, plain())[1]
+        if not err <= TOL_SOR:
+            fail(f"{name} resident at res {res} differs from its twin by "
+                 f"{err:.3e}")
+
+        def yard():
+            return solve(cluster=plan.size, force_global=True)
+
+        equal, diff = outputs_equal(solve(), yard())
+        if wrapper.last_kernel != "global" or not equal:
+            fail(f"{name} at res {res}: the resident kernel at G {plan.size}"
+                 f" differs from the global-memory kernel ({diff:.3e})")
+        times, yard_times = alternating_ms(solve, yard, 10)
+        ms, yard_ms = statistics.median(times), statistics.median(yard_times)
+        plain_ms = cuda_ms(plain, 1)
         flops, nbytes = ops.work(4, cfg.ny, cfg.nx, 50, 4)
         bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
-        resident = ops.resident_blocks(dev, cfg.ny, cfg.nx // 2 // nslabs,
-                                       size, full)
-        waits = 2 * 4 * 13
-        print(f"[kernels] {name} global res {res} (grid ({cfg.ny}, "
-              f"{cfg.nx}), {nslabs} slab(s)) N=4 {solve} at iters=50: "
-              f"max|kernel - plain| {err:.3e} (tol {TOL_SOR:.0e}); solve "
-              f"{ms:.4f} ms in {per_solve} launch(es), plain twin "
+        bxp = cfg.nx // 2 // nslabs
+        active = ops.resident_active_clusters(dev, cfg.ny, bxp, plan.cluster,
+                                              plan.size, full)
+        sweeps = 2 * 4 * 13 * plan.launches
+        print(f"[kernels] {name} resident res {res} (grid ({cfg.ny}, "
+              f"{cfg.nx}), {nslabs} slab(s)) N=4, 13 rounds: max|kernel - "
+              f"plain| {err:.3e} (tol {TOL_SOR:.0e}); solve {ms:.4f} ms in "
+              f"{per_solve} launch(es) (pairs {[round(t, 4) for t in times]})"
+              f", the global-memory kernel at G {plan.size} {yard_ms:.4f} ms "
+              f"(pairs {[round(t, 4) for t in yard_times]}), "
+              f"{yard_ms / ms:.3f}x; bit-equal to it; plain twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
               f"{flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB), "
-              f"{ms / bound_ms:.1f}x it; G {size}, {blocks} blocks ran on "
-              f"{sms_busy} distinct SMs ({resident} resident at once); "
-              f"{1e3 * ms / waits:.4f} us per half-sweep")
-        reading = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              f"{ms / bound_ms:.1f}x it; G {size} = {size // plan.cluster} "
+              f"clusters of {plan.cluster}, {plan.per_launch} groups a "
+              f"launch ({active} such clusters resident at once), {blocks} "
+              f"blocks ran on {sms_busy} distinct SMs; "
+              f"{1e3 * ms / sweeps:.4f} us per half-sweep")
+        reading = {"max_abs_err": err, "ms": ms, "ms_pairs": times,
+                   "global_ms": yard_ms, "global_ms_pairs": yard_times,
+                   "bit_equal_global": equal, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None, "launches_per_solve": per_solve,
-                   "group": size, "blocks": blocks, "sms_busy": sms_busy,
-                   "resident_blocks": resident,
-                   "half_sweep_us": 1e3 * ms / waits,
-                   "shape": f"one {solve} solve: res {res}, grid ({cfg.ny},"
-                            f" {cfg.nx}), {nslabs} slab(s), 4 grids, 13 "
-                            f"rounds"}
+                   "group": size, "cluster": plan.cluster,
+                   "groups_per_launch": plan.per_launch,
+                   "active_clusters": active, "blocks": blocks,
+                   "sms_busy": sms_busy,
+                   "half_sweep_us": 1e3 * ms / sweeps,
+                   "shape": f"13 rounds: res {res}, grid ({cfg.ny}, "
+                            f"{cfg.nx}), {nslabs} slab(s), 4 grids"}
         if res == 71:
-            with library_swapped(lib, wrong):
-                stale = sor_error(kernel, plain)
+            with library_swapped(lib, stale):
+                stale_err = outputs_equal(solve(), plain())[1]
             print(f"[kernels] wrong kernel, SOR halo rows stale (planted), "
-                  f"{name} global res 71 N=4: max|kernel - plain| "
-                  f"{stale:.3e} (tol {TOL_SOR:.0e}; the right kernel "
+                  f"{name} resident res 71 N=4: max|kernel - plain| "
+                  f"{stale_err:.3e} (tol {TOL_SOR:.0e}; the right kernel "
                   f"{err:.3e})")
-            if stale <= TOL_SOR:
-                fail(f"TOL_SOR cannot tell a {name} global kernel whose "
+            if stale_err <= TOL_SOR:
+                fail(f"TOL_SOR cannot tell a {name} resident kernel whose "
                      f"halo rows are stale from a right one")
-            row.update(reading, name=f"{name}_global", route="cuda",
+            row.update(reading, name=f"{name}_resident", route="cuda",
                        source=source, replaces=replaces,
                        library="no single PyTorch call computes this",
-                       stale_halo_variant_max_abs_err=stale)
+                       stale_halo_variant_max_abs_err=stale_err,
+                       no_cross_wait_variant_max_diff=no_cross_wait_rejected(
+                           lib, no_wait, solve, yard, f"{name} res 71"))
         else:
-            row["res_98"] = reading
+            row[f"res_{res}"] = reading
     return row
+
+
+def check_sor_global(dev, full, wrong):
+    """An SOR slab kernel's global-memory kernel (csrc/sor_slabs.cuh
+    sor_slabs_global) on a grid it serves: res 95 (one (390, 1045) slab,
+    which no resident group holds; 1 launch a solve), 4 envs, iters 50,
+    held against its twin and timed; the planted stale halo rejected;
+    returns its entry under the kernel's row of the kernels line."""
+    from repro_torch.cfd.grid import GridConfig
+    from repro_torch.kernels.poisson import ops
+    name, lib, source, replaces, solve = SOR_KERNELS[full]
+    wrapper = sor_wrapper(full)
+    cfg = GridConfig(res=95)
+    nslabs = ops._pick_nslabs(cfg.nx)
+    kernel, plain = sor_case(dev, cfg, 4, 50, 2 if full else 1, full)
+    n0 = wrapper.launches_global
+    err = sor_error(kernel, plain)
+    per_solve = wrapper.launches_global - n0
+    if wrapper.last_kernel != "global" or per_solve != 1:
+        fail(f"{solve} at res 95 took {per_solve} launches of the "
+             f"{wrapper.last_kernel} kernel: expected 1 of the global-memory"
+             f" kernel")
+    if not err <= TOL_SOR:
+        fail(f"{name} global at res 95 differs from its twin by {err:.3e}")
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 1)
+    size, blocks, sms_busy = sor_launch(full)
+    flops, nbytes = ops.work(4, cfg.ny, cfg.nx, 50, 4)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    resident = ops.resident_blocks(dev, cfg.ny, cfg.nx // 2 // nslabs, size,
+                                   full)
+    waits = 2 * 4 * 13
+    print(f"[kernels] {name} global res 95 (grid ({cfg.ny}, {cfg.nx}), "
+          f"{nslabs} slab(s)) N=4 {solve} at iters=50: max|kernel - plain| "
+          f"{err:.3e} (tol {TOL_SOR:.0e}); solve {ms:.4f} ms in "
+          f"{per_solve} launch(es), plain twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {flops / 1e6:.3f} MFLOP, "
+          f"{nbytes / 1e6:.4f} MB), {ms / bound_ms:.1f}x it; G {size}, "
+          f"{blocks} blocks ran on {sms_busy} distinct SMs ({resident} "
+          f"resident at once); {1e3 * ms / waits:.4f} us per half-sweep")
+    with library_swapped(lib, wrong):
+        stale = sor_error(kernel, plain)
+    print(f"[kernels] wrong kernel, SOR halo rows stale (planted), {name} "
+          f"global res 95 N=4: max|kernel - plain| {stale:.3e} (tol "
+          f"{TOL_SOR:.0e}; the right kernel {err:.3e})")
+    if stale <= TOL_SOR:
+        fail(f"TOL_SOR cannot tell a {name} global kernel whose halo rows "
+             f"are stale from a right one")
+    return {"name": f"{name}_global", "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "library": "no single PyTorch call computes this",
+            "launches_per_solve": per_solve, "group": size,
+            "blocks": blocks, "sms_busy": sms_busy,
+            "resident_blocks": resident, "half_sweep_us": 1e3 * ms / waits,
+            "stale_halo_variant_max_abs_err": stale,
+            "shape": f"one {solve} solve: res 95, grid ({cfg.ny}, {cfg.nx}), "
+                     f"{nslabs} slab(s), 4 grids, 13 rounds"}
 
 
 def fused_beside_cluster(dev):
@@ -999,29 +1297,13 @@ def sor_beside_cluster(dev, full):
     the cluster kernel on one input (4 grids, 13 rounds, a launch each):
     bit for bit, since a half-sweep's arithmetic on a row is the same in
     both; each timed."""
-    import numpy as np
-    import torch
     from repro_torch.cfd.grid import GridConfig
     from repro_torch.kernels.poisson import ops
     name, _, _, _, _ = SOR_KERNELS[full]
     wrapper = sor_wrapper(full)
     cfg = GridConfig(res=70)
     nslabs = ops._pick_nslabs(cfg.nx)
-    rng = np.random.default_rng(5)
-    width = cfg.nx if full else cfg.nx // 2
-    ins = [torch.tensor(rng.standard_normal((4, cfg.ny, width)),
-                        dtype=torch.float32, device=dev)
-           for _ in range(2 if full else 4)]
-    kw = dict(dx=cfg.dx, dy=cfg.dy, omega=cfg.poisson_omega, nslabs=nslabs,
-              inner_iters=4)
-
-    def solve(**pin):
-        out = tuple(ins[:1] if full else ins[:2])
-        for _ in range(13):
-            out = wrapper(*out, *ins[len(out):], **kw, **pin)
-            out = (out,) if full else out
-        return out
-
+    solve = sor_case(dev, cfg, 4, 50, full=full)[0]
     a = solve()
     if wrapper.last_kernel != "cluster":
         fail(f"{name} at res 70 ran the {wrapper.last_kernel} kernel: "
@@ -1031,9 +1313,7 @@ def sor_beside_cluster(dev, full):
     if wrapper.last_kernel != "global" or wrapper.last_cluster != size:
         fail(f"the forced {name} at res 70 ran {wrapper.last_plan}: "
              f"expected the global-memory kernel at G {size}")
-    torch.cuda.synchronize()
-    equal = all(torch.equal(x, y) for x, y in zip(a, b))
-    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    equal, err = outputs_equal(a, b)
     cluster_ms = cuda_ms(solve, 5)
     global_ms = cuda_ms(lambda: solve(cluster=size, force_global=True), 5)
     print(f"[kernels] {name} res 70 ({nslabs} slabs) N=4, 13 rounds: "
@@ -1047,10 +1327,28 @@ def sor_beside_cluster(dev, full):
             "max_abs_err": err, "ms": global_ms, "cluster_ms": cluster_ms}
 
 
+def sync_floor(dev):
+    """The synchronisation floor of the CFD kernels' chains at the res-48
+    interval's shape (kernels/sync_probe.py: G 32, 6100 phases, rows of
+    528 floats, 544 threads): us a phase through L2 flags (the
+    global-memory kernels' handoff), L2 rows by flags and tagged L2 rows
+    (the resident kernels' at a cluster edge) and DSMEM (the cluster
+    kernels', two chains of 16)."""
+    from repro_torch.kernels.sync_probe import HANDOFFS, MODES, sync_probe
+    out = {}
+    for mode in MODES:
+        out[mode] = 1e3 * cuda_ms(sync_probe(mode, dev), 5) / HANDOFFS
+    print(f"[kernels] us a synchronisation, floor ({HANDOFFS} neighbour "
+          f"handoffs, G 32, no arithmetic): " + ", ".join(
+              f"{m} {us:.4f}" for m, us in out.items()))
+    return out
+
+
 # dt on the finest grids run here: explicit Euler diffusion is stable for
-# dt <= Re h^2 / 4 (h the cell size), 4.96e-3 at res 71 and 2.72e-3 at res
-# 96 at Re 100, below the default 5e-3; halved and cut to 2e-3
-FINE_DT = {71: 0.0025, 96: 0.002}
+# dt <= Re h^2 / 4 (h the cell size), 4.96e-3 at res 71, 2.77e-3 at res 95
+# and 2.72e-3 at res 96 at Re 100, below the default 5e-3; halved and cut
+# to 2.5e-3 and 2e-3
+FINE_DT = {71: 0.0025, 95: 0.0025, 96: 0.002}
 
 
 # the two SOR slab kernels: (name, library, source, the TPU kernel it
@@ -1070,10 +1368,14 @@ def sor_wrapper(full):
 
 
 def sor_case(dev, cfg, n_env, iters, seed=1, full=False):
-    """Random inputs of ``n_env`` res-``cfg.res`` grids and the two
-    realizations of a solve on them, each a tuple of tensors: an
-    ``rb_sor_planes`` solve on packed planes, or (``full``) an
-    ``rb_sor(packed=False)`` solve on the grid from a warm start."""
+    """Random inputs of ``n_env`` res-``cfg.res`` grids at the reference's
+    slab count and the two realizations of a solve of ``iters`` iterations
+    on them, each a tuple of tensors: on packed planes, or (``full``) on
+    the grid from a warm start.  ``kernel(iters, **pin)`` makes the slab
+    wrapper's calls of an ``rb_sor_planes`` / ``rb_sor(packed=False)``
+    solve (one call of every round on one slab, a call a round on
+    several), passing ``pin``, the wrapper's ``cluster`` and
+    ``force_global``; ``plain()`` runs the plain twin's rounds."""
     import numpy as np
     import torch
     from repro_torch.kernels.poisson import ops
@@ -1082,37 +1384,36 @@ def sor_case(dev, cfg, n_env, iters, seed=1, full=False):
     kw = dict(dx=cfg.dx, dy=cfg.dy, omega=cfg.poisson_omega, nslabs=nslabs,
               inner_iters=4)
     if full:
+        # (p0, rhs): a warm start and its right-hand side
         rhs, p0 = (torch.tensor(s * rng.standard_normal((n_env, cfg.ny,
                                                          cfg.nx)),
                                 dtype=torch.float32, device=dev)
                    for s in (1.0, 0.1))
+        state, fixed = (p0,), (rhs,)
+    else:
+        planes = [torch.tensor(rng.standard_normal((n_env, cfg.ny,
+                                                    cfg.nx // 2)),
+                               dtype=torch.float32, device=dev)
+                  for _ in range(4)]
+        state, fixed = tuple(planes[:2]), tuple(planes[2:])
+    wrapper = sor_wrapper(full)
+    plain_step = ops.rb_sor_slabs_plain if full else \
+        ops.rb_sor_slabs_packed_plain
 
-        def kernel(iters=iters):
-            return (ops.rb_sor(rhs, cfg.dx, cfg.dy, iters=iters,
-                               omega=cfg.poisson_omega, p0=p0,
-                               packed=False),)
-
-        def plain():
-            p = p0
-            for _ in range(-(-iters // 4)):
-                p = ops.rb_sor_slabs_plain(p, rhs, **kw)
-            return (p,)
-
-        return kernel, plain
-    planes = [torch.tensor(rng.standard_normal((n_env, cfg.ny, cfg.nx // 2)),
-                           dtype=torch.float32, device=dev)
-              for _ in range(4)]
-
-    def kernel(iters=iters):
-        return ops.rb_sor_planes(*planes, cfg.dx, cfg.dy, iters=iters,
-                                 omega=cfg.poisson_omega)
+    def kernel(iters=iters, **pin):
+        rounds, out = -(-iters // 4), state
+        for _ in range(1 if nslabs == 1 else rounds):
+            out = wrapper(*out, *fixed, rounds=rounds if nslabs == 1 else 1,
+                          **kw, **pin)
+            out = (out,) if full else out
+        return out
 
     def plain():
-        red, black = planes[:2]
+        out = state
         for _ in range(-(-iters // 4)):
-            red, black = ops.rb_sor_slabs_packed_plain(red, black,
-                                                       *planes[2:], **kw)
-        return red, black
+            out = plain_step(*out, *fixed, **kw)
+            out = (out,) if full else out
+        return out
 
     return kernel, plain
 
@@ -1721,8 +2022,8 @@ def wrappers():
 
 FLASH_WRAPPERS = ("flash_attention", "flash_attention_f16",
                   "flash_attention_fp32")
-# the CFD wrappers, each of which launches a cluster or a global-memory
-# kernel
+# the CFD wrappers, each of which launches a cluster, a resident or a
+# global-memory kernel
 GLOBAL_WRAPPERS = ("fused_interval", "rb_sor_slabs_packed", "rb_sor_slabs")
 
 
@@ -1732,6 +2033,7 @@ def reset_counts():
         fn.launches = 0
     w["fused_interval"].launches_per_body = 0
     for name in GLOBAL_WRAPPERS:
+        w[name].launches_resident = 0
         w[name].launches_global = 0
     for name in FLASH_WRAPPERS:
         w[name].column_split_launches = 0
@@ -1743,7 +2045,8 @@ def reset_counts():
 def counts():
     """Launches by kernel since reset_counts; and, as views of those, the
     fused kernel's per-body instantiation (``fused_interval_per_body``),
-    the CFD wrappers' global-memory kernels (``<name>_global``), the flash
+    the CFD wrappers' resident and global-memory kernels
+    (``<name>_resident``, ``<name>_global``), the flash
     kernels' column-split launches past dh 256
     (``flash_attention_column_split``), WKV6's float16 launches
     (``wkv6_float16``) and its launches past a head of 1024
@@ -1751,6 +2054,7 @@ def counts():
     w = wrappers()
     out = {name: fn.launches for name, fn in w.items()}
     for name in GLOBAL_WRAPPERS:
+        out[f"{name}_resident"] = w[name].launches_resident
         out[f"{name}_global"] = w[name].launches_global
     out["fused_interval_per_body"] = w["fused_interval"].launches_per_body
     out["flash_attention_column_split"] = sum(
@@ -1763,7 +2067,8 @@ def counts():
 # the count keys that are views of another kernel's launches
 COUNT_VIEWS = ("fused_interval_per_body", "flash_attention_column_split",
                "wkv6_float16", "wkv6_multi_cluster",
-               *(f"{name}_global" for name in GLOBAL_WRAPPERS))
+               *(f"{name}_{kind}" for name in GLOBAL_WRAPPERS
+                 for kind in ("resident", "global")))
 
 
 def run_train(backend, env_kw, episodes, grid_kw, scenarios=None):
@@ -1941,7 +2246,8 @@ def run_sor_full(dev, cfg, n_env, iters):
     launched = counts()["rb_sor_slabs"]
     kernel = ops.rb_sor_slabs_cuda.last_kernel
     if kernel != ops.slab_kernel(cfg.ny, cfg.nx // 2) or (
-            kernel == "global" and counts()["rb_sor_slabs_global"] != 1):
+            kernel != "cluster"
+            and counts()[f"rb_sor_slabs_{kernel}"] != launched):
         fail(f"rb_sor(packed=False) at res {cfg.res} ran the {kernel} "
              f"kernel, expected the "
              f"{ops.slab_kernel(cfg.ny, cfg.nx // 2)} one")
@@ -6293,10 +6599,13 @@ def compare_tree(card):
     against its twin first), the WKV6 call at rwkv6-3b's (N 64), and the
     CFD kernels at the training shape (res 16, 4 envs: the fused interval's
     scalar and per-body instantiations over 50 dt, the packed and the
-    full-grid SOR solve at iters 50) and on the largest grids their
+    full-grid SOR solve at iters 50), on the largest grids their
     cluster kernels serve (the scalar fused interval at res 38, the packed
-    solve at res 70), each with a digest of its output's bytes, which two
-    trees that compute alike share; and the SASS of the cluster kernels
+    solve at res 70) and past one cluster (the scalar fused interval at res
+    48, 4 envs, 50 dt; the packed solve at res 71: the resident kernels, or
+    in an older tree the global-memory ones, whose bits they give), each
+    with a digest of its output's bytes, which two trees that compute
+    alike share; and the SASS of the cluster kernels
     (:func:`sass_profile`: registers and instructions by opcode), where
     two builds that time apart differ.  One process reads
     one tree: run it in turns on the older, the newer, the newer and the
@@ -6314,13 +6623,16 @@ def compare_tree(card):
     flash = flash_case(dev, 1, 4096, phi.num_heads, phi.num_kv_heads,
                        phi.resolved_head_dim, 0, 4)[2]
     wkv6 = wkv6_case(dev, rwkv, 4096)[1]
-    res16, res38, res70 = (GridConfig(res=r) for r in (16, 38, 70))
+    res16, res38, res70, res48, res71 = (GridConfig(res=r)
+                                         for r in (16, 38, 70, 48, 71))
     cfd = {"fused_interval_scalar": fused_case(dev, res16, 4, 50)[0],
            "fused_interval_per_body": bank_case(dev, res16, 4, 50)[0],
            "rb_sor_planes": sor_case(dev, res16, 4, 50)[0],
            "rb_sor_full": sor_case(dev, res16, 4, 50, 2, True)[0],
            "fused_interval_scalar_res38": fused_case(dev, res38, 4, 50)[0],
-           "rb_sor_planes_res70": sor_case(dev, res70, 4, 50)[0]}
+           "rb_sor_planes_res70": sor_case(dev, res70, 4, 50)[0],
+           "fused_interval_scalar_res48": fused_case(dev, res48, 4, 50)[0],
+           "rb_sor_planes_res71": sor_case(dev, res71, 4, 50)[0]}
     readings = {}
     for name, kernel in cfd.items():
         out = kernel()
@@ -6329,7 +6641,8 @@ def compare_tree(card):
         digest = hashlib.sha256()
         for t in out:
             digest.update(t.cpu().numpy().tobytes())
-        readings[name] = {"ms": cuda_ms(kernel, 50, warm=False),
+        readings[name] = {"ms": cuda_ms(kernel, 50 if "res48" not in name
+                                        else 10, warm=False),
                           "sha256": digest.hexdigest()[:16]}
     print(json.dumps({
         "tree": str(build.CSRC.parents[3]), "card": card,
@@ -6359,7 +6672,8 @@ def main():
     ap.add_argument("--compare", metavar="TREE", default="",
                     help="time phase 1's flash (dh 128) and WKV6 (N 64) "
                          "yardsticks and the CFD kernels at the training "
-                         "shape (each output's digest beside its time) "
+                         "shape and past one cluster (each output's digest "
+                         "beside its time) "
                          "of TREE's repro_torch (a checkout "
                          "root, e.g. an older commit unpacked with git "
                          "archive) and exit: no kernels line, no result")
@@ -6422,10 +6736,13 @@ def main():
               f"no result")
         return
     stale_halo_jobs = start_stale_halo_build()
+    no_cross_wait_jobs = start_variant_build("no_cross_wait", NO_CROSS_WAIT)
     _, secs = wall(lambda: build.build(verbose=True))
     print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
           f"{build.BUILD_DIR}")
     stale_halo = stale_halo_libraries(stale_halo_jobs)
+    no_cross_wait = stale_halo_libraries(no_cross_wait_jobs,
+                                         "no-cross-wait")
     dev = torch.device("cuda")
 
     # each phase's seconds, phases 1-13 here (14-19 print their own)
@@ -6459,11 +6776,20 @@ def main():
                     wrong=stale_halo["poisson_sor"])
     sor_full = check_sor(dev, res16, n_env=4, iters=50, full=True,
                          wrong=stale_halo["poisson_sor_full"])
-    # past one cluster: the global-memory kernels
+    # past one cluster: the resident kernels, the global-memory kernels
+    # beside them as their yardstick, then on their own grids
+    fused["resident"] = check_fused_resident(
+        dev, stale_halo["fused_interval"], no_cross_wait["fused_interval"])
+    sor["resident"] = check_sor_resident(dev, False, stale_halo["poisson_sor"],
+                                         no_cross_wait["poisson_sor"])
+    sor_full["resident"] = check_sor_resident(
+        dev, True, stale_halo["poisson_sor_full"],
+        no_cross_wait["poisson_sor_full"])
     fused["global"] = check_fused_global(dev, stale_halo["fused_interval"])
     sor["global"] = check_sor_global(dev, False, stale_halo["poisson_sor"])
     sor_full["global"] = check_sor_global(dev, True,
                                           stale_halo["poisson_sor_full"])
+    fused["sync_floor_us"] = sync_floor(dev)
     # the two kernels of each function on a grid both serve
     fused["global"]["beside_cluster"] = fused_beside_cluster(dev)
     sor["global"]["beside_cluster"] = sor_beside_cluster(dev, False)
@@ -6513,24 +6839,33 @@ def main():
                       "backend='fused'), warmup + 1 episode")
 
     # past one cluster: the default backend at res 48 runs the fused
-    # global-memory kernel, once for the warmup and once an interval
+    # resident kernel, one call for the warmup and one an interval, each
+    # as many launches as groups of 4 envs the card holds at once; at res
+    # 56 the global-memory kernel, one launch a call
+    from repro_torch.kernels.actuation import ops as aops
     wide_env = dict(steps_per_action=50, actions_per_episode=4,
                     warmup_time=1.0)
-    print("[train fused res 48] full width: res 48 (ny 198, nx 1056), 50 dt "
-          "per action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs, "
-          "the default backend; depth cut: 1 episode of 4 actions after a "
-          "1 t.u. warmup")
-    launched, _ = run_train("fused", wide_env, 1, dict(res=48))
     intervals = 1 + wide_env["actions_per_episode"]
-    if (launched["fused_interval_global"] != intervals
-            or launched["fused_interval"] != intervals):
-        fail(f"train() at res 48 launched the fused kernel "
-             f"{launched['fused_interval']} times, "
-             f"{launched['fused_interval_global']} of them the global-memory"
-             f" kernel: expected {intervals}, all global (one an interval)")
-    fused["global"]["launches"] = launched["fused_interval_global"]
-    fused["global"]["path"] = ("train(backend='fused') at res 48, warmup + 1 "
-                               "episode of 4 actions")
+    for res, kind in ((48, "resident"), (56, "global")):
+        print(f"[train fused res {res}] full width: res {res}, 50 dt per "
+              f"action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs, "
+              f"the default backend; depth cut: 1 episode of 4 actions after "
+              f"a 1 t.u. warmup")
+        plan = aops.launch_plan(GridConfig(res=res), 4, dev)
+        want = intervals * plan.launches
+        launched, _ = run_train("fused", wide_env, 1, dict(res=res))
+        if (plan.kernel != kind
+                or launched[f"fused_interval_{kind}"] != want
+                or launched["fused_interval"] != want):
+            fail(f"train() at res {res} launched the fused kernel "
+                 f"{launched['fused_interval']} times, "
+                 f"{launched[f'fused_interval_{kind}']} of them the {kind} "
+                 f"kernel ({plan}): expected {want}, all {kind} ({intervals} "
+                 f"calls)")
+        fused[kind]["launches"] = launched[f"fused_interval_{kind}"]
+        fused[kind]["path"] = (f"train(backend='fused') at res {res}, warmup "
+                               f"+ 1 episode of 4 actions")
+        fused[f"launches_{kind}"] = launched[f"fused_interval_{kind}"]
     done(2)
 
     # 3. the second path: one short episode with the packed-SOR kernel
@@ -6553,24 +6888,32 @@ def main():
     sor["path"] = "train(backend='pallas'), warmup + 1 episode"
 
     # past one cluster: res 71, one slab no cluster holds, on the packed
-    # SOR's global-memory kernel, one launch a solve
-    print(f"[train pallas res 71] res 71 (ny 292, nx 1562: one slab), dt "
-          f"{FINE_DT[71]}, 4 envs; depth cut: 1 episode of 2 actions after "
-          f"a 1 t.u. warmup")
-    launched, _ = run_train("pallas", dict(steps_per_action=50,
-                                        actions_per_episode=2,
-                                        warmup_time=1.0), 1,
-                            dict(res=71, dt=FINE_DT[71]))
-    solves = round(1.0 / FINE_DT[71]) + 2 * 50
-    if (launched["rb_sor_slabs_packed_global"] != solves
-            or launched["rb_sor_slabs_packed"] != solves):
-        fail(f"the pallas path at res 71 launched rb_sor_slabs_packed "
-             f"{launched['rb_sor_slabs_packed']} times, "
-             f"{launched['rb_sor_slabs_packed_global']} of them the "
-             f"global-memory kernel: expected {solves}, all global")
-    sor["global"]["launches"] = launched["rb_sor_slabs_packed_global"]
-    sor["global"]["path"] = ("train(backend='pallas') at res 71, warmup + 1 "
-                             "episode of 2 actions")
+    # SOR's resident kernel, and res 95, one slab no resident group holds,
+    # on its global-memory kernel, one launch a solve each
+    from repro_torch.kernels.poisson import ops as pops
+    for res, warmup, kind in ((71, 1.0, "resident"), (95, 0.25, "global")):
+        cfg = GridConfig(res=res, dt=FINE_DT[res])
+        print(f"[train pallas res {res}] res {res} (ny {cfg.ny}, nx "
+              f"{cfg.nx}: one slab), dt {FINE_DT[res]}, 4 envs; depth cut: 1 "
+              f"episode of 2 actions after a {warmup} t.u. warmup")
+        plan = pops.launch_plan(cfg.ny, cfg.nx // 2, 1, 4, dev)
+        launched, _ = run_train("pallas", dict(steps_per_action=50,
+                                            actions_per_episode=2,
+                                            warmup_time=warmup), 1,
+                                dict(res=res, dt=FINE_DT[res]))
+        solves = round(warmup / FINE_DT[res]) + 2 * 50
+        want = solves * plan.launches
+        if (plan.kernel != kind
+                or launched[f"rb_sor_slabs_packed_{kind}"] != want
+                or launched["rb_sor_slabs_packed"] != want):
+            fail(f"the pallas path at res {res} launched rb_sor_slabs_packed "
+                 f"{launched['rb_sor_slabs_packed']} times, "
+                 f"{launched[f'rb_sor_slabs_packed_{kind}']} of them the "
+                 f"{kind} kernel ({plan}): expected {want}, all {kind}")
+        sor[kind]["launches"] = launched[f"rb_sor_slabs_packed_{kind}"]
+        sor[kind]["path"] = (f"train(backend='pallas') at res {res}, warmup "
+                             f"+ 1 episode of 2 actions")
+        sor[f"launches_{kind}"] = launched[f"rb_sor_slabs_packed_{kind}"]
     done(3)
 
     # 4. the language-model loss paths at full width
@@ -6639,10 +6982,12 @@ def main():
     # 5. the full-grid drop-in solve
     sor_full["launches"] = run_sor_full(dev, res16, n_env=4, iters=50)
     sor_full["path"] = "rb_sor(packed=False), res 16, 4 grids, iters=50"
-    sor_full["global"]["launches"] = run_sor_full(
-        dev, GridConfig(res=71), n_env=4, iters=50)
-    sor_full["global"]["path"] = ("rb_sor(packed=False), res 71, 4 grids, "
-                                  "iters=50")
+    for res, kind in ((71, "resident"), (95, "global")):
+        sor_full[kind]["launches"] = run_sor_full(
+            dev, GridConfig(res=res), n_env=4, iters=50)
+        sor_full[kind]["path"] = (f"rb_sor(packed=False), res {res}, 4 grids,"
+                                  f" iters=50")
+        sor_full[f"launches_{kind}"] = sor_full[kind]["launches"]
     done(5)
 
     # 6. golden physics through the fused kernel

@@ -8,7 +8,10 @@ pressure parity planes carried across every dt:
   ``csrc/fused_interval.cu`` for the whole env batch, the dt loop inside
   the kernel (:func:`fused_interval_cuda`): the cluster kernel (one
   thread-block cluster per env, its fields in the cluster's shared memory)
-  on every grid a cluster holds, the global-memory kernel (a group of G
+  on every grid a cluster holds, the resident kernel (a group of G = K C
+  blocks per env over K clusters, its fields in their shared memory, only
+  the rows at cluster edges through global memory) where the bands fit
+  one block only past one cluster, the global-memory kernel (a group of G
   blocks per env, its fields in a workspace in global memory) on every
   other grid; each in a scalar instantiation for a scalar amplitude and a
   per-body one (``max_bodies()`` bodies, each env reading its own geometry
@@ -21,10 +24,11 @@ Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
 (no checkerboard parity) falls back to the reference loop, warning once
 per grid shape.  A CUDA state on a grid of odd width raises: the card
 never runs the plain loop in a kernel's place.  Which kernel serves an
-even grid (:func:`check_kernel_grid`) follows the shared memory of a
-16-block cluster, the analogue of the reference's VMEM budget: the
-cluster kernel where it holds one env's bands, the global-memory kernel
-past it (res 39 and above at the default aspect).
+even grid (:func:`check_kernel_grid`) follows the shared memory a block
+holds, the analogue of the reference's VMEM budget: the cluster kernel
+where a 16-block cluster holds one env's bands, the resident kernel where
+a group of up to 32 blocks does (res 39 to 52 at the default aspect), the
+global-memory kernel past it.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
 from repro_torch.kernels import cluster as kcluster
 from repro_torch.kernels.cluster import (CLUSTER_SIZES, FLAG_STRIDE,
                                          LaunchPlan, band_starts,
-                                         block_shape, rows_max)
+                                         block_shape, mirror_floats,
+                                         resident_shape, rows_max)
 
 # the body count of the kernel's per-body instantiation
 # (csrc/fused_interval.cu kBodies): the widest registered geometry
@@ -138,6 +143,12 @@ def _fitting_clusters(ny: int, nx: int, smem_per_block: int,
         ny, lambda c: smem_bytes(ny, nx, c, n_bodies), smem_per_block)
 
 
+def _resident_groups(ny: int, nx: int, smem_per_block: int,
+                     n_bodies: int = 0) -> list:
+    return kcluster.resident_groups(
+        ny, lambda g: smem_bytes(ny, nx, g, n_bodies), smem_per_block)
+
+
 def choose_cluster(ny: int, nx: int, n_env: int, n_sm: int, active,
                    smem_per_block: int, n_bodies: int = 0) -> int:
     """The cluster size for ``n_env`` envs on an (ny, nx) grid:
@@ -176,48 +187,75 @@ def workspace_bytes(ny: int, nx: int, group: int, n_env: int,
                         + group * FLAG_STRIDE)
 
 
+# the slots of one direction of a cluster edge of the resident kernel: red
+# and black by parity as tagged words (two slots each), u, v and v_pen
+# (csrc/resident.cuh kFusedEdgeSlots)
+EDGE_SLOTS = 8 + 3
+
+
+def resident_workspace_bytes(ny: int, nx: int, group: int, cluster: int,
+                             n_env: int, n_bodies: int = 0) -> int:
+    """The resident kernel's workspace for ``n_env`` envs of ``group``
+    blocks in clusters of ``cluster``: each block's partial sums, then
+    each block's flag line, then each env's mirror slots (rows of up to
+    nx + 1 floats)."""
+    return 4 * n_env * (group * part_slots(n_bodies) + group * FLAG_STRIDE
+                        + mirror_floats(group, cluster, EDGE_SLOTS, nx + 1))
+
+
 def check_kernel_grid(cfg: GridConfig, n_bodies: int = 0) -> str:
     """Which CUDA kernel serves the grid for the instantiation of
     ``n_bodies`` (0: scalar): "cluster" where one env's fields, cut into
     at most 16 bands, fit the shared memory of one block each (res <= 38
-    at the default aspect, either instantiation), "global" on every other
-    grid.  ``ValueError`` on an odd width."""
+    at the default aspect, either instantiation), "resident" where they
+    do cut into a group of G = K C <= 32 bands (res 39 to 52), "global" on
+    every other grid.  ``ValueError`` on an odd width."""
     ny, nx = cfg.ny, cfg.nx
     if nx % 2:
         raise ValueError(
             f"backend='fused' needs an even grid width for packed "
             f"checkerboard parity, got grid (ny={ny}, nx={nx}); use "
             f"backend='reference' for this grid")
-    return ("cluster" if _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies)
-            else "global")
+    if _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies):
+        return "cluster"
+    if _resident_groups(ny, nx, SMEM_PER_BLOCK, n_bodies):
+        return "resident"
+    return "global"
 
 
 def plan_launch(cfg: GridConfig, n_env: int, n_sm: int, active, resident,
-                n_bodies: int = 0, cluster=None,
-                force_global: bool = False) -> LaunchPlan:
+                n_bodies: int = 0, cluster=None, force_global: bool = False,
+                resident_active=None) -> LaunchPlan:
     """How :func:`fused_interval_cuda` runs ``n_env`` envs on a card of
-    ``n_sm`` SMs: ``active(c)`` is how many clusters of ``c`` blocks the
-    card holds at once, ``resident(G)`` how many blocks of the
-    global-memory kernel at the launch shape of G blocks an env.  The
-    kernel is :func:`check_kernel_grid`'s, or the global-memory one with
+    ``n_sm`` SMs: ``active(c)`` is how many clusters of ``c`` blocks of the
+    cluster kernel the card holds at once, ``resident_active(C, G)`` how
+    many of the resident kernel at the launch shape of G blocks an env
+    (by default ``active(C)``), ``resident(G)`` how many blocks of the
+    global-memory kernel at that launch shape.  The kernel is
+    :func:`check_kernel_grid`'s, or the global-memory one with
     ``force_global``; ``cluster`` fixes the blocks of an env (the cluster
-    size, or G), by default :func:`choose_cluster`'s or
+    size, or G), by default :func:`choose_cluster`'s,
+    :func:`repro_torch.kernels.cluster.resident_plan`'s or
     :func:`repro_torch.kernels.cluster.global_group`'s choice.  A size the
     kernel cannot take, or a group the card cannot hold at once, raises."""
     ny, nx = cfg.ny, cfg.nx
     check_kernel_grid(cfg, n_bodies)
     return kcluster.plan_groups(
-        _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies), n_env, ny, n_sm, active,
-        resident, lambda g, n: workspace_bytes(ny, nx, g, n, n_bodies),
-        f"fused_interval on grid (ny={ny}, nx={nx})", cluster, force_global)
+        _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies), n_env, ny, n_sm,
+        active, resident, lambda g, n: workspace_bytes(ny, nx, g, n, n_bodies),
+        f"fused_interval on grid (ny={ny}, nx={nx})", cluster, force_global,
+        _resident_groups(ny, nx, SMEM_PER_BLOCK, n_bodies),
+        resident_active or (lambda c, g: active(c)),
+        lambda g, c, n: resident_workspace_bytes(ny, nx, g, c, n, n_bodies))
 
 
 def select_tier(cfg: GridConfig, device, n_bodies: int = 0) -> str:
     """Which realization serves ``backend="fused"`` for tensors on ``device``.
 
     "cuda"       CUDA tensors: a hand-written kernel (its instantiation for
-                 ``n_bodies``, 0: scalar; the cluster or the global-memory
-                 kernel, :func:`check_kernel_grid`); an odd width raises
+                 ``n_bodies``, 0: scalar; the cluster, the resident or the
+                 global-memory kernel, :func:`check_kernel_grid`); an odd
+                 width raises
     "plain"      CPU tensors: its plain PyTorch twin
     "reference"  CPU tensors on a grid of odd width (warns once per shape)
     """
@@ -344,6 +382,13 @@ def _load():
         lib.fused_interval_global_blocks_per_sm.argtypes = [
             i, i, ctypes.POINTER(i)]
         lib.fused_interval_global_blocks_per_sm.restype = ctypes.c_int
+        lib.fused_interval_resident_launch.argtypes = (
+            [p] * 5 + [i] + [p] * 10 + [i] * 15 + [p, p])
+        lib.fused_interval_resident_launch.restype = ctypes.c_int
+        for query in ("fused_interval_resident_max_clusters",
+                      "fused_interval_bodies_resident_max_clusters"):
+            getattr(lib, query).argtypes = [i, i, i, ctypes.POINTER(i)]
+            getattr(lib, query).restype = ctypes.c_int
         lib.fused_interval_part_slots.argtypes = [i]
         lib.fused_interval_part_slots.restype = ctypes.c_int
         for nb in (0, N_BODIES):
@@ -370,6 +415,34 @@ def active_clusters(dev, cfg: GridConfig, size: int, n_bodies: int = 0
         smem_bytes(cfg.ny, cfg.nx, size, n_bodies))
 
 
+def resident_launch_shape(cfg: GridConfig, group: int) -> tuple:
+    """``(rows of the largest band, threads, tx, predictor threads,
+    predictor tx)`` of a block of the resident kernel with ``group`` blocks
+    an env: its thread rows side by side over the band
+    (:func:`repro_torch.kernels.cluster.resident_shape`), but in the
+    predictor, whose force and outflux partial sums follow the layout, the
+    global-memory kernel's (:func:`global_shape`), so that the two kernels
+    add in one order; the block takes the larger thread count."""
+    rows = rows_max(band_starts(cfg.ny, group))
+    threads, tx = resident_shape(cfg.nx // 2, rows)
+    pred_threads, pred_tx = global_shape(cfg, group)
+    return rows, max(threads, pred_threads), tx, pred_threads, pred_tx
+
+
+def resident_active_clusters(dev, cfg: GridConfig, size: int, group: int,
+                             n_bodies: int = 0) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the resident kernel (the
+    instantiation for ``n_bodies``) in clusters of ``size`` blocks at the
+    launch shape of ``group`` blocks an env, read once per shape and
+    card."""
+    query = ("fused_interval_bodies_resident_max_clusters" if n_bodies
+             else "fused_interval_resident_max_clusters")
+    return kcluster.active_clusters(
+        _load(), query, dev, (cfg.ny, cfg.nx, group), size,
+        resident_launch_shape(cfg, group)[1],
+        smem_bytes(cfg.ny, cfg.nx, group, n_bodies))
+
+
 def global_shape(cfg: GridConfig, group: int) -> tuple:
     """``(threads, tx)`` of a block of the global-memory kernel with
     ``group`` blocks an env (:func:`repro_torch.kernels.cluster.
@@ -389,21 +462,24 @@ def resident_blocks(dev, cfg: GridConfig, group: int, n_bodies: int = 0
 
 def launch_plan(cfg: GridConfig, n_env: int, device, n_bodies: int = 0,
                 cluster=None, force_global: bool = False) -> LaunchPlan:
-    """:func:`plan_launch` fed the card of ``device``: its SM count, its
-    cluster occupancy and the global-memory kernel's residency."""
+    """:func:`plan_launch` fed the card of ``device``: its SM count, the
+    cluster and resident kernels' cluster occupancy and the global-memory
+    kernel's residency."""
     dev = torch.device(device)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return plan_launch(
         cfg, n_env, n_sm, lambda c: active_clusters(dev, cfg, c, n_bodies),
         lambda g: resident_blocks(dev, cfg, g, n_bodies), n_bodies, cluster,
-        force_global)
+        force_global, lambda c, g: resident_active_clusters(
+            dev, cfg, c, g, n_bodies))
 
 
 def cluster_for(cfg: GridConfig, n_env: int, device, n_bodies: int = 0
                 ) -> int:
     """The blocks an env :func:`fused_interval_cuda` launches with for
     ``n_env`` envs on the card of ``device``: the cluster size, or G on a
-    grid the global-memory kernel serves (:func:`launch_plan`)."""
+    grid the resident or the global-memory kernel serves
+    (:func:`launch_plan`)."""
     return launch_plan(cfg, n_env, device, n_bodies).size
 
 
@@ -480,17 +556,21 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     The kernel is :func:`launch_plan`'s: the cluster kernel (one launch,
     each env on a cluster of ``cluster`` blocks, by default its choice; a
     size whose bands do not fit one block's shared memory raises) on the
-    grids a cluster holds, else the global-memory kernel (each env on a
-    group of ``cluster`` blocks, G, by default its choice; one launch while
-    the card holds every env's blocks at once, more past that), which
-    ``force_global`` also picks on a grid a cluster holds.  Each call
-    records its kernel (``fused_interval_cuda.last_kernel``, "cluster" or
+    grids a cluster holds, the resident kernel (each env on a group of
+    ``cluster`` blocks, G, in K clusters of C, by default its choice; one
+    launch while the card holds every env's clusters at once, more past
+    that) on the grids whose bands fit one block at such a G, else the
+    global-memory kernel (each env on a group of ``cluster`` blocks, G, by
+    default its choice; launched as the resident one), which
+    ``force_global`` also picks on any other grid.  Each call records its
+    kernel (``fused_interval_cuda.last_kernel``, "cluster", "resident" or
     "global"), its blocks an env (``last_cluster``), its plan
     (``last_plan``), the instantiation's body count (``last_n_bodies``, 0:
     scalar) and the SM each block ran on (``last_block_sms``, int32, one
     per block, -1 where none ran); ``launches`` counts every launch,
     ``launches_per_body`` those of the per-body instantiation,
-    ``launches_global`` those of the global-memory kernel."""
+    ``launches_resident`` and ``launches_global`` those of the resident
+    and the global-memory kernel."""
     u, v, p = state
     dev = u.device
     if dev.type != "cuda":
@@ -534,7 +614,7 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
         cl = torch.empty_like(cd)
         block_sms = torch.empty(n * size, dtype=torch.int32, device=dev)
         ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
-                          device=dev) if plan.kernel == "global" else None)
+                          device=dev) if plan.workspace_bytes else None)
     geom_ptrs = (ctypes.c_void_p * len(geom))(*[g.data_ptr() for g in geom])
     consts = _consts(cfg)
     operands = (u.data_ptr(), v.data_ptr(), p.data_ptr(),
@@ -557,6 +637,14 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
                 ctypes.cast(starts_c, ctypes.c_void_p), rows, threads, tx,
                 smem_bytes(ny, nx, size, n_bodies),
                 ctypes.cast(consts, ctypes.c_void_p), stream)
+        elif plan.kernel == "resident":
+            rows, threads, tx, pred_threads, pred_tx = resident_launch_shape(
+                cfg, size)
+            err = lib.fused_interval_resident_launch(
+                *operands, ws.data_ptr(), n, plan.per_launch, ny, nx,
+                n_steps, iters, n_polish, size, plan.cluster, rows, threads,
+                tx, pred_tx, pred_threads, smem_bytes(ny, nx, size, n_bodies),
+                ctypes.cast(consts, ctypes.c_void_p), stream)
         else:
             threads, tx = global_shape(cfg, size)
             err = lib.fused_interval_global_launch(
@@ -567,6 +655,8 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
     check_launch(lib, err, f"fused_interval ({plan.kernel})")
     fused_interval_cuda.launches += plan.launches
     fused_interval_cuda.launches_per_body += plan.launches * bool(per_body)
+    fused_interval_cuda.launches_resident += plan.launches * (
+        plan.kernel == "resident")
     fused_interval_cuda.launches_global += plan.launches * (
         plan.kernel == "global")
     fused_interval_cuda.last_kernel = plan.kernel
@@ -585,6 +675,7 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
 
 fused_interval_cuda.launches = 0
 fused_interval_cuda.launches_per_body = 0
+fused_interval_cuda.launches_resident = 0
 fused_interval_cuda.launches_global = 0
 fused_interval_cuda.last_kernel = None
 fused_interval_cuda.last_cluster = None
@@ -604,7 +695,8 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
     ``backend="fused"`` arm of ``solver.step_interval`` (``geom_id``: each
     env's index into the bank ``geom_arrays``; ``cluster``: the kernel's
     blocks an env, None for its own choice; ``force_global``: the
-    global-memory kernel on a grid a cluster holds).  The realization
+    global-memory kernel on a grid the cluster or the resident kernel
+    holds).  The realization
     follows :func:`select_tier` for the state's device: a CUDA state
     launches a kernel or raises, it never falls back to the twin or the
     reference loop."""

@@ -24,14 +24,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 # the kernel sources, each with the headers it includes
 SOURCES = {
     "poisson_sor": ("poisson_sor.cu", "sor_slabs.cuh", "sor_packed.cuh",
-                    "grid_sync.cuh", "cluster.cuh", "common.cuh"),
+                    "resident.cuh", "grid_sync.cuh", "cluster.cuh",
+                    "common.cuh"),
     "fused_interval": ("fused_interval.cu", "sor_packed.cuh",
-                       "grid_sync.cuh", "cluster.cuh", "common.cuh"),
+                       "resident.cuh", "grid_sync.cuh", "cluster.cuh",
+                       "common.cuh"),
     "poisson_sor_full": ("poisson_sor_full.cu", "sor_slabs.cuh",
-                         "sor_packed.cuh", "grid_sync.cuh", "cluster.cuh",
-                         "common.cuh"),
+                         "sor_packed.cuh", "resident.cuh", "grid_sync.cuh",
+                         "cluster.cuh", "common.cuh"),
     "flash_attention": ("flash_attention.cu", "common.cuh"),
     "wkv6": ("wkv6.cu", "cluster.cuh", "common.cuh"),
+    # no TPU kernel: the CFD kernels' synchronisation floor (PERF.md)
+    "sync_probe": ("sync_probe.cu", "resident.cuh", "grid_sync.cuh",
+                   "cluster.cuh", "common.cuh"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")

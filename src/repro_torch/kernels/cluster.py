@@ -1,16 +1,22 @@
 """How a kernel spreads one problem over a group of blocks.
 
-Shared by the CFD kernels, each of which has two realizations: a cluster
-kernel, whose blocks each hold a band of rows of a plane in shared memory
-and exchange halo rows through distributed shared memory
-(``csrc/cluster.cuh``), and a global-memory kernel for the grids no
-cluster holds, whose group of blocks splits the rows of fields kept in a
-workspace in global memory and orders its phases by flags
-(``csrc/grid_sync.cuh``).  The kernels are the fused actuation interval
-(``kernels/actuation/ops.py``) and the two SOR slab smoothers
-(``kernels/poisson/ops.py``).  Each states its own per-block shared-memory
-and per-group workspace bytes; the partition, the block shape, the choice
-of the group size and the launch plan are the same for all.
+Shared by the CFD kernels, each of which has three realizations: a
+cluster kernel, whose blocks each hold a band of rows of a plane in shared
+memory and exchange halo rows through distributed shared memory
+(``csrc/cluster.cuh``); a resident kernel for the grids whose bands fit
+one block only over more than one cluster, a group of G = K C blocks (K
+clusters of C) holding the bands in shared memory, the halo rows through
+distributed shared memory inside a cluster and through mirror slots in
+global memory at the K - 1 cluster edges (``csrc/resident.cuh``); and a
+global-memory kernel for every other grid, whose group of blocks splits
+the rows of fields kept in a workspace in global memory and orders its
+phases by flags (``csrc/grid_sync.cuh``).  The kernels are the fused
+actuation interval (``kernels/actuation/ops.py``) and the two SOR slab
+smoothers (``kernels/poisson/ops.py``).  Each states its own per-block
+shared-memory and per-group workspace bytes; the partition, the block
+shapes, the choice of the group size and the launch plan are the same for
+all.  Which kernel serves a grid follows its shape alone; the plan within
+a kernel follows the card's occupancy.
 """
 from __future__ import annotations
 
@@ -29,6 +35,11 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 GROUP_MAX = 32
 # unsigned words between two blocks' flags (csrc/grid_sync.cuh kFlagStride)
 FLAG_STRIDE = 32
+# the resident kernels' groups, G blocks an env or (env, slab) (past the
+# cluster kernel's 16, to GROUP_MAX, in steps of 8), and their clusters, C
+# blocks each, K = G / C >= 2 a group (csrc/resident.cuh)
+RESIDENT_GROUPS = (24, 32)
+RESIDENT_CLUSTERS = (16, 8, 4, 2)
 
 
 def band_starts(ny: int, cluster: int) -> tuple:
@@ -52,6 +63,22 @@ def block_shape(w: int, rows: int) -> tuple:
     band's ``rows`` rows, at most 1024 threads."""
     tx = min(1024, 32 * -(-w // 32))
     return tx * max(1, min(rows, 1024 // tx)), tx
+
+
+def resident_shape(w: int, rows: int) -> tuple:
+    """``(threads, tx)`` of a block of a resident kernel, whose band lies
+    in shared memory: ``tx`` lanes (a multiple of 32) span a row of ``w``
+    columns and ``threads // tx`` thread rows stand side by side over the
+    band's ``rows`` rows, at most 1024 threads, so that a thread's points
+    in sequence, ``ceil(rows / thread rows) * ceil(w / tx)``, are fewest
+    (ties: the fewer threads)."""
+    best = None
+    for tx in range(32, 32 * -(-min(w, 1024) // 32) + 1, 32):
+        ty = max(1, min(rows, 1024 // tx))
+        key = (-(-rows // ty) * -(-w // tx), tx * ty)
+        if best is None or key < best[0]:
+            best = (key, tx * ty, tx)
+    return best[1], best[2]
 
 
 def fitting_clusters(ny: int, smem_of: Callable[[int], int],
@@ -117,17 +144,83 @@ def global_group(ny: int, n_groups: int, n_sm: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How a call of a CFD kernel runs: ``kernel`` "cluster" or "global";
-    ``size`` the blocks of a group (the cluster size, or G, which orders
-    the force sums as the cluster size does); ``per_launch`` groups a
-    launch, ``launches`` launches a call; ``workspace_bytes`` the
-    global-memory kernel's workspace, one launch's, reused by the next (0
-    for the cluster kernel)."""
+    """How a call of a CFD kernel runs: ``kernel`` "cluster", "resident"
+    or "global"; ``size`` the blocks of a group (the cluster size, or G,
+    which orders the force sums as the cluster size does); ``per_launch``
+    groups a launch, ``launches`` launches a call; ``workspace_bytes`` the
+    resident or global-memory kernel's workspace, one launch's, reused by
+    the next (0 for the cluster kernel); ``cluster`` the blocks of a
+    thread-block cluster (the cluster kernel's ``size``, the resident
+    kernel's C, 0 for the global-memory kernel, which has none)."""
     kernel: str
     size: int
     per_launch: int
     launches: int
     workspace_bytes: int
+    cluster: int = 0
+
+
+def resident_groups(ny: int, smem_of: Callable[[int], int],
+                    smem_per_block: int) -> list:
+    """The group sizes G of a resident kernel (:data:`RESIDENT_GROUPS`, G
+    <= ``ny``) whose largest band of ``ny`` rows fits one block:
+    ``smem_of(G)`` is the kernel's bytes per block at G (the cluster
+    kernel's at G blocks)."""
+    return [g for g in RESIDENT_GROUPS
+            if g <= ny and smem_of(g) <= smem_per_block]
+
+
+def mirror_floats(group: int, cluster: int, slots: int, width: int) -> int:
+    """Floats of one group's mirror slots in a resident kernel's workspace
+    (csrc/resident.cuh mirror_floats): K - 1 cluster edges, two directions,
+    ``slots`` slots of ``width`` floats rounded up to 32 (a row of tagged
+    words, a float and its phase each, takes two)."""
+    return (group // cluster - 1) * 2 * slots * 32 * -(-width // 32)
+
+
+def resident_plan(fits, n_groups: int, active,
+                  workspace: Callable[[int, int, int], int], what: str,
+                  size=None) -> LaunchPlan:
+    """The launches of ``n_groups`` groups of a resident kernel: ``fits``
+    the group sizes whose band fits one block (:func:`resident_groups`),
+    ``active(C, G)`` the clusters of C blocks the card holds at once at the
+    launch shape of G blocks a group, ``workspace(G, C, n)`` the workspace
+    bytes of n groups.  Every cluster of a launch is resident at once (a
+    group's K = G / C clusters wait for each other): a launch holds at most
+    ``active(C, G) // K`` groups, and groups past it run in further
+    launches of whole groups.  G (``size`` where given) and C (of
+    :data:`RESIDENT_CLUSTERS`, K >= 2) are those of the fewest launches,
+    then the largest C (fewest cluster edges; the fastest C on the card,
+    ``chip_smoke.py`` phase 1 and PERF.md §6), then the largest G (fewest
+    rows a block).  A size that does not fit, or a group the card cannot
+    hold at all, raises."""
+    if size is not None:
+        if size not in fits:
+            raise ValueError(f"{what}: a group of {size} blocks cannot hold "
+                             f"it in shared memory; resident group sizes "
+                             f"that fit: {fits}")
+        fits = [size]
+    best = None
+    for g in fits:
+        for c in RESIDENT_CLUSTERS:
+            k = g // c
+            if g % c or k < 2:
+                continue
+            per = min(n_groups, active(c, g) // k)
+            if per < 1:
+                continue
+            key = (-(-n_groups // per), -c, -g)
+            if best is None or key < best[0]:
+                best = (key, g, c, per)
+    if best is None:
+        raise ValueError(
+            f"{what}: the card holds too few clusters at once for one "
+            f"resident group of any of the sizes {fits} (clusters of "
+            + ", ".join(f"{c}: {active(c, g)} at G {g}" for g in fits
+                        for c in RESIDENT_CLUSTERS if g % c == 0
+                        and g // c >= 2) + ")")
+    (launches, _, _), g, c, per = best
+    return LaunchPlan("resident", g, per, launches, workspace(g, c, per), c)
 
 
 def global_plan(n_groups: int, size: int, resident: int,
@@ -151,17 +244,23 @@ def global_plan(n_groups: int, size: int, resident: int,
 
 def plan_groups(fits, n_groups: int, ny: int, n_sm: int, active, resident,
                 workspace: Callable[[int, int], int], what: str, size=None,
-                force_global: bool = False) -> LaunchPlan:
+                force_global: bool = False, resident_fits=(),
+                resident_active=None,
+                resident_workspace: Callable[[int, int, int], int] = None
+                ) -> LaunchPlan:
     """How a CFD kernel runs ``n_groups`` groups of ``ny`` rows on a card
     of ``n_sm`` SMs.  ``fits``: the cluster sizes whose band fits one
     block's shared memory (:func:`fitting_clusters`); where there is one
     (and not ``force_global``) the cluster kernel runs, at ``size`` or
     :func:`choose_cluster`'s choice fed ``active(c)``, the clusters of
-    ``c`` blocks the card holds at once.  Else the global-memory kernel, at
-    ``size`` or :func:`global_group`'s G, planned by :func:`global_plan`
-    from ``resident(G)``, the blocks the card holds at once at that launch
-    shape, and ``workspace(G, n)``, the bytes of n groups.  A size the
-    kernel cannot take raises."""
+    ``c`` blocks the card holds at once.  Else, where ``resident_fits``
+    holds a group size (:func:`resident_groups`), the resident kernel,
+    planned by :func:`resident_plan` from ``resident_active(C, G)`` and
+    ``resident_workspace(G, C, n)``.  Else (or with ``force_global``) the
+    global-memory kernel, at ``size`` or :func:`global_group`'s G,
+    planned by :func:`global_plan` from ``resident(G)``, the blocks the
+    card holds at once at that launch shape, and ``workspace(G, n)``, the
+    bytes of n groups.  A size the kernel cannot take raises."""
     if fits and not force_global:
         if size is None:
             size = choose_cluster(fits, n_groups, n_sm, {
@@ -173,7 +272,10 @@ def plan_groups(fits, n_groups: int, ny: int, n_sm: int, active, resident,
                              f"{fits}")
         # one launch: clusters the card cannot hold at once run in waves,
         # as no cluster waits for another
-        return LaunchPlan("cluster", size, n_groups, 1, 0)
+        return LaunchPlan("cluster", size, n_groups, 1, 0, size)
+    if resident_fits and not force_global:
+        return resident_plan(resident_fits, n_groups, resident_active,
+                             resident_workspace, what, size)
     if size is None:
         size = global_group(ny, n_groups, n_sm)
     elif not 1 <= size <= min(GROUP_MAX, ny):

@@ -85,6 +85,7 @@
 #include <type_traits>
 
 #include "grid_sync.cuh"
+#include "resident.cuh"
 #include "sor_packed.cuh"
 
 // Sum of three per-thread values over the block (blockDim.x a multiple of
@@ -689,12 +690,16 @@ struct EnvIO {
   }
 };
 
-// The inlet's volume flux, summed by every block in the same order.
+// The inlet's volume flux, summed by every block in the same order: the
+// first `nt` threads (the whole block but in the resident kernel) step
+// over the rows, the others add zeros.
 template <int NB>
 __device__ __forceinline__ float inlet_flux(const GeomOf<NB>& g, int ny,
-                                            const Consts& c, float* scratch) {
+                                            const Consts& c, float* scratch,
+                                            int nt) {
   float s_in = 0.0f, unused_b = 0.0f, unused_c = 0.0f;
-  for (int j = threadIdx.x; j < ny; j += blockDim.x) s_in += g.inlet_u[j];
+  if (static_cast<int>(threadIdx.x) < nt)
+    for (int j = threadIdx.x; j < ny; j += nt) s_in += g.inlet_u[j];
   block_sum3(s_in, unused_b, unused_c, scratch);
   return s_in * c.dy;
 }
@@ -799,7 +804,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
 
   // -- load the band with its halo rows --------------------------------
   load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows, nrows + 1);
-  const float influx = inlet_flux<NB>(g, ny, c, scratch);
+  const float influx = inlet_flux<NB>(g, ny, c, scratch, blockDim.x);
   // every block of the cluster has started, holds its band and has its
   // mbarriers set before any block stores into another's shared memory
   cluster_barrier();
@@ -973,7 +978,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
   // -- load the band's own rows, and the wall ghost rows at its ends -----
   load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, b.first ? -1 : 0,
             b.nrows - 1 + (b.last ? 1 : 0), b.nrows - 1 + (b.last ? 2 : 0));
-  const float influx = inlet_flux<NB>(g, ny, c, scratch);
+  const float influx = inlet_flux<NB>(g, ny, c, scratch, blockDim.x);
   unsigned gen = 0;
   group_barrier(flags, rank, G, gen);  // every row loaded
 
@@ -1014,6 +1019,246 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
     wait_neighbours(flags, rank, G, gen);
     correct(b, h, c, l, ny, nx);
     group_barrier(flags, rank, G, gen);  // u, v and their ghost rows
+  }
+
+  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
+}
+
+// -- the resident kernel: bands in shared memory over several clusters ----
+//
+// One group of G = K C blocks per env, K >= 2 clusters of C blocks (G 24
+// or 32, C 16, 8, 4 or 2, chosen by the wrapper for the fewest launches,
+// then the largest C: kernels/cluster.py resident_plan), for
+// the grids whose band fits one block at some G <= kMaxGroup but at no
+// cluster of up to 16 blocks (res 39 to 52 at the default aspect).  Rank r
+// of the group holds rows [r ny / G, (r + 1) ny / G) of every field in its
+// shared memory, in the cluster kernel's band layout, for the whole
+// interval, and runs the cluster kernel's phases on it.  Inside a cluster
+// the halo rows travel as in fused_interval_kernel; at a cluster edge
+// (resident.cuh) the v_pen row after the predictor and the u and v rows
+// after the correction go to the edge's mirror slots through the same
+// Mirror pointers the DSMEM rows take (global ones there), and the SOR
+// edge rows are sent as tagged words after each half-sweep and received
+// before the next one that reads them.  The group barrier after the
+// predictor and after the correction is a cluster barrier, then one flag
+// a cluster.  The partial sums go to the workspace and every block adds
+// the G of them in the global-memory kernel's order; each block sums its
+// own partials in the global-memory kernel's thread layout (`pred_tx`
+// lanes a row, `pred_threads` threads; the other phases take the block's
+// thread rows side by side, `tx_dim` lanes a row), and each point's
+// arithmetic is the cluster kernel's, so the resident kernel at G gives
+// the bits of fused_interval_global_kernel at G.  The workspace holds only
+// the partial sums, the flags and the mirror slots.
+template <int NB>
+__global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
+    const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ p_in, GeomOf<NB> g,
+    const float* __restrict__ jet_vel, const float* __restrict__ re_arr,
+    const float* __restrict__ mode_arr, float* __restrict__ u_out,
+    float* __restrict__ v_out, float* __restrict__ p_out,
+    float* __restrict__ cd_out, float* __restrict__ cl_out,
+    int* __restrict__ block_sm, float* ws, int env0, int n_env, int ny,
+    int nx, int n_steps, int iters, int n_polish, int rows_max, int tx_dim,
+    int pred_tx, int pred_threads, Consts c) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int G = static_cast<int>(gridDim.x) / n_env;
+  const int K = G / C;
+  const int local = blockIdx.x / G;  // the env within this launch
+  const int rank = blockIdx.x - local * G;
+  const int env = env0 + local;
+  const int tid = threadIdx.x;
+  Lanes l;
+  l.TX = tx_dim;
+  l.TY = blockDim.x / l.TX;
+  l.ty = tid / l.TX;
+  l.tx = tid - l.ty * l.TX;
+  // the predictor's layout, the global-memory kernel's: threads past it
+  // stand on rows past every band and add zeros to the partial sums
+  Lanes lp;
+  lp.TX = pred_tx;
+  lp.TY = pred_threads / pred_tx;
+  lp.ty = tid < pred_threads ? tid / lp.TX : rows_max + 2;
+  lp.tx = tid < pred_threads ? tid - lp.ty * lp.TX : 0;
+  const int lane = tid & 31;
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
+
+  const int w = nx / 2;
+  const int nxu = nx + 1;
+  const int R = rows_max;
+  Band b;
+  b.j0 = band_start(rank, ny, G);
+  b.nrows = band_start(rank + 1, ny, G) - b.j0;
+  b.first = rank == 0;
+  b.last = rank == G - 1;
+  b.nv_rows = b.nrows + (b.last ? 1 : 0);
+  const int nrows = b.nrows;
+
+  // shared memory: the cluster kernel's layout (ops.smem_bytes)
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem);
+  b.u = smem + 4;
+  b.v = b.u + (R + 2) * nxu;
+  b.us = b.v + (R + 3) * nx;
+  b.vs = b.us + R * nx;
+  b.red = b.vs + (R + 1) * nx;
+  b.black = b.red + (R + 2) * w;
+  b.rhs_r = b.black + (R + 2) * w;
+  b.rhs_b = b.rhs_r + R * w;
+  float* scratch = b.rhs_b + R * w + kPartSlots<NB>;
+
+  // the workspace: every env's partial sums, then the flags, then the
+  // mirror slots (ops.workspace_bytes)
+  float* parts = ws;
+  unsigned* all_flags = reinterpret_cast<unsigned*>(
+      parts + static_cast<size_t>(n_env) * G * kPartSlots<NB>);
+  unsigned* flags = all_flags + static_cast<size_t>(local) * G * kFlagStride;
+  float* mirrors = reinterpret_cast<float*>(
+      all_flags + static_cast<size_t>(n_env) * G * kFlagStride) +
+      local * mirror_floats(K, kFusedEdgeSlots, nxu);
+  const Edge e = cluster_edge(mirrors, rank, C, K, kFusedEdgeSlots, nxu);
+  float* part = parts + (static_cast<size_t>(local) * G + rank) * kPartSlots<NB>;
+  const float* part_of_lane =
+      parts + (static_cast<size_t>(local) * G + (lane < G ? lane : 0)) *
+                  kPartSlots<NB>;
+
+  // the neighbours' halo rows: DSMEM inside the cluster, the edge's mirror
+  // slots across it (nullptr at the domain's walls)
+  const bool prev_in = !b.first && crank > 0, next_in = !b.last && crank < C - 1;
+  const int nrows_prev = b.first ? 0 : b.j0 - band_start(rank - 1, ny, G);
+  Mirror h{nullptr, nullptr, nullptr, nullptr, nullptr};
+  Link red_link{0u, 0u, 0u, 0u}, black_link{0u, 0u, 0u, 0u};
+  if (prev_in) {
+    h.u_prev = cluster.map_shared_rank(b.u, crank - 1) + (nrows_prev + 1) * nxu;
+    h.v_prev = cluster.map_shared_rank(b.v, crank - 1) + (nrows_prev + 1) * nx;
+    h.vs_prev = cluster.map_shared_rank(b.vs, crank - 1) + nrows_prev * nx;
+    red_link.prev = cluster_addr(b.red + (nrows_prev + 1) * w, crank - 1);
+    red_link.prev_bar = cluster_addr(&mbar[0], crank - 1);
+    black_link.prev = cluster_addr(b.black + (nrows_prev + 1) * w, crank - 1);
+    black_link.prev_bar = cluster_addr(&mbar[1], crank - 1);
+  } else if (e.above) {
+    h.u_prev = e.send_plain(kEdgeU);
+    h.v_prev = e.send_plain(kEdgeV);
+    h.vs_prev = e.send_plain(kEdgeVs);
+  }
+  if (next_in) {
+    h.u_next = cluster.map_shared_rank(b.u, crank + 1);
+    h.v_next = cluster.map_shared_rank(b.v, crank + 1);
+    red_link.next = cluster_addr(b.red, crank + 1);
+    red_link.next_bar = cluster_addr(&mbar[0], crank + 1);
+    black_link.next = cluster_addr(b.black, crank + 1);
+    black_link.next_bar = cluster_addr(&mbar[1], crank + 1);
+  } else if (e.rank >= 0) {
+    h.u_next = e.send_plain(kEdgeU);
+    h.v_next = e.send_plain(kEdgeV);
+  }
+  // a cross-cluster edge's rows of each plane: this block's edge row and
+  // its halo row on that side (stored rows)
+  const bool cross = e.rank >= 0;
+  const int edge_row = e.above ? 1 : nrows;
+  const int halo_row = e.above ? 0 : nrows + 1;
+  // halo bytes a colour's phase waits for: a row from each neighbour in
+  // this cluster
+  const int halo_bytes = 4 * w * ((prev_in ? 1 : 0) + (next_in ? 1 : 0));
+  unsigned red_parity = 0, black_parity = 0;
+  if (tid == 0) {
+    mbar_init(&mbar[0]);
+    mbar_init(&mbar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&mbar[0], halo_bytes);
+    mbar_expect(&mbar[1], halo_bytes);
+  }
+
+  const size_t nu = static_cast<size_t>(ny) * nxu;
+  const size_t nv = static_cast<size_t>(ny + 1) * nx;
+  env_geometry<NB>(g, env, nu, nv, ny);
+  const EnvIO<NB> io(u_in, v_in, p_in, u_out, v_out, p_out, cd_out, cl_out,
+                     env, ny, nx, n_steps);
+  const Actuation<NB> act = env_actuation<NB>(jet_vel, re_arr, mode_arr, env);
+  const int n_sor = iters - n_polish;
+
+  // -- load the band with its halo rows --------------------------------
+  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows, nrows + 1);
+  const float influx = inlet_flux<NB>(g, ny, c, scratch, pred_threads);
+  // every block of the cluster has started, holds its band and has its
+  // mbarriers set before any block stores into another's shared memory
+  cluster_barrier();
+  unsigned gen = 0;
+
+  for (int t = 0; t < n_steps; ++t) {
+    Sums<NB> s;
+    predictor<NB>(b, h, g, act, c, lp, ny, nx, s);
+    publish_partials<NB>(s, part, scratch);
+    resident_barrier(flags, rank, C, K, ++gen);  // partials, u_pen, v_pen
+    if (cross && !e.above) {  // v_pen's halo row below, from the mirror
+      fetch_row(b.vs + nrows * nx, e.recv_plain(kEdgeVs), nx);
+      __syncthreads();
+    }
+
+    gather_sums<NB>(part_of_lane, G, lane, s);
+    const float corr = (influx - s.out * c.dy) / c.ny_dy;
+    if (b.first && tid == 0)
+      write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
+
+    divergence_rhs(b, corr, c, l, nx);
+    __syncthreads();
+
+    // -- D: as the cluster kernel's, each half-sweep at a cross-cluster
+    //    edge first receiving the other colour's row of the half-sweep
+    //    before and then sending its own edge row ---------------------
+    for (int it = 0; it < iters; ++it) {
+      const bool sor = it < n_sor;
+      const float om = sor ? c.omega : 1.0f;
+      const float one_m_om = sor ? c.one_m_omega : 0.0f;
+      const int par = it & 1;
+      const bool wait_black = it > 0;
+      if (cross && wait_black)
+        receive_tagged(e.recv_sor(kBlack0 + 1 - par), b.black + halo_row * w,
+                       w, gen);
+      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
+                             red_link, wait_black ? &mbar[1] : nullptr,
+                             black_parity, nrows, b.j0, ny, w, 1, l.tx, l.ty,
+                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
+                             one_m_om);
+      if (wait_black) {
+        black_parity ^= 1u;
+        if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
+      }
+      ++gen;
+      if (cross) {
+        send_tagged(e.send_sor(kRed0 + par), b.red + edge_row * w, w, gen);
+        receive_tagged(e.recv_sor(kRed0 + par), b.red + halo_row * w, w, gen);
+      }
+      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
+                             black_link, &mbar[0], red_parity, nrows, b.j0,
+                             ny, w, 0, l.tx, l.ty, l.TX, l.TY, c.inv_dx2,
+                             c.inv_dy2, c.inv_diag, om, one_m_om);
+      red_parity ^= 1u;
+      if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
+      ++gen;
+      if (cross)
+        send_tagged(e.send_sor(kBlack0 + par), b.black + edge_row * w, w, gen);
+    }
+    // E reads the black halo rows of the last half-sweep
+    const bool wait_last = iters > 0;
+    if (wait_last) {
+      mbar_wait(&mbar[1], black_parity);
+      black_parity ^= 1u;
+      if (cross)
+        receive_tagged(e.recv_sor(kBlack0 + ((iters - 1) & 1)),
+                       b.black + halo_row * w, w, gen);
+    }
+
+    // -- E -------------------------------------------------------------
+    correct(b, h, c, l, ny, nx);
+    resident_barrier(flags, rank, C, K, ++gen);  // u, v, their halo rows
+    if (wait_last && tid == 0) mbar_expect(&mbar[1], halo_bytes);
+    if (cross) {  // u and v's halo rows on the edge's side, from the mirror
+      fetch_row(b.u + halo_row * nxu, e.recv_plain(kEdgeU), nxu);
+      fetch_row(b.v + halo_row * nx, e.recv_plain(kEdgeV), nx);
+      __syncthreads();
+    }
   }
 
   write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
@@ -1231,4 +1476,110 @@ extern "C" int fused_interval_global_launch(
       g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd, cl,
       block_sm, ws, n_env, per_launch, ny, nx, n_steps, iters, n_polish,
       group, threads, tx_dim, c, st));
+}
+
+// -- the resident kernel's exports ------------------------------------------
+
+// How many clusters of `cluster` blocks (`threads` threads, `smem` bytes of
+// dynamic shared memory each) of the resident kernel the card holds at
+// once, into *out, for the scalar and the per-body instantiation.
+// Returns the CUDA error code (0 = success).
+extern "C" int fused_interval_resident_max_clusters(int cluster, int threads,
+                                                    int smem, int* out) {
+  return static_cast<int>(max_active_clusters(
+      fused_interval_resident_kernel<0>, cluster, threads, smem, out));
+}
+
+extern "C" int fused_interval_bodies_resident_max_clusters(int cluster,
+                                                           int threads,
+                                                           int smem,
+                                                           int* out) {
+  return static_cast<int>(max_active_clusters(
+      fused_interval_resident_kernel<kBodies>, cluster, threads, smem, out));
+}
+
+template <int NB>
+static cudaError_t launch_resident(
+    const GeomOf<NB>& g, const float* u_in, const float* v_in,
+    const float* p_in, const float* jet_vel, const float* re,
+    const float* act_mode, float* u_out, float* v_out, float* p_out,
+    float* cd, float* cl, int* block_sm, float* ws, int n_env,
+    int per_launch, int ny, int nx, int n_steps, int iters, int n_polish,
+    int group, int cluster, int rows_max, int threads, int tx_dim,
+    int pred_tx, int pred_threads, int smem, const Consts& c,
+    cudaStream_t stream) {
+  cudaError_t err =
+      set_cluster_attributes(fused_interval_resident_kernel<NB>, smem);
+  if (err != cudaSuccess) return err;
+  // -1 where no block wrote its SM: the record counts the blocks that ran
+  err = cudaMemsetAsync(
+      block_sm, 0xff, sizeof(int) * static_cast<size_t>(n_env) * group,
+      stream);
+  if (err != cudaSuccess) return err;
+  for (int e0 = 0; e0 < n_env; e0 += per_launch) {
+    const int n = n_env - e0 < per_launch ? n_env - e0 : per_launch;
+    // the launch's flags and mirror slots, after its envs' partial sums,
+    // zeroed: a phase counts from 1
+    err = cudaMemsetAsync(
+        ws + static_cast<size_t>(n) * group * kPartSlots<NB>, 0,
+        sizeof(float) * n *
+            (group * kFlagStride +
+             mirror_floats(group / cluster, kFusedEdgeSlots, nx + 1)),
+        stream);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[2];
+    fill_resident_config(cfg, attr, n * (group / cluster), cluster, threads,
+                         smem, stream);
+    err = cudaLaunchKernelEx(&cfg, fused_interval_resident_kernel<NB>, u_in,
+                             v_in, p_in, g, jet_vel, re, act_mode, u_out,
+                             v_out, p_out, cd, cl, block_sm + e0 * group, ws,
+                             e0, n, ny, nx, n_steps, iters, n_polish,
+                             rows_max, tx_dim, pred_tx, pred_threads, c);
+    if (err != cudaSuccess) return err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The operands as fused_interval_global_launch takes them; ws: the
+// workspace of `per_launch` envs (ops.workspace_bytes: partial sums, flags,
+// mirror slots), reused by each launch; n_env envs in ceil(n_env /
+// per_launch) launches of per_launch groups of `group` blocks (<=
+// kMaxGroup, <= ny), each group group / cluster clusters of `cluster`
+// blocks (2 <= cluster <= kMaxCluster), of `threads` = tx_dim x (threads /
+// tx_dim) threads (the predictor's first pred_threads = pred_tx x
+// (pred_threads / pred_tx), the global-memory kernel's layout: threads >=
+// pred_threads) and `smem` bytes of dynamic shared memory (ops.smem_bytes
+// at `group`, whose largest band has rows_max rows).  Launch on `stream`;
+// returns the CUDA error code (0 = launched).
+extern "C" int fused_interval_resident_launch(
+    const float* u_in, const float* v_in, const float* p_in,
+    const void* const* geom, const int* geom_id, int n_bodies,
+    const float* jet_vel, const float* re, const float* act_mode,
+    float* u_out, float* v_out, float* p_out, float* cd, float* cl,
+    int* block_sm, float* ws, int n_env, int per_launch, int ny, int nx,
+    int n_steps, int iters, int n_polish, int group, int cluster,
+    int rows_max, int threads, int tx_dim, int pred_tx, int pred_threads,
+    int smem, const float* consts, void* stream) {
+  if (group < 1 || group > kMaxGroup || group > ny || cluster < 2 ||
+      pred_threads > threads || pred_threads % pred_tx ||
+      cluster > kMaxCluster || group % cluster || per_launch < 1 ||
+      (n_bodies != 0 && n_bodies != kBodies))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GeomBank g = unpack_geometry(geom, geom_id, n_bodies);
+  const Consts c = unpack_consts(consts);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_bodies == 0)
+    return static_cast<int>(launch_resident<0>(
+        g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd,
+        cl, block_sm, ws, n_env, per_launch, ny, nx, n_steps, iters,
+        n_polish, group, cluster, rows_max, threads, tx_dim, pred_tx,
+        pred_threads, smem, c, st));
+  return static_cast<int>(launch_resident<kBodies>(
+      g, u_in, v_in, p_in, jet_vel, re, act_mode, u_out, v_out, p_out, cd, cl,
+      block_sm, ws, n_env, per_launch, ny, nx, n_steps, iters, n_polish,
+      group, cluster, rows_max, threads, tx_dim, pred_tx, pred_threads, smem,
+      c, st));
 }

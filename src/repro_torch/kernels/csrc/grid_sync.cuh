@@ -15,6 +15,8 @@
 // every block.  The flags are zeroed before each launch, and every block of
 // a group must be resident at once: the wrappers launch cooperatively and
 // never more groups than the card holds (kernels/cluster.py global_plan).
+// The resident kernels (resident.cuh) use these flags at their group
+// barriers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,6 +76,29 @@ __device__ __forceinline__ void wait_ranks(const unsigned* flags, int lo,
              0xffffffffu, !mine || ld_acquire(flags + r * kFlagStride) >= gen);
          ++polls) {
       if (polls % 1024 == 0) {  // the timer is read now and then
+        const unsigned long long now = global_ns();
+        if (polls == 0) start = now;
+        else if (now - start > kWaitBudgetNs) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Wait until the n <= 32 blocks of ranks first, first + step, ... have
+// passed phase `gen` (the resident kernels' first block of each cluster).
+__device__ __forceinline__ void wait_strided(const unsigned* flags,
+                                             int first, int step, int n,
+                                             unsigned gen) {
+  if (threadIdx.x < 32) {
+    const int lane = static_cast<int>(threadIdx.x);
+    const unsigned* flag = flags + (first + lane * step) * kFlagStride;
+    unsigned long long start = 0;
+    for (unsigned polls = 0;
+         !__all_sync(0xffffffffu, lane >= n || ld_acquire(flag) >= gen);
+         ++polls) {
+      if (polls % 1024 == 0) {
         const unsigned long long now = global_ns();
         if (polls == 0) start = now;
         else if (now - start > kWaitBudgetNs) __trap();

@@ -41,6 +41,16 @@ __global__ void __launch_bounds__(1024, 1) rb_sor_packed_global_kernel(
                    om, one_m_om);
 }
 
+__global__ void __launch_bounds__(1024, 1) rb_sor_packed_resident_kernel(
+    PackedPlanes io, int* __restrict__ block_sm, float* ws, int group0,
+    int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
+    int rows_max, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om) {
+  sor_slabs_resident(io, block_sm, ws, group0, n_groups, ny, w, nslabs,
+                     inner_iters, rounds, rows_max, tx_dim, inv_dx2, inv_dy2,
+                     inv_diag, om, one_m_om);
+}
+
 // How many blocks of `threads` threads of the global-memory kernel one SM
 // holds at once, into *out.  Returns the CUDA error code (0 = success).
 extern "C" int rb_sor_packed_global_blocks_per_sm(int threads, int* out) {
@@ -92,4 +102,32 @@ extern "C" int rb_sor_slabs_packed_global_launch(
                                  rounds, group, per_launch, threads, tx_dim,
                                  inv_dx2, inv_dy2, inv_diag, om, one_m_om,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
+// of dynamic shared memory each) of the resident kernel the card holds at
+// once, into *out.  Returns the CUDA error code (0 = success).
+extern "C" int rb_sor_packed_resident_max_clusters(int cluster, int threads,
+                                                int smem, int* out) {
+  return static_cast<int>(max_active_clusters(
+      rb_sor_packed_resident_kernel, cluster, threads, smem, out));
+}
+
+// The operands as the cluster launch takes them; the resident kernel
+// launched as sor_slabs.cuh launch_sor_slabs_resident says (ws: the
+// workspace of per_launch groups).  Launch on `stream`; returns the CUDA
+// error code (0 = launched).
+extern "C" int rb_sor_slabs_packed_resident_launch(
+    const float* red, const float* black, const float* rhs_r,
+    const float* rhs_b, float* red_out, float* black_out, int* block_sm,
+    float* ws, int n_env, int ny, int w, int nslabs, int inner_iters,
+    int rounds, int group, int cluster, int per_launch, int rows_max,
+    int threads, int tx_dim, int smem, float inv_dx2,
+    float inv_dy2, float inv_diag, float om, float one_m_om, void* stream) {
+  const PackedPlanes io{red, black, rhs_r, rhs_b, red_out, black_out, w};
+  return launch_sor_slabs_resident(
+      rb_sor_packed_resident_kernel, io, block_sm, ws, n_env, ny, w, nslabs,
+      inner_iters, rounds, group, cluster, per_launch, rows_max, threads,
+      tx_dim, smem, inv_dx2, inv_dy2, inv_diag, om, one_m_om,
+      static_cast<cudaStream_t>(stream));
 }

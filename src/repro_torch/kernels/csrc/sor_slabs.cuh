@@ -34,15 +34,19 @@
 //   * 2-D loops (rows by thread row, columns by lane: no index division)
 //     and multiplications by float32 reciprocals of dx^2 and dy^2.
 //   * A slab no 16-block cluster holds in shared memory goes to the
-//     global-memory kernel (sor_slabs_global below): a group of blocks per
-//     (env, slab) on its planes in a workspace in global memory, the same
-//     half-sweep on a band view, ordered by flags (grid_sync.cuh).
+//     resident kernel (sor_slabs_resident below) where a group of up to
+//     32 blocks in several clusters holds it, its bands in shared memory
+//     and only the rows at cluster edges through global memory; past that
+//     to the global-memory kernel (sor_slabs_global): a group of blocks
+//     per (env, slab) on its planes in a workspace in global memory, the
+//     same half-sweep on a band view, ordered by flags (grid_sync.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "grid_sync.cuh"
+#include "resident.cuh"
 #include "sor_packed.cuh"
 
 // Packed planes (n_env, ny, w), one array per colour and field.  `row` is
@@ -406,6 +410,155 @@ __device__ __forceinline__ void sor_slabs_global(
   store_slab_rows(io, b, base, c0, bxp, tx, ty, TX, TY);
 }
 
+// -- the resident slab kernel: bands in shared memory over several clusters
+//
+// One group of G = K C blocks per (env, slab), K >= 2 clusters of C blocks
+// (G 24 or 32, C 16, 8, 4 or 2, chosen by the wrapper,
+// kernels/cluster.py resident_plan), for the slabs whose band fits one block at some G <=
+// kMaxGroup but at no cluster of up to 16 blocks.  Rank r holds rows [r ny
+// / G, (r + 1) ny / G) of the slab's planes in shared memory, in the
+// cluster kernel's layout, for every round; inside a cluster the halo rows
+// travel as in sor_slabs_cluster, and at a cluster edge through the edge's
+// tagged mirror slots (resident.cuh): each half-sweep at an edge block
+// first receives the other colour's row of the half-sweep before, then
+// sends its own edge row.  The ghost columns and rounds are sor_slabs_global's
+// and each point's arithmetic the cluster kernel's, so the resident kernel
+// at G gives the bits of sor_slabs_global at G.  The workspace holds only
+// the mirror slots.
+
+// The kernel body: `rounds` rounds of the (env, slab) of this block's
+// group; this launch's groups are group0 .. group0 + gridDim.x / G - 1.
+template <class IO>
+__device__ __forceinline__ void sor_slabs_resident(
+    const IO& io, int* __restrict__ block_sm, float* ws, int group0,
+    int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
+    int rows_max, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int G = static_cast<int>(gridDim.x) / n_groups;
+  const int K = G / C;
+  const int local = blockIdx.x / G;
+  const int rank = blockIdx.x - local * G;
+  const int group = group0 + local;  // (env, slab), slabs fastest
+  const int env = group / nslabs;
+  const int s = group - env * nslabs;
+  const int tid = threadIdx.x;
+  const int TX = tx_dim;
+  const int TY = blockDim.x / TX;
+  const int ty = tid / TX;
+  const int tx = tid - ty * TX;
+  if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
+
+  const int bxp = w / nslabs;
+  const int c0 = s * bxp;
+  const int R = rows_max;
+  SlabBand b;
+  b.j0 = band_start(rank, ny, G);
+  b.nrows = band_start(rank + 1, ny, G) - b.j0;
+  const int j0 = b.j0, nrows = b.nrows;
+  const bool first = rank == 0, last = rank == G - 1;
+
+  // shared memory: the cluster kernel's layout (ops.smem_bytes)
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem);
+  b.red = smem + 4;
+  b.black = b.red + (R + 2) * bxp;
+  b.rhs_r = b.black + (R + 2) * bxp;
+  b.rhs_b = b.rhs_r + R * bxp;
+  b.r_lg = b.rhs_b + R * bxp;
+  b.r_rg = b.r_lg + R;
+  b.b_lg = b.r_rg + R;
+  b.b_rg = b.b_lg + R;
+
+  // the workspace: every group's mirror slots (ops.workspace_bytes)
+  float* mirrors = ws + local * mirror_floats(K, kSorEdgeSlots, bxp);
+  const Edge e = cluster_edge(mirrors, rank, C, K, kSorEdgeSlots, bxp);
+  const bool cross = e.rank >= 0;
+  const int edge_row = e.above ? 1 : nrows;  // stored rows
+  const int halo_row = e.above ? 0 : nrows + 1;
+
+  const bool prev_in = !first && crank > 0, next_in = !last && crank < C - 1;
+  const int nrows_prev = first ? 0 : j0 - band_start(rank - 1, ny, G);
+  Link red_link{0u, 0u, 0u, 0u}, black_link{0u, 0u, 0u, 0u};
+  if (prev_in) {
+    red_link.prev = cluster_addr(b.red + (nrows_prev + 1) * bxp, crank - 1);
+    red_link.prev_bar = cluster_addr(&mbar[0], crank - 1);
+    black_link.prev = cluster_addr(b.black + (nrows_prev + 1) * bxp,
+                                   crank - 1);
+    black_link.prev_bar = cluster_addr(&mbar[1], crank - 1);
+  }
+  if (next_in) {
+    red_link.next = cluster_addr(b.red, crank + 1);
+    red_link.next_bar = cluster_addr(&mbar[0], crank + 1);
+    black_link.next = cluster_addr(b.black, crank + 1);
+    black_link.next_bar = cluster_addr(&mbar[1], crank + 1);
+  }
+  // halo bytes a colour's phase waits for: a row from each neighbour in
+  // this cluster
+  const int halo_bytes = 4 * bxp * ((prev_in ? 1 : 0) + (next_in ? 1 : 0));
+  unsigned red_parity = 0, black_parity = 0;
+  if (tid == 0) {
+    mbar_init(&mbar[0]);
+    mbar_init(&mbar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&mbar[0], halo_bytes);
+    mbar_expect(&mbar[1], halo_bytes);
+  }
+
+  const size_t base = static_cast<size_t>(env) * ny;  // the env's row 0
+  load_slab_rows(io, b, base, c0, ny, bxp, -1, nrows, tx, ty, TX, TY);
+  // every block of the cluster has started, holds its band and has its
+  // mbarriers set before any block stores into another's shared memory
+  cluster_barrier();
+  unsigned gen = 0;
+
+  for (int round = 0; round < rounds; ++round) {
+    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
+    for (int it = 0; it < inner_iters; ++it) {
+      const int par = (round * inner_iters + it) & 1;
+      const bool wait_black = round > 0 || it > 0;
+      if (cross && wait_black)
+        receive_tagged(e.recv_sor(kBlack0 + 1 - par),
+                       b.black + halo_row * bxp, bxp, gen);
+      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg,
+                            red_link, wait_black ? &mbar[1] : nullptr,
+                            black_parity, nrows, j0, ny, bxp, 1, tx, ty, TX,
+                            TY, inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+      if (wait_black) {
+        black_parity ^= 1u;
+        if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
+      }
+      ++gen;
+      if (cross) {
+        send_tagged(e.send_sor(kRed0 + par), b.red + edge_row * bxp, bxp,
+                    gen);
+        receive_tagged(e.recv_sor(kRed0 + par), b.red + halo_row * bxp, bxp,
+                       gen);
+      }
+      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg,
+                            black_link, &mbar[0], red_parity, nrows, j0, ny,
+                            bxp, 0, tx, ty, TX, TY, inv_dx2, inv_dy2,
+                            inv_diag, om, one_m_om);
+      red_parity ^= 1u;
+      if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
+      ++gen;
+      if (cross)
+        send_tagged(e.send_sor(kBlack0 + par), b.black + edge_row * bxp, bxp,
+                    gen);
+    }
+  }
+  // the last black edge rows the neighbours in this cluster sent are the
+  // last stores into this block: wait for them before the block may exit
+  if (rounds * inner_iters > 0) mbar_wait(&mbar[1], black_parity);
+
+  store_slab_rows(io, b, base, c0, bxp, tx, ty, TX, TY);
+  // no block exits while a neighbour may still address its shared memory
+  cluster_barrier();
+}
+
 // Launch `kernel` (a __global__ wrapper of sor_slabs_cluster on `io`):
 // n_env x nslabs clusters of `cluster` blocks of `threads` = tx_dim x
 // (threads / tx_dim) threads; starts: cluster + 1 row starts of the band
@@ -479,6 +632,58 @@ static int launch_sor_slabs_global(K kernel, const IO& io, int* block_sm,
     err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm + g0 * group, ws, g0,
                              n, ny, w, nslabs, inner_iters, rounds, tx_dim,
                              inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// Launch `kernel` (a __global__ wrapper of sor_slabs_resident on `io`):
+// n_env x nslabs groups of `group` blocks (<= kMaxGroup, <= ny), each
+// group / cluster clusters of `cluster` blocks (2 <= cluster <=
+// kMaxCluster), of `threads` = tx_dim x (threads / tx_dim) threads and
+// `smem` bytes of dynamic shared memory (ops.smem_bytes at `group`, whose
+// largest band has rows_max rows), in launches of at most `per_launch`
+// groups; ws: the workspace of per_launch groups (ops.workspace_bytes: the mirror
+// slots), reused by each launch; block_sm: n_env x nslabs x group
+// ints, the SM id each block ran on (-1 where none ran).  rounds > 1 needs
+// nslabs == 1.  Returns the CUDA error code (0 = launched).
+template <class K, class IO>
+static int launch_sor_slabs_resident(
+    K kernel, const IO& io, int* block_sm, float* ws, int n_env, int ny,
+    int w, int nslabs, int inner_iters, int rounds, int group, int cluster,
+    int per_launch, int rows_max, int threads, int tx_dim, int smem,
+    float inv_dx2, float inv_dy2, float inv_diag, float om, float one_m_om,
+    cudaStream_t stream) {
+  if (group < 1 || group > kMaxGroup || group > ny || cluster < 2 ||
+      cluster > kMaxCluster || group % cluster || per_launch < 1 ||
+      nslabs < 1 || w % nslabs || (rounds > 1 && nslabs != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_groups = n_env * nslabs;
+  cudaError_t err = set_cluster_attributes(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(
+      block_sm, 0xff, sizeof(int) * static_cast<size_t>(n_groups) * group,
+      stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int g0 = 0; g0 < n_groups; g0 += per_launch) {
+    const int n = n_groups - g0 < per_launch ? n_groups - g0 : per_launch;
+    // the mirror slots zeroed: a phase counts from 1
+    err = cudaMemsetAsync(
+        ws, 0,
+        sizeof(float) * n * mirror_floats(group / cluster, kSorEdgeSlots,
+                                          w / nslabs),
+        stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[2];
+    fill_resident_config(cfg, attr, n * (group / cluster), cluster, threads,
+                         smem, stream);
+    err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm + g0 * group, ws, g0,
+                             n, ny, w, nslabs, inner_iters, rounds, rows_max,
+                             tx_dim, inv_dx2, inv_dy2, inv_diag, om,
+                             one_m_om);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

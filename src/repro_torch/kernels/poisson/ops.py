@@ -15,12 +15,15 @@ twin:
   it; twin :func:`rb_sor_slabs_plain` (the reference's
   ``ref.rb_sor_slabs_ref``), one round.
 
-Each library holds two kernels (``csrc/sor_slabs.cuh``): the cluster
-kernel on every slab a 16-block cluster holds in shared memory, and past
-that the global-memory kernel, a group of G blocks per (env, slab) on
-planes kept in a workspace in global memory (:func:`slab_kernel`; the
-reference's slab count, :func:`_pick_nslabs`, stays: it sets the
-block-Jacobi numerics).  :func:`rb_sor_planes` and the drop-in
+Each library holds three kernels (``csrc/sor_slabs.cuh``): the cluster
+kernel on every slab a 16-block cluster holds in shared memory; past
+that the resident kernel, a group of G = K C blocks per (env, slab) over
+K clusters holding the slab's bands in shared memory, only the rows at
+cluster edges through global memory, on every slab whose band fits one
+block at such a G; and past that the global-memory kernel, a group of G
+blocks per (env, slab) on planes kept in a workspace in global memory
+(:func:`slab_kernel`; the reference's slab count, :func:`_pick_nslabs`,
+stays: it sets the block-Jacobi numerics).  :func:`rb_sor_planes` and the drop-in
 :func:`rb_sor` run ``ceil(iters / inner_iters)`` rounds and no polish, the
 reference's semantics.
 """
@@ -35,7 +38,7 @@ from repro_torch.cfd.poisson import (pack_checkerboard, packed_ghost_rows,
                                      unpack_checkerboard)
 from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
 from repro_torch.kernels import cluster as kcluster
-from repro_torch.kernels.cluster import FLAG_STRIDE, LaunchPlan
+from repro_torch.kernels.cluster import FLAG_STRIDE, LaunchPlan, mirror_floats
 
 # float32 operations of one point of one SOR half-sweep, counted from the
 # kernels' source (csrc/sor_packed.cuh)
@@ -82,12 +85,21 @@ def _fitting_clusters(ny: int, bxp: int) -> list:
         ny, lambda c: smem_bytes(ny, bxp, c), SMEM_PER_BLOCK)
 
 
+def _resident_groups(ny: int, bxp: int) -> list:
+    return kcluster.resident_groups(
+        ny, lambda g: smem_bytes(ny, bxp, g), SMEM_PER_BLOCK)
+
+
 def slab_kernel(ny: int, bxp: int) -> str:
     """Which kernel serves a ``(ny, bxp)`` slab of packed planes: "cluster"
     where a cluster of at most 16 blocks holds it, one band per block in
     shared memory (every grid up to res 70 at the default aspect and the
-    reference's slab count), "global" past that."""
-    return "cluster" if _fitting_clusters(ny, bxp) else "global"
+    reference's slab count), "resident" where a group of G = K C <= 32
+    blocks does (every grid from res 71 to 160 but 23: res 95, 97, 101,
+    ...), "global" past that."""
+    if _fitting_clusters(ny, bxp):
+        return "cluster"
+    return "resident" if _resident_groups(ny, bxp) else "global"
 
 
 def check_planes(ny: int, w: int, nslabs: int) -> int:
@@ -111,16 +123,33 @@ def workspace_bytes(ny: int, bxp: int, group: int, n_groups: int) -> int:
     return 4 * n_groups * (slab_floats(ny, bxp) + group * FLAG_STRIDE)
 
 
+# the slots of one direction of a cluster edge of the resident kernel: red
+# and black by parity, as tagged words (two slots each;
+# csrc/resident.cuh kSorEdgeSlots)
+EDGE_SLOTS = 8
+
+
+def resident_workspace_bytes(ny: int, bxp: int, group: int, cluster: int,
+                             n_groups: int) -> int:
+    """The resident kernel's workspace for ``n_groups`` (env, slab) groups
+    of ``group`` blocks in clusters of ``cluster``: each group's mirror
+    slots (rows of ``bxp`` floats as tagged words), and no flags."""
+    return 4 * n_groups * mirror_floats(group, cluster, EDGE_SLOTS, bxp)
+
+
 def plan_launch(ny: int, w: int, nslabs: int, n_env: int, n_sm: int,
-                active, resident, cluster=None,
-                force_global: bool = False) -> LaunchPlan:
+                active, resident, cluster=None, force_global: bool = False,
+                resident_active=None) -> LaunchPlan:
     """How a slab kernel runs ``n_env`` envs of ``(ny, w)`` packed planes
     in ``nslabs`` slabs on a card of ``n_sm`` SMs: ``active(c)`` clusters
-    of ``c`` blocks the card holds at once, ``resident(G)`` blocks of the
-    global-memory kernel at the launch shape of G blocks a group.  The
-    kernel is :func:`slab_kernel`'s, or the global-memory one with
-    ``force_global``; ``cluster`` fixes the blocks of a group (the cluster
-    size, or G), by default :func:`choose_cluster`'s or
+    of ``c`` blocks of the cluster kernel the card holds at once,
+    ``resident_active(C, G)`` of the resident kernel at the launch shape of
+    G blocks a group (by default ``active(C)``), ``resident(G)`` blocks of
+    the global-memory kernel at that launch shape.  The kernel is
+    :func:`slab_kernel`'s, or the global-memory one with ``force_global``;
+    ``cluster`` fixes the blocks of a group (the cluster size, or G), by
+    default :func:`choose_cluster`'s,
+    :func:`repro_torch.kernels.cluster.resident_plan`'s or
     :func:`repro_torch.kernels.cluster.global_group`'s.  A size the kernel
     cannot take, or a group the card cannot hold at once, raises."""
     bxp = check_planes(ny, w, nslabs)
@@ -128,7 +157,10 @@ def plan_launch(ny: int, w: int, nslabs: int, n_env: int, n_sm: int,
         _fitting_clusters(ny, bxp), n_env * nslabs, ny,
         n_sm, active, resident,
         lambda g, n: workspace_bytes(ny, bxp, g, n),
-        f"SOR slab kernel on ({ny}, {bxp}) slabs", cluster, force_global)
+        f"SOR slab kernel on ({ny}, {bxp}) slabs", cluster, force_global,
+        _resident_groups(ny, bxp),
+        resident_active or (lambda c, g: active(c)),
+        lambda g, c, n: resident_workspace_bytes(ny, bxp, g, c, n))
 
 
 def choose_cluster(ny: int, bxp: int, n_groups: int, n_sm: int,
@@ -172,19 +204,24 @@ def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
 
 # the two SOR slab libraries of csrc/sor_slabs.cuh, by the layout of their
 # operands: the library, the cluster kernel's launch export and occupancy
-# query, the global-memory kernel's
+# query, the global-memory kernel's, the resident kernel's
 _LIBS = {False: ("poisson_sor", "rb_sor_slabs_packed_launch",
                  "rb_sor_packed_max_clusters",
                  "rb_sor_slabs_packed_global_launch",
-                 "rb_sor_packed_global_blocks_per_sm"),
+                 "rb_sor_packed_global_blocks_per_sm",
+                 "rb_sor_slabs_packed_resident_launch",
+                 "rb_sor_packed_resident_max_clusters"),
          True: ("poisson_sor_full", "rb_sor_slabs_full_launch",
                 "rb_sor_full_max_clusters", "rb_sor_slabs_full_global_launch",
-                "rb_sor_full_global_blocks_per_sm")}
+                "rb_sor_full_global_blocks_per_sm",
+                "rb_sor_slabs_full_resident_launch",
+                "rb_sor_full_resident_max_clusters")}
 
 
 def _load(full: bool = False):
     from repro_torch.kernels import build
-    name, launch, query, global_launch, global_query = _LIBS[full]
+    (name, launch, query, global_launch, global_query, resident_launch,
+     resident_query) = _LIBS[full]
     lib = build.load(name)
     if getattr(lib, launch).argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -203,14 +240,26 @@ def _load(full: bool = False):
         getattr(lib, global_launch).restype = ctypes.c_int
         getattr(lib, global_query).argtypes = [i, ctypes.POINTER(i)]
         getattr(lib, global_query).restype = ctypes.c_int
+        # the operand pointers, block_sm and the workspace, then
+        # launch_sor_slabs_resident's
+        getattr(lib, resident_launch).argtypes = (
+            [p] * (n_ptr + 1) + [i] * 13 + [f] * 5 + [p])
+        getattr(lib, resident_launch).restype = ctypes.c_int
+        getattr(lib, resident_query).argtypes = [i, i, i,
+                                                 ctypes.POINTER(i)]
+        getattr(lib, resident_query).restype = ctypes.c_int
     return lib
 
 
-def _launch_shape(ny: int, bxp: int, cluster: int) -> tuple:
-    """(band starts, rows of the largest band, threads, lanes a row)."""
+def _launch_shape(ny: int, bxp: int, cluster: int,
+                  resident: bool = False) -> tuple:
+    """(band starts, rows of the largest band, threads, lanes a row) of
+    ``cluster`` blocks a group (``resident``: the resident kernel's block,
+    thread rows side by side over a band in shared memory)."""
     starts = kcluster.band_starts(ny, cluster)
     rows = kcluster.rows_max(starts)
-    return (starts, rows, *kcluster.block_shape(bxp, rows))
+    shape = kcluster.resident_shape if resident else kcluster.block_shape
+    return (starts, rows, *shape(bxp, rows))
 
 
 def active_clusters(dev, ny: int, bxp: int, size: int,
@@ -222,6 +271,18 @@ def active_clusters(dev, ny: int, bxp: int, size: int,
     return kcluster.active_clusters(
         _load(full), _LIBS[full][2], dev, (ny, bxp), size, threads,
         smem_bytes(ny, bxp, size))
+
+
+def resident_active_clusters(dev, ny: int, bxp: int, size: int, group: int,
+                             full: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the resident kernel (``full``:
+    the full-grid one) in clusters of ``size`` blocks at the launch shape
+    of ``group`` blocks on ``(ny, bxp)`` slabs, read once per shape and
+    card."""
+    threads = _launch_shape(ny, bxp, group, resident=True)[2]
+    return kcluster.active_clusters(
+        _load(full), _LIBS[full][6], dev, (ny, bxp, group), size, threads,
+        smem_bytes(ny, bxp, group))
 
 
 def resident_blocks(dev, ny: int, bxp: int, group: int,
@@ -237,8 +298,9 @@ def resident_blocks(dev, ny: int, bxp: int, group: int,
 def launch_plan(ny: int, w: int, nslabs: int, n_env: int, device,
                 full: bool = False, cluster=None,
                 force_global: bool = False) -> LaunchPlan:
-    """:func:`plan_launch` fed the card of ``device``: its SM count, its
-    cluster occupancy and the global-memory kernel's residency."""
+    """:func:`plan_launch` fed the card of ``device``: its SM count, the
+    cluster and resident kernels' cluster occupancy and the global-memory
+    kernel's residency."""
     bxp = check_planes(ny, w, nslabs)
     dev = torch.device(device)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -246,7 +308,8 @@ def launch_plan(ny: int, w: int, nslabs: int, n_env: int, device,
         ny, w, nslabs, n_env, n_sm,
         lambda c: active_clusters(dev, ny, bxp, c, full),
         lambda g: resident_blocks(dev, ny, bxp, g, full), cluster,
-        force_global)
+        force_global,
+        lambda c, g: resident_active_clusters(dev, ny, bxp, c, g, full))
 
 
 def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device,
@@ -254,7 +317,8 @@ def cluster_for(ny: int, w: int, nslabs: int, n_env: int, device,
     """The blocks a group :func:`rb_sor_slabs_packed_cuda` (``full``:
     :func:`rb_sor_slabs_cuda`) launches with for ``n_env`` envs of ``(ny,
     w)`` packed planes in ``nslabs`` slabs on the card of ``device``: the
-    cluster size, or G on slabs the global-memory kernel serves."""
+    cluster size, or G on slabs the resident or the global-memory kernel
+    serves."""
     return launch_plan(ny, w, nslabs, n_env, device, full).size
 
 
@@ -274,10 +338,11 @@ def _launch_config(dev, ny: int, w: int, nslabs: int, n_env: int,
         bxp = check_planes(ny, w, nslabs)
         plan = launch_plan(ny, w, nslabs, n_env, dev, full, cluster,
                            force_global)
-        starts, rows, threads, tx = _launch_shape(ny, bxp, plan.size)
+        starts, rows, threads, tx = _launch_shape(
+            ny, bxp, plan.size, resident=plan.kernel == "resident")
         _LAUNCH_CONFIGS[key] = (
             plan, (ctypes.c_int * len(starts))(*starts), rows, threads, tx,
-            smem_bytes(ny, bxp, plan.size) if plan.kernel == "cluster"
+            smem_bytes(ny, bxp, plan.size) if plan.kernel != "global"
             else 0)
     return _LAUNCH_CONFIGS[key]
 
@@ -320,7 +385,7 @@ def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
         outs = make_outs()
         block_sms = torch.empty(n_blocks, dtype=torch.int32, device=dev)
         ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
-                          device=dev) if plan.kernel == "global" else None)
+                          device=dev) if plan.workspace_bytes else None)
     _, _, inv_diag = sor_coefficients(dx, dy)
     coeffs = (1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag, omega, 1.0 - omega)
     ptrs = [t.data_ptr() for t in operands + outs] + [block_sms.data_ptr()]
@@ -333,6 +398,11 @@ def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
                 *ptrs, n, ny, width, nslabs, inner_iters, rounds, plan.size,
                 ctypes.cast(starts, ctypes.c_void_p), rows, threads, tx,
                 smem, *coeffs, stream)
+        elif plan.kernel == "resident":
+            err = getattr(lib, _LIBS[full][5])(
+                *ptrs, ws.data_ptr(), n, ny, width, nslabs, inner_iters,
+                rounds, plan.size, plan.cluster, plan.per_launch, rows,
+                threads, tx, smem, *coeffs, stream)
         else:
             err = getattr(lib, _LIBS[full][3])(
                 *ptrs, ws.data_ptr(), n, ny, width, nslabs, inner_iters,
@@ -345,6 +415,7 @@ def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
 def _record(wrapper, plan: LaunchPlan, block_sms) -> None:
     """A slab wrapper's launch counters and its record of the last call."""
     wrapper.launches += plan.launches
+    wrapper.launches_resident += plan.launches * (plan.kernel == "resident")
     wrapper.launches_global += plan.launches * (plan.kernel == "global")
     wrapper.last_kernel = plan.kernel
     wrapper.last_cluster = plan.size
@@ -354,6 +425,7 @@ def _record(wrapper, plan: LaunchPlan, block_sms) -> None:
 
 def _reset_record(wrapper) -> None:
     wrapper.launches = 0
+    wrapper.launches_resident = 0
     wrapper.launches_global = 0
     wrapper.last_kernel = None
     wrapper.last_cluster = None
@@ -368,15 +440,19 @@ def rb_sor_slabs_packed_cuda(red, black, rhs_r, rhs_b, *, dx: float,
     """One call of ``csrc/poisson_sor.cu``: ``rounds`` block-Jacobi rounds
     (more than one only with one slab).  The cluster kernel on slabs a
     cluster holds (one launch, one cluster of ``cluster`` blocks per (env,
-    slab), by default :func:`launch_plan`'s choice), else the global-memory
-    kernel (a group of ``cluster`` blocks per (env, slab), G, by default
-    its choice; one launch while the card holds every group at once),
-    which ``force_global`` also picks on slabs a cluster holds.  Each call
-    records its kernel (``.last_kernel``), its blocks a group
-    (``.last_cluster``), its plan (``.last_plan``) and the SM each block
-    ran on (``.last_block_sms``, int32, one per block, -1 where none ran);
-    ``.launches`` counts every launch, ``.launches_global`` those of the
-    global-memory kernel."""
+    slab), by default :func:`launch_plan`'s choice), else the resident
+    kernel where a group of G = K C blocks holds a slab's bands (a group of
+    ``cluster`` blocks per (env, slab), G, in K clusters of C, by default
+    its choice; one launch while the card holds every group's clusters at
+    once), else the global-memory kernel (a group of ``cluster`` blocks per
+    (env, slab), G, by default its choice; one launch while the card holds
+    every group at once), which ``force_global`` also picks on any other
+    slab.  Each call records its kernel (``.last_kernel``), its blocks a
+    group (``.last_cluster``), its plan (``.last_plan``) and the SM each
+    block ran on (``.last_block_sms``, int32, one per block, -1 where none
+    ran); ``.launches`` counts every launch, ``.launches_resident`` and
+    ``.launches_global`` those of the resident and the global-memory
+    kernel."""
     dev = red.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_packed_cuda needs CUDA tensors, got "
@@ -479,8 +555,9 @@ def check_grid(ny: int, nx: int, nslabs: int) -> int:
     ``ValueError`` unless the slabs are of even width.  The full-grid
     kernel's shared memory per block is the packed kernel's on the split
     slab, so :func:`slab_kernel` of ``(ny, bx // 2)`` routes it: the
-    cluster kernel up to res 70 at the default aspect, the global-memory
-    kernel past it."""
+    cluster kernel up to res 70 at the default aspect, past it the
+    resident kernel where its group holds the slab, else the global-memory
+    kernel."""
     return _check_full_slabs(nx, nslabs)
 
 
@@ -524,9 +601,9 @@ def rb_sor_slabs_cuda(p, rhs, *, dx: float, dy: float, omega: float,
                       cluster=None, force_global: bool = False):
     """One call of ``csrc/poisson_sor_full.cu``: ``rounds`` block-Jacobi
     rounds (more than one only with one slab), the grid's packed planes
-    served as :func:`rb_sor_slabs_packed_cuda` serves them (the cluster or
-    the global-memory kernel, ``cluster`` blocks a (grid, slab),
-    ``force_global``), and recorded alike."""
+    served as :func:`rb_sor_slabs_packed_cuda` serves them (the cluster,
+    the resident or the global-memory kernel, ``cluster`` blocks a (grid,
+    slab), ``force_global``), and recorded alike."""
     dev = p.device
     if dev.type != "cuda":
         raise ValueError(f"rb_sor_slabs_cuda needs CUDA tensors, got {dev}; "

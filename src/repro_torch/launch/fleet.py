@@ -31,7 +31,8 @@ Machine-readable lines on stdout (tests parse these):
                                  --mode bench; train health counters in
                                  --mode train)
     FLEET_TIMING process=<p> rollout_s=<s> gather_s=<s> gather_bytes=<b>
-                 fused_launches=<n> sor_launches=<n>
+                 fused_launches=<n> sor_launches=<n> fused_cluster=<c>
+                 fused_resident_launches=<n>
                                 (every runner in --mode train, and in
                                  --mode bench with REPRO_FLEET_TIMING=1;
                                  process 0's on stdout, the others' in
@@ -168,9 +169,9 @@ def _train_config(args, info):
 
 def _print_timing(info, rollout_s, gather_s, gather_bytes) -> None:
     """This runner's FLEET_TIMING line: its rollout / gather split, its
-    launches of the fused-interval and packed-SOR kernels and the fused
-    kernel's last cluster size (0s on the CPU, where their plain versions
-    run)."""
+    launches of the fused-interval and packed-SOR kernels, the fused
+    kernel's last cluster size (or G) and its launches of the resident
+    kernel (0s on the CPU, where their plain versions run)."""
     from repro_torch.kernels.actuation import ops as aops
     from repro_torch.kernels.poisson import ops as pops
     print(f"FLEET_TIMING process={info.process_id} "
@@ -178,8 +179,9 @@ def _print_timing(info, rollout_s, gather_s, gather_bytes) -> None:
           f"gather_bytes={gather_bytes} "
           f"fused_launches={aops.fused_interval_cuda.launches} "
           f"sor_launches={pops.rb_sor_slabs_packed_cuda.launches} "
-          f"fused_cluster={aops.fused_interval_cuda.last_cluster or 0}",
-          flush=True)
+          f"fused_cluster={aops.fused_interval_cuda.last_cluster or 0} "
+          f"fused_resident_launches="
+          f"{aops.fused_interval_cuda.launches_resident}", flush=True)
 
 
 def run_runner(args) -> None:

@@ -153,23 +153,26 @@ def _fused_inputs(cuda, res, n_env):
     return cfg, ga, flow, jet, mode
 
 
-def _fused_against_twin(cuda, res, n_env, n_steps, cluster=None):
-    """One kernel launch against the twin.  The kernel contracts a*b+c into
-    FMAs, multiplies by float32 reciprocals of the grid constants where the
-    twin divides, and sums forces in another order; over 50 dt x 60 SOR
-    pairs that stays below 1e-4 on u, v (O(1)), 1e-3 on p (O(5)) and 1e-3
-    on C_D and C_L."""
+def _fused_against_twin(cuda, res, n_env, n_steps, cluster=None, **kw):
+    """One kernel call against the twin (``kw``: ``force_global``).  The
+    kernel contracts a*b+c into FMAs, multiplies by float32 reciprocals of
+    the grid constants where the twin divides, and sums forces in another
+    order; over 50 dt x 60 SOR pairs that stays below 1e-4 on u, v (O(1)),
+    1e-3 on p (O(5)) and 1e-3 on C_D and C_L."""
     cfg, ga, flow, jet, mode = _fused_inputs(cuda, res, n_env)
     n0 = aops.fused_interval_cuda.launches
-    if cluster is None:
+    if cluster is None and not kw:
         a, oa = aops.fused_interval(cfg, ga, flow, jet, n_steps,
                                     act_mode=mode)
     else:
         a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, n_steps,
-                                         act_mode=mode, cluster=cluster)
-    assert aops.fused_interval_cuda.launches == n0 + 1
+                                         act_mode=mode, cluster=cluster,
+                                         **kw)
+    # one launch, or one a launch's worth of groups the card holds at once
+    assert aops.fused_interval_cuda.launches == (
+        n0 + aops.fused_interval_cuda.last_plan.launches)
     # the launch's record: its cluster size and the SM of every block
-    want = aops.cluster_for(cfg, n_env, cuda) if cluster is None else cluster
+    want = cluster or aops.launch_plan(cfg, n_env, cuda, **kw).size
     assert aops.fused_interval_cuda.last_cluster == want
     sms = aops.fused_interval_cuda.last_block_sms
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -251,8 +254,8 @@ def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
 def test_only_odd_widths_raise_on_card(cuda):
     """On the card there is no fallback, and only an odd width raises: a
     res-71 solve (a (292, 781) slab, over the shared memory of a 16-block
-    cluster) runs on the packed SOR's global-memory kernel, one launch,
-    and a res-48 interval (its fields over the shared memory of a 16-block
+    cluster) runs on the packed SOR's resident kernel, one launch, and a
+    res-48 interval (its fields over the shared memory of a 16-block
     cluster) on the fused kernel's, one launch; each within its tolerance
     of the CPU's twin."""
     rhs = torch.zeros((8, 11), device=cuda)
@@ -260,21 +263,21 @@ def test_only_odd_widths_raise_on_card(cuda):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
     big = tgrid.GridConfig(res=71)
     rhs = torch.tensor(_rand((big.ny, big.nx), 9), device=cuda)
-    n0 = tops.rb_sor_slabs_packed_cuda.launches_global
+    n0 = tops.rb_sor_slabs_packed_cuda.launches_resident
     p = tpoisson.solve(rhs, big.dx, big.dy, iters=8, backend="pallas")
-    assert tops.rb_sor_slabs_packed_cuda.launches_global == n0 + 1
-    assert tops.rb_sor_slabs_packed_cuda.last_kernel == "global"
+    assert tops.rb_sor_slabs_packed_cuda.launches_resident == n0 + 1
+    assert tops.rb_sor_slabs_packed_cuda.last_kernel == "resident"
     ref = tpoisson.solve(rhs.cpu(), big.dx, big.dy, iters=8,
                          backend="pallas")
     assert max_diff(ref, p.cpu()) <= 1e-5
     cfg = tgrid.GridConfig(res=48)
     geom = tgrid.build_geometry(cfg)
-    n0 = aops.fused_interval_cuda.launches_global
+    n0 = aops.fused_interval_cuda.launches_resident
     flow, outs = tsolver.step_interval(
         cfg, tsolver.geom_to_arrays(geom, cuda),
         tsolver.init_state(cfg, geom, cuda), 0.0, 1, backend="fused")
-    assert aops.fused_interval_cuda.launches_global == n0 + 1
-    assert aops.fused_interval_cuda.last_kernel == "global"
+    assert aops.fused_interval_cuda.launches_resident == n0 + 1
+    assert aops.fused_interval_cuda.last_kernel == "resident"
     want, wouts = tsolver.step_interval(
         cfg, tsolver.geom_to_arrays(geom, "cpu"),
         tsolver.init_state(cfg, geom, "cpu"), 0.0, 1, backend="fused")
@@ -417,7 +420,8 @@ def test_scalar_kernel_over_a_bank_of_one_geometry_on_card(cuda):
 def test_per_body_calls_the_kernel_cannot_serve_raise_on_card(cuda):
     """No fallback on the card: a vector without the per-body fields and
     a scalar amplitude over a bank that mixes geometries raise and launch
-    nothing (a grid past one cluster runs on the global-memory kernel:
+    nothing (a grid past one cluster runs on the resident or the
+    global-memory kernel: test_fused_resident_kernel_matches_twin_on_card,
     test_fused_global_kernel_matches_twin_on_card)."""
     n0 = aops.fused_interval_cuda.launches
     cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 8, 4)
@@ -517,12 +521,12 @@ def test_sor_full_kernel_serves_large_grids_on_card(cuda, res):
 @pytest.mark.cuda
 def test_sor_full_kernel_serves_res_71_on_card(cuda):
     """No fallback on the card: a res-71 grid (292, 1562), whose one slab
-    no 16-block cluster holds, runs on the global-memory kernel, one launch
-    a solve, within the twin's tolerance; a cluster size that does not
-    hold a slab and several rounds over several slabs raise and launch
+    no 16-block cluster holds, runs on the resident kernel, one launch a
+    solve, within the twin's tolerance; a cluster size that does not hold a
+    slab and several rounds over several slabs raise and launch
     nothing."""
     launches, sms = _sor_full_against_twin(cuda, 71, 1, 8)
-    assert launches == 1 and tops.rb_sor_slabs_cuda.last_kernel == "global"
+    assert launches == 1 and tops.rb_sor_slabs_cuda.last_kernel == "resident"
     assert int(sms.min()) >= 0
     cfg = tgrid.GridConfig(res=18)
     z = torch.zeros((cfg.ny, cfg.nx), device=cuda)
@@ -565,15 +569,16 @@ def _bank_against_twin(cuda, res, n_env, n_steps, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("res,n_steps", [(48, 10), (96, 3)])
 def test_fused_global_kernel_matches_twin_on_card(cuda, res, n_steps):
-    """Past one cluster (res 48: ny 198, nx 1056; res 96: 394 x 2112) the
-    global-memory kernel, scalar and per-body on a mixed bank batch, 4
-    envs, one launch, every block on an SM, against the twin at the
-    cluster kernel's tolerances."""
+    """Past one cluster (res 48: ny 198, nx 1056, which the resident
+    kernel serves unless forced; res 96: 394 x 2112) the global-memory
+    kernel, scalar and per-body on a mixed bank batch, 4 envs, one launch,
+    every block on an SM, against the twin at the cluster kernel's
+    tolerances."""
     n0 = aops.fused_interval_cuda.launches_global
-    _fused_against_twin(cuda, res, 4, n_steps)
+    _fused_against_twin(cuda, res, 4, n_steps, force_global=True)
     assert aops.fused_interval_cuda.launches_global == n0 + 1
     assert aops.fused_interval_cuda.last_kernel == "global"
-    _bank_against_twin(cuda, res, 4, n_steps)
+    _bank_against_twin(cuda, res, 4, n_steps, force_global=True)
     assert aops.fused_interval_cuda.launches_global == n0 + 2
     plan = aops.fused_interval_cuda.last_plan
     assert (plan.kernel, plan.launches) == ("global", 1)
@@ -584,11 +589,13 @@ def test_fused_global_kernel_is_deterministic_on_card(cuda):
     """The partial sums added in block order on every block: two launches
     on one input agree bit for bit, scalar and per-body."""
     cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
-    runs = [aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode)
+    runs = [aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode,
+                                     force_global=True)
             for _ in range(2)]
     cfg, bank, flow, amp, mode, gid = _bank_inputs(cuda, 48, 4)
     runs += [aops.fused_interval_cuda(cfg, bank, flow, amp, 5,
-                                      act_mode=mode, geom_id=gid)
+                                      act_mode=mode, geom_id=gid,
+                                      force_global=True)
              for _ in range(2)]
     torch.cuda.synchronize()
     for (a, oa), (b, ob) in (runs[:2], runs[2:]):
@@ -602,12 +609,14 @@ def test_fused_global_env_alone_equals_batch_at_pinned_group_on_card(cuda):
     equals a 1-env launch at the same G bit for bit (a fleet's shard runs
     each env as the whole batch would)."""
     cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
-    g = aops.cluster_for(cfg, 4, cuda)
-    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode)
+    g = aops.launch_plan(cfg, 4, cuda, force_global=True).size
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode,
+                                     force_global=True)
     assert aops.fused_interval_cuda.last_cluster == g
     one = tsolver.FlowState(*(x[:1] for x in flow))
     b, ob = aops.fused_interval_cuda(cfg, ga, one, jet[:1], 5,
-                                     act_mode=mode[:1], cluster=g)
+                                     act_mode=mode[:1], cluster=g,
+                                     force_global=True)
     torch.cuda.synchronize()
     assert aops.fused_interval_cuda.last_cluster == g
     for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
@@ -645,12 +654,13 @@ def test_fused_global_kernel_runs_envs_past_residency_on_card(cuda):
     cfg, ga, flow, jet, mode = _fused_inputs(cuda, 40, n)
     n0 = aops.fused_interval_cuda.launches
     a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 2, act_mode=mode,
-                                     cluster=32)
+                                     cluster=32, force_global=True)
     plan = aops.fused_interval_cuda.last_plan
     assert plan.launches == 2 == aops.fused_interval_cuda.launches - n0
     last = tsolver.FlowState(*(x[-1:] for x in flow))
     b, ob = aops.fused_interval_cuda(cfg, ga, last, jet[-1:], 2,
-                                     act_mode=mode[-1:], cluster=32)
+                                     act_mode=mode[-1:], cluster=32,
+                                     force_global=True)
     torch.cuda.synchronize()
     for x, y in zip((*a, oa.cd), (*b, ob.cd)):
         assert torch.equal(x[-1:], y)
@@ -692,16 +702,17 @@ def _sor_pair(cuda, res, n_env, iters, full, seed=3, **kw):
 @pytest.mark.parametrize("res,n_env", [(71, 2), (98, 2)])
 def test_sor_global_kernel_matches_twin_on_card(cuda, full, res, n_env):
     """Past one cluster: res 71 (292 x 1562, one slab: one launch a solve)
-    and res 98 (402 x 2156, two slabs: one launch a round) through the
-    global-memory kernel, packed and full-grid, against the twin within
-    1e-5; two solves agree bit for bit."""
+    and res 98 (402 x 2156, two slabs: one launch a round), which the
+    resident kernel serves unless forced, through the global-memory
+    kernel, packed and full-grid, against the twin within 1e-5; two solves
+    agree bit for bit."""
     wrapper = tops.rb_sor_slabs_cuda if full else tops.rb_sor_slabs_packed_cuda
     n0 = wrapper.launches_global
-    out, want = _sor_pair(cuda, res, n_env, 50, full)
+    out, want = _sor_pair(cuda, res, n_env, 50, full, force_global=True)
     launches = wrapper.launches_global - n0
     assert wrapper.last_kernel == "global"
     assert launches == (1 if res == 71 else 13)
-    again, _ = _sor_pair(cuda, res, n_env, 50, full)
+    again, _ = _sor_pair(cuda, res, n_env, 50, full, force_global=True)
     torch.cuda.synchronize()
     err = max(max_diff(x, y) for x, y in zip(out, want))
     print(f"SOR {'full' if full else 'packed'} res {res} global "
@@ -727,6 +738,256 @@ def test_sor_global_kernel_equals_cluster_kernel_on_card(cuda, full):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
+
+
+# ---------------------------------------------------------------------------
+# the resident kernels: bands in shared memory over several clusters
+# ---------------------------------------------------------------------------
+
+def _equal(a, b):
+    """Whether two fused results (flow, outputs) or two tuples of planes
+    agree bit for bit, and their largest difference."""
+    if not isinstance(a[0], torch.Tensor):
+        a = (*a[0], a[1].cd, a[1].cl)
+        b = (*b[0], b[1].cd, b[1].cl)
+    return (all(torch.equal(x, y) for x, y in zip(a, b)),
+            max(max_diff(x, y) for x, y in zip(a, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [40, 48, 52])
+def test_fused_resident_kernel_matches_twin_on_card(cuda, res):
+    """Res 40, 48 and 52 (the first, a middle and the last grid the
+    resident kernel serves) run on it by default, scalar and per-body on
+    a mixed bank batch, 4 envs, each launch's groups no more than the card
+    holds at once, every block on an SM, against the twin at the cluster
+    kernel's tolerances."""
+    n0 = aops.fused_interval_cuda.launches_resident
+    _fused_against_twin(cuda, res, 4, 10)
+    plan = aops.fused_interval_cuda.last_plan
+    assert (plan.kernel, plan.size % plan.cluster) == ("resident", 0)
+    assert plan.cluster in (16, 8, 4, 2) and plan.size // plan.cluster >= 2
+    assert aops.fused_interval_cuda.launches_resident == n0 + plan.launches
+    _bank_against_twin(cuda, res, 4, 10)
+    assert aops.fused_interval_cuda.last_kernel == "resident"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_body", [False, True])
+def test_fused_resident_kernel_equals_global_kernel_on_card(cuda, per_body):
+    """Res 48, 4 envs, 50 dt: the resident kernel at G 32 gives the bits
+    of the global-memory kernel at G 32, scalar and per-body on the mixed
+    bank batch: each point's arithmetic and the order of the G partial
+    sums are the same."""
+    if per_body:
+        cfg, geom, flow, amp, mode, gid = _bank_inputs(cuda, 48, 4)
+        kw = dict(act_mode=mode, geom_id=gid)
+    else:
+        cfg, geom, flow, amp, mode = _fused_inputs(cuda, 48, 4)
+        kw = dict(act_mode=mode)
+    a = aops.fused_interval_cuda(cfg, geom, flow, amp, 50, **kw)
+    plan = aops.fused_interval_cuda.last_plan
+    assert (plan.kernel, plan.size) == ("resident", 32)
+    b = aops.fused_interval_cuda(cfg, geom, flow, amp, 50, cluster=32,
+                                 force_global=True, **kw)
+    assert aops.fused_interval_cuda.last_kernel == "global"
+    torch.cuda.synchronize()
+    equal, diff = _equal(a, b)
+    print(f"fused res 48 resident {plan} vs global at G 32: bit-equal "
+          f"{equal}, max diff {diff:.3e}")
+    assert equal
+
+
+@pytest.mark.cuda
+def test_fused_resident_env_alone_equals_batch_on_card(cuda):
+    """G orders the sums, whatever the clusters: env 0 of a 4-env launch
+    equals a 1-env launch at the same G bit for bit (a fleet's shard runs
+    each env as the whole batch would)."""
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
+    g = aops.cluster_for(cfg, 4, cuda)
+    a, oa = aops.fused_interval_cuda(cfg, ga, flow, jet, 5, act_mode=mode)
+    assert aops.fused_interval_cuda.last_kernel == "resident"
+    one = tsolver.FlowState(*(x[:1] for x in flow))
+    b, ob = aops.fused_interval_cuda(cfg, ga, one, jet[:1], 5,
+                                     act_mode=mode[:1], cluster=g)
+    torch.cuda.synchronize()
+    assert aops.fused_interval_cuda.last_plan.size == g
+    for x, y in zip((*a, oa.cd, oa.cl), (*b, ob.cd, ob.cl)):
+        assert torch.equal(x[:1], y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("res", [71, 98])
+def test_sor_resident_kernel_equals_global_kernel_on_card(cuda, full, res):
+    """Res 71 (one slab) and res 98 (two slabs): the resident kernel, packed
+    and full-grid, within 1e-5 of the twin and bit-equal to the
+    global-memory kernel at the same G (the same half-sweep on the same
+    rows, the same ghosts and rounds)."""
+    wrapper = tops.rb_sor_slabs_cuda if full else tops.rb_sor_slabs_packed_cuda
+    n0 = wrapper.launches_resident
+    out, want = _sor_pair(cuda, res, 4, 50, full)
+    plan = wrapper.last_plan
+    assert plan.kernel == "resident"
+    calls = 1 if res == 71 else 13
+    assert wrapper.launches_resident - n0 == calls * plan.launches
+    forced, _ = _sor_pair(cuda, res, 4, 50, full, cluster=plan.size,
+                          force_global=True)
+    assert wrapper.last_kernel == "global"
+    torch.cuda.synchronize()
+    err = max(max_diff(x, y) for x, y in zip(out, want))
+    equal, diff = _equal(out, forced)
+    print(f"SOR {'full' if full else 'packed'} res {res} resident {plan}: "
+          f"max|kernel - twin| {err:.3e}; bit-equal to global {equal} "
+          f"({diff:.3e})")
+    assert err <= 1e-5 and equal
+
+
+def _built_without_cross_cluster_wait(tmp_path, names):
+    """The libraries ``names`` built from copies of the sources whose
+    resident kernels skip the wait on the cross-cluster neighbour's row
+    (csrc/resident.cuh wait_tagged: each word taken as it stands, not
+    polled until it carries the phase), loaded."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import build
+    for src in {f for n in names for f in build.SOURCES[n]}:
+        text = (build.CSRC / src).read_text()
+        if src == "resident.cuh":
+            line = ("for (unsigned polls = 0; static_cast<unsigned>(w >> 32) "
+                    "!= gen; ++polls) {")
+            assert text.count(line) == 1
+            text = text.replace(line, "for (unsigned polls = 0; false; "
+                                      "++polls) {")
+        (tmp_path / src).write_text(text)
+    procs = {n: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+         str(tmp_path / f"lib{n}.so"), str(tmp_path / build.SOURCES[n][0])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in names}
+    libs = {}
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, out
+        lib = ctypes.CDLL(str(tmp_path / f"lib{n}.so"))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[n] = lib
+    return libs
+
+
+@pytest.mark.cuda
+def test_resident_planted_cross_cluster_fault_is_rejected_on_card(
+        cuda, tmp_path):
+    """The bit gate sees a missing cross-cluster wait: built without it,
+    the fused resident kernel at res 48 and the packed SOR's at res 71 no
+    longer give the global-memory kernel's bits (a row copied before its
+    neighbour wrote it is a half-sweep stale)."""
+    from repro_torch.kernels import build
+    wrong = _built_without_cross_cluster_wait(
+        tmp_path, ("fused_interval", "poisson_sor"))
+    cfg, ga, flow, jet, mode = _fused_inputs(cuda, 48, 4)
+    right = aops.fused_interval_cuda(cfg, ga, flow, jet, 50, act_mode=mode,
+                                     cluster=32, force_global=True)
+    planes_right, _ = _sor_pair(cuda, 71, 4, 50, False, cluster=24,
+                                force_global=True)
+    saved = dict(build._LIBS)
+    try:
+        build._LIBS.update(wrong)  # the wrappers set argtypes on first use
+        faulty = aops.fused_interval_cuda(cfg, ga, flow, jet, 50,
+                                          act_mode=mode)
+        assert aops.fused_interval_cuda.last_kernel == "resident"
+        planes_faulty, _ = _sor_pair(cuda, 71, 4, 50, False)
+        assert tops.rb_sor_slabs_packed_cuda.last_kernel == "resident"
+        torch.cuda.synchronize()
+    finally:
+        build._LIBS.clear()
+        build._LIBS.update(saved)
+    fused_equal, fused_diff = _equal(right, faulty)
+    sor_equal, sor_diff = _equal(planes_right, planes_faulty)
+    print(f"planted cross-cluster fault: fused bit-equal {fused_equal} "
+          f"({fused_diff:.3e}), SOR bit-equal {sor_equal} ({sor_diff:.3e})")
+    assert not fused_equal and not sor_equal
+
+
+@pytest.mark.cuda
+def test_train_at_res_48_runs_on_the_resident_kernel_on_card(cuda):
+    """train() at res 48 (4 envs, 1 episode of 4 actions after a 1 t.u.
+    warmup): every fused call (the warmup and each interval) on the
+    resident kernel, none on the global-memory one, rewards and params
+    finite."""
+    from repro_torch.cfd.env import EnvConfig
+    from repro_torch.drl.train import TrainConfig, train
+    w = aops.fused_interval_cuda
+    grid = tgrid.GridConfig(res=48)
+    plan = aops.launch_plan(grid, 4, cuda)
+    assert plan.kernel == "resident"
+    n0, r0, g0 = w.launches, w.launches_resident, w.launches_global
+    hist, model = train(TrainConfig(
+        env=EnvConfig(grid=grid, steps_per_action=50, actions_per_episode=4,
+                      warmup_time=1.0),
+        n_envs=4, episodes=1, seed=0, device="cuda"), log_fn=None)
+    calls = 1 + 4
+    assert w.launches_resident - r0 == calls * plan.launches
+    assert w.launches - n0 == calls * plan.launches
+    assert w.launches_global == g0
+    assert np.isfinite(hist["reward"]).all()
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+def _fleet(workdir, processes):
+    """A res-48 fleet of ``processes`` runners on the card (4 envs, 1
+    episode of 2 actions of 10 dt after a 0.1 t.u. warmup); returns its
+    stdout."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    workdir.mkdir()
+    env = {"PYTHONPATH": str(root / "src"),
+           "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": str(workdir), "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fleet", "--device",
+         "cuda", "--processes", str(processes), "--episodes", "1",
+         "--res", "48", "--dt", "0.005", "--poisson-iters", "60",
+         "--steps-per-action", "10", "--actions-per-episode", "2",
+         "--warmup", "0.1", "--workdir", str(workdir),
+         "--launch-timeout", "500"],
+        capture_output=True, text=True, env=env, timeout=600,
+        cwd=str(root))
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-3000:])
+    assert "FLEET_DONE episodes=1" in out.stdout
+    return out.stdout
+
+
+@pytest.mark.cuda
+def test_fleet_at_res_48_on_the_resident_kernel_on_card(cuda, tmp_path):
+    """Two runners sharing the card at res 48 each run their env shard on
+    the resident kernel at the whole batch's G, and the 2-process fleet's
+    final checkpoint equals the 1-process fleet's bit for bit."""
+    from repro_torch.ckpt.checkpoint import latest_checkpoint
+    from repro_torch.drl.train_state import load_train_state
+    states = {}
+    for procs in (1, 2):
+        stdout = _fleet(tmp_path / f"p{procs}", procs)
+        timing = [ln for ln in stdout.splitlines()
+                  if ln.startswith("FLEET_TIMING")][-1]
+        t = dict(kv.split("=") for kv in timing.split()[1:])
+        assert int(t["fused_resident_launches"]) > 0
+        assert int(t["fused_resident_launches"]) == int(t["fused_launches"])
+        assert int(t["fused_cluster"]) == 32
+        states[procs] = load_train_state(
+            latest_checkpoint(str(tmp_path / f"p{procs}" / "ckpt")), "cpu")
+    (ts1, meta1), (ts2, meta2) = states[1], states[2]
+    assert meta1["episode"] == meta2["episode"] == 1
+    assert meta2["plan"]["n_processes"] == 2
+    for k in ts1.params:
+        assert torch.equal(ts1.params[k], ts2.params[k]), k
+    for k in ("m", "v"):
+        for x, y in zip(ts1.opt_state[k], ts2.opt_state[k]):
+            assert torch.equal(x, y)
 
 def _decay(rng, shape):
     """RWKV-6 decays as the model makes them: exp(-exp(w0 + d)) with the

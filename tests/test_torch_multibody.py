@@ -427,8 +427,9 @@ def test_per_body_kernel_budget():
     """The per-body instantiation's shared memory: the scalar one's plus
     its 2 NB + 1 partial sums (8 slots) and their reduction slots (232),
     in place of 4 and 128; its cluster kernel serves the same grids (res
-    <= 38) on the card, its global-memory kernel the rest (8 partial-sum
-    slots a block in the workspace), and a CPU state takes the twin."""
+    <= 38) on the card, its resident kernel the same grids past it (res 39
+    to 52), its global-memory kernel the rest (8 partial-sum slots a block
+    in the workspace of either), and a CPU state takes the twin."""
     res16, res38, res48 = (tgrid.GridConfig(res=r) for r in (16, 38, 48))
     nb = tops.N_BODIES
     assert nb == tgrid.max_bodies() == 3
@@ -438,10 +439,14 @@ def test_per_body_kernel_budget():
     assert tops.select_tier(res38, "cuda", nb) == "cuda"
     assert tops.check_kernel_grid(res38, nb) == "cluster"
     assert tops.select_tier(res48, "cuda", nb) == "cuda"
-    assert tops.check_kernel_grid(res48, nb) == "global"
+    assert tops.check_kernel_grid(res48, nb) == "resident"
+    assert tops.check_kernel_grid(tgrid.GridConfig(res=53), nb) == "global"
     assert tops.part_slots() == 4 and tops.part_slots(nb) == 8
     assert (tops.workspace_bytes(res48.ny, res48.nx, 32, 1, nb)
             - tops.workspace_bytes(res48.ny, res48.nx, 32, 1)) == 4 * 32 * 4
+    assert (tops.resident_workspace_bytes(res48.ny, res48.nx, 32, 16, 1, nb)
+            - tops.resident_workspace_bytes(res48.ny, res48.nx, 32, 16, 1)
+            ) == 4 * 32 * 4
     assert tops.select_tier(res48, "cpu", nb) == "plain"
 
 

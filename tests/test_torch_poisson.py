@@ -183,7 +183,9 @@ def test_slab_kernel_smem_budget():
     cfg = GridConfig(res=too_big)
     bxp = tops.check_planes(cfg.ny, cfg.nx // 2, tops._pick_nslabs(cfg.nx))
     assert (cfg.ny, bxp) == (292, 781)
-    assert tops.slab_kernel(cfg.ny, bxp) == "global"
+    assert tops.slab_kernel(cfg.ny, bxp) == "resident"
+    assert tops.smem_bytes(cfg.ny, bxp, 24) <= SMEM_PER_BLOCK
+    assert tops.slab_kernel(390, 1045) == "global"     # res 95
     assert tops.slab_floats(292, 781) == (2 * 294 * 781 + 2 * 292 * 781
                                           + 4 * 292)
     assert tops.workspace_bytes(292, 781, 32, 2) == 4 * 2 * (

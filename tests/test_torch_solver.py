@@ -209,7 +209,8 @@ def test_select_tier_and_budget(monkeypatch):
         + 136)
     # a 16-block cluster holds res 18 and res 32 (ny 132, 9 rows a block);
     # res 48 (ny 198, 13 rows a block) is over one block's 232,448 bytes,
-    # so the global-memory kernel takes it
+    # so the resident kernel takes it (32 blocks of 7 rows), and res 53
+    # the global-memory kernel
     assert tops.select_tier(tgrid.GridConfig(res=17), "cuda") == "cuda"
     assert tops.smem_bytes(res32.ny, res32.nx, 16) <= tops.SMEM_PER_BLOCK
     for cfg in (tgrid.GridConfig(res=18), res32):
@@ -218,7 +219,9 @@ def test_select_tier_and_budget(monkeypatch):
     res48 = tgrid.GridConfig(res=48)
     assert tops.smem_bytes(res48.ny, res48.nx, 16) > tops.SMEM_PER_BLOCK
     assert tops.select_tier(res48, "cuda") == "cuda"
-    assert tops.check_kernel_grid(res48) == "global"
+    assert tops.check_kernel_grid(res48) == "resident"
+    assert tops.smem_bytes(res48.ny, res48.nx, 32) <= tops.SMEM_PER_BLOCK
+    assert tops.check_kernel_grid(tgrid.GridConfig(res=53)) == "global"
     assert tops.select_tier(res48, "cpu") == "plain"
     # a smaller budget moves res 16 to the global-memory kernel, silently
     monkeypatch.setattr(tops, "SMEM_PER_BLOCK", 1000)

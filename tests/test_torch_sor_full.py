@@ -121,7 +121,8 @@ def test_full_grid_fits_res_18_to_70_in_16_blocks():
     kernel's on the split slab, so 16 blocks hold a slab of every grid from
     res 18 (which one block could not hold) to res 70 at the reference's
     slab count, and the cluster kernel serves them; res 71, a (292, 1562)
-    grid left in one slab, goes to the global-memory kernel."""
+    grid left in one slab, goes to the resident kernel (a group of 24
+    blocks), res 95 (390, 2090) to the global-memory kernel."""
     for res in range(18, 72):
         cfg = GridConfig(res=res)
         nslabs = tops._pick_nslabs(cfg.nx)
@@ -134,7 +135,9 @@ def test_full_grid_fits_res_18_to_70_in_16_blocks():
         else:
             assert (cfg.ny, cfg.nx, nslabs) == (292, 1562, 1)
             assert at_16 > SMEM_PER_BLOCK
-            assert tops.slab_kernel(cfg.ny, bx // 2) == "global"
+            assert tops.slab_kernel(cfg.ny, bx // 2) == "resident"
+            assert tops.full_smem_bytes(cfg.ny, bx, 24) <= SMEM_PER_BLOCK
+    assert tops.slab_kernel(390, 2090 // 2) == "global"
     assert tops.full_smem_bytes(74, 396, 1) > SMEM_PER_BLOCK
     assert tops._fitting_clusters(74, 198) == [2, 4, 8, 16]
 
