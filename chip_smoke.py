@@ -60,7 +60,14 @@ Phases (any failure exits non-zero):
    twin and timed, each check rejecting a build whose wait on the
    neighbours before a half-sweep is missing; and the synchronisation
    floor: 6100 handoffs at G 32 with no arithmetic through L2 flags, L2
-   rows by flags, L2 tagged rows and DSMEM, in us a synchronisation;
+   rows by flags, L2 tagged rows and DSMEM, in us a synchronisation; and
+   the odd grid widths, which no kernel serves: one ``backend="pallas"``
+   solve on an (8, 11) grid and one ``backend="fused"`` interval at res 8
+   one column narrower (nx 175) each raise on the card, launching no
+   kernel and counting no fallback (the card never runs the plain path in
+   a kernel's place; only a CPU call falls back, counted in
+   ``kernels.FALLBACKS``); after the last phase this process may have
+   counted no fallback;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -355,7 +362,12 @@ Phases (any failure exits non-zero):
    step's; ``python -m repro_torch.launch.train --arch phi4-mini-3.8b
    --reduced --steps 20 --ckpt-dir`` (under its debug mesh) exits 0 and
    its checkpoint restores and saves again byte for byte;
-20. one JSON line listing the five kernels, then the card's line and the
+20. the cost counter against the card (``cost_path``), and one
+   partitioned count (``launch/partition.py``: DTensor on a fake process
+   group, no device) of phi4-mini at 2 of 32 layers on an abstract (2, 4)
+   mesh, a decode of B 8 over a 4096 cache: its bytes by kind, each kind
+   > 0 where the pass ran;
+21. one JSON line listing the five kernels, then the card's line and the
    result.
 
 Each phase prints its seconds (``[phase N]``), and the run its whole
@@ -2002,6 +2014,65 @@ def check_wkv6_f16_and_past_1024(dev, cfg, S):
     for N, H in WKV6_PAST_1024:
         out["past_1024"][f"n_{N}"] = wkv6_timed(
             dev, dataclasses.replace(cfg, num_heads=H), S, N, "bfloat16")
+    return out
+
+
+def odd_grid(res, **kw):
+    """A ``GridConfig`` one column narrower (an odd width):
+    ``GridConfig(res=n)`` always has an even one."""
+    from repro_torch.cfd.grid import GridConfig
+
+    class Odd(GridConfig):
+        nx = property(lambda self: 22 * self.res - 1)
+    return Odd(res=res, **kw)
+
+
+def odd_widths(dev):
+    """Phase 1: the odd grid widths on the card.  A ``backend="pallas"``
+    solve on an (8, 11) grid and a ``backend="fused"`` interval (res 8 one
+    column narrower, 2 envs, 10 dt) each raise ``ValueError``, launch no
+    kernel and count no fallback in ``kernels.FALLBACKS``: no kernel has
+    their checkerboard parity, and the card never runs the plain path in a
+    kernel's place.  Returns each case's message."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.cfd import grid as tgrid
+    from repro_torch.cfd import poisson, solver
+    rhs = torch.tensor(np.random.default_rng(21).standard_normal((8, 11)),
+                       dtype=torch.float32, device=dev)
+    cfg = odd_grid(8, dt=0.005, poisson_iters=60)
+    geom = tgrid.build_geometry(cfg)
+
+    def solve():
+        poisson.solve(rhs, 0.1, 0.1, iters=60, backend="pallas")
+
+    def interval():
+        st = solver.FlowState(*(a.expand(2, *a.shape).contiguous()
+                                for a in solver.init_state(cfg, geom, dev)))
+        solver.step_interval(cfg, solver.geom_to_arrays(geom, dev), st,
+                             torch.tensor([0.3, -0.2], device=dev), 10,
+                             backend="fused")
+
+    out = {}
+    for kernel, shape, run in (("rb_sor_slabs_packed", (8, 11), solve),
+                               ("fused_interval", (cfg.ny, cfg.nx),
+                                interval)):
+        reset_counts()
+        try:
+            run()
+            torch.cuda.synchronize()
+            err = None
+        except ValueError as e:
+            err = str(e)
+        launched = {k: v for k, v in counts().items() if v}
+        print(f"[odd width] {kernel} on grid {shape}: raises ({err}), "
+              f"launches {launched}, fallbacks {dict(kernels.FALLBACKS)}")
+        if (err is None or "even grid width" not in err or launched
+                or sum(kernels.FALLBACKS.values())):
+            fail(f"odd width {kernel} on {shape}: error {err!r}, launches "
+                 f"{launched}, fallbacks {dict(kernels.FALLBACKS)}")
+        out[f"{kernel} {shape}"] = err
     return out
 
 
@@ -6583,8 +6654,38 @@ def cost_path(card):
     out["fused_interval"] = entry
     del env, st
     torch.cuda.empty_cache()
+    out["partition"] = partition_count()
     print(f"[cost] {json.dumps(out)}")
     return out
+
+
+def partition_count():
+    """Phase 20 (e): the partition pass (``launch/partition.py``) of
+    phi4-mini at ``COST_LAYERS`` of 32 layers on an abstract (2, 4) mesh,
+    a decode of B 8 over a 4096 cache: DTensor on a fake process group of
+    8 ranks, meta tensors, no device.  Prints one device's bytes by kind;
+    fails unless the FSDP all-gathers are counted and every kind the pass
+    counts is positive."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import cost_analysis, partition
+    from repro_torch.launch.mesh import make_abstract_mesh
+    cfg = cost_analysis.with_depths(get_config(COST_CONFIG),
+                                    {"blocks": COST_LAYERS})
+    mesh = make_abstract_mesh((2, 4), ("data", "model"))
+    got, secs = wall(lambda: partition.count(
+        cfg, InputShape("decode", 4096, 8, "decode"), mesh))
+    kinds = {k[5:]: v for k, v in got.items()
+             if k.startswith("coll_") and k != "coll_bytes"}
+    print(f"[partition] {cfg.name} at {COST_LAYERS} of 32 layers, decode B 8 "
+          f"over a 4096 cache, abstract (2, 4) mesh, torch "
+          f"{torch.__version__}: {got['coll_bytes']} bytes a device "
+          f"({', '.join(f'{k} {v}' for k, v in sorted(kinds.items()))}); "
+          f"ops run replicated {got['replicated']}; counted in {secs:.3f} s")
+    if not (kinds.get("all-gather", 0) > 0
+            and all(v > 0 for v in kinds.values())):
+        fail(f"partition: counted {got}, expected the FSDP all-gathers")
+    return {**got, "seconds": secs}
 
 
 STANDALONE_PHASES = ("10", "12", "13", "14", "15", "16", "17", "18", "19",
@@ -6802,6 +6903,7 @@ def main():
     wkv.update(check_wkv6_wide(dev, get_config("rwkv6-3b"), S=4096))
     wkv.update(check_wkv6_f16_and_past_1024(dev, get_config("rwkv6-3b"),
                                             S=4096))
+    fused["odd_width_raises"] = odd_widths(dev)
     done(1)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
@@ -7080,6 +7182,12 @@ def main():
     fused["counted_interval"] = costs["fused_interval"]
     flash["counted_lm_loss"] = costs["lm_loss"]["kernels_on_card"]
     print(f"[phase 20] {secs:.3f} s")
+    from repro_torch import kernels as kernels_mod
+    if sum(kernels_mod.FALLBACKS.values()):
+        fail(f"fallbacks counted in this process: "
+             f"{dict(kernels_mod.FALLBACKS)}")
+    print("[fallbacks] none counted in this process (phases 1-20); the "
+          "child processes run on the card, where an odd width raises")
     now = time.perf_counter()
     print(f"[chip_smoke] phases 1-20 in {now - lap['start']:.3f} s after "
           f"the build; the whole script {now - script_start:.3f} s")

@@ -46,6 +46,7 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.cfd import poisson
+from repro_torch.launch import cost_analysis
 
 
 def validate_decomposition(mesh, nx: int, axis: str = "model") -> int:
@@ -89,9 +90,13 @@ def send(msgs: torch.Tensor) -> torch.Tensor:
     """Deliver one exchange's messages, ``(..., R - 1, h, 1)``: message k
     of a forward exchange goes from rank k to rank k + 1, of a backward
     one from rank k + 1 to rank k.  The slabs share a device, so delivery
-    is the identity; every halo message of this module passes here."""
+    is the identity; every halo message of this module passes here.
+    Under a cost counter (``launch/cost_analysis``) the exchange counts as
+    one ``collective-permute`` of every message's bytes, the reference's
+    ``lax.ppermute``."""
     for log in _RECORDERS:
         log.append((tuple(msgs.shape[-2:]), int(msgs.shape[-3])))
+    cost_analysis.collective("collective-permute", msgs)
     return msgs
 
 

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
 from repro_torch._warn import warn_once_cache
 
 BACKENDS = ("reference", "packed", "full", "pallas", "halo", "fused")
@@ -189,7 +190,8 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     slab kernel (so 52 SOR pairs where "packed" does 50 at iters=60), then
     the polish pairs on the packed planes, as ``repro`` does.  On an odd
     grid width it has no checkerboard parity: a CPU tensor falls back to
-    the reference path (warning once per shape), a CUDA tensor raises.
+    the reference path (warning once per shape, counted in
+    ``kernels.FALLBACKS``), a CUDA tensor raises.
     ``backend="halo"`` runs ``cfd/decomp``'s explicit x-slab decomposition
     over ``mesh``'s ``halo_axis`` (``halo_inner`` local sweep pairs per
     halo exchange): the paper's N_ranks > 1 configuration."""
@@ -222,6 +224,7 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
                 f"slab parity; grid (ny={ny}, nx={nx}) falls back to the "
                 f"reference path (this warning fires once per shape)",
                 RuntimeWarning, stacklevel=2)
+        kernels.fell_back("rb_sor_slabs_packed", (ny, nx))
         backend = "reference"
     if backend == "packed" and nx % 2:
         raise ValueError(

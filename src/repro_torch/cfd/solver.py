@@ -338,12 +338,16 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
 
     ``backend="fused"`` runs the interval through
     ``repro_torch.kernels.actuation``: on a CUDA tensor a hand-written
-    fused-interval kernel (the cluster kernel, or past one cluster the
-    global-memory kernel), on a CPU tensor its plain twin.  An odd width
-    raises on a CUDA tensor; on a CPU tensor it falls back to the reference
-    loop with a once-per-shape warning.  ``cluster`` fixes the kernel's
-    blocks an env on the card (the cluster size, or G; None: its own
-    choice; the CPU twin and the other backends ignore it).  Every other
+    fused-interval kernel (the cluster kernel up to res 38, the resident
+    kernel where a group of up to 32 blocks holds the bands, res 39 to 52,
+    the global-memory kernel past that), on a CPU tensor its plain twin.
+    An odd width raises on a CUDA tensor (no kernel has its checkerboard
+    parity, and the card never runs the plain loop in a kernel's place);
+    on a CPU tensor it falls back to the reference loop with a
+    once-per-shape warning, counted in ``kernels.FALLBACKS``.
+    ``cluster`` fixes the kernel's blocks an env on the card (the cluster
+    size, or G; None: its own choice; the CPU twin and the other backends
+    ignore it).  Every other
     backend loops :func:`step` (``mesh`` / ``halo_inner`` for "halo"; the
     fused kernel is single-rank)."""
     backend = poisson.resolve_backend(backend)

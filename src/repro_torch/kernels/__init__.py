@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port (``csrc/``), their builds
 (``build.py``) and their Python wrappers with plain PyTorch twins."""
 
+import collections
 import contextlib
 
 import torch
@@ -30,6 +31,19 @@ def refuse_grad(kernel: str, *tensors) -> None:
 # the cost counters (``launch/cost_analysis.CostCounter``) entered on this
 # process, innermost last
 COUNTERS: list = []
+
+# the CPU calls served by the reference path in a kernel's twin's place,
+# keyed by (kernel, grid shape): an odd grid width has no checkerboard
+# parity, so ``backend="fused"`` and ``backend="pallas"`` fall back on it
+# as the reference's do (warning once per shape).  On the card such a call
+# raises, as does a kernel that fails to build or launch
+FALLBACKS: collections.Counter = collections.Counter()
+
+
+def fell_back(kernel: str, shape) -> None:
+    """Count one call of ``kernel``'s path on a grid of ``shape`` that ran
+    the reference path instead (:data:`FALLBACKS`)."""
+    FALLBACKS[(kernel, tuple(int(n) for n in shape))] += 1
 
 
 @contextlib.contextmanager

@@ -22,9 +22,10 @@ pressure parity planes carried across every dt:
 
 Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
 (no checkerboard parity) falls back to the reference loop, warning once
-per grid shape.  A CUDA state on a grid of odd width raises: the card
-never runs the plain loop in a kernel's place.  Which kernel serves an
-even grid (:func:`check_kernel_grid`) follows the shared memory a block
+per grid shape in the reference's words and counted in
+``kernels.FALLBACKS``.  A CUDA state on a grid of odd width raises: the
+card never runs the plain loop in a kernel's place.  Which kernel serves
+an even grid (:func:`check_kernel_grid`) follows the shared memory a block
 holds, the analogue of the reference's VMEM budget: the cluster kernel
 where a 16-block cluster holds one env's bands, the resident kernel where
 a group of up to 32 blocks does (res 39 to 52 at the default aspect), the
@@ -40,7 +41,8 @@ import torch
 from repro_torch._warn import warn_once_cache
 from repro_torch.cfd import poisson, solver
 from repro_torch.cfd.grid import GridConfig, geometry_names, max_bodies
-from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
+from repro_torch.kernels import (SMEM_PER_BLOCK, allocating, counted,
+                                 fell_back)
 from repro_torch.kernels import cluster as kcluster
 from repro_torch.kernels.cluster import (CLUSTER_SIZES, FLAG_STRIDE,
                                          LaunchPlan, band_starts,
@@ -257,7 +259,8 @@ def select_tier(cfg: GridConfig, device, n_bodies: int = 0) -> str:
                  global-memory kernel, :func:`check_kernel_grid`); an odd
                  width raises
     "plain"      CPU tensors: its plain PyTorch twin
-    "reference"  CPU tensors on a grid of odd width (warns once per shape)
+    "reference"  CPU tensors on a grid of odd width (warns once per shape,
+                 in the reference's words)
     """
     if torch.device(device).type == "cuda":
         check_kernel_grid(cfg, n_bodies)
@@ -269,7 +272,7 @@ def select_tier(cfg: GridConfig, device, n_bodies: int = 0) -> str:
             warnings.warn(
                 f"backend='fused' needs an even grid width for packed "
                 f"checkerboard parity; grid (ny={ny}, nx={nx}) falls back "
-                f"to the reference loop (this warning fires once per shape)",
+                f"to the reference scan (this warning fires once per shape)",
                 RuntimeWarning, stacklevel=3)
         return "reference"
     return "plain"
@@ -699,7 +702,8 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
     holds).  The realization
     follows :func:`select_tier` for the state's device: a CUDA state
     launches a kernel or raises, it never falls back to the twin or the
-    reference loop."""
+    reference loop; a CPU state on an odd width runs the reference loop,
+    counted in ``kernels.FALLBACKS``."""
     per_body = solver.is_per_body(jet_vel, state.u)
     n_bodies = N_BODIES if per_body else 0
     tier = select_tier(cfg, state.u.device, n_bodies)
@@ -710,6 +714,7 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
     if act_mode is None:
         act_mode = 0.0
     if tier == "reference":
+        fell_back("fused_interval", (cfg.ny, cfg.nx))
         return solver.step_interval(cfg, geom_arrays, state, jet_vel,
                                     n_steps, re=re, act_mode=act_mode,
                                     backend="reference", geom_id=geom_id)

@@ -18,20 +18,29 @@ abstract mesh (``launch.mesh.make_production_mesh``), and records:
   layers and scaled to its depth (``cost_analysis.scaled_by_depth``).
   The counts are global, one controller running every shard, and the
   record splits them evenly over the mesh's devices (``per_device``
-  says so); the collectives XLA inserts for the reference are not
-  counted, only the expert-parallel all-to-all the port performs;
+  says so).  The collectives are one device's: those of the partition
+  pass (``launch/partition.py``: the step again on meta DTensors over a
+  fake process group of the mesh, DTensor's sharding propagation in
+  place of XLA's partitioner, each stack walked and scaled alike), by
+  kind, beside the expert-parallel all-to-all the port performs itself
+  (its global count split evenly).  ``coll_partition`` holds the pass's
+  own counts (and the ops it ran replicated), ``coll_status`` says
+  "counted", or "not counted: <reason>" where the step could not be
+  partitioned (its collectives are then the all-to-all alone);
 * ``memory.output_bytes``, ``memory.temp_bytes`` (the count's, split
   evenly) and ``memory.peak_per_device_bytes`` (the exact argument
   bytes plus those two);
 * ``roofline``: ``roofline.build`` on those per-device counts, priced
   against ``h100_sxm``, the port's card (the reference prices its
-  production meshes against ``tpu_v5e``);
+  production meshes against ``tpu_v5e``), its collective term the
+  partition pass's bytes and the all-to-all's;
 * ``params``, ``params_active`` and ``model_flops``
   (``launch/roofline.py``); ``status``.
 
-The counts depend on the architecture and the shape, not on the mesh:
-``main`` counts each (arch, shape) once, on the first mesh it records,
-and reuses the count for the other (``counted_on``).  A step the counter
+The op counts depend on the architecture and the shape, not on the
+mesh: ``main`` counts each (arch, shape) once, on the first mesh it
+records, and reuses the count for the other (``counted_on``); the
+partition pass runs on each mesh.  A step the counter
 cannot walk gives its record ``status: "fail"`` with the error.  Torch has
 no XLA cost analysis, so there is no ``xla_cost_analysis`` and no
 ``alias_bytes`` (the steps update their donated arguments in place).
@@ -54,17 +63,19 @@ import traceback
 from pathlib import Path
 
 from repro_torch.configs.base import INPUT_SHAPES, get_config, list_configs
-from repro_torch.launch import cost_analysis, roofline, steps
+from repro_torch.launch import cost_analysis, partition, roofline, steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.sharding import shard_shape
 
 DEFAULT_OUT = "build/dryrun"
 # the card the port prices a step against
 HW = "h100_sxm"
-PER_DEVICE = ("the global count of one controller split evenly over "
-              "n_devices; collectives: only those the port performs (the "
-              "expert-parallel all-to-all), not those XLA inserts for the "
-              "reference")
+PER_DEVICE = ("flops, bytes and memory: the global count of one "
+              "controller split evenly over n_devices; collectives: one "
+              "device's, those of the partition pass (DTensor's sharding "
+              "propagation on a fake process group of the mesh, in place "
+              "of the collectives XLA inserts for the reference) plus the "
+              "expert-parallel all-to-all the port performs, split evenly")
 
 
 def _leaves(tree):
@@ -129,12 +140,34 @@ def step_counts(cfg, shape, mesh) -> dict:
     return cost_analysis.scaled_by_depth(cfg, count_at)
 
 
+def partition_counts(cfg, shape, mesh) -> dict:
+    """``coll_status`` and the partition pass's per-device counts
+    (``partition.step_collectives``) of ``shape``'s step on ``mesh``, or
+    the reason it could not be partitioned."""
+    try:
+        got = partition.step_collectives(cfg, shape, mesh)
+    except Exception as e:  # noqa: BLE001 -- recorded, never a silent 0
+        return {"coll_status": f"not counted: {type(e).__name__}: {e}"}
+    return {"coll_status": "counted", "coll_partition": got}
+
+
+def with_collectives(cost: dict, part: dict) -> dict:
+    """Per-device ``cost`` with the partition pass's collectives added to
+    ``coll_bytes`` and each ``coll_<kind>``."""
+    out = dict(cost)
+    for k, v in part.get("coll_partition", {}).items():
+        if k.startswith("coll_"):
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             out_dir: str = DEFAULT_OUT, verbose: bool = True,
             counts: dict = None, counted_on: str = None) -> dict:
     """The record of one (arch, shape, mesh); ``counts`` (as
     :func:`step_counts` gives them, taken on the mesh ``counted_on``) are
-    reused where given, else counted here."""
+    reused where given, else counted here; the partition pass runs on
+    this mesh."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -149,7 +182,10 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         counts, counted_on = step_counts(cfg, shape, mesh), mesh_name
     per_dev = cost_analysis.per_device(counts, n_dev)
     mf = roofline.model_flops(cfg, shape, params_shape)
-    cost = per_dev["cost"]
+    t0 = time.time()
+    part = partition_counts(cfg, shape, mesh)
+    t_partition = time.time() - t0
+    cost = with_collectives(per_dev["cost"], part)
     rl = roofline.build(arch, shape_name, mesh_name, n_dev, cost, mf, hw=HW)
     arg_bytes = sum(part_bytes.values())
     mem = per_dev["memory"]
@@ -164,6 +200,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                    "peak_per_device_bytes": (arg_bytes + mem["temp_bytes"]
                                              + mem["output_bytes"])},
         "cost_analysis": cost,
+        **part, "t_partition_s": t_partition,
         "per_device": PER_DEVICE,
         "counted_on": counted_on,
         "roofline": rl.to_dict(),
@@ -183,7 +220,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"mem/dev {m['peak_per_device_bytes'] / 2**30:8.2f} GiB  "
               f"dom={rl.dominant:10s} "
               f"C/M/X = {rl.compute_s * 1e3:.1f}/{rl.memory_s * 1e3:.1f}/"
-              f"{rl.collective_s * 1e3:.1f} ms", flush=True)
+              f"{rl.collective_s * 1e3:.1f} ms  collectives "
+              f"{rec['coll_status']}", flush=True)
     return rec
 
 

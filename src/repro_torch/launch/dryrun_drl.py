@@ -20,15 +20,26 @@ replicates the rest).  ``terms_s`` prices them against ``h100_sxm``, the
 port's card, not the reference's hard-coded TPU rates.  ``--backend``
 picks the solver: ``reference`` (the reference tool's, and the one
 comparable with it) or ``fused``, whose interval is the fused kernel's
-``work(...)``.
+``work(...)``, at one rank; above one rank the solver is ``halo``, and
+``--backend fused`` is refused.
+
+``--n-ranks`` above 1 (the paper's N_ranks, and the hybrid N_envs x
+N_ranks plans) decomposes each grid into that many x-slabs over "model"
+with the halo backend (``cfd/decomp.py``), the one ``train(plan=...)``
+runs for a multi-rank plan, on a ("data", "model") mesh of the production
+mesh's "data" size by ``n_ranks``.  Every halo exchange counts as one
+``collective-permute`` of the bytes its slabs send (``decomp.send``):
+those are the record's collectives.  The reference's partitioner also
+adds gathers, reductions and all-to-alls for the grid it shards in its
+momentum, probes and forces; the port's program has no counterpart of
+those (it computes them on whole grids), so they are not counted.
 
 The peak holds the arguments (policy, env states, observations), the
 trajectory the episode keeps, and the larger of one action's and the
-postprocess's live sets.  ``--n-ranks`` above 1 decomposes each grid over
-"model" with the halo backend, which runs on one device only: it is
-refused here.
+postprocess's live sets.
 
     python -m repro_torch.launch.dryrun_drl [--n-envs 256] [--actions 100]
+        [--n-ranks 16]
 """
 from __future__ import annotations
 
@@ -47,7 +58,8 @@ from repro_torch.core import runner
 from repro_torch.drl import networks, rollout
 from repro_torch.launch import cost_analysis, roofline
 from repro_torch.launch.dryrun import HW
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (AXES, make_abstract_mesh,
+                                     make_production_mesh)
 
 DEFAULT_OUT = "build/dryrun_drl.json"
 
@@ -62,10 +74,12 @@ def _to_meta(x):
     return type(x)(*(None if v is None else _to_meta(v) for v in x))
 
 
-def meta_env(cfg: EnvConfig, backend: str) -> CylinderEnv:
+def meta_env(cfg: EnvConfig, backend: str, mesh=None) -> CylinderEnv:
     """``cfg``'s env with its geometry on the meta device: its steps run on
-    meta env states."""
-    env = CylinderEnv(cfg, backend=backend, device="cpu")
+    meta env states (the halo backend's slabs over ``mesh``, an
+    ``AbstractMesh``)."""
+    env = CylinderEnv(cfg, backend=backend, device="cpu",
+                      mesh=mesh if backend == "halo" else None)
     env.geom_arrays = _to_meta(env.geom_arrays)
     env.device = torch.device("meta")
     return env
@@ -107,6 +121,15 @@ def _sum(a: dict, b: dict, k: float = 1.0) -> dict:
     return out
 
 
+def collect_mesh(n_ranks: int):
+    """The production mesh, or above one rank its "data" axis by
+    ``n_ranks`` on "model" (an env's x-slabs)."""
+    mesh = make_production_mesh()
+    if n_ranks == 1 or mesh.shape["model"] == n_ranks:
+        return mesh
+    return make_abstract_mesh((mesh.shape["data"], n_ranks), AXES)
+
+
 def count_collect(cfg: EnvConfig, n_envs: int, actions: int, *,
                   n_ranks: int = 1, backend: str = "reference",
                   mesh=None) -> dict:
@@ -115,14 +138,21 @@ def count_collect(cfg: EnvConfig, n_envs: int, actions: int, *,
     action times ``actions`` plus the postprocess) and ``memory``
     (``argument_bytes``, ``trajectory_bytes``, ``action_bytes`` and
     ``postprocess_bytes``, the largest live set of each, and their
-    ``peak_bytes``)."""
-    if n_ranks != 1:
-        raise ValueError(
-            f"n_ranks={n_ranks}: the halo backend that decomposes a grid "
-            f"over 'model' runs on one device, not on meta tensors; the dry "
-            f"run prices n_ranks=1")
-    mesh = mesh if mesh is not None else make_production_mesh()
-    env = meta_env(cfg, backend)
+    ``peak_bytes``).  Above one rank the grid is cut into ``n_ranks``
+    x-slabs over ``mesh``'s "model" axis (:func:`collect_mesh` by
+    default), on the halo backend (what ``train(plan=...)`` runs there)
+    in ``backend``'s place; the single-rank "fused" is refused there."""
+    if n_ranks > 1:
+        if backend != "reference":
+            raise ValueError(
+                f"n_ranks={n_ranks} decomposes each grid over 'model' with "
+                f"the halo backend; {backend!r} runs on one rank")
+        backend = "halo"
+    mesh = mesh if mesh is not None else collect_mesh(n_ranks)
+    if n_ranks > 1 and mesh.shape["model"] != n_ranks:
+        raise ValueError(f"n_ranks={n_ranks} does not match the mesh's "
+                         f"'model' axis {mesh.shape['model']}")
+    env = meta_env(cfg, backend, mesh)
     _, engine = runner.make_distributed_collect(env, mesh, n_envs, actions,
                                                 n_ranks=n_ranks)
     pcfg = networks.PolicyConfig(obs_dim=cfg.obs_dim, act_dim=cfg.act_dim)
@@ -158,7 +188,7 @@ def run(n_envs: int = 256, n_ranks: int = 1, actions: int = 100,
     cfg = EnvConfig(grid=GridConfig(res=res, dt=0.005, poisson_iters=60),
                     steps_per_action=50, actions_per_episode=actions,
                     warmup_time=0.0)
-    mesh = make_production_mesh()
+    mesh = collect_mesh(n_ranks)
     t0 = time.time()
     counts = count_collect(cfg, n_envs, actions, n_ranks=n_ranks,
                            backend=backend, mesh=mesh)
@@ -169,12 +199,17 @@ def run(n_envs: int = 256, n_ranks: int = 1, actions: int = 100,
     rec = {
         "n_envs": n_envs, "n_ranks": n_ranks,
         "grid": [cfg.grid.ny, cfg.grid.nx], "actions": actions,
-        "backend": backend, "count_s": time.time() - t0,
+        "backend": "halo" if n_ranks > 1 else backend, "count_s": time.time() - t0,
         "peak_per_device_bytes": per["memory"]["peak_bytes"],
         "memory_per_device": per["memory"],
         "cost_analysis": cost,
         "per_device": f"the global count split evenly over {shards} "
-                      f"devices: 'data' x n_ranks of the production mesh",
+                      f"devices: 'data' x n_ranks of the production mesh; "
+                      f"collectives: the decomposed solve's halo messages "
+                      f"(collective-permute), none at one rank; the "
+                      f"collectives XLA adds to the reference for its "
+                      f"sharded momentum, probes and forces have no "
+                      f"counterpart in the port's program",
         "terms_s": {"compute": cost["flops"] / hw.peak_flops,
                     "memory": cost["bytes"] / hw.hbm_bw,
                     "collective": cost["coll_bytes"] / hw.ici_bw},
@@ -192,7 +227,8 @@ def main(argv=None) -> None:
     ap.add_argument("--actions", type=int, default=100)
     ap.add_argument("--res", type=int, default=16)
     ap.add_argument("--backend", choices=("reference", "fused"),
-                    default="reference")
+                    default="reference",
+                    help="the solver at one rank; above it, halo")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     rec = run(args.n_envs, args.n_ranks, args.actions, args.res,

@@ -161,7 +161,11 @@ def mesh_for_plan(plan, devices: Optional[Sequence[torch.device]] = None, *,
 
 def slab_device(mesh: Mesh, axis: str = "model") -> torch.device:
     """The one device an env's slabs share.  Slabs on several devices are
-    not ported: a "model" row naming more than one raises."""
+    not ported: a "model" row naming more than one raises.  An
+    :class:`AbstractMesh` names no device: its slabs are meta tensors (the
+    DRL dry run, ``launch/dryrun_drl.py``)."""
+    if isinstance(mesh, AbstractMesh):
+        return torch.device("meta")
     rows = np.moveaxis(mesh.devices, AXES.index(axis), -1).reshape(
         -1, mesh.shape[axis])
     for row in rows:

@@ -140,6 +140,31 @@ def opt_state_specs(mesh, params_shape, opt_shape, fsdp_axes=("data",)):
     return out
 
 
+def gathered_params(cfg: ModelConfig, mesh, params):
+    """``params`` as the model reads them.  Under the partition pass
+    (``launch/partition.py``, ``act_sharding.placing``) each leaf is laid
+    out by its spec less the FSDP axes: the all-gather that XLA's
+    partitioner issues for an FSDP leaf of the reference before its use
+    (and whose backward reduces its gradient back to the shards).
+    Otherwise ``params`` itself: one controller holds every leaf whole."""
+    if mesh is None or not act_sharding.placing_active():
+        return params
+    fsdp = fsdp_axes_for(cfg, mesh)
+
+    def drop(entry):
+        if isinstance(entry, tuple):
+            keep = tuple(a for a in entry if a not in fsdp)
+            return keep if len(keep) > 1 else (keep[0] if keep else None)
+        return None if entry in fsdp else entry
+
+    def walk(tree, specs):
+        if isinstance(tree, dict):
+            return {k: walk(v, specs[k]) for k, v in tree.items()}
+        return act_sharding.gathered(tree, P(*(drop(e) for e in specs)))
+
+    return walk(params, param_specs(mesh, params, fsdp))
+
+
 def microbatches(requested: int, batch: int, n_dp: int = 1) -> int:
     """The reference's clamp: halve the microbatch count until it divides
     the batch and each microbatch divides the data-parallel ways."""
@@ -177,13 +202,14 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     n_dp = axis_size(mesh, dp_axes(mesh)) if mesh is not None else 1
 
     def constrain_grads(grads):
-        if gspecs is not None:
-            for g, spec in zip(grads, gspecs):
-                act_sharding.constrain_to(g, spec)
-        return grads
+        if gspecs is None:
+            return grads
+        return [act_sharding.constrain_to(g, spec)
+                for g, spec in zip(grads, gspecs)]
 
     def grads_of(params, leaves, mb):
-        loss, _ = M.lm_loss(cfg, params, mb, backend=backend)
+        loss, _ = M.lm_loss(cfg, gathered_params(cfg, mesh, params), mb,
+                            backend=backend)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a parameter the loss does not reach has a zero gradient, as jax
         # gives it
@@ -217,7 +243,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                     with torch.no_grad():
                         for acc, x in zip(grads, g):
                             acc.add_(x.to(accum_dtype))
-                    constrain_grads(grads)
+                    grads = constrain_grads(grads)
                     del g
                     loss = loss + l
                 with torch.no_grad():
@@ -228,7 +254,8 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             for p in leaves:
                 p.requires_grad_(False)
         with torch.no_grad():
-            opt.update(grads, opt_state, leaves, step, donate=True)
+            opt.update(*act_sharding.local_shards(
+                (grads, opt_state, leaves, step)), donate=True)
         return params, opt_state, step + 1, {"loss": loss}
 
     return train_step
@@ -245,8 +272,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
 
     def prefill_step(params, tokens, frontend_embeds=None):
         with act_sharding.activation_mesh(mesh):
-            return M.prefill(cfg, params, tokens,
-                             frontend_embeds=frontend_embeds)
+            return M.prefill(cfg, gathered_params(cfg, mesh, params),
+                             tokens, frontend_embeds=frontend_embeds)
     return prefill_step
 
 
@@ -255,7 +282,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None) -> Callable:
     one ``decode_step`` under ``mesh``, the cache updated in place."""
     def serve_step(params, cache, token, pos):
         with act_sharding.activation_mesh(mesh):
-            return M.decode_step(cfg, params, cache, token, pos)
+            return M.decode_step(cfg, gathered_params(cfg, mesh, params),
+                                 cache, token, pos)
     return serve_step
 
 

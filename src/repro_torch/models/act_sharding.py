@@ -10,6 +10,12 @@ itself, unchanged, after computing the spec as the reference does
 divide its dim, is dropped; a spec that names an axis twice fails, as the
 reference's ``NamedSharding`` does).  Inside
 ``record_constraints()`` every constraint is logged as ``(shape, spec)``.
+Inside ``placing(layout)`` (the partition pass of ``launch/partition.py``)
+a constraint returns ``layout.constrain(x, spec)`` (a DTensor
+``redistribute``), and the two hooks the steps call, :func:`gathered` (a
+parameter as the model reads it) and :func:`local_shards` (the
+optimizer's operands), go through the layout too; outside it they return
+their input.
 Where the mesh changes what the reference computes (the one-hot embedding
 lookup, the masked cache write, the decode attention chain, the
 expert-parallel MoE), the model reads :func:`current_mesh`.
@@ -25,6 +31,8 @@ from repro_torch.models.sharding import P, spec_for
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_activation_mesh", default=None)
 _RECORDERS: List[list] = []
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_layout", default=None)
 
 
 @contextlib.contextmanager
@@ -52,12 +60,52 @@ def record_constraints() -> Iterator[List[Tuple[tuple, P]]]:
         _RECORDERS.remove(log)
 
 
+@contextlib.contextmanager
+def placing(layout):
+    """Run the block with ``layout`` (``constrain(x, spec)``,
+    ``gather(x, spec)``, ``local(x)``) serving the constraints and the
+    step hooks."""
+    tok = _LAYOUT.set(layout)
+    try:
+        yield
+    finally:
+        _LAYOUT.reset(tok)
+
+
+def placing_active() -> bool:
+    return _LAYOUT.get() is not None
+
+
+def gathered(x, spec: P):
+    """A parameter as the model reads it, laid out by ``spec`` (its own
+    spec less the FSDP axes) inside :func:`placing`, not recorded as a
+    constraint; ``x`` itself otherwise."""
+    layout = _LAYOUT.get()
+    return x if layout is None else layout.gather(x, spec)
+
+
+def local_shards(tree):
+    """``tree`` (lists or tuples of tensors, or dicts of them) with each
+    tensor as one device's shard inside :func:`placing`: an elementwise
+    update, which the reference's partitioner runs on each device's shard
+    without a collective; ``tree`` itself otherwise."""
+    layout = _LAYOUT.get()
+    if layout is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: local_shards(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_shards(v) for v in tree)
+    return layout.local(tree)
+
+
 def constrain_to(x, spec: P):
-    """``x`` pinned to ``spec`` on one controller: ``x`` itself, the
-    constraint recorded."""
+    """``x`` pinned to ``spec`` on one controller: ``x`` itself (inside
+    :func:`placing`, the layout's), the constraint recorded."""
     for log in _RECORDERS:
         log.append((tuple(x.shape), spec))
-    return x
+    layout = _LAYOUT.get()
+    return x if layout is None else layout.constrain(x, spec)
 
 
 def constrain(x, *axes):

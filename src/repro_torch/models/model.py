@@ -457,7 +457,7 @@ def _token_nll(cfg: ModelConfig, logits, labels):
     reference's one-hot contraction picks the same value; its one-hot,
     shaped as the logits, carries the vocab-parallel constraint, recorded
     here on the logits)."""
-    act_sharding.constrain(logits, act_sharding.dp(), None, "model")
+    logits = act_sharding.constrain(logits, act_sharding.dp(), None, "model")
     lse = torch.logsumexp(logits.float(), dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0].float()
     return lse - gold

@@ -252,15 +252,19 @@ def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
 
 @pytest.mark.cuda
 def test_only_odd_widths_raise_on_card(cuda):
-    """On the card there is no fallback, and only an odd width raises: a
-    res-71 solve (a (292, 781) slab, over the shared memory of a 16-block
-    cluster) runs on the packed SOR's resident kernel, one launch, and a
-    res-48 interval (its fields over the shared memory of a 16-block
-    cluster) on the fused kernel's, one launch; each within its tolerance
-    of the CPU's twin."""
+    """On the card there is no fallback, and only an odd width raises (no
+    fallback counted, no kernel launched): a res-71 solve (a (292, 781)
+    slab, over the shared memory of a 16-block cluster) runs on the packed
+    SOR's resident kernel, one launch, and a res-48 interval (its fields
+    over the shared memory of a 16-block cluster) on the fused kernel's,
+    one launch; each within its tolerance of the CPU's twin."""
+    from repro_torch import kernels
+    f0, n0 = dict(kernels.FALLBACKS), tops.rb_sor_slabs_packed_cuda.launches
     rhs = torch.zeros((8, 11), device=cuda)
     with pytest.raises(ValueError, match="even grid width"):
         tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    assert dict(kernels.FALLBACKS) == f0
+    assert tops.rb_sor_slabs_packed_cuda.launches == n0
     big = tgrid.GridConfig(res=71)
     rhs = torch.tensor(_rand((big.ny, big.nx), 9), device=cuda)
     n0 = tops.rb_sor_slabs_packed_cuda.launches_resident
@@ -935,8 +939,8 @@ def test_train_at_res_48_runs_on_the_resident_kernel_on_card(cuda):
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
 
 
-def _fleet(workdir, processes):
-    """A res-48 fleet of ``processes`` runners on the card (4 envs, 1
+def _fleet(workdir, processes, res=48):
+    """A fleet of ``processes`` runners on the card at ``res`` (4 envs, 1
     episode of 2 actions of 10 dt after a 0.1 t.u. warmup); returns its
     stdout."""
     import os
@@ -951,7 +955,7 @@ def _fleet(workdir, processes):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.fleet", "--device",
          "cuda", "--processes", str(processes), "--episodes", "1",
-         "--res", "48", "--dt", "0.005", "--poisson-iters", "60",
+         "--res", str(res), "--dt", "0.005", "--poisson-iters", "60",
          "--steps-per-action", "10", "--actions-per-episode", "2",
          "--warmup", "0.1", "--workdir", str(workdir),
          "--launch-timeout", "500"],
@@ -978,6 +982,38 @@ def test_fleet_at_res_48_on_the_resident_kernel_on_card(cuda, tmp_path):
         assert int(t["fused_resident_launches"]) > 0
         assert int(t["fused_resident_launches"]) == int(t["fused_launches"])
         assert int(t["fused_cluster"]) == 32
+        states[procs] = load_train_state(
+            latest_checkpoint(str(tmp_path / f"p{procs}" / "ckpt")), "cpu")
+    (ts1, meta1), (ts2, meta2) = states[1], states[2]
+    assert meta1["episode"] == meta2["episode"] == 1
+    assert meta2["plan"]["n_processes"] == 2
+    for k in ts1.params:
+        assert torch.equal(ts1.params[k], ts2.params[k]), k
+    for k in ("m", "v"):
+        for x, y in zip(ts1.opt_state[k], ts2.opt_state[k]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fleet_at_res_56_on_the_global_memory_kernel_on_card(cuda,
+                                                             tmp_path):
+    """Past res 52 (the global-memory kernel): each runner's every fused
+    launch on that kernel at the whole batch's G, none resident, and the
+    2-process fleet's final checkpoint equals the 1-process fleet's bit
+    for bit."""
+    from repro_torch.ckpt.checkpoint import latest_checkpoint
+    from repro_torch.drl.train_state import load_train_state
+    plan = aops.launch_plan(tgrid.GridConfig(res=56), 4, cuda)
+    assert plan.kernel == "global"
+    states = {}
+    for procs in (1, 2):
+        stdout = _fleet(tmp_path / f"p{procs}", procs, res=56)
+        timing = [ln for ln in stdout.splitlines()
+                  if ln.startswith("FLEET_TIMING")][-1]
+        t = dict(kv.split("=") for kv in timing.split()[1:])
+        assert int(t["fused_launches"]) > 0
+        assert int(t["fused_resident_launches"]) == 0
+        assert int(t["fused_cluster"]) == plan.size
         states[procs] = load_train_state(
             latest_checkpoint(str(tmp_path / f"p{procs}" / "ckpt")), "cpu")
     (ts1, meta1), (ts2, meta2) = states[1], states[2]

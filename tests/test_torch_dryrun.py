@@ -112,7 +112,17 @@ def test_dryrun_writes_every_record_without_a_device(tmp_path,
     temporary and peak bytes), parameter counts and model flops; no
     tensor is made on a device (the CPU allocator is refused), and the
     records match the reference's counts (``param_count``,
-    ``active_param_count``, ``model_flops``)."""
+    ``active_param_count``, ``model_flops``).  The partition pass (~45
+    min for the 80 records) is asked once per record, here answered by a
+    stand-in; ``test_dryrun_partitions_the_production_meshes`` runs it."""
+    asked = []
+
+    def partition_counts(cfg, shape, mesh):
+        asked.append((cfg.name, shape.name, mesh.size))
+        return {"coll_status": "counted",
+                "coll_partition": {"coll_bytes": 0}}
+
+    monkeypatch.setattr(dryrun, "partition_counts", partition_counts)
     made = []
     for fn in ("empty", "zeros"):
         def meta_only(*a, _real=getattr(torch, fn), device=None, **kw):
@@ -145,6 +155,55 @@ def test_dryrun_writes_every_record_without_a_device(tmp_path,
         assert rec["params_active"] == jroof.active_param_count(jcfg, ps)
         assert rec["model_flops"] == jroof.model_flops(
             jcfg, jbase.INPUT_SHAPES["prefill_32k"], ps)
+    assert len(asked) == len(set(asked)) == 80
     dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "train_4k",
                  "--skip-existing", "--out", str(tmp_path)])
-    assert len(list(tmp_path.glob("*.json"))) == 80
+    assert len(list(tmp_path.glob("*.json"))) == 80 and len(asked) == 80
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "rwkv6-3b"])
+def test_dryrun_partitions_the_production_meshes(arch, tmp_path,
+                                                 monkeypatch):
+    """The decode on both production meshes, the partition pass included:
+    each record's collectives are counted on meta DTensors (no tensor made
+    on a device), the FSDP all-gathers among them, and the roofline's
+    collective term prices ``coll_bytes``."""
+    for fn in ("empty", "zeros"):
+        def meta_only(*a, _real=getattr(torch, fn), device=None, **kw):
+            assert str(device) == "meta", device
+            return _real(*a, device=device, **kw)
+        monkeypatch.setattr(torch, fn, meta_only)
+    dryrun.main(["--arch", arch, "--shape", "decode_32k", "--both-meshes",
+                 "--out", str(tmp_path)])
+    for mesh in ("pod16x16", "pod2x16x16"):
+        r = json.loads((tmp_path / f"{arch}__decode_32k__{mesh}.json")
+                       .read_text())
+        cost, rl = r["cost_analysis"], r["roofline"]
+        assert r["coll_status"] == "counted", r["coll_status"]
+        assert cost["coll_bytes"] == r["coll_partition"]["coll_bytes"] > 0
+        assert cost["coll_all-gather"] > 0
+        assert "partition pass" in r["per_device"]
+        assert rl["coll_bytes_per_dev"] == cost["coll_bytes"]
+        assert rl["collective_s"] == cost["coll_bytes"] / rl["hw"]["ici_bw"]
+
+
+def test_dryrun_partitions_a_train_step(tmp_path, monkeypatch):
+    """A named config's train step on the (16, 16) mesh, the partition
+    pass included: qwen1.5-32b's ``train_4k`` record is counted, its
+    FSDP all-gathers and its gradients' reduce-scatters among its
+    collectives, and the roofline's collective term prices them."""
+    for fn in ("empty", "zeros"):
+        def meta_only(*a, _real=getattr(torch, fn), device=None, **kw):
+            assert str(device) == "meta", device
+            return _real(*a, device=device, **kw)
+        monkeypatch.setattr(torch, fn, meta_only)
+    dryrun.main(["--arch", "qwen1.5-32b", "--shape", "train_4k",
+                 "--out", str(tmp_path)])
+    r = json.loads((tmp_path / "qwen1.5-32b__train_4k__pod16x16.json")
+                   .read_text())
+    cost, rl = r["cost_analysis"], r["roofline"]
+    assert r["coll_status"] == "counted", r["coll_status"]
+    assert cost["coll_bytes"] == r["coll_partition"]["coll_bytes"] > 0
+    assert cost["coll_all-gather"] > 0 and cost["coll_reduce-scatter"] > 0
+    assert rl["coll_bytes_per_dev"] == cost["coll_bytes"]
+    assert rl["collective_s"] == cost["coll_bytes"] / rl["hw"]["ici_bw"]

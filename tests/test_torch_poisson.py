@@ -99,6 +99,25 @@ def test_solve_pallas_odd_width_warns_once_and_falls_back():
     reset_warning_caches()
 
 
+def test_solve_pallas_odd_width_counts_each_fallback():
+    """Every call on an odd width is one fallback under (kernel, shape),
+    the warning only the first; an even width counts none."""
+    from repro_torch import kernels
+    from repro_torch._warn import reset_warning_caches
+    reset_warning_caches()
+    key = ("rb_sor_slabs_packed", (8, 11))
+    n0, total0 = kernels.FALLBACKS[key], sum(kernels.FALLBACKS.values())
+    rhs = torch.tensor(_rand((8, 11)))
+    with pytest.warns(RuntimeWarning, match="once per shape"):
+        tp.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    tp.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    tp.solve(torch.tensor(_rand((8, 12))), 0.1, 0.1, iters=6,
+             backend="pallas")
+    assert kernels.FALLBACKS[key] == n0 + 2
+    assert sum(kernels.FALLBACKS.values()) == total0 + 2
+    reset_warning_caches()
+
+
 # the slab twin against the Pallas kernel (interpret mode) and its oracle
 @pytest.mark.parametrize("nslabs", [1, 2])
 @pytest.mark.parametrize("inner", [1, 3])

@@ -239,20 +239,58 @@ class _OddGrid:
 
 
 def test_fused_odd_width_warns_once_per_shape():
-    """On a CPU state an odd width falls back to the reference loop,
-    warning once per shape; on a CUDA state it raises."""
+    """On a CPU state an odd width falls back to the reference scan,
+    warning once per shape in the reference's words; on a CUDA state it
+    raises, as a direct kernel call on it does."""
     reset_warning_caches()
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         assert tops.select_tier(_OddGrid, "cpu") == "reference"
         assert tops.select_tier(_OddGrid, "cpu") == "reference"
         assert len(w) == 1 and "falls back" in str(w[0].message)
+        assert "reference scan" in str(w[0].message)
         reset_warning_caches()
         assert tops.select_tier(_OddGrid, "cpu") == "reference"
         assert len(w) == 2
         with pytest.raises(ValueError, match="even grid width"):
             tops.select_tier(_OddGrid, "cuda")
         assert len(w) == 2
+        with pytest.raises(ValueError, match="even grid width"):
+            tops.check_kernel_grid(_OddGrid)
+    reset_warning_caches()
+
+
+class _OddJ(jgrid.GridConfig):
+    """res 4 one column narrower: nx 87, an odd width."""
+    nx = property(lambda self: 22 * self.res - 1)
+
+
+class _OddT(tgrid.GridConfig):
+    nx = property(lambda self: 22 * self.res - 1)
+
+
+def test_fused_odd_width_runs_the_reference_scan_and_counts():
+    """``backend="fused"`` on an odd width: both packages fall back to the
+    reference scan (one warning each), the port counts one fallback under
+    (kernel, shape), and its interval matches the reference's."""
+    from repro_torch import kernels
+    cj, ct = (c(res=4, dt=0.01, poisson_iters=8) for c in (_OddJ, _OddT))
+    assert ct.nx % 2 == 1
+    gj, gt = jgrid.build_geometry(cj), tgrid.build_geometry(ct)
+    reset_warning_caches()
+    key = ("fused_interval", (ct.ny, ct.nx))
+    n0 = kernels.FALLBACKS[key]
+    with pytest.warns(RuntimeWarning, match="reference scan"):
+        want, wout = jsolver.step_interval(
+            cj, jsolver.geom_to_arrays(gj), jsolver.init_state(cj, gj),
+            jnp.float32(0.3), 3, backend="fused")
+    with pytest.warns(RuntimeWarning, match="reference scan"):
+        got, gout = tsolver.step_interval(
+            ct, tsolver.geom_to_arrays(gt, "cpu"),
+            tsolver.init_state(ct, gt, "cpu"), 0.3, 3, backend="fused")
+    assert kernels.FALLBACKS[key] == n0 + 1
+    _check_flow(tuple(np.asarray(a) for a in want), got, "odd width")
+    assert_close(np.asarray(wout.cd), gout.cd, ATOL_CD, "odd width cd")
     reset_warning_caches()
 
 
