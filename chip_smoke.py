@@ -61,13 +61,19 @@ Phases (any failure exits non-zero):
    neighbours before a half-sweep is missing; and the synchronisation
    floor: 6100 handoffs at G 32 with no arithmetic through L2 flags, L2
    rows by flags, L2 tagged rows and DSMEM, in us a synchronisation; and
-   the odd grid widths, which no kernel serves: one ``backend="pallas"``
-   solve on an (8, 11) grid and one ``backend="fused"`` interval at res 8
-   one column narrower (nx 175) each raise on the card, launching no
-   kernel and counting no fallback (the card never runs the plain path in
-   a kernel's place; only a CPU call falls back, counted in
-   ``kernels.FALLBACKS``); after the last phase this process may have
-   counted no fallback;
+   the odd grid widths on their kernels (packed planes of ceil(nx / 2)
+   columns, a dead slot a row), each through its entry point on the tier
+   its plan names, with no fallback counted: ``backend="pallas"`` solves
+   of 4 grids at iters 60 on (8, 11), res 71 and res 95 one column
+   narrower (the full-grid library's full sweeps on the cluster, the
+   resident and the global-memory tier) within TOL_SOR of the reference's
+   full-grid sweep on the card, and ``backend="fused"`` intervals of 10 dt
+   at res 8 (2 envs), 48 and 56 (4 envs) one column narrower, scalar and
+   per-body (the three tiers) within TOL_FUSED of the reference scan on
+   the card, each timed beside its bound, and a build of both libraries
+   with the even row rule planted must fail the solves' and the scalar
+   intervals' checks; after the last phase this process may have counted
+   no fallback;
 2. the main path: ``train()`` on the card at full width (res 16, 50 dt per
    action, 60 SOR iterations, 2x512 MLP, 149 probes, 4 envs,
    backend="fused"), depth cut to 2 episodes; the fused kernel must run;
@@ -172,7 +178,7 @@ Phases (any failure exits non-zero):
    moments, generator state, step, env batch, history but its wall), its
    episode-2 checkpoint (a)'s final one; (c) a 1- and a 2-runner fleet of
    ``--plan 4,2,2`` (2 envs of 2 x-slabs each on the halo backend, one env
-   a runner in the second; 1 episode of 4 actions after a 1 t.u. warmup)
+   a runner in the second; 1 episode of 2 actions after a 0.5 t.u. warmup)
    whose final checkpoints must be equal bit for bit; (d) ``--plan auto``
    in 2 runners of 4 workers each (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``; 1
    episode of 2 actions after a 0.5 t.u. warmup):
@@ -527,7 +533,10 @@ def bound(nbytes, *work):
 def fused_case(dev, cfg, n_env, n_steps, **kw):
     """Inputs of a fused-kernel check and its two realizations: n_env
     perturbed impulsive starts mixing jets and rotary (``kw``: the
-    kernel's ``cluster`` and ``force_global``)."""
+    kernel's ``cluster`` and ``force_global``).  The plain one is the
+    kernel's twin, or on a grid of odd width the reference scan that the
+    kernel reproduces there (``solver.step_interval(backend=
+    "reference")``)."""
     import numpy as np
     import torch
     from repro_torch.cfd import grid, solver
@@ -549,6 +558,9 @@ def fused_case(dev, cfg, n_env, n_steps, **kw):
                                        act_mode=mode, **kw)
 
     def plain():
+        if cfg.nx % 2:
+            return solver.step_interval(cfg, ga, flow, jet, n_steps,
+                                        act_mode=mode, backend="reference")
         return ops.fused_interval_plain(cfg, ga, flow, jet, n_steps,
                                         act_mode=mode)
 
@@ -559,7 +571,8 @@ def bank_case(dev, cfg, n_env, n_steps, **kw):
     """Inputs of a per-body kernel check and its two realizations: the bank
     of every geometry, ``n_env`` envs cycling through BANK_ENVS, each from
     its geometry's perturbed impulsive start (``kw``: the kernel's
-    ``cluster`` and ``force_global``)."""
+    ``cluster`` and ``force_global``).  The plain one as
+    :func:`fused_case`'s."""
     import numpy as np
     import torch
     from repro_torch.cfd import grid, solver
@@ -585,6 +598,10 @@ def bank_case(dev, cfg, n_env, n_steps, **kw):
                                        act_mode=mode, geom_id=gid, **kw)
 
     def plain():
+        if cfg.nx % 2:
+            return solver.step_interval(cfg, bank, flow, amp, n_steps,
+                                        act_mode=mode, geom_id=gid,
+                                        backend="reference")
         return ops.fused_interval_plain(cfg, bank, flow, amp, n_steps,
                                         act_mode=mode, geom_id=gid)
 
@@ -649,6 +666,14 @@ NO_CROSS_WAIT = (("resident.cuh",
                   "for (unsigned polls = 0; static_cast<unsigned>(w >> 32) "
                   "!= gen; ++polls) {",
                   "for (unsigned polls = 0; false; ++polls) {"),)
+# The planted fault of the odd widths (csrc/sor_packed.cuh sweep_row): the
+# even layout's row rule on an odd grid, so a shift row's dead slot is
+# swept with the outlet's ghost (-self) and a non-shift row's last point
+# reads the other colour's dead slot in place of the outlet's ghost; in the
+# two libraries that serve odd widths
+ODD_GHOST = (("sor_packed.cuh", "constexpr bool kOddRule = kOddW;",
+              "constexpr bool kOddRule = false;"),)
+ODD_GHOST_KERNELS = ("fused_interval", "poisson_sor_full")
 
 
 def start_variant_build(tag, faults, kernels=STALE_HALO_KERNELS):
@@ -2027,53 +2052,205 @@ def odd_grid(res, **kw):
     return Odd(res=res, **kw)
 
 
-def odd_widths(dev):
-    """Phase 1: the odd grid widths on the card.  A ``backend="pallas"``
-    solve on an (8, 11) grid and a ``backend="fused"`` interval (res 8 one
-    column narrower, 2 envs, 10 dt) each raise ``ValueError``, launch no
-    kernel and count no fallback in ``kernels.FALLBACKS``: no kernel has
-    their checkerboard parity, and the card never runs the plain path in a
-    kernel's place.  Returns each case's message."""
+# phase 1's odd grid widths, each grid one column narrower than a grid of
+# the tier named (GridConfig(res) has an even width): the pallas solve
+# ((tier, grid (ny, nx) or res), 4 grids, iters 60) and the fused interval
+# ((tier, res, envs), ODD_STEPS dt, the scalar and the per-body
+# instantiation)
+ODD_SOLVES = (("cluster", (8, 11)), ("resident", 71), ("global", 95))
+ODD_INTERVALS = (("cluster", 8, 2), ("resident", 48, 4), ("global", 56, 4))
+ODD_STEPS = 10
+ODD_SOLVE_ITERS = 60
+
+
+def odd_report(row, secs):
+    """Print an odd-width case's line: its tier, G and C, launches, device
+    ms, the share of the bound, the error, the planted fault's reading and
+    the case's seconds."""
+    plan = row["plan"]
+    print(f"[odd width] {row['shape']}: the {plan['kernel']} kernel, G "
+          f"{plan['size']} C {plan['cluster']}, {row['launches']} "
+          f"launch(es) ({row['blocks']} blocks on {row['sms_busy']} "
+          f"distinct SMs), {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} "
+          f"ms), bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+          f"{row['bound_ms'] / row['ms']:.4f} of it; max|kernel - plain| "
+          f"{row['max_abs_err']:.3e}; planted even row rule: "
+          f"{row['odd_ghost_variant']}; {secs:.2f} s")
+
+
+def odd_launches_as_planned(launched, name, plan, per_body=None):
+    """Whether ``launched`` (counts()) holds ``plan``'s launches of the
+    wrapper ``name`` on its tier and none of any other kernel."""
+    from repro_torch import kernels
+    want = {name: plan.launches}
+    if plan.kernel != "cluster":
+        want[f"{name}_{plan.kernel}"] = plan.launches
+    if per_body:
+        want["fused_interval_per_body"] = plan.launches
+    return ({k: v for k, v in launched.items() if v} == want
+            and not sum(kernels.FALLBACKS.values()))
+
+
+def odd_solve_case(dev, tier, grid, wrong):
+    """One odd-width ``poisson.solve(backend="pallas")`` of 4 grids at
+    iters 60 (polish 10) from a warm start: one launch of the full-grid
+    library's full sweeps on the tier ``tier``, no fallback, within
+    TOL_SOR of the reference's full-grid sweep on the card (``backend=
+    "full"``), timed; the planted even rule (the library ``wrong``) must
+    fall outside TOL_SOR."""
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.cfd import grid as tgrid
-    from repro_torch.cfd import poisson, solver
-    rhs = torch.tensor(np.random.default_rng(21).standard_normal((8, 11)),
-                       dtype=torch.float32, device=dev)
-    cfg = odd_grid(8, dt=0.005, poisson_iters=60)
-    geom = tgrid.build_geometry(cfg)
+    from repro_torch.cfd import poisson
+    from repro_torch.kernels.poisson import ops
+    t0 = time.perf_counter()
+    if isinstance(grid, tuple):
+        (ny, nx), dx, dy, what = grid, 0.1, 0.1, f"grid {grid}"
+    else:
+        cfg = odd_grid(grid)
+        ny, nx, dx, dy = cfg.ny, cfg.nx, cfg.dx, cfg.dy
+        what = f"res {grid} - 1, grid ({ny}, {nx})"
+    rng = np.random.default_rng(21)
+    rhs, p0 = (torch.tensor(s * rng.standard_normal((4, ny, nx)),
+                            dtype=torch.float32, device=dev)
+               for s in (1.0, 0.1))
+    iters = ODD_SOLVE_ITERS
 
-    def solve():
-        poisson.solve(rhs, 0.1, 0.1, iters=60, backend="pallas")
+    def kernel():
+        return poisson.solve(rhs, dx, dy, iters=iters, p0=p0,
+                             backend="pallas")
 
-    def interval():
-        st = solver.FlowState(*(a.expand(2, *a.shape).contiguous()
-                                for a in solver.init_state(cfg, geom, dev)))
-        solver.step_interval(cfg, solver.geom_to_arrays(geom, dev), st,
-                             torch.tensor([0.3, -0.2], device=dev), 10,
-                             backend="fused")
+    def plain():
+        return poisson.solve(rhs, dx, dy, iters=iters, p0=p0,
+                             backend="full")
 
-    out = {}
-    for kernel, shape, run in (("rb_sor_slabs_packed", (8, 11), solve),
-                               ("fused_interval", (cfg.ny, cfg.nx),
-                                interval)):
-        reset_counts()
-        try:
-            run()
-            torch.cuda.synchronize()
-            err = None
-        except ValueError as e:
-            err = str(e)
-        launched = {k: v for k, v in counts().items() if v}
-        print(f"[odd width] {kernel} on grid {shape}: raises ({err}), "
-              f"launches {launched}, fallbacks {dict(kernels.FALLBACKS)}")
-        if (err is None or "even grid width" not in err or launched
-                or sum(kernels.FALLBACKS.values())):
-            fail(f"odd width {kernel} on {shape}: error {err!r}, launches "
-                 f"{launched}, fallbacks {dict(kernels.FALLBACKS)}")
-        out[f"{kernel} {shape}"] = err
-    return out
+    reset_counts()
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    launched = counts()
+    wrapper = ops.full_sweeps_cuda
+    plan = wrapper.last_plan
+    if plan.kernel != tier or not odd_launches_as_planned(
+            launched, "rb_sor_full_sweeps", plan):
+        fail(f"the odd-width pallas solve on {what} ran {plan} with "
+             f"launches {launched} and fallbacks {dict(kernels.FALLBACKS)}:"
+             f" expected the {tier} kernel's full sweeps and no fallback")
+    err = float((out - ref).abs().max())
+    if not err <= TOL_SOR:
+        fail(f"the odd-width pallas solve on {what} differs from the "
+             f"reference's full-grid sweep by {err:.3e}")
+    with library_swapped("poisson_sor_full", wrong):
+        planted = float((kernel() - ref).abs().max())
+    if planted <= TOL_SOR:
+        fail(f"TOL_SOR cannot tell full sweeps under the even row rule from "
+             f"right ones on {what}")
+    ms = cuda_ms(kernel, 10)
+    plain_ms = cuda_ms(plain, 1)
+    flops, nbytes = ops.work(4, ny, nx, iters, 1)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    blocks, sms_busy = blocks_ran(wrapper.last_block_sms)
+    row = {"name": "rb_sor_full_sweeps", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/poisson_sor_full.cu",
+           "replaces": "src/repro/kernels/poisson/kernel.py:37",
+           "launches": launched["rb_sor_full_sweeps"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library": "no single PyTorch call computes this",
+           "plan": dataclasses.asdict(plan), "blocks": blocks,
+           "sms_busy": sms_busy,
+           "odd_ghost_variant": f"max|kernel - plain| {planted:.3e}, "
+                                f"rejected (tol {TOL_SOR:.0e})",
+           "shape": f"poisson.solve(backend='pallas'), {what}, 4 grids, "
+                    f"iters {iters}"}
+    odd_report(row, time.perf_counter() - t0)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def odd_interval_case(dev, tier, res, n_env, case, wrong):
+    """One odd-width ``fused_interval_cuda`` call (``case``: fused_case,
+    the scalar instantiation, or bank_case, the per-body one) of ODD_STEPS
+    dt at res ``res`` one column narrower: its launches on the tier
+    ``tier``, within TOL_FUSED of the reference scan on the card, timed;
+    with ``wrong`` (the planted even rule) it must fall outside
+    TOL_FUSED."""
+    from repro_torch import kernels
+    from repro_torch.kernels.actuation import ops
+    t0 = time.perf_counter()
+    cfg = odd_grid(res)
+    per_body = case is bank_case
+    kernel, plain = case(dev, cfg, n_env, ODD_STEPS)
+    what = (f"{'<3>' if per_body else '<0>'} res {res} - 1, grid "
+            f"({cfg.ny}, {cfg.nx}), N={n_env}, {ODD_STEPS} dt")
+    reset_counts()
+    errs = fused_errors(kernel, plain)
+    launched = counts()
+    plan = ops.fused_interval_cuda.last_plan
+    if plan.kernel != tier or not odd_launches_as_planned(
+            launched, "fused_interval", plan, per_body):
+        fail(f"the odd-width fused interval {what} ran {plan} with launches"
+             f" {launched} and fallbacks {dict(kernels.FALLBACKS)}: "
+             f"expected the {tier} kernel and no fallback")
+    if not fused_report(f"fused_interval odd width {what} against the "
+                        f"reference scan", errs):
+        fail(f"the odd-width fused interval {what} differs from the "
+             f"reference scan: {errs}")
+    planted = "not run"
+    if wrong is not None:
+        with library_swapped("fused_interval", wrong):
+            bad = fused_errors(kernel, plain)
+        over = max(bad[k] / TOL_FUSED[k] for k in bad)
+        if over <= 1:
+            fail(f"TOL_FUSED cannot tell a fused interval under the even row"
+                 f" rule from a right one on {what}: {bad}")
+        planted = (", ".join(f"{k} {v:.3e}" for k, v in bad.items())
+                   + f", rejected ({over:.3g}x its limit at most)")
+    ms = cuda_ms(kernel, 3)
+    plain_ms = cuda_ms(plain, 1)
+    if per_body:
+        n_geoms = len({BANK_ENVS[i % len(BANK_ENVS)][0]
+                       for i in range(n_env)})
+        flops, nbytes = ops.work(cfg, n_env, ODD_STEPS, ops.N_BODIES, n_geoms)
+    else:
+        flops, nbytes = ops.work(cfg, n_env, ODD_STEPS)
+    bound_ms, bound_by = bound(nbytes, (flops, FP32_PEAK))
+    _, blocks, sms_busy = fused_launch()
+    row = {"name": "fused_interval", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fused_interval.cu",
+           "replaces": "src/repro/kernels/actuation/kernel.py:39",
+           "launches": launched["fused_interval"],
+           "max_abs_err": max(errs.values()), "errors": errs,
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library": "no single PyTorch call computes this",
+           "plan": dataclasses.asdict(plan), "blocks": blocks,
+           "sms_busy": sms_busy, "odd_ghost_variant": planted,
+           "shape": f"fused_interval_cuda {what}"}
+    odd_report(row, time.perf_counter() - t0)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def odd_widths(dev, wrong):
+    """Phase 1: the odd grid widths on the card, each through its entry
+    point and on the tier its plan names, none counted as a fallback: the
+    pallas solve (ODD_SOLVES) on the full-grid library's full sweeps,
+    against the reference's full-grid sweep on the card; the fused
+    interval (ODD_INTERVALS) in its scalar and per-body instantiations,
+    against the reference scan on the card; the planted even row rule
+    (``wrong``: the odd_ghost variants of the two libraries) rejected on
+    every case of the scalar ones.  Returns the rows under the full-grid
+    SOR's and the fused interval's entries of the kernels line."""
+    sweeps = {tier: odd_solve_case(dev, tier, grid,
+                                   wrong["poisson_sor_full"])
+              for tier, grid in ODD_SOLVES}
+    fused = {}
+    for tier, res, n_env in ODD_INTERVALS:
+        fused[tier] = odd_interval_case(dev, tier, res, n_env, fused_case,
+                                        wrong["fused_interval"])
+        fused[f"{tier}_per_body"] = odd_interval_case(dev, tier, res, n_env,
+                                                      bank_case, None)
+    return fused, sweeps
 
 
 def wrappers():
@@ -2085,6 +2262,7 @@ def wrappers():
     return {"fused_interval": aops.fused_interval_cuda,
             "rb_sor_slabs_packed": pops.rb_sor_slabs_packed_cuda,
             "rb_sor_slabs": pops.rb_sor_slabs_cuda,
+            "rb_sor_full_sweeps": pops.full_sweeps_cuda,
             "flash_attention": fops.flash_attention_bf16_cuda,
             "flash_attention_f16": fops.flash_attention_f16_cuda,
             "flash_attention_fp32": fops.flash_attention_fp32_cuda,
@@ -2095,7 +2273,8 @@ FLASH_WRAPPERS = ("flash_attention", "flash_attention_f16",
                   "flash_attention_fp32")
 # the CFD wrappers, each of which launches a cluster, a resident or a
 # global-memory kernel
-GLOBAL_WRAPPERS = ("fused_interval", "rb_sor_slabs_packed", "rb_sor_slabs")
+GLOBAL_WRAPPERS = ("fused_interval", "rb_sor_slabs_packed", "rb_sor_slabs",
+                   "rb_sor_full_sweeps")
 
 
 def reset_counts():
@@ -3670,10 +3849,9 @@ def fleet_path(card):
 
     # (c) a multi-rank plan across the fleet: (4, 2, 2), 2 envs of 2
     # x-slabs each on the halo backend, one env a runner in the 2-runner
-    # fleet; depth cut to 1 episode of 4 actions after a 1 t.u. warmup (at
-    # 2 actions after 0.5 t.u. the two fleets' final actor weights differ)
+    # fleet; depth cut to 1 episode of 2 actions after a 0.5 t.u. warmup
     halo_depth = ["--plan", "4,2,2", "--n-envs", 2, "--episodes", 1,
-                  "--actions-per-episode", 4, "--warmup", 1]
+                  "--actions-per-episode", 2, "--warmup", 0.5]
     halo = {}
     for procs in (1, 2):
         wd, stdout, secs = launch(f"halo_p{procs}", "--processes", procs,
@@ -3687,8 +3865,8 @@ def fleet_path(card):
         st = stats(stdout)
         halo[procs] = final
         print(f"[fleet halo p={procs}] plan (4, 2, 2): 2 envs x 2 slabs on "
-              f"the halo backend, {procs} runner(s); 1 episode of 4 actions "
-              f"after a 1 t.u. warmup in {secs:.3f} s of launcher; episode "
+              f"the halo backend, {procs} runner(s); 1 episode of 2 actions "
+              f"after a 0.5 t.u. warmup in {secs:.3f} s of launcher; episode "
               f"wall {st['wall']} s; plan recorded {final[1]['plan']}; "
               f"card {card}")
         if final[1]["plan"] != {"n_envs": 2, "n_ranks": 2, "backend": "halo",
@@ -6838,12 +7016,15 @@ def main():
         return
     stale_halo_jobs = start_stale_halo_build()
     no_cross_wait_jobs = start_variant_build("no_cross_wait", NO_CROSS_WAIT)
+    odd_ghost_jobs = start_variant_build("odd_ghost", ODD_GHOST,
+                                         ODD_GHOST_KERNELS)
     _, secs = wall(lambda: build.build(verbose=True))
     print(f"[build] {len(build.SOURCES)} kernels built in {secs:.2f} s -> "
           f"{build.BUILD_DIR}")
     stale_halo = stale_halo_libraries(stale_halo_jobs)
     no_cross_wait = stale_halo_libraries(no_cross_wait_jobs,
                                          "no-cross-wait")
+    odd_ghost = stale_halo_libraries(odd_ghost_jobs, "odd-ghost")
     dev = torch.device("cuda")
 
     # each phase's seconds, phases 1-13 here (14-19 print their own)
@@ -6903,7 +7084,7 @@ def main():
     wkv.update(check_wkv6_wide(dev, get_config("rwkv6-3b"), S=4096))
     wkv.update(check_wkv6_f16_and_past_1024(dev, get_config("rwkv6-3b"),
                                             S=4096))
-    fused["odd_width_raises"] = odd_widths(dev)
+    fused["odd_width"], sor_full["odd_width"] = odd_widths(dev, odd_ghost)
     done(1)
 
     # 2. the main path: training at full width, depth cut to 2 episodes
@@ -7186,8 +7367,9 @@ def main():
     if sum(kernels_mod.FALLBACKS.values()):
         fail(f"fallbacks counted in this process: "
              f"{dict(kernels_mod.FALLBACKS)}")
-    print("[fallbacks] none counted in this process (phases 1-20); the "
-          "child processes run on the card, where an odd width raises")
+    print("[fallbacks] none counted in this process (phases 1-20), phase "
+          "1's odd widths included (each on its kernel); the child "
+          "processes run on the card, which counts none either")
     now = time.perf_counter()
     print(f"[chip_smoke] phases 1-20 in {now - lap['start']:.3f} s after "
           f"the build; the whole script {now - script_start:.3f} s")

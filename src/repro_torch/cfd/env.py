@@ -97,6 +97,15 @@ class EnvOutput(NamedTuple):
     valid: torch.Tensor = None    # 1.0 healthy / 0.0 quarantined (sentinel)
 
 
+def _mean_each(x, dim: int):
+    """The mean over ``dim`` of each env's slice alone, as
+    ``solver._sum_each`` sums: torch's batched mean on the card depends on
+    the batch (the rows it reduces, each row's alignment), so an env's C_D
+    over an interval would differ by an ulp between a fleet runner holding
+    one env and one holding two."""
+    return solver._sum_each(x.movedim(dim, -1), 1) / x.shape[dim]
+
+
 def _sel(ok, healthy, fallback):
     """Per-env select: ``ok`` (...,) against fields with trailing dims."""
     cond = ok.reshape(ok.shape + (1,) * (healthy.dim() - ok.dim()))
@@ -357,17 +366,18 @@ class CylinderEnv:
                                           geom_id=geom_id,
                                           cluster=self.cluster,
                                           mesh=self.mesh)
+        # each env's reductions alone (_mean_each), whatever the batch
         if per_body:
             # (..., n_steps, B): the drag term is the total, the lift is
             # penalized per body, so opposite body lifts do not cancel
-            cd_b = torch.mean(outs.cd, dim=-2)
-            cl_b = torch.mean(outs.cl, dim=-2)
-            cd = torch.sum(cd_b, dim=-1)
-            cl = torch.sum(cl_b, dim=-1)
-            cl_pen = torch.sum(torch.abs(cl_b), dim=-1)
+            cd_b = _mean_each(outs.cd, -2)
+            cl_b = _mean_each(outs.cl, -2)
+            cd = solver._sum_each(cd_b, 1)
+            cl = solver._sum_each(cl_b, 1)
+            cl_pen = solver._sum_each(torch.abs(cl_b), 1)
         else:
-            cd = torch.mean(outs.cd, dim=-1)
-            cl = torch.mean(outs.cl, dim=-1)
+            cd = _mean_each(outs.cd, -1)
+            cl = _mean_each(outs.cl, -1)
             cl_pen = torch.abs(cl)
         reward = st.scn.cd0 - cd - cfg.reward_omega * cl_pen   # eq. (12)
         if st.reset_flow is None:     # sentinel off

@@ -12,7 +12,8 @@ the backends:
   "pallas"     the packed-SOR slab kernel (``repro_torch.kernels.poisson``),
                named as in ``repro`` so both packages' backend names match:
                the hand-written CUDA kernel on CUDA tensors, its plain twin
-               on CPU tensors
+               on CPU tensors; on an odd width the full-grid kernel's full
+               sweeps on CUDA tensors, the reference path on CPU ones
   "halo"       the explicit x-slab decomposition with halo messages
                (``cfd/decomp.py``) over a mesh's "model" axis: the
                paper's N_ranks > 1 configuration
@@ -189,9 +190,12 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
     ``backend="pallas"`` runs ``ceil(n_sor / inner_iters)`` rounds of the
     slab kernel (so 52 SOR pairs where "packed" does 50 at iters=60), then
     the polish pairs on the packed planes, as ``repro`` does.  On an odd
-    grid width it has no checkerboard parity: a CPU tensor falls back to
-    the reference path (warning once per shape, counted in
-    ``kernels.FALLBACKS``), a CUDA tensor raises.
+    grid width the slab kernel has no checkerboard parity and the
+    reference runs its full-grid sweep instead: a CPU tensor falls back to
+    that reference path (warning once per shape, counted in
+    ``kernels.FALLBACKS``), a CUDA tensor runs the same sweep in one
+    launch of a hand-written kernel (``kernels.poisson.ops.full_sweeps``:
+    ``iters`` pairs, no slabs and no rounds, no warning, no count).
     ``backend="halo"`` runs ``cfd/decomp``'s explicit x-slab decomposition
     over ``mesh``'s ``halo_axis`` (``halo_inner`` local sweep pairs per
     halo exchange): the paper's N_ranks > 1 configuration."""
@@ -213,10 +217,11 @@ def solve(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
         backend = "reference"
     if backend == "pallas" and nx % 2:
         if rhs.device.type == "cuda":
-            raise ValueError(
-                f"backend='pallas' needs an even grid width for checkerboard "
-                f"slab parity, got grid (ny={ny}, nx={nx}); the slab kernel "
-                f"cannot serve it, use backend='reference'")
+            from repro_torch.kernels.poisson import ops as poisson_ops
+            n_pol = n_polish(iters, polish)
+            return poisson_ops.full_sweeps(
+                rhs, torch.zeros_like(rhs) if p0 is None else p0, dx, dy,
+                iters=iters, n_sor=iters - n_pol, omega=float(omega))
         if (ny, nx) not in _ODD_NX_WARNED:
             _ODD_NX_WARNED.add((ny, nx))
             warnings.warn(

@@ -94,12 +94,18 @@ def _per_env(x):
 def _sum_each(x, dims: int):
     """Sum over the last ``dims`` axes, one reduction per leading index.
     torch's batched sum on the card picks its block shape from the number
-    of rows it reduces, so one env's float32 sum would depend on how many
-    envs share the batch; summed alone it does not (fleet runners holding
-    different numbers of envs agree bit for bit)."""
+    of rows it reduces, and a sum's vectorized loads follow the alignment
+    of its first element, which a slice of a batch need not share with an
+    env alone (a u-face field of 66 x 353 floats puts env 1 on 8 bytes),
+    so one env's float32 sum would depend on how many envs share the
+    batch.  Each env's slice is summed alone, on the card from a copy of
+    its own (the CPU's loops do not depend on where a slice starts): fleet
+    runners holding different numbers of envs agree bit for bit."""
     lead = x.shape[:-dims]
     rows = x.reshape((-1,) + tuple(x.shape[-dims:]))
-    return torch.stack([r.sum() for r in rows.unbind(0)]).reshape(lead)
+    alone = (lambda r: r.clone()) if x.is_cuda else (lambda r: r)
+    return torch.stack([alone(r).sum() for r in rows.unbind(0)]
+                       ).reshape(lead)
 
 
 def init_state(cfg: GridConfig, geom: Geometry, device="cuda") -> FlowState:
@@ -341,10 +347,11 @@ def step_interval(cfg: GridConfig, geom_arrays: GeomArrays, state: FlowState,
     fused-interval kernel (the cluster kernel up to res 38, the resident
     kernel where a group of up to 32 blocks holds the bands, res 39 to 52,
     the global-memory kernel past that), on a CPU tensor its plain twin.
-    An odd width raises on a CUDA tensor (no kernel has its checkerboard
-    parity, and the card never runs the plain loop in a kernel's place);
-    on a CPU tensor it falls back to the reference loop with a
-    once-per-shape warning, counted in ``kernels.FALLBACKS``.
+    An odd width runs the same kernels on a CUDA tensor (their packed
+    planes ``(nx + 1) // 2`` wide: the reference loop's arithmetic, the
+    card never runs the plain loop in a kernel's place); on a CPU tensor
+    it falls back to the reference loop with a once-per-shape warning,
+    counted in ``kernels.FALLBACKS``.
     ``cluster`` fixes the kernel's blocks an env on the card (the cluster
     size, or G; None: its own choice; the CPU twin and the other backends
     ignore it).  Every other

@@ -36,7 +36,8 @@ COUNTERS: list = []
 # keyed by (kernel, grid shape): an odd grid width has no checkerboard
 # parity, so ``backend="fused"`` and ``backend="pallas"`` fall back on it
 # as the reference's do (warning once per shape).  On the card such a call
-# raises, as does a kernel that fails to build or launch
+# runs a kernel (its planes ``(nx + 1) // 2`` wide), and a kernel that
+# fails to build or launch raises
 FALLBACKS: collections.Counter = collections.Counter()
 
 

@@ -23,12 +23,14 @@ pressure parity planes carried across every dt:
 Tier selection (:func:`select_tier`): a CPU state on a grid of odd width
 (no checkerboard parity) falls back to the reference loop, warning once
 per grid shape in the reference's words and counted in
-``kernels.FALLBACKS``.  A CUDA state on a grid of odd width raises: the
-card never runs the plain loop in a kernel's place.  Which kernel serves
-an even grid (:func:`check_kernel_grid`) follows the shared memory a block
-holds, the analogue of the reference's VMEM budget: the cluster kernel
-where a 16-block cluster holds one env's bands, the resident kernel where
-a group of up to 32 blocks does (res 39 to 52 at the default aspect), the
+``kernels.FALLBACKS``.  A CUDA state on a grid of odd width runs the
+kernels, their packed planes ``(nx + 1) // 2`` wide with a dead slot a
+row: every phase of a dt is then the reference loop's, the SOR its
+full-grid sweep point for point.  Which kernel serves a grid
+(:func:`check_kernel_grid`) follows the shared memory a block holds, the
+analogue of the reference's VMEM budget: the cluster kernel where a
+16-block cluster holds one env's bands, the resident kernel where a group
+of up to 32 blocks does (res 39 to 52 at the default aspect), the
 global-memory kernel past it.
 """
 from __future__ import annotations
@@ -47,7 +49,8 @@ from repro_torch.kernels import cluster as kcluster
 from repro_torch.kernels.cluster import (CLUSTER_SIZES, FLAG_STRIDE,
                                          LaunchPlan, band_starts,
                                          block_shape, mirror_floats,
-                                         resident_shape, rows_max)
+                                         packed_width, resident_shape,
+                                         rows_max)
 
 # the body count of the kernel's per-body instantiation
 # (csrc/fused_interval.cu kBodies): the widest registered geometry
@@ -126,9 +129,10 @@ def smem_bytes(ny: int, nx: int, cluster: int, n_bodies: int = 0) -> int:
     grid spreads over ``cluster`` blocks: the block's band (the largest of
     the partition) of u, v, u_pen, v_pen and the four packed planes, with
     their halo rows, the halo exchange's mbarriers and the reduction
-    slots; ``n_bodies`` is the instantiation's body count (0: scalar)."""
+    slots; ``n_bodies`` is the instantiation's body count (0: scalar).
+    The packed planes are :func:`packed_width` wide."""
     r = rows_max(band_starts(ny, cluster))
-    w = nx // 2
+    w = packed_width(nx)
     floats = ((r + 2) * (nx + 1)      # u, halo rows above and below
               + (r + 3) * nx          # v, halo above, below and the wall
               + r * nx                # u_pen (its outlet column implied)
@@ -174,8 +178,9 @@ def env_floats(ny: int, nx: int) -> int:
     """Floats of one env's fields in the global-memory kernel's workspace
     (csrc/fused_interval.cu ws_floats): the env as one band of all ny rows,
     u (ny + 2) x (nx + 1), v (ny + 3) x nx, u_pen ny x nx, v_pen (ny + 1) x
-    nx, red and black (ny + 2) x w, rhs_r and rhs_b ny x w."""
-    w = nx // 2
+    nx, red and black (ny + 2) x w, rhs_r and rhs_b ny x w, w the
+    :func:`packed_width`."""
+    w = packed_width(nx)
     return ((ny + 2) * (nx + 1) + (ny + 3) * nx + ny * nx + (ny + 1) * nx
             + 2 * (ny + 2) * w + 2 * ny * w)
 
@@ -211,13 +216,9 @@ def check_kernel_grid(cfg: GridConfig, n_bodies: int = 0) -> str:
     at most 16 bands, fit the shared memory of one block each (res <= 38
     at the default aspect, either instantiation), "resident" where they
     do cut into a group of G = K C <= 32 bands (res 39 to 52), "global" on
-    every other grid.  ``ValueError`` on an odd width."""
+    every other grid, whatever the width's parity (an odd one's planes are
+    :func:`packed_width` wide)."""
     ny, nx = cfg.ny, cfg.nx
-    if nx % 2:
-        raise ValueError(
-            f"backend='fused' needs an even grid width for packed "
-            f"checkerboard parity, got grid (ny={ny}, nx={nx}); use "
-            f"backend='reference' for this grid")
     if _fitting_clusters(ny, nx, SMEM_PER_BLOCK, n_bodies):
         return "cluster"
     if _resident_groups(ny, nx, SMEM_PER_BLOCK, n_bodies):
@@ -256,8 +257,8 @@ def select_tier(cfg: GridConfig, device, n_bodies: int = 0) -> str:
 
     "cuda"       CUDA tensors: a hand-written kernel (its instantiation for
                  ``n_bodies``, 0: scalar; the cluster, the resident or the
-                 global-memory kernel, :func:`check_kernel_grid`); an odd
-                 width raises
+                 global-memory kernel, :func:`check_kernel_grid`), on a
+                 grid of either width parity
     "plain"      CPU tensors: its plain PyTorch twin
     "reference"  CPU tensors on a grid of odd width (warns once per shape,
                  in the reference's words)
@@ -409,8 +410,8 @@ def active_clusters(dev, cfg: GridConfig, size: int, n_bodies: int = 0
     """``cudaOccupancyMaxActiveClusters`` for the launch shape of ``size``
     blocks on ``cfg``'s grid (the instantiation for ``n_bodies``, 0:
     scalar), read once per shape and card."""
-    threads, _ = block_shape(cfg.nx // 2, rows_max(band_starts(cfg.ny,
-                                                               size)))
+    threads, _ = block_shape(packed_width(cfg.nx),
+                             rows_max(band_starts(cfg.ny, size)))
     query = ("fused_interval_bodies_max_clusters" if n_bodies
              else "fused_interval_max_clusters")
     return kcluster.active_clusters(
@@ -427,7 +428,7 @@ def resident_launch_shape(cfg: GridConfig, group: int) -> tuple:
     global-memory kernel's (:func:`global_shape`), so that the two kernels
     add in one order; the block takes the larger thread count."""
     rows = rows_max(band_starts(cfg.ny, group))
-    threads, tx = resident_shape(cfg.nx // 2, rows)
+    threads, tx = resident_shape(packed_width(cfg.nx), rows)
     pred_threads, pred_tx = global_shape(cfg, group)
     return rows, max(threads, pred_threads), tx, pred_threads, pred_tx
 
@@ -450,7 +451,8 @@ def global_shape(cfg: GridConfig, group: int) -> tuple:
     """``(threads, tx)`` of a block of the global-memory kernel with
     ``group`` blocks an env (:func:`repro_torch.kernels.cluster.
     block_shape` over its largest band)."""
-    return block_shape(cfg.nx // 2, rows_max(band_starts(cfg.ny, group)))
+    return block_shape(packed_width(cfg.nx),
+                       rows_max(band_starts(cfg.ny, group)))
 
 
 def resident_blocks(dev, cfg: GridConfig, group: int, n_bodies: int = 0
@@ -633,7 +635,7 @@ def fused_interval_cuda(cfg: GridConfig, geom_arrays, state, jet_vel,
         if plan.kernel == "cluster":
             starts = band_starts(ny, size)
             rows = rows_max(starts)
-            threads, tx = block_shape(nx // 2, rows)
+            threads, tx = block_shape(packed_width(nx), rows)
             starts_c = (ctypes.c_int * len(starts))(*starts)
             err = lib.fused_interval_launch(
                 *operands, n, ny, nx, n_steps, iters, n_polish, size,
@@ -701,9 +703,9 @@ def fused_interval(cfg: GridConfig, geom_arrays, state: solver.FlowState,
     global-memory kernel on a grid the cluster or the resident kernel
     holds).  The realization
     follows :func:`select_tier` for the state's device: a CUDA state
-    launches a kernel or raises, it never falls back to the twin or the
-    reference loop; a CPU state on an odd width runs the reference loop,
-    counted in ``kernels.FALLBACKS``."""
+    launches a kernel (on either width parity) or raises, it never falls
+    back to the twin or the reference loop; a CPU state on an odd width
+    runs the reference loop, counted in ``kernels.FALLBACKS``."""
     per_body = solver.is_per_body(jet_vel, state.u)
     n_bodies = N_BODIES if per_body else 0
     tier = select_tier(cfg, state.u.device, n_bodies)

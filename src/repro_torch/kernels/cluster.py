@@ -42,6 +42,14 @@ RESIDENT_GROUPS = (24, 32)
 RESIDENT_CLUSTERS = (16, 8, 4, 2)
 
 
+def packed_width(nx: int) -> int:
+    """The packed checkerboard planes' width of an ``nx``-wide grid:
+    ``nx // 2``, or ``(nx + 1) // 2`` on an odd width, where one plane's
+    last slot on each row is dead, grid column ``nx`` (red's on odd rows,
+    black's on even ones; ``csrc/sor_packed.cuh``)."""
+    return (nx + 1) // 2
+
+
 def band_starts(ny: int, cluster: int) -> tuple:
     """The band partition of ``ny`` rows over a cluster: rank r owns rows
     ``[starts[r], starts[r + 1])``; rows per rank differ by at most one.

@@ -79,6 +79,14 @@
 //     the default aspect) the global-memory kernel below runs the same
 //     phases, the same functions on a band view of the env's fields in a
 //     workspace in global memory, ordered by flags (grid_sync.cuh).
+//   * A grid of odd width, where the reference's megakernel has no
+//     checkerboard parity and its fused interval runs its reference scan
+//     instead (src/repro/kernels/actuation/ops.py:83-91), runs the same
+//     kernels: the packed planes are (nx + 1) / 2 wide with a dead slot on
+//     each row (sor_packed.cuh's odd row rule), which the divergence, the
+//     correction, the load and the store skip.  The packed SOR sweeps the
+//     reference's full-grid SOR point for point, so every phase of a dt is
+//     the reference scan's.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -319,15 +327,27 @@ __device__ __forceinline__ Actuation<NB> env_actuation(
   return a;
 }
 
+// The packed planes' width: nx / 2, or (nx + 1) / 2 on an odd width, whose
+// rows each hold one dead slot (sor_packed.cuh).  The device functions take
+// the width's parity as kOdd, so an even grid's code is the even width's
+// alone.
+__host__ __device__ inline int packed_width(int nx) { return (nx + 1) / 2; }
+template <bool kOdd>
+__device__ __forceinline__ int packed_w(int nx) {
+  return kOdd ? (nx + 1) / 2 : nx / 2;
+}
+
 // Load the band's rows lj in [lo, u_hi] of u and of the packed pressure
 // planes and [lo, v_hi] of v from the env's input; the wall ghost rows of
-// _pad_u / _pad_v (-u, 0 * v) where the band meets a wall.
+// _pad_u / _pad_v (-u, 0 * v) where the band meets a wall; a dead slot of
+// the planes 0.
+template <bool kOdd>
 __device__ __forceinline__ void load_rows(const Band& b, const float* u_in,
                                           const float* v_in,
                                           const float* p_in, const Lanes& l,
                                           int ny, int nx, int lo, int u_hi,
                                           int v_hi) {
-  const int nxu = nx + 1, w = nx / 2;
+  const int nxu = nx + 1, w = packed_w<kOdd>(nx);
   for (int lj = lo + l.ty; lj <= u_hi; lj += l.TY) {
     const int j = b.j0 + lj;
     const float sign = (j < 0 || j >= ny) ? -1.0f : 1.0f;
@@ -346,8 +366,11 @@ __device__ __forceinline__ void load_rows(const Band& b, const float* u_in,
     const bool inside = j >= 0 && j < ny;
     const float* src = p_in + static_cast<size_t>(inside ? j : 0) * nx;
     for (int k = l.tx; k < w; k += l.TX) {
-      b.red[(lj + 1) * w + k] = inside ? src[2 * k + (j & 1)] : 0.0f;
-      b.black[(lj + 1) * w + k] = inside ? src[2 * k + 1 - (j & 1)] : 0.0f;
+      const int ir = 2 * k + (j & 1), ib = 2 * k + 1 - (j & 1);
+      b.red[(lj + 1) * w + k] =
+          inside && (!kOdd || ir < nx) ? src[ir] : 0.0f;
+      b.black[(lj + 1) * w + k] =
+          inside && (!kOdd || ib < nx) ? src[ib] : 0.0f;
     }
   }
 }
@@ -558,36 +581,47 @@ __device__ __forceinline__ void write_coefficients(float* cd_out,
   }
 }
 
-// -- C: divergence rhs into the two rhs planes.  The outlet column of
-//    u_bc is u_pen's column -2 plus the mass correction ------------------
+// -- C: divergence rhs into the two rhs planes (a dead slot 0).  The
+//    outlet column of u_bc is u_pen's column -2 plus the mass correction --
+template <bool kOdd>
+__device__ __forceinline__ float divergence_at(const float* usr,
+                                               const float* vs0,
+                                               const float* vs1, int i,
+                                               float corr, const Consts& c,
+                                               int nx) {
+  if (kOdd && i >= nx) return 0.0f;
+  const float u1 = i + 1 == nx ? usr[nx - 1] + corr : usr[i + 1];
+  return ((u1 - usr[i]) * c.inv_dx + (vs1[i] - vs0[i]) * c.inv_dy) *
+         c.inv_dt;
+}
+
+template <bool kOdd>
 __device__ __forceinline__ void divergence_rhs(const Band& b, float corr,
                                                const Consts& c,
                                                const Lanes& l, int nx) {
-  const int w = nx / 2;
+  const int w = packed_w<kOdd>(nx);
   for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
     const int j = b.j0 + lj;
     const float* usr = b.us + lj * nx;
     const float* vs0 = b.vs + lj * nx;
     const float* vs1 = vs0 + nx;
     for (int k = l.tx; k < w; k += l.TX) {
-      const int ir = 2 * k + (j & 1);
-      const int ib = 2 * k + 1 - (j & 1);
-      const float ur1 = ir + 1 == nx ? usr[nx - 1] + corr : usr[ir + 1];
-      const float ub1 = ib + 1 == nx ? usr[nx - 1] + corr : usr[ib + 1];
-      b.rhs_r[lj * w + k] = ((ur1 - usr[ir]) * c.inv_dx
-                             + (vs1[ir] - vs0[ir]) * c.inv_dy) * c.inv_dt;
-      b.rhs_b[lj * w + k] = ((ub1 - usr[ib]) * c.inv_dx
-                             + (vs1[ib] - vs0[ib]) * c.inv_dy) * c.inv_dt;
+      b.rhs_r[lj * w + k] =
+          divergence_at<kOdd>(usr, vs0, vs1, 2 * k + (j & 1), corr, c, nx);
+      b.rhs_b[lj * w + k] =
+          divergence_at<kOdd>(usr, vs0, vs1, 2 * k + 1 - (j & 1), corr, c,
+                              nx);
     }
   }
 }
 
 // -- E: velocity correction and the BCs of _correct; the wall ghost rows
 //    and the neighbours' halo rows follow the stores ---------------------
+template <bool kOdd>
 __device__ __forceinline__ void correct(const Band& b, const Mirror& h,
                                         const Consts& c, const Lanes& l,
                                         int ny, int nx) {
-  const int nxu = nx + 1, w = nx / 2;
+  const int nxu = nx + 1, w = packed_w<kOdd>(nx);
   for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
     const int j = b.j0 + lj;
     const float* usr = b.us + lj * nx;
@@ -643,19 +677,22 @@ __device__ __forceinline__ void correct(const Band& b, const Mirror& h,
   }
 }
 
-// Write the band's own rows back to the env's outputs.
+// Write the band's own rows back to the env's outputs (no dead slot).
+template <bool kOdd>
 __device__ __forceinline__ void write_band(const Band& b, float* u_out,
                                            float* v_out, float* p_out,
                                            const Lanes& l, int nx) {
-  const int nxu = nx + 1, w = nx / 2;
+  const int nxu = nx + 1, w = packed_w<kOdd>(nx);
   for (int lj = l.ty; lj < b.nrows; lj += l.TY) {
     const int j = b.j0 + lj;
     for (int i = l.tx; i < nxu; i += l.TX)
       u_out[static_cast<size_t>(j) * nxu + i] = b.u[(lj + 1) * nxu + i];
     for (int k = l.tx; k < w; k += l.TX) {
-      p_out[static_cast<size_t>(j) * nx + 2 * k + (j & 1)] = b.red[(lj + 1) * w + k];
-      p_out[static_cast<size_t>(j) * nx + 2 * k + 1 - (j & 1)] =
-          b.black[(lj + 1) * w + k];
+      const int ir = 2 * k + (j & 1), ib = 2 * k + 1 - (j & 1);
+      if (!kOdd || ir < nx)
+        p_out[static_cast<size_t>(j) * nx + ir] = b.red[(lj + 1) * w + k];
+      if (!kOdd || ib < nx)
+        p_out[static_cast<size_t>(j) * nx + ib] = b.black[(lj + 1) * w + k];
     }
   }
   for (int lj = l.ty; lj < b.nv_rows; lj += l.TY) {
@@ -704,7 +741,22 @@ __device__ __forceinline__ float inlet_flux(const GeomOf<NB>& g, int ny,
   return s_in * c.dy;
 }
 
-template <int NB>
+// One coloured half-sweep of the packed SOR over the band (sor_packed.cuh,
+// the domain BCs live), under the odd width's row rule where kOdd.
+template <bool kOdd>
+__device__ __forceinline__ void sor_half_sweep(
+    float* a, const float* o, const float* rhs, const Link& link,
+    unsigned long long* halo, unsigned parity, int nrows, int j0, int ny,
+    int w, int shift_parity, const Lanes& l, const Consts& c, float om,
+    float one_m_om) {
+  band_half_sweep<false, kOdd>(a, o, rhs, nullptr, nullptr, link, halo,
+                               parity, nrows, j0, ny, w, shift_parity, l.tx,
+                               l.ty, l.TX, l.TY, c.inv_dx2, c.inv_dy2,
+                               c.inv_diag, om, one_m_om);
+}
+
+// kOdd: the grid's width is odd (its planes' dead slots, sor_packed.cuh)
+template <int NB, bool kOdd>
 __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ p_in, GeomOf<NB> g,
@@ -727,7 +779,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   l.tx = tid - l.ty * l.TX;
   const int lane = tid & 31;
 
-  const int w = nx / 2;
+  const int w = packed_w<kOdd>(nx);
   const int nxu = nx + 1;
   const int R = rows_max;
   Band b;
@@ -803,7 +855,8 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
   const int n_sor = iters - n_polish;
 
   // -- load the band with its halo rows --------------------------------
-  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows, nrows + 1);
+  load_rows<kOdd>(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows,
+                  nrows + 1);
   const float influx = inlet_flux<NB>(g, ny, c, scratch, blockDim.x);
   // every block of the cluster has started, holds its band and has its
   // mbarriers set before any block stores into another's shared memory
@@ -822,7 +875,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     if (first && tid == 0) write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
 
     // -- C -------------------------------------------------------------
-    divergence_rhs(b, corr, c, l, nx);
+    divergence_rhs<kOdd>(b, corr, c, l, nx);
 
     __syncthreads();
 
@@ -836,20 +889,16 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
       const float om = sor ? c.omega : 1.0f;
       const float one_m_om = sor ? c.one_m_omega : 0.0f;
       const bool wait_black = linked && it > 0;
-      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
-                             red_link, wait_black ? &mbar[1] : nullptr,
-                             black_parity, nrows, j0, ny, w, 1, l.tx, l.ty,
-                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
-                             one_m_om);
+      sor_half_sweep<kOdd>(b.red, b.black, b.rhs_r, red_link,
+                           wait_black ? &mbar[1] : nullptr, black_parity,
+                           nrows, j0, ny, w, 1, l, c, om, one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
       }
-      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
-                             black_link, linked ? &mbar[0] : nullptr,
-                             red_parity, nrows, j0, ny, w, 0, l.tx, l.ty,
-                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
-                             one_m_om);
+      sor_half_sweep<kOdd>(b.black, b.red, b.rhs_b, black_link,
+                           linked ? &mbar[0] : nullptr, red_parity, nrows,
+                           j0, ny, w, 0, l, c, om, one_m_om);
       if (linked) {
         red_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
@@ -863,13 +912,13 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
     }
 
     // -- E -------------------------------------------------------------
-    correct(b, h, c, l, ny, nx);
+    correct<kOdd>(b, h, c, l, ny, nx);
     cluster_barrier();  // u, v and their halo and ghost rows complete
     if (wait_last && tid == 0) mbar_expect(&mbar[1], halo_bytes);
   }
 
   // -- write the band back ---------------------------------------------
-  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
+  write_band<kOdd>(b, io.u_out, io.v_out, io.p_out, l, nx);
 }
 
 // -- the global-memory kernel: the grids no cluster holds -------------------
@@ -891,10 +940,10 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_kernel(
 
 // floats of one env's fields in the workspace: u (ny + 2) x (nx + 1), v
 // (ny + 3) x nx, u_pen ny x nx, v_pen (ny + 1) x nx, red and black
-// (ny + 2) x w, rhs_r and rhs_b ny x w (kernels/actuation/ops.py
-// workspace_bytes)
+// (ny + 2) x w, rhs_r and rhs_b ny x w, w = packed_width(nx)
+// (kernels/actuation/ops.py workspace_bytes)
 __host__ __device__ inline size_t ws_floats(int ny, int nx) {
-  const size_t w = nx / 2, nxu = nx + 1;
+  const size_t w = packed_width(nx), nxu = nx + 1;
   return (ny + 2) * nxu + (ny + 3) * static_cast<size_t>(nx)
          + static_cast<size_t>(ny) * nx + (ny + 1) * static_cast<size_t>(nx)
          + 2 * (ny + 2) * w + 2 * static_cast<size_t>(ny) * w;
@@ -905,7 +954,7 @@ __host__ __device__ inline size_t ws_floats(int ny, int nx) {
 template <int NB>
 constexpr int kScratchFloats = NB == 0 ? 128 : (33 * (2 * NB + 1) + 3) / 4 * 4;
 
-template <int NB>
+template <int NB, bool kOdd>
 __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ p_in, GeomOf<NB> g,
@@ -929,7 +978,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
   const int lane = tid & 31;
   if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
 
-  const int w = nx / 2;
+  const int w = packed_w<kOdd>(nx);
   const int nxu = nx + 1;
   // the env's fields, then every env's partial sums, then the flags
   float* f = ws + local * ws_floats(ny, nx);
@@ -976,8 +1025,9 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
   const int n_sor = iters - n_polish;
 
   // -- load the band's own rows, and the wall ghost rows at its ends -----
-  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, b.first ? -1 : 0,
-            b.nrows - 1 + (b.last ? 1 : 0), b.nrows - 1 + (b.last ? 2 : 0));
+  load_rows<kOdd>(b, io.u_in, io.v_in, io.p_in, l, ny, nx,
+                  b.first ? -1 : 0, b.nrows - 1 + (b.last ? 1 : 0),
+                  b.nrows - 1 + (b.last ? 2 : 0));
   const float influx = inlet_flux<NB>(g, ny, c, scratch, blockDim.x);
   unsigned gen = 0;
   group_barrier(flags, rank, G, gen);  // every row loaded
@@ -993,7 +1043,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
     if (b.first && tid == 0)
       write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
 
-    divergence_rhs(b, corr, c, l, nx);
+    divergence_rhs<kOdd>(b, corr, c, l, nx);
     __syncthreads();
 
     // the first red half-sweep of a dt reads black rows the group barrier
@@ -1003,25 +1053,21 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
       const float om = sor ? c.omega : 1.0f;
       const float one_m_om = sor ? c.one_m_omega : 0.0f;
       if (it > 0) wait_neighbours(flags, rank, G, gen);
-      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
-                             none, nullptr, 0u, b.nrows, b.j0, ny, w, 1,
-                             l.tx, l.ty, l.TX, l.TY, c.inv_dx2, c.inv_dy2,
-                             c.inv_diag, om, one_m_om);
+      sor_half_sweep<kOdd>(b.red, b.black, b.rhs_r, none, nullptr, 0u,
+                           b.nrows, b.j0, ny, w, 1, l, c, om, one_m_om);
       arrive(my_flag, ++gen);
       wait_neighbours(flags, rank, G, gen);
-      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
-                             none, nullptr, 0u, b.nrows, b.j0, ny, w, 0,
-                             l.tx, l.ty, l.TX, l.TY, c.inv_dx2, c.inv_dy2,
-                             c.inv_diag, om, one_m_om);
+      sor_half_sweep<kOdd>(b.black, b.red, b.rhs_b, none, nullptr, 0u,
+                           b.nrows, b.j0, ny, w, 0, l, c, om, one_m_om);
       arrive(my_flag, ++gen);
     }
     // the correction of v reads the planes' row above the band
     wait_neighbours(flags, rank, G, gen);
-    correct(b, h, c, l, ny, nx);
+    correct<kOdd>(b, h, c, l, ny, nx);
     group_barrier(flags, rank, G, gen);  // u, v and their ghost rows
   }
 
-  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
+  write_band<kOdd>(b, io.u_out, io.v_out, io.p_out, l, nx);
 }
 
 // -- the resident kernel: bands in shared memory over several clusters ----
@@ -1049,7 +1095,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_global_kernel(
 // arithmetic is the cluster kernel's, so the resident kernel at G gives
 // the bits of fused_interval_global_kernel at G.  The workspace holds only
 // the partial sums, the flags and the mirror slots.
-template <int NB>
+template <int NB, bool kOdd>
 __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     const float* __restrict__ p_in, GeomOf<NB> g,
@@ -1085,7 +1131,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
   const int lane = tid & 31;
   if (tid == 0) block_sm[blockIdx.x] = sm_id();  // the launch's record
 
-  const int w = nx / 2;
+  const int w = packed_w<kOdd>(nx);
   const int nxu = nx + 1;
   const int R = rows_max;
   Band b;
@@ -1179,7 +1225,8 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
   const int n_sor = iters - n_polish;
 
   // -- load the band with its halo rows --------------------------------
-  load_rows(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows, nrows + 1);
+  load_rows<kOdd>(b, io.u_in, io.v_in, io.p_in, l, ny, nx, -1, nrows,
+                  nrows + 1);
   const float influx = inlet_flux<NB>(g, ny, c, scratch, pred_threads);
   // every block of the cluster has started, holds its band and has its
   // mbarriers set before any block stores into another's shared memory
@@ -1201,7 +1248,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
     if (b.first && tid == 0)
       write_coefficients<NB>(io.cd_out, io.cl_out, t, s, c);
 
-    divergence_rhs(b, corr, c, l, nx);
+    divergence_rhs<kOdd>(b, corr, c, l, nx);
     __syncthreads();
 
     // -- D: as the cluster kernel's, each half-sweep at a cross-cluster
@@ -1216,11 +1263,9 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
       if (cross && wait_black)
         receive_tagged(e.recv_sor(kBlack0 + 1 - par), b.black + halo_row * w,
                        w, gen);
-      band_half_sweep<false>(b.red, b.black, b.rhs_r, nullptr, nullptr,
-                             red_link, wait_black ? &mbar[1] : nullptr,
-                             black_parity, nrows, b.j0, ny, w, 1, l.tx, l.ty,
-                             l.TX, l.TY, c.inv_dx2, c.inv_dy2, c.inv_diag, om,
-                             one_m_om);
+      sor_half_sweep<kOdd>(b.red, b.black, b.rhs_r, red_link,
+                           wait_black ? &mbar[1] : nullptr, black_parity,
+                           nrows, b.j0, ny, w, 1, l, c, om, one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
@@ -1230,10 +1275,9 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
         send_tagged(e.send_sor(kRed0 + par), b.red + edge_row * w, w, gen);
         receive_tagged(e.recv_sor(kRed0 + par), b.red + halo_row * w, w, gen);
       }
-      band_half_sweep<false>(b.black, b.red, b.rhs_b, nullptr, nullptr,
-                             black_link, &mbar[0], red_parity, nrows, b.j0,
-                             ny, w, 0, l.tx, l.ty, l.TX, l.TY, c.inv_dx2,
-                             c.inv_dy2, c.inv_diag, om, one_m_om);
+      sor_half_sweep<kOdd>(b.black, b.red, b.rhs_b, black_link, &mbar[0],
+                           red_parity, nrows, b.j0, ny, w, 0, l, c, om,
+                           one_m_om);
       red_parity ^= 1u;
       if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
       ++gen;
@@ -1251,7 +1295,7 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
     }
 
     // -- E -------------------------------------------------------------
-    correct(b, h, c, l, ny, nx);
+    correct<kOdd>(b, h, c, l, ny, nx);
     resident_barrier(flags, rank, C, K, ++gen);  // u, v, their halo rows
     if (wait_last && tid == 0) mbar_expect(&mbar[1], halo_bytes);
     if (cross) {  // u and v's halo rows on the edge's side, from the mirror
@@ -1261,12 +1305,18 @@ __global__ void __launch_bounds__(1024, 1) fused_interval_resident_kernel(
     }
   }
 
-  write_band(b, io.u_out, io.v_out, io.p_out, l, nx);
+  write_band<kOdd>(b, io.u_out, io.v_out, io.p_out, l, nx);
 }
 
 // The per-body instantiation's body count: grid.max_bodies(), the widest
 // geometry (the pinball); a bank of fewer bodies is zero-padded to it
 constexpr int kBodies = 3;
+
+// The occupancy queries below read the even width's instantiations.  An
+// odd width's (kOdd) launch at the same shape: the same threads, the same
+// dynamic and static shared memory, and registers capped, as the even
+// ones', at 64 a thread by __launch_bounds__(1024, 1) (ptxas gives every
+// even instantiation 64), so the card holds no fewer of them at once.
 
 // How many clusters of `cluster` blocks (`threads` threads, `smem` bytes
 // of dynamic shared memory each) the card holds at once, into *out, for
@@ -1274,14 +1324,14 @@ constexpr int kBodies = 3;
 // (0 = success).
 extern "C" int fused_interval_max_clusters(int cluster, int threads, int smem,
                                            int* out) {
-  return static_cast<int>(max_active_clusters(fused_interval_kernel<0>,
-                                              cluster, threads, smem, out));
+  return static_cast<int>(max_active_clusters(
+      fused_interval_kernel<0, false>, cluster, threads, smem, out));
 }
 
 extern "C" int fused_interval_bodies_max_clusters(int cluster, int threads,
                                                   int smem, int* out) {
   return static_cast<int>(max_active_clusters(
-      fused_interval_kernel<kBodies>, cluster, threads, smem, out));
+      fused_interval_kernel<kBodies, false>, cluster, threads, smem, out));
 }
 
 // The per-body count the library was built for (the wrapper checks it).
@@ -1298,7 +1348,9 @@ static cudaError_t launch(const GeomOf<NB>& g, const float* u_in,
                           int threads, int tx_dim, int smem,
                           const Bands& bands, const Consts& c,
                           cudaStream_t stream) {
-  cudaError_t err = set_cluster_attributes(fused_interval_kernel<NB>, smem);
+  const auto kernel = nx & 1 ? fused_interval_kernel<NB, true>
+                             : fused_interval_kernel<NB, false>;
+  cudaError_t err = set_cluster_attributes(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -1307,10 +1359,10 @@ static cudaError_t launch(const GeomOf<NB>& g, const float* u_in,
   err = cudaMemsetAsync(block_sm, 0xff, sizeof(int) * n_env * cluster,
                         stream);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, fused_interval_kernel<NB>, u_in, v_in,
-                           p_in, g, jet_vel, re, act_mode, u_out, v_out,
-                           p_out, cd, cl, block_sm, ny, nx, n_steps, iters,
-                           n_polish, rows_max, tx_dim, bands, c);
+  err = cudaLaunchKernelEx(&cfg, kernel, u_in, v_in, p_in, g, jet_vel, re,
+                           act_mode, u_out, v_out, p_out, cd, cl, block_sm,
+                           ny, nx, n_steps, iters, n_polish, rows_max, tx_dim,
+                           bands, c);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1397,9 +1449,11 @@ extern "C" int fused_interval_global_blocks_per_sm(int n_bodies, int threads,
                                                    int* out) {
   return static_cast<int>(
       n_bodies ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     out, fused_interval_global_kernel<kBodies>, threads, 0)
+                     out, fused_interval_global_kernel<kBodies, false>,
+                     threads, 0)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     out, fused_interval_global_kernel<0>, threads, 0));
+                     out, fused_interval_global_kernel<0, false>, threads,
+                     0));
 }
 
 // The float slots of one block's partial sums (ops.workspace_bytes).
@@ -1418,6 +1472,8 @@ static cudaError_t launch_global(const GeomOf<NB>& g, const float* u_in,
                                  int n_steps, int iters, int n_polish,
                                  int group, int threads, int tx_dim,
                                  const Consts& c, cudaStream_t stream) {
+  const auto kernel = nx & 1 ? fused_interval_global_kernel<NB, true>
+                             : fused_interval_global_kernel<NB, false>;
   // -1 where no block wrote its SM: the record counts the blocks that ran
   cudaError_t err = cudaMemsetAsync(
       block_sm, 0xff, sizeof(int) * static_cast<size_t>(n_env) * group,
@@ -1434,11 +1490,10 @@ static cudaError_t launch_global(const GeomOf<NB>& g, const float* u_in,
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     fill_cooperative_config(cfg, attr, n * group, threads, stream);
-    err = cudaLaunchKernelEx(&cfg, fused_interval_global_kernel<NB>, u_in,
-                             v_in, p_in, g, jet_vel, re, act_mode, u_out,
-                             v_out, p_out, cd, cl, block_sm + e0 * group, ws,
-                             e0, n, ny, nx, n_steps, iters, n_polish, tx_dim,
-                             c);
+    err = cudaLaunchKernelEx(&cfg, kernel, u_in, v_in, p_in, g, jet_vel, re,
+                             act_mode, u_out, v_out, p_out, cd, cl,
+                             block_sm + e0 * group, ws, e0, n, ny, nx,
+                             n_steps, iters, n_polish, tx_dim, c);
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1487,15 +1542,16 @@ extern "C" int fused_interval_global_launch(
 extern "C" int fused_interval_resident_max_clusters(int cluster, int threads,
                                                     int smem, int* out) {
   return static_cast<int>(max_active_clusters(
-      fused_interval_resident_kernel<0>, cluster, threads, smem, out));
+      fused_interval_resident_kernel<0, false>, cluster, threads, smem, out));
 }
 
 extern "C" int fused_interval_bodies_resident_max_clusters(int cluster,
                                                            int threads,
                                                            int smem,
                                                            int* out) {
-  return static_cast<int>(max_active_clusters(
-      fused_interval_resident_kernel<kBodies>, cluster, threads, smem, out));
+  return static_cast<int>(
+      max_active_clusters(fused_interval_resident_kernel<kBodies, false>,
+                          cluster, threads, smem, out));
 }
 
 template <int NB>
@@ -1508,8 +1564,9 @@ static cudaError_t launch_resident(
     int group, int cluster, int rows_max, int threads, int tx_dim,
     int pred_tx, int pred_threads, int smem, const Consts& c,
     cudaStream_t stream) {
-  cudaError_t err =
-      set_cluster_attributes(fused_interval_resident_kernel<NB>, smem);
+  const auto kernel = nx & 1 ? fused_interval_resident_kernel<NB, true>
+                             : fused_interval_resident_kernel<NB, false>;
+  cudaError_t err = set_cluster_attributes(kernel, smem);
   if (err != cudaSuccess) return err;
   // -1 where no block wrote its SM: the record counts the blocks that ran
   err = cudaMemsetAsync(
@@ -1531,11 +1588,11 @@ static cudaError_t launch_resident(
     cudaLaunchAttribute attr[2];
     fill_resident_config(cfg, attr, n * (group / cluster), cluster, threads,
                          smem, stream);
-    err = cudaLaunchKernelEx(&cfg, fused_interval_resident_kernel<NB>, u_in,
-                             v_in, p_in, g, jet_vel, re, act_mode, u_out,
-                             v_out, p_out, cd, cl, block_sm + e0 * group, ws,
-                             e0, n, ny, nx, n_steps, iters, n_polish,
-                             rows_max, tx_dim, pred_tx, pred_threads, c);
+    err = cudaLaunchKernelEx(&cfg, kernel, u_in, v_in, p_in, g, jet_vel, re,
+                             act_mode, u_out, v_out, p_out, cd, cl,
+                             block_sm + e0 * group, ws, e0, n, ny, nx,
+                             n_steps, iters, n_polish, rows_max, tx_dim,
+                             pred_tx, pred_threads, c);
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -24,31 +24,33 @@
 
 __global__ void __launch_bounds__(1024, 1) rb_sor_packed_cluster_kernel(
     PackedPlanes io, int* __restrict__ block_sm, int ny, int w, int nslabs,
-    int inner_iters, int rounds, int rows_max, int tx_dim, Bands bands,
-    float inv_dx2, float inv_dy2, float inv_diag, float om, float one_m_om) {
-  sor_slabs_cluster(io, block_sm, ny, w, nslabs, inner_iters, rounds,
-                    rows_max, tx_dim, bands, inv_dx2, inv_dy2, inv_diag, om,
-                    one_m_om);
+    int inner_iters, int rounds, int n_sor, int rows_max, int tx_dim,
+    Bands bands, float inv_dx2, float inv_dy2, float inv_diag, float om,
+    float one_m_om) {
+  sor_slabs_cluster<false>(io, block_sm, ny, w, nslabs, inner_iters, rounds,
+                           n_sor, rows_max, tx_dim, bands, inv_dx2, inv_dy2,
+                           inv_diag, om, one_m_om);
 }
 
 __global__ void __launch_bounds__(1024, 1) rb_sor_packed_global_kernel(
     PackedPlanes io, int* __restrict__ block_sm, float* ws, int group0,
     int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
-    int tx_dim, float inv_dx2, float inv_dy2, float inv_diag, float om,
-    float one_m_om) {
-  sor_slabs_global(io, block_sm, ws, group0, n_groups, ny, w, nslabs,
-                   inner_iters, rounds, tx_dim, inv_dx2, inv_dy2, inv_diag,
-                   om, one_m_om);
+    int n_sor, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om) {
+  sor_slabs_global<false>(io, block_sm, ws, group0, n_groups, ny, w, nslabs,
+                          inner_iters, rounds, n_sor, tx_dim, inv_dx2,
+                          inv_dy2, inv_diag, om, one_m_om);
 }
 
 __global__ void __launch_bounds__(1024, 1) rb_sor_packed_resident_kernel(
     PackedPlanes io, int* __restrict__ block_sm, float* ws, int group0,
     int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
-    int rows_max, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
-    float om, float one_m_om) {
-  sor_slabs_resident(io, block_sm, ws, group0, n_groups, ny, w, nslabs,
-                     inner_iters, rounds, rows_max, tx_dim, inv_dx2, inv_dy2,
-                     inv_diag, om, one_m_om);
+    int n_sor, int rows_max, int tx_dim, float inv_dx2, float inv_dy2,
+    float inv_diag, float om, float one_m_om) {
+  sor_slabs_resident<false>(io, block_sm, ws, group0, n_groups, ny, w,
+                            nslabs, inner_iters, rounds, n_sor, rows_max,
+                            tx_dim, inv_dx2, inv_dy2, inv_diag, om,
+                            one_m_om);
 }
 
 // How many blocks of `threads` threads of the global-memory kernel one SM
@@ -68,20 +70,21 @@ extern "C" int rb_sor_packed_max_clusters(int cluster, int threads, int smem,
 }
 
 // Planes (n_env, ny, w) float32, contiguous; the launch as
-// sor_slabs.cuh launch_sor_slabs says.  Launch on `stream`; returns the
+// sor_slabs.cuh launch_sor_slabs says (the slab wrappers pass n_sor =
+// rounds x inner_iters: no polish tail).  Launch on `stream`; returns the
 // CUDA error code (0 = launched).
 extern "C" int rb_sor_slabs_packed_launch(
     const float* red, const float* black, const float* rhs_r,
     const float* rhs_b, float* red_out, float* black_out, int* block_sm,
     int n_env, int ny, int w, int nslabs, int inner_iters, int rounds,
-    int cluster, const int* starts, int rows_max, int threads, int tx_dim,
-    int smem, float inv_dx2, float inv_dy2, float inv_diag, float om,
-    float one_m_om, void* stream) {
+    int n_sor, int cluster, const int* starts, int rows_max, int threads,
+    int tx_dim, int smem, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om, void* stream) {
   const PackedPlanes io{red, black, rhs_r, rhs_b, red_out, black_out, w};
   return launch_sor_slabs(rb_sor_packed_cluster_kernel, io, block_sm, n_env,
-                          ny, w, nslabs, inner_iters, rounds, cluster, starts,
-                          rows_max, threads, tx_dim, smem, inv_dx2, inv_dy2,
-                          inv_diag, om, one_m_om,
+                          ny, w, nslabs, inner_iters, rounds, n_sor, cluster,
+                          starts, rows_max, threads, tx_dim, smem, inv_dx2,
+                          inv_dy2, inv_diag, om, one_m_om,
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -92,14 +95,14 @@ extern "C" int rb_sor_slabs_packed_launch(
 extern "C" int rb_sor_slabs_packed_global_launch(
     const float* red, const float* black, const float* rhs_r,
     const float* rhs_b, float* red_out, float* black_out, int* block_sm,
-    float* ws, int n_env, int ny, int w,
-    int nslabs, int inner_iters, int rounds, int group, int per_launch,
-    int threads, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
-    float om, float one_m_om, void* stream) {
+    float* ws, int n_env, int ny, int w, int nslabs, int inner_iters,
+    int rounds, int n_sor, int group, int per_launch, int threads,
+    int tx_dim, float inv_dx2, float inv_dy2, float inv_diag, float om,
+    float one_m_om, void* stream) {
   const PackedPlanes io{red, black, rhs_r, rhs_b, red_out, black_out, w};
   return launch_sor_slabs_global(rb_sor_packed_global_kernel, io, block_sm, ws,
-                                 n_env, ny, w, nslabs, inner_iters,
-                                 rounds, group, per_launch, threads, tx_dim,
+                                 n_env, ny, w, nslabs, inner_iters, rounds,
+                                 n_sor, group, per_launch, threads, tx_dim,
                                  inv_dx2, inv_dy2, inv_diag, om, one_m_om,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -121,13 +124,13 @@ extern "C" int rb_sor_slabs_packed_resident_launch(
     const float* red, const float* black, const float* rhs_r,
     const float* rhs_b, float* red_out, float* black_out, int* block_sm,
     float* ws, int n_env, int ny, int w, int nslabs, int inner_iters,
-    int rounds, int group, int cluster, int per_launch, int rows_max,
-    int threads, int tx_dim, int smem, float inv_dx2,
+    int rounds, int n_sor, int group, int cluster, int per_launch,
+    int rows_max, int threads, int tx_dim, int smem, float inv_dx2,
     float inv_dy2, float inv_diag, float om, float one_m_om, void* stream) {
   const PackedPlanes io{red, black, rhs_r, rhs_b, red_out, black_out, w};
   return launch_sor_slabs_resident(
       rb_sor_packed_resident_kernel, io, block_sm, ws, n_env, ny, w, nslabs,
-      inner_iters, rounds, group, cluster, per_launch, rows_max, threads,
-      tx_dim, smem, inv_dx2, inv_dy2, inv_diag, om, one_m_om,
+      inner_iters, rounds, n_sor, group, cluster, per_launch, rows_max,
+      threads, tx_dim, smem, inv_dx2, inv_dy2, inv_diag, om, one_m_om,
       static_cast<cudaStream_t>(stream));
 }

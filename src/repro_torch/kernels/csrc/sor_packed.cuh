@@ -4,11 +4,18 @@
 // the two slab kernels: ghost columns frozen per block-Jacobi round).  The
 // reference is cfd/poisson's packed_half_sweep.
 //
-// Packed-checkerboard layout (nx even; row j, packed column k):
+// Packed-checkerboard layout (row j, packed column k; planes of width
+// w = ceil(nx / 2)):
 //   red[j, k] = p[j, 2k + j%2]        black[j, k] = p[j, 2k + 1 - j%2]
 // Vertical neighbours of a point sit at the same packed index in the other
 // plane; horizontal neighbours are the other plane's columns (k-1, k) on
-// one row parity and (k, k+1) on the other.
+// one row parity and (k, k+1) on the other (a colour's shift rows).  On an
+// odd width the last packed column of each colour's shift rows is a dead
+// slot, no point of the grid (grid column nx): it is never updated and
+// never read.  A shift row's last point reads the other colour's columns
+// (w-2, w-1), both points; a non-shift row's last point is grid column
+// nx - 1, whose east neighbour is the outlet's ghost, not the other
+// colour's dead slot.
 //
 // A band is rows [j0, j0 + nrows) of a plane, stored with one halo row
 // above and one below.  A half-sweep reads only the other colour, so the
@@ -38,8 +45,12 @@
 // divisions by dx^2, dy^2 taken as multiplications by their reciprocals.
 // Every read of `a` is of the point being updated, so the in-place update
 // equals the reference's out-of-place one.  kEdge: the band's first or
-// last row, whose values also go to the neighbours' halo rows.
-template <bool kEdge, bool kGhosts>
+// last row, whose values also go to the neighbours' halo rows (every slot
+// of the row, a dead one too, so a halo row is w floats).  kOddW: the odd
+// width's row rule (the header), where the last packed column of a shift
+// row is a dead slot and a non-shift row's last point meets the east ghost
+// (rg, or the Dirichlet outlet) in place of the other colour's column.
+template <bool kEdge, bool kGhosts, bool kOddW>
 __device__ __forceinline__ void sweep_row(
     float* a, const float* o, const float* rhs, const float* lg,
     const float* rg, const Link& link, int lj, int nrows, int j0, int ny,
@@ -53,21 +64,28 @@ __device__ __forceinline__ void sweep_row(
   const bool top = j == 0, bottom = j == ny - 1;
   const unsigned to_prev = (kEdge && lj == 0) ? link.prev : 0u;
   const unsigned to_next = (kEdge && lj == nrows - 1) ? link.next : 0u;
+  // which row rule applies: the odd width's, or the even one's
+  constexpr bool kOddRule = kOddW;
   for (int k = tx; k < w; k += TX) {
     const float self = arow[k];
-    const float oc = orow[k];
-    float horiz;
-    if (shift) {
-      horiz = oc + ((k == w - 1) ? (kGhosts ? rg[lj] : -self) : orow[k + 1]);
-    } else {
-      horiz = ((k == 0) ? (kGhosts ? lg[lj] : self) : orow[k - 1]) + oc;
+    float val = self;  // a dead slot keeps its value
+    if (!(kOddRule && shift && k == w - 1)) {
+      const float oc = orow[k];
+      float horiz;
+      if (shift) {
+        horiz = oc + ((!kOddRule && k == w - 1) ? (kGhosts ? rg[lj] : -self)
+                                                : orow[k + 1]);
+      } else {
+        horiz = ((k == 0) ? (kGhosts ? lg[lj] : self) : orow[k - 1]) +
+                ((kOddRule && k == w - 1) ? (kGhosts ? rg[lj] : -self) : oc);
+      }
+      const float north = top ? self : orow[k - w];
+      const float south = bottom ? self : orow[k + w];
+      const float nb = horiz * inv_dx2 + (north + south) * inv_dy2;
+      const float p_gs = (nb - rrow[k]) * inv_diag;
+      val = one_m_om * self + om * p_gs;
+      arow[k] = val;
     }
-    const float north = top ? self : orow[k - w];
-    const float south = bottom ? self : orow[k + w];
-    const float nb = horiz * inv_dx2 + (north + south) * inv_dy2;
-    const float p_gs = (nb - rrow[k]) * inv_diag;
-    const float val = one_m_om * self + om * p_gs;
-    arow[k] = val;
     if (kEdge) {
       if (to_prev) st_async(to_prev + 4 * k, val, link.prev_bar);
       if (to_next) st_async(to_next + 4 * k, val, link.next_bar);
@@ -82,8 +100,9 @@ __device__ __forceinline__ void sweep_row(
 // threads wait for them (`halo`: the mbarrier of that colour, nullptr when
 // there is nothing to wait for; the wait returns at once if the phase of
 // `parity` has completed); the interior rows go ahead.  A block barrier
-// then orders the band before the next half-sweep reads it.
-template <bool kGhosts>
+// then orders the band before the next half-sweep reads it.  kOddW: the
+// odd width's row rule (sweep_row).
+template <bool kGhosts, bool kOddW = false>
 __device__ __forceinline__ void band_half_sweep(
     float* a, const float* o, const float* rhs, const float* lg,
     const float* rg, const Link& link, unsigned long long* halo,
@@ -94,14 +113,15 @@ __device__ __forceinline__ void band_half_sweep(
   for (int q = ty; q < nrows; q += TY) {
     if (q < n_edge) {
       if (halo) mbar_wait(halo, parity);
-      sweep_row<true, kGhosts>(a, o, rhs, lg, rg, link,
-                               q == 0 ? 0 : nrows - 1, nrows, j0, ny, w,
-                               shift_parity, tx, TX, inv_dx2, inv_dy2,
-                               inv_diag, om, one_m_om);
+      sweep_row<true, kGhosts, kOddW>(a, o, rhs, lg, rg, link,
+                                      q == 0 ? 0 : nrows - 1, nrows, j0, ny,
+                                      w, shift_parity, tx, TX, inv_dx2,
+                                      inv_dy2, inv_diag, om, one_m_om);
     } else {
-      sweep_row<false, kGhosts>(a, o, rhs, lg, rg, link, q - 1, nrows, j0,
-                                ny, w, shift_parity, tx, TX, inv_dx2,
-                                inv_dy2, inv_diag, om, one_m_om);
+      sweep_row<false, kGhosts, kOddW>(a, o, rhs, lg, rg, link, q - 1, nrows,
+                                       j0, ny, w, shift_parity, tx, TX,
+                                       inv_dx2, inv_dy2, inv_diag, om,
+                                       one_m_om);
     }
   }
   __syncthreads();

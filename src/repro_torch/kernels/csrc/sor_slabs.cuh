@@ -40,6 +40,13 @@
 //     to the global-memory kernel (sor_slabs_global): a group of blocks
 //     per (env, slab) on its planes in a workspace in global memory, the
 //     same half-sweep on a band view, ordered by flags (grid_sync.cuh).
+//
+// The full sweeps (kFullSweeps, poisson_sor_full.cu's odd-width kernels):
+// the same three bodies compute the reference's own solve on a grid of odd
+// width, cfd/poisson's _full_sweeps, where it has no slabs and no rounds:
+// one slab of the whole grid, one round of `iters` pairs with the domain
+// BCs read live (sor_packed.cuh without kGhosts), the odd width's row rule,
+// and the pairs from n_sor on at omega 1 (the polish tail).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -78,38 +85,41 @@ struct PackedPlanes {
   }
 };
 
-// The full grid (n_env, ny, 2 w), split into packed planes as it is loaded
-// and interleaved back as it is stored (cfd/poisson pack_checkerboard):
+// The full grid (n_env, ny, nx), split into packed planes of width w =
+// ceil(nx / 2) as it is loaded and interleaved back as it is stored
+// (cfd/poisson pack_checkerboard):
 //   red[j, k] = p[j, 2k + j%2]        black[j, k] = p[j, 2k + 1 - j%2]
 // so the packed column kg of row j is the pair of grid columns (2 kg,
-// 2 kg + 1), red first on even rows.
+// 2 kg + 1), red first on even rows.  On an odd width the last pair's
+// second column lies past the row: that plane's dead slot
+// (sor_packed.cuh), loaded as 0 and never stored.
 struct FullGrid {
   const float* p_in;
   const float* rhs;
   float* p_out;
-  int w;
+  int w, nx;
 
   __device__ float p(size_t row, int kg, int colour, int j) const {
-    return p_in[row * 2 * w + 2 * kg + ((j + colour) & 1)];
+    return p_in[row * nx + 2 * kg + ((j + colour) & 1)];
   }
-  __device__ static void split(const float* a, bool odd, float& r,
-                               float& b) {
-    const float x = a[0], y = a[1];
+  __device__ void split(const float* a, int kg, bool odd, float& r,
+                        float& b) const {
+    const float x = a[0], y = 2 * kg + 1 < nx ? a[1] : 0.0f;
     r = odd ? y : x;
     b = odd ? x : y;
   }
   __device__ void load(size_t row, int kg, int j, float& r, float& b) const {
-    split(p_in + row * 2 * w + 2 * kg, j & 1, r, b);
+    split(p_in + row * nx + 2 * kg, kg, j & 1, r, b);
   }
   __device__ void load_rhs(size_t row, int kg, int j, float& r,
                            float& b) const {
-    split(rhs + row * 2 * w + 2 * kg, j & 1, r, b);
+    split(rhs + row * nx + 2 * kg, kg, j & 1, r, b);
   }
   __device__ void store(size_t row, int kg, int j, float r, float b) const {
-    float* a = p_out + row * 2 * w + 2 * kg;
+    float* a = p_out + row * nx + 2 * kg;
     const bool odd = j & 1;
     a[0] = odd ? b : r;
-    a[1] = odd ? r : b;
+    if (2 * kg + 1 < nx) a[1] = odd ? r : b;
   }
 };
 
@@ -203,12 +213,24 @@ __device__ __forceinline__ void store_slab_rows(const IO& io,
   }
 }
 
+// The relaxation of sweep pair `pair` of a launch: omega for the first
+// n_sor pairs, 1 (the polish tail) after them.
+struct Relax {
+  float om, one_m_om;
+};
+__device__ __forceinline__ Relax relax(int pair, int n_sor, float om,
+                                       float one_m_om) {
+  return pair < n_sor ? Relax{om, one_m_om} : Relax{1.0f, 0.0f};
+}
+
 // The kernel body: `rounds` rounds of the (env, slab) of this block's
-// cluster, on packed planes of width w (a slab w / nslabs packed columns).
-template <class IO>
+// cluster, on packed planes of width w (a slab w / nslabs packed columns);
+// the pairs from n_sor on at omega 1.  kFullSweeps: the full sweeps (the
+// header).
+template <bool kFullSweeps, class IO>
 __device__ __forceinline__ void sor_slabs_cluster(
     const IO& io, int* __restrict__ block_sm, int ny, int w, int nslabs,
-    int inner_iters, int rounds, int rows_max, int tx_dim,
+    int inner_iters, int rounds, int n_sor, int rows_max, int tx_dim,
     const Bands& bands, float inv_dx2, float inv_dy2, float inv_diag,
     float om, float one_m_om) {
   namespace cg = cooperative_groups;
@@ -281,25 +303,27 @@ __device__ __forceinline__ void sor_slabs_cluster(
   cluster_barrier();
 
   for (int round = 0; round < rounds; ++round) {
-    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
+    if constexpr (!kFullSweeps)
+      freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
     // a half-sweep's edge rows first wait for the other colour's halo rows
     // of the half-sweep before (the launch's first red one reads the loaded
     // halo rows); that colour's mbarrier is re-armed once the half-sweep's
     // block barrier is passed
     for (int it = 0; it < inner_iters; ++it) {
       const bool wait_black = linked && (round > 0 || it > 0);
-      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg,
-                            red_link, wait_black ? &mbar[1] : nullptr,
-                            black_parity, nrows, j0, ny, bxp, 1, tx, ty, TX,
-                            TY, inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+      const Relax r = relax(round * inner_iters + it, n_sor, om, one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.red, b.black, b.rhs_r, b.r_lg, b.r_rg, red_link,
+          wait_black ? &mbar[1] : nullptr, black_parity, nrows, j0, ny, bxp,
+          1, tx, ty, TX, TY, inv_dx2, inv_dy2, inv_diag, r.om, r.one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
       }
-      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg,
-                            black_link, linked ? &mbar[0] : nullptr,
-                            red_parity, nrows, j0, ny, bxp, 0, tx, ty, TX, TY,
-                            inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.black, b.red, b.rhs_b, b.b_lg, b.b_rg, black_link,
+          linked ? &mbar[0] : nullptr, red_parity, nrows, j0, ny, bxp, 0, tx,
+          ty, TX, TY, inv_dx2, inv_dy2, inv_diag, r.om, r.one_m_om);
       if (linked) {
         red_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
@@ -337,13 +361,14 @@ __host__ __device__ inline size_t slab_ws_floats(int ny, int bxp) {
 }
 
 // The kernel body: `rounds` rounds of the (env, slab) of this block's
-// group; this launch's groups are group0 .. group0 + gridDim.x / G - 1.
-template <class IO>
+// group, the pairs from n_sor on at omega 1 (kFullSweeps: the header);
+// this launch's groups are group0 .. group0 + gridDim.x / G - 1.
+template <bool kFullSweeps, class IO>
 __device__ __forceinline__ void sor_slabs_global(
     const IO& io, int* __restrict__ block_sm, float* ws, int group0,
     int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
-    int tx_dim, float inv_dx2, float inv_dy2, float inv_diag, float om,
-    float one_m_om) {
+    int n_sor, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
+    float om, float one_m_om) {
   const int G = static_cast<int>(gridDim.x) / n_groups;
   const int local = blockIdx.x / G;
   const int rank = blockIdx.x - local * G;
@@ -391,19 +416,21 @@ __device__ __forceinline__ void sor_slabs_global(
   arrive(my_flag, ++gen);  // loaded: the first half-sweep waits for it
 
   for (int round = 0; round < rounds; ++round) {
-    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
+    if constexpr (!kFullSweeps)
+      freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
     for (int it = 0; it < inner_iters; ++it) {
+      const Relax r = relax(round * inner_iters + it, n_sor, om, one_m_om);
       wait_neighbours(flags, rank, G, gen);
-      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg, none,
-                            nullptr, 0u, b.nrows, b.j0, ny, bxp, 1, tx, ty,
-                            TX, TY, inv_dx2, inv_dy2, inv_diag, om,
-                            one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.red, b.black, b.rhs_r, b.r_lg, b.r_rg, none, nullptr, 0u,
+          b.nrows, b.j0, ny, bxp, 1, tx, ty, TX, TY, inv_dx2, inv_dy2,
+          inv_diag, r.om, r.one_m_om);
       arrive(my_flag, ++gen);
       wait_neighbours(flags, rank, G, gen);
-      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg, none,
-                            nullptr, 0u, b.nrows, b.j0, ny, bxp, 0, tx, ty,
-                            TX, TY, inv_dx2, inv_dy2, inv_diag, om,
-                            one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.black, b.red, b.rhs_b, b.b_lg, b.b_rg, none, nullptr, 0u,
+          b.nrows, b.j0, ny, bxp, 0, tx, ty, TX, TY, inv_dx2, inv_dy2,
+          inv_diag, r.om, r.one_m_om);
       arrive(my_flag, ++gen);
     }
   }
@@ -427,13 +454,14 @@ __device__ __forceinline__ void sor_slabs_global(
 // the mirror slots.
 
 // The kernel body: `rounds` rounds of the (env, slab) of this block's
-// group; this launch's groups are group0 .. group0 + gridDim.x / G - 1.
-template <class IO>
+// group, the pairs from n_sor on at omega 1 (kFullSweeps: the header);
+// this launch's groups are group0 .. group0 + gridDim.x / G - 1.
+template <bool kFullSweeps, class IO>
 __device__ __forceinline__ void sor_slabs_resident(
     const IO& io, int* __restrict__ block_sm, float* ws, int group0,
     int n_groups, int ny, int w, int nslabs, int inner_iters, int rounds,
-    int rows_max, int tx_dim, float inv_dx2, float inv_dy2, float inv_diag,
-    float om, float one_m_om) {
+    int n_sor, int rows_max, int tx_dim, float inv_dx2, float inv_dy2,
+    float inv_diag, float om, float one_m_om) {
   namespace cg = cooperative_groups;
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -516,17 +544,19 @@ __device__ __forceinline__ void sor_slabs_resident(
   unsigned gen = 0;
 
   for (int round = 0; round < rounds; ++round) {
-    freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
+    if constexpr (!kFullSweeps)
+      freeze_ghosts(io, b, round, base, c0, s, nslabs, bxp);
     for (int it = 0; it < inner_iters; ++it) {
       const int par = (round * inner_iters + it) & 1;
       const bool wait_black = round > 0 || it > 0;
+      const Relax r = relax(round * inner_iters + it, n_sor, om, one_m_om);
       if (cross && wait_black)
         receive_tagged(e.recv_sor(kBlack0 + 1 - par),
                        b.black + halo_row * bxp, bxp, gen);
-      band_half_sweep<true>(b.red, b.black, b.rhs_r, b.r_lg, b.r_rg,
-                            red_link, wait_black ? &mbar[1] : nullptr,
-                            black_parity, nrows, j0, ny, bxp, 1, tx, ty, TX,
-                            TY, inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.red, b.black, b.rhs_r, b.r_lg, b.r_rg, red_link,
+          wait_black ? &mbar[1] : nullptr, black_parity, nrows, j0, ny, bxp,
+          1, tx, ty, TX, TY, inv_dx2, inv_dy2, inv_diag, r.om, r.one_m_om);
       if (wait_black) {
         black_parity ^= 1u;
         if (tid == 0) mbar_expect(&mbar[1], halo_bytes);
@@ -538,10 +568,10 @@ __device__ __forceinline__ void sor_slabs_resident(
         receive_tagged(e.recv_sor(kRed0 + par), b.red + halo_row * bxp, bxp,
                        gen);
       }
-      band_half_sweep<true>(b.black, b.red, b.rhs_b, b.b_lg, b.b_rg,
-                            black_link, &mbar[0], red_parity, nrows, j0, ny,
-                            bxp, 0, tx, ty, TX, TY, inv_dx2, inv_dy2,
-                            inv_diag, om, one_m_om);
+      band_half_sweep<!kFullSweeps, kFullSweeps>(
+          b.black, b.red, b.rhs_b, b.b_lg, b.b_rg, black_link, &mbar[0],
+          red_parity, nrows, j0, ny, bxp, 0, tx, ty, TX, TY, inv_dx2,
+          inv_dy2, inv_diag, r.om, r.one_m_om);
       red_parity ^= 1u;
       if (tid == 0) mbar_expect(&mbar[0], halo_bytes);
       ++gen;
@@ -566,15 +596,16 @@ __device__ __forceinline__ void sor_slabs_resident(
 // each block's dynamic shared memory in bytes (ops.smem_bytes); block_sm:
 // n_env x nslabs x cluster ints, the SM id each block ran on (-1 where
 // none ran).  rounds > 1 needs nslabs == 1 (the ghosts of later rounds
-// are the block's own columns).  Returns the CUDA error code (0 =
-// launched).
+// are the block's own columns); the pairs from n_sor on run at omega 1.
+// Returns the CUDA error code (0 = launched).
 template <class K, class IO>
 static int launch_sor_slabs(K kernel, const IO& io, int* block_sm, int n_env,
                             int ny, int w, int nslabs, int inner_iters,
-                            int rounds, int cluster, const int* starts,
-                            int rows_max, int threads, int tx_dim, int smem,
-                            float inv_dx2, float inv_dy2, float inv_diag,
-                            float om, float one_m_om, cudaStream_t stream) {
+                            int rounds, int n_sor, int cluster,
+                            const int* starts, int rows_max, int threads,
+                            int tx_dim, int smem, float inv_dx2,
+                            float inv_dy2, float inv_diag, float om,
+                            float one_m_om, cudaStream_t stream) {
   if (cluster < 1 || cluster > kMaxCluster || (rounds > 1 && nslabs != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Bands bands{};
@@ -590,8 +621,8 @@ static int launch_sor_slabs(K kernel, const IO& io, int* block_sm, int n_env,
                         stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm, ny, w, nslabs,
-                           inner_iters, rounds, rows_max, tx_dim, bands,
-                           inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+                           inner_iters, rounds, n_sor, rows_max, tx_dim,
+                           bands, inv_dx2, inv_dy2, inv_diag, om, one_m_om);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -602,16 +633,17 @@ static int launch_sor_slabs(K kernel, const IO& io, int* block_sm, int n_env,
 // of at most `per_launch` groups, each launch's blocks all resident at
 // once; ws: the workspace of per_launch groups (ops.workspace_bytes),
 // reused by each launch; block_sm: n_env x nslabs x group ints, the SM id
-// each block ran on (-1 where none ran).  rounds > 1 needs nslabs == 1.
-// Returns the CUDA error code (0 = launched).
+// each block ran on (-1 where none ran).  rounds > 1 needs nslabs == 1;
+// the pairs from n_sor on run at omega 1.  Returns the CUDA error code (0
+// = launched).
 template <class K, class IO>
 static int launch_sor_slabs_global(K kernel, const IO& io, int* block_sm,
                                    float* ws, int n_env, int ny, int w,
                                    int nslabs, int inner_iters, int rounds,
-                                   int group, int per_launch, int threads,
-                                   int tx_dim, float inv_dx2, float inv_dy2,
-                                   float inv_diag, float om, float one_m_om,
-                                   cudaStream_t stream) {
+                                   int n_sor, int group, int per_launch,
+                                   int threads, int tx_dim, float inv_dx2,
+                                   float inv_dy2, float inv_diag, float om,
+                                   float one_m_om, cudaStream_t stream) {
   if (group < 1 || group > kMaxGroup || group > ny || per_launch < 1 ||
       nslabs < 1 || w % nslabs || (rounds > 1 && nslabs != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -630,8 +662,9 @@ static int launch_sor_slabs_global(K kernel, const IO& io, int* block_sm,
     cudaLaunchAttribute attr[1];
     fill_cooperative_config(cfg, attr, n * group, threads, stream);
     err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm + g0 * group, ws, g0,
-                             n, ny, w, nslabs, inner_iters, rounds, tx_dim,
-                             inv_dx2, inv_dy2, inv_diag, om, one_m_om);
+                             n, ny, w, nslabs, inner_iters, rounds, n_sor,
+                             tx_dim, inv_dx2, inv_dy2, inv_diag, om,
+                             one_m_om);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -648,14 +681,15 @@ static int launch_sor_slabs_global(K kernel, const IO& io, int* block_sm,
 // groups; ws: the workspace of per_launch groups (ops.workspace_bytes: the mirror
 // slots), reused by each launch; block_sm: n_env x nslabs x group
 // ints, the SM id each block ran on (-1 where none ran).  rounds > 1 needs
-// nslabs == 1.  Returns the CUDA error code (0 = launched).
+// nslabs == 1; the pairs from n_sor on run at omega 1.  Returns the CUDA
+// error code (0 = launched).
 template <class K, class IO>
 static int launch_sor_slabs_resident(
     K kernel, const IO& io, int* block_sm, float* ws, int n_env, int ny,
-    int w, int nslabs, int inner_iters, int rounds, int group, int cluster,
-    int per_launch, int rows_max, int threads, int tx_dim, int smem,
-    float inv_dx2, float inv_dy2, float inv_diag, float om, float one_m_om,
-    cudaStream_t stream) {
+    int w, int nslabs, int inner_iters, int rounds, int n_sor, int group,
+    int cluster, int per_launch, int rows_max, int threads, int tx_dim,
+    int smem, float inv_dx2, float inv_dy2, float inv_diag, float om,
+    float one_m_om, cudaStream_t stream) {
   if (group < 1 || group > kMaxGroup || group > ny || cluster < 2 ||
       cluster > kMaxCluster || group % cluster || per_launch < 1 ||
       nslabs < 1 || w % nslabs || (rounds > 1 && nslabs != 1))
@@ -681,8 +715,8 @@ static int launch_sor_slabs_resident(
     fill_resident_config(cfg, attr, n * (group / cluster), cluster, threads,
                          smem, stream);
     err = cudaLaunchKernelEx(&cfg, kernel, io, block_sm + g0 * group, ws, g0,
-                             n, ny, w, nslabs, inner_iters, rounds, rows_max,
-                             tx_dim, inv_dx2, inv_dy2, inv_diag, om,
+                             n, ny, w, nslabs, inner_iters, rounds, n_sor,
+                             rows_max, tx_dim, inv_dx2, inv_dy2, inv_diag, om,
                              one_m_om);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaGetLastError();

@@ -15,6 +15,15 @@ twin:
   it; twin :func:`rb_sor_slabs_plain` (the reference's
   ``ref.rb_sor_slabs_ref``), one round.
 
+The full-grid library also holds the full sweeps (:func:`full_sweeps`):
+on a grid of odd width, where the reference's slab kernel has no
+checkerboard parity and its ``solve(backend="pallas")`` runs its
+full-grid sweep instead, the same kernels compute that sweep (``iters``
+pairs on the whole grid, the BCs live, the last ``n_polish`` at omega 1)
+on packed planes ``(nx + 1) // 2`` wide, each row's dead slot skipped;
+their twin is :func:`full_sweeps_plain`, on the same odd layout
+(:func:`pack_planes`), for the tests.
+
 Each library holds three kernels (``csrc/sor_slabs.cuh``): the cluster
 kernel on every slab a 16-block cluster holds in shared memory; past
 that the resident kernel, a group of G = K C blocks per (env, slab) over
@@ -38,7 +47,8 @@ from repro_torch.cfd.poisson import (pack_checkerboard, packed_ghost_rows,
                                      unpack_checkerboard)
 from repro_torch.kernels import SMEM_PER_BLOCK, allocating, counted
 from repro_torch.kernels import cluster as kcluster
-from repro_torch.kernels.cluster import FLAG_STRIDE, LaunchPlan, mirror_floats
+from repro_torch.kernels.cluster import (FLAG_STRIDE, LaunchPlan,
+                                         mirror_floats, packed_width)
 
 # float32 operations of one point of one SOR half-sweep, counted from the
 # kernels' source (csrc/sor_packed.cuh)
@@ -202,9 +212,12 @@ def rb_sor_slabs_packed_plain(red, black, rhs_r, rhs_b, *, dx: float,
     return torch.cat(outs_r, dim=-1), torch.cat(outs_b, dim=-1)
 
 
-# the two SOR slab libraries of csrc/sor_slabs.cuh, by the layout of their
-# operands: the library, the cluster kernel's launch export and occupancy
-# query, the global-memory kernel's, the resident kernel's
+# the kernels of csrc/sor_slabs.cuh, keyed as the functions below take
+# ``full``: the packed slab smoother (False), the full-grid one (True) and
+# the full-grid library's full sweeps of an odd width (SWEEPS); each the
+# library, the cluster kernel's launch export and occupancy query, the
+# global-memory kernel's, the resident kernel's
+SWEEPS = "sweeps"
 _LIBS = {False: ("poisson_sor", "rb_sor_slabs_packed_launch",
                  "rb_sor_packed_max_clusters",
                  "rb_sor_slabs_packed_global_launch",
@@ -215,7 +228,13 @@ _LIBS = {False: ("poisson_sor", "rb_sor_slabs_packed_launch",
                 "rb_sor_full_max_clusters", "rb_sor_slabs_full_global_launch",
                 "rb_sor_full_global_blocks_per_sm",
                 "rb_sor_slabs_full_resident_launch",
-                "rb_sor_full_resident_max_clusters")}
+                "rb_sor_full_resident_max_clusters"),
+         SWEEPS: ("poisson_sor_full", "rb_sor_full_sweeps_launch",
+                  "rb_sor_full_sweeps_max_clusters",
+                  "rb_sor_full_sweeps_global_launch",
+                  "rb_sor_full_sweeps_global_blocks_per_sm",
+                  "rb_sor_full_sweeps_resident_launch",
+                  "rb_sor_full_sweeps_resident_max_clusters")}
 
 
 def _load(full: bool = False):
@@ -227,23 +246,23 @@ def _load(full: bool = False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # the operand pointers (4 planes and 2 outputs, or p, rhs and the
         # output), block_sm, then sor_slabs.cuh launch_sor_slabs's
-        n_ptr = 4 if full else 7
+        n_ptr = 7 if full is False else 4
         getattr(lib, launch).argtypes = (
-            [p] * n_ptr + [i] * 7 + [p] + [i] * 4 + [f] * 5 + [p])
+            [p] * n_ptr + [i] * 8 + [p] + [i] * 4 + [f] * 5 + [p])
         getattr(lib, launch).restype = ctypes.c_int
         getattr(lib, query).argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
         getattr(lib, query).restype = ctypes.c_int
         # the operand pointers, block_sm and the workspace, then
         # launch_sor_slabs_global's
         getattr(lib, global_launch).argtypes = (
-            [p] * (n_ptr + 1) + [i] * 10 + [f] * 5 + [p])
+            [p] * (n_ptr + 1) + [i] * 11 + [f] * 5 + [p])
         getattr(lib, global_launch).restype = ctypes.c_int
         getattr(lib, global_query).argtypes = [i, ctypes.POINTER(i)]
         getattr(lib, global_query).restype = ctypes.c_int
         # the operand pointers, block_sm and the workspace, then
         # launch_sor_slabs_resident's
         getattr(lib, resident_launch).argtypes = (
-            [p] * (n_ptr + 1) + [i] * 13 + [f] * 5 + [p])
+            [p] * (n_ptr + 1) + [i] * 14 + [f] * 5 + [p])
         getattr(lib, resident_launch).restype = ctypes.c_int
         getattr(lib, resident_query).argtypes = [i, i, i,
                                                  ctypes.POINTER(i)]
@@ -266,7 +285,8 @@ def active_clusters(dev, ny: int, bxp: int, size: int,
                     full: bool = False) -> int:
     """``cudaOccupancyMaxActiveClusters`` for ``size`` blocks on ``(ny,
     bxp)`` slabs of packed planes (``full``: of the full-grid kernel, on
-    slabs of ``2 * bxp`` grid columns), read once per shape and card."""
+    slabs of ``2 * bxp`` grid columns; SWEEPS: of its full sweeps), read
+    once per shape and card."""
     threads = _launch_shape(ny, bxp, size)[2]
     return kcluster.active_clusters(
         _load(full), _LIBS[full][2], dev, (ny, bxp), size, threads,
@@ -370,10 +390,13 @@ def _operands(ref, named) -> list:
 
 def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
             dy: float, omega: float, nslabs: int, inner_iters: int,
-            rounds: int, cluster, force_global: bool, what: str):
-    """Launch a slab kernel on ``operands`` into ``make_outs()``'s outputs,
-    allocated beside the launch's record and workspace; returns (outputs,
-    plan, the record of the SM each block ran on)."""
+            rounds: int, cluster, force_global: bool, what: str,
+            n_sor=None):
+    """Launch a slab kernel (``full``: as ``_LIBS`` keys it) on
+    ``operands`` (``(n, ny, width)``, the planes of width ``w`` or the grid)
+    into ``make_outs()``'s outputs, allocated beside the launch's record and
+    workspace; the pairs from ``n_sor`` on (by default none) at omega 1.
+    Returns (outputs, plan, the record of the SM each block ran on)."""
     from repro_torch.kernels.build import check_launch
     dev = operands[0].device
     n = operands[0].shape[0]
@@ -389,25 +412,26 @@ def _launch(full: bool, operands, make_outs, *, ny: int, w: int, dx: float,
     _, _, inv_diag = sor_coefficients(dx, dy)
     coeffs = (1.0 / dx ** 2, 1.0 / dy ** 2, inv_diag, omega, 1.0 - omega)
     ptrs = [t.data_ptr() for t in operands + outs] + [block_sms.data_ptr()]
-    width = 2 * w if full else w
+    width = operands[0].shape[-1]
+    n_sor = rounds * inner_iters if n_sor is None else n_sor
     lib = _load(full)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if plan.kernel == "cluster":
             err = getattr(lib, _LIBS[full][1])(
-                *ptrs, n, ny, width, nslabs, inner_iters, rounds, plan.size,
-                ctypes.cast(starts, ctypes.c_void_p), rows, threads, tx,
-                smem, *coeffs, stream)
+                *ptrs, n, ny, width, nslabs, inner_iters, rounds, n_sor,
+                plan.size, ctypes.cast(starts, ctypes.c_void_p), rows,
+                threads, tx, smem, *coeffs, stream)
         elif plan.kernel == "resident":
             err = getattr(lib, _LIBS[full][5])(
                 *ptrs, ws.data_ptr(), n, ny, width, nslabs, inner_iters,
-                rounds, plan.size, plan.cluster, plan.per_launch, rows,
-                threads, tx, smem, *coeffs, stream)
+                rounds, n_sor, plan.size, plan.cluster, plan.per_launch,
+                rows, threads, tx, smem, *coeffs, stream)
         else:
             err = getattr(lib, _LIBS[full][3])(
                 *ptrs, ws.data_ptr(), n, ny, width, nslabs, inner_iters,
-                rounds, plan.size, plan.per_launch, threads, tx, *coeffs,
-                stream)
+                rounds, n_sor, plan.size, plan.per_launch, threads, tx,
+                *coeffs, stream)
     check_launch(lib, err, f"{what} ({plan.kernel})")
     return outs, plan, block_sms
 
@@ -676,3 +700,137 @@ def rb_sor(rhs, dx, dy, *, iters: int = 60, omega: float = 1.7, p0=None,
         return rb_sor_slabs(p, rhs, dx=dx, dy=dy, omega=omega,
                             nslabs=nslabs, inner_iters=inner_iters,
                             rounds=outer)
+
+
+# ---------------------------------------------------------------------------
+# the full sweeps of an odd width (solve(backend="pallas") on odd nx)
+# ---------------------------------------------------------------------------
+
+def pack_planes(a):
+    """(..., ny, nx) grid -> ((..., ny, W) red, black) planes of width
+    ``W = packed_width(nx)``: ``pack_checkerboard`` on an even width; on
+    an odd one each row's dead slot (grid column nx: red's on odd rows,
+    black's on even ones) holds 0."""
+    if a.shape[-1] % 2:
+        a = torch.nn.functional.pad(a, (0, 1))
+    return pack_checkerboard(a)
+
+
+def unpack_planes(red, black, nx: int):
+    """Inverse of :func:`pack_planes` for an ``nx``-wide grid: the dead
+    slots dropped."""
+    return unpack_checkerboard(red, black)[..., :nx]
+
+
+def odd_half_sweep(active, other, rhs_a, shift, om, dx2, dy2, inv_diag):
+    """One coloured half-sweep on the odd layout's planes (``(..., ny,
+    W)``, :func:`pack_planes`) with the domain BCs read live: the kernels'
+    odd row rule (``csrc/sor_packed.cuh``).  ``shift`` (``(ny, 1)`` bool):
+    the active colour's rows whose horizontal neighbours sit at packed
+    columns (k, k+1); their last slot is dead and keeps its value.  The
+    other rows' last point meets the Dirichlet outlet (-self) in place of
+    the other plane's dead slot; their first point the Neumann inlet
+    (self).  Walls Neumann.  The update's association is
+    ``packed_half_sweep``'s."""
+    last = torch.arange(active.shape[-1], device=active.device) == \
+        active.shape[-1] - 1
+    o_west = torch.cat([active[..., :, :1], other[..., :, :-1]], dim=-1)
+    o_east = torch.cat([other[..., :, 1:], other[..., :, -1:]], dim=-1)
+    east = torch.where(last, -active, other)
+    horiz = torch.where(shift, other + o_east, o_west + east)
+    north = torch.cat([active[..., :1, :], other[..., :-1, :]], dim=-2)
+    south = torch.cat([other[..., 1:, :], active[..., -1:, :]], dim=-2)
+    nb = horiz / dx2 + (north + south) / dy2
+    p_gs = (nb - rhs_a) * inv_diag
+    return torch.where(shift & last, active, (1 - om) * active + om * p_gs)
+
+
+def odd_sweep_pair(red, black, rhs_r, rhs_b, om, *, dx: float, dy: float):
+    """One red+black pair of :func:`odd_half_sweep` (red's shift rows are
+    the odd rows, black's the even ones)."""
+    dx2, dy2, inv_diag = sor_coefficients(dx, dy)
+    row_odd = (torch.arange(red.shape[-2], device=red.device) % 2
+               == 1)[:, None]
+    red = odd_half_sweep(red, black, rhs_r, row_odd, om, dx2, dy2, inv_diag)
+    black = odd_half_sweep(black, red, rhs_b, ~row_odd, om, dx2, dy2,
+                           inv_diag)
+    return red, black
+
+
+def full_sweeps_plain(p, rhs, *, dx: float, dy: float, omega: float,
+                      iters: int, n_sor: int):
+    """The full sweeps' plain twin on an odd width: ``iters`` pairs of
+    :func:`odd_sweep_pair` on the odd layout's planes, the first ``n_sor``
+    at ``omega``, the rest at 1; the reference's full-grid sweep
+    (``cfd/poisson._full_sweeps``) on the kernels' layout."""
+    nx = p.shape[-1]
+    red, black = pack_planes(p)
+    rhs_r, rhs_b = pack_planes(rhs)
+    for i in range(iters):
+        red, black = odd_sweep_pair(red, black, rhs_r, rhs_b,
+                                    omega if i < n_sor else 1.0, dx=dx,
+                                    dy=dy)
+    return unpack_planes(red, black, nx)
+
+
+def _check_odd(nx: int) -> None:
+    if nx % 2 == 0:
+        raise ValueError(f"the full sweeps serve odd grid widths, got "
+                         f"nx={nx}; an even width takes the slab kernels")
+
+
+def full_sweeps_cuda(p, rhs, *, dx: float, dy: float, omega: float,
+                     iters: int, n_sor: int):
+    """One launch of the full sweeps of ``csrc/poisson_sor_full.cu`` on
+    ``(..., ny, nx)`` grids of odd width from the warm start ``p``:
+    ``iters`` red+black pairs on the whole grid, the first ``n_sor`` at
+    ``omega``, the rest at 1, on packed planes of :func:`packed_width`
+    split from the grid as each block loads it.  The kernel and its
+    blocks a grid are :func:`launch_plan`'s for a ``(ny,
+    packed_width(nx))`` slab (the cluster, the resident or the
+    global-memory kernel), recorded as :func:`rb_sor_slabs_cuda` records
+    its launches."""
+    dev = p.device
+    if dev.type != "cuda":
+        raise ValueError(f"full_sweeps_cuda needs CUDA tensors, got {dev}; "
+                         f"CPU tensors take the plain twin")
+    ny, nx = p.shape[-2:]
+    _check_odd(nx)
+    pf, rf = _operands(p, (("p", p), ("rhs", rhs)))
+    (out,), plan, block_sms = _launch(
+        SWEEPS, [pf, rf], lambda: [torch.empty_like(pf)], ny=ny,
+        w=packed_width(nx), dx=dx, dy=dy, omega=omega, nslabs=1,
+        inner_iters=iters, rounds=1, cluster=None, force_global=False,
+        what="full_sweeps", n_sor=n_sor)
+    _record(full_sweeps_cuda, plan, block_sms)
+    return out.reshape(p.shape)
+
+
+_reset_record(full_sweeps_cuda)
+
+
+def full_sweeps(rhs, p, dx, dy, *, iters: int, n_sor: int, omega: float):
+    """The reference's full-grid SOR of an odd width (``iters`` pairs, the
+    first ``n_sor`` at ``omega``): on CUDA tensors one launch of
+    :func:`full_sweeps_cuda`, on CPU tensors :func:`full_sweeps_plain`.
+    Under a cost counter one call of ``rb_sor_full_sweeps`` with
+    :func:`work` (``iters`` pairs over every point)."""
+    ny, nx = rhs.shape[-2:]
+    _check_odd(nx)
+    if iters <= 0:
+        return p
+    kw = dict(dx=float(dx), dy=float(dy), omega=float(omega), iters=iters,
+              n_sor=n_sor)
+    n = rhs.numel() // (ny * nx)
+
+    def launches():
+        if rhs.device.type != "cuda":
+            return 1
+        return _launch_config(rhs.device, ny, packed_width(nx), 1, n, None,
+                              SWEEPS)[0].launches
+
+    with counted("rb_sor_full_sweeps", lambda: work(n, ny, nx, iters, 1),
+                 launches=launches):
+        if rhs.device.type == "cuda":
+            return full_sweeps_cuda(p, rhs, **kw)
+        return full_sweeps_plain(p, rhs, **kw)

@@ -250,21 +250,54 @@ def test_fused_kernel_refuses_clusters_that_do_not_fit_on_card(cuda):
     assert aops.fused_interval_cuda.launches == n0
 
 
+class _OddGrid(tgrid.GridConfig):
+    """res 8 one column narrower: (34, 175), an odd width."""
+    nx = property(lambda self: 22 * self.res - 1)
+
+
 @pytest.mark.cuda
 def test_only_odd_widths_raise_on_card(cuda):
-    """On the card there is no fallback, and only an odd width raises (no
-    fallback counted, no kernel launched): a res-71 solve (a (292, 781)
+    """On the card there is no fallback, and an odd width runs its kernel
+    as an even one does (no fallback counted, no warning): a pallas solve
+    on (8, 11) is one launch of the full-grid library's full sweeps, a
+    fused interval at res 8 one column narrower one launch of the fused
+    kernel, each within its tolerance of the CPU's reference path (the
+    full-grid sweep; the reference scan).  A res-71 solve (a (292, 781)
     slab, over the shared memory of a 16-block cluster) runs on the packed
     SOR's resident kernel, one launch, and a res-48 interval (its fields
     over the shared memory of a 16-block cluster) on the fused kernel's,
     one launch; each within its tolerance of the CPU's twin."""
+    import warnings
     from repro_torch import kernels
-    f0, n0 = dict(kernels.FALLBACKS), tops.rb_sor_slabs_packed_cuda.launches
-    rhs = torch.zeros((8, 11), device=cuda)
-    with pytest.raises(ValueError, match="even grid width"):
-        tpoisson.solve(rhs, 0.1, 0.1, iters=6, backend="pallas")
+    f0 = dict(kernels.FALLBACKS)
+    rhs = torch.tensor(_rand((8, 11), 3), device=cuda)
+    p0 = 0.1 * torch.tensor(_rand((8, 11), 4), device=cuda)
+    n0 = tops.full_sweeps_cuda.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        p = tpoisson.solve(rhs, 0.1, 0.1, iters=60, p0=p0, backend="pallas")
+    assert tops.full_sweeps_cuda.launches == n0 + 1
+    assert tops.full_sweeps_cuda.last_kernel == "cluster"
+    ref = tpoisson.solve(rhs.cpu(), 0.1, 0.1, iters=60, p0=p0.cpu(),
+                         backend="full")
+    assert max_diff(ref, p.cpu()) <= 1e-5
+    odd = _OddGrid(res=8)
+    geom = tgrid.build_geometry(odd)
+    n0 = aops.fused_interval_cuda.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        flow, outs = tsolver.step_interval(
+            odd, tsolver.geom_to_arrays(geom, cuda),
+            tsolver.init_state(odd, geom, cuda), 0.3, 10, backend="fused")
+    assert aops.fused_interval_cuda.launches == n0 + 1
+    assert aops.fused_interval_cuda.last_kernel == "cluster"
+    want, wouts = tsolver.step_interval(
+        odd, tsolver.geom_to_arrays(geom, "cpu"),
+        tsolver.init_state(odd, geom, "cpu"), 0.3, 10, backend="reference")
+    for x, y, tol in zip((*flow, outs.cd), (*want, wouts.cd),
+                         (1e-4, 1e-4, 1e-3, 1e-3)):
+        assert max_diff(x.cpu(), y) <= tol
     assert dict(kernels.FALLBACKS) == f0
-    assert tops.rb_sor_slabs_packed_cuda.launches == n0
     big = tgrid.GridConfig(res=71)
     rhs = torch.tensor(_rand((big.ny, big.nx), 9), device=cuda)
     n0 = tops.rb_sor_slabs_packed_cuda.launches_resident
@@ -288,6 +321,7 @@ def test_only_odd_widths_raise_on_card(cuda):
     for x, y, tol in zip((*flow, outs.cd), (*want, wouts.cd),
                          (1e-4, 1e-4, 1e-3, 1e-3)):
         assert max_diff(x.cpu(), y) <= tol
+    assert dict(kernels.FALLBACKS) == f0
 
 
 # a mixed bank batch: (geometry, act_mode, per-body speeds) per env; the

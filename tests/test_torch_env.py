@@ -145,6 +145,25 @@ def test_env_step_batched_matches_single(env_pair):
     assert out_b.valid.tolist() == [1.0, 1.0, 1.0]
 
 
+@pytest.mark.parametrize("shape,dim", [((4, 50), -1), ((1, 50), -1),
+                                       ((3, 50, 3), -2), ((50,), -1)])
+def test_interval_means_are_each_envs_alone(shape, dim):
+    """``env_step`` reduces C_D / C_L over an interval env by env
+    (``_mean_each``): each env's mean is the one it gets in a batch of one,
+    bit for bit, whatever the batch (on the card torch's batched mean
+    depends on the batch, so fleet runners holding one env and two would
+    part), and it is the sum over the interval divided by its length."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+    got = tenv._mean_each(x, dim)
+    want = torch.tensor(shape[dim], dtype=torch.float32)
+    assert got.shape == torch.mean(x, dim=dim).shape
+    flat = x.movedim(dim, -1).reshape(-1, shape[dim])
+    for i, row in enumerate(flat):
+        assert torch.equal(got.reshape(-1)[i], row.sum() / want)
+        assert torch.equal(got.reshape(-1)[i],
+                           tenv._mean_each(row[None], -1)[0])
+
+
 def test_sentinel_quarantines_a_diverged_env(env_pair):
     """A NaN in one env's flow resets that env to the warmup flow, zeroes
     its reward and marks it invalid; the other env is untouched."""

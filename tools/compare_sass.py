@@ -6,9 +6,10 @@ Builds ``KERNEL``'s library (default ``fused_interval``) in each tree with
 that tree's own ``repro_torch.kernels.build`` (into the tree's
 ``build/``), dumps it with ``cuobjdump -sass`` and compares the
 instructions of the functions whose mangled names hold each FUNCTION
-substring (default: the scalar fused-interval kernel, ``fused_interval_
-kernel`` in the old tree and its ``<0>`` instantiation, ``fused_interval_
-kernelILi0E``, in the new one).  Addresses, the function's name and
+substring (default: the scalar fused-interval kernel of an even width,
+``fused_interval_kernelILi0EEv`` (``<0>``) in a tree from before the odd
+widths' instantiations and ``fused_interval_kernelILi0ELb0EEv`` (``<0,
+false>``) in the new one).  Addresses, the function's name and
 relocation names are dropped before the comparison.  Needs the CUDA
 toolkit (nvcc, cuobjdump); no card.  Prints one JSON line and exits 1
 when the instructions differ.
@@ -65,7 +66,7 @@ def main():
     old, new = (Path(a).resolve() for a in sys.argv[1:3])
     kernel = sys.argv[3] if len(sys.argv) > 3 else "fused_interval"
     keys = sys.argv[4:6] if len(sys.argv) > 5 else (
-        "fused_interval_kernel", "fused_interval_kernelILi0E")
+        "fused_interval_kernelILi0EEv", "fused_interval_kernelILi0ELb0EEv")
     (old_name, a), (new_name, b) = (
         pick(functions(build_library(tree, kernel)), key)
         for tree, key in zip((old, new), keys))
